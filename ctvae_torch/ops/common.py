@@ -1,0 +1,41 @@
+"""Shared helpers for the ops layer: dtype promotion and device choice."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def upcast32(x: torch.Tensor) -> torch.Tensor:
+    """Promote to at least float32, never downcast (float64 stays)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The device an entry point runs on: the caller's, else ``cuda``.
+
+    Without an explicit device and without a card this raises instead of
+    dropping to the CPU, so a serving process never runs the slow plain
+    path by accident."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass device='cpu' "
+                           "to run the plain PyTorch path explicitly")
+    return torch.device("cuda")
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                      shape: tuple) -> None:
+    """Validate a kernel argument: CUDA, ``dtype``, contiguous, ``shape``."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

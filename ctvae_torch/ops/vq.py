@@ -1,0 +1,67 @@
+"""Vector-quantization codebook search: CUDA kernel + plain version.
+
+Counterpart of ``ctvae_tpu/ops/vq.py``. ``l2_argmin`` launches the
+hand-written kernel of ``csrc/vq.cu`` (which replaces the TPU kernel
+``l2_argmin_pallas``) on CUDA tensors and runs ``l2_argmin_plain`` on CPU
+tensors. The kernel drops the per-row constant ||x||^2 as the TPU kernel
+does; the plain version keeps it, as ``l2_argmin_xla`` does, so the two
+can disagree only on rows whose two best distances are within rounding.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .common import check_cuda_tensor, upcast32
+
+#: kernel launches since the last reset (``launches = 0`` to reset)
+launches = 0
+
+
+def l2_argmin_plain(flat: torch.Tensor, codebook: torch.Tensor
+                    ) -> torch.Tensor:
+    """[N, D] x [K, D] -> int64 [N]: index of the nearest codebook row."""
+    flat = upcast32(flat)
+    codebook = upcast32(codebook)
+    dist = (torch.sum(flat ** 2, dim=1, keepdim=True)
+            + torch.sum(codebook ** 2, dim=1)
+            - 2.0 * flat @ codebook.T)
+    return torch.argmin(dist, dim=1)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("vq")
+    lib.vq_argmin.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_void_p]
+    lib.vq_argmin.restype = ctypes.c_int
+    return lib
+
+
+def l2_argmin_cuda(flat: torch.Tensor, codebook: torch.Tensor
+                   ) -> torch.Tensor:
+    """Launch the CUDA kernel: float32 contiguous [N, D], [K, D]."""
+    global launches
+    n, d = flat.shape
+    k = codebook.shape[0]
+    check_cuda_tensor("flat", flat, torch.float32, (n, d))
+    check_cuda_tensor("codebook", codebook, torch.float32, (k, d))
+    if codebook.device != flat.device:
+        raise ValueError("flat and codebook must be on one device")
+    lib = _lib()
+    out = torch.empty((n,), dtype=torch.int64, device=flat.device)
+    stream = torch.cuda.current_stream(flat.device).cuda_stream
+    _build.check(lib.vq_argmin(flat.data_ptr(), codebook.data_ptr(),
+                               out.data_ptr(), n, k, d, stream), "vq_argmin")
+    launches += 1
+    return out
+
+
+def l2_argmin(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Nearest codebook row per latent: the kernel on CUDA, plain on CPU."""
+    if flat.is_cuda:
+        return l2_argmin_cuda(flat, codebook)
+    return l2_argmin_plain(flat, codebook)
