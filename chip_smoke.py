@@ -3,19 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from ``ctvae_torch/csrc`` with ``nvcc``,
-holds each against its plain PyTorch version at the serving shapes of
-``configs/ct_mcq_vae.yaml``, then serves ``reconstruct``,
-``apply_action`` and ``classify_action`` at that width (B = 16; the
-causal virtual batch is A*B = 192) and checks that every request went
-through every kernel. The served outputs are checked for shape, range and
-finiteness, and at B = 2 against the same model's plain path on the CPU
-(the path the CPU tests hold against the JAX package).
+Builds the five CUDA kernels of ``ctvae_torch/csrc`` (three sources, one
+``nvcc`` each, in parallel) and holds each against its plain PyTorch
+version at the shapes of ``configs/ct_mcq_vae.yaml``: the three forward
+kernels at the serving shapes, the two backward kernels (pairwise scores,
+GATv2 attention) against the plain versions' autograd. Then it drives the
+port's two paths at that width, each with the launch counters set to 0
+just before and read just after:
 
-The second-last line is one JSON object with a row per kernel; the last
-line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
-and prints no result; so does a machine without a card. TF32 is off for
-matmuls and cuDNN convolutions, so every number here is full float32.
+* serving: ``reconstruct``, ``apply_action`` and ``classify_action`` at
+  B = 16 (the causal virtual batch is A*B = 192), checked for shape, range
+  and finiteness, and at B = 2 against the CPU plain path;
+* training: train steps of each batch mode (base, action, causal) at
+  B = 16 with the config's ``exp_params`` (``update_parameters:
+  ct_layer``), checked for a finite loss, frozen parameters bit-unchanged,
+  ``ct_layer`` moved, and both backward kernels launched in every mode.
+
+Last, ``VAEXperiment.fit`` runs one short epoch on TSynthetic (64x64, the
+headline widths with its 8 actions). The second-last line is one JSON
+object with a row per kernel; the last line is ``{"ok": true, "device":
+{...}}``. Any failed phase exits non-zero and prints no result; so does a
+machine without a card. TF32 is off for matmuls and cuDNN convolutions, so
+every number here is full float32.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -39,8 +49,19 @@ MODEL_PARAMS = {
     "c_alpha": 0.01, "c_beta": 0.4, "c_delta": 0.01, "c_epsilon": 0.1,
     "noise": "off",
 }
-BATCH = 16          # images per request (the config's val_batch_size)
+# exp_params of configs/ct_mcq_vae.yaml (tests/test_torch_training.py
+# checks the two agree)
+EXP_PARAMS = {
+    "LR": 0.0005, "weight_decay": 0.0, "scheduler_gamma": 0.994,
+    "kld_weight": 0.00025, "manual_seed": 1250,
+    "update_parameters": "ct_layer",
+}
+# the loop phase: the headline widths on TSynthetic, whose grid has 4
+# factors and so 8 actions (TShapes3D's 12 are not in the repo)
+LOOP_MODEL_PARAMS = {**MODEL_PARAMS, "action_dim": 8}
+BATCH = 16          # images per request / step (the config's batch sizes)
 REQUESTS = 21       # calls per entry point; the first is the warm-up
+TRAIN_STEPS = 6     # train steps per mode; the first is the warm-up
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
@@ -51,6 +72,9 @@ F32_FLOPS = 67e12
 # tolerances of kernel vs plain version (f32, sums in another order)
 PAIRWISE_ATOL = 1e-5   # sigmoid outputs in (0, 1), 800-term sums
 GAT_ATOL = 1e-4        # outputs ~1, softmax over 65 logits of ~10
+# backward kernels: each gradient's max abs error over max(1, its max
+# |value|); sums of up to 16 x 4096 terms (the shared dw2) in another order
+GRAD_RTOL = 1e-4
 VQ_TIE_RTOL = 1e-5     # index may differ only on a near-tie this close
 SERVE_ATOL = 1e-4      # CUDA vs CPU serving outputs at B = 2
 
@@ -129,9 +153,14 @@ def phase_build() -> None:
     log(f"kernel build: {secs:.1f} s (nvcc, sm_90a, one process per source)")
     for name in _build.KERNELS:
         _build.load(name)
+        kernel = name
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            found = re.search(
+                r"Compiling entry function '.*?([a-z][a-z_]*_kernel)", line)
+            if found:
+                kernel = found.group(1)
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name}.cu {kernel}: {line.strip()}")
 
 
 # --- phase 3: kernels against their plain versions ------------------------
@@ -209,11 +238,12 @@ def _check_pairwise(gen) -> dict:
     return row
 
 
-def _check_gat(gen) -> dict:
-    from ctvae_torch.ops import gat_flash as gf
+def _gat_inputs(gen, B: int):
+    """GAT attention inputs at the headline shapes (T = 64 sites + the
+    action node, 13 heads of 100), an edgeless target at t = 7."""
     from ctvae_torch.ops.gat import replace_self_loops
     A = MODEL_PARAMS["action_dim"]
-    B, T, H, F = A * BATCH, 64 + 1, A + 1, 100
+    T, H, F = 64 + 1, A + 1, 100
     xl = torch.randn(B, T, H, F, generator=gen, device="cuda")
     xr = torch.randn(B, T, H, F, generator=gen, device="cuda")
     we = torch.randn(H, F, generator=gen, device="cuda") * 0.1
@@ -222,8 +252,16 @@ def _check_gat(gen) -> dict:
     raw = raw * (torch.rand(B, T, T, generator=gen, device="cuda") < 0.5)
     adj, mask = replace_self_loops(raw)
     mask[:, :, 7] = False          # a target with no incoming edge
-    args = (xl, xr, adj.contiguous(), mask.contiguous(), we, att, 0.2)
-    got = gf.flash_gat_cuda(*args)
+    return (xl, xr, adj.contiguous(), mask.contiguous(), we, att, 0.2)
+
+
+def _check_gat(gen) -> dict:
+    from ctvae_torch.ops import gat_flash as gf
+    A = MODEL_PARAMS["action_dim"]
+    args = _gat_inputs(gen, A * BATCH)
+    xl, _, _, mask, _, _, _ = args
+    B, T, H, F = xl.shape
+    got, _ = gf.flash_gat_cuda(*args)
     torch.cuda.synchronize()
     with torch.no_grad():
         want = gf.flash_gat_plain(*args)
@@ -232,6 +270,8 @@ def _check_gat(gen) -> dict:
     zero_row = bool((got[:, 7] == 0).all())
     ok = err <= GAT_ATOL and zero_row and bool(torch.isfinite(got).all())
     ms = time_ms(lambda: gf.flash_gat_cuda(*args))
+    # the training forward also writes the f32 alpha residual [B,H,T,S]
+    alpha_ms = time_ms(lambda: gf.flash_gat_cuda(*args, keep_alpha=True))
     plain = time_ms(lambda: gf.flash_gat_plain(*args), reps=5)
     edges = int(mask.sum())
     # per edge, head and feature: logit add, fma, leaky (2), fma; and the
@@ -240,19 +280,144 @@ def _check_gat(gen) -> dict:
     bnd = bound_ms(nbytes, 9.0 * edges * H * F)
     row = {"name": "gat_fwd", "max_abs_err": err, "ok": ok, "ms": ms,
            "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
-           "library_ms": None,
+           "library_ms": None, "alpha_ms": alpha_ms,
            "note": f"B={B} T={T} H={H} F={F}, {edges} edges of {B * T * T}, "
                    f"edgeless target zero row: {zero_row}"}
     log(f"gat {row['note']}: max abs err {err:.3g}, max rel err "
-        f"{rel:.3g}, kernel {ms:.4f} ms, "
+        f"{rel:.3g}, kernel {ms:.4f} ms ({alpha_ms:.4f} ms writing alpha), "
         f"plain (full batch) {plain:.4f} ms, bound {bnd[0]:.4f} ms "
         f"({bnd[1]})")
     return row
 
 
+def _grad_errors(names, got, want):
+    """(max abs error over the gradients, worst error / max(1, scale),
+    text per gradient)."""
+    worst, worst_rel, parts = 0.0, 0.0, []
+    for name, g, w in zip(names, got, want):
+        err = float((g - w).abs().max())
+        rel = err / max(1.0, float(w.abs().max()))
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        parts.append(f"{name} {err:.3g} ({rel:.2g})")
+        if not bool(torch.isfinite(g).all()):
+            worst_rel = math.inf
+    return worst, worst_rel, ", ".join(parts)
+
+
+def _check_pairwise_bwd(gen) -> dict:
+    """The backward kernel against the plain version's autograd: B = 16
+    with shared params (discoverer 0) and A*B = 192 per sample (the
+    causal path's action discoverers), S = T = 64, Hd = 800."""
+    from ctvae_torch.ops import pairwise_flash as pf
+    from ctvae_torch.ops.pairwise import fused_pairwise_scores
+    S, Hd = 64, 800
+    A = MODEL_PARAMS["action_dim"]
+    row = {"name": "pairwise_bwd", "max_abs_err": 0.0, "ok": True,
+           "library_ms": None}
+    notes = []
+    for B, per_sample in ((BATCH, False), (A * BATCH, True)):
+        pshape = (B, Hd) if per_sample else (Hd,)
+        args = [torch.randn(B, S, Hd, generator=gen, device="cuda") * 0.5,
+                torch.randn(B, S, Hd, generator=gen, device="cuda") * 0.5,
+                torch.randn(pshape, generator=gen, device="cuda")
+                / math.sqrt(Hd),
+                torch.randn(pshape, generator=gen, device="cuda") * 0.1,
+                torch.randn(pshape[:-1], generator=gen, device="cuda") * 0.1]
+        dout = torch.randn(B, S, S, generator=gen, device="cuda")
+        out = pf.flash_pairwise_cuda(*args, 0.01)
+        kern = (args[0], args[1], args[2], args[3], out, dout, 0.01)
+        leaves = [a.clone().requires_grad_() for a in args]
+        got = torch.autograd.grad(pf.flash_pairwise(*leaves, 0.01), leaves,
+                                  dout)
+        plain_out = fused_pairwise_scores(*leaves, 0.01)
+        want = torch.autograd.grad(plain_out, leaves, dout,
+                                   retain_graph=True)
+        torch.cuda.synchronize()
+        err, rel, text = _grad_errors(("dxl", "dxr", "dw2", "db1", "db2"),
+                                      got, want)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ok"] &= rel <= GRAD_RTOL
+        ms = time_ms(lambda: pf.flash_pairwise_bwd_cuda(*kern))
+        plain = time_ms(lambda: torch.autograd.grad(
+            plain_out, leaves, dout, retain_graph=True), reps=5)
+        del plain_out, want
+        # per element: the add of pre, the slope's select and multiply,
+        # the dxl and dxr adds, the dw2 fma (2)
+        nbytes = 4 * (2 * (2 * B * S * Hd) + 2 * B * S * S
+                      + 2 * (args[2].numel() + args[3].numel())
+                      + args[4].numel())
+        bnd = bound_ms(nbytes, 7.0 * B * S * S * Hd)
+        notes.append(f"B={B} {'per-sample' if per_sample else 'shared'}: "
+                     f"errors {text}; kernel {ms:.4f} ms, plain autograd "
+                     f"{plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        # the row reports the causal call (A*B, per-sample): the largest
+        row.update(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1])
+        torch.cuda.empty_cache()
+    row["note"] = "; ".join(notes)
+    for n in notes:
+        log(f"pairwise_bwd {n}")
+    return row
+
+
+def _check_gat_bwd(gen) -> dict:
+    """The backward kernel against the plain version's autograd at
+    B = 16 (the plain version's temporaries at A*B = 192 take several
+    4.2 GB tensors); the kernel is also timed at A*B = 192."""
+    from ctvae_torch.ops import gat_flash as gf
+    A = MODEL_PARAMS["action_dim"]
+    row = {"name": "gat_bwd", "library_ms": None}
+    for B in (BATCH, A * BATCH):
+        xl, xr, adj, mask, we, att, ns = _gat_inputs(gen, B)
+        T, H, F = xr.shape[1:]
+        dout = torch.randn(B, T, H, F, generator=gen, device="cuda")
+        _, alpha = gf.flash_gat_cuda(xl, xr, adj, mask, we, att, ns,
+                                     keep_alpha=True)
+        kern = (xl, xr, adj, mask, we, att, alpha, dout, ns)
+        ms = time_ms(lambda: gf.flash_gat_bwd_cuda(*kern))
+        edges = int(mask.sum())
+        # per edge, head and feature: pre (3), slope select and multiply,
+        # the dxr add, the dadj, dwe, datt and dalpha fmas (2 each), the
+        # dxl add and fma
+        nbytes = 4 * (6 * B * T * H * F + 2 * B * T * T + B * H * T * T
+                      + 4 * H * F) + B * T * T
+        bnd = bound_ms(nbytes, 17.0 * edges * H * F)
+        note = (f"B={B} T={T} H={H} F={F}, {edges} edges: kernel {ms:.4f} "
+                f"ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if B == BATCH:
+            leaves = [t.clone().requires_grad_()
+                      for t in (xl, xr, adj, we, att)]
+
+            def run(fn, retain=False):
+                out = fn(leaves[0], leaves[1], leaves[2], mask, leaves[3],
+                         leaves[4], ns)
+                return out, torch.autograd.grad(out, leaves, dout,
+                                                retain_graph=retain)
+            _, got = run(gf.flash_gat)
+            plain_out, want = run(gf.flash_gat_plain, retain=True)
+            torch.cuda.synchronize()
+            err, rel, text = _grad_errors(("dxl", "dxr", "dadj", "dwe",
+                                           "datt"), got, want)
+            no_grad_row = bool((got[1][:, 7] == 0).all())
+            plain = time_ms(lambda: torch.autograd.grad(
+                plain_out, leaves, dout, retain_graph=True), reps=5)
+            del plain_out, want
+            row.update(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                       bound_by=bnd[1], max_abs_err=err,
+                       ok=rel <= GRAD_RTOL and no_grad_row)
+            note += (f", plain autograd {plain:.4f} ms; errors {text}; "
+                     f"edgeless target gets no gradient: {no_grad_row}")
+        else:
+            row["ms_at_192"], row["bound_ms_at_192"] = ms, bnd[0]
+        row["note"] = "; ".join(filter(None, [row.get("note"), note]))
+        log(f"gat_bwd {note}")
+        torch.cuda.empty_cache()
+    return row
+
+
 def phase_kernels() -> list:
     gen = torch.Generator("cuda").manual_seed(SEED)
-    rows = [_check_vq(gen), _check_pairwise(gen), _check_gat(gen)]
+    rows = [_check_vq(gen), _check_pairwise(gen), _check_pairwise_bwd(gen),
+            _check_gat(gen), _check_gat_bwd(gen)]
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -275,19 +440,34 @@ def _counts():
     from ctvae_torch.ops import gat_flash, pairwise_flash, vq
     return {"vq_l2_argmin": vq.launches,
             "pairwise_fwd": pairwise_flash.launches,
-            "gat_fwd": gat_flash.launches}
+            "pairwise_bwd": pairwise_flash.bwd_launches,
+            "gat_fwd": gat_flash.launches,
+            "gat_bwd": gat_flash.bwd_launches}
 
 
 def _reset_counts() -> None:
     from ctvae_torch.ops import gat_flash, pairwise_flash, vq
     vq.launches = pairwise_flash.launches = gat_flash.launches = 0
+    pairwise_flash.bwd_launches = gat_flash.bwd_launches = 0
 
 
 # launches per request of each entry point (codebooks = 1)
 EXPECTED = {
-    "reconstruct": {"vq_l2_argmin": 1, "pairwise_fwd": 2, "gat_fwd": 1},
-    "apply_action": {"vq_l2_argmin": 2, "pairwise_fwd": 2, "gat_fwd": 1},
-    "classify_action": {"vq_l2_argmin": 2, "pairwise_fwd": 2, "gat_fwd": 1},
+    "reconstruct": {"vq_l2_argmin": 1, "pairwise_fwd": 2, "pairwise_bwd": 0,
+                    "gat_fwd": 1, "gat_bwd": 0},
+    "apply_action": {"vq_l2_argmin": 2, "pairwise_fwd": 2, "pairwise_bwd": 0,
+                     "gat_fwd": 1, "gat_bwd": 0},
+    "classify_action": {"vq_l2_argmin": 2, "pairwise_fwd": 2,
+                        "pairwise_bwd": 0, "gat_fwd": 1, "gat_bwd": 0},
+}
+# launches per train step of each batch mode
+EXPECTED_TRAIN = {
+    "base": {"vq_l2_argmin": 1, "pairwise_fwd": 2, "pairwise_bwd": 2,
+             "gat_fwd": 1, "gat_bwd": 1},
+    "action": {"vq_l2_argmin": 2, "pairwise_fwd": 2, "pairwise_bwd": 2,
+               "gat_fwd": 1, "gat_bwd": 1},
+    "causal": {"vq_l2_argmin": 2, "pairwise_fwd": 2, "pairwise_bwd": 2,
+               "gat_fwd": 1, "gat_bwd": 1},
 }
 
 
@@ -389,10 +569,31 @@ def phase_reference(model) -> None:
             raise AssertionError(f"{name}: card and CPU disagree by {err}")
 
 
-def phase_profile(model) -> None:
-    """Device time by kernel over one request of each entry point, and the
-    share of the request's wall time the card was busy."""
+def _profile(label: str, fn) -> None:
+    """Device time by kernel over one call of ``fn`` (already warm), and
+    the share of its wall time the card was busy."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log(f"profile {label}: wall {wall:.3f} ms (profiled), device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}% of wall), "
+        f"{sum(r[2] for r in rows)} kernels")
+    for key, ms, count in rows[:6]:
+        log(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
+
+
+def phase_profile(model) -> None:
+    """One profiled request of each entry point."""
     from ctvae_torch.serving.inference import make_inference_fn
     x, y, a = _requests(torch.Generator().manual_seed(SEED + 2), BATCH,
                         "cuda")
@@ -401,30 +602,115 @@ def phase_profile(model) -> None:
     for name, call_args in args.items():
         fn = make_inference_fn(model, name)
         fn(*call_args)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn(*call_args)
+        _profile(f"{name} B={BATCH}", lambda: fn(*call_args))
+
+
+# --- phase 5: the training slice ------------------------------------------
+
+def phase_train():
+    """Train steps of each mode at the headline width, B = 16, with the
+    config's exp_params; the launch counters are reset just before and
+    read just after. Then one profiled step per mode."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_train_step)
+    model = build_model(MODEL_PARAMS, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+    state = create_train_state(
+        model, build_optimizers(EXP_PARAMS, model, steps_per_epoch=100),
+        seed=SEED)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    x, y, a = _requests(torch.Generator().manual_seed(SEED + 3), BATCH,
+                        "cuda")
+    batch = {"image": x, "input_y": y, "action": a}
+    steps = {m: make_train_step(m) for m in EXPECTED_TRAIN}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    _reset_counts()
+    for mode, step in steps.items():
+        secs = []
+        for _ in range(TRAIN_STEPS):
+            c0 = _counts()
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        rows.sort(key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows)
-        log(f"profile {name} B={BATCH}: wall {wall:.3f} ms (profiled), "
-            f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}% of wall), "
-            f"{sum(r[2] for r in rows)} kernels")
-        for key, ms, count in rows[:6]:
-            log(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
+            t0 = time.perf_counter()
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            c1 = _counts()
+            got = {k: c1[k] - c0[k] for k in c1}
+            if got != EXPECTED_TRAIN[mode]:
+                raise AssertionError(f"train {mode}: launches per step {got}, "
+                                     f"expected {EXPECTED_TRAIN[mode]}")
+            loss = float(metrics["loss"])
+            if not math.isfinite(loss):
+                raise AssertionError(f"train {mode}: loss {loss}")
+        timed = [1e3 * t for t in secs[1:]]
+        timings[mode] = statistics.median(timed)
+        log(f"train {mode} B={BATCH}: {timings[mode]:.3f} ms per step "
+            f"(median of {len(timed)} after a warm-up; min {min(timed):.3f},"
+            f" max {max(timed):.3f}); last loss {loss:.6g}, grad_norm "
+            f"{float(metrics['grad_norm']):.6g}")
+    launches = _counts()
+    log(f"launches on the training path: {json.dumps(launches)}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train: peak device memory {peak:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    prefix = EXP_PARAMS["update_parameters"]
+    moved = [n for n, p in model.named_parameters()
+             if not torch.equal(p.detach(), before[n])]
+    stray = [n for n in moved if not n.startswith(prefix + ".")]
+    if stray or not moved:
+        raise AssertionError(f"update_parameters={prefix}: moved {moved}")
+    n_ct = sum(1 for n, _ in model.named_parameters()
+               if n.startswith(prefix + "."))
+    log(f"train: {len(moved)} of {n_ct} {prefix} parameters moved, every "
+        f"other parameter bit-unchanged")
+    for mode, step in steps.items():
+        _profile(f"train step {mode} B={BATCH}",
+                 lambda: step(state, batch))
+    return timings, launches, peak
+
+
+# --- phase 6: the training loop -------------------------------------------
+
+def phase_loop() -> dict:
+    """``VAEXperiment.fit``: one short epoch on TSynthetic at 64x64 with
+    the headline widths (8 actions), then validation."""
+    from ctvae_torch.data import VAEDataset
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import VAEXperiment
+    data = VAEDataset("", dataset_name="TSynthetic",
+                      train_batch_size=BATCH, val_batch_size=BATCH,
+                      patch_size=MODEL_PARAMS["img_size"], limit=48,
+                      val_limit=BATCH, seed=SEED)
+    data.setup()
+    model = build_model(LOOP_MODEL_PARAMS, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+    experiment = VAEXperiment(model, EXP_PARAMS, data)
+    t0 = time.perf_counter()
+    out = experiment.fit(1, seed=SEED)
+    secs = time.perf_counter() - t0
+    bad = {k: v for k, v in out.items() if not math.isfinite(v)}
+    mix = {m: int(out.get(f"train_steps_{m}", 0))
+           for m in ("base", "action", "causal")}
+    if bad or min(mix.values()) == 0:
+        raise AssertionError(f"loop: non-finite {bad} or mode mix {mix}")
+    log(f"loop: {experiment.global_step} train steps (mode mix "
+        f"{json.dumps(mix)}) and validation in {secs:.2f} s; train loss "
+        f"{out['train_loss']:.6g}, val loss {out['val_loss']:.6g}, "
+        f"val causal_acc {out['val_causal_acc']:.4g}")
+    return out
 
 
 KERNEL_META = {
     "vq_l2_argmin": ("ctvae_torch/csrc/vq.cu", "ctvae_tpu/ops/vq.py:49"),
     "pairwise_fwd": ("ctvae_torch/csrc/pairwise.cu",
                      "ctvae_tpu/ops/pairwise_flash.py:64"),
+    "pairwise_bwd": ("ctvae_torch/csrc/pairwise.cu",
+                     "ctvae_tpu/ops/pairwise_flash.py:81"),
     "gat_fwd": ("ctvae_torch/csrc/gat.cu", "ctvae_tpu/ops/gat_flash.py:117"),
+    "gat_bwd": ("ctvae_torch/csrc/gat.cu", "ctvae_tpu/ops/gat_flash.py:175"),
 }
 
 
@@ -433,25 +719,38 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the smoke runs on a card",
               file=sys.stderr)
         return 1
+    start = time.perf_counter()
     phase_card()
     phase_build()
     rows = phase_kernels()
-    model, timings, launches = phase_serve()
+    model, timings, serve_launches = phase_serve()
     phase_reference(model)
     phase_profile(model)
+    del model
+    train_ms, train_launches, peak = phase_train()
+    phase_loop()
     kernels = []
     for r in rows:
         source, replaces = KERNEL_META[r["name"]]
+        by_path = {"serve": serve_launches[r["name"]],
+                   "train": train_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[r["name"]],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ok": r["ok"]})
-    if any(k["launches"] == 0 for k in kernels):
-        raise AssertionError("a kernel of the path was never launched")
-    log(json.dumps({"serve_ms": timings}))
+    # every kernel runs on the training path, the forward ones on both
+    if any(k["launches_by_path"]["train"] == 0 for k in kernels) or any(
+            k["launches_by_path"]["serve"] == 0 for k in kernels
+            if k["name"] in EXPECTED["reconstruct"]
+            and EXPECTED["reconstruct"][k["name"]]):
+        raise AssertionError("a kernel of a path was never launched")
+    log(json.dumps({"serve_ms": timings, "train_ms": train_ms,
+                    "train_peak_gib": peak}))
+    log(f"chip_smoke wall time {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,9 @@ class Draws:
     """Random draws of the CT forward, from one ``torch.Generator``.
 
     ``gumbel(shape)``: standard Gumbel noise (the intervention mask, then
-    the edge sample); ``uniform(shape)``: U[0, 1) (the KL target)."""
+    the edge sample); ``uniform(shape)``: U[0, 1) (the KL target);
+    ``bernoulli(p, shape)``: a bool mask, True with probability ``p`` (the
+    dropout keep mask, drawn only under ``train``)."""
 
     def __init__(self, generator: torch.Generator,
                  device: Optional[torch.device] = None):
@@ -54,6 +56,23 @@ class Draws:
         tiny = torch.finfo(torch.float32).tiny
         u = self.uniform(shape).clamp_(min=tiny)
         return -torch.log(-torch.log(u))
+
+    def bernoulli(self, p: float, shape: Sequence[int]) -> torch.Tensor:
+        return self.uniform(shape) < p
+
+
+def dropout(x: torch.Tensor, rate: float, draws: Draws, train: bool
+            ) -> torch.Tensor:
+    """flax's ``nn.Dropout``: under ``train``, keep each element with
+    probability ``1 - rate`` (one ``bernoulli`` draw of ``x``'s shape) and
+    scale the kept ones by ``1 / (1 - rate)``; otherwise the identity."""
+    if not train or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = draws.bernoulli(keep, x.shape)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def lecun_normal(shape: Sequence[int], fan_in: int,

@@ -7,10 +7,10 @@ actions as one [A*B] virtual batch, with the positional encoding and the
 discoverer-0 scores computed once on [B] and tiled.
 
 Every random draw goes through a ``Draws`` provider (``models/base.py``)
-in the JAX package's order: the Gumbel intervention mask, then the Gumbel
-edge sample, then the uniform KL target. Only the serving forward is
-ported: ``train=True`` raises, so there is no PE dropout draw, and with
-``noise='off'`` there is no exo or endo draw.
+in the JAX package's order: under ``train`` the positional-encoding
+dropout mask at each ``pos_encoding`` call, the Gumbel intervention mask,
+the Gumbel edge sample, then the uniform KL target. With ``noise='off'``
+there is no exo or endo draw.
 """
 
 from __future__ import annotations
@@ -26,16 +26,10 @@ from torch.nn import functional as F
 from ..ops.gat import GATv2Stack
 from ..ops.pairwise import pairwise_mlp_scores
 from .backbones import VQDecoder, VQEncoder
-from .base import Draws, cross_entropy_from_probs, mse_loss
+from .base import Draws, cross_entropy_from_probs, dropout, mse_loss
 from .quantizers import MultipleCodebookVectorQuantizer, codebook_perplexity
 
 CLAMP_EPS = 1e-4
-
-
-def _eval_only(train: bool) -> None:
-    if train:
-        raise NotImplementedError("train=True is not ported yet: the port "
-                                  "serves the eval forward")
 
 
 def sinusoidal_pe(max_len: int, d_model: int) -> np.ndarray:
@@ -70,13 +64,15 @@ class CausalTransition(nn.Module):
                  latent_dims: Optional[Sequence[int]] = None,
                  c_alpha: float = 0.7, c_beta: float = 0.4,
                  c_delta: float = 0.4, c_epsilon: float = 0.4,
-                 max_len: int = 4096, *, device=None):
+                 dropout_rate: float = 0.1, max_len: int = 4096, *,
+                 device=None):
         super().__init__()
         ld = tuple(latent_dims) if latent_dims else (800, 100)
         N, A, H = input_dim, action_dim, ld[0]
         self.input_dim, self.action_dim = N, A
         self.c_alpha, self.c_beta = c_alpha, c_beta
         self.c_delta, self.c_epsilon = c_delta, c_epsilon
+        self.dropout_rate = dropout_rate
         self.a_dense = nn.Linear(A, N, device=device)
         self.register_buffer(
             "pe_table", torch.tensor(sinusoidal_pe(max_len, N),
@@ -98,16 +94,21 @@ class CausalTransition(nn.Module):
 
     # --- building blocks ----------------------------------------------
 
-    def pos_encoding(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.pe_table[None, : x.shape[1], :].to(x.dtype)
+    def pos_encoding(self, x: torch.Tensor, draws: Draws, train: bool
+                     ) -> torch.Tensor:
+        """``x`` plus the sinusoidal table, then dropout under ``train``."""
+        pe = self.pe_table[None, : x.shape[1], :].to(x.dtype)
+        return dropout(x + pe, self.dropout_rate, draws, train)
 
     def _compute_mask(self, one_hot_latent: torch.Tensor,
-                      action: torch.Tensor, draws: Draws) -> torch.Tensor:
+                      action: torch.Tensor, draws: Draws, train: bool
+                      ) -> torch.Tensor:
         """Gumbel-hard per-variable intervention mask [B, S, 1]."""
         B, S, N = one_hot_latent.shape
         a_rep = action[:, None, :].to(one_hot_latent.dtype).expand(
             B, S, action.shape[-1])
-        pos_embed = self.pos_encoding(torch.zeros_like(one_hot_latent))
+        pos_embed = self.pos_encoding(torch.zeros_like(one_hot_latent),
+                                      draws, train)
         inter_mask = torch.sigmoid(
             torch.cat([a_rep, pos_embed], dim=-1) @ self.mask_kernel
             + self.mask_bias)
@@ -175,10 +176,9 @@ class CausalTransition(nn.Module):
     def forward(self, latent: torch.Tensor, draws: Draws, *,
                 train: bool = False):
         """Identity transition (action = 0), regularized toward identity."""
-        _eval_only(train)
         B, S, N = latent.shape
         mask = latent.new_zeros(B, S, 1)
-        pos_latent = self.pos_encoding(latent)
+        pos_latent = self.pos_encoding(latent, draws, train)
         action = latent.new_zeros(B, self.action_dim)
         adjacency = self._compute_adj(pos_latent, action, mask)
         causal_graph = st_bernoulli_gumbel(
@@ -200,10 +200,9 @@ class CausalTransition(nn.Module):
                        _no_inter: Optional[torch.Tensor] = None):
         """Masked intervention. ``_pos_latent`` / ``_no_inter`` carry the
         shared encoding and discoverer-0 scores of ``forward_transition``."""
-        _eval_only(train)
-        mask = self._compute_mask(latent, action, draws)
-        pos_latent = (self.pos_encoding(latent) if _pos_latent is None
-                      else _pos_latent)
+        mask = self._compute_mask(latent, action, draws, train)
+        pos_latent = (self.pos_encoding(latent, draws, train)
+                      if _pos_latent is None else _pos_latent)
         adjacency = self._compute_adj(pos_latent, action, mask,
                                       no_inter=_no_inter)
         causal_graph = st_bernoulli_gumbel(
@@ -221,18 +220,17 @@ class CausalTransition(nn.Module):
                            train: bool = False):
         """Action classification: all A actions as one [A*B] batch, softmin
         of the CE distances to ``latent_y``. Returns probas [B, A]."""
-        _eval_only(train)
         B, S, N = latent.shape
         A = self.action_dim
         actions = torch.eye(A, dtype=latent.dtype, device=latent.device)
         lat_rep = latent[None].expand(A, B, S, N).reshape(A * B, S, N)
         act_rep = actions[:, None, :].expand(A, B, A).reshape(A * B, A)
-        pos_latent = self.pos_encoding(latent)
+        pos_latent = self.pos_encoding(latent, draws, train)
         no_inter = self._no_inter_scores(pos_latent)
         pos_rep = pos_latent[None].expand(A, B, S, N).reshape(A * B, S, N)
         ni_rep = no_inter[None].expand(A, B, S, S).reshape(A * B, S, S)
         y_pred, _, _ = self.forward_action(lat_rep, act_rep, draws,
-                                           _pos_latent=pos_rep,
+                                           train=train, _pos_latent=pos_rep,
                                            _no_inter=ni_rep)
         y_pred = y_pred.reshape(A, B, S, N)
         y_inds = torch.argmax(latent_y, dim=-1)
@@ -298,7 +296,8 @@ class CausalTransition(nn.Module):
 
 class CTMCQVAE(nn.Module):
     """MCQ-VAE backbone + CausalTransition over quantization indices, with
-    the modes ``base`` / ``action`` / ``causal`` (eval forward only)."""
+    the modes ``base`` / ``action`` / ``causal``; ``train=True`` turns on
+    the positional-encoding dropout (``ct_dropout_rate``)."""
 
     FORWARD_MODES = ("base", "action", "causal")
 
@@ -313,8 +312,9 @@ class CTMCQVAE(nn.Module):
                  c_epsilon: float = 0.4, slicing: str = "chunk",
                  grad_estimator: str = "ste", ema: bool = False,
                  pairwise_block_rows: Optional[int] = None,
-                 gat_block_cols: int = 0, seq_axis: Optional[str] = None,
-                 dtype="float32", *, device=None):
+                 gat_block_cols: int = 0, ct_dropout_rate: float = 0.1,
+                 seq_axis: Optional[str] = None, dtype="float32", *,
+                 device=None):
         super().__init__()
         unsupported = {"ema": ema, "grad_estimator='rotation'":
                        grad_estimator != "ste",
@@ -341,7 +341,7 @@ class CTMCQVAE(nn.Module):
         self.ct_layer = CausalTransition(
             num_embeddings, action_dim, causal_hidden_dims, c_alpha=c_alpha,
             c_beta=c_beta, c_delta=c_delta, c_epsilon=c_epsilon,
-            device=device)
+            dropout_rate=ct_dropout_rate, device=device)
         self.decoder = VQDecoder(embedding_dim, hd, in_channels,
                                  device=device)
 
@@ -375,12 +375,12 @@ class CTMCQVAE(nn.Module):
 
     def forward_base(self, x: torch.Tensor, *, draws: Optional[Draws] = None,
                      train: bool = False) -> Dict:
-        _eval_only(train)
         draws = self._draws(draws)
         latents = self.encoder(x)
         inds = self.vq_layer.compute_inds(latents)
         one_hot = self.ct_preprocess(inds)
-        ct_seq, ct_reg, ct_metrics = self.ct_layer(one_hot, draws)
+        ct_seq, ct_reg, ct_metrics = self.ct_layer(one_hot, draws,
+                                                    train=train)
         ct_loss = ct_reg + self.ct_layer.latent_loss(ct_seq, one_hot)
         use_inds = inds if self.skip_transition else self.ct_postprocess(ct_seq)
         quantized, vq_loss = self.vq_layer.compute_latents(latents, use_inds)
@@ -394,7 +394,6 @@ class CTMCQVAE(nn.Module):
                        input_y: torch.Tensor, *,
                        draws: Optional[Draws] = None,
                        train: bool = False) -> Dict:
-        _eval_only(train)
         draws = self._draws(draws)
         # x and input_y ride one encoder pass
         latents, latents_y = torch.chunk(
@@ -402,7 +401,7 @@ class CTMCQVAE(nn.Module):
         inds = self.vq_layer.compute_inds(latents)
         one_hot = self.ct_preprocess(inds)
         ct_seq, ct_reg, ct_metrics = self.ct_layer.forward_action(
-            one_hot, action, draws)
+            one_hot, action, draws, train=train)
         target_inds = self.vq_layer.compute_inds(latents_y)
         ct_loss = ct_reg + self.ct_layer.latent_loss(
             ct_seq, self.ct_preprocess(target_inds))
@@ -419,14 +418,14 @@ class CTMCQVAE(nn.Module):
                        action: torch.Tensor, *,
                        draws: Optional[Draws] = None,
                        train: bool = False) -> Dict:
-        _eval_only(train)
         draws = self._draws(draws)
         latents_x, latents_y = torch.chunk(
             self.encoder(torch.cat([x, input_y], dim=0)), 2, dim=0)
         inds_x = self.vq_layer.compute_inds(latents_x)
         inds_y = self.vq_layer.compute_inds(latents_y)
         probas, ct_reg, _ = self.ct_layer.forward_transition(
-            self.ct_preprocess(inds_x), self.ct_preprocess(inds_y), draws)
+            self.ct_preprocess(inds_x), self.ct_preprocess(inds_y), draws,
+            train=train)
         return {"recons": probas, "input": action,
                 "vq_loss": x.new_tensor(0.0), "ct_loss": ct_reg,
                 "mode": "causal",

@@ -12,9 +12,10 @@ mean-filled self-loops):
   softmax over the incoming edges of t only (a target with none gets a
   zero row), and node t's output is the alpha-weighted sum of ``Wl x_s``.
 
-The full-head attention (``__call__``) runs in the CUDA kernel of
-``ops/gat_flash.py`` on CUDA tensors; ``heads_call`` is plain PyTorch, as
-its JAX counterpart runs outside Pallas.
+The full-head attention (``forward``) runs in the CUDA kernels of
+``ops/gat_flash.py`` on CUDA tensors (forward and backward);
+``heads_call`` is plain PyTorch with autograd, as its JAX counterpart runs
+outside Pallas.
 """
 
 from __future__ import annotations
@@ -46,10 +47,11 @@ def masked_incoming_softmax(logits: torch.Tensor, edge_mask: torch.Tensor
                             ) -> torch.Tensor:
     """Softmax over the source axis (1) restricted to real edges; targets
     with no incoming edge get an all-zero row. logits [B, S, T, H'],
-    edge_mask [B, S, T] bool."""
+    edge_mask [B, S, T] bool. The max is a constant of the gradient, as
+    the JAX package's ``stop_gradient`` makes it."""
     mask = edge_mask[:, :, :, None]
     logits = torch.where(mask, logits, torch.full_like(logits, NEG))
-    logits = logits - torch.amax(logits, dim=1, keepdim=True)
+    logits = logits - torch.amax(logits, dim=1, keepdim=True).detach()
     w = torch.where(mask, torch.exp(logits), torch.zeros_like(logits))
     denom = torch.sum(w, dim=1, keepdim=True)
     return w / torch.where(denom == 0, torch.ones_like(denom), denom)

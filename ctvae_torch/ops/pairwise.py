@@ -3,9 +3,10 @@
 Counterpart of ``ctvae_tpu/ops/pairwise.py``. The discoverer MLP on the
 concatenated pair factors as ``W [x_s || x_t] = Wl x_s + Wr x_t``, so the
 caller projects once and only the broadcast-add + LeakyReLU + contraction
-runs per pair. On CUDA tensors the per-pair work runs in the kernel of
-``ops/pairwise_flash.py``; the plain form here is its CPU path and the
-reference it is checked against.
+runs per pair. On CUDA tensors the per-pair work runs in the kernels of
+``ops/pairwise_flash.py`` (forward and backward); the plain form here, with
+its autograd, is their CPU path and the reference they are checked
+against.
 """
 
 from __future__ import annotations

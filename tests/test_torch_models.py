@@ -18,6 +18,7 @@ from ctvae_tpu.models.ct_vae import CausalTransition as JCausalTransition
 from ctvae_tpu.models.quantizers import (
     MultipleCodebookVectorQuantizer as JMCQ, codebook_perplexity as j_perp)
 from ctvae_torch.convert import from_jax_params
+from ctvae_torch.models.base import Draws
 from ctvae_torch.models.backbones import VQDecoder, VQEncoder
 from ctvae_torch.models.ct_vae import CausalTransition
 from ctvae_torch.models.quantizers import (
@@ -167,10 +168,14 @@ def test_unsupported_options_raise():
                   dict(seq_axis="model"), dict(noise="exo")):
         with pytest.raises(NotImplementedError):
             build_model({**SMALL, **extra}, device="cpu")
+    # train=True is ported (the training slice): it runs, and its PE
+    # dropout makes the base forward depend on the draws
     tm = build_model(dict(SMALL), device="cpu")
     x, _, _ = batch(0)
-    with pytest.raises(NotImplementedError):
-        tm(torch.from_numpy(x), mode="base", train=True)
+    outs = [tm(torch.from_numpy(x), mode="base", train=True,
+               draws=Draws(torch.Generator().manual_seed(s)))["ct_loss"]
+            for s in (0, 1)]
+    assert all(torch.isfinite(o) for o in outs) and outs[0] != outs[1]
 
 
 def test_build_model_init_ranges_match_flax():

@@ -201,3 +201,95 @@ def test_gat_stack_matches_jax():
         got_id = ours.identity_forward(torch.from_numpy(x))
     close(t2n(got), want)
     close(t2n(got_id), want_id)
+
+
+# --- gradients (the training slice) ---------------------------------------
+# Tolerance of the gradient cases: atol 1e-5 / rtol 1e-4 (f32, sums of up
+# to a few hundred terms in another order on the two sides).
+
+def _grad_close(got, want):
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(np.shape(w))
+        close(t2n(g), w, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("S,T", [(7, 7), (9, 5)])
+def test_flash_pairwise_grads_match_pallas(per_sample, S, T):
+    """FlashPairwise's plain path (autograd through the plain version)
+    against ``jax.grad`` of the Pallas kernel's custom VJP, interpret mode:
+    shared params get the batch sum, per-sample params their own rows."""
+    import jax
+    args = _pairwise_inputs(S * 10 + T + 1, 3, S, T, 24, per_sample)
+    dout = np.random.default_rng(S + T).normal(size=(3, S, T)).astype(
+        np.float32)
+    want = jax.grad(lambda *a: jnp.sum(j_flash_pairwise(*a, 0.01, True)
+                                       * dout), argnums=(0, 1, 2, 3, 4))(
+        *map(jnp.asarray, args))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    got = torch.autograd.grad(flash_pairwise(*leaves, 0.01), leaves,
+                              torch.from_numpy(dout))
+    _grad_close(got, want)
+
+
+@pytest.mark.parametrize("S,T", [(9, 9), (8, 5)])
+def test_flash_gat_grads_match_pallas(S, T):
+    """FlashGAT's plain path against ``jax.grad`` of the Pallas kernel's
+    custom VJP (interpret mode), with an edgeless target and S != T."""
+    import jax
+    B, H, F = 2, 3, 5
+    rng = np.random.default_rng(S * T)
+    xl = rng.normal(size=(B, S, H, F)).astype(np.float32)
+    xr = rng.normal(size=(B, T, H, F)).astype(np.float32)
+    mask = rng.uniform(size=(B, S, T)) < 0.6
+    mask[:, :, 3] = False
+    adj = (rng.uniform(size=(B, S, T)) * mask).astype(np.float32)
+    we = rng.normal(size=(H, F)).astype(np.float32)
+    att = rng.normal(size=(H, F)).astype(np.float32)
+    dout = rng.normal(size=(B, T, H, F)).astype(np.float32)
+
+    def jloss(xl, xr, adj, we, att):
+        return jnp.sum(j_flash_gat(xl, xr, adj, jnp.asarray(mask), we, att,
+                                   0.2, True) * dout)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(
+        *map(jnp.asarray, (xl, xr, adj, we, att)))
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in (xl, xr, adj, we, att)]
+    out = flash_gat(leaves[0], leaves[1], leaves[2], torch.from_numpy(mask),
+                    leaves[3], leaves[4], 0.2)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dout))
+    _grad_close(got, want)
+    assert not t2n(got[1])[:, 3].any()
+
+
+def _grad_fns(fn):
+    seen, todo = set(), [fn]
+    while todo:
+        f = todo.pop()
+        if f is not None and f not in seen:
+            seen.add(f)
+            todo += [g for g, _ in f.next_functions]
+    return {type(f).__name__ for f in seen}
+
+
+def test_masked_softmax_max_gets_no_gradient():
+    """The softmax max is a constant of the gradient (JAX's
+    ``stop_gradient``): no ``amax`` node on the autograd graph, and the
+    gradient at tied maxima equals JAX's."""
+    import jax
+    rng = np.random.default_rng(7)
+    B, S, H = 2, 6, 3
+    logits = rng.normal(size=(B, S, S, H)).astype(np.float32)
+    logits[:, 1] = logits[:, 4] = 3.0          # tied maxima over sources
+    mask = rng.uniform(size=(B, S, S)) < 0.7
+    mask[:, 1] = mask[:, 4] = True
+    c = rng.normal(size=logits.shape).astype(np.float32)
+    want = jax.grad(lambda z: jnp.sum(
+        jgat.DenseGATv2Layer._masked_incoming_softmax(z, jnp.asarray(mask))
+        * c))(jnp.asarray(logits))
+    z = torch.from_numpy(logits).requires_grad_()
+    alpha = tgat.masked_incoming_softmax(z, torch.from_numpy(mask))
+    assert not any(n.startswith("Amax") for n in _grad_fns(alpha.grad_fn))
+    (got,) = torch.autograd.grad(alpha, z, torch.from_numpy(c))
+    close(t2n(got), want, atol=1e-7, rtol=1e-6)

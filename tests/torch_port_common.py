@@ -4,7 +4,8 @@ on both sides.
 
 JAX and PyTorch give different numbers from one seed, so the tests make
 every draw with numpy: while the JAX model is traced, ``jax.random.gumbel``
-/ ``jax.random.uniform`` are replaced by a recorder that hands out numpy
+/ ``uniform`` / ``bernoulli`` (flax's dropout calls the last through
+``jax.random`` at call time) are replaced by a recorder that hands out numpy
 draws of the requested shape (constants of the jitted program); the
 port's ``ReplayDraws`` provider then hands out the same arrays in the same
 order (and checks kind and shape). The JAX side runs under ``jax.jit``:
@@ -39,14 +40,15 @@ def jax_rngs(seed: int = 0):
 
 
 class DrawRecorder:
-    """Stands in for ``jax.random.gumbel`` / ``uniform`` and records the
-    numpy draws it hands out."""
+    """Stands in for ``jax.random.gumbel`` / ``uniform`` / ``bernoulli``
+    and records the numpy draws it hands out."""
 
     def __init__(self, seed: int):
         self.rng = np.random.default_rng(seed)
         self.draws = []
         self.orig = {"gumbel": jax.random.gumbel,
-                     "uniform": jax.random.uniform}
+                     "uniform": jax.random.uniform,
+                     "bernoulli": jax.random.bernoulli}
 
     def gumbel(self, key, shape=(), dtype=jnp.float32, **kw):
         a = self.rng.gumbel(size=tuple(shape)).astype(np.float32)
@@ -65,6 +67,12 @@ class DrawRecorder:
         self.draws.append(("uniform", a))
         return jnp.asarray(a, dtype)
 
+    def bernoulli(self, key, p=0.5, shape=None, **kw):
+        shape = np.shape(p) if shape is None else tuple(shape)
+        a = self.rng.uniform(size=shape) < float(p)
+        self.draws.append(("bernoulli", a))
+        return jnp.asarray(a)
+
 
 @contextlib.contextmanager
 def recorded_draws(monkeypatch, seed: int = 0):
@@ -72,6 +80,7 @@ def recorded_draws(monkeypatch, seed: int = 0):
     with monkeypatch.context() as m:
         m.setattr(jax.random, "gumbel", rec.gumbel)
         m.setattr(jax.random, "uniform", rec.uniform)
+        m.setattr(jax.random, "bernoulli", rec.bernoulli)
         yield rec
 
 
@@ -93,6 +102,9 @@ class ReplayDraws:
 
     def uniform(self, shape):
         return self._next("uniform", shape)
+
+    def bernoulli(self, p, shape):
+        return self._next("bernoulli", shape)
 
     def done(self):
         return not self.draws
