@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels of ``ctvae_torch/csrc`` (three sources, one
+Builds the seven CUDA kernels of ``ctvae_torch/csrc`` (four sources, one
 ``nvcc`` each, in parallel) and holds each against its plain PyTorch
-version at the shapes of ``configs/ct_mcq_vae.yaml``: the three forward
-kernels at the serving shapes, the two backward kernels (pairwise scores,
-GATv2 attention) against the plain versions' autograd. Then it drives the
-port's two paths at that width, each with the launch counters set to 0
-just before and read just after:
+version at the shapes of ``configs/ct_mcq_vae.yaml``: the four forward
+kernels at the serving shapes, the three backward kernels (pairwise scores,
+GATv2 attention, GATv2 per-head logits) against the plain versions'
+autograd. Then it drives the port's three paths at that width, each with
+the launch counters set to 0 just before and read just after:
 
 * serving: ``reconstruct``, ``apply_action`` and ``classify_action`` at
   B = 16 (the causal virtual batch is A*B = 192), checked for shape, range
@@ -17,10 +17,16 @@ just before and read just after:
 * training: train steps of each batch mode (base, action, causal) at
   B = 16 with the config's ``exp_params`` (``update_parameters:
   ct_layer``), checked for a finite loss, frozen parameters bit-unchanged,
-  ``ct_layer`` moved, and both backward kernels launched in every mode.
+  ``ct_layer`` moved, and every backward kernel launched in every mode;
+* the two-stage recipe on TSynthetic (64x64, the headline widths with its
+  8 actions): an MCQVAE pretrained for one epoch and saved, its weights
+  restored alone into a CTMCQVAE, one ``VAEXperiment.fit`` epoch of
+  ``ct_layer`` with checkpoints, a full-state resume into a fresh
+  experiment, and ``apply_action`` (rollout, walk, navigate, causal
+  sweep), with the bitwise checks of each stage.
 
-Last, ``VAEXperiment.fit`` runs one short epoch on TSynthetic (64x64, the
-headline widths with its 8 actions). The second-last line is one JSON
+Before that, ``VAEXperiment.fit`` runs one short epoch on TSynthetic at the
+same widths (phase "loop"). The second-last line is one JSON
 object with a row per kernel; the last line is ``{"ok": true, "device":
 {...}}``. Any failed phase exits non-zero and prints no result; so does a
 machine without a card. TF32 is off for matmuls and cuDNN convolutions, so
@@ -32,6 +38,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -77,6 +84,10 @@ GAT_ATOL = 1e-4        # outputs ~1, softmax over 65 logits of ~10
 GRAD_RTOL = 1e-4
 VQ_TIE_RTOL = 1e-5     # index may differ only on a near-tie this close
 SERVE_ATOL = 1e-4      # CUDA vs CPU serving outputs at B = 2
+# per-head logits, forward and backward: max abs error over max(1, max
+# |value|) of each output; sums of up to 64 (forward) and 192 x 65 x 65
+# (the per-sample dwe / datt) f32 terms in another order
+LOGITS_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -414,10 +425,162 @@ def _check_gat_bwd(gen) -> dict:
     return row
 
 
+def _logits_inputs(gen, B: int, K: int, F: int, per_sample: bool):
+    """Per-head logits inputs at S = T = 65 as ``heads_call`` gives them:
+    a sampled 0/1 graph (edge probability 1/2) with its mean-filled
+    self-loops, and an upstream gradient that is the masked softmax's VJP
+    of a random one, so it is zero where the main path's is (no edge, or
+    a target's only edge). Pre is exactly zero at (s, t) = (1, 2)
+    (xr[b, 2] = -xl[b, 1], adj[b, 1, 2] = 0), a pair made live."""
+    from ctvae_torch.ops.gat import masked_incoming_softmax, replace_self_loops
+    S = T = 64 + 1
+    xl = torch.randn(B, S, K, F, generator=gen, device="cuda")
+    xr = torch.randn(B, T, K, F, generator=gen, device="cuda")
+    xr[:, 2] = -xl[:, 1]
+    pshape = (B, K, F) if per_sample else (K, F)
+    we = torch.randn(pshape, generator=gen, device="cuda") * 0.1
+    att = torch.randn(pshape, generator=gen, device="cuda") * 0.1
+    graph = torch.rand(B, S, T, generator=gen, device="cuda") < 0.5
+    adj, mask = replace_self_loops(graph.float())
+    adj[:, 1, 2] = 0.0
+    mask[:, 1, 2] = True
+    logits = torch.randn(B, S, T, K, generator=gen, device="cuda",
+                         requires_grad=True)
+    alpha = masked_incoming_softmax(logits, mask)
+    d_e, = torch.autograd.grad(alpha, logits, torch.randn(
+        alpha.shape, generator=gen, device="cuda"))
+    return (xl, xr, adj, we, att), d_e.contiguous()
+
+
+def _logits_bwd_on_path(fn) -> dict:
+    """The per-head logits backward as one call of ``fn`` (a train step)
+    launches it: the share of pairs with a non-zero upstream gradient
+    (the kernel skips the others, so its time depends on it), and the
+    kernel's time and bound on those very inputs."""
+    from ctvae_torch.ops import gat_logits as gl
+    real, calls = gl.fused_gat_logits_bwd_cuda, []
+
+    def probe(*args):
+        calls.append(args)
+        return real(*args)
+    gl.fused_gat_logits_bwd_cuda = probe
+    try:
+        fn()
+    finally:
+        gl.fused_gat_logits_bwd_cuda = real
+    (*args, d_e, ns), = calls
+    live = int((d_e != 0).sum())
+    bnd = bound_ms(_logits_bytes(args, d_e), 12.0 * live * args[0].shape[3])
+    return {"live_share": live / d_e.numel(), "shape": list(d_e.shape),
+            "ms": time_ms(lambda: real(*args, d_e, ns)), "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
+
+
+# the causal step's call (the final GAT layer on the [A*B] virtual batch:
+# head 0 and each sample's action head, F = N = 64) and bench_gat.py's
+# shape (13 shared heads of 100)
+LOGITS_SHAPES = ((MODEL_PARAMS["action_dim"] * BATCH, 2, 64, True),
+                 (BATCH, MODEL_PARAMS["action_dim"] + 1, 100, False))
+
+
+def _logits_bytes(args, d_e=None) -> int:
+    """Each input read once, each output written once."""
+    xl, xr, adj, we, att = args
+    B, S, K, F = xl.shape
+    T = xr.shape[1]
+    ins = xl.numel() + xr.numel() + adj.numel() + we.numel() + att.numel()
+    if d_e is None:
+        return 4 * (ins + B * S * T * K)
+    return 4 * (2 * ins + d_e.numel())
+
+
+def _check_gat_logits(gen) -> dict:
+    from ctvae_torch.ops import gat_logits as gl
+    from ctvae_torch.ops.gat import gat_logits
+    row = {"name": "gat_logits_fwd", "max_abs_err": 0.0, "ok": True,
+           "library_ms": None}
+    notes = []
+    for B, K, F, per_sample in LOGITS_SHAPES:
+        args, _ = _logits_inputs(gen, B, K, F, per_sample)
+        got = gl.fused_gat_logits_cuda(*args, 0.2)
+        want = gat_logits(*args, 0.2)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / max(1.0, float(want.abs().max()))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ok"] &= rel <= LOGITS_RTOL and bool(torch.isfinite(got).all())
+        ms = time_ms(lambda: gl.fused_gat_logits_cuda(*args, 0.2))
+        plain = time_ms(lambda: gat_logits(*args, 0.2), reps=5)
+        # per element of [B,S,T,K,F]: pre (add, multiply, add), the leaky
+        # slope (multiply, select), the fma (2)
+        bnd = bound_ms(_logits_bytes(args), 7.0 * got.numel() * F)
+        notes.append(f"B={B} K={K} F={F} "
+                     f"{'per-sample' if per_sample else 'shared'}: max abs "
+                     f"err {err:.3g} ({rel:.2g} of scale), kernel {ms:.4f} "
+                     f"ms, plain {plain:.4f} ms, bound {bnd[0]:.4f} ms "
+                     f"({bnd[1]})")
+        if per_sample:   # the row reports the causal step's call
+            row.update(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                       bound_by=bnd[1])
+        del want
+        torch.cuda.empty_cache()
+    row["note"] = "; ".join(notes)
+    for n in notes:
+        log(f"gat_logits {n}")
+    return row
+
+
+def _check_gat_logits_bwd(gen) -> dict:
+    """The backward kernel against the plain version's autograd at both
+    shapes; two runs must agree bit for bit (no atomics)."""
+    from ctvae_torch.ops import gat_logits as gl
+    from ctvae_torch.ops.gat import gat_logits
+    row = {"name": "gat_logits_bwd", "max_abs_err": 0.0, "ok": True,
+           "library_ms": None}
+    notes = []
+    for B, K, F, per_sample in LOGITS_SHAPES:
+        args, d_e = _logits_inputs(gen, B, K, F, per_sample)
+        got = gl.fused_gat_logits_bwd_cuda(*args, d_e, 0.2)
+        again = gl.fused_gat_logits_bwd_cuda(*args, d_e, 0.2)
+        leaves = [a.clone().requires_grad_() for a in args]
+        plain_out = gat_logits(*leaves, 0.2)
+        want = torch.autograd.grad(plain_out, leaves, d_e, retain_graph=True)
+        torch.cuda.synchronize()
+        err, rel, text = _grad_errors(("dxl", "dxr", "dadj", "dwe", "datt"),
+                                      got, want)
+        same = all(torch.equal(g, h) for g, h in zip(got, again))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ok"] &= rel <= LOGITS_RTOL and same
+        ms = time_ms(lambda: gl.fused_gat_logits_bwd_cuda(*args, d_e, 0.2))
+        plain = time_ms(lambda: torch.autograd.grad(
+            plain_out, leaves, d_e, retain_graph=True), reps=5)
+        del plain_out, want
+        # what the VJP needs per element with a non-zero upstream gradient
+        # (the kernel skips the rest), pre counted once: pre (3), the slope
+        # select, the dxl and dxr adds, the dadj, dwe and datt fmas (2 each)
+        live = int((d_e != 0).sum())
+        bnd = bound_ms(_logits_bytes(args, d_e), 12.0 * live * F)
+        notes.append(f"B={B} K={K} F={F} "
+                     f"{'per-sample' if per_sample else 'shared'}, {live} "
+                     f"of {d_e.numel()} pairs with a gradient: errors "
+                     f"{text}; two runs bit-identical: {same}; kernel "
+                     f"{ms:.4f} ms, plain autograd {plain:.4f} ms, bound "
+                     f"{bnd[0]:.4f} ms ({bnd[1]})")
+        if per_sample:
+            row.update(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                       bound_by=bnd[1])
+        torch.cuda.empty_cache()
+    row["note"] = "; ".join(notes)
+    for n in notes:
+        log(f"gat_logits_bwd {n}")
+    return row
+
+
 def phase_kernels() -> list:
     gen = torch.Generator("cuda").manual_seed(SEED)
     rows = [_check_vq(gen), _check_pairwise(gen), _check_pairwise_bwd(gen),
-            _check_gat(gen), _check_gat_bwd(gen)]
+            _check_gat(gen), _check_gat_bwd(gen), _check_gat_logits(gen),
+            _check_gat_logits_bwd(gen)]
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -437,37 +600,38 @@ def _requests(gen, B: int, device: str):
 
 
 def _counts():
-    from ctvae_torch.ops import gat_flash, pairwise_flash, vq
+    from ctvae_torch.ops import gat_flash, gat_logits, pairwise_flash, vq
     return {"vq_l2_argmin": vq.launches,
             "pairwise_fwd": pairwise_flash.launches,
             "pairwise_bwd": pairwise_flash.bwd_launches,
             "gat_fwd": gat_flash.launches,
-            "gat_bwd": gat_flash.bwd_launches}
+            "gat_bwd": gat_flash.bwd_launches,
+            "gat_logits_fwd": gat_logits.launches,
+            "gat_logits_bwd": gat_logits.bwd_launches}
 
 
 def _reset_counts() -> None:
-    from ctvae_torch.ops import gat_flash, pairwise_flash, vq
+    from ctvae_torch.ops import gat_flash, gat_logits, pairwise_flash, vq
     vq.launches = pairwise_flash.launches = gat_flash.launches = 0
     pairwise_flash.bwd_launches = gat_flash.bwd_launches = 0
+    gat_logits.launches = gat_logits.bwd_launches = 0
 
 
 # launches per request of each entry point (codebooks = 1)
+_FWD = {"pairwise_fwd": 2, "pairwise_bwd": 0, "gat_fwd": 1, "gat_bwd": 0,
+        "gat_logits_fwd": 1, "gat_logits_bwd": 0}
 EXPECTED = {
-    "reconstruct": {"vq_l2_argmin": 1, "pairwise_fwd": 2, "pairwise_bwd": 0,
-                    "gat_fwd": 1, "gat_bwd": 0},
-    "apply_action": {"vq_l2_argmin": 2, "pairwise_fwd": 2, "pairwise_bwd": 0,
-                     "gat_fwd": 1, "gat_bwd": 0},
-    "classify_action": {"vq_l2_argmin": 2, "pairwise_fwd": 2,
-                        "pairwise_bwd": 0, "gat_fwd": 1, "gat_bwd": 0},
+    "reconstruct": {"vq_l2_argmin": 1, **_FWD},
+    "apply_action": {"vq_l2_argmin": 2, **_FWD},
+    "classify_action": {"vq_l2_argmin": 2, **_FWD},
 }
 # launches per train step of each batch mode
+_TRAIN = {"pairwise_fwd": 2, "pairwise_bwd": 2, "gat_fwd": 1, "gat_bwd": 1,
+          "gat_logits_fwd": 1, "gat_logits_bwd": 1}
 EXPECTED_TRAIN = {
-    "base": {"vq_l2_argmin": 1, "pairwise_fwd": 2, "pairwise_bwd": 2,
-             "gat_fwd": 1, "gat_bwd": 1},
-    "action": {"vq_l2_argmin": 2, "pairwise_fwd": 2, "pairwise_bwd": 2,
-               "gat_fwd": 1, "gat_bwd": 1},
-    "causal": {"vq_l2_argmin": 2, "pairwise_fwd": 2, "pairwise_bwd": 2,
-               "gat_fwd": 1, "gat_bwd": 1},
+    "base": {"vq_l2_argmin": 1, **_TRAIN},
+    "action": {"vq_l2_argmin": 2, **_TRAIN},
+    "causal": {"vq_l2_argmin": 2, **_TRAIN},
 }
 
 
@@ -588,8 +752,11 @@ def _profile(label: str, fn) -> None:
     log(f"profile {label}: wall {wall:.3f} ms (profiled), device busy "
         f"{busy:.3f} ms ({100 * busy / wall:.1f}% of wall), "
         f"{sum(r[2] for r in rows)} kernels")
-    for key, ms, count in rows[:6]:
-        log(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
+    # the six longest, then the port's own kernels among the rest
+    for i, (key, ms, count) in enumerate(rows):
+        if i < 6 or re.search(r"namespace\)::(vq|pairwise|gat)_\w*kernel\(",
+                              key):
+            log(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
 
 
 def phase_profile(model) -> None:
@@ -666,10 +833,17 @@ def phase_train():
                if n.startswith(prefix + "."))
     log(f"train: {len(moved)} of {n_ct} {prefix} parameters moved, every "
         f"other parameter bit-unchanged")
+    logits_bwd = {}
+    for mode, step in steps.items():
+        m = logits_bwd[mode] = _logits_bwd_on_path(lambda: step(state, batch))
+        log(f"train {mode}: per-head logits backward d_e {m['shape']}, "
+            f"{m['live_share']:.4f} of pairs with a gradient; kernel on "
+            f"these inputs {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']})")
     for mode, step in steps.items():
         _profile(f"train step {mode} B={BATCH}",
                  lambda: step(state, batch))
-    return timings, launches, peak
+    return timings, launches, peak, logits_bwd
 
 
 # --- phase 6: the training loop -------------------------------------------
@@ -703,6 +877,164 @@ def phase_loop() -> dict:
     return out
 
 
+# --- phase 7: the two-stage recipe ---------------------------------------
+
+def _valid_png(path: str) -> bool:
+    """A PNG signature, chunks whose CRCs hold, an IHDR whose pixel data
+    the IDAT decompresses to, and a closing IEND."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        return False
+    pos, chunks = 8, {}
+    while pos + 12 <= len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            return False
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + n
+    if pos != len(data) or b"IEND" not in chunks or b"IHDR" not in chunks:
+        return False
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    channels = {0: 1, 2: 3, 6: 4}.get(color)
+    return (depth == 8 and channels is not None and
+            len(zlib.decompress(chunks[b"IDAT"])) == h * (1 + w * channels))
+
+
+def _state_equal(a, b) -> bool:
+    """Two train states agree bit for bit: parameters, optimizer states
+    (Adam moments and steps, schedule position), step and generator."""
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return isinstance(y, torch.Tensor) and torch.equal(x.cpu(),
+                                                               y.cpu())
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(map(same, x, y))
+        return x == y
+    return same(a.state_dict(), b.state_dict())
+
+
+def phase_two_stage() -> dict:
+    """The two-stage CT recipe at the loop phase's widths (TSynthetic
+    64x64, the headline widths, 8 actions, ``limit`` 48): pretrain an
+    MCQVAE one epoch and save it; restore its weights only into a
+    CTMCQVAE; ``fit`` one epoch of ``ct_layer`` with a checkpoint manager;
+    resume the full state into a fresh experiment; ``apply_action``. Every
+    check is bitwise. Returns the launches of the phase."""
+    import tempfile
+    from ctvae_torch.apply_action import apply_action
+    from ctvae_torch.data import VAEDataset
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import VAEXperiment
+    from ctvae_torch.utils.checkpoint import CheckpointManager
+
+    def model(params, seed):
+        return build_model(params, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(seed))
+
+    start = time.perf_counter()
+    _reset_counts()
+    data_params = dict(data_path="", dataset_name="TSynthetic",
+                       train_batch_size=BATCH, val_batch_size=BATCH,
+                       patch_size=MODEL_PARAMS["img_size"], limit=48,
+                       val_limit=BATCH, seed=SEED)
+    data = VAEDataset(**data_params)
+    data.setup()
+    with tempfile.TemporaryDirectory(prefix="ctvae_two_stage_") as tmp:
+        # stage 1: the MCQVAE of the same widths, every parameter trained
+        mp1 = {**{k: v for k, v in LOOP_MODEL_PARAMS.items()
+                  if k not in ("action_dim", "causal_hidden_dims", "gamma")},
+               "name": "MCQVAE"}
+        exp1 = VAEXperiment(model(mp1, SEED), {
+            k: v for k, v in EXP_PARAMS.items()
+            if k != "update_parameters"}, data)
+        exp1.setup(seed=SEED)
+        pre = exp1.train_epoch(0)
+        cm1 = CheckpointManager(os.path.join(tmp, "mcq"))
+        cm1.save(exp1.state, exp1.global_step)
+        stage1 = {n: t.clone() for n, t in exp1.model.state_dict().items()}
+        del exp1
+
+        # stage 2: weights-only restore, ct_layer alone trained
+        ct = model(LOOP_MODEL_PARAMS, SEED + 1)
+        fresh = {n: t.clone() for n, t in ct.state_dict().items()}
+        cm2 = CheckpointManager(os.path.join(tmp, "ct"), top_k=2)
+        exp = VAEXperiment(ct, EXP_PARAMS, data, ckpt_manager=cm2)
+        exp.setup(seed=SEED)
+        exp.load_weights(cm1.path("last"))
+        is_ct = [n for n in fresh if n.startswith("ct_layer.")]
+        backbone = [n for n in fresh if n not in is_ct]
+        now = ct.state_dict()
+        if set(backbone) != set(stage1) or not all(
+                torch.equal(now[n], stage1[n]) for n in backbone):
+            raise AssertionError("two_stage: backbone not restored")
+        if not all(torch.equal(now[n], fresh[n]) for n in is_ct):
+            raise AssertionError("two_stage: ct_layer lost its init")
+        t0 = time.perf_counter()
+        out = exp.fit(1, seed=SEED)
+        fit_secs = time.perf_counter() - t0
+        now = ct.state_dict()
+        moved = [n for n in is_ct if not torch.equal(now[n], fresh[n])]
+        if not all(torch.equal(now[n], stage1[n]) for n in backbone) \
+                or not moved:
+            raise AssertionError(f"two_stage: backbone changed or ct_layer "
+                                 f"still ({len(moved)} moved)")
+        if not math.isfinite(out["train_loss"]):
+            raise AssertionError(f"two_stage: stage-2 loss {out}")
+        step_ms = 1e3 * BATCH / out["train_images_per_sec"]
+
+        # full-state resume into a fresh experiment (other init and seed)
+        exp2 = VAEXperiment(model(LOOP_MODEL_PARAMS, SEED + 2), EXP_PARAMS,
+                            data, ckpt_manager=cm2)
+        exp2.setup(seed=SEED + 3)
+        exp2.restore_full_state("last")
+        if not (_state_equal(exp2.state, exp.state)
+                and exp2.global_step == exp.global_step
+                and exp2.start_epoch == 1):
+            raise AssertionError("two_stage: full-state resume differs")
+        with open(os.path.join(cm2.dir, "index.json")) as f:
+            best = [os.path.basename(e["path"]) for e in json.load(f)["best"]]
+
+        # apply_action on the stage-2 checkpoint
+        config = {"model_params": LOOP_MODEL_PARAMS,
+                  "data_params": data_params}
+        res = apply_action(config, cm2.path("last"),
+                           out=os.path.join(tmp, "images"), steps=2,
+                           walk=(2, 3, 4), navigate=3, device="cuda")
+        torch.cuda.synchronize()
+        n_png = 1 + 2 * 2 * 4 + 2 * 3 + (3 + 2)
+        bad = [p for p in res["images"] if not _valid_png(p)]
+        if len(res["images"]) != n_png or bad or not (
+                res["causal_batches"] and math.isfinite(res["causal_acc"])):
+            raise AssertionError(f"two_stage: apply_action wrote "
+                                 f"{len(res['images'])} PNGs of {n_png} "
+                                 f"({len(bad)} invalid), sweep {res}")
+    launches = _counts()
+    secs = time.perf_counter() - start
+    log(f"two_stage: MCQVAE pretrain {data.steps_per_epoch()} steps "
+        f"(last recon loss {pre['Reconstruction_Loss']:.6g}); "
+        f"weights-only restore: {len(backbone)} backbone tensors equal "
+        f"stage 1's, {len(is_ct)} ct_layer tensors their init; stage-2 fit "
+        f"{exp.global_step} steps + validation in {fit_secs:.2f} s "
+        f"({step_ms:.3f} ms per train step, mean over the epoch), "
+        f"{len(moved)} ct_layer tensors moved, backbone bit-unchanged; "
+        f"checkpoints kept {best} + last; full-state resume bit-identical "
+        f"(step {exp2.global_step}, start_epoch {exp2.start_epoch}, Adam "
+        f"moments, generator)")
+    log(f"two_stage: apply_action wrote {n_png} valid PNGs; causal sweep "
+        f"{res['causal_acc']:.4f} ({res['causal_nodir_acc']:.4f} "
+        f"undirected) over {res['causal_batches']} batches; phase "
+        f"{secs:.2f} s")
+    log(f"launches on the two_stage path: {json.dumps(launches)}")
+    return launches
+
+
 KERNEL_META = {
     "vq_l2_argmin": ("ctvae_torch/csrc/vq.cu", "ctvae_tpu/ops/vq.py:49"),
     "pairwise_fwd": ("ctvae_torch/csrc/pairwise.cu",
@@ -711,6 +1043,10 @@ KERNEL_META = {
                      "ctvae_tpu/ops/pairwise_flash.py:81"),
     "gat_fwd": ("ctvae_torch/csrc/gat.cu", "ctvae_tpu/ops/gat_flash.py:117"),
     "gat_bwd": ("ctvae_torch/csrc/gat.cu", "ctvae_tpu/ops/gat_flash.py:175"),
+    "gat_logits_fwd": ("ctvae_torch/csrc/gat_logits.cu",
+                       "scripts/bench_gat.py:76"),
+    "gat_logits_bwd": ("ctvae_torch/csrc/gat_logits.cu",
+                       "ctvae_tpu/ops/gat.py:85"),
 }
 
 
@@ -727,13 +1063,15 @@ def main() -> int:
     phase_reference(model)
     phase_profile(model)
     del model
-    train_ms, train_launches, peak = phase_train()
+    train_ms, train_launches, peak, logits_bwd = phase_train()
     phase_loop()
+    two_stage_launches = phase_two_stage()
     kernels = []
     for r in rows:
         source, replaces = KERNEL_META[r["name"]]
         by_path = {"serve": serve_launches[r["name"]],
-                   "train": train_launches[r["name"]]}
+                   "train": train_launches[r["name"]],
+                   "two_stage": two_stage_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -742,11 +1080,16 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ok": r["ok"]})
-    # every kernel runs on the training path, the forward ones on both
-    if any(k["launches_by_path"]["train"] == 0 for k in kernels) or any(
+        if r["name"] == "gat_logits_bwd":
+            # its time depends on the live pairs: also on the causal
+            # step's own inputs (``ms`` is at the check's sampled graph)
+            kernels[-1]["on_causal_step"] = logits_bwd["causal"]
+    # every kernel runs on the training and two-stage paths, the forward
+    # ones on the serving path too
+    if any(k["launches_by_path"][p] == 0 for k in kernels
+           for p in ("train", "two_stage")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
-            if k["name"] in EXPECTED["reconstruct"]
-            and EXPECTED["reconstruct"][k["name"]]):
+            if EXPECTED["reconstruct"][k["name"]]):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"serve_ms": timings, "train_ms": train_ms,
                     "train_peak_gib": peak}))

@@ -107,6 +107,11 @@ class VAEDataset:
         return self._loader(self.val_dataset, self.val_batch_size, False,
                             epoch)
 
+    def test_dataloader(self, epoch: int = 0) -> Iterator[dict]:
+        """The validation split, shuffled, with the train ``limit``."""
+        return self._loader(self.val_dataset, self.val_batch_size, True,
+                            epoch)
+
     def steps_per_epoch(self) -> int:
         ds = self.train_dataset
         if isinstance(ds, TransitionDataset):

@@ -1,9 +1,10 @@
 """Model registry of the port: name -> ``nn.Module`` class.
 
 Counterpart of ``ctvae_tpu/models/__init__.py``; the registry holds the
-CT-MCQ-VAE only. ``build_model`` initialises the weights with flax's
-distributions (``lecun_normal`` kernels, zero biases, ``U(-1/K, 1/K)``
-codebooks) so activations at random init have the JAX model's ranges.
+CT-MCQ-VAE and the MCQVAE of the two-stage recipe's first stage.
+``build_model`` initialises the weights with flax's distributions
+(``lecun_normal`` kernels, zero biases, ``U(-1/K, 1/K)`` codebooks) so
+activations at random init have the JAX model's ranges.
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ from torch import nn
 from ..ops.common import resolve_device
 from .base import lecun_normal
 from .ct_vae import CTMCQVAE, CausalTransition
+from .mcq_vae import MCQVAE
 from .quantizers import VectorQuantizerMS
 
-vae_models = {"CTMCQVAE": CTMCQVAE}
+vae_models = {"CTMCQVAE": CTMCQVAE, "MCQVAE": MCQVAE}
 
 
 def _fan_in(p: torch.Tensor, module: nn.Module) -> int:
@@ -72,5 +74,5 @@ def build_model(model_params: dict, device=None,
     return model.eval()
 
 
-__all__ = ["CTMCQVAE", "CausalTransition", "build_model", "init_weights",
-           "vae_models"]
+__all__ = ["CTMCQVAE", "CausalTransition", "MCQVAE", "build_model",
+           "init_weights", "vae_models"]

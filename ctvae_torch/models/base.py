@@ -40,7 +40,9 @@ class Draws:
     ``gumbel(shape)``: standard Gumbel noise (the intervention mask, then
     the edge sample); ``uniform(shape)``: U[0, 1) (the KL target);
     ``bernoulli(p, shape)``: a bool mask, True with probability ``p`` (the
-    dropout keep mask, drawn only under ``train``)."""
+    dropout keep mask, drawn only under ``train``); ``normal(shape)``:
+    standard normal latents (``sample``, ``walk``); ``randint(low, high,
+    shape)``: int64 in [low, high) (``walk``'s channel choice)."""
 
     def __init__(self, generator: torch.Generator,
                  device: Optional[torch.device] = None):
@@ -59,6 +61,15 @@ class Draws:
 
     def bernoulli(self, p: float, shape: Sequence[int]) -> torch.Tensor:
         return self.uniform(shape) < p
+
+    def normal(self, shape: Sequence[int]) -> torch.Tensor:
+        return torch.randn(tuple(shape), generator=self.generator,
+                           device=self.device)
+
+    def randint(self, low: int, high: int, shape: Sequence[int]
+                ) -> torch.Tensor:
+        return torch.randint(low, high, tuple(shape),
+                             generator=self.generator, device=self.device)
 
 
 def dropout(x: torch.Tensor, rate: float, draws: Draws, train: bool

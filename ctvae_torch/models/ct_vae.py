@@ -1,4 +1,4 @@
-"""CT-VAE: CausalTransition module + CTMCQVAE model, eval forward.
+"""CT-VAE: CausalTransition module + CTMCQVAE model.
 
 Counterpart of ``ctvae_tpu/models/ct_vae.py``. The causal variables are
 the ``S = codebooks * h * w`` latent sites, each an N-dim distribution
@@ -27,6 +27,7 @@ from ..ops.gat import GATv2Stack
 from ..ops.pairwise import pairwise_mlp_scores
 from .backbones import VQDecoder, VQEncoder
 from .base import Draws, cross_entropy_from_probs, dropout, mse_loss
+from .mcq_vae import MCQVAE
 from .quantizers import MultipleCodebookVectorQuantizer, codebook_perplexity
 
 CLAMP_EPS = 1e-4
@@ -452,6 +453,54 @@ class CTMCQVAE(nn.Module):
             return self.forward_causal(x, input_y, action, draws=draws,
                                        train=train)
         raise ValueError(f"unknown mode {mode!r}")
+
+    # --- generation -----------------------------------------------------
+
+    def generate(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        """The forward's images; causal mode (which returns action
+        probabilities) runs as action mode."""
+        if kwargs.get("mode") == "causal":
+            kwargs["mode"] = "action"
+        return self(x, **kwargs)["recons"]
+
+    # the backbone's: random continuous z -> quantize -> decode
+    _decode_quantized = MCQVAE._decode_quantized
+    sample = MCQVAE.sample
+
+    def walk(self, num_steps: int, num_dims: int, num_walks: int, *,
+             draws: Optional[Draws] = None) -> torch.Tensor:
+        """Latent-space walks: one random base latent per walk, ``num_dims``
+        random channels re-drawn at every step (constant over the grid),
+        decoded through the quantizer. Draws in JAX's order: base, step
+        values, channels. Returns [num_walks * num_steps, H, W, C]."""
+        draws = self._draws(draws)
+        hw, D = self.nb_latents, self.embedding_dim
+        B = num_steps * num_walks
+        base = draws.normal((1, hw, hw, D)).expand(B, hw, hw, D)
+        vals = draws.normal((B, num_dims))[:, None, None, :].expand(
+            B, hw, hw, num_dims)
+        # per-walk channel choice, shared by that walk's steps
+        idx = draws.randint(0, D, (num_walks, num_dims)).long()
+        idx = idx.repeat_interleave(num_steps, dim=0)           # [B, d]
+        onehots = F.one_hot(idx, D).to(base.dtype)              # [B, d, D]
+        keep = 1.0 - torch.clamp(onehots.sum(1), 0, 1)          # [B, D]
+        replaced = torch.einsum("bhwd,bdD->bhwD", vals, onehots)
+        return self._decode_quantized(base * keep[:, None, None, :]
+                                      + replaced)
+
+    def navigate(self, x: torch.Tensor, y: torch.Tensor, steps: int,
+                 save_inds: bool = False):
+        """Latent traversal from image ``x`` to image ``y`` [H, W, C]:
+        ``steps`` intermediates linearly interpolated in pre-quantization
+        latent space, each quantized and decoded. Returns [steps+2, H, W,
+        C] (and the codebook indices when ``save_inds``)."""
+        enc = self.encoder(torch.stack([x, y]))
+        t = torch.linspace(0.0, 1.0, steps + 2, dtype=enc.dtype,
+                           device=enc.device)[:, None, None, None]
+        quantized, _, inds = self.vq_layer((1.0 - t) * enc[0] + t * enc[1],
+                                           inds=True)
+        images = self.decoder(quantized)
+        return (images, inds) if save_inds else images
 
     def loss_function(self, outputs: Dict, **kwargs) -> Dict:
         recons, target = outputs["recons"], outputs["input"]

@@ -1,9 +1,10 @@
-"""Vector quantizers (single + multi-codebook), eval path.
+"""Vector quantizers (single + multi-codebook).
 
 Counterpart of ``ctvae_tpu/models/quantizers.py``: the two-phase API
 (``compute_inds`` / ``compute_latents``) the causal transition splices
-between. NHWC latents; the codebook search runs through
-``ops/vq.py::l2_argmin`` (the CUDA kernel on CUDA tensors); quantized
+between, and the one-call quantizer (``__call__``) of the MCQVAE and of
+``sample`` / ``walk`` / ``navigate``. NHWC latents; the codebook search
+runs through ``ops/vq.py::l2_argmin`` (the CUDA kernel on CUDA tensors); quantized
 vectors come from a direct gather. ``slicing="chunk"`` gives disjoint
 per-codebook channel chunks, ``"overlap"`` the reference's stride-1
 slices.
@@ -56,6 +57,15 @@ class VectorQuantizerMS(nn.Module):
         vq_loss = commitment * self.beta + embedding_loss
         return latents + (quantized - latents).detach(), vq_loss
 
+    def forward(self, latents: torch.Tensor, inds: bool = False):
+        """Search + retrieval: (quantized, vq_loss), and the indices when
+        ``inds``."""
+        encoding_inds = self.compute_inds(latents)
+        quantized, vq_loss = self.compute_latents(latents, encoding_inds)
+        if inds:
+            return quantized, vq_loss, encoding_inds
+        return quantized, vq_loss
+
 
 class MultipleCodebookVectorQuantizer(nn.Module):
     """C codebooks, each owning ``embedding_dim / C`` channels."""
@@ -102,3 +112,6 @@ class MultipleCodebookVectorQuantizer(nn.Module):
             outs.append(sub_q)
             losses.append(sub_loss)
         return torch.cat(outs, dim=-1), sum(losses)
+
+    # search + retrieval over the C codebooks; indices [B, C, H, W]
+    forward = VectorQuantizerMS.forward

@@ -1,4 +1,5 @@
-"""Shared helpers for the ops layer: dtype promotion and device choice."""
+"""Shared helpers for the ops layer: dtype promotion, device choice and
+the kernel wrappers' argument checks."""
 
 from __future__ import annotations
 
@@ -39,3 +40,21 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+#: bytes of shared memory a block may use on Hopper
+SMEM_LIMIT = 232448
+
+
+def check_smem(what: str, smem: int) -> None:
+    """Raise when a launch would ask for more shared memory than a block
+    may have (the launch would be refused)."""
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{what} needs {smem} bytes of shared memory, more "
+                         f"than {SMEM_LIMIT}")
+
+
+def warps_for(n: int) -> int:
+    """Warps per block for a kernel whose warps loop over ``n`` rows: at
+    most 16, chosen so the rows split evenly (n = 65 -> 13 warps x 5)."""
+    return -(-n // -(-n // 16)) if n > 0 else 1

@@ -13,9 +13,12 @@ mean-filled self-loops):
   zero row), and node t's output is the alpha-weighted sum of ``Wl x_s``.
 
 The full-head attention (``forward``) runs in the CUDA kernels of
-``ops/gat_flash.py`` on CUDA tensors (forward and backward);
-``heads_call`` is plain PyTorch with autograd, as its JAX counterpart runs
-outside Pallas.
+``ops/gat_flash.py`` on CUDA tensors (forward and backward). ``heads_call``
+computes its per-sample-head logits in the CUDA kernels of
+``ops/gat_logits.py`` (forward and backward, the counterpart of JAX's
+``fused_gat_logits`` and its one-walk VJP); its masked softmax and
+aggregation are plain PyTorch with autograd. On CPU tensors every kernel
+runs its plain version.
 """
 
 from __future__ import annotations
@@ -112,6 +115,7 @@ class DenseGATv2Layer(nn.Module):
         """Only the per-sample heads ``head_idx`` [B, K]: identical to
         ``forward`` followed by a gather of those heads. Returns
         [B, T, K, F] (heads not concatenated)."""
+        from .gat_logits import fused_gat_logits
         B, T, _ = x.shape
         H, Fo = self.heads, self.out_features
         K = head_idx.shape[1]
@@ -122,7 +126,7 @@ class DenseGATv2Layer(nn.Module):
         we = self.lin_edge.reshape(H, Fo)[head_idx]            # [B, K, F]
         att = self.att[head_idx]
         bias = self.bias.reshape(H, Fo)[head_idx]
-        logits = gat_logits(xl, xr, adj, we, att, self.negative_slope)
+        logits = fused_gat_logits(xl, xr, adj, we, att, self.negative_slope)
         alpha = masked_incoming_softmax(logits, edge_mask)
         out = torch.einsum("bstk,bskf->btkf", alpha, xl)
         return out + bias[:, None]

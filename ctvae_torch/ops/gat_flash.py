@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .common import check_cuda_tensor
+from .common import check_cuda_tensor, check_smem, warps_for
 from .gat import gat_logits, masked_incoming_softmax
 
 #: launches of the forward / backward kernel since the last reset (set to 0)
@@ -26,7 +26,6 @@ launches = 0
 bwd_launches = 0
 
 _MAX_F = 128         # features per head the kernels keep in registers
-_SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 
 
 def flash_gat_plain(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
@@ -53,12 +52,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _warps(T: int) -> int:
-    """Warps per block (one target each, looping): at most 16, chosen so
-    the targets split evenly (T = 65 -> 13 warps x 5 targets)."""
-    return -(-T // -(-T // 16)) if T > 0 else 1
-
-
 def _check(xl, xr, adj, mask, we, att, ns) -> Tuple[int, ...]:
     B, S, H, F = xl.shape
     T = xr.shape[1]
@@ -76,12 +69,6 @@ def _check(xl, xr, adj, mask, we, att, ns) -> Tuple[int, ...]:
     return B, S, T, H, F
 
 
-def _check_smem(what: str, smem: int) -> None:
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{what} needs {smem} bytes of shared memory, more "
-                         f"than {_SMEM_LIMIT}")
-
-
 def flash_gat_cuda(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
                    mask: torch.Tensor, we: torch.Tensor, att: torch.Tensor,
                    ns: float, *, keep_alpha: bool = False
@@ -91,8 +78,8 @@ def flash_gat_cuda(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
     global launches
     B, S, T, H, F = _check(xl, xr, adj, mask, we, att, ns)
     lib = _lib()
-    nw = _warps(T)
-    _check_smem(f"flash_gat: S={S}, F={F}", lib.gat_fwd_smem_bytes(S, F, nw))
+    nw = warps_for(T)
+    check_smem(f"flash_gat: S={S}, F={F}", lib.gat_fwd_smem_bytes(S, F, nw))
     out = torch.empty((B, T, H, F), dtype=torch.float32, device=xl.device)
     alpha = (torch.empty((B, H, T, S), dtype=torch.float32, device=xl.device)
              if keep_alpha else None)
@@ -119,8 +106,8 @@ def flash_gat_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
     check_cuda_tensor("alpha", alpha, torch.float32, (B, H, T, S))
     check_cuda_tensor("dout", dout, torch.float32, (B, T, H, F))
     lib = _lib()
-    nw = _warps(T)
-    _check_smem(f"flash_gat backward: S={S}, T={T}, F={F}",
+    nw = warps_for(T)
+    check_smem(f"flash_gat backward: S={S}, T={T}, F={F}",
                 lib.gat_bwd_smem_bytes(S, T, F, nw))
     dxl, dxr = torch.empty_like(xl), torch.empty_like(xr)
     dadj_h = xl.new_empty((B, H, T, S))

@@ -1,7 +1,8 @@
 """Serving entry points of the port.
 
 Counterpart of ``ctvae_tpu/serving/export.py::make_inference_fn`` for the
-CT-MCQ-VAE: the same entry points and signatures minus the JAX key. Each
+CT-MCQ-VAE and the MCQVAE: the same entry points and signatures minus the
+JAX key. Each
 callable takes an optional ``generator=`` (a ``torch.Generator`` on the
 model's device) for its random draws and runs under
 ``torch.inference_mode()``. Exported artifacts are not ported yet.
@@ -26,9 +27,12 @@ def _is_ct(model) -> bool:
 
 
 def available_fns(model) -> Tuple[str, ...]:
-    """Entry points the port serves for ``model``: the JAX package's, less
-    ``sample`` (decoding random latents), which is not ported yet."""
+    """Entry points the port serves for ``model``, as the JAX package
+    serves them: ``sample`` for a model with a usable prior, the action
+    entry points for a CT model."""
     fns = ["reconstruct", "encode"]
+    if hasattr(model, "sample"):
+        fns.append("sample")
     if _is_ct(model):
         fns += ["apply_action", "classify_action"]
     return tuple(fns)
@@ -38,11 +42,14 @@ def _draws(model, generator: Optional[torch.Generator]) -> Draws:
     return Draws(generator, model.device)
 
 
-def make_inference_fn(model, name: str) -> Callable:
+def make_inference_fn(model, name: str, *, num_samples: int = 64
+                      ) -> Callable:
     """The inference callable of entry point ``name``:
 
-    * ``reconstruct(x)``: base-mode forward, images [B, H, W, C];
+    * ``reconstruct(x)``: images [B, H, W, C] (a CT model's base-mode
+      forward, through the identity transition);
     * ``encode(x)``: the encoder latents, flattened per sample;
+    * ``sample()``: ``num_samples`` images decoded from random latents;
     * ``apply_action(x, input_y, action)``: action-mode forward, images;
     * ``classify_action(x, input_y)``: causal-mode softmin probabilities
       over the actions [B, A].
@@ -59,6 +66,9 @@ def make_inference_fn(model, name: str) -> Callable:
         def fn(x, *, generator=None):
             z = model.encode(x)[0]
             return z.reshape(z.shape[0], -1)
+    elif name == "sample":
+        def fn(*, generator=None):
+            return model.sample(num_samples, draws=_draws(model, generator))
     elif name == "apply_action":
         def fn(x, input_y, action, *, generator=None):
             return model(x, input_y=input_y, action=action, mode="action",

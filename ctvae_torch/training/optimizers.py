@@ -92,6 +92,19 @@ class Optimizer:
         self.count += 1
         return True
 
+    def state_dict(self) -> Dict[str, Any]:
+        """Adam's moments and step, the schedule position and the
+        accumulation in progress."""
+        return {"adam": self.adam.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "acc": self._acc}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.count, self.mini_step = state["count"], state["mini_step"]
+        self._acc = (None if state["acc"] is None else
+                     [a.to(p.device) for a, p in zip(state["acc"],
+                                                     self.params)])
+
 
 def _trained(model: nn.Module, prefix: Optional[str]) -> List[nn.Parameter]:
     """The parameters under the top-level submodules named ``prefix...``

@@ -36,6 +36,23 @@ class TrainState:
     optimizers: List[Any]
     generator: torch.Generator
 
+    def state_dict(self) -> Dict[str, Any]:
+        """Everything a resumed run needs to continue bit for bit: the
+        parameters, each optimizer's state, the step and the generator."""
+        return {"model": self.model.state_dict(),
+                "optimizers": [o.state_dict() for o in self.optimizers],
+                "step": self.step, "generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.model.load_state_dict(state["model"])
+        if len(state["optimizers"]) != len(self.optimizers):
+            raise ValueError(f"checkpoint has {len(state['optimizers'])} "
+                             f"optimizers, the state {len(self.optimizers)}")
+        for opt, saved in zip(self.optimizers, state["optimizers"]):
+            opt.load_state_dict(saved)
+        self.step = int(state["step"])
+        self.generator.set_state(state["generator"])
+
 
 def create_train_state(model: nn.Module, optimizers: List[Any],
                        seed: int = 0) -> TrainState:

@@ -296,3 +296,80 @@ def test_small_model_gradients_on_card_match_cpu(card, mode):
         scale = max(1.0, float(q.grad.abs().max()))
         assert float((p.grad.cpu() - q.grad).abs().max()) <= 1e-4 * scale, \
             name
+
+
+def _logits_args(rng, B, S, T, K, F, per_sample):
+    """Per-head logits inputs with exact zeros of pre: xr[b, 2] = -xl[b, 1]
+    and adj[b, 1, 2] = 0, so pre[b, 1, 2] = 0 for every head and
+    feature."""
+    xl, xr = _t(rng, B, S, K, F), _t(rng, B, T, K, F)
+    xr[:, 2] = -xl[:, 1]
+    pshape = (B, K, F) if per_sample else (K, F)
+    we, att = _t(rng, *pshape, scale=0.3), _t(rng, *pshape, scale=0.3)
+    adj = torch.from_numpy(rng.uniform(size=(B, S, T)).astype(
+        np.float32)).cuda()
+    adj[:, 1, 2] = 0.0
+    return xl, xr, adj, we, att
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("S,T,K,F", [(9, 9, 2, 5), (7, 11, 3, 40),
+                                     (65, 65, 2, 64), (65, 65, 13, 100),
+                                     (33, 20, 1, 128)])
+def test_gat_logits_kernels_match_plain(card, per_sample, S, T, K, F):
+    """The per-head logits forward against ``gat_logits``, and its backward
+    against the plain version's autograd (shared heads summed over the
+    batch, per-sample heads their own rows), with exact zeros of pre and
+    zero upstream gradients (the softmax's non-edges); two backward runs
+    agree bit for bit."""
+    from ctvae_torch.ops import gat_logits as gl
+    from ctvae_torch.ops.gat import gat_logits
+    rng = np.random.default_rng(S * T + K * F + per_sample)
+    B = 3
+    args = _logits_args(rng, B, S, T, K, F, per_sample)
+    before = gl.launches
+    got = gl.fused_gat_logits(*args, 0.2)
+    torch.cuda.synchronize()
+    assert gl.launches == before + 1 and got.grad_fn is None
+    want = gat_logits(*args, 0.2)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    d_e = _t(rng, B, S, T, K)
+    d_e[:, :, 3] = 0.0
+    leaves = [a.clone().requires_grad_() for a in args]
+    before = gl.bwd_launches
+    out = gl.fused_gat_logits(*leaves, 0.2)
+    assert type(out.grad_fn).__name__ == "FusedGATLogitsBackward"
+    grads = torch.autograd.grad(out, leaves, d_e)
+    torch.cuda.synchronize()
+    assert gl.bwd_launches == before + 1
+    want = torch.autograd.grad(gat_logits(*leaves, 0.2), leaves, d_e)
+    _close_grads(("dxl", "dxr", "dadj", "dwe", "datt"), grads, want)
+    again = torch.autograd.grad(gl.fused_gat_logits(*leaves, 0.2), leaves,
+                                d_e)
+    for g, h in zip(grads, again):      # no atomics: bit for bit
+        assert torch.equal(g, h)
+
+
+def test_gat_logits_wrapper_rejects_what_the_kernels_do_not_take(card):
+    from ctvae_torch.ops import gat_logits as gl
+    args = _logits_args(np.random.default_rng(0), 2, 5, 5, 2, 8, True)
+    xl, xr, adj, we, att = args
+    with pytest.raises(ValueError):          # a CPU tensor
+        gl.fused_gat_logits_cuda(xl.cpu(), xr, adj, we, att, 0.2)
+    with pytest.raises(TypeError):
+        gl.fused_gat_logits_cuda(xl.double(), xr, adj, we, att, 0.2)
+    with pytest.raises(ValueError):          # not contiguous
+        gl.fused_gat_logits_cuda(xl.transpose(1, 2).contiguous().transpose(
+            1, 2), xr, adj, we, att, 0.2)
+    with pytest.raises(ValueError):          # heads of another batch
+        gl.fused_gat_logits_cuda(xl, xr, adj, we[:1], att[:1], 0.2)
+    with pytest.raises(ValueError):          # more features than 4 per lane
+        g = torch.zeros(1, 3, 1, 200, device="cuda")
+        w = torch.zeros(1, 200, device="cuda")
+        gl.fused_gat_logits_cuda(g, g, adj[:1, :3, :3].contiguous(), w, w,
+                                 0.2)
+    with pytest.raises(ValueError):          # d_e of another shape
+        gl.fused_gat_logits_bwd_cuda(xl, xr, adj, we, att,
+                                     torch.zeros(2, 5, 5, 1, device="cuda"),
+                                     0.2)

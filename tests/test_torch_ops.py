@@ -18,6 +18,7 @@ from ctvae_tpu.ops.vq import l2_argmin_pallas, l2_argmin_xla
 from ctvae_torch.convert import from_jax_params
 from ctvae_torch.ops import gat as tgat
 from ctvae_torch.ops.gat_flash import flash_gat, flash_gat_plain
+from ctvae_torch.ops.gat_logits import fused_gat_logits
 from ctvae_torch.ops.pairwise import fused_pairwise_scores, pairwise_mlp_scores
 from ctvae_torch.ops.pairwise_flash import flash_pairwise
 from ctvae_torch.ops.vq import l2_argmin, l2_argmin_plain
@@ -293,3 +294,64 @@ def test_masked_softmax_max_gets_no_gradient():
     assert not any(n.startswith("Amax") for n in _grad_fns(alpha.grad_fn))
     (got,) = torch.autograd.grad(alpha, z, torch.from_numpy(c))
     close(t2n(got), want, atol=1e-7, rtol=1e-6)
+
+
+# --- the per-head logits (the third slice) ----------------------------------
+
+def _logits_inputs(seed, B, S, T, H, F, per_sample):
+    rng = np.random.default_rng(seed)
+    xl = rng.normal(size=(B, S, H, F)).astype(np.float32)
+    xr = rng.normal(size=(B, T, H, F)).astype(np.float32)
+    adj = rng.uniform(size=(B, S, T)).astype(np.float32)
+    adj[rng.uniform(size=adj.shape) < 0.4] = 0.0
+    pshape = (B, H, F) if per_sample else (H, F)
+    we = (rng.normal(size=pshape) * 0.3).astype(np.float32)
+    att = (rng.normal(size=pshape) * 0.3).astype(np.float32)
+    return xl, xr, adj, we, att
+
+
+def test_plain_logits_match_pallas_row6():
+    """``ops/gat.py::gat_logits`` and the CPU path of ``fused_gat_logits``
+    against ``scripts/bench_gat.py::pallas_logits`` (the TPU kernel the
+    CUDA forward replaces) in TPU interpret mode, shared heads, S = T."""
+    import importlib.util
+    import os
+
+    from jax.experimental.pallas import tpu as pltpu
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "bench_gat.py")
+    spec = importlib.util.spec_from_file_location("bench_gat", path)
+    bench_gat = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_gat)
+    B, S, H, F = 2, 9, 3, 16
+    args = _logits_inputs(9, B, S, S, H, F, False)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(bench_gat.pallas_logits()(*map(jnp.asarray, args)))
+    want = want.reshape(B, H, S, S).transpose(0, 2, 3, 1)
+    ours = t2n(tgat.gat_logits(*map(torch.from_numpy, args), bench_gat.NS))
+    close(ours, want)
+    close(t2n(fused_gat_logits(*map(torch.from_numpy, args), bench_gat.NS)),
+          ours, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("S,T", [(7, 7), (9, 5)])
+def test_fused_gat_logits_matches_jax(per_sample, S, T):
+    """``fused_gat_logits`` (its CPU path: the plain version and autograd)
+    against JAX's ``fused_gat_logits`` and ``jax.grad`` through its
+    one-walk custom VJP: values and all five gradients, shared heads
+    (dwe / datt summed over the batch) and per-sample heads."""
+    import jax
+    args = _logits_inputs(S * T + per_sample, 3, S, T, 2, 5, per_sample)
+    d_e = np.random.default_rng(S - T).normal(size=(3, S, T, 2)).astype(
+        np.float32)
+    jargs = tuple(map(jnp.asarray, args))
+    want = jgat.fused_gat_logits(*jargs, 0.2)
+    want_g = jax.grad(lambda *a: jnp.sum(jgat.fused_gat_logits(*a, 0.2)
+                                         * d_e), argnums=(0, 1, 2, 3, 4))(
+        *jargs)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    out = fused_gat_logits(*leaves, 0.2)
+    close(t2n(out), want)
+    _grad_close(torch.autograd.grad(out, leaves, torch.from_numpy(d_e)),
+                want_g)

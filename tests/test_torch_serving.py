@@ -30,18 +30,19 @@ def pair():
     return build_pair(seed=0)
 
 
-@pytest.mark.parametrize("name", ["reconstruct", "encode", "apply_action",
-                                  "classify_action"])
+@pytest.mark.parametrize("name", ["reconstruct", "encode", "sample",
+                                  "apply_action", "classify_action"])
 def test_entry_points_match_jax(monkeypatch, pair, name):
     jm, variables, tm = pair
     x, y, a = batch(7)
-    args = {"reconstruct": (x,), "encode": (x,), "apply_action": (x, y, a),
-            "classify_action": (x, y)}[name]
-    jfn = jax.jit(jexport.make_inference_fn(jm, variables, name))
+    args = {"reconstruct": (x,), "encode": (x,), "sample": (),
+            "apply_action": (x, y, a), "classify_action": (x, y)}[name]
+    jfn = jax.jit(jexport.make_inference_fn(jm, variables, name,
+                                            num_samples=5))
     with recorded_draws(monkeypatch, seed=8) as rec:
         want = jfn(jax.random.PRNGKey(0), *map(jnp.asarray, args))
     draws = ReplayDraws(rec.draws)
-    fn = inference.make_inference_fn(tm, name)
+    fn = inference.make_inference_fn(tm, name, num_samples=5)
     # the entry point builds its provider from ``generator``; hand it the
     # replayed JAX draws instead
     monkeypatch.setattr(inference, "_draws", lambda model, gen: draws)
@@ -67,13 +68,18 @@ def test_entry_points_run_with_a_generator(pair):
 
 
 def test_available_fns_and_unknown_name(pair):
+    from ctvae_tpu.models import build_model as jax_build
+    from ctvae_torch.models import build_model
+    from torch_port_common import MCQ
     jm, _, tm = pair
     assert inference.INFERENCE_FNS == jexport.INFERENCE_FNS
-    # every JAX entry point but ``sample``, which is not ported yet
-    assert inference.available_fns(tm) == tuple(
-        n for n in jexport.available_fns(jm) if n != "sample")
+    # every JAX entry point, for the CT model and for the MCQVAE
+    assert inference.available_fns(tm) == jexport.available_fns(jm)
+    assert inference.available_fns(build_model(dict(MCQ), device="cpu")) \
+        == jexport.available_fns(jax_build(dict(MCQ))) == (
+            "reconstruct", "encode", "sample")
     with pytest.raises(ValueError):
-        inference.make_inference_fn(tm, "sample")
+        inference.make_inference_fn(tm, "decode")
 
 
 def test_build_model_defaults_to_cuda(monkeypatch):

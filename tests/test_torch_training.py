@@ -24,45 +24,23 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 import yaml
 
-from ctvae_tpu.training import optimizers as jopt
 from ctvae_tpu.training import state as jstate
 from ctvae_torch.convert import from_jax_params
 from ctvae_torch.training import optimizers as topt
 from ctvae_torch.training import state as tstate
-from torch_port_common import (ReplayDraws, batch, build_pair, close,
-                               recorded_draws, t2n)
+from torch_port_common import (ReplayDraws, assert_step_matches, batch,
+                               build_pair, close, jax_train_step,
+                               one_torch_thread, recorded_draws, t2n)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXP = dict(LR=5e-4, scheduler_gamma=0.994, weight_decay=0.0)
 MODES = ("base", "action", "causal")
-
-
-def _keep_grads():
-    """An optax transform that passes updates on and keeps them as its
-    state: the raw gradients of the step."""
-    return optax.GradientTransformation(
-        lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
-        lambda u, s, p=None: (u, u))
-
-
-def _jax_step(jm, variables, mode, b, monkeypatch, seed):
-    params = variables["params"]
-    tx = optax.chain(_keep_grads(), jopt.build_optimizers(EXP, params, 4)[0])
-    state = jstate.TrainState(step=jnp.array(0, jnp.int32), params=params,
-                              model_state={}, opt_states=(tx.init(params),),
-                              rng=jax.random.PRNGKey(seed))
-    step = jax.jit(jstate.make_train_step(
-        jm, [tx], M_N=1.0, fwd_kwargs_keys=("action", "input_y"),
-        static_fwd_kwargs={"mode": mode}))
-    with recorded_draws(monkeypatch, seed=seed) as rec:
-        new, metrics = step(state, b)
-    return (jax.device_get(new.params), jax.device_get(new.opt_states[0][0]),
-            jax.device_get(metrics), rec.draws)
 
 
 @pytest.fixture(scope="module")
@@ -77,9 +55,9 @@ def test_train_step_matches_jax(monkeypatch, pair, mode):
     tm = copy.deepcopy(tm0)
     x, y, a = batch(11)
     b = {"image": x, "input_y": y, "action": a}
-    j_params, j_grads, j_metrics, draws = _jax_step(
+    j_params, j_grads, j_metrics, draws = jax_train_step(
         jm, variables, mode, {k: jnp.asarray(v) for k, v in b.items()},
-        monkeypatch, seed=12)
+        monkeypatch, seed=12, exp=EXP)
     assert any(k == "bernoulli" for k, _ in draws)   # PE dropout ran
     replay = ReplayDraws(draws)
     monkeypatch.setattr(tstate, "Draws", lambda gen, device: replay)
@@ -95,18 +73,7 @@ def test_train_step_matches_jax(monkeypatch, pair, mode):
         close(t2n(metrics[k]), v)
     close(t2n(metrics["grad_norm"]), j_metrics["grad_norm"], atol=0,
           rtol=1e-5)
-
-    want_g = from_jax_params(j_grads, tm)
-    want_p = from_jax_params(j_params, tm)
-    for name, p in tm.named_parameters():
-        g = p.grad if p.grad is not None else torch.zeros_like(p)
-        scale = max(1.0, float(want_g[name].abs().max()))
-        close(t2n(g), want_g[name].numpy(), atol=1e-5 * scale, rtol=0)
-        # Adam's first step moves p by LR g / (|g| + 1e-8), which changes
-        # by at most LR / 1e-8 times a change of g: the gradients' own
-        # difference bounds the parameters'
-        tol = 2e-6 + EXP["LR"] / 1e-8 * (g - want_g[name]).abs()
-        assert bool(((p.detach() - want_p[name]).abs() <= tol).all()), name
+    assert_step_matches(tm, j_params, j_grads, EXP["LR"])
 
 
 def test_eval_step_matches_jax(monkeypatch, pair):
@@ -248,15 +215,20 @@ def test_chip_smoke_exp_params_match_yaml():
                                        "action_dim": 8}
 
 
-def test_run_trains_synthetic_ct_on_cpu():
+def test_run_trains_synthetic_ct_on_cpu(tmp_path, monkeypatch):
     """``python -m ctvae_torch.run -c configs/synthetic_ct.yaml --device
-    cpu``: one epoch of all three modes, finite metrics."""
+    cpu``: one epoch of all three modes, finite metrics, checkpoints under
+    ``logs/<name>/version_0/checkpoints`` (the config's relative
+    ``save_dir``, here below a temporary working directory)."""
     from ctvae_torch import run
+    monkeypatch.chdir(tmp_path)
     out = run.main(["-c", os.path.join(REPO, "configs", "synthetic_ct.yaml"),
                     "--device", "cpu"])
     assert {out[f"train_steps_{m}"] for m in MODES} == {3.0}
     assert all(np.isfinite(v) for v in out.values())
     assert "val_causal_acc" in out and "val_loss" in out
+    ckpts = tmp_path / "logs" / "CTMCQVAE" / "version_0" / "checkpoints"
+    assert sorted(os.listdir(ckpts)) == ["index.json", "last", "step_9"]
 
 
 def test_unported_trainer_options_raise(pair):

@@ -5,8 +5,9 @@ on both sides.
 JAX and PyTorch give different numbers from one seed, so the tests make
 every draw with numpy: while the JAX model is traced, ``jax.random.gumbel``
 / ``uniform`` / ``bernoulli`` (flax's dropout calls the last through
-``jax.random`` at call time) are replaced by a recorder that hands out numpy
-draws of the requested shape (constants of the jitted program); the
+``jax.random`` at call time) / ``normal`` / ``randint`` (``sample`` and
+``walk``) are replaced by a recorder that hands out numpy draws of the
+requested shape (constants of the jitted program); the
 port's ``ReplayDraws`` provider then hands out the same arrays in the same
 order (and checks kind and shape). The JAX side runs under ``jax.jit``:
 one compile of the whole forward costs far less on the CPU than running
@@ -22,6 +23,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 # small widths: img 16, hidden [8, 16], embedding 8, 2 codebooks, N = 8,
@@ -31,7 +33,22 @@ SMALL = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8, action_dim=8,
              causal_hidden_dims=[16, 8], beta=0.1, gamma=1.5, c_alpha=0.01,
              c_beta=0.4, c_delta=0.01, c_epsilon=0.1, noise="off")
 
+# the MCQVAE of the same backbone (the two-stage recipe's first stage)
+MCQ = dict(name="MCQVAE", in_channels=3, embedding_dim=8, hidden_dims=[8, 16],
+           num_embeddings=8, img_size=16, codebooks=2, beta=0.1)
+
 ATOL, RTOL = 1e-5, 1e-4   # default value tolerance (f32 on both sides)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Torch on one thread for the test: the small models train fastest
+    so, and test workers that each take a thread per core oversubscribe
+    the CPU and slow torch's parallel loops by an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_rngs(seed: int = 0):
@@ -49,6 +66,16 @@ class DrawRecorder:
         self.orig = {"gumbel": jax.random.gumbel,
                      "uniform": jax.random.uniform,
                      "bernoulli": jax.random.bernoulli}
+
+    def normal(self, key, shape=(), dtype=jnp.float32, **kw):
+        a = self.rng.standard_normal(size=tuple(shape)).astype(np.float32)
+        self.draws.append(("normal", a))
+        return jnp.asarray(a, dtype)
+
+    def randint(self, key, shape, minval, maxval, dtype=jnp.int32, **kw):
+        a = self.rng.integers(int(minval), int(maxval), size=tuple(shape))
+        self.draws.append(("randint", a))
+        return jnp.asarray(a, dtype)
 
     def gumbel(self, key, shape=(), dtype=jnp.float32, **kw):
         a = self.rng.gumbel(size=tuple(shape)).astype(np.float32)
@@ -81,6 +108,8 @@ def recorded_draws(monkeypatch, seed: int = 0):
         m.setattr(jax.random, "gumbel", rec.gumbel)
         m.setattr(jax.random, "uniform", rec.uniform)
         m.setattr(jax.random, "bernoulli", rec.bernoulli)
+        m.setattr(jax.random, "normal", rec.normal)
+        m.setattr(jax.random, "randint", rec.randint)
         yield rec
 
 
@@ -106,6 +135,12 @@ class ReplayDraws:
     def bernoulli(self, p, shape):
         return self._next("bernoulli", shape)
 
+    def normal(self, shape):
+        return self._next("normal", shape)
+
+    def randint(self, low, high, shape):
+        return self._next("randint", shape)
+
     def done(self):
         return not self.draws
 
@@ -129,6 +164,54 @@ def batch(seed: int, B: int = 3, cfg=SMALL):
     a = np.eye(cfg["action_dim"], dtype=np.float32)[
         rng.integers(0, cfg["action_dim"], B)]
     return x, y, a
+
+
+def keep_grads():
+    """An optax transform that passes updates on and keeps them as its
+    state: the raw gradients of the step."""
+    import optax
+    return optax.GradientTransformation(
+        lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
+        lambda u, s, p=None: (u, u))
+
+
+def jax_train_step(jm, variables, mode, b, monkeypatch, seed, exp):
+    """One jitted ``make_train_step`` of the JAX package (optimizer chain
+    of ``exp`` behind ``keep_grads``) on batch ``b``, its draws recorded.
+    Returns (updated params, raw gradients, metrics, draws)."""
+    import optax
+
+    from ctvae_tpu.training import optimizers as jopt
+    from ctvae_tpu.training import state as jstate
+    params = variables["params"]
+    tx = optax.chain(keep_grads(), jopt.build_optimizers(exp, params, 4)[0])
+    state = jstate.TrainState(step=jnp.array(0, jnp.int32), params=params,
+                              model_state={}, opt_states=(tx.init(params),),
+                              rng=jax.random.PRNGKey(seed))
+    step = jax.jit(jstate.make_train_step(
+        jm, [tx], M_N=1.0, fwd_kwargs_keys=("action", "input_y"),
+        static_fwd_kwargs={"mode": mode}))
+    with recorded_draws(monkeypatch, seed=seed) as rec:
+        new, metrics = step(state, b)
+    return (jax.device_get(new.params), jax.device_get(new.opt_states[0][0]),
+            jax.device_get(metrics), rec.draws)
+
+
+def assert_step_matches(tm, j_params, j_grads, lr):
+    """Each gradient leaf of the port's model within 1e-5 x max(1, max
+    |g|) of JAX's, and each parameter after Adam's first step within 2e-6
+    plus ``lr`` / 1e-8 times its gradient's difference: Adam moves a
+    parameter by lr g / (|g| + 1e-8), so the gradients' own difference
+    bounds the parameters'."""
+    from ctvae_torch.convert import from_jax_params
+    want_g = from_jax_params(j_grads, tm)
+    want_p = from_jax_params(j_params, tm)
+    for name, p in tm.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        scale = max(1.0, float(want_g[name].abs().max()))
+        close(t2n(g), want_g[name].numpy(), atol=1e-5 * scale, rtol=0)
+        tol = 2e-6 + lr / 1e-8 * (g - want_g[name]).abs()
+        assert bool(((p.detach() - want_p[name]).abs() <= tol).all()), name
 
 
 def build_pair(cfg=SMALL, seed: int = 0):
