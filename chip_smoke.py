@@ -370,21 +370,65 @@ def _check_pairwise_bwd(gen) -> dict:
     return row
 
 
+def _gat_bwd_plain(args, dout, chunk: int):
+    """The plain version's autograd gradients, in chunks of ``chunk``
+    samples (at A*B = 192 whole, its temporaries take several 4.2 GB
+    tensors): dxl, dxr and dadj are per sample and concatenate, dwe and
+    datt sum over the batch. Returns (gradients, ms of the backward calls
+    summed over the chunks)."""
+    from ctvae_torch.ops.gat_flash import flash_gat_plain
+    xl, xr, adj, mask, we, att, ns = args
+    parts, ms = [], 0.0
+    for c in range(0, xl.shape[0], chunk):
+        leaves = [t[c:c + chunk].clone().requires_grad_()
+                  for t in (xl, xr, adj)]
+        leaves += [we.clone().requires_grad_(), att.clone().requires_grad_()]
+        out = flash_gat_plain(leaves[0], leaves[1], leaves[2],
+                              mask[c:c + chunk], leaves[3], leaves[4], ns)
+        d = dout[c:c + chunk]
+        parts.append(torch.autograd.grad(out, leaves, d, retain_graph=True))
+        ms += time_ms(lambda: torch.autograd.grad(out, leaves, d,
+                                                  retain_graph=True), reps=5)
+        del out
+    grads = [torch.cat([p[i] for p in parts]) for i in range(3)]
+    grads += [sum(p[i] for p in parts) for i in (3, 4)]
+    return grads, ms
+
+
 def _check_gat_bwd(gen) -> dict:
-    """The backward kernel against the plain version's autograd at
-    B = 16 (the plain version's temporaries at A*B = 192 take several
-    4.2 GB tensors); the kernel is also timed at A*B = 192."""
+    """The backward kernel (through ``FlashGAT``) against the plain
+    version's autograd at B = 16 and at A*B = 192, the causal call, which
+    the row reports (the plain version there in 12 chunks of 16); two runs
+    must agree bit for bit (no atomics). Also logs the kernel's registers,
+    local (spill) bytes and resident blocks per SM."""
     from ctvae_torch.ops import gat_flash as gf
     A = MODEL_PARAMS["action_dim"]
-    row = {"name": "gat_bwd", "library_ms": None}
+    row = {"name": "gat_bwd", "library_ms": None, "max_abs_err": 0.0,
+           "ok": True}
+    notes = []
     for B in (BATCH, A * BATCH):
-        xl, xr, adj, mask, we, att, ns = _gat_inputs(gen, B)
+        args = _gat_inputs(gen, B)
+        xl, xr, adj, mask, we, att, ns = args
         T, H, F = xr.shape[1:]
         dout = torch.randn(B, T, H, F, generator=gen, device="cuda")
-        _, alpha = gf.flash_gat_cuda(xl, xr, adj, mask, we, att, ns,
-                                     keep_alpha=True)
-        kern = (xl, xr, adj, mask, we, att, alpha, dout, ns)
-        ms = time_ms(lambda: gf.flash_gat_bwd_cuda(*kern))
+
+        def run():
+            leaves = [t.clone().requires_grad_()
+                      for t in (xl, xr, adj, we, att)]
+            out = gf.flash_gat(leaves[0], leaves[1], leaves[2], mask,
+                               leaves[3], leaves[4], ns)
+            return torch.autograd.grad(out, leaves, dout)
+        got, again = run(), run()
+        want, plain = _gat_bwd_plain(args, dout, BATCH)
+        torch.cuda.synchronize()
+        err, rel, text = _grad_errors(("dxl", "dxr", "dadj", "dwe", "datt"),
+                                      got, want)
+        same = all(torch.equal(g, h) for g, h in zip(got, again))
+        no_grad_row = bool((got[1][:, 7] == 0).all())
+        del got, again, want
+        _, alpha = gf.flash_gat_cuda(*args, keep_alpha=True)
+        ms = time_ms(lambda: gf.flash_gat_bwd_cuda(
+            xl, xr, adj, mask, we, att, alpha, dout, ns))
         edges = int(mask.sum())
         # per edge, head and feature: pre (3), slope select and multiply,
         # the dxr add, the dadj, dwe, datt and dalpha fmas (2 each), the
@@ -392,36 +436,30 @@ def _check_gat_bwd(gen) -> dict:
         nbytes = 4 * (6 * B * T * H * F + 2 * B * T * T + B * H * T * T
                       + 4 * H * F) + B * T * T
         bnd = bound_ms(nbytes, 17.0 * edges * H * F)
-        note = (f"B={B} T={T} H={H} F={F}, {edges} edges: kernel {ms:.4f} "
-                f"ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ok"] &= rel <= GRAD_RTOL and same and no_grad_row
+        chunks = f" ({B // BATCH} chunks of {BATCH})" if B > BATCH else ""
+        notes.append(f"B={B} T={T} H={H} F={F}, {edges} edges: errors "
+                     f"{text}; two runs bit-identical: {same}; edgeless "
+                     f"target gets no gradient: {no_grad_row}; kernel "
+                     f"{ms:.4f} ms, plain autograd {plain:.4f} ms{chunks}, "
+                     f"bound {bnd[0]:.4f} ms ({bnd[1]})")
         if B == BATCH:
-            leaves = [t.clone().requires_grad_()
-                      for t in (xl, xr, adj, we, att)]
-
-            def run(fn, retain=False):
-                out = fn(leaves[0], leaves[1], leaves[2], mask, leaves[3],
-                         leaves[4], ns)
-                return out, torch.autograd.grad(out, leaves, dout,
-                                                retain_graph=retain)
-            _, got = run(gf.flash_gat)
-            plain_out, want = run(gf.flash_gat_plain, retain=True)
-            torch.cuda.synchronize()
-            err, rel, text = _grad_errors(("dxl", "dxr", "dadj", "dwe",
-                                           "datt"), got, want)
-            no_grad_row = bool((got[1][:, 7] == 0).all())
-            plain = time_ms(lambda: torch.autograd.grad(
-                plain_out, leaves, dout, retain_graph=True), reps=5)
-            del plain_out, want
+            row["ms_at_16"], row["bound_ms_at_16"] = ms, bnd[0]
+            row["plain_ms_at_16"] = plain
+        else:   # the row reports the causal call (A*B = 192)
             row.update(ms=ms, plain_ms=plain, bound_ms=bnd[0],
-                       bound_by=bnd[1], max_abs_err=err,
-                       ok=rel <= GRAD_RTOL and no_grad_row)
-            note += (f", plain autograd {plain:.4f} ms; errors {text}; "
-                     f"edgeless target gets no gradient: {no_grad_row}")
-        else:
-            row["ms_at_192"], row["bound_ms_at_192"] = ms, bnd[0]
-        row["note"] = "; ".join(filter(None, [row.get("note"), note]))
-        log(f"gat_bwd {note}")
+                       bound_by=bnd[1])
+        del alpha
         torch.cuda.empty_cache()
+    occ = gf.bwd_occupancy(T, T, F)
+    notes.append(f"{occ['regs']} registers, {occ['local_bytes']} local "
+                 f"(spill) bytes per thread, {occ['warps']} warps, "
+                 f"{occ['blocks_per_sm']} blocks per SM "
+                 f"(gat_bwd_blocks_per_sm)")
+    row["note"] = "; ".join(notes)
+    for n in notes:
+        log(f"gat_bwd {n}")
     return row
 
 
@@ -733,9 +771,10 @@ def phase_reference(model) -> None:
             raise AssertionError(f"{name}: card and CPU disagree by {err}")
 
 
-def _profile(label: str, fn) -> None:
+def _profile(label: str, fn) -> list:
     """Device time by kernel over one call of ``fn`` (already warm), and
-    the share of its wall time the card was busy."""
+    the share of its wall time the card was busy. Returns (kernel, ms,
+    count) rows, longest first."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -757,6 +796,7 @@ def _profile(label: str, fn) -> None:
         if i < 6 or re.search(r"namespace\)::(vq|pairwise|gat)_\w*kernel\(",
                               key):
             log(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
+    return rows
 
 
 def phase_profile(model) -> None:
@@ -840,10 +880,14 @@ def phase_train():
             f"{m['live_share']:.4f} of pairs with a gradient; kernel on "
             f"these inputs {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
             f"({m['bound_by']})")
-    for mode, step in steps.items():
-        _profile(f"train step {mode} B={BATCH}",
-                 lambda: step(state, batch))
-    return timings, launches, peak, logits_bwd
+    profiles = {mode: _profile(f"train step {mode} B={BATCH}",
+                               lambda: step(state, batch))
+                for mode, step in steps.items()}
+    gat_bwd_ms = sum(ms for key, ms, _ in profiles["causal"]
+                     if "gat_bwd_kernel" in key)
+    log(f"train causal: gat_bwd {gat_bwd_ms:.3f} ms of device time in the "
+        f"profiled step")
+    return timings, launches, peak, logits_bwd, gat_bwd_ms
 
 
 # --- phase 6: the training loop -------------------------------------------
@@ -1063,7 +1107,7 @@ def main() -> int:
     phase_reference(model)
     phase_profile(model)
     del model
-    train_ms, train_launches, peak, logits_bwd = phase_train()
+    train_ms, train_launches, peak, logits_bwd, gat_bwd_ms = phase_train()
     phase_loop()
     two_stage_launches = phase_two_stage()
     kernels = []
@@ -1084,6 +1128,8 @@ def main() -> int:
             # its time depends on the live pairs: also on the causal
             # step's own inputs (``ms`` is at the check's sampled graph)
             kernels[-1]["on_causal_step"] = logits_bwd["causal"]
+        if r["name"] == "gat_bwd":
+            kernels[-1]["profiled_causal_step_ms"] = gat_bwd_ms
     # every kernel runs on the training and two-stage paths, the forward
     # ones on the serving path too
     if any(k["launches_by_path"][p] == 0 for k in kernels

@@ -26,6 +26,7 @@ launches = 0
 bwd_launches = 0
 
 _MAX_F = 128         # features per head the kernels keep in registers
+_BWD_MAX_WARPS = 13  # the backward's launch bounds (csrc/gat.cu kBwdWarps)
 
 
 def flash_gat_plain(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
@@ -49,6 +50,8 @@ def _lib() -> ctypes.CDLL:
     lib.gat_bwd.restype = ctypes.c_int
     lib.gat_bwd_smem_bytes.argtypes = [i, i, i, i]
     lib.gat_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.gat_bwd_blocks_per_sm.argtypes = [i] * 4 + [p, p]
+    lib.gat_bwd_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -93,6 +96,12 @@ def flash_gat_cuda(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
     return out, alpha
 
 
+def _bwd_warps(T: int) -> int:
+    """Warps per backward block: as the forward's, at most 13, so that two
+    blocks fit on an SM."""
+    return min(warps_for(T), _BWD_MAX_WARPS)
+
+
 def flash_gat_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
                        mask: torch.Tensor, we: torch.Tensor, att: torch.Tensor,
                        alpha: torch.Tensor, dout: torch.Tensor, ns: float
@@ -106,7 +115,7 @@ def flash_gat_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
     check_cuda_tensor("alpha", alpha, torch.float32, (B, H, T, S))
     check_cuda_tensor("dout", dout, torch.float32, (B, T, H, F))
     lib = _lib()
-    nw = warps_for(T)
+    nw = _bwd_warps(T)
     check_smem(f"flash_gat backward: S={S}, T={T}, F={F}",
                 lib.gat_bwd_smem_bytes(S, T, F, nw))
     dxl, dxr = torch.empty_like(xl), torch.empty_like(xr)
@@ -121,6 +130,21 @@ def flash_gat_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
     bwd_launches += 1
     return (dxl, dxr, dadj_h.sum(1).transpose(1, 2), dwe_b.sum(0),
             datt_b.sum(0))
+
+
+def bwd_occupancy(S: int, T: int, F: int) -> dict:
+    """What the backward kernel's launch gets on this card at these
+    shapes: warps per block, registers and local (spill) bytes per thread
+    and resident blocks per SM."""
+    lib = _lib()
+    nw = _bwd_warps(T)
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    n = lib.gat_bwd_blocks_per_sm(S, T, F, nw, ctypes.byref(regs),
+                                  ctypes.byref(local))
+    if n < 0:
+        raise RuntimeError("gat_bwd_blocks_per_sm failed")
+    return {"warps": nw, "regs": regs.value, "local_bytes": local.value,
+            "blocks_per_sm": n}
 
 
 class FlashGAT(torch.autograd.Function):

@@ -132,27 +132,38 @@ def test_pairwise_bwd_kernel_matches_plain(card, per_sample, S, T, H):
         assert torch.equal(g, h)
 
 
-def _gat_args(rng, B, S, T, H, F):
+def _gat_args(rng, B, S, T, H, F, density=0.6):
+    """GAT inputs with a mask of the given edge density, a target with no
+    incoming edge (t = 2) and one with exactly one (t = 0, from s = 1)."""
     xl, xr = _t(rng, B, S, H, F), _t(rng, B, T, H, F)
     we, att = _t(rng, H, F, scale=0.3), _t(rng, H, F, scale=0.3)
-    mask = torch.from_numpy(rng.uniform(size=(B, S, T)) < 0.6).cuda()
+    mask = torch.from_numpy(rng.uniform(size=(B, S, T)) < density).cuda()
     mask[:, :, 2] = False        # a target with no incoming edge
+    mask[:, :, 0] = False
+    mask[:, 1, 0] = True         # a target with one incoming edge
     adj = torch.from_numpy(rng.uniform(size=(B, S, T)).astype(
         np.float32)).cuda() * mask
     return xl, xr, adj, mask, we, att
 
 
-@pytest.mark.parametrize("S,T,H,F", [(9, 9, 3, 5), (7, 11, 2, 40),
-                                     (65, 65, 13, 100), (33, 20, 2, 128)])
-def test_gat_bwd_kernel_matches_plain(card, S, T, H, F):
+@pytest.mark.parametrize("S,T,H,F,density", [
+    (9, 9, 3, 5, 0.6), (7, 11, 2, 40, 0.6), (65, 65, 13, 100, 0.6),
+    (33, 20, 2, 128, 0.6),
+    # a dense mask; live-source counts that are not multiples of 8
+    (65, 65, 13, 100, 1.0), (20, 33, 2, 64, 1.0), (13, 13, 3, 40, 0.5),
+    (65, 65, 2, 100, 0.5),
+    # T = 16: the backward caps its block at 13 warps (launch bounds)
+    (16, 16, 2, 40, 0.6)])
+def test_gat_bwd_kernel_matches_plain(card, S, T, H, F, density):
     """FlashGAT: the alpha residual against the plain softmax, and the
     backward kernel against the plain version's autograd (ragged S != T,
-    F below and above one warp, an edgeless target)."""
+    F below and above one warp, sparse and dense masks, an edgeless target
+    and a target with one live source); two runs agree bit for bit."""
     from ctvae_torch.ops import gat_flash as gf
     from ctvae_torch.ops.gat import gat_logits, masked_incoming_softmax
-    rng = np.random.default_rng(S + T + F)
+    rng = np.random.default_rng(S + T + F + int(10 * density))
     B = 3
-    xl, xr, adj, mask, we, att = _gat_args(rng, B, S, T, H, F)
+    xl, xr, adj, mask, we, att = _gat_args(rng, B, S, T, H, F, density)
     dout = _t(rng, B, T, H, F)
     _, alpha = gf.flash_gat_cuda(xl, xr, adj, mask, we, att, 0.2,
                                  keep_alpha=True)
@@ -176,6 +187,15 @@ def test_gat_bwd_kernel_matches_plain(card, S, T, H, F):
     assert not got[1][:, 2].any()     # the edgeless target: no gradient
     for g, h in zip(got, run(gf.flash_gat)):
         assert torch.equal(g, h)
+
+
+def test_gat_bwd_two_blocks_per_sm(card):
+    """At the headline shapes the backward kernel fits two blocks per SM
+    without spilling: its launch bounds cap it at 72 registers."""
+    from ctvae_torch.ops import gat_flash as gf
+    occ = gf.bwd_occupancy(65, 65, 100)
+    assert occ["warps"] == 13 and occ["regs"] <= 72, occ
+    assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 2, occ
 
 
 def test_gat_serving_call_keeps_no_alpha(card):
