@@ -31,6 +31,13 @@ object with a row per kernel; the last line is ``{"ok": true, "device":
 {...}}``. Any failed phase exits non-zero and prints no result; so does a
 machine without a card. TF32 is off for matmuls and cuDNN convolutions, so
 every number here is full float32.
+
+    python3 chip_smoke.py --gat-fwd-against OTHER/gat.cu [...]
+
+builds the kernels and only compares the tree's GAT forward with the
+forward of other ``gat.cu`` files (an earlier commit's, or a variant):
+outputs bit for bit, registers and occupancy, and times taken in turns
+(``compare_gat_fwd``).
 """
 
 from __future__ import annotations
@@ -158,20 +165,25 @@ def phase_card() -> str:
 
 # --- phase 2: build -------------------------------------------------------
 
+def _ptxas(name: str, text: str) -> None:
+    """Log the registers and spills ``ptxas -v`` reports per kernel."""
+    kernel = name
+    for line in text.splitlines():
+        found = re.search(
+            r"Compiling entry function '.*?([a-z][a-z_]*_kernel)", line)
+        if found:
+            kernel = found.group(1)
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {name} {kernel}: {line.strip()}")
+
+
 def phase_build() -> None:
     from ctvae_torch.ops import _build
     secs = _build.build_all()
     log(f"kernel build: {secs:.1f} s (nvcc, sm_90a, one process per source)")
     for name in _build.KERNELS:
         _build.load(name)
-        kernel = name
-        for line in _build.build_log(name).splitlines():
-            found = re.search(
-                r"Compiling entry function '.*?([a-z][a-z_]*_kernel)", line)
-            if found:
-                kernel = found.group(1)
-            elif "registers" in line or "spill" in line:
-                log(f"  ptxas {name}.cu {kernel}: {line.strip()}")
+        _ptxas(f"{name}.cu", _build.build_log(name))
 
 
 # --- phase 3: kernels against their plain versions ------------------------
@@ -266,38 +278,87 @@ def _gat_inputs(gen, B: int):
     return (xl, xr, adj.contiguous(), mask.contiguous(), we, att, 0.2)
 
 
-def _check_gat(gen) -> dict:
-    from ctvae_torch.ops import gat_flash as gf
-    A = MODEL_PARAMS["action_dim"]
-    args = _gat_inputs(gen, A * BATCH)
-    xl, _, _, mask, _, _, _ = args
-    B, T, H, F = xl.shape
-    got, _ = gf.flash_gat_cuda(*args)
-    torch.cuda.synchronize()
-    with torch.no_grad():
-        want = gf.flash_gat_plain(*args)
-    torch.cuda.synchronize()
-    err, rel = errors(got, want)
-    zero_row = bool((got[:, 7] == 0).all())
-    ok = err <= GAT_ATOL and zero_row and bool(torch.isfinite(got).all())
-    ms = time_ms(lambda: gf.flash_gat_cuda(*args))
-    # the training forward also writes the f32 alpha residual [B,H,T,S]
-    alpha_ms = time_ms(lambda: gf.flash_gat_cuda(*args, keep_alpha=True))
-    plain = time_ms(lambda: gf.flash_gat_plain(*args), reps=5)
+def _gat_fwd_bound(args, keep_alpha: bool = False):
+    """(ms, by) of the forward's bound on these inputs: each input read
+    once, out (and alpha) written once, and the operations of the mask's
+    edges."""
+    xl, xr, adj, mask, we, att, _ = args
+    B, S, H, F = xl.shape
+    T = xr.shape[1]
     edges = int(mask.sum())
+    nbytes = 4 * (xl.numel() + 2 * xr.numel() + adj.numel() + we.numel()
+                  + att.numel() + (B * H * T * S if keep_alpha else 0)) \
+        + mask.numel()
     # per edge, head and feature: logit add, fma, leaky (2), fma; and the
     # aggregation's fma
-    nbytes = 4 * (3 * B * T * H * F + B * T * T + 2 * H * F) + B * T * T
-    bnd = bound_ms(nbytes, 9.0 * edges * H * F)
-    row = {"name": "gat_fwd", "max_abs_err": err, "ok": ok, "ms": ms,
-           "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
-           "library_ms": None, "alpha_ms": alpha_ms,
-           "note": f"B={B} T={T} H={H} F={F}, {edges} edges of {B * T * T}, "
-                   f"edgeless target zero row: {zero_row}"}
-    log(f"gat {row['note']}: max abs err {err:.3g}, max rel err "
-        f"{rel:.3g}, kernel {ms:.4f} ms ({alpha_ms:.4f} ms writing alpha), "
-        f"plain (full batch) {plain:.4f} ms, bound {bnd[0]:.4f} ms "
-        f"({bnd[1]})")
+    return bound_ms(nbytes, 9.0 * edges * H * F)
+
+
+def _check_gat(gen) -> dict:
+    """The forward kernel against the plain version (out, and the alpha
+    residual against the plain masked softmax) at B = 16, the serving shape
+    of reconstruct / apply_action, and at A*B = 192, the causal call, which
+    the row reports; two launches must agree bit for bit (out and alpha),
+    and the serving launch (no alpha) with them. Also logs the kernel's
+    registers, local (spill) bytes and resident blocks per SM."""
+    from ctvae_torch.ops import gat_flash as gf
+    from ctvae_torch.ops.gat import gat_logits, masked_incoming_softmax
+    A = MODEL_PARAMS["action_dim"]
+    row = {"name": "gat_fwd", "library_ms": None, "max_abs_err": 0.0,
+           "ok": True}
+    notes = []
+    for B in (BATCH, A * BATCH):
+        args = _gat_inputs(gen, B)
+        xl, xr, adj, mask, we, att, ns = args
+        T, H, F = xl.shape[1:]
+        got, alpha = gf.flash_gat_cuda(*args, keep_alpha=True)
+        again, alpha2 = gf.flash_gat_cuda(*args, keep_alpha=True)
+        served, _ = gf.flash_gat_cuda(*args)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            want = gf.flash_gat_plain(*args)
+            want_alpha = masked_incoming_softmax(
+                gat_logits(xl, xr, adj, we, att, ns), mask).permute(0, 3, 2, 1)
+        torch.cuda.synchronize()
+        err, rel = errors(got, want)
+        alpha_err = float((alpha - want_alpha).abs().max())
+        same = (torch.equal(got, again) and torch.equal(alpha, alpha2)
+                and torch.equal(got, served))
+        zero_row = bool((got[:, 7] == 0).all())
+        row["max_abs_err"] = max(row["max_abs_err"], err, alpha_err)
+        row["ok"] &= (err <= GAT_ATOL and alpha_err <= GAT_ATOL and zero_row
+                      and same and bool(torch.isfinite(got).all()))
+        del got, again, served, alpha, alpha2, want, want_alpha
+        ms = time_ms(lambda: gf.flash_gat_cuda(*args))
+        # the training forward also writes the f32 alpha residual
+        alpha_ms = time_ms(lambda: gf.flash_gat_cuda(*args, keep_alpha=True))
+        plain = time_ms(lambda: gf.flash_gat_plain(*args), reps=5)
+        edges = int(mask.sum())
+        bnd = _gat_fwd_bound(args)
+        notes.append(f"B={B} T={T} H={H} F={F}, {edges} edges of "
+                     f"{B * T * T}: max abs err {err:.3g} (rel {rel:.3g}), "
+                     f"alpha {alpha_err:.3g}; edgeless target zero row: "
+                     f"{zero_row}; two launches and the serving launch "
+                     f"bit-identical: {same}; kernel {ms:.4f} ms "
+                     f"({alpha_ms:.4f} ms writing alpha), plain {plain:.4f} "
+                     f"ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if B == BATCH:
+            row["ms_at_16"], row["bound_ms_at_16"] = ms, bnd[0]
+            row["plain_ms_at_16"] = plain
+        else:   # the row reports the causal call (A*B = 192)
+            row.update(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                       bound_by=bnd[1], alpha_ms=alpha_ms)
+        del args
+        torch.cuda.empty_cache()
+    row["occupancy"] = gf.fwd_occupancy(T, T, F)
+    notes.append(f"{row['occupancy']['regs']} registers, "
+                 f"{row['occupancy']['local_bytes']} local (spill) bytes per "
+                 f"thread, {row['occupancy']['warps']} warps, "
+                 f"{row['occupancy']['blocks_per_sm']} blocks per SM "
+                 f"(gat_fwd_blocks_per_sm)")
+    row["note"] = "; ".join(notes)
+    for n in notes:
+        log(f"gat {n}")
     return row
 
 
@@ -452,7 +513,7 @@ def _check_gat_bwd(gen) -> dict:
                        bound_by=bnd[1])
         del alpha
         torch.cuda.empty_cache()
-    occ = gf.bwd_occupancy(T, T, F)
+    occ = row["occupancy"] = gf.bwd_occupancy(T, T, F)
     notes.append(f"{occ['regs']} registers, {occ['local_bytes']} local "
                  f"(spill) bytes per thread, {occ['warps']} warps, "
                  f"{occ['blocks_per_sm']} blocks per SM "
@@ -490,28 +551,49 @@ def _logits_inputs(gen, B: int, K: int, F: int, per_sample: bool):
     return (xl, xr, adj, we, att), d_e.contiguous()
 
 
+def _calls_of(module, name: str, fn) -> list:
+    """The (args, kwargs) of each call of ``module.name`` while ``fn()``
+    runs."""
+    real, calls = getattr(module, name), []
+
+    def probe(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+    setattr(module, name, probe)
+    try:
+        fn()
+    finally:
+        setattr(module, name, real)
+    return calls
+
+
 def _logits_bwd_on_path(fn) -> dict:
     """The per-head logits backward as one call of ``fn`` (a train step)
     launches it: the share of pairs with a non-zero upstream gradient
     (the kernel skips the others, so its time depends on it), and the
     kernel's time and bound on those very inputs."""
     from ctvae_torch.ops import gat_logits as gl
-    real, calls = gl.fused_gat_logits_bwd_cuda, []
-
-    def probe(*args):
-        calls.append(args)
-        return real(*args)
-    gl.fused_gat_logits_bwd_cuda = probe
-    try:
-        fn()
-    finally:
-        gl.fused_gat_logits_bwd_cuda = real
-    (*args, d_e, ns), = calls
+    ((*args, d_e, ns), _), = _calls_of(gl, "fused_gat_logits_bwd_cuda", fn)
     live = int((d_e != 0).sum())
     bnd = bound_ms(_logits_bytes(args, d_e), 12.0 * live * args[0].shape[3])
     return {"live_share": live / d_e.numel(), "shape": list(d_e.shape),
-            "ms": time_ms(lambda: real(*args, d_e, ns)), "bound_ms": bnd[0],
-            "bound_by": bnd[1]}
+            "ms": time_ms(lambda: gl.fused_gat_logits_bwd_cuda(
+                *args, d_e, ns)),
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def _gat_fwd_on_path(fn) -> dict:
+    """The GAT forward as one call of ``fn`` (a train step) launches it:
+    the share of (source, target) pairs that are edges (the kernel walks
+    only those, so its time depends on it), and the kernel's time and
+    bound on those very inputs."""
+    from ctvae_torch.ops import gat_flash as gf
+    (args, kw), = _calls_of(gf, "flash_gat_cuda", fn)
+    bnd = _gat_fwd_bound(args, kw.get("keep_alpha", False))
+    return {"edge_density": float(args[3].float().mean()),
+            "shape": list(args[0].shape),
+            "ms": time_ms(lambda: gf.flash_gat_cuda(*args, **kw)),
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
 
 
 # the causal step's call (the final GAT layer on the [A*B] virtual batch:
@@ -883,11 +965,20 @@ def phase_train():
     profiles = {mode: _profile(f"train step {mode} B={BATCH}",
                                lambda: step(state, batch))
                 for mode, step in steps.items()}
-    gat_bwd_ms = sum(ms for key, ms, _ in profiles["causal"]
-                     if "gat_bwd_kernel" in key)
-    log(f"train causal: gat_bwd {gat_bwd_ms:.3f} ms of device time in the "
-        f"profiled step")
-    return timings, launches, peak, logits_bwd, gat_bwd_ms
+    fwd = _gat_fwd_on_path(lambda: steps["causal"](state, batch))
+    log(f"train causal: GAT forward xl {fwd['shape']}, edge density "
+        f"{fwd['edge_density']:.4f}; kernel on these inputs {fwd['ms']:.4f} "
+        f"ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
+    # extra keys of the kernels line: what the causal step gives a kernel
+    on_step = {"gat_fwd": {"on_causal_step": fwd},
+               "gat_logits_bwd": {"on_causal_step": logits_bwd["causal"]}}
+    for name in ("gat_fwd", "gat_bwd"):
+        ms = sum(ms for key, ms, _ in profiles["causal"]
+                 if f"{name}_kernel" in key)
+        on_step.setdefault(name, {})["profiled_causal_step_ms"] = ms
+        log(f"train causal: {name} {ms:.3f} ms of device time in the "
+            f"profiled step")
+    return timings, launches, peak, on_step
 
 
 # --- phase 6: the training loop -------------------------------------------
@@ -1079,6 +1170,98 @@ def phase_two_stage() -> dict:
     return launches
 
 
+# --- the forward GAT kernel against other builds of it ---------------------
+
+def _gat_fwd_raw(lib, args, alpha=None) -> torch.Tensor:
+    """One raw launch of ``gat_fwd`` from ``lib`` (no wrapper, no launch
+    count); writes ``alpha`` when given."""
+    from ctvae_torch.ops import _build
+    from ctvae_torch.ops.common import warps_for
+    xl, xr, adj, mask, we, att, ns = args
+    B, S, H, F = xl.shape
+    T = xr.shape[1]
+    out = torch.empty((B, T, H, F), device="cuda")
+    _build.check(lib.gat_fwd(
+        xl.data_ptr(), xr.data_ptr(), adj.data_ptr(), mask.data_ptr(),
+        we.data_ptr(), att.data_ptr(), out.data_ptr(),
+        None if alpha is None else alpha.data_ptr(), B, S, T, H, F,
+        warps_for(T), ns, torch.cuda.current_stream().cuda_stream),
+        "gat_fwd")
+    return out
+
+
+def compare_gat_fwd(sources) -> dict:
+    """The tree's ``gat_fwd`` against the ``gat_fwd`` of other ``gat.cu``
+    files (an earlier commit's, or a variant), built side by side with the
+    tree's flags and launched raw on the smoke's inputs at A*B = 192 and
+    B = 16: each build's out and alpha against the tree's (max difference,
+    bit for bit), its registers, spill bytes and blocks per SM (where it
+    exports ``gat_fwd_blocks_per_sm``), and the median over three rounds
+    of ``time_ms`` of one serving launch, the builds timed in turns (the
+    order reversed every other round)."""
+    import ctypes
+    from ctvae_torch.ops import _build
+    from ctvae_torch.ops import gat_flash as gf
+    from ctvae_torch.ops.common import warps_for
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs, procs = {"tree": gf._lib()}, []
+    for k, src in enumerate(sources):
+        so = os.path.join(_build.BUILD_DIR, f"libgat-other{k}.so")
+        procs.append((src, so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for src, so, proc in procs:
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{text}")
+        _ptxas(src, text)
+        lib = libs[src] = ctypes.CDLL(so)
+        lib.gat_fwd.argtypes = [p] * 8 + [i] * 6 + [f, p]
+        lib.gat_fwd.restype = ctypes.c_int
+    res = {name: {} for name in libs}
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    for B in (MODEL_PARAMS["action_dim"] * BATCH, BATCH):
+        args = _gat_inputs(gen, B)
+        xl, xr = args[:2]
+        S, (T, H, F) = xl.shape[1], xr.shape[1:]
+        outs = {}
+        for name, lib in libs.items():
+            alpha = torch.empty((B, H, T, S), device="cuda")
+            outs[name] = (_gat_fwd_raw(lib, args, alpha), alpha)
+        torch.cuda.synchronize()
+        want = outs["tree"]
+        for name, got in outs.items():
+            res[name][f"max_diff_{B}"] = max(
+                float((g - w).abs().max()) for g, w in zip(got, want))
+            res[name][f"bit_identical_{B}"] = all(
+                torch.equal(g, w) for g, w in zip(got, want))
+        samples = {name: [] for name in libs}
+        for rnd in range(3):
+            order = list(libs) if rnd % 2 == 0 else list(libs)[::-1]
+            for name in order:
+                samples[name].append(time_ms(
+                    lambda: _gat_fwd_raw(libs[name], args)))
+        for name in libs:
+            res[name][f"ms_{B}"] = statistics.median(samples[name])
+            res[name][f"samples_{B}"] = samples[name]
+        del args, outs, want
+        torch.cuda.empty_cache()
+    for name, lib in libs.items():
+        try:
+            fn = lib.gat_fwd_blocks_per_sm
+        except AttributeError:
+            continue
+        fn.argtypes, fn.restype = [i] * 4 + [p, p], ctypes.c_int
+        res[name].update(gf._occupancy(fn, T, T, F, warps_for(T)))
+    for name, r in res.items():
+        log(f"gat_fwd {name}: {json.dumps(r)}")
+    return res
+
+
+# keys of a check's row that the kernels line carries beside the contract's
+EXTRA_KEYS = ("ms_at_16", "bound_ms_at_16", "plain_ms_at_16", "alpha_ms",
+              "occupancy")
+
 KERNEL_META = {
     "vq_l2_argmin": ("ctvae_torch/csrc/vq.cu", "ctvae_tpu/ops/vq.py:49"),
     "pairwise_fwd": ("ctvae_torch/csrc/pairwise.cu",
@@ -1094,7 +1277,14 @@ KERNEL_META = {
 }
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--gat-fwd-against", nargs="+", metavar="GAT_CU",
+        help="only build the kernels and compare the tree's gat_fwd with "
+             "the gat_fwd of these gat.cu files (compare_gat_fwd)")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke runs on a card",
               file=sys.stderr)
@@ -1102,12 +1292,16 @@ def main() -> int:
     start = time.perf_counter()
     phase_card()
     phase_build()
+    if opts.gat_fwd_against:
+        log(json.dumps({"gat_fwd_against": compare_gat_fwd(
+            opts.gat_fwd_against)}))
+        return 0
     rows = phase_kernels()
     model, timings, serve_launches = phase_serve()
     phase_reference(model)
     phase_profile(model)
     del model
-    train_ms, train_launches, peak, logits_bwd, gat_bwd_ms = phase_train()
+    train_ms, train_launches, peak, on_step = phase_train()
     phase_loop()
     two_stage_launches = phase_two_stage()
     kernels = []
@@ -1124,12 +1318,10 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ok": r["ok"]})
-        if r["name"] == "gat_logits_bwd":
-            # its time depends on the live pairs: also on the causal
-            # step's own inputs (``ms`` is at the check's sampled graph)
-            kernels[-1]["on_causal_step"] = logits_bwd["causal"]
-        if r["name"] == "gat_bwd":
-            kernels[-1]["profiled_causal_step_ms"] = gat_bwd_ms
+        # the check's other sizes and occupancy, and what the causal step
+        # gives the kernel
+        kernels[-1].update({k: r[k] for k in EXTRA_KEYS if k in r})
+        kernels[-1].update(on_step.get(r["name"], {}))
     # every kernel runs on the training and two-stage paths, the forward
     # ones on the serving path too
     if any(k["launches_by_path"][p] == 0 for k in kernels
@@ -1148,4 +1340,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -9,20 +9,27 @@
 //              (all zeros when t has no incoming edge)
 //   out[b,t,h,f] = sum_s alpha[s] xl[b,s,h,f]
 //
-// Bound on the H100: the [B,T,S,H,F] logit domain (192*65*65*1300 = 1.05e9
-// elements in causal serving) costs ~7 f32 operations per element plus the
-// aggregation, and is never stored; inputs and output are ~130 MB, so the
-// kernel is bound by f32 operations. A whole xl[b] (65 x 1300 floats, 338 KB)
-// does not fit in shared memory, so the design tiles over heads: one block
-// per (b, h) holds the 26 KB slice xl[b,:,h,:] and we/att[h] in shared memory
-// and its warps loop over the targets, so every xl element is read from
-// device memory once. One warp per target: lanes own features (coalesced,
-// conflict-free), xr[b,t,h] + adj*we stays in registers, a shuffle reduces
-// each logit, the masked softmax runs over a per-warp logit row in shared
-// memory, and the aggregation walks the shared slice once more. When the
-// caller passes an alpha pointer (training), the warp also writes its
-// normalised row as the f32 residual alpha[b, h, t, s] ([B, H, T, S], zero
-// for non-edges and for an edgeless target); serving passes null.
+// Bound on the H100: f32 operations. Per live edge, head and feature the
+// logit costs ~8 operations (pre, the slope, the fma) and the aggregation
+// one fma; the [B,T,S,H,F] domain is never stored, and inputs and output
+// are ~130 MB at A*B = 192. A whole xl[b] (65 x 1300 floats, 338 KB) does
+// not fit in shared memory, so one block per (b, h) stages the slices
+// xl[b,:,h,:] and xr[b,:,h,:] (cp.async, no registers held) and the
+// transposed adj[b] / mask[b] tiles (read once, in order) in shared
+// memory, and its warps loop over the targets, so every input element is
+// read from device memory once. One warp per target, lanes over features
+// (conflict-free), xr / we / att in registers: the target's live sources
+// are compacted with a ballot and their logits walked 8 at a time (4 by 4,
+// independent chains), one transposing butterfly of 9 shuffles reducing
+// the 8 sums; the masked softmax runs over a per-warp row in shared
+// memory; the aggregation walks the live sources again, a lane summing 4
+// features from one float4 load. At 56 registers two blocks of 13 warps
+// share an SM (launch bounds capping it at 72 made it slower). Every sum
+// is taken in a fixed order (no atomics), the logits in warp_sum's, so two
+// runs agree bit for bit.
+// When the caller passes an alpha pointer (training), the warp also writes
+// its normalised row as the f32 residual alpha[b, h, t, s] ([B, H, T, S],
+// zero for non-edges and for an edgeless target); serving passes null.
 //
 // Backward, replaces _flash_vjp_bwd (_bwd_kernel :175). Per (b, h), from
 // the residual alpha and dout:
@@ -83,122 +90,6 @@ __device__ __forceinline__ float pre_act(float xl, float xr, float a,
   return __fadd_rn(xl + xr, __fmul_rn(a, we));
 }
 
-__global__ void gat_fwd_kernel(const float* __restrict__ xl,
-                               const float* __restrict__ xr,
-                               const float* __restrict__ adj,
-                               const uint8_t* __restrict__ mask,
-                               const float* __restrict__ we,
-                               const float* __restrict__ att,
-                               float* __restrict__ out,
-                               float* __restrict__ alpha,
-                               int S, int T, int H, int F, float ns) {
-  extern __shared__ float smem[];
-  const int nwarps = blockDim.x / 32;
-  float* xl_s = smem;                         // [S, F]
-  float* row_s = xl_s + (size_t)S * F;        // [nwarps, S]: logit / alpha
-  float* adj_s = row_s + (size_t)nwarps * S;  // [nwarps, S]
-  uint8_t* msk_s = (uint8_t*)(adj_s + (size_t)nwarps * S);  // [nwarps, S]
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int HF = H * F;
-  for (int i = threadIdx.x; i < S * F; i += blockDim.x) {
-    int s = i / F, f = i % F;
-    xl_s[i] = xl[((size_t)b * S + s) * HF + h * F + f];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* row = row_s + warp * S;
-  float* adjw = adj_s + warp * S;
-  uint8_t* mw = msk_s + warp * S;
-
-  float wev[kMaxF / 32], attv[kMaxF / 32];
-#pragma unroll
-  for (int j = 0; j < kMaxF / 32; ++j) {
-    int f = lane + 32 * j;
-    wev[j] = f < F ? we[h * F + f] : 0.f;
-    attv[j] = f < F ? att[h * F + f] : 0.f;
-  }
-
-  for (int t = warp; t < T; t += nwarps) {
-    float xrv[kMaxF / 32];
-#pragma unroll
-    for (int j = 0; j < kMaxF / 32; ++j) {
-      int f = lane + 32 * j;
-      xrv[j] = f < F ? xr[((size_t)b * T + t) * HF + h * F + f] : 0.f;
-    }
-    for (int s = lane; s < S; s += 32) {
-      adjw[s] = adj[((size_t)b * S + s) * T + t];
-      mw[s] = mask[((size_t)b * S + s) * T + t];
-    }
-    __syncwarp();
-
-    // logits of the incoming edges
-    for (int s = 0; s < S; ++s) {
-      if (!mw[s]) continue;  // warp-uniform
-      const float a = adjw[s];
-      const float* xls = xl_s + (size_t)s * F;
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxF / 32; ++j) {
-        int f = lane + 32 * j;
-        if (f < F) {
-          float v = pre_act(xls[f], xrv[j], a, wev[j]);
-          part = fmaf(fmaxf(v, ns * v), attv[j], part);
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (lane == 0) row[s] = part;
-    }
-    __syncwarp();
-
-    // masked softmax over the sources
-    float m = -INFINITY;
-    for (int s = lane; s < S; s += 32)
-      if (mw[s]) m = fmaxf(m, row[s]);
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float denom = 0.f;
-    for (int s = lane; s < S; s += 32) {
-      float w = mw[s] ? expf(row[s] - m) : 0.f;
-      row[s] = w;
-      denom += w;
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      denom += __shfl_xor_sync(0xffffffffu, denom, off);
-    const float inv = denom > 0.f ? 1.f / denom : 0.f;
-    __syncwarp();
-    if (alpha != nullptr) {
-      float* ar = alpha + (((size_t)b * H + h) * T + t) * S;
-      for (int s = lane; s < S; s += 32) ar[s] = row[s] * inv;
-    }
-
-    // aggregation over the sources
-    float acc[kMaxF / 32];
-#pragma unroll
-    for (int j = 0; j < kMaxF / 32; ++j) acc[j] = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float w = row[s];
-      if (w == 0.f) continue;  // warp-uniform
-      const float* xls = xl_s + (size_t)s * F;
-#pragma unroll
-      for (int j = 0; j < kMaxF / 32; ++j) {
-        int f = lane + 32 * j;
-        if (f < F) acc[j] = fmaf(w, xls[f], acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kMaxF / 32; ++j) {
-      int f = lane + 32 * j;
-      if (f < F) out[((size_t)b * T + t) * HF + h * F + f] = acc[j] * inv;
-    }
-    __syncwarp();
-  }
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -215,14 +106,234 @@ __host__ __device__ inline int gat_bwd_warp_floats(int S, int T, int F) {
 // the dalpha tile of one thread: kRT targets (strided by the warp count)
 // by kRS sources (strided by 32)
 constexpr int kRT = 5, kRS = 3;
-// live sources per step of the phase-1 walk, walked kSub at a time so
-// that two blocks' registers fit on an SM
+// live sources per step of a walk over a target's sources (the forward's
+// logits, the backward's phase 1), walked kSub at a time so that two
+// blocks' registers fit on an SM
 constexpr int kSrc = 8, kSub = 4;
 static_assert(kSrc == 8, "the transposing butterfly reduces 8 sums");
 // at most this many warps per backward block: with two blocks resident
 // per SM a thread may use 65536 / (2 * 13 * 32) = 78 registers, 72 in
 // the allocation unit of 8
 constexpr int kBwdWarps = 13;
+
+// a 16-byte copy from device to shared memory that holds no register
+// (cp.async); wait_all waits for the thread's copies
+__device__ __forceinline__ void copy16_async(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+#endif
+}
+
+__device__ __forceinline__ void copy_async_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
+
+// n rows of F floats (row r at src + r * ld) into dst rows of stride Fq
+// (F rounded up to 4, the tail zero): 16-byte copies when they are
+// aligned, else one float at a time
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           size_t ld, int n, int F, int Fq,
+                                           bool vec) {
+  if (vec) {
+    const int q = F / 4;
+    for (int i = threadIdx.x; i < n * q; i += blockDim.x) {
+      const int r = i / q, c = i % q;
+      copy16_async(dst + (size_t)r * Fq + 4 * c, src + r * ld + 4 * c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * Fq; i += blockDim.x) {
+      const int r = i / Fq, f = i % Fq;
+      dst[i] = f < F ? src[r * ld + f] : 0.f;
+    }
+  }
+}
+
+__global__ void gat_fwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
+               const float* __restrict__ adj, const uint8_t* __restrict__ mask,
+               const float* __restrict__ we, const float* __restrict__ att,
+               float* __restrict__ out, float* __restrict__ alpha, int S,
+               int T, int H, int F, float ns) {
+  extern __shared__ float smem[];
+  const int nwarps = blockDim.x / 32;
+  const int Sp = S | 1;            // odd row stride
+  const int Fq = (F + 3) & ~3;     // float4 rows
+  float* xl_s = smem;                              // [S, Fq]
+  float* xr_s = xl_s + (size_t)S * Fq;             // [T, Fq]
+  float* adj_s = xr_s + (size_t)T * Fq;            // [T, Sp]: adj^T
+  float* row_s = adj_s + (size_t)T * Sp;           // [nwarps, S]
+  int* lst_s = (int*)(row_s + (size_t)nwarps * S);  // [nwarps, S]
+  uint8_t* msk_s = (uint8_t*)(lst_s + (size_t)nwarps * S);  // [T, Sp]: mask^T
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int HF = H * F;
+  const bool vec = (F & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(xl) |
+                     reinterpret_cast<uintptr_t>(xr)) & 15) == 0;
+  stage_rows(xl_s, xl + (size_t)b * S * HF + (size_t)h * F, HF, S, F, Fq,
+             vec);
+  stage_rows(xr_s, xr + (size_t)b * T * HF + (size_t)h * F, HF, T, F, Fq,
+             vec);
+  // adj[b] and mask[b] read once, in order (4 loads in flight a thread),
+  // and stored transposed: a target's column becomes a row
+  const float* adj_b = adj + (size_t)b * S * T;
+  const uint8_t* mask_b = mask + (size_t)b * S * T;
+  for (int i0 = threadIdx.x; i0 < S * T; i0 += 4 * blockDim.x) {
+    float a[4];
+    uint8_t m[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * blockDim.x;
+      a[u] = i < S * T ? adj_b[i] : 0.f;
+      m[u] = i < S * T ? mask_b[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < S * T) {
+        const int s = i / T, t = i % T;
+        adj_s[t * Sp + s] = a[u];
+        msk_s[t * Sp + s] = m[u];
+      }
+    }
+  }
+  copy_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* row = row_s + warp * S;  // logits, then softmax weights
+  int* lst = lst_s + warp * S;    // live sources
+
+  float wev[kMaxF / 32], attv[kMaxF / 32];
+#pragma unroll
+  for (int j = 0; j < kMaxF / 32; ++j) {
+    const int f = lane + 32 * j;
+    wev[j] = f < F ? we[h * F + f] : 0.f;
+    attv[j] = f < F ? att[h * F + f] : 0.f;
+  }
+
+  for (int t = warp; t < T; t += nwarps) {
+    const float* adj_t = adj_s + (size_t)t * Sp;
+    const uint8_t* msk_t = msk_s + (size_t)t * Sp;
+    float xrv[kMaxF / 32];
+#pragma unroll
+    for (int j = 0; j < kMaxF / 32; ++j) {
+      const int f = lane + 32 * j;
+      xrv[j] = f < F ? xr_s[(size_t)t * Fq + f] : 0.f;
+    }
+    // the live sources compacted into lst, in order (a ballot)
+    int n = 0;
+    for (int s0 = 0; s0 < S; s0 += 32) {
+      const int s = s0 + lane;
+      const bool live = s < S && msk_t[s];
+      const unsigned ballot = __ballot_sync(0xffffffffu, live);
+      if (live) lst[n + __popc(ballot & ((1u << lane) - 1u))] = s;
+      n += __popc(ballot);
+    }
+    __syncwarp();
+
+    // logits of the live sources, kSrc at a time in steps of kSub (lanes
+    // take features): kSub independent pre -> slope -> fma chains, kSrc
+    // partial sums per lane, and one transposing butterfly of 9 shuffles
+    // for the kSrc logits (a shuffle chain per edge took 40). A step's
+    // remainder repeats its first source and is not stored; an empty
+    // second half is skipped.
+    for (int k0 = 0; k0 < n; k0 += kSrc) {
+      float p[kSrc];
+#pragma unroll
+      for (int u = 0; u < kSrc; ++u) p[u] = 0.f;
+#pragma unroll
+      for (int u0 = 0; u0 < kSrc; u0 += kSub) {
+        if (u0 > 0 && k0 + u0 >= n) break;  // warp-uniform
+        int so[kSub];
+        float au[kSub];
+#pragma unroll
+        for (int v = 0; v < kSub; ++v) {
+          const int k = k0 + u0 + v;
+          const int s = lst[k < n ? k : k0];
+          so[v] = s * Fq;
+          au[v] = adj_t[s];
+        }
+#pragma unroll
+        for (int j = 0; j < kMaxF / 32; ++j) {
+          const int f = lane + 32 * j;
+          if (f < F) {
+#pragma unroll
+            for (int v = 0; v < kSub; ++v) {
+              const float pre =
+                  pre_act(xl_s[so[v] + f], xrv[j], au[v], wev[j]);
+              p[u0 + v] = fmaf(fmaxf(pre, ns * pre), attv[j], p[u0 + v]);
+            }
+          }
+        }
+      }
+      // as in the backward: lane l ends with source (l >> 2) & 7's sum,
+      // added in warp_sum's tree
+#pragma unroll
+      for (int w = kSrc / 2, off = 16; w >= 1; w /= 2, off /= 2) {
+        const bool hi = lane & off;
+#pragma unroll
+        for (int u = 0; u < w; ++u) {
+          const float mine = hi ? p[u + w] : p[u];
+          const float other = hi ? p[u] : p[u + w];
+          p[u] = mine + __shfl_xor_sync(0xffffffffu, other, off);
+        }
+      }
+      p[0] += __shfl_xor_sync(0xffffffffu, p[0], 2);
+      p[0] += __shfl_xor_sync(0xffffffffu, p[0], 1);
+      const int k = k0 + (lane >> 2);
+      if ((lane & 3) == 0 && k < n) row[lst[k]] = p[0];
+    }
+    __syncwarp();
+
+    // masked softmax over the sources
+    float m = -INFINITY;
+    for (int s = lane; s < S; s += 32)
+      if (msk_t[s]) m = fmaxf(m, row[s]);
+    for (int off = 16; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float denom = 0.f;
+    for (int s = lane; s < S; s += 32) {
+      const float w = msk_t[s] ? expf(row[s] - m) : 0.f;
+      row[s] = w;
+      denom += w;
+    }
+    denom = warp_sum(denom);
+    const float inv = denom > 0.f ? 1.f / denom : 0.f;
+    __syncwarp();
+    if (alpha != nullptr) {
+      float* ar = alpha + (((size_t)b * H + h) * T + t) * S;
+      for (int s = lane; s < S; s += 32) ar[s] = row[s] * inv;
+    }
+
+    // aggregation over the live sources, in order, lane c summing
+    // features 4c .. 4c + 3
+    if (4 * lane < F) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < n; ++k) {
+        const int s = lst[k];
+        const float w = row[s];
+        if (w == 0.f) continue;
+        const float4 x = *reinterpret_cast<const float4*>(
+            xl_s + (size_t)s * Fq + 4 * lane);
+        acc[0] = fmaf(w, x.x, acc[0]);
+        acc[1] = fmaf(w, x.y, acc[1]);
+        acc[2] = fmaf(w, x.z, acc[2]);
+        acc[3] = fmaf(w, x.w, acc[3]);
+      }
+      float* o = out + ((size_t)b * T + t) * HF + h * F;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * lane + i < F) o[4 * lane + i] = acc[i] * inv;
+    }
+    __syncwarp();
+  }
+}
 
 __global__ void __launch_bounds__(kBwdWarps * 32, 2)
 gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
@@ -492,9 +603,10 @@ gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
 
 }  // namespace
 
-extern "C" size_t gat_fwd_smem_bytes(int S, int F, int nwarps) {
-  return sizeof(float) * ((size_t)S * F + 2 * (size_t)nwarps * S) +
-         (size_t)nwarps * S;
+extern "C" size_t gat_fwd_smem_bytes(int S, int T, int F, int nwarps) {
+  const size_t Sp = (size_t)(S | 1), Fq = (size_t)((F + 3) & ~3);
+  return sizeof(float) * ((S + T) * Fq + T * Sp + 2 * (size_t)nwarps * S) +
+         T * Sp;
 }
 
 extern "C" int gat_fwd(const float* xl, const float* xr, const float* adj,
@@ -502,7 +614,7 @@ extern "C" int gat_fwd(const float* xl, const float* xr, const float* adj,
                        float* out, float* alpha, int B, int S, int T, int H,
                        int F, int nwarps, float ns, void* stream) {
   if (F > kMaxF || nwarps < 1 || nwarps > 32) return (int)cudaErrorInvalidValue;
-  size_t smem = gat_fwd_smem_bytes(S, F, nwarps);
+  size_t smem = gat_fwd_smem_bytes(S, T, F, nwarps);
   cudaError_t err = cudaFuncSetAttribute(
       gat_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -511,6 +623,27 @@ extern "C" int gat_fwd(const float* xl, const float* xr, const float* adj,
         xl, xr, adj, mask, we, att, out, alpha, S, T, H, F, ns);
   }
   return (int)cudaGetLastError();
+}
+
+// resident blocks of gat_fwd_kernel per SM at these shapes, and the
+// kernel's registers and local (spill) bytes per thread
+extern "C" int gat_fwd_blocks_per_sm(int S, int T, int F, int nwarps,
+                                     int* regs, int* local_bytes) {
+  const size_t smem = gat_fwd_smem_bytes(S, T, F, nwarps);
+  cudaFuncAttributes attr;
+  if (cudaFuncSetAttribute(gat_fwd_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, gat_fwd_kernel) != cudaSuccess)
+    return -1;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gat_fwd_kernel,
+                                                    nwarps * 32, smem) !=
+      cudaSuccess)
+    return -1;
+  return n;
 }
 
 extern "C" size_t gat_bwd_smem_bytes(int S, int T, int F, int nwarps) {

@@ -44,14 +44,15 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gat_fwd.argtypes = [p] * 8 + [i] * 6 + [f, p]
     lib.gat_fwd.restype = ctypes.c_int
-    lib.gat_fwd_smem_bytes.argtypes = [i, i, i]
+    lib.gat_fwd_smem_bytes.argtypes = [i, i, i, i]
     lib.gat_fwd_smem_bytes.restype = ctypes.c_size_t
     lib.gat_bwd.argtypes = [p] * 13 + [i] * 6 + [f, p]
     lib.gat_bwd.restype = ctypes.c_int
     lib.gat_bwd_smem_bytes.argtypes = [i, i, i, i]
     lib.gat_bwd_smem_bytes.restype = ctypes.c_size_t
-    lib.gat_bwd_blocks_per_sm.argtypes = [i] * 4 + [p, p]
-    lib.gat_bwd_blocks_per_sm.restype = ctypes.c_int
+    for fn in (lib.gat_fwd_blocks_per_sm, lib.gat_bwd_blocks_per_sm):
+        fn.argtypes = [i] * 4 + [p, p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -82,7 +83,8 @@ def flash_gat_cuda(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
     B, S, T, H, F = _check(xl, xr, adj, mask, we, att, ns)
     lib = _lib()
     nw = warps_for(T)
-    check_smem(f"flash_gat: S={S}, F={F}", lib.gat_fwd_smem_bytes(S, F, nw))
+    check_smem(f"flash_gat: S={S}, T={T}, F={F}",
+               lib.gat_fwd_smem_bytes(S, T, F, nw))
     out = torch.empty((B, T, H, F), dtype=torch.float32, device=xl.device)
     alpha = (torch.empty((B, H, T, S), dtype=torch.float32, device=xl.device)
              if keep_alpha else None)
@@ -132,19 +134,25 @@ def flash_gat_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
             datt_b.sum(0))
 
 
-def bwd_occupancy(S: int, T: int, F: int) -> dict:
-    """What the backward kernel's launch gets on this card at these
-    shapes: warps per block, registers and local (spill) bytes per thread
-    and resident blocks per SM."""
-    lib = _lib()
-    nw = _bwd_warps(T)
+def _occupancy(fn, S: int, T: int, F: int, nw: int) -> dict:
     regs, local = ctypes.c_int(), ctypes.c_int()
-    n = lib.gat_bwd_blocks_per_sm(S, T, F, nw, ctypes.byref(regs),
-                                  ctypes.byref(local))
+    n = fn(S, T, F, nw, ctypes.byref(regs), ctypes.byref(local))
     if n < 0:
-        raise RuntimeError("gat_bwd_blocks_per_sm failed")
+        raise RuntimeError(f"{fn.__name__} failed")
     return {"warps": nw, "regs": regs.value, "local_bytes": local.value,
             "blocks_per_sm": n}
+
+
+def fwd_occupancy(S: int, T: int, F: int) -> dict:
+    """What the forward kernel's launch gets on this card at these shapes:
+    warps per block, registers and local (spill) bytes per thread and
+    resident blocks per SM."""
+    return _occupancy(_lib().gat_fwd_blocks_per_sm, S, T, F, warps_for(T))
+
+
+def bwd_occupancy(S: int, T: int, F: int) -> dict:
+    """As ``fwd_occupancy``, for the backward kernel."""
+    return _occupancy(_lib().gat_bwd_blocks_per_sm, S, T, F, _bwd_warps(T))
 
 
 class FlashGAT(torch.autograd.Function):

@@ -70,19 +70,23 @@ def test_pairwise_kernel_matches_plain(card, per_sample, S, T, H):
                                atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("T,H,F", [(9, 3, 5), (65, 13, 100), (33, 2, 128)])
-def test_gat_kernel_matches_plain(card, T, H, F):
+@pytest.mark.parametrize("S,T,H,F,density", [
+    (9, 9, 3, 5, 0.5), (65, 65, 13, 100, 0.5), (33, 33, 2, 128, 0.5),
+    (7, 11, 2, 40, 0.6), (33, 20, 2, 128, 0.6),
+    # a dense mask; live-source counts that are not multiples of 8
+    (65, 65, 13, 100, 1.0), (20, 33, 2, 64, 1.0), (13, 13, 3, 40, 0.5),
+    (65, 65, 2, 100, 0.5),
+    # T = 16: 16 warps, one target each
+    (16, 16, 2, 40, 0.6)])
+def test_gat_kernel_matches_plain(card, S, T, H, F, density):
+    """The forward kernel against the plain version: out, and the alpha
+    residual against the plain masked softmax (ragged S != T, F below and
+    above one warp, sparse and dense masks, an edgeless target and a
+    target with one live source); two runs agree bit for bit."""
     from ctvae_torch.ops import gat_flash as gf
-    from ctvae_torch.ops.gat import replace_self_loops
-    rng = np.random.default_rng(T + F)
-    B = 4
-    xl, xr = _t(rng, B, T, H, F), _t(rng, B, T, H, F)
-    we, att = _t(rng, H, F, scale=0.3), _t(rng, H, F, scale=0.3)
-    raw = torch.rand(B, T, T, device="cuda")
-    raw = raw * (torch.rand(B, T, T, device="cuda") < 0.5)
-    adj, mask = replace_self_loops(raw)
-    mask[:, :, 2] = False        # a target with no incoming edge
-    args = (xl, xr, adj.contiguous(), mask.contiguous(), we, att, 0.2)
+    from ctvae_torch.ops.gat import gat_logits, masked_incoming_softmax
+    rng = np.random.default_rng(S + 2 * T + F + int(10 * density))
+    args = (*_gat_args(rng, 4, S, T, H, F, density), 0.2)
     before = gf.launches
     got = gf.flash_gat(*args)
     torch.cuda.synchronize()
@@ -91,6 +95,24 @@ def test_gat_kernel_matches_plain(card, T, H, F):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-5, rtol=1e-4)
     assert not got[:, 2].any()
+    out, alpha = gf.flash_gat_cuda(*args, keep_alpha=True)
+    xl, xr, adj, mask, we, att, ns = args
+    want_alpha = masked_incoming_softmax(
+        gat_logits(xl, xr, adj, we, att, ns), mask).permute(0, 3, 2, 1)
+    np.testing.assert_allclose(alpha.cpu().numpy(), want_alpha.cpu().numpy(),
+                               atol=1e-6, rtol=1e-5)
+    again, alpha2 = gf.flash_gat_cuda(*args, keep_alpha=True)
+    assert torch.equal(out, got) and torch.equal(again, got)
+    assert torch.equal(alpha2, alpha)
+
+
+def test_gat_fwd_occupancy(card):
+    """At the headline shapes the forward kernel fits two blocks of 13
+    warps per SM without spilling (it needs no launch bounds for that)."""
+    from ctvae_torch.ops import gat_flash as gf
+    occ = gf.fwd_occupancy(65, 65, 100)
+    assert occ["warps"] == 13 and occ["local_bytes"] == 0, occ
+    assert occ["blocks_per_sm"] >= 2, occ
 
 
 def _close_grads(names, got, want, rel=1e-5):
