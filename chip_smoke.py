@@ -18,6 +18,8 @@ the launch counters set to 0 just before and read just after:
   B = 16 with the config's ``exp_params`` (``update_parameters:
   ct_layer``), checked for a finite loss, frozen parameters bit-unchanged,
   ``ct_layer`` moved, and every backward kernel launched in every mode;
+  the pairwise backward is timed on each step's own two calls and held
+  against the plain autograd on the causal step's;
 * the two-stage recipe on TSynthetic (64x64, the headline widths with its
   8 actions): an MCQVAE pretrained for one epoch and saved, its weights
   restored alone into a CTMCQVAE, one ``VAEXperiment.fit`` epoch of
@@ -38,6 +40,12 @@ builds the kernels and only compares the tree's GAT forward with the
 forward of other ``gat.cu`` files (an earlier commit's, or a variant):
 outputs bit for bit, registers and occupancy, and times taken in turns
 (``compare_gat_fwd``).
+
+    python3 chip_smoke.py --pairwise-bwd-against OTHER/pairwise.cu [...]
+
+does the same for the pairwise scores' backward, on dense inputs and on
+the inputs each train mode's step gives it, with each build's error
+against the plain autograd (``compare_pairwise_bwd``).
 """
 
 from __future__ import annotations
@@ -362,69 +370,162 @@ def _check_gat(gen) -> dict:
     return row
 
 
-def _grad_errors(names, got, want):
+def _grad_errors(names, got, want, own_scale: bool = False):
     """(max abs error over the gradients, worst error / max(1, scale),
-    text per gradient)."""
+    text per gradient). With ``own_scale`` each gradient's error is taken
+    over its own scale max |want| instead (an all-zero ``want`` must be
+    matched exactly), so gradients far below 1 are held as tightly as
+    large ones; the text then gives each scale."""
     worst, worst_rel, parts = 0.0, 0.0, []
     for name, g, w in zip(names, got, want):
-        err = float((g - w).abs().max())
-        rel = err / max(1.0, float(w.abs().max()))
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        if not own_scale:
+            rel = err / max(1.0, scale)
+        else:
+            rel = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
-        parts.append(f"{name} {err:.3g} ({rel:.2g})")
+        parts.append(f"{name} {err:.3g} " + (f"of {scale:.3g} " if own_scale
+                                             else "") + f"({rel:.2g})")
         if not bool(torch.isfinite(g).all()):
             worst_rel = math.inf
     return worst, worst_rel, ", ".join(parts)
 
 
+def _pairwise_bwd_inputs(gen, B: int, per_sample: bool):
+    """The backward's arguments (xl, xr, w2, b1, out, dout, ns) at S = T =
+    64, Hd = 800 with a dense upstream gradient, and b2."""
+    from ctvae_torch.ops import pairwise_flash as pf
+    S, Hd = 64, 800
+    pshape = (B, Hd) if per_sample else (Hd,)
+    xl = torch.randn(B, S, Hd, generator=gen, device="cuda") * 0.5
+    xr = torch.randn(B, S, Hd, generator=gen, device="cuda") * 0.5
+    w2 = torch.randn(pshape, generator=gen, device="cuda") / math.sqrt(Hd)
+    b1 = torch.randn(pshape, generator=gen, device="cuda") * 0.1
+    b2 = torch.randn(pshape[:-1], generator=gen, device="cuda") * 0.1
+    dout = torch.randn(B, S, S, generator=gen, device="cuda")
+    out = pf.flash_pairwise_cuda(xl, xr, w2, b1, b2, 0.01)
+    return (xl, xr, w2, b1, out, dout, 0.01), b2
+
+
+def _pairwise_bwd_bound(args, live_pairs: int):
+    """Bytes: each input read once (xl, xr, w2, b1, out, dout), each
+    gradient written once in its param's shape. Operations: what the
+    algorithm needs, with dw2 = sum_s xl sum_t g + sum_t xr sum_s g + b1
+    sum g taken from the separable sums: per live pair (a non-zero dz; the
+    rest add nothing) and hidden unit, the add of pre, the slope's test and
+    select and the sum_t g and sum_s g adds (5); per (source or target,
+    hidden unit) the dxl or dxr multiply and a dw2 fma (3: the 67 TFLOP/s
+    peak counts an fma as two operations); per sample and hidden unit the
+    db1 multiply and the b1 fma (3); per pair dz = dout out (1 - out) and
+    ns dz (4)."""
+    xl, xr, w2, b1, out, dout, _ = args
+    B, S, H = xl.shape
+    T = xr.shape[1]
+    nb2 = B if w2.dim() == 2 else 1
+    nbytes = 4 * (2 * (xl.numel() + xr.numel() + w2.numel() + b1.numel())
+                  + out.numel() + dout.numel() + nb2)
+    ops = 5.0 * live_pairs * H + 3.0 * B * (S + T + 1) * H + 4.0 * B * S * T
+    return bound_ms(nbytes, ops)
+
+
+def _pairwise_live(args) -> dict:
+    """What of dz = dout out (1 - out) is non-zero: the shares of its rows
+    (source s of a sample), of the rows' 8-target segments and of its
+    pairs, and the count of live pairs."""
+    out, dout = args[4], args[5]
+    dz = dout * out * (1 - out)
+    B, S, T = dz.shape
+    live = dz != 0
+    segs = torch.nn.functional.pad(live.to(torch.int8), (0, -T % 8)
+                                   ).view(B, S, -1, 8)
+    pairs = int(live.sum())
+    return {"shape": [B, S, T, args[0].shape[2]],
+            "live_rows": float(live.any(2).float().mean()),
+            "live_segments": float(segs.any(3).float().mean()),
+            "live_pairs": pairs / live.numel(), "pairs": pairs}
+
+
+def _pairwise_plain_grads(args) -> list:
+    """The plain version's autograd from the kernel's own residual ``out``:
+    the gradients of the logits z = sum_h leaky(pre) w2 against dz = dout
+    out (1 - out), what the sigmoid's backward hands them; dw2, db1 and
+    db2 folded into their param's shape."""
+    from ctvae_torch.ops.pairwise import _bh
+    xl, xr, w2, b1, out, dout, ns = args
+    out, dout = out.detach(), dout.detach()
+    leaves = [t.detach().clone().requires_grad_() for t in (xl, xr, w2, b1)]
+    pre = leaves[0][:, :, None, :] + leaves[1][:, None, :, :] \
+        + _bh(leaves[3])
+    z = torch.sum(torch.where(pre >= 0, pre, ns * pre) * _bh(leaves[2]), -1)
+    dz = dout * out * (1 - out)
+    grads = list(torch.autograd.grad(z, leaves, dz))
+    del pre, z
+    return grads + [dz.sum((1, 2)) if w2.dim() == 2 else dz.sum()]
+
+
+def _pairwise_folded(grads, args) -> list:
+    """The kernel's per-sample dw2, db1, db2 folded as its caller folds
+    them (summed over the batch for a shared param)."""
+    from ctvae_torch.ops.pairwise_flash import _fold
+    w2 = args[2]
+    return [grads[0], grads[1], _fold(grads[2], w2), _fold(grads[3], w2),
+            grads[4] if w2.dim() == 2 else grads[4].sum()]
+
+
 def _check_pairwise_bwd(gen) -> dict:
     """The backward kernel against the plain version's autograd: B = 16
     with shared params (discoverer 0) and A*B = 192 per sample (the
-    causal path's action discoverers), S = T = 64, Hd = 800."""
+    causal path's action discoverers), S = T = 64, Hd = 800, a dense
+    upstream gradient; two runs must agree bit for bit (no atomics). Also
+    logs the kernel's registers, local (spill) bytes and resident blocks
+    per SM."""
     from ctvae_torch.ops import pairwise_flash as pf
     from ctvae_torch.ops.pairwise import fused_pairwise_scores
-    S, Hd = 64, 800
     A = MODEL_PARAMS["action_dim"]
     row = {"name": "pairwise_bwd", "max_abs_err": 0.0, "ok": True,
            "library_ms": None}
     notes = []
     for B, per_sample in ((BATCH, False), (A * BATCH, True)):
-        pshape = (B, Hd) if per_sample else (Hd,)
-        args = [torch.randn(B, S, Hd, generator=gen, device="cuda") * 0.5,
-                torch.randn(B, S, Hd, generator=gen, device="cuda") * 0.5,
-                torch.randn(pshape, generator=gen, device="cuda")
-                / math.sqrt(Hd),
-                torch.randn(pshape, generator=gen, device="cuda") * 0.1,
-                torch.randn(pshape[:-1], generator=gen, device="cuda") * 0.1]
-        dout = torch.randn(B, S, S, generator=gen, device="cuda")
-        out = pf.flash_pairwise_cuda(*args, 0.01)
-        kern = (args[0], args[1], args[2], args[3], out, dout, 0.01)
+        kern, b2 = _pairwise_bwd_inputs(gen, B, per_sample)
+        args = list(kern[:4]) + [b2]
+        dout = kern[5]
         leaves = [a.clone().requires_grad_() for a in args]
         got = torch.autograd.grad(pf.flash_pairwise(*leaves, 0.01), leaves,
                                   dout)
+        again = torch.autograd.grad(pf.flash_pairwise(*leaves, 0.01),
+                                    leaves, dout)
         plain_out = fused_pairwise_scores(*leaves, 0.01)
         want = torch.autograd.grad(plain_out, leaves, dout,
                                    retain_graph=True)
         torch.cuda.synchronize()
         err, rel, text = _grad_errors(("dxl", "dxr", "dw2", "db1", "db2"),
-                                      got, want)
+                                      got, want, own_scale=True)
+        same = all(torch.equal(g, h) for g, h in zip(got, again))
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["ok"] &= rel <= GRAD_RTOL
+        row["ok"] &= rel <= GRAD_RTOL and same
+        del got, again
         ms = time_ms(lambda: pf.flash_pairwise_bwd_cuda(*kern))
         plain = time_ms(lambda: torch.autograd.grad(
             plain_out, leaves, dout, retain_graph=True), reps=5)
         del plain_out, want
-        # per element: the add of pre, the slope's select and multiply,
-        # the dxl and dxr adds, the dw2 fma (2)
-        nbytes = 4 * (2 * (2 * B * S * Hd) + 2 * B * S * S
-                      + 2 * (args[2].numel() + args[3].numel())
-                      + args[4].numel())
-        bnd = bound_ms(nbytes, 7.0 * B * S * S * Hd)
+        bnd = _pairwise_bwd_bound(kern, _pairwise_live(kern)["pairs"])
         notes.append(f"B={B} {'per-sample' if per_sample else 'shared'}: "
-                     f"errors {text}; kernel {ms:.4f} ms, plain autograd "
-                     f"{plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
-        # the row reports the causal call (A*B, per-sample): the largest
-        row.update(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1])
+                     f"errors {text}; two runs bit-identical: {same}; "
+                     f"kernel {ms:.4f} ms, plain autograd {plain:.4f} ms, "
+                     f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if B == BATCH:
+            row["ms_at_16"], row["bound_ms_at_16"] = ms, bnd[0]
+            row["plain_ms_at_16"] = plain
+        else:   # the row reports the causal call (A*B = 192)
+            row.update(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                       bound_by=bnd[1])
+        del kern, args, leaves
         torch.cuda.empty_cache()
+    occ = row["occupancy"] = pf.bwd_occupancy(64, 64)
+    notes.append(f"{occ['regs']} registers, {occ['local_bytes']} local "
+                 f"(spill) bytes per thread, {occ['warps']} warps, "
+                 f"{occ['blocks_per_sm']} blocks per SM "
+                 f"(pairwise_bwd_blocks_per_sm)")
     row["note"] = "; ".join(notes)
     for n in notes:
         log(f"pairwise_bwd {n}")
@@ -580,6 +681,45 @@ def _logits_bwd_on_path(fn) -> dict:
             "ms": time_ms(lambda: gl.fused_gat_logits_bwd_cuda(
                 *args, d_e, ns)),
             "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def _pairwise_bwd_on_path(fn, check: bool = False) -> dict:
+    """The pairwise backward as one call of ``fn`` (a train step) launches
+    it, for each of its two calls ("no_inter": discoverer 0, shared params;
+    "inter": the intervention discoverers, per sample): the shape, the
+    live shares of dz (the kernel skips dead rows and segments, so its
+    time depends on them), and the kernel's time and bound (live pairs
+    only) on those very inputs. With ``check``, the gradients against the
+    plain version's autograd (``err``: the worst error over its gradient's
+    own scale, held to GRAD_RTOL), and the same error of a control that
+    must fail the limit: the plain gradients with the slope 1 everywhere
+    (``control_err``)."""
+    from ctvae_torch.ops import pairwise_flash as pf
+    res = {}
+    for args, _ in _calls_of(pf, "flash_pairwise_bwd_cuda", fn):
+        m = res["no_inter" if args[2].dim() == 1 else "inter"] = \
+            _pairwise_live(args)
+        m["ms"] = time_ms(lambda: pf.flash_pairwise_bwd_cuda(*args))
+        m["bound_ms"], m["bound_by"] = _pairwise_bwd_bound(args, m["pairs"])
+        if check:
+            names = ("dxl", "dxr", "dw2", "db1", "db2")
+            got = _pairwise_folded(pf.flash_pairwise_bwd_cuda(*args), args)
+            want = _pairwise_plain_grads(args)
+            _, m["err"], m["errors"] = _grad_errors(names, got, want,
+                                                    own_scale=True)
+            _, m["control_err"], m["control_errors"] = _grad_errors(
+                names, _pairwise_plain_grads(args[:6] + (1.0,)), want,
+                own_scale=True)
+            if not m["err"] <= GRAD_RTOL:
+                raise AssertionError(f"pairwise_bwd on the step's inputs: "
+                                     f"{m['errors']}")
+            if m["pairs"] and not m["control_err"] > GRAD_RTOL:
+                raise AssertionError(f"pairwise_bwd on the step's inputs: "
+                                     f"the control passes the limit: "
+                                     f"{m['control_errors']}")
+            del got, want
+            torch.cuda.empty_cache()
+    return res
 
 
 def _gat_fwd_on_path(fn) -> dict:
@@ -896,10 +1036,9 @@ def phase_profile(model) -> None:
 
 # --- phase 5: the training slice ------------------------------------------
 
-def phase_train():
-    """Train steps of each mode at the headline width, B = 16, with the
-    config's exp_params; the launch counters are reset just before and
-    read just after. Then one profiled step per mode."""
+def _train_setup():
+    """The headline model at B = 16 with the config's exp_params: (model,
+    train state, batch, a train step per mode)."""
     from ctvae_torch.models import build_model
     from ctvae_torch.training import (build_optimizers, create_train_state,
                                       make_train_step)
@@ -908,11 +1047,19 @@ def phase_train():
     state = create_train_state(
         model, build_optimizers(EXP_PARAMS, model, steps_per_epoch=100),
         seed=SEED)
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
     x, y, a = _requests(torch.Generator().manual_seed(SEED + 3), BATCH,
                         "cuda")
     batch = {"image": x, "input_y": y, "action": a}
-    steps = {m: make_train_step(m) for m in EXPECTED_TRAIN}
+    return model, state, batch, {m: make_train_step(m)
+                                 for m in EXPECTED_TRAIN}
+
+
+def phase_train():
+    """Train steps of each mode at the headline width, B = 16, with the
+    config's exp_params; the launch counters are reset just before and
+    read just after. Then one profiled step per mode."""
+    model, state, batch, steps = _train_setup()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timings = {}
@@ -962,6 +1109,18 @@ def phase_train():
             f"{m['live_share']:.4f} of pairs with a gradient; kernel on "
             f"these inputs {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
             f"({m['bound_by']})")
+    pairwise_bwd = {}
+    for mode, step in steps.items():
+        calls = pairwise_bwd[mode] = _pairwise_bwd_on_path(
+            lambda: step(state, batch), check=True)
+        for which, m in calls.items():
+            log(f"train {mode}: pairwise backward {which} {m['shape']}, "
+                f"live rows {m['live_rows']:.4f}, segments "
+                f"{m['live_segments']:.4f}, pairs {m['live_pairs']:.4f}; "
+                f"kernel on these inputs {m['ms']:.4f} ms, bound "
+                f"{m['bound_ms']:.4f} ms ({m['bound_by']})"
+                f"; errors {m['errors']}; control (slope 1) "
+                f"{m['control_errors']}")
     profiles = {mode: _profile(f"train step {mode} B={BATCH}",
                                lambda: step(state, batch))
                 for mode, step in steps.items()}
@@ -971,8 +1130,9 @@ def phase_train():
         f"ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
     # extra keys of the kernels line: what the causal step gives a kernel
     on_step = {"gat_fwd": {"on_causal_step": fwd},
-               "gat_logits_bwd": {"on_causal_step": logits_bwd["causal"]}}
-    for name in ("gat_fwd", "gat_bwd"):
+               "gat_logits_bwd": {"on_causal_step": logits_bwd["causal"]},
+               "pairwise_bwd": {"on_causal_step": pairwise_bwd["causal"]}}
+    for name in ("gat_fwd", "gat_bwd", "pairwise_bwd"):
         ms = sum(ms for key, ms, _ in profiles["causal"]
                  if f"{name}_kernel" in key)
         on_step.setdefault(name, {})["profiled_causal_step_ms"] = ms
@@ -1170,7 +1330,59 @@ def phase_two_stage() -> dict:
     return launches
 
 
-# --- the forward GAT kernel against other builds of it ---------------------
+# --- a kernel against other builds of it -----------------------------------
+
+def _build_others(stem: str, sources) -> dict:
+    """Each of ``sources`` (other versions of ``csrc/<stem>.cu``: an
+    earlier commit's, or a variant) built with the tree's flags, one
+    ``nvcc`` each, in parallel, and loaded; logs their registers and
+    spills. Returns {source: library}."""
+    import ctypes
+    from ctvae_torch.ops import _build
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    procs, libs = [], {}
+    for k, src in enumerate(sources):
+        so = os.path.join(_build.BUILD_DIR, f"lib{stem}-other{k}.so")
+        procs.append((src, so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for src, so, proc in procs:
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{text}")
+        _ptxas(src, text)
+        libs[src] = ctypes.CDLL(so)
+    return libs
+
+
+def _in_turns(libs, launch, rounds: int = 3) -> dict:
+    """{name: samples}: ``time_ms`` of ``launch(lib)`` for each build,
+    ``rounds`` times, the builds in turns (the order reversed every other
+    round)."""
+    samples = {name: [] for name in libs}
+    for rnd in range(rounds):
+        order = list(libs) if rnd % 2 == 0 else list(libs)[::-1]
+        for name in order:
+            samples[name].append(time_ms(lambda: launch(libs[name])))
+    return samples
+
+
+def _host_us_in_turns(libs, launch, rounds: int, calls: int = 100) -> dict:
+    """{name: samples}: host microseconds per ``launch(lib)`` call over a
+    burst of ``calls`` calls (the card drained before each burst), the
+    builds in turns as in ``_in_turns``."""
+    samples = {name: [] for name in libs}
+    for rnd in range(rounds):
+        order = list(libs) if rnd % 2 == 0 else list(libs)[::-1]
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                launch(libs[name])
+            samples[name].append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return samples
+
 
 def _gat_fwd_raw(lib, args, alpha=None) -> torch.Tensor:
     """One raw launch of ``gat_fwd`` from ``lib`` (no wrapper, no launch
@@ -1192,30 +1404,17 @@ def _gat_fwd_raw(lib, args, alpha=None) -> torch.Tensor:
 
 def compare_gat_fwd(sources) -> dict:
     """The tree's ``gat_fwd`` against the ``gat_fwd`` of other ``gat.cu``
-    files (an earlier commit's, or a variant), built side by side with the
-    tree's flags and launched raw on the smoke's inputs at A*B = 192 and
-    B = 16: each build's out and alpha against the tree's (max difference,
-    bit for bit), its registers, spill bytes and blocks per SM (where it
-    exports ``gat_fwd_blocks_per_sm``), and the median over three rounds
-    of ``time_ms`` of one serving launch, the builds timed in turns (the
-    order reversed every other round)."""
+    files, launched raw on the smoke's inputs at A*B = 192 and B = 16:
+    each build's out and alpha against the tree's (max difference, bit for
+    bit), its registers, spill bytes and blocks per SM (where it exports
+    ``gat_fwd_blocks_per_sm``), and the median over three rounds of
+    ``time_ms`` of one serving launch, the builds timed in turns."""
     import ctypes
-    from ctvae_torch.ops import _build
     from ctvae_torch.ops import gat_flash as gf
     from ctvae_torch.ops.common import warps_for
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    libs, procs = {"tree": gf._lib()}, []
-    for k, src in enumerate(sources):
-        so = os.path.join(_build.BUILD_DIR, f"libgat-other{k}.so")
-        procs.append((src, so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    for src, so, proc in procs:
-        text = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {src}:\n{text}")
-        _ptxas(src, text)
-        lib = libs[src] = ctypes.CDLL(so)
+    libs = {"tree": gf._lib(), **_build_others("gat", sources)}
+    for lib in libs.values():
         lib.gat_fwd.argtypes = [p] * 8 + [i] * 6 + [f, p]
         lib.gat_fwd.restype = ctypes.c_int
     res = {name: {} for name in libs}
@@ -1235,12 +1434,7 @@ def compare_gat_fwd(sources) -> dict:
                 float((g - w).abs().max()) for g, w in zip(got, want))
             res[name][f"bit_identical_{B}"] = all(
                 torch.equal(g, w) for g, w in zip(got, want))
-        samples = {name: [] for name in libs}
-        for rnd in range(3):
-            order = list(libs) if rnd % 2 == 0 else list(libs)[::-1]
-            for name in order:
-                samples[name].append(time_ms(
-                    lambda: _gat_fwd_raw(libs[name], args)))
+        samples = _in_turns(libs, lambda lib: _gat_fwd_raw(lib, args))
         for name in libs:
             res[name][f"ms_{B}"] = statistics.median(samples[name])
             res[name][f"samples_{B}"] = samples[name]
@@ -1256,6 +1450,103 @@ def compare_gat_fwd(sources) -> dict:
     for name, r in res.items():
         log(f"gat_fwd {name}: {json.dumps(r)}")
     return res
+
+
+def _pairwise_bwd_raw(lib, args) -> list:
+    """One raw launch of ``pairwise_bwd`` from ``lib`` (no wrapper, no
+    launch count): dxl, dxr and the per-sample dw2, db1, db2."""
+    from ctvae_torch.ops import _build
+    xl, xr, w2, b1, out, dout, ns = args
+    B, S, H = xl.shape
+    grads = [torch.empty_like(xl), torch.empty_like(xr),
+             xl.new_empty((B, H)), xl.new_empty((B, H)), xl.new_empty((B,))]
+    _build.check(lib.pairwise_bwd(
+        *(t.data_ptr() for t in (xl, xr, w2, b1, out, dout, *grads)),
+        B, S, xr.shape[1], H, H if w2.dim() == 2 else 0,
+        H if b1.dim() == 2 else 0, ns,
+        torch.cuda.current_stream().cuda_stream), "pairwise_bwd")
+    return grads
+
+
+# rounds of --pairwise-bwd-against: enough for a gain of ~1% to win most
+# of them against the ~1% spread between calls
+PAIRED_ROUNDS = 11
+
+
+def compare_pairwise_bwd(sources) -> dict:
+    """The tree's ``pairwise_bwd`` against the ``pairwise_bwd`` of other
+    ``pairwise.cu`` files, launched raw on the check's dense inputs at A*B
+    = 192 (per sample) and B = 16 (shared) and on both calls of each train
+    mode's own step (captured): each build's gradients against the tree's
+    (max difference, bit for bit) and against the plain version's autograd
+    (worst error over each gradient's own scale), its registers, spill
+    bytes and blocks per SM (where it exports
+    ``pairwise_bwd_blocks_per_sm``), and over PAIRED_ROUNDS rounds of
+    ``time_ms`` of one launch, the builds timed in turns: the median, and
+    against the tree's sample of the same round the median ratio and the
+    number of rounds it was faster; and at B = 16 the host's microseconds
+    per launch call (median over the rounds, ``host_us_dense_16``)."""
+    import ctypes
+    from ctvae_torch.ops import pairwise_flash as pf
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    libs = {"tree": pf._lib(), **_build_others("pairwise", sources)}
+    for lib in libs.values():
+        lib.pairwise_bwd.argtypes = [p] * 11 + [i] * 4 + [i64, i64,
+                                                          ctypes.c_float, p]
+        lib.pairwise_bwd.restype = ctypes.c_int
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    inputs = {f"dense_{B}": _pairwise_bwd_inputs(gen, B, B > BATCH)[0]
+              for B in (MODEL_PARAMS["action_dim"] * BATCH, BATCH)}
+    _, state, batch, steps = _train_setup()
+    for mode, step in steps.items():
+        for args, _ in _calls_of(pf, "flash_pairwise_bwd_cuda",
+                                 lambda: step(state, batch)):
+            which = "no_inter" if args[2].dim() == 1 else "inter"
+            inputs[f"{mode}_{which}"] = args
+    del state, steps
+    res = {name: {} for name in libs}
+    shares = {}
+    for key, args in inputs.items():
+        live = shares[key] = _pairwise_live(args)
+        want = _pairwise_plain_grads(args)
+        outs = {name: _pairwise_bwd_raw(lib, args)
+                for name, lib in libs.items()}
+        torch.cuda.synchronize()
+        for name, got in outs.items():
+            r = res[name]
+            r[f"max_diff_{key}"] = max(float((g - w).abs().max()) for g, w
+                                       in zip(got, outs["tree"]))
+            r[f"bit_identical_{key}"] = all(
+                torch.equal(g, w) for g, w in zip(got, outs["tree"]))
+            r[f"err_{key}"] = _grad_errors(
+                ("dxl", "dxr", "dw2", "db1", "db2"),
+                _pairwise_folded(got, args), want, own_scale=True)[1]
+        del want, outs
+        torch.cuda.empty_cache()
+        samples = _in_turns(libs, lambda lib: _pairwise_bwd_raw(lib, args),
+                            PAIRED_ROUNDS)
+        for name in libs:
+            pairs = list(zip(samples[name], samples["tree"]))
+            res[name][f"ms_{key}"] = statistics.median(samples[name])
+            res[name][f"vs_tree_{key}"] = statistics.median(
+                a / b for a, b in pairs)
+            res[name][f"faster_rounds_{key}"] = sum(a < b for a, b in pairs)
+            res[name][f"samples_{key}"] = samples[name]
+        if key == f"dense_{BATCH}":
+            host = _host_us_in_turns(
+                libs, lambda lib: _pairwise_bwd_raw(lib, args), PAIRED_ROUNDS)
+            for name in libs:
+                res[name][f"host_us_{key}"] = statistics.median(host[name])
+        log(f"pairwise_bwd inputs {key}: {json.dumps(live)}; bound "
+            f"{_pairwise_bwd_bound(args, live['pairs'])[0]:.4f} ms")
+    for name, lib in libs.items():
+        try:
+            res[name].update(pf.bwd_occupancy(64, 64, lib))
+        except AttributeError:
+            pass
+    for name, r in res.items():
+        log(f"pairwise_bwd {name}: {json.dumps(r)}")
+    return {"inputs": shares, "builds": res}
 
 
 # keys of a check's row that the kernels line carries beside the contract's
@@ -1284,6 +1575,11 @@ def main(argv) -> int:
         "--gat-fwd-against", nargs="+", metavar="GAT_CU",
         help="only build the kernels and compare the tree's gat_fwd with "
              "the gat_fwd of these gat.cu files (compare_gat_fwd)")
+    parser.add_argument(
+        "--pairwise-bwd-against", nargs="+", metavar="PAIRWISE_CU",
+        help="only build the kernels and compare the tree's pairwise_bwd "
+             "with the pairwise_bwd of these pairwise.cu files "
+             "(compare_pairwise_bwd)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke runs on a card",
@@ -1295,6 +1591,10 @@ def main(argv) -> int:
     if opts.gat_fwd_against:
         log(json.dumps({"gat_fwd_against": compare_gat_fwd(
             opts.gat_fwd_against)}))
+        return 0
+    if opts.pairwise_bwd_against:
+        log(json.dumps({"pairwise_bwd_against": compare_pairwise_bwd(
+            opts.pairwise_bwd_against)}))
         return 0
     rows = phase_kernels()
     model, timings, serve_launches = phase_serve()

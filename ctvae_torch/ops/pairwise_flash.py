@@ -13,12 +13,12 @@ whose autograd is the backward's plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .common import check_cuda_tensor
+from .common import check_cuda_tensor, check_smem
 from .pairwise import fused_pairwise_scores
 
 #: launches of the forward / backward kernel since the last reset (set to 0)
@@ -35,6 +35,10 @@ def _lib() -> ctypes.CDLL:
     lib.pairwise_bwd.argtypes = [p] * 11 + [i, i, i, i, i64, i64,
                                             ctypes.c_float, p]
     lib.pairwise_bwd.restype = ctypes.c_int
+    lib.pairwise_bwd_smem_bytes.argtypes = [i, i]
+    lib.pairwise_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.pairwise_bwd_blocks_per_sm.argtypes = [i, i, p, p]
+    lib.pairwise_bwd_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -100,6 +104,8 @@ def flash_pairwise_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor,
     if H == 0:
         raise ValueError("flash_pairwise backward needs Hd > 0")
     lib = _lib()
+    check_smem(f"flash_pairwise backward: S={S}, T={T}",
+               lib.pairwise_bwd_smem_bytes(S, T))
     grads = (torch.empty_like(xl), torch.empty_like(xr),
              xl.new_empty((B, H)), xl.new_empty((B, H)), xl.new_empty((B,)))
     stream = torch.cuda.current_stream(xl.device).cuda_stream
@@ -109,6 +115,21 @@ def flash_pairwise_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor,
         B, S, T, H, w2_stride, b1_stride, ns, stream), "pairwise_bwd")
     bwd_launches += 1
     return grads
+
+
+def bwd_occupancy(S: int, T: int, lib: Optional[ctypes.CDLL] = None
+                  ) -> dict:
+    """What the backward kernel's launch gets on this card at these shapes:
+    warps per block, registers and local (spill) bytes per thread and
+    resident blocks per SM (of ``lib``, another build of
+    ``csrc/pairwise.cu``, when given)."""
+    fn = (lib or _lib()).pairwise_bwd_blocks_per_sm
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    n = fn(S, T, ctypes.byref(regs), ctypes.byref(local))
+    if n < 0:
+        raise RuntimeError("pairwise_bwd_blocks_per_sm failed")
+    return {"warps": 8, "regs": regs.value, "local_bytes": local.value,
+            "blocks_per_sm": n}
 
 
 def _fold(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

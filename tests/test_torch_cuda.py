@@ -126,32 +126,124 @@ def _close_grads(names, got, want, rel=1e-5):
         assert err <= rel * scale, (name, err, scale)
 
 
+def _pairwise_dout(rng, B, S, T, kind):
+    """The upstream gradient of a pairwise backward case: dense; "zero"
+    everywhere; whole zero source rows at ~25% pair density (as the
+    intervention discoverer's masked rows give it) and a sample with no
+    live row; "-0.0" entries (a masked negative product) and a zero
+    column; or zero 8-target segments inside live rows."""
+    dout = _t(rng, B, S, T)
+    if kind == "zero":
+        dout.zero_()
+    elif kind == "rows":
+        dout *= torch.from_numpy(rng.uniform(size=(B, S, 1)) < 0.25).cuda()
+        dout[0] = 0.0
+    elif kind == "negzero":
+        dout[:, ::2] = -0.0
+        dout[:, :, 3] = 0.0
+    elif kind == "segments":
+        dout[:, :, :8] = 0.0
+        dout[:, 1::3, 8:16] = 0.0
+        dout[:, 1] = 0.0
+    return dout
+
+
 @pytest.mark.parametrize("per_sample", [False, True])
-@pytest.mark.parametrize("S,T,H", [(7, 7, 24), (9, 13, 800), (64, 64, 33)])
-def test_pairwise_bwd_kernel_matches_plain(card, per_sample, S, T, H):
+@pytest.mark.parametrize("S,T,H,ns,kind,shift", [
+    (7, 7, 24, 0.01, "dense", 0.0), (9, 13, 800, 0.01, "dense", 0.0),
+    (64, 64, 33, 0.01, "dense", 0.0),
+    # upstream gradients the kernel skips in part or in whole
+    (64, 64, 800, 0.01, "rows", 0.0), (13, 21, 100, 0.0, "rows", 0.0),
+    (8, 8, 100, 1.0, "zero", 0.0), (12, 20, 33, 0.01, "negzero", 0.0),
+    (10, 29, 800, 0.01, "segments", 0.0),
+    # more than 64 targets (T rounded up to 8 is wider than a block's 64
+    # hidden units) and the largest S = T that fits a block
+    (72, 72, 800, 0.01, "dense", 0.0), (120, 120, 100, 0.01, "rows", 0.0),
+    # |xl|, |xr| ~ 8 >> |pre|: dw2 from the separable sums cancels
+    (64, 64, 100, 0.01, "dense", 8.0)])
+def test_pairwise_bwd_kernel_matches_plain(card, per_sample, S, T, H, ns,
+                                           kind, shift):
     """FlashPairwise's backward kernel against the plain version's
-    autograd, shared (summed over the batch) and per-sample params."""
+    autograd, shared (summed over the batch) and per-sample params, with
+    dense and partly or wholly zero upstream gradients, T not a multiple
+    of 8 and slopes 0, 0.01 and 1; two runs agree bit for bit."""
     from ctvae_torch.ops import pairwise_flash as pf
     from ctvae_torch.ops.pairwise import fused_pairwise_scores
     rng = np.random.default_rng(S * T + H + 1)
     B = 3
     pshape = (B, H) if per_sample else (H,)
-    args = [_t(rng, B, S, H, scale=0.5), _t(rng, B, T, H, scale=0.5),
+    args = [_t(rng, B, S, H, scale=0.5) + shift,
+            _t(rng, B, T, H, scale=0.5) - shift,
             _t(rng, *pshape, scale=H ** -0.5), _t(rng, *pshape, scale=0.1),
             _t(rng, *pshape[:-1], scale=0.1)]
-    dout = _t(rng, B, S, T)
+    dout = _pairwise_dout(rng, B, S, T, kind)
     leaves = [a.clone().requires_grad_() for a in args]
     before = pf.bwd_launches
-    got = torch.autograd.grad(pf.flash_pairwise(*leaves, 0.01), leaves, dout)
+    got = torch.autograd.grad(pf.flash_pairwise(*leaves, ns), leaves, dout)
     torch.cuda.synchronize()
     assert pf.bwd_launches == before + 1
+    want = torch.autograd.grad(fused_pairwise_scores(*leaves, ns), leaves,
+                               dout)
+    _close_grads(("dxl", "dxr", "dw2", "db1", "db2"), got, want)
+    again = torch.autograd.grad(pf.flash_pairwise(*leaves, ns), leaves,
+                                dout)
+    for g, h in zip(got, again):      # no atomics: bit for bit
+        assert torch.equal(g, h)
+    if kind in ("rows", "zero"):      # a sample without a live row
+        assert not got[0][0].any() and not got[1][0].any()
+
+
+@pytest.mark.parametrize("S,T,H,B", [(16, 16, 200, 1100), (16, 16, 800, 430)])
+def test_pairwise_bwd_several_chunks_per_block(card, S, T, H, B):
+    """A batch large enough that a block of the backward walks several
+    64-unit hidden chunks of its sample (here 2 of 4, ragged, and 3 of
+    13, unevenly dealt) against the plain version's autograd, with dead
+    rows and a dead sample; two runs agree bit for bit."""
+    from ctvae_torch.ops import pairwise_flash as pf
+    from ctvae_torch.ops.pairwise import fused_pairwise_scores
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = pf.bwd_occupancy(S, T)["blocks_per_sm"]
+    nch = -(-H // 64)
+    blocks = min(max(-(-8 * nsm * per_sm // B), 1), nch)
+    assert -(-nch // blocks) >= 2, (nsm, per_sm, blocks)
+    rng = np.random.default_rng(B)
+    args = [_t(rng, B, S, H, scale=0.5), _t(rng, B, T, H, scale=0.5),
+            _t(rng, B, H, scale=H ** -0.5), _t(rng, B, H, scale=0.1),
+            _t(rng, B, scale=0.1)]
+    dout = _pairwise_dout(rng, B, S, T, "rows")
+    leaves = [a.clone().requires_grad_() for a in args]
+    got = torch.autograd.grad(pf.flash_pairwise(*leaves, 0.01), leaves, dout)
     want = torch.autograd.grad(fused_pairwise_scores(*leaves, 0.01), leaves,
                                dout)
     _close_grads(("dxl", "dxr", "dw2", "db1", "db2"), got, want)
     again = torch.autograd.grad(pf.flash_pairwise(*leaves, 0.01), leaves,
                                 dout)
-    for g, h in zip(got, again):      # no atomics: bit for bit
+    for g, h in zip(got, again):
         assert torch.equal(g, h)
+
+
+def test_pairwise_bwd_occupancy(card):
+    """At the headline shapes (S = T = 64) the backward kernel fits two
+    blocks of 8 warps per SM without spilling (one left it at half the
+    speed: 96.8 KB of shared memory and up to 128 registers a thread)."""
+    from ctvae_torch.ops import pairwise_flash as pf
+    occ = pf.bwd_occupancy(64, 64)
+    assert occ["warps"] == 8 and occ["local_bytes"] == 0, occ
+    assert occ["regs"] <= 128 and occ["blocks_per_sm"] >= 2, occ
+
+
+def test_pairwise_bwd_rejects_too_large_tile(card):
+    """Past S = T = 120 the backward's tiles do not fit a block's shared
+    memory: the wrapper says so before launching."""
+    from ctvae_torch.ops import pairwise_flash as pf
+    B, S, H = 1, 121, 32
+    xl = torch.zeros(B, S, H, device="cuda")
+    out = torch.zeros(B, S, S, device="cuda")
+    w2 = torch.zeros(H, device="cuda")
+    before = pf.bwd_launches
+    with pytest.raises(ValueError, match="shared memory"):
+        pf.flash_pairwise_bwd_cuda(xl, xl, w2, w2, out, out, 0.01)
+    assert pf.bwd_launches == before
 
 
 def _gat_args(rng, B, S, T, H, F, density=0.6):

@@ -233,6 +233,37 @@ def test_flash_pairwise_grads_match_pallas(per_sample, S, T):
     _grad_close(got, want)
 
 
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_flash_pairwise_grads_match_pallas_sparse_cotangent(per_sample):
+    """As above with the cotangent the intervention discoverer's call gets
+    on the train path: whole source rows zero (the mask is 0 there, -0.0
+    where the product is negative), a sample with no live row, sparse
+    pairs in the live rows. The CUDA backward skips all of these, so the
+    plain autograd must give them nothing, and it agrees with ``jax.grad``
+    of the Pallas VJP (interpret mode)."""
+    import jax
+    B, S, T = 3, 9, 13
+    args = _pairwise_inputs(17, B, S, T, 24, per_sample)
+    rng = np.random.default_rng(18)
+    dout = rng.normal(size=(B, S, T)).astype(np.float32)
+    dout *= (rng.uniform(size=(B, S, 1)) < 0.5).astype(np.float32)
+    dout *= (rng.uniform(size=(B, S, T)) < 0.5).astype(np.float32)
+    dout[1] = 0.0
+    dead = ~dout.any(2)
+    assert dead[0].any() and not dead.all()
+    want = jax.grad(lambda *a: jnp.sum(j_flash_pairwise(*a, 0.01, True)
+                                       * dout), argnums=(0, 1, 2, 3, 4))(
+        *map(jnp.asarray, args))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    got = torch.autograd.grad(flash_pairwise(*leaves, 0.01), leaves,
+                              torch.from_numpy(dout))
+    _grad_close(got, want)
+    assert not got[0][torch.from_numpy(dead)].any()   # dxl of dead rows
+    assert not got[1][1].any()            # the sample without a gradient
+    if per_sample:
+        assert not any(g[1].any() for g in got[2:])
+
+
 @pytest.mark.parametrize("S,T", [(9, 9), (8, 5)])
 def test_flash_gat_grads_match_pallas(S, T):
     """FlashGAT's plain path against ``jax.grad`` of the Pallas kernel's
