@@ -46,6 +46,11 @@ outputs bit for bit, registers and occupancy, and times taken in turns
 does the same for the pairwise scores' backward, on dense inputs and on
 the inputs each train mode's step gives it, with each build's error
 against the plain autograd (``compare_pairwise_bwd``).
+
+    python3 chip_smoke.py --pairwise-fwd-against OTHER/pairwise.cu [...]
+
+and for the pairwise scores' forward, with each build's error against
+the plain version (``compare_pairwise_fwd``).
 """
 
 from __future__ import annotations
@@ -229,40 +234,102 @@ def _check_vq(gen) -> dict:
     return row
 
 
-def _check_pairwise(gen) -> dict:
+def _pairwise_fwd_bound(args):
+    """Bytes: each input read once, the output written once. Operations:
+    what the leaky split needs, relu(xl + xr') w2 per element (add, max,
+    fma: 4, the 67 TFLOP/s peak counting an fma as two), the separable
+    linear sums (per source and hidden unit an fma; per target and hidden
+    unit the add of b1 and an fma), and per pair the linear part, b2 and
+    the sigmoid (add, two fmas, negate, exp, add, divide: 8)."""
+    xl, xr, w2, b1, b2, _ = args
+    B, S, H = xl.shape
+    T = xr.shape[1]
+    nbytes = 4 * (xl.numel() + xr.numel() + w2.numel() + b1.numel()
+                  + b2.numel() + B * S * T)
+    ops = 4.0 * B * S * T * H + 2.0 * B * S * H + 3.0 * B * T * H \
+        + 8.0 * B * S * T
+    return bound_ms(nbytes, ops)
+
+
+def _pairwise_fwd_inputs(gen, B: int, per_sample: bool):
+    """The forward's arguments at S = T = 64, Hd = 800 (the headline
+    discoverer): shared params at B = 16, per-sample ones at A*B = 192."""
+    S, Hd = 64, 800
+    xl = torch.randn(B, S, Hd, generator=gen, device="cuda") * 0.5
+    xr = torch.randn(B, S, Hd, generator=gen, device="cuda") * 0.5
+    pshape = (B, Hd) if per_sample else (Hd,)
+    w2 = torch.randn(pshape, generator=gen, device="cuda") / math.sqrt(Hd)
+    b1 = torch.randn(pshape, generator=gen, device="cuda") * 0.1
+    b2 = torch.randn(pshape[:-1], generator=gen, device="cuda") * 0.1
+    return (xl, xr, w2, b1, b2, 0.01)
+
+
+def _pairwise_fwd_check(args) -> dict:
+    """One forward call of the wrapper against the plain version on
+    ``args``: the max abs error, whether a second call agrees bit for
+    bit, the kernel's time and the bound."""
     from ctvae_torch.ops import pairwise_flash as pf
     from ctvae_torch.ops.pairwise import fused_pairwise_scores
-    S, Hd = 64, 800
+
+    def fn(a):
+        return pf.flash_pairwise_cuda(*a)
+    with torch.no_grad():
+        got, again = fn(args), fn(args)
+        want = fused_pairwise_scores(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    res = {"shape": [*args[0].shape[:2], args[1].shape[1],
+                     args[0].shape[2]],
+           "per_sample": args[2].dim() == 2, "max_abs_err": err,
+           "bit_identical": torch.equal(got, again),
+           "ok": err <= PAIRWISE_ATOL and torch.equal(got, again)
+           and bool(torch.isfinite(got).all())}
+    del got, again, want
+    res["ms"] = time_ms(lambda: fn(args))
+    res["bound_ms"], res["bound_by"] = _pairwise_fwd_bound(args)
+    return res
+
+
+def _check_pairwise(gen) -> dict:
+    """The forward kernel against the plain version at B = 16 with shared
+    params (discoverer 0) and at A*B = 192 per sample (the causal path's
+    action discoverers), which the row reports; two launches must agree
+    bit for bit. Also logs the kernel's registers, local (spill) bytes,
+    resident blocks per SM and the cluster that splits the hidden units."""
+    from ctvae_torch.ops import pairwise_flash as pf
+    from ctvae_torch.ops.pairwise import fused_pairwise_scores
     A = MODEL_PARAMS["action_dim"]
-    row = {"name": "pairwise_fwd", "max_abs_err": 0.0, "ok": True}
+    row = {"name": "pairwise_fwd", "max_abs_err": 0.0, "ok": True,
+           "library_ms": None, "occupancy": {}}
     notes = []
     for B, per_sample in ((BATCH, False), (A * BATCH, True)):
-        xl = torch.randn(B, S, Hd, generator=gen, device="cuda") * 0.5
-        xr = torch.randn(B, S, Hd, generator=gen, device="cuda") * 0.5
-        pshape = (B, Hd) if per_sample else (Hd,)
-        w2 = torch.randn(pshape, generator=gen, device="cuda") / math.sqrt(Hd)
-        b1 = torch.randn(pshape, generator=gen, device="cuda") * 0.1
-        b2 = torch.randn(pshape[:-1], generator=gen, device="cuda") * 0.1
-        args = (xl, xr, w2, b1, b2, 0.01)
-        got = pf.flash_pairwise_cuda(*args)
-        want = fused_pairwise_scores(*args)
-        torch.cuda.synchronize()
-        err, rel = errors(got, want)
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["ok"] &= err <= PAIRWISE_ATOL and bool(torch.isfinite(got).all())
-        ms = time_ms(lambda: pf.flash_pairwise_cuda(*args))
+        args = _pairwise_fwd_inputs(gen, B, per_sample)
+        m = _pairwise_fwd_check(args)
         plain = time_ms(lambda: fused_pairwise_scores(*args), reps=5)
-        elems = B * S * S * Hd
-        # per element: add, leaky (mul, max), multiply-accumulate (2)
-        bnd = bound_ms(4 * (2 * B * S * Hd + w2.numel() + b1.numel()
-                            + b2.numel() + B * S * S), 5.0 * elems)
+        occ = pf.fwd_occupancy(B, 64, 64, 800)
+        row["max_abs_err"] = max(row["max_abs_err"], m["max_abs_err"])
+        row["ok"] &= m["ok"]
         notes.append(f"B={B} {'per-sample' if per_sample else 'shared'}: "
-                     f"max abs err {err:.3g}, max rel err {rel:.3g}, "
-                     f"kernel {ms:.4f} ms, plain "
-                     f"{plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
-        # the row reports the causal call (A*B, per-sample): the largest
-        row.update(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1])
-    row["library_ms"] = None
+                     f"max abs err {m['max_abs_err']:.3g}, two launches "
+                     f"bit-identical: {m['bit_identical']}, kernel "
+                     f"{m['ms']:.4f} ms, plain {plain:.4f} ms, bound "
+                     f"{m['bound_ms']:.4f} ms ({m['bound_by']}), "
+                     f"{occ['cluster']} blocks per cluster")
+        if B == BATCH:
+            row["ms_at_16"], row["bound_ms_at_16"] = m["ms"], m["bound_ms"]
+            row["plain_ms_at_16"] = plain
+            row["occupancy"]["cluster_at_16"] = occ["cluster"]
+        else:   # the row reports the causal call (A*B, per-sample)
+            row.update(ms=m["ms"], plain_ms=plain, bound_ms=m["bound_ms"],
+                       bound_by=m["bound_by"])
+            row["occupancy"].update(occ)
+        del args
+        torch.cuda.empty_cache()
+    occ = row["occupancy"]
+    notes.append(f"{occ['regs']} registers, {occ['local_bytes']} local "
+                 f"(spill) bytes per thread, {occ['warps']} warps, "
+                 f"{occ['blocks_per_sm']} blocks per SM "
+                 f"(pairwise_fwd_blocks_per_sm)")
     row["note"] = "; ".join(notes)
     for n in notes:
         log(f"pairwise {n}")
@@ -722,6 +789,23 @@ def _pairwise_bwd_on_path(fn, check: bool = False) -> dict:
     return res
 
 
+def _pairwise_fwd_on_path(fn) -> dict:
+    """The pairwise forward's two calls as one call of ``fn`` (a train
+    step) launches them ("no_inter": discoverer 0, shared params;
+    "inter": the intervention discoverers, per sample), each held against
+    the plain version on its own inputs (PAIRWISE_ATOL, bit for bit on a
+    rerun) and timed there."""
+    from ctvae_torch.ops import pairwise_flash as pf
+    res = {}
+    for args, _ in _calls_of(pf, "flash_pairwise_cuda", fn):
+        args = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
+        m = res["no_inter" if args[2].dim() == 1 else "inter"] = \
+            _pairwise_fwd_check(args)
+        if not m["ok"]:
+            raise AssertionError(f"pairwise_fwd on the step's inputs: {m}")
+    return res
+
+
 def _gat_fwd_on_path(fn) -> dict:
     """The GAT forward as one call of ``fn`` (a train step) launches it:
     the share of (source, target) pairs that are edges (the kernel walks
@@ -1121,6 +1205,13 @@ def phase_train():
                 f"{m['bound_ms']:.4f} ms ({m['bound_by']})"
                 f"; errors {m['errors']}; control (slope 1) "
                 f"{m['control_errors']}")
+    pairwise_fwd = _pairwise_fwd_on_path(
+        lambda: steps["causal"](state, batch))
+    for which, m in pairwise_fwd.items():
+        log(f"train causal: pairwise forward {which} {m['shape']}: max abs "
+            f"err {m['max_abs_err']:.3g}, rerun bit-identical "
+            f"{m['bit_identical']}; kernel on these inputs {m['ms']:.4f} ms, "
+            f"bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
     profiles = {mode: _profile(f"train step {mode} B={BATCH}",
                                lambda: step(state, batch))
                 for mode, step in steps.items()}
@@ -1131,8 +1222,9 @@ def phase_train():
     # extra keys of the kernels line: what the causal step gives a kernel
     on_step = {"gat_fwd": {"on_causal_step": fwd},
                "gat_logits_bwd": {"on_causal_step": logits_bwd["causal"]},
-               "pairwise_bwd": {"on_causal_step": pairwise_bwd["causal"]}}
-    for name in ("gat_fwd", "gat_bwd", "pairwise_bwd"):
+               "pairwise_bwd": {"on_causal_step": pairwise_bwd["causal"]},
+               "pairwise_fwd": {"on_causal_step": pairwise_fwd}}
+    for name in ("gat_fwd", "gat_bwd", "pairwise_fwd", "pairwise_bwd"):
         ms = sum(ms for key, ms, _ in profiles["causal"]
                  if f"{name}_kernel" in key)
         on_step.setdefault(name, {})["profiled_causal_step_ms"] = ms
@@ -1468,6 +1560,27 @@ def _pairwise_bwd_raw(lib, args) -> list:
     return grads
 
 
+def _paired_times(res, libs, key: str, launch) -> None:
+    """Into ``res[name]`` for each build: over PAIRED_ROUNDS rounds of
+    ``time_ms`` of ``launch(lib)``, the builds in turns, the median
+    (``ms_<key>``), the median ratio to the tree's sample of the same round
+    (``vs_tree_<key>``), the rounds it was faster and the samples; on the
+    B = 16 dense inputs also the host's microseconds per launch call
+    (``host_us_<key>``)."""
+    samples = _in_turns(libs, launch, PAIRED_ROUNDS)
+    for name in libs:
+        pairs = list(zip(samples[name], samples["tree"]))
+        res[name][f"ms_{key}"] = statistics.median(samples[name])
+        res[name][f"vs_tree_{key}"] = statistics.median(
+            a / b for a, b in pairs)
+        res[name][f"faster_rounds_{key}"] = sum(a < b for a, b in pairs)
+        res[name][f"samples_{key}"] = samples[name]
+    if key == f"dense_{BATCH}":
+        host = _host_us_in_turns(libs, launch, PAIRED_ROUNDS)
+        for name in libs:
+            res[name][f"host_us_{key}"] = statistics.median(host[name])
+
+
 # rounds of --pairwise-bwd-against: enough for a gain of ~1% to win most
 # of them against the ~1% spread between calls
 PAIRED_ROUNDS = 11
@@ -1523,20 +1636,8 @@ def compare_pairwise_bwd(sources) -> dict:
                 _pairwise_folded(got, args), want, own_scale=True)[1]
         del want, outs
         torch.cuda.empty_cache()
-        samples = _in_turns(libs, lambda lib: _pairwise_bwd_raw(lib, args),
-                            PAIRED_ROUNDS)
-        for name in libs:
-            pairs = list(zip(samples[name], samples["tree"]))
-            res[name][f"ms_{key}"] = statistics.median(samples[name])
-            res[name][f"vs_tree_{key}"] = statistics.median(
-                a / b for a, b in pairs)
-            res[name][f"faster_rounds_{key}"] = sum(a < b for a, b in pairs)
-            res[name][f"samples_{key}"] = samples[name]
-        if key == f"dense_{BATCH}":
-            host = _host_us_in_turns(
-                libs, lambda lib: _pairwise_bwd_raw(lib, args), PAIRED_ROUNDS)
-            for name in libs:
-                res[name][f"host_us_{key}"] = statistics.median(host[name])
+        _paired_times(res, libs, key,
+                      lambda lib: _pairwise_bwd_raw(lib, args))
         log(f"pairwise_bwd inputs {key}: {json.dumps(live)}; bound "
             f"{_pairwise_bwd_bound(args, live['pairs'])[0]:.4f} ms")
     for name, lib in libs.items():
@@ -1547,6 +1648,87 @@ def compare_pairwise_bwd(sources) -> dict:
     for name, r in res.items():
         log(f"pairwise_bwd {name}: {json.dumps(r)}")
     return {"inputs": shares, "builds": res}
+
+
+def _pairwise_fwd_raw(lib, args) -> torch.Tensor:
+    """One raw launch of ``pairwise_fwd`` from ``lib`` (no wrapper, no
+    launch count)."""
+    from ctvae_torch.ops import _build
+    xl, xr, w2, b1, b2, ns = args
+    B, S, H = xl.shape
+    T = xr.shape[1]
+    out = torch.empty((B, S, T), device="cuda")
+    _build.check(lib.pairwise_fwd(
+        *(t.data_ptr() for t in (xl, xr, w2, b1, b2, out)), B, S, T, H,
+        H if w2.dim() == 2 else 0, H if b1.dim() == 2 else 0,
+        1 if b2.dim() == 1 else 0, ns,
+        torch.cuda.current_stream().cuda_stream), "pairwise_fwd")
+    return out
+
+
+def compare_pairwise_fwd(sources) -> dict:
+    """The tree's ``pairwise_fwd`` against the ``pairwise_fwd`` of other
+    ``pairwise.cu`` files, launched raw on the check's inputs at A*B = 192
+    (per sample) and B = 16 (shared) and on both calls of each train
+    mode's own step (captured): each build's output against the tree's
+    (max difference, bit for bit), against the plain version (max abs
+    error) and against its own rerun (bit for bit), its registers, spill
+    bytes and blocks per SM (where it exports
+    ``pairwise_fwd_blocks_per_sm``), and over PAIRED_ROUNDS rounds of
+    ``time_ms`` of one launch, the builds timed in turns: the median, and
+    against the tree's sample of the same round the median ratio and the
+    number of rounds it was faster; and at B = 16 the host's microseconds
+    per launch call (median over the rounds, ``host_us_dense_16``)."""
+    import ctypes
+    from ctvae_torch.ops import pairwise_flash as pf
+    from ctvae_torch.ops.pairwise import fused_pairwise_scores
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    libs = {"tree": pf._lib(), **_build_others("pairwise", sources)}
+    for lib in libs.values():
+        lib.pairwise_fwd.argtypes = [p] * 6 + [i] * 4 + [i64] * 3 + [
+            ctypes.c_float, p]
+        lib.pairwise_fwd.restype = ctypes.c_int
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    A = MODEL_PARAMS["action_dim"]
+    inputs = {f"dense_{B}": _pairwise_fwd_inputs(gen, B, B > BATCH)
+              for B in (A * BATCH, BATCH)}
+    _, state, batch, steps = _train_setup()
+    for mode, step in steps.items():
+        for args, _ in _calls_of(pf, "flash_pairwise_cuda",
+                                 lambda: step(state, batch)):
+            which = "no_inter" if args[2].dim() == 1 else "inter"
+            inputs[f"{mode}_{which}"] = tuple(
+                a.detach() if torch.is_tensor(a) else a for a in args)
+    del state, steps
+    res = {name: {} for name in libs}
+    for key, args in inputs.items():
+        with torch.no_grad():
+            want = fused_pairwise_scores(*args)
+        outs = {name: (_pairwise_fwd_raw(lib, args),
+                       _pairwise_fwd_raw(lib, args))
+                for name, lib in libs.items()}
+        torch.cuda.synchronize()
+        for name, (got, again) in outs.items():
+            r = res[name]
+            r[f"max_diff_{key}"] = float((got - outs["tree"][0]).abs().max())
+            r[f"bit_identical_{key}"] = torch.equal(got, outs["tree"][0])
+            r[f"rerun_identical_{key}"] = torch.equal(got, again)
+            r[f"err_{key}"] = float((got - want).abs().max())
+        del want, outs
+        torch.cuda.empty_cache()
+        _paired_times(res, libs, key,
+                      lambda lib: _pairwise_fwd_raw(lib, args))
+        log(f"pairwise_fwd inputs {key}: shape {list(args[0].shape)} x "
+            f"{args[1].shape[1]}, per-sample {args[2].dim() == 2}; bound "
+            f"{_pairwise_fwd_bound(args)[0]:.4f} ms")
+    for name, lib in libs.items():
+        try:
+            res[name].update(pf.fwd_occupancy(A * BATCH, 64, 64, 800, lib))
+        except AttributeError:
+            pass
+    for name, r in res.items():
+        log(f"pairwise_fwd {name}: {json.dumps(r)}")
+    return res
 
 
 # keys of a check's row that the kernels line carries beside the contract's
@@ -1580,6 +1762,11 @@ def main(argv) -> int:
         help="only build the kernels and compare the tree's pairwise_bwd "
              "with the pairwise_bwd of these pairwise.cu files "
              "(compare_pairwise_bwd)")
+    parser.add_argument(
+        "--pairwise-fwd-against", nargs="+", metavar="PAIRWISE_CU",
+        help="only build the kernels and compare the tree's pairwise_fwd "
+             "with the pairwise_fwd of these pairwise.cu files "
+             "(compare_pairwise_fwd)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke runs on a card",
@@ -1591,6 +1778,10 @@ def main(argv) -> int:
     if opts.gat_fwd_against:
         log(json.dumps({"gat_fwd_against": compare_gat_fwd(
             opts.gat_fwd_against)}))
+        return 0
+    if opts.pairwise_fwd_against:
+        log(json.dumps({"pairwise_fwd_against": compare_pairwise_fwd(
+            opts.pairwise_fwd_against)}))
         return 0
     if opts.pairwise_bwd_against:
         log(json.dumps({"pairwise_bwd_against": compare_pairwise_bwd(

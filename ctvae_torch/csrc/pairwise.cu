@@ -8,15 +8,39 @@
 //
 // with shared params (batch stride 0) or per-sample params (stride Hd / 1).
 //
-// Bound on the H100: the [B,S,T,Hd] pre-activation domain (192*64*64*800 =
-// 6.3e8 elements in causal serving) costs ~6 f32 operations per element and
-// is never stored, so the kernel is bound by f32 operations, not bytes
-// (inputs and output are a few MB). The design walks the domain once from
-// registers and shared memory: one block per (b, chunk of kTc targets) keeps
-// xr[b,t] + b1 for its targets and w2 in shared memory; warps take source
-// rows s, lanes take hidden units h (coalesced xl loads, conflict-free
-// shared reads), each lane keeps kTc partial sums so one xl load serves kTc
-// targets, and a warp shuffle finishes each sum.
+// What bounds it: the [B,S,T,Hd] pre-activation domain (192*64*64*800 =
+// 6.3e8 elements in causal serving) is never stored, and its inputs and
+// output are a few MB, so the kernel is bound by the f32 instructions it
+// issues per element and the shared-memory loads that feed them, not by
+// bytes. The tensor cores do not apply: |a + b| (or relu(a + b)) inside
+// the sum is not a product of two matrices.
+//
+// What the design does about it. The leaky split makes the ns part
+// linear and so separable: leaky(p) = (1 + ns) / 2 p + (1 - ns) / 2 |p|,
+//
+//   z = (1 + ns) / 2 (Ls + Rt) + (1 - ns) / 2 sum_h |xl + xr'| w2 + b2,
+//   Ls = sum_h xl[s,h] w2[h],  Rt = sum_h xr'[t,h] w2[h],  xr' = xr + b1,
+//
+// O((S + T) Hd) per sample, which leaves an add and an fma (|x| is an
+// operand modifier) per element; relu(p) = (p + |p|) / 2 in place of the
+// max saves a third instruction. A block owns a 64 x 64 tile of (source,
+// target) pairs of one sample, each thread a 4 x 4 register tile of them
+// whose sums stay in registers; the block walks its hidden units in
+// chunks of kKc, staged row-major (xl rows, xr rows, w2, b1) with
+// cp.async into one of two buffers while the other is walked, and turns
+// xr into xr' there while it takes the linear sums. Per four hidden units
+// a thread reads four float4 of xl, four of xr' and one of w2 (no
+// shared-memory load per element; rows of stride kKc + 4 keep the reads
+// conflict-free) for 64 elements. No shuffle: each thread holds whole
+// sums. To fill the card at B = 16 the hidden units of a tile are split
+// over the C blocks of a thread-block cluster (C from the batch and the
+// SM count: the smallest that gives every SM two blocks, at most 16);
+// each block pushes its partial sums into the shared memory of the block
+// that owns those pairs and its linear sums to every block, and after one
+// cluster barrier each block sums what it got in rank order and applies
+// the linear part, b2 and the sigmoid once per pair. No atomics: two runs
+// agree bit for bit. A block holds 63.5 KB of shared memory at every
+// shape, and three share an SM.
 //
 // Backward, replaces _flash_vjp_bwd (_bwd_kernel :81). From the output
 // residual, dz = dout * out * (1 - out), and per sample b:
@@ -52,71 +76,11 @@
 // batch gives more blocks than keep the card busy for kRounds rounds, a
 // block walks several chunks of its sample and fills dz once.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kTc = 8;     // targets per block
-constexpr int kWarps = 8;  // source rows in flight per block
-
-__global__ void pairwise_fwd_kernel(const float* __restrict__ xl,
-                                    const float* __restrict__ xr,
-                                    const float* __restrict__ w2,
-                                    const float* __restrict__ b1,
-                                    const float* __restrict__ b2,
-                                    float* __restrict__ out,
-                                    int S, int T, int H,
-                                    int64_t w2_stride, int64_t b1_stride,
-                                    int64_t b2_stride, float ns) {
-  extern __shared__ float smem[];
-  float* xrb = smem;              // [kTc, H]: xr[b,t] + b1[b]
-  float* w2s = xrb + kTc * H;     // [H]
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTc;
-  const float* w2b = w2 + b * w2_stride;
-  const float* b1b = b1 + b * b1_stride;
-  for (int i = threadIdx.x; i < kTc * H; i += blockDim.x) {
-    int t = t0 + i / H, h = i % H;
-    xrb[i] = t < T ? xr[((size_t)b * T + t) * H + h] + b1b[h] : 0.f;
-  }
-  for (int h = threadIdx.x; h < H; h += blockDim.x) w2s[h] = w2b[h];
-  __syncthreads();
-
-  const float bias2 = b2[b * b2_stride];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nt = min(kTc, T - t0);
-  for (int s = warp; s < S; s += kWarps) {
-    const float* xls = xl + ((size_t)b * S + s) * H;
-    float acc[kTc];
-#pragma unroll
-    for (int t = 0; t < kTc; ++t) acc[t] = 0.f;
-    for (int h = lane; h < H; h += 32) {
-      float xv = xls[h];
-      float wv = w2s[h];
-#pragma unroll
-      for (int t = 0; t < kTc; ++t) {
-        float v = xv + xrb[t * H + h];
-        acc[t] = fmaf(fmaxf(v, ns * v), wv, acc[t]);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < kTc; ++t) {
-      for (int off = 16; off > 0; off >>= 1)
-        acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], off);
-    }
-    if (lane < nt) {
-      float z = 0.f;
-#pragma unroll
-      for (int t = 0; t < kTc; ++t)
-        if (t == lane) z = acc[t];
-      z += bias2;
-      out[((size_t)b * S + s) * T + t0 + lane] = 1.f / (1.f + expf(-z));
-    }
-  }
-}
 
 constexpr int kBwdWarps = 8;  // source groups per block, and targets per step
 constexpr int kU = 2;         // hidden units per lane
@@ -461,8 +425,329 @@ extern "C" int pairwise_bwd(const float* xl, const float* xr, const float* w2,
   return (int)cudaGetLastError();
 }
 
-extern "C" size_t pairwise_fwd_smem_bytes(int H) {
-  return sizeof(float) * (size_t)(kTc + 1) * H;
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kTile = 64;         // sources and targets of a block's tile
+constexpr int kSi = 4;            // sources per thread (targets: 4)
+constexpr int kSy = kTile / kSi;  // rows of threads, 16 columns each
+constexpr int kFwdThreads = 16 * kSy;
+constexpr int kKc = 32;           // hidden units per staged chunk
+constexpr int kLd = kKc + 4;      // row stride of a staged tile
+// threads per staged row in the linear sums, and the columns each takes
+constexpr int kHalves = kFwdThreads / (2 * kTile);
+constexpr int kHc = kKc / kHalves;
+constexpr int kMaxCluster = 16;   // blocks splitting a tile's hidden units
+// floats of one chunk buffer: the xl and xr' tiles, w2 and b1
+constexpr int kBuf = 2 * kTile * kLd + 2 * kKc;
+// two buffers, the partial linear sums [kHalves][2 * kTile], their totals
+// [2 * kTile], and what the cluster's blocks push here: their sums of this
+// block's pairs [kTile * kTile] and their linear sums [C][2 * kTile]; the
+// block's own pair sums reuse the buffers at the end
+constexpr int kFwdSmem = 2 * kBuf + (kHalves + 1) * 2 * kTile +
+                         kTile * kTile + kMaxCluster * 2 * kTile;
+static_assert(kTile * kTile <= 2 * kBuf, "pair sums must fit the buffers");
+
+// the two halves of a cluster barrier: a block may write another's shared
+// memory only once that block has arrived (it has started)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+#ifdef __CUDA_ARCH__
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void cluster_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+#endif
+}
+
+// rows [0, n) of a chunk (row r at src + r * ld, its first `valid` floats)
+// into dst rows of stride kLd: kKc floats each, past `valid` zero, and
+// rows [n, nrows) zero (the pad columns past kKc are never read)
+__device__ __forceinline__ void stage_fwd_rows(float* dst, const float* src,
+                                               size_t ld, int valid, int n,
+                                               int nrows, bool vec) {
+  if (vec) {
+    constexpr int q = kKc / 4;
+    for (int i = threadIdx.x; i < nrows * q; i += blockDim.x) {
+      const int r = i / q, c = 4 * (i % q);
+      float* d = dst + r * kLd + c;
+      if (r < n && c < valid)
+        copy16_async(d, src + r * ld + c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrows * kKc; i += blockDim.x) {
+      const int r = i / kKc, c = i % kKc;
+      dst[r * kLd + c] = (r < n && c < valid) ? src[r * ld + c] : 0.f;
+    }
+  }
+}
+
+// one chunk of hidden units [h0, h0 + valid) into a buffer: xl rows
+// [s0, s0 + 64) and xr rows [t0, t0 + 64) (rows past S / T and columns past
+// valid zero), w2 and b1
+__device__ __forceinline__ void stage_fwd_chunk(
+    float* buf, const float* xlb, const float* xrb, const float* w2b,
+    const float* b1b, int H, int h0, int valid, int ns_rows, int nt_rows,
+    bool vec) {
+  stage_fwd_rows(buf, xlb + h0, H, valid, ns_rows, kTile, vec);
+  stage_fwd_rows(buf + kTile * kLd, xrb + h0, H, valid, nt_rows, kTile, vec);
+  stage_fwd_rows(buf + 2 * kTile * kLd, w2b + h0, 0, valid, 1, 1, vec);
+  stage_fwd_rows(buf + 2 * kTile * kLd + kKc, b1b + h0, 0, valid, 1, 1, vec);
+}
+
+__global__ void pairwise_fwd_kernel(const float* __restrict__ xl,
+                                    const float* __restrict__ xr,
+                                    const float* __restrict__ w2,
+                                    const float* __restrict__ b1,
+                                    const float* __restrict__ b2,
+                                    float* __restrict__ out,
+                                    int S, int T, int H,
+                                    int64_t w2_stride, int64_t b1_stride,
+                                    int64_t b2_stride, float ns) {
+  extern __shared__ float4 fwd_smem4[];
+  float* smem = reinterpret_cast<float*>(fwd_smem4);
+  float* lin_s = smem + 2 * kBuf;  // [kHalves][2 * kTile]
+  float* lint_s = lin_s + kHalves * 2 * kTile;  // [2 * kTile]: Ls, Rt
+  // what the cluster's blocks push here: their sums of this block's
+  // pairs [C][per], and their linear sums [C][2 * kTile]
+  float* in_s = lint_s + 2 * kTile;
+  float* inlin_s = in_s + kTile * kTile;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  cluster_arrive_relaxed();
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z;
+  const int ntt = (T + kTile - 1) / kTile;
+  const int s0 = blockIdx.y / ntt * kTile, t0 = blockIdx.y % ntt * kTile;
+  const float* xlb = xl + ((size_t)b * S + s0) * H;
+  const float* xrb = xr + ((size_t)b * T + t0) * H;
+  const float* w2b = w2 + b * w2_stride;
+  const float* b1b = b1 + b * b1_stride;
+  const int ns_rows = min(kTile, S - s0), nt_rows = min(kTile, T - t0);
+  const bool vec = (H & 3) == 0 && aligned16(xl) && aligned16(xr) &&
+                   aligned16(w2) && aligned16(b1);
+  // this block's hidden units: an even share of the quads of four
+  const int nq = (H + 3) / 4;
+  const int hbeg = 4 * (int)((long)rank * nq / C);
+  const int hend = min(H, 4 * (int)((long)(rank + 1) * nq / C));
+  const int nk = hend > hbeg ? (hend - hbeg + kKc - 1) / kKc : 0;
+
+  // targets tx + 16 j, sources ty + kSy i
+  const int tx = tid & 15, ty = tid >> 4;
+  const int row = tid & (2 * kTile - 1), half = tid / (2 * kTile);
+  float acc[kSi][4];
+#pragma unroll
+  for (int i = 0; i < kSi; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float lin = 0.f;  // this thread's part of Ls (row < 64) or Rt
+
+  if (nk > 0)
+    stage_fwd_chunk(smem, xlb, xrb, w2b, b1b, H, hbeg, min(kKc, hend - hbeg),
+                    ns_rows, nt_rows, vec);
+  for (int k = 0; k < nk; ++k) {
+    float* buf = smem + (k & 1) * kBuf;
+    const int h0 = hbeg + k * kKc, valid = min(kKc, hend - h0);
+    const int valid4 = (valid + 3) & ~3;
+    copy_async_wait_all();
+    __syncthreads();  // chunk k landed; chunk k - 1's buffer is free
+    if (k + 1 < nk)
+      stage_fwd_chunk(smem + ((k + 1) & 1) * kBuf, xlb, xrb, w2b, b1b, H,
+                      h0 + kKc, min(kKc, hend - h0 - kKc), ns_rows, nt_rows,
+                      vec);
+    float* xls = buf;
+    float* xrs = buf + kTile * kLd;
+    const float* w2s = buf + 2 * kTile * kLd;
+    const float* b1s = w2s + kKc;
+    {  // xr' = xr + b1 in place, and the linear sums; row < 64 is xl's
+      float4* rp = reinterpret_cast<float4*>(
+          (row < kTile ? xls + row * kLd : xrs + (row - kTile) * kLd) +
+          half * kHc);
+      const float4* wp = reinterpret_cast<const float4*>(w2s + half * kHc);
+      const float4* bp = reinterpret_cast<const float4*>(b1s + half * kHc);
+#pragma unroll
+      for (int q = 0; q < kHc / 4; ++q) {
+        if (half * kHc + 4 * q >= valid4) break;
+        float4 v = rp[q];
+        const float4 w = wp[q];
+        if (row >= kTile) {
+          const float4 c = bp[q];
+          v.x += c.x;
+          v.y += c.y;
+          v.z += c.z;
+          v.w += c.w;
+          rp[q] = v;
+        }
+        lin = fmaf(v.x, w.x, lin);
+        lin = fmaf(v.y, w.y, lin);
+        lin = fmaf(v.z, w.z, lin);
+        lin = fmaf(v.w, w.w, lin);
+      }
+    }
+    __syncthreads();
+    const float* xa = xls + ty * kLd;
+    const float* xc = xrs + tx * kLd;
+#pragma unroll 4
+    for (int h = 0; h < valid4; h += 4) {
+      float4 a[kSi], c[4];
+#pragma unroll
+      for (int i = 0; i < kSi; ++i)
+        a[i] = *reinterpret_cast<const float4*>(xa + kSy * i * kLd + h);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        c[j] = *reinterpret_cast<const float4*>(xc + 16 * j * kLd + h);
+      const float4 w = *reinterpret_cast<const float4*>(w2s + h);
+#pragma unroll
+      for (int i = 0; i < kSi; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(fabsf(a[i].x + c[j].x), w.x, acc[i][j]);
+          acc[i][j] = fmaf(fabsf(a[i].y + c[j].y), w.y, acc[i][j]);
+          acc[i][j] = fmaf(fabsf(a[i].z + c[j].z), w.z, acc[i][j]);
+          acc[i][j] = fmaf(fabsf(a[i].w + c[j].w), w.w, acc[i][j]);
+        }
+    }
+  }
+
+  // the cluster's partial sums meet: each block pushes its sums of the
+  // pairs to the block that owns them (pairs [r per, (r + 1) per) to rank
+  // r) and its linear sums to every block, then sums what it got in rank
+  // order
+  __syncthreads();
+  float* red = smem;  // [kTile][kTile], over the buffers
+#pragma unroll
+  for (int i = 0; i < kSi; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      red[(ty + kSy * i) * kTile + tx + 16 * j] = acc[i][j];
+  lin_s[half * 2 * kTile + row] = lin;
+  __syncthreads();
+  const int per = kTile * kTile / C;
+  cluster_wait();  // every block of the cluster has started
+  for (int p = tid; p < kTile * kTile; p += kFwdThreads)
+    cluster.map_shared_rank(in_s, p / per)[rank * per + p % per] = red[p];
+  if (tid < 2 * kTile) {
+    float v = 0.f;
+    for (int hf = 0; hf < kHalves; ++hf) v += lin_s[hf * 2 * kTile + tid];
+    for (int q = 0; q < C; ++q)
+      cluster.map_shared_rank(inlin_s, q)[rank * 2 * kTile + tid] = v;
+  }
+  cluster.sync();  // every push landed; nothing is read remotely after
+  if (tid < 2 * kTile) {
+    float v = 0.f;
+    for (int q = 0; q < C; ++q) v += inlin_s[q * 2 * kTile + tid];
+    lint_s[tid] = v;
+  }
+  __syncthreads();
+  const float bias2 = b2[b * b2_stride];
+  // leaky(p) = (1 + ns) / 2 p + (1 - ns) / 2 |p|
+  const float lin_w = 0.5f * (1.f + ns), abs_w = 0.5f * (1.f - ns);
+  for (int p = rank * per + tid; p < (rank + 1) * per; p += kFwdThreads) {
+    const int s = p / kTile, t = p % kTile;
+    float r = 0.f;
+    for (int q = 0; q < C; ++q) r += in_s[q * per + p - rank * per];
+    if (s < ns_rows && t < nt_rows) {
+      const float z =
+          fmaf(lin_w, lint_s[s] + lint_s[kTile + t], fmaf(abs_w, r, bias2));
+      out[((size_t)b * S + s0 + s) * T + t0 + t] = 1.f / (1.f + expf(-z));
+    }
+  }
+}
+
+// the SMs of the current device, the forward's resident blocks per SM and
+// the largest cluster it may launch, queried once per device
+struct FwdSlots {
+  int nsm, per_sm, max_cluster;
+};
+
+cudaError_t fwd_slots(FwdSlots* out) {
+  static thread_local int dev_c = -1;
+  static thread_local FwdSlots c;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != dev_c) {
+    const size_t smem = sizeof(float) * kFwdSmem;
+    if ((err = cudaFuncSetAttribute(
+             pairwise_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)smem)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&c.nsm, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &c.per_sm, pairwise_fwd_kernel, kFwdThreads, smem)) !=
+            cudaSuccess)
+      return err;
+    // clusters of 16 are past the portable 8 and must be allowed (and fit)
+    c.max_cluster = 8;
+    if (cudaFuncSetAttribute(pairwise_fwd_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1) == cudaSuccess) {
+      cudaLaunchConfig_t cfg = {};
+      cudaLaunchAttribute attr;
+      attr.id = cudaLaunchAttributeClusterDimension;
+      attr.val.clusterDim.x = kMaxCluster;
+      attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+      cfg.gridDim = dim3(kMaxCluster, 1, 1);
+      cfg.blockDim = dim3(kFwdThreads, 1, 1);
+      cfg.dynamicSmemBytes = smem;
+      cfg.attrs = &attr;
+      cfg.numAttrs = 1;
+      int n = 0;
+      if (cudaOccupancyMaxActiveClusters(&n, pairwise_fwd_kernel, &cfg) ==
+              cudaSuccess &&
+          n > 0)
+        c.max_cluster = kMaxCluster;
+    }
+    cudaGetLastError();  // a refused query above is not the launch's error
+    dev_c = dev;
+  }
+  *out = c;
+  return cudaSuccess;
+}
+
+// blocks splitting each tile's hidden units: the smallest power of two
+// that gives every SM two blocks, at most the largest allowed and at most
+// one per chunk of hidden units
+int fwd_cluster(const FwdSlots& sl, int B, int S, int T, int H) {
+  const long tiles = (long)((S + kTile - 1) / kTile) * ((T + kTile - 1) / kTile);
+  int C = 1;
+  while (C < sl.max_cluster && 2 * C * kKc <= H &&
+         (long)B * tiles * C < 2L * sl.nsm)
+    C *= 2;
+  return C;
+}
+
+}  // namespace
+
+extern "C" size_t pairwise_fwd_smem_bytes(void) {
+  return sizeof(float) * kFwdSmem;
+}
+
+// blocks per cluster that the forward's launch takes at these shapes on
+// this card (-1 on an error)
+extern "C" int pairwise_fwd_cluster(int B, int S, int T, int H) {
+  FwdSlots sl;
+  if (fwd_slots(&sl) != cudaSuccess) return -1;
+  return fwd_cluster(sl, B, S, T, H);
+}
+
+// what the forward's launch gets on this card: registers and local (spill)
+// bytes per thread, and resident blocks per SM (-1 on an error)
+extern "C" int pairwise_fwd_blocks_per_sm(int* regs, int* local_bytes) {
+  cudaFuncAttributes attr;
+  FwdSlots sl;
+  if (cudaFuncGetAttributes(&attr, pairwise_fwd_kernel) != cudaSuccess ||
+      fwd_slots(&sl) != cudaSuccess)
+    return -1;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return sl.per_sm;
 }
 
 extern "C" int pairwise_fwd(const float* xl, const float* xr, const float* w2,
@@ -470,16 +755,25 @@ extern "C" int pairwise_fwd(const float* xl, const float* xr, const float* w2,
                             int B, int S, int T, int H, int64_t w2_stride,
                             int64_t b1_stride, int64_t b2_stride, float ns,
                             void* stream) {
-  size_t smem = pairwise_fwd_smem_bytes(H);
-  cudaError_t err = cudaFuncSetAttribute(
-      pairwise_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (B <= 0 || S <= 0 || T <= 0) return (int)cudaGetLastError();
+  FwdSlots sl;
+  cudaError_t err = fwd_slots(&sl);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + kTc - 1) / kTc, B);
-  if (B > 0 && T > 0) {
-    pairwise_fwd_kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-        xl, xr, w2, b1, b2, out, S, T, H, w2_stride, b1_stride, b2_stride,
-        ns);
-  }
+  const int C = fwd_cluster(sl, B, S, T, H);
+  const int tiles = ((S + kTile - 1) / kTile) * ((T + kTile - 1) / kTile);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(C, tiles, B);
+  cfg.blockDim = dim3(kFwdThreads, 1, 1);
+  cfg.dynamicSmemBytes = sizeof(float) * kFwdSmem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, pairwise_fwd_kernel, xl, xr, w2, b1, b2, out,
+                           S, T, H, w2_stride, b1_stride, b2_stride, ns);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,9 @@ runs ``FlashPairwise`` on CUDA tensors: its forward launches
 ``pairwise_fwd`` and its backward ``pairwise_bwd``, both in
 ``csrc/pairwise.cu`` (which replace the TPU ``_fwd_kernel`` and
 ``_bwd_kernel``). The residual is the [B, S, T] output, as in JAX; the
-[B, S, T, Hd] domain never exists in device memory. On CPU tensors
+[B, S, T, Hd] domain never exists in device memory. The forward's
+blocks split each sample's hidden units over a thread-block cluster
+(``fwd_occupancy`` reads the split a launch takes). On CPU tensors
 ``flash_pairwise`` runs the plain ``ops/pairwise.py::fused_pairwise_scores``,
 whose autograd is the backward's plain version.
 """
@@ -39,6 +41,12 @@ def _lib() -> ctypes.CDLL:
     lib.pairwise_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.pairwise_bwd_blocks_per_sm.argtypes = [i, i, p, p]
     lib.pairwise_bwd_blocks_per_sm.restype = ctypes.c_int
+    lib.pairwise_fwd_smem_bytes.argtypes = []
+    lib.pairwise_fwd_smem_bytes.restype = ctypes.c_size_t
+    lib.pairwise_fwd_cluster.argtypes = [i, i, i, i]
+    lib.pairwise_fwd_cluster.restype = ctypes.c_int
+    lib.pairwise_fwd_blocks_per_sm.argtypes = [p, p]
+    lib.pairwise_fwd_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -58,6 +66,11 @@ def _check_slope(ns: float) -> None:
         raise ValueError(f"negative slope {ns} outside [0, 1]")
 
 
+#: the most samples, and 64 x 64 tiles of pairs per sample, that the
+#: forward's grid takes (its y and z dimensions)
+GRID_LIMIT = 65535
+
+
 def flash_pairwise_cuda(xl: torch.Tensor, xr: torch.Tensor, w2: torch.Tensor,
                         b1: torch.Tensor, b2: torch.Tensor, ns: float
                         ) -> torch.Tensor:
@@ -72,7 +85,13 @@ def flash_pairwise_cuda(xl: torch.Tensor, xr: torch.Tensor, w2: torch.Tensor,
     b1_stride = _param("b1", b1, B, (H,), H)
     b2_stride = _param("b2", b2, B, (), 1)
     _check_slope(ns)
+    tiles = -(-S // 64) * -(-T // 64)
+    if B > GRID_LIMIT or tiles > GRID_LIMIT:
+        raise ValueError(f"flash_pairwise: B={B} samples or {tiles} tiles of "
+                         f"64 x 64 pairs exceed the grid's {GRID_LIMIT}")
     lib = _lib()
+    check_smem(f"flash_pairwise: S={S}, T={T}, Hd={H}",
+               lib.pairwise_fwd_smem_bytes())
     out = torch.empty((B, S, T), dtype=torch.float32, device=xl.device)
     stream = torch.cuda.current_stream(xl.device).cuda_stream
     _build.check(lib.pairwise_fwd(
@@ -115,6 +134,22 @@ def flash_pairwise_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor,
         B, S, T, H, w2_stride, b1_stride, ns, stream), "pairwise_bwd")
     bwd_launches += 1
     return grads
+
+
+def fwd_occupancy(B: int, S: int, T: int, H: int,
+                  lib: Optional[ctypes.CDLL] = None) -> dict:
+    """What the forward kernel's launch gets on this card: warps per block,
+    registers and local (spill) bytes per thread, resident blocks per SM,
+    and the blocks of a cluster that split the hidden units at these shapes
+    (of ``lib``, another build of ``csrc/pairwise.cu``, when given)."""
+    lib = lib or _lib()
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    n = lib.pairwise_fwd_blocks_per_sm(ctypes.byref(regs), ctypes.byref(local))
+    cluster = lib.pairwise_fwd_cluster(B, S, T, H)
+    if n < 0 or cluster < 0:
+        raise RuntimeError("pairwise_fwd_blocks_per_sm failed")
+    return {"warps": 8, "regs": regs.value, "local_bytes": local.value,
+            "blocks_per_sm": n, "cluster": cluster}
 
 
 def bwd_occupancy(S: int, T: int, lib: Optional[ctypes.CDLL] = None

@@ -51,23 +51,68 @@ def test_vq_kernel_matches_plain(card, n, k, d):
 
 
 @pytest.mark.parametrize("per_sample", [False, True])
-@pytest.mark.parametrize("S,T,H", [(7, 7, 24), (9, 13, 800), (64, 64, 33)])
-def test_pairwise_kernel_matches_plain(card, per_sample, S, T, H):
+@pytest.mark.parametrize("B,S,T,H,ns,shift", [
+    (3, 7, 7, 24, 0.01, 0.0), (3, 9, 13, 800, 0.01, 0.0),
+    (3, 64, 64, 33, 0.01, 0.0),
+    # S != T, T below a 64-target tile; several tiles of a sample
+    (3, 65, 13, 800, 0.01, 0.0), (2, 130, 70, 100, 0.01, 0.0),
+    # Hd not a multiple of 4 (no cp.async) nor of the 32-unit chunk
+    (3, 20, 20, 801, 0.01, 0.0),
+    # the leaky split at its ends: |p| alone, and linear alone
+    (3, 16, 16, 100, 0.0, 0.0), (3, 16, 16, 100, 1.0, 0.0),
+    # |xl|, |xr| ~ 8 >> |pre|: the separable linear sums cancel
+    (3, 64, 64, 800, 0.01, 8.0),
+    # the headline batches: B = 16 (clusters of 16 blocks) and A*B = 192
+    (16, 64, 64, 800, 0.01, 0.0), (192, 64, 64, 800, 0.01, 0.0)])
+def test_pairwise_kernel_matches_plain(card, per_sample, B, S, T, H, ns,
+                                       shift):
+    """The forward kernel against the plain version, shared and
+    per-sample params, w2 of both signs, ragged S, T and Hd, slopes 0,
+    0.01 and 1; two launches agree bit for bit."""
     from ctvae_torch.ops import pairwise_flash as pf
     from ctvae_torch.ops.pairwise import fused_pairwise_scores
-    rng = np.random.default_rng(S * T + H)
-    B = 3
+    rng = np.random.default_rng(S * T + H + B)
     pshape = (B, H) if per_sample else (H,)
-    args = (_t(rng, B, S, H, scale=0.5), _t(rng, B, T, H, scale=0.5),
+    args = (_t(rng, B, S, H, scale=0.5) + shift,
+            _t(rng, B, T, H, scale=0.5) - shift,
             _t(rng, *pshape, scale=H ** -0.5), _t(rng, *pshape, scale=0.1),
             _t(rng, *pshape[:-1], scale=0.1))
+    assert (args[2] > 0).any() and (args[2] < 0).any()
     before = pf.launches
-    got = pf.flash_pairwise(*args, 0.01)
+    got = pf.flash_pairwise(*args, ns)
     torch.cuda.synchronize()
     assert pf.launches == before + 1
-    want = fused_pairwise_scores(*args, 0.01)
+    want = fused_pairwise_scores(*args, ns)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-5, rtol=0)
+    assert torch.equal(pf.flash_pairwise(*args, ns), got)
+
+
+def test_pairwise_fwd_occupancy(card):
+    """At the headline shapes the forward kernel fits two blocks of 8
+    warps per SM without spilling, and at B = 16 its clusters split the
+    hidden units over enough blocks to reach every SM."""
+    from ctvae_torch.ops import pairwise_flash as pf
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    occ = pf.fwd_occupancy(16, 64, 64, 800)
+    assert occ["warps"] == 8 and occ["local_bytes"] == 0, occ
+    assert occ["blocks_per_sm"] >= 2, occ
+    assert 16 * occ["cluster"] >= nsm, occ
+    assert 192 * pf.fwd_occupancy(192, 64, 64, 800)["cluster"] >= nsm
+
+
+def test_pairwise_fwd_rejects_too_large_grid(card):
+    """More samples than the forward's grid takes: the wrapper says so
+    before launching."""
+    from ctvae_torch.ops import pairwise_flash as pf
+    B = pf.GRID_LIMIT + 1
+    x = torch.zeros(B, 1, 1, device="cuda")
+    w = torch.zeros(1, device="cuda")
+    before = pf.launches
+    with pytest.raises(ValueError, match="grid"):
+        pf.flash_pairwise_cuda(x, x, w, w, torch.zeros((), device="cuda"),
+                               0.01)
+    assert pf.launches == before
 
 
 @pytest.mark.parametrize("S,T,H,F,density", [

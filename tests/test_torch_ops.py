@@ -23,6 +23,7 @@ from ctvae_torch.ops.pairwise import fused_pairwise_scores, pairwise_mlp_scores
 from ctvae_torch.ops.pairwise_flash import flash_pairwise
 from ctvae_torch.ops.vq import l2_argmin, l2_argmin_plain
 from torch_port_common import close, jax_rngs, t2n
+from torch_port_common import one_torch_thread  # noqa: F401 (fixture)
 
 
 @pytest.mark.parametrize("n,k,d", [(37, 8, 4), (300, 64, 16)])
@@ -86,6 +87,39 @@ def test_pairwise_block_rows_not_ported():
     with pytest.raises(NotImplementedError):
         pairwise_mlp_scores(xl, xl, torch.zeros(3), torch.zeros(()),
                             torch.zeros(3), block_rows=2)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("form", ["relu", "abs"])
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("ns", [0.0, 0.01, 0.2, 1.0])
+def test_pairwise_leaky_split_matches_plain(form, per_sample, ns):
+    """The forward kernel's algebra, written out in plain torch, against
+    the plain version. The leaky split makes the ns part linear and so
+    separable, Ls = sum_h xl w2 and Rt = sum_h xr' w2 with xr' = xr + b1:
+    "relu" takes leaky(p) = ns p + (1 - ns) relu(p), so z = ns (Ls + Rt)
+    + (1 - ns) sum_h relu(xl + xr') w2 + b2; "abs" (the kernel's) takes
+    leaky(p) = (1 + ns) / 2 p + (1 - ns) / 2 |p|. Pre is exactly 0 at a
+    few (s, t, h)."""
+    xl, xr, w2, b1, b2 = map(torch.from_numpy, _pairwise_inputs(
+        int(100 * ns) + per_sample, 3, 9, 7, 24, per_sample))
+    b1[..., :4] = 0.0
+    xr[:, 2, :4] = -xl[:, 1, :4]          # pre = 0 at (1, 2, h < 4)
+    bh = (lambda p: p[:, None, :]) if per_sample else (lambda p: p)
+    xr1 = xr + bh(b1)
+    lin = (xl * bh(w2)).sum(-1)[:, :, None] \
+        + (xr1 * bh(w2)).sum(-1)[:, None, :]
+    pre = xl[:, :, None, :] + xr1[:, None, :, :]
+    assert (pre[:, 1, 2, :4] == 0).all()
+    w4 = w2[:, None, None, :] if per_sample else w2
+    if form == "relu":
+        z = ns * lin + (1 - ns) * (torch.relu(pre) * w4).sum(-1)
+    else:
+        z = (1 + ns) / 2 * lin + (1 - ns) / 2 * (pre.abs() * w4).sum(-1)
+    z = z + (b2[:, None, None] if per_sample else b2)
+    close(t2n(torch.sigmoid(z)),
+          t2n(fused_pairwise_scores(xl, xr, w2, b1, b2, ns)), atol=1e-6,
+          rtol=0)
 
 
 def _gat_layer_pair(fin, F, H, seed):
