@@ -51,6 +51,12 @@ against the plain autograd (``compare_pairwise_bwd``).
 
 and for the pairwise scores' forward, with each build's error against
 the plain version (``compare_pairwise_fwd``).
+
+    python3 chip_smoke.py --gat-logits-against OTHER/gat_logits.cu [...]
+
+and for the GATv2 per-head logits, forward and backward, on the calls of
+each train mode's step and on the check's inputs at A*B = 192 and B = 16
+(``compare_gat_logits``).
 """
 
 from __future__ import annotations
@@ -735,21 +741,6 @@ def _calls_of(module, name: str, fn) -> list:
     return calls
 
 
-def _logits_bwd_on_path(fn) -> dict:
-    """The per-head logits backward as one call of ``fn`` (a train step)
-    launches it: the share of pairs with a non-zero upstream gradient
-    (the kernel skips the others, so its time depends on it), and the
-    kernel's time and bound on those very inputs."""
-    from ctvae_torch.ops import gat_logits as gl
-    ((*args, d_e, ns), _), = _calls_of(gl, "fused_gat_logits_bwd_cuda", fn)
-    live = int((d_e != 0).sum())
-    bnd = bound_ms(_logits_bytes(args, d_e), 12.0 * live * args[0].shape[3])
-    return {"live_share": live / d_e.numel(), "shape": list(d_e.shape),
-            "ms": time_ms(lambda: gl.fused_gat_logits_bwd_cuda(
-                *args, d_e, ns)),
-            "bound_ms": bnd[0], "bound_by": bnd[1]}
-
-
 def _pairwise_bwd_on_path(fn, check: bool = False) -> dict:
     """The pairwise backward as one call of ``fn`` (a train step) launches
     it, for each of its two calls ("no_inter": discoverer 0, shared params;
@@ -821,9 +812,11 @@ def _gat_fwd_on_path(fn) -> dict:
 
 
 # the causal step's call (the final GAT layer on the [A*B] virtual batch:
-# head 0 and each sample's action head, F = N = 64) and bench_gat.py's
-# shape (13 shared heads of 100)
+# head 0 and each sample's action head, F = N = 64), the base and action
+# steps' and serving's B = 16 calls (K = 1 and 2 heads per sample), and
+# bench_gat.py's shape (13 shared heads of 100)
 LOGITS_SHAPES = ((MODEL_PARAMS["action_dim"] * BATCH, 2, 64, True),
+                 (BATCH, 1, 64, True), (BATCH, 2, 64, True),
                  (BATCH, MODEL_PARAMS["action_dim"] + 1, 100, False))
 
 
@@ -838,85 +831,176 @@ def _logits_bytes(args, d_e=None) -> int:
     return 4 * (2 * ins + d_e.numel())
 
 
+def _logits_fwd_bound(args):
+    """The forward's bound: per element of [B,S,T,K,F] the abs form's add
+    and two fmas (5 operations; the leaky select's form took 7)."""
+    xl, xr = args[:2]
+    B, S, K, F = xl.shape
+    return bound_ms(_logits_bytes(args), 5.0 * B * S * xr.shape[1] * K * F)
+
+
+def _logits_bwd_bound(args, d_e):
+    """The backward's bound on these inputs: per element with a non-zero
+    upstream gradient (the kernel skips the rest) the slope test (the add,
+    the multiply, the compare), the select, the GL and GR adds and the dadj
+    and GW fmas (10 operations; with datt's fma per element, 12)."""
+    live = int((d_e != 0).sum())
+    return bound_ms(_logits_bytes(args, d_e), 10.0 * live * args[0].shape[3])
+
+
+def _logits_fwd_check(args, ns) -> dict:
+    """One forward call against the plain version on its inputs (each
+    logit's error over max(1, max |logit|), held to LOGITS_RTOL), a rerun
+    bit for bit, and the kernel's time and bound there."""
+    from ctvae_torch.ops import gat_logits as gl
+    from ctvae_torch.ops.gat import gat_logits
+    got = gl.fused_gat_logits_cuda(*args, ns)
+    again = gl.fused_gat_logits_cuda(*args, ns)
+    want = gat_logits(*args, ns)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / max(1.0, float(want.abs().max()))
+    bnd = _logits_fwd_bound(args)
+    return {"shape": list(got.shape), "max_abs_err": err, "rel_err": rel,
+            "bit_identical": torch.equal(got, again),
+            "ok": rel <= LOGITS_RTOL and bool(torch.isfinite(got).all())
+            and torch.equal(got, again),
+            "ms": time_ms(lambda: gl.fused_gat_logits_cuda(*args, ns)),
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def _logits_bwd_check(args, d_e, ns) -> dict:
+    """One backward call against the plain version's autograd on its
+    inputs (each gradient's error over max(1, its scale), held to
+    LOGITS_RTOL), a rerun bit for bit, the share of pairs with a gradient
+    and the kernel's time and bound there."""
+    from ctvae_torch.ops import gat_logits as gl
+    from ctvae_torch.ops.gat import gat_logits
+    got = gl.fused_gat_logits_bwd_cuda(*args, d_e, ns)
+    again = gl.fused_gat_logits_bwd_cuda(*args, d_e, ns)
+    leaves = [a.clone().requires_grad_() for a in args]
+    want = torch.autograd.grad(gat_logits(*leaves, ns), leaves, d_e)
+    torch.cuda.synchronize()
+    err, rel, text = _grad_errors(("dxl", "dxr", "dadj", "dwe", "datt"),
+                                  got, want)
+    same = all(torch.equal(g, h) for g, h in zip(got, again))
+    bnd = _logits_bwd_bound(args, d_e)
+    return {"shape": list(d_e.shape),
+            "live_share": int((d_e != 0).sum()) / d_e.numel(),
+            "max_abs_err": err, "rel_err": rel, "errors": text,
+            "bit_identical": same, "ok": rel <= LOGITS_RTOL and same,
+            "ms": time_ms(lambda: gl.fused_gat_logits_bwd_cuda(
+                *args, d_e, ns)),
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def _logits_on_path(fn) -> dict:
+    """The per-head logits forward and backward as one call of ``fn`` (a
+    train step) launches them, each held against the plain version on its
+    own inputs and timed there (``_logits_fwd_check``,
+    ``_logits_bwd_check``)."""
+    from ctvae_torch.ops import gat_logits as gl
+    calls = {}
+
+    def run():
+        calls["fwd"] = _calls_of(gl, "fused_gat_logits_cuda", fn)
+    calls["bwd"] = _calls_of(gl, "fused_gat_logits_bwd_cuda", run)
+    ((*fargs, ns), _), = calls["fwd"]
+    ((*bargs, d_e, _), _), = calls["bwd"]
+    fargs = [a.detach() for a in fargs]
+    res = {"fwd": _logits_fwd_check(fargs, ns),
+           "bwd": _logits_bwd_check(bargs, d_e, ns)}
+    for which, m in res.items():
+        if not m["ok"]:
+            raise AssertionError(f"gat_logits_{which} on the step's inputs: "
+                                 f"{m}")
+    return res
+
+
+def _logits_label(B, K, F, per_sample) -> str:
+    return f"B={B} K={K} F={F} {'per-sample' if per_sample else 'shared'}"
+
+
 def _check_gat_logits(gen) -> dict:
+    """The forward kernel against the plain version at LOGITS_SHAPES, two
+    runs bit for bit; the row reports the causal step's shape, with the
+    B = 16 calls' times beside it (``ms_at_16`` by heads)."""
     from ctvae_torch.ops import gat_logits as gl
     from ctvae_torch.ops.gat import gat_logits
     row = {"name": "gat_logits_fwd", "max_abs_err": 0.0, "ok": True,
-           "library_ms": None}
+           "library_ms": None, "ms_at_16": {}, "bound_ms_at_16": {},
+           "plain_ms_at_16": {}, "occupancy": {}}
     notes = []
     for B, K, F, per_sample in LOGITS_SHAPES:
         args, _ = _logits_inputs(gen, B, K, F, per_sample)
-        got = gl.fused_gat_logits_cuda(*args, 0.2)
-        want = gat_logits(*args, 0.2)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rel = err / max(1.0, float(want.abs().max()))
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["ok"] &= rel <= LOGITS_RTOL and bool(torch.isfinite(got).all())
-        ms = time_ms(lambda: gl.fused_gat_logits_cuda(*args, 0.2))
+        m = _logits_fwd_check(args, 0.2)
+        row["max_abs_err"] = max(row["max_abs_err"], m["max_abs_err"])
+        row["ok"] &= m["ok"]
         plain = time_ms(lambda: gat_logits(*args, 0.2), reps=5)
-        # per element of [B,S,T,K,F]: pre (add, multiply, add), the leaky
-        # slope (multiply, select), the fma (2)
-        bnd = bound_ms(_logits_bytes(args), 7.0 * got.numel() * F)
-        notes.append(f"B={B} K={K} F={F} "
-                     f"{'per-sample' if per_sample else 'shared'}: max abs "
-                     f"err {err:.3g} ({rel:.2g} of scale), kernel {ms:.4f} "
-                     f"ms, plain {plain:.4f} ms, bound {bnd[0]:.4f} ms "
-                     f"({bnd[1]})")
-        if per_sample:   # the row reports the causal step's call
-            row.update(ms=ms, plain_ms=plain, bound_ms=bnd[0],
-                       bound_by=bnd[1])
-        del want
+        label = _logits_label(B, K, F, per_sample)
+        notes.append(f"{label}: max abs err {m['max_abs_err']:.3g} "
+                     f"({m['rel_err']:.2g} of scale), rerun bit-identical "
+                     f"{m['bit_identical']}; kernel {m['ms']:.4f} ms, plain "
+                     f"{plain:.4f} ms, bound {m['bound_ms']:.4f} ms "
+                     f"({m['bound_by']})")
+        if B > BATCH:   # the row reports the causal step's call
+            row.update(ms=m["ms"], plain_ms=plain, bound_ms=m["bound_ms"],
+                       bound_by=m["bound_by"])
+        if B == BATCH and F == 64:
+            row["ms_at_16"][f"K={K}"] = m["ms"]
+            row["bound_ms_at_16"][f"K={K}"] = m["bound_ms"]
+            row["plain_ms_at_16"][f"K={K}"] = plain
+        if per_sample:
+            row["occupancy"][f"B={B} K={K}"] = gl.fwd_occupancy(
+                B, args[0].shape[1], args[1].shape[1], K, F)
         torch.cuda.empty_cache()
     row["note"] = "; ".join(notes)
     for n in notes:
         log(f"gat_logits {n}")
+    log(f"gat_logits occupancy {json.dumps(row['occupancy'])}")
     return row
 
 
 def _check_gat_logits_bwd(gen) -> dict:
-    """The backward kernel against the plain version's autograd at both
-    shapes; two runs must agree bit for bit (no atomics)."""
+    """The backward kernel against the plain version's autograd at
+    LOGITS_SHAPES; two runs must agree bit for bit (no atomics)."""
     from ctvae_torch.ops import gat_logits as gl
     from ctvae_torch.ops.gat import gat_logits
     row = {"name": "gat_logits_bwd", "max_abs_err": 0.0, "ok": True,
-           "library_ms": None}
+           "library_ms": None, "ms_at_16": {}, "bound_ms_at_16": {},
+           "plain_ms_at_16": {}, "occupancy": {}}
     notes = []
     for B, K, F, per_sample in LOGITS_SHAPES:
         args, d_e = _logits_inputs(gen, B, K, F, per_sample)
-        got = gl.fused_gat_logits_bwd_cuda(*args, d_e, 0.2)
-        again = gl.fused_gat_logits_bwd_cuda(*args, d_e, 0.2)
+        m = _logits_bwd_check(args, d_e, 0.2)
+        row["max_abs_err"] = max(row["max_abs_err"], m["max_abs_err"])
+        row["ok"] &= m["ok"]
         leaves = [a.clone().requires_grad_() for a in args]
         plain_out = gat_logits(*leaves, 0.2)
-        want = torch.autograd.grad(plain_out, leaves, d_e, retain_graph=True)
-        torch.cuda.synchronize()
-        err, rel, text = _grad_errors(("dxl", "dxr", "dadj", "dwe", "datt"),
-                                      got, want)
-        same = all(torch.equal(g, h) for g, h in zip(got, again))
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["ok"] &= rel <= LOGITS_RTOL and same
-        ms = time_ms(lambda: gl.fused_gat_logits_bwd_cuda(*args, d_e, 0.2))
         plain = time_ms(lambda: torch.autograd.grad(
             plain_out, leaves, d_e, retain_graph=True), reps=5)
-        del plain_out, want
-        # what the VJP needs per element with a non-zero upstream gradient
-        # (the kernel skips the rest), pre counted once: pre (3), the slope
-        # select, the dxl and dxr adds, the dadj, dwe and datt fmas (2 each)
-        live = int((d_e != 0).sum())
-        bnd = bound_ms(_logits_bytes(args, d_e), 12.0 * live * F)
-        notes.append(f"B={B} K={K} F={F} "
-                     f"{'per-sample' if per_sample else 'shared'}, {live} "
-                     f"of {d_e.numel()} pairs with a gradient: errors "
-                     f"{text}; two runs bit-identical: {same}; kernel "
-                     f"{ms:.4f} ms, plain autograd {plain:.4f} ms, bound "
-                     f"{bnd[0]:.4f} ms ({bnd[1]})")
+        del plain_out
+        label = _logits_label(B, K, F, per_sample)
+        notes.append(f"{label}, {m['live_share']:.4f} of pairs with a "
+                     f"gradient: errors {m['errors']}; two runs "
+                     f"bit-identical: {m['bit_identical']}; kernel "
+                     f"{m['ms']:.4f} ms, plain autograd {plain:.4f} ms, "
+                     f"bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
+        if B > BATCH:
+            row.update(ms=m["ms"], plain_ms=plain, bound_ms=m["bound_ms"],
+                       bound_by=m["bound_by"])
+        if B == BATCH and F == 64:
+            row["ms_at_16"][f"K={K}"] = m["ms"]
+            row["bound_ms_at_16"][f"K={K}"] = m["bound_ms"]
+            row["plain_ms_at_16"][f"K={K}"] = plain
         if per_sample:
-            row.update(ms=ms, plain_ms=plain, bound_ms=bnd[0],
-                       bound_by=bnd[1])
+            row["occupancy"][f"B={B} K={K}"] = gl.bwd_occupancy(
+                B, args[0].shape[1], args[1].shape[1], F)
         torch.cuda.empty_cache()
     row["note"] = "; ".join(notes)
     for n in notes:
         log(f"gat_logits_bwd {n}")
+    log(f"gat_logits_bwd occupancy {json.dumps(row['occupancy'])}")
     return row
 
 
@@ -1099,7 +1183,7 @@ def _profile(label: str, fn) -> list:
         f"{sum(r[2] for r in rows)} kernels")
     # the six longest, then the port's own kernels among the rest
     for i, (key, ms, count) in enumerate(rows):
-        if i < 6 or re.search(r"namespace\)::(vq|pairwise|gat)_\w*kernel\(",
+        if i < 6 or re.search(r"namespace\)::(vq|pairwise|gat)_\w*kernel[<(]",
                               key):
             log(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
     return rows
@@ -1186,13 +1270,19 @@ def phase_train():
                if n.startswith(prefix + "."))
     log(f"train: {len(moved)} of {n_ct} {prefix} parameters moved, every "
         f"other parameter bit-unchanged")
-    logits_bwd = {}
+    logits = {}
     for mode, step in steps.items():
-        m = logits_bwd[mode] = _logits_bwd_on_path(lambda: step(state, batch))
-        log(f"train {mode}: per-head logits backward d_e {m['shape']}, "
-            f"{m['live_share']:.4f} of pairs with a gradient; kernel on "
-            f"these inputs {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-            f"({m['bound_by']})")
+        m = logits[mode] = _logits_on_path(lambda: step(state, batch))
+        f, g = m["fwd"], m["bwd"]
+        log(f"train {mode}: per-head logits forward {f['shape']}: max abs "
+            f"err {f['max_abs_err']:.3g}, rerun bit-identical "
+            f"{f['bit_identical']}; kernel on these inputs {f['ms']:.4f} ms, "
+            f"bound {f['bound_ms']:.4f} ms ({f['bound_by']})")
+        log(f"train {mode}: per-head logits backward d_e {g['shape']}, "
+            f"{g['live_share']:.4f} of pairs with a gradient: errors "
+            f"{g['errors']}, rerun bit-identical {g['bit_identical']}; "
+            f"kernel on these inputs {g['ms']:.4f} ms, bound "
+            f"{g['bound_ms']:.4f} ms ({g['bound_by']})")
     pairwise_bwd = {}
     for mode, step in steps.items():
         calls = pairwise_bwd[mode] = _pairwise_bwd_on_path(
@@ -1221,10 +1311,16 @@ def phase_train():
         f"ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
     # extra keys of the kernels line: what the causal step gives a kernel
     on_step = {"gat_fwd": {"on_causal_step": fwd},
-               "gat_logits_bwd": {"on_causal_step": logits_bwd["causal"]},
+               "gat_logits_fwd": {"on_causal_step": logits["causal"]["fwd"],
+                                  "on_steps": {m: v["fwd"] for m, v
+                                               in logits.items()}},
+               "gat_logits_bwd": {"on_causal_step": logits["causal"]["bwd"],
+                                  "on_steps": {m: v["bwd"] for m, v
+                                               in logits.items()}},
                "pairwise_bwd": {"on_causal_step": pairwise_bwd["causal"]},
                "pairwise_fwd": {"on_causal_step": pairwise_fwd}}
-    for name in ("gat_fwd", "gat_bwd", "pairwise_fwd", "pairwise_bwd"):
+    for name in ("gat_fwd", "gat_bwd", "pairwise_fwd", "pairwise_bwd",
+                 "gat_logits_fwd", "gat_logits_bwd"):
         ms = sum(ms for key, ms, _ in profiles["causal"]
                  if f"{name}_kernel" in key)
         on_step.setdefault(name, {})["profiled_causal_step_ms"] = ms
@@ -1731,6 +1827,173 @@ def compare_pairwise_fwd(sources) -> dict:
     return res
 
 
+def _logits_lib(lib):
+    """Set the argument types of a ``gat_logits.cu`` build's entry points
+    (the backward's differ between the split design, which exports
+    ``gat_logits_bwd_parts``, and the earlier one block per (b, k))."""
+    import ctypes
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gat_logits_fwd.argtypes = [p] * 6 + [i] * 6 + [f, p]
+    lib.gat_logits_fwd.restype = ctypes.c_int
+    try:
+        lib.gat_logits_bwd_parts.argtypes = [i, i, i]
+        lib.gat_logits_bwd.argtypes = [p] * 10 + [i] * 6 + [f, p]
+    except AttributeError:
+        lib.gat_logits_bwd.argtypes = [p] * 11 + [i] * 7 + [f, p]
+    lib.gat_logits_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _logits_fwd_raw(lib, args, ns) -> torch.Tensor:
+    """One raw launch of ``gat_logits_fwd`` from ``lib`` (no wrapper, no
+    launch count)."""
+    from ctvae_torch.ops import _build
+    xl, xr, adj, we, att = args
+    B, S, K, F = xl.shape
+    T = xr.shape[1]
+    out = xl.new_empty((B, S, T, K))
+    _build.check(lib.gat_logits_fwd(
+        *(t.data_ptr() for t in (xl, xr, adj, we, att, out)), B, S, T, K, F,
+        K * F if we.dim() == 3 else 0, ns,
+        torch.cuda.current_stream().cuda_stream), "gat_logits_fwd")
+    return out
+
+
+def _logits_bwd_raw(lib, args, d_e, ns, fold: bool = True):
+    """One raw launch of ``gat_logits_bwd`` from ``lib`` (no wrapper, no
+    launch count); with ``fold`` also the sums its wrapper takes, returning
+    dxl, dxr, dadj [B,S,T], dwe, datt (we's shape)."""
+    from ctvae_torch.ops import _build
+    from ctvae_torch.ops.common import warps_for
+    xl, xr, adj, we, att = args
+    B, S, K, F = xl.shape
+    T = xr.shape[1]
+    wstride = K * F if we.dim() == 3 else 0
+    stream = torch.cuda.current_stream().cuda_stream
+    dxl, dxr = torch.empty_like(xl), torch.empty_like(xr)
+    ptrs = [t.data_ptr() for t in (xl, xr, adj, we, att, d_e, dxl, dxr)]
+    if hasattr(lib, "gat_logits_bwd_parts"):
+        dadj = xl.new_empty((B, S, T))
+        part = xl.new_empty((B, lib.gat_logits_bwd_parts(B, S, T), 2, K, F))
+        _build.check(lib.gat_logits_bwd(
+            *ptrs, dadj.data_ptr(), part.data_ptr(), B, S, T, K, F, wstride,
+            ns, stream), "gat_logits_bwd")
+        if not fold:
+            return None
+        dwe, datt = part.sum(1 if wstride else (0, 1)).unbind(-3)
+        return dxl, dxr, dadj, dwe, datt
+    dadj_k = xl.new_empty((B, K, S, T))
+    dwe, datt = xl.new_empty((B, K, F)), xl.new_empty((B, K, F))
+    _build.check(lib.gat_logits_bwd(
+        *ptrs, dadj_k.data_ptr(), dwe.data_ptr(), datt.data_ptr(), B, S, T,
+        K, F, wstride, warps_for(max(S, T)), ns, stream), "gat_logits_bwd")
+    if not fold:
+        return None
+    if wstride == 0:
+        dwe, datt = dwe.sum(0), datt.sum(0)
+    return dxl, dxr, dadj_k.sum(1), dwe, datt
+
+
+def _logits_compare_inputs(gen) -> dict:
+    """{key: (args, d_e, ns)}: the per-head logits calls of each train
+    mode's own step (captured, forward args with the backward's d_e), the
+    check's inputs at A*B = 192 (K = 2) and at B = 16 with K = 1 and K = 2
+    (F = 64, per-sample heads as ``heads_call`` gives them), and the A*B =
+    192 inputs with an all-zero d_e."""
+    from ctvae_torch.ops import gat_logits as gl
+    A = MODEL_PARAMS["action_dim"]
+    inputs = {}
+    for B, K in ((A * BATCH, 2), (BATCH, 1), (BATCH, 2)):
+        args, d_e = _logits_inputs(gen, B, K, 64, True)
+        inputs[f"check_{B}_k{K}"] = (args, d_e, 0.2)
+    args, d_e, ns = inputs[f"check_{A * BATCH}_k2"]
+    inputs["zero_de"] = (args, torch.zeros_like(d_e), ns)
+    _, state, batch, steps = _train_setup()
+    for mode, step in steps.items():
+        (*args, d_e, ns), _ = _calls_of(gl, "fused_gat_logits_bwd_cuda",
+                                        lambda: step(state, batch))[0]
+        inputs[f"{mode}_step"] = (tuple(a.detach() for a in args), d_e, ns)
+    del state, steps
+    return inputs
+
+
+def compare_gat_logits(sources) -> dict:
+    """The tree's ``gat_logits_fwd`` / ``gat_logits_bwd`` against those of
+    other ``gat_logits.cu`` files, launched raw on ``_logits_compare_inputs``:
+    each build's logits and gradients against the tree's (max difference,
+    bit for bit), against the plain version and its autograd (the worst
+    error over max(1, scale), as the smoke's LOGITS_RTOL takes it) and
+    against its own rerun (bit for bit); its registers, spill bytes and
+    blocks per SM (where it exports them); and over PAIRED_ROUNDS rounds of
+    ``time_ms``, the builds in turns: the median, the median ratio to the
+    tree's sample of the same round and the rounds it was faster, of the
+    forward (``fwd``), of the backward with the sums its wrapper takes
+    (``bwd``) and of the backward kernel alone (``bwd_kernel``)."""
+    from ctvae_torch.ops import gat_logits as gl
+    from ctvae_torch.ops.gat import gat_logits
+    libs = {"tree": gl._lib(), **_build_others("gat_logits", sources)}
+    for lib in libs.values():
+        _logits_lib(lib)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    inputs = _logits_compare_inputs(gen)
+    res = {name: {} for name in libs}
+    shapes = {}
+    names = ("dxl", "dxr", "dadj", "dwe", "datt")
+    for key, (args, d_e, ns) in inputs.items():
+        xl = args[0]
+        live = int((d_e != 0).sum())
+        shapes[key] = {"shape": list(d_e.shape), "live_share":
+                       live / d_e.numel()}
+        want = gat_logits(*args, ns)
+        leaves = [a.clone().requires_grad_() for a in args]
+        want_g = torch.autograd.grad(gat_logits(*leaves, ns), leaves, d_e)
+        del leaves
+        outs = {name: (_logits_fwd_raw(lib, args, ns),
+                       _logits_fwd_raw(lib, args, ns),
+                       _logits_bwd_raw(lib, args, d_e, ns),
+                       _logits_bwd_raw(lib, args, d_e, ns))
+                for name, lib in libs.items()}
+        torch.cuda.synchronize()
+        tree = outs["tree"]
+        for name, (e, e2, g, g2) in outs.items():
+            r = res[name]
+            r[f"fwd_err_{key}"] = float((e - want).abs().max()) / max(
+                1.0, float(want.abs().max()))
+            r[f"fwd_diff_{key}"] = float((e - tree[0]).abs().max())
+            r[f"fwd_rerun_identical_{key}"] = torch.equal(e, e2)
+            r[f"bwd_err_{key}"] = _grad_errors(names, g, want_g)[1]
+            r[f"bwd_diff_{key}"] = max(float((a - b).abs().max())
+                                       for a, b in zip(g, tree[2]))
+            r[f"bwd_rerun_identical_{key}"] = all(
+                torch.equal(a, b) for a, b in zip(g, g2))
+        del outs, tree, want, want_g
+        torch.cuda.empty_cache()
+        if key != "zero_de":
+            _paired_times(res, libs, f"fwd_{key}",
+                          lambda lib: _logits_fwd_raw(lib, args, ns))
+        _paired_times(res, libs, f"bwd_{key}",
+                      lambda lib: _logits_bwd_raw(lib, args, d_e, ns))
+        _paired_times(res, libs, f"bwd_kernel_{key}",
+                      lambda lib: _logits_bwd_raw(lib, args, d_e, ns,
+                                                  fold=False))
+        B, S, K, F = xl.shape
+        T = args[1].shape[1]
+        shapes[key]["bound_ms_fwd"] = _logits_fwd_bound(args)[0]
+        shapes[key]["bound_ms_bwd"] = _logits_bwd_bound(args, d_e)[0]
+        log(f"gat_logits inputs {key}: {json.dumps(shapes[key])}")
+        for name, lib in libs.items():
+            for which, occ in (
+                    ("fwd", lambda: gl.fwd_occupancy(B, S, T, K, F, lib)),
+                    ("bwd", lambda: gl.bwd_occupancy(B, S, T, F, lib))):
+                try:
+                    res[name][f"{which}_occupancy_{key}"] = occ()
+                except AttributeError:
+                    continue
+    for name, r in res.items():
+        log(f"gat_logits {name}: {json.dumps(r)}")
+    return {"inputs": shapes, "builds": res}
+
+
 # keys of a check's row that the kernels line carries beside the contract's
 EXTRA_KEYS = ("ms_at_16", "bound_ms_at_16", "plain_ms_at_16", "alpha_ms",
               "occupancy")
@@ -1767,6 +2030,11 @@ def main(argv) -> int:
         help="only build the kernels and compare the tree's pairwise_fwd "
              "with the pairwise_fwd of these pairwise.cu files "
              "(compare_pairwise_fwd)")
+    parser.add_argument(
+        "--gat-logits-against", nargs="+", metavar="GAT_LOGITS_CU",
+        help="only build the kernels and compare the tree's gat_logits_fwd "
+             "and gat_logits_bwd with those of these gat_logits.cu files "
+             "(compare_gat_logits)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke runs on a card",
@@ -1782,6 +2050,10 @@ def main(argv) -> int:
     if opts.pairwise_fwd_against:
         log(json.dumps({"pairwise_fwd_against": compare_pairwise_fwd(
             opts.pairwise_fwd_against)}))
+        return 0
+    if opts.gat_logits_against:
+        log(json.dumps({"gat_logits_against": compare_gat_logits(
+            opts.gat_logits_against)}))
         return 0
     if opts.pairwise_bwd_against:
         log(json.dumps({"pairwise_bwd_against": compare_pairwise_bwd(

@@ -8,25 +8,28 @@ replaces ``scripts/bench_gat.py::pallas_logits``); when autograd needs
 gradients it runs ``FusedGATLogits``, whose backward launches
 ``gat_logits_bwd``. On CPU tensors it runs the plain
 ``ops/gat.py::gat_logits``, whose autograd is the backward's plain version.
-The kernels never store the [B, S, T, K, F] domain.
+The kernels never store the [B, S, T, K, F] domain; the backward walks
+only the pairs with a non-zero upstream gradient. ``fwd_occupancy`` /
+``bwd_occupancy`` read what their launches get on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .common import check_cuda_tensor, check_smem, warps_for
+from .common import check_cuda_tensor, check_smem
 from .gat import gat_logits
 
 #: launches of the forward / backward kernel since the last reset (set to 0)
 launches = 0
 bwd_launches = 0
 
-_MAX_F = 128   # features per head the backward keeps in registers
+_MAX_F = 128   # features per head the kernels take (4 per lane)
+GRID_LIMIT = 65535   # the grids' y dimension: B x K (forward), B (backward)
 
 
 def _lib() -> ctypes.CDLL:
@@ -34,11 +37,13 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gat_logits_fwd.argtypes = [p] * 6 + [i] * 6 + [f, p]
     lib.gat_logits_fwd.restype = ctypes.c_int
-    lib.gat_logits_fwd_smem_bytes.argtypes = [i, i, i]
+    lib.gat_logits_fwd_smem_bytes.argtypes = [i] * 5
     lib.gat_logits_fwd_smem_bytes.restype = ctypes.c_size_t
-    lib.gat_logits_bwd.argtypes = [p] * 11 + [i] * 7 + [f, p]
+    lib.gat_logits_bwd.argtypes = [p] * 10 + [i] * 6 + [f, p]
     lib.gat_logits_bwd.restype = ctypes.c_int
-    lib.gat_logits_bwd_smem_bytes.argtypes = [i, i, i, i]
+    lib.gat_logits_bwd_parts.argtypes = [i, i, i]
+    lib.gat_logits_bwd_parts.restype = ctypes.c_int
+    lib.gat_logits_bwd_smem_bytes.argtypes = [i] * 4
     lib.gat_logits_bwd_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -69,9 +74,12 @@ def fused_gat_logits_cuda(xl: torch.Tensor, xr: torch.Tensor,
     logits [B, S, T, K]."""
     global launches
     B, S, T, K, F, wstride = _check(xl, xr, adj, we, att, ns)
+    if B * K > GRID_LIMIT:
+        raise ValueError(f"fused_gat_logits: {B} samples x {K} heads above "
+                         f"the grid's {GRID_LIMIT}")
     lib = _lib()
     check_smem(f"fused_gat_logits: S={S}, T={T}, F={F}",
-                lib.gat_logits_fwd_smem_bytes(S, T, F))
+                lib.gat_logits_fwd_smem_bytes(B, S, T, K, F))
     out = xl.new_empty((B, S, T, K))
     stream = torch.cuda.current_stream(xl.device).cuda_stream
     _build.check(lib.gat_logits_fwd(
@@ -88,28 +96,63 @@ def fused_gat_logits_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor,
                               ns: float) -> Tuple[torch.Tensor, ...]:
     """Launch the backward kernel on the forward's inputs and ``d_e``
     [B,S,T,K]. Returns dxl, dxr, dadj [B,S,T], dwe, datt (we's shape): the
-    kernel's per-head dadj and per-sample dwe / datt are summed here, as
-    the JAX package sums them over heads and (shared heads) the batch."""
+    kernel writes dxl, dxr and dadj (summed over heads) and per-block
+    dwe / datt partials, which are summed here in one reduction (over the
+    blocks, and for shared heads the batch, as the JAX package sums
+    them)."""
     global bwd_launches
     B, S, T, K, F, wstride = _check(xl, xr, adj, we, att, ns)
     check_cuda_tensor("d_e", d_e, torch.float32, (B, S, T, K))
+    if B > GRID_LIMIT:
+        raise ValueError(f"fused_gat_logits backward: batch {B} above the "
+                         f"grid's {GRID_LIMIT}")
     lib = _lib()
-    nw = warps_for(max(S, T))
+    parts = lib.gat_logits_bwd_parts(B, S, T)
+    if parts < 0:
+        raise RuntimeError("gat_logits_bwd_parts failed")
     check_smem(f"fused_gat_logits backward: S={S}, T={T}, F={F}",
-                lib.gat_logits_bwd_smem_bytes(S, T, F, nw))
+               lib.gat_logits_bwd_smem_bytes(B, S, T, F))
     dxl, dxr = torch.empty_like(xl), torch.empty_like(xr)
-    dadj_k = xl.new_empty((B, K, S, T))
-    dwe_b, datt_b = xl.new_empty((B, K, F)), xl.new_empty((B, K, F))
+    dadj = xl.new_empty((B, S, T))
+    part = xl.new_empty((B, parts, 2, K, F))
     stream = torch.cuda.current_stream(xl.device).cuda_stream
     _build.check(lib.gat_logits_bwd(
         xl.data_ptr(), xr.data_ptr(), adj.data_ptr(), we.data_ptr(),
         att.data_ptr(), d_e.data_ptr(), dxl.data_ptr(), dxr.data_ptr(),
-        dadj_k.data_ptr(), dwe_b.data_ptr(), datt_b.data_ptr(), B, S, T, K,
-        F, wstride, nw, ns, stream), "gat_logits_bwd")
+        dadj.data_ptr(), part.data_ptr(), B, S, T, K, F, wstride, ns,
+        stream), "gat_logits_bwd")
     bwd_launches += 1
-    if wstride == 0:
-        dwe_b, datt_b = dwe_b.sum(0), datt_b.sum(0)
-    return dxl, dxr, dadj_k.sum(1), dwe_b, datt_b
+    dwe, datt = part.sum(1 if wstride else (0, 1)).unbind(-3)
+    return dxl, dxr, dadj, dwe, datt
+
+
+def _occupancy(fn, *shape) -> dict:
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    n = fn(*shape, ctypes.byref(regs), ctypes.byref(local))
+    if n < 0:
+        raise RuntimeError(f"{fn.__name__} failed")
+    return {"regs": regs.value, "local_bytes": local.value,
+            "blocks_per_sm": n}
+
+
+def fwd_occupancy(B: int, S: int, T: int, K: int, F: int,
+                  lib: Optional[ctypes.CDLL] = None) -> dict:
+    """What the forward kernel's launch gets on this card at these shapes:
+    registers and local (spill) bytes per thread, resident blocks per SM
+    and the strips of sources a (b, k) plane is split into (of ``lib``,
+    another build of ``csrc/gat_logits.cu``, when given)."""
+    lib = lib or _lib()
+    return {**_occupancy(lib.gat_logits_fwd_blocks_per_sm, B, S, T, K, F),
+            "strips": lib.gat_logits_fwd_strips(B, S, T, K)}
+
+
+def bwd_occupancy(B: int, S: int, T: int, F: int,
+                  lib: Optional[ctypes.CDLL] = None) -> dict:
+    """As ``fwd_occupancy``, for the backward kernel, with its blocks per
+    sample (``parts``: the row blocks, then the column blocks)."""
+    lib = lib or _lib()
+    return {**_occupancy(lib.gat_logits_bwd_blocks_per_sm, B, S, T, F),
+            "parts": lib.gat_logits_bwd_parts(B, S, T)}
 
 
 class FusedGATLogits(torch.autograd.Function):

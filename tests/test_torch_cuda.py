@@ -492,42 +492,95 @@ def _logits_args(rng, B, S, T, K, F, per_sample):
 
 
 @pytest.mark.parametrize("per_sample", [False, True])
-@pytest.mark.parametrize("S,T,K,F", [(9, 9, 2, 5), (7, 11, 3, 40),
-                                     (65, 65, 2, 64), (65, 65, 13, 100),
-                                     (33, 20, 1, 128)])
-def test_gat_logits_kernels_match_plain(card, per_sample, S, T, K, F):
+@pytest.mark.parametrize("B,S,T,K,F,ns,shift,d_kind", [
+    (3, 9, 9, 2, 5, 0.2, 0.0, "rand"), (3, 7, 11, 3, 40, 0.2, 0.0, "rand"),
+    (3, 65, 65, 2, 64, 0.2, 0.0, "rand"),
+    (3, 65, 65, 13, 100, 0.2, 0.0, "rand"),
+    (3, 33, 20, 1, 128, 0.2, 0.0, "rand"),
+    # the headline batches: B = 16 with one and two heads (the forward's
+    # strips and the backward's chunks spread over every SM), A*B = 192
+    (16, 65, 65, 1, 64, 0.2, 0.0, "rand"),
+    (16, 65, 65, 2, 64, 0.2, 0.0, "rand"),
+    (192, 65, 65, 2, 64, 0.2, 0.0, "rand"),
+    # the leaky map at its ends: |p| alone and linear alone
+    (3, 13, 17, 2, 33, 0.0, 0.0, "rand"), (3, 13, 17, 2, 33, 1.0, 0.0, "rand"),
+    # |xl|, |xr| ~ 8 >> |pre|: the separable sums cancel
+    (3, 65, 65, 2, 64, 0.2, 8.0, "rand"),
+    # no pair with a gradient, and one: the pair where pre is exactly 0
+    (3, 65, 65, 2, 64, 0.2, 0.0, "zero"), (3, 65, 65, 2, 64, 0.2, 0.0, "one")])
+def test_gat_logits_kernels_match_plain(card, per_sample, B, S, T, K, F, ns,
+                                        shift, d_kind):
     """The per-head logits forward against ``gat_logits``, and its backward
     against the plain version's autograd (shared heads summed over the
     batch, per-sample heads their own rows), with exact zeros of pre and
-    zero upstream gradients (the softmax's non-edges); two backward runs
+    zero upstream gradients (the softmax's non-edges); two runs of each
     agree bit for bit."""
     from ctvae_torch.ops import gat_logits as gl
     from ctvae_torch.ops.gat import gat_logits
-    rng = np.random.default_rng(S * T + K * F + per_sample)
-    B = 3
-    args = _logits_args(rng, B, S, T, K, F, per_sample)
+    rng = np.random.default_rng(S * T + K * F + per_sample + B)
+    xl, xr, adj, we, att = _logits_args(rng, B, S, T, K, F, per_sample)
+    args = (xl + shift, xr - shift, adj, we, att)   # keeps pre[b, 1, 2] = 0
     before = gl.launches
-    got = gl.fused_gat_logits(*args, 0.2)
+    got = gl.fused_gat_logits(*args, ns)
     torch.cuda.synchronize()
     assert gl.launches == before + 1 and got.grad_fn is None
-    want = gat_logits(*args, 0.2)
+    want = gat_logits(*args, ns)
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert torch.equal(gl.fused_gat_logits(*args, ns), got)
     d_e = _t(rng, B, S, T, K)
     d_e[:, :, 3] = 0.0
+    if d_kind == "zero":
+        d_e.zero_()
+    elif d_kind == "one":               # (b, s, t, k) = (0, 1, 2, 0) alone
+        d_e[:] = torch.where(torch.arange(d_e.numel(), device="cuda").view(
+            d_e.shape) == (T + 2) * K, d_e, 0.0)
+        assert int((d_e != 0).sum()) == 1 and float(d_e[0, 1, 2, 0]) != 0
     leaves = [a.clone().requires_grad_() for a in args]
     before = gl.bwd_launches
-    out = gl.fused_gat_logits(*leaves, 0.2)
+    out = gl.fused_gat_logits(*leaves, ns)
     assert type(out.grad_fn).__name__ == "FusedGATLogitsBackward"
     grads = torch.autograd.grad(out, leaves, d_e)
     torch.cuda.synchronize()
     assert gl.bwd_launches == before + 1
-    want = torch.autograd.grad(gat_logits(*leaves, 0.2), leaves, d_e)
+    want = torch.autograd.grad(gat_logits(*leaves, ns), leaves, d_e)
     _close_grads(("dxl", "dxr", "dadj", "dwe", "datt"), grads, want)
-    again = torch.autograd.grad(gl.fused_gat_logits(*leaves, 0.2), leaves,
+    again = torch.autograd.grad(gl.fused_gat_logits(*leaves, ns), leaves,
                                 d_e)
     for g, h in zip(grads, again):      # no atomics: bit for bit
         assert torch.equal(g, h)
+
+
+def test_gat_logits_occupancy(card):
+    """At the headline shapes both kernels run without spilling more than a
+    few bytes, the backward at 4 blocks of 8 warps per SM (launch bounds
+    of 64 registers), and at B = 16 with one head both grids give every SM
+    a block."""
+    from ctvae_torch.ops import gat_logits as gl
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, K in ((16, 1), (16, 2), (192, 2)):
+        fwd = gl.fwd_occupancy(B, 65, 65, K, 64)
+        bwd = gl.bwd_occupancy(B, 65, 65, 64)
+        assert fwd["local_bytes"] == 0 and fwd["blocks_per_sm"] >= 2, fwd
+        assert bwd["regs"] <= 64 and bwd["local_bytes"] <= 32, bwd
+        assert bwd["blocks_per_sm"] == 4, bwd
+        assert B * K * fwd["strips"] >= nsm and B * bwd["parts"] >= nsm
+
+
+def test_gat_logits_rejects_too_large_grid(card):
+    """More samples (forward: samples x heads) than the grids' y dimension
+    takes: the wrappers say so before launching."""
+    from ctvae_torch.ops import gat_logits as gl
+    B = gl.GRID_LIMIT + 1
+    x = torch.zeros(B, 1, 1, 1, device="cuda")
+    adj = torch.zeros(B, 1, 1, device="cuda")
+    w = torch.zeros(1, 1, device="cuda")
+    before = (gl.launches, gl.bwd_launches)
+    with pytest.raises(ValueError, match="grid"):
+        gl.fused_gat_logits_cuda(x, x, adj, w, w, 0.2)
+    with pytest.raises(ValueError, match="grid"):
+        gl.fused_gat_logits_bwd_cuda(x, x, adj, w, w, x, 0.2)
+    assert (gl.launches, gl.bwd_launches) == before
 
 
 def test_gat_logits_wrapper_rejects_what_the_kernels_do_not_take(card):

@@ -420,3 +420,61 @@ def test_fused_gat_logits_matches_jax(per_sample, S, T):
     close(t2n(out), want)
     _grad_close(torch.autograd.grad(out, leaves, torch.from_numpy(d_e)),
                 want_g)
+
+
+def _within_scale(got, want, rel=1e-5):
+    """Max abs error within ``rel`` of max(1, max |want|): the limits the
+    logits kernels are held to on the card."""
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= rel * scale
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("ns", [0.0, 0.2, 1.0])
+def test_gat_logits_split_matches_plain(per_sample, ns):
+    """The per-head logits kernels' algebra, written out in plain torch,
+    against ``ops/gat.py::gat_logits`` and its autograd. Forward: the abs
+    form leaky(p) = (1 + ns) / 2 p + (1 - ns) / 2 |p|, whose linear part
+    sum_f att p = L_s + R_t + adj W is separable (L_s = sum_f att xl, R_t =
+    sum_f att xr, W = sum_f att we). Backward: the slope test (xl + xr) >=
+    -(adj we), which must pick the slope of pre = (xl + xr) + adj we >= 0
+    on every element, and datt = sum_s xl GL + sum_t xr GR + we GW from
+    the sums dxl, dxr and dwe need (GL = sum_t g, GR = sum_s g, GW =
+    sum_{s,t} adj g). Pre is exactly 0 at (s, t) = (1, 2)."""
+    B, S, T, K, F = 3, 9, 7, 2, 5
+    xl, xr, adj, we, att = map(torch.from_numpy, _logits_inputs(
+        int(10 * ns) + per_sample, B, S, T, K, F, per_sample))
+    xr[:, 2] = -xl[:, 1]
+    adj[:, 1, 2] = 0.0
+    d_e = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(B, S, T, K)).astype(np.float32))
+    d_e[:, :, 3] = 0.0                   # a target without an edge
+    # [.., K, F] params against [B, S, T, K, F] / [B, S, K, F] / [B, K]
+    bstk = (lambda p: p[:, None, None]) if per_sample else (lambda p: p)
+    bsk = (lambda p: p[:, None]) if per_sample else (lambda p: p)
+    a5 = adj[:, :, :, None, None]
+    pre = xl[:, :, None] + xr[:, None] + a5 * bstk(we)
+    assert (pre[:, 1, 2] == 0).all()
+
+    lin = ((xl * bsk(att)).sum(-1)[:, :, None]            # L_s
+           + (xr * bsk(att)).sum(-1)[:, None]             # R_t
+           + adj[..., None] * bstk((we * att).sum(-1)))   # adj W
+    e = (1 + ns) / 2 * lin + (1 - ns) / 2 * (pre.abs() * bstk(att)).sum(-1)
+    _within_scale(e, tgat.gat_logits(xl, xr, adj, we, att, ns))
+
+    u = xl[:, :, None] + xr[:, None]
+    pos = u >= -(a5 * bstk(we))
+    assert torch.equal(pos, pre >= 0)
+    g = torch.where(pos, d_e[..., None], ns * d_e[..., None])
+    GL, GR, GW = g.sum(2), g.sum(1), (a5 * g).sum((1, 2))
+    datt = (xl * GL).sum(1) + (xr * GR).sum(1) + we * GW
+    got = [bsk(att) * GL, bsk(att) * GR, (g * bstk(att * we)).sum((-1, -2)),
+           att * GW, datt]
+    if not per_sample:                   # shared heads: summed over b
+        got[3], got[4] = got[3].sum(0), got[4].sum(0)
+    leaves = [t.clone().requires_grad_() for t in (xl, xr, adj, we, att)]
+    want = torch.autograd.grad(tgat.gat_logits(*leaves, ns), leaves, d_e)
+    for gt, w in zip(got, want):
+        assert gt.shape == w.shape
+        _within_scale(gt, w)
