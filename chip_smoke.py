@@ -8,7 +8,7 @@ Builds the seven CUDA kernels of ``ctvae_torch/csrc`` (four sources, one
 version at the shapes of ``configs/ct_mcq_vae.yaml``: the four forward
 kernels at the serving shapes, the three backward kernels (pairwise scores,
 GATv2 attention, GATv2 per-head logits) against the plain versions'
-autograd. Then it drives the port's three paths at that width, each with
+autograd. Then it drives the port's four paths at that width, each with
 the launch counters set to 0 just before and read just after:
 
 * serving: ``reconstruct``, ``apply_action`` and ``classify_action`` at
@@ -20,6 +20,11 @@ the launch counters set to 0 just before and read just after:
   ``ct_layer`` moved, and every backward kernel launched in every mode;
   the pairwise backward is timed on each step's own two calls and held
   against the plain autograd on the causal step's;
+* training past 120 latent sites: the headline widths with ``codebooks:
+  2`` (S = 128 sites, 129 GAT nodes, as the CT search configs search
+  it), a warm and a timed train step per mode, every kernel launched in
+  every mode, and each mode's pairwise and GAT backward calls held
+  against the plain autograd and timed on their own inputs;
 * the two-stage recipe on TSynthetic (64x64, the headline widths with its
   8 actions): an MCQVAE pretrained for one epoch and saved, its weights
   restored alone into a CTMCQVAE, one ``VAEXperiment.fit`` epoch of
@@ -41,6 +46,12 @@ forward of other ``gat.cu`` files (an earlier commit's, or a variant):
 outputs bit for bit, registers and occupancy, and times taken in turns
 (``compare_gat_fwd``).
 
+    python3 chip_smoke.py --gat-bwd-against OTHER/gat.cu [...]
+
+does the same for its backward, with its wrapper's sums, on the check's
+inputs and on the calls of each train mode's step (codebooks 1 and 2),
+with each build's error against the plain autograd (``compare_gat_bwd``).
+
     python3 chip_smoke.py --pairwise-bwd-against OTHER/pairwise.cu [...]
 
 does the same for the pairwise scores' backward, on dense inputs and on
@@ -51,6 +62,12 @@ against the plain autograd (``compare_pairwise_bwd``).
 
 and for the pairwise scores' forward, with each build's error against
 the plain version (``compare_pairwise_fwd``).
+
+    python3 chip_smoke.py --vq-against OTHER/vq.cu [...]
+
+and for the VQ search, on the check's inputs at D = 128, 64 and 32 and on
+the calls of each train mode's step (codebooks 1 and 2), with each
+build's index agreement with the plain version (``compare_vq``).
 
     python3 chip_smoke.py --gat-logits-against OTHER/gat_logits.cu [...]
 
@@ -207,15 +224,11 @@ def phase_build() -> None:
 
 # --- phase 3: kernels against their plain versions ------------------------
 
-def _check_vq(gen) -> dict:
+def _vq_agreement(x, cb, got) -> tuple:
+    """The kernel's indices against the plain version's: (indices that
+    differ, of them near-ties, the largest distance gap in float64)."""
     from ctvae_torch.ops import vq
-    N, K, D = BATCH * 64, MODEL_PARAMS["num_embeddings"], \
-        MODEL_PARAMS["embedding_dim"]
-    x = torch.randn(N, D, generator=gen, device="cuda") * 0.3
-    cb = (torch.rand(K, D, generator=gen, device="cuda") * 2 - 1) / K
-    got = vq.l2_argmin_cuda(x, cb)
     want = vq.l2_argmin_plain(x, cb)
-    torch.cuda.synchronize()
     dist = (x.double() ** 2).sum(1, keepdim=True) \
         + (cb.double() ** 2).sum(1) - 2 * x.double() @ cb.double().T
     d_got = dist.gather(1, got[:, None])[:, 0]
@@ -223,20 +236,63 @@ def _check_vq(gen) -> dict:
     gap = (d_got - d_want).abs()
     differ = got != want
     near_tie = gap <= VQ_TIE_RTOL * d_want.abs().clamp(min=1.0)
-    bad = int((differ & ~near_tie).sum())
-    row = {"name": "vq_l2_argmin", "max_abs_err": float(gap.max()),
-           "ok": bad == 0,
-           "note": f"{int(differ.sum())} of {N} indices differ, "
-                   f"{int((differ & near_tie).sum())} of them near-ties "
-                   f"(distance gap <= {VQ_TIE_RTOL} rel)"}
-    row["ms"] = time_ms(lambda: vq.l2_argmin_cuda(x, cb))
-    row["plain_ms"] = time_ms(lambda: vq.l2_argmin_plain(x, cb))
-    row["library_ms"] = time_ms(lambda: torch.cdist(x, cb).argmin(1))
-    row["bound_ms"], row["bound_by"] = bound_ms(
-        4 * (N * D + K * D) + 8 * N, 2.0 * N * K * D)
-    log(f"vq N={N} K={K} D={D}: {row['note']}; max distance gap "
-        f"{row['max_abs_err']:.3g}; kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, cdist+argmin {row['library_ms']:.4f} ms")
+    return int(differ.sum()), int((differ & near_tie).sum()), float(gap.max())
+
+
+def _vq_bound(x, cb):
+    """Bytes: x and the codebook read once, the int64 indices written once.
+    Operations: the 2 N K D of the products (the norms add K D)."""
+    (N, D), K = x.shape, cb.shape[0]
+    return bound_ms(4 * (N * D + K * D) + 8 * N, 2.0 * N * K * D)
+
+
+# D of the VQ search: the headline's embedding of 128 over 1, 2 and 4
+# codebooks (configs/ct_mcq_vae.yaml, the codebooks: 2 of the CT search
+# configs, configs/mcq_vae.yaml)
+VQ_DIMS = (128, 64, 32)
+
+
+def _check_vq(gen) -> dict:
+    """The VQ search against the plain version at N = 1024 rows, K = 64
+    codes and each D of VQ_DIMS: indices equal except on counted near-ties,
+    a rerun bit for bit; the kernel's, the plain version's and ``cdist`` +
+    ``argmin``'s times, the bound and the occupancy. The row reports D =
+    128; ``by_d`` each D."""
+    from ctvae_torch.ops import vq
+    N, K = BATCH * 64, MODEL_PARAMS["num_embeddings"]
+    row = {"name": "vq_l2_argmin", "max_abs_err": 0.0, "ok": True,
+           "by_d": {}}
+    notes = []
+    for D in VQ_DIMS:
+        x = torch.randn(N, D, generator=gen, device="cuda") * 0.3
+        cb = (torch.rand(K, D, generator=gen, device="cuda") * 2 - 1) / K
+        got = vq.l2_argmin_cuda(x, cb)
+        same = torch.equal(vq.l2_argmin_cuda(x, cb), got)
+        differ, ties, gap = _vq_agreement(x, cb, got)
+        m = row["by_d"][str(D)] = {
+            "differ": differ, "near_ties": ties, "max_abs_err": gap,
+            "bit_identical": same,
+            "ms": time_ms(lambda: vq.l2_argmin_cuda(x, cb)),
+            "plain_ms": time_ms(lambda: vq.l2_argmin_plain(x, cb)),
+            "library_ms": time_ms(lambda: torch.cdist(x, cb).argmin(1)),
+            "occupancy": vq.occupancy(K, D)}
+        m["bound_ms"], m["bound_by"] = _vq_bound(x, cb)
+        row["ok"] &= differ == ties and same
+        row["max_abs_err"] = max(row["max_abs_err"], gap)
+        notes.append(f"N={N} K={K} D={D}: {differ} of {N} indices differ, "
+                     f"{ties} of them near-ties (distance gap <= "
+                     f"{VQ_TIE_RTOL} rel), max distance gap {gap:.3g}; rerun "
+                     f"bit-identical {same}; kernel {m['ms']:.4f} ms, plain "
+                     f"{m['plain_ms']:.4f} ms, cdist+argmin "
+                     f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.5f} ms "
+                     f"({m['bound_by']}); occupancy "
+                     f"{json.dumps(m['occupancy'])}")
+    head = row["by_d"][str(VQ_DIMS[0])]
+    row.update({k: head[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "occupancy")})
+    row["note"] = "; ".join(notes)
+    for n in notes:
+        log(f"vq {n}")
     return row
 
 
@@ -270,18 +326,34 @@ def _pairwise_fwd_inputs(gen, B: int, per_sample: bool):
     return (xl, xr, w2, b1, b2, 0.01)
 
 
+def _pairwise_fwd_plain(args, chunk: int = BATCH) -> torch.Tensor:
+    """The plain version on the forward's arguments, ``chunk`` samples at
+    a time (its [B, S, T, Hd] domain at the causal step's A*B = 192 and S =
+    T = 128 takes 10 GB a tensor); per-sample params (w2, b1 [B, Hd], b2
+    [B]) are sliced with the samples."""
+    from ctvae_torch.ops.pairwise import fused_pairwise_scores
+    xl, xr, w2, b1, b2, ns = args
+    parts = []
+    for c in range(0, xl.shape[0], chunk):
+        sl = slice(c, c + chunk)
+        parts.append(fused_pairwise_scores(
+            xl[sl], xr[sl], w2[sl] if w2.dim() == 2 else w2,
+            b1[sl] if b1.dim() == 2 else b1, b2[sl] if b2.dim() == 1 else b2,
+            ns))
+    return torch.cat(parts)
+
+
 def _pairwise_fwd_check(args) -> dict:
     """One forward call of the wrapper against the plain version on
     ``args``: the max abs error, whether a second call agrees bit for
     bit, the kernel's time and the bound."""
     from ctvae_torch.ops import pairwise_flash as pf
-    from ctvae_torch.ops.pairwise import fused_pairwise_scores
 
     def fn(a):
         return pf.flash_pairwise_cuda(*a)
     with torch.no_grad():
         got, again = fn(args), fn(args)
-        want = fused_pairwise_scores(*args)
+        want = _pairwise_fwd_plain(args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     res = {"shape": [*args[0].shape[:2], args[1].shape[1],
@@ -518,22 +590,34 @@ def _pairwise_live(args) -> dict:
             "live_pairs": pairs / live.numel(), "pairs": pairs}
 
 
-def _pairwise_plain_grads(args) -> list:
+def _pairwise_plain_grads(args, chunk: int = BATCH) -> list:
     """The plain version's autograd from the kernel's own residual ``out``:
     the gradients of the logits z = sum_h leaky(pre) w2 against dz = dout
     out (1 - out), what the sigmoid's backward hands them; dw2, db1 and
-    db2 folded into their param's shape."""
+    db2 folded into their param's shape. Taken ``chunk`` samples at a time
+    (pre of the causal step at S = T = 128 takes 10 GB whole): per-sample
+    gradients concatenate, a shared param's sum over the chunks."""
     from ctvae_torch.ops.pairwise import _bh
     xl, xr, w2, b1, out, dout, ns = args
     out, dout = out.detach(), dout.detach()
-    leaves = [t.detach().clone().requires_grad_() for t in (xl, xr, w2, b1)]
-    pre = leaves[0][:, :, None, :] + leaves[1][:, None, :, :] \
-        + _bh(leaves[3])
-    z = torch.sum(torch.where(pre >= 0, pre, ns * pre) * _bh(leaves[2]), -1)
-    dz = dout * out * (1 - out)
-    grads = list(torch.autograd.grad(z, leaves, dz))
-    del pre, z
-    return grads + [dz.sum((1, 2)) if w2.dim() == 2 else dz.sum()]
+    parts = []
+    for c in range(0, xl.shape[0], chunk):
+        sl = slice(c, c + chunk)
+        leaves = [t.detach()[sl].clone().requires_grad_() if t.dim() == k
+                  else t.detach().clone().requires_grad_()
+                  for t, k in ((xl, 3), (xr, 3), (w2, 2), (b1, 2))]
+        pre = leaves[0][:, :, None, :] + leaves[1][:, None, :, :] \
+            + _bh(leaves[3])
+        z = torch.sum(torch.where(pre >= 0, pre, ns * pre)
+                      * _bh(leaves[2]), -1)
+        dz = dout[sl] * out[sl] * (1 - out[sl])
+        grads = list(torch.autograd.grad(z, leaves, dz))
+        del pre, z
+        parts.append(grads + [dz.sum((1, 2)) if w2.dim() == 2
+                              else dz.sum()])
+    per_sample = (True, True, w2.dim() == 2, b1.dim() == 2, w2.dim() == 2)
+    return [torch.cat([p[i] for p in parts]) if per_sample[i]
+            else sum(p[i] for p in parts) for i in range(5)]
 
 
 def _pairwise_folded(grads, args) -> list:
@@ -630,6 +714,75 @@ def _gat_bwd_plain(args, dout, chunk: int):
     return grads, ms
 
 
+def _gat_bwd_bound(xl, xr, mask):
+    """Bytes: xl, xr, dout, dxl and dxr, alpha and dadj per head, adj,
+    mask and its gradient, we / att and theirs. Operations per edge, head
+    and feature: pre (3), slope select and multiply, the dxr add, the
+    dadj, dwe, datt and dalpha fmas (2 each), the dxl add and fma."""
+    B, S, H, F = xl.shape
+    T = xr.shape[1]
+    nbytes = 4 * (3 * B * (S + T) * H * F + 2 * B * S * T + B * H * S * T
+                  + 4 * H * F) + B * S * T
+    return bound_ms(nbytes, 17.0 * int(mask.sum()) * H * F)
+
+
+def _gat_plain_grads(args, chunk: int = BATCH) -> list:
+    """The plain version's gradients from the kernel's own residual alpha
+    [B, H, T, S], as ``_pairwise_plain_grads`` takes them from ``out``: the
+    softmax's VJP de = alpha (dalpha - sum_s alpha dalpha) with dalpha =
+    dout . xl, the logits' autograd against de, and sum_t alpha dout added
+    to dxl; ``chunk`` samples at a time (dwe, datt summed over them). A
+    softmax recomputed from the logits would differ from the residual by
+    its rounding, which the cancellation in de amplifies to ~1% of a train
+    step's small GAT gradients (the parent kernel's too)."""
+    from ctvae_torch.ops.gat import gat_logits
+    xl, xr, adj, mask, we, att, alpha, dout, ns = args
+    parts = []
+    for c in range(0, xl.shape[0], chunk):
+        sl = slice(c, c + chunk)
+        leaves = [t[sl].detach().clone().requires_grad_()
+                  for t in (xl, xr, adj)]
+        leaves += [we.detach().clone().requires_grad_(),
+                   att.detach().clone().requires_grad_()]
+        a = alpha[sl].permute(0, 3, 2, 1)            # [b, S, T, H]
+        d = dout[sl]
+        dalpha = torch.einsum("bthf,bshf->bsth", d, xl[sl])
+        de = a * (dalpha - (a * dalpha).sum(1, keepdim=True))
+        g = list(torch.autograd.grad(gat_logits(*leaves, ns), leaves, de))
+        g[0] = g[0] + torch.einsum("bsth,bthf->bshf", a, d)
+        parts.append(g)
+    return [torch.cat([p[i] for p in parts]) for i in range(3)] + \
+        [sum(p[i] for p in parts) for i in (3, 4)]
+
+
+def _gat_bwd_on_path(fn) -> dict:
+    """The GAT backward as one call of ``fn`` (a train step) launches it:
+    the edge density, the kernel's time and bound on those very inputs,
+    and its gradients against the plain version's (``_gat_plain_grads``),
+    each gradient's error over its own scale held to GRAD_RTOL, and a
+    rerun bit for bit."""
+    from ctvae_torch.ops import gat_flash as gf
+    (args, _), = _calls_of(gf, "flash_gat_bwd_cuda", fn)
+    xl, xr, adj, mask, we, att, alpha, dout, ns = args
+    got = gf.flash_gat_bwd_cuda(*args)
+    same = all(torch.equal(g, h)
+               for g, h in zip(got, gf.flash_gat_bwd_cuda(*args)))
+    want = _gat_plain_grads(args)
+    _, err, text = _grad_errors(("dxl", "dxr", "dadj", "dwe", "datt"), got,
+                                want, own_scale=True)
+    del got, want
+    torch.cuda.empty_cache()
+    if not (err <= GRAD_RTOL and same):
+        raise AssertionError(f"gat_bwd on the step's inputs: {text}; rerun "
+                             f"bit-identical {same}")
+    bnd = _gat_bwd_bound(xl, xr, mask)
+    return {"shape": list(xl.shape), "edge_density":
+            float(mask.float().mean()), "err": err, "errors": text,
+            "bit_identical": same,
+            "ms": time_ms(lambda: gf.flash_gat_bwd_cuda(*args)),
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
 def _check_gat_bwd(gen) -> dict:
     """The backward kernel (through ``FlashGAT``) against the plain
     version's autograd at B = 16 and at A*B = 192, the causal call, which
@@ -665,12 +818,7 @@ def _check_gat_bwd(gen) -> dict:
         ms = time_ms(lambda: gf.flash_gat_bwd_cuda(
             xl, xr, adj, mask, we, att, alpha, dout, ns))
         edges = int(mask.sum())
-        # per edge, head and feature: pre (3), slope select and multiply,
-        # the dxr add, the dadj, dwe, datt and dalpha fmas (2 each), the
-        # dxl add and fma
-        nbytes = 4 * (6 * B * T * H * F + 2 * B * T * T + B * H * T * T
-                      + 4 * H * F) + B * T * T
-        bnd = bound_ms(nbytes, 17.0 * edges * H * F)
+        bnd = _gat_bwd_bound(xl, xr, mask)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ok"] &= rel <= GRAD_RTOL and same and no_grad_row
         chunks = f" ({B // BATCH} chunks of {BATCH})" if B > BATCH else ""
@@ -797,16 +945,50 @@ def _pairwise_fwd_on_path(fn) -> dict:
     return res
 
 
+def _gat_fwd_plain(args, chunk: int = BATCH):
+    """The plain version's out [B, T, H, F] and alpha [B, H, T, S] (the
+    masked softmax of the logits) on the forward's arguments, ``chunk``
+    samples at a time."""
+    from ctvae_torch.ops.gat import gat_logits, masked_incoming_softmax
+    from ctvae_torch.ops.gat_flash import flash_gat_plain
+    xl, xr, adj, mask, we, att, ns = args
+    outs, alphas = [], []
+    for c in range(0, xl.shape[0], chunk):
+        part = (xl[c:c + chunk], xr[c:c + chunk], adj[c:c + chunk],
+                mask[c:c + chunk], we, att, ns)
+        outs.append(flash_gat_plain(*part))
+        alphas.append(masked_incoming_softmax(
+            gat_logits(*part[:3], we, att, ns), part[3]).permute(0, 3, 2, 1))
+    return torch.cat(outs), torch.cat(alphas)
+
+
 def _gat_fwd_on_path(fn) -> dict:
     """The GAT forward as one call of ``fn`` (a train step) launches it:
     the share of (source, target) pairs that are edges (the kernel walks
-    only those, so its time depends on it), and the kernel's time and
-    bound on those very inputs."""
+    only those, so its time depends on it), its out and alpha residual
+    against the plain version's (``_gat_fwd_plain``, GAT_ATOL) and a
+    rerun bit for bit, and the kernel's time and bound on those very
+    inputs."""
     from ctvae_torch.ops import gat_flash as gf
     (args, kw), = _calls_of(gf, "flash_gat_cuda", fn)
+    args = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
+    got, alpha = gf.flash_gat_cuda(*args, keep_alpha=True)
+    again, alpha2 = gf.flash_gat_cuda(*args, keep_alpha=True)
+    with torch.no_grad():
+        want, want_alpha = _gat_fwd_plain(args)
+    err = float((got - want).abs().max())
+    alpha_err = float((alpha - want_alpha).abs().max())
+    same = torch.equal(got, again) and torch.equal(alpha, alpha2)
+    del got, again, alpha, alpha2, want, want_alpha
+    torch.cuda.empty_cache()
+    if not (err <= GAT_ATOL and alpha_err <= GAT_ATOL and same):
+        raise AssertionError(f"gat_fwd on the step's inputs: out err {err}, "
+                             f"alpha err {alpha_err}, rerun bit-identical "
+                             f"{same}")
     bnd = _gat_fwd_bound(args, kw.get("keep_alpha", False))
     return {"edge_density": float(args[3].float().mean()),
-            "shape": list(args[0].shape),
+            "shape": list(args[0].shape), "max_abs_err": err,
+            "alpha_err": alpha_err, "bit_identical": same,
             "ms": time_ms(lambda: gf.flash_gat_cuda(*args, **kw)),
             "bound_ms": bnd[0], "bound_by": bnd[1]}
 
@@ -1161,14 +1343,21 @@ def phase_reference(model) -> None:
             raise AssertionError(f"{name}: card and CPU disagree by {err}")
 
 
-def _profile(label: str, fn) -> list:
+# the dense products' ops of the profile, attributed by input shape
+GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def _profile(label: str, fn, gemm_shapes: bool = False) -> list:
     """Device time by kernel over one call of ``fn`` (already warm), and
-    the share of its wall time the card was busy. Returns (kernel, ms,
-    count) rows, longest first."""
+    the share of its wall time the card was busy; with ``gemm_shapes``
+    then, over a second call profiled with ``record_shapes`` (whose host
+    cost stays out of the busy share), the dense products by input shape:
+    each ``GEMM_OPS`` op with the device time of the kernels it launched.
+    Returns (kernel, ms, count) rows of the first call, longest first."""
     from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1186,6 +1375,18 @@ def _profile(label: str, fn) -> list:
         if i < 6 or re.search(r"namespace\)::(vq|pairwise|gat)_\w*kernel[<(]",
                               key):
             log(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
+    if not gemm_shapes:
+        return rows
+    with profile(activities=activities, record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    gemms = sorted(((e.key, e.input_shapes, e.device_time_total / 1e3,
+                     e.count)
+                    for e in prof.key_averages(group_by_input_shape=True)
+                    if e.key in GEMM_OPS), key=lambda r: -r[2])
+    for key, shapes, ms, count in gemms[:8]:
+        log(f"  gemm {ms:9.3f} ms  x{count:<3d} {key} "
+            f"{json.dumps(shapes)} (a second call, record_shapes)")
     return rows
 
 
@@ -1204,13 +1405,13 @@ def phase_profile(model) -> None:
 
 # --- phase 5: the training slice ------------------------------------------
 
-def _train_setup():
-    """The headline model at B = 16 with the config's exp_params: (model,
-    train state, batch, a train step per mode)."""
+def _train_setup(params=MODEL_PARAMS):
+    """The headline model (or ``params``) at B = 16 with the config's
+    exp_params: (model, train state, batch, a train step per mode)."""
     from ctvae_torch.models import build_model
     from ctvae_torch.training import (build_optimizers, create_train_state,
                                       make_train_step)
-    model = build_model(MODEL_PARAMS, device="cuda",
+    model = build_model(params, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(SEED))
     state = create_train_state(
         model, build_optimizers(EXP_PARAMS, model, steps_per_epoch=100),
@@ -1222,19 +1423,14 @@ def _train_setup():
                                  for m in EXPECTED_TRAIN}
 
 
-def phase_train():
-    """Train steps of each mode at the headline width, B = 16, with the
-    config's exp_params; the launch counters are reset just before and
-    read just after. Then one profiled step per mode."""
-    model, state, batch, steps = _train_setup()
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+def _timed_steps(label: str, steps, state, batch, n: int, expected) -> dict:
+    """``n`` train steps of each mode, each checked for its launches
+    (``expected[mode]``) and a finite loss; returns {mode: median ms of
+    the steps after the first, a warm-up}."""
     timings = {}
-    _reset_counts()
     for mode, step in steps.items():
         secs = []
-        for _ in range(TRAIN_STEPS):
+        for _ in range(n):
             c0 = _counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1243,18 +1439,33 @@ def phase_train():
             secs.append(time.perf_counter() - t0)
             c1 = _counts()
             got = {k: c1[k] - c0[k] for k in c1}
-            if got != EXPECTED_TRAIN[mode]:
-                raise AssertionError(f"train {mode}: launches per step {got}, "
-                                     f"expected {EXPECTED_TRAIN[mode]}")
+            if got != expected[mode]:
+                raise AssertionError(f"{label} {mode}: launches per step "
+                                     f"{got}, expected {expected[mode]}")
             loss = float(metrics["loss"])
             if not math.isfinite(loss):
-                raise AssertionError(f"train {mode}: loss {loss}")
+                raise AssertionError(f"{label} {mode}: loss {loss}")
         timed = [1e3 * t for t in secs[1:]]
         timings[mode] = statistics.median(timed)
-        log(f"train {mode} B={BATCH}: {timings[mode]:.3f} ms per step "
-            f"(median of {len(timed)} after a warm-up; min {min(timed):.3f},"
-            f" max {max(timed):.3f}); last loss {loss:.6g}, grad_norm "
+        log(f"{label} {mode} B={BATCH}: {timings[mode]:.3f} ms per step "
+            f"(median of {len(timed)} after a warm-up of "
+            f"{1e3 * secs[0]:.3f}; min {min(timed):.3f}, max "
+            f"{max(timed):.3f}); last loss {loss:.6g}, grad_norm "
             f"{float(metrics['grad_norm']):.6g}")
+    return timings
+
+
+def phase_train():
+    """Train steps of each mode at the headline width, B = 16, with the
+    config's exp_params; the launch counters are reset just before and
+    read just after. Then one profiled step per mode."""
+    model, state, batch, steps = _train_setup()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    timings = _timed_steps("train", steps, state, batch, TRAIN_STEPS,
+                           EXPECTED_TRAIN)
     launches = _counts()
     log(f"launches on the training path: {json.dumps(launches)}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1303,12 +1514,10 @@ def phase_train():
             f"{m['bit_identical']}; kernel on these inputs {m['ms']:.4f} ms, "
             f"bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
     profiles = {mode: _profile(f"train step {mode} B={BATCH}",
-                               lambda: step(state, batch))
+                               lambda: step(state, batch), gemm_shapes=True)
                 for mode, step in steps.items()}
     fwd = _gat_fwd_on_path(lambda: steps["causal"](state, batch))
-    log(f"train causal: GAT forward xl {fwd['shape']}, edge density "
-        f"{fwd['edge_density']:.4f}; kernel on these inputs {fwd['ms']:.4f} "
-        f"ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
+    log(f"train causal: {_gat_fwd_text(fwd)}")
     # extra keys of the kernels line: what the causal step gives a kernel
     on_step = {"gat_fwd": {"on_causal_step": fwd},
                "gat_logits_fwd": {"on_causal_step": logits["causal"]["fwd"],
@@ -1319,14 +1528,103 @@ def phase_train():
                                                in logits.items()}},
                "pairwise_bwd": {"on_causal_step": pairwise_bwd["causal"]},
                "pairwise_fwd": {"on_causal_step": pairwise_fwd}}
-    for name in ("gat_fwd", "gat_bwd", "pairwise_fwd", "pairwise_bwd",
-                 "gat_logits_fwd", "gat_logits_bwd"):
+    for name in ("vq_l2_argmin", "gat_fwd", "gat_bwd", "pairwise_fwd",
+                 "pairwise_bwd", "gat_logits_fwd", "gat_logits_bwd"):
+        symbol = "vq_argmin" if name == "vq_l2_argmin" else name
         ms = sum(ms for key, ms, _ in profiles["causal"]
-                 if f"{name}_kernel" in key)
+                 if f"{symbol}_kernel" in key)
         on_step.setdefault(name, {})["profiled_causal_step_ms"] = ms
         log(f"train causal: {name} {ms:.3f} ms of device time in the "
             f"profiled step")
     return timings, launches, peak, on_step
+
+
+# --- phase 5b: the training slice past 120 latent sites -------------------
+
+# the headline widths with codebooks: 2, as the CT search configs
+# (configs_hyp/ct_mcq_vae_hyp_search_*.yaml) search it: the embedding of
+# 128 over two codebooks of 64, S = 2 * 8 * 8 = 128 sites, 129 GAT nodes
+C2_MODEL_PARAMS = {**MODEL_PARAMS, "codebooks": 2}
+# launches per train step: each quantizer call searches both codebooks
+EXPECTED_C2 = {m: {**e, "vq_l2_argmin": 2 * e["vq_l2_argmin"]}
+               for m, e in EXPECTED_TRAIN.items()}
+
+
+def _gat_fwd_text(m) -> str:
+    return (f"GAT forward xl {m['shape']}, edge density "
+            f"{m['edge_density']:.4f}: max abs err {m['max_abs_err']:.3g}, "
+            f"alpha {m['alpha_err']:.3g}, rerun bit-identical "
+            f"{m['bit_identical']}; kernel on these inputs {m['ms']:.4f} ms, "
+            f"bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
+
+
+def phase_codebooks_2():
+    """A warm and a timed train step of each mode of the full-width
+    ``codebooks: 2`` CT model at B = 16, the launch counters reset just
+    before and read just after; then each mode's calls of every kernel but
+    the VQ search (held at D = 64 in ``_check_vq``) against the plain
+    version on their own inputs and timed there: the pairwise and GAT
+    forwards (out, and the GAT's alpha residual), the per-head logits
+    forward and backward, and the pairwise and GAT backwards against the
+    plain version's autograd (each gradient over its own scale,
+    GRAD_RTOL); and one profiled causal step."""
+    model, state, batch, steps = _train_setup(C2_MODEL_PARAMS)
+    sites = C2_MODEL_PARAMS["codebooks"] * model.nb_latents ** 2
+    if sites != 128:
+        raise AssertionError(f"codebooks_2: {sites} latent sites, not 128")
+    _reset_counts()
+    timings = _timed_steps(f"codebooks_2 (S={sites}) train", steps, state,
+                           batch, 2, EXPECTED_C2)
+    launches = _counts()
+    log(f"launches on the codebooks_2 path: {json.dumps(launches)}")
+    pairwise_fwd, gat_fwd, logits, pairwise_bwd, gat_bwd = {}, {}, {}, {}, {}
+    for mode, step in steps.items():
+        calls = pairwise_fwd[mode] = _pairwise_fwd_on_path(
+            lambda: step(state, batch))
+        for which, m in calls.items():
+            log(f"codebooks_2 {mode}: pairwise forward {which} {m['shape']}: "
+                f"max abs err {m['max_abs_err']:.3g}, rerun bit-identical "
+                f"{m['bit_identical']}; kernel on these inputs "
+                f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+                f"({m['bound_by']})")
+        m = gat_fwd[mode] = _gat_fwd_on_path(lambda: step(state, batch))
+        log(f"codebooks_2 {mode}: {_gat_fwd_text(m)}")
+        m = logits[mode] = _logits_on_path(lambda: step(state, batch))
+        f, g = m["fwd"], m["bwd"]
+        log(f"codebooks_2 {mode}: per-head logits forward {f['shape']}: max "
+            f"abs err {f['max_abs_err']:.3g}, rerun bit-identical "
+            f"{f['bit_identical']}; kernel on these inputs {f['ms']:.4f} ms, "
+            f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}); backward d_e "
+            f"{g['shape']}, {g['live_share']:.4f} of pairs with a gradient: "
+            f"errors {g['errors']}, rerun bit-identical "
+            f"{g['bit_identical']}; kernel on these inputs {g['ms']:.4f} ms, "
+            f"bound {g['bound_ms']:.4f} ms ({g['bound_by']})")
+        calls = pairwise_bwd[mode] = _pairwise_bwd_on_path(
+            lambda: step(state, batch), check=True)
+        for which, m in calls.items():
+            log(f"codebooks_2 {mode}: pairwise backward {which} "
+                f"{m['shape']}, live rows {m['live_rows']:.4f}, pairs "
+                f"{m['live_pairs']:.4f}; kernel on these inputs "
+                f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+                f"({m['bound_by']}); errors {m['errors']}; control (slope "
+                f"1) {m['control_errors']}")
+        m = gat_bwd[mode] = _gat_bwd_on_path(lambda: step(state, batch))
+        log(f"codebooks_2 {mode}: GAT backward xl {m['shape']}, edge "
+            f"density {m['edge_density']:.4f}; errors {m['errors']}, rerun "
+            f"bit-identical {m['bit_identical']}; kernel on these inputs "
+            f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']})")
+    _profile(f"codebooks_2 train step causal B={BATCH}",
+             lambda: steps["causal"](state, batch), gemm_shapes=True)
+    on_step = {"pairwise_fwd": {"codebooks_2": pairwise_fwd},
+               "gat_fwd": {"codebooks_2": gat_fwd},
+               "gat_logits_fwd": {"codebooks_2": {m: v["fwd"] for m, v
+                                                  in logits.items()}},
+               "gat_logits_bwd": {"codebooks_2": {m: v["bwd"] for m, v
+                                                  in logits.items()}},
+               "pairwise_bwd": {"codebooks_2": pairwise_bwd},
+               "gat_bwd": {"codebooks_2": gat_bwd}}
+    return timings, launches, on_step
 
 
 # --- phase 6: the training loop -------------------------------------------
@@ -1543,6 +1841,30 @@ def _build_others(stem: str, sources) -> dict:
     return libs
 
 
+def _builds(stem: str, tree, sources, setup) -> dict:
+    """{"tree": the tree's library, source: its build for each of
+    ``sources``}, each library's entry points typed by ``setup(lib)``."""
+    libs = {"tree": tree, **_build_others(stem, sources)}
+    for lib in libs.values():
+        setup(lib)
+    return libs
+
+
+def _step_calls(module, name: str, params=MODEL_PARAMS, tag: str = ""
+                ) -> dict:
+    """{"<tag><mode>_<n>": args}: the arguments (tensors detached) of the
+    n-th call of ``module.name`` in one train step of each mode of the
+    model of ``params``."""
+    _, state, batch, steps = _train_setup(params)
+    found = {}
+    for mode, step in steps.items():
+        calls = _calls_of(module, name, lambda: step(state, batch))
+        for n, (args, _) in enumerate(calls):
+            found[f"{tag}{mode}_{n}"] = tuple(
+                a.detach() if torch.is_tensor(a) else a for a in args)
+    return found
+
+
 def _in_turns(libs, launch, rounds: int = 3) -> dict:
     """{name: samples}: ``time_ms`` of ``launch(lib)`` for each build,
     ``rounds`` times, the builds in turns (the order reversed every other
@@ -1572,6 +1894,83 @@ def _host_us_in_turns(libs, launch, rounds: int, calls: int = 100) -> dict:
     return samples
 
 
+# rounds of a paired comparison: enough for a gain of ~1% to win most of
+# them against the ~1% spread between calls
+PAIRED_ROUNDS = 11
+
+
+def _paired_times(res, libs, key: str, launch) -> None:
+    """Into ``res[name]`` for each build: over PAIRED_ROUNDS rounds of
+    ``time_ms`` of ``launch(lib)``, the builds in turns, the median
+    (``ms_<key>``), the median ratio of its sample to the tree's sample of
+    the same round (``vs_tree_<key>``: below 1 is faster than the tree),
+    the rounds it was faster and the samples; on the B = 16 dense inputs
+    also the host's microseconds per launch call (``host_us_<key>``)."""
+    samples = _in_turns(libs, launch, PAIRED_ROUNDS)
+    for name in libs:
+        pairs = list(zip(samples[name], samples["tree"]))
+        res[name][f"ms_{key}"] = statistics.median(samples[name])
+        res[name][f"vs_tree_{key}"] = statistics.median(
+            a / b for a, b in pairs)
+        res[name][f"faster_rounds_{key}"] = sum(a < b for a, b in pairs)
+        res[name][f"samples_{key}"] = samples[name]
+    if key == f"dense_{BATCH}":
+        host = _host_us_in_turns(libs, launch, PAIRED_ROUNDS)
+        for name in libs:
+            res[name][f"host_us_{key}"] = statistics.median(host[name])
+
+
+def _compare(stem: str, libs, inputs, launch, agree, describe,
+             plain=lambda args: None, timed=None, occupancy=None,
+             prefix: str = "") -> dict:
+    """Each build of ``libs`` launched raw (``launch(lib, args)``: its
+    outputs, a list) twice on each of ``inputs`` ({key: args}): its
+    outputs against the tree's (``max_diff``, ``bit_identical``), against
+    its own rerun (``rerun_identical``) and against ``want = plain(args)``
+    by ``agree(args, got, want)`` (a dict); then ``_paired_times`` of
+    ``timed`` (else ``launch``). A build that refuses an input (an earlier
+    one past its shared memory) is recorded (``refused``) and left out of
+    that input's rounds. Every key ends in ``_<prefix><input key>``; the
+    builds also get ``occupancy(lib)`` (where the build exports it).
+    Returns {"inputs": {key: describe(args)}, "builds": {name: {...}}}."""
+    res, shapes = {name: {} for name in libs}, {}
+    for key, args in inputs.items():
+        key = prefix + key
+        shapes[key] = describe(args)
+        want = plain(args)
+        outs = {}
+        for name, lib in libs.items():
+            try:
+                outs[name] = (launch(lib, args), launch(lib, args))
+            except RuntimeError as e:
+                res[name][f"refused_{key}"] = str(e)
+        torch.cuda.synchronize()
+        tree = outs["tree"][0]
+        for name, (got, again) in outs.items():
+            r = res[name]
+            r[f"max_diff_{key}"] = max(float((g - w).abs().max())
+                                       for g, w in zip(got, tree))
+            r[f"bit_identical_{key}"] = all(
+                torch.equal(g, w) for g, w in zip(got, tree))
+            r[f"rerun_identical_{key}"] = all(
+                torch.equal(g, h) for g, h in zip(got, again))
+            r.update({f"{k}_{key}": v
+                      for k, v in agree(args, got, want).items()})
+        del want, outs, tree
+        torch.cuda.empty_cache()
+        _paired_times(res, {n: lib for n, lib in libs.items()
+                            if f"refused_{key}" not in res[n]}, key,
+                      lambda lib: (timed or launch)(lib, args))
+        log(f"{stem} inputs {key}: {json.dumps(shapes[key])}")
+    for name, lib in libs.items():
+        try:
+            res[name].update(occupancy(lib) if occupancy else {})
+        except AttributeError:
+            pass
+        log(f"{stem} {name}: {json.dumps(res[name])}")
+    return {"inputs": shapes, "builds": res}
+
+
 def _gat_fwd_raw(lib, args, alpha=None) -> torch.Tensor:
     """One raw launch of ``gat_fwd`` from ``lib`` (no wrapper, no launch
     count); writes ``alpha`` when given."""
@@ -1590,54 +1989,134 @@ def _gat_fwd_raw(lib, args, alpha=None) -> torch.Tensor:
     return out
 
 
+def _gat_fwd_train_raw(lib, args) -> list:
+    """One raw launch of ``gat_fwd`` that writes the alpha residual, as
+    the training forward does: [out, alpha]."""
+    xl, xr = args[:2]
+    B, S, H = xl.shape[:3]
+    alpha = torch.empty((B, H, xr.shape[1], S), device="cuda")
+    return [_gat_fwd_raw(lib, args, alpha), alpha]
+
+
+def _gat_occupancy(symbol: str, warps, sizes=(65, 129)):
+    """``occupancy`` of ``_compare`` for a GAT kernel: what ``symbol``
+    (``gat_fwd_blocks_per_sm`` or ``gat_bwd_blocks_per_sm``) gives at S =
+    T = n, F = 100 for each of ``sizes`` (None where a build's layout
+    does not fit)."""
+    import ctypes
+    from ctvae_torch.ops import gat_flash as gf
+
+    def occupancy(lib):
+        fn = getattr(lib, symbol)
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        res = {}
+        for n in sizes:
+            try:
+                res[f"occupancy_{n}"] = gf._occupancy(fn, n, n, 100,
+                                                      warps(n))
+            except RuntimeError:
+                res[f"occupancy_{n}"] = None
+        return res
+    return occupancy
+
+
 def compare_gat_fwd(sources) -> dict:
     """The tree's ``gat_fwd`` against the ``gat_fwd`` of other ``gat.cu``
-    files, launched raw on the smoke's inputs at A*B = 192 and B = 16:
-    each build's out and alpha against the tree's (max difference, bit for
-    bit), its registers, spill bytes and blocks per SM (where it exports
-    ``gat_fwd_blocks_per_sm``), and the median over three rounds of
-    ``time_ms`` of one serving launch, the builds timed in turns."""
+    files (``_compare``), launched raw with the alpha residual on the
+    check's inputs at A*B = 192 and B = 16 and on the call of each train
+    mode's step of the headline model and of the ``codebooks: 2`` model
+    (S = T = 129), captured: out and alpha against the plain version's
+    (``_gat_fwd_plain``), the rounds timing the serving launch (no
+    alpha)."""
     import ctypes
     from ctvae_torch.ops import gat_flash as gf
     from ctvae_torch.ops.common import warps_for
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    libs = {"tree": gf._lib(), **_build_others("gat", sources)}
-    for lib in libs.values():
+
+    def setup(lib):
         lib.gat_fwd.argtypes = [p] * 8 + [i] * 6 + [f, p]
         lib.gat_fwd.restype = ctypes.c_int
-    res = {name: {} for name in libs}
+    libs = _builds("gat", gf._lib(), sources, setup)
     gen = torch.Generator("cuda").manual_seed(SEED)
+    inputs = {f"dense_{B}": _gat_inputs(gen, B)
+              for B in (MODEL_PARAMS["action_dim"] * BATCH, BATCH)}
+    for tag, params in (("", MODEL_PARAMS), ("c2_", C2_MODEL_PARAMS)):
+        inputs.update(_step_calls(gf, "flash_gat_cuda", params, tag))
+
+    def agree(args, got, want):
+        return {"err": float((got[0] - want[0]).abs().max()),
+                "alpha_err": float((got[1] - want[1]).abs().max())}
+
+    def plain(args):
+        with torch.no_grad():
+            return _gat_fwd_plain(args)
+    return _compare(
+        "gat_fwd", libs, inputs, _gat_fwd_train_raw, agree,
+        lambda a: {"xl": list(a[0].shape),
+                   "edge_density": float(a[3].float().mean()),
+                   "bound_ms": _gat_fwd_bound(a)[0]},
+        plain=plain, timed=lambda lib, a: [_gat_fwd_raw(lib, a)],
+        occupancy=_gat_occupancy("gat_fwd_blocks_per_sm", warps_for))
+
+
+def _gat_bwd_raw(lib, args) -> list:
+    """One raw launch of ``gat_bwd`` from ``lib`` (no wrapper, no launch
+    count) on ``flash_gat_bwd_cuda``'s arguments, with the sums its wrapper
+    takes: dxl, dxr, dadj [B,S,T], dwe, datt."""
+    from ctvae_torch.ops import _build
+    from ctvae_torch.ops.gat_flash import _bwd_warps
+    xl, xr, adj, mask, we, att, alpha, dout, ns = args
+    B, S, H, F = xl.shape
+    T = xr.shape[1]
+    dxl, dxr = torch.empty_like(xl), torch.empty_like(xr)
+    dadj_h = xl.new_empty((B, H, T, S))
+    dwe_b, datt_b = xl.new_empty((B, H, F)), xl.new_empty((B, H, F))
+    _build.check(lib.gat_bwd(
+        *(t.data_ptr() for t in (xl, xr, adj, mask, we, att, alpha, dout,
+                                 dxl, dxr, dadj_h, dwe_b, datt_b)),
+        B, S, T, H, F, _bwd_warps(T), ns,
+        torch.cuda.current_stream().cuda_stream), "gat_bwd")
+    return [dxl, dxr, dadj_h.sum(1).transpose(1, 2), dwe_b.sum(0),
+            datt_b.sum(0)]
+
+
+def compare_gat_bwd(sources) -> dict:
+    """The tree's ``gat_bwd`` against the ``gat_bwd`` of other ``gat.cu``
+    files (``_compare``), launched raw with its wrapper's sums on the
+    check's inputs at A*B = 192 and B = 16 and on the call of each train
+    mode's step of the headline model and of the ``codebooks: 2`` model
+    (S = T = 129), captured: the gradients against the plain version's
+    from the same alpha (``_gat_plain_grads``; the worst error over each
+    gradient's own scale); occupancy at 65 and 129."""
+    import ctypes
+    from ctvae_torch.ops import gat_flash as gf
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+    def setup(lib):
+        lib.gat_bwd.argtypes = [p] * 13 + [i] * 6 + [f, p]
+        lib.gat_bwd.restype = ctypes.c_int
+    libs = _builds("gat", gf._lib(), sources, setup)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    inputs = {}
     for B in (MODEL_PARAMS["action_dim"] * BATCH, BATCH):
-        args = _gat_inputs(gen, B)
-        xl, xr = args[:2]
-        S, (T, H, F) = xl.shape[1], xr.shape[1:]
-        outs = {}
-        for name, lib in libs.items():
-            alpha = torch.empty((B, H, T, S), device="cuda")
-            outs[name] = (_gat_fwd_raw(lib, args, alpha), alpha)
-        torch.cuda.synchronize()
-        want = outs["tree"]
-        for name, got in outs.items():
-            res[name][f"max_diff_{B}"] = max(
-                float((g - w).abs().max()) for g, w in zip(got, want))
-            res[name][f"bit_identical_{B}"] = all(
-                torch.equal(g, w) for g, w in zip(got, want))
-        samples = _in_turns(libs, lambda lib: _gat_fwd_raw(lib, args))
-        for name in libs:
-            res[name][f"ms_{B}"] = statistics.median(samples[name])
-            res[name][f"samples_{B}"] = samples[name]
-        del args, outs, want
-        torch.cuda.empty_cache()
-    for name, lib in libs.items():
-        try:
-            fn = lib.gat_fwd_blocks_per_sm
-        except AttributeError:
-            continue
-        fn.argtypes, fn.restype = [i] * 4 + [p, p], ctypes.c_int
-        res[name].update(gf._occupancy(fn, T, T, F, warps_for(T)))
-    for name, r in res.items():
-        log(f"gat_fwd {name}: {json.dumps(r)}")
-    return res
+        xl, xr, adj, mask, we, att, ns = _gat_inputs(gen, B)
+        dout = torch.randn(B, *xr.shape[1:], generator=gen, device="cuda")
+        _, alpha = gf.flash_gat_cuda(xl, xr, adj, mask, we, att, ns,
+                                     keep_alpha=True)
+        inputs[f"dense_{B}"] = (xl, xr, adj, mask, we, att, alpha, dout, ns)
+    for tag, params in (("", MODEL_PARAMS), ("c2_", C2_MODEL_PARAMS)):
+        inputs.update(_step_calls(gf, "flash_gat_bwd_cuda", params, tag))
+    names = ("dxl", "dxr", "dadj", "dwe", "datt")
+    return _compare(
+        "gat_bwd", libs, inputs, _gat_bwd_raw,
+        lambda a, got, want: {"err": _grad_errors(names, got, want,
+                                                  own_scale=True)[1]},
+        lambda a: {"xl": list(a[0].shape),
+                   "edge_density": float(a[3].float().mean()),
+                   "bound_ms": _gat_bwd_bound(a[0], a[1], a[3])[0]},
+        plain=_gat_plain_grads,
+        occupancy=_gat_occupancy("gat_bwd_blocks_per_sm", gf._bwd_warps))
 
 
 def _pairwise_bwd_raw(lib, args) -> list:
@@ -1656,94 +2135,42 @@ def _pairwise_bwd_raw(lib, args) -> list:
     return grads
 
 
-def _paired_times(res, libs, key: str, launch) -> None:
-    """Into ``res[name]`` for each build: over PAIRED_ROUNDS rounds of
-    ``time_ms`` of ``launch(lib)``, the builds in turns, the median
-    (``ms_<key>``), the median ratio to the tree's sample of the same round
-    (``vs_tree_<key>``), the rounds it was faster and the samples; on the
-    B = 16 dense inputs also the host's microseconds per launch call
-    (``host_us_<key>``)."""
-    samples = _in_turns(libs, launch, PAIRED_ROUNDS)
-    for name in libs:
-        pairs = list(zip(samples[name], samples["tree"]))
-        res[name][f"ms_{key}"] = statistics.median(samples[name])
-        res[name][f"vs_tree_{key}"] = statistics.median(
-            a / b for a, b in pairs)
-        res[name][f"faster_rounds_{key}"] = sum(a < b for a, b in pairs)
-        res[name][f"samples_{key}"] = samples[name]
-    if key == f"dense_{BATCH}":
-        host = _host_us_in_turns(libs, launch, PAIRED_ROUNDS)
-        for name in libs:
-            res[name][f"host_us_{key}"] = statistics.median(host[name])
-
-
-# rounds of --pairwise-bwd-against: enough for a gain of ~1% to win most
-# of them against the ~1% spread between calls
-PAIRED_ROUNDS = 11
-
-
 def compare_pairwise_bwd(sources) -> dict:
     """The tree's ``pairwise_bwd`` against the ``pairwise_bwd`` of other
-    ``pairwise.cu`` files, launched raw on the check's dense inputs at A*B
-    = 192 (per sample) and B = 16 (shared) and on both calls of each train
-    mode's own step (captured): each build's gradients against the tree's
-    (max difference, bit for bit) and against the plain version's autograd
-    (worst error over each gradient's own scale), its registers, spill
-    bytes and blocks per SM (where it exports
-    ``pairwise_bwd_blocks_per_sm``), and over PAIRED_ROUNDS rounds of
-    ``time_ms`` of one launch, the builds timed in turns: the median, and
-    against the tree's sample of the same round the median ratio and the
-    number of rounds it was faster; and at B = 16 the host's microseconds
-    per launch call (median over the rounds, ``host_us_dense_16``)."""
+    ``pairwise.cu`` files (``_compare``), launched raw on the check's
+    dense inputs at A*B = 192 (per sample) and B = 16 (shared) and on both
+    calls of each train mode's step of the headline model and of the
+    ``codebooks: 2`` model (S = T = 128), captured: the gradients against
+    the plain version's autograd (the worst error over each gradient's own
+    scale); the live shares of dz per input (the kernel's time depends on
+    them); and at B = 16 the host's microseconds per launch call."""
     import ctypes
     from ctvae_torch.ops import pairwise_flash as pf
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    libs = {"tree": pf._lib(), **_build_others("pairwise", sources)}
-    for lib in libs.values():
+
+    def setup(lib):
         lib.pairwise_bwd.argtypes = [p] * 11 + [i] * 4 + [i64, i64,
                                                           ctypes.c_float, p]
         lib.pairwise_bwd.restype = ctypes.c_int
+    libs = _builds("pairwise", pf._lib(), sources, setup)
     gen = torch.Generator("cuda").manual_seed(SEED)
     inputs = {f"dense_{B}": _pairwise_bwd_inputs(gen, B, B > BATCH)[0]
               for B in (MODEL_PARAMS["action_dim"] * BATCH, BATCH)}
-    _, state, batch, steps = _train_setup()
-    for mode, step in steps.items():
-        for args, _ in _calls_of(pf, "flash_pairwise_bwd_cuda",
-                                 lambda: step(state, batch)):
-            which = "no_inter" if args[2].dim() == 1 else "inter"
-            inputs[f"{mode}_{which}"] = args
-    del state, steps
-    res = {name: {} for name in libs}
-    shares = {}
-    for key, args in inputs.items():
-        live = shares[key] = _pairwise_live(args)
-        want = _pairwise_plain_grads(args)
-        outs = {name: _pairwise_bwd_raw(lib, args)
-                for name, lib in libs.items()}
-        torch.cuda.synchronize()
-        for name, got in outs.items():
-            r = res[name]
-            r[f"max_diff_{key}"] = max(float((g - w).abs().max()) for g, w
-                                       in zip(got, outs["tree"]))
-            r[f"bit_identical_{key}"] = all(
-                torch.equal(g, w) for g, w in zip(got, outs["tree"]))
-            r[f"err_{key}"] = _grad_errors(
-                ("dxl", "dxr", "dw2", "db1", "db2"),
-                _pairwise_folded(got, args), want, own_scale=True)[1]
-        del want, outs
-        torch.cuda.empty_cache()
-        _paired_times(res, libs, key,
-                      lambda lib: _pairwise_bwd_raw(lib, args))
-        log(f"pairwise_bwd inputs {key}: {json.dumps(live)}; bound "
-            f"{_pairwise_bwd_bound(args, live['pairs'])[0]:.4f} ms")
-    for name, lib in libs.items():
-        try:
-            res[name].update(pf.bwd_occupancy(64, 64, lib))
-        except AttributeError:
-            pass
-    for name, r in res.items():
-        log(f"pairwise_bwd {name}: {json.dumps(r)}")
-    return {"inputs": shares, "builds": res}
+    for tag, params in (("", MODEL_PARAMS), ("c2_", C2_MODEL_PARAMS)):
+        inputs.update(_step_calls(pf, "flash_pairwise_bwd_cuda", params,
+                                  tag))
+    names = ("dxl", "dxr", "dw2", "db1", "db2")
+
+    def describe(args):
+        live = _pairwise_live(args)
+        return {**live, "bound_ms": _pairwise_bwd_bound(args,
+                                                        live["pairs"])[0]}
+    return _compare(
+        "pairwise_bwd", libs, inputs, _pairwise_bwd_raw,
+        lambda a, got, want: {"err": _grad_errors(
+            names, _pairwise_folded(got, a), want, own_scale=True)[1]},
+        describe, plain=_pairwise_plain_grads,
+        occupancy=lambda lib: pf.bwd_occupancy(64, 64, lib))
 
 
 def _pairwise_fwd_raw(lib, args) -> torch.Tensor:
@@ -1764,67 +2191,41 @@ def _pairwise_fwd_raw(lib, args) -> torch.Tensor:
 
 def compare_pairwise_fwd(sources) -> dict:
     """The tree's ``pairwise_fwd`` against the ``pairwise_fwd`` of other
-    ``pairwise.cu`` files, launched raw on the check's inputs at A*B = 192
-    (per sample) and B = 16 (shared) and on both calls of each train
-    mode's own step (captured): each build's output against the tree's
-    (max difference, bit for bit), against the plain version (max abs
-    error) and against its own rerun (bit for bit), its registers, spill
-    bytes and blocks per SM (where it exports
-    ``pairwise_fwd_blocks_per_sm``), and over PAIRED_ROUNDS rounds of
-    ``time_ms`` of one launch, the builds timed in turns: the median, and
-    against the tree's sample of the same round the median ratio and the
-    number of rounds it was faster; and at B = 16 the host's microseconds
-    per launch call (median over the rounds, ``host_us_dense_16``)."""
+    ``pairwise.cu`` files (``_compare``), launched raw on the check's
+    inputs at A*B = 192 (per sample) and B = 16 (shared) and on both calls
+    of each train mode's step of the headline model and of the
+    ``codebooks: 2`` model (S = T = 128), captured: the output against the
+    plain version's (max abs error); and at B = 16 the host's microseconds
+    per launch call."""
     import ctypes
     from ctvae_torch.ops import pairwise_flash as pf
-    from ctvae_torch.ops.pairwise import fused_pairwise_scores
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    libs = {"tree": pf._lib(), **_build_others("pairwise", sources)}
-    for lib in libs.values():
+
+    def setup(lib):
         lib.pairwise_fwd.argtypes = [p] * 6 + [i] * 4 + [i64] * 3 + [
             ctypes.c_float, p]
         lib.pairwise_fwd.restype = ctypes.c_int
+    libs = _builds("pairwise", pf._lib(), sources, setup)
     gen = torch.Generator("cuda").manual_seed(SEED)
     A = MODEL_PARAMS["action_dim"]
     inputs = {f"dense_{B}": _pairwise_fwd_inputs(gen, B, B > BATCH)
               for B in (A * BATCH, BATCH)}
-    _, state, batch, steps = _train_setup()
-    for mode, step in steps.items():
-        for args, _ in _calls_of(pf, "flash_pairwise_cuda",
-                                 lambda: step(state, batch)):
-            which = "no_inter" if args[2].dim() == 1 else "inter"
-            inputs[f"{mode}_{which}"] = tuple(
-                a.detach() if torch.is_tensor(a) else a for a in args)
-    del state, steps
-    res = {name: {} for name in libs}
-    for key, args in inputs.items():
+    for tag, params in (("", MODEL_PARAMS), ("c2_", C2_MODEL_PARAMS)):
+        inputs.update(_step_calls(pf, "flash_pairwise_cuda", params, tag))
+
+    def plain(args):
         with torch.no_grad():
-            want = fused_pairwise_scores(*args)
-        outs = {name: (_pairwise_fwd_raw(lib, args),
-                       _pairwise_fwd_raw(lib, args))
-                for name, lib in libs.items()}
-        torch.cuda.synchronize()
-        for name, (got, again) in outs.items():
-            r = res[name]
-            r[f"max_diff_{key}"] = float((got - outs["tree"][0]).abs().max())
-            r[f"bit_identical_{key}"] = torch.equal(got, outs["tree"][0])
-            r[f"rerun_identical_{key}"] = torch.equal(got, again)
-            r[f"err_{key}"] = float((got - want).abs().max())
-        del want, outs
-        torch.cuda.empty_cache()
-        _paired_times(res, libs, key,
-                      lambda lib: _pairwise_fwd_raw(lib, args))
-        log(f"pairwise_fwd inputs {key}: shape {list(args[0].shape)} x "
-            f"{args[1].shape[1]}, per-sample {args[2].dim() == 2}; bound "
-            f"{_pairwise_fwd_bound(args)[0]:.4f} ms")
-    for name, lib in libs.items():
-        try:
-            res[name].update(pf.fwd_occupancy(A * BATCH, 64, 64, 800, lib))
-        except AttributeError:
-            pass
-    for name, r in res.items():
-        log(f"pairwise_fwd {name}: {json.dumps(r)}")
-    return res
+            return _pairwise_fwd_plain(args)
+    return _compare(
+        "pairwise_fwd", libs, inputs,
+        lambda lib, a: [_pairwise_fwd_raw(lib, a)],
+        lambda a, got, want: {"err": float((got[0] - want).abs().max())},
+        lambda a: {"shape": [*a[0].shape[:2], a[1].shape[1],
+                             a[0].shape[2]],
+                   "per_sample": a[2].dim() == 2,
+                   "bound_ms": _pairwise_fwd_bound(a)[0]},
+        plain=plain,
+        occupancy=lambda lib: pf.fwd_occupancy(A * BATCH, 64, 64, 800, lib))
 
 
 def _logits_lib(lib):
@@ -1895,11 +2296,13 @@ def _logits_bwd_raw(lib, args, d_e, ns, fold: bool = True):
 
 
 def _logits_compare_inputs(gen) -> dict:
-    """{key: (args, d_e, ns)}: the per-head logits calls of each train
-    mode's own step (captured, forward args with the backward's d_e), the
-    check's inputs at A*B = 192 (K = 2) and at B = 16 with K = 1 and K = 2
-    (F = 64, per-sample heads as ``heads_call`` gives them), and the A*B =
-    192 inputs with an all-zero d_e."""
+    """{key: (args, d_e, ns)}: the check's inputs at A*B = 192 (K = 2) and
+    at B = 16 with K = 1 and K = 2 (F = 64, per-sample heads as
+    ``heads_call`` gives them), the A*B = 192 inputs with an all-zero d_e,
+    and the per-head logits calls of each train mode's step of the
+    headline model and of the ``codebooks: 2`` model (S = T = 129),
+    captured (the backward's arguments, which are the forward's with
+    d_e)."""
     from ctvae_torch.ops import gat_logits as gl
     A = MODEL_PARAMS["action_dim"]
     inputs = {}
@@ -1908,95 +2311,127 @@ def _logits_compare_inputs(gen) -> dict:
         inputs[f"check_{B}_k{K}"] = (args, d_e, 0.2)
     args, d_e, ns = inputs[f"check_{A * BATCH}_k2"]
     inputs["zero_de"] = (args, torch.zeros_like(d_e), ns)
-    _, state, batch, steps = _train_setup()
-    for mode, step in steps.items():
-        (*args, d_e, ns), _ = _calls_of(gl, "fused_gat_logits_bwd_cuda",
-                                        lambda: step(state, batch))[0]
-        inputs[f"{mode}_step"] = (tuple(a.detach() for a in args), d_e, ns)
-    del state, steps
+    for tag, params in (("", MODEL_PARAMS), ("c2_", C2_MODEL_PARAMS)):
+        for key, (*args, d_e, ns) in _step_calls(
+                gl, "fused_gat_logits_bwd_cuda", params, tag).items():
+            inputs[key] = (tuple(args), d_e, ns)
     return inputs
+
+
+def _logits_plain_grads(inputs) -> list:
+    """The plain version's autograd of the logits against d_e."""
+    from ctvae_torch.ops.gat import gat_logits
+    args, d_e, ns = inputs
+    leaves = [a.clone().requires_grad_() for a in args]
+    return torch.autograd.grad(gat_logits(*leaves, ns), leaves, d_e)
 
 
 def compare_gat_logits(sources) -> dict:
     """The tree's ``gat_logits_fwd`` / ``gat_logits_bwd`` against those of
-    other ``gat_logits.cu`` files, launched raw on ``_logits_compare_inputs``:
-    each build's logits and gradients against the tree's (max difference,
-    bit for bit), against the plain version and its autograd (the worst
-    error over max(1, scale), as the smoke's LOGITS_RTOL takes it) and
-    against its own rerun (bit for bit); its registers, spill bytes and
-    blocks per SM (where it exports them); and over PAIRED_ROUNDS rounds of
-    ``time_ms``, the builds in turns: the median, the median ratio to the
-    tree's sample of the same round and the rounds it was faster, of the
-    forward (``fwd``), of the backward with the sums its wrapper takes
-    (``bwd``) and of the backward kernel alone (``bwd_kernel``)."""
+    other ``gat_logits.cu`` files (``_compare``, keys ``fwd_<input>`` and
+    ``bwd_<input>``), launched raw on ``_logits_compare_inputs``: the
+    logits and the gradients (with the sums the backward's wrapper takes)
+    against the plain version and its autograd (the worst error over
+    max(1, scale), as the smoke's LOGITS_RTOL takes it); the rounds also
+    time the backward kernel alone (``bwd_kernel_<input>``); registers,
+    spill bytes and blocks per SM at the headline's A*B = 192 and at the
+    ``codebooks: 2`` causal step's shape (where a build exports them)."""
     from ctvae_torch.ops import gat_logits as gl
     from ctvae_torch.ops.gat import gat_logits
-    libs = {"tree": gl._lib(), **_build_others("gat_logits", sources)}
-    for lib in libs.values():
-        _logits_lib(lib)
+    libs = _builds("gat_logits", gl._lib(), sources, _logits_lib)
     gen = torch.Generator("cuda").manual_seed(SEED)
     inputs = _logits_compare_inputs(gen)
-    res = {name: {} for name in libs}
-    shapes = {}
     names = ("dxl", "dxr", "dadj", "dwe", "datt")
-    for key, (args, d_e, ns) in inputs.items():
-        xl = args[0]
-        live = int((d_e != 0).sum())
-        shapes[key] = {"shape": list(d_e.shape), "live_share":
-                       live / d_e.numel()}
-        want = gat_logits(*args, ns)
-        leaves = [a.clone().requires_grad_() for a in args]
-        want_g = torch.autograd.grad(gat_logits(*leaves, ns), leaves, d_e)
-        del leaves
-        outs = {name: (_logits_fwd_raw(lib, args, ns),
-                       _logits_fwd_raw(lib, args, ns),
-                       _logits_bwd_raw(lib, args, d_e, ns),
-                       _logits_bwd_raw(lib, args, d_e, ns))
-                for name, lib in libs.items()}
-        torch.cuda.synchronize()
-        tree = outs["tree"]
-        for name, (e, e2, g, g2) in outs.items():
-            r = res[name]
-            r[f"fwd_err_{key}"] = float((e - want).abs().max()) / max(
-                1.0, float(want.abs().max()))
-            r[f"fwd_diff_{key}"] = float((e - tree[0]).abs().max())
-            r[f"fwd_rerun_identical_{key}"] = torch.equal(e, e2)
-            r[f"bwd_err_{key}"] = _grad_errors(names, g, want_g)[1]
-            r[f"bwd_diff_{key}"] = max(float((a - b).abs().max())
-                                       for a, b in zip(g, tree[2]))
-            r[f"bwd_rerun_identical_{key}"] = all(
-                torch.equal(a, b) for a, b in zip(g, g2))
-        del outs, tree, want, want_g
-        torch.cuda.empty_cache()
-        if key != "zero_de":
-            _paired_times(res, libs, f"fwd_{key}",
-                          lambda lib: _logits_fwd_raw(lib, args, ns))
-        _paired_times(res, libs, f"bwd_{key}",
-                      lambda lib: _logits_bwd_raw(lib, args, d_e, ns))
-        _paired_times(res, libs, f"bwd_kernel_{key}",
-                      lambda lib: _logits_bwd_raw(lib, args, d_e, ns,
-                                                  fold=False))
-        B, S, K, F = xl.shape
-        T = args[1].shape[1]
-        shapes[key]["bound_ms_fwd"] = _logits_fwd_bound(args)[0]
-        shapes[key]["bound_ms_bwd"] = _logits_bwd_bound(args, d_e)[0]
-        log(f"gat_logits inputs {key}: {json.dumps(shapes[key])}")
-        for name, lib in libs.items():
-            for which, occ in (
-                    ("fwd", lambda: gl.fwd_occupancy(B, S, T, K, F, lib)),
-                    ("bwd", lambda: gl.bwd_occupancy(B, S, T, F, lib))):
-                try:
-                    res[name][f"{which}_occupancy_{key}"] = occ()
-                except AttributeError:
-                    continue
-    for name, r in res.items():
-        log(f"gat_logits {name}: {json.dumps(r)}")
-    return {"inputs": shapes, "builds": res}
+
+    def rel(got, want):
+        return float((got - want).abs().max()) / max(
+            1.0, float(want.abs().max()))
+
+    def occupancy(lib):
+        res = {}
+        for key in (f"check_{MODEL_PARAMS['action_dim'] * BATCH}_k2",
+                    "c2_causal_0"):
+            B, S, K, F = inputs[key][0][0].shape
+            T = inputs[key][0][1].shape[1]
+            res[f"fwd_occupancy_{key}"] = gl.fwd_occupancy(B, S, T, K, F, lib)
+            res[f"bwd_occupancy_{key}"] = gl.bwd_occupancy(B, S, T, F, lib)
+        return res
+    fwd = _compare(
+        "gat_logits", libs,
+        {k: v for k, v in inputs.items() if k != "zero_de"},
+        lambda lib, a: [_logits_fwd_raw(lib, a[0], a[2])],
+        lambda a, got, want: {"err": rel(got[0], want)},
+        lambda a: {"shape": list(a[1].shape),
+                   "bound_ms": _logits_fwd_bound(a[0])[0]},
+        plain=lambda a: gat_logits(*a[0], a[2]), prefix="fwd_")
+    res = _compare(
+        "gat_logits", libs, inputs,
+        lambda lib, a: list(_logits_bwd_raw(lib, *a)),
+        lambda a, got, want: {"err": _grad_errors(names, got, want)[1]},
+        lambda a: {"shape": list(a[1].shape),
+                   "live_share": int((a[1] != 0).sum()) / a[1].numel(),
+                   "bound_ms": _logits_bwd_bound(a[0], a[1])[0]},
+        plain=_logits_plain_grads, occupancy=occupancy, prefix="bwd_")
+    for key, a in inputs.items():
+        _paired_times(res["builds"], libs, f"bwd_kernel_{key}",
+                      lambda lib: _logits_bwd_raw(lib, *a, fold=False))
+    for name, r in res["builds"].items():
+        r.update(fwd["builds"][name])
+    res["inputs"].update(fwd["inputs"])
+    return res
+
+
+def _vq_raw(lib, x, cb) -> torch.Tensor:
+    """One raw launch of ``vq_argmin`` from ``lib`` (no wrapper, no launch
+    count)."""
+    from ctvae_torch.ops import _build
+    out = torch.empty((x.shape[0],), dtype=torch.int64, device="cuda")
+    _build.check(lib.vq_argmin(x.data_ptr(), cb.data_ptr(), out.data_ptr(),
+                               x.shape[0], cb.shape[0], x.shape[1],
+                               torch.cuda.current_stream().cuda_stream),
+                 "vq_argmin")
+    return out
+
+
+def compare_vq(sources) -> dict:
+    """The tree's ``vq_argmin`` against the ``vq_argmin`` of other ``vq.cu``
+    files (``_compare``), launched raw on the check's inputs at N = 1024,
+    K = 64 and each D of VQ_DIMS, and on the calls of each train mode's
+    step of the headline model (D = 128) and of the ``codebooks: 2`` model
+    (D = 64), captured: the indices against the plain version's (those
+    that differ, of them near-ties); occupancy at each D of VQ_DIMS."""
+    import ctypes
+    from ctvae_torch.ops import vq
+    p, i = ctypes.c_void_p, ctypes.c_int
+
+    def setup(lib):
+        lib.vq_argmin.argtypes = [p, p, p, i, i, i, p]
+        lib.vq_argmin.restype = ctypes.c_int
+    libs = _builds("vq", vq._lib(), sources, setup)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    N, K = BATCH * 64, MODEL_PARAMS["num_embeddings"]
+    inputs = {}
+    for D in VQ_DIMS:
+        inputs[f"check_d{D}"] = (
+            torch.randn(N, D, generator=gen, device="cuda") * 0.3,
+            (torch.rand(K, D, generator=gen, device="cuda") * 2 - 1) / K)
+    for tag, params in (("", MODEL_PARAMS), ("c2_", C2_MODEL_PARAMS)):
+        inputs.update(_step_calls(vq, "l2_argmin_cuda", params, tag))
+
+    def agree(args, got, want):
+        differ, near_ties, _ = _vq_agreement(*args, got[0])
+        return {"differ": differ, "near_ties": near_ties}
+    return _compare(
+        "vq", libs, inputs, lambda lib, a: [_vq_raw(lib, *a)], agree,
+        lambda a: {"x": list(a[0].shape), "codebook": list(a[1].shape),
+                   "bound_ms": _vq_bound(*a)[0]},
+        occupancy=lambda lib: {f"occupancy_d{D}": vq.occupancy(K, D, lib)
+                               for D in VQ_DIMS})
 
 
 # keys of a check's row that the kernels line carries beside the contract's
 EXTRA_KEYS = ("ms_at_16", "bound_ms_at_16", "plain_ms_at_16", "alpha_ms",
-              "occupancy")
+              "occupancy", "by_d")
 
 KERNEL_META = {
     "vq_l2_argmin": ("ctvae_torch/csrc/vq.cu", "ctvae_tpu/ops/vq.py:49"),
@@ -2021,6 +2456,10 @@ def main(argv) -> int:
         help="only build the kernels and compare the tree's gat_fwd with "
              "the gat_fwd of these gat.cu files (compare_gat_fwd)")
     parser.add_argument(
+        "--gat-bwd-against", nargs="+", metavar="GAT_CU",
+        help="only build the kernels and compare the tree's gat_bwd with "
+             "the gat_bwd of these gat.cu files (compare_gat_bwd)")
+    parser.add_argument(
         "--pairwise-bwd-against", nargs="+", metavar="PAIRWISE_CU",
         help="only build the kernels and compare the tree's pairwise_bwd "
              "with the pairwise_bwd of these pairwise.cu files "
@@ -2030,6 +2469,10 @@ def main(argv) -> int:
         help="only build the kernels and compare the tree's pairwise_fwd "
              "with the pairwise_fwd of these pairwise.cu files "
              "(compare_pairwise_fwd)")
+    parser.add_argument(
+        "--vq-against", nargs="+", metavar="VQ_CU",
+        help="only build the kernels and compare the tree's vq_argmin with "
+             "the vq_argmin of these vq.cu files (compare_vq)")
     parser.add_argument(
         "--gat-logits-against", nargs="+", metavar="GAT_LOGITS_CU",
         help="only build the kernels and compare the tree's gat_logits_fwd "
@@ -2055,6 +2498,13 @@ def main(argv) -> int:
         log(json.dumps({"gat_logits_against": compare_gat_logits(
             opts.gat_logits_against)}))
         return 0
+    if opts.gat_bwd_against:
+        log(json.dumps({"gat_bwd_against": compare_gat_bwd(
+            opts.gat_bwd_against)}))
+        return 0
+    if opts.vq_against:
+        log(json.dumps({"vq_against": compare_vq(opts.vq_against)}))
+        return 0
     if opts.pairwise_bwd_against:
         log(json.dumps({"pairwise_bwd_against": compare_pairwise_bwd(
             opts.pairwise_bwd_against)}))
@@ -2065,6 +2515,7 @@ def main(argv) -> int:
     phase_profile(model)
     del model
     train_ms, train_launches, peak, on_step = phase_train()
+    c2_ms, c2_launches, c2_on_step = phase_codebooks_2()
     phase_loop()
     two_stage_launches = phase_two_stage()
     kernels = []
@@ -2072,6 +2523,7 @@ def main(argv) -> int:
         source, replaces = KERNEL_META[r["name"]]
         by_path = {"serve": serve_launches[r["name"]],
                    "train": train_launches[r["name"]],
+                   "codebooks_2": c2_launches[r["name"]],
                    "two_stage": two_stage_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
@@ -2085,15 +2537,16 @@ def main(argv) -> int:
         # gives the kernel
         kernels[-1].update({k: r[k] for k in EXTRA_KEYS if k in r})
         kernels[-1].update(on_step.get(r["name"], {}))
-    # every kernel runs on the training and two-stage paths, the forward
-    # ones on the serving path too
+        kernels[-1].update(c2_on_step.get(r["name"], {}))
+    # every kernel runs on the training, codebooks: 2 and two-stage paths,
+    # the forward ones on the serving path too
     if any(k["launches_by_path"][p] == 0 for k in kernels
-           for p in ("train", "two_stage")) or any(
+           for p in ("train", "codebooks_2", "two_stage")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
             if EXPECTED["reconstruct"][k["name"]]):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"serve_ms": timings, "train_ms": train_ms,
-                    "train_peak_gib": peak}))
+                    "train_peak_gib": peak, "codebooks_2_train_ms": c2_ms}))
     log(f"chip_smoke wall time {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

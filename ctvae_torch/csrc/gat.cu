@@ -69,7 +69,13 @@
 //   dxl.
 // Launch bounds of 13 warps and 2 blocks per SM cap a thread at 72
 // registers (no spills), so two blocks share an SM and one's loads and
-// barriers overlap the other's walks. Each output element is summed by one
+// barriers overlap the other's walks. Where the tiles with the per-warp
+// scratch rows beside them do not fit a block (above S = T = 124 at F =
+// 100), a second instance of the kernel lays the scratch rows over the
+// dout tile, which only the dalpha product reads, and phase 2 reads each
+// dout row from device memory instead (the same sums in the same order,
+// so the same results bit for bit): 222.9 KB at S = T = 129, F = 100, and
+// up to S = T = 133 there. Each output element is summed by one
 // thread in a fixed order (no atomics), so two runs agree bit for bit.
 // Non-edges (alpha = 0) are skipped; an edgeless target contributes
 // nothing.
@@ -335,7 +341,12 @@ __global__ void gat_fwd_kernel(const float* __restrict__ xl, const float* __rest
   }
 }
 
-__global__ void __launch_bounds__(kBwdWarps * 32, 2)
+// kKeepDout: dout stays in shared memory through phase 2 (the headline
+// layout); else the scratch rows reuse its tile after the dalpha product,
+// a block then fills an SM's shared memory alone, and launch bounds of one
+// block per SM leave it the registers it needs without spilling
+template <bool kKeepDout>
+__global__ void __launch_bounds__(kBwdWarps * 32, kKeepDout ? 2 : 1)
 gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
                const float* __restrict__ adj, const uint8_t* __restrict__ mask,
                const float* __restrict__ we, const float* __restrict__ att,
@@ -349,11 +360,14 @@ gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
   const int Fp = F | 1;  // odd row stride
   const int R = S > T ? S : T;
   const int wf = gat_bwd_warp_floats(S, T, F);
+  const size_t scr = (size_t)nwarps * wf;
+  const size_t dlen = (size_t)T * Fp;
   float* xl_s = smem;                        // [S, Fp]
   float* xr_s = xl_s + (size_t)S * Fp;       // [T, Fp]
   float* do_s = xr_s + (size_t)T * Fp;       // [T, Fp]: dout
-  float* de_s = do_s + (size_t)T * Fp;       // [T, S]: d logits
-  float* scr_s = de_s + (size_t)T * S;       // [nwarps, wf]
+  float* de_s = do_s + (kKeepDout || dlen > scr ? dlen : scr);  // [T, S]
+  // [nwarps, wf]: beside the tiles, or over do_s after the dalpha product
+  float* scr_s = kKeepDout ? de_s + (size_t)T * S : do_s;
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
@@ -579,7 +593,8 @@ gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
       if (mrow[t] == 0.f) continue;  // warp-uniform
       const float d = de_s[(size_t)t * S + s], a = arow[t], al = vrow[t];
       const float* xt = xr_s + (size_t)t * Fp;
-      const float* dt = do_s + (size_t)t * Fp;
+      const float* dt = kKeepDout ? do_s + (size_t)t * Fp
+                                  : dout + ((size_t)b * T + t) * HF + h * F;
 #pragma unroll
       for (int j = 0; j < kMaxF / 32; ++j) {
         const int f = lane + 32 * j;
@@ -646,10 +661,43 @@ extern "C" int gat_fwd_blocks_per_sm(int S, int T, int F, int nwarps,
   return n;
 }
 
+// bytes of shared memory a block may opt in to on the current card
+// (232,448 on the H100); the wrappers refuse a launch against the same
+// attribute (ops/common.py: smem_limit)
+static size_t smem_limit() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (size_t)bytes;
+}
+
+// the backward's shared memory with dout kept beside the scratch rows,
+// or with the scratch over it
+static size_t bwd_smem_bytes(int S, int T, int F, int nwarps, bool keep) {
+  const size_t Fp = (size_t)(F | 1), dlen = (size_t)T * Fp;
+  const size_t scr = (size_t)nwarps * gat_bwd_warp_floats(S, T, F);
+  return sizeof(float) * (((size_t)S + T) * Fp + (size_t)T * S +
+                          (keep ? dlen + scr : dlen > scr ? dlen : scr));
+}
+
+// dout is kept wherever that layout fits a block
+static bool bwd_keep_dout(int S, int T, int F, int nwarps) {
+  return bwd_smem_bytes(S, T, F, nwarps, true) <= smem_limit();
+}
+
+typedef void (*BwdKernel)(const float*, const float*, const float*,
+                          const uint8_t*, const float*, const float*,
+                          const float*, const float*, float*, float*, float*,
+                          float*, float*, int, int, int, int, float);
+
+static BwdKernel bwd_kernel(int S, int T, int F, int nwarps) {
+  return bwd_keep_dout(S, T, F, nwarps) ? gat_bwd_kernel<true>
+                                        : gat_bwd_kernel<false>;
+}
+
+// the shared memory of the layout a launch at these shapes takes
 extern "C" size_t gat_bwd_smem_bytes(int S, int T, int F, int nwarps) {
-  const size_t Fp = (size_t)(F | 1);
-  return sizeof(float) * (((size_t)S + 2 * (size_t)T) * Fp + (size_t)T * S +
-                          (size_t)nwarps * gat_bwd_warp_floats(S, T, F));
+  return bwd_smem_bytes(S, T, F, nwarps, bwd_keep_dout(S, T, F, nwarps));
 }
 
 extern "C" int gat_bwd(const float* xl, const float* xr, const float* adj,
@@ -660,12 +708,13 @@ extern "C" int gat_bwd(const float* xl, const float* xr, const float* adj,
                        void* stream) {
   if (F > kMaxF || nwarps < 1 || nwarps > kBwdWarps)
     return (int)cudaErrorInvalidValue;
-  size_t smem = gat_bwd_smem_bytes(S, T, F, nwarps);
+  const size_t smem = gat_bwd_smem_bytes(S, T, F, nwarps);
+  const BwdKernel kern = bwd_kernel(S, T, F, nwarps);
   cudaError_t err = cudaFuncSetAttribute(
-      gat_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (B > 0 && H > 0) {
-    gat_bwd_kernel<<<B * H, nwarps * 32, smem, (cudaStream_t)stream>>>(
+    kern<<<B * H, nwarps * 32, smem, (cudaStream_t)stream>>>(
         xl, xr, adj, mask, we, att, alpha, dout, dxl, dxr, dadj_h, dwe_h,
         datt_h, S, T, H, F, ns);
   }
@@ -677,18 +726,17 @@ extern "C" int gat_bwd(const float* xl, const float* xr, const float* adj,
 extern "C" int gat_bwd_blocks_per_sm(int S, int T, int F, int nwarps,
                                      int* regs, int* local_bytes) {
   const size_t smem = gat_bwd_smem_bytes(S, T, F, nwarps);
+  const BwdKernel kern = bwd_kernel(S, T, F, nwarps);
   cudaFuncAttributes attr;
-  if (cudaFuncSetAttribute(gat_bwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, gat_bwd_kernel) != cudaSuccess)
+      cudaFuncGetAttributes(&attr, kern) != cudaSuccess)
     return -1;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gat_bwd_kernel,
-                                                    nwarps * 32, smem) !=
-      cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, nwarps * 32,
+                                                    smem) != cudaSuccess)
     return -1;
   return n;
 }

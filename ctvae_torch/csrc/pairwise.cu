@@ -72,9 +72,13 @@
 // element. sum_t g collects per (s, lane) in shared memory, and the 8
 // warps' sum_s g meet there once a step, one target per warp. At the
 // headline shapes (S = T = 64) a block holds 96.8 KB of shared memory, so
-// two share an SM; S = T = 120 is the most that fits one block. When a
-// batch gives more blocks than keep the card busy for kRounds rounds, a
-// block walks several chunks of its sample and fills dz once.
+// two share an SM. Where out and dout staged side by side do not fit a
+// block (above S = T = 120), a second instance of the kernel stages out
+// alone and reads each dout row straight from device memory as it forms
+// dz (coalesced, a warp per row; the same dz bit for bit): 182.9 KB at
+// S = T = 128, and up to S = T = 152 in one block. When a batch gives more
+// blocks than keep the card busy for kRounds rounds, a block walks several
+// chunks of its sample and fills dz once.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -134,6 +138,9 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// kStageDout: dout is staged beside out (the headline layout); else each
+// dout row is read from device memory where dz is formed
+template <bool kStageDout>
 __global__ void pairwise_bwd_kernel(const float* __restrict__ xl,
                                     const float* __restrict__ xr,
                                     const float* __restrict__ w2,
@@ -153,7 +160,8 @@ __global__ void pairwise_bwd_kernel(const float* __restrict__ xl,
   const int nseg = T8 / kBwdWarps;
   float* p = smem;
   float* dz_s = p;  p += (size_t)S * T8;        // [S, T8]: dz, zero past T
-  float* do_s = p;  p += (size_t)S * T8;        // [S, T8]: dout
+  float* do_s = p;                              // [S, T8]: dout (staged)
+  if (kStageDout) p += (size_t)S * T8;
   float* xl_s = p;  p += (size_t)S * kCols;     // [S, kCols]
   float* xr_s = p;  p += (size_t)T8 * kCols;    // [T8, kCols]
   float* gl_s = p;  p += (size_t)S * kCols;     // [S, kCols]: sum_t g
@@ -176,7 +184,7 @@ __global__ void pairwise_bwd_kernel(const float* __restrict__ xl,
 
   // out into the dz tile, dout beside it, the first chunk's xl and xr
   stage_tile(dz_s, T8, out + ob, T, T, S, S, vo);
-  stage_tile(do_s, T8, dout + ob, T, T, S, S, vo);
+  if (kStageDout) stage_tile(do_s, T8, dout + ob, T, T, S, S, vo);
   {
     const int h0 = blockIdx.x * kCols, hvalid = min(kCols, H - h0);
     stage_tile(xl_s, kCols, xlb + h0, H, hvalid, S, S, vx);
@@ -188,19 +196,34 @@ __global__ void pairwise_bwd_kernel(const float* __restrict__ xl,
   // the row's 8-target segments with a non-zero dz
   for (int s = warp; s < S; s += kBwdWarps) {
     unsigned any = 0;
-    for (int c0 = 0; c0 < T8; c0 += 32) {
-      const int t = c0 + lane;
-      const size_t i = (size_t)s * T8 + t;
-      float v = 0.f;
-      if (t < T8) {
-        const float y = dz_s[i];
-        v = do_s[i] * y * (1.f - y);
-        dz_s[i] = v;
+    // a row's dout from device memory: kLd loads in flight a lane
+    constexpr int kLd = kStageDout ? 1 : 4;
+    for (int c00 = 0; c00 < T8; c00 += 32 * kLd) {
+      float dv[kLd];
+      if (!kStageDout) {
+#pragma unroll
+        for (int u = 0; u < kLd; ++u) {
+          const int t = c00 + 32 * u + lane;
+          dv[u] = t < T ? dout[ob + (size_t)s * T + t] : 0.f;
+        }
       }
-      const unsigned live = __ballot_sync(0xffffffffu, v != 0.f);
-      if (lane < 4 && c0 / 8 + lane < nseg)
-        seg_s[s * nseg + c0 / 8 + lane] = (live >> (8 * lane) & 0xffu) != 0;
-      any |= live;
+#pragma unroll
+      for (int u = 0; u < kLd; ++u) {
+        const int c0 = c00 + 32 * u;
+        if (c0 >= T8) break;  // warp-uniform
+        const int t = c0 + lane;
+        const size_t i = (size_t)s * T8 + t;
+        float v = 0.f;
+        if (t < T8) {
+          const float y = dz_s[i];
+          v = (kStageDout ? do_s[i] : dv[u]) * y * (1.f - y);
+          dz_s[i] = v;
+        }
+        const unsigned live = __ballot_sync(0xffffffffu, v != 0.f);
+        if (lane < 4 && c0 / 8 + lane < nseg)
+          seg_s[s * nseg + c0 / 8 + lane] = (live >> (8 * lane) & 0xffu) != 0;
+        any |= live;
+      }
     }
     if (lane == 0) live_s[s] = any != 0;
   }
@@ -344,13 +367,44 @@ __global__ void pairwise_bwd_kernel(const float* __restrict__ xl,
 
 }  // namespace
 
-extern "C" size_t pairwise_bwd_smem_bytes(int S, int T) {
+// bytes of shared memory a block may opt in to on the current card
+// (232,448 on the H100); the wrappers refuse a launch against the same
+// attribute (ops/common.py: smem_limit)
+static size_t smem_limit() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (size_t)bytes;
+}
+
+// the backward's shared memory with dout staged beside out, or without
+static size_t bwd_smem_bytes(int S, int T, bool stage_dout) {
   const size_t T8 = (size_t)(T + kBwdWarps - 1) / kBwdWarps * kBwdWarps;
   const size_t nseg = T8 / kBwdWarps;
-  const size_t f =
-      2 * (size_t)S * T8 + (2 * (size_t)S + T8) * kCols + kRed;
+  const size_t f = (stage_dout ? 2 : 1) * (size_t)S * T8 +
+                   (2 * (size_t)S + T8) * kCols + kRed;
   return sizeof(float) * f + sizeof(int) * ((size_t)S + 1) +
          (size_t)S * (1 + nseg);
+}
+
+// dout is staged wherever that layout fits a block
+static bool bwd_stage_dout(int S, int T) {
+  return bwd_smem_bytes(S, T, true) <= smem_limit();
+}
+
+typedef void (*BwdKernel)(const float*, const float*, const float*,
+                          const float*, const float*, const float*, float*,
+                          float*, float*, float*, float*, int, int, int,
+                          int64_t, int64_t, float);
+
+static BwdKernel bwd_kernel(int S, int T) {
+  return bwd_stage_dout(S, T) ? pairwise_bwd_kernel<true>
+                              : pairwise_bwd_kernel<false>;
+}
+
+// the shared memory of the layout a launch at these shapes takes
+extern "C" size_t pairwise_bwd_smem_bytes(int S, int T) {
+  return bwd_smem_bytes(S, T, bwd_stage_dout(S, T));
 }
 
 // what the backward's launch gets on this card at these shapes: registers
@@ -359,39 +413,42 @@ extern "C" size_t pairwise_bwd_smem_bytes(int S, int T) {
 extern "C" int pairwise_bwd_blocks_per_sm(int S, int T, int* regs,
                                           int* local_bytes) {
   const size_t smem = pairwise_bwd_smem_bytes(S, T);
+  const BwdKernel kern = bwd_kernel(S, T);
   cudaFuncAttributes attr;
-  if (cudaFuncSetAttribute(pairwise_bwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, pairwise_bwd_kernel) != cudaSuccess)
+      cudaFuncGetAttributes(&attr, kern) != cudaSuccess)
     return -1;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   int n = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, pairwise_bwd_kernel, kBwdWarps * 32, smem) != cudaSuccess)
+          &n, kern, kBwdWarps * 32, smem) != cudaSuccess)
     return -1;
   return n;
 }
 
 // the SMs of the current device and the backward's resident blocks per SM
-// at this shared-memory size, queried once per (device, size)
-static cudaError_t bwd_slots(size_t smem, int* nsm, int* per_sm) {
+// for this kernel at this shared-memory size, queried once per (device,
+// kernel, size)
+static cudaError_t bwd_slots(BwdKernel kern, size_t smem, int* nsm,
+                             int* per_sm) {
   static thread_local int dev_c = -1, nsm_c = 0, per_sm_c = 0;
   static thread_local size_t smem_c = 0;
+  static thread_local BwdKernel kern_c = nullptr;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev != dev_c || smem != smem_c) {
+  if (dev != dev_c || smem != smem_c || kern != kern_c) {
     dev_c = -1;
     if ((err = cudaDeviceGetAttribute(&nsm_c, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess ||
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm_c, pairwise_bwd_kernel, kBwdWarps * 32, smem)) !=
-            cudaSuccess)
+             &per_sm_c, kern, kBwdWarps * 32, smem)) != cudaSuccess)
       return err;
     dev_c = dev;
     smem_c = smem;
+    kern_c = kern;
   }
   *nsm = nsm_c;
   *per_sm = per_sm_c;
@@ -404,22 +461,23 @@ extern "C" int pairwise_bwd(const float* xl, const float* xr, const float* w2,
                             float* dw2, float* db1, float* db2, int B, int S,
                             int T, int H, int64_t w2_stride, int64_t b1_stride,
                             float ns, void* stream) {
-  size_t smem = pairwise_bwd_smem_bytes(S, T);
+  const size_t smem = pairwise_bwd_smem_bytes(S, T);
+  const BwdKernel kern = bwd_kernel(S, T);
   cudaError_t err = cudaFuncSetAttribute(
-      pairwise_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || H <= 0) return (int)cudaGetLastError();
   // blocks per sample: enough for kRounds rounds of the blocks the card
   // holds at once; block x walks the chunks x, x + nb, ... of its sample
   int nsm = 0, per_sm = 0;
-  if ((err = bwd_slots(smem, &nsm, &per_sm)) != cudaSuccess) return (int)err;
+  if ((err = bwd_slots(kern, smem, &nsm, &per_sm)) != cudaSuccess)
+    return (int)err;
   const int nch = (H + kCols - 1) / kCols;
   const long want = ((long)kRounds * nsm * per_sm + B - 1) / B;
   const int nb = (int)(want < 1 ? 1 : want < nch ? want : nch);
   const int per = (nch + nb - 1) / nb;  // chunks per block, evened out
   dim3 grid((nch + per - 1) / per, B);
-  pairwise_bwd_kernel<<<grid, kBwdWarps * 32, smem, (cudaStream_t)stream>>>(
+  kern<<<grid, kBwdWarps * 32, smem, (cudaStream_t)stream>>>(
       xl, xr, w2, b1, out, dout, dxl, dxr, dw2, db1, db2, S, T, H, w2_stride,
       b1_stride, ns);
   return (int)cudaGetLastError();

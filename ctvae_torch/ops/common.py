@@ -42,16 +42,21 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-#: bytes of shared memory a block may use on Hopper
-SMEM_LIMIT = 232448
+def smem_limit() -> int:
+    """Bytes of shared memory a block may opt in to on the current card
+    (232,448 on the H100): the attribute the kernels choose their layouts
+    against (``smem_limit`` in ``csrc/gat.cu`` and ``csrc/pairwise.cu``)."""
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).shared_memory_per_block_optin
 
 
 def check_smem(what: str, smem: int) -> None:
     """Raise when a launch would ask for more shared memory than a block
     may have (the launch would be refused)."""
-    if smem > SMEM_LIMIT:
+    limit = smem_limit()
+    if smem > limit:
         raise ValueError(f"{what} needs {smem} bytes of shared memory, more "
-                         f"than {SMEM_LIMIT}")
+                         f"than {limit}")
 
 
 def warps_for(n: int) -> int:

@@ -11,6 +11,7 @@ can disagree only on rows whose two best distances are within rounding.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -38,6 +39,9 @@ def _lib() -> ctypes.CDLL:
                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_void_p]
     lib.vq_argmin.restype = ctypes.c_int
+    lib.vq_argmin_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p, ctypes.c_void_p]
+    lib.vq_argmin_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -58,6 +62,20 @@ def l2_argmin_cuda(flat: torch.Tensor, codebook: torch.Tensor
                                out.data_ptr(), n, k, d, stream), "vq_argmin")
     launches += 1
     return out
+
+
+def occupancy(k: int, d: int, lib: Optional[ctypes.CDLL] = None) -> dict:
+    """What the kernel's launch gets on this card at K codes of D floats:
+    warps per block, registers and local (spill) bytes per thread and
+    resident blocks per SM (of ``lib``, another build of ``csrc/vq.cu``,
+    when given)."""
+    fn = (lib or _lib()).vq_argmin_blocks_per_sm
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    n = fn(k, d, ctypes.byref(regs), ctypes.byref(local))
+    if n < 0:
+        raise RuntimeError("vq_argmin_blocks_per_sm failed")
+    return {"warps": 8, "regs": regs.value, "local_bytes": local.value,
+            "blocks_per_sm": n}
 
 
 def l2_argmin(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:

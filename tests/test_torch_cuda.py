@@ -33,7 +33,12 @@ def _t(rng, *shape, scale=1.0):
         rng.normal(size=shape) * scale, np.float32)).cuda()
 
 
-@pytest.mark.parametrize("n,k,d", [(37, 8, 4), (1000, 64, 128), (5, 70, 33)])
+@pytest.mark.parametrize("n,k,d", [
+    (37, 8, 4), (1000, 64, 128), (5, 70, 33),
+    # codebooks: 2 and 4 split the headline's 128 into D = 64 and 32
+    (1024, 64, 64), (1024, 64, 32),
+    # several 64-code passes and 128-float chunks of D, D % 4 != 0
+    (300, 130, 300), (40, 65, 257)])
 def test_vq_kernel_matches_plain(card, n, k, d):
     from ctvae_torch.ops import vq
     rng = np.random.default_rng(n)
@@ -63,7 +68,9 @@ def test_vq_kernel_matches_plain(card, n, k, d):
     # |xl|, |xr| ~ 8 >> |pre|: the separable linear sums cancel
     (3, 64, 64, 800, 0.01, 8.0),
     # the headline batches: B = 16 (clusters of 16 blocks) and A*B = 192
-    (16, 64, 64, 800, 0.01, 0.0), (192, 64, 64, 800, 0.01, 0.0)])
+    (16, 64, 64, 800, 0.01, 0.0), (192, 64, 64, 800, 0.01, 0.0),
+    # S = 2 * 8 * 8 of codebooks: 2 at 64 x 64
+    (3, 128, 128, 800, 0.01, 0.0), (16, 128, 128, 800, 0.01, 0.0)])
 def test_pairwise_kernel_matches_plain(card, per_sample, B, S, T, H, ns,
                                        shift):
     """The forward kernel against the plain version, shared and
@@ -122,7 +129,9 @@ def test_pairwise_fwd_rejects_too_large_grid(card):
     (65, 65, 13, 100, 1.0), (20, 33, 2, 64, 1.0), (13, 13, 3, 40, 0.5),
     (65, 65, 2, 100, 0.5),
     # T = 16: 16 warps, one target each
-    (16, 16, 2, 40, 0.6)])
+    (16, 16, 2, 40, 0.6),
+    # S + 1 = 129 graph nodes of codebooks: 2 at 64 x 64 (one block per SM)
+    (129, 129, 13, 100, 0.5), (129, 129, 13, 100, 1.0)])
 def test_gat_kernel_matches_plain(card, S, T, H, F, density):
     """The forward kernel against the plain version: out, and the alpha
     residual against the plain masked softmax (ragged S != T, F below and
@@ -202,8 +211,13 @@ def _pairwise_dout(rng, B, S, T, kind):
     (8, 8, 100, 1.0, "zero", 0.0), (12, 20, 33, 0.01, "negzero", 0.0),
     (10, 29, 800, 0.01, "segments", 0.0),
     # more than 64 targets (T rounded up to 8 is wider than a block's 64
-    # hidden units) and the largest S = T that fits a block
+    # hidden units) and the largest S = T that fits a block with dout
+    # staged; past it dout is read from device memory: S = 2 * 8 * 8 of
+    # codebooks: 2 at 64 x 64, and the largest S = T that fits then
     (72, 72, 800, 0.01, "dense", 0.0), (120, 120, 100, 0.01, "rows", 0.0),
+    (121, 121, 100, 0.01, "rows", 0.0), (128, 128, 800, 0.01, "dense", 0.0),
+    (128, 128, 100, 0.01, "segments", 0.0),
+    (152, 152, 100, 0.01, "dense", 0.0),
     # |xl|, |xr| ~ 8 >> |pre|: dw2 from the separable sums cancels
     (64, 64, 100, 0.01, "dense", 8.0)])
 def test_pairwise_bwd_kernel_matches_plain(card, per_sample, S, T, H, ns,
@@ -270,18 +284,23 @@ def test_pairwise_bwd_several_chunks_per_block(card, S, T, H, B):
 def test_pairwise_bwd_occupancy(card):
     """At the headline shapes (S = T = 64) the backward kernel fits two
     blocks of 8 warps per SM without spilling (one left it at half the
-    speed: 96.8 KB of shared memory and up to 128 registers a thread)."""
+    speed: 96.8 KB of shared memory and up to 128 registers a thread); at
+    S = T = 128 (dout read from device memory) one block without
+    spilling."""
     from ctvae_torch.ops import pairwise_flash as pf
     occ = pf.bwd_occupancy(64, 64)
     assert occ["warps"] == 8 and occ["local_bytes"] == 0, occ
     assert occ["regs"] <= 128 and occ["blocks_per_sm"] >= 2, occ
+    occ = pf.bwd_occupancy(128, 128)
+    assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
 
 
 def test_pairwise_bwd_rejects_too_large_tile(card):
-    """Past S = T = 120 the backward's tiles do not fit a block's shared
-    memory: the wrapper says so before launching."""
+    """Past S = T = 152 the backward's tiles do not fit a block's shared
+    memory even with dout read from device memory: the wrapper says so
+    before launching."""
     from ctvae_torch.ops import pairwise_flash as pf
-    B, S, H = 1, 121, 32
+    B, S, H = 1, 153, 32
     xl = torch.zeros(B, S, H, device="cuda")
     out = torch.zeros(B, S, S, device="cuda")
     w2 = torch.zeros(H, device="cuda")
@@ -312,7 +331,11 @@ def _gat_args(rng, B, S, T, H, F, density=0.6):
     (65, 65, 13, 100, 1.0), (20, 33, 2, 64, 1.0), (13, 13, 3, 40, 0.5),
     (65, 65, 2, 100, 0.5),
     # T = 16: the backward caps its block at 13 warps (launch bounds)
-    (16, 16, 2, 40, 0.6)])
+    (16, 16, 2, 40, 0.6),
+    # the scratch rows over the dout tile: S + 1 = 129 graph nodes of
+    # codebooks: 2 at 64 x 64, and the largest S = T that fits then
+    (129, 129, 13, 100, 0.5), (129, 129, 13, 100, 1.0),
+    (133, 133, 2, 100, 0.6)])
 def test_gat_bwd_kernel_matches_plain(card, S, T, H, F, density):
     """FlashGAT: the alpha residual against the plain softmax, and the
     backward kernel against the plain version's autograd (ragged S != T,
@@ -350,11 +373,31 @@ def test_gat_bwd_kernel_matches_plain(card, S, T, H, F, density):
 
 def test_gat_bwd_two_blocks_per_sm(card):
     """At the headline shapes the backward kernel fits two blocks per SM
-    without spilling: its launch bounds cap it at 72 registers."""
+    without spilling: its launch bounds cap it at 72 registers. At S = T =
+    129 (the scratch rows over the dout tile) one block, no spills."""
     from ctvae_torch.ops import gat_flash as gf
     occ = gf.bwd_occupancy(65, 65, 100)
     assert occ["warps"] == 13 and occ["regs"] <= 72, occ
     assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 2, occ
+    occ = gf.bwd_occupancy(129, 129, 100)
+    assert occ["warps"] == 13 and occ["local_bytes"] == 0, occ
+    assert occ["blocks_per_sm"] >= 1, occ
+
+
+def test_gat_bwd_rejects_too_large_tile(card):
+    """Past S = T = 133 at F = 100 the backward's tiles do not fit a
+    block's shared memory even with the scratch rows over the dout tile:
+    the wrapper says so before launching."""
+    from ctvae_torch.ops import gat_flash as gf
+    B, S, H, F = 1, 134, 1, 100
+    x = torch.zeros(B, S, H, F, device="cuda")
+    adj = torch.zeros(B, S, S, device="cuda")
+    w = torch.zeros(H, F, device="cuda")
+    alpha = torch.zeros(B, H, S, S, device="cuda")
+    before = gf.bwd_launches
+    with pytest.raises(ValueError, match="shared memory"):
+        gf.flash_gat_bwd_cuda(x, x, adj, adj.bool(), w, w, alpha, x, 0.2)
+    assert gf.bwd_launches == before
 
 
 def test_gat_serving_call_keeps_no_alpha(card):
@@ -435,25 +478,28 @@ def test_small_model_on_card_matches_cpu(card, mode):
                                atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("img", [16, 32])
 @pytest.mark.parametrize("mode", ["base", "action", "causal"])
-def test_small_model_gradients_on_card_match_cpu(card, mode):
+def test_small_model_gradients_on_card_match_cpu(card, mode, img):
     """One train forward + backward of a small CT-MCQ-VAE on the card
     (both backward kernels) against the same weights and draws on the CPU
-    (plain autograd): the loss and every parameter's gradient."""
+    (plain autograd): the loss and every parameter's gradient. At img 32
+    the two codebooks give S = 2 * 8 * 8 = 128 sites (129 graph nodes),
+    past what the backward kernels took with dout in shared memory."""
     import copy
 
     from ctvae_torch.models import build_model
     from ctvae_torch.ops import gat_flash, pairwise_flash
     cfg = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8,
                action_dim=8, hidden_dims=[8, 16], num_embeddings=8,
-               img_size=16, codebooks=2, causal_hidden_dims=[16, 8],
+               img_size=img, codebooks=2, causal_hidden_dims=[16, 8],
                noise="off")
     model = build_model(cfg, device=card,
                         generator=torch.Generator("cuda").manual_seed(0))
     cpu_model = copy.deepcopy(model).to("cpu")
     g = torch.Generator().manual_seed(3)
-    x, y = torch.rand(3, 16, 16, 3, generator=g), torch.rand(3, 16, 16, 3,
-                                                             generator=g)
+    x, y = (torch.rand(3, img, img, 3, generator=g),
+            torch.rand(3, img, img, 3, generator=g))
     a = torch.eye(8)[torch.randint(0, 8, (3,), generator=g)]
     before = (pairwise_flash.bwd_launches, gat_flash.bwd_launches)
     losses = []
@@ -507,7 +553,10 @@ def _logits_args(rng, B, S, T, K, F, per_sample):
     # |xl|, |xr| ~ 8 >> |pre|: the separable sums cancel
     (3, 65, 65, 2, 64, 0.2, 8.0, "rand"),
     # no pair with a gradient, and one: the pair where pre is exactly 0
-    (3, 65, 65, 2, 64, 0.2, 0.0, "zero"), (3, 65, 65, 2, 64, 0.2, 0.0, "one")])
+    (3, 65, 65, 2, 64, 0.2, 0.0, "zero"), (3, 65, 65, 2, 64, 0.2, 0.0, "one"),
+    # the 129 graph nodes of codebooks: 2 at 64 x 64
+    (16, 129, 129, 2, 64, 0.2, 0.0, "rand"),
+    (3, 129, 129, 13, 100, 0.2, 0.0, "rand")])
 def test_gat_logits_kernels_match_plain(card, per_sample, B, S, T, K, F, ns,
                                         shift, d_kind):
     """The per-head logits forward against ``gat_logits``, and its backward

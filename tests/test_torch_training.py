@@ -32,8 +32,8 @@ from ctvae_tpu.training import state as jstate
 from ctvae_torch.convert import from_jax_params
 from ctvae_torch.training import optimizers as topt
 from ctvae_torch.training import state as tstate
-from torch_port_common import (ReplayDraws, assert_step_matches, batch,
-                               build_pair, close, jax_train_step,
+from torch_port_common import (SMALL, ReplayDraws, assert_step_matches,
+                               batch, build_pair, close, jax_train_step,
                                one_torch_thread, recorded_draws, t2n)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -43,17 +43,46 @@ EXP = dict(LR=5e-4, scheduler_gamma=0.994, weight_decay=0.0)
 MODES = ("base", "action", "causal")
 
 
+# SMALL at img 32: two downsamplings leave 8 x 8, so the two codebooks
+# give S = 128 latent sites and the GAT S + 1 = 129 nodes, past S = T =
+# 120, the most the port's pairwise backward kernel once took
+SITES_128 = dict(SMALL, img_size=32)
+
+
 @pytest.fixture(scope="module")
 def pair():
     return build_pair(seed=0)
 
 
+@pytest.fixture(scope="module")
+def pair_128():
+    return build_pair(SITES_128, seed=0)
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_train_step_matches_jax(monkeypatch, pair, mode):
+    _check_train_step(monkeypatch, pair, mode, SMALL)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_train_step_matches_jax_past_120_sites(monkeypatch, pair_128, mode):
+    """One train step per mode of the CT model with S = 128 sites against
+    JAX: the shape class the card's backward kernels take since dout is
+    read from device memory above S = T = 120 (pairwise) and the GAT's
+    scratch rows lie over its dout tile above 124 nodes."""
+    tm = pair_128[2]
+    assert tm.nb_latents ** 2 * SITES_128["codebooks"] == 128
+    _check_train_step(monkeypatch, pair_128, mode, SITES_128)
+
+
+def _check_train_step(monkeypatch, pair, mode, cfg):
+    """One ``make_train_step`` of ``mode`` in the port and in JAX from the
+    same params and draws: metrics, ``grad_norm``, every gradient leaf and
+    every parameter after the optimizer."""
     jm, variables, tm0 = pair
     import copy
     tm = copy.deepcopy(tm0)
-    x, y, a = batch(11)
+    x, y, a = batch(11, cfg=cfg)
     b = {"image": x, "input_y": y, "action": a}
     j_params, j_grads, j_metrics, draws = jax_train_step(
         jm, variables, mode, {k: jnp.asarray(v) for k, v in b.items()},
