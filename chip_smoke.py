@@ -33,7 +33,20 @@ the launch counters set to 0 just before and read just after:
   sweep), with the bitwise checks of each stage.
 
 Before that, ``VAEXperiment.fit`` runs one short epoch on TSynthetic at the
-same widths (phase "loop"). The second-last line is one JSON
+same widths (phase "loop"). Then two more phases:
+
+* scan: per train mode, 16 steps at the headline widths and B = 16
+  taken eagerly from one state and through ``make_multi_train_step(mode,
+  8)`` (warm-up steps, then replays of a captured CUDA graph) from an
+  equal state on the same batches: every parameter and Adam moment
+  within 1e-6 of its largest magnitude, the generators and steps equal;
+  then both timed in turns. The graph's kernel launches are counted at
+  capture, times its replays (the ``scan`` path of the kernels line);
+* bench: ``python -m ctvae_torch.bench --blocks 2`` at its default
+  config, its last line checked for every key and an ``mfu`` in (0, 1]
+  per mode, and printed.
+
+The second-last line is one JSON
 object with a row per kernel; the last line is ``{"ok": true, "device":
 {...}}``. Any failed phase exits non-zero and prints no result; so does a
 machine without a card. TF32 is off for matmuls and cuDNN convolutions, so
@@ -74,6 +87,12 @@ build's index agreement with the plain version (``compare_vq``).
 and for the GATv2 per-head logits, forward and backward, on the calls of
 each train mode's step and on the check's inputs at A*B = 192 and B = 16
 (``compare_gat_logits``).
+
+    python3 chip_smoke.py --train-step-against OTHER_CHECKOUT [...]
+
+times the tree's eager train step of each mode in turns with that of
+other checkouts' ``ctvae_torch`` (an earlier commit's), at the headline
+widths and B = 16 (``compare_train_step``).
 """
 
 from __future__ import annotations
@@ -90,22 +109,14 @@ import time
 
 import torch
 
-# model_params of configs/ct_mcq_vae.yaml (the card's machine may have no
-# PyYAML; tests/test_torch_serving.py checks the two agree)
-MODEL_PARAMS = {
-    "name": "CTMCQVAE", "in_channels": 3, "embedding_dim": 128,
-    "action_dim": 12, "hidden_dims": [64, 128, 256], "num_embeddings": 64,
-    "img_size": 64, "codebooks": 1, "beta": 0.1, "gamma": 1.5,
-    "c_alpha": 0.01, "c_beta": 0.4, "c_delta": 0.01, "c_epsilon": 0.1,
-    "noise": "off",
-}
-# exp_params of configs/ct_mcq_vae.yaml (tests/test_torch_training.py
-# checks the two agree)
-EXP_PARAMS = {
-    "LR": 0.0005, "weight_decay": 0.0, "scheduler_gamma": 0.994,
-    "kld_weight": 0.00025, "manual_seed": 1250,
-    "update_parameters": "ct_layer",
-}
+from ctvae_torch.config import read_section
+
+# the headline configuration, read without PyYAML (the card's machine has
+# none)
+CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                      "ct_mcq_vae.yaml")
+MODEL_PARAMS = read_section(CONFIG, "model_params")
+EXP_PARAMS = read_section(CONFIG, "exp_params")
 # the loop phase: the headline widths on TSynthetic, whose grid has 4
 # factors and so 8 actions (TShapes3D's 12 are not in the repo)
 LOOP_MODEL_PARAMS = {**MODEL_PARAMS, "action_dim": 8}
@@ -244,6 +255,25 @@ def _vq_bound(x, cb):
     Operations: the 2 N K D of the products (the norms add K D)."""
     (N, D), K = x.shape, cb.shape[0]
     return bound_ms(4 * (N * D + K * D) + 8 * N, 2.0 * N * K * D)
+
+
+def _vq_on_path(fn) -> list:
+    """The VQ search's calls as one call of ``fn`` (a train step) makes
+    them, each held against the plain version on its own inputs: indices
+    equal except on counted near-ties (``_vq_agreement``), a rerun bit for
+    bit."""
+    from ctvae_torch.ops import vq
+    out = []
+    for args, _ in _calls_of(vq, "l2_argmin_cuda", fn):
+        x, cb = (a.detach() for a in args[:2])
+        got = vq.l2_argmin_cuda(x, cb)
+        same = torch.equal(vq.l2_argmin_cuda(x, cb), got)
+        differ, ties, gap = _vq_agreement(x, cb, got)
+        out.append({"x": list(x.shape), "differ": differ, "near_ties": ties,
+                    "max_distance_gap": gap, "bit_identical": same})
+        if differ != ties or not same:
+            raise AssertionError(f"vq on the step's inputs: {out[-1]}")
+    return out
 
 
 # D of the VQ search: the headline's embedding of 128 over 1, 2 and 4
@@ -1210,21 +1240,13 @@ def _requests(gen, B: int, device: str):
 
 
 def _counts():
-    from ctvae_torch.ops import gat_flash, gat_logits, pairwise_flash, vq
-    return {"vq_l2_argmin": vq.launches,
-            "pairwise_fwd": pairwise_flash.launches,
-            "pairwise_bwd": pairwise_flash.bwd_launches,
-            "gat_fwd": gat_flash.launches,
-            "gat_bwd": gat_flash.bwd_launches,
-            "gat_logits_fwd": gat_logits.launches,
-            "gat_logits_bwd": gat_logits.bwd_launches}
+    from ctvae_torch.ops import launch_counts
+    return launch_counts()
 
 
 def _reset_counts() -> None:
-    from ctvae_torch.ops import gat_flash, gat_logits, pairwise_flash, vq
-    vq.launches = pairwise_flash.launches = gat_flash.launches = 0
-    pairwise_flash.bwd_launches = gat_flash.bwd_launches = 0
-    gat_logits.launches = gat_logits.bwd_launches = 0
+    from ctvae_torch.ops import COUNTERS, set_launch_counts
+    set_launch_counts({k: 0 for k in COUNTERS})
 
 
 # launches per request of each entry point (codebooks = 1)
@@ -1349,7 +1371,9 @@ GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 
 def _profile(label: str, fn, gemm_shapes: bool = False) -> list:
     """Device time by kernel over one call of ``fn`` (already warm), and
-    the share of its wall time the card was busy; with ``gemm_shapes``
+    the share of its wall time the card was busy (the profiler's ranges,
+    such as ``Adam.step``'s, are logged apart: their time is that of
+    kernels already counted); with ``gemm_shapes``
     then, over a second call profiled with ``record_shapes`` (whose host
     cost stays out of the busy share), the dense products by input shape:
     each ``GEMM_OPS`` op with the device time of the kernels it launched.
@@ -1362,14 +1386,17 @@ def _profile(label: str, fn, gemm_shapes: bool = False) -> list:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[1])
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in device if not e.is_user_annotation),
+                  key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     log(f"profile {label}: wall {wall:.3f} ms (profiled), device busy "
         f"{busy:.3f} ms ({100 * busy / wall:.1f}% of wall), "
-        f"{sum(r[2] for r in rows)} kernels")
+        f"{sum(r[2] for r in rows)} kernels; ranges " + ", ".join(
+            f"{e.key} {e.self_device_time_total / 1e3:.3f} ms"
+            for e in device if e.is_user_annotation))
     # the six longest, then the port's own kernels among the rest
     for i, (key, ms, count) in enumerate(rows):
         if i < 6 or re.search(r"namespace\)::(vq|pairwise|gat)_\w*kernel[<(]",
@@ -1405,9 +1432,10 @@ def phase_profile(model) -> None:
 
 # --- phase 5: the training slice ------------------------------------------
 
-def _train_setup(params=MODEL_PARAMS):
-    """The headline model (or ``params``) at B = 16 with the config's
-    exp_params: (model, train state, batch, a train step per mode)."""
+def _train_setup(params=MODEL_PARAMS, B: int = BATCH):
+    """The headline model (or ``params``) at batch ``B`` (16) with the
+    config's exp_params: (model, train state, batch, a train step per
+    mode)."""
     from ctvae_torch.models import build_model
     from ctvae_torch.training import (build_optimizers, create_train_state,
                                       make_train_step)
@@ -1416,8 +1444,7 @@ def _train_setup(params=MODEL_PARAMS):
     state = create_train_state(
         model, build_optimizers(EXP_PARAMS, model, steps_per_epoch=100),
         seed=SEED)
-    x, y, a = _requests(torch.Generator().manual_seed(SEED + 3), BATCH,
-                        "cuda")
+    x, y, a = _requests(torch.Generator().manual_seed(SEED + 3), B, "cuda")
     batch = {"image": x, "input_y": y, "action": a}
     return model, state, batch, {m: make_train_step(m)
                                  for m in EXPECTED_TRAIN}
@@ -1558,16 +1585,54 @@ def _gat_fwd_text(m) -> str:
             f"bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
 
 
+def _kernels_on_step(label: str, fn) -> dict:
+    """Every kernel call but the VQ search's that one call of ``fn`` (a
+    train step) makes, each held against the plain version on its own
+    inputs and timed there: the pairwise and GAT forwards (out, and the
+    GAT's alpha residual), the per-head logits forward and backward, and
+    the pairwise and GAT backwards against the plain version's autograd
+    (each gradient over its own scale, GRAD_RTOL). Each is logged under
+    ``label``; returns them by kernel (``logits`` holds both of its)."""
+    out = {"pairwise_fwd": _pairwise_fwd_on_path(fn)}
+    for which, m in out["pairwise_fwd"].items():
+        log(f"{label}: pairwise forward {which} {m['shape']}: max abs err "
+            f"{m['max_abs_err']:.3g}, rerun bit-identical "
+            f"{m['bit_identical']}; kernel on these inputs {m['ms']:.4f} ms, "
+            f"bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
+    m = out["gat_fwd"] = _gat_fwd_on_path(fn)
+    log(f"{label}: {_gat_fwd_text(m)}")
+    m = out["logits"] = _logits_on_path(fn)
+    f, g = m["fwd"], m["bwd"]
+    log(f"{label}: per-head logits forward {f['shape']}: max abs err "
+        f"{f['max_abs_err']:.3g}, rerun bit-identical {f['bit_identical']}; "
+        f"kernel on these inputs {f['ms']:.4f} ms, bound "
+        f"{f['bound_ms']:.4f} ms ({f['bound_by']}); backward d_e "
+        f"{g['shape']}, {g['live_share']:.4f} of pairs with a gradient: "
+        f"errors {g['errors']}, rerun bit-identical {g['bit_identical']}; "
+        f"kernel on these inputs {g['ms']:.4f} ms, bound "
+        f"{g['bound_ms']:.4f} ms ({g['bound_by']})")
+    out["pairwise_bwd"] = _pairwise_bwd_on_path(fn, check=True)
+    for which, m in out["pairwise_bwd"].items():
+        log(f"{label}: pairwise backward {which} {m['shape']}, live rows "
+            f"{m['live_rows']:.4f}, pairs {m['live_pairs']:.4f}; kernel on "
+            f"these inputs {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']}); errors {m['errors']}; control (slope 1) "
+            f"{m['control_errors']}")
+    m = out["gat_bwd"] = _gat_bwd_on_path(fn)
+    log(f"{label}: GAT backward xl {m['shape']}, edge density "
+        f"{m['edge_density']:.4f}; errors {m['errors']}, rerun bit-identical "
+        f"{m['bit_identical']}; kernel on these inputs {m['ms']:.4f} ms, "
+        f"bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
+    return out
+
+
 def phase_codebooks_2():
     """A warm and a timed train step of each mode of the full-width
     ``codebooks: 2`` CT model at B = 16, the launch counters reset just
     before and read just after; then each mode's calls of every kernel but
     the VQ search (held at D = 64 in ``_check_vq``) against the plain
-    version on their own inputs and timed there: the pairwise and GAT
-    forwards (out, and the GAT's alpha residual), the per-head logits
-    forward and backward, and the pairwise and GAT backwards against the
-    plain version's autograd (each gradient over its own scale,
-    GRAD_RTOL); and one profiled causal step."""
+    version on their own inputs (``_kernels_on_step``); and one profiled
+    causal step."""
     model, state, batch, steps = _train_setup(C2_MODEL_PARAMS)
     sites = C2_MODEL_PARAMS["codebooks"] * model.nb_latents ** 2
     if sites != 128:
@@ -1577,53 +1642,17 @@ def phase_codebooks_2():
                            batch, 2, EXPECTED_C2)
     launches = _counts()
     log(f"launches on the codebooks_2 path: {json.dumps(launches)}")
-    pairwise_fwd, gat_fwd, logits, pairwise_bwd, gat_bwd = {}, {}, {}, {}, {}
-    for mode, step in steps.items():
-        calls = pairwise_fwd[mode] = _pairwise_fwd_on_path(
-            lambda: step(state, batch))
-        for which, m in calls.items():
-            log(f"codebooks_2 {mode}: pairwise forward {which} {m['shape']}: "
-                f"max abs err {m['max_abs_err']:.3g}, rerun bit-identical "
-                f"{m['bit_identical']}; kernel on these inputs "
-                f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-                f"({m['bound_by']})")
-        m = gat_fwd[mode] = _gat_fwd_on_path(lambda: step(state, batch))
-        log(f"codebooks_2 {mode}: {_gat_fwd_text(m)}")
-        m = logits[mode] = _logits_on_path(lambda: step(state, batch))
-        f, g = m["fwd"], m["bwd"]
-        log(f"codebooks_2 {mode}: per-head logits forward {f['shape']}: max "
-            f"abs err {f['max_abs_err']:.3g}, rerun bit-identical "
-            f"{f['bit_identical']}; kernel on these inputs {f['ms']:.4f} ms, "
-            f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}); backward d_e "
-            f"{g['shape']}, {g['live_share']:.4f} of pairs with a gradient: "
-            f"errors {g['errors']}, rerun bit-identical "
-            f"{g['bit_identical']}; kernel on these inputs {g['ms']:.4f} ms, "
-            f"bound {g['bound_ms']:.4f} ms ({g['bound_by']})")
-        calls = pairwise_bwd[mode] = _pairwise_bwd_on_path(
-            lambda: step(state, batch), check=True)
-        for which, m in calls.items():
-            log(f"codebooks_2 {mode}: pairwise backward {which} "
-                f"{m['shape']}, live rows {m['live_rows']:.4f}, pairs "
-                f"{m['live_pairs']:.4f}; kernel on these inputs "
-                f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-                f"({m['bound_by']}); errors {m['errors']}; control (slope "
-                f"1) {m['control_errors']}")
-        m = gat_bwd[mode] = _gat_bwd_on_path(lambda: step(state, batch))
-        log(f"codebooks_2 {mode}: GAT backward xl {m['shape']}, edge "
-            f"density {m['edge_density']:.4f}; errors {m['errors']}, rerun "
-            f"bit-identical {m['bit_identical']}; kernel on these inputs "
-            f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-            f"({m['bound_by']})")
+    found = {mode: _kernels_on_step(f"codebooks_2 {mode}",
+                                    lambda: step(state, batch))
+             for mode, step in steps.items()}
     _profile(f"codebooks_2 train step causal B={BATCH}",
              lambda: steps["causal"](state, batch), gemm_shapes=True)
-    on_step = {"pairwise_fwd": {"codebooks_2": pairwise_fwd},
-               "gat_fwd": {"codebooks_2": gat_fwd},
-               "gat_logits_fwd": {"codebooks_2": {m: v["fwd"] for m, v
-                                                  in logits.items()}},
-               "gat_logits_bwd": {"codebooks_2": {m: v["bwd"] for m, v
-                                                  in logits.items()}},
-               "pairwise_bwd": {"codebooks_2": pairwise_bwd},
-               "gat_bwd": {"codebooks_2": gat_bwd}}
+    on_step = {k: {"codebooks_2": {m: v[k] for m, v in found.items()}}
+               for k in ("pairwise_fwd", "gat_fwd", "pairwise_bwd",
+                         "gat_bwd")}
+    for which in ("fwd", "bwd"):
+        on_step[f"gat_logits_{which}"] = {"codebooks_2": {
+            m: v["logits"][which] for m, v in found.items()}}
     return timings, launches, on_step
 
 
@@ -1656,6 +1685,171 @@ def phase_loop() -> dict:
         f"{out['train_loss']:.6g}, val loss {out['val_loss']:.6g}, "
         f"val causal_acc {out['val_causal_acc']:.4g}")
     return out
+
+
+# --- phase 8: the multi-step train step as a CUDA graph --------------------
+
+SCAN_K = 8          # steps per make_multi_train_step call
+SCAN_RTOL = 1e-6    # graph vs eager, over each tensor's largest magnitude
+SCAN_ROUNDS = 5     # timed rounds of K eager steps and one K-step call
+
+
+def _scan_tensors(state) -> dict:
+    """Every parameter and Adam moment of a train state, by name."""
+    out = {n: p.detach() for n, p in state.model.named_parameters()}
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    for opt in state.optimizers:
+        for p in opt.params:
+            for k, v in opt.adam.state.get(p, {}).items():
+                out[f"{names[id(p)]}:{k}"] = v
+    return out
+
+
+def phase_scan():
+    """Per train mode at the headline widths, B = 16, the config's
+    exp_params: 2K steps eagerly from one state and two
+    ``make_multi_train_step(mode, K)`` calls from an equal state (equal
+    weights and generator seed) on the same 2K batches; the warm-up steps
+    run eagerly inside the first call, every later step replays the
+    graph. Every parameter and Adam moment must agree within SCAN_RTOL of
+    its largest magnitude, the generator states, steps and optimizer
+    counts exactly. Then SCAN_ROUNDS rounds, in turns, of K eager steps
+    and one K-step call, timed from the host clock to the device's end.
+    Returns (the kernels' launches by the replays, ms per step)."""
+    from ctvae_torch.training import make_multi_train_step
+    from ctvae_torch.training.state import WARMUP_STEPS
+    launches, timings = {k: 0 for k in EXPECTED_TRAIN["base"]}, {}
+    gen = torch.Generator().manual_seed(SEED + 5)
+    for mode, expected in EXPECTED_TRAIN.items():
+        _, eager, _, steps = _train_setup()
+        _, graph, _, _ = _train_setup()
+        xs = [_requests(gen, BATCH, "cuda") for _ in range(2 * SCAN_K)]
+        stacked = {k: torch.stack([r[i] for r in xs])
+                   for i, k in enumerate(("image", "input_y", "action"))}
+        step, multi = steps[mode], make_multi_train_step(mode, SCAN_K)
+        for i in range(2 * SCAN_K):
+            want = step(eager, {k: v[i] for k, v in stacked.items()})
+        for half in (slice(0, SCAN_K), slice(SCAN_K, 2 * SCAN_K)):
+            got = multi(graph, {k: v[half] for k, v in stacked.items()})
+        torch.cuda.synchronize()
+        if multi.replays != 2 * SCAN_K - WARMUP_STEPS:
+            raise AssertionError(f"scan {mode}: {multi.replays} replays")
+        a, b = _scan_tensors(eager), _scan_tensors(graph)
+        if a.keys() != b.keys():
+            raise AssertionError(f"scan {mode}: tensors {set(a) ^ set(b)}")
+        diffs = {n: float((a[n].float() - b[n].float()).abs().max())
+                 for n in a}
+        bad = {n: d for n, d in diffs.items() if d > SCAN_RTOL * max(
+            float(a[n].float().abs().max()), 1e-30)}
+        same_gen = torch.equal(eager.generator.get_state(),
+                               graph.generator.get_state())
+        counts = ([o.count for o in eager.optimizers],
+                  [o.count for o in graph.optimizers])
+        log(f"scan {mode}: {len(diffs)} parameters and Adam moments after "
+            f"{2 * SCAN_K} steps, eager vs {multi.replays} graph replays "
+            f"(after {WARMUP_STEPS} warm-up steps): "
+            f"{sum(d == 0 for d in diffs.values())} bit-equal, largest abs "
+            f"difference {max(diffs.values()):.3g}; generator equal "
+            f"{same_gen}, step {eager.step} / {graph.step}, optimizer "
+            f"counts {counts[0]} / {counts[1]}; last loss "
+            f"{float(want['loss']):.6g} / {float(got['loss']):.6g}")
+        log(f"scan {mode}: max abs difference by tensor "
+            f"{json.dumps({n: float(f'{d:.3g}') for n, d in diffs.items()})}")
+        if bad or not same_gen or eager.step != graph.step or \
+                counts[0] != counts[1]:
+            raise AssertionError(f"scan {mode}: graph and eager steps "
+                                 f"disagree: {bad}, generator {same_gen}")
+        per_replay = {k: n // multi.replays
+                      for k, n in multi.replayed_launches().items()}
+        if per_replay != expected:
+            raise AssertionError(f"scan {mode}: launches per replay "
+                                 f"{per_replay}, expected {expected}")
+        for k, n in multi.replayed_launches().items():
+            launches[k] += n
+        secs = {"eager": [], "graph": []}
+        batches = {k: v[:SCAN_K] for k, v in stacked.items()}
+
+        def run_eager():
+            for i in range(SCAN_K):
+                step(eager, {k: v[i] for k, v in batches.items()})
+
+        runs = {"eager": run_eager, "graph": lambda: multi(graph, batches)}
+        for r in range(SCAN_ROUNDS):
+            for which in (("eager", "graph") if r % 2 == 0
+                          else ("graph", "eager")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[which]()
+                torch.cuda.synchronize()
+                secs[which].append(1e3 * (time.perf_counter() - t0) / SCAN_K)
+        timings[mode] = {w: statistics.median(t) for w, t in secs.items()}
+        log(f"scan {mode} B={BATCH}: eager {timings[mode]['eager']:.3f} ms "
+            f"per step, graph replay {timings[mode]['graph']:.3f} ms per "
+            f"step (medians of {SCAN_ROUNDS} rounds of {SCAN_K} steps in "
+            f"turns; eager {json.dumps([round(t, 3) for t in secs['eager']])}"
+            f", graph {json.dumps([round(t, 3) for t in secs['graph']])})")
+    log(f"launches of the scan path (captured x replays): "
+        f"{json.dumps(launches)}")
+    return launches, timings
+
+
+# --- phase 9: the port's bench ---------------------------------------------
+
+BENCH_KEYS = ("device", "config", "dtype", "ct_action_img_per_sec") + tuple(
+    f"ct_{m}_{k}" for m in EXPECTED_TRAIN
+    for k in ("ms_per_step", f"ms_per_step_scan{SCAN_K}",
+              "device_ms_per_step", "launches_per_step", "step_mfu")) + tuple(
+    f"serve_{e}_ms" for e in ("reconstruct", "encode", "apply_action",
+                              "classify_action"))
+
+
+def _check_bench_batch() -> None:
+    """One base and one action step of the headline model at the bench's
+    batch (128), every kernel call of each held against the plain version
+    on its own inputs (``_vq_on_path``, ``_kernels_on_step``)."""
+    from ctvae_torch.bench import BATCH as B
+    _, state, batch, steps = _train_setup(MODEL_PARAMS, B)
+    for mode in ("base", "action"):
+        step = steps[mode]
+        vq = _vq_on_path(lambda: step(state, batch))
+        log(f"bench batch {mode} B={B}: VQ search {json.dumps(vq)}")
+        _kernels_on_step(f"bench batch {mode} B={B}",
+                         lambda: step(state, batch))
+    del state, batch, steps
+    torch.cuda.empty_cache()
+
+
+def phase_bench() -> dict:
+    """The kernels at the bench's batch (``_check_bench_batch``); then
+    ``python -m ctvae_torch.bench --blocks 2`` at its default config
+    (``configs/ct_mcq_vae.yaml``): its output, then its last line checked
+    (at most 1,500 characters, every key, every ``mfu`` in (0, 1])."""
+    t0 = time.perf_counter()
+    _check_bench_batch()
+    log(f"bench batch: every kernel call of a base and an action step held "
+        f"against the plain version in {time.perf_counter() - t0:.1f} s")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ctvae_torch.bench",
+                           "--blocks", "2"], cwd=root, capture_output=True,
+                          text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines()[:-1]:
+        log(f"bench| {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"ctvae_torch.bench exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    last = proc.stdout.splitlines()[-1]
+    result = json.loads(last)
+    missing = [k for k in BENCH_KEYS if k not in result]
+    mfu = {m: result.get(f"ct_{m}_step_mfu") for m in EXPECTED_TRAIN}
+    if len(last) > 1500 or missing or not all(
+            v is not None and 0 < v <= 1 for v in mfu.values()):
+        raise AssertionError(f"bench line: {len(last)} characters, missing "
+                             f"{missing}, mfu {mfu}")
+    log(f"bench: {secs:.1f} s, last line {len(last)} characters")
+    log(last)
+    return result
 
 
 # --- phase 7: the two-stage recipe ---------------------------------------
@@ -2429,6 +2623,82 @@ def compare_vq(sources) -> dict:
                                for D in VQ_DIMS})
 
 
+def _other_package(tree: str, name: str):
+    """The ``ctvae_torch`` package of another checkout ``tree`` (an
+    earlier commit's), imported as ``name`` beside this tree's; its
+    kernels build into its own ``_build``."""
+    import importlib.util
+    root = os.path.join(os.path.abspath(tree), "ctvae_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, "__init__.py"),
+        submodule_search_locations=[root])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+STEP_ROUNDS = 21    # timed rounds of the train step comparison
+STEP_CALLS = 8      # steps per build per round
+
+
+def compare_train_step(trees) -> dict:
+    """This tree's eager train step against the ``make_train_step`` of
+    other checkouts' ``ctvae_torch``, per mode at the headline widths and
+    B = 16 with the config's exp_params, each build from the same weights
+    on the same batch: after a warm-up step (its loss logged for each
+    build), STEP_ROUNDS rounds of STEP_CALLS steps per build, the builds
+    in turns (the order reversed every other round), each timed from the
+    host clock to the device's end; the median ms per step. Then one
+    profiled step per build (``_profile``): its launches and device ms."""
+    import importlib
+    packages = {"tree": "ctvae_torch"}
+    for i, tree in enumerate(trees):
+        packages[tree] = _other_package(tree, f"other{i}_ctvae_torch").__name__
+    x, y, a = _requests(torch.Generator().manual_seed(SEED + 3), BATCH,
+                        "cuda")
+    batch = {"image": x, "input_y": y, "action": a}
+    out = {}
+    for mode in EXPECTED_TRAIN:
+        runs, first = {}, {}
+        for name, package in packages.items():
+            models = importlib.import_module(f"{package}.models")
+            training = importlib.import_module(f"{package}.training")
+            model = models.build_model(
+                MODEL_PARAMS, device="cuda",
+                generator=torch.Generator("cuda").manual_seed(SEED))
+            opts = training.build_optimizers(EXP_PARAMS, model,
+                                             steps_per_epoch=100)
+            state = training.create_train_state(model, opts, seed=SEED)
+            step = training.make_train_step(mode)
+            first[name] = float(step(state, batch)["loss"])
+            runs[name] = (lambda step=step, state=state: step(state, batch))
+        samples = {name: [] for name in runs}
+        for r in range(STEP_ROUNDS):
+            for name in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(STEP_CALLS):
+                    runs[name]()
+                torch.cuda.synchronize()
+                samples[name].append(
+                    1e3 * (time.perf_counter() - t0) / STEP_CALLS)
+        out[mode] = {name: {"ms": statistics.median(t),
+                            "samples": [round(v, 3) for v in t],
+                            "first_loss": first[name]}
+                     for name, t in samples.items()}
+        for name, run in runs.items():
+            rows = _profile(f"train step {mode} B={BATCH} {name}", run)
+            out[mode][name].update(launches=sum(r[2] for r in rows),
+                                   device_ms=sum(r[1] for r in rows))
+        log(f"train step {mode} B={BATCH}: " + "; ".join(
+            f"{name} {m['ms']:.3f} ms per step (rounds {m['samples']}, first "
+            f"loss {m['first_loss']:.7g})" for name, m in out[mode].items()))
+        del runs
+        torch.cuda.empty_cache()
+    return out
+
+
 # keys of a check's row that the kernels line carries beside the contract's
 EXTRA_KEYS = ("ms_at_16", "bound_ms_at_16", "plain_ms_at_16", "alpha_ms",
               "occupancy", "by_d")
@@ -2478,6 +2748,10 @@ def main(argv) -> int:
         help="only build the kernels and compare the tree's gat_logits_fwd "
              "and gat_logits_bwd with those of these gat_logits.cu files "
              "(compare_gat_logits)")
+    parser.add_argument(
+        "--train-step-against", nargs="+", metavar="TREE",
+        help="only build the kernels and time the tree's eager train step "
+             "in turns with those of these checkouts (compare_train_step)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke runs on a card",
@@ -2505,6 +2779,10 @@ def main(argv) -> int:
     if opts.vq_against:
         log(json.dumps({"vq_against": compare_vq(opts.vq_against)}))
         return 0
+    if opts.train_step_against:
+        log(json.dumps({"train_step_against": compare_train_step(
+            opts.train_step_against)}))
+        return 0
     if opts.pairwise_bwd_against:
         log(json.dumps({"pairwise_bwd_against": compare_pairwise_bwd(
             opts.pairwise_bwd_against)}))
@@ -2518,13 +2796,16 @@ def main(argv) -> int:
     c2_ms, c2_launches, c2_on_step = phase_codebooks_2()
     phase_loop()
     two_stage_launches = phase_two_stage()
+    scan_launches, scan_ms = phase_scan()
+    phase_bench()
     kernels = []
     for r in rows:
         source, replaces = KERNEL_META[r["name"]]
         by_path = {"serve": serve_launches[r["name"]],
                    "train": train_launches[r["name"]],
                    "codebooks_2": c2_launches[r["name"]],
-                   "two_stage": two_stage_launches[r["name"]]}
+                   "two_stage": two_stage_launches[r["name"]],
+                   "scan": scan_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -2538,15 +2819,16 @@ def main(argv) -> int:
         kernels[-1].update({k: r[k] for k in EXTRA_KEYS if k in r})
         kernels[-1].update(on_step.get(r["name"], {}))
         kernels[-1].update(c2_on_step.get(r["name"], {}))
-    # every kernel runs on the training, codebooks: 2 and two-stage paths,
-    # the forward ones on the serving path too
+    # every kernel runs on the training, codebooks: 2, two-stage and scan
+    # paths, the forward ones on the serving path too
     if any(k["launches_by_path"][p] == 0 for k in kernels
-           for p in ("train", "codebooks_2", "two_stage")) or any(
+           for p in ("train", "codebooks_2", "two_stage", "scan")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
             if EXPECTED["reconstruct"][k["name"]]):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"serve_ms": timings, "train_ms": train_ms,
-                    "train_peak_gib": peak, "codebooks_2_train_ms": c2_ms}))
+                    "train_peak_gib": peak, "codebooks_2_train_ms": c2_ms,
+                    "scan_ms": scan_ms}))
     log(f"chip_smoke wall time {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -58,6 +58,27 @@ def st_bernoulli_gumbel(gumbel: torch.Tensor, probs: torch.Tensor,
     return hard + y_soft[..., 1] - y_soft[..., 1].detach()
 
 
+class _ProdLast(torch.autograd.Function):
+    """``torch.prod(x, -1)`` whose backward takes each element's gradient
+    as the product of the elements before it times the product of those
+    after it (exact where an element is zero). torch's own backward first
+    counts the zeros on the host, which a CUDA graph cannot hold."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.prod(x, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        ones = torch.ones_like(x[..., :1])
+        before = torch.cumprod(torch.cat([ones, x[..., :-1]], -1), -1)
+        after = torch.cumprod(torch.cat([ones, x[..., 1:].flip(-1)], -1),
+                              -1).flip(-1)
+        return grad[..., None] * (before * after)
+
+
 class CausalTransition(nn.Module):
     """Operates on one-hot codebook distributions over S causal variables."""
 
@@ -273,7 +294,7 @@ class CausalTransition(nn.Module):
     @staticmethod
     def positive_trial_loss(adjacency: torch.Tensor) -> torch.Tensor:
         """||prod_j (1 - adj_ij)||_2 per sample, 0 where it underflows."""
-        prod = torch.prod(1.0 - adjacency, dim=-1)
+        prod = _ProdLast.apply(1.0 - adjacency)
         sq = torch.sum(torch.square(prod), dim=-1)
         safe = torch.sqrt(torch.where(sq == 0, torch.ones_like(sq), sq))
         return torch.where(sq == 0, torch.zeros_like(sq), safe).mean()
@@ -387,7 +408,7 @@ class CTMCQVAE(nn.Module):
         quantized, vq_loss = self.vq_layer.compute_latents(latents, use_inds)
         return {"recons": self.decoder(quantized), "input": x,
                 "vq_loss": vq_loss, "ct_loss": ct_loss, "mode": "base",
-                "metrics": {"mode_id": x.new_tensor(0.0), **ct_metrics,
+                "metrics": {"mode_id": x.new_zeros(()), **ct_metrics,
                             "codebook_perplexity": codebook_perplexity(
                                 inds, self.num_embeddings)}}
 
@@ -409,9 +430,9 @@ class CTMCQVAE(nn.Module):
         use_inds = inds if self.skip_transition else self.ct_postprocess(ct_seq)
         quantized, _ = self.vq_layer.compute_latents(latents, use_inds)
         return {"recons": self.decoder(quantized), "input": input_y,
-                "vq_loss": x.new_tensor(0.0), "ct_loss": ct_loss,
+                "vq_loss": x.new_zeros(()), "ct_loss": ct_loss,
                 "mode": "action",
-                "metrics": {"mode_id": x.new_tensor(1.0), **ct_metrics,
+                "metrics": {"mode_id": x.new_ones(()), **ct_metrics,
                             "codebook_perplexity": codebook_perplexity(
                                 inds, self.num_embeddings)}}
 
@@ -428,14 +449,14 @@ class CTMCQVAE(nn.Module):
             self.ct_preprocess(inds_x), self.ct_preprocess(inds_y), draws,
             train=train)
         return {"recons": probas, "input": action,
-                "vq_loss": x.new_tensor(0.0), "ct_loss": ct_reg,
+                "vq_loss": x.new_zeros(()), "ct_loss": ct_reg,
                 "mode": "causal",
                 "metrics": {
                     "causal_acc": self.ct_layer.causal_accuracy(probas, action),
                     "causal_nodir_acc":
                         self.ct_layer.causal_undirected_accuracy(probas,
                                                                  action),
-                    "mode_id": x.new_tensor(2.0),
+                    "mode_id": x.new_full((), 2.0),
                     "codebook_perplexity": codebook_perplexity(
                         inds_x, self.num_embeddings)}}
 

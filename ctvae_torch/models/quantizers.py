@@ -23,8 +23,14 @@ from .base import mse_loss
 
 def codebook_perplexity(inds: torch.Tensor, num_embeddings: int
                         ) -> torch.Tensor:
-    """exp(entropy) of the batch's code-assignment distribution."""
-    counts = torch.bincount(inds.reshape(-1), minlength=num_embeddings)
+    """exp(entropy) of the batch's code-assignment distribution. The
+    counts come from a scatter-add, not ``bincount``, whose CUDA version
+    reads the largest index back to the host (a CUDA graph cannot hold
+    that)."""
+    flat = inds.reshape(-1)
+    counts = torch.zeros(num_embeddings, dtype=torch.int64,
+                         device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
     probs = counts.float() / torch.clamp(torch.sum(counts), min=1)
     plogp = torch.where(probs > 0, probs * torch.log(probs),
                         torch.zeros_like(probs))

@@ -12,7 +12,7 @@ as there. Checkpoints (the best two by ``val_Reconstruction_Loss`` and
 ``trainer_params.resume_from_checkpoint`` resumes the full state from a
 checkpoint file, or with ``load_weights_only: true`` loads its weights
 only (the two-stage recipe). The metrics of each epoch are printed; the
-logger is not ported yet (ROADMAP A2).
+logger is not ported yet (ROADMAP A4).
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 from .experiment import VAEXperiment
 from .optimizers import build_lr_schedules, build_optimizers
 from .state import (TrainState, create_train_state, make_eval_step,
-                    make_train_step)
+                    make_multi_train_step, make_train_step)
 
 __all__ = ["TrainState", "VAEXperiment", "build_lr_schedules",
            "build_optimizers", "create_train_state", "make_eval_step",
-           "make_train_step"]
+           "make_multi_train_step", "make_train_step"]

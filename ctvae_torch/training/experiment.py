@@ -10,11 +10,15 @@ validation batches under ``val_`` keys; ``fit`` alternates the two from
 validation. ``restore_full_state`` resumes a run bit for bit;
 ``load_weights`` is the weights-only restore of the two-stage recipe.
 
-Not ported yet (ROADMAP A2): asynchronous checkpoints, the
-disentanglement metrics, ``sample_images``, ``scan_steps`` (its GPU
-analogue is a CUDA graph), the hang watchdog, sharded or multi-device
-training and a logger. The ``exp_params`` keys that ask for them raise
-``NotImplementedError``.
+``exp_params.scan_steps`` K > 1 runs each K consecutive batches of one
+mode and shape as one ``make_multi_train_step`` call (on the card, K
+replays of a captured CUDA graph); a mode switch, a shape change or the
+epoch's end runs what is buffered as per-step calls.
+
+Not ported yet (ROADMAP A4): asynchronous checkpoints, the
+disentanglement metrics, ``sample_images``, the hang watchdog, sharded or
+multi-device training and a logger. The ``exp_params`` keys that ask for
+them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,11 +33,11 @@ from torch import nn
 from ..utils.checkpoint import CheckpointManager, load_weights_only
 from .optimizers import build_lr_schedules, build_optimizers
 from .state import TrainState, create_train_state, make_eval_step, \
-    make_train_step
+    make_multi_train_step, make_train_step
 
 #: exp_params keys of the JAX trainer the port does not take yet, with the
 #: values that leave them off
-NOT_PORTED = {"scan_steps": (None, 0, 1), "sharding": (None, "dp"),
+NOT_PORTED = {"sharding": (None, "dp"),
               "metrics": (None, [], ()), "watch_gradients": (None, 0),
               "profile": (None, "", False), "dcn_replicas": (None, 1),
               "model_axis": (None, 1), "async_checkpointing": (None, False)}
@@ -53,7 +57,7 @@ class VAEXperiment:
                if exp_params.get(k) not in off]
         if bad:
             raise NotImplementedError(f"exp_params {bad} not ported yet "
-                                      f"(ROADMAP A2)")
+                                      f"(ROADMAP A4)")
         self.model = model
         self.params = dict(exp_params)
         self.data = datamodule
@@ -61,7 +65,9 @@ class VAEXperiment:
         self.state: Optional[TrainState] = None
         self.lr_schedules = None
         self._train_steps: Dict[str, Any] = {}
+        self._multi_steps: Dict[str, Any] = {}
         self._eval_steps: Dict[str, Any] = {}
+        self.scan_steps = max(1, int(exp_params.get("scan_steps", 1) or 1))
         self.global_step = 0
         self.start_epoch = 0
         self.seed = 0
@@ -87,6 +93,7 @@ class VAEXperiment:
         epoch``), so a resumed ``fit`` trains to ``max_epochs`` in all."""
         assert self.state is not None and self.ckpt is not None
         self.state.load_state_dict(self.ckpt.restore(which))
+        self._multi_steps.clear()       # their graphs hold the old state
         self.global_step = self.state.step
         self.start_epoch = self.global_step // self._steps_per_epoch()
 
@@ -97,11 +104,18 @@ class VAEXperiment:
         load_weights_only(ckpt_path, self.model)
         self.state.optimizers = build_optimizers(
             self.params, self.model, self._steps_per_epoch())
+        self._multi_steps.clear()
 
     def _train_step(self, mode: str):
         if mode not in self._train_steps:
             self._train_steps[mode] = make_train_step(mode)
         return self._train_steps[mode]
+
+    def _multi_train_step(self, mode: str):
+        if mode not in self._multi_steps:
+            self._multi_steps[mode] = make_multi_train_step(
+                mode, self.scan_steps)
+        return self._multi_steps[mode]
 
     def _eval_step(self, mode: str):
         if mode not in self._eval_steps:
@@ -110,17 +124,43 @@ class VAEXperiment:
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One step per batch; returns the last batch's scalar metrics (as
-        the JAX trainer does), the learning rate and images per second."""
+        the JAX trainer does), the learning rate and images per second.
+        With ``scan_steps`` K > 1, K consecutive batches of one mode and
+        shape run as one multi-step call; a mode switch, a shape change
+        or the epoch's end runs the shorter remainder step by step."""
         assert self.state is not None, "call setup() first"
         t0 = time.perf_counter()
         images, metrics, modes = 0, None, {}
+        pending: list = []
+        pend_mode: Optional[str] = None
+
+        def flush():
+            nonlocal metrics, images
+            if not pending:
+                return
+            batches = [to_device(b, self.device) for b in pending]
+            if len(batches) == self.scan_steps > 1:
+                metrics = self._multi_train_step(pend_mode)(
+                    self.state, {k: torch.stack([b[k] for b in batches])
+                                 for k in batches[0]})
+            else:
+                for b in batches:
+                    metrics = self._train_step(pend_mode)(self.state, b)
+            images += sum(int(np.shape(b["image"])[0]) for b in pending)
+            modes[pend_mode] = modes.get(pend_mode, 0) + len(pending)
+            self.global_step += len(pending)
+            pending.clear()
+
         for batch in self.data.train_dataloader(epoch):
             mode = batch.pop("mode", "base")
-            metrics = self._train_step(mode)(self.state,
-                                             to_device(batch, self.device))
-            images += int(np.shape(batch["image"])[0])
-            modes[mode] = modes.get(mode, 0) + 1
-            self.global_step += 1
+            if pending and (mode != pend_mode or np.shape(batch["image"])
+                            != np.shape(pending[0]["image"])):
+                flush()     # a mode switch or the epoch tail's batch size
+            pend_mode = mode
+            pending.append(batch)
+            if len(pending) == self.scan_steps:
+                flush()
+        flush()
         if metrics is None:
             raise RuntimeError(f"train epoch {epoch} produced zero batches: "
                                f"raise data_params.limit")

@@ -17,6 +17,14 @@ Counterpart of ``ctvae_tpu/training/optimizers.py`` (an optax chain there,
   optimizer update per k calls (optax ``MultiSteps``); the schedule counts
   updates, not calls.
 
+On a CUDA device the update can be captured into a CUDA graph
+(``training/state.py::make_multi_train_step``): the learning rate is a
+device tensor, filled from the schedule before each update outside any
+graph, and Adam runs with ``capturable=True`` (its step count on the
+device too). The eager update on the card runs the same arithmetic, so a
+replayed graph and eager steps agree bit for bit. On the CPU Adam keeps
+its host learning rate.
+
 Adversarial models (``LR_2`` / ``submodel``) are not ported.
 """
 
@@ -28,7 +36,7 @@ import torch
 from torch import nn
 
 NOT_PORTED = ("LR_2 / submodel (a second optimizer for adversarial models) "
-              "is not ported yet: ROADMAP A6")
+              "is not ported yet: ROADMAP A7")
 
 
 def _exp_schedule(lr: float, gamma: Optional[float], steps_per_epoch: int
@@ -55,18 +63,41 @@ class Optimizer:
                  weight_decay: float, schedule: Callable[[int], float],
                  clip: Optional[float] = None, accumulate: int = 1):
         self.params = list(params)
-        self.adam = torch.optim.Adam(self.params, lr=lr,
-                                     weight_decay=weight_decay)
+        device = self.params[0].device
+        # on the card: a device LR and capturable Adam (see the module doc)
+        self.lr = (torch.tensor(float(lr), device=device)
+                   if device.type == "cuda" else None)
+        self.adam = torch.optim.Adam(
+            self.params, lr=lr if self.lr is None else self.lr,
+            weight_decay=weight_decay, capturable=self.lr is not None)
         self.schedule = schedule
         self.clip = clip
         self.accumulate = accumulate
         self.count = 0          # optimizer updates made so far
         self.mini_step = 0      # gradients accumulated toward the next one
+        self.version = 0        # state loads so far (a graph holds the state)
         self._acc: Optional[List[torch.Tensor]] = None
 
     def _grads(self) -> List[torch.Tensor]:
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in self.params]
+
+    def set_lr(self) -> None:
+        """The schedule's LR of update ``count`` into Adam's group: a Python
+        float on the CPU, on the card filled into the device tensor that
+        the group (and a graph captured from it) reads."""
+        value = self.schedule(self.count)
+        for group in self.adam.param_groups:
+            group["lr"] = value if self.lr is None else self.lr
+        if self.lr is not None:
+            self.lr.fill_(value)
+
+    def update(self) -> None:
+        """The device work of one update: the clip, then Adam. Launches
+        only, no host read of a device value, so it can be captured."""
+        if self.clip:
+            torch.nn.utils.clip_grad_norm_(self.params, self.clip)
+        self.adam.step()
 
     def step(self) -> bool:
         """Take the current gradients; returns whether the parameters were
@@ -84,11 +115,8 @@ class Optimizer:
             for p, a in zip(self.params, self._acc):
                 p.grad = a
             self._acc, self.mini_step = None, 0
-        if self.clip:
-            torch.nn.utils.clip_grad_norm_(self.params, self.clip)
-        for group in self.adam.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.adam.step()
+        self.set_lr()
+        self.update()
         self.count += 1
         return True
 
@@ -99,7 +127,21 @@ class Optimizer:
                 "mini_step": self.mini_step, "acc": self._acc}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Load ``state_dict()``'s output, also one saved on another
+        device, or with Adam in the other form (capturable or not):
+        torch's load takes the saved groups' settings, so the form of this
+        device is put back, with Adam's step counts where it keeps them
+        (on the parameter's device when capturable, else on the host)."""
         self.adam.load_state_dict(state["adam"])
+        capturable = self.lr is not None
+        for group in self.adam.param_groups:
+            group["capturable"] = capturable
+            for p in group["params"]:
+                st = self.adam.state.get(p, {})
+                if "step" in st:
+                    st["step"] = st["step"].to(
+                        p.device if capturable else "cpu", torch.float32)
+        self.version += 1
         self.count, self.mini_step = state["count"], state["mini_step"]
         self._acc = (None if state["acc"] is None else
                      [a.to(p.device) for a, p in zip(state["acc"],

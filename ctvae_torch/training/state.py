@@ -7,17 +7,23 @@ gradient norm over every parameter, then the optimizer. The random draws
 of a step come from the state's ``generator`` (advanced by every train
 step); the eval step draws from a generator of its own, seeded apart from
 the train draws as the JAX package offsets its eval key by ``1 << 20``.
+
+``make_multi_train_step`` is the counterpart of the JAX package's
+``lax.scan`` over K steps (``exp_params.scan_steps``): on the card it
+replays one captured CUDA graph of the whole step per batch, so a step
+costs a few launches from the host instead of about a thousand.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..models.base import Draws
+from ..ops import launch_counts, set_launch_counts
 
 #: batch keys a forward takes besides the image
 FWD_KEYS = ("action", "input_y")
@@ -80,6 +86,23 @@ def _scalars(losses: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             if isinstance(v, torch.Tensor)}
 
 
+def _grads(state: TrainState, batch: Dict[str, torch.Tensor], mode: str
+           ) -> Dict[str, torch.Tensor]:
+    """The device work of a train step before the optimizer: gradients
+    of the loss in ``p.grad`` and the step's metrics with ``grad_norm``."""
+    model = state.model
+    model.zero_grad(set_to_none=True)
+    losses = _forward(model, batch, mode,
+                      Draws(state.generator, model.device), train=True)
+    losses["loss"].backward()
+    metrics = _scalars(losses)
+    # over every parameter, trained or not (optax.global_norm of the
+    # whole gradient tree); an unused parameter's gradient is zero
+    metrics["grad_norm"] = global_norm(
+        p.grad for p in model.parameters() if p.grad is not None)
+    return metrics
+
+
 def make_train_step(mode: str) -> Callable[[TrainState, Dict], Dict]:
     """The train step of batch mode ``mode``: ``step(state, batch)``
     updates ``state`` in place (parameters, optimizer state, ``step``) and
@@ -87,22 +110,166 @@ def make_train_step(mode: str) -> Callable[[TrainState, Dict], Dict]:
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
-        model = state.model
-        model.zero_grad(set_to_none=True)
-        losses = _forward(model, batch, mode,
-                          Draws(state.generator, model.device), train=True)
-        losses["loss"].backward()
-        metrics = _scalars(losses)
-        # over every parameter, trained or not (optax.global_norm of the
-        # whole gradient tree); an unused parameter's gradient is zero
-        metrics["grad_norm"] = global_norm(
-            p.grad for p in model.parameters() if p.grad is not None)
+        metrics = _grads(state, batch, mode)
         for opt in state.optimizers:
             opt.step()
         state.step += 1
         return metrics
 
     return step_fn
+
+
+#: eager steps of a batch shape before its graph is captured; they create
+#: Adam's moments and the libraries' workspaces, which a capture must not
+WARMUP_STEPS = 3
+
+
+class _Graph:
+    """One train step of one batch shape captured as a CUDA graph: the
+    input buffers it reads, the metrics it writes, and the kernel
+    launches of the port's wrappers it holds (one replay makes them all
+    again)."""
+
+    def __init__(self, graph, inputs, metrics, launches):
+        self.graph, self.inputs, self.metrics = graph, inputs, metrics
+        self.launches = launches
+        self.replays = 0
+
+
+def _bound(state: TrainState) -> Tuple:
+    """What a captured graph reads and writes by address: the model, the
+    generator, the optimizers and their state (changed by a load)."""
+    return (state.model, state.generator, *state.optimizers,
+            *[opt.version for opt in state.optimizers])
+
+
+class MultiTrainStep:
+    """``n_steps`` train steps of ``mode`` per call, the counterpart of
+    ``ctvae_tpu/training/state.py::make_multi_train_step``.
+
+    ``step(state, batches)`` takes a batch dict whose every leaf is
+    stacked ``[n_steps, B, ...]``, runs the steps in order and returns
+    the last step's metrics; the state afterwards (parameters, optimizer
+    state, ``step``, generator) is what ``n_steps`` calls of
+    ``make_train_step(mode)`` leave.
+
+    On the CPU that is the loop of those calls. On the card the first
+    ``WARMUP_STEPS`` steps of a batch shape run eagerly on a side stream;
+    then one whole step (gradients, ``grad_norm``, the optimizers'
+    updates) is captured into a CUDA graph that reads static input
+    buffers, and every later step copies its batch into them, fills the
+    optimizers' LR and replays the graph. The train generator is
+    registered with the graph, so each replay advances it as an eager
+    step does. A failed capture raises. The graphs hold the train state
+    by address: a call with another state, or after a load of its
+    optimizers' state, raises (make a new ``MultiTrainStep``).
+
+    ``replays`` counts the replays; ``replayed_launches()`` the port's
+    kernel launches they made (counted at capture: the wrappers' counters
+    do not tick on replay)."""
+
+    def __init__(self, mode: str, n_steps: int):
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be at least 1, got {n_steps}")
+        self.mode, self.n_steps = mode, n_steps
+        self.replays = 0
+        self._step = make_train_step(mode)
+        self._bound: Optional[Tuple] = None
+        self._graphs: Dict[Tuple, _Graph] = {}
+        self._warm: Dict[Tuple, int] = {}    # eager steps per batch shape
+
+    def replayed_launches(self) -> Dict[str, int]:
+        """Kernel launches made by the replays so far, by kernel name."""
+        out: Dict[str, int] = {}
+        for g in self._graphs.values():
+            for k, n in g.launches.items():
+                out[k] = out.get(k, 0) + n * g.replays
+        return out
+
+    def __call__(self, state: TrainState, batches: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        bad = {k: tuple(v.shape) for k, v in batches.items()
+               if v.dim() == 0 or v.shape[0] != self.n_steps}
+        if bad:
+            raise ValueError(f"batch leaves must be stacked [{self.n_steps}, "
+                             f"B, ...], got {bad}")
+        batch = [{k: v[i] for k, v in batches.items()}
+                 for i in range(self.n_steps)]
+        if state.model.device.type != "cuda":
+            for b in batch:
+                metrics = self._step(state, b)
+            return metrics
+        if any(opt.accumulate > 1 for opt in state.optimizers):
+            raise NotImplementedError(
+                "accumulate_grad_batches > 1 with a multi-step train step "
+                "is not ported yet: ROADMAP A4")
+        bound = _bound(state)
+        if self._bound is None:
+            self._bound = bound
+        elif len(bound) != len(self._bound) or any(
+                a is not b and a != b for a, b in zip(bound, self._bound)):
+            raise ValueError("this multi-step train step holds graphs of "
+                             "another train state (or of its optimizers' "
+                             "state before a load): make a new one")
+        key = tuple((k, tuple(v.shape[1:]), v.dtype)
+                    for k, v in sorted(batches.items()))
+        g = self._graphs.get(key)
+        i = 0 if g is not None else min(
+            len(batch), WARMUP_STEPS - self._warm.get(key, 0))
+        if i:
+            # eager warm-up steps on a side stream
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for b in batch[:i]:
+                    metrics = self._step(state, b)
+            torch.cuda.current_stream().wait_stream(side)
+            self._warm[key] = self._warm.get(key, 0) + i
+            if i == len(batch):
+                return metrics
+        if g is None:
+            g = self._graphs[key] = self._capture(state, batch[i])
+        for b in batch[i:]:
+            for name, buf in g.inputs.items():
+                buf.copy_(b[name])
+            for opt in state.optimizers:
+                opt.set_lr()
+            g.graph.replay()
+            for opt in state.optimizers:
+                opt.count += 1
+            state.step += 1
+            g.replays += 1
+            self.replays += 1
+        return {k: v.clone() for k, v in g.metrics.items()}
+
+    def _capture(self, state: TrainState, batch: Dict[str, torch.Tensor]
+                 ) -> _Graph:
+        """Capture one step (gradients, ``grad_norm``, the optimizers'
+        updates) reading copies of ``batch``. The capture runs the step's
+        Python once and no work on the card, so the kernels' launch
+        counters are put back."""
+        inputs = {k: v.clone() for k, v in batch.items()}
+        for opt in state.optimizers:
+            opt.set_lr()            # the groups read the LR tensors
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.generator)
+        before = launch_counts()
+        try:
+            with torch.cuda.graph(graph):
+                metrics = _grads(state, inputs, self.mode)
+                for opt in state.optimizers:
+                    opt.update()
+        finally:
+            after = launch_counts()
+            set_launch_counts(before)
+        return _Graph(graph, inputs, metrics,
+                      {k: after[k] - before[k] for k in after})
+
+
+def make_multi_train_step(mode: str, n_steps: int) -> MultiTrainStep:
+    """``n_steps`` train steps of batch mode ``mode`` per call, on batches
+    stacked ``[n_steps, B, ...]`` (``MultiTrainStep``)."""
+    return MultiTrainStep(mode, n_steps)
 
 
 def make_eval_step(mode: str, seed: int = 0

@@ -654,3 +654,157 @@ def test_gat_logits_wrapper_rejects_what_the_kernels_do_not_take(card):
         gl.fused_gat_logits_bwd_cuda(xl, xr, adj, we, att,
                                      torch.zeros(2, 5, 5, 1, device="cuda"),
                                      0.2)
+
+
+@pytest.mark.parametrize("mode", ["base", "action", "causal"])
+def test_multi_train_step_graph_equals_eager_steps(card, mode):
+    """A small CT-MCQ-VAE trained 8 steps eagerly and through two calls
+    of ``make_multi_train_step(mode, 4)`` (warm-up steps, a CUDA graph
+    captured and replayed) from equal states on the same batches, with a
+    gradient clip and an LR that falls every 3 updates: every
+    parameter and Adam moment within 1e-6 of its largest magnitude, the
+    generator states, steps and optimizer counts equal; the replays make
+    every kernel launch of an eager step without ticking the counters."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.ops import launch_counts
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_multi_train_step, make_train_step)
+    from ctvae_torch.training.state import WARMUP_STEPS
+    cfg = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8,
+               action_dim=8, hidden_dims=[8, 16], num_embeddings=8,
+               img_size=16, codebooks=2, causal_hidden_dims=[16, 8],
+               noise="off")
+    exp = dict(LR=5e-4, scheduler_gamma=0.9, weight_decay=0.0,
+               gradient_clip_val=0.5)
+    states = []
+    for _ in range(2):
+        m = build_model(cfg, device=card,
+                        generator=torch.Generator("cuda").manual_seed(0))
+        states.append(create_train_state(m, build_optimizers(exp, m, 3),
+                                         seed=5))
+    g = torch.Generator().manual_seed(6)
+    stacked = {"image": torch.rand(8, 3, 16, 16, 3, generator=g),
+               "input_y": torch.rand(8, 3, 16, 16, 3, generator=g),
+               "action": torch.eye(8)[torch.randint(0, 8, (8, 3),
+                                                    generator=g)]}
+    stacked = {k: v.cuda() for k, v in stacked.items()}
+    step = make_train_step(mode)
+    before = launch_counts()
+    step(states[0], {k: v[0] for k, v in stacked.items()})
+    per_step = {k: n - before[k] for k, n in launch_counts().items()}
+    for i in range(1, 8):
+        step(states[0], {k: v[i] for k, v in stacked.items()})
+    multi = make_multi_train_step(mode, 4)
+    for half in (slice(0, 4), slice(4, 8)):
+        multi(states[1], {k: v[half] for k, v in stacked.items()})
+    assert multi.replays == 8 - WARMUP_STEPS
+    assert multi.replayed_launches() == {k: n * multi.replays
+                                         for k, n in per_step.items()}
+    eager, graph = states
+    for a, b in zip(eager.model.parameters(), graph.model.parameters()):
+        a, b = a.detach(), b.detach()
+        assert float((a - b).abs().max()) <= 1e-6 * float(a.abs().max())
+    for oa, ob in zip(eager.optimizers, graph.optimizers):
+        assert oa.count == ob.count == 8
+        for pa, pb in zip(oa.params, ob.params):
+            for k, va in oa.adam.state.get(pa, {}).items():
+                vb = ob.adam.state[pb][k]
+                assert float((va - vb).abs().max()) <= \
+                    1e-6 * float(va.abs().max()), k
+    assert eager.step == graph.step == 8
+    assert torch.equal(eager.generator.get_state(),
+                       graph.generator.get_state())
+    # its graphs hold the state they were captured from
+    with pytest.raises(ValueError, match="another train state"):
+        multi(eager, {k: v[:4] for k, v in stacked.items()})
+
+
+def test_scan_steps_epoch_on_card_equals_per_step(card):
+    """``VAEXperiment`` with ``scan_steps: 4`` on the card (a block of
+    four causal batches through a captured graph, the rest step by step)
+    ends a TSynthetic epoch in the state ``scan_steps: 1`` leaves: every
+    parameter and Adam moment within 1e-6 of its largest magnitude, the
+    generator states and steps equal."""
+    from ctvae_torch.data import VAEDataset
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import VAEXperiment
+    cfg = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8,
+               action_dim=8, hidden_dims=[8, 16], num_embeddings=8,
+               img_size=16, codebooks=2, causal_hidden_dims=[16, 8],
+               noise="off")
+    exps = []
+    for k in (1, 4):
+        data = VAEDataset("", dataset_name="TSynthetic", train_batch_size=4,
+                          val_batch_size=4, patch_size=16, limit=40,
+                          val_limit=8, seed=5)
+        data.setup()
+        m = build_model(cfg, device=card,
+                        generator=torch.Generator("cuda").manual_seed(0))
+        exp = VAEXperiment(m, dict(LR=5e-4, scan_steps=k), data)
+        exp.setup(seed=3)
+        exp.train_epoch(0)
+        exps.append(exp)
+    multi = exps[1]._multi_steps
+    assert list(multi) == ["causal"] and multi["causal"].replays == 1
+    a, b = exps[0].state, exps[1].state
+    assert a.step == b.step == 30
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        p, q = p.detach(), q.detach()
+        assert float((p - q).abs().max()) <= 1e-6 * float(p.abs().max())
+    for oa, ob in zip(a.optimizers, b.optimizers):
+        for pa, pb in zip(oa.params, ob.params):
+            for k, va in oa.adam.state.get(pa, {}).items():
+                vb = ob.adam.state[pb][k]
+                assert float((va - vb).abs().max()) <= \
+                    1e-6 * float(va.abs().max()), k
+
+
+def test_train_state_resumes_on_card_from_host_form_adam(card):
+    """A train state saved with Adam in its host form (a float LR and
+    step counts on the host, as checkpoints of the card were written
+    before Adam ran capturable there) resumes on the card in the
+    capturable form, and the run goes on as one that was never saved,
+    bit for bit."""
+    import copy
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_train_step)
+    cfg = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8,
+               action_dim=8, hidden_dims=[8, 16], num_embeddings=8,
+               img_size=16, codebooks=2, causal_hidden_dims=[16, 8],
+               noise="off")
+    exp = dict(LR=5e-4, scheduler_gamma=0.9, weight_decay=0.0)
+    states = []
+    for _ in range(2):
+        m = build_model(cfg, device=card,
+                        generator=torch.Generator("cuda").manual_seed(0))
+        states.append(create_train_state(m, build_optimizers(exp, m, 3),
+                                         seed=5))
+    g = torch.Generator().manual_seed(6)
+    batches = [{"image": torch.rand(3, 16, 16, 3, generator=g).cuda(),
+                "input_y": torch.rand(3, 16, 16, 3, generator=g).cuda(),
+                "action": torch.eye(8)[torch.randint(0, 8, (3,),
+                                                     generator=g)].cuda()}
+               for _ in range(2)]
+    step = make_train_step("action")
+    step(states[0], batches[0])
+    saved = copy.deepcopy(states[0].state_dict())
+    adam = saved["optimizers"][0]["adam"]
+    for group in adam["param_groups"]:
+        group["capturable"], group["lr"] = False, float(group["lr"])
+    for st in adam["state"].values():
+        st["step"] = st["step"].cpu()
+    states[1].load_state_dict(saved)
+    loaded = states[1].optimizers[0].adam
+    assert [g["capturable"] for g in loaded.param_groups] == [True]
+    assert all(st["step"].is_cuda for st in loaded.state.values())
+    for s in states:
+        step(s, batches[1])
+    for p, q in zip(states[0].model.parameters(),
+                    states[1].model.parameters()):
+        assert torch.equal(p, q)
+    for pa, pb in zip(states[0].optimizers[0].params,
+                      states[1].optimizers[0].params):
+        for k, v in states[0].optimizers[0].adam.state[pa].items():
+            assert torch.equal(v, loaded.state[pb][k]), k

@@ -109,13 +109,17 @@ def test_from_jax_params_fills_every_parameter(pair):
 
 
 def test_chip_smoke_model_params_match_yaml():
+    """The smoke run reads its widths from the headline config (without
+    PyYAML) and gets what PyYAML reads."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
     with open(os.path.join(REPO, "configs", "ct_mcq_vae.yaml")) as f:
         want = yaml.safe_load(f)["model_params"]
-    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
-    got = next(ast.literal_eval(node.value) for node in tree.body
-               if isinstance(node, ast.Assign)
-               and getattr(node.targets[0], "id", "") == "MODEL_PARAMS")
-    assert got == want
+    assert smoke.CONFIG == os.path.join(REPO, "configs", "ct_mcq_vae.yaml")
+    assert smoke.MODEL_PARAMS == want
 
 
 def _imports(path):

@@ -33,7 +33,8 @@ from ctvae_torch.convert import from_jax_params
 from ctvae_torch.training import optimizers as topt
 from ctvae_torch.training import state as tstate
 from torch_port_common import (SMALL, ReplayDraws, assert_step_matches,
-                               batch, build_pair, close, jax_train_step,
+                               assert_steps_match, batch, build_pair, close,
+                               jax_multi_train_step, jax_train_step,
                                one_torch_thread, recorded_draws, t2n)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -262,7 +263,181 @@ def test_run_trains_synthetic_ct_on_cpu(tmp_path, monkeypatch):
 
 def test_unported_trainer_options_raise(pair):
     from ctvae_torch.training import VAEXperiment
-    for extra in (dict(scan_steps=4), dict(sharding="fsdp"),
+    for extra in (dict(watch_gradients=1), dict(sharding="fsdp"),
                   dict(metrics=["mig"])):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             VAEXperiment(pair[2], {**EXP, **extra}, None)
+
+
+# --- the multi-step train step and exp_params.scan_steps -------------------
+
+def _adam_tensors(state):
+    """Every tensor of every optimizer's Adam state, in a fixed order."""
+    out = []
+    for opt in state.optimizers:
+        adam = opt.adam.state_dict()["state"]
+        out += [adam[i][k] for i in sorted(adam) for k in sorted(adam[i])]
+    return out
+
+
+def _stacked(seeds, cfg=SMALL):
+    """The batches of ``seeds``, one dict of [n, B, ...] tensors."""
+    bs = [batch(s, cfg=cfg) for s in seeds]
+    return {k: torch.from_numpy(np.stack([b[i] for b in bs]))
+            for i, k in enumerate(("image", "input_y", "action"))}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_multi_train_step_equals_steps_on_cpu(pair, mode):
+    """On the CPU ``make_multi_train_step(mode, 3)`` over 3 stacked
+    batches is 3 calls of ``make_train_step(mode)``: the same parameters,
+    Adam state, generator state, step and last metrics, bit for bit."""
+    import copy
+    stacked = _stacked((21, 22, 23))
+    states = [tstate.create_train_state(
+        m, topt.build_optimizers(EXP, m, 4), seed=7)
+        for m in (copy.deepcopy(pair[2]), copy.deepcopy(pair[2]))]
+    step = tstate.make_train_step(mode)
+    for i in range(3):
+        want = step(states[0], {k: v[i] for k, v in stacked.items()})
+    got = tstate.make_multi_train_step(mode, 3)(states[1], stacked)
+    assert set(got) == set(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert states[0].step == states[1].step == 3
+    assert [o.count for o in states[1].optimizers] == [3]
+    for p, q in zip(states[0].model.parameters(),
+                    states[1].model.parameters()):
+        assert torch.equal(p, q)
+    a, b = _adam_tensors(states[0]), _adam_tensors(states[1])
+    assert len(a) == len(b) > 0 and all(map(torch.equal, a, b))
+    assert torch.equal(states[0].generator.get_state(),
+                       states[1].generator.get_state())
+
+
+def test_multi_train_step_rejects_unstacked_batches(pair):
+    state = tstate.create_train_state(pair[2], [])
+    x, y, a = map(torch.from_numpy, batch(24))
+    with pytest.raises(ValueError, match="stacked"):
+        tstate.make_multi_train_step("base", 2)(
+            state, {"image": x, "input_y": y, "action": a})
+
+
+def test_optimizer_load_takes_this_devices_adam_form(pair):
+    """A train state saved with Adam in its capturable form (as the card
+    saves it) resumes on the CPU in the host form, and the run goes on as
+    one that was never saved, bit for bit."""
+    import copy
+    stacked = _stacked((31, 32))
+    states = [tstate.create_train_state(
+        m, topt.build_optimizers(EXP, m, 4), seed=7)
+        for m in (copy.deepcopy(pair[2]), copy.deepcopy(pair[2]))]
+    step = tstate.make_train_step("action")
+    step(states[0], {k: v[0] for k, v in stacked.items()})
+    saved = copy.deepcopy(states[0].state_dict())
+    for group in saved["optimizers"][0]["adam"]["param_groups"]:
+        group["capturable"] = True
+    states[1].load_state_dict(saved)
+    adam = states[1].optimizers[0].adam
+    assert [g["capturable"] for g in adam.param_groups] == [False]
+    assert all(st["step"].device.type == "cpu"
+               for st in adam.state.values())
+    for s in states:
+        step(s, {k: v[1] for k, v in stacked.items()})
+    for p, q in zip(states[0].model.parameters(),
+                    states[1].model.parameters()):
+        assert torch.equal(p, q)
+    a, b = _adam_tensors(states[0]), _adam_tensors(states[1])
+    assert len(a) == len(b) > 0 and all(map(torch.equal, a, b))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_multi_train_step_matches_jax(monkeypatch, pair, mode):
+    """The port's 3-step call against
+    ``ctvae_tpu.training.state.make_multi_train_step(n_steps=3)`` from the
+    same params on the same three batches, the draws recorded while JAX
+    traced its scan body (the same draws each step) replayed three times:
+    the last step's metrics (ATOL 1e-5, RTOL 1e-4) and ``grad_norm``, each
+    step's gradients and the parameters after the third update
+    (``assert_steps_match``: ``assert_step_matches``' limits over three
+    updates; the GAT ``lin_r`` gradients that a softmax cancels are
+    rounding noise on both sides, ~1e-9, and move their parameters by a
+    share of LR that differs at every update)."""
+    import copy
+    jm, variables, tm0 = pair
+    tm = copy.deepcopy(tm0)
+    stacked = _stacked((31, 32, 33))
+    j_params, j_grads, j_metrics, draws = jax_multi_train_step(
+        jm, variables, mode, {k: jnp.asarray(v.numpy())
+                              for k, v in stacked.items()},
+        monkeypatch, seed=34, exp=EXP, n_steps=3)
+    replay = ReplayDraws(draws * 3)
+    monkeypatch.setattr(tstate, "Draws", lambda gen, device: replay)
+    grads, grads_of = [], tstate._grads
+
+    def kept(state, b, m):
+        out = grads_of(state, b, m)
+        grads.append({n: (p.grad if p.grad is not None
+                          else torch.zeros_like(p)).clone()
+                      for n, p in state.model.named_parameters()})
+        return out
+
+    monkeypatch.setattr(tstate, "_grads", kept)
+    state = tstate.create_train_state(tm, topt.build_optimizers(EXP, tm, 4))
+    metrics = tstate.make_multi_train_step(mode, 3)(state, stacked)
+    assert replay.done() and state.step == 3 and len(grads) == 3
+    assert set(metrics) == set(j_metrics)
+    for k, v in j_metrics.items():
+        close(t2n(metrics[k]), v)
+    close(t2n(metrics["grad_norm"]), j_metrics["grad_norm"], atol=0,
+          rtol=1e-5)
+    assert_steps_match(tm, j_params, j_grads, grads, EXP["LR"])
+
+
+def _scan_experiment(pair, scan_steps, calls):
+    """A ``VAEXperiment`` of the small model on TSynthetic (batches of 4,
+    limit 40: a run of four causal batches, then shorter runs) after one
+    train epoch, counting its multi-step calls in ``calls``."""
+    import copy
+
+    from ctvae_torch.data import VAEDataset
+    from ctvae_torch.training import VAEXperiment
+    data = VAEDataset("", dataset_name="TSynthetic", train_batch_size=4,
+                      val_batch_size=4, patch_size=16, limit=40,
+                      val_limit=8, seed=5)
+    data.setup()
+    exp = VAEXperiment(copy.deepcopy(pair[2]),
+                       dict(EXP, scan_steps=scan_steps), data)
+    exp.setup(seed=3)
+    multi = exp._multi_train_step
+
+    def counted(mode):
+        step = multi(mode)
+
+        def call(state, batches):
+            calls.append((mode, int(batches["image"].shape[0])))
+            return step(state, batches)
+        return call
+
+    exp._multi_train_step = counted
+    return exp, exp.train_epoch(0)
+
+
+def test_scan_steps_epoch_equals_per_step(pair):
+    """``exp_params.scan_steps: 4`` ends a train epoch in the state that
+    ``scan_steps: 1`` leaves, bit for bit (parameters, Adam state, step,
+    generator, the last batch's metrics), over a schedule with a block of
+    four, mode switches and short remainders run step by step."""
+    calls_1, calls_4 = [], []
+    exp_1, out_1 = _scan_experiment(pair, 1, calls_1)
+    exp_4, out_4 = _scan_experiment(pair, 4, calls_4)
+    assert calls_1 == [] and calls_4 == [("causal", 4)]
+    assert exp_1.global_step == exp_4.global_step == 30
+    assert exp_4.state.step == 30
+    for k in out_1:
+        if k != "images_per_sec":
+            assert out_4[k] == out_1[k], k
+    s1, s4 = exp_1.state, exp_4.state
+    for p, q in zip(s1.model.parameters(), s4.model.parameters()):
+        assert torch.equal(p, q)
+    assert all(map(torch.equal, _adam_tensors(s1), _adam_tensors(s4)))
+    assert torch.equal(s1.generator.get_state(), s4.generator.get_state())

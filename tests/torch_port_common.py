@@ -197,6 +197,79 @@ def jax_train_step(jm, variables, mode, b, monkeypatch, seed, exp):
             jax.device_get(metrics), rec.draws)
 
 
+def keep_step_grads(n_steps: int):
+    """An optax transform that passes updates on and keeps each of
+    ``n_steps`` steps' in its state ([n_steps, ...] per leaf, at the
+    step's index): the raw gradients of every step of a scan."""
+    import optax
+
+    def init(p):
+        return (jnp.zeros((), jnp.int32), jax.tree_util.tree_map(
+            lambda x: jnp.zeros((n_steps,) + x.shape, x.dtype), p))
+
+    def update(u, s, p=None):
+        i, kept = s
+        return u, (i + 1, jax.tree_util.tree_map(
+            lambda k, g: k.at[i].set(g), kept, u))
+    return optax.GradientTransformation(init, update)
+
+
+def jax_multi_train_step(jm, variables, mode, stacked, monkeypatch, seed,
+                         exp, n_steps):
+    """``make_multi_train_step(n_steps=n_steps)`` of the JAX package, jitted,
+    on ``stacked`` batches ([n_steps, B, ...]), the optimizer chain of
+    ``exp`` behind ``keep_step_grads``; the scan body is traced once, so
+    its recorded draws are those of every step. Returns (updated params,
+    each step's raw gradients as a list of trees, the last step's
+    metrics, draws)."""
+    import optax
+
+    from ctvae_tpu.training import optimizers as jopt
+    from ctvae_tpu.training import state as jstate
+    params = variables["params"]
+    tx = optax.chain(keep_step_grads(n_steps),
+                     jopt.build_optimizers(exp, params, 4)[0])
+    state = jstate.TrainState(step=jnp.array(0, jnp.int32), params=params,
+                              model_state={}, opt_states=(tx.init(params),),
+                              rng=jax.random.PRNGKey(seed))
+    step = jax.jit(jstate.make_multi_train_step(
+        jm, [tx], n_steps=n_steps, M_N=1.0,
+        fwd_kwargs_keys=("action", "input_y"),
+        static_fwd_kwargs={"mode": mode}))
+    with recorded_draws(monkeypatch, seed=seed) as rec:
+        new, metrics = step(state, stacked)
+    assert int(new.step) == n_steps
+    kept = jax.device_get(new.opt_states[0][0][1])
+    grads = [jax.tree_util.tree_map(lambda g: g[i], kept)
+             for i in range(n_steps)]
+    return jax.device_get(new.params), grads, jax.device_get(metrics), \
+        rec.draws
+
+
+def assert_steps_match(tm, j_params, j_grads, grads, lr):
+    """``assert_step_matches`` over n steps: each step's gradient leaf
+    (``grads[k]``, the port's by name) within 1e-5 x max(1, max |g|) of
+    JAX's (``j_grads[k]``), and each parameter after the n-th update
+    within n (2e-6 + ``lr`` / 1e-8 times the sum over the steps of its
+    gradient's difference). Each update's first and second moments are
+    means of the steps' gradients so far, so one update moves at most lr /
+    1e-8 times the largest difference among them, and n updates at most
+    n times the sum."""
+    from ctvae_torch.convert import from_jax_params
+    n = len(grads)
+    want_p = from_jax_params(j_params, tm)
+    diff = {name: torch.zeros_like(p) for name, p in tm.named_parameters()}
+    for got, want in zip(grads, j_grads):
+        want_g = from_jax_params(want, tm)
+        for name, g in got.items():
+            scale = max(1.0, float(want_g[name].abs().max()))
+            close(t2n(g), want_g[name].numpy(), atol=1e-5 * scale, rtol=0)
+            diff[name] += (g - want_g[name]).abs()
+    for name, p in tm.named_parameters():
+        tol = n * (2e-6 + lr / 1e-8 * diff[name])
+        assert bool(((p.detach() - want_p[name]).abs() <= tol).all()), name
+
+
 def assert_step_matches(tm, j_params, j_grads, lr):
     """Each gradient leaf of the port's model within 1e-5 x max(1, max
     |g|) of JAX's, and each parameter after Adam's first step within 2e-6
