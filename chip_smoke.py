@@ -33,7 +33,7 @@ the launch counters set to 0 just before and read just after:
   sweep), with the bitwise checks of each stage.
 
 Before that, ``VAEXperiment.fit`` runs one short epoch on TSynthetic at the
-same widths (phase "loop"). Then two more phases:
+same widths (phase "loop"). Then three more phases:
 
 * scan: per train mode, 16 steps at the headline widths and B = 16
   taken eagerly from one state and through ``make_multi_train_step(mode,
@@ -45,6 +45,19 @@ same widths (phase "loop"). Then two more phases:
 * bench: ``python -m ctvae_torch.bench --blocks 2`` at its default
   config, its last line checked for every key and an ``mfu`` in (0, 1]
   per mode, and printed.
+* shapes3d: ``configs/mcq_vae.yaml`` and ``configs/ct_mcq_vae.yaml`` as
+  ``config.read_config`` reads them, trained one epoch each through
+  ``run.train`` on a Shapes3D stand-in (30,720 images, all six factors)
+  that the port writes to a temporary directory, with their checkpoints,
+  ``scalars.jsonl`` and image grids checked, then ``apply_action`` on the
+  CT checkpoint; the launch counters are read per config (paths
+  ``shapes3d_mcq`` and ``shapes3d_ct``). Then the loader's host ms per
+  batch, the pinned copy's ms, train steps on real batches, every VQ
+  search call of each mode's step of both configs and every other kernel
+  call of a base, an action and a causal TShapes3D step held against its
+  plain version, and each epoch's first steps again in turns with its
+  batches held, assembled on a loader thread and inline: the loader's
+  share of the epoch.
 
 The second-last line is one JSON
 object with a row per kernel; the last line is ``{"ok": true, "device":
@@ -109,7 +122,7 @@ import time
 
 import torch
 
-from ctvae_torch.config import read_section
+from ctvae_torch.config import read_config, read_section
 
 # the headline configuration, read without PyYAML (the card's machine has
 # none)
@@ -118,7 +131,7 @@ CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
 MODEL_PARAMS = read_section(CONFIG, "model_params")
 EXP_PARAMS = read_section(CONFIG, "exp_params")
 # the loop phase: the headline widths on TSynthetic, whose grid has 4
-# factors and so 8 actions (TShapes3D's 12 are not in the repo)
+# factors and so 8 actions (phase "shapes3d" trains the config as it is)
 LOOP_MODEL_PARAMS = {**MODEL_PARAMS, "action_dim": 8}
 BATCH = 16          # images per request / step (the config's batch sizes)
 REQUESTS = 21       # calls per entry point; the first is the warm-up
@@ -261,7 +274,7 @@ def _vq_on_path(fn) -> list:
     """The VQ search's calls as one call of ``fn`` (a train step) makes
     them, each held against the plain version on its own inputs: indices
     equal except on counted near-ties (``_vq_agreement``), a rerun bit for
-    bit."""
+    bit; and the kernel's time and bound on those inputs."""
     from ctvae_torch.ops import vq
     out = []
     for args, _ in _calls_of(vq, "l2_argmin_cuda", fn):
@@ -270,7 +283,9 @@ def _vq_on_path(fn) -> list:
         same = torch.equal(vq.l2_argmin_cuda(x, cb), got)
         differ, ties, gap = _vq_agreement(x, cb, got)
         out.append({"x": list(x.shape), "differ": differ, "near_ties": ties,
-                    "max_distance_gap": gap, "bit_identical": same})
+                    "max_distance_gap": gap, "bit_identical": same,
+                    "ms": time_ms(lambda: vq.l2_argmin_cuda(x, cb))})
+        out[-1]["bound_ms"], out[-1]["bound_by"] = _vq_bound(x, cb)
         if differ != ties or not same:
             raise AssertionError(f"vq on the step's inputs: {out[-1]}")
     return out
@@ -1852,6 +1867,335 @@ def phase_bench() -> dict:
     return result
 
 
+# --- phase 10: the headline configs from their YAML on Shapes3D -----------
+
+# a Shapes3D stand-in on a grid that keeps all six factors (so the CT
+# config's action_dim 12 holds): 30,720 images, 377 MB of uint8
+SHAPES3D_GRID = (4, 4, 4, 8, 4, 15)
+SHAPES3D_LIMIT = 112       # per mode: 7 TShapes3D train batches of 16
+SHAPES3D_VAL_LIMIT = 64    # per mode: 4 validation batches of 16
+LOADER_BATCHES = 20        # batches timed out of each config's loader
+SHAPES3D_EPOCH_BATCHES = 96   # steps of each epoch timed in turns
+
+
+def _headline_config(name: str, root: str, logs: str) -> dict:
+    """``configs/<name>.yaml`` as ``read_config`` reads it, with the data
+    path, the limits, one epoch and the log directory changed."""
+    cfg = read_config(os.path.join(os.path.dirname(CONFIG), f"{name}.yaml"))
+    cfg["data_params"] = {**cfg["data_params"], "data_path": root,
+                          "limit": SHAPES3D_LIMIT,
+                          "val_limit": SHAPES3D_VAL_LIMIT}
+    cfg["trainer_params"] = {**cfg["trainer_params"], "max_epochs": 1}
+    cfg["logging_params"] = {**cfg["logging_params"], "save_dir": logs}
+    return cfg
+
+
+def _loader_ms(data) -> tuple:
+    """Host ms per batch out of ``data``'s train loader (the schedule,
+    ``get_batch`` and the transform), and ms of the pinned copy of each
+    to the card (``data/prefetch.py::to_device``, synchronised): medians
+    over ``LOADER_BATCHES`` batches; and one batch of each mode."""
+    from ctvae_torch.data import TransitionDataset
+    from ctvae_torch.data.prefetch import to_device
+    ds = data.train_dataset
+    modes = (set(ds.mode_ranges()) if isinstance(ds, TransitionDataset)
+             else {"base"})
+    host, copy, batches = [], [], {}
+    it = iter(data.train_dataloader(0))
+    while True:
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            break
+        mode = batch.pop("mode")
+        if len(host) < LOADER_BATCHES:
+            host.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batches[mode] = to_device(batch, "cuda")
+            torch.cuda.synchronize()
+            copy.append(1e3 * (time.perf_counter() - t0))
+        elif set(batches) == modes:
+            break
+        else:       # a mode the timed batches did not bring
+            batches.setdefault(mode, to_device(batch, "cuda"))
+    return statistics.median(host), statistics.median(copy), batches
+
+
+def _threaded(batches, depth: int = 2):
+    """``batches`` assembled ``depth`` ahead on a host thread that runs
+    torch's CPU ops on one thread of its own (set once as it starts): the
+    prefetch design the port does not take, timed against its inline
+    loader. An error of the thread is raised here."""
+    import queue
+    import threading
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    threads = torch.get_num_threads()
+
+    def worker():
+        try:
+            torch.set_num_threads(1)
+            for b in batches:
+                q.put(b)
+            q.put(None)
+        except BaseException as e:          # raised again in the consumer
+            q.put(e)
+        finally:
+            torch.set_num_threads(threads)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    while (b := q.get()) is not None:
+        if isinstance(b, BaseException):
+            raise b
+        yield b
+    thread.join()
+
+
+class _EpochOf:
+    """A data module over the first ``n`` train batches of ``data``, given
+    to the loop one of three ways: ``held``, replayed from a list built
+    beforehand (the loader's work taken out of the epoch); ``inline``,
+    assembled by the loop's own thread as the port does; ``thread``,
+    assembled ahead on a host thread (``_threaded``)."""
+
+    def __init__(self, data, n: int, how: str):
+        import itertools
+        self.n, self.how = n, how
+        self.batches = lambda: itertools.islice(data.train_dataloader(0), n)
+        self.held = list(self.batches()) if how == "held" else None
+
+    def train_dataloader(self, epoch: int = 0):
+        if self.how == "held":
+            return (dict(b) for b in self.held)
+        return (_threaded(self.batches()) if self.how == "thread"
+                else self.batches())
+
+    def steps_per_epoch(self) -> int:
+        return self.n
+
+
+def _epoch_ms(model, exp_params: dict, data, B: int) -> float:
+    """ms per step of one ``VAEXperiment.train_epoch`` over ``data`` on
+    ``model`` (fresh optimizers)."""
+    from ctvae_torch.training import VAEXperiment
+    experiment = VAEXperiment(model, exp_params, data)
+    experiment.setup(seed=SEED)
+    return 1e3 * B / experiment.train_epoch(0)["images_per_sec"]
+
+
+def _check_run(label: str, cfg: dict, out: dict, logs: str) -> str:
+    """A run's metrics finite, and in its ``version_0``: the checkpoints,
+    ``scalars.jsonl`` lines, valid image grids. Returns the run's dir."""
+    bad = {k: v for k, v in out.items() if not math.isfinite(v)}
+    run_dir = os.path.join(logs, cfg["logging_params"]["name"], "version_0")
+    ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    name = cfg["model_params"]["name"]
+    pngs = [os.path.join(run_dir, sub, f"{prefix}{name}_Epoch_0.png")
+            for sub, prefix in (("Inputs", "real_img_"),
+                                ("Reconstructions", "recons_"),
+                                ("Samples", ""))]
+    invalid = [p for p in pngs if not _valid_png(p)]
+    if bad or "last" not in ckpts or not any(
+            c.startswith("step_") for c in ckpts) or not scalars or invalid:
+        raise AssertionError(f"{label}: non-finite {bad}, checkpoints "
+                             f"{ckpts}, {len(scalars)} scalar lines, "
+                             f"invalid PNGs {invalid}")
+    log(f"{label}: checkpoints {ckpts}; {len(scalars)} lines in "
+        f"scalars.jsonl; Inputs, Reconstructions and Samples PNGs valid")
+    return run_dir
+
+
+def phase_shapes3d() -> tuple:
+    """The two headline configs from their own YAML through the port's
+    entry points, on a Shapes3D stand-in written by the port's writer
+    (numpy only) with its split and transition files: ``run.train`` of
+    ``configs/mcq_vae.yaml`` (Shapes3D, B = 64, ``codebooks: 4``: a full
+    epoch of the stand-in's train split, since ``limit`` cuts transition
+    datasets only) and of ``configs/ct_mcq_vae.yaml`` (TShapes3D, B = 16,
+    7 batches per mode), then ``apply_action`` on the CT run's checkpoint.
+    The launch counters are reset before each run and read after it (the
+    CT path includes ``apply_action``). Then, for both configs on a model
+    of their own: the loader's host ms per batch and the copy's ms, train
+    steps timed on real batches, every VQ search call of each mode's step
+    (the MCQVAE's base, the CT model's base, action and causal) held
+    against the plain version (``_vq_on_path``) and every other kernel
+    call of the CT steps too (``_kernels_on_step``); and the epoch's first
+    ``SHAPES3D_EPOCH_BATCHES`` steps in turns three ways (``_EpochOf``),
+    which give the loader's share of the epoch. Returns the two paths'
+    launches and the checks on the steps."""
+    import tempfile
+    from ctvae_torch import run
+    from ctvae_torch.apply_action import apply_action
+    from ctvae_torch.data import VAEDataset
+    from ctvae_torch.data.standins import write_shapes3d_standin
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_train_step)
+
+    start, threads = time.perf_counter(), torch.get_num_threads()
+    with tempfile.TemporaryDirectory(prefix="ctvae_shapes3d_") as tmp:
+        root, logs = os.path.join(tmp, "Data"), os.path.join(tmp, "logs")
+        t0 = time.perf_counter()
+        npz = write_shapes3d_standin(root, SHAPES3D_GRID)
+        mb = os.path.getsize(npz) / 1e6
+        log(f"shapes3d: stand-in {SHAPES3D_GRID} written in "
+            f"{time.perf_counter() - t0:.2f} s ({mb:.1f} MB npz, split and "
+            f"variation_attrs_6.txt of that grid)")
+
+        cfgs = {name: _headline_config(name, root, logs)
+                for name in ("mcq_vae", "ct_mcq_vae")}
+        paths, outs, run_dirs = {}, {}, {}
+        for name, cfg in cfgs.items():
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = outs[name] = run.train(cfg, device="cuda")
+            secs = time.perf_counter() - t0
+            run_dirs[name] = _check_run(f"shapes3d {name}", cfg, out, logs)
+            if name == "ct_mcq_vae":
+                steps = {m: int(out.get(f"train_steps_{m}", 0))
+                         for m in EXPECTED_TRAIN}
+                if set(steps.values()) != {SHAPES3D_LIMIT // BATCH}:
+                    raise AssertionError(f"shapes3d ct: mode mix {steps}")
+                res = apply_action(cfg, os.path.join(
+                    run_dirs[name], "checkpoints", "last"),
+                    out=os.path.join(tmp, "images"), steps=2, device="cuda")
+                torch.cuda.synchronize()
+                bad = [p for p in res["images"] if not _valid_png(p)]
+                if len(res["images"]) != 1 + 2 * 12 or bad or not (
+                        res["causal_batches"]
+                        and math.isfinite(res["causal_acc"])
+                        and math.isfinite(res["causal_nodir_acc"])):
+                    raise AssertionError(f"shapes3d apply_action: "
+                                         f"{len(res['images'])} PNGs "
+                                         f"({len(bad)} invalid), {res}")
+                log(f"shapes3d apply_action: {len(res['images'])} valid "
+                    f"PNGs; causal sweep {res['causal_acc']:.4f} "
+                    f"({res['causal_nodir_acc']:.4f} undirected) over "
+                    f"{res['causal_batches']} batches")
+            paths[name] = _counts()
+            log(f"shapes3d {name}: run.train of the YAML in {secs:.2f} s; "
+                f"train loss {out['train_loss']:.6g}, val loss "
+                f"{out['val_loss']:.6g}, epoch images/s "
+                f"{out['train_images_per_sec']:.1f}")
+            log(f"launches on the shapes3d {name} path: "
+                f"{json.dumps(paths[name])}")
+
+        # the loader, the copy and the step, each on its own; then every
+        # kernel call of each mode's step held against its plain version;
+        # then the epoch three ways in turns
+        pace, on_step = {}, {"vq_l2_argmin": {"shapes3d": {}}}
+        for name, cfg in cfgs.items():
+            data = VAEDataset(**cfg["data_params"])
+            data.setup()
+            host_ms, copy_ms, batches = _loader_ms(data)
+            exp = cfg["exp_params"]
+            model = build_model(cfg["model_params"], device="cuda",
+                                generator=torch.Generator("cuda")
+                                .manual_seed(SEED))
+            state = create_train_state(
+                model, build_optimizers(exp, model, steps_per_epoch=100),
+                seed=SEED)
+            modes = ("base",) if name == "mcq_vae" else tuple(EXPECTED_TRAIN)
+            B = cfg["data_params"]["train_batch_size"]
+            step_ms = {}
+            for mode in modes:
+                step, batch = make_train_step(mode), batches[mode]
+                secs = []
+                for _ in range(TRAIN_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    loss = float(step(state, batch)["loss"])
+                    secs.append(1e3 * (time.perf_counter() - t0))
+                    if not math.isfinite(loss):
+                        raise AssertionError(f"shapes3d {name} {mode}: loss "
+                                             f"{loss}")
+                step_ms[mode] = statistics.median(secs[1:])
+            found = {}
+            for mode in modes:
+                def run_step(mode=mode):
+                    return make_train_step(mode)(state, batches[mode])
+                vq = _vq_on_path(run_step)
+                if not vq:
+                    raise AssertionError(f"shapes3d {name} {mode}: no VQ call")
+                row = {"calls": len(vq),
+                    "x": sorted({tuple(c["x"]) for c in vq}),
+                    "differ": sum(c["differ"] for c in vq),
+                    "near_ties": sum(c["near_ties"] for c in vq),
+                    "max_distance_gap": max(c["max_distance_gap"]
+                                            for c in vq),
+                    "bit_identical": all(c["bit_identical"] for c in vq),
+                    "ms": statistics.median(c["ms"] for c in vq),
+                    "bound_ms": vq[0]["bound_ms"],
+                    "bound_by": vq[0]["bound_by"]}
+                on_step["vq_l2_argmin"]["shapes3d"][f"{name} {mode}"] = row
+                log(f"shapes3d {name} {mode} B={B}: VQ search "
+                    f"{json.dumps(row)}")
+                if name == "ct_mcq_vae":
+                    found[mode] = _kernels_on_step(f"shapes3d {mode}",
+                                                   run_step)
+            if found:
+                for k in ("pairwise_fwd", "gat_fwd", "pairwise_bwd",
+                          "gat_bwd"):
+                    on_step[k] = {"shapes3d": {m: v[k]
+                                               for m, v in found.items()}}
+                for which in ("fwd", "bwd"):
+                    on_step[f"gat_logits_{which}"] = {"shapes3d": {
+                        m: v["logits"][which] for m, v in found.items()}}
+            # the epoch in turns (ABCCBA): its batches held, assembled
+            # ahead on a host thread, assembled inline as the port does
+            n = min(SHAPES3D_EPOCH_BATCHES, data.steps_per_epoch())
+            ways = {how: _EpochOf(data, n, how)
+                    for how in ("held", "thread", "inline")}
+            turns = {how: [] for how in ways}
+            for how in ("held", "thread", "inline", "inline", "thread",
+                        "held"):
+                turns[how].append(_epoch_ms(model, exp, ways[how], B))
+            ms = {how: statistics.mean(v) for how, v in turns.items()}
+            # what the loader adds to the epoch the port runs
+            share = (ms["inline"] - ms["held"]) / ms["inline"]
+            paced_by = ("step" if share < 0.1 else "loader"
+                        if host_ms > ms["held"] else "step and loader")
+            epoch_ms = 1e3 * B / outs[name]["train_images_per_sec"]
+            pace[name] = {"loader_host_ms_per_batch": host_ms,
+                          "copy_ms_per_batch": copy_ms,
+                          "train_ms_per_step": step_ms,
+                          "run_epoch_ms_per_step": epoch_ms,
+                          "epoch_batches": n,
+                          "epoch_ms_per_step": turns,
+                          "loader_share": share,
+                          "thread_gain_ms_per_step":
+                              ms["inline"] - ms["thread"],
+                          "epoch_images_per_sec":
+                              outs[name]["train_images_per_sec"],
+                          "paced_by": paced_by}
+            rounded = {m: round(v, 3) for m, v in step_ms.items()}
+            log(f"shapes3d {name} B={B}: loader {host_ms:.3f} ms per batch "
+                f"on the host (schedule, get_batch, transform; median of "
+                f"{LOADER_BATCHES}), pinned copy {copy_ms:.3f} ms, train "
+                f"step {json.dumps(rounded)} ms (median of "
+                f"{TRAIN_STEPS - 1} after a warm-up); run.train's epoch "
+                f"{epoch_ms:.3f} ms per step "
+                f"({outs[name]['train_images_per_sec']:.1f} images/s); "
+                f"{n} steps in turns, ms per step: batches held "
+                f"{ms['held']:.3f}, a loader thread {ms['thread']:.3f}, "
+                f"inline {ms['inline']:.3f}: the loader takes "
+                f"{100 * share:.1f}% of the inline epoch, the thread "
+                f"saves {ms['inline'] - ms['thread']:.3f} ms per step; "
+                f"pace set by the {paced_by}")
+            del model, state, batches, ways
+    log(json.dumps({"shapes3d_pace": pace}))
+    # the loop's thread keeps its torch CPU threads
+    if torch.get_num_threads() != threads:
+        raise AssertionError(f"shapes3d: torch threads {threads} -> "
+                             f"{torch.get_num_threads()}")
+    log(f"shapes3d: phase {time.perf_counter() - start:.2f} s (torch CPU "
+        f"threads of the main thread: {threads})")
+    return paths["mcq_vae"], paths["ct_mcq_vae"], on_step
+
+
 # --- phase 7: the two-stage recipe ---------------------------------------
 
 def _valid_png(path: str) -> bool:
@@ -2798,6 +3142,7 @@ def main(argv) -> int:
     two_stage_launches = phase_two_stage()
     scan_launches, scan_ms = phase_scan()
     phase_bench()
+    mcq_launches, ct_launches, s3d_on_step = phase_shapes3d()
     kernels = []
     for r in rows:
         source, replaces = KERNEL_META[r["name"]]
@@ -2805,7 +3150,9 @@ def main(argv) -> int:
                    "train": train_launches[r["name"]],
                    "codebooks_2": c2_launches[r["name"]],
                    "two_stage": two_stage_launches[r["name"]],
-                   "scan": scan_launches[r["name"]]}
+                   "scan": scan_launches[r["name"]],
+                   "shapes3d_mcq": mcq_launches[r["name"]],
+                   "shapes3d_ct": ct_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -2819,12 +3166,17 @@ def main(argv) -> int:
         kernels[-1].update({k: r[k] for k in EXTRA_KEYS if k in r})
         kernels[-1].update(on_step.get(r["name"], {}))
         kernels[-1].update(c2_on_step.get(r["name"], {}))
-    # every kernel runs on the training, codebooks: 2, two-stage and scan
-    # paths, the forward ones on the serving path too
+        kernels[-1].update(s3d_on_step.get(r["name"], {}))
+    # every kernel runs on the training, codebooks: 2, two-stage, scan and
+    # shapes3d CT paths, the forward ones on the serving path too, the VQ
+    # search on the MCQVAE's (which has no CT layer)
     if any(k["launches_by_path"][p] == 0 for k in kernels
-           for p in ("train", "codebooks_2", "two_stage", "scan")) or any(
+           for p in ("train", "codebooks_2", "two_stage", "scan",
+                     "shapes3d_ct")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
-            if EXPECTED["reconstruct"][k["name"]]):
+            if EXPECTED["reconstruct"][k["name"]]) or any(
+            (k["launches_by_path"]["shapes3d_mcq"] == 0)
+            != (k["name"] != "vq_l2_argmin") for k in kernels):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"serve_ms": timings, "train_ms": train_ms,
                     "train_peak_gib": peak, "codebooks_2_train_ms": c2_ms,

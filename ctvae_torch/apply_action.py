@@ -16,8 +16,9 @@ Counterpart of the JAX package's ``apply_action.py``, with its file names:
 5. sweep the test split in causal mode and report the mean
    ``causal_acc`` / ``causal_nodir_acc``.
 
-``apply_action(config, ckpt)`` does the same for a config dict (no YAML
-needed). Runs on ``cuda`` unless ``device`` says otherwise.
+The config is read without PyYAML (``config.read_config``);
+``apply_action(config, ckpt)`` does the same for a config dict. Runs on
+``cuda`` unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ def apply_action(config: Dict, ckpt: str, out: str = "images/",
     from .models import build_model
     from .models.base import Draws
     from .ops.common import resolve_device
-    from .training.experiment import to_device
+    from .data.prefetch import to_device
     from .utils.checkpoint import load_weights_only
     from .utils.images import save_image
 
@@ -160,9 +161,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                         help="torch device (default: cuda, which must exist)")
     args = parser.parse_args(argv)
 
-    import yaml   # here, not at import: the card's machine has no PyYAML
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
+    from .config import read_config
+    config = read_config(args.config)
     walk = (tuple(int(v) for v in args.walk.split(","))
             if args.walk else None)
     result = apply_action(config, args.ckpt, out=args.out,

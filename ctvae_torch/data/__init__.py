@@ -1,5 +1,7 @@
-"""Data layer of the port: numpy datasets and the mode-homogeneous batch
-schedule (counterpart of ``ctvae_tpu/data``, synthetic datasets only)."""
+"""Data layer of the port: numpy datasets (the disent image datasets and
+the synthetic ones), their transform and transition files, the
+mode-homogeneous batch schedule and the copy to the device (counterpart
+of ``ctvae_tpu/data``; CelebA and OxfordPets are not ported yet)."""
 
 from .datamodule import DATASETS, VAEDataset
 from .transition import MODES, TransitionBatchScheduler, TransitionDataset

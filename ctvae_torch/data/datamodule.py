@@ -1,10 +1,15 @@
 """VAEDataset: the data module of the port (numpy batches on the host).
 
-Counterpart of ``ctvae_tpu/data/datamodule.py`` for the datasets the port
-takes so far: ``Synthetic`` (random-factor images, base batches only) and
-``TSynthetic`` (the synthetic factor grid with its one-factor transitions,
-batches of all three modes). Batches are dicts of numpy arrays plus a
-``mode`` string; the trainer moves them to the device. Host sharding takes
+Counterpart of ``ctvae_tpu/data/datamodule.py``. It registers the
+disent-family image datasets (``Cars3D``, ``DSprites``, ``SmallNORB``,
+``Shapes3D``, ``Sprites``) and their transition variants (``T*``, read
+from the datasets' ``variation_attrs_<N>.txt`` files), and ``Synthetic``
+(random-factor images, base batches only) / ``TSynthetic`` (the synthetic
+factor grid with its one-factor transitions). Image datasets go through
+``StandardTransform(patch_size, crop=148)``; ``data_params``'
+``cache_transformed`` and ``device_normalize`` reach their loaders.
+Batches are dicts of numpy arrays plus a ``mode`` string; only ``image``
+and ``input_y`` may be uint8 (``data/prefetch.py``). Host sharding takes
 ``host_id`` / ``num_hosts`` as arguments (default one host).
 """
 
@@ -14,19 +19,38 @@ from typing import Callable, Dict, Iterator, Optional, Sequence, Union
 
 import numpy as np
 
+from .disent_data import DISENT_LOADERS, FACTOR_NAMES
 from .synthetic import GRID_FACTOR_SIZES, SyntheticDataset, SyntheticGridDataset
+from .transforms import StandardTransform
 from .transition import TransitionBatchScheduler, TransitionDataset
 
-NOT_PORTED = ("is not ported yet: the port reads Synthetic and TSynthetic "
-              "only (ROADMAP A2, the image datasets)")
+#: the JAX package's datasets the port does not read yet
+NOT_PORTED = ("Celeba", "TCeleba", "OxfordPets")
 
 
-def _synthetic(split="train", n=512, img_size=64, **kw):
+def _disent(name):
+    def factory(data_dir, split="train", transform=None, **kw):
+        return DISENT_LOADERS[name](data_dir, split=split,
+                                    transform=transform, **kw)
+    return factory
+
+
+def _t_disent(name):
+    def factory(data_dir, split="train", transform=None, **kw):
+        base = DISENT_LOADERS[name](data_dir, split=split,
+                                    transform=transform, **kw)
+        return TransitionDataset.from_variation_file(
+            base, len(FACTOR_NAMES[name]))
+    return factory
+
+
+def _synthetic(data_dir="", split="train", transform=None, n=512,
+               img_size=64, **kw):
     return SyntheticDataset(n=n, split=split, img_size=img_size)
 
 
-def _t_synthetic(split="train", img_size=64, factor_sizes=None,
-                 split_cuts=None, **kw):
+def _t_synthetic(data_dir="", split="train", transform=None, img_size=64,
+                 factor_sizes=None, split_cuts=None, **kw):
     """Transition dataset over the synthetic factor grid: pairs differ in
     exactly one factor and the action names it."""
     base = SyntheticGridDataset(
@@ -36,8 +60,20 @@ def _t_synthetic(split="train", img_size=64, factor_sizes=None,
     return TransitionDataset(base, *base.causal_transitions())
 
 
-DATASETS: Dict[str, Callable] = {"Synthetic": _synthetic,
-                                 "TSynthetic": _t_synthetic}
+DATASETS: Dict[str, Callable] = {
+    "Cars3D": _disent("cars3d"),
+    "TCars3D": _t_disent("cars3d"),
+    "DSprites": _disent("dsprites"),
+    "TDSprites": _t_disent("dsprites"),
+    "SmallNORB": _disent("smallnorb"),
+    "TSmallNORB": _t_disent("smallnorb"),
+    "Shapes3D": _disent("3dshapes"),
+    "TShapes3D": _t_disent("3dshapes"),
+    "Sprites": _disent("sprites"),
+    "TSprites": _t_disent("sprites"),
+    "Synthetic": _synthetic,
+    "TSynthetic": _t_synthetic,
+}
 
 
 def _plain_batches(ds, batch_size: int, shuffle: bool, seed: int,
@@ -61,8 +97,14 @@ class VAEDataset:
                  limit: Optional[int] = None, val_limit: Optional[int] = None,
                  seed: int = 0, host_id: int = 0, num_hosts: int = 1,
                  **kwargs):
+        if dataset_name in NOT_PORTED:
+            raise NotImplementedError(
+                f"dataset {dataset_name!r} is not ported yet: CelebA and "
+                f"OxfordPets decode JPEGs, and the card's machine needs a "
+                f"decoder first (ROADMAP A2, the image datasets)")
         if dataset_name not in DATASETS:
-            raise NotImplementedError(f"dataset {dataset_name!r} {NOT_PORTED}")
+            raise ValueError(f"unknown dataset {dataset_name!r}; the port "
+                             f"reads {sorted(DATASETS)}")
         self.data_dir = data_path
         self.dataset_name = dataset_name
         self.train_batch_size = train_batch_size
@@ -75,11 +117,16 @@ class VAEDataset:
         self.extra = kwargs
 
     def setup(self, stage: Optional[str] = None) -> None:
-        ps = self.patch_size
-        self.extra.setdefault("img_size", ps if isinstance(ps, int) else ps[0])
+        transform = StandardTransform(self.patch_size, crop=148)
+        if "Synthetic" in self.dataset_name:
+            ps = self.patch_size
+            self.extra.setdefault("img_size",
+                                  ps if isinstance(ps, int) else ps[0])
         factory = DATASETS[self.dataset_name]
-        self.train_dataset = factory(split="train", **self.extra)
-        self.val_dataset = factory(split="test", **self.extra)
+        self.train_dataset = factory(self.data_dir, split="train",
+                                     transform=transform, **self.extra)
+        self.val_dataset = factory(self.data_dir, split="test",
+                                   transform=transform, **self.extra)
 
     def _loader(self, ds, batch_size, shuffle, epoch):
         if isinstance(ds, TransitionDataset):

@@ -6,13 +6,16 @@ adds (x, y, action) pairs to a base dataset; its virtual index space is
 ``TransitionBatchScheduler`` is the seeded per-epoch schedule of
 (mode, index batch) pairs: every batch holds one mode, and with several
 hosts each takes its slice of one global batch, so all hosts run the same
-mode at each step. Transitions come from the base dataset's
-``causal_transitions()`` (the synthetic grid); the reference's
-``variation_attrs`` files of the image datasets are not ported.
+mode at each step. Transitions come from the reference's
+``variation_attrs_<N>.txt`` files of the image datasets
+(``TransitionDataset.from_variation_file``) or from the base dataset's
+``causal_transitions()`` (the synthetic grid).
 """
 
 from __future__ import annotations
 
+import csv
+import os
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -34,6 +37,30 @@ class TransitionDataset:
         self.transitions = list(transitions)
         self.actions = actions
         self.num_variations = actions.shape[1] // 2
+
+    @classmethod
+    def from_variation_file(cls, dataset, num_variations: int
+                            ) -> "TransitionDataset":
+        """The transitions of ``dataset``'s split read from
+        ``<root>/<base_folder>/variation_attrs_<num_variations>.txt``
+        (CSV ``,Inputs,Outputs,Variations,Sources,Targets,Splits``), each
+        with the 2N-dim one-hot action ``N * direction + variation``,
+        direction = (target < source)."""
+        keep = {"train": (0,), "valid": (1,), "test": (2,),
+                "all": (0, 1, 2)}[dataset.split]
+        path = os.path.join(dataset.root, dataset.base_folder,
+                            f"variation_attrs_{num_variations}.txt")
+        with open(path) as f:
+            rows = list(csv.reader(f))[1:]
+        transitions, actions = [], []
+        for _, inp, out, variation, source, target, spl in rows:
+            if int(spl) in keep:
+                transitions.append((inp, out))
+                direction = int(int(target) < int(source))
+                actions.append(num_variations * direction + int(variation))
+        onehot = np.zeros((len(actions), 2 * num_variations), np.float32)
+        onehot[np.arange(len(actions)), actions] = 1.0
+        return cls(dataset, transitions, onehot)
 
     def __len__(self) -> int:
         return len(self.dataset) + 2 * len(self.transitions)

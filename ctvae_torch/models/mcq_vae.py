@@ -68,6 +68,10 @@ class MCQVAE(nn.Module):
                 "vq_loss": vq_loss,
                 "perplexity": codebook_perplexity(inds, self.num_embeddings)}
 
+    def generate(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        """The forward's images (the transition keys are ignored)."""
+        return self(x, **kwargs)["recons"]
+
     def _decode_quantized(self, z: torch.Tensor) -> torch.Tensor:
         quantized, _ = self.vq_layer(z.to(self.device))
         return self.decoder(quantized)

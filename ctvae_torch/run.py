@@ -1,58 +1,46 @@
 """Training entry point of the port.
 
-    python -m ctvae_torch.run -c configs/synthetic_ct.yaml [--device cpu]
+    python -m ctvae_torch.run -c configs/ct_mcq_vae.yaml [--device cpu]
 
 Reads the same YAML schema as the JAX package's ``run.py``
 (``model_params`` / ``data_params`` / ``exp_params`` / ``trainer_params``
-/ ``logging_params``) and trains on ``cuda`` unless ``--device`` says
-otherwise. The PL Trainer knobs ``gradient_clip_val`` and
-``accumulate_grad_batches`` move from ``trainer_params`` to the optimizer,
-as there. Checkpoints (the best two by ``val_Reconstruction_Loss`` and
-``last``) go to ``<save_dir>/<name>/version_<n>/checkpoints``;
-``trainer_params.resume_from_checkpoint`` resumes the full state from a
-checkpoint file, or with ``load_weights_only: true`` loads its weights
-only (the two-stage recipe). The metrics of each epoch are printed; the
-logger is not ported yet (ROADMAP A4).
+/ ``logging_params``), without PyYAML (``config.read_config``), and
+trains on ``cuda`` unless ``--device`` says otherwise. The PL Trainer
+knobs ``gradient_clip_val`` and ``accumulate_grad_batches`` move from
+``trainer_params`` to the optimizer, as there. The run's directory is
+``<save_dir>/<name>/version_<n>`` (``utils/logging.py``): ``hparams.json``,
+``scalars.jsonl``, the ``Inputs`` / ``Reconstructions`` / ``Samples``
+grids of each epoch and ``checkpoints`` (the best two by
+``val_Reconstruction_Loss`` and ``last``). ``trainer_params.
+resume_from_checkpoint`` resumes the full state from a checkpoint file,
+or with ``load_weights_only: true`` loads its weights only (the two-stage
+recipe). SIGTERM saves ``last`` at the end of the running epoch and
+stops.
+
+``train(config, device)`` does the work for a config dict.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import List, Optional
+import signal
+from typing import Dict, List, Optional
 
 
-def next_version_dir(save_dir: str, name: str) -> str:
-    """``<save_dir>/<name>/version_<n>`` with n one above the highest
-    existing version (0 for the first run), as the JAX logger numbers
-    its runs."""
-    base = os.path.join(save_dir, name)
-    versions = [int(d.split("_")[1]) for d in
-                (os.listdir(base) if os.path.isdir(base) else [])
-                if d.startswith("version_") and d.split("_")[1].isdigit()]
-    return os.path.join(base, f"version_{max(versions) + 1 if versions else 0}")
-
-
-def main(argv: Optional[List[str]] = None) -> dict:
-    parser = argparse.ArgumentParser(description="Train a model of the port")
-    parser.add_argument("--config", "-c", dest="filename", metavar="FILE",
-                        default="configs/synthetic_ct.yaml",
-                        help="path to the config file")
-    parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda, which must exist)")
-    args = parser.parse_args(argv)
-
-    import yaml   # here, not at import: the card's machine has no PyYAML
-    with open(args.filename) as f:
-        config = yaml.safe_load(f)
-
+def train(config: Dict, device=None) -> dict:
+    """Train the model of ``config`` (the YAML's sections as dicts) on
+    ``device`` (default ``cuda``); returns the last epoch's ``train_`` and
+    ``val_`` metrics. The run's files go to the first free
+    ``<save_dir>/<name>/version_<n>``."""
     import torch
 
     from .data import VAEDataset
     from .models import build_model
     from .ops.common import resolve_device
-    from .training import VAEXperiment
+    from .training import VAEXperiment, install_preemption_handler
     from .utils.checkpoint import CheckpointManager
+    from .utils.logging import ExperimentLogger
 
     exp_params = dict(config.get("exp_params", {}))
     trainer_params = dict(config.get("trainer_params", {}))
@@ -64,19 +52,24 @@ def main(argv: Optional[List[str]] = None) -> dict:
             exp_params.setdefault(knob, trainer_params.pop(knob))
 
     seed = int(exp_params.get("manual_seed", 1265))
-    device = resolve_device(args.device)
+    device = resolve_device(device)
+    logger = ExperimentLogger(
+        save_dir=logging_params.get("save_dir", "logs/"),
+        name=logging_params.get("name", model_params.get("name", "model")),
+        use_wandb=bool(logging_params.get("use_wandb", False)),
+        hparams=config)
+    print(f"=> logging to {logger.log_dir}", flush=True)
     model = build_model(model_params, device=device,
                         generator=torch.Generator(device).manual_seed(seed))
     data_params.setdefault("seed", seed)
     data = VAEDataset(**data_params)
     data.setup()
-    log_dir = next_version_dir(
-        logging_params.get("save_dir", "logs/"),
-        logging_params.get("name", model_params.get("name", "model")))
-    ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"), top_k=2,
-                             monitor="val_Reconstruction_Loss")
-    print(f"=> checkpoints to {ckpt.dir}", flush=True)
-    experiment = VAEXperiment(model, exp_params, data, ckpt_manager=ckpt)
+    ckpt = CheckpointManager(os.path.join(logger.log_dir, "checkpoints"),
+                             top_k=2, monitor="val_Reconstruction_Loss")
+    experiment = VAEXperiment(model, exp_params, data, logger=logger,
+                              ckpt_manager=ckpt)
+    for sub in ("Inputs", "Samples", "Reconstructions"):
+        os.makedirs(os.path.join(logger.log_dir, sub), exist_ok=True)
     experiment.setup(seed=seed)
 
     resume = trainer_params.get("resume_from_checkpoint")
@@ -94,7 +87,29 @@ def main(argv: Optional[List[str]] = None) -> dict:
     print(f"======= Training {model_params.get('name')} on "
           f"{device} ({data.steps_per_epoch()} steps per epoch) =======",
           flush=True)
-    return experiment.fit(max_epochs, seed=seed)
+    # a preemption notice (SIGTERM) checkpoints and stops at the epoch's end
+    previous = install_preemption_handler(experiment)
+    try:
+        out = experiment.fit(max_epochs, seed=seed,
+                             sample_dir=logger.log_dir)
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+        logger.finish()
+    return out
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    parser = argparse.ArgumentParser(description="Train a model of the port")
+    parser.add_argument("--config", "-c", dest="filename", metavar="FILE",
+                        default="configs/synthetic_ct.yaml",
+                        help="path to the config file")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda, which must exist)")
+    args = parser.parse_args(argv)
+
+    from .config import read_config
+    return train(read_config(args.filename), device=args.device)
 
 
 if __name__ == "__main__":

@@ -3,12 +3,19 @@
 Counterpart of ``ctvae_tpu/training/experiment.py``: ``setup`` builds the
 optimizers from ``exp_params`` and the train state; ``train_epoch`` runs
 one train step per batch of the data module's mode-homogeneous schedule
-(one step function per mode), the learning rate read per optimizer update
-from the schedule; ``validate`` averages the eval step's scalars over the
+(one step function per mode; batches reach the device through
+``data/prefetch.py``), the learning rate read per optimizer update from
+the schedule; ``validate`` averages the eval step's scalars over the
 validation batches under ``val_`` keys; ``fit`` alternates the two from
-``start_epoch`` and, with a ``CheckpointManager``, saves after each
-validation. ``restore_full_state`` resumes a run bit for bit;
-``load_weights`` is the weights-only restore of the two-stage recipe.
+``start_epoch``, writes the ``Inputs`` / ``Reconstructions`` / ``Samples``
+grids of each epoch (``sample_images``) and, with a ``CheckpointManager``,
+saves after each validation. With an ``ExperimentLogger`` the train
+metrics and learning rate go to it every ``log_every`` steps, and the
+epoch, images per second and validation scalars once per epoch.
+``install_preemption_handler`` turns SIGTERM into a ``last`` checkpoint
+and a stop at the next epoch boundary. ``restore_full_state`` resumes a
+run bit for bit; ``load_weights`` is the weights-only restore of the
+two-stage recipe.
 
 ``exp_params.scan_steps`` K > 1 runs each K consecutive batches of one
 mode and shape as one ``make_multi_train_step`` call (on the card, K
@@ -16,13 +23,14 @@ replays of a captured CUDA graph); a mode switch, a shape change or the
 epoch's end runs what is buffered as per-step calls.
 
 Not ported yet (ROADMAP A4): asynchronous checkpoints, the
-disentanglement metrics, ``sample_images``, the hang watchdog, sharded or
-multi-device training and a logger. The ``exp_params`` keys that ask for
-them raise ``NotImplementedError``.
+disentanglement metrics, ``watch_gradients``, ``profile``, the hang
+watchdog and sharded or multi-device training. The ``exp_params`` keys
+that ask for them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -30,6 +38,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..data.prefetch import to_device
+from ..models.base import Draws
 from ..utils.checkpoint import CheckpointManager, load_weights_only
 from .optimizers import build_lr_schedules, build_optimizers
 from .state import TrainState, create_train_state, make_eval_step, \
@@ -43,16 +53,28 @@ NOT_PORTED = {"sharding": (None, "dp"),
               "model_axis": (None, 1), "async_checkpointing": (None, False)}
 
 
-def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    """Numpy batch (the ``mode`` string popped) -> tensors on ``device``."""
-    return {k: torch.from_numpy(np.asarray(v)).to(device)
-            for k, v in batch.items()}
+__all__ = ["VAEXperiment", "install_preemption_handler"]
+
+
+def install_preemption_handler(experiment: "VAEXperiment", signals=None):
+    """Route SIGTERM (or ``signals``) to ``experiment.request_stop``: the
+    run saves ``last`` at the next epoch boundary and stops. Returns the
+    handlers it replaced, by signal, for the caller to put back."""
+    import signal
+
+    def handler(signum, frame):
+        experiment.request_stop()
+
+    return {s: signal.signal(s, handler)
+            for s in (signals or (signal.SIGTERM,))}
 
 
 class VAEXperiment:
 
     def __init__(self, model: nn.Module, exp_params: Dict[str, Any],
-                 datamodule, ckpt_manager: Optional[CheckpointManager] = None):
+                 datamodule, logger=None,
+                 ckpt_manager: Optional[CheckpointManager] = None,
+                 log_every: int = 50):
         bad = [k for k, off in NOT_PORTED.items()
                if exp_params.get(k) not in off]
         if bad:
@@ -61,7 +83,10 @@ class VAEXperiment:
         self.model = model
         self.params = dict(exp_params)
         self.data = datamodule
+        self.logger = logger
         self.ckpt = ckpt_manager
+        self.log_every = log_every
+        self._stop_requested = False
         self.state: Optional[TrainState] = None
         self.lr_schedules = None
         self._train_steps: Dict[str, Any] = {}
@@ -138,23 +163,24 @@ class VAEXperiment:
             nonlocal metrics, images
             if not pending:
                 return
-            batches = [to_device(b, self.device) for b in pending]
-            if len(batches) == self.scan_steps > 1:
+            if len(pending) == self.scan_steps > 1:
                 metrics = self._multi_train_step(pend_mode)(
-                    self.state, {k: torch.stack([b[k] for b in batches])
-                                 for k in batches[0]})
+                    self.state, {k: torch.stack([b[k] for b in pending])
+                                 for k in pending[0]})
             else:
-                for b in batches:
+                for b in pending:
                     metrics = self._train_step(pend_mode)(self.state, b)
-            images += sum(int(np.shape(b["image"])[0]) for b in pending)
+            images += sum(int(b["image"].shape[0]) for b in pending)
             modes[pend_mode] = modes.get(pend_mode, 0) + len(pending)
             self.global_step += len(pending)
+            self._log_train(metrics, len(pending))
             pending.clear()
 
         for batch in self.data.train_dataloader(epoch):
             mode = batch.pop("mode", "base")
-            if pending and (mode != pend_mode or np.shape(batch["image"])
-                            != np.shape(pending[0]["image"])):
+            batch = to_device(batch, self.device)
+            if pending and (mode != pend_mode or batch["image"].shape
+                            != pending[0]["image"].shape):
                 flush()     # a mode switch or the epoch tail's batch size
             pend_mode = mode
             pending.append(batch)
@@ -170,34 +196,101 @@ class VAEXperiment:
         host.update({f"steps_{m}": float(n) for m, n in modes.items()})
         return host
 
+    def _log_train(self, metrics: Dict[str, torch.Tensor], n_new: int
+                   ) -> None:
+        """Step-cadence logging, once per executed block: the block's last
+        metrics and each optimizer's learning rate when a step of the block
+        crossed a multiple of ``log_every``."""
+        if self.logger is None or self.global_step % self.log_every >= n_new:
+            return
+        logged = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+        for i, sched in enumerate(self.lr_schedules):
+            logged["lr" if i == 0 else f"lr_{i + 1}"] = np.float32(
+                sched(self.global_step))
+        self.logger.log_all(logged, self.global_step)
+
     def validate(self, epoch: int) -> Dict[str, float]:
         sums: Dict[str, float] = {}
         counts: Dict[str, int] = {}
         for batch in self.data.val_dataloader(epoch):
             mode = batch.pop("mode", "base")
-            metrics = self._eval_step(mode)(self.state,
-                                            to_device(batch, self.device))
+            batch = to_device(batch, self.device)
+            metrics = self._eval_step(mode)(self.state, batch)
             for k, v in metrics.items():
                 if v.dim() == 0:
                     sums[k] = sums.get(k, 0.0) + float(v)
                     counts[k] = counts.get(k, 0) + 1
-        return {"val_" + k: sums[k] / counts[k] for k in sums}
+        out = {"val_" + k: sums[k] / counts[k] for k in sums}
+        if self.logger is not None:
+            self.logger.log_all(out, self.global_step)
+        return out
 
-    def fit(self, max_epochs: int, seed: int = 0) -> Dict[str, float]:
+    def fit(self, max_epochs: int, seed: int = 0,
+            sample_dir: Optional[str] = None) -> Dict[str, float]:
         """Train from ``start_epoch`` to ``max_epochs``, validating after
-        each epoch, saving a checkpoint with the validation metrics when a
+        each epoch, writing the epoch's image grids under ``sample_dir``
+        when given, saving a checkpoint with the validation metrics when a
         manager is set, and printing one line per epoch; returns the last
         epoch's train metrics (``train_`` keys) and validation metrics
-        (``val_`` keys)."""
+        (``val_`` keys). A stop request (``request_stop``) saves ``last``
+        after the current epoch's training and returns."""
         if self.state is None:
             self.setup(seed=seed)
         out: Dict[str, float] = {}
         for epoch in range(self.start_epoch, max_epochs):
             train = self.train_epoch(epoch)
+            if self._stop_requested:
+                if self.ckpt is not None:
+                    self.ckpt.save(self.state, self.global_step)
+                print(f"=> stop requested: saved checkpoint at step "
+                      f"{self.global_step} (epoch {epoch}); resume with "
+                      f"trainer_params.resume_from_checkpoint", flush=True)
+                break
             val = self.validate(epoch)
+            if sample_dir is not None:
+                self.sample_images(sample_dir, epoch)
             if self.ckpt is not None:
                 self.ckpt.save(self.state, self.global_step, metrics=val)
+            if self.logger is not None:
+                self.logger.add_scalar("epoch", epoch, self.global_step)
+                self.logger.add_scalar("images_per_sec",
+                                       train["images_per_sec"],
+                                       self.global_step)
             out = {**{f"train_{k}": v for k, v in train.items()}, **val}
             print(f"epoch {epoch}: " + ", ".join(
                 f"{k} {v:.5g}" for k, v in sorted(out.items())), flush=True)
         return out
+
+    def request_stop(self) -> None:
+        """Ask ``fit`` to save ``last`` and stop at the next epoch boundary
+        (only sets a flag, so a signal handler may call it)."""
+        self._stop_requested = True
+
+    def sample_images(self, out_dir: str, epoch: int,
+                      num_samples: int = 32) -> None:
+        """The first test batch's inputs and reconstructions (``generate``,
+        in the batch's mode) and, where the model has ``sample``,
+        ``num_samples`` decoded random latents, as PNG grids under
+        ``out_dir``'s ``Inputs``, ``Reconstructions`` and ``Samples``. The
+        epoch seeds the draws, so each epoch's samples are fresh."""
+        from ..utils.images import save_image
+        batch = next(iter(self.data.test_dataloader(epoch)))
+        mode = batch.pop("mode", "base")
+        batch = to_device(batch, self.device)
+        name = type(self.model).__name__
+        draws = Draws(torch.Generator(self.device).manual_seed(epoch),
+                      self.device)
+
+        def save(images: torch.Tensor, sub: str, fname: str) -> None:
+            save_image(images.cpu().numpy(), os.path.join(out_dir, sub, fname),
+                       normalize=True)
+
+        save(batch["image"], "Inputs", f"real_img_{name}_Epoch_{epoch}.png")
+        kwargs = {k: batch[k] for k in ("action", "input_y") if k in batch}
+        with torch.no_grad():
+            recons = self.model.generate(batch["image"], mode=mode,
+                                         draws=draws, **kwargs)
+            save(recons, "Reconstructions", f"recons_{name}_Epoch_{epoch}.png")
+            if hasattr(self.model, "sample"):
+                save(self.model.sample(num_samples, draws=draws), "Samples",
+                     f"{name}_Epoch_{epoch}.png")

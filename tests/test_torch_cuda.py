@@ -808,3 +808,30 @@ def test_train_state_resumes_on_card_from_host_form_adam(card):
                       states[1].optimizers[0].params):
         for k, v in states[0].optimizers[0].adam.state[pa].items():
             assert torch.equal(v, loaded.state[pb][k]), k
+
+
+def test_pinned_uint8_copy_equals_cpu_path(card):
+    """``data/prefetch.py::to_device`` on the card (pinned memory, a
+    non-blocking copy, the /255 on the device) gives the CPU path's
+    float32 images bit for bit, and the same actions and labels; behind
+    a queued kernel, so the copy really overlaps."""
+    from ctvae_torch.data.prefetch import to_device
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.integers(0, 256, (16, 64, 64, 3), dtype=np.uint8),
+             "input_y": rng.integers(0, 256, (16, 64, 64, 3),
+                                     dtype=np.uint8),
+             "action": np.eye(12, dtype=np.float32)[rng.integers(0, 12, 16)],
+             "labels": rng.integers(0, 4, (16, 6))}
+    want = to_device(batch, "cpu")
+    busy = torch.randn(4096, 4096, device=card)
+    for _ in range(4):
+        busy = busy @ busy / 64.0          # work queued ahead of the copy
+    got = to_device(batch, card)
+    torch.cuda.synchronize()
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].device.type == "cuda" and got[k].dtype == want[k].dtype
+        assert torch.equal(got[k].cpu(), want[k]), k
+    assert torch.equal(want["image"],
+                       torch.from_numpy(batch["image"].astype(np.float32)
+                                        / 255.0))
