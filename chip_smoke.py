@@ -33,7 +33,7 @@ the launch counters set to 0 just before and read just after:
   sweep), with the bitwise checks of each stage.
 
 Before that, ``VAEXperiment.fit`` runs one short epoch on TSynthetic at the
-same widths (phase "loop"). Then three more phases:
+same widths (phase "loop"). Then four more phases:
 
 * scan: per train mode, 16 steps at the headline widths and B = 16
   taken eagerly from one state and through ``make_multi_train_step(mode,
@@ -58,6 +58,12 @@ same widths (phase "loop"). Then three more phases:
   plain version, and each epoch's first steps again in turns with its
   batches held, assembled on a loader thread and inline: the loader's
   share of the epoch.
+* metrics: ``configs/ct_mcq_vae.yaml`` trained one epoch through
+  ``run.train`` on the same stand-in with ``exp_params.metrics`` = DCI,
+  MIG, SAP, FactorVaeScore (the launch counters read as path
+  ``metrics``), each metric's card seconds at both headline configs'
+  sample sizes, one DCI fit profiled, and the four metric functions on
+  the card against the CPU over one table of 256 codes.
 
 The second-last line is one JSON
 object with a row per kernel; the last line is ``{"ok": true, "device":
@@ -100,6 +106,10 @@ build's index agreement with the plain version (``compare_vq``).
 and for the GATv2 per-head logits, forward and backward, on the calls of
 each train mode's step and on the check's inputs at A*B = 192 and B = 16
 (``compare_gat_logits``).
+
+    python3 chip_smoke.py --metrics-only
+
+builds the kernels and runs only the phase "metrics" (``phase_metrics``).
 
     python3 chip_smoke.py --train-step-against OTHER_CHECKOUT [...]
 
@@ -274,7 +284,8 @@ def _vq_on_path(fn) -> list:
     """The VQ search's calls as one call of ``fn`` (a train step) makes
     them, each held against the plain version on its own inputs: indices
     equal except on counted near-ties (``_vq_agreement``), a rerun bit for
-    bit; and the kernel's time and bound on those inputs."""
+    bit; and the kernel's, the plain version's and ``cdist`` + ``argmin``'s
+    times and the bound on those inputs."""
     from ctvae_torch.ops import vq
     out = []
     for args, _ in _calls_of(vq, "l2_argmin_cuda", fn):
@@ -284,7 +295,10 @@ def _vq_on_path(fn) -> list:
         differ, ties, gap = _vq_agreement(x, cb, got)
         out.append({"x": list(x.shape), "differ": differ, "near_ties": ties,
                     "max_distance_gap": gap, "bit_identical": same,
-                    "ms": time_ms(lambda: vq.l2_argmin_cuda(x, cb))})
+                    "ms": time_ms(lambda: vq.l2_argmin_cuda(x, cb)),
+                    "plain_ms": time_ms(lambda: vq.l2_argmin_plain(x, cb)),
+                    "library_ms": time_ms(
+                        lambda: torch.cdist(x, cb).argmin(1))})
         out[-1]["bound_ms"], out[-1]["bound_by"] = _vq_bound(x, cb)
         if differ != ties or not same:
             raise AssertionError(f"vq on the step's inputs: {out[-1]}")
@@ -2128,6 +2142,9 @@ def phase_shapes3d() -> tuple:
                                             for c in vq),
                     "bit_identical": all(c["bit_identical"] for c in vq),
                     "ms": statistics.median(c["ms"] for c in vq),
+                    "plain_ms": statistics.median(c["plain_ms"] for c in vq),
+                    "library_ms": statistics.median(c["library_ms"]
+                                                    for c in vq),
                     "bound_ms": vq[0]["bound_ms"],
                     "bound_by": vq[0]["bound_by"]}
                 on_step["vq_l2_argmin"]["shapes3d"][f"{name} {mode}"] = row
@@ -2194,6 +2211,226 @@ def phase_shapes3d() -> tuple:
     log(f"shapes3d: phase {time.perf_counter() - start:.2f} s (torch CPU "
         f"threads of the main thread: {threads})")
     return paths["mcq_vae"], paths["ct_mcq_vae"], on_step
+
+
+# --- phase 11: the disentanglement metrics ---------------------------------
+
+METRIC_NAMES = ["DCI", "MIG", "SAP", "FactorVaeScore"]
+METRIC_KEYS = ("dci.disentanglement", "dci.completeness",
+               "dci.informativeness_train", "dci.informativeness_test",
+               "mig.discrete_score", "sap.score",
+               "factor_vae.mean_accuracy", "factor_vae.eval_accuracy",
+               "factor_vae.num_active_dims")
+# the metrics' sample sizes at the headline configs (run.py: 20 / 10 train
+# batches, batches of val_batch_size): ct_mcq_vae B = 16, mcq_vae B = 64
+METRIC_SIZES = {"ct_mcq_vae": (16, 320, 160), "mcq_vae": (64, 1280, 640)}
+# the card against the CPU on one table of codes, cut to the dims of
+# largest variance (CPU torch at D = 8,192 is slow; most codes of a
+# briefly trained encoder are nearly constant), DCI at this many rounds
+CPU_DIMS, CPU_ESTIMATORS = 256, 10
+# card against CPU: MIG to rounding of the logs, SAP to rounding of the
+# mean accuracies (the SVMs' predictions must be equal), FactorVAE
+# exactly (counts of votes), DCI's four numbers within DCI_TOL (the
+# trees' cumulative sums round in another order on the card; a split
+# that differs is printed)
+MIG_TOL, SAP_TOL, DCI_TOL = 1e-12, 1e-12, 1e-6
+
+
+class _TableSampler:
+    """The metrics' sampler over a table of codes of every grid image:
+    observations are the rows' indices, so ``repr_fn`` is a lookup and
+    the card and the CPU see the same codes."""
+
+    def __init__(self, dataset, seed: int = 0):
+        import numpy as np
+        self.ds = dataset
+        self.factor_sizes = tuple(dataset.factor_sizes)
+        self.rng = np.random.default_rng(seed)
+
+    def sample_factors(self, n: int):
+        import numpy as np
+        return np.stack([self.rng.integers(0, s, n)
+                         for s in self.factor_sizes], axis=1)
+
+    def observations_from_factors(self, factors):
+        return self.ds.factor_to_index(factors)
+
+    def sample(self, n: int):
+        f = self.sample_factors(n)
+        return f, self.observations_from_factors(f)
+
+
+def _code_table(full, repr_fn, dims: int, chunk: int = 512) -> torch.Tensor:
+    """The ``dims`` codes of largest variance over every image of the
+    grid, on the card."""
+    rows = []
+    for lo in range(0, len(full.images_raw), chunk):
+        raw = full.images_raw[lo:lo + chunk]
+        rows.append(repr_fn(full.transform.batch(raw)))
+    table = torch.cat(rows)
+    keep = torch.topk(table.var(0), dims).indices.sort().values
+    return table[:, keep].contiguous()
+
+
+def _gbt_splits_differ(z_dev, z_cpu, f, est: int) -> list:
+    """Each factor's trees fitted on the card and on the CPU: the splits
+    (round, tree, node) whose feature or threshold differ."""
+    from ctvae_torch.metrics.gbt import fit_gbt
+    out = []
+    for j in range(f.shape[1]):
+        y = torch.as_tensor(f[:, j])
+        a = fit_gbt(z_dev, y.cuda(), n_estimators=est)
+        b = fit_gbt(z_cpu, y, n_estimators=est)
+        fa, fb = a.feature.cpu(), b.feature
+        ta, tb = a.threshold.cpu(), b.threshold
+        bad = ((fa != fb) | ((ta - tb).abs() > 1e-6)).nonzero().tolist()
+        out += [{"factor": j, "round": r, "tree": k, "node": h,
+                 "card": [int(fa[r, k, h]), float(ta[r, k, h])],
+                 "cpu": [int(fb[r, k, h]), float(tb[r, k, h])]}
+                for r, k, h in bad]
+    return out
+
+
+def phase_metrics(smi: str) -> tuple:
+    """The disentanglement metrics through the port's entry point and on
+    the card. (1) ``run.train`` of ``configs/ct_mcq_vae.yaml`` on a
+    Shapes3D stand-in (phase "shapes3d"'s grid and limits, one epoch)
+    with ``exp_params.metrics`` = DCI, MIG, SAP, FactorVaeScore: the
+    epoch's kernels launched, the metrics' ``val_`` keys finite in the
+    result and in ``scalars.jsonl``. (2) Each metric timed on the card at
+    both headline configs' sample sizes, through the trained encoder (D =
+    8,192), and one DCI fit profiled (its largest device ops). (3) One
+    table of codes of the grid (its ``CPU_DIMS`` of largest variance), the
+    four metric functions on it on the card and on the CPU, held at the
+    stated tolerances, with the SVMs' coefficients and the trees' splits
+    compared.
+    Returns the launches of (1) and the seconds of (2)."""
+    import tempfile
+    import numpy as np
+    from ctvae_torch import run
+    from ctvae_torch.data import VAEDataset
+    from ctvae_torch.data.standins import write_shapes3d_standin
+    from ctvae_torch.metrics import GroundTruthSampler, Metric
+    from ctvae_torch.metrics import disentanglement as dis
+    from ctvae_torch.metrics.disentanglement import _collect
+    from ctvae_torch.metrics.gbt import fit_gbt
+    from ctvae_torch.metrics.linear_svc import (fit_linear_svc,
+                                                predict_linear_svc)
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import make_repr_fn
+    from ctvae_torch.utils.checkpoint import load_weights_only
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ctvae_metrics_") as tmp:
+        root, logs = os.path.join(tmp, "Data"), os.path.join(tmp, "logs")
+        write_shapes3d_standin(root, SHAPES3D_GRID)
+        cfg = _headline_config("ct_mcq_vae", root, logs)
+        cfg["exp_params"] = {**cfg["exp_params"], "metrics": METRIC_NAMES}
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = run.train(cfg, device="cuda")
+        secs = time.perf_counter() - t0
+        launches = _counts()
+        run_dir = _check_run("metrics ct_mcq_vae", cfg, out, logs)
+        logged = {}
+        with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+            for line in f:
+                logged.update(json.loads(line))
+        vals = {k: out.get("val_" + k) for k in METRIC_KEYS}
+        if any(v is None or not math.isfinite(v) for v in vals.values()) \
+                or any("val_" + k not in logged for k in METRIC_KEYS):
+            raise AssertionError(f"metrics: val_ keys {vals}, logged "
+                                 f"{sorted(k for k in logged if '.' in k)}")
+        log(f"metrics: run.train of ct_mcq_vae with exp_params.metrics "
+            f"{METRIC_NAMES} in {secs:.2f} s: {json.dumps(vals)}")
+        log(f"launches on the metrics path: {json.dumps(launches)}")
+
+        # (2) each metric at both configs' sizes, through the encoder
+        model = build_model(cfg["model_params"], device="cuda")
+        load_weights_only(os.path.join(run_dir, "checkpoints", "last"),
+                          model)
+        repr_fn = make_repr_fn(model)
+        data = VAEDataset(**cfg["data_params"])
+        data.setup()
+        full = data.val_dataset._full_data
+        D = int(repr_fn(full.transform.batch(full.images_raw[:1])).shape[1])
+        seconds = {}
+        for name, (B, n_tr, n_te) in METRIC_SIZES.items():
+            seconds[name] = {}
+            for metric in METRIC_NAMES:
+                m = Metric(metric, full, batch_size=B, num_train=n_tr,
+                           num_test=n_te)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = m.compute(repr_fn)
+                torch.cuda.synchronize()
+                seconds[name][metric] = time.perf_counter() - t0
+                if not all(math.isfinite(v) for v in res.values()):
+                    raise AssertionError(f"metrics {name} {metric}: {res}")
+            log(f"metrics at {name}'s sizes (B = {B}, {n_tr} / {n_te} "
+                f"samples, D = {D}), seconds on the card: "
+                f"{json.dumps(seconds[name])}; {smi}")
+
+        # one DCI fit profiled: device time by kernel at mcq_vae's sizes,
+        # on the factor of most classes, 5 rounds
+        B, n_tr, _ = METRIC_SIZES["mcq_vae"]
+        f_tr, z_tr = _collect(GroundTruthSampler(full), repr_fn, n_tr, B)
+        j = int(np.argmax(full.factor_sizes))
+        y = torch.as_tensor(f_tr[:, j], device="cuda")
+        fit_gbt(z_tr, y, n_estimators=1)
+        _profile(f"DCI fit_gbt, {n_tr} x {D} codes, factor {j} "
+                 f"({full.factor_sizes[j]} classes), 5 rounds",
+                 lambda: fit_gbt(z_tr, y, n_estimators=5))
+
+        # (3) the card against the CPU on one table of codes
+        table = _code_table(full, repr_fn, CPU_DIMS)
+        tables = {"cuda": table, "cpu": table.cpu()}
+        kw = dict(num_train=320, num_test=160, batch_size=16)
+        res = {}
+        for dev, tab in tables.items():
+            fn = (lambda idx, tab=tab: tab[torch.as_tensor(idx,
+                                                           device=tab.device)])
+            res[dev] = {
+                **dis.metric_mig(_TableSampler(full), fn, num_train=320,
+                                 batch_size=16),
+                **dis.metric_sap(_TableSampler(full), fn, **kw),
+                **dis.metric_dci(_TableSampler(full), fn,
+                                 n_estimators=CPU_ESTIMATORS, **kw),
+                **dis.metric_factor_vae(_TableSampler(full), fn,
+                                        num_train=320, num_eval=160,
+                                        batch_size=16)}
+        f_tr, z_tr = _collect(_TableSampler(full),
+                              lambda idx: tables["cpu"][idx], 320, 16)
+        svc = {}
+        for j in range(f_tr.shape[1]):
+            y = torch.as_tensor(f_tr[:, j])
+            a = fit_linear_svc(z_tr.cuda(), y.cuda())
+            b = fit_linear_svc(z_tr, y)
+            svc[j] = {"coef": float((a.coef.cpu() - b.coef).abs().max()),
+                      "intercept": float((a.intercept.cpu()
+                                          - b.intercept).abs().max()),
+                      "predictions_differ": int(
+                          (predict_linear_svc(a, z_tr.cuda()).cpu()
+                           != predict_linear_svc(b, z_tr)).sum())}
+        splits = _gbt_splits_differ(z_tr.cuda(), z_tr, f_tr, CPU_ESTIMATORS)
+        diff = {k: abs(res["cuda"][k] - res["cpu"][k]) for k in METRIC_KEYS}
+        log(f"metrics card vs CPU on the {CPU_DIMS} codes of largest "
+            f"variance of the {len(full.images_raw)} grid images: card "
+            f"{json.dumps(res['cuda'])}; CPU {json.dumps(res['cpu'])}; "
+            f"|difference| "
+            f"{json.dumps(diff)}; SVC coef / intercept differences and "
+            f"train predictions that differ per factor {json.dumps(svc)}; "
+            f"{len(splits)} tree splits differ")
+        for sp in splits:
+            log(f"  split differs: {json.dumps(sp)}")
+        tol = {"mig": MIG_TOL, "sap": SAP_TOL, "dci": DCI_TOL,
+               "factor_vae": 0.0}
+        bad = [k for k in METRIC_KEYS if diff[k] > tol[k.split(".")[0]]]
+        if bad or any(v["predictions_differ"] for v in svc.values()):
+            raise AssertionError(f"metrics card vs CPU: {bad} {svc}")
+        del model, table, tables
+    log(f"metrics: phase {time.perf_counter() - start:.2f} s")
+    return launches, seconds
 
 
 # --- phase 7: the two-stage recipe ---------------------------------------
@@ -3093,6 +3330,10 @@ def main(argv) -> int:
              "and gat_logits_bwd with those of these gat_logits.cu files "
              "(compare_gat_logits)")
     parser.add_argument(
+        "--metrics-only", action="store_true",
+        help="only build the kernels and run the phase \"metrics\" "
+             "(phase_metrics)")
+    parser.add_argument(
         "--train-step-against", nargs="+", metavar="TREE",
         help="only build the kernels and time the tree's eager train step "
              "in turns with those of these checkouts (compare_train_step)")
@@ -3102,7 +3343,7 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     start = time.perf_counter()
-    phase_card()
+    smi = phase_card()
     phase_build()
     if opts.gat_fwd_against:
         log(json.dumps({"gat_fwd_against": compare_gat_fwd(
@@ -3122,6 +3363,11 @@ def main(argv) -> int:
         return 0
     if opts.vq_against:
         log(json.dumps({"vq_against": compare_vq(opts.vq_against)}))
+        return 0
+    if opts.metrics_only:
+        launches, seconds = phase_metrics(smi)
+        log(json.dumps({"metrics_launches": launches,
+                        "metric_seconds": seconds}))
         return 0
     if opts.train_step_against:
         log(json.dumps({"train_step_against": compare_train_step(
@@ -3143,6 +3389,7 @@ def main(argv) -> int:
     scan_launches, scan_ms = phase_scan()
     phase_bench()
     mcq_launches, ct_launches, s3d_on_step = phase_shapes3d()
+    metric_launches, metric_seconds = phase_metrics(smi)
     kernels = []
     for r in rows:
         source, replaces = KERNEL_META[r["name"]]
@@ -3152,7 +3399,8 @@ def main(argv) -> int:
                    "two_stage": two_stage_launches[r["name"]],
                    "scan": scan_launches[r["name"]],
                    "shapes3d_mcq": mcq_launches[r["name"]],
-                   "shapes3d_ct": ct_launches[r["name"]]}
+                   "shapes3d_ct": ct_launches[r["name"]],
+                   "metrics": metric_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -3167,12 +3415,12 @@ def main(argv) -> int:
         kernels[-1].update(on_step.get(r["name"], {}))
         kernels[-1].update(c2_on_step.get(r["name"], {}))
         kernels[-1].update(s3d_on_step.get(r["name"], {}))
-    # every kernel runs on the training, codebooks: 2, two-stage, scan and
-    # shapes3d CT paths, the forward ones on the serving path too, the VQ
-    # search on the MCQVAE's (which has no CT layer)
+    # every kernel runs on the training, codebooks: 2, two-stage, scan,
+    # shapes3d CT and metrics paths, the forward ones on the serving path
+    # too, the VQ search on the MCQVAE's (which has no CT layer)
     if any(k["launches_by_path"][p] == 0 for k in kernels
            for p in ("train", "codebooks_2", "two_stage", "scan",
-                     "shapes3d_ct")) or any(
+                     "shapes3d_ct", "metrics")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
             if EXPECTED["reconstruct"][k["name"]]) or any(
             (k["launches_by_path"]["shapes3d_mcq"] == 0)
@@ -3180,7 +3428,7 @@ def main(argv) -> int:
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"serve_ms": timings, "train_ms": train_ms,
                     "train_peak_gib": peak, "codebooks_2_train_ms": c2_ms,
-                    "scan_ms": scan_ms}))
+                    "scan_ms": scan_ms, "metric_seconds": metric_seconds}))
     log(f"chip_smoke wall time {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -198,9 +198,9 @@ def _missing(path: str, name: str, hint: str = "") -> None:
 
 
 def _dataset(images, factors, name: str, data_dir: str, split: str,
-             transform, kw) -> ArrayFactorDataset:
+             transform, kw, sizes=None) -> ArrayFactorDataset:
     return ArrayFactorDataset(
-        images, factors, FACTOR_SIZES[name], data_dir, name, split,
+        images, factors, sizes or FACTOR_SIZES[name], data_dir, name, split,
         transform, cache_transformed=kw.get("cache_transformed", False),
         device_normalize=kw.get("device_normalize", False))
 
@@ -231,10 +231,15 @@ def load_shapes3d(data_dir: str, split: str = "train",
     imgs = _open_npz_member_mmap(path, "images")      # uint8 [N, 64, 64, 3]
     labels = np.asarray(_open_npz_member_mmap(path, "labels"))
     factors = np.zeros((len(labels), labels.shape[1]), np.int64)
+    sizes = []
     for i in range(labels.shape[1]):
         vals = np.unique(labels[:, i])
         factors[:, i] = np.searchsorted(vals, labels[:, i])
-    return _dataset(imgs, factors, "3dshapes", data_dir, split, transform, kw)
+        sizes.append(len(vals))
+    # the grid the archive holds: the real one's (10, 10, 10, 8, 4, 15), a
+    # stand-in's own, so factor_to_index (the metrics' sampler) stays in it
+    return _dataset(imgs, factors, "3dshapes", data_dir, split, transform, kw,
+                    sizes=tuple(sizes))
 
 
 def load_cars3d(data_dir: str, split: str = "train",

@@ -96,6 +96,12 @@ class SyntheticDataset:
         idxs = np.asarray(idxs)
         return self.images[idxs], self.factors[idxs]
 
+    def observations_from_factors(self, factors: np.ndarray) -> np.ndarray:
+        """Images of any factor rows, rendered as the dataset's are (the
+        metrics' fixed-factor sampling needs no complete grid then)."""
+        return render_random_family(factors, self.images.shape[1],
+                                    self.images.shape[3])
+
 
 class SyntheticGridDataset:
     """The complete factor grid (row-major) of rendered images, split in

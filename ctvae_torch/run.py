@@ -15,7 +15,11 @@ grids of each epoch and ``checkpoints`` (the best two by
 resume_from_checkpoint`` resumes the full state from a checkpoint file,
 or with ``load_weights_only: true`` loads its weights only (the two-stage
 recipe). SIGTERM saves ``last`` at the end of the running epoch and
-stops.
+stops. ``exp_params.metrics`` (names of ``metrics.METRICS``) adds the
+disentanglement metrics to each validation, computed over the validation
+dataset's full factor dataset (``_full_data``) with 20 / 10 train batches'
+worth of samples, as the JAX ``run.py`` wires them;
+``exp_params.async_checkpointing`` writes checkpoints on a thread.
 
 ``train(config, device)`` does the work for a config dict.
 """
@@ -36,6 +40,7 @@ def train(config: Dict, device=None) -> dict:
     import torch
 
     from .data import VAEDataset
+    from .metrics import MetricSet
     from .models import build_model
     from .ops.common import resolve_device
     from .training import VAEXperiment, install_preemption_handler
@@ -64,10 +69,20 @@ def train(config: Dict, device=None) -> dict:
     data_params.setdefault("seed", seed)
     data = VAEDataset(**data_params)
     data.setup()
-    ckpt = CheckpointManager(os.path.join(logger.log_dir, "checkpoints"),
-                             top_k=2, monitor="val_Reconstruction_Loss")
+    val_metrics = None
+    if exp_params.get("metrics"):
+        full = getattr(data.val_dataset, "_full_data", data.val_dataset)
+        tbs = int(data_params.get("train_batch_size", 64))
+        val_metrics = MetricSet(
+            list(exp_params["metrics"]), full,
+            batch_size=int(data_params.get("val_batch_size", 64)),
+            num_train=tbs * 20, num_test=tbs * 10)
+    ckpt = CheckpointManager(
+        os.path.join(logger.log_dir, "checkpoints"), top_k=2,
+        monitor="val_Reconstruction_Loss",
+        async_save=bool(exp_params.get("async_checkpointing", False)))
     experiment = VAEXperiment(model, exp_params, data, logger=logger,
-                              ckpt_manager=ckpt)
+                              ckpt_manager=ckpt, val_metrics=val_metrics)
     for sub in ("Inputs", "Samples", "Reconstructions"):
         os.makedirs(os.path.join(logger.log_dir, sub), exist_ok=True)
     experiment.setup(seed=seed)

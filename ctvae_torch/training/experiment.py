@@ -22,10 +22,18 @@ mode and shape as one ``make_multi_train_step`` call (on the card, K
 replays of a captured CUDA graph); a mode switch, a shape change or the
 epoch's end runs what is buffered as per-step calls.
 
-Not ported yet (ROADMAP A4): asynchronous checkpoints, the
-disentanglement metrics, ``watch_gradients``, ``profile``, the hang
-watchdog and sharded or multi-device training. The ``exp_params`` keys
-that ask for them raise ``NotImplementedError``.
+The loop's services: ``val_metrics`` (a ``metrics.MetricSet``) adds the
+disentanglement metrics of ``repr_fn`` (the encoder's first output,
+flattened) to each validation under ``val_``; ``exp_params.
+watch_gradients`` N > 0 logs ``grad_norm/<module>`` and
+``param_norm/<module>`` of each top-level module every N steps;
+``exp_params.profile: <dir>`` writes a ``torch.profiler`` trace of epoch 0
+there; ``fit`` waits for an asynchronous checkpoint write
+(``CheckpointManager(async_save=True)``) before it returns or reports a
+stop.
+
+Not ported yet (ROADMAP A8): sharded or multi-device training. The
+``exp_params`` keys that ask for it raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,13 +55,35 @@ from .state import TrainState, create_train_state, make_eval_step, \
 
 #: exp_params keys of the JAX trainer the port does not take yet, with the
 #: values that leave them off
-NOT_PORTED = {"sharding": (None, "dp"),
-              "metrics": (None, [], ()), "watch_gradients": (None, 0),
-              "profile": (None, "", False), "dcn_replicas": (None, 1),
-              "model_axis": (None, 1), "async_checkpointing": (None, False)}
+NOT_PORTED = {"sharding": (None, "dp"), "dcn_replicas": (None, 1),
+              "model_axis": (None, 1)}
 
 
-__all__ = ["VAEXperiment", "install_preemption_handler"]
+def _is_watch_key(k: str) -> bool:
+    """The per-module norms of ``watch_gradients``, logged on their own
+    cadence."""
+    return k.startswith(("grad_norm/", "param_norm/"))
+
+
+def make_repr_fn(model: nn.Module):
+    """The representation of the metrics: observations [B, H, W, C]
+    (numpy or torch; uint8 is divided by 255) -> the first output of
+    ``model.encode`` flattened in its NHWC order, [B, D] on the model's
+    device, without gradients (``ctvae_tpu``'s ``VAEXperiment.repr_fn``)."""
+
+    @torch.no_grad()
+    def fn(x) -> torch.Tensor:
+        x = torch.as_tensor(x).to(model.device)
+        x = (x.float() / 255.0 if x.dtype == torch.uint8 else x.float())
+        mu = model.encode(x)[0]
+        while isinstance(mu, (tuple, list)):
+            mu = mu[0]
+        return mu.reshape(mu.shape[0], -1)
+
+    return fn
+
+
+__all__ = ["VAEXperiment", "install_preemption_handler", "make_repr_fn"]
 
 
 def install_preemption_handler(experiment: "VAEXperiment", signals=None):
@@ -74,18 +104,21 @@ class VAEXperiment:
     def __init__(self, model: nn.Module, exp_params: Dict[str, Any],
                  datamodule, logger=None,
                  ckpt_manager: Optional[CheckpointManager] = None,
-                 log_every: int = 50):
+                 val_metrics=None, train_metrics=None, log_every: int = 50):
         bad = [k for k, off in NOT_PORTED.items()
                if exp_params.get(k) not in off]
         if bad:
             raise NotImplementedError(f"exp_params {bad} not ported yet "
-                                      f"(ROADMAP A4)")
+                                      f"(ROADMAP A8)")
         self.model = model
         self.params = dict(exp_params)
         self.data = datamodule
         self.logger = logger
         self.ckpt = ckpt_manager
+        self.val_metrics = val_metrics
+        self.train_metrics = train_metrics
         self.log_every = log_every
+        self.watch_every = int(exp_params.get("watch_gradients", 0) or 0)
         self._stop_requested = False
         self.state: Optional[TrainState] = None
         self.lr_schedules = None
@@ -133,13 +166,14 @@ class VAEXperiment:
 
     def _train_step(self, mode: str):
         if mode not in self._train_steps:
-            self._train_steps[mode] = make_train_step(mode)
+            self._train_steps[mode] = make_train_step(
+                mode, watch_modules=self.watch_every > 0)
         return self._train_steps[mode]
 
     def _multi_train_step(self, mode: str):
         if mode not in self._multi_steps:
             self._multi_steps[mode] = make_multi_train_step(
-                mode, self.scan_steps)
+                mode, self.scan_steps, watch_modules=self.watch_every > 0)
         return self._multi_steps[mode]
 
     def _eval_step(self, mode: str):
@@ -200,13 +234,21 @@ class VAEXperiment:
                    ) -> None:
         """Step-cadence logging, once per executed block: the block's last
         metrics and each optimizer's learning rate when a step of the block
-        crossed a multiple of ``log_every``."""
-        if self.logger is None or self.global_step % self.log_every >= n_new:
+        crossed a multiple of ``log_every``; the ``watch_gradients`` norms
+        when one crossed a multiple of that."""
+        if self.logger is None:
             return
-        logged = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
-        for i, sched in enumerate(self.lr_schedules):
-            logged["lr" if i == 0 else f"lr_{i + 1}"] = np.float32(
-                sched(self.global_step))
+        at_log = self.global_step % self.log_every < n_new
+        at_watch = bool(self.watch_every) and \
+            self.global_step % self.watch_every < n_new
+        if not (at_log or at_watch):
+            return
+        logged = {k: v.detach().cpu().numpy() for k, v in metrics.items()
+                  if (at_watch if _is_watch_key(k) else at_log)}
+        if at_log:
+            for i, sched in enumerate(self.lr_schedules):
+                logged["lr" if i == 0 else f"lr_{i + 1}"] = np.float32(
+                    sched(self.global_step))
         self.logger.log_all(logged, self.global_step)
 
     def validate(self, epoch: int) -> Dict[str, float]:
@@ -221,6 +263,9 @@ class VAEXperiment:
                     sums[k] = sums.get(k, 0.0) + float(v)
                     counts[k] = counts.get(k, 0) + 1
         out = {"val_" + k: sums[k] / counts[k] for k in sums}
+        if self.val_metrics is not None:
+            out.update({"val_" + k: v for k, v in
+                        self.val_metrics.compute(self.repr_fn).items()})
         if self.logger is not None:
             self.logger.log_all(out, self.global_step)
         return out
@@ -236,30 +281,64 @@ class VAEXperiment:
         after the current epoch's training and returns."""
         if self.state is None:
             self.setup(seed=seed)
+        profile_dir = self.params.get("profile")
         out: Dict[str, float] = {}
-        for epoch in range(self.start_epoch, max_epochs):
-            train = self.train_epoch(epoch)
-            if self._stop_requested:
+        try:
+            for epoch in range(self.start_epoch, max_epochs):
+                if profile_dir and epoch == 0:
+                    train = self._profiled_epoch(epoch, str(profile_dir))
+                else:
+                    train = self.train_epoch(epoch)
+                if self._stop_requested:
+                    if self.ckpt is not None:
+                        self.ckpt.save(self.state, self.global_step)
+                        # report the stop only once the write is on disk
+                        self.ckpt.wait()
+                    print(f"=> stop requested: saved checkpoint at step "
+                          f"{self.global_step} (epoch {epoch}); resume with "
+                          f"trainer_params.resume_from_checkpoint",
+                          flush=True)
+                    break
+                val = self.validate(epoch)
+                if sample_dir is not None:
+                    self.sample_images(sample_dir, epoch)
                 if self.ckpt is not None:
-                    self.ckpt.save(self.state, self.global_step)
-                print(f"=> stop requested: saved checkpoint at step "
-                      f"{self.global_step} (epoch {epoch}); resume with "
-                      f"trainer_params.resume_from_checkpoint", flush=True)
-                break
-            val = self.validate(epoch)
-            if sample_dir is not None:
-                self.sample_images(sample_dir, epoch)
+                    self.ckpt.save(self.state, self.global_step, metrics=val)
+                if self.logger is not None:
+                    self.logger.add_scalar("epoch", epoch, self.global_step)
+                    self.logger.add_scalar("images_per_sec",
+                                           train["images_per_sec"],
+                                           self.global_step)
+                out = {**{f"train_{k}": v for k, v in train.items()}, **val}
+                print(f"epoch {epoch}: " + ", ".join(
+                    f"{k} {v:.5g}" for k, v in sorted(out.items())),
+                    flush=True)
+        finally:
             if self.ckpt is not None:
-                self.ckpt.save(self.state, self.global_step, metrics=val)
-            if self.logger is not None:
-                self.logger.add_scalar("epoch", epoch, self.global_step)
-                self.logger.add_scalar("images_per_sec",
-                                       train["images_per_sec"],
-                                       self.global_step)
-            out = {**{f"train_{k}": v for k, v in train.items()}, **val}
-            print(f"epoch {epoch}: " + ", ".join(
-                f"{k} {v:.5g}" for k, v in sorted(out.items())), flush=True)
+                # an asynchronous write in flight ends before fit does,
+                # also when the loop raised
+                self.ckpt.wait()
         return out
+
+    def _profiled_epoch(self, epoch: int, out_dir: str) -> Dict[str, float]:
+        """``train_epoch`` under ``torch.profiler`` (the card's kernels
+        too, where there is one); the trace goes to ``out_dir``/
+        ``epoch_<epoch>.pt.trace.json`` (Chrome trace format)."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            train = self.train_epoch(epoch)
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(out_dir, f"epoch_{epoch}.pt.trace.json"))
+        return train
+
+    @property
+    def repr_fn(self):
+        """``make_repr_fn`` of the model: the metrics' representation."""
+        return make_repr_fn(self.model)
 
     def request_stop(self) -> None:
         """Ask ``fit`` to save ``last`` and stop at the next epoch boundary

@@ -86,6 +86,27 @@ def _scalars(losses: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             if isinstance(v, torch.Tensor)}
 
 
+def _module_norms(model: nn.Module, kind: str, grads: bool
+                  ) -> Dict[str, torch.Tensor]:
+    """``<kind>/<name>``: the global norm of each top-level module's
+    gradients (a parameter without one counts as zero) or parameters, as
+    the JAX step's ``watch_modules`` reads them per top-level params key."""
+    out = {}
+    for name, child in model.named_children():
+        ps = list(child.parameters())
+        if not ps:
+            continue
+        ts = [p.grad for p in ps if p.grad is not None] if grads else ps
+        out[f"{kind}/{name}"] = (global_norm(ts) if ts
+                                 else ps[0].new_zeros(()))
+    return out
+
+
+@torch.no_grad()
+def _param_norms(model: nn.Module) -> Dict[str, torch.Tensor]:
+    return _module_norms(model, "param_norm", grads=False)
+
+
 def _grads(state: TrainState, batch: Dict[str, torch.Tensor], mode: str
            ) -> Dict[str, torch.Tensor]:
     """The device work of a train step before the optimizer: gradients
@@ -103,16 +124,24 @@ def _grads(state: TrainState, batch: Dict[str, torch.Tensor], mode: str
     return metrics
 
 
-def make_train_step(mode: str) -> Callable[[TrainState, Dict], Dict]:
+def make_train_step(mode: str, watch_modules: bool = False
+                    ) -> Callable[[TrainState, Dict], Dict]:
     """The train step of batch mode ``mode``: ``step(state, batch)``
     updates ``state`` in place (parameters, optimizer state, ``step``) and
-    returns the loss terms, the model's metrics and ``grad_norm``."""
+    returns the loss terms, the model's metrics and ``grad_norm``.
+    ``watch_modules`` adds ``grad_norm/<module>`` and, after the update,
+    ``param_norm/<module>`` for each top-level module (the JAX step's
+    ``watch_modules``)."""
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         metrics = _grads(state, batch, mode)
+        if watch_modules:           # the gradients before the clip
+            metrics.update(_module_norms(state.model, "grad_norm", True))
         for opt in state.optimizers:
             opt.step()
+        if watch_modules:
+            metrics.update(_param_norms(state.model))
         state.step += 1
         return metrics
 
@@ -168,12 +197,13 @@ class MultiTrainStep:
     kernel launches they made (counted at capture: the wrappers' counters
     do not tick on replay)."""
 
-    def __init__(self, mode: str, n_steps: int):
+    def __init__(self, mode: str, n_steps: int, watch_modules: bool = False):
         if n_steps < 1:
             raise ValueError(f"n_steps must be at least 1, got {n_steps}")
         self.mode, self.n_steps = mode, n_steps
+        self.watch_modules = watch_modules
         self.replays = 0
-        self._step = make_train_step(mode)
+        self._step = make_train_step(mode, watch_modules)
         self._bound: Optional[Tuple] = None
         self._graphs: Dict[Tuple, _Graph] = {}
         self._warm: Dict[Tuple, int] = {}    # eager steps per batch shape
@@ -257,8 +287,13 @@ class MultiTrainStep:
         try:
             with torch.cuda.graph(graph):
                 metrics = _grads(state, inputs, self.mode)
+                if self.watch_modules:
+                    metrics.update(_module_norms(state.model, "grad_norm",
+                                                 True))
                 for opt in state.optimizers:
                     opt.update()
+                if self.watch_modules:
+                    metrics.update(_param_norms(state.model))
         finally:
             after = launch_counts()
             set_launch_counts(before)
@@ -266,10 +301,13 @@ class MultiTrainStep:
                       {k: after[k] - before[k] for k in after})
 
 
-def make_multi_train_step(mode: str, n_steps: int) -> MultiTrainStep:
+def make_multi_train_step(mode: str, n_steps: int,
+                          watch_modules: bool = False) -> MultiTrainStep:
     """``n_steps`` train steps of batch mode ``mode`` per call, on batches
-    stacked ``[n_steps, B, ...]`` (``MultiTrainStep``)."""
-    return MultiTrainStep(mode, n_steps)
+    stacked ``[n_steps, B, ...]`` (``MultiTrainStep``); ``watch_modules``
+    as in ``make_train_step`` (in a captured graph the norms are outputs
+    of the graph)."""
+    return MultiTrainStep(mode, n_steps, watch_modules)
 
 
 def make_eval_step(mode: str, seed: int = 0

@@ -7,7 +7,13 @@ Counterpart of ``ctvae_tpu/utils/checkpoint.py`` (orbax there, one
 ``TrainState.state_dict()``: the model's ``state_dict``, each optimizer's
 state (Adam moments and step, the LR-schedule position), the global step
 and the train generator's state. ``index.json`` keeps the top-k list.
-Asynchronous saves (``exp_params.async_checkpointing``) are not ported.
+
+``save`` first copies the state to host memory, then writes it: inline,
+or with ``async_save`` (``exp_params.async_checkpointing``) on a
+non-daemon thread, so the write overlaps the next epoch. Writes are
+serialised; ``wait()`` joins the one in flight and raises its error;
+``path`` and ``restore`` wait first. Both modes write the same files, byte
+for byte.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -24,6 +31,18 @@ from torch import nn
 def _load(path: str) -> Dict[str, Any]:
     # tensors, numbers, strings and containers only: no code is unpickled
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _host_copy(obj):
+    """``obj`` with every tensor copied to host memory (the state a write
+    serialises while the card trains on)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
 
 
 def _link(src: str, dst: str) -> None:
@@ -39,10 +58,14 @@ class CheckpointManager:
     a monitored scalar (lower is better) plus ``last``."""
 
     def __init__(self, ckpt_dir: str, top_k: int = 2,
-                 monitor: str = "val_Reconstruction_Loss"):
+                 monitor: str = "val_Reconstruction_Loss",
+                 async_save: bool = False):
         self.dir = os.path.abspath(ckpt_dir)
         self.top_k = top_k
         self.monitor = monitor
+        self.async_save = async_save
+        self._pending: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
         os.makedirs(self.dir, exist_ok=True)
         self._index_path = os.path.join(self.dir, "index.json")
         self._index = self._load_index()
@@ -75,16 +98,45 @@ class CheckpointManager:
         if os.path.exists(old):
             os.remove(old)
 
+    def wait(self) -> None:
+        """Join the write in flight, if any, and raise its error (a failed
+        save must not pass for a saved one)."""
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
     def save(self, state, step: int,
              metrics: Optional[Dict[str, float]] = None) -> None:
         """Save ``state`` (a ``TrainState``) as ``last`` and, when
         ``metrics`` holds the monitored value, as ``step_<step>`` if it is
-        among the best ``top_k``. The state is serialised once: ``last``
-        is then a hard link to (or, where links fail, a copy of)
-        ``step_<step>``."""
-        blob = state.state_dict()
-        last = os.path.join(self.dir, "last")
+        among the best ``top_k``. The state is copied to the host before
+        this returns; the write follows inline or, with ``async_save``, on
+        a thread of its own after the previous one."""
+        blob = _host_copy(state.state_dict())
         score = None if metrics is None else metrics.get(self.monitor)
+        self.wait()
+        if not self.async_save:
+            self._write(blob, step, score)
+            return
+
+        def write():
+            try:
+                self._write(blob, step, score)
+            except Exception as e:            # raised by the next wait()
+                self._error = e
+
+        # not a daemon: the interpreter joins it at exit, so a crash
+        # elsewhere cannot cut a write off halfway
+        self._pending = threading.Thread(target=write, daemon=False)
+        self._pending.start()
+
+    def _write(self, blob, step: int, score: Optional[float]) -> None:
+        """The state is serialised once: ``last`` is then a hard link to
+        (or, where links fail, a copy of) ``step_<step>``."""
+        last = os.path.join(self.dir, "last")
         if score is None:
             self._publish(last, lambda tmp: torch.save(blob, tmp))
             self._write_index()
@@ -102,7 +154,9 @@ class CheckpointManager:
         self._write_index()
 
     def path(self, which: str = "last") -> str:
-        """The file of ``which``: 'last', 'best', or a path."""
+        """The file of ``which``: 'last', 'best', or a path (after the
+        write in flight)."""
+        self.wait()
         path = {"last": os.path.join(self.dir, "last"),
                 "best": self._index["best"][0]["path"]
                 if self._index["best"] else None}.get(which, which)

@@ -835,3 +835,90 @@ def test_pinned_uint8_copy_equals_cpu_path(card):
     assert torch.equal(want["image"],
                        torch.from_numpy(batch["image"].astype(np.float32)
                                         / 255.0))
+
+
+# --- the disentanglement metrics' solvers on the card ------------------------
+
+def _metric_data(K, n=320, D=48, seed=0):
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, K, n)
+    x = (rng.normal(size=(K, D))[y] + rng.normal(size=(n, D))
+         ).astype(np.float32)
+    x[:, 1] = 0.5                       # a constant column
+    x[:, 2] = np.round(x[:, 2], 1)      # repeated values
+    return torch.from_numpy(x), torch.from_numpy(y)
+
+
+@pytest.mark.parametrize("K", [2, 5])
+def test_gbt_on_card_matches_cpu(card, K):
+    """``fit_gbt`` on the card against the same code on the CPU: every
+    split's feature equal and its threshold within float32 rounding, raw
+    predictions and importances within 1e-9 (the card's cumulative sums
+    round in another order; tied splits break alike, by the same
+    CPU-drawn feature order)."""
+    from ctvae_torch.metrics.gbt import decision_function, fit_gbt
+    x, y = _metric_data(K)
+    cpu = fit_gbt(x, y, n_estimators=10)
+    gpu = fit_gbt(x.cuda(), y.cuda(), n_estimators=10)
+    assert gpu.feature.is_cuda
+    assert torch.equal(gpu.feature.cpu(), cpu.feature)
+    assert float((gpu.threshold.cpu() - cpu.threshold).abs().max()) <= 1e-6
+    assert float((decision_function(gpu, x.cuda()).cpu()
+                  - decision_function(cpu, x)).abs().max()) <= 1e-9
+    assert float((gpu.importances.cpu() - cpu.importances).abs().max()
+                 ) <= 1e-9
+
+
+@pytest.mark.parametrize("K", [2, 5])
+def test_linear_svc_on_card_matches_cpu(card, K):
+    """``fit_linear_svc`` on the card against the CPU: coef and intercept
+    within 1e-9 (both Newton solves converge), predictions equal."""
+    from ctvae_torch.metrics.linear_svc import (fit_linear_svc,
+                                                predict_linear_svc)
+    x, y = _metric_data(K)
+    cpu = fit_linear_svc(x, y)
+    gpu = fit_linear_svc(x.cuda(), y.cuda())
+    assert gpu.coef.is_cuda
+    assert float((gpu.coef.cpu() - cpu.coef).abs().max()) <= 1e-9
+    assert float((gpu.intercept.cpu() - cpu.intercept).abs().max()) <= 1e-9
+    assert torch.equal(predict_linear_svc(gpu, x.cuda()).cpu(),
+                       predict_linear_svc(cpu, x))
+
+
+def test_watch_norms_in_graph_equal_eager(card):
+    """``make_multi_train_step(mode, 4, watch_modules=True)``: the
+    per-module gradient and parameter norms the captured graph returns
+    equal those of eager steps from an equal state on the same batches
+    (1e-6 relative; graph and eager steps agree bit for bit)."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_multi_train_step, make_train_step)
+    cfg = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8,
+               action_dim=8, hidden_dims=[8, 16], num_embeddings=8,
+               img_size=16, codebooks=2, causal_hidden_dims=[16, 8],
+               noise="off")
+    exp = dict(LR=5e-4, weight_decay=0.0, gradient_clip_val=0.5)
+    states = []
+    for _ in range(2):
+        m = build_model(cfg, device=card,
+                        generator=torch.Generator("cuda").manual_seed(0))
+        states.append(create_train_state(m, build_optimizers(exp, m, 3),
+                                         seed=5))
+    g = torch.Generator().manual_seed(6)
+    stacked = {"image": torch.rand(8, 3, 16, 16, 3, generator=g),
+               "input_y": torch.rand(8, 3, 16, 16, 3, generator=g),
+               "action": torch.eye(8)[torch.randint(0, 8, (8, 3),
+                                                    generator=g)]}
+    stacked = {k: v.cuda() for k, v in stacked.items()}
+    step = make_train_step("causal", watch_modules=True)
+    for i in range(8):
+        eager = step(states[0], {k: v[i] for k, v in stacked.items()})
+    multi = make_multi_train_step("causal", 4, watch_modules=True)
+    for half in (slice(0, 4), slice(4, 8)):
+        graph = multi(states[1], {k: v[half] for k, v in stacked.items()})
+    assert multi.replays > 0
+    keys = [k for k in eager if k.startswith(("grad_norm/", "param_norm/"))]
+    assert len(keys) == 8 and set(keys) <= set(graph)
+    for k in keys:
+        a, b = float(eager[k]), float(graph[k])
+        assert abs(a - b) <= 1e-6 * max(abs(a), 1e-30), (k, a, b)

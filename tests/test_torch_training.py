@@ -266,8 +266,8 @@ def test_run_trains_synthetic_ct_on_cpu(tmp_path, monkeypatch):
 
 def test_unported_trainer_options_raise(pair):
     from ctvae_torch.training import VAEXperiment
-    for extra in (dict(watch_gradients=1), dict(sharding="fsdp"),
-                  dict(metrics=["mig"])):
+    for extra in (dict(sharding="fsdp"), dict(dcn_replicas=2),
+                  dict(model_axis=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             VAEXperiment(pair[2], {**EXP, **extra}, None)
 
