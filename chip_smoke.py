@@ -64,6 +64,25 @@ same widths (phase "loop"). Then four more phases:
   ``metrics``), each metric's card seconds at both headline configs'
   sample sizes, one DCI fit profiled, and the four metric functions on
   the card against the CPU over one table of 256 codes.
+* search: the paper's hyperparameter search,
+  ``configs_hyp/ct_mcq_vae_hyp_search_shapes3d.yaml`` at its widths and
+  B = 8. (a) One model per corner of its space (noise off / endo x
+  codebooks 1 / 2 x 16 / 32 codes), a warm and a timed train step per
+  mode, then every kernel call of each mode's step held against its plain
+  version on its own inputs and timed there with its plain version and
+  bound (66 / 130 GAT nodes under endo; the logits kernels at F = 16 /
+  32; the VQ search at 16 / 32 codes, with ``cdist`` + ``argmin``). (b)
+  An EMA model (revival, the rotation estimator, endo) trained 16 steps
+  eagerly, again eagerly, and through ``make_multi_train_step(mode, 8)``
+  from equal states: every parameter, Adam moment and EMA buffer within
+  1e-6 of its largest magnitude (cuDNN deterministic). (c) The search
+  CLI's ``main`` with ``scheduler: asha`` on 4 trials of a TShapes3D
+  stand-in, every trial finite. The launches of (a)'s timed steps and of
+  (c) make the path ``search``.
+
+    python3 chip_smoke.py --search-only
+
+builds the kernels and runs only the phase "search" (``phase_search``).
 
 The second-last line is one JSON
 object with a row per kernel; the last line is ``{"ok": true, "device":
@@ -1503,7 +1522,8 @@ def _timed_steps(label: str, steps, state, batch, n: int, expected) -> dict:
                 raise AssertionError(f"{label} {mode}: loss {loss}")
         timed = [1e3 * t for t in secs[1:]]
         timings[mode] = statistics.median(timed)
-        log(f"{label} {mode} B={BATCH}: {timings[mode]:.3f} ms per step "
+        log(f"{label} {mode} B={batch['image'].shape[0]}: "
+            f"{timings[mode]:.3f} ms per step "
             f"(median of {len(timed)} after a warm-up of "
             f"{1e3 * secs[0]:.3f}; min {min(timed):.3f}, max "
             f"{max(timed):.3f}); last loss {loss:.6g}, grad_norm "
@@ -1724,8 +1744,10 @@ SCAN_ROUNDS = 5     # timed rounds of K eager steps and one K-step call
 
 
 def _scan_tensors(state) -> dict:
-    """Every parameter and Adam moment of a train state, by name."""
+    """Every parameter, buffer (an EMA codebook's) and Adam moment of a
+    train state, by name."""
     out = {n: p.detach() for n, p in state.model.named_parameters()}
+    out.update(state.model.named_buffers())
     names = {id(p): n for n, p in state.model.named_parameters()}
     for opt in state.optimizers:
         for p in opt.params:
@@ -3280,6 +3302,416 @@ def compare_train_step(trees) -> dict:
     return out
 
 
+# --- phase 12: the paper's hyperparameter search ----------------------------
+
+SEARCH_CONFIG = os.path.join(os.path.dirname(CONFIG), os.pardir, "configs_hyp",
+                             "ct_mcq_vae_hyp_search_shapes3d.yaml")
+# the corners of the search space: noise x codebooks x the two smaller
+# codebook sizes (64, the largest, is the headline's and phase "train"'s)
+SEARCH_CORNERS = tuple((noise, cb, k) for noise in ("off", "endo")
+                       for cb in (1, 2) for k in (16, 32))
+SEARCH_TRIALS = 4          # the CLI's num_samples
+SEARCH_LIMIT = 32          # per mode: 4 TShapes3D train batches of 8
+SEARCH_VAL_LIMIT = 16      # per mode: 2 validation batches of 8
+SEARCH_EPOCHS = 2          # asha: rung 1 trains 1 epoch, rung 2 two
+EMA_OPTIONS = dict(ema=True, revive_threshold=0.5, grad_estimator="rotation")
+
+
+def _search_config() -> dict:
+    return read_config(os.path.normpath(SEARCH_CONFIG))
+
+
+def _corner_params(noise: str, codebooks: int, k: int) -> dict:
+    """The search config's model_params with each searched key at its
+    first value, then the corner's noise, codebooks and codebook size."""
+    cfg = _search_config()
+    spec = cfg["hyperparameter_search"]["params"]["model_params"]
+    params = {key: (value[0] if key in spec and isinstance(value, list)
+                    else value)
+              for key, value in cfg["model_params"].items()}
+    params.update(noise=noise, codebooks=codebooks, num_embeddings=k)
+    return params
+
+
+def _search_expected(params: dict) -> dict:
+    """Launches per train step of each mode: each quantizer call searches
+    every codebook."""
+    return {m: {**e, "vq_l2_argmin": params["codebooks"] * e["vq_l2_argmin"]}
+            for m, e in EXPECTED_TRAIN.items()}
+
+
+def _all_calls(fn, targets) -> dict:
+    """``_calls_of`` for several (module, name) targets during one call
+    of ``fn``: the calls by name."""
+    calls = {}
+
+    def run(i=0):
+        if i == len(targets):
+            fn()
+            return
+        module, name = targets[i]
+        calls[name] = _calls_of(module, name, lambda: run(i + 1))
+    run()
+    return calls
+
+
+def _plain_ms_on_step(fn) -> dict:
+    """The plain versions' ms on the inputs each kernel gets in one call
+    of ``fn`` (a train step): the pairwise and GAT forwards, the per-head
+    logits forward, and the backwards' plain autograd (as the kernel
+    rows' plain times are taken), by kernel (the pairwise ones by call)."""
+    from ctvae_torch.ops import gat_flash as gf
+    from ctvae_torch.ops import gat_logits as gl
+    from ctvae_torch.ops import pairwise_flash as pf
+    from ctvae_torch.ops.gat import gat_logits
+    calls = _all_calls(fn, [
+        (pf, "flash_pairwise_cuda"), (pf, "flash_pairwise_bwd_cuda"),
+        (gf, "flash_gat_cuda"), (gf, "flash_gat_bwd_cuda"),
+        (gl, "fused_gat_logits_cuda"), (gl, "fused_gat_logits_bwd_cuda")])
+
+    def det(args):
+        return tuple(a.detach() if torch.is_tensor(a) else a for a in args)
+
+    def which(args):
+        return "no_inter" if args[2].dim() == 1 else "inter"
+
+    out = {"pairwise_fwd": {}, "pairwise_bwd": {}}
+    with torch.no_grad():
+        for args, _ in calls["flash_pairwise_cuda"]:
+            args = det(args)
+            out["pairwise_fwd"][which(args)] = time_ms(
+                lambda: _pairwise_fwd_plain(args), reps=5)
+        (args, _), = calls["flash_gat_cuda"]
+        args = det(args)
+        out["gat_fwd"] = time_ms(lambda: _gat_fwd_plain(args), reps=5)
+        ((*fargs, ns), _), = calls["fused_gat_logits_cuda"]
+        fargs = det(fargs)
+        out["gat_logits_fwd"] = time_ms(lambda: gat_logits(*fargs, ns),
+                                        reps=5)
+    for args, _ in calls["flash_pairwise_bwd_cuda"]:
+        args = det(args)
+        out["pairwise_bwd"][which(args)] = time_ms(
+            lambda: _pairwise_plain_grads(args), reps=5)
+    (args, _), = calls["flash_gat_bwd_cuda"]
+    args = det(args)
+    out["gat_bwd"] = time_ms(lambda: _gat_plain_grads(args), reps=5)
+    ((*bargs, d_e, ns), _), = calls["fused_gat_logits_bwd_cuda"]
+    leaves = [a.detach().clone().requires_grad_() for a in bargs]
+    logits = gat_logits(*leaves, ns)
+    out["gat_logits_bwd"] = time_ms(lambda: torch.autograd.grad(
+        logits, leaves, d_e, retain_graph=True), reps=5)
+    del calls, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _search_rows(label: str, mode: str, k: int, vq: list, found: dict,
+                 plain: dict) -> dict:
+    """One step's kernel calls as rows of the kernels line, by kernel:
+    shape, ms, bound, plain ms (and ``cdist`` + ``argmin`` for VQ); the
+    VQ and per-head logits rows also carry the codebook size ``k`` (the
+    logits' F)."""
+    def row(m, plain_ms, **extra):
+        return {"step": f"{label} {mode}", "shape": m["shape"],
+                "ms": m["ms"], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"], "plain_ms": plain_ms, **extra}
+    rows = {"vq_l2_argmin": [
+        {"step": f"{label} {mode}", "shape": v["x"], "ms": v["ms"],
+         "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+         "plain_ms": v["plain_ms"], "library_ms": v["library_ms"],
+         "differ": v["differ"], "K": k} for v in vq]}
+    rows["pairwise_fwd"] = [row(m, plain["pairwise_fwd"][w], call=w)
+                            for w, m in found["pairwise_fwd"].items()]
+    rows["pairwise_bwd"] = [row(m, plain["pairwise_bwd"][w], call=w,
+                                live_pairs=m["live_pairs"])
+                            for w, m in found["pairwise_bwd"].items()]
+    g = found["gat_fwd"]
+    rows["gat_fwd"] = [row(g, plain["gat_fwd"], nodes=g["shape"][1],
+                           edge_density=g["edge_density"])]
+    g = found["gat_bwd"]
+    rows["gat_bwd"] = [row(g, plain["gat_bwd"], nodes=g["shape"][1],
+                           edge_density=g["edge_density"])]
+    for which in ("fwd", "bwd"):
+        m = found["logits"][which]
+        rows[f"gat_logits_{which}"] = [row(m, plain[f"gat_logits_{which}"],
+                                           F=k)]
+    return rows
+
+
+def _search_corners() -> tuple:
+    """Part (a): one model per corner of the search space at the search
+    config's widths and B = 8; a warm and a timed train step per mode
+    with the launch counters reset just before and read just after; then
+    every kernel call of each mode's step held against its plain version
+    on its own inputs (``_vq_on_path``, ``_kernels_on_step``) and the
+    plain versions timed there. Returns (launches, ms per step by corner,
+    kernel rows)."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_train_step)
+    cfg = _search_config()
+    B = int(cfg["data_params"]["train_batch_size"])
+    exp = cfg["exp_params"]
+    launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
+    timings, rows = {}, {}
+    gen = torch.Generator().manual_seed(SEED + 11)
+    for noise, cb, k in SEARCH_CORNERS:
+        label = f"{noise} codebooks={cb} K={k}"
+        params = _corner_params(noise, cb, k)
+        model = build_model(params, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(SEED))
+        state = create_train_state(
+            model, build_optimizers(exp, model, steps_per_epoch=100),
+            seed=SEED)
+        x, y, a = _requests(gen, B, "cuda")
+        batch = {"image": x, "input_y": y, "action": a}
+        steps = {m: make_train_step(m) for m in EXPECTED_TRAIN}
+        _reset_counts()
+        timings[label] = _timed_steps(f"search {label}", steps, state, batch,
+                                      2, _search_expected(params))
+        for name, n in _counts().items():
+            launches[name] += n
+        for mode, step in steps.items():
+            def fn():
+                return step(state, batch)
+            vq = _vq_on_path(fn)
+            found = _kernels_on_step(f"search {label} {mode}", fn)
+            plain = _plain_ms_on_step(fn)
+            log(f"search {label} {mode}: VQ {json.dumps(vq)}; plain ms "
+                f"{json.dumps(plain)}")
+            for name, r in _search_rows(label, mode, k, vq, found,
+                                        plain).items():
+                rows.setdefault(name, []).extend(r)
+        del model, state, steps
+        torch.cuda.empty_cache()
+    return launches, timings, rows
+
+
+def _search_ema_graph() -> dict:
+    """Part (b): an EMA CT model (``EMA_OPTIONS``, noise endo, codebooks 2,
+    K = 16) trained as the search trains it (every parameter), per train
+    mode: 2K steps eagerly from one state, again from an equal state (the
+    control: eager steps must repeat bit for bit), and two
+    ``make_multi_train_step(mode, K)`` calls from a third on the same
+    batches. Every parameter, Adam moment and EMA buffer within SCAN_RTOL
+    of its largest magnitude, generators and steps equal. cuDNN runs its
+    deterministic algorithms here: a backbone trained on atomically summed
+    weight gradients would make even two eager runs part ways, and the
+    EMA's code counts amplify any difference. Returns the largest
+    difference by mode."""
+    cfg = _search_config()
+    B = int(cfg["data_params"]["train_batch_size"])
+    params = {**_corner_params("endo", 2, 16), **EMA_OPTIONS}
+    gen = torch.Generator().manual_seed(SEED + 13)
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in EXPECTED_TRAIN:
+            out[mode] = _ema_graph_mode(mode, params, cfg, B, gen)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def _ema_graph_mode(mode, params, cfg, B, gen) -> float:
+    """``_search_ema_graph`` in one mode; the largest difference."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_multi_train_step, make_train_step)
+    from ctvae_torch.training.state import WARMUP_STEPS
+    states = []
+    for _ in range(3):
+        model = build_model(params, device="cuda",
+                            generator=torch.Generator(
+                                "cuda").manual_seed(SEED))
+        states.append(create_train_state(model, build_optimizers(
+            cfg["exp_params"], model, steps_per_epoch=100), seed=SEED))
+    eager, control, graph = states
+    xs = [_requests(gen, B, "cuda") for _ in range(2 * SCAN_K)]
+    stacked = {k: torch.stack([r[i] for r in xs])
+               for i, k in enumerate(("image", "input_y", "action"))}
+    step, multi = make_train_step(mode), make_multi_train_step(
+        mode, SCAN_K)
+    init = {n: b.clone() for n, b in eager.model.named_buffers()}
+    for state in (eager, control):
+        for i in range(2 * SCAN_K):
+            step(state, {k: v[i] for k, v in stacked.items()})
+    c = _scan_tensors(control)
+    repeat = [n for n, t in _scan_tensors(eager).items()
+              if not torch.equal(t, c[n])]
+    for half in (slice(0, SCAN_K), slice(SCAN_K, 2 * SCAN_K)):
+        multi(graph, {k: v[half] for k, v in stacked.items()})
+    torch.cuda.synchronize()
+    a, b = _scan_tensors(eager), _scan_tensors(graph)
+    diffs = {n: float((a[n].float() - b[n].float()).abs().max())
+             for n in a}
+    bad = {n: d for n, d in diffs.items() if d > SCAN_RTOL * max(
+        float(a[n].float().abs().max()), 1e-30)}
+    moved = [n for n, t in eager.model.named_buffers()
+             if "quantizers_" in n and not torch.equal(t, init[n])]
+    revived = [int((t == 1.0).sum()) for n, t in
+               eager.model.named_buffers() if n.endswith("cluster_size")]
+    same_gen = torch.equal(eager.generator.get_state(),
+                           graph.generator.get_state())
+    log(f"search ema graph {mode}: {len(diffs)} parameters, Adam moments "
+        f"and buffers after {2 * SCAN_K} steps, eager vs "
+        f"{multi.replays} replays (after {WARMUP_STEPS} warm-up steps): "
+        f"{sum(d == 0 for d in diffs.values())} bit-equal, largest "
+        f"difference {max(diffs.values()):.3g}; EMA buffers moved "
+        f"{len(moved)}, codes with a count of exactly 1 (revived at the "
+        f"last step) {revived}; generator equal {same_gen}; eager steps "
+        f"repeated bit for bit: {not repeat} ({len(repeat)} tensors "
+        f"differ)")
+    if repeat:
+        raise AssertionError(f"search ema graph {mode}: two eager runs "
+                             f"differ in {repeat}")
+    if bad or not same_gen or eager.step != graph.step or len(moved) != \
+            3 * params["codebooks"] or multi.replays != \
+            2 * SCAN_K - WARMUP_STEPS:
+        raise AssertionError(f"search ema graph {mode}: graph and eager "
+                             f"steps disagree: {bad}, generator "
+                             f"{same_gen}, buffers moved {moved}")
+    del states, eager, control, graph, multi
+    torch.cuda.empty_cache()
+    return max(diffs.values())
+
+
+def _flow(value) -> str:
+    """``value`` as a YAML flow scalar / collection that ``read_config``
+    reads back equal (strings quoted)."""
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, (int, float)):
+        return repr(value)
+    if isinstance(value, str):
+        return "'" + value.replace("'", "''") + "'"
+    if isinstance(value, tuple):
+        return "!!python/tuple " + _flow(list(value))
+    if isinstance(value, list):
+        return "[" + ", ".join(_flow(v) for v in value) + "]"
+    return "{" + ", ".join(f"{k}: {_flow(v)}" for k, v in value.items()) + "}"
+
+
+def _write_config(cfg: dict, path: str) -> None:
+    """A config file (sections as block mappings, values in flow form)
+    that ``read_config`` reads back as ``cfg``; no PyYAML."""
+    with open(path, "w") as f:
+        for name, section in cfg.items():
+            f.write(f"{name}:\n")
+            for key, value in section.items():
+                f.write(f"  {key}: {_flow(value)}\n")
+    if read_config(path) != cfg:
+        raise AssertionError(f"{path} does not read back as written")
+
+
+def _search_cli(smi: str) -> tuple:
+    """Part (c): ``python -m ctvae_torch.hyperparameter_search``'s
+    ``main`` (in this process, so the launch counters see its kernels) on
+    a copy of the search config with only ``data_path`` (a TShapes3D
+    stand-in), ``num_samples``, ``limit``, ``val_limit``, ``max_epochs``,
+    ``scheduler: asha`` and the log directory changed. Every trial must
+    end with a finite loss and none may fail; ``results.json``'s best is
+    the minimum; the trials take both noise values and both codebook
+    counts. Returns (launches, its numbers)."""
+    import tempfile
+    from ctvae_torch import hyperparameter_search as hs
+    from ctvae_torch.data.standins import write_shapes3d_standin
+    with tempfile.TemporaryDirectory(prefix="ctvae_search_") as tmp:
+        root, logs = os.path.join(tmp, "Data"), os.path.join(tmp, "logs")
+        write_shapes3d_standin(root, SHAPES3D_GRID)
+        cfg = _search_config()
+        cfg["data_params"].update(data_path=root, limit=SEARCH_LIMIT,
+                                  val_limit=SEARCH_VAL_LIMIT)
+        cfg["trainer_params"]["max_epochs"] = SEARCH_EPOCHS
+        cfg["logging_params"]["save_dir"] = logs
+        cfg["hyperparameter_search"].update(num_samples=SEARCH_TRIALS,
+                                            scheduler="asha")
+        path = os.path.join(tmp, "search.yaml")
+        _write_config(cfg, path)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        code = hs.main(["-c", path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        with open(os.path.join(logs, cfg["model_params"]["name"],
+                               "hyp_search", "results.json")) as f:
+            results = json.load(f)
+    trials = sorted(results["trials"], key=lambda t: t["trial"])
+    losses = [t["loss"] for t in trials]
+    failed = [t for t in trials if "failed" in t]
+    seen = {(t["params"]["model_params.noise"],
+             t["params"]["model_params.codebooks"],
+             t["params"]["model_params.num_embeddings"]) for t in trials}
+    # rung 1 trains every trial one epoch, rung 2 the best 1 / eta two
+    epochs = SEARCH_TRIALS + 2 * max(1, SEARCH_TRIALS // 2) - max(
+        1, SEARCH_TRIALS // 2)
+    numbers = {"wall_s": wall, "trial_epochs": epochs,
+               "s_per_trial_epoch": wall / epochs, "losses": losses,
+               "best": results["best"]["trial"] if results["best"] else None,
+               "trials": sorted(seen), "card": smi}
+    log(f"search cli: exit {code}, {len(trials)} trials in {wall:.1f} s "
+        f"({epochs} trial epochs, {wall / epochs:.2f} s each; {smi}); "
+        f"losses {losses}; best trial {numbers['best']}; (noise, "
+        f"codebooks, K) drawn {sorted(seen)}")
+    if code != 0 or failed or len(trials) != SEARCH_TRIALS or not all(
+            math.isfinite(v) for v in losses) or results["best"]["loss"] != \
+            min(losses) or {s[0] for s in seen} != {"off", "endo"} or \
+            {s[1] for s in seen} != {1, 2}:
+        raise AssertionError(f"search cli: exit {code}, failed {failed}, "
+                             f"losses {losses}, drawn {sorted(seen)}")
+    return launches, numbers
+
+
+def phase_search(smi: str) -> tuple:
+    """The paper's hyperparameter search on the card
+    (``configs_hyp/ct_mcq_vae_hyp_search_shapes3d.yaml``): (a) the
+    corners of its space, every kernel call held against its plain
+    version; (b) an EMA model's captured graph against eager steps; (c)
+    the search CLI's ASHA run. The launches of (a)'s timed steps and of
+    (c) make the path ``search``. Returns (launches, the kernel rows by
+    kernel, the numbers)."""
+    start = time.perf_counter()
+    launches, timings, rows = _search_corners()
+    t_a = time.perf_counter() - start
+    ema = _search_ema_graph()
+    t_b = time.perf_counter() - start - t_a
+    cli_launches, numbers = _search_cli(smi)
+    for name, n in cli_launches.items():
+        launches[name] += n
+    log(f"launches on the search path: {json.dumps(launches)}")
+    numbers.update(ms_per_step=timings, ema_graph_max_diff=ema)
+    log(f"search: phase {time.perf_counter() - start:.1f} s (corners "
+        f"{t_a:.1f}, EMA graph {t_b:.1f}, cli {numbers['wall_s']:.1f})")
+    return launches, rows, numbers
+
+
+def _search_summary(rows: list) -> dict:
+    """A kernel's rows of the search phase, by shape (the kernels line
+    stays short: 4 significant digits): the number of calls and, over
+    them, the median ms, bound, plain ms (and ``cdist`` + ``argmin``) and
+    the largest ms."""
+    by_shape = {}
+    for r in rows:
+        key = "x".join(str(d) for d in r["shape"]) + "".join(
+            f" {t}={r[t]}" for t in ("K", "F") if t in r) + (
+            f" {r['call']}" if "call" in r else "")
+        by_shape.setdefault(key, []).append(r)
+    out = {}
+    for key, rs in sorted(by_shape.items()):
+        out[key] = {"calls": len(rs), "bound_by": rs[0]["bound_by"],
+                    "max_ms": float(f"{max(r['ms'] for r in rs):.4g}")}
+        for k in ("ms", "bound_ms", "plain_ms", "library_ms"):
+            if k in rs[0]:
+                out[key][k] = float(
+                    f"{statistics.median(r[k] for r in rs):.4g}")
+    return out
+
+
 # keys of a check's row that the kernels line carries beside the contract's
 EXTRA_KEYS = ("ms_at_16", "bound_ms_at_16", "plain_ms_at_16", "alpha_ms",
               "occupancy", "by_d")
@@ -3330,6 +3762,10 @@ def main(argv) -> int:
              "and gat_logits_bwd with those of these gat_logits.cu files "
              "(compare_gat_logits)")
     parser.add_argument(
+        "--search-only", action="store_true",
+        help="only build the kernels and run the phase \"search\" "
+             "(phase_search)")
+    parser.add_argument(
         "--metrics-only", action="store_true",
         help="only build the kernels and run the phase \"metrics\" "
              "(phase_metrics)")
@@ -3364,6 +3800,12 @@ def main(argv) -> int:
     if opts.vq_against:
         log(json.dumps({"vq_against": compare_vq(opts.vq_against)}))
         return 0
+    if opts.search_only:
+        launches, rows, numbers = phase_search(smi)
+        log(json.dumps({"search_launches": launches, "search": numbers,
+                        "kernels": {k: _search_summary(r)
+                                    for k, r in rows.items()}}))
+        return 0
     if opts.metrics_only:
         launches, seconds = phase_metrics(smi)
         log(json.dumps({"metrics_launches": launches,
@@ -3390,6 +3832,7 @@ def main(argv) -> int:
     phase_bench()
     mcq_launches, ct_launches, s3d_on_step = phase_shapes3d()
     metric_launches, metric_seconds = phase_metrics(smi)
+    search_launches, search_rows, search_numbers = phase_search(smi)
     kernels = []
     for r in rows:
         source, replaces = KERNEL_META[r["name"]]
@@ -3400,7 +3843,8 @@ def main(argv) -> int:
                    "scan": scan_launches[r["name"]],
                    "shapes3d_mcq": mcq_launches[r["name"]],
                    "shapes3d_ct": ct_launches[r["name"]],
-                   "metrics": metric_launches[r["name"]]}
+                   "metrics": metric_launches[r["name"]],
+                   "search": search_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -3415,12 +3859,13 @@ def main(argv) -> int:
         kernels[-1].update(on_step.get(r["name"], {}))
         kernels[-1].update(c2_on_step.get(r["name"], {}))
         kernels[-1].update(s3d_on_step.get(r["name"], {}))
+        kernels[-1]["search"] = _search_summary(search_rows[r["name"]])
     # every kernel runs on the training, codebooks: 2, two-stage, scan,
     # shapes3d CT and metrics paths, the forward ones on the serving path
     # too, the VQ search on the MCQVAE's (which has no CT layer)
     if any(k["launches_by_path"][p] == 0 for k in kernels
            for p in ("train", "codebooks_2", "two_stage", "scan",
-                     "shapes3d_ct", "metrics")) or any(
+                     "shapes3d_ct", "metrics", "search")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
             if EXPECTED["reconstruct"][k["name"]]) or any(
             (k["launches_by_path"]["shapes3d_mcq"] == 0)
@@ -3428,7 +3873,8 @@ def main(argv) -> int:
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"serve_ms": timings, "train_ms": train_ms,
                     "train_peak_gib": peak, "codebooks_2_train_ms": c2_ms,
-                    "scan_ms": scan_ms, "metric_seconds": metric_seconds}))
+                    "scan_ms": scan_ms, "metric_seconds": metric_seconds,
+                    "search": search_numbers}))
     log(f"chip_smoke wall time {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,10 @@ names); only the kernel layouts change:
 * ``Dense`` kernels [in, out] -> ``Linear`` weight [out, in];
 * every other leaf (GAT ``lin_edge`` / ``att`` / ``bias``, the ``disc_*``
   discoverers, the mask MLP, the codebooks) is copied as it is.
+
+An EMA codebook's ``vq_stats`` collection (``embedding``,
+``cluster_size``, ``embed_avg`` of each quantizer) maps by the same
+names onto the model's buffers.
 """
 
 from __future__ import annotations
@@ -51,18 +55,25 @@ def _convert_leaf(path: tuple, a: np.ndarray):
 def from_jax_params(params: Mapping, model: nn.Module
                     ) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of ``model`` filled from flax ``params`` (the
-    ``params`` collection itself, or a variables dict holding it).
+    ``params`` collection itself, or a variables dict holding it and, for
+    an EMA codebook, its ``vq_stats``).
 
-    Raises if a leaf maps to no parameter of the model, if a shape
-    disagrees, or if a parameter of the model is left unfilled."""
+    Raises if a leaf maps to no parameter or buffer of the model, if a
+    shape disagrees, or if a parameter of the model is left unfilled (and,
+    given a variables dict, a buffer of its state)."""
+    leaves, targets = {}, dict(model.named_parameters())
     if "params" in params and isinstance(params["params"], Mapping):
+        buffers = {k: v for k, v in model.state_dict().items()
+                   if k not in targets}
+        targets.update(buffers)
+        leaves.update(_flatten(params.get("vq_stats", {})))
         params = params["params"]
-    targets = dict(model.named_parameters())
+    leaves.update(_flatten(params))
     state: Dict[str, torch.Tensor] = {}
-    for path, a in _flatten(params).items():
+    for path, a in leaves.items():
         name, arr = _convert_leaf(path, a)
         if name not in targets:
-            raise KeyError(f"JAX param {'/'.join(path)} has no counterpart "
+            raise KeyError(f"JAX leaf {'/'.join(path)} has no counterpart "
                            f"({name})")
         t = targets[name]
         if tuple(arr.shape) != tuple(t.shape):
@@ -73,5 +84,5 @@ def from_jax_params(params: Mapping, model: nn.Module
                                    device=t.device)
     missing = sorted(set(targets) - set(state))
     if missing:
-        raise KeyError(f"port params left unfilled: {missing}")
+        raise KeyError(f"port params or buffers left unfilled: {missing}")
     return state

@@ -3,8 +3,9 @@
 Counterpart of ``ctvae_tpu/models/__init__.py``; the registry holds the
 CT-MCQ-VAE and the MCQVAE of the two-stage recipe's first stage.
 ``build_model`` initialises the weights with flax's distributions
-(``lecun_normal`` kernels, zero biases, ``U(-1/K, 1/K)`` codebooks) so
-activations at random init have the JAX model's ranges.
+(``lecun_normal`` kernels, zero biases, ``U(-1/K, 1/K)`` codebooks; an
+EMA codebook's buffers as flax fills ``vq_stats``) so activations at
+random init have the JAX model's ranges.
 """
 
 from __future__ import annotations
@@ -24,6 +25,13 @@ from .quantizers import VectorQuantizerMS
 vae_models = {"CTMCQVAE": CTMCQVAE, "MCQVAE": MCQVAE}
 
 
+def model_fields(cls) -> set:
+    """The config keys a model class takes: its constructor's arguments
+    but ``device``, the fields of its JAX counterpart."""
+    return set(inspect.signature(cls.__init__).parameters) - {"self",
+                                                              "device"}
+
+
 def _fan_in(p: torch.Tensor, module: nn.Module) -> int:
     """flax's fan-in of a kernel, read off the port's layout."""
     if isinstance(module, nn.Conv2d):           # [O, I, kh, kw]
@@ -39,15 +47,26 @@ def _fan_in(p: torch.Tensor, module: nn.Module) -> int:
     return fan
 
 
+def _uniform_codebook(q: VectorQuantizerMS, generator: torch.Generator
+                      ) -> torch.Tensor:
+    e = q.embedding
+    return (torch.rand(e.shape, generator=generator, device=e.device)
+            * 2 - 1) / q.num_embeddings
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Draw every parameter as flax initialises its JAX counterpart."""
+    """Draw every parameter as flax initialises its JAX counterpart; an
+    EMA codebook (``vq_stats``) as flax fills it: the codebook from U(-1/K,
+    1/K), ``embed_avg`` a copy of it, ``cluster_size`` zeros."""
     for module in model.modules():
+        if isinstance(module, VectorQuantizerMS) and module.ema:
+            module.embedding.copy_(_uniform_codebook(module, generator))
+            module.embed_avg.copy_(module.embedding)
+            module.cluster_size.zero_()
         for name, p in module.named_parameters(recurse=False):
             if isinstance(module, VectorQuantizerMS):
-                k = module.num_embeddings
-                p.copy_((torch.rand(p.shape, generator=generator,
-                                    device=p.device) * 2 - 1) / k)
+                p.copy_(_uniform_codebook(module, generator))
             elif name == "bias" or name in ("disc_b1", "disc_b2",
                                             "mask_bias"):
                 p.zero_()
@@ -60,13 +79,15 @@ def build_model(model_params: dict, device=None,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
     """Instantiate a model from a ``model_params`` config section on
     ``device`` (default ``cuda``; raises when no card is present). Keys
-    the class does not take are dropped, as in the JAX registry. Weights
-    are drawn from ``generator`` (a fresh seed-0 generator by default)."""
+    that are no field of the JAX model are dropped, as in the JAX
+    registry; each class takes every field of its JAX counterpart (or
+    raises ``NotImplementedError`` naming a value it does not port yet).
+    Weights are drawn from ``generator`` (a fresh seed-0 generator by
+    default)."""
     device = resolve_device(device)
     params = dict(model_params)
     cls = vae_models[params.pop("name")]
-    accepted = set(inspect.signature(cls.__init__).parameters) - {"self"}
-    params = {k: v for k, v in params.items() if k in accepted}
+    params = {k: v for k, v in params.items() if k in model_fields(cls)}
     model = cls(**params, device=device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
@@ -75,4 +96,4 @@ def build_model(model_params: dict, device=None,
 
 
 __all__ = ["CTMCQVAE", "CausalTransition", "MCQVAE", "build_model",
-           "init_weights", "vae_models"]
+           "init_weights", "model_fields", "vae_models"]

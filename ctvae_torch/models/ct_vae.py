@@ -9,8 +9,13 @@ discoverer-0 scores computed once on [B] and tiled.
 Every random draw goes through a ``Draws`` provider (``models/base.py``)
 in the JAX package's order: under ``train`` the positional-encoding
 dropout mask at each ``pos_encoding`` call, the Gumbel intervention mask,
-the Gumbel edge sample, then the uniform KL target. With ``noise='off'``
-there is no exo or endo draw.
+the Gumbel edge sample, the noise of ``_compute_y`` (and of the
+identity pass in base mode), then the uniform KL target. ``noise='exo'``
+adds a standard normal draw to the latent; ``noise='endo'`` appends a
+noise node of one normal draw per sample beside the action node (the
+identity pass draws it too and discards it, as JAX does, so later draws
+line up); ``noise='off'`` draws neither. An EMA codebook's revival draws
+(``update_stats``) come before the CT layer's.
 """
 
 from __future__ import annotations
@@ -86,9 +91,12 @@ class CausalTransition(nn.Module):
                  latent_dims: Optional[Sequence[int]] = None,
                  c_alpha: float = 0.7, c_beta: float = 0.4,
                  c_delta: float = 0.4, c_epsilon: float = 0.4,
-                 dropout_rate: float = 0.1, max_len: int = 4096, *,
-                 device=None):
+                 dropout_rate: float = 0.1, max_len: int = 4096,
+                 noise: str = "off", *, device=None):
         super().__init__()
+        if noise not in ("off", "exo", "endo"):
+            raise ValueError(f"unknown noise {noise!r}")
+        self.noise = noise
         ld = tuple(latent_dims) if latent_dims else (800, 100)
         N, A, H = input_dim, action_dim, ld[0]
         self.input_dim, self.action_dim = N, A
@@ -167,20 +175,34 @@ class CausalTransition(nn.Module):
         adj = torch.cat([adjacency, adjacency.new_ones(B, S, vs)], dim=2)
         return torch.cat([adj, adjacency.new_zeros(B, vs, S + vs)], dim=1)
 
-    def _compute_y_identity(self, latent: torch.Tensor) -> torch.Tensor:
-        """``_compute_y`` for the identity adjacency, in closed form."""
+    def _compute_y_identity(self, latent: torch.Tensor, draws: Draws
+                            ) -> torch.Tensor:
+        """``_compute_y`` for the identity adjacency, in closed form. The
+        endo noise node has no outgoing edge: its draw is made and
+        discarded, so the draws after it are those of the general path."""
+        if self.noise == "exo":
+            latent = latent + draws.normal(latent.shape).to(latent)
+        elif self.noise == "endo":
+            draws.normal((latent.shape[0], self.input_dim))
         nodes_y = self.graph_transitioner.identity_forward(latent)
         return torch.softmax(nodes_y[..., : self.input_dim], dim=-1)
 
     def _compute_y(self, latent: torch.Tensor, action: torch.Tensor,
-                   adjacency: torch.Tensor, mask: torch.Tensor,
+                   adjacency: torch.Tensor, mask: torch.Tensor, draws: Draws,
                    mask_is_zero: bool = False) -> torch.Tensor:
         """GNN transition + action-head selection; the final GAT layer
-        computes only head 0 and each sample's action head."""
+        computes only head 0 and each sample's action head. The support
+        nodes are the action node and, under ``noise='endo'``, a noise
+        node."""
         B, S, N = latent.shape
         action = action.to(latent.dtype)
-        nodes = torch.cat([latent, self.a_dense(action)[:, None, :]], dim=1)
-        padded_adj = self._pad_adjacency(adjacency, 1)
+        supports = [self.a_dense(action)]
+        if self.noise == "exo":
+            latent = latent + draws.normal(latent.shape).to(latent)
+        elif self.noise == "endo":
+            supports.append(draws.normal(supports[0].shape).to(latent))
+        nodes = torch.cat([latent, torch.stack(supports, dim=1)], dim=1)
+        padded_adj = self._pad_adjacency(adjacency, len(supports))
         zeros = torch.zeros((B,), dtype=torch.long, device=latent.device)
         if mask_is_zero:
             heads = self.graph_transitioner.select_forward(
@@ -206,10 +228,10 @@ class CausalTransition(nn.Module):
         causal_graph = st_bernoulli_gumbel(
             draws.gumbel(adjacency.shape + (2,)), adjacency)
         latent_y = self._compute_y(pos_latent, action,
-                                   adjacency * causal_graph, mask,
+                                   adjacency * causal_graph, mask, draws,
                                    mask_is_zero=True)
         identity = torch.eye(S, dtype=latent.dtype, device=latent.device)
-        y_id = self._compute_y_identity(pos_latent)
+        y_id = self._compute_y_identity(pos_latent, draws)
         ct_reg = self.c_alpha * (
             cross_entropy_from_probs(y_id.reshape(-1, N),
                                      torch.argmax(latent.reshape(-1, N), -1))
@@ -230,7 +252,7 @@ class CausalTransition(nn.Module):
         causal_graph = st_bernoulli_gumbel(
             draws.gumbel(adjacency.shape + (2,)), adjacency)
         latent_y = self._compute_y(pos_latent, action,
-                                   adjacency * causal_graph, mask)
+                                   adjacency * causal_graph, mask, draws)
         ct_reg = (self.c_beta * self.adjacency_kl_loss(adjacency, draws)
                   + self.c_delta * self.graph_size_loss(causal_graph)
                   + self.c_epsilon * self.positive_trial_loss(adjacency))
@@ -319,7 +341,8 @@ class CausalTransition(nn.Module):
 class CTMCQVAE(nn.Module):
     """MCQ-VAE backbone + CausalTransition over quantization indices, with
     the modes ``base`` / ``action`` / ``causal``; ``train=True`` turns on
-    the positional-encoding dropout (``ct_dropout_rate``)."""
+    the positional-encoding dropout (``ct_dropout_rate``) and, with
+    ``ema``, the codebook's fold-in of the encoder's indices."""
 
     FORWARD_MODES = ("base", "action", "causal")
 
@@ -333,17 +356,17 @@ class CTMCQVAE(nn.Module):
                  c_beta: float = 0.4, c_delta: float = 0.4,
                  c_epsilon: float = 0.4, slicing: str = "chunk",
                  grad_estimator: str = "ste", ema: bool = False,
+                 ema_decay: float = 0.99, revive_threshold: float = 0.0,
                  pairwise_block_rows: Optional[int] = None,
                  gat_block_cols: int = 0, ct_dropout_rate: float = 0.1,
                  seq_axis: Optional[str] = None, dtype="float32", *,
                  device=None):
         super().__init__()
-        unsupported = {"ema": ema, "grad_estimator='rotation'":
-                       grad_estimator != "ste",
-                       "pairwise_block_rows": pairwise_block_rows is not None,
+        # ROADMAP A6 / A8: the block options bound the workspace of JAX's
+        # XLA path, which the fused kernels never build
+        unsupported = {"pairwise_block_rows": pairwise_block_rows is not None,
                        "gat_block_cols": bool(gat_block_cols),
                        "seq_axis": seq_axis is not None,
-                       f"noise={noise!r}": noise != "off",
                        f"dtype={dtype!r}": str(dtype) not in ("float32",
                                                               "torch.float32")}
         bad = [k for k, v in unsupported.items() if v]
@@ -353,17 +376,18 @@ class CTMCQVAE(nn.Module):
         self.in_channels, self.embedding_dim = in_channels, embedding_dim
         self.action_dim, self.num_embeddings = action_dim, num_embeddings
         self.gamma, self.codebooks = gamma, codebooks
-        self.skip_transition = skip_transition
+        self.skip_transition, self.ema = skip_transition, ema
         self.nb_latents = img_size // (2 ** len(hd))
         self.encoder = VQEncoder(in_channels, hd, embedding_dim,
                                  device=device)
         self.vq_layer = MultipleCodebookVectorQuantizer(
             num_embeddings, embedding_dim, codebooks, beta, slicing=slicing,
-            device=device)
+            grad_estimator=grad_estimator, ema=ema, ema_decay=ema_decay,
+            revive_threshold=revive_threshold, device=device)
         self.ct_layer = CausalTransition(
             num_embeddings, action_dim, causal_hidden_dims, c_alpha=c_alpha,
             c_beta=c_beta, c_delta=c_delta, c_epsilon=c_epsilon,
-            dropout_rate=ct_dropout_rate, device=device)
+            dropout_rate=ct_dropout_rate, noise=noise, device=device)
         self.decoder = VQDecoder(embedding_dim, hd, in_channels,
                                  device=device)
 
@@ -400,6 +424,10 @@ class CTMCQVAE(nn.Module):
         draws = self._draws(draws)
         latents = self.encoder(x)
         inds = self.vq_layer.compute_inds(latents)
+        if self.ema and train:
+            # the EMA tracks the encoder's codes; decoding below goes
+            # through the CT layer's (compute_latents does not update)
+            self.vq_layer.update_stats(latents, inds, draws)
         one_hot = self.ct_preprocess(inds)
         ct_seq, ct_reg, ct_metrics = self.ct_layer(one_hot, draws,
                                                     train=train)
@@ -421,6 +449,8 @@ class CTMCQVAE(nn.Module):
         latents, latents_y = torch.chunk(
             self.encoder(torch.cat([x, input_y], dim=0)), 2, dim=0)
         inds = self.vq_layer.compute_inds(latents)
+        if self.ema and train:
+            self.vq_layer.update_stats(latents, inds, draws)
         one_hot = self.ct_preprocess(inds)
         ct_seq, ct_reg, ct_metrics = self.ct_layer.forward_action(
             one_hot, action, draws, train=train)
@@ -445,6 +475,8 @@ class CTMCQVAE(nn.Module):
             self.encoder(torch.cat([x, input_y], dim=0)), 2, dim=0)
         inds_x = self.vq_layer.compute_inds(latents_x)
         inds_y = self.vq_layer.compute_inds(latents_y)
+        if self.ema and train:
+            self.vq_layer.update_stats(latents_x, inds_x, draws)
         probas, ct_reg, _ = self.ct_layer.forward_transition(
             self.ct_preprocess(inds_x), self.ct_preprocess(inds_y), draws,
             train=train)

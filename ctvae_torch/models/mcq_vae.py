@@ -1,7 +1,9 @@
 """MCQVAE: the multi-codebook vector-quantized VAE (stage 1 of the
 two-stage CT recipe).
 
-Counterpart of ``ctvae_tpu/models/mcq_vae.py``. Its parameter names are
+Counterpart of ``ctvae_tpu/models/mcq_vae.py``, with its quantizer
+options (``grad_estimator``, ``ema``, ``ema_decay``,
+``revive_threshold``: ``models/quantizers.py``). Its parameter names are
 those of the CTMCQVAE backbone (``encoder``, ``vq_layer``, ``decoder``),
 so a weights-only restore of its checkpoint lands in a CTMCQVAE.
 """
@@ -25,15 +27,12 @@ class MCQVAE(nn.Module):
                  hidden_dims: Optional[Sequence[int]] = None,
                  beta: float = 0.25, img_size: int = 64, codebooks: int = 1,
                  slicing: str = "chunk", grad_estimator: str = "ste",
-                 ema: bool = False, dtype="float32", *, device=None):
+                 ema: bool = False, ema_decay: float = 0.99,
+                 revive_threshold: float = 0.0, dtype="float32", *,
+                 device=None):
         super().__init__()
-        unsupported = {"ema": ema, "grad_estimator='rotation'":
-                       grad_estimator != "ste",
-                       f"dtype={dtype!r}": str(dtype) not in ("float32",
-                                                              "torch.float32")}
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        if str(dtype) not in ("float32", "torch.float32"):
+            raise NotImplementedError(f"not ported yet: dtype={dtype!r}")
         hd = tuple(hidden_dims) if hidden_dims else (128, 256)
         self.in_channels, self.embedding_dim = in_channels, embedding_dim
         self.num_embeddings, self.codebooks = num_embeddings, codebooks
@@ -42,7 +41,8 @@ class MCQVAE(nn.Module):
                                  device=device)
         self.vq_layer = MultipleCodebookVectorQuantizer(
             num_embeddings, embedding_dim, codebooks, beta, slicing=slicing,
-            device=device)
+            grad_estimator=grad_estimator, ema=ema, ema_decay=ema_decay,
+            revive_threshold=revive_threshold, device=device)
         self.decoder = VQDecoder(embedding_dim, hd, in_channels,
                                  device=device)
 
@@ -60,9 +60,11 @@ class MCQVAE(nn.Module):
                 action: torch.Tensor = None, mode: str = "base", *,
                 draws: Optional[Draws] = None, train: bool = False) -> Dict:
         """Reconstruct ``x``. The transition keys (``input_y``,
-        ``action``, ``mode``, ``draws``) are taken and ignored, so the
-        trainer drives it on a transition stream as it drives CTMCQVAE."""
-        quantized, vq_loss, inds = self.vq_layer(self.encoder(x), inds=True)
+        ``action``, ``mode``) are taken and ignored, so the trainer drives
+        it on a transition stream as it drives CTMCQVAE; ``draws`` serves
+        an EMA codebook's revival under ``train``."""
+        quantized, vq_loss, inds = self.vq_layer(self.encoder(x), inds=True,
+                                                 train=train, draws=draws)
         # pooled over the C codebooks (each shares num_embeddings codes)
         return {"recons": self.decoder(quantized), "input": x,
                 "vq_loss": vq_loss,

@@ -8,6 +8,10 @@ of a step come from the state's ``generator`` (advanced by every train
 step); the eval step draws from a generator of its own, seeded apart from
 the train draws as the JAX package offsets its eval key by ``1 << 20``.
 
+An EMA codebook's buffers are written in place by the train forward
+(the JAX step's mutable ``vq_stats``), whatever the optimizers train, and
+never by the eval step.
+
 ``make_multi_train_step`` is the counterpart of the JAX package's
 ``lax.scan`` over K steps (``exp_params.scan_steps``): on the card it
 replays one captured CUDA graph of the whole step per batch, so a step
@@ -44,7 +48,8 @@ class TrainState:
 
     def state_dict(self) -> Dict[str, Any]:
         """Everything a resumed run needs to continue bit for bit: the
-        parameters, each optimizer's state, the step and the generator."""
+        parameters (and an EMA codebook's buffers), each optimizer's state,
+        the step and the generator."""
         return {"model": self.model.state_dict(),
                 "optimizers": [o.state_dict() for o in self.optimizers],
                 "step": self.step, "generator": self.generator.get_state()}

@@ -176,15 +176,17 @@ class CheckpointManager:
 
 
 def load_weights_only(path: str, model: nn.Module) -> List[str]:
-    """Copy into ``model`` the entries of the checkpoint at ``path`` that
-    it has under the same name and shape; every other entry keeps its
-    value (non-strict, the reference's ``strict=False`` load). Returns the
-    names loaded. The optimizers are not touched."""
+    """Copy into ``model`` the parameters of the checkpoint at ``path``
+    that it has under the same name and shape; every other parameter keeps
+    its value (non-strict, the reference's ``strict=False`` load). Buffers
+    are not loaded: an EMA codebook's stay as initialised, as the JAX
+    package restores ``params`` alone. Returns the names loaded. The
+    optimizers are not touched."""
     blob = _load(path)
     src = blob.get("model", blob)
     loaded = []
     with torch.no_grad():
-        for name, dst in model.state_dict().items():
+        for name, dst in model.named_parameters():
             t = src.get(name)
             if t is not None and tuple(t.shape) == tuple(dst.shape):
                 dst.copy_(t)

@@ -38,7 +38,10 @@ def _t(rng, *shape, scale=1.0):
     # codebooks: 2 and 4 split the headline's 128 into D = 64 and 32
     (1024, 64, 64), (1024, 64, 32),
     # several 64-code passes and 128-float chunks of D, D % 4 != 0
-    (300, 130, 300), (40, 65, 257)])
+    (300, 130, 300), (40, 65, 257),
+    # the search's codebooks of 16 and 32 codes (less than one pass) at
+    # B = 8 (512 rows) and D = 128 / 64 (codebooks 1 / 2)
+    (512, 16, 128), (512, 32, 128), (512, 16, 64), (512, 32, 64)])
 def test_vq_kernel_matches_plain(card, n, k, d):
     from ctvae_torch.ops import vq
     rng = np.random.default_rng(n)
@@ -131,7 +134,9 @@ def test_pairwise_fwd_rejects_too_large_grid(card):
     # T = 16: 16 warps, one target each
     (16, 16, 2, 40, 0.6),
     # S + 1 = 129 graph nodes of codebooks: 2 at 64 x 64 (one block per SM)
-    (129, 129, 13, 100, 0.5), (129, 129, 13, 100, 1.0)])
+    (129, 129, 13, 100, 0.5), (129, 129, 13, 100, 1.0),
+    # noise: endo adds a second support node: 66 and 130 nodes
+    (66, 66, 13, 100, 0.5), (130, 130, 13, 100, 0.5)])
 def test_gat_kernel_matches_plain(card, S, T, H, F, density):
     """The forward kernel against the plain version: out, and the alpha
     residual against the plain masked softmax (ragged S != T, F below and
@@ -335,7 +340,9 @@ def _gat_args(rng, B, S, T, H, F, density=0.6):
     # the scratch rows over the dout tile: S + 1 = 129 graph nodes of
     # codebooks: 2 at 64 x 64, and the largest S = T that fits then
     (129, 129, 13, 100, 0.5), (129, 129, 13, 100, 1.0),
-    (133, 133, 2, 100, 0.6)])
+    (133, 133, 2, 100, 0.6),
+    # noise: endo's second support node: 66 and 130 nodes
+    (66, 66, 13, 100, 0.5), (130, 130, 13, 100, 0.5)])
 def test_gat_bwd_kernel_matches_plain(card, S, T, H, F, density):
     """FlashGAT: the alpha residual against the plain softmax, and the
     backward kernel against the plain version's autograd (ragged S != T,
@@ -556,7 +563,14 @@ def _logits_args(rng, B, S, T, K, F, per_sample):
     (3, 65, 65, 2, 64, 0.2, 0.0, "zero"), (3, 65, 65, 2, 64, 0.2, 0.0, "one"),
     # the 129 graph nodes of codebooks: 2 at 64 x 64
     (16, 129, 129, 2, 64, 0.2, 0.0, "rand"),
-    (3, 129, 129, 13, 100, 0.2, 0.0, "rand")])
+    (3, 129, 129, 13, 100, 0.2, 0.0, "rand"),
+    # the search's codebooks of 16 and 32 codes (F = N), B = 8 and the
+    # causal A*B = 96, at 65 / 66 / 129 / 130 nodes
+    (8, 66, 66, 1, 16, 0.2, 0.0, "rand"), (96, 65, 65, 2, 16, 0.2, 0.0, "rand"),
+    (96, 66, 66, 2, 32, 0.2, 0.0, "rand"),
+    (8, 129, 129, 2, 32, 0.2, 0.0, "rand"),
+    (96, 130, 130, 2, 16, 0.2, 0.0, "rand"),
+    (96, 130, 130, 2, 32, 0.2, 0.0, "rand")])
 def test_gat_logits_kernels_match_plain(card, per_sample, B, S, T, K, F, ns,
                                         shift, d_kind):
     """The per-head logits forward against ``gat_logits``, and its backward
@@ -717,6 +731,61 @@ def test_multi_train_step_graph_equals_eager_steps(card, mode):
     # its graphs hold the state they were captured from
     with pytest.raises(ValueError, match="another train state"):
         multi(eager, {k: v[:4] for k, v in stacked.items()})
+
+
+@pytest.mark.parametrize("mode", ["base", "action", "causal"])
+def test_multi_train_step_graph_with_ema_equals_eager_steps(card, mode):
+    """A small CT-MCQ-VAE with the EMA codebook (revival at threshold 0.5
+    drawing from the train generator), the rotation estimator and the
+    endo noise node, trained 8 steps eagerly and through two calls of
+    ``make_multi_train_step(mode, 4)`` from equal states: every parameter,
+    Adam moment and EMA buffer within 1e-6 of its largest magnitude, the
+    buffers moved, the generators and steps equal."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_multi_train_step, make_train_step)
+    cfg = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8,
+               action_dim=8, hidden_dims=[8, 16], num_embeddings=8,
+               img_size=16, codebooks=2, causal_hidden_dims=[16, 8],
+               noise="endo", ema=True, revive_threshold=0.5,
+               grad_estimator="rotation")
+    exp = dict(LR=5e-4, scheduler_gamma=0.9, weight_decay=0.0)
+    states = []
+    for _ in range(2):
+        m = build_model(cfg, device=card,
+                        generator=torch.Generator("cuda").manual_seed(0))
+        states.append(create_train_state(m, build_optimizers(exp, m, 3),
+                                         seed=5))
+    init = {n: b.clone() for n, b in states[0].model.named_buffers()}
+    g = torch.Generator().manual_seed(6)
+    stacked = {"image": torch.rand(8, 3, 16, 16, 3, generator=g),
+               "input_y": torch.rand(8, 3, 16, 16, 3, generator=g),
+               "action": torch.eye(8)[torch.randint(0, 8, (8, 3),
+                                                    generator=g)]}
+    stacked = {k: v.cuda() for k, v in stacked.items()}
+    step = make_train_step(mode)
+    for i in range(8):
+        step(states[0], {k: v[i] for k, v in stacked.items()})
+    multi = make_multi_train_step(mode, 4)
+    for half in (slice(0, 4), slice(4, 8)):
+        multi(states[1], {k: v[half] for k, v in stacked.items()})
+    eager, graph = states
+    a, b = eager.model.state_dict(), graph.model.state_dict()
+    assert any(n.endswith("embed_avg") for n in a)
+    for n, t in a.items():
+        assert float((t - b[n]).abs().max()) <= 1e-6 * float(
+            t.abs().max()), n
+        if "quantizers_" in n:
+            assert not torch.equal(t, init[n]), n
+    for oa, ob in zip(eager.optimizers, graph.optimizers):
+        for pa, pb in zip(oa.params, ob.params):
+            for k, va in oa.adam.state.get(pa, {}).items():
+                vb = ob.adam.state[pb][k]
+                assert float((va - vb).abs().max()) <= \
+                    1e-6 * float(va.abs().max()), k
+    assert eager.step == graph.step == 8
+    assert torch.equal(eager.generator.get_state(),
+                       graph.generator.get_state())
 
 
 def test_scan_steps_epoch_on_card_equals_per_step(card):

@@ -163,11 +163,16 @@ def test_ctmcqvae_matches_jax(monkeypatch, mode):
 
 def test_unsupported_options_raise():
     from ctvae_torch.models import build_model
-    for extra in (dict(ema=True), dict(grad_estimator="rotation"),
-                  dict(pairwise_block_rows=8), dict(gat_block_cols=8),
-                  dict(seq_axis="model"), dict(noise="exo")):
-        with pytest.raises(NotImplementedError):
+    for extra in (dict(pairwise_block_rows=8), dict(gat_block_cols=8),
+                  dict(seq_axis="model"), dict(dtype="bfloat16")):
+        with pytest.raises(NotImplementedError, match=next(iter(extra))):
             build_model({**SMALL, **extra}, device="cpu")
+    # ported since: the noise options, the EMA codebook with revival and
+    # the rotation estimator build
+    for extra in (dict(noise="exo"), dict(noise="endo"),
+                  dict(ema=True, revive_threshold=0.5),
+                  dict(grad_estimator="rotation")):
+        build_model({**SMALL, **extra}, device="cpu")
     # train=True is ported (the training slice): it runs, and its PE
     # dropout makes the base forward depend on the draws
     tm = build_model(dict(SMALL), device="cpu")

@@ -69,8 +69,8 @@ def test_read_config_matches_yaml(path):
 
 def test_read_config_reads_safe_dump_and_refuses_the_rest(tmp_path):
     """What ``yaml.safe_dump`` writes of a config (block lists, quoted
-    strings, nulls) reads back equal; a top-level scalar, a nested
-    mapping and a list of mappings raise."""
+    strings, nulls, nested mappings) reads back equal; a top-level
+    scalar, an anchor and a list of mappings raise."""
     from ctvae_torch.config import read_config
     cfg = {"model_params": dict(CT12, hidden_dims=[8, 16], noise="off"),
            "data_params": {"data_path": "", "limit": None,
@@ -80,7 +80,9 @@ def test_read_config_reads_safe_dump_and_refuses_the_rest(tmp_path):
     path.write_text(yaml.safe_dump(cfg))
     assert "- 8" in path.read_text()
     assert read_config(str(path)) == cfg
-    for text in ("seed: 3\n", "a:\n  b:\n    c: 1\n",
+    path.write_text("a:\n  b:\n    c: 1\n")
+    assert read_config(str(path)) == {"a": {"b": {"c": 1}}}
+    for text in ("seed: 3\n", "a:\n  b: &x 1\n",
                  "a:\n  b:\n  - c: 1\n"):
         path.write_text(text)
         with pytest.raises(ValueError):

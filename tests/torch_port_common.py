@@ -179,14 +179,24 @@ def jax_train_step(jm, variables, mode, b, monkeypatch, seed, exp):
     """One jitted ``make_train_step`` of the JAX package (optimizer chain
     of ``exp`` behind ``keep_grads``) on batch ``b``, its draws recorded.
     Returns (updated params, raw gradients, metrics, draws)."""
+    return jax_train_step_state(jm, variables, mode, b, monkeypatch, seed,
+                                exp)[:4]
+
+
+def jax_train_step_state(jm, variables, mode, b, monkeypatch, seed, exp):
+    """``jax_train_step`` whose state also holds the variables' other
+    collections (an EMA codebook's ``vq_stats``); returns them updated as
+    a fifth item."""
     import optax
 
     from ctvae_tpu.training import optimizers as jopt
     from ctvae_tpu.training import state as jstate
     params = variables["params"]
+    model_state = {k: v for k, v in variables.items() if k != "params"}
     tx = optax.chain(keep_grads(), jopt.build_optimizers(exp, params, 4)[0])
     state = jstate.TrainState(step=jnp.array(0, jnp.int32), params=params,
-                              model_state={}, opt_states=(tx.init(params),),
+                              model_state=model_state,
+                              opt_states=(tx.init(params),),
                               rng=jax.random.PRNGKey(seed))
     step = jax.jit(jstate.make_train_step(
         jm, [tx], M_N=1.0, fwd_kwargs_keys=("action", "input_y"),
@@ -194,7 +204,8 @@ def jax_train_step(jm, variables, mode, b, monkeypatch, seed, exp):
     with recorded_draws(monkeypatch, seed=seed) as rec:
         new, metrics = step(state, b)
     return (jax.device_get(new.params), jax.device_get(new.opt_states[0][0]),
-            jax.device_get(metrics), rec.draws)
+            jax.device_get(metrics), rec.draws,
+            jax.device_get(new.model_state))
 
 
 def keep_step_grads(n_steps: int):
