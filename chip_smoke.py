@@ -33,7 +33,7 @@ the launch counters set to 0 just before and read just after:
   sweep), with the bitwise checks of each stage.
 
 Before that, ``VAEXperiment.fit`` runs one short epoch on TSynthetic at the
-same widths (phase "loop"). Then four more phases:
+same widths (phase "loop"). Then more phases:
 
 * scan: per train mode, 16 steps at the headline widths and B = 16
   taken eagerly from one state and through ``make_multi_train_step(mode,
@@ -80,9 +80,27 @@ same widths (phase "loop"). Then four more phases:
   stand-in, every trial finite. The launches of (a)'s timed steps and of
   (c) make the path ``search``.
 
+* gaussian: VQVAE and the Gaussian zoo from their YAML at full width on
+  the same Shapes3D stand-in (64x64x3, CelebA's shape at ``patch_size:
+  64``; the data redirection is printed): ``run.train`` of
+  ``configs/vae.yaml`` and ``configs/vq_vae.yaml`` (B = 64, one epoch,
+  checkpoints and grids, no Samples grid for VQVAE) and of
+  ``configs/synthetic_vae.yaml``; every VQ search call of a VQVAE train
+  step and of its eval step (K = 512 codes of 64, N = 16,384 rows) held
+  against the plain version and timed with it and ``cdist`` + ``argmin``;
+  a warm and timed eager train steps of VanillaVAE, VQVAE and of bbvae,
+  bhvae, logcosh_vae, dip_vae, infovae, wae_mmd_imq and wae_mmd_rbf at B
+  = 64 (ms, the profiled step's device-busy share, peak memory);
+  VanillaVAE's ``reconstruct`` / ``encode`` / ``sample`` at B = 16
+  against the CPU; ``make_multi_train_step("base", 8)`` against eager
+  steps for VanillaVAE and BetaVAE B (cuDNN deterministic). VQVAE's run
+  and steps make the path ``gaussian_vq`` (the VQ search only), the rest
+  the path ``gaussian`` (no kernel).
+
     python3 chip_smoke.py --search-only
 
-builds the kernels and runs only the phase "search" (``phase_search``).
+builds the kernels and runs only the phase "search" (``phase_search``);
+``--gaussian-only`` only the phase "gaussian" (``phase_gaussian``).
 
 The second-last line is one JSON
 object with a row per kernel; the last line is ``{"ok": true, "device":
@@ -1387,6 +1405,10 @@ def _replay_draws(device, seed):
             return torch.rand(tuple(shape), generator=self.generator
                               ).to(self.device)
 
+        def normal(self, shape):
+            return torch.randn(tuple(shape), generator=self.generator
+                               ).to(self.device)
+
     return CpuSeeded(torch.Generator().manual_seed(seed), torch.device(device))
 
 
@@ -1417,7 +1439,8 @@ def phase_reference(model) -> None:
 GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 
 
-def _profile(label: str, fn, gemm_shapes: bool = False) -> list:
+def _profile(label: str, fn, gemm_shapes: bool = False,
+             stats: dict = None) -> list:
     """Device time by kernel over one call of ``fn`` (already warm), and
     the share of its wall time the card was busy (the profiler's ranges,
     such as ``Adam.step``'s, are logged apart: their time is that of
@@ -1425,7 +1448,9 @@ def _profile(label: str, fn, gemm_shapes: bool = False) -> list:
     then, over a second call profiled with ``record_shapes`` (whose host
     cost stays out of the busy share), the dense products by input shape:
     each ``GEMM_OPS`` op with the device time of the kernels it launched.
-    Returns (kernel, ms, count) rows of the first call, longest first."""
+    Returns (kernel, ms, count) rows of the first call, longest first;
+    ``stats``, when given, gets the first call's ``wall_ms`` and
+    ``busy_ms``."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1440,6 +1465,8 @@ def _profile(label: str, fn, gemm_shapes: bool = False) -> list:
                    for e in device if not e.is_user_annotation),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    if stats is not None:
+        stats.update(wall_ms=wall, busy_ms=busy)
     log(f"profile {label}: wall {wall:.3f} ms (profiled), device busy "
         f"{busy:.3f} ms ({100 * busy / wall:.1f}% of wall), "
         f"{sum(r[2] for r in rows)} kernels; ranges " + ", ".join(
@@ -2020,27 +2047,33 @@ def _epoch_ms(model, exp_params: dict, data, B: int) -> float:
     return 1e3 * B / experiment.train_epoch(0)["images_per_sec"]
 
 
-def _check_run(label: str, cfg: dict, out: dict, logs: str) -> str:
+def _check_run(label: str, cfg: dict, out: dict, logs: str,
+               samples: bool = True) -> str:
     """A run's metrics finite, and in its ``version_0``: the checkpoints,
-    ``scalars.jsonl`` lines, valid image grids. Returns the run's dir."""
+    ``scalars.jsonl`` lines, valid image grids (a Samples grid exactly
+    when ``samples``: a model without a prior writes none). Returns the
+    run's dir."""
     bad = {k: v for k, v in out.items() if not math.isfinite(v)}
     run_dir = os.path.join(logs, cfg["logging_params"]["name"], "version_0")
     ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
     with open(os.path.join(run_dir, "scalars.jsonl")) as f:
         scalars = [json.loads(line) for line in f]
     name = cfg["model_params"]["name"]
+    grids = (("Inputs", "real_img_"), ("Reconstructions", "recons_")) + (
+        (("Samples", ""),) if samples else ())
     pngs = [os.path.join(run_dir, sub, f"{prefix}{name}_Epoch_0.png")
-            for sub, prefix in (("Inputs", "real_img_"),
-                                ("Reconstructions", "recons_"),
-                                ("Samples", ""))]
+            for sub, prefix in grids]
     invalid = [p for p in pngs if not _valid_png(p)]
+    extra = [] if samples else os.listdir(os.path.join(run_dir, "Samples"))
     if bad or "last" not in ckpts or not any(
-            c.startswith("step_") for c in ckpts) or not scalars or invalid:
+            c.startswith("step_") for c in ckpts) or not scalars or invalid \
+            or extra:
         raise AssertionError(f"{label}: non-finite {bad}, checkpoints "
                              f"{ckpts}, {len(scalars)} scalar lines, "
-                             f"invalid PNGs {invalid}")
+                             f"invalid PNGs {invalid}, Samples {extra}")
     log(f"{label}: checkpoints {ckpts}; {len(scalars)} lines in "
-        f"scalars.jsonl; Inputs, Reconstructions and Samples PNGs valid")
+        f"scalars.jsonl; {', '.join(g for g, _ in grids)} PNGs valid"
+        + ("" if samples else "; no Samples grid"))
     return run_dir
 
 
@@ -3487,94 +3520,115 @@ def _search_corners() -> tuple:
     return launches, timings, rows
 
 
+def _graph_vs_eager(label: str, build, batches: list, mode: str,
+                    M_N: float = 1.0) -> dict:
+    """Three equal train states from ``build()``: 2K eager steps of
+    ``mode`` on ``batches`` (2K batch dicts) from the first, again from
+    the second (the control: eager steps must repeat bit for bit), and
+    two ``make_multi_train_step(mode, K)`` calls from the third, under
+    cuDNN's deterministic algorithms (the whole model trains, and a
+    backbone trained on atomically summed weight gradients would make
+    even two eager runs part ways). Every parameter, buffer and Adam
+    moment, and each call's metrics against the eager step it ends on,
+    within SCAN_RTOL of the largest magnitude; generators, steps and the
+    replay count exact; raises otherwise. Returns the eager and graph
+    states, the eager buffers before the steps, the eager steps' metrics
+    and the differences by name."""
+    from ctvae_torch.training import (make_multi_train_step,
+                                      make_train_step)
+    from ctvae_torch.training.state import WARMUP_STEPS
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager, control, graph = (build() for _ in range(3))
+        init = {n: t.clone() for n, t in eager.model.named_buffers()}
+        step = make_train_step(mode, M_N=M_N)
+        multi = make_multi_train_step(mode, SCAN_K, M_N=M_N)
+        metrics = [step(eager, b) for b in batches]
+        for b in batches:
+            step(control, b)
+        calls = [multi(graph, {k: torch.stack([b[k] for b in batches[h]])
+                               for k in batches[0]})
+                 for h in (slice(0, SCAN_K), slice(SCAN_K, 2 * SCAN_K))]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b, c = (_scan_tensors(s) for s in (eager, graph, control))
+    for i, m in enumerate(calls):
+        for k, v in m.items():
+            a[f"metric {(i + 1) * SCAN_K - 1}:{k}"] = \
+                metrics[(i + 1) * SCAN_K - 1][k]
+            b[f"metric {(i + 1) * SCAN_K - 1}:{k}"] = v
+    repeat = [n for n in c if not torch.equal(a[n], c[n])]
+    diffs = {n: float((a[n].float() - b[n].float()).abs().max()) for n in a}
+    bad = {n: d for n, d in diffs.items() if d > SCAN_RTOL * max(
+        float(a[n].float().abs().max()), 1e-30)}
+    same_gen = torch.equal(eager.generator.get_state(),
+                           graph.generator.get_state())
+    n_metrics = sum(n.startswith("metric ") for n in diffs)
+    log(f"{label}: {len(diffs) - n_metrics} parameters, buffers and Adam "
+        f"moments after {2 * SCAN_K} steps and {n_metrics} metrics of the "
+        f"calls' last steps, eager vs {multi.replays} replays (after "
+        f"{WARMUP_STEPS} warm-up steps): "
+        f"{sum(d == 0 for d in diffs.values())} bit-equal, largest "
+        f"difference {max(diffs.values()):.3g}; generator equal "
+        f"{same_gen}; step {eager.step} / {graph.step}; eager steps "
+        f"repeated bit for bit: {not repeat} ({len(repeat)} tensors "
+        f"differ)")
+    if repeat:
+        raise AssertionError(f"{label}: two eager runs differ in {repeat}")
+    if bad or not same_gen or eager.step != graph.step or \
+            multi.replays != 2 * SCAN_K - WARMUP_STEPS:
+        raise AssertionError(f"{label}: graph and eager steps disagree: "
+                             f"{bad}, generator {same_gen}, replays "
+                             f"{multi.replays}")
+    return {"eager": eager, "init": init, "metrics": metrics,
+            "diffs": diffs}
+
+
 def _search_ema_graph() -> dict:
     """Part (b): an EMA CT model (``EMA_OPTIONS``, noise endo, codebooks 2,
     K = 16) trained as the search trains it (every parameter), per train
-    mode: 2K steps eagerly from one state, again from an equal state (the
-    control: eager steps must repeat bit for bit), and two
-    ``make_multi_train_step(mode, K)`` calls from a third on the same
-    batches. Every parameter, Adam moment and EMA buffer within SCAN_RTOL
-    of its largest magnitude, generators and steps equal. cuDNN runs its
-    deterministic algorithms here: a backbone trained on atomically summed
-    weight gradients would make even two eager runs part ways, and the
-    EMA's code counts amplify any difference. Returns the largest
-    difference by mode."""
+    mode: ``_graph_vs_eager`` on 2K request batches, and the EMA buffers
+    moved. cuDNN's deterministic algorithms matter most here: the EMA's
+    code counts amplify any difference. Returns the largest difference
+    by mode."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import build_optimizers, create_train_state
     cfg = _search_config()
     B = int(cfg["data_params"]["train_batch_size"])
     params = {**_corner_params("endo", 2, 16), **EMA_OPTIONS}
     gen = torch.Generator().manual_seed(SEED + 13)
-    out = {}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        for mode in EXPECTED_TRAIN:
-            out[mode] = _ema_graph_mode(mode, params, cfg, B, gen)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-    return out
 
-
-def _ema_graph_mode(mode, params, cfg, B, gen) -> float:
-    """``_search_ema_graph`` in one mode; the largest difference."""
-    from ctvae_torch.models import build_model
-    from ctvae_torch.training import (build_optimizers, create_train_state,
-                                      make_multi_train_step, make_train_step)
-    from ctvae_torch.training.state import WARMUP_STEPS
-    states = []
-    for _ in range(3):
+    def build():
         model = build_model(params, device="cuda",
                             generator=torch.Generator(
                                 "cuda").manual_seed(SEED))
-        states.append(create_train_state(model, build_optimizers(
-            cfg["exp_params"], model, steps_per_epoch=100), seed=SEED))
-    eager, control, graph = states
-    xs = [_requests(gen, B, "cuda") for _ in range(2 * SCAN_K)]
-    stacked = {k: torch.stack([r[i] for r in xs])
-               for i, k in enumerate(("image", "input_y", "action"))}
-    step, multi = make_train_step(mode), make_multi_train_step(
-        mode, SCAN_K)
-    init = {n: b.clone() for n, b in eager.model.named_buffers()}
-    for state in (eager, control):
-        for i in range(2 * SCAN_K):
-            step(state, {k: v[i] for k, v in stacked.items()})
-    c = _scan_tensors(control)
-    repeat = [n for n, t in _scan_tensors(eager).items()
-              if not torch.equal(t, c[n])]
-    for half in (slice(0, SCAN_K), slice(SCAN_K, 2 * SCAN_K)):
-        multi(graph, {k: v[half] for k, v in stacked.items()})
-    torch.cuda.synchronize()
-    a, b = _scan_tensors(eager), _scan_tensors(graph)
-    diffs = {n: float((a[n].float() - b[n].float()).abs().max())
-             for n in a}
-    bad = {n: d for n, d in diffs.items() if d > SCAN_RTOL * max(
-        float(a[n].float().abs().max()), 1e-30)}
-    moved = [n for n, t in eager.model.named_buffers()
-             if "quantizers_" in n and not torch.equal(t, init[n])]
-    revived = [int((t == 1.0).sum()) for n, t in
-               eager.model.named_buffers() if n.endswith("cluster_size")]
-    same_gen = torch.equal(eager.generator.get_state(),
-                           graph.generator.get_state())
-    log(f"search ema graph {mode}: {len(diffs)} parameters, Adam moments "
-        f"and buffers after {2 * SCAN_K} steps, eager vs "
-        f"{multi.replays} replays (after {WARMUP_STEPS} warm-up steps): "
-        f"{sum(d == 0 for d in diffs.values())} bit-equal, largest "
-        f"difference {max(diffs.values()):.3g}; EMA buffers moved "
-        f"{len(moved)}, codes with a count of exactly 1 (revived at the "
-        f"last step) {revived}; generator equal {same_gen}; eager steps "
-        f"repeated bit for bit: {not repeat} ({len(repeat)} tensors "
-        f"differ)")
-    if repeat:
-        raise AssertionError(f"search ema graph {mode}: two eager runs "
-                             f"differ in {repeat}")
-    if bad or not same_gen or eager.step != graph.step or len(moved) != \
-            3 * params["codebooks"] or multi.replays != \
-            2 * SCAN_K - WARMUP_STEPS:
-        raise AssertionError(f"search ema graph {mode}: graph and eager "
-                             f"steps disagree: {bad}, generator "
-                             f"{same_gen}, buffers moved {moved}")
-    del states, eager, control, graph, multi
-    torch.cuda.empty_cache()
-    return max(diffs.values())
+        return create_train_state(model, build_optimizers(
+            cfg["exp_params"], model, steps_per_epoch=100), seed=SEED)
+
+    out = {}
+    for mode in EXPECTED_TRAIN:
+        batches = [dict(zip(("image", "input_y", "action"),
+                            _requests(gen, B, "cuda")))
+                   for _ in range(2 * SCAN_K)]
+        r = _graph_vs_eager(f"search ema graph {mode}", build, batches,
+                            mode)
+        eager = r["eager"]
+        moved = [n for n, t in eager.model.named_buffers()
+                 if "quantizers_" in n and not torch.equal(t, r["init"][n])]
+        revived = [int((t == 1.0).sum()) for n, t in
+                   eager.model.named_buffers() if n.endswith("cluster_size")]
+        log(f"search ema graph {mode}: EMA buffers moved {len(moved)}, "
+            f"codes with a count of exactly 1 (revived at the last step) "
+            f"{revived}")
+        if len(moved) != 3 * params["codebooks"]:
+            raise AssertionError(f"search ema graph {mode}: buffers moved "
+                                 f"{moved}")
+        out[mode] = max(r["diffs"].values())
+        del r, eager
+        torch.cuda.empty_cache()
+    return out
 
 
 def _flow(value) -> str:
@@ -3690,6 +3744,341 @@ def phase_search(smi: str) -> tuple:
     return launches, rows, numbers
 
 
+# --- phase 14: VQVAE and the Gaussian zoo from their YAML -------------------
+
+GAUSSIAN_BATCH = 64        # the batch of every zoo config
+#: configs trained one epoch through run.train (the latter's VQ search at
+#: K = 512 makes the path gaussian_vq)
+GAUSSIAN_RUNS = ("vae", "vq_vae")
+#: the zoo's loss-only members, each a warm and timed eager train steps
+ZOO_CONFIGS = ("bbvae", "bhvae", "logcosh_vae", "dip_vae", "infovae",
+               "wae_mmd_imq", "wae_mmd_rbf")
+ZOO_TIMED_STEPS = 5        # timed eager steps per model after the warm one
+GAUSSIAN_SERVE_B = 16
+
+
+def _gaussian_config(name: str, root: str, logs: str) -> dict:
+    """``configs/<name>.yaml`` as ``read_config`` reads it, with its
+    ``data_params`` pointed at the Shapes3D stand-in at ``patch_size`` 64
+    (the CelebA of these configs reads JPEGs, which the port does not yet:
+    ROADMAP A2), one epoch and the log directory changed; the model, the
+    exp_params and the batch of 64 as written. The trainer's
+    ``gradient_clip_val`` stays where run.train moves it from."""
+    cfg = read_config(os.path.join(os.path.dirname(CONFIG), f"{name}.yaml"))
+    was = {k: cfg["data_params"].get(k) for k in ("dataset_name",
+                                                  "data_path")}
+    cfg["data_params"] = {**cfg["data_params"], "dataset_name": "Shapes3D",
+                          "data_path": root, "patch_size": 64}
+    cfg["trainer_params"] = {**cfg["trainer_params"], "max_epochs": 1}
+    cfg["logging_params"] = {**cfg["logging_params"], "save_dir": logs}
+    if cfg["data_params"]["train_batch_size"] != GAUSSIAN_BATCH:
+        raise AssertionError(f"{name}: batch {cfg['data_params']}")
+    log(f"gaussian {name}: data_params {json.dumps(was)} redirected to "
+        f"the Shapes3D stand-in at patch_size 64; model_params "
+        f"{json.dumps(cfg['model_params'])}")
+    return cfg
+
+
+def _gaussian_serve(model) -> dict:
+    """VanillaVAE's ``reconstruct``, ``encode`` and ``sample`` at B = 16:
+    each request timed on the card, and held against the same weights on
+    the CPU (``sample`` decodes the same CPU-drawn latents on both)."""
+    from ctvae_torch.serving.inference import available_fns, \
+        make_inference_fn
+    if available_fns(model) != ("reconstruct", "encode", "sample"):
+        raise AssertionError(f"serve: {available_fns(model)}")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    Bs = GAUSSIAN_SERVE_B
+    x = torch.rand(Bs, 64, 64, 3, generator=torch.Generator().manual_seed(
+        SEED + 21))
+    fns = {n: make_inference_fn(model, n, num_samples=Bs)
+           for n in ("reconstruct", "encode", "sample")}
+    dgen = torch.Generator("cuda").manual_seed(SEED)
+    calls = {"reconstruct": lambda: fns["reconstruct"](x.cuda(),
+                                                       generator=dgen),
+             "encode": lambda: fns["encode"](x.cuda()),
+             "sample": lambda: fns["sample"](generator=dgen)}
+    ms, errs = {}, {}
+    for name, call in calls.items():
+        secs = []
+        for _ in range(REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            secs.append(1e3 * (time.perf_counter() - t0))
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"serve {name}: non-finite")
+        ms[name] = statistics.median(secs[1:])
+        with torch.inference_mode():
+            if name == "sample":
+                got = model.sample(Bs, draws=_replay_draws("cuda", SEED))
+                want = cpu_model.sample(Bs, draws=_replay_draws("cpu", SEED))
+            else:
+                got = make_inference_fn(model, name)(x.cuda())
+                want = make_inference_fn(cpu_model, name)(x)
+        errs[name] = float((got.cpu() - want).abs().max())
+        log(f"gaussian serve {name} B={Bs}: {ms[name]:.3f} ms per request "
+            f"(median of {REQUESTS - 1} after a warm-up); card vs CPU "
+            f"max abs err {errs[name]:.3g} (tolerance {SERVE_ATOL}), "
+            f"shape {list(out.shape)}")
+        if not errs[name] <= SERVE_ATOL:
+            raise AssertionError(f"serve {name}: card and CPU disagree by "
+                                 f"{errs[name]}")
+    return {"ms": ms, "max_abs_err": errs}
+
+
+def _zoo_step(name: str, cfg: dict, batch: dict) -> dict:
+    """``cfg``'s model at B = 64 (its model_params and exp_params, the
+    trainer's ``gradient_clip_val`` moved as run.train moves it): a warm
+    eager train step at ``M_N`` = kld_weight, then ZOO_TIMED_STEPS timed
+    ones (median), losses finite; one step profiled (device-busy share,
+    top kernels); peak memory."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_train_step)
+    exp = dict(cfg["exp_params"])
+    if "gradient_clip_val" in cfg["trainer_params"]:
+        exp.setdefault("gradient_clip_val",
+                       cfg["trainer_params"]["gradient_clip_val"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg["model_params"], device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+    state = create_train_state(model, build_optimizers(
+        exp, model, steps_per_epoch=100), seed=SEED)
+    step = make_train_step("base", M_N=float(exp.get("kld_weight", 1.0)))
+    secs, losses = [], []
+    for _ in range(1 + ZOO_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        losses.append(float(out["loss"]))
+        secs.append(1e3 * (time.perf_counter() - t0))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"zoo {name}: losses {losses}")
+    stats = {}
+    rows = _profile(f"zoo {name} train step B={GAUSSIAN_BATCH}",
+                    lambda: step(state, batch), stats=stats)
+    res = {"model": cfg["model_params"]["name"],
+           "ms_per_step": statistics.median(secs[1:]),
+           "busy_share": stats["busy_ms"] / stats["wall_ms"],
+           "device_ms": stats["busy_ms"],
+           "kernels_per_step": sum(r[2] for r in rows),
+           "top_kernels": [[k[:60], round(ms, 4)] for k, ms, _ in rows[:3]],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": losses,
+           "clip": exp.get("gradient_clip_val")}
+    log(f"zoo {name} ({res['model']}) B={GAUSSIAN_BATCH}: "
+        f"{res['ms_per_step']:.3f} ms per eager train step (median of "
+        f"{ZOO_TIMED_STEPS} after a warm one), device busy "
+        f"{100 * res['busy_share']:.1f}% of the profiled step, peak "
+        f"{res['peak_gib']:.3f} GiB, losses {losses}")
+    del model, state
+    return res
+
+
+def _vq_rows(state, batch) -> dict:
+    """Every VQ search call of a VQVAE train step and of its eval step
+    held against the plain version on its own inputs (``_vq_on_path``);
+    the K = 512 line of the kernel's row."""
+    from ctvae_torch.ops import vq
+    from ctvae_torch.training import make_eval_step, make_train_step
+    calls = {"train": _vq_on_path(lambda: make_train_step("base")(
+        state, batch)),
+        "eval": _vq_on_path(lambda: make_eval_step("base")(state, batch))}
+    if [len(v) for v in calls.values()] != [1, 1]:
+        raise AssertionError(f"vq calls {calls}")
+    K, D = state.model.num_embeddings, state.model.embedding_dim
+    occ = vq.occupancy(K, D)
+    log(f"vq occupancy at K={K} D={D}: {json.dumps(occ)}")
+    rows = {}
+    for which, (c,) in calls.items():
+        rows[which] = {**c, "K": K, "occupancy": occ}
+        log(f"gaussian vq_vae {which} step: VQ search {json.dumps(c)}")
+    return rows
+
+
+def _gaussian_graph(name: str, cfg: dict, batches: list) -> float:
+    """``_graph_vs_eager`` of ``cfg``'s model in mode base at the YAML's
+    ``kld_weight``, with BatchNorm buffers present. For BetaVAE B the
+    capacity runs over the 2K steps (``Capacity_max_iter`` 2K) up to
+    twice the first step's KLD, so that C, which each replay must read
+    from its own step, crosses the KLD among the replayed steps: a graph
+    that froze C would differ in the loss and, after the crossing, in
+    the gradients' sign. Returns the largest difference."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_train_step)
+    from ctvae_torch.training.state import WARMUP_STEPS
+    exp, mp = cfg["exp_params"], dict(cfg["model_params"])
+    M_N = float(exp.get("kld_weight", 1.0))
+    batches = [{"image": b["image"]} for b in batches]
+
+    def build():
+        model = build_model(mp, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(SEED))
+        return create_train_state(model, build_optimizers(
+            exp, model, steps_per_epoch=100), seed=SEED)
+
+    capacity = mp.get("loss_type") == "B"
+    if capacity:
+        kld0 = float(make_train_step("base", M_N=M_N)(
+            build(), batches[0])["KLD"])
+        mp.update(Capacity_max_iter=2 * SCAN_K, max_capacity=2.0 * kld0)
+    r = _graph_vs_eager(f"gaussian graph {name}", build, batches, "base",
+                        M_N)
+    n_bn = sum(n.endswith(("running_mean", "running_var"))
+               for n, _ in r["eager"].model.named_buffers())
+    log(f"gaussian graph {name}: {n_bn} BatchNorm buffers compared")
+    if not n_bn:
+        raise AssertionError(f"gaussian graph {name}: no BatchNorm buffers")
+    if capacity:
+        C = [min(mp["max_capacity"] / mp["Capacity_max_iter"] * (s + 1),
+                 mp["max_capacity"]) for s in range(2 * SCAN_K)]
+        above = [float(m["KLD"]) > c for m, c in zip(r["metrics"], C)]
+        log(f"gaussian graph {name}: capacity C up to {C[-1]:.4g} over "
+            f"{2 * SCAN_K} steps; KLD above C at steps "
+            f"{[s for s, u in enumerate(above) if u]}")
+        if len(set(above[WARMUP_STEPS:])) != 2:
+            raise AssertionError(f"gaussian graph {name}: C never crosses "
+                                 f"the KLD among the replayed steps")
+    out = max(r["diffs"].values())
+    del r
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gaussian(smi: str) -> tuple:
+    """VQVAE and the Gaussian zoo on the card from their YAML, at full
+    width on the Shapes3D stand-in (64x64x3, CelebA's shape at
+    ``patch_size: 64``): ``run.train`` of ``configs/vae.yaml`` and of
+    ``configs/vq_vae.yaml`` (one epoch each, checkpoints, grids: no
+    Samples grid for VQVAE) and of ``configs/synthetic_vae.yaml`` as
+    written (only its logs moved); every VQ search call of a VQVAE train
+    step and of its eval step held against the plain version at K = 512
+    and timed with it and ``cdist`` + ``argmin``; a warm and timed eager
+    train steps of VanillaVAE, VQVAE and each ZOO_CONFIGS model at B = 64,
+    each profiled once; VanillaVAE's serving entry points against the
+    CPU; the multi-step graph against eager steps for VanillaVAE and
+    BetaVAE B. Launch counters are reset before and read after the
+    VQVAE run (path ``gaussian_vq``) and the rest (path ``gaussian``,
+    where no kernel may launch). Returns (gaussian launches, gaussian_vq
+    launches, the VQ rows, the numbers)."""
+    import tempfile
+    from ctvae_torch import run
+    from ctvae_torch.data import VAEDataset
+    from ctvae_torch.data.prefetch import to_device
+    from ctvae_torch.data.standins import write_shapes3d_standin
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import build_optimizers, create_train_state
+
+    start = time.perf_counter()
+    numbers = {"card": smi, "epochs": {}, "steps": {}}
+    gauss = {k: 0 for k in EXPECTED_TRAIN["base"]}
+
+    def add(counts):
+        for k, n in counts.items():
+            gauss[k] += n
+
+    with tempfile.TemporaryDirectory(prefix="ctvae_gaussian_") as tmp:
+        root, logs = os.path.join(tmp, "Data"), os.path.join(tmp, "logs")
+        write_shapes3d_standin(root, SHAPES3D_GRID)
+        cfgs = {n: _gaussian_config(n, root, logs)
+                for n in GAUSSIAN_RUNS + ZOO_CONFIGS}
+        vq_launches = None
+        for name in GAUSSIAN_RUNS:
+            cfg = cfgs[name]
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = run.train(cfg, device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = _counts()
+            if name == "vq_vae":
+                vq_launches = counts
+            else:
+                add(counts)
+            _check_run(f"gaussian {name}", cfg, out, logs,
+                       samples=name != "vq_vae")
+            numbers["epochs"][name] = {
+                "images_per_sec": out["train_images_per_sec"],
+                "train_loss": out["train_loss"], "val_loss": out["val_loss"],
+                "steps": int(out["train_steps_base"]), "run_s": secs}
+            log(f"gaussian {name}: run.train of the YAML in {secs:.2f} s "
+                f"({int(out['train_steps_base'])} steps of B="
+                f"{GAUSSIAN_BATCH}); epoch images/s "
+                f"{out['train_images_per_sec']:.1f}; train loss "
+                f"{out['train_loss']:.6g}, val loss {out['val_loss']:.6g}; "
+                f"launches {json.dumps(counts)} ({smi})")
+        # synthetic_vae.yaml as written (its logs moved)
+        syn = read_config(os.path.join(os.path.dirname(CONFIG),
+                                       "synthetic_vae.yaml"))
+        syn["logging_params"] = {**syn["logging_params"], "save_dir": logs}
+        syn["logging_params"]["name"] = "synthetic_vae"
+        _reset_counts()
+        out = run.train(syn, device="cuda")
+        add(_counts())
+        _check_run("gaussian synthetic_vae", syn, out, logs)
+        numbers["epochs"]["synthetic_vae"] = {
+            "images_per_sec": out["train_images_per_sec"],
+            "val_loss": out["val_loss"]}
+
+        data = VAEDataset(**cfgs["vae"]["data_params"])
+        data.setup()
+        batches, epoch = [], 0
+        while len(batches) < 2 * SCAN_K:
+            for b in data.train_dataloader(epoch):
+                b.pop("mode")
+                batches.append(to_device(b, "cuda"))
+                if len(batches) == 2 * SCAN_K:
+                    break
+            epoch += 1
+        batch = batches[0]
+
+        # VQVAE's steps: each VQ call held against the plain version
+        vcfg = cfgs["vq_vae"]
+        model = build_model(vcfg["model_params"], device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(
+                                SEED))
+        state = create_train_state(model, build_optimizers(
+            vcfg["exp_params"], model, steps_per_epoch=100), seed=SEED)
+        vq_rows = _vq_rows(state, batch)
+        del model, state
+
+        # a warm and timed eager steps per model: VQVAE's on the
+        # gaussian_vq path, the others' on the gaussian path
+        for name in GAUSSIAN_RUNS + ZOO_CONFIGS:
+            _reset_counts()
+            numbers["steps"][name] = _zoo_step(name, cfgs[name], batch)
+            counts = _counts()
+            if name == "vq_vae":
+                for k, n in counts.items():
+                    vq_launches[k] += n
+            else:
+                add(counts)
+
+        _reset_counts()
+        model = build_model(cfgs["vae"]["model_params"], device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(
+                                SEED))
+        numbers["serve"] = _gaussian_serve(model)
+        del model
+        numbers["graph_max_diff"] = {
+            n: _gaussian_graph(n, cfgs[n], batches) for n in ("vae", "bbvae")}
+        add(_counts())
+    if vq_launches is None or vq_launches["vq_l2_argmin"] == 0 or any(
+            n for k, n in vq_launches.items() if k != "vq_l2_argmin") or \
+            any(gauss.values()):
+        raise AssertionError(f"gaussian: launches gaussian_vq "
+                             f"{vq_launches}, gaussian {gauss}")
+    log(f"launches on the gaussian_vq path: {json.dumps(vq_launches)}; on "
+        f"the gaussian path: {json.dumps(gauss)}")
+    numbers["wall_s"] = time.perf_counter() - start
+    log(f"gaussian: phase {numbers['wall_s']:.1f} s")
+    return gauss, vq_launches, vq_rows, numbers
+
+
 def _search_summary(rows: list) -> dict:
     """A kernel's rows of the search phase, by shape (the kernels line
     stays short: 4 significant digits): the number of calls and, over
@@ -3766,6 +4155,10 @@ def main(argv) -> int:
         help="only build the kernels and run the phase \"search\" "
              "(phase_search)")
     parser.add_argument(
+        "--gaussian-only", action="store_true",
+        help="only build the kernels and run the phase \"gaussian\" "
+             "(phase_gaussian)")
+    parser.add_argument(
         "--metrics-only", action="store_true",
         help="only build the kernels and run the phase \"metrics\" "
              "(phase_metrics)")
@@ -3806,6 +4199,12 @@ def main(argv) -> int:
                         "kernels": {k: _search_summary(r)
                                     for k, r in rows.items()}}))
         return 0
+    if opts.gaussian_only:
+        launches, vq_launches, vq_rows, numbers = phase_gaussian(smi)
+        log(json.dumps({"gaussian_launches": launches,
+                        "gaussian_vq_launches": vq_launches,
+                        "gaussian": numbers, "vq_at_k512": vq_rows}))
+        return 0
     if opts.metrics_only:
         launches, seconds = phase_metrics(smi)
         log(json.dumps({"metrics_launches": launches,
@@ -3833,6 +4232,8 @@ def main(argv) -> int:
     mcq_launches, ct_launches, s3d_on_step = phase_shapes3d()
     metric_launches, metric_seconds = phase_metrics(smi)
     search_launches, search_rows, search_numbers = phase_search(smi)
+    gauss_launches, gauss_vq_launches, gauss_vq_rows, gauss_numbers = \
+        phase_gaussian(smi)
     kernels = []
     for r in rows:
         source, replaces = KERNEL_META[r["name"]]
@@ -3844,7 +4245,9 @@ def main(argv) -> int:
                    "shapes3d_mcq": mcq_launches[r["name"]],
                    "shapes3d_ct": ct_launches[r["name"]],
                    "metrics": metric_launches[r["name"]],
-                   "search": search_launches[r["name"]]}
+                   "search": search_launches[r["name"]],
+                   "gaussian_vq": gauss_vq_launches[r["name"]],
+                   "gaussian": gauss_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -3860,10 +4263,16 @@ def main(argv) -> int:
         kernels[-1].update(c2_on_step.get(r["name"], {}))
         kernels[-1].update(s3d_on_step.get(r["name"], {}))
         kernels[-1]["search"] = _search_summary(search_rows[r["name"]])
+        if r["name"] == "vq_l2_argmin":     # VQVAE's K = 512 calls
+            kernels[-1]["gaussian_vq"] = gauss_vq_rows
     # every kernel runs on the training, codebooks: 2, two-stage, scan,
     # shapes3d CT and metrics paths, the forward ones on the serving path
-    # too, the VQ search on the MCQVAE's (which has no CT layer)
-    if any(k["launches_by_path"][p] == 0 for k in kernels
+    # too, the VQ search alone on the MCQVAE's and VQVAE's (which have no
+    # CT layer), none on the Gaussian zoo's
+    if any((k["launches_by_path"]["gaussian_vq"] == 0)
+           != (k["name"] != "vq_l2_argmin")
+           or k["launches_by_path"]["gaussian"] for k in kernels) or any(
+            k["launches_by_path"][p] == 0 for k in kernels
            for p in ("train", "codebooks_2", "two_stage", "scan",
                      "shapes3d_ct", "metrics", "search")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
@@ -3874,7 +4283,7 @@ def main(argv) -> int:
     log(json.dumps({"serve_ms": timings, "train_ms": train_ms,
                     "train_peak_gib": peak, "codebooks_2_train_ms": c2_ms,
                     "scan_ms": scan_ms, "metric_seconds": metric_seconds,
-                    "search": search_numbers}))
+                    "search": search_numbers, "gaussian": gauss_numbers}))
     log(f"chip_smoke wall time {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,14 +8,17 @@ names); only the kernel layouts change:
 * ``ConvTranspose`` kernels (kh, kw, in, out) -> ``ConvTranspose2d``
   [in, out, kh, kw] with the spatial taps flipped back (a torch
   transposed conv correlates with the flipped kernel; k4-s2 'SAME' is
-  torch ``padding=1``);
+  torch ``padding=1``, k3-s2 padded ((1, 2), (1, 2)) is ``padding=1,
+  output_padding=1``);
 * ``Dense`` kernels [in, out] -> ``Linear`` weight [out, in];
+* a ``BatchNorm``'s ``scale`` -> ``weight`` (its ``bias`` keeps its name);
 * every other leaf (GAT ``lin_edge`` / ``att`` / ``bias``, the ``disc_*``
   discoverers, the mask MLP, the codebooks) is copied as it is.
 
 An EMA codebook's ``vq_stats`` collection (``embedding``,
 ``cluster_size``, ``embed_avg`` of each quantizer) maps by the same
-names onto the model's buffers.
+names onto the model's buffers, and BatchNorm's ``batch_stats`` (``mean``,
+``var``) onto its ``running_mean`` / ``running_var``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,11 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+
+#: BatchNorm leaves: flax's name -> the port's
+_BATCH_NORM = {"scale": "weight", "mean": "running_mean",
+               "var": "running_var"}
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
@@ -40,6 +48,9 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
 def _convert_leaf(path: tuple, a: np.ndarray):
     """(port parameter name, array in the port's layout) of one leaf."""
     *parents, leaf = path
+    if parents and parents[-1].startswith("BatchNorm") and \
+            leaf in _BATCH_NORM:
+        return ".".join(parents + [_BATCH_NORM[leaf]]), a
     if leaf != "kernel":
         return ".".join(path), a
     name = ".".join(parents + ["weight"])
@@ -56,7 +67,7 @@ def from_jax_params(params: Mapping, model: nn.Module
                     ) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of ``model`` filled from flax ``params`` (the
     ``params`` collection itself, or a variables dict holding it and, for
-    an EMA codebook, its ``vq_stats``).
+    an EMA codebook, its ``vq_stats``, for BatchNorm its ``batch_stats``).
 
     Raises if a leaf maps to no parameter or buffer of the model, if a
     shape disagrees, or if a parameter of the model is left unfilled (and,
@@ -66,7 +77,8 @@ def from_jax_params(params: Mapping, model: nn.Module
         buffers = {k: v for k, v in model.state_dict().items()
                    if k not in targets}
         targets.update(buffers)
-        leaves.update(_flatten(params.get("vq_stats", {})))
+        for collection in ("vq_stats", "batch_stats"):
+            leaves.update(_flatten(params.get(collection, {})))
         params = params["params"]
     leaves.update(_flatten(params))
     state: Dict[str, torch.Tensor] = {}

@@ -1,11 +1,15 @@
 """Model registry of the port: name -> ``nn.Module`` class.
 
 Counterpart of ``ctvae_tpu/models/__init__.py``; the registry holds the
-CT-MCQ-VAE and the MCQVAE of the two-stage recipe's first stage.
+CT-MCQ-VAE, the MCQVAE of the two-stage recipe's first stage, VQVAE,
+and the Gaussian members VanillaVAE (aliases ``VAE`` and
+``GaussianVAE``), BetaVAE, LogCoshVAE, DIPVAE, InfoVAE and WAE_MMD. The
+rest of the JAX registry is not ported yet (ROADMAP A7).
 ``build_model`` initialises the weights with flax's distributions
 (``lecun_normal`` kernels, zero biases, ``U(-1/K, 1/K)`` codebooks; an
-EMA codebook's buffers as flax fills ``vq_stats``) so activations at
-random init have the JAX model's ranges.
+EMA codebook's buffers as flax fills ``vq_stats``; BatchNorm's scale 1,
+bias 0 and running mean 0 and variance 1) so activations at random init
+have the JAX model's ranges.
 """
 
 from __future__ import annotations
@@ -17,12 +21,26 @@ import torch
 from torch import nn
 
 from ..ops.common import resolve_device
-from .base import lecun_normal
+from .backbones import BatchNorm
+from .base import BaseVAE, lecun_normal
+from .beta_vae import BetaVAE
 from .ct_vae import CTMCQVAE, CausalTransition
+from .dip_vae import DIPVAE
+from .gaussian_base import StandardGaussianVAE
+from .info_vae import InfoVAE
+from .logcosh_vae import LogCoshVAE
 from .mcq_vae import MCQVAE
 from .quantizers import VectorQuantizerMS
+from .vanilla_vae import VanillaVAE
+from .vq_vae import VQVAE
+from .wae_mmd import WAE_MMD
 
-vae_models = {"CTMCQVAE": CTMCQVAE, "MCQVAE": MCQVAE}
+vae_models = {"CTMCQVAE": CTMCQVAE, "MCQVAE": MCQVAE, "VQVAE": VQVAE,
+              "VanillaVAE": VanillaVAE, "BetaVAE": BetaVAE,
+              "LogCoshVAE": LogCoshVAE, "DIPVAE": DIPVAE,
+              "InfoVAE": InfoVAE, "WAE_MMD": WAE_MMD,
+              # aliases of the JAX registry
+              "VAE": VanillaVAE, "GaussianVAE": VanillaVAE}
 
 
 def model_fields(cls) -> set:
@@ -58,8 +76,15 @@ def _uniform_codebook(q: VectorQuantizerMS, generator: torch.Generator
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every parameter as flax initialises its JAX counterpart; an
     EMA codebook (``vq_stats``) as flax fills it: the codebook from U(-1/K,
-    1/K), ``embed_avg`` a copy of it, ``cluster_size`` zeros."""
+    1/K), ``embed_avg`` a copy of it, ``cluster_size`` zeros; BatchNorm
+    (``batch_stats``) with scale 1, bias 0, mean 0 and variance 1."""
     for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+            module.running_mean.zero_()
+            module.running_var.fill_(1.0)
+            continue
         if isinstance(module, VectorQuantizerMS) and module.ema:
             module.embedding.copy_(_uniform_codebook(module, generator))
             module.embed_avg.copy_(module.embedding)
@@ -95,5 +120,7 @@ def build_model(model_params: dict, device=None,
     return model.eval()
 
 
-__all__ = ["CTMCQVAE", "CausalTransition", "MCQVAE", "build_model",
+__all__ = ["BaseVAE", "BetaVAE", "CTMCQVAE", "CausalTransition", "DIPVAE",
+           "InfoVAE", "LogCoshVAE", "MCQVAE", "StandardGaussianVAE", "VQVAE",
+           "VanillaVAE", "WAE_MMD", "build_model",
            "init_weights", "model_fields", "vae_models"]

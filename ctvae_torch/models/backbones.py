@@ -1,12 +1,32 @@
-"""VQ-family convolutional backbone (k4-s2 convs + residual stacks).
+"""Convolutional backbones: the standard Gaussian one and the VQ family's.
 
-Counterpart of ``ctvae_tpu/models/backbones.py`` (``ResidualLayer``,
-``VQEncoder``, ``VQDecoder``). Inputs and outputs are NHWC like the JAX
-modules; the permutation to PyTorch's NCHW happens inside. flax's 'SAME'
-padding equals ``padding=1`` for the k4-s2 and k3 convs on even inputs,
-and flax's k4-s2 'SAME' ``ConvTranspose`` equals ``ConvTranspose2d(k4, s2,
-p1)`` with the taps flipped (``convert.py`` flips them). Submodule names
-follow the JAX param tree (``Conv_0``, ``ResidualLayer_0``, ...).
+Counterpart of ``ctvae_tpu/models/backbones.py``:
+
+* the standard backbone of the Gaussian zoo: a stride-2 3x3
+  Conv/BatchNorm/LeakyReLU pyramid (``ConvBNBlock``, ``ConvEncoder``), the
+  twin ``fc_mu`` / ``fc_var`` heads (``GaussianHead``), the latent's
+  ``DecoderInput`` and the mirrored ConvTranspose decoder
+  (``DeconvBNBlock``, ``ConvDecoder``);
+* the VQ family's k4-s2 convs and residual stacks (``ResidualLayer``,
+  ``VQEncoder``, ``VQDecoder``).
+
+Inputs and outputs are NHWC like the JAX modules; the permutation to
+PyTorch's NCHW happens inside, and a feature map is flattened in its NHWC
+order as flax flattens it. flax's 'SAME' padding equals ``padding=1`` for
+the k4-s2 and k3 convs on even inputs. flax's transposed convs correlate
+with the kernel as stored, torch's with its taps flipped (``convert.py``
+flips them): the k4-s2 'SAME' one is ``ConvTranspose2d(k4, s2, p1)``, the
+k3-s2 one padded ((1, 2), (1, 2)) is ``ConvTranspose2d(k3, s2, p1,
+output_padding=1)``. Submodule names follow the JAX param tree
+(``Conv_0``, ``ConvBNBlock_0``, ``BatchNorm_0``, ...).
+
+``BatchNorm`` is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``: it
+follows the ``train`` argument, never ``Module.training``; a train pass
+normalises with the batch's statistics and folds its mean and *biased*
+variance into the running buffers (``running = 0.9 running + 0.1 batch``,
+where torch's own would take the unbiased variance), in place under
+``no_grad`` with no host read, so a captured CUDA graph replays the
+update; an eval pass normalises with the running buffers.
 """
 
 from __future__ import annotations
@@ -103,3 +123,154 @@ class VQDecoder(nn.Module):
             if i < self._n_up - 1:
                 x = leaky_relu(x)
         return torch.tanh(x).permute(0, 2, 3, 1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the standard backbone of the Gaussian zoo
+# ---------------------------------------------------------------------------
+
+DEFAULT_HIDDEN_DIMS = (32, 64, 128, 256, 512)
+
+
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm`` over the channels of an NCHW tensor
+    (``weight`` / ``bias`` are flax's ``scale`` / ``bias``,
+    ``running_mean`` / ``running_var`` its ``batch_stats``)."""
+
+    MOMENTUM, EPS = 0.9, 1e-5
+
+    def __init__(self, features: int, *, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("running_mean",
+                             torch.zeros(features, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.EPS)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            m = self.MOMENTUM
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.EPS)
+
+
+class ConvBNBlock(nn.Module):
+    """Conv(k3, s2, p1) -> BatchNorm -> LeakyReLU (NCHW)."""
+
+    def __init__(self, in_features: int, features: int, *, device=None):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_features, features, 3, stride=2,
+                                padding=1, device=device)
+        self.BatchNorm_0 = BatchNorm(features, device=device)
+
+    def forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
+        return leaky_relu(self.BatchNorm_0(self.Conv_0(x), train=train))
+
+
+class DeconvBNBlock(nn.Module):
+    """ConvTranspose(k3, s2), a 2x upsample -> BatchNorm -> LeakyReLU
+    (NCHW)."""
+
+    def __init__(self, in_features: int, features: int, *, device=None):
+        super().__init__()
+        self.ConvTranspose_0 = nn.ConvTranspose2d(
+            in_features, features, 3, stride=2, padding=1, output_padding=1,
+            device=device)
+        self.BatchNorm_0 = BatchNorm(features, device=device)
+
+    def forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
+        return leaky_relu(self.BatchNorm_0(self.ConvTranspose_0(x),
+                                           train=train))
+
+
+class ConvEncoder(nn.Module):
+    """The stride-2 pyramid: [B, H, W, C] -> [B, H/2^L, W/2^L, hd[-1]]."""
+
+    def __init__(self, in_channels: int,
+                 hidden_dims: Sequence[int] = DEFAULT_HIDDEN_DIMS, *,
+                 device=None):
+        super().__init__()
+        fin = in_channels
+        for i, h in enumerate(hidden_dims):
+            setattr(self, f"ConvBNBlock_{i}",
+                    ConvBNBlock(fin, h, device=device))
+            fin = h
+        self._n = len(hidden_dims)
+
+    def forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        for i in range(self._n):
+            x = getattr(self, f"ConvBNBlock_{i}")(x, train=train)
+        return x.permute(0, 2, 3, 1)
+
+
+class ConvDecoder(nn.Module):
+    """The mirrored ConvTranspose pyramid, then a last 2x upsample at the
+    first width, a 3x3 conv to ``out_channels`` and ``final_activation``
+    ("tanh", "sigmoid" or "none"): [B, h, w, hd[-1]] -> [B, H, W, C]."""
+
+    def __init__(self, hidden_dims: Sequence[int] = DEFAULT_HIDDEN_DIMS,
+                 out_channels: int = 3, final_activation: str = "tanh", *,
+                 device=None):
+        super().__init__()
+        if final_activation not in ("tanh", "sigmoid", "none"):
+            raise ValueError(f"unknown final_activation "
+                             f"{final_activation!r}")
+        rev = list(hidden_dims)[::-1]
+        outs = rev[1:] + [rev[-1]]
+        fin = rev[0]
+        for i, h in enumerate(outs):
+            setattr(self, f"DeconvBNBlock_{i}",
+                    DeconvBNBlock(fin, h, device=device))
+            fin = h
+        self.Conv_0 = nn.Conv2d(fin, out_channels, 3, padding=1,
+                                device=device)
+        self.final_activation = final_activation
+        self._n = len(outs)
+
+    def forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        for i in range(self._n):
+            x = getattr(self, f"DeconvBNBlock_{i}")(x, train=train)
+        x = self.Conv_0(x)
+        if self.final_activation == "tanh":
+            x = torch.tanh(x)
+        elif self.final_activation == "sigmoid":
+            x = torch.sigmoid(x)
+        return x.permute(0, 2, 3, 1).contiguous()
+
+
+class GaussianHead(nn.Module):
+    """Flatten (NHWC order) + the twin linear heads: (mu, log_var)."""
+
+    def __init__(self, in_features: int, latent_dim: int, *, device=None):
+        super().__init__()
+        self.fc_mu = nn.Linear(in_features, latent_dim, device=device)
+        self.fc_var = nn.Linear(in_features, latent_dim, device=device)
+
+    def forward(self, feat: torch.Tensor):
+        flat = feat.reshape(feat.shape[0], -1)
+        return self.fc_mu(flat), self.fc_var(flat)
+
+
+class DecoderInput(nn.Module):
+    """Linear latent -> the [B, spatial, spatial, features] feature map."""
+
+    def __init__(self, latent_dim: int, features: int, spatial: int = 2, *,
+                 device=None):
+        super().__init__()
+        self.features, self.spatial = features, spatial
+        self.decoder_input = nn.Linear(latent_dim,
+                                       features * spatial * spatial,
+                                       device=device)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        s = self.spatial
+        return self.decoder_input(z).reshape(z.shape[0], s, s, self.features)

@@ -1,17 +1,20 @@
-"""Loss helpers, random-draw provider and init helpers of the model zoo.
+"""The zoo's base class, loss helpers, random-draw provider and init
+helpers.
 
 Counterpart of ``ctvae_tpu/models/base.py``. JAX and PyTorch give
-different numbers from the same seed, so every random draw of the CT
-forward goes through a ``Draws`` provider that the model calls in the JAX
-package's order; a test substitutes a provider that replays given arrays.
+different numbers from the same seed, so every random draw of a forward
+or a loss goes through a ``Draws`` provider that the model calls in the
+JAX package's order; a test substitutes a provider that replays given
+arrays.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
+from torch import nn
 
 from ..ops.common import upcast32
 
@@ -22,6 +25,15 @@ RNG_STREAMS = ("reparam", "gumbel", "noise", "dropout")
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean-reduced MSE, matching ``F.mse_loss`` defaults."""
     return torch.mean(torch.square(upcast32(pred) - upcast32(target)))
+
+
+def gaussian_kl(mu: torch.Tensor, log_var: torch.Tensor) -> torch.Tensor:
+    """KL(N(mu, sigma) || N(0, 1)) summed over the latent, averaged over
+    the batch."""
+    mu, log_var = upcast32(mu), upcast32(log_var)
+    per_ex = -0.5 * torch.sum(1.0 + log_var - torch.square(mu)
+                              - torch.exp(log_var), dim=1)
+    return torch.mean(per_ex)
 
 
 def cross_entropy_from_probs(probs: torch.Tensor, labels: torch.Tensor,
@@ -35,14 +47,15 @@ def cross_entropy_from_probs(probs: torch.Tensor, labels: torch.Tensor,
 
 
 class Draws:
-    """Random draws of the CT forward, from one ``torch.Generator``.
+    """Random draws of a forward and its loss, from one ``torch.Generator``.
 
     ``gumbel(shape)``: standard Gumbel noise (the intervention mask, then
     the edge sample); ``uniform(shape)``: U[0, 1) (the KL target);
     ``bernoulli(p, shape)``: a bool mask, True with probability ``p`` (the
     dropout keep mask, drawn only under ``train``); ``normal(shape)``:
-    standard normal latents (``sample``, ``walk``); ``randint(low, high,
-    shape)``: int64 in [low, high) (``walk``'s channel choice)."""
+    standard normals (``sample``, ``walk``, the noise nodes, the
+    reparameterisation, the MMD's prior); ``randint(low, high, shape)``:
+    int64 in [low, high) (``walk``'s channel choice, the EMA revival)."""
 
     def __init__(self, generator: torch.Generator,
                  device: Optional[torch.device] = None):
@@ -70,6 +83,35 @@ class Draws:
                 ) -> torch.Tensor:
         return torch.randint(low, high, tuple(shape),
                              generator=self.generator, device=self.device)
+
+
+def reparameterize(mu: torch.Tensor, log_var: torch.Tensor, draws: Draws
+                   ) -> torch.Tensor:
+    """The reparameterisation trick: ``mu + eps * exp(log_var / 2)`` with
+    ``eps`` one ``normal`` draw of ``mu``'s shape."""
+    std = torch.exp(0.5 * log_var)
+    return mu + draws.normal(std.shape).to(std) * std
+
+
+class BaseVAE(nn.Module):
+    """The surface of the Gaussian and VQ members of the zoo:
+    ``encode`` / ``decode`` / ``forward`` (a dict of named tensors) /
+    ``loss_function`` and ``generate``. A model with a usable prior also
+    defines ``sample``; one without (VQVAE, whose codes have no prior)
+    defines none, and the loop and the serving entry points check for it."""
+
+    def generate(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        """Reconstruct ``x`` (the forward's ``recons``)."""
+        return self(x, **kwargs)["recons"]
+
+    def loss_function(self, outputs: Dict, **kwargs) -> Dict:
+        raise NotImplementedError
+
+
+def check_dtype(dtype) -> None:
+    """Refuse a compute dtype other than float32 (ROADMAP A6)."""
+    if str(dtype) not in ("float32", "torch.float32"):
+        raise NotImplementedError(f"not ported yet: dtype={dtype!r}")
 
 
 def dropout(x: torch.Tensor, rate: float, draws: Draws, train: bool

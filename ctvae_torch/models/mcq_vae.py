@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from .backbones import VQDecoder, VQEncoder
-from .base import Draws, mse_loss
+from .base import Draws, check_dtype, mse_loss
 from .quantizers import MultipleCodebookVectorQuantizer, codebook_perplexity
 
 
@@ -31,8 +31,7 @@ class MCQVAE(nn.Module):
                  revive_threshold: float = 0.0, dtype="float32", *,
                  device=None):
         super().__init__()
-        if str(dtype) not in ("float32", "torch.float32"):
-            raise NotImplementedError(f"not ported yet: dtype={dtype!r}")
+        check_dtype(dtype)
         hd = tuple(hidden_dims) if hidden_dims else (128, 256)
         self.in_channels, self.embedding_dim = in_channels, embedding_dim
         self.num_embeddings, self.codebooks = num_embeddings, codebooks

@@ -1,8 +1,8 @@
 """Serving entry points of the port.
 
 Counterpart of ``ctvae_tpu/serving/export.py::make_inference_fn`` for the
-CT-MCQ-VAE and the MCQVAE: the same entry points and signatures minus the
-JAX key. Each
+models of the port's registry: the same entry points and signatures minus
+the JAX key. Each
 callable takes an optional ``generator=`` (a ``torch.Generator`` on the
 model's device) for its random draws and runs under
 ``torch.inference_mode()``. Exported artifacts are not ported yet.

@@ -1,7 +1,9 @@
 """VAEXperiment: the training loop of the port.
 
 Counterpart of ``ctvae_tpu/training/experiment.py``: ``setup`` builds the
-optimizers from ``exp_params`` and the train state; ``train_epoch`` runs
+optimizers from ``exp_params`` and the train state; ``exp_params.
+kld_weight`` (default 1.0) is the train steps' ``M_N``, validation's is
+1.0; ``train_epoch`` runs
 one train step per batch of the data module's mode-homogeneous schedule
 (one step function per mode; batches reach the device through
 ``data/prefetch.py``), the learning rate read per optimizer update from
@@ -119,6 +121,7 @@ class VAEXperiment:
         self.train_metrics = train_metrics
         self.log_every = log_every
         self.watch_every = int(exp_params.get("watch_gradients", 0) or 0)
+        self.kld_weight = float(exp_params.get("kld_weight", 1.0))
         self._stop_requested = False
         self.state: Optional[TrainState] = None
         self.lr_schedules = None
@@ -167,13 +170,14 @@ class VAEXperiment:
     def _train_step(self, mode: str):
         if mode not in self._train_steps:
             self._train_steps[mode] = make_train_step(
-                mode, watch_modules=self.watch_every > 0)
+                mode, watch_modules=self.watch_every > 0, M_N=self.kld_weight)
         return self._train_steps[mode]
 
     def _multi_train_step(self, mode: str):
         if mode not in self._multi_steps:
             self._multi_steps[mode] = make_multi_train_step(
-                mode, self.scan_steps, watch_modules=self.watch_every > 0)
+                mode, self.scan_steps, watch_modules=self.watch_every > 0,
+                M_N=self.kld_weight)
         return self._multi_steps[mode]
 
     def _eval_step(self, mode: str):
@@ -348,7 +352,7 @@ class VAEXperiment:
     def sample_images(self, out_dir: str, epoch: int,
                       num_samples: int = 32) -> None:
         """The first test batch's inputs and reconstructions (``generate``,
-        in the batch's mode) and, where the model has ``sample``,
+        in the batch's mode) and, where the model has a prior (``has_prior``),
         ``num_samples`` decoded random latents, as PNG grids under
         ``out_dir``'s ``Inputs``, ``Reconstructions`` and ``Samples``. The
         epoch seeds the draws, so each epoch's samples are fresh."""

@@ -8,9 +8,16 @@ of a step come from the state's ``generator`` (advanced by every train
 step); the eval step draws from a generator of its own, seeded apart from
 the train draws as the JAX package offsets its eval key by ``1 << 20``.
 
-An EMA codebook's buffers are written in place by the train forward
-(the JAX step's mutable ``vq_stats``), whatever the optimizers train, and
-never by the eval step.
+Every ``loss_function`` gets the JAX step's arguments: ``M_N`` (the
+train step's constant, ``exp_params.kld_weight`` in the loop; 1.0 in the
+eval step), ``step`` (the global step as an int64 tensor on the model's
+device, ``TrainState.step_tensor``), ``train``, ``optimizer_idx`` (0) and
+the step's ``Draws`` (JAX's ``noise`` key).
+
+An EMA codebook's buffers and BatchNorm's running statistics are written
+in place by the train forward (the JAX step's mutable ``vq_stats`` and
+``batch_stats``), whatever the optimizers train, and never by the eval
+step.
 
 ``make_multi_train_step`` is the counterpart of the JAX package's
 ``lax.scan`` over K steps (``exp_params.scan_steps``): on the card it
@@ -20,7 +27,7 @@ costs a few launches from the host instead of about a thousand.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -45,6 +52,18 @@ class TrainState:
     model: nn.Module
     optimizers: List[Any]
     generator: torch.Generator
+    _step_buf: Optional[torch.Tensor] = field(default=None, repr=False)
+
+    def step_tensor(self) -> torch.Tensor:
+        """``step`` in an int64 scalar on the model's device, the one
+        buffer the losses read (a captured graph reads it by address):
+        filled here, so call it outside a capture, before each step or
+        replay."""
+        if self._step_buf is None:
+            self._step_buf = torch.zeros((), dtype=torch.int64,
+                                         device=self.model.device)
+        self._step_buf.fill_(self.step)
+        return self._step_buf
 
     def state_dict(self) -> Dict[str, Any]:
         """Everything a resumed run needs to continue bit for bit: the
@@ -78,11 +97,13 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def _forward(model: nn.Module, batch: Dict[str, torch.Tensor], mode: str,
-             draws: Draws, train: bool) -> Dict[str, Any]:
+             draws: Draws, train: bool, M_N: float, step: torch.Tensor
+             ) -> Dict[str, Any]:
     kwargs = {k: batch[k] for k in FWD_KEYS if k in batch}
     outputs = model(batch["image"], mode=mode, draws=draws, train=train,
                     **kwargs)
-    return model.loss_function(outputs)
+    return model.loss_function(outputs, M_N=M_N, step=step, train=train,
+                               optimizer_idx=0, draws=draws)
 
 
 def _scalars(losses: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -112,14 +133,16 @@ def _param_norms(model: nn.Module) -> Dict[str, torch.Tensor]:
     return _module_norms(model, "param_norm", grads=False)
 
 
-def _grads(state: TrainState, batch: Dict[str, torch.Tensor], mode: str
-           ) -> Dict[str, torch.Tensor]:
+def _grads(state: TrainState, batch: Dict[str, torch.Tensor], mode: str,
+           M_N: float, step: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The device work of a train step before the optimizer: gradients
-    of the loss in ``p.grad`` and the step's metrics with ``grad_norm``."""
+    of the loss in ``p.grad`` and the step's metrics with ``grad_norm``
+    (``step``: ``state.step_tensor()``, filled before the call)."""
     model = state.model
     model.zero_grad(set_to_none=True)
     losses = _forward(model, batch, mode,
-                      Draws(state.generator, model.device), train=True)
+                      Draws(state.generator, model.device), train=True,
+                      M_N=M_N, step=step)
     losses["loss"].backward()
     metrics = _scalars(losses)
     # over every parameter, trained or not (optax.global_norm of the
@@ -129,18 +152,19 @@ def _grads(state: TrainState, batch: Dict[str, torch.Tensor], mode: str
     return metrics
 
 
-def make_train_step(mode: str, watch_modules: bool = False
-                    ) -> Callable[[TrainState, Dict], Dict]:
+def make_train_step(mode: str, watch_modules: bool = False,
+                    M_N: float = 1.0) -> Callable[[TrainState, Dict], Dict]:
     """The train step of batch mode ``mode``: ``step(state, batch)``
-    updates ``state`` in place (parameters, optimizer state, ``step``) and
-    returns the loss terms, the model's metrics and ``grad_norm``.
+    updates ``state`` in place (parameters, buffers, optimizer state,
+    ``step``) and returns the loss terms, the model's metrics and
+    ``grad_norm``; ``M_N`` is the losses' KL weight.
     ``watch_modules`` adds ``grad_norm/<module>`` and, after the update,
     ``param_norm/<module>`` for each top-level module (the JAX step's
     ``watch_modules``)."""
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
-        metrics = _grads(state, batch, mode)
+        metrics = _grads(state, batch, mode, M_N, state.step_tensor())
         if watch_modules:           # the gradients before the clip
             metrics.update(_module_norms(state.model, "grad_norm", True))
         for opt in state.optimizers:
@@ -202,13 +226,14 @@ class MultiTrainStep:
     kernel launches they made (counted at capture: the wrappers' counters
     do not tick on replay)."""
 
-    def __init__(self, mode: str, n_steps: int, watch_modules: bool = False):
+    def __init__(self, mode: str, n_steps: int, watch_modules: bool = False,
+                 M_N: float = 1.0):
         if n_steps < 1:
             raise ValueError(f"n_steps must be at least 1, got {n_steps}")
         self.mode, self.n_steps = mode, n_steps
-        self.watch_modules = watch_modules
+        self.watch_modules, self.M_N = watch_modules, M_N
         self.replays = 0
-        self._step = make_train_step(mode, watch_modules)
+        self._step = make_train_step(mode, watch_modules, M_N)
         self._bound: Optional[Tuple] = None
         self._graphs: Dict[Tuple, _Graph] = {}
         self._warm: Dict[Tuple, int] = {}    # eager steps per batch shape
@@ -269,6 +294,7 @@ class MultiTrainStep:
                 buf.copy_(b[name])
             for opt in state.optimizers:
                 opt.set_lr()
+            state.step_tensor()
             g.graph.replay()
             for opt in state.optimizers:
                 opt.count += 1
@@ -286,12 +312,13 @@ class MultiTrainStep:
         inputs = {k: v.clone() for k, v in batch.items()}
         for opt in state.optimizers:
             opt.set_lr()            # the groups read the LR tensors
+        step = state.step_tensor()  # and the losses the step's
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
         before = launch_counts()
         try:
             with torch.cuda.graph(graph):
-                metrics = _grads(state, inputs, self.mode)
+                metrics = _grads(state, inputs, self.mode, self.M_N, step)
                 if self.watch_modules:
                     metrics.update(_module_norms(state.model, "grad_norm",
                                                  True))
@@ -307,19 +334,20 @@ class MultiTrainStep:
 
 
 def make_multi_train_step(mode: str, n_steps: int,
-                          watch_modules: bool = False) -> MultiTrainStep:
+                          watch_modules: bool = False, M_N: float = 1.0
+                          ) -> MultiTrainStep:
     """``n_steps`` train steps of batch mode ``mode`` per call, on batches
     stacked ``[n_steps, B, ...]`` (``MultiTrainStep``); ``watch_modules``
-    as in ``make_train_step`` (in a captured graph the norms are outputs
-    of the graph)."""
-    return MultiTrainStep(mode, n_steps, watch_modules)
+    and ``M_N`` as in ``make_train_step`` (in a captured graph the norms
+    are outputs of the graph)."""
+    return MultiTrainStep(mode, n_steps, watch_modules, M_N)
 
 
 def make_eval_step(mode: str, seed: int = 0
                    ) -> Callable[[TrainState, Dict], Dict]:
     """The validation step of batch mode ``mode``: forward with
-    ``train=False`` and the loss, no gradient; its draws come from a
-    generator of its own, seeded ``seed + (1 << 20)``."""
+    ``train=False`` and the loss at ``M_N=1.0``, no gradient; its draws
+    come from a generator of its own, seeded ``seed + (1 << 20)``."""
     generator = None
 
     @torch.no_grad()
@@ -331,6 +359,7 @@ def make_eval_step(mode: str, seed: int = 0
             generator = torch.Generator(device).manual_seed(
                 seed + EVAL_SEED_OFFSET)
         return _scalars(_forward(state.model, batch, mode,
-                                 Draws(generator, device), train=False))
+                                 Draws(generator, device), train=False,
+                                 M_N=1.0, step=state.step_tensor()))
 
     return step_fn

@@ -991,3 +991,172 @@ def test_watch_norms_in_graph_equal_eager(card):
     for k in keys:
         a, b = float(eager[k]), float(graph[k])
         assert abs(a - b) <= 1e-6 * max(abs(a), 1e-30), (k, a, b)
+
+
+def test_vq_kernel_at_the_vq_vae_shape(card):
+    """The VQ search at ``configs/vq_vae.yaml``'s shape (K = 512 codes of
+    D = 64; B = 64 on the 16 x 16 latent grid: N = 16,384 rows, 8 passes
+    of 64 codes): the kernel drops ||x||^2, so an index may differ from the
+    plain version's only where the two distances are within 1e-5 of each
+    other (a near-tie, counted in float64); a rerun is bit-identical."""
+    from ctvae_torch.ops import vq
+    rng = np.random.default_rng(512)
+    x, cb = _t(rng, 16384, 64), _t(rng, 512, 64, scale=0.5)
+    got = vq.l2_argmin(x, cb)
+    assert torch.equal(vq.l2_argmin(x, cb), got)
+    want = vq.l2_argmin_plain(x, cb)
+    dist = (x.double() ** 2).sum(1, keepdim=True) \
+        + (cb.double() ** 2).sum(1) - 2 * x.double() @ cb.double().T
+    gap = (dist.gather(1, got[:, None]) - dist.gather(1, want[:, None])
+           ).abs()[:, 0]
+    differ = got != want
+    near = gap <= 1e-5 * dist.gather(1, want[:, None])[:, 0].abs().clamp(
+        min=1.0)
+    assert int((differ & ~near).sum()) == 0
+    assert int(differ.sum()) <= 16
+    assert vq.occupancy(512, 64)["local_bytes"] == 0
+
+
+class _CpuDraws:
+    """Normals from a CPU generator on any device, so the card's step and
+    the CPU's draw the same latents."""
+
+    def __init__(self, seed, device):
+        self.generator = torch.Generator().manual_seed(seed)
+        self.device = torch.device(device)
+
+    def normal(self, shape):
+        return torch.randn(tuple(shape), generator=self.generator).to(
+            self.device)
+
+
+@pytest.mark.parametrize("name", ["VanillaVAE", "VQVAE"])
+def test_zoo_train_step_on_card_matches_cpu(card, name, monkeypatch):
+    """One train step (``M_N`` 0.5) of a small VanillaVAE / VQVAE on the
+    card against the same weights and draws on the CPU: the metrics, every
+    gradient (1e-4 of its leaf's scale), every parameter after Adam
+    (within what the gradients' difference allows) and the BatchNorm
+    buffers (1e-5 / rtol 1e-4); VQVAE launched its VQ kernel once."""
+    import copy
+
+    from ctvae_torch.models import build_model
+    from ctvae_torch.ops import vq
+    from ctvae_torch.training import optimizers as topt
+    from ctvae_torch.training import state as tstate
+    cfg = (dict(name=name, in_channels=3, latent_dim=8, hidden_dims=[8, 16],
+                img_size=16) if name == "VanillaVAE" else
+           dict(name=name, in_channels=3, embedding_dim=8, num_embeddings=32,
+                hidden_dims=[8, 16], img_size=16))
+    model = build_model(cfg, device=card,
+                        generator=torch.Generator("cuda").manual_seed(0))
+    cpu_model = copy.deepcopy(model).to("cpu")
+    x = torch.rand(4, 16, 16, 3, generator=torch.Generator().manual_seed(5))
+    exp = dict(LR=5e-3, weight_decay=0.0, scheduler_gamma=0.95)
+    metrics, grads = [], []
+    kept = tstate._grads
+
+    def grads_of(*args):
+        out = kept(*args)
+        grads.append({n: p.grad.detach().cpu().clone()
+                      for n, p in args[0].model.named_parameters()})
+        return out
+
+    monkeypatch.setattr(tstate, "_grads", grads_of)
+    monkeypatch.setattr(tstate, "Draws",
+                        lambda gen, device: _CpuDraws(7, device))
+    before = vq.launches
+    for m, dev in ((model, "cuda"), (cpu_model, "cpu")):
+        state = tstate.create_train_state(m, topt.build_optimizers(exp, m,
+                                                                   4))
+        metrics.append({k: float(v) for k, v in tstate.make_train_step(
+            "base", M_N=0.5)(state, {"image": x.to(dev)}).items()})
+    torch.cuda.synchronize()
+    assert vq.launches == before + (name == "VQVAE")
+    assert metrics[0].keys() == metrics[1].keys()
+    for k, v in metrics[1].items():
+        np.testing.assert_allclose(metrics[0][k], v, rtol=1e-4, atol=1e-6)
+    for n, g in grads[1].items():
+        scale = max(1.0, float(g.abs().max()))
+        assert float((grads[0][n] - g).abs().max()) <= 1e-4 * scale, n
+    # Adam moves a parameter by lr g / (|g| + 1e-8): the gradients' own
+    # difference bounds the parameters' (a conv bias before a BatchNorm
+    # has a gradient of rounding noise alone)
+    cpu_params = dict(cpu_model.named_parameters())
+    for n, p in model.named_parameters():
+        tol = 2e-6 + exp["LR"] / 1e-8 * (grads[0][n] - grads[1][n]).abs()
+        assert bool(((p.detach().cpu() - cpu_params[n].detach()).abs()
+                     <= tol).all()), n
+    cpu_buffers = dict(cpu_model.named_buffers())
+    for n, t in model.named_buffers():
+        np.testing.assert_allclose(t.cpu().numpy(), cpu_buffers[n].numpy(),
+                                   atol=1e-5, rtol=1e-4, err_msg=n)
+
+
+@pytest.mark.parametrize("loss_type", [None, "B"], ids=["VanillaVAE",
+                                                         "BetaVAE-B"])
+def test_zoo_multi_train_step_graph_equals_eager_steps(card, loss_type):
+    """A small VanillaVAE / BetaVAE B trained 12 steps eagerly and through
+    three calls of ``make_multi_train_step("base", 4, M_N=0.5)`` from equal
+    states, under cuDNN's deterministic algorithms: each call's metrics
+    against the eager step it ends on, every parameter, BatchNorm buffer
+    and Adam moment within 1e-6 of its largest magnitude, the generators
+    and steps equal. BetaVAE B's capacity C rises over the 12 steps
+    (``Capacity_max_iter`` 12) to twice the first step's KLD, so C crosses
+    the KLD among the replayed steps: a graph that froze the step it was
+    captured at would differ in the loss and in the gradients."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_multi_train_step, make_train_step)
+    from ctvae_torch.training.state import WARMUP_STEPS
+    cfg = dict(name="VanillaVAE", in_channels=3, latent_dim=8,
+               hidden_dims=[8, 16], img_size=16)
+    if loss_type:
+        cfg.update(name="BetaVAE", loss_type="B", gamma=10.0,
+                   max_capacity=25, Capacity_max_iter=10000)
+    exp = dict(LR=5e-3, scheduler_gamma=0.9, weight_decay=0.0)
+    g = torch.Generator().manual_seed(6)
+    xs = torch.rand(12, 4, 16, 16, 3, generator=g).cuda()
+    step = make_train_step("base", M_N=0.5)
+
+    def build():
+        m = build_model(cfg, device=card,
+                        generator=torch.Generator("cuda").manual_seed(0))
+        return create_train_state(m, build_optimizers(exp, m, 3), seed=5)
+
+    if loss_type:
+        kld0 = float(step(build(), {"image": xs[0]})["KLD"])
+        cfg.update(Capacity_max_iter=12, max_capacity=2.0 * kld0)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager, graph = build(), build()
+        metrics = [step(eager, {"image": x}) for x in xs]
+        multi = make_multi_train_step("base", 4, M_N=0.5)
+        calls = [multi(graph, {"image": xs[i:i + 4]}) for i in (0, 4, 8)]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert multi.replays == 12 - WARMUP_STEPS
+    for i, got in zip((3, 7, 11), calls):
+        assert got.keys() == metrics[i].keys()
+        for k, v in got.items():
+            want = metrics[i][k]
+            assert float((v - want).abs()) <= 1e-6 * float(want.abs()), k
+    if loss_type:
+        C = [2.0 * kld0 / 12 * (s + 1) for s in range(12)]
+        above = {float(m["KLD"]) > c for m, c in
+                 zip(metrics[WARMUP_STEPS:], C[WARMUP_STEPS:])}
+        assert above == {True, False}
+    a, b = eager.model.state_dict(), graph.model.state_dict()
+    assert any(n.endswith("running_var") for n in a)
+    for n, t in a.items():
+        assert float((t - b[n]).abs().max()) <= 1e-6 * float(
+            t.abs().max()), n
+    for oa, ob in zip(eager.optimizers, graph.optimizers):
+        for pa, pb in zip(oa.params, ob.params):
+            for k, va in oa.adam.state.get(pa, {}).items():
+                vb = ob.adam.state[pb][k]
+                assert float((va - vb).abs().max()) <= \
+                    1e-6 * float(va.abs().max()), k
+    assert eager.step == graph.step == 12
+    assert torch.equal(eager.generator.get_state(),
+                       graph.generator.get_state())

@@ -377,8 +377,8 @@ def test_multi_train_step_matches_jax(monkeypatch, pair, mode):
     monkeypatch.setattr(tstate, "Draws", lambda gen, device: replay)
     grads, grads_of = [], tstate._grads
 
-    def kept(state, b, m):
-        out = grads_of(state, b, m)
+    def kept(state, b, m, *loss_args):
+        out = grads_of(state, b, m, *loss_args)
         grads.append({n: (p.grad if p.grad is not None
                           else torch.zeros_like(p)).clone()
                       for n, p in state.model.named_parameters()})

@@ -183,10 +183,12 @@ def jax_train_step(jm, variables, mode, b, monkeypatch, seed, exp):
                                 exp)[:4]
 
 
-def jax_train_step_state(jm, variables, mode, b, monkeypatch, seed, exp):
+def jax_train_step_state(jm, variables, mode, b, monkeypatch, seed, exp,
+                         M_N=1.0, step=0):
     """``jax_train_step`` whose state also holds the variables' other
-    collections (an EMA codebook's ``vq_stats``); returns them updated as
-    a fifth item."""
+    collections (an EMA codebook's ``vq_stats``, BatchNorm's
+    ``batch_stats``); returns them updated as a fifth item. ``M_N`` is the
+    step's KL weight and ``step`` the state's global step."""
     import optax
 
     from ctvae_tpu.training import optimizers as jopt
@@ -194,15 +196,15 @@ def jax_train_step_state(jm, variables, mode, b, monkeypatch, seed, exp):
     params = variables["params"]
     model_state = {k: v for k, v in variables.items() if k != "params"}
     tx = optax.chain(keep_grads(), jopt.build_optimizers(exp, params, 4)[0])
-    state = jstate.TrainState(step=jnp.array(0, jnp.int32), params=params,
-                              model_state=model_state,
+    state = jstate.TrainState(step=jnp.array(step, jnp.int32),
+                              params=params, model_state=model_state,
                               opt_states=(tx.init(params),),
                               rng=jax.random.PRNGKey(seed))
-    step = jax.jit(jstate.make_train_step(
-        jm, [tx], M_N=1.0, fwd_kwargs_keys=("action", "input_y"),
+    step_fn = jax.jit(jstate.make_train_step(
+        jm, [tx], M_N=M_N, fwd_kwargs_keys=("action", "input_y"),
         static_fwd_kwargs={"mode": mode}))
     with recorded_draws(monkeypatch, seed=seed) as rec:
-        new, metrics = step(state, b)
+        new, metrics = step_fn(state, b)
     return (jax.device_get(new.params), jax.device_get(new.opt_states[0][0]),
             jax.device_get(metrics), rec.draws,
             jax.device_get(new.model_state))
