@@ -80,9 +80,29 @@ same widths (phase "loop"). Then more phases:
   stand-in, every trial finite. The launches of (a)'s timed steps and of
   (c) make the path ``search``.
 
+* celeba: the port's JPEG codec built (``ctvae_torch/native``: nvJPEG
+  on a machine without libjpeg) and a CelebA stand-in of 16,000 JPEGs of
+  178 x 218 written in a temporary directory (quality 80; the smoke's own
+  80 / 10 / 10 split and attribute file; ``variation_attrs_10.txt``),
+  then (c) the decode of a batch of 64 against the arrays it was
+  rendered from and of the committed libjpeg reference
+  (``tests/torch_jpeg_reference.npz``) against libjpeg's pixels, the
+  decode's and the transform's host ms, the transform's products on the
+  card against the CPU; (d) ``run.train`` of ``configs/vae.yaml``,
+  ``vq_vae.yaml`` and ``cvae.yaml`` with ``dataset_name: Celeba`` as
+  written (one epoch each), the loader's host ms and its share of each
+  epoch (steps in turns with batches held and inline), VQVAE's VQ
+  search calls at K = 512 (path ``celeba_vq``); (e)
+  ``configs/ct_mcq_vae.yaml`` at full width on TCeleba with
+  ``action_dim: 20`` (21 GAT heads, causal A*B = 320), one epoch cut by
+  ``limit`` (path ``tceleba``), every kernel call of each mode's step
+  held against its plain version and timed with it and its bound; (f)
+  ConditionalVAE's ``reconstruct`` / ``encode`` / ``sample`` with labels
+  against the CPU (1e-5). The VanillaVAE and ConditionalVAE runs make the
+  path ``celeba`` (no kernel).
 * gaussian: VQVAE and the Gaussian zoo from their YAML at full width on
-  the same Shapes3D stand-in (64x64x3, CelebA's shape at ``patch_size:
-  64``; the data redirection is printed): ``run.train`` of
+  the same CelebA stand-in (``dataset_name: Celeba`` as written, only
+  ``data_path`` changed): ``run.train`` of
   ``configs/vae.yaml`` and ``configs/vq_vae.yaml`` (B = 64, one epoch,
   checkpoints and grids, no Samples grid for VQVAE) and of
   ``configs/synthetic_vae.yaml``; every VQ search call of a VQVAE train
@@ -100,7 +120,9 @@ same widths (phase "loop"). Then more phases:
     python3 chip_smoke.py --search-only
 
 builds the kernels and runs only the phase "search" (``phase_search``);
-``--gaussian-only`` only the phase "gaussian" (``phase_gaussian``).
+``--gaussian-only`` only the phase "gaussian" (``phase_gaussian``) and
+``--celeba-only`` only the phase "celeba" (``phase_celeba``), each after
+writing the CelebA stand-in.
 
 The second-last line is one JSON
 object with a row per kernel; the last line is ``{"ok": true, "device":
@@ -165,6 +187,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -1561,7 +1584,9 @@ def _timed_steps(label: str, steps, state, batch, n: int, expected) -> dict:
 def phase_train():
     """Train steps of each mode at the headline width, B = 16, with the
     config's exp_params; the launch counters are reset just before and
-    read just after. Then one profiled step per mode."""
+    read just after. Then one profiled step per mode, and the plain
+    versions timed on each mode's own kernel inputs
+    (``_plain_ms_on_step``)."""
     model, state, batch, steps = _train_setup()
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     torch.cuda.synchronize()
@@ -1639,6 +1664,15 @@ def phase_train():
         on_step.setdefault(name, {})["profiled_causal_step_ms"] = ms
         log(f"train causal: {name} {ms:.3f} ms of device time in the "
             f"profiled step")
+    # the plain versions' ms on each mode's own inputs, beside the kernels'
+    plain = {mode: _plain_ms_on_step(lambda: step(state, batch))
+             for mode, step in steps.items()}
+    for mode, ms in plain.items():
+        log(f"train {mode}: the plain versions on the step's own inputs, "
+            f"ms {json.dumps(ms)}")
+    for name in plain["causal"]:
+        on_step[name]["plain_ms_on_steps"] = {m: p[name]
+                                              for m, p in plain.items()}
     return timings, launches, peak, on_step
 
 
@@ -1707,8 +1741,9 @@ def phase_codebooks_2():
     ``codebooks: 2`` CT model at B = 16, the launch counters reset just
     before and read just after; then each mode's calls of every kernel but
     the VQ search (held at D = 64 in ``_check_vq``) against the plain
-    version on their own inputs (``_kernels_on_step``); and one profiled
-    causal step."""
+    version on their own inputs (``_kernels_on_step``), and the plain
+    versions timed there (``_plain_ms_on_step``); and one profiled causal
+    step."""
     model, state, batch, steps = _train_setup(C2_MODEL_PARAMS)
     sites = C2_MODEL_PARAMS["codebooks"] * model.nb_latents ** 2
     if sites != 128:
@@ -1721,6 +1756,19 @@ def phase_codebooks_2():
     found = {mode: _kernels_on_step(f"codebooks_2 {mode}",
                                     lambda: step(state, batch))
              for mode, step in steps.items()}
+    # the plain versions' ms on each mode's own inputs, beside the kernels'
+    for mode, step in steps.items():
+        plain = _plain_ms_on_step(lambda: step(state, batch))
+        f = found[mode]
+        for k in ("pairwise_fwd", "pairwise_bwd"):
+            for which, ms in plain[k].items():
+                f[k][which]["plain_ms"] = ms
+        for k in ("gat_fwd", "gat_bwd"):
+            f[k]["plain_ms"] = plain[k]
+        for which in ("fwd", "bwd"):
+            f["logits"][which]["plain_ms"] = plain[f"gat_logits_{which}"]
+        log(f"codebooks_2 {mode}: the plain versions on the step's own "
+            f"inputs, ms {json.dumps(plain)}")
     _profile(f"codebooks_2 train step causal B={BATCH}",
              lambda: steps["causal"](state, batch), gemm_shapes=True)
     on_step = {k: {"codebooks_2": {m: v[k] for m, v in found.items()}}
@@ -3758,46 +3806,52 @@ GAUSSIAN_SERVE_B = 16
 
 
 def _gaussian_config(name: str, root: str, logs: str) -> dict:
-    """``configs/<name>.yaml`` as ``read_config`` reads it, with its
-    ``data_params`` pointed at the Shapes3D stand-in at ``patch_size`` 64
-    (the CelebA of these configs reads JPEGs, which the port does not yet:
-    ROADMAP A2), one epoch and the log directory changed; the model, the
-    exp_params and the batch of 64 as written. The trainer's
-    ``gradient_clip_val`` stays where run.train moves it from."""
+    """``configs/<name>.yaml`` as ``read_config`` reads it, with only
+    ``data_path`` (the CelebA stand-in under ``root``), one epoch and the
+    log directory changed: ``dataset_name: Celeba``, ``patch_size: 64``,
+    the model, the exp_params and the batch of 64 as written. The
+    trainer's ``gradient_clip_val`` stays where run.train moves it
+    from."""
     cfg = read_config(os.path.join(os.path.dirname(CONFIG), f"{name}.yaml"))
-    was = {k: cfg["data_params"].get(k) for k in ("dataset_name",
-                                                  "data_path")}
-    cfg["data_params"] = {**cfg["data_params"], "dataset_name": "Shapes3D",
-                          "data_path": root, "patch_size": 64}
+    written = dict(cfg["data_params"])
+    cfg["data_params"] = {**cfg["data_params"], "data_path": root}
     cfg["trainer_params"] = {**cfg["trainer_params"], "max_epochs": 1}
     cfg["logging_params"] = {**cfg["logging_params"], "save_dir": logs}
-    if cfg["data_params"]["train_batch_size"] != GAUSSIAN_BATCH:
-        raise AssertionError(f"{name}: batch {cfg['data_params']}")
-    log(f"gaussian {name}: data_params {json.dumps(was)} redirected to "
-        f"the Shapes3D stand-in at patch_size 64; model_params "
+    dp = cfg["data_params"]
+    if (dp["train_batch_size"], dp["dataset_name"], dp["patch_size"]) != (
+            GAUSSIAN_BATCH, "Celeba", 64):
+        raise AssertionError(f"{name}: data_params {dp}")
+    log(f"{name}: data_params as written {json.dumps(written)} but "
+        f"data_path (the CelebA stand-in); model_params "
         f"{json.dumps(cfg['model_params'])}")
     return cfg
 
 
-def _gaussian_serve(model) -> dict:
-    """VanillaVAE's ``reconstruct``, ``encode`` and ``sample`` at B = 16:
-    each request timed on the card, and held against the same weights on
-    the CPU (``sample`` decodes the same CPU-drawn latents on both)."""
+def _gaussian_serve(model, label: str = "gaussian",
+                    atol: float = SERVE_ATOL) -> dict:
+    """A Gaussian model's ``reconstruct``, ``encode`` and ``sample`` at B
+    = 16 (with 0 / 1 labels of 40 attributes for a model that
+    ``needs_labels``): each request timed on the card, and held against
+    the same weights on the CPU within ``atol`` (``sample`` decodes the
+    same CPU-drawn latents on both)."""
     from ctvae_torch.serving.inference import available_fns, \
         make_inference_fn
     if available_fns(model) != ("reconstruct", "encode", "sample"):
         raise AssertionError(f"serve: {available_fns(model)}")
     cpu_model = copy.deepcopy(model).to("cpu")
     Bs = GAUSSIAN_SERVE_B
-    x = torch.rand(Bs, 64, 64, 3, generator=torch.Generator().manual_seed(
-        SEED + 21))
+    gen = torch.Generator().manual_seed(SEED + 21)
+    x = torch.rand(Bs, 64, 64, 3, generator=gen)
+    labels = ((torch.randint(0, 2, (Bs, 40), generator=gen).float(),)
+              if getattr(model, "needs_labels", False) else ())
+    on_card = tuple(t.cuda() for t in labels)
     fns = {n: make_inference_fn(model, n, num_samples=Bs)
            for n in ("reconstruct", "encode", "sample")}
     dgen = torch.Generator("cuda").manual_seed(SEED)
-    calls = {"reconstruct": lambda: fns["reconstruct"](x.cuda(),
-                                                       generator=dgen),
-             "encode": lambda: fns["encode"](x.cuda()),
-             "sample": lambda: fns["sample"](generator=dgen)}
+    calls = {"reconstruct": lambda: fns["reconstruct"](
+        x.cuda(), *on_card, generator=dgen),
+        "encode": lambda: fns["encode"](x.cuda(), *on_card),
+        "sample": lambda: fns["sample"](*on_card, generator=dgen)}
     ms, errs = {}, {}
     for name, call in calls.items():
         secs = []
@@ -3812,17 +3866,20 @@ def _gaussian_serve(model) -> dict:
         ms[name] = statistics.median(secs[1:])
         with torch.inference_mode():
             if name == "sample":
-                got = model.sample(Bs, draws=_replay_draws("cuda", SEED))
-                want = cpu_model.sample(Bs, draws=_replay_draws("cpu", SEED))
+                got = model.sample(Bs, *on_card,
+                                   draws=_replay_draws("cuda", SEED))
+                want = cpu_model.sample(Bs, *labels,
+                                        draws=_replay_draws("cpu", SEED))
             else:
-                got = make_inference_fn(model, name)(x.cuda())
-                want = make_inference_fn(cpu_model, name)(x)
+                got = make_inference_fn(model, name)(x.cuda(), *on_card)
+                want = make_inference_fn(cpu_model, name)(x, *labels)
         errs[name] = float((got.cpu() - want).abs().max())
-        log(f"gaussian serve {name} B={Bs}: {ms[name]:.3f} ms per request "
-            f"(median of {REQUESTS - 1} after a warm-up); card vs CPU "
-            f"max abs err {errs[name]:.3g} (tolerance {SERVE_ATOL}), "
-            f"shape {list(out.shape)}")
-        if not errs[name] <= SERVE_ATOL:
+        log(f"{label} serve {name} B={Bs}"
+            f"{' with labels' if labels else ''}: {ms[name]:.3f} ms per "
+            f"request (median of {REQUESTS - 1} after a warm-up); card vs "
+            f"CPU max abs err {errs[name]:.3g} (tolerance {atol}), shape "
+            f"{list(out.shape)}")
+        if not errs[name] <= atol:
             raise AssertionError(f"serve {name}: card and CPU disagree by "
                                  f"{errs[name]}")
     return {"ms": ms, "max_abs_err": errs}
@@ -3949,10 +4006,11 @@ def _gaussian_graph(name: str, cfg: dict, batches: list) -> float:
     return out
 
 
-def phase_gaussian(smi: str) -> tuple:
+def phase_gaussian(smi: str, celeba_root: str) -> tuple:
     """VQVAE and the Gaussian zoo on the card from their YAML, at full
-    width on the Shapes3D stand-in (64x64x3, CelebA's shape at
-    ``patch_size: 64``): ``run.train`` of ``configs/vae.yaml`` and of
+    width, on the CelebA stand-in under ``celeba_root``
+    (``_celeba_standin``; ``dataset_name: Celeba`` as written, 178 x 218
+    JPEGs to 64 x 64): ``run.train`` of ``configs/vae.yaml`` and of
     ``configs/vq_vae.yaml`` (one epoch each, checkpoints, grids: no
     Samples grid for VQVAE) and of ``configs/synthetic_vae.yaml`` as
     written (only its logs moved); every VQ search call of a VQVAE train
@@ -3969,7 +4027,6 @@ def phase_gaussian(smi: str) -> tuple:
     from ctvae_torch import run
     from ctvae_torch.data import VAEDataset
     from ctvae_torch.data.prefetch import to_device
-    from ctvae_torch.data.standins import write_shapes3d_standin
     from ctvae_torch.models import build_model
     from ctvae_torch.training import build_optimizers, create_train_state
 
@@ -3982,8 +4039,7 @@ def phase_gaussian(smi: str) -> tuple:
             gauss[k] += n
 
     with tempfile.TemporaryDirectory(prefix="ctvae_gaussian_") as tmp:
-        root, logs = os.path.join(tmp, "Data"), os.path.join(tmp, "logs")
-        write_shapes3d_standin(root, SHAPES3D_GRID)
+        root, logs = celeba_root, os.path.join(tmp, "logs")
         cfgs = {n: _gaussian_config(n, root, logs)
                 for n in GAUSSIAN_RUNS + ZOO_CONFIGS}
         vq_launches = None
@@ -4079,6 +4135,349 @@ def phase_gaussian(smi: str) -> tuple:
     return gauss, vq_launches, vq_rows, numbers
 
 
+# --- phase 13: the JPEG datasets ---------------------------------------------
+
+CELEBA_N = 16_000          # stand-in images: 12,800 / 1,600 / 1,600
+#: configs trained one epoch through run.train on the stand-in, as written
+#: but for data_path (vq_vae's VQ search makes the path celeba_vq)
+CELEBA_RUNS = ("vae", "vq_vae", "cvae")
+CELEBA_DECODE_B = 64       # files of the decode check, a batch of B = 64
+CELEBA_DECODE_REPS = 11    # timed decodes of that batch
+CELEBA_EPOCH_BATCHES = 32  # steps of each epoch timed in turns
+TCELEBA_ACTIONS = 20       # 2 x 10 variations of TCeleba: 21 GAT heads
+TCELEBA_LIMIT = 384        # per mode: 24 TCeleba train batches of 16
+TCELEBA_VAL_LIMIT = 64     # per mode: 4 validation batches of 16
+CVAE_SERVE_ATOL = 1e-5     # ConditionalVAE's requests, card vs CPU
+TRANSFORM_ATOL = 1e-6      # the transform's products on the card vs CPU
+# the card's decode (pixel levels of 255): of the committed libjpeg
+# reference's JPEGs against libjpeg's pixels, and of the stand-in's
+# quality-80 JPEGs against the arrays they were rendered from (libjpeg's
+# encode and decode of the first 64: max 106, mean 4.487)
+DECODE_REF_MAX, DECODE_REF_MEAN = 64, 2.0
+DECODE_Q80_MAX, DECODE_Q80_MEAN = 160, 6.0
+
+
+def _celeba_standin(root: str, smi: str) -> dict:
+    """The port's JPEG codec built and probed, then the CelebA stand-in
+    under ``root``: CELEBA_N images rendered and encoded at quality 80
+    (``ensure_celeba_standin``), a split in torchvision's proportions
+    over them and an attribute file (``label_celeba_standin``: the
+    script's split puts every image of a stand-in this small in train,
+    and it writes no attributes), and ``variation_attrs_10.txt``
+    (``generate_celeba``). Returns the seconds and sizes."""
+    from ctvae_torch import native
+    from ctvae_torch.data.standins import (ensure_celeba_standin,
+                                           label_celeba_standin)
+    from ctvae_torch.data.variations import generate_celeba
+    t0 = time.perf_counter()
+    codec = native.codec()
+    out = {"codec": codec.version, "codec_build_s": codec.build_s,
+           "codec_load_s": time.perf_counter() - t0,
+           "nproc": len(os.sched_getaffinity(0))}
+    log(f"celeba probe: JPEG codec {codec.name}, {codec.version}, built in "
+        f"{codec.build_s:.2f} s (loaded in {out['codec_load_s']:.2f} s); "
+        f"{out['nproc']} host cores ({smi})")
+    t0 = time.perf_counter()
+    ensure_celeba_standin(root, CELEBA_N)
+    out["write_s"] = time.perf_counter() - t0
+    out["split"] = label_celeba_standin(root, CELEBA_N)
+    t0 = time.perf_counter()
+    path = generate_celeba(root)
+    out["variations_s"] = time.perf_counter() - t0
+    with open(path) as f:
+        out["transitions"] = sum(1 for _ in f) - 1
+    folder = os.path.join(root, "celeba", "img_align_celeba")
+    out["jpeg_mb"] = sum(os.path.getsize(os.path.join(folder, n))
+                         for n in os.listdir(folder)) / 1e6
+    log(f"celeba stand-in: {CELEBA_N} images of 178 x 218 rendered and "
+        f"encoded at quality 80 in {out['write_s']:.2f} s "
+        f"({out['jpeg_mb']:.1f} MB of JPEG); the smoke's own split "
+        f"{json.dumps(out['split'])} (torchvision's proportions; the "
+        f"stand-in writer's split puts all {CELEBA_N} in train) and "
+        f"attribute file; variation_attrs_10.txt: {out['transitions']} "
+        f"transitions in {out['variations_s']:.2f} s ({smi})")
+    return out
+
+
+def _card_transform(raw, crop: int, size: int):
+    """``StandardTransform(size, crop).batch`` of a uint8 batch with its
+    two products on the card (the same matrices)."""
+    from ctvae_torch.data.transforms import axis_matrix
+    n, H, W, C = raw.shape
+    mh = torch.from_numpy(axis_matrix(H, crop, size).copy()).cuda()
+    mw = torch.from_numpy(axis_matrix(W, crop, size).copy()).cuda()
+    x = torch.from_numpy(raw).cuda().float().div_(
+        torch.full((), 255.0, device="cuda"))
+    rows = torch.matmul(mh, x.reshape(n, H, W * C))
+    out = torch.matmul(mw, rows.reshape(n * size, W, C))
+    return out.reshape(n, size, size, C).cpu().numpy()
+
+
+def _decode_check(root: str, smi: str) -> dict:
+    """(c): the codec's decode of the stand-in's first CELEBA_DECODE_B
+    files against the arrays they were rendered from (the error of
+    quality-80 JPEG) and of the committed libjpeg reference's JPEGs
+    against libjpeg's pixels; the decode's and the transform's host ms
+    on that batch; the transform's products on the card against the
+    CPU's."""
+    import numpy as np
+
+    from ctvae_torch import native
+    from ctvae_torch.data.standins import render_celeba_images
+    from ctvae_torch.data.transforms import StandardTransform
+    codec = native.codec()
+    idx = range(1, CELEBA_DECODE_B + 1)
+    paths = [os.path.join(root, "celeba", "img_align_celeba", f"{i:06d}.jpg")
+             for i in idx]
+    raw = codec.decode_batch(paths)
+    diff = np.abs(raw.astype(np.int16)
+                  - render_celeba_images(idx).astype(np.int16))
+    out = {"codec": codec.version, "vs_rendered_max": int(diff.max()),
+           "vs_rendered_mean": float(diff.mean())}
+    ref = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "torch_jpeg_reference.npz")
+    with np.load(ref) as z, tempfile.TemporaryDirectory() as tmp:
+        for key in sorted(k for k in z.files if k.startswith("jpeg_")):
+            name = key[len("jpeg_"):]
+            path = os.path.join(tmp, f"{name}.jpg")
+            with open(path, "wb") as f:
+                f.write(z[key].tobytes())
+            d = np.abs(codec.decode(path).astype(np.int16)
+                       - z[f"decoded_{name}"].astype(np.int16))
+            out[f"vs_libjpeg_{name}"] = {"max": int(d.max()),
+                                         "mean": float(d.mean())}
+    secs = []
+    for _ in range(CELEBA_DECODE_REPS):
+        t0 = time.perf_counter()
+        codec.decode_batch(paths)
+        secs.append(1e3 * (time.perf_counter() - t0))
+    out["decode_ms"] = statistics.median(secs)
+    transform = StandardTransform(64, crop=148)
+    secs = []
+    for _ in range(CELEBA_DECODE_REPS):
+        t0 = time.perf_counter()
+        cpu = transform.batch(raw)
+        secs.append(1e3 * (time.perf_counter() - t0))
+    out["transform_ms"] = statistics.median(secs)
+    out["transform_card_vs_cpu"] = float(np.abs(
+        _card_transform(raw, 148, 64) - cpu).max())
+    log(f"celeba decode check ({codec.version}), B={CELEBA_DECODE_B} files "
+        f"of 178 x 218: against the rendered arrays max abs err "
+        f"{out['vs_rendered_max']} levels, mean {out['vs_rendered_mean']:.4f} "
+        f"(quality 80); the libjpeg reference's JPEGs against libjpeg's "
+        f"pixels {json.dumps({k: v for k, v in out.items() if k.startswith('vs_libjpeg')})}; "
+        f"decode {out['decode_ms']:.3f} ms, transform to 64 x 64 "
+        f"{out['transform_ms']:.3f} ms on the host (medians of "
+        f"{CELEBA_DECODE_REPS}); the transform's products on the card "
+        f"against the CPU: max abs err {out['transform_card_vs_cpu']:.3g} "
+        f"(tolerance {TRANSFORM_ATOL}) ({smi})")
+    refs = [v for k, v in out.items() if k.startswith("vs_libjpeg")]
+    if not (len(refs) == 3 and all(
+            r["max"] <= DECODE_REF_MAX and r["mean"] <= DECODE_REF_MEAN
+            for r in refs) and out["vs_rendered_max"] <= DECODE_Q80_MAX
+            and out["vs_rendered_mean"] <= DECODE_Q80_MEAN
+            and out["transform_card_vs_cpu"] <= TRANSFORM_ATOL):
+        raise AssertionError(f"celeba decode check: {out}")
+    return out
+
+
+def phase_celeba(smi: str, root: str) -> tuple:
+    """The JPEG datasets through the port's entry points, on the CelebA
+    stand-in under ``root`` (``_celeba_standin``): (c) the decode check
+    (``_decode_check``); (d) ``run.train`` of ``configs/vae.yaml``,
+    ``vq_vae.yaml`` and ``cvae.yaml`` with ``dataset_name: Celeba`` as
+    written (one epoch each: checkpoints, grids, ConditionalVAE's Samples
+    decoded beside the batch's labels), then per config the loader's and
+    the copy's host ms per batch and the epoch's first
+    CELEBA_EPOCH_BATCHES steps in turns with batches held and inline (the
+    loader's share), and every VQ search call of a VQVAE train and eval
+    step at K = 512 against the plain version; (e) ``configs/
+    ct_mcq_vae.yaml`` at full width on TCeleba (``action_dim: 20``: 21
+    GAT heads, the causal batch A*B = 320), one epoch cut by ``limit``,
+    then every kernel call of each mode's step held against its plain
+    version and timed with it and its bound; (f) ConditionalVAE's
+    serving entry points with labels against the CPU. Launch counters are
+    reset before and read after the VQVAE run (path ``celeba_vq``), the
+    VanillaVAE and ConditionalVAE runs (path ``celeba``, no kernel) and
+    the CT run (path ``tceleba``, every kernel). Returns (celeba
+    launches, celeba_vq launches, tceleba launches, the K = 512 VQ rows,
+    the tceleba rows by kernel, the numbers)."""
+    from ctvae_torch import run
+    from ctvae_torch.data import VAEDataset
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_train_step)
+
+    start = time.perf_counter()
+    numbers = {"card": smi, "decode": _decode_check(root, smi), "epochs": {},
+               "pace": {}}
+    celeba = {k: 0 for k in EXPECTED_TRAIN["base"]}
+    vq_launches = None
+    with tempfile.TemporaryDirectory(prefix="ctvae_celeba_") as tmp:
+        logs = os.path.join(tmp, "logs")
+        cfgs = {n: _gaussian_config(n, root, logs) for n in CELEBA_RUNS}
+        for name, cfg in cfgs.items():
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = run.train(cfg, device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = _counts()
+            if name == "vq_vae":
+                vq_launches = counts
+            else:
+                for k, n in counts.items():
+                    celeba[k] += n
+            _check_run(f"celeba {name}", cfg, out, logs,
+                       samples=name != "vq_vae")
+            numbers["epochs"][name] = {
+                "images_per_sec": out["train_images_per_sec"],
+                "train_loss": out["train_loss"], "val_loss": out["val_loss"],
+                "steps": int(out["train_steps_base"]), "run_s": secs}
+            log(f"celeba {name}: run.train of the YAML (dataset_name "
+                f"Celeba) in {secs:.2f} s ({int(out['train_steps_base'])} "
+                f"steps of B={GAUSSIAN_BATCH}); epoch images/s "
+                f"{out['train_images_per_sec']:.1f}; train loss "
+                f"{out['train_loss']:.6g}, val loss {out['val_loss']:.6g}; "
+                f"launches {json.dumps(counts)} ({smi})")
+
+        # the loader, the copy, the loader's share of the epoch; VQVAE's
+        # VQ calls at K = 512
+        vq_rows = None
+        for name, cfg in cfgs.items():
+            data = VAEDataset(**cfg["data_params"])
+            data.setup()
+            host_ms, copy_ms, batches = _loader_ms(data)
+            exp = cfg["exp_params"]
+            model = build_model(cfg["model_params"], device="cuda",
+                                generator=torch.Generator("cuda")
+                                .manual_seed(SEED))
+            if name == "vq_vae":
+                state = create_train_state(model, build_optimizers(
+                    exp, model, steps_per_epoch=100), seed=SEED)
+                vq_rows = _vq_rows(state, batches["base"])
+                del state
+            n = min(CELEBA_EPOCH_BATCHES, data.steps_per_epoch())
+            ways = {how: _EpochOf(data, n, how) for how in ("held", "inline")}
+            turns = {how: [] for how in ways}
+            for how in ("held", "inline", "inline", "held"):
+                turns[how].append(_epoch_ms(model, exp, ways[how],
+                                            GAUSSIAN_BATCH))
+            ms = {how: statistics.mean(v) for how, v in turns.items()}
+            share = (ms["inline"] - ms["held"]) / ms["inline"]
+            numbers["pace"][name] = {
+                "loader_host_ms_per_batch": host_ms,
+                "copy_ms_per_batch": copy_ms, "epoch_batches": n,
+                "epoch_ms_per_step": turns, "loader_share": share}
+            log(f"celeba {name} B={GAUSSIAN_BATCH}: loader {host_ms:.3f} ms "
+                f"per batch on the host (get_batch: decode and transform; "
+                f"median of {LOADER_BATCHES}), pinned copy {copy_ms:.3f} ms; "
+                f"{n} steps in turns, ms per step: batches held "
+                f"{ms['held']:.3f}, inline {ms['inline']:.3f}: the loader "
+                f"takes {100 * share:.1f}% of the inline epoch ({smi})")
+            del model, batches, ways
+            torch.cuda.empty_cache()
+
+        # (e) the CT model on TCeleba: 20 actions, 21 GAT heads
+        ct = read_config(CONFIG)
+        ct["model_params"] = {**ct["model_params"],
+                              "action_dim": TCELEBA_ACTIONS}
+        ct["data_params"] = {**ct["data_params"], "dataset_name": "TCeleba",
+                             "data_path": root, "limit": TCELEBA_LIMIT,
+                             "val_limit": TCELEBA_VAL_LIMIT}
+        ct["trainer_params"] = {**ct["trainer_params"], "max_epochs": 1}
+        ct["logging_params"] = {**ct["logging_params"], "save_dir": logs,
+                                "name": "CTMCQVAE_TCeleba"}
+        B = ct["data_params"]["train_batch_size"]
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = run.train(ct, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        tceleba = _counts()
+        _check_run("celeba tceleba", ct, out, logs)
+        steps = {m: int(out.get(f"train_steps_{m}", 0))
+                 for m in EXPECTED_TRAIN}
+        if set(steps.values()) != {TCELEBA_LIMIT // B} or not all(
+                tceleba.values()):
+            raise AssertionError(f"tceleba: mode mix {steps}, launches "
+                                 f"{tceleba}")
+        numbers["epochs"]["tceleba_ct"] = {
+            "images_per_sec": out["train_images_per_sec"],
+            "train_loss": out["train_loss"], "val_loss": out["val_loss"],
+            "steps": steps, "run_s": secs}
+        log(f"celeba tceleba: run.train of configs/ct_mcq_vae.yaml with "
+            f"dataset_name TCeleba, action_dim {TCELEBA_ACTIONS} "
+            f"({TCELEBA_ACTIONS + 1} GAT heads, causal A*B = "
+            f"{TCELEBA_ACTIONS * B}), limit {TCELEBA_LIMIT}: {secs:.2f} s, "
+            f"steps {json.dumps(steps)}, epoch images/s "
+            f"{out['train_images_per_sec']:.1f}, train loss "
+            f"{out['train_loss']:.6g}, val loss {out['val_loss']:.6g}; "
+            f"launches {json.dumps(tceleba)} ({smi})")
+        data = VAEDataset(**ct["data_params"])
+        data.setup()
+        host_ms, copy_ms, batches = _loader_ms(data)
+        model = build_model(ct["model_params"], device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(
+                                SEED))
+        state = create_train_state(model, build_optimizers(
+            ct["exp_params"], model, steps_per_epoch=100), seed=SEED)
+        rows, step_ms = {}, {}
+        for mode in EXPECTED_TRAIN:
+            step, batch = make_train_step(mode), batches[mode]
+            secs = []
+            for _ in range(TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = float(step(state, batch)["loss"])
+                secs.append(1e3 * (time.perf_counter() - t0))
+                if not math.isfinite(loss):
+                    raise AssertionError(f"tceleba {mode}: loss {loss}")
+            step_ms[mode] = statistics.median(secs[1:])
+
+            def run_step(mode=mode):
+                return make_train_step(mode)(state, batches[mode])
+            vq = _vq_on_path(run_step)
+            found = _kernels_on_step(f"tceleba {mode}", run_step)
+            plain = _plain_ms_on_step(run_step)
+            for k, r in _search_rows(
+                    "tceleba", mode, ct["model_params"]["num_embeddings"],
+                    vq, found, plain).items():
+                rows.setdefault(k, []).extend(r)
+        numbers["tceleba_pace"] = {"loader_host_ms_per_batch": host_ms,
+                                   "copy_ms_per_batch": copy_ms,
+                                   "train_ms_per_step": step_ms}
+        log(f"tceleba B={B}: loader {host_ms:.3f} ms per batch on the host "
+            f"(x and y decoded for the transition modes), pinned copy "
+            f"{copy_ms:.3f} ms; eager train step "
+            f"{json.dumps({m: round(v, 3) for m, v in step_ms.items()})} ms "
+            f"(median of {TRAIN_STEPS - 1} after a warm-up) ({smi})")
+        del model, state, batches
+        torch.cuda.empty_cache()
+
+        # (f) ConditionalVAE's serving with labels, card against the CPU
+        _reset_counts()
+        model = build_model(cfgs["cvae"]["model_params"], device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(
+                                SEED))
+        numbers["serve_cvae"] = _gaussian_serve(model, "celeba cvae",
+                                                CVAE_SERVE_ATOL)
+        for k, n in _counts().items():
+            celeba[k] += n
+        del model
+    if vq_launches is None or vq_launches["vq_l2_argmin"] == 0 or any(
+            n for k, n in vq_launches.items() if k != "vq_l2_argmin") or \
+            any(celeba.values()):
+        raise AssertionError(f"celeba: launches celeba_vq {vq_launches}, "
+                             f"celeba {celeba}")
+    log(f"launches on the celeba_vq path: {json.dumps(vq_launches)}; on the "
+        f"celeba path: {json.dumps(celeba)}; on the tceleba path: "
+        f"{json.dumps(tceleba)}")
+    numbers["wall_s"] = time.perf_counter() - start
+    log(f"celeba: phase {numbers['wall_s']:.1f} s")
+    return celeba, vq_launches, tceleba, vq_rows, rows, numbers
+
+
 def _search_summary(rows: list) -> dict:
     """A kernel's rows of the search phase, by shape (the kernels line
     stays short: 4 significant digits): the number of calls and, over
@@ -4159,6 +4558,10 @@ def main(argv) -> int:
         help="only build the kernels and run the phase \"gaussian\" "
              "(phase_gaussian)")
     parser.add_argument(
+        "--celeba-only", action="store_true",
+        help="only build the kernels, write the CelebA stand-in and run "
+             "the phase \"celeba\" (phase_celeba)")
+    parser.add_argument(
         "--metrics-only", action="store_true",
         help="only build the kernels and run the phase \"metrics\" "
              "(phase_metrics)")
@@ -4200,10 +4603,26 @@ def main(argv) -> int:
                                     for k, r in rows.items()}}))
         return 0
     if opts.gaussian_only:
-        launches, vq_launches, vq_rows, numbers = phase_gaussian(smi)
+        with tempfile.TemporaryDirectory(prefix="ctvae_celeba_data_") as tmp:
+            standin = _celeba_standin(tmp, smi)
+            launches, vq_launches, vq_rows, numbers = phase_gaussian(smi, tmp)
         log(json.dumps({"gaussian_launches": launches,
                         "gaussian_vq_launches": vq_launches,
-                        "gaussian": numbers, "vq_at_k512": vq_rows}))
+                        "gaussian": numbers, "vq_at_k512": vq_rows,
+                        "celeba_standin": standin}))
+        return 0
+    if opts.celeba_only:
+        with tempfile.TemporaryDirectory(prefix="ctvae_celeba_data_") as tmp:
+            standin = _celeba_standin(tmp, smi)
+            launches, vq_launches, tc_launches, vq_rows, tc_rows, numbers = \
+                phase_celeba(smi, tmp)
+        log(json.dumps({"celeba_launches": launches,
+                        "celeba_vq_launches": vq_launches,
+                        "tceleba_launches": tc_launches,
+                        "celeba": numbers, "celeba_standin": standin,
+                        "vq_at_k512": vq_rows,
+                        "kernels": {k: _search_summary(r)
+                                    for k, r in tc_rows.items()}}))
         return 0
     if opts.metrics_only:
         launches, seconds = phase_metrics(smi)
@@ -4232,8 +4651,14 @@ def main(argv) -> int:
     mcq_launches, ct_launches, s3d_on_step = phase_shapes3d()
     metric_launches, metric_seconds = phase_metrics(smi)
     search_launches, search_rows, search_numbers = phase_search(smi)
-    gauss_launches, gauss_vq_launches, gauss_vq_rows, gauss_numbers = \
-        phase_gaussian(smi)
+    with tempfile.TemporaryDirectory(prefix="ctvae_celeba_data_") as tmp:
+        standin = _celeba_standin(tmp, smi)
+        (celeba_launches, celeba_vq_launches, tceleba_launches,
+         celeba_vq_rows, tceleba_rows, celeba_numbers) = phase_celeba(smi,
+                                                                      tmp)
+        celeba_numbers["standin"] = standin
+        gauss_launches, gauss_vq_launches, gauss_vq_rows, gauss_numbers = \
+            phase_gaussian(smi, tmp)
     kernels = []
     for r in rows:
         source, replaces = KERNEL_META[r["name"]]
@@ -4247,7 +4672,10 @@ def main(argv) -> int:
                    "metrics": metric_launches[r["name"]],
                    "search": search_launches[r["name"]],
                    "gaussian_vq": gauss_vq_launches[r["name"]],
-                   "gaussian": gauss_launches[r["name"]]}
+                   "gaussian": gauss_launches[r["name"]],
+                   "celeba_vq": celeba_vq_launches[r["name"]],
+                   "celeba": celeba_launches[r["name"]],
+                   "tceleba": tceleba_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -4263,18 +4691,21 @@ def main(argv) -> int:
         kernels[-1].update(c2_on_step.get(r["name"], {}))
         kernels[-1].update(s3d_on_step.get(r["name"], {}))
         kernels[-1]["search"] = _search_summary(search_rows[r["name"]])
+        kernels[-1]["tceleba"] = _search_summary(tceleba_rows[r["name"]])
         if r["name"] == "vq_l2_argmin":     # VQVAE's K = 512 calls
             kernels[-1]["gaussian_vq"] = gauss_vq_rows
+            kernels[-1]["celeba_vq"] = celeba_vq_rows
     # every kernel runs on the training, codebooks: 2, two-stage, scan,
-    # shapes3d CT and metrics paths, the forward ones on the serving path
-    # too, the VQ search alone on the MCQVAE's and VQVAE's (which have no
-    # CT layer), none on the Gaussian zoo's
-    if any((k["launches_by_path"]["gaussian_vq"] == 0)
-           != (k["name"] != "vq_l2_argmin")
-           or k["launches_by_path"]["gaussian"] for k in kernels) or any(
+    # shapes3d CT, metrics, search and TCeleba CT paths, the forward ones
+    # on the serving path too, the VQ search alone on the MCQVAE's and
+    # VQVAE's (which have no CT layer), none on the Gaussian zoo's
+    if any((k["launches_by_path"][p] == 0) != (k["name"] != "vq_l2_argmin")
+           or k["launches_by_path"][g] for k in kernels
+           for p, g in (("gaussian_vq", "gaussian"),
+                        ("celeba_vq", "celeba"))) or any(
             k["launches_by_path"][p] == 0 for k in kernels
            for p in ("train", "codebooks_2", "two_stage", "scan",
-                     "shapes3d_ct", "metrics", "search")) or any(
+                     "shapes3d_ct", "metrics", "search", "tceleba")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
             if EXPECTED["reconstruct"][k["name"]]) or any(
             (k["launches_by_path"]["shapes3d_mcq"] == 0)
@@ -4283,7 +4714,8 @@ def main(argv) -> int:
     log(json.dumps({"serve_ms": timings, "train_ms": train_ms,
                     "train_peak_gib": peak, "codebooks_2_train_ms": c2_ms,
                     "scan_ms": scan_ms, "metric_seconds": metric_seconds,
-                    "search": search_numbers, "gaussian": gauss_numbers}))
+                    "search": search_numbers, "gaussian": gauss_numbers,
+                    "celeba": celeba_numbers}))
     log(f"chip_smoke wall time {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""Data layer of the port: numpy datasets (the disent image datasets and
-the synthetic ones), their transform and transition files, the
-mode-homogeneous batch schedule and the copy to the device (counterpart
-of ``ctvae_tpu/data``; CelebA and OxfordPets are not ported yet)."""
+"""Data layer of the port: numpy datasets (CelebA and OxfordPets through
+the port's JPEG codec, the disent image datasets and the synthetic ones),
+their transform and transition files, the mode-homogeneous batch
+schedule and the copy to the device (counterpart of
+``ctvae_tpu/data``)."""
 
 from .datamodule import DATASETS, VAEDataset
 from .transition import MODES, TransitionBatchScheduler, TransitionDataset

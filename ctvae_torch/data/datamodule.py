@@ -1,6 +1,8 @@
 """VAEDataset: the data module of the port (numpy batches on the host).
 
 Counterpart of ``ctvae_tpu/data/datamodule.py``. It registers the
+JPEG datasets (``Celeba``, its transition form ``TCeleba`` and
+``OxfordPets``, decoded by the port's codec, ``ctvae_torch/native``), the
 disent-family image datasets (``Cars3D``, ``DSprites``, ``SmallNORB``,
 ``Shapes3D``, ``Sprites``) and their transition variants (``T*``, read
 from the datasets' ``variation_attrs_<N>.txt`` files), and ``Synthetic``
@@ -19,14 +21,12 @@ from typing import Callable, Dict, Iterator, Optional, Sequence, Union
 
 import numpy as np
 
+from .celeba import MyCelebA, TCeleba
 from .disent_data import DISENT_LOADERS, FACTOR_NAMES
+from .oxford import OxfordPets
 from .synthetic import GRID_FACTOR_SIZES, SyntheticDataset, SyntheticGridDataset
 from .transforms import StandardTransform
 from .transition import TransitionBatchScheduler, TransitionDataset
-
-#: the JAX package's datasets the port does not read yet
-NOT_PORTED = ("Celeba", "TCeleba", "OxfordPets")
-
 
 def _disent(name):
     def factory(data_dir, split="train", transform=None, **kw):
@@ -61,6 +61,8 @@ def _t_synthetic(data_dir="", split="train", transform=None, img_size=64,
 
 
 DATASETS: Dict[str, Callable] = {
+    "Celeba": MyCelebA,
+    "TCeleba": TCeleba,
     "Cars3D": _disent("cars3d"),
     "TCars3D": _t_disent("cars3d"),
     "DSprites": _disent("dsprites"),
@@ -71,6 +73,7 @@ DATASETS: Dict[str, Callable] = {
     "TShapes3D": _t_disent("3dshapes"),
     "Sprites": _disent("sprites"),
     "TSprites": _t_disent("sprites"),
+    "OxfordPets": OxfordPets,
     "Synthetic": _synthetic,
     "TSynthetic": _t_synthetic,
 }
@@ -97,11 +100,6 @@ class VAEDataset:
                  limit: Optional[int] = None, val_limit: Optional[int] = None,
                  seed: int = 0, host_id: int = 0, num_hosts: int = 1,
                  **kwargs):
-        if dataset_name in NOT_PORTED:
-            raise NotImplementedError(
-                f"dataset {dataset_name!r} is not ported yet: CelebA and "
-                f"OxfordPets decode JPEGs, and the card's machine needs a "
-                f"decoder first (ROADMAP A2, the image datasets)")
         if dataset_name not in DATASETS:
             raise ValueError(f"unknown dataset {dataset_name!r}; the port "
                              f"reads {sorted(DATASETS)}")

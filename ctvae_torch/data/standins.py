@@ -1,8 +1,11 @@
-"""Shapes3D on disk in the form the port reads (``3dshapes/3dshapes.npz``).
+"""Stand-ins of the image datasets in the form the port reads: Shapes3D
+(``3dshapes/3dshapes.npz``) and CelebA (``celeba/``, JPEGs).
 
     python -m ctvae_torch.data.standins shapes3d [--root Data/]
         [--factor-sizes 4,4,4,8,4,15]
     python -m ctvae_torch.data.standins convert [--root Data/]
+    python -m ctvae_torch.data.standins celeba [--root Data/]
+        [--count 202599]
 
 ``shapes3d`` renders a stand-in of the dataset (the port's copy of
 ``scripts/make_shapes3d_standin.py::render_chunk``: hue-coloured floor
@@ -16,15 +19,27 @@ needs numpy only.
 ``convert`` rewrites a real (or stand-in) ``3dshapes.h5`` as the npz,
 chunk by chunk, and writes the split and transition files of the full
 grid where they are missing. It needs h5py, which it imports when run.
+
+``celeba`` is the port's copy of ``scripts/make_celeba_standin.py``: the
+same file names (``img_align_celeba/000001.jpg`` ...) and
+``list_eval_partition.txt`` bytes for the same count, each image rendered
+(a gradient background, a skin-tone ellipse and two eyes, 178 x 218)
+from a generator seeded by its index and encoded at JPEG quality 80 by
+the port's codec (``ctvae_torch/native``: libjpeg writes the script's
+bytes; nvJPEG on a machine with a card and no libjpeg). Images are
+rendered in a pool of processes; existing files are kept. The script
+writes no attributes; ``label_celeba_standin`` writes a split in other
+proportions and a seeded attribute file over the images.
 """
 
 from __future__ import annotations
 
 import argparse
+import multiprocessing
 import os
 import zipfile
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Dict, Iterable, Iterator, Sequence, Tuple
 
 import numpy as np
@@ -186,14 +201,133 @@ def shapes3d_h5_to_npz(data_root: str = "Data/", chunk: int = 8192) -> str:
     return path
 
 
+CELEBA_COUNT = 202_599
+CELEBA_H, CELEBA_W = 218, 178
+# torchvision's CelebA split (list_eval_partition.txt): 1-162770 train,
+# 162771-182637 valid, 182638-202599 test
+CELEBA_TRAIN_END, CELEBA_VALID_END = 162_770, 182_637
+CELEBA_QUALITY = 80
+CELEBA_CHUNK = 256      # images per task of the render pool
+# label_celeba_standin's split: train and valid fractions, torchvision's
+# proportions (the rest is test)
+CELEBA_LABELLED_SPLIT = (0.8, 0.1)
+
+
+def render_celeba(idx: int, rng: np.random.Generator) -> np.ndarray:
+    """One 218 x 178 uint8 RGB face-ish image (``idx`` is unused: the
+    generator carries the image's seed)."""
+    yy, xx = np.mgrid[0:CELEBA_H, 0:CELEBA_W].astype(np.float32)
+    bg = rng.uniform(0.1, 0.9, 3).astype(np.float32)
+    img = (bg[None, None] * (0.6 + 0.4 * (yy / CELEBA_H)[..., None]))
+    cx, cy = rng.uniform(60, 118), rng.uniform(80, 140)
+    a, b = rng.uniform(38, 55), rng.uniform(50, 72)
+    face = ((xx - cx) / a) ** 2 + ((yy - cy) / b) ** 2 <= 1.0
+    tone = np.array([0.85, 0.65, 0.5], np.float32) * rng.uniform(0.6, 1.1)
+    img[face] = tone
+    for dx in (-0.35, 0.35):
+        ex, ey = cx + dx * a, cy - 0.25 * b
+        eye = ((xx - ex) / 6) ** 2 + ((yy - ey) / 4) ** 2 <= 1.0
+        img[eye] = 0.08
+    noise = rng.normal(0, 0.02, img.shape).astype(np.float32)
+    return np.clip((img + noise) * 255.0, 0, 255).astype(np.uint8)
+
+
+def render_celeba_images(indices: Sequence[int]) -> np.ndarray:
+    """``render_celeba`` of each index with its own seed, [n, 218, 178,
+    3]: an image's pixels depend on its index alone."""
+    return np.stack([render_celeba(i, np.random.default_rng(i))
+                     for i in indices])
+
+
+def ensure_celeba_standin(data_root: str = "Data/",
+                          count: int = CELEBA_COUNT,
+                          verbose: bool = True) -> str:
+    """Write the first ``count`` images of the stand-in under
+    ``<data_root>/celeba/img_align_celeba`` (those missing) and, when it
+    is missing, ``list_eval_partition.txt`` (torchvision's split: below
+    162,771 images all are train); returns the folder. A pool of as many
+    processes as cores (at most 8) renders them, unless they fit one
+    chunk."""
+    from .. import native
+    folder = os.path.join(data_root, "celeba")
+    img_dir = os.path.join(folder, "img_align_celeba")
+    os.makedirs(img_dir, exist_ok=True)
+    part_file = os.path.join(folder, "list_eval_partition.txt")
+    if not os.path.exists(part_file):
+        with open(part_file, "w") as f:
+            for i in range(1, count + 1):
+                split = 0 if i <= CELEBA_TRAIN_END else (
+                    1 if i <= CELEBA_VALID_END else 2)
+                f.write(f"{i:06d}.jpg {split}\n")
+    todo = [i for i in range(1, count + 1)
+            if not os.path.exists(os.path.join(img_dir, f"{i:06d}.jpg"))]
+    chunks = [todo[k:k + CELEBA_CHUNK]
+              for k in range(0, len(todo), CELEBA_CHUNK)]
+    codec = native.codec()
+
+    def write(chunk, images):
+        codec.encode_batch(images, [os.path.join(img_dir, f"{i:06d}.jpg")
+                                    for i in chunk], CELEBA_QUALITY)
+
+    workers = min(8, len(os.sched_getaffinity(0)))
+    if len(chunks) <= 1 or workers <= 1:
+        for chunk in chunks:
+            write(chunk, render_celeba_images(chunk))
+    else:
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+            for chunk, images in zip(chunks, pool.map(render_celeba_images,
+                                                      chunks)):
+                write(chunk, images)
+    if verbose:
+        print(f"=> {img_dir}: {count} images ready ({len(todo)} new, "
+              f"{codec.version})")
+    return folder
+
+
+def label_celeba_standin(data_root: str, count: int) -> Dict[str, int]:
+    """Over the stand-in's first ``count`` images: a
+    ``list_eval_partition.txt`` of the first 80% train, the next 10%
+    valid and the rest test (CELEBA_LABELLED_SPLIT; it replaces the
+    script's, whose split puts all of a small stand-in in train), and a
+    ``list_attr_celeba.txt`` of 40 +-1 attributes drawn with seed 0, each
+    odd image a copy of the one before with attribute 0 flipped. Returns
+    the size of each split."""
+    folder = os.path.join(data_root, "celeba")
+    n_train = int(round(count * CELEBA_LABELLED_SPLIT[0]))
+    n_valid = int(round(count * CELEBA_LABELLED_SPLIT[1]))
+    names = [f"{i:06d}.jpg" for i in range(1, count + 1)]
+    with open(os.path.join(folder, "list_eval_partition.txt"), "w") as f:
+        for i, name in enumerate(names):
+            split = 0 if i < n_train else 1 if i < n_train + n_valid else 2
+            f.write(f"{name} {split}\n")
+    rng = np.random.default_rng(0)
+    attrs = rng.choice([-1, 1], size=(count, 40))
+    attrs[1::2] = attrs[0:count - 1:2]
+    attrs[1::2, 0] = -attrs[1::2, 0]
+    with open(os.path.join(folder, "list_attr_celeba.txt"), "w") as f:
+        f.write(f"{count}\n")
+        f.write(" ".join(f"attr_{j}" for j in range(40)) + "\n")
+        for name, row in zip(names, attrs):
+            f.write(name + " " + " ".join(str(v) for v in row) + "\n")
+    return {"train": n_train, "valid": n_valid,
+            "test": count - n_train - n_valid}
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("shapes3d", "convert"))
+    parser.add_argument("what", choices=("shapes3d", "convert", "celeba"))
     parser.add_argument("--root", default="Data/")
+    parser.add_argument("--count", type=int, default=CELEBA_COUNT,
+                        help="celeba: images to write (default: CelebA's "
+                             "202,599)")
     parser.add_argument("--factor-sizes", default=None,
                         help="shapes3d: the grid, comma-separated "
                              "(default: the real 10,10,10,8,4,15)")
     args = parser.parse_args(argv)
+    if args.what == "celeba":
+        ensure_celeba_standin(args.root, args.count)
+        return
     if args.what == "shapes3d":
         path = write_shapes3d_standin(
             args.root, parse_sizes(args.factor_sizes)

@@ -1,7 +1,9 @@
-"""The split and transition files of the disent-family datasets.
+"""The split and transition files of the disent-family datasets, and
+CelebA's transition file.
 
     python -m ctvae_torch.data.variations <dataset_name> [data_root]
         [--factor-sizes 4,4,4,8,4,15]
+    python -m ctvae_torch.data.variations celeba [data_root]
 
 The port's copy of the JAX package's generator
 (``scripts/disent_variation_gen.py``), writing the same bytes:
@@ -15,6 +17,13 @@ The port's copy of the JAX package's generator
 
 ``factor_sizes`` replaces the dataset's grid (a stand-in rendered on a
 smaller grid gets files that index it).
+
+``generate_celeba`` is the port's copy of ``scripts/celeba_variation_gen.py``
+(the same bytes): from ``celeba/list_attr_celeba.txt`` and
+``list_eval_partition.txt``, ``celeba/variation_attrs_10.txt`` keyed by
+file name: images grouped by their first 10 attributes with one left
+out, up to 8 of each side of the left-out one drawn (``random.Random``
+seeded 0) and paired within a split, both directions.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import argparse
 import csv
 import os
 import random
+from collections import Counter
 from typing import Optional, Sequence
 
 import numpy as np
@@ -30,6 +40,8 @@ import numpy as np
 from .disent_data import FACTOR_SIZES
 
 MAX_INSTANCES_PER_VARIATION = 1000
+CELEBA_VARIATIONS = 10
+CELEBA_INSTANCES_PER_VARIATION = 8
 
 
 def pos_to_idx(pos, sizes) -> int:
@@ -93,17 +105,78 @@ def generate(dataset_name: str, data_root: str = "Data/", seed: int = 42,
     return out_path
 
 
+def generate_celeba(data_root: str = "Data/") -> str:
+    """Write ``<data_root>/celeba/variation_attrs_10.txt``; returns its
+    path."""
+    folder = os.path.join(data_root, "celeba")
+    with open(os.path.join(folder, "list_attr_celeba.txt")) as f:
+        _, _labels, *lines = f.readlines()
+    hashes = {}
+    for line in lines:
+        parts = line.split()
+        if not parts:
+            continue
+        img_name, *attrs = parts
+        attrs = [int(a) for a in attrs][:CELEBA_VARIATIONS]
+        for variation in range(len(attrs)):
+            key_attrs = list(attrs)
+            key_attrs[variation] = "?"
+            entry = hashes.setdefault((variation, tuple(key_attrs)),
+                                      {"neg": [], "pos": []})
+            entry["pos" if attrs[variation] == 1 else "neg"].append(img_name)
+    img_splits = {}
+    with open(os.path.join(folder, "list_eval_partition.txt")) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 2:
+                img_splits[parts[0]] = int(parts[1])
+
+    rng = random.Random(0)
+    k = CELEBA_INSTANCES_PER_VARIATION
+    rows, uniques = [], set()
+    for (variation, _), h in hashes.items():
+        negs = rng.choices(h["neg"], k=min(k, len(h["neg"]))) \
+            if h["neg"] else []
+        poss = rng.choices(h["pos"], k=min(k, len(h["pos"]))) \
+            if h["pos"] else []
+        for img_neg in negs:
+            for img_pos in poss:
+                if img_splits.get(img_pos) != img_splits.get(img_neg) or \
+                        (img_neg, img_pos) in uniques:
+                    continue
+                spl = img_splits[img_pos]
+                rows.append((img_neg, img_pos, variation, 0, 1, spl))
+                rows.append((img_pos, img_neg, variation, 1, 0, spl))
+                uniques.add((img_neg, img_pos))
+                uniques.add((img_pos, img_neg))
+    out_path = os.path.join(folder,
+                            f"variation_attrs_{CELEBA_VARIATIONS}.txt")
+    with open(out_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["", "Inputs", "Outputs", "Variations", "Sources",
+                    "Targets", "Splits"])
+        for i, r in enumerate(rows):
+            w.writerow([i, *r])
+    print(f"{len(rows)} transitions ({Counter(r[2] for r in rows)}) -> "
+          f"{out_path}")
+    return out_path
+
+
 def parse_sizes(text: Optional[str]):
     return tuple(int(v) for v in text.split(",")) if text else None
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("dataset_name", choices=sorted(FACTOR_SIZES))
+    parser.add_argument("dataset_name",
+                        choices=sorted(FACTOR_SIZES) + ["celeba"])
     parser.add_argument("data_root", nargs="?", default="Data/")
     parser.add_argument("--factor-sizes", default=None,
                         help="comma-separated grid replacing the dataset's")
     args = parser.parse_args(argv)
+    if args.dataset_name == "celeba":
+        generate_celeba(args.data_root)
+        return
     path = generate(args.dataset_name, args.data_root,
                     factor_sizes=parse_sizes(args.factor_sizes))
     print(f"=> {path}")

@@ -3,8 +3,10 @@
 Counterpart of ``ctvae_tpu/models/__init__.py``; the registry holds the
 CT-MCQ-VAE, the MCQVAE of the two-stage recipe's first stage, VQVAE,
 and the Gaussian members VanillaVAE (aliases ``VAE`` and
-``GaussianVAE``), BetaVAE, LogCoshVAE, DIPVAE, InfoVAE and WAE_MMD. The
-rest of the JAX registry is not ported yet (ROADMAP A7).
+``GaussianVAE``), BetaVAE, LogCoshVAE, DIPVAE, InfoVAE, WAE_MMD and
+ConditionalVAE (alias ``CVAE``; its forward takes the batch's
+``labels``). The rest of the JAX registry is not ported yet (ROADMAP
+A7).
 ``build_model`` initialises the weights with flax's distributions
 (``lecun_normal`` kernels, zero biases, ``U(-1/K, 1/K)`` codebooks; an
 EMA codebook's buffers as flax fills ``vq_stats``; BatchNorm's scale 1,
@@ -25,6 +27,7 @@ from .backbones import BatchNorm
 from .base import BaseVAE, lecun_normal
 from .beta_vae import BetaVAE
 from .ct_vae import CTMCQVAE, CausalTransition
+from .cvae import ConditionalVAE
 from .dip_vae import DIPVAE
 from .gaussian_base import StandardGaussianVAE
 from .info_vae import InfoVAE
@@ -39,8 +42,10 @@ vae_models = {"CTMCQVAE": CTMCQVAE, "MCQVAE": MCQVAE, "VQVAE": VQVAE,
               "VanillaVAE": VanillaVAE, "BetaVAE": BetaVAE,
               "LogCoshVAE": LogCoshVAE, "DIPVAE": DIPVAE,
               "InfoVAE": InfoVAE, "WAE_MMD": WAE_MMD,
+              "ConditionalVAE": ConditionalVAE,
               # aliases of the JAX registry
-              "VAE": VanillaVAE, "GaussianVAE": VanillaVAE}
+              "VAE": VanillaVAE, "GaussianVAE": VanillaVAE,
+              "CVAE": ConditionalVAE}
 
 
 def model_fields(cls) -> set:
@@ -120,7 +125,8 @@ def build_model(model_params: dict, device=None,
     return model.eval()
 
 
-__all__ = ["BaseVAE", "BetaVAE", "CTMCQVAE", "CausalTransition", "DIPVAE",
+__all__ = ["BaseVAE", "BetaVAE", "CTMCQVAE", "CausalTransition",
+           "ConditionalVAE", "DIPVAE",
            "InfoVAE", "LogCoshVAE", "MCQVAE", "StandardGaussianVAE", "VQVAE",
            "VanillaVAE", "WAE_MMD", "build_model",
            "init_weights", "model_fields", "vae_models"]

@@ -494,7 +494,8 @@ class CTMCQVAE(nn.Module):
 
     def forward(self, x: torch.Tensor, input_y: torch.Tensor = None,
                 action: torch.Tensor = None, mode: str = "base", *,
-                draws: Optional[Draws] = None, train: bool = False) -> Dict:
+                draws: Optional[Draws] = None, train: bool = False,
+                **kwargs) -> Dict:
         if isinstance(mode, (list, tuple)):
             mode = mode[0]
         if mode == "base":

@@ -57,9 +57,11 @@ class MCQVAE(nn.Module):
 
     def forward(self, x: torch.Tensor, input_y: torch.Tensor = None,
                 action: torch.Tensor = None, mode: str = "base", *,
-                draws: Optional[Draws] = None, train: bool = False) -> Dict:
+                draws: Optional[Draws] = None, train: bool = False,
+                **kwargs) -> Dict:
         """Reconstruct ``x``. The transition keys (``input_y``,
-        ``action``, ``mode``) are taken and ignored, so the trainer drives
+        ``action``, ``mode``) and the batch's other keys (``labels``) are
+        taken and ignored, so the trainer drives
         it on a transition stream as it drives CTMCQVAE; ``draws`` serves
         an EMA codebook's revival under ``train``."""
         quantized, vq_loss, inds = self.vq_layer(self.encoder(x), inds=True,

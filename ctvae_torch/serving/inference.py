@@ -50,6 +50,10 @@ def make_inference_fn(model, name: str, *, num_samples: int = 64
       forward, through the identity transition);
     * ``encode(x)``: the encoder latents, flattened per sample;
     * ``sample()``: ``num_samples`` images decoded from random latents;
+    * for a model that ``needs_labels`` (ConditionalVAE), as the JAX
+      package serves it: ``reconstruct(x, labels)``, ``encode(x,
+      labels)`` (``encode_labeled``: the raw image with its labels) and
+      ``sample(labels)`` (beside its first ``num_samples`` rows);
     * ``apply_action(x, input_y, action)``: action-mode forward, images;
     * ``classify_action(x, input_y)``: causal-mode softmin probabilities
       over the actions [B, A].
@@ -58,14 +62,27 @@ def make_inference_fn(model, name: str, *, num_samples: int = 64
         raise ValueError(f"unknown or unavailable inference fn {name!r}; "
                          f"choose from {available_fns(model)}")
 
-    if name == "reconstruct":
+    labelled = getattr(model, "needs_labels", False)
+    if name == "reconstruct" and labelled:
+        def fn(x, labels, *, generator=None):
+            return model(x, labels,
+                         draws=_draws(model, generator))["recons"]
+    elif name == "reconstruct":
         def fn(x, *, generator=None):
             return model(x, mode="base",
                          draws=_draws(model, generator))["recons"]
+    elif name == "encode" and labelled:
+        def fn(x, labels, *, generator=None):
+            z = model.encode_labeled(x, labels)[0]
+            return z.reshape(z.shape[0], -1)
     elif name == "encode":
         def fn(x, *, generator=None):
             z = model.encode(x)[0]
             return z.reshape(z.shape[0], -1)
+    elif name == "sample" and labelled:
+        def fn(labels, *, generator=None):
+            return model.sample(num_samples, labels,
+                                draws=_draws(model, generator))
     elif name == "sample":
         def fn(*, generator=None):
             return model.sample(num_samples, draws=_draws(model, generator))

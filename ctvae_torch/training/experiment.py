@@ -52,8 +52,8 @@ from ..data.prefetch import to_device
 from ..models.base import Draws
 from ..utils.checkpoint import CheckpointManager, load_weights_only
 from .optimizers import build_lr_schedules, build_optimizers
-from .state import TrainState, create_train_state, make_eval_step, \
-    make_multi_train_step, make_train_step
+from .state import FWD_KEYS, TrainState, create_train_state, \
+    make_eval_step, make_multi_train_step, make_train_step
 
 #: exp_params keys of the JAX trainer the port does not take yet, with the
 #: values that leave them off
@@ -353,7 +353,8 @@ class VAEXperiment:
                       num_samples: int = 32) -> None:
         """The first test batch's inputs and reconstructions (``generate``,
         in the batch's mode) and, where the model has a prior (``has_prior``),
-        ``num_samples`` decoded random latents, as PNG grids under
+        ``num_samples`` decoded random latents (beside the batch's first
+        labels for a model that ``needs_labels``), as PNG grids under
         ``out_dir``'s ``Inputs``, ``Reconstructions`` and ``Samples``. The
         epoch seeds the draws, so each epoch's samples are fresh."""
         from ..utils.images import save_image
@@ -369,11 +370,16 @@ class VAEXperiment:
                        normalize=True)
 
         save(batch["image"], "Inputs", f"real_img_{name}_Epoch_{epoch}.png")
-        kwargs = {k: batch[k] for k in ("action", "input_y") if k in batch}
+        kwargs = {k: batch[k] for k in FWD_KEYS if k in batch}
         with torch.no_grad():
             recons = self.model.generate(batch["image"], mode=mode,
                                          draws=draws, **kwargs)
             save(recons, "Reconstructions", f"recons_{name}_Epoch_{epoch}.png")
-            if hasattr(self.model, "sample"):
+            if getattr(self.model, "needs_labels", False):
+                # decoded beside the batch's first labels
+                labels = batch["labels"][:num_samples]
+                save(self.model.sample(len(labels), labels, draws=draws),
+                     "Samples", f"{name}_Epoch_{epoch}.png")
+            elif hasattr(self.model, "sample"):
                 save(self.model.sample(num_samples, draws=draws), "Samples",
                      f"{name}_Epoch_{epoch}.png")

@@ -36,8 +36,9 @@ from torch import nn
 from ..models.base import Draws
 from ..ops import launch_counts, set_launch_counts
 
-#: batch keys a forward takes besides the image
-FWD_KEYS = ("action", "input_y")
+#: batch keys a forward takes besides the image (ConditionalVAE reads
+#: ``labels``; the other models take and ignore what they do not use)
+FWD_KEYS = ("labels", "action", "input_y")
 
 EVAL_SEED_OFFSET = 1 << 20
 

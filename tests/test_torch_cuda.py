@@ -136,7 +136,9 @@ def test_pairwise_fwd_rejects_too_large_grid(card):
     # S + 1 = 129 graph nodes of codebooks: 2 at 64 x 64 (one block per SM)
     (129, 129, 13, 100, 0.5), (129, 129, 13, 100, 1.0),
     # noise: endo adds a second support node: 66 and 130 nodes
-    (66, 66, 13, 100, 0.5), (130, 130, 13, 100, 0.5)])
+    (66, 66, 13, 100, 0.5), (130, 130, 13, 100, 0.5),
+    # TCeleba's 20 actions: 21 heads
+    (65, 65, 21, 100, 0.5), (65, 65, 21, 100, 1.0)])
 def test_gat_kernel_matches_plain(card, S, T, H, F, density):
     """The forward kernel against the plain version: out, and the alpha
     residual against the plain masked softmax (ragged S != T, F below and
@@ -342,7 +344,9 @@ def _gat_args(rng, B, S, T, H, F, density=0.6):
     (129, 129, 13, 100, 0.5), (129, 129, 13, 100, 1.0),
     (133, 133, 2, 100, 0.6),
     # noise: endo's second support node: 66 and 130 nodes
-    (66, 66, 13, 100, 0.5), (130, 130, 13, 100, 0.5)])
+    (66, 66, 13, 100, 0.5), (130, 130, 13, 100, 0.5),
+    # TCeleba's 20 actions: 21 heads
+    (65, 65, 21, 100, 0.6), (65, 65, 21, 100, 1.0)])
 def test_gat_bwd_kernel_matches_plain(card, S, T, H, F, density):
     """FlashGAT: the alpha residual against the plain softmax, and the
     backward kernel against the plain version's autograd (ragged S != T,
@@ -1030,9 +1034,10 @@ class _CpuDraws:
             self.device)
 
 
-@pytest.mark.parametrize("name", ["VanillaVAE", "VQVAE"])
+@pytest.mark.parametrize("name", ["VanillaVAE", "VQVAE", "ConditionalVAE"])
 def test_zoo_train_step_on_card_matches_cpu(card, name, monkeypatch):
-    """One train step (``M_N`` 0.5) of a small VanillaVAE / VQVAE on the
+    """One train step (``M_N`` 0.5) of a small VanillaVAE / VQVAE /
+    ConditionalVAE (with the batch's 0 / 1 labels of 40 attributes) on the
     card against the same weights and draws on the CPU: the metrics, every
     gradient (1e-4 of its leaf's scale), every parameter after Adam
     (within what the gradients' difference allows) and the BatchNorm
@@ -1043,14 +1048,17 @@ def test_zoo_train_step_on_card_matches_cpu(card, name, monkeypatch):
     from ctvae_torch.ops import vq
     from ctvae_torch.training import optimizers as topt
     from ctvae_torch.training import state as tstate
-    cfg = (dict(name=name, in_channels=3, latent_dim=8, hidden_dims=[8, 16],
-                img_size=16) if name == "VanillaVAE" else
-           dict(name=name, in_channels=3, embedding_dim=8, num_embeddings=32,
-                hidden_dims=[8, 16], img_size=16))
+    cfg = (dict(name=name, in_channels=3, embedding_dim=8, num_embeddings=32,
+                hidden_dims=[8, 16], img_size=16) if name == "VQVAE" else
+           dict(name=name, in_channels=3, latent_dim=8, hidden_dims=[8, 16],
+                img_size=16))
     model = build_model(cfg, device=card,
                         generator=torch.Generator("cuda").manual_seed(0))
     cpu_model = copy.deepcopy(model).to("cpu")
-    x = torch.rand(4, 16, 16, 3, generator=torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(5)
+    batch = {"image": torch.rand(4, 16, 16, 3, generator=gen)}
+    if name == "ConditionalVAE":
+        batch["labels"] = torch.randint(0, 2, (4, 40), generator=gen).float()
     exp = dict(LR=5e-3, weight_decay=0.0, scheduler_gamma=0.95)
     metrics, grads = [], []
     kept = tstate._grads
@@ -1069,7 +1077,8 @@ def test_zoo_train_step_on_card_matches_cpu(card, name, monkeypatch):
         state = tstate.create_train_state(m, topt.build_optimizers(exp, m,
                                                                    4))
         metrics.append({k: float(v) for k, v in tstate.make_train_step(
-            "base", M_N=0.5)(state, {"image": x.to(dev)}).items()})
+            "base", M_N=0.5)(state, {k: v.to(dev) for k, v in
+                                     batch.items()}).items()})
     torch.cuda.synchronize()
     assert vq.launches == before + (name == "VQVAE")
     assert metrics[0].keys() == metrics[1].keys()
@@ -1092,10 +1101,11 @@ def test_zoo_train_step_on_card_matches_cpu(card, name, monkeypatch):
                                    atol=1e-5, rtol=1e-4, err_msg=n)
 
 
-@pytest.mark.parametrize("loss_type", [None, "B"], ids=["VanillaVAE",
-                                                         "BetaVAE-B"])
+@pytest.mark.parametrize("loss_type", [None, "B", "labels"],
+                         ids=["VanillaVAE", "BetaVAE-B", "ConditionalVAE"])
 def test_zoo_multi_train_step_graph_equals_eager_steps(card, loss_type):
-    """A small VanillaVAE / BetaVAE B trained 12 steps eagerly and through
+    """A small VanillaVAE / BetaVAE B / ConditionalVAE trained 12 steps
+    eagerly and through
     three calls of ``make_multi_train_step("base", 4, M_N=0.5)`` from equal
     states, under cuDNN's deterministic algorithms: each call's metrics
     against the eager step it ends on, every parameter, BatchNorm buffer
@@ -1103,19 +1113,31 @@ def test_zoo_multi_train_step_graph_equals_eager_steps(card, loss_type):
     and steps equal. BetaVAE B's capacity C rises over the 12 steps
     (``Capacity_max_iter`` 12) to twice the first step's KLD, so C crosses
     the KLD among the replayed steps: a graph that froze the step it was
-    captured at would differ in the loss and in the gradients."""
+    captured at would differ in the loss and in the gradients. A
+    ConditionalVAE's labels (new each step) reach the replays through the
+    graph's static labels buffer."""
     from ctvae_torch.models import build_model
     from ctvae_torch.training import (build_optimizers, create_train_state,
                                       make_multi_train_step, make_train_step)
     from ctvae_torch.training.state import WARMUP_STEPS
     cfg = dict(name="VanillaVAE", in_channels=3, latent_dim=8,
                hidden_dims=[8, 16], img_size=16)
-    if loss_type:
+    if loss_type == "labels":
+        cfg.update(name="ConditionalVAE")
+    elif loss_type:
         cfg.update(name="BetaVAE", loss_type="B", gamma=10.0,
                    max_capacity=25, Capacity_max_iter=10000)
     exp = dict(LR=5e-3, scheduler_gamma=0.9, weight_decay=0.0)
     g = torch.Generator().manual_seed(6)
     xs = torch.rand(12, 4, 16, 16, 3, generator=g).cuda()
+    ys = torch.randint(0, 2, (12, 4, 40), generator=g).float().cuda()
+
+    def batch(i, n=None):
+        keys = {"image": xs, "labels": ys} if loss_type == "labels" else {
+            "image": xs}
+        return {k: v[i] if n is None else v[i:i + n]
+                for k, v in keys.items()}
+
     step = make_train_step("base", M_N=0.5)
 
     def build():
@@ -1123,16 +1145,16 @@ def test_zoo_multi_train_step_graph_equals_eager_steps(card, loss_type):
                         generator=torch.Generator("cuda").manual_seed(0))
         return create_train_state(m, build_optimizers(exp, m, 3), seed=5)
 
-    if loss_type:
-        kld0 = float(step(build(), {"image": xs[0]})["KLD"])
+    if loss_type == "B":
+        kld0 = float(step(build(), batch(0))["KLD"])
         cfg.update(Capacity_max_iter=12, max_capacity=2.0 * kld0)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         eager, graph = build(), build()
-        metrics = [step(eager, {"image": x}) for x in xs]
+        metrics = [step(eager, batch(i)) for i in range(12)]
         multi = make_multi_train_step("base", 4, M_N=0.5)
-        calls = [multi(graph, {"image": xs[i:i + 4]}) for i in (0, 4, 8)]
+        calls = [multi(graph, batch(i, 4)) for i in (0, 4, 8)]
     finally:
         torch.backends.cudnn.deterministic = deterministic
     assert multi.replays == 12 - WARMUP_STEPS
@@ -1141,7 +1163,7 @@ def test_zoo_multi_train_step_graph_equals_eager_steps(card, loss_type):
         for k, v in got.items():
             want = metrics[i][k]
             assert float((v - want).abs()) <= 1e-6 * float(want.abs()), k
-    if loss_type:
+    if loss_type == "B":
         C = [2.0 * kld0 / 12 * (s + 1) for s in range(12)]
         above = {float(m["KLD"]) > c for m, c in
                  zip(metrics[WARMUP_STEPS:], C[WARMUP_STEPS:])}
@@ -1160,3 +1182,89 @@ def test_zoo_multi_train_step_graph_equals_eager_steps(card, loss_type):
     assert eager.step == graph.step == 12
     assert torch.equal(eager.generator.get_state(),
                        graph.generator.get_state())
+
+
+@pytest.mark.parametrize("mode", ["base", "action", "causal"])
+def test_ct_model_at_21_heads_on_card_matches_cpu(card, mode):
+    """A small CT-MCQ-VAE with TCeleba's 20 actions (21 GAT heads; the
+    causal batch A*B = 60 at B = 3): one train forward + backward on the
+    card, every kernel launched (the per-head logits and both backward
+    kernels too), against the same weights and draws on the CPU (each
+    kernel's plain version): the loss and every parameter's gradient."""
+    import copy
+
+    from ctvae_torch.models import build_model
+    from ctvae_torch.ops import launch_counts
+    cfg = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8,
+               action_dim=20, hidden_dims=[8, 16], num_embeddings=8,
+               img_size=16, codebooks=1, causal_hidden_dims=[16, 8],
+               noise="off")
+    model = build_model(cfg, device=card,
+                        generator=torch.Generator("cuda").manual_seed(0))
+    assert model.ct_layer.graph_transitioner.DenseGATv2Layer_0.heads == 21
+    cpu_model = copy.deepcopy(model).to("cpu")
+    g = torch.Generator().manual_seed(9)
+    x, y = (torch.rand(3, 16, 16, 3, generator=g),
+            torch.rand(3, 16, 16, 3, generator=g))
+    a = torch.eye(20)[torch.randint(0, 20, (3,), generator=g)]
+    before = launch_counts()
+    losses = []
+    for m, dev in ((model, "cuda"), (cpu_model, "cpu")):
+        out = m(x.to(dev), input_y=y.to(dev), action=a.to(dev), mode=mode,
+                draws=_draws(4, dev), train=True)
+        loss = m.loss_function(out)["loss"]
+        loss.backward()
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert all(after[k] > before[k] for k in after), (before, after)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    cpu_params = dict(cpu_model.named_parameters())
+    for name, p in model.named_parameters():
+        q = cpu_params[name]
+        if q.grad is None:
+            assert p.grad is None or not p.grad.any(), name
+            continue
+        scale = max(1.0, float(q.grad.abs().max()))
+        assert float((p.grad.cpu() - q.grad).abs().max()) <= 1e-4 * scale, \
+            name
+
+
+def test_card_codec_decodes_as_libjpeg_and_the_rendered_arrays(card,
+                                                              tmp_path):
+    """The JPEG codec of a machine with a card (nvJPEG): the committed
+    libjpeg reference's JPEGs (two colour stand-in images and a grey one)
+    decode within 64 levels of libjpeg's pixels, 2 on average (nvJPEG
+    12.4 on the H100: 34, 47 and 1 levels, 0.87, 0.94 and 0.013: its
+    chroma upsampling is not libjpeg's); the
+    stand-in's first 16 images encoded at quality 80 and decoded again
+    lie within 160 levels of the arrays they were rendered from, 6 on
+    average (libjpeg's own: 106 and 4.5); a missing file raises with its
+    name."""
+    import os
+
+    from ctvae_torch import native
+    from ctvae_torch.data.standins import render_celeba_images
+    codec = native.codec()
+    assert codec.name == native.default_codec() == "nvjpeg"
+    ref = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "torch_jpeg_reference.npz")
+    with np.load(ref) as z:
+        for key in (k for k in z.files if k.startswith("jpeg_")):
+            name = key[len("jpeg_"):]
+            path = str(tmp_path / f"{name}.jpg")
+            with open(path, "wb") as f:
+                f.write(z[key].tobytes())
+            got = codec.decode(path).astype(np.int16)
+            d = np.abs(got - z[f"decoded_{name}"].astype(np.int16))
+            assert got.shape == z[f"decoded_{name}"].shape, name
+            assert d.max() <= 64 and d.mean() <= 2.0, (name, d.max(),
+                                                       d.mean())
+    images = render_celeba_images(range(1, 17))
+    paths = [str(tmp_path / f"{i}.jpg") for i in range(16)]
+    codec.encode_batch(images, paths, 80)
+    d = np.abs(codec.decode_batch(paths).astype(np.int16)
+               - images.astype(np.int16))
+    assert d.max() <= 160 and d.mean() <= 6.0, (d.max(), d.mean())
+    with pytest.raises(OSError, match="nope.jpg cannot be read"):
+        codec.decode_batch(paths[:2] + [str(tmp_path / "nope.jpg")])

@@ -223,13 +223,39 @@ def test_datamodule_matches_jax(name, modes):
                     np.testing.assert_array_equal(g[k], w[k])
 
 
+@pytest.fixture(scope="module")
+def jpeg_root(tmp_path_factory):
+    """A CelebA stand-in of 24 images written by the port (its split 80 /
+    10 / 10, attributes and transitions) and 4 OxfordPets JPEGs."""
+    from ctvae_torch import native
+    from ctvae_torch.data.standins import (ensure_celeba_standin,
+                                           label_celeba_standin,
+                                           render_celeba_images)
+    from ctvae_torch.data.variations import generate_celeba
+    root = str(tmp_path_factory.mktemp("jpeg"))
+    ensure_celeba_standin(root, 24, verbose=False)
+    label_celeba_standin(root, 24)
+    generate_celeba(root)
+    pets = os.path.join(root, "OxfordPets", "images")
+    os.makedirs(pets)
+    native.codec().encode_batch(render_celeba_images(range(4)), [
+        os.path.join(pets, f"pet_{i}.jpg") for i in range(4)])
+    return root
+
+
 @pytest.mark.parametrize("name", ["TCeleba", "OxfordPets", "Celeba"])
-def test_other_datasets_not_ported(name):
-    """The JPEG datasets raise, naming the ROADMAP item (the disent image
-    datasets are read since: tests/test_torch_data.py)."""
+def test_jpeg_datasets_are_registered(name, jpeg_root):
+    """Each JPEG dataset builds a data module on the port's fixture whose
+    first train batch has images of the patch size (the parity with JAX:
+    tests/test_torch_celeba.py)."""
     from ctvae_torch.data import VAEDataset
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        VAEDataset("", dataset_name=name)
+    data = VAEDataset(jpeg_root, dataset_name=name, train_batch_size=2,
+                      val_batch_size=2, patch_size=32, limit=4)
+    data.setup()
+    batch = next(iter(data.train_dataloader(0)))
+    assert batch["image"].shape == (2, 32, 32, 3)
+    assert batch["labels"].shape == ((2,) if name == "OxfordPets"
+                                     else (2, 40))
 
 
 # --- configs and the entry point -------------------------------------------

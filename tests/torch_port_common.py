@@ -184,11 +184,13 @@ def jax_train_step(jm, variables, mode, b, monkeypatch, seed, exp):
 
 
 def jax_train_step_state(jm, variables, mode, b, monkeypatch, seed, exp,
-                         M_N=1.0, step=0):
+                         M_N=1.0, step=0,
+                         fwd_kwargs_keys=("action", "input_y")):
     """``jax_train_step`` whose state also holds the variables' other
     collections (an EMA codebook's ``vq_stats``, BatchNorm's
     ``batch_stats``); returns them updated as a fifth item. ``M_N`` is the
-    step's KL weight and ``step`` the state's global step."""
+    step's KL weight, ``step`` the state's global step and
+    ``fwd_kwargs_keys`` the batch keys the forward takes."""
     import optax
 
     from ctvae_tpu.training import optimizers as jopt
@@ -201,7 +203,7 @@ def jax_train_step_state(jm, variables, mode, b, monkeypatch, seed, exp,
                               opt_states=(tx.init(params),),
                               rng=jax.random.PRNGKey(seed))
     step_fn = jax.jit(jstate.make_train_step(
-        jm, [tx], M_N=M_N, fwd_kwargs_keys=("action", "input_y"),
+        jm, [tx], M_N=M_N, fwd_kwargs_keys=fwd_kwargs_keys,
         static_fwd_kwargs={"mode": mode}))
     with recorded_draws(monkeypatch, seed=seed) as rec:
         new, metrics = step_fn(state, b)
