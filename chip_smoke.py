@@ -103,19 +103,23 @@ same widths (phase "loop"). Then more phases:
 * gaussian: VQVAE and the Gaussian zoo from their YAML at full width on
   the same CelebA stand-in (``dataset_name: Celeba`` as written, only
   ``data_path`` changed): ``run.train`` of
-  ``configs/vae.yaml`` and ``configs/vq_vae.yaml`` (B = 64, one epoch,
-  checkpoints and grids, no Samples grid for VQVAE) and of
+  ``configs/vae.yaml``, ``configs/vq_vae.yaml``, ``configs/lvae.yaml``,
+  ``configs/gammavae.yaml`` and ``configs/cat_vae.yaml`` (B = 64, one
+  epoch, checkpoints and grids, no Samples grid for VQVAE) and of
   ``configs/synthetic_vae.yaml``; every VQ search call of a VQVAE train
   step and of its eval step (K = 512 codes of 64, N = 16,384 rows) held
   against the plain version and timed with it and ``cdist`` + ``argmin``;
-  a warm and timed eager train steps of VanillaVAE, VQVAE and of bbvae,
-  bhvae, logcosh_vae, dip_vae, infovae, wae_mmd_imq and wae_mmd_rbf at B
-  = 64 (ms, the profiled step's device-busy share, peak memory);
-  VanillaVAE's ``reconstruct`` / ``encode`` / ``sample`` at B = 16
-  against the CPU; ``make_multi_train_step("base", 8)`` against eager
-  steps for VanillaVAE and BetaVAE B (cuDNN deterministic). VQVAE's run
-  and steps make the path ``gaussian_vq`` (the VQ search only), the rest
-  the path ``gaussian`` (no kernel).
+  a warm and timed eager train steps of VanillaVAE, VQVAE, of bbvae,
+  bhvae, logcosh_vae, dip_vae, infovae, wae_mmd_imq and wae_mmd_rbf, and
+  of iwae, miwae, swae, betatc_vae, cat_vae, joint_vae, gammavae,
+  vampvae, hvae and lvae at B = 64 (ms, the profiled step's device-busy
+  share, peak memory); the ``reconstruct`` / ``encode`` / ``sample`` of
+  VanillaVAE and of those ten at B = 16 against the CPU on the same
+  draws; ``make_multi_train_step("base", 8)`` against eager steps for
+  VanillaVAE, BetaVAE B, CategoricalVAE (the step drives its
+  temperature) and GammaVAE (a gamma draw under capture), cuDNN
+  deterministic. VQVAE's run and steps make the path ``gaussian_vq``
+  (the VQ search only), the rest the path ``gaussian`` (no kernel).
 
     python3 chip_smoke.py --search-only
 
@@ -179,6 +183,7 @@ widths and B = 16 (``compare_train_step``).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -189,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import torch
 
@@ -1432,6 +1438,19 @@ def _replay_draws(device, seed):
             return torch.randn(tuple(shape), generator=self.generator
                                ).to(self.device)
 
+        def randint(self, low, high, shape):
+            return torch.randint(low, high, tuple(shape),
+                                 generator=self.generator).to(self.device)
+
+        def gamma(self, alpha):
+            return torch._standard_gamma(alpha.detach().cpu(),
+                                         generator=self.generator
+                                         ).to(self.device)
+
+        def cauchy(self, shape):
+            return torch.empty(tuple(shape)).cauchy_(
+                generator=self.generator).to(self.device)
+
     return CpuSeeded(torch.Generator().manual_seed(seed), torch.device(device))
 
 
@@ -2096,12 +2115,23 @@ def _epoch_ms(model, exp_params: dict, data, B: int) -> float:
 
 
 def _check_run(label: str, cfg: dict, out: dict, logs: str,
-               samples: bool = True) -> str:
-    """A run's metrics finite, and in its ``version_0``: the checkpoints,
-    ``scalars.jsonl`` lines, valid image grids (a Samples grid exactly
-    when ``samples``: a model without a prior writes none). Returns the
-    run's dir."""
+               samples: bool = True, watch=None,
+               diverge_from: int = None) -> str:
+    """A run's metrics finite, unless the run was watched (``watch``, a
+    _NonfiniteWatch: its first non-finite step was non-finite on the CPU
+    too from the same state) and turned non-finite no earlier than
+    ``diverge_from`` (DIVERGE_IN_EPOCHS); and in its ``version_0``: the
+    checkpoints, ``scalars.jsonl`` lines, valid image grids (a Samples
+    grid exactly when ``samples``: a model without a prior writes none).
+    Returns the run's dir."""
     bad = {k: v for k, v in out.items() if not math.isfinite(v)}
+    first = None if watch is None else watch.first
+    if bad and diverge_from is not None and first is not None \
+            and first >= diverge_from:
+        log(f"{label}: non-finite metrics {bad} from step {first}, as on "
+            f"the CPU from the same state (its reference diverges from "
+            f"step {diverge_from})")
+        bad = {}
     run_dir = os.path.join(logs, cfg["logging_params"]["name"], "version_0")
     ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
     with open(os.path.join(run_dir, "scalars.jsonl")) as f:
@@ -2116,7 +2146,8 @@ def _check_run(label: str, cfg: dict, out: dict, logs: str,
     if bad or "last" not in ckpts or not any(
             c.startswith("step_") for c in ckpts) or not scalars or invalid \
             or extra:
-        raise AssertionError(f"{label}: non-finite {bad}, checkpoints "
+        raise AssertionError(f"{label}: non-finite {bad} (first "
+                             f"non-finite step {first}), checkpoints "
                              f"{ckpts}, {len(scalars)} scalar lines, "
                              f"invalid PNGs {invalid}, Samples {extra}")
     log(f"{label}: checkpoints {ckpts}; {len(scalars)} lines in "
@@ -3795,12 +3826,37 @@ def phase_search(smi: str) -> tuple:
 # --- phase 14: VQVAE and the Gaussian zoo from their YAML -------------------
 
 GAUSSIAN_BATCH = 64        # the batch of every zoo config
-#: configs trained one epoch through run.train (the latter's VQ search at
-#: K = 512 makes the path gaussian_vq)
-GAUSSIAN_RUNS = ("vae", "vq_vae")
+#: configs trained one epoch through run.train (vq_vae's VQ search at
+#: K = 512 makes the path gaussian_vq): lvae for its [B, D] BatchNorm and
+#: its own decoder, gammavae for the gamma draw, gradient_clip_val 0.8 and
+#: weight_decay 5e-5, cat_vae for the step in the forward and its
+#: 20,480-wide fc_z
+GAUSSIAN_RUNS = ("vae", "vq_vae", "lvae", "gammavae", "cat_vae")
 #: the zoo's loss-only members, each a warm and timed eager train steps
 ZOO_CONFIGS = ("bbvae", "bhvae", "logcosh_vae", "dip_vae", "infovae",
                "wae_mmd_imq", "wae_mmd_rbf")
+#: the zoo's members with their own architecture or draws: each a
+#: warm and timed eager train steps, and its serving against the CPU
+ZOO_MORE = ("iwae", "miwae", "swae", "betatc_vae", "cat_vae", "joint_vae",
+            "gammavae", "vampvae", "hvae", "lvae")
+#: configs trained one epoch for the loader's share (phase "celeba" paces
+#: vae's and vq_vae's)
+PACED_RUNS = ("lvae", "gammavae", "cat_vae")
+#: the first step from which a config's zoo steps (DIVERGE_IN_STEPS) or
+#: epoch (DIVERGE_IN_EPOCHS) may be non-finite, each from a reference that
+#: diverges there; the steps before it must be finite, and a non-finite
+#: step must be non-finite on the CPU too from the same state
+#: (_NonfiniteWatch). iwae's, vampvae's, hvae's and lvae's KL blows up at
+#: the second step at LR 0.007 / 0.005, in JAX as in the port (tier-1
+#: test_torch_zoo_more.py::test_yaml_lr_blows_up_in_jax_as_in_the_port);
+#: vq_vae's VQ loss passes 1e3 times the first step's by the third (tier-1
+#: test_torch_zoo.py::test_vq_vae_yaml_steps_match_jax_at_full_width);
+#: gammavae's gradient passes f32's range once a softmax rate falls to
+#: ~1e-19, which its epoch at manual_seed 1265 reached at step 6 on the
+#: card (tier-1 test_torch_zoo_more.py::test_gamma_vae_gradient_overflows_
+#: in_jax_as_in_the_port). Every other config must stay finite
+DIVERGE_IN_STEPS = {"iwae": 1, "vampvae": 1, "hvae": 1, "lvae": 1}
+DIVERGE_IN_EPOCHS = {"vq_vae": 2, "lvae": 1, "gammavae": 1}
 ZOO_TIMED_STEPS = 5        # timed eager steps per model after the warm one
 GAUSSIAN_SERVE_B = 16
 
@@ -3828,13 +3884,22 @@ def _gaussian_config(name: str, root: str, logs: str) -> dict:
 
 
 def _gaussian_serve(model, label: str = "gaussian",
-                    atol: float = SERVE_ATOL) -> dict:
+                    atol: float = SERVE_ATOL,
+                    sample_overflows: bool = False) -> dict:
     """A Gaussian model's ``reconstruct``, ``encode`` and ``sample`` at B
     = 16 (with 0 / 1 labels of 40 attributes for a model that
-    ``needs_labels``): each request timed on the card, and held against
-    the same weights on the CPU within ``atol`` (``sample`` decodes the
-    same CPU-drawn latents on both)."""
-    from ctvae_torch.serving.inference import available_fns, \
+    ``needs_labels``): each request timed on the card, its output finite,
+    and held against the same weights on the CPU within ``atol``, the
+    model call of every entry point on the same CPU-drawn draws on both
+    (``_replay_draws``:
+    IWAE's samples, HVAE's z2 in ``encode``, the gamma and Gumbel
+    draws): the same elements non-finite on both sides, the rest within
+    ``atol``. With ``sample_overflows`` (LVAE at random init, whose prior
+    samples reach non-finite latents in JAX as in the port: tier-1
+    test_torch_zoo_more.py::test_lvae_prior_samples_overflow_in_jax_as_
+    in_the_port) a ``sample`` request may hold non-finite rows; they are
+    counted."""
+    from ctvae_torch.serving.inference import available_fns, encode_repr, \
         make_inference_fn
     if available_fns(model) != ("reconstruct", "encode", "sample"):
         raise AssertionError(f"serve: {available_fns(model)}")
@@ -3850,54 +3915,315 @@ def _gaussian_serve(model, label: str = "gaussian",
     dgen = torch.Generator("cuda").manual_seed(SEED)
     calls = {"reconstruct": lambda: fns["reconstruct"](
         x.cuda(), *on_card, generator=dgen),
-        "encode": lambda: fns["encode"](x.cuda(), *on_card),
+        "encode": lambda: fns["encode"](x.cuda(), *on_card, generator=dgen),
         "sample": lambda: fns["sample"](*on_card, generator=dgen)}
-    ms, errs = {}, {}
+    # each entry point's model call, on given draws
+    direct = {
+        "reconstruct": lambda m, x, labels, draws: (
+            m(x, *labels, draws=draws) if labels else
+            m(x, mode="base", draws=draws))["recons"],
+        "encode": lambda m, x, labels, draws: (
+            m.encode_labeled(x, *labels)[0].flatten(1) if labels else
+            encode_repr(m, x, draws)),
+        "sample": lambda m, x, labels, draws: m.sample(Bs, *labels,
+                                                       draws=draws)}
+    ms, errs, nonfinite = {}, {}, {}
     for name, call in calls.items():
-        secs = []
+        secs, rows = [], 0
         for _ in range(REQUESTS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = call()
             torch.cuda.synchronize()
             secs.append(1e3 * (time.perf_counter() - t0))
-        if not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"serve {name}: non-finite")
+            rows += int((~torch.isfinite(out.reshape(Bs, -1)).all(1)).sum())
+        if rows and not (name == "sample" and sample_overflows):
+            raise AssertionError(f"serve {name}: {rows} non-finite rows")
         ms[name] = statistics.median(secs[1:])
         with torch.inference_mode():
-            if name == "sample":
-                got = model.sample(Bs, *on_card,
-                                   draws=_replay_draws("cuda", SEED))
-                want = cpu_model.sample(Bs, *labels,
-                                        draws=_replay_draws("cpu", SEED))
-            else:
-                got = make_inference_fn(model, name)(x.cuda(), *on_card)
-                want = make_inference_fn(cpu_model, name)(x, *labels)
-        errs[name] = float((got.cpu() - want).abs().max())
+            got = direct[name](model, x.cuda(), on_card,
+                               _replay_draws("cuda", SEED)).cpu()
+            want = direct[name](cpu_model, x, labels,
+                                _replay_draws("cpu", SEED))
+        finite = torch.isfinite(want)
+        if not torch.equal(torch.isfinite(got), finite):
+            raise AssertionError(f"serve {name}: card and CPU non-finite "
+                                 f"in other elements")
+        errs[name] = float((got - want)[finite].abs().max()) \
+            if bool(finite.any()) else 0.0
+        nonfinite[name] = rows
         log(f"{label} serve {name} B={Bs}"
             f"{' with labels' if labels else ''}: {ms[name]:.3f} ms per "
             f"request (median of {REQUESTS - 1} after a warm-up); card vs "
-            f"CPU max abs err {errs[name]:.3g} (tolerance {atol}), shape "
-            f"{list(out.shape)}")
+            f"CPU max abs err {errs[name]:.3g} (tolerance {atol}) over "
+            f"{int(finite.sum())} of {want.numel()} finite elements, shape "
+            f"{list(out.shape)}; {rows} non-finite rows in the "
+            f"{REQUESTS} timed requests")
         if not errs[name] <= atol:
             raise AssertionError(f"serve {name}: card and CPU disagree by "
                                  f"{errs[name]}")
-    return {"ms": ms, "max_abs_err": errs}
+    return {"ms": ms, "max_abs_err": errs, "nonfinite_rows": nonfinite}
 
 
-def _zoo_step(name: str, cfg: dict, batch: dict) -> dict:
-    """``cfg``'s model at B = 64 (its model_params and exp_params, the
-    trainer's ``gradient_clip_val`` moved as run.train moves it): a warm
-    eager train step at ``M_N`` = kld_weight, then ZOO_TIMED_STEPS timed
-    ones (median), losses finite; one step profiled (device-busy share,
-    top kernels); peak memory."""
-    from ctvae_torch.models import build_model
-    from ctvae_torch.training import (build_optimizers, create_train_state,
-                                      make_train_step)
+def _exp_params(cfg: dict) -> dict:
+    """``cfg``'s exp_params with the trainer's ``gradient_clip_val`` moved
+    in, as run.train moves it."""
     exp = dict(cfg["exp_params"])
     if "gradient_clip_val" in cfg["trainer_params"]:
         exp.setdefault("gradient_clip_val",
                        cfg["trainer_params"]["gradient_clip_val"])
+    return exp
+
+
+def _replay_taken(taken: list, device):
+    """A ``Draws`` provider on ``device`` that gives back ``taken``, the
+    (kind, tensor) draws of one step in the order they were taken, each
+    held to the kind and shape asked for; ``left()`` counts those not
+    given back."""
+    from ctvae_torch.models.base import Draws
+    taken = list(taken)
+
+    class Taken(Draws):
+        def _next(self, kind, shape):
+            k, t = taken.pop(0)
+            if (k, tuple(t.shape)) != (kind, tuple(shape)):
+                raise AssertionError(f"replay: {kind} {tuple(shape)} asked "
+                                     f"where {k} {tuple(t.shape)} was drawn")
+            return t.to(self.device)
+
+        def uniform(self, shape):
+            return self._next("uniform", shape)
+
+        def normal(self, shape):
+            return self._next("normal", shape)
+
+        def randint(self, low, high, shape):
+            return self._next("randint", shape)
+
+        def gamma(self, alpha):
+            return self._next("gamma", alpha.shape)
+
+        def cauchy(self, shape):
+            return self._next("cauchy", shape)
+
+        def left(self):
+            return len(taken)
+
+    return Taken(None, torch.device(device))
+
+
+class _NonfiniteWatch:
+    """Within ``with``, every eager train step on the card is watched: its
+    draws kept as the card took them, its buffers kept from before its
+    forward, and its metrics read (one host read a step). At the first
+    step whose metrics are not all finite (``first``: its step number)
+    its gradients and metrics are computed again on the CPU from the
+    card's parameters and buffers before it, on its batch, its step and
+    the card's draws: the CPU must be non-finite in the same metrics and
+    within 1e-3 of the card's finite ones (one step's rounding from one
+    state), or the step raises. So a run on the card turns non-finite
+    only where the port's CPU path, which the tier-1 tests hold against
+    JAX's step on the same draws, does too."""
+
+    def __init__(self, label: str):
+        self.label, self.first, self.taken = label, None, []
+
+    def __enter__(self):
+        from ctvae_torch.training import state as tstate
+        self._tstate, self._grads, self._draws = (tstate, tstate._grads,
+                                                  tstate.Draws)
+        watch = self
+
+        class Kept(tstate.Draws):
+            def uniform(self, shape):
+                return watch._keep("uniform", super().uniform(shape))
+
+            def normal(self, shape):
+                return watch._keep("normal", super().normal(shape))
+
+            def randint(self, low, high, shape):
+                return watch._keep("randint",
+                                   super().randint(low, high, shape))
+
+            def gamma(self, alpha):
+                return watch._keep("gamma", super().gamma(alpha))
+
+            def cauchy(self, shape):
+                return watch._keep("cauchy", super().cauchy(shape))
+
+        tstate.Draws, tstate._grads = Kept, self._watched
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._tstate.Draws, self._tstate._grads = self._draws, self._grads
+        return False
+
+    def _keep(self, kind: str, t: torch.Tensor) -> torch.Tensor:
+        self.taken.append((kind, t.clone()))
+        return t
+
+    def _watched(self, state, batch, mode, M_N, step):
+        model = state.model
+        if self.first is not None or model.device.type != "cuda":
+            return self._grads(state, batch, mode, M_N, step)
+        buffers = [b.clone() for b in model.buffers()]
+        self.taken = []
+        metrics = self._grads(state, batch, mode, M_N, step)
+        if all(torch.stack([torch.isfinite(v).all()
+                            for v in metrics.values()]).tolist()):
+            return metrics
+        self.first = int(step)
+        cpu = copy.deepcopy(model).to("cpu")
+        with torch.no_grad():
+            for b, kept in zip(cpu.buffers(), buffers):
+                b.copy_(kept)
+        replay = _replay_taken(self.taken, "cpu")
+        self._tstate.Draws = lambda generator, device: replay
+        try:
+            want = self._grads(
+                types.SimpleNamespace(model=cpu, generator=None),
+                {k: v.cpu() for k, v in batch.items()}, mode, M_N,
+                step.cpu())
+        finally:
+            self._tstate.Draws = self._draws
+        errs = {}
+        for k, v in metrics.items():
+            got, w = v.detach().cpu(), want[k].detach()
+            fin = torch.isfinite(w)
+            err = (got - w).abs() - 1e-3 * w.abs()
+            errs[k] = float(err[fin].max()) if bool(fin.any()) else 0.0
+            if not torch.equal(torch.isfinite(got), fin) or errs[k] > 1e-6:
+                raise AssertionError(
+                    f"{self.label} step {self.first}: card {got} and CPU "
+                    f"{w} from the same state disagree in {k}")
+        if replay.left():
+            raise AssertionError(f"{self.label} step {self.first}: "
+                                 f"{replay.left()} draws not replayed")
+        log(f"{self.label}: first non-finite step {self.first}, on the "
+            f"card as on the CPU from the same parameters, buffers, batch "
+            f"and {len(self.taken)} draws: "
+            f"{json.dumps({k: float(v) for k, v in want.items() if v.dim() == 0})}")
+        return metrics
+
+
+def _train_step_vs_cpu(name: str, cfg: dict, batch: dict) -> dict:
+    """The first train step of ``cfg``'s model at full width (its
+    model_params and _exp_params: the clip and the weight decay as
+    run.train takes them) on ``batch`` on the card against the same step
+    on the CPU: the same initial weights, and on the CPU the draws the
+    card took (kept by a _NonfiniteWatch, replayed). The metrics within
+    rtol 1e-4 (atol 1e-6) and the BatchNorm buffers within 1e-5 + 1e-4
+    relative, as the card test test_zoo_train_step_on_card_matches_cpu
+    holds its small models; each gradient within 1e-3 of max(1, its
+    block's largest), the scale the tier-1 zoo tests take (a conv bias
+    right before a BatchNorm has a gradient of exactly zero in exact
+    arithmetic, so both sides compute rounding noise of the block's own
+    terms: at full width the decoder's last block sums over up to 3.9M
+    positions, 960 images for MIWAE, whose last deconv bias card and CPU
+    put 1.2e-4 apart, hence 1e-3 where the card test's small models take
+    1e-4); each parameter after the
+    card's update within 1e-6 of the
+    CPU's optimizer (clip, Adam) applied to the same initial parameters
+    and the card's own gradients. (Adam maps a gradient of rounding noise,
+    as a conv bias before a BatchNorm gets, to a step of up to LR times
+    |g| / 1e-8, so two sides' parameters are held through their gradients,
+    not to each other.) Returns the largest errors, each over its
+    tolerance.
+    """
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_train_step)
+    from ctvae_torch.training import state as tstate
+    exp = _exp_params(cfg)
+    M_N = float(exp.get("kld_weight", 1.0))
+    model = build_model(cfg["model_params"], device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+    cpu_model = copy.deepcopy(model).to("cpu")
+    on_card_grads = copy.deepcopy(cpu_model)
+    metrics, grads = {}, {}
+    t0 = time.perf_counter()
+    for side, m in (("card", model), ("cpu", cpu_model)):
+        state = create_train_state(m, build_optimizers(
+            exp, m, steps_per_epoch=100), seed=SEED)
+        step = make_train_step("base", M_N=M_N)
+        b = {k: v.to(m.device) for k, v in batch.items()}
+        if side == "card":
+            with _NonfiniteWatch(f"gaussian {name} first step") as watch:
+                out = step(state, b)
+            replay = _replay_taken(watch.taken, "cpu")
+        else:
+            kept = tstate.Draws
+            tstate.Draws = lambda generator, device: replay
+            try:
+                out = step(state, b)
+            finally:
+                tstate.Draws = kept
+        metrics[side] = {k: float(v) for k, v in out.items()
+                         if v.dim() == 0}
+        grads[side] = {n: p.grad.detach().cpu()
+                       for n, p in m.named_parameters()
+                       if p.grad is not None}
+    if replay.left():
+        raise AssertionError(f"{name}: {replay.left()} draws not replayed")
+    worst = {"metrics": 0.0, "grads": 0.0, "params": 0.0, "buffers": 0.0}
+
+    def hold(kind, what, err):
+        worst[kind] = max(worst[kind], float(err.max()))
+        if not worst[kind] <= 1.0:
+            i = int(err.flatten().argmax())
+            raise AssertionError(f"{name} step on card vs CPU: {kind} of "
+                                 f"{what} off by {float(err.max()):.3g} of "
+                                 f"its tolerance at element {i}")
+
+    if metrics["card"].keys() != metrics["cpu"].keys() or \
+            grads["card"].keys() != grads["cpu"].keys():
+        raise AssertionError(f"{name}: metrics {list(metrics['card'])} / "
+                             f"{list(metrics['cpu'])}")
+    for k, v in metrics["cpu"].items():
+        hold("metrics", k, torch.tensor(abs(metrics["card"][k] - v)
+                                        / (1e-6 + 1e-4 * abs(v))))
+    scale = {}
+    for n, g in grads["cpu"].items():
+        block = n.rsplit(".", 2)[0]
+        scale[block] = max(scale.get(block, 1.0), float(g.abs().max()))
+    for n, g in grads["cpu"].items():
+        hold("grads", n, (grads["card"][n] - g).abs()
+             / (1e-3 * scale[n.rsplit(".", 2)[0]]))
+    for n, p in on_card_grads.named_parameters():
+        p.grad = grads["card"].get(n)
+    for opt in build_optimizers(exp, on_card_grads, steps_per_epoch=100):
+        opt.step()
+    updated = dict(on_card_grads.named_parameters())
+    for n, p in model.named_parameters():
+        hold("params", n, (p.detach().cpu() - updated[n].detach()).abs()
+             / 1e-6)
+    cpu_buffers = dict(cpu_model.named_buffers())
+    for n, b in model.named_buffers():
+        w = cpu_buffers[n]
+        hold("buffers", n, (b.cpu() - w).abs() / (1e-5 + 1e-4 * w.abs()))
+    log(f"gaussian {name}: the first train step at B={len(batch['image'])} "
+        f"on the card vs the CPU on the same weights and the card's "
+        f"{len(watch.taken)} draws, largest error over its tolerance "
+        f"{json.dumps(worst)} ({len(grads['cpu'])} gradients, "
+        f"{sum(1 for _ in model.buffers())} buffers; "
+        f"{time.perf_counter() - t0:.1f} s with the CPU step); loss "
+        f"{metrics['card']['loss']:.6g}")
+    del model, cpu_model, on_card_grads
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _zoo_step(name: str, cfg: dict, batch: dict) -> dict:
+    """``cfg``'s model at B = 64 (its model_params and _exp_params): a warm
+    eager train step at ``M_N`` = kld_weight, then ZOO_TIMED_STEPS timed
+    ones (median), all under a _NonfiniteWatch: the losses finite, or
+    non-finite from DIVERGE_IN_STEPS' step on as on the CPU from the same
+    state; one step profiled (device-busy share, top kernels); peak
+    memory."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_train_step)
+    exp = _exp_params(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg["model_params"], device="cuda",
@@ -3906,14 +4232,18 @@ def _zoo_step(name: str, cfg: dict, batch: dict) -> dict:
         exp, model, steps_per_epoch=100), seed=SEED)
     step = make_train_step("base", M_N=float(exp.get("kld_weight", 1.0)))
     secs, losses = [], []
-    for _ in range(1 + ZOO_TIMED_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = step(state, batch)
-        losses.append(float(out["loss"]))
-        secs.append(1e3 * (time.perf_counter() - t0))
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"zoo {name}: losses {losses}")
+    with _NonfiniteWatch(f"zoo {name}") as watch:
+        for _ in range(1 + ZOO_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            losses.append(float(out["loss"]))
+            secs.append(1e3 * (time.perf_counter() - t0))
+    allowed = DIVERGE_IN_STEPS.get(name)
+    if watch.first is not None and (allowed is None
+                                    or watch.first < allowed):
+        raise AssertionError(f"zoo {name}: non-finite from step "
+                             f"{watch.first}; losses {losses}")
     stats = {}
     rows = _profile(f"zoo {name} train step B={GAUSSIAN_BATCH}",
                     lambda: step(state, batch), stats=stats)
@@ -3924,11 +4254,11 @@ def _zoo_step(name: str, cfg: dict, batch: dict) -> dict:
            "kernels_per_step": sum(r[2] for r in rows),
            "top_kernels": [[k[:60], round(ms, 4)] for k, ms, _ in rows[:3]],
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "losses": losses,
+           "losses": losses, "nonfinite_from_step": watch.first,
            "clip": exp.get("gradient_clip_val")}
     log(f"zoo {name} ({res['model']}) B={GAUSSIAN_BATCH}: "
         f"{res['ms_per_step']:.3f} ms per eager train step (median of "
-        f"{ZOO_TIMED_STEPS} after a warm one), device busy "
+        f"{ZOO_TIMED_STEPS} after a warm one, each watched), device busy "
         f"{100 * res['busy_share']:.1f}% of the profiled step, peak "
         f"{res['peak_gib']:.3f} GiB, losses {losses}")
     del model, state
@@ -3963,7 +4293,12 @@ def _gaussian_graph(name: str, cfg: dict, batches: list) -> float:
     twice the first step's KLD, so that C, which each replay must read
     from its own step, crosses the KLD among the replayed steps: a graph
     that froze C would differ in the loss and, after the crossing, in
-    the gradients' sign. Returns the largest difference."""
+    the gradients' sign. For CategoricalVAE the temperature, which the
+    forward reads from the step, rises every 2 steps (``anneal_rate``
+    -0.05, ``anneal_interval`` 2: the YAML's positive rate holds it at its
+    clamp whatever the step), so a graph that froze the step would
+    sample at another temperature. GammaVAE's gamma draw runs under the
+    capture. Returns the largest difference."""
     from ctvae_torch.models import build_model
     from ctvae_torch.training import (build_optimizers, create_train_state,
                                       make_train_step)
@@ -3978,6 +4313,12 @@ def _gaussian_graph(name: str, cfg: dict, batches: list) -> float:
         return create_train_state(model, build_optimizers(
             exp, model, steps_per_epoch=100), seed=SEED)
 
+    if mp["name"] == "CategoricalVAE":
+        mp.update(anneal_rate=-0.05, anneal_interval=2)
+        taus = [0.5 * math.exp(0.05 * (s - s % 2)) for s in range(2 * SCAN_K)]
+        log(f"gaussian graph {name}: temperature by step "
+            f"{[round(t, 4) for t in taus]} (anneal_rate -0.05, "
+            f"anneal_interval 2)")
     capacity = mp.get("loss_type") == "B"
     if capacity:
         kld0 = float(make_train_step("base", M_N=M_N)(
@@ -4006,6 +4347,34 @@ def _gaussian_graph(name: str, cfg: dict, batches: list) -> float:
     return out
 
 
+def _epoch_watch(label: str, name: str):
+    """A _NonfiniteWatch over the epoch of a config in DIVERGE_IN_EPOCHS
+    (its steps then pay one host read each), else a context that watches
+    nothing (as None)."""
+    return (_NonfiniteWatch(label) if name in DIVERGE_IN_EPOCHS
+            else contextlib.nullcontext())
+
+
+def _epoch_numbers(label: str, out: dict, secs: float, watch, counts: dict,
+                   smi: str) -> dict:
+    """A ``run.train`` epoch's numbers, logged; its images/s dropped when
+    the epoch turned non-finite (a step then runs on non-finite values)."""
+    first = None if watch is None else watch.first
+    rate = out["train_images_per_sec"] if first is None else None
+    log(f"{label}: run.train of the YAML in {secs:.2f} s "
+        f"({int(out['train_steps_base'])} steps of B={GAUSSIAN_BATCH}"
+        f"{', each watched' if watch is not None else ''}); epoch images/s "
+        + (f"{rate:.1f}" if first is None else
+           f"not kept (non-finite from step {first}; "
+           f"{out['train_images_per_sec']:.1f} read)")
+        + f"; train loss {out['train_loss']:.6g}, val loss "
+        f"{out['val_loss']:.6g}; launches {json.dumps(counts)} ({smi})")
+    return {"images_per_sec": rate, "nonfinite_from_step": first,
+            "watched": watch is not None, "train_loss": out["train_loss"],
+            "val_loss": out["val_loss"],
+            "steps": int(out["train_steps_base"]), "run_s": secs}
+
+
 def phase_gaussian(smi: str, celeba_root: str) -> tuple:
     """VQVAE and the Gaussian zoo on the card from their YAML, at full
     width, on the CelebA stand-in under ``celeba_root``
@@ -4016,13 +4385,17 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
     written (only its logs moved); every VQ search call of a VQVAE train
     step and of its eval step held against the plain version at K = 512
     and timed with it and ``cdist`` + ``argmin``; a warm and timed eager
-    train steps of VanillaVAE, VQVAE and each ZOO_CONFIGS model at B = 64,
-    each profiled once; VanillaVAE's serving entry points against the
-    CPU; the multi-step graph against eager steps for VanillaVAE and
-    BetaVAE B. Launch counters are reset before and read after the
-    VQVAE run (path ``gaussian_vq``) and the rest (path ``gaussian``,
-    where no kernel may launch). Returns (gaussian launches, gaussian_vq
-    launches, the VQ rows, the numbers)."""
+    train steps of VanillaVAE, VQVAE and each ZOO_CONFIGS and ZOO_MORE
+    model at B = 64, each profiled once; ``run.train`` of
+    ``configs/lvae.yaml``, ``gammavae.yaml`` and ``cat_vae.yaml`` as the
+    first two; the serving entry points of VanillaVAE and each ZOO_MORE
+    model against the CPU; the multi-step graph against eager steps for
+    VanillaVAE, BetaVAE B, CategoricalVAE and GammaVAE; the loader's share
+    of the lvae, gammavae and cat_vae epochs. Launch counters are reset
+    before and read after the VQVAE run (path ``gaussian_vq``) and the
+    rest (path ``gaussian``, where no kernel may launch). Returns
+    (gaussian launches, gaussian_vq launches, the VQ rows, the
+    numbers)."""
     import tempfile
     from ctvae_torch import run
     from ctvae_torch.data import VAEDataset
@@ -4041,13 +4414,15 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
     with tempfile.TemporaryDirectory(prefix="ctvae_gaussian_") as tmp:
         root, logs = celeba_root, os.path.join(tmp, "logs")
         cfgs = {n: _gaussian_config(n, root, logs)
-                for n in GAUSSIAN_RUNS + ZOO_CONFIGS}
+                for n in dict.fromkeys(GAUSSIAN_RUNS + ZOO_CONFIGS
+                                       + ZOO_MORE)}
         vq_launches = None
         for name in GAUSSIAN_RUNS:
             cfg = cfgs[name]
             _reset_counts()
             t0 = time.perf_counter()
-            out = run.train(cfg, device="cuda")
+            with _epoch_watch(f"gaussian {name}", name) as watch:
+                out = run.train(cfg, device="cuda")
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             counts = _counts()
@@ -4056,17 +4431,10 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
             else:
                 add(counts)
             _check_run(f"gaussian {name}", cfg, out, logs,
-                       samples=name != "vq_vae")
-            numbers["epochs"][name] = {
-                "images_per_sec": out["train_images_per_sec"],
-                "train_loss": out["train_loss"], "val_loss": out["val_loss"],
-                "steps": int(out["train_steps_base"]), "run_s": secs}
-            log(f"gaussian {name}: run.train of the YAML in {secs:.2f} s "
-                f"({int(out['train_steps_base'])} steps of B="
-                f"{GAUSSIAN_BATCH}); epoch images/s "
-                f"{out['train_images_per_sec']:.1f}; train loss "
-                f"{out['train_loss']:.6g}, val loss {out['val_loss']:.6g}; "
-                f"launches {json.dumps(counts)} ({smi})")
+                       samples=name != "vq_vae", watch=watch,
+                       diverge_from=DIVERGE_IN_EPOCHS.get(name))
+            numbers["epochs"][name] = _epoch_numbers(
+                f"gaussian {name}", out, secs, watch, counts, smi)
         # synthetic_vae.yaml as written (its logs moved)
         syn = read_config(os.path.join(os.path.dirname(CONFIG),
                                        "synthetic_vae.yaml"))
@@ -4092,6 +4460,23 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
             epoch += 1
         batch = batches[0]
 
+        # the loader's share of the new configs' epochs (phase "celeba"
+        # paces vae's and vq_vae's)
+        numbers["pace"] = {}
+        for name in PACED_RUNS:
+            cfg = cfgs[name]
+            pdata = VAEDataset(**cfg["data_params"])
+            pdata.setup()
+            host_ms, copy_ms, _ = _loader_ms(pdata)
+            model = build_model(cfg["model_params"], device="cuda",
+                                generator=torch.Generator("cuda")
+                                .manual_seed(SEED))
+            numbers["pace"][name] = _epoch_pace(
+                f"gaussian {name}", model, _exp_params(cfg), pdata, host_ms,
+                copy_ms, smi)
+            del model
+            torch.cuda.empty_cache()
+
         # VQVAE's steps: each VQ call held against the plain version
         vcfg = cfgs["vq_vae"]
         model = build_model(vcfg["model_params"], device="cuda",
@@ -4104,7 +4489,12 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
 
         # a warm and timed eager steps per model: VQVAE's on the
         # gaussian_vq path, the others' on the gaussian path
-        for name in GAUSSIAN_RUNS + ZOO_CONFIGS:
+        _reset_counts()
+        numbers["first_step_vs_cpu"] = {
+            name: _train_step_vs_cpu(name, cfgs[name], {"image": batch[
+                "image"]}) for name in ZOO_MORE}
+        add(_counts())
+        for name in dict.fromkeys(GAUSSIAN_RUNS + ZOO_CONFIGS + ZOO_MORE):
             _reset_counts()
             numbers["steps"][name] = _zoo_step(name, cfgs[name], batch)
             counts = _counts()
@@ -4115,13 +4505,17 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
                 add(counts)
 
         _reset_counts()
-        model = build_model(cfgs["vae"]["model_params"], device="cuda",
-                            generator=torch.Generator("cuda").manual_seed(
-                                SEED))
-        numbers["serve"] = _gaussian_serve(model)
-        del model
+        numbers["serve"] = {}
+        for name in ("vae",) + ZOO_MORE:
+            model = build_model(cfgs[name]["model_params"], device="cuda",
+                                generator=torch.Generator(
+                                    "cuda").manual_seed(SEED))
+            numbers["serve"][name] = _gaussian_serve(
+                model, f"gaussian {name}", sample_overflows=name == "lvae")
+            del model
         numbers["graph_max_diff"] = {
-            n: _gaussian_graph(n, cfgs[n], batches) for n in ("vae", "bbvae")}
+            n: _gaussian_graph(n, cfgs[n], batches)
+            for n in ("vae", "bbvae", "cat_vae", "gammavae")}
         add(_counts())
     if vq_launches is None or vq_launches["vq_l2_argmin"] == 0 or any(
             n for k, n in vq_launches.items() if k != "vq_l2_argmin") or \
@@ -4281,6 +4675,30 @@ def _decode_check(root: str, smi: str) -> dict:
     return out
 
 
+def _epoch_pace(label: str, model, exp: dict, data, host_ms: float,
+                copy_ms: float, smi: str) -> dict:
+    """The first CELEBA_EPOCH_BATCHES steps of an epoch of ``data`` on
+    ``model`` in turns (held, inline, inline, held): ms per step with the
+    batches held and assembled inline, and the loader's share of the
+    inline epoch."""
+    n = min(CELEBA_EPOCH_BATCHES, data.steps_per_epoch())
+    ways = {how: _EpochOf(data, n, how) for how in ("held", "inline")}
+    turns = {how: [] for how in ways}
+    for how in ("held", "inline", "inline", "held"):
+        turns[how].append(_epoch_ms(model, exp, ways[how], GAUSSIAN_BATCH))
+    ms = {how: statistics.mean(v) for how, v in turns.items()}
+    share = (ms["inline"] - ms["held"]) / ms["inline"]
+    log(f"{label} B={GAUSSIAN_BATCH}: loader {host_ms:.3f} ms per batch on "
+        f"the host (get_batch: decode and transform; median of "
+        f"{LOADER_BATCHES}), pinned copy {copy_ms:.3f} ms; {n} steps in "
+        f"turns, ms per step: batches held {ms['held']:.3f}, inline "
+        f"{ms['inline']:.3f}: the loader takes {100 * share:.1f}% of the "
+        f"inline epoch ({smi})")
+    return {"loader_host_ms_per_batch": host_ms, "copy_ms_per_batch": copy_ms,
+            "epoch_batches": n, "epoch_ms_per_step": turns,
+            "loader_share": share}
+
+
 def phase_celeba(smi: str, root: str) -> tuple:
     """The JPEG datasets through the port's entry points, on the CelebA
     stand-in under ``root`` (``_celeba_standin``): (c) the decode check
@@ -4319,7 +4737,8 @@ def phase_celeba(smi: str, root: str) -> tuple:
         for name, cfg in cfgs.items():
             _reset_counts()
             t0 = time.perf_counter()
-            out = run.train(cfg, device="cuda")
+            with _epoch_watch(f"celeba {name}", name) as watch:
+                out = run.train(cfg, device="cuda")
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             counts = _counts()
@@ -4329,17 +4748,11 @@ def phase_celeba(smi: str, root: str) -> tuple:
                 for k, n in counts.items():
                     celeba[k] += n
             _check_run(f"celeba {name}", cfg, out, logs,
-                       samples=name != "vq_vae")
-            numbers["epochs"][name] = {
-                "images_per_sec": out["train_images_per_sec"],
-                "train_loss": out["train_loss"], "val_loss": out["val_loss"],
-                "steps": int(out["train_steps_base"]), "run_s": secs}
-            log(f"celeba {name}: run.train of the YAML (dataset_name "
-                f"Celeba) in {secs:.2f} s ({int(out['train_steps_base'])} "
-                f"steps of B={GAUSSIAN_BATCH}); epoch images/s "
-                f"{out['train_images_per_sec']:.1f}; train loss "
-                f"{out['train_loss']:.6g}, val loss {out['val_loss']:.6g}; "
-                f"launches {json.dumps(counts)} ({smi})")
+                       samples=name != "vq_vae", watch=watch,
+                       diverge_from=DIVERGE_IN_EPOCHS.get(name))
+            numbers["epochs"][name] = _epoch_numbers(
+                f"celeba {name} (dataset_name Celeba)", out, secs, watch,
+                counts, smi)
 
         # the loader, the copy, the loader's share of the epoch; VQVAE's
         # VQ calls at K = 512
@@ -4357,25 +4770,10 @@ def phase_celeba(smi: str, root: str) -> tuple:
                     exp, model, steps_per_epoch=100), seed=SEED)
                 vq_rows = _vq_rows(state, batches["base"])
                 del state
-            n = min(CELEBA_EPOCH_BATCHES, data.steps_per_epoch())
-            ways = {how: _EpochOf(data, n, how) for how in ("held", "inline")}
-            turns = {how: [] for how in ways}
-            for how in ("held", "inline", "inline", "held"):
-                turns[how].append(_epoch_ms(model, exp, ways[how],
-                                            GAUSSIAN_BATCH))
-            ms = {how: statistics.mean(v) for how, v in turns.items()}
-            share = (ms["inline"] - ms["held"]) / ms["inline"]
-            numbers["pace"][name] = {
-                "loader_host_ms_per_batch": host_ms,
-                "copy_ms_per_batch": copy_ms, "epoch_batches": n,
-                "epoch_ms_per_step": turns, "loader_share": share}
-            log(f"celeba {name} B={GAUSSIAN_BATCH}: loader {host_ms:.3f} ms "
-                f"per batch on the host (get_batch: decode and transform; "
-                f"median of {LOADER_BATCHES}), pinned copy {copy_ms:.3f} ms; "
-                f"{n} steps in turns, ms per step: batches held "
-                f"{ms['held']:.3f}, inline {ms['inline']:.3f}: the loader "
-                f"takes {100 * share:.1f}% of the inline epoch ({smi})")
-            del model, batches, ways
+            numbers["pace"][name] = _epoch_pace(f"celeba {name}", model,
+                                                exp, data, host_ms, copy_ms,
+                                                smi)
+            del model, batches
             torch.cuda.empty_cache()
 
         # (e) the CT model on TCeleba: 20 actions, 21 GAT heads

@@ -2,15 +2,17 @@
 
 The flax param pytree, as nested dicts of numpy arrays, maps one to one
 onto the port's parameter names (the port's submodules carry flax's
-names); only the kernel layouts change:
+names); only the kernel layouts change, and the layout of a leaf is
+chosen by the type of the port's module it lands in, never by the flax
+name (BetaTCVAE's ``dec_convs_0`` and LVAE's ``final_up`` are
+ConvTranspose, LVAE's ``final_bn`` and ``dec_blocks_0_1`` BatchNorm):
 
-* ``Conv`` kernels HWIO -> ``Conv2d`` OIHW;
-* ``ConvTranspose`` kernels (kh, kw, in, out) -> ``ConvTranspose2d``
-  [in, out, kh, kw] with the spatial taps flipped back (a torch
-  transposed conv correlates with the flipped kernel; k4-s2 'SAME' is
-  torch ``padding=1``, k3-s2 padded ((1, 2), (1, 2)) is ``padding=1,
-  output_padding=1``);
-* ``Dense`` kernels [in, out] -> ``Linear`` weight [out, in];
+* ``Conv2d`` kernels HWIO -> OIHW;
+* ``ConvTranspose2d`` kernels (kh, kw, in, out) -> [in, out, kh, kw]
+  with the spatial taps flipped back (a torch transposed conv correlates
+  with the flipped kernel; k4-s2 'SAME' is torch ``padding=1``, k3-s2
+  padded ((1, 2), (1, 2)) is ``padding=1, output_padding=1``);
+* ``Linear`` (flax ``Dense``) kernels [in, out] -> weight [out, in];
 * a ``BatchNorm``'s ``scale`` -> ``weight`` (its ``bias`` keeps its name);
 * every other leaf (GAT ``lin_edge`` / ``att`` / ``bias``, the ``disc_*``
   discoverers, the mask MLP, the codebooks) is copied as it is.
@@ -29,6 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.backbones import BatchNorm
+
 
 #: BatchNorm leaves: flax's name -> the port's
 _BATCH_NORM = {"scale": "weight", "mean": "running_mean",
@@ -45,22 +49,24 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
     return out
 
 
-def _convert_leaf(path: tuple, a: np.ndarray):
-    """(port parameter name, array in the port's layout) of one leaf."""
+def _convert_leaf(path: tuple, a: np.ndarray, modules: Dict[str, nn.Module]):
+    """(port parameter name, array in the port's layout) of one leaf;
+    ``modules`` is the model's ``named_modules()``."""
     *parents, leaf = path
-    if parents and parents[-1].startswith("BatchNorm") and \
-            leaf in _BATCH_NORM:
+    module = modules.get(".".join(parents))
+    if isinstance(module, BatchNorm) and leaf in _BATCH_NORM:
         return ".".join(parents + [_BATCH_NORM[leaf]]), a
     if leaf != "kernel":
         return ".".join(path), a
     name = ".".join(parents + ["weight"])
-    if parents and parents[-1].startswith("ConvTranspose"):
+    if isinstance(module, nn.ConvTranspose2d):
         return name, a[::-1, ::-1].transpose(2, 3, 0, 1)
-    if a.ndim == 4:
+    if isinstance(module, nn.Conv2d):
         return name, a.transpose(3, 2, 0, 1)
-    if a.ndim == 2:
+    if isinstance(module, nn.Linear):
         return name, a.T
-    raise ValueError(f"unexpected kernel rank {a.ndim} at {'/'.join(path)}")
+    raise KeyError(f"JAX kernel {'/'.join(path)} lands in no Conv2d, "
+                   f"ConvTranspose2d or Linear of the port ({name})")
 
 
 def from_jax_params(params: Mapping, model: nn.Module
@@ -82,8 +88,9 @@ def from_jax_params(params: Mapping, model: nn.Module
         params = params["params"]
     leaves.update(_flatten(params))
     state: Dict[str, torch.Tensor] = {}
+    modules = dict(model.named_modules())
     for path, a in leaves.items():
-        name, arr = _convert_leaf(path, a)
+        name, arr = _convert_leaf(path, a, modules)
         if name not in targets:
             raise KeyError(f"JAX leaf {'/'.join(path)} has no counterpart "
                            f"({name})")

@@ -3,15 +3,18 @@
 Counterpart of ``ctvae_tpu/models/__init__.py``; the registry holds the
 CT-MCQ-VAE, the MCQVAE of the two-stage recipe's first stage, VQVAE,
 and the Gaussian members VanillaVAE (aliases ``VAE`` and
-``GaussianVAE``), BetaVAE, LogCoshVAE, DIPVAE, InfoVAE, WAE_MMD and
+``GaussianVAE``), BetaVAE, LogCoshVAE, DIPVAE, InfoVAE, WAE_MMD,
 ConditionalVAE (alias ``CVAE``; its forward takes the batch's
-``labels``). The rest of the JAX registry is not ported yet (ROADMAP
-A7).
+``labels``), IWAE, MIWAE, SWAE, BetaTCVAE, CategoricalVAE (alias
+``GumbelVAE``), JointVAE, GammaVAE, VampVAE, HVAE and LVAE. MSSIMVAE,
+DFCVAE and FactorVAE of the JAX registry, and its unregistered
+TwoStageVAE, are not ported yet (ROADMAP A7).
 ``build_model`` initialises the weights with flax's distributions
 (``lecun_normal`` kernels, zero biases, ``U(-1/K, 1/K)`` codebooks; an
 EMA codebook's buffers as flax fills ``vq_stats``; BatchNorm's scale 1,
-bias 0 and running mean 0 and variance 1) so activations at random init
-have the JAX model's ranges.
+bias 0 and running mean 0 and variance 1; the Dense kernels a model
+lists in ``orthogonal_kernels`` orthogonal, as flax's ``orthogonal()``)
+so activations at random init have the JAX model's ranges.
 """
 
 from __future__ import annotations
@@ -26,14 +29,24 @@ from ..ops.common import resolve_device
 from .backbones import BatchNorm
 from .base import BaseVAE, lecun_normal
 from .beta_vae import BetaVAE
+from .betatc_vae import BetaTCVAE
+from .cat_vae import CategoricalVAE
 from .ct_vae import CTMCQVAE, CausalTransition
 from .cvae import ConditionalVAE
 from .dip_vae import DIPVAE
+from .gamma_vae import GammaVAE
 from .gaussian_base import StandardGaussianVAE
+from .hvae import HVAE
 from .info_vae import InfoVAE
+from .iwae import IWAE
+from .joint_vae import JointVAE
 from .logcosh_vae import LogCoshVAE
+from .lvae import LVAE
 from .mcq_vae import MCQVAE
+from .miwae import MIWAE
 from .quantizers import VectorQuantizerMS
+from .swae import SWAE
+from .vampvae import VampVAE
 from .vanilla_vae import VanillaVAE
 from .vq_vae import VQVAE
 from .wae_mmd import WAE_MMD
@@ -42,10 +55,14 @@ vae_models = {"CTMCQVAE": CTMCQVAE, "MCQVAE": MCQVAE, "VQVAE": VQVAE,
               "VanillaVAE": VanillaVAE, "BetaVAE": BetaVAE,
               "LogCoshVAE": LogCoshVAE, "DIPVAE": DIPVAE,
               "InfoVAE": InfoVAE, "WAE_MMD": WAE_MMD,
-              "ConditionalVAE": ConditionalVAE,
+              "ConditionalVAE": ConditionalVAE, "IWAE": IWAE,
+              "MIWAE": MIWAE, "SWAE": SWAE, "BetaTCVAE": BetaTCVAE,
+              "CategoricalVAE": CategoricalVAE, "JointVAE": JointVAE,
+              "GammaVAE": GammaVAE, "VampVAE": VampVAE, "HVAE": HVAE,
+              "LVAE": LVAE,
               # aliases of the JAX registry
               "VAE": VanillaVAE, "GaussianVAE": VanillaVAE,
-              "CVAE": ConditionalVAE}
+              "CVAE": ConditionalVAE, "GumbelVAE": CategoricalVAE}
 
 
 def model_fields(cls) -> set:
@@ -82,7 +99,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every parameter as flax initialises its JAX counterpart; an
     EMA codebook (``vq_stats``) as flax fills it: the codebook from U(-1/K,
     1/K), ``embed_avg`` a copy of it, ``cluster_size`` zeros; BatchNorm
-    (``batch_stats``) with scale 1, bias 0, mean 0 and variance 1."""
+    (``batch_stats``) with scale 1, bias 0, mean 0 and variance 1; the
+    kernels of the Dense layers named in the model's
+    ``orthogonal_kernels`` orthogonal (flax's ``orthogonal()``: orthonormal
+    columns of the [in, out] kernel, so rows of the port's weight)."""
+    orthogonal = {id(getattr(model, n))
+                  for n in getattr(model, "orthogonal_kernels", ())}
     for module in model.modules():
         if isinstance(module, BatchNorm):
             module.weight.fill_(1.0)
@@ -100,6 +122,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             elif name == "bias" or name in ("disc_b1", "disc_b2",
                                             "mask_bias"):
                 p.zero_()
+            elif id(module) in orthogonal:
+                nn.init.orthogonal_(p, generator=generator)
             else:
                 p.copy_(lecun_normal(p.shape, _fan_in(p, module),
                                      generator, p.device))
@@ -125,8 +149,9 @@ def build_model(model_params: dict, device=None,
     return model.eval()
 
 
-__all__ = ["BaseVAE", "BetaVAE", "CTMCQVAE", "CausalTransition",
-           "ConditionalVAE", "DIPVAE",
-           "InfoVAE", "LogCoshVAE", "MCQVAE", "StandardGaussianVAE", "VQVAE",
-           "VanillaVAE", "WAE_MMD", "build_model",
+__all__ = ["BaseVAE", "BetaTCVAE", "BetaVAE", "CTMCQVAE",
+           "CategoricalVAE", "CausalTransition", "ConditionalVAE", "DIPVAE",
+           "GammaVAE", "HVAE", "IWAE", "InfoVAE", "JointVAE", "LVAE",
+           "LogCoshVAE", "MCQVAE", "MIWAE", "SWAE", "StandardGaussianVAE",
+           "VQVAE", "VampVAE", "VanillaVAE", "WAE_MMD", "build_model",
            "init_weights", "model_fields", "vae_models"]

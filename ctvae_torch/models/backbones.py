@@ -133,9 +133,10 @@ DEFAULT_HIDDEN_DIMS = (32, 64, 128, 256, 512)
 
 
 class BatchNorm(nn.Module):
-    """flax's ``nn.BatchNorm`` over the channels of an NCHW tensor
-    (``weight`` / ``bias`` are flax's ``scale`` / ``bias``,
-    ``running_mean`` / ``running_var`` its ``batch_stats``)."""
+    """flax's ``nn.BatchNorm`` over dim 1 of a [B, C, ...] tensor: the
+    channels of an NCHW map, or the features of a [B, D] vector (LVAE's
+    ladder); ``weight`` / ``bias`` are flax's ``scale`` / ``bias``,
+    ``running_mean`` / ``running_var`` its ``batch_stats``."""
 
     MOMENTUM, EPS = 0.9, 1e-5
 
@@ -153,7 +154,8 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.EPS)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            dims = (0,) + tuple(range(2, x.dim()))
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
             m = self.MOMENTUM
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
             self.running_var.mul_(m).add_(var, alpha=1.0 - m)
@@ -174,15 +176,27 @@ class ConvBNBlock(nn.Module):
         return leaky_relu(self.BatchNorm_0(self.Conv_0(x), train=train))
 
 
+def deconv_k3s2(in_features: int, features: int, *, device=None
+                ) -> nn.ConvTranspose2d:
+    """flax's ConvTranspose((3, 3), strides (2, 2), padding ((1, 2), (1,
+    2))): a 2x upsample (NCHW)."""
+    return nn.ConvTranspose2d(in_features, features, 3, stride=2, padding=1,
+                              output_padding=1, device=device)
+
+
+def nhwc_flat(x: torch.Tensor) -> torch.Tensor:
+    """An NCHW map flattened per sample in flax's NHWC order."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
 class DeconvBNBlock(nn.Module):
     """ConvTranspose(k3, s2), a 2x upsample -> BatchNorm -> LeakyReLU
     (NCHW)."""
 
     def __init__(self, in_features: int, features: int, *, device=None):
         super().__init__()
-        self.ConvTranspose_0 = nn.ConvTranspose2d(
-            in_features, features, 3, stride=2, padding=1, output_padding=1,
-            device=device)
+        self.ConvTranspose_0 = deconv_k3s2(in_features, features,
+                                           device=device)
         self.BatchNorm_0 = BatchNorm(features, device=device)
 
     def forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:

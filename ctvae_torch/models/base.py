@@ -55,7 +55,11 @@ class Draws:
     dropout keep mask, drawn only under ``train``); ``normal(shape)``:
     standard normals (``sample``, ``walk``, the noise nodes, the
     reparameterisation, the MMD's prior); ``randint(low, high, shape)``:
-    int64 in [low, high) (``walk``'s channel choice, the EMA revival)."""
+    int64 in [low, high) (``walk``'s channel choice, the EMA revival,
+    the categorical priors); ``gamma(alpha)``: Gamma(alpha, 1) of
+    ``alpha``'s shape, one shape per element, without gradient
+    (GammaVAE); ``cauchy(shape)``: standard Cauchy (SWAE's
+    projections)."""
 
     def __init__(self, generator: torch.Generator,
                  device: Optional[torch.device] = None):
@@ -83,6 +87,14 @@ class Draws:
                 ) -> torch.Tensor:
         return torch.randint(low, high, tuple(shape),
                              generator=self.generator, device=self.device)
+
+    def gamma(self, alpha: torch.Tensor) -> torch.Tensor:
+        return torch._standard_gamma(alpha.detach().to(self.device),
+                                     generator=self.generator)
+
+    def cauchy(self, shape: Sequence[int]) -> torch.Tensor:
+        return torch.empty(tuple(shape), device=self.device).cauchy_(
+            generator=self.generator)
 
 
 def reparameterize(mu: torch.Tensor, log_var: torch.Tensor, draws: Draws

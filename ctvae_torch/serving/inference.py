@@ -42,13 +42,29 @@ def _draws(model, generator: Optional[torch.Generator]) -> Draws:
     return Draws(generator, model.device)
 
 
+def encode_repr(model, x: torch.Tensor, draws: Optional[Draws] = None
+                ) -> torch.Tensor:
+    """The first output of ``model.encode(x)`` flattened per sample: the
+    first array of a nested one (LVAE's rungs of (mu, log_var)); a model
+    whose ``encode`` draws (``stochastic_encode``: HVAE's z2) gets
+    ``draws``, as JAX's encode gets the stream keys."""
+    if getattr(model, "stochastic_encode", False):
+        z = model.encode(x, draws=draws)[0]
+    else:
+        z = model.encode(x)[0]
+    while isinstance(z, (tuple, list)):
+        z = z[0]
+    return z.reshape(z.shape[0], -1)
+
+
 def make_inference_fn(model, name: str, *, num_samples: int = 64
                       ) -> Callable:
     """The inference callable of entry point ``name``:
 
     * ``reconstruct(x)``: images [B, H, W, C] (a CT model's base-mode
       forward, through the identity transition);
-    * ``encode(x)``: the encoder latents, flattened per sample;
+    * ``encode(x)``: the encoder's first output, flattened per sample
+      (``encode_repr``);
     * ``sample()``: ``num_samples`` images decoded from random latents;
     * for a model that ``needs_labels`` (ConditionalVAE), as the JAX
       package serves it: ``reconstruct(x, labels)``, ``encode(x,
@@ -77,8 +93,7 @@ def make_inference_fn(model, name: str, *, num_samples: int = 64
             return z.reshape(z.shape[0], -1)
     elif name == "encode":
         def fn(x, *, generator=None):
-            z = model.encode(x)[0]
-            return z.reshape(z.shape[0], -1)
+            return encode_repr(model, x, _draws(model, generator))
     elif name == "sample" and labelled:
         def fn(labels, *, generator=None):
             return model.sample(num_samples, labels,

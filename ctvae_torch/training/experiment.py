@@ -50,6 +50,7 @@ from torch import nn
 
 from ..data.prefetch import to_device
 from ..models.base import Draws
+from ..serving.inference import encode_repr
 from ..utils.checkpoint import CheckpointManager, load_weights_only
 from .optimizers import build_lr_schedules, build_optimizers
 from .state import FWD_KEYS, TrainState, create_train_state, \
@@ -70,17 +71,21 @@ def _is_watch_key(k: str) -> bool:
 def make_repr_fn(model: nn.Module):
     """The representation of the metrics: observations [B, H, W, C]
     (numpy or torch; uint8 is divided by 255) -> the first output of
-    ``model.encode`` flattened in its NHWC order, [B, D] on the model's
-    device, without gradients (``ctvae_tpu``'s ``VAEXperiment.repr_fn``)."""
+    ``model.encode`` flattened in its NHWC order (the first array of a
+    nested one: LVAE's lowest rung's mu), [B, D] on the model's device,
+    without gradients (``ctvae_tpu``'s ``VAEXperiment.repr_fn``). An
+    encoder that draws (HVAE) draws from a generator seeded 0 afresh at
+    each call, as JAX's ``repr_fn`` passes the same fixed keys to every
+    call."""
 
     @torch.no_grad()
     def fn(x) -> torch.Tensor:
         x = torch.as_tensor(x).to(model.device)
         x = (x.float() / 255.0 if x.dtype == torch.uint8 else x.float())
-        mu = model.encode(x)[0]
-        while isinstance(mu, (tuple, list)):
-            mu = mu[0]
-        return mu.reshape(mu.shape[0], -1)
+        draws = (Draws(torch.Generator(model.device).manual_seed(0),
+                       model.device)
+                 if getattr(model, "stochastic_encode", False) else None)
+        return encode_repr(model, x, draws)
 
     return fn
 

@@ -12,7 +12,9 @@ Every ``loss_function`` gets the JAX step's arguments: ``M_N`` (the
 train step's constant, ``exp_params.kld_weight`` in the loop; 1.0 in the
 eval step), ``step`` (the global step as an int64 tensor on the model's
 device, ``TrainState.step_tensor``), ``train``, ``optimizer_idx`` (0) and
-the step's ``Draws`` (JAX's ``noise`` key).
+the step's ``Draws`` (JAX's ``noise`` key). The forward gets ``step``
+too, as JAX's ``model.apply`` does (CategoricalVAE's temperature reads
+it; the other models take and ignore it).
 
 An EMA codebook's buffers and BatchNorm's running statistics are written
 in place by the train forward (the JAX step's mutable ``vq_stats`` and
@@ -102,7 +104,7 @@ def _forward(model: nn.Module, batch: Dict[str, torch.Tensor], mode: str,
              ) -> Dict[str, Any]:
     kwargs = {k: batch[k] for k in FWD_KEYS if k in batch}
     outputs = model(batch["image"], mode=mode, draws=draws, train=train,
-                    **kwargs)
+                    step=step, **kwargs)
     return model.loss_function(outputs, M_N=M_N, step=step, train=train,
                                optimizer_idx=0, draws=draws)
 

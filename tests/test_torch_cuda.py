@@ -1022,8 +1022,8 @@ def test_vq_kernel_at_the_vq_vae_shape(card):
 
 
 class _CpuDraws:
-    """Normals from a CPU generator on any device, so the card's step and
-    the CPU's draw the same latents."""
+    """Draws from a CPU generator on any device, so the card's step and
+    the CPU's draw the same latents, noise and gamma variates."""
 
     def __init__(self, seed, device):
         self.generator = torch.Generator().manual_seed(seed)
@@ -1033,15 +1033,61 @@ class _CpuDraws:
         return torch.randn(tuple(shape), generator=self.generator).to(
             self.device)
 
+    def uniform(self, shape):
+        return torch.rand(tuple(shape), generator=self.generator).to(
+            self.device)
 
-@pytest.mark.parametrize("name", ["VanillaVAE", "VQVAE", "ConditionalVAE"])
+    def randint(self, low, high, shape):
+        return torch.randint(low, high, tuple(shape),
+                             generator=self.generator).to(self.device)
+
+    def gamma(self, alpha):
+        return torch._standard_gamma(alpha.detach().cpu(),
+                                     generator=self.generator).to(
+            self.device)
+
+    def cauchy(self, shape):
+        return torch.empty(tuple(shape)).cauchy_(
+            generator=self.generator).to(self.device)
+
+
+_SMALL = dict(in_channels=3, hidden_dims=[8, 16], img_size=16)
+#: the zoo's members with their own architecture or draws, at small widths
+ZOO_MORE = {
+    "IWAE": dict(name="IWAE", latent_dim=8, num_samples=3, **_SMALL),
+    "MIWAE": dict(name="MIWAE", latent_dim=8, num_samples=3,
+                  num_estimates=2, **_SMALL),
+    "SWAE": dict(name="SWAE", latent_dim=8, num_projections=6, **_SMALL),
+    "SWAE-cauchy": dict(name="SWAE", latent_dim=8, num_projections=6,
+                        projection_dist="cauchy", **_SMALL),
+    "BetaTCVAE": dict(name="BetaTCVAE", in_channels=3, latent_dim=8,
+                      hidden_dims=[8, 8], img_size=16, anneal_steps=10),
+    "CategoricalVAE": dict(name="CategoricalVAE", latent_dim=4,
+                           categorical_dim=5, anneal_rate=-0.1,
+                           anneal_interval=2, **_SMALL),
+    "JointVAE": dict(name="JointVAE", latent_dim=8, categorical_dim=5,
+                     **_SMALL),
+    "GammaVAE": dict(name="GammaVAE", latent_dim=8, **_SMALL),
+    "VampVAE": dict(name="VampVAE", latent_dim=8, num_components=5,
+                    **_SMALL),
+    "HVAE": dict(name="HVAE", latent1_dim=8, latent2_dim=6, **_SMALL),
+    "LVAE": dict(name="LVAE", in_channels=3, latent_dims=[4, 8],
+                 hidden_dims=[8, 16], img_size=16),
+}
+
+
+@pytest.mark.parametrize("name", ["VanillaVAE", "VQVAE", "ConditionalVAE"]
+                         + list(ZOO_MORE))
 def test_zoo_train_step_on_card_matches_cpu(card, name, monkeypatch):
     """One train step (``M_N`` 0.5) of a small VanillaVAE / VQVAE /
-    ConditionalVAE (with the batch's 0 / 1 labels of 40 attributes) on the
-    card against the same weights and draws on the CPU: the metrics, every
-    gradient (1e-4 of its leaf's scale), every parameter after Adam
-    (within what the gradients' difference allows) and the BatchNorm
-    buffers (1e-5 / rtol 1e-4); VQVAE launched its VQ kernel once."""
+    ConditionalVAE (with the batch's 0 / 1 labels of 40 attributes) and,
+    at global step 5 (CategoricalVAE's temperature reads it), of each
+    ZOO_MORE model on the card against the same
+    weights and draws (normals, uniforms, cauchys and gamma variates of a
+    CPU generator) on the CPU: the metrics, every gradient (1e-4 of its
+    leaf's scale), every parameter after Adam (within what the gradients'
+    difference allows) and the BatchNorm buffers (1e-5 / rtol 1e-4);
+    VQVAE launched its VQ kernel once."""
     import copy
 
     from ctvae_torch.models import build_model
@@ -1050,6 +1096,7 @@ def test_zoo_train_step_on_card_matches_cpu(card, name, monkeypatch):
     from ctvae_torch.training import state as tstate
     cfg = (dict(name=name, in_channels=3, embedding_dim=8, num_embeddings=32,
                 hidden_dims=[8, 16], img_size=16) if name == "VQVAE" else
+           ZOO_MORE[name] if name in ZOO_MORE else
            dict(name=name, in_channels=3, latent_dim=8, hidden_dims=[8, 16],
                 img_size=16))
     model = build_model(cfg, device=card,
@@ -1076,6 +1123,7 @@ def test_zoo_train_step_on_card_matches_cpu(card, name, monkeypatch):
     for m, dev in ((model, "cuda"), (cpu_model, "cpu")):
         state = tstate.create_train_state(m, topt.build_optimizers(exp, m,
                                                                    4))
+        state.step = 5 if name in ZOO_MORE else 0
         metrics.append({k: float(v) for k, v in tstate.make_train_step(
             "base", M_N=0.5)(state, {k: v.to(dev) for k, v in
                                      batch.items()}).items()})
@@ -1101,8 +1149,27 @@ def test_zoo_train_step_on_card_matches_cpu(card, name, monkeypatch):
                                    atol=1e-5, rtol=1e-4, err_msg=n)
 
 
-@pytest.mark.parametrize("loss_type", [None, "B", "labels"],
-                         ids=["VanillaVAE", "BetaVAE-B", "ConditionalVAE"])
+def test_standard_gamma_moments_on_card(card):
+    """GammaVAE's draw on the card: ``Draws.gamma`` (``torch.
+    _standard_gamma`` on a seeded CUDA generator) of 10^6 variates at
+    alpha = 8.5 has mean and variance 8.5 within 1% (the estimates'
+    standard errors: 0.03% and 0.16%), and a reseeded generator repeats
+    them."""
+    from ctvae_torch.models.base import Draws
+    alpha = torch.full((10 ** 6,), 8.5, device=card)
+    draw = [Draws(torch.Generator("cuda").manual_seed(11), card).gamma(alpha)
+            for _ in range(2)]
+    assert torch.equal(draw[0], draw[1]) and draw[0].device.type == "cuda"
+    var, mean = torch.var_mean(draw[0].double())
+    assert abs(float(mean) / 8.5 - 1.0) < 0.01, float(mean)
+    assert abs(float(var) / 8.5 - 1.0) < 0.01, float(var)
+    assert float(draw[0].min()) > 0.0
+
+
+@pytest.mark.parametrize("loss_type", [None, "B", "labels", "categorical",
+                                       "gamma"],
+                         ids=["VanillaVAE", "BetaVAE-B", "ConditionalVAE",
+                              "CategoricalVAE", "GammaVAE"])
 def test_zoo_multi_train_step_graph_equals_eager_steps(card, loss_type):
     """A small VanillaVAE / BetaVAE B / ConditionalVAE trained 12 steps
     eagerly and through
@@ -1115,7 +1182,9 @@ def test_zoo_multi_train_step_graph_equals_eager_steps(card, loss_type):
     the KLD among the replayed steps: a graph that froze the step it was
     captured at would differ in the loss and in the gradients. A
     ConditionalVAE's labels (new each step) reach the replays through the
-    graph's static labels buffer."""
+    graph's static labels buffer. CategoricalVAE's temperature rises every
+    2 steps (a negative ``anneal_rate``), read by each replay's forward
+    from its own step; GammaVAE's gamma draw runs under the capture."""
     from ctvae_torch.models import build_model
     from ctvae_torch.training import (build_optimizers, create_train_state,
                                       make_multi_train_step, make_train_step)
@@ -1124,6 +1193,9 @@ def test_zoo_multi_train_step_graph_equals_eager_steps(card, loss_type):
                hidden_dims=[8, 16], img_size=16)
     if loss_type == "labels":
         cfg.update(name="ConditionalVAE")
+    elif loss_type in ("categorical", "gamma"):
+        cfg = dict(ZOO_MORE["CategoricalVAE" if loss_type == "categorical"
+                            else "GammaVAE"])
     elif loss_type:
         cfg.update(name="BetaVAE", loss_type="B", gamma=10.0,
                    max_capacity=25, Capacity_max_iter=10000)

@@ -6,12 +6,15 @@ JAX and PyTorch give different numbers from one seed, so the tests make
 every draw with numpy: while the JAX model is traced, ``jax.random.gumbel``
 / ``uniform`` / ``bernoulli`` (flax's dropout calls the last through
 ``jax.random`` at call time) / ``normal`` / ``randint`` (``sample`` and
-``walk``) are replaced by a recorder that hands out numpy draws of the
-requested shape (constants of the jitted program); the
+``walk``) / ``cauchy`` are replaced by a recorder that hands out numpy
+draws of the requested shape (constants of the jitted program); the
 port's ``ReplayDraws`` provider then hands out the same arrays in the same
-order (and checks kind and shape). The JAX side runs under ``jax.jit``:
-one compile of the whole forward costs far less on the CPU than running
-it op by op.
+order (and checks kind and shape). ``jax.random.gamma`` takes a shape per
+element that may be a traced value (GammaVAE's ``alpha + gamma_shape``):
+the recorder draws numpy's ``standard_gamma`` of it in a
+``jax.pure_callback`` when the program runs, into a slot it records in
+trace order. The JAX side runs under ``jax.jit``: one compile of the
+whole forward costs far less on the CPU than running it op by op.
 """
 
 from __future__ import annotations
@@ -100,6 +103,32 @@ class DrawRecorder:
         self.draws.append(("bernoulli", a))
         return jnp.asarray(a)
 
+    def cauchy(self, key, shape=(), dtype=jnp.float32, **kw):
+        a = self.rng.standard_cauchy(size=tuple(shape)).astype(np.float32)
+        self.draws.append(("cauchy", a))
+        return jnp.asarray(a, dtype)
+
+    def gamma(self, key, a, shape=None, dtype=jnp.float32, **kw):
+        a = jnp.asarray(a, dtype)
+        shape = a.shape if shape is None else tuple(shape)
+        slot = GammaSlot(shape)
+        self.draws.append(("gamma", slot))
+
+        def draw(alpha):
+            alpha = np.broadcast_to(np.asarray(alpha, np.float64), shape)
+            slot.value = self.rng.standard_gamma(alpha).astype(np.float32)
+            return slot.value
+        return jax.pure_callback(draw, jax.ShapeDtypeStruct(shape, dtype), a)
+
+
+class GammaSlot:
+    """A gamma draw recorded at trace time and filled when the program
+    runs (so fetch the JAX results, which waits for it, before the
+    replay)."""
+
+    def __init__(self, shape):
+        self.shape, self.value = tuple(shape), None
+
 
 @contextlib.contextmanager
 def recorded_draws(monkeypatch, seed: int = 0):
@@ -110,6 +139,8 @@ def recorded_draws(monkeypatch, seed: int = 0):
         m.setattr(jax.random, "bernoulli", rec.bernoulli)
         m.setattr(jax.random, "normal", rec.normal)
         m.setattr(jax.random, "randint", rec.randint)
+        m.setattr(jax.random, "cauchy", rec.cauchy)
+        m.setattr(jax.random, "gamma", rec.gamma)
         yield rec
 
 
@@ -122,6 +153,9 @@ class ReplayDraws:
     def _next(self, kind, shape):
         assert self.draws, f"port drew one more {kind} than JAX"
         k, a = self.draws.pop(0)
+        if isinstance(a, GammaSlot):
+            assert a.value is not None, "a gamma draw JAX never ran"
+            a = a.value
         assert k == kind and a.shape == tuple(shape), (k, a.shape, kind,
                                                        tuple(shape))
         return torch.from_numpy(a.copy())
@@ -140,6 +174,12 @@ class ReplayDraws:
 
     def randint(self, low, high, shape):
         return self._next("randint", shape)
+
+    def cauchy(self, shape):
+        return self._next("cauchy", shape)
+
+    def gamma(self, alpha):
+        return self._next("gamma", alpha.shape)
 
     def done(self):
         return not self.draws
