@@ -118,8 +118,16 @@ same widths (phase "loop"). Then more phases:
   draws; ``make_multi_train_step("base", 8)`` against eager steps for
   VanillaVAE, BetaVAE B, CategoricalVAE (the step drives its
   temperature) and GammaVAE (a gamma draw under capture), cuDNN
-  deterministic. VQVAE's run and steps make the path ``gaussian_vq``
-  (the VQ search only), the rest the path ``gaussian`` (no kernel).
+  deterministic. Then the last of the registry (``_zoo_last``):
+  ``configs/dfc_vae.yaml`` as written must refuse to train without VGG
+  weights; with ``allow_random_features``, mssim_vae, dfc_vae and
+  factorvae each a first full-width step against the CPU (FactorVAE's two
+  optimizer calls), timed steps and serving; ``run.train`` of dfc_vae and
+  factorvae one epoch of 100 steps with the loader's share; the MSSIMVAE
+  and DFCVAE graphs against eager steps; TwoStageVAE at vae.yaml's widths,
+  a stage-1 and a stage-2 step against the CPU and its serving. VQVAE's
+  run and steps make the path ``gaussian_vq`` (the VQ search only), the
+  rest the path ``gaussian`` (no kernel).
 
     python3 chip_smoke.py --search-only
 
@@ -195,6 +203,7 @@ import sys
 import tempfile
 import time
 import types
+import warnings
 
 import torch
 
@@ -3859,6 +3868,15 @@ DIVERGE_IN_STEPS = {"iwae": 1, "vampvae": 1, "hvae": 1, "lvae": 1}
 DIVERGE_IN_EPOCHS = {"vq_vae": 2, "lvae": 1, "gammavae": 1}
 ZOO_TIMED_STEPS = 5        # timed eager steps per model after the warm one
 GAUSSIAN_SERVE_B = 16
+#: the last of the registry: MSSIMVAE (MS-SSIM), DFCVAE (the frozen
+#: VGG19-bn, model_params.allow_random_features set: no weights can be
+#: fetched) and FactorVAE (LR_2 / submodel: two optimizer calls a batch)
+ZOO_LAST = ("mssim_vae", "dfc_vae", "factorvae")
+#: of these, trained one epoch through run.train on the first
+#: LAST_EPOCH_STEPS batches of the stand-in's train split
+LAST_RUNS = ("dfc_vae", "factorvae")
+LAST_EPOCH_STEPS = 100
+LAST_VAL_BATCHES = 10
 
 
 def _gaussian_config(name: str, root: str, logs: str) -> dict:
@@ -4062,13 +4080,13 @@ class _NonfiniteWatch:
         self.taken.append((kind, t.clone()))
         return t
 
-    def _watched(self, state, batch, mode, M_N, step):
+    def _watched(self, state, batch, mode, M_N, step, optimizer_idx=0):
         model = state.model
         if self.first is not None or model.device.type != "cuda":
-            return self._grads(state, batch, mode, M_N, step)
+            return self._grads(state, batch, mode, M_N, step, optimizer_idx)
         buffers = [b.clone() for b in model.buffers()]
         self.taken = []
-        metrics = self._grads(state, batch, mode, M_N, step)
+        metrics = self._grads(state, batch, mode, M_N, step, optimizer_idx)
         if all(torch.stack([torch.isfinite(v).all()
                             for v in metrics.values()]).tolist()):
             return metrics
@@ -4083,7 +4101,7 @@ class _NonfiniteWatch:
             want = self._grads(
                 types.SimpleNamespace(model=cpu, generator=None),
                 {k: v.cpu() for k, v in batch.items()}, mode, M_N,
-                step.cpu())
+                step.cpu(), optimizer_idx)
         finally:
             self._tstate.Draws = self._draws
         errs = {}
@@ -4106,7 +4124,8 @@ class _NonfiniteWatch:
         return metrics
 
 
-def _train_step_vs_cpu(name: str, cfg: dict, batch: dict) -> dict:
+def _train_step_vs_cpu(name: str, cfg: dict, batch: dict,
+                       build=None) -> dict:
     """The first train step of ``cfg``'s model at full width (its
     model_params and _exp_params: the clip and the weight decay as
     run.train takes them) on ``batch`` on the card against the same step
@@ -4127,8 +4146,13 @@ def _train_step_vs_cpu(name: str, cfg: dict, batch: dict) -> dict:
     and the card's own gradients. (Adam maps a gradient of rounding noise,
     as a conv bias before a BatchNorm gets, to a step of up to LR times
     |g| / 1e-8, so two sides' parameters are held through their gradients,
-    not to each other.) Returns the largest errors, each over its
-    tolerance.
+    not to each other.) With two optimizers (FactorVAE's ``LR_2`` /
+    ``submodel``) the batch's two calls in turn, the second from the
+    card's state after the first on both sides (its parameters and
+    buffers copied to the CPU), and the second call must leave every
+    parameter outside its optimizer bit-unchanged on the card.
+    ``build(generator)`` makes the model where it is no registry config's
+    (TwoStageVAE). Returns the largest errors, each over its tolerance.
     """
     from ctvae_torch.models import build_model
     from ctvae_torch.training import (build_optimizers, create_train_state,
@@ -4136,35 +4160,17 @@ def _train_step_vs_cpu(name: str, cfg: dict, batch: dict) -> dict:
     from ctvae_torch.training import state as tstate
     exp = _exp_params(cfg)
     M_N = float(exp.get("kld_weight", 1.0))
-    model = build_model(cfg["model_params"], device="cuda",
-                        generator=torch.Generator("cuda").manual_seed(SEED))
+    if build is None:
+        def build(gen):
+            return build_model(cfg["model_params"], device="cuda",
+                               generator=gen)
+    model = build(torch.Generator("cuda").manual_seed(SEED))
     cpu_model = copy.deepcopy(model).to("cpu")
     on_card_grads = copy.deepcopy(cpu_model)
-    metrics, grads = {}, {}
-    t0 = time.perf_counter()
-    for side, m in (("card", model), ("cpu", cpu_model)):
-        state = create_train_state(m, build_optimizers(
-            exp, m, steps_per_epoch=100), seed=SEED)
-        step = make_train_step("base", M_N=M_N)
-        b = {k: v.to(m.device) for k, v in batch.items()}
-        if side == "card":
-            with _NonfiniteWatch(f"gaussian {name} first step") as watch:
-                out = step(state, b)
-            replay = _replay_taken(watch.taken, "cpu")
-        else:
-            kept = tstate.Draws
-            tstate.Draws = lambda generator, device: replay
-            try:
-                out = step(state, b)
-            finally:
-                tstate.Draws = kept
-        metrics[side] = {k: float(v) for k, v in out.items()
-                         if v.dim() == 0}
-        grads[side] = {n: p.grad.detach().cpu()
-                       for n, p in m.named_parameters()
-                       if p.grad is not None}
-    if replay.left():
-        raise AssertionError(f"{name}: {replay.left()} draws not replayed")
+    states = {side: create_train_state(m, build_optimizers(
+        exp, m, steps_per_epoch=100), seed=SEED)
+        for side, m in (("card", model), ("cpu", cpu_model))}
+    reference = build_optimizers(exp, on_card_grads, steps_per_epoch=100)
     worst = {"metrics": 0.0, "grads": 0.0, "params": 0.0, "buffers": 0.0}
 
     def hold(kind, what, err):
@@ -4175,42 +4181,98 @@ def _train_step_vs_cpu(name: str, cfg: dict, batch: dict) -> dict:
                                  f"{what} off by {float(err.max()):.3g} of "
                                  f"its tolerance at element {i}")
 
-    if metrics["card"].keys() != metrics["cpu"].keys() or \
-            grads["card"].keys() != grads["cpu"].keys():
-        raise AssertionError(f"{name}: metrics {list(metrics['card'])} / "
-                             f"{list(metrics['cpu'])}")
-    for k, v in metrics["cpu"].items():
-        hold("metrics", k, torch.tensor(abs(metrics["card"][k] - v)
-                                        / (1e-6 + 1e-4 * abs(v))))
-    scale = {}
-    for n, g in grads["cpu"].items():
-        block = n.rsplit(".", 2)[0]
-        scale[block] = max(scale.get(block, 1.0), float(g.abs().max()))
-    for n, g in grads["cpu"].items():
-        hold("grads", n, (grads["card"][n] - g).abs()
-             / (1e-3 * scale[n.rsplit(".", 2)[0]]))
-    for n, p in on_card_grads.named_parameters():
-        p.grad = grads["card"].get(n)
-    for opt in build_optimizers(exp, on_card_grads, steps_per_epoch=100):
-        opt.step()
-    updated = dict(on_card_grads.named_parameters())
-    for n, p in model.named_parameters():
-        hold("params", n, (p.detach().cpu() - updated[n].detach()).abs()
-             / 1e-6)
-    cpu_buffers = dict(cpu_model.named_buffers())
-    for n, b in model.named_buffers():
-        w = cpu_buffers[n]
-        hold("buffers", n, (b.cpu() - w).abs() / (1e-5 + 1e-4 * w.abs()))
+    t0, taken, n_opt = time.perf_counter(), 0, len(reference)
+    for idx in range(n_opt):
+        # both sides (and the reference update) from the card's state
+        with torch.no_grad():
+            for m in (cpu_model, on_card_grads):
+                for t, c in zip(model.state_dict().values(),
+                                m.state_dict().values()):
+                    c.copy_(t.cpu())
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        metrics, grads = {}, {}
+        for side, m in (("card", model), ("cpu", cpu_model)):
+            step = make_train_step("base", M_N=M_N, optimizer_idx=idx)
+            b = {k: v.to(m.device) for k, v in batch.items()}
+            if side == "card":
+                with _NonfiniteWatch(f"gaussian {name} first step call "
+                                     f"{idx}") as watch:
+                    out = step(states[side], b)
+                replay = _replay_taken(watch.taken, "cpu")
+                taken += len(watch.taken)
+            else:
+                kept = tstate.Draws
+                tstate.Draws = lambda generator, device: replay
+                try:
+                    out = step(states[side], b)
+                finally:
+                    tstate.Draws = kept
+            metrics[side] = {k: float(v) for k, v in out.items()
+                             if v.dim() == 0}
+            grads[side] = {n: p.grad.detach().cpu()
+                           for n, p in m.named_parameters()
+                           if p.grad is not None}
+        if replay.left():
+            raise AssertionError(f"{name}: {replay.left()} draws not "
+                                 f"replayed")
+        if metrics["card"].keys() != metrics["cpu"].keys() or \
+                grads["card"].keys() != grads["cpu"].keys():
+            raise AssertionError(f"{name}: metrics {list(metrics['card'])} "
+                                 f"/ {list(metrics['cpu'])}")
+        for k, v in metrics["cpu"].items():
+            hold("metrics", k, torch.tensor(abs(metrics["card"][k] - v)
+                                            / (1e-6 + 1e-4 * abs(v))))
+        scale = {}
+        for n, g in grads["cpu"].items():
+            block = n.rsplit(".", 2)[0]
+            scale[block] = max(scale.get(block, 1.0), float(g.abs().max()))
+        for n, g in grads["cpu"].items():
+            hold("grads", n, (grads["card"][n] - g).abs()
+                 / (1e-3 * scale[n.rsplit(".", 2)[0]]))
+        for n, p in on_card_grads.named_parameters():
+            p.grad = grads["card"].get(n)
+        reference[idx].step()
+        updated = dict(on_card_grads.named_parameters())
+        for n, p in model.named_parameters():
+            hold("params", n, (p.detach().cpu() - updated[n].detach()).abs()
+                 / 1e-6)
+        cpu_buffers = dict(cpu_model.named_buffers())
+        for n, b in model.named_buffers():
+            w = cpu_buffers[n]
+            hold("buffers", n, (b.cpu() - w).abs() / (1e-5 + 1e-4 * w.abs()))
+        held = {id(p) for p in states["card"].optimizers[idx].params}
+        moved = [n for n, p in model.named_parameters()
+                 if id(p) not in held and not torch.equal(p, before[n])]
+        if moved:
+            raise AssertionError(f"{name} call {idx}: parameters outside "
+                                 f"its optimizer moved: {moved[:4]}")
     log(f"gaussian {name}: the first train step at B={len(batch['image'])} "
-        f"on the card vs the CPU on the same weights and the card's "
-        f"{len(watch.taken)} draws, largest error over its tolerance "
+        f"({n_opt} optimizer call{'s' if n_opt > 1 else ''}"
+        f"{', the second moving its submodel alone' if n_opt > 1 else ''}"
+        f") on the card vs the CPU on the same weights and the card's "
+        f"{taken} draws, largest error over its tolerance "
         f"{json.dumps(worst)} ({len(grads['cpu'])} gradients, "
         f"{sum(1 for _ in model.buffers())} buffers; "
         f"{time.perf_counter() - t0:.1f} s with the CPU step); loss "
         f"{metrics['card']['loss']:.6g}")
-    del model, cpu_model, on_card_grads
+    del model, cpu_model, on_card_grads, states
     torch.cuda.empty_cache()
     return worst
+
+
+def _vgg_bound_ms(vgg, B: int, size: int) -> float:
+    """The least time of a DFCVAE train step's VGG convolutions at the f32
+    peak: 2 x H x W x C_in x C_out x 9 operations per conv and image (an
+    fma = 2), the forward on the 2B reconstructions and inputs and the
+    data gradient on the B reconstructions."""
+    flops, hw = 0, size
+    for idx, (kind, _) in enumerate(vgg.plan[:vgg.last + 1]):
+        if kind == "pool":
+            hw //= 2
+        elif kind == "conv":
+            w = getattr(vgg, f"conv{idx}_weight")
+            flops += 2 * hw * hw * w.shape[0] * w.shape[1] * 9
+    return 1e3 * flops * 3 * B / F32_FLOPS
 
 
 def _zoo_step(name: str, cfg: dict, batch: dict) -> dict:
@@ -4219,7 +4281,8 @@ def _zoo_step(name: str, cfg: dict, batch: dict) -> dict:
     ones (median), all under a _NonfiniteWatch: the losses finite, or
     non-finite from DIVERGE_IN_STEPS' step on as on the CPU from the same
     state; one step profiled (device-busy share, top kernels); peak
-    memory."""
+    memory. A step of a model with two optimizers (FactorVAE) is the
+    batch's two calls; a frozen VGG (DFCVAE's) must end bit-unchanged."""
     from ctvae_torch.models import build_model
     from ctvae_torch.training import (build_optimizers, create_train_state,
                                       make_train_step)
@@ -4230,7 +4293,17 @@ def _zoo_step(name: str, cfg: dict, batch: dict) -> dict:
                         generator=torch.Generator("cuda").manual_seed(SEED))
     state = create_train_state(model, build_optimizers(
         exp, model, steps_per_epoch=100), seed=SEED)
-    step = make_train_step("base", M_N=float(exp.get("kld_weight", 1.0)))
+    calls = [make_train_step("base", M_N=float(exp.get("kld_weight", 1.0)),
+                             optimizer_idx=i)
+             for i in range(len(state.optimizers))]
+    vgg = {n: t.clone() for n, t in model.named_buffers()
+           if n.startswith("feature_network.")}
+
+    def step(state, batch):
+        for call in calls:
+            out = call(state, batch)
+        return out
+
     secs, losses = [], []
     with _NonfiniteWatch(f"zoo {name}") as watch:
         for _ in range(1 + ZOO_TIMED_STEPS):
@@ -4239,6 +4312,9 @@ def _zoo_step(name: str, cfg: dict, batch: dict) -> dict:
             out = step(state, batch)
             losses.append(float(out["loss"]))
             secs.append(1e3 * (time.perf_counter() - t0))
+    frozen = dict(model.named_buffers())
+    if any(not torch.equal(frozen[n], t) for n, t in vgg.items()):
+        raise AssertionError(f"zoo {name}: the frozen VGG's buffers moved")
     allowed = DIVERGE_IN_STEPS.get(name)
     if watch.first is not None and (allowed is None
                                     or watch.first < allowed):
@@ -4255,7 +4331,17 @@ def _zoo_step(name: str, cfg: dict, batch: dict) -> dict:
            "top_kernels": [[k[:60], round(ms, 4)] for k, ms, _ in rows[:3]],
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "losses": losses, "nonfinite_from_step": watch.first,
-           "clip": exp.get("gradient_clip_val")}
+           "clip": exp.get("gradient_clip_val"),
+           "optimizer_calls_per_step": len(calls)}
+    if vgg:
+        res["vgg_buffers_unchanged"] = len(vgg)
+        res["vgg_conv_bound_ms"] = _vgg_bound_ms(
+            model.feature_network, len(batch["image"]),
+            batch["image"].shape[1])
+        log(f"zoo {name}: the VGG's convolutions need at least "
+            f"{res['vgg_conv_bound_ms']:.3f} ms at {F32_FLOPS / 1e12:.0f} "
+            f"TFLOP/s (f32), against {res['device_ms']:.3f} ms of device "
+            f"time in the profiled step")
     log(f"zoo {name} ({res['model']}) B={GAUSSIAN_BATCH}: "
         f"{res['ms_per_step']:.3f} ms per eager train step (median of "
         f"{ZOO_TIMED_STEPS} after a warm one, each watched), device busy "
@@ -4347,6 +4433,171 @@ def _gaussian_graph(name: str, cfg: dict, batches: list) -> float:
     return out
 
 
+def _celeba_subset(root: str, dst: str, n_train: int, n_test: int) -> str:
+    """A CelebA root under ``dst`` over the first ``n_train`` train and
+    ``n_test`` test files of ``root``'s split (its image folder and
+    attributes linked); returns ``dst``."""
+    src, out = os.path.join(root, "celeba"), os.path.join(dst, "celeba")
+    os.makedirs(out, exist_ok=True)
+    for name in ("img_align_celeba", "list_attr_celeba.txt"):
+        if os.path.exists(os.path.join(src, name)):
+            os.symlink(os.path.join(src, name), os.path.join(out, name))
+    left = {0: n_train, 2: n_test}
+    with open(os.path.join(src, "list_eval_partition.txt")) as f, \
+            open(os.path.join(out, "list_eval_partition.txt"), "w") as g:
+        for line in f:
+            parts = line.split()
+            if len(parts) == 2 and left.get(int(parts[1]), 0) > 0:
+                left[int(parts[1])] -= 1
+                g.write(line)
+    return dst
+
+
+def _vgg_refusal(cfg: dict, logs: str) -> dict:
+    """``configs/dfc_vae.yaml`` as written (no ``allow_random_features``)
+    through ``run.train`` where no VGG19-bn weights exist: it must raise
+    the refusal that names ``allow_random_features`` before training.
+    Where weights exist (``find_pretrained_weights``) there is nothing to
+    refuse, and that is logged."""
+    from ctvae_torch import run
+    from ctvae_torch.models.vgg import find_pretrained_weights
+    path = find_pretrained_weights()
+    if path is not None:
+        log(f"gaussian dfc_vae: VGG19-bn weights at {path}: no refusal "
+            f"to check")
+        return {"weights": path}
+    cfg = {**cfg, "logging_params": {**cfg["logging_params"],
+                                     "save_dir": logs}}
+    t0 = time.perf_counter()
+    try:
+        run.train(cfg, device="cuda")
+    except RuntimeError as e:
+        if "allow_random_features" not in str(e):
+            raise
+        log(f"gaussian dfc_vae as written: run.train refused in "
+            f"{time.perf_counter() - t0:.1f} s: {str(e)[:160]}...")
+        return {"refused": True}
+    raise AssertionError("dfc_vae.yaml as written trained on random VGG "
+                         "features without allow_random_features")
+
+
+def _two_stage(stage: int, gen: torch.Generator):
+    """TwoStageVAE at configs/vae.yaml's widths (its model_params; the
+    stage-2 MLPs' default [1024, 1024]) on the card, ``train_stage``
+    ``stage``, initialised from ``gen``."""
+    from ctvae_torch.models import TwoStageVAE, init_weights
+    mp = dict(read_config(os.path.join(os.path.dirname(CONFIG), "vae.yaml"))[
+        "model_params"])
+    mp.pop("name")
+    model = TwoStageVAE(**mp, train_stage=stage, device="cuda")
+    init_weights(model, gen)
+    return model.eval()
+
+
+def _zoo_last(smi: str, root: str, tmp: str, cfgs: dict, batch: dict,
+              batches: list) -> dict:
+    """The last of the registry from its YAML (ZOO_LAST), on the CelebA
+    stand-in under ``root`` as written but ``data_path``: dfc_vae.yaml as
+    written refused (``_vgg_refusal``), then with allow_random_features;
+    each config's first full-width step at B = 64 against the CPU
+    (FactorVAE's two calls), its timed zoo steps (DFCVAE's VGG
+    bit-unchanged) and its serving against the CPU; run.train of LAST_RUNS
+    one epoch each on the first LAST_EPOCH_STEPS train batches (a subset
+    root beside the stand-in: FactorVAE's checkpoint must hold two
+    optimizer states, its scalars ``lr_2``) and their loaders' share
+    (``_epoch_pace``); the graph vs eager steps of MSSIMVAE and DFCVAE;
+    TwoStageVAE at configs/vae.yaml's widths, a ``train_stage`` 1 and a 2
+    step against the CPU, and its serving (``sample``: two-stage). The
+    caller counts the launches (path ``gaussian``: none). Returns the
+    numbers."""
+    from ctvae_torch import run
+    from ctvae_torch.data import VAEDataset
+    from ctvae_torch.models import build_model
+    t_start = time.perf_counter()
+    out = {"card": smi, "epochs": {}, "steps": {}, "serve": {}}
+    sub = _celeba_subset(root, os.path.join(tmp, "celeba_last"),
+                         LAST_EPOCH_STEPS * GAUSSIAN_BATCH,
+                         LAST_VAL_BATCHES * GAUSSIAN_BATCH)
+    logs = os.path.join(tmp, "logs_last")
+    dfc = cfgs["dfc_vae"]
+    out["vgg_refusal"] = _vgg_refusal(
+        {**dfc, "data_params": {**dfc["data_params"], "data_path": sub}},
+        os.path.join(tmp, "logs_refusal"))
+    cfgs = {n: {**cfgs[n], "model_params": {
+        **cfgs[n]["model_params"],
+        **({"allow_random_features": True} if n == "dfc_vae" else {})}}
+        for n in ZOO_LAST}
+    out["first_step_vs_cpu"] = {
+        n: _train_step_vs_cpu(n, cfgs[n], {"image": batch["image"]})
+        for n in ZOO_LAST}
+    for n in ZOO_LAST:
+        out["steps"][n] = _zoo_step(n, cfgs[n], batch)
+        model = build_model(cfgs[n]["model_params"], device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(
+                                SEED))
+        out["serve"][n] = _gaussian_serve(model, f"gaussian {n}")
+        del model
+    for n in LAST_RUNS:
+        cfg = {**cfgs[n], "data_params": {**cfgs[n]["data_params"],
+                                          "data_path": sub},
+               "logging_params": {**cfgs[n]["logging_params"],
+                                  "save_dir": logs}}
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # the random-VGG warning
+            res = run.train(cfg, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        run_dir = _check_run(f"gaussian {n}", cfg, res, logs)
+        out["epochs"][n] = _epoch_numbers(f"gaussian {n}", res, secs, None,
+                                          _counts(), smi)
+        if int(res["train_steps_base"]) != LAST_EPOCH_STEPS:
+            raise AssertionError(f"{n}: {res['train_steps_base']} steps")
+        if n == "factorvae":
+            blob = torch.load(os.path.join(run_dir, "checkpoints", "last"),
+                              map_location="cpu", weights_only=True)
+            with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+                lr_2 = [json.loads(line)["lr_2"] for line in f
+                        if "lr_2" in line]
+            counts = [o["count"] for o in blob["optimizers"]]
+            if len(blob["optimizers"]) != 2 or not lr_2 or \
+                    counts != [LAST_EPOCH_STEPS] * 2 or \
+                    blob["step"] != 2 * LAST_EPOCH_STEPS:
+                raise AssertionError(f"factorvae: checkpoint step "
+                                     f"{blob['step']}, optimizer counts "
+                                     f"{counts}, lr_2 lines {lr_2}")
+            log(f"gaussian factorvae: checkpoint with two optimizer states "
+                f"(counts {counts}, step {blob['step']}); scalars.jsonl "
+                f"lr_2 {lr_2}")
+            out["epochs"][n]["lr_2"] = lr_2
+        pdata = VAEDataset(**cfg["data_params"])
+        pdata.setup()
+        host_ms, copy_ms, _ = _loader_ms(pdata)
+        model = build_model(cfg["model_params"], device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(
+                                SEED))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out["epochs"][n]["pace"] = _epoch_pace(
+                f"gaussian {n}", model, _exp_params(cfg), pdata, host_ms,
+                copy_ms, smi)
+        del model
+        torch.cuda.empty_cache()
+    out["graph_max_diff"] = {n: _gaussian_graph(n, cfgs[n], batches)
+                             for n in ("mssim_vae", "dfc_vae")}
+    vae = cfgs.get("vae") or _gaussian_config("vae", root, logs)
+    for stage in (1, 2):
+        out["first_step_vs_cpu"][f"two_stage_{stage}"] = _train_step_vs_cpu(
+            f"two_stage_{stage}", vae, {"image": batch["image"]},
+            build=lambda gen, stage=stage: _two_stage(stage, gen))
+    model = _two_stage(2, torch.Generator("cuda").manual_seed(SEED))
+    out["serve"]["two_stage"] = _gaussian_serve(model, "gaussian two_stage")
+    del model
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"gaussian last of the registry: {out['wall_s']:.1f} s")
+    return out
+
+
 def _epoch_watch(label: str, name: str):
     """A _NonfiniteWatch over the epoch of a config in DIVERGE_IN_EPOCHS
     (its steps then pay one host read each), else a context that watches
@@ -4391,7 +4642,9 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
     first two; the serving entry points of VanillaVAE and each ZOO_MORE
     model against the CPU; the multi-step graph against eager steps for
     VanillaVAE, BetaVAE B, CategoricalVAE and GammaVAE; the loader's share
-    of the lvae, gammavae and cat_vae epochs. Launch counters are reset
+    of the lvae, gammavae and cat_vae epochs; the last of the registry
+    (``_zoo_last``: MSSIMVAE, DFCVAE with its VGG refusal, FactorVAE's two
+    optimizers, TwoStageVAE). Launch counters are reset
     before and read after the VQVAE run (path ``gaussian_vq``) and the
     rest (path ``gaussian``, where no kernel may launch). Returns
     (gaussian launches, gaussian_vq launches, the VQ rows, the
@@ -4415,7 +4668,7 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
         root, logs = celeba_root, os.path.join(tmp, "logs")
         cfgs = {n: _gaussian_config(n, root, logs)
                 for n in dict.fromkeys(GAUSSIAN_RUNS + ZOO_CONFIGS
-                                       + ZOO_MORE)}
+                                       + ZOO_MORE + ZOO_LAST)}
         vq_launches = None
         for name in GAUSSIAN_RUNS:
             cfg = cfgs[name]
@@ -4516,6 +4769,9 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
         numbers["graph_max_diff"] = {
             n: _gaussian_graph(n, cfgs[n], batches)
             for n in ("vae", "bbvae", "cat_vae", "gammavae")}
+        add(_counts())
+        _reset_counts()
+        numbers["last"] = _zoo_last(smi, root, tmp, cfgs, batch, batches)
         add(_counts())
     if vq_launches is None or vq_launches["vq_l2_argmin"] == 0 or any(
             n for k, n in vq_launches.items() if k != "vq_l2_argmin") or \

@@ -19,8 +19,11 @@ ConvTranspose, LVAE's ``final_bn`` and ``dec_blocks_0_1`` BatchNorm):
 
 An EMA codebook's ``vq_stats`` collection (``embedding``,
 ``cluster_size``, ``embed_avg`` of each quantizer) maps by the same
-names onto the model's buffers, and BatchNorm's ``batch_stats`` (``mean``,
-``var``) onto its ``running_mean`` / ``running_var``.
+names onto the model's buffers, BatchNorm's ``batch_stats`` (``mean``,
+``var``) onto its ``running_mean`` / ``running_var``, and a frozen VGG's
+``frozen`` collection onto its buffers: ``conv<i>_kernel`` HWIO ->
+``conv<i>_weight`` OIHW, the conv biases and BatchNorm's ``scale``,
+``bias``, ``mean`` and ``var`` by their names.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 from torch import nn
 
 from .models.backbones import BatchNorm
+from .models.vgg import FrozenVGG19BN
 
 
 #: BatchNorm leaves: flax's name -> the port's
@@ -56,6 +60,9 @@ def _convert_leaf(path: tuple, a: np.ndarray, modules: Dict[str, nn.Module]):
     module = modules.get(".".join(parents))
     if isinstance(module, BatchNorm) and leaf in _BATCH_NORM:
         return ".".join(parents + [_BATCH_NORM[leaf]]), a
+    if isinstance(module, FrozenVGG19BN) and leaf.endswith("_kernel"):
+        return (".".join(parents + [leaf[:-len("kernel")] + "weight"]),
+                a.transpose(3, 2, 0, 1))
     if leaf != "kernel":
         return ".".join(path), a
     name = ".".join(parents + ["weight"])
@@ -73,7 +80,8 @@ def from_jax_params(params: Mapping, model: nn.Module
                     ) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of ``model`` filled from flax ``params`` (the
     ``params`` collection itself, or a variables dict holding it and, for
-    an EMA codebook, its ``vq_stats``, for BatchNorm its ``batch_stats``).
+    an EMA codebook, its ``vq_stats``, for BatchNorm its ``batch_stats``,
+    for a frozen VGG its ``frozen``).
 
     Raises if a leaf maps to no parameter or buffer of the model, if a
     shape disagrees, or if a parameter of the model is left unfilled (and,
@@ -83,7 +91,7 @@ def from_jax_params(params: Mapping, model: nn.Module
         buffers = {k: v for k, v in model.state_dict().items()
                    if k not in targets}
         targets.update(buffers)
-        for collection in ("vq_stats", "batch_stats"):
+        for collection in ("vq_stats", "batch_stats", "frozen"):
             leaves.update(_flatten(params.get(collection, {})))
         params = params["params"]
     leaves.update(_flatten(params))

@@ -6,15 +6,19 @@ and the Gaussian members VanillaVAE (aliases ``VAE`` and
 ``GaussianVAE``), BetaVAE, LogCoshVAE, DIPVAE, InfoVAE, WAE_MMD,
 ConditionalVAE (alias ``CVAE``; its forward takes the batch's
 ``labels``), IWAE, MIWAE, SWAE, BetaTCVAE, CategoricalVAE (alias
-``GumbelVAE``), JointVAE, GammaVAE, VampVAE, HVAE and LVAE. MSSIMVAE,
-DFCVAE and FactorVAE of the JAX registry, and its unregistered
-TwoStageVAE, are not ported yet (ROADMAP A7).
+``GumbelVAE``), JointVAE, GammaVAE, VampVAE, HVAE, LVAE, MSSIMVAE,
+DFCVAE and FactorVAE: every name of the JAX registry. TwoStageVAE is
+importable from here and, as in JAX, not registered (construct it and
+call ``init_weights``).
 ``build_model`` initialises the weights with flax's distributions
 (``lecun_normal`` kernels, zero biases, ``U(-1/K, 1/K)`` codebooks; an
 EMA codebook's buffers as flax fills ``vq_stats``; BatchNorm's scale 1,
 bias 0 and running mean 0 and variance 1; the Dense kernels a model
-lists in ``orthogonal_kernels`` orthogonal, as flax's ``orthogonal()``)
-so activations at random init have the JAX model's ranges.
+lists in ``orthogonal_kernels`` orthogonal, as flax's ``orthogonal()``;
+a frozen VGG's buffers as flax fills its ``frozen`` collection:
+``he_normal`` conv kernels, zero biases, BatchNorm's scale and variance
+1, bias and mean 0) so activations at random init have the JAX model's
+ranges.
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ from .betatc_vae import BetaTCVAE
 from .cat_vae import CategoricalVAE
 from .ct_vae import CTMCQVAE, CausalTransition
 from .cvae import ConditionalVAE
+from .dfcvae import DFCVAE
 from .dip_vae import DIPVAE
+from .fvae import FactorVAE
 from .gamma_vae import GammaVAE
 from .gaussian_base import StandardGaussianVAE
 from .hvae import HVAE
@@ -44,10 +50,13 @@ from .logcosh_vae import LogCoshVAE
 from .lvae import LVAE
 from .mcq_vae import MCQVAE
 from .miwae import MIWAE
+from .mssim_vae import MSSIMVAE
 from .quantizers import VectorQuantizerMS
 from .swae import SWAE
+from .twostage_vae import TwoStageVAE
 from .vampvae import VampVAE
 from .vanilla_vae import VanillaVAE
+from .vgg import FrozenVGG19BN
 from .vq_vae import VQVAE
 from .wae_mmd import WAE_MMD
 
@@ -59,7 +68,8 @@ vae_models = {"CTMCQVAE": CTMCQVAE, "MCQVAE": MCQVAE, "VQVAE": VQVAE,
               "MIWAE": MIWAE, "SWAE": SWAE, "BetaTCVAE": BetaTCVAE,
               "CategoricalVAE": CategoricalVAE, "JointVAE": JointVAE,
               "GammaVAE": GammaVAE, "VampVAE": VampVAE, "HVAE": HVAE,
-              "LVAE": LVAE,
+              "LVAE": LVAE, "MSSIMVAE": MSSIMVAE, "DFCVAE": DFCVAE,
+              "FactorVAE": FactorVAE,
               # aliases of the JAX registry
               "VAE": VanillaVAE, "GaussianVAE": VanillaVAE,
               "CVAE": ConditionalVAE, "GumbelVAE": CategoricalVAE}
@@ -106,6 +116,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     orthogonal = {id(getattr(model, n))
                   for n in getattr(model, "orthogonal_kernels", ())}
     for module in model.modules():
+        if isinstance(module, FrozenVGG19BN):
+            for name, b in module.named_buffers(recurse=False):
+                if name.endswith("_weight"):    # OIHW; variance 2 / fan_in
+                    fan_in = b.shape[1] * b.shape[2] * b.shape[3]
+                    b.copy_(lecun_normal(b.shape, fan_in / 2.0, generator,
+                                         b.device))
+                else:
+                    b.fill_(1.0 if name.endswith(("_scale", "_var"))
+                            else 0.0)
+            continue
         if isinstance(module, BatchNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
@@ -150,8 +170,9 @@ def build_model(model_params: dict, device=None,
 
 
 __all__ = ["BaseVAE", "BetaTCVAE", "BetaVAE", "CTMCQVAE",
-           "CategoricalVAE", "CausalTransition", "ConditionalVAE", "DIPVAE",
-           "GammaVAE", "HVAE", "IWAE", "InfoVAE", "JointVAE", "LVAE",
-           "LogCoshVAE", "MCQVAE", "MIWAE", "SWAE", "StandardGaussianVAE",
-           "VQVAE", "VampVAE", "VanillaVAE", "WAE_MMD", "build_model",
-           "init_weights", "model_fields", "vae_models"]
+           "CategoricalVAE", "CausalTransition", "ConditionalVAE", "DFCVAE",
+           "DIPVAE", "FactorVAE", "FrozenVGG19BN", "GammaVAE", "HVAE",
+           "IWAE", "InfoVAE", "JointVAE", "LVAE", "LogCoshVAE", "MCQVAE",
+           "MIWAE", "MSSIMVAE", "SWAE", "StandardGaussianVAE",
+           "TwoStageVAE", "VQVAE", "VampVAE", "VanillaVAE", "WAE_MMD",
+           "build_model", "init_weights", "model_fields", "vae_models"]

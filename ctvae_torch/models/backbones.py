@@ -20,7 +20,8 @@ k3-s2 one padded ((1, 2), (1, 2)) is ``ConvTranspose2d(k3, s2, p1,
 output_padding=1)``. Submodule names follow the JAX param tree
 (``Conv_0``, ``ConvBNBlock_0``, ``BatchNorm_0``, ...).
 
-``BatchNorm`` is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``: it
+``BatchNorm`` is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` (or
+another ``momentum``): it
 follows the ``train`` argument, never ``Module.training``; a train pass
 normalises with the batch's statistics and folds its mean and *biased*
 variance into the running buffers (``running = 0.9 running + 0.1 batch``,
@@ -136,12 +137,15 @@ class BatchNorm(nn.Module):
     """flax's ``nn.BatchNorm`` over dim 1 of a [B, C, ...] tensor: the
     channels of an NCHW map, or the features of a [B, D] vector (LVAE's
     ladder); ``weight`` / ``bias`` are flax's ``scale`` / ``bias``,
-    ``running_mean`` / ``running_var`` its ``batch_stats``."""
+    ``running_mean`` / ``running_var`` its ``batch_stats``. ``momentum``
+    0.9 is the zoo's; TwoStageVAE's MLPs take flax's default, 0.99."""
 
-    MOMENTUM, EPS = 0.9, 1e-5
+    EPS = 1e-5
 
-    def __init__(self, features: int, *, device=None):
+    def __init__(self, features: int, momentum: float = 0.9, *,
+                 device=None):
         super().__init__()
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean",
@@ -156,7 +160,7 @@ class BatchNorm(nn.Module):
         with torch.no_grad():
             dims = (0,) + tuple(range(2, x.dim()))
             var, mean = torch.var_mean(x, dim=dims, correction=0)
-            m = self.MOMENTUM
+            m = self.momentum
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
             self.running_var.mul_(m).add_(var, alpha=1.0 - m)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,

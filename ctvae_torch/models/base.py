@@ -59,7 +59,9 @@ class Draws:
     the categorical priors); ``gamma(alpha)``: Gamma(alpha, 1) of
     ``alpha``'s shape, one shape per element, without gradient
     (GammaVAE); ``cauchy(shape)``: standard Cauchy (SWAE's
-    projections)."""
+    projections); ``permutation(rows, n)``: int64 [rows, n], each row an
+    independent permutation of range(n) (FactorVAE's permuted latent),
+    the stable argsort of one ``uniform`` draw."""
 
     def __init__(self, generator: torch.Generator,
                  device: Optional[torch.device] = None):
@@ -95,6 +97,9 @@ class Draws:
     def cauchy(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.empty(tuple(shape), device=self.device).cauchy_(
             generator=self.generator)
+
+    def permutation(self, rows: int, n: int) -> torch.Tensor:
+        return torch.argsort(self.uniform((rows, n)), dim=1, stable=True)
 
 
 def reparameterize(mu: torch.Tensor, log_var: torch.Tensor, draws: Draws

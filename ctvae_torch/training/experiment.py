@@ -24,6 +24,17 @@ mode and shape as one ``make_multi_train_step`` call (on the card, K
 replays of a captured CUDA graph); a mode switch, a shape change or the
 epoch's end runs what is buffered as per-step calls.
 
+A model with two optimizers (``exp_params.LR_2``: FactorVAE) takes, per
+batch, the train step of optimizer 0 and then that of optimizer 1, step
+by step (``scan_steps`` is ignored, as in JAX); ``global_step`` counts
+batches, ``TrainState.step`` optimizer calls, and the logger writes
+``lr`` and ``lr_2``. ``setup`` loads pretrained weights into a frozen
+VGG (DFCVAE's) and, without them, refuses to train unless the model's
+``allow_random_features`` is set (``models/vgg.py::
+attach_pretrained_vgg``). ``exp_params.retain_first_backpass`` (the
+reference's FactorVAE flag) is accepted and ignored: one forward serves
+both optimizers' losses.
+
 The loop's services: ``val_metrics`` (a ``metrics.MetricSet``) adds the
 disentanglement metrics of ``repr_fn`` (the encoder's first output,
 flattened) to each validation under ``val_``; ``exp_params.
@@ -50,6 +61,7 @@ from torch import nn
 
 from ..data.prefetch import to_device
 from ..models.base import Draws
+from ..models.vgg import attach_pretrained_vgg
 from ..serving.inference import encode_repr
 from ..utils.checkpoint import CheckpointManager, load_weights_only
 from .optimizers import build_lr_schedules, build_optimizers
@@ -146,6 +158,8 @@ class VAEXperiment:
         return max(1, self.data.steps_per_epoch() if self.data else 1)
 
     def setup(self, seed: int = 0) -> TrainState:
+        attach_pretrained_vgg(self.model, allow_random=bool(getattr(
+            self.model, "allow_random_features", False)))
         spe = self._steps_per_epoch()
         optimizers = build_optimizers(self.params, self.model, spe)
         self.lr_schedules = build_lr_schedules(self.params, spe)
@@ -160,7 +174,8 @@ class VAEXperiment:
         assert self.state is not None and self.ckpt is not None
         self.state.load_state_dict(self.ckpt.restore(which))
         self._multi_steps.clear()       # their graphs hold the old state
-        self.global_step = self.state.step
+        # the state counts optimizer calls, the loop batches
+        self.global_step = self.state.step // len(self.state.optimizers)
         self.start_epoch = self.global_step // self._steps_per_epoch()
 
     def load_weights(self, ckpt_path: str) -> None:
@@ -172,11 +187,13 @@ class VAEXperiment:
             self.params, self.model, self._steps_per_epoch())
         self._multi_steps.clear()
 
-    def _train_step(self, mode: str):
-        if mode not in self._train_steps:
-            self._train_steps[mode] = make_train_step(
-                mode, watch_modules=self.watch_every > 0, M_N=self.kld_weight)
-        return self._train_steps[mode]
+    def _train_step(self, mode: str, optimizer_idx: int = 0):
+        key = (mode, optimizer_idx)
+        if key not in self._train_steps:
+            self._train_steps[key] = make_train_step(
+                mode, watch_modules=self.watch_every > 0, M_N=self.kld_weight,
+                optimizer_idx=optimizer_idx)
+        return self._train_steps[key]
 
     def _multi_train_step(self, mode: str):
         if mode not in self._multi_steps:
@@ -191,7 +208,8 @@ class VAEXperiment:
         return self._eval_steps[mode]
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
-        """One step per batch; returns the last batch's scalar metrics (as
+        """One step per batch (per optimizer, in order, with two); returns
+        the last step's scalar metrics (as
         the JAX trainer does), the learning rate and images per second.
         With ``scan_steps`` K > 1, K consecutive batches of one mode and
         shape run as one multi-step call; a mode switch, a shape change
@@ -201,18 +219,22 @@ class VAEXperiment:
         images, metrics, modes = 0, None, {}
         pending: list = []
         pend_mode: Optional[str] = None
+        n_opt = len(self.state.optimizers)
+        scan_k = self.scan_steps if n_opt == 1 else 1
 
         def flush():
             nonlocal metrics, images
             if not pending:
                 return
-            if len(pending) == self.scan_steps > 1:
+            if len(pending) == scan_k > 1:
                 metrics = self._multi_train_step(pend_mode)(
                     self.state, {k: torch.stack([b[k] for b in pending])
                                  for k in pending[0]})
             else:
                 for b in pending:
-                    metrics = self._train_step(pend_mode)(self.state, b)
+                    for i in range(n_opt):
+                        metrics = self._train_step(pend_mode, i)(
+                            self.state, b)
             images += sum(int(b["image"].shape[0]) for b in pending)
             modes[pend_mode] = modes.get(pend_mode, 0) + len(pending)
             self.global_step += len(pending)
@@ -227,14 +249,16 @@ class VAEXperiment:
                 flush()     # a mode switch or the epoch tail's batch size
             pend_mode = mode
             pending.append(batch)
-            if len(pending) == self.scan_steps:
+            if len(pending) == scan_k:
                 flush()
         flush()
         if metrics is None:
             raise RuntimeError(f"train epoch {epoch} produced zero batches: "
                                f"raise data_params.limit")
         host = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
-        host["lr"] = float(self.lr_schedules[0](self.global_step - 1))
+        for i, sched in enumerate(self.lr_schedules):
+            host["lr" if i == 0 else f"lr_{i + 1}"] = float(
+                sched(self.global_step - 1))
         host["images_per_sec"] = images / max(time.perf_counter() - t0, 1e-9)
         host.update({f"steps_{m}": float(n) for m, n in modes.items()})
         return host

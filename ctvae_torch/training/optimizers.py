@@ -16,6 +16,13 @@ Counterpart of ``ctvae_tpu/training/optimizers.py`` (an optax chain there,
 * ``accumulate_grad_batches`` k: the running mean of k gradients, one
   optimizer update per k calls (optax ``MultiSteps``); the schedule counts
   updates, not calls.
+* ``LR_2`` (adversarial models, FactorVAE): a second Adam(LR_2) with
+  weight decay 0 and the same clip over the parameters under the
+  top-level submodules named ``submodel...`` (all of them without
+  ``submodel``), on its own staircase ``scheduler_gamma_2``; the first
+  optimizer keeps every parameter it had (the discriminator too: JAX's
+  first transform is unmasked). The train step of ``optimizer_idx`` k
+  steps optimizer k alone.
 
 On a CUDA device the update can be captured into a CUDA graph
 (``training/state.py::make_multi_train_step``): the learning rate is a
@@ -24,8 +31,6 @@ graph, and Adam runs with ``capturable=True`` (its step count on the
 device too). The eager update on the card runs the same arithmetic, so a
 replayed graph and eager steps agree bit for bit. On the CPU Adam keeps
 its host learning rate.
-
-Adversarial models (``LR_2`` / ``submodel``) are not ported.
 """
 
 from __future__ import annotations
@@ -34,10 +39,6 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
-
-NOT_PORTED = ("LR_2 / submodel (a second optimizer for adversarial models) "
-              "is not ported yet: ROADMAP A7")
-
 
 def _exp_schedule(lr: float, gamma: Optional[float], steps_per_epoch: int
                   ) -> Callable[[int], float]:
@@ -157,32 +158,42 @@ def _trained(model: nn.Module, prefix: Optional[str]) -> List[nn.Parameter]:
 
 def build_lr_schedules(exp_params: Dict[str, Any],
                        steps_per_epoch: int = 1) -> List[Callable]:
-    """Global train step -> learning rate, mirroring ``build_optimizers``
-    (for logging)."""
-    if exp_params.get("LR_2") is not None:
-        raise NotImplementedError(NOT_PORTED)
+    """Global train step -> learning rate of each optimizer, mirroring
+    ``build_optimizers`` (for logging)."""
     accum = _accum(exp_params)
-    sched = _exp_schedule(exp_params.get("LR", 1e-3),
-                          exp_params.get("scheduler_gamma"),
-                          max(1, steps_per_epoch // accum))
-    return [lambda step: sched(step // accum)]
+    spe = max(1, steps_per_epoch // accum)
+    lrs = [(exp_params.get("LR", 1e-3), exp_params.get("scheduler_gamma"))]
+    if exp_params.get("LR_2") is not None:
+        lrs.append((exp_params["LR_2"], exp_params.get("scheduler_gamma_2")))
+    scheds = [_exp_schedule(lr, gamma, spe) for lr, gamma in lrs]
+    return [lambda step, s=s: s(step // accum) for s in scheds]
 
 
 def build_optimizers(exp_params: Dict[str, Any], model: nn.Module,
                      steps_per_epoch: int = 1) -> List[Optimizer]:
-    """A list of one ``Optimizer`` over the trained parameters of
-    ``model``."""
-    if exp_params.get("LR_2") is not None or exp_params.get("submodel"):
-        raise NotImplementedError(NOT_PORTED)
-    lr = exp_params.get("LR", 1e-3)
+    """The ``Optimizer`` over the trained parameters of ``model``, and with
+    ``LR_2`` a second one over the ``submodel`` parameters."""
     accum = _accum(exp_params)
-    schedule = _exp_schedule(lr, exp_params.get("scheduler_gamma"),
-                             max(1, steps_per_epoch // accum))
+    spe = max(1, steps_per_epoch // accum)
+    clip = exp_params.get("gradient_clip_val")
+    lr = exp_params.get("LR", 1e-3)
     params = _trained(model, exp_params.get("update_parameters"))
     if not params:
         raise ValueError(f"update_parameters="
                          f"{exp_params.get('update_parameters')!r} names no "
                          f"parameter of the model")
-    return [Optimizer(params, lr, exp_params.get("weight_decay", 0.0) or 0.0,
-                      schedule, clip=exp_params.get("gradient_clip_val"),
-                      accumulate=accum)]
+    optimizers = [Optimizer(
+        params, lr, exp_params.get("weight_decay", 0.0) or 0.0,
+        _exp_schedule(lr, exp_params.get("scheduler_gamma"), spe),
+        clip=clip, accumulate=accum)]
+    lr_2 = exp_params.get("LR_2")
+    if lr_2 is not None:
+        params = _trained(model, exp_params.get("submodel"))
+        if not params:
+            raise ValueError(f"submodel={exp_params.get('submodel')!r} "
+                             f"names no parameter of the model")
+        optimizers.append(Optimizer(
+            params, lr_2, 0.0,
+            _exp_schedule(lr_2, exp_params.get("scheduler_gamma_2"), spe),
+            clip=clip, accumulate=accum))
+    return optimizers

@@ -11,8 +11,12 @@ the train draws as the JAX package offsets its eval key by ``1 << 20``.
 Every ``loss_function`` gets the JAX step's arguments: ``M_N`` (the
 train step's constant, ``exp_params.kld_weight`` in the loop; 1.0 in the
 eval step), ``step`` (the global step as an int64 tensor on the model's
-device, ``TrainState.step_tensor``), ``train``, ``optimizer_idx`` (0) and
-the step's ``Draws`` (JAX's ``noise`` key). The forward gets ``step``
+device, ``TrainState.step_tensor``), ``train``, ``optimizer_idx`` (the
+train step's, 0 in the eval step) and the step's ``Draws`` (JAX's
+``noise`` key). The train step of ``optimizer_idx`` k steps the state's
+optimizer k alone (a model with two optimizers, FactorVAE, takes a step
+of each per batch), and every call advances ``TrainState.step`` by one,
+as JAX's ``state.step + 1`` does. The forward gets ``step``
 too, as JAX's ``model.apply`` does (CategoricalVAE's temperature reads
 it; the other models take and ignore it).
 
@@ -100,13 +104,13 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def _forward(model: nn.Module, batch: Dict[str, torch.Tensor], mode: str,
-             draws: Draws, train: bool, M_N: float, step: torch.Tensor
-             ) -> Dict[str, Any]:
+             draws: Draws, train: bool, M_N: float, step: torch.Tensor,
+             optimizer_idx: int = 0) -> Dict[str, Any]:
     kwargs = {k: batch[k] for k in FWD_KEYS if k in batch}
     outputs = model(batch["image"], mode=mode, draws=draws, train=train,
                     step=step, **kwargs)
     return model.loss_function(outputs, M_N=M_N, step=step, train=train,
-                               optimizer_idx=0, draws=draws)
+                               optimizer_idx=optimizer_idx, draws=draws)
 
 
 def _scalars(losses: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -137,15 +141,17 @@ def _param_norms(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def _grads(state: TrainState, batch: Dict[str, torch.Tensor], mode: str,
-           M_N: float, step: torch.Tensor) -> Dict[str, torch.Tensor]:
+           M_N: float, step: torch.Tensor, optimizer_idx: int = 0
+           ) -> Dict[str, torch.Tensor]:
     """The device work of a train step before the optimizer: gradients
-    of the loss in ``p.grad`` and the step's metrics with ``grad_norm``
-    (``step``: ``state.step_tensor()``, filled before the call)."""
+    of the loss of ``optimizer_idx`` in ``p.grad`` and the step's metrics
+    with ``grad_norm`` (``step``: ``state.step_tensor()``, filled before
+    the call)."""
     model = state.model
     model.zero_grad(set_to_none=True)
     losses = _forward(model, batch, mode,
                       Draws(state.generator, model.device), train=True,
-                      M_N=M_N, step=step)
+                      M_N=M_N, step=step, optimizer_idx=optimizer_idx)
     losses["loss"].backward()
     metrics = _scalars(losses)
     # over every parameter, trained or not (optax.global_norm of the
@@ -156,22 +162,23 @@ def _grads(state: TrainState, batch: Dict[str, torch.Tensor], mode: str,
 
 
 def make_train_step(mode: str, watch_modules: bool = False,
-                    M_N: float = 1.0) -> Callable[[TrainState, Dict], Dict]:
+                    M_N: float = 1.0, optimizer_idx: int = 0
+                    ) -> Callable[[TrainState, Dict], Dict]:
     """The train step of batch mode ``mode``: ``step(state, batch)``
-    updates ``state`` in place (parameters, buffers, optimizer state,
-    ``step``) and returns the loss terms, the model's metrics and
-    ``grad_norm``; ``M_N`` is the losses' KL weight.
-    ``watch_modules`` adds ``grad_norm/<module>`` and, after the update,
-    ``param_norm/<module>`` for each top-level module (the JAX step's
-    ``watch_modules``)."""
+    updates ``state`` in place (parameters, buffers, the state of
+    optimizer ``optimizer_idx``, ``step``) and returns the loss terms of
+    ``optimizer_idx``, the model's metrics and ``grad_norm``; ``M_N`` is
+    the losses' KL weight. ``watch_modules`` adds ``grad_norm/<module>``
+    and, after the update, ``param_norm/<module>`` for each top-level
+    module (the JAX step's ``watch_modules``)."""
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
-        metrics = _grads(state, batch, mode, M_N, state.step_tensor())
+        metrics = _grads(state, batch, mode, M_N, state.step_tensor(),
+                         optimizer_idx)
         if watch_modules:           # the gradients before the clip
             metrics.update(_module_norms(state.model, "grad_norm", True))
-        for opt in state.optimizers:
-            opt.step()
+        state.optimizers[optimizer_idx].step()
         if watch_modules:
             metrics.update(_param_norms(state.model))
         state.step += 1
@@ -258,6 +265,11 @@ class MultiTrainStep:
                              f"B, ...], got {bad}")
         batch = [{k: v[i] for k, v in batches.items()}
                  for i in range(self.n_steps)]
+        if len(state.optimizers) != 1:
+            raise ValueError("a multi-step train step takes a state with "
+                             "one optimizer: a model with two alternates "
+                             "them per batch (make_train_step's "
+                             "optimizer_idx)")
         if state.model.device.type != "cuda":
             for b in batch:
                 metrics = self._step(state, b)

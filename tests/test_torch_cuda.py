@@ -1037,6 +1037,10 @@ class _CpuDraws:
         return torch.rand(tuple(shape), generator=self.generator).to(
             self.device)
 
+    def permutation(self, rows, n):
+        return torch.argsort(torch.rand((rows, n), generator=self.generator),
+                             dim=1, stable=True).to(self.device)
+
     def randint(self, low, high, shape):
         return torch.randint(low, high, tuple(shape),
                              generator=self.generator).to(self.device)
@@ -1340,3 +1344,114 @@ def test_card_codec_decodes_as_libjpeg_and_the_rendered_arrays(card,
     assert d.max() <= 160 and d.mean() <= 6.0, (d.max(), d.mean())
     with pytest.raises(OSError, match="nope.jpg cannot be read"):
         codec.decode_batch(paths[:2] + [str(tmp_path / "nope.jpg")])
+
+
+#: the last of the registry at small widths (DFCVAE's VGG needs img 32)
+ZOO_LAST = {
+    "MSSIMVAE": dict(name="MSSIMVAE", latent_dim=8, in_channels=3,
+                     hidden_dims=[8, 16], img_size=32),
+    "DFCVAE": dict(name="DFCVAE", latent_dim=8, in_channels=3,
+                   hidden_dims=[8, 16], img_size=32,
+                   allow_random_features=True),
+    "FactorVAE": dict(name="FactorVAE", latent_dim=8, gamma=6.4,
+                      in_channels=3, hidden_dims=[8, 16], img_size=32),
+}
+
+
+@pytest.mark.parametrize("name", list(ZOO_LAST))
+def test_last_zoo_train_steps_on_card_match_cpu(card, name, monkeypatch):
+    """MSSIMVAE's, DFCVAE's and FactorVAE's train step (FactorVAE's two
+    optimizer calls of one batch: ``configs/factorvae.yaml``'s
+    ``LR_2`` / ``submodel``) on the card against the same weights and
+    CPU-drawn draws on the CPU: metrics rtol 1e-4, every gradient within
+    1e-4 of max(1, its leaf's scale) (DFCVAE's 1e-3: a max-pool's argmax in
+    the VGG moves with the last bits of the reconstruction, and routes a
+    feature gradient elsewhere), every parameter within what the
+    gradients' difference allows after Adam, the buffers 1e-5 / rtol 1e-4
+    (DFCVAE's VGG bit-unchanged); FactorVAE's second call moves the
+    discriminator's parameters alone."""
+    import copy
+
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import optimizers as topt
+    from ctvae_torch.training import state as tstate
+    model = build_model(ZOO_LAST[name], device=card,
+                        generator=torch.Generator("cuda").manual_seed(0))
+    cpu_model = copy.deepcopy(model).to("cpu")
+    vgg = {n: t.clone() for n, t in model.named_buffers()
+           if n.startswith("feature_network.")}
+    batch = {"image": torch.rand(4, 32, 32, 3,
+                                 generator=torch.Generator().manual_seed(5))}
+    exp = dict(LR=5e-3, weight_decay=0.0, scheduler_gamma=0.95)
+    if name == "FactorVAE":
+        exp.update(LR_2=5e-3, scheduler_gamma_2=0.95,
+                   submodel="discriminator")
+    rel = 1e-3 if name == "DFCVAE" else 1e-4
+    kept = tstate._grads
+    for idx in range(2 if name == "FactorVAE" else 1):
+        metrics, grads, params = [], [], []
+
+        def grads_of(*args):
+            out = kept(*args)
+            grads.append({n: p.grad.detach().cpu().clone()
+                          for n, p in args[0].model.named_parameters()
+                          if p.grad is not None})
+            return out
+
+        monkeypatch.setattr(tstate, "_grads", grads_of)
+        monkeypatch.setattr(tstate, "Draws",
+                            lambda gen, device: _CpuDraws(7 + idx, device))
+        for m, dev in ((model, "cuda"), (cpu_model, "cpu")):
+            if idx == 0:
+                m.state = tstate.create_train_state(
+                    m, topt.build_optimizers(exp, m, 4))
+            params.append({n: p.detach().clone()
+                           for n, p in m.named_parameters()})
+            metrics.append({k: float(v) for k, v in tstate.make_train_step(
+                "base", M_N=0.5, optimizer_idx=idx)(m.state, {
+                    k: v.to(dev) for k, v in batch.items()}).items()})
+        torch.cuda.synchronize()
+        assert model.state.step == cpu_model.state.step == idx + 1
+        assert metrics[0].keys() == metrics[1].keys()
+        for k, v in metrics[1].items():
+            np.testing.assert_allclose(metrics[0][k], v, rtol=1e-4,
+                                       atol=1e-6)
+        assert grads[0].keys() == grads[1].keys()
+        for n, g in grads[1].items():
+            scale = max(1.0, float(g.abs().max()))
+            assert float((grads[0][n] - g).abs().max()) <= rel * scale, n
+        cpu_params = dict(cpu_model.named_parameters())
+        for n, p in model.named_parameters():
+            diff = (grads[0][n] - grads[1][n]).abs() if n in grads[1] \
+                else torch.zeros_like(cpu_params[n])
+            tol = 2e-6 + exp["LR"] / 1e-8 * diff
+            assert bool(((p.detach().cpu() - cpu_params[n].detach()).abs()
+                         <= tol).all()), n
+            moved = not torch.equal(p.detach(), params[0][n])
+            if idx == 1:
+                assert moved == n.startswith("discriminator."), n
+        cpu_buffers = dict(cpu_model.named_buffers())
+        for n, t in model.named_buffers():
+            np.testing.assert_allclose(t.cpu().numpy(),
+                                       cpu_buffers[n].numpy(), atol=1e-5,
+                                       rtol=1e-4, err_msg=n)
+        # the next call from the same parameters on both sides
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(cpu_params[n].to(card))
+    for n, t in vgg.items():
+        assert torch.equal(dict(model.named_buffers())[n], t), n
+
+
+def test_permutation_draws_on_card(card):
+    """``Draws.permutation`` on a CUDA generator (FactorVAE's permuted
+    latent): int64 on the card, every row a permutation of range(n), rows
+    differing, repeated by a reseeded generator."""
+    from ctvae_torch.models.base import Draws
+    p = [Draws(torch.Generator("cuda").manual_seed(3), card).permutation(
+        64, 128) for _ in range(2)]
+    assert torch.equal(p[0], p[1])
+    assert p[0].device.type == "cuda" and p[0].dtype == torch.int64
+    assert torch.equal(p[0].sort(1).values,
+                       torch.arange(128, device=card).expand(64, 128))
+    assert len({tuple(r) for r in p[0].cpu().tolist()}) == 64

@@ -103,12 +103,58 @@ def test_lr_schedules_match_jax(case):
         assert got(SPE) == 0.0 and got(0) == exp["LR"]
 
 
-def test_adversarial_optimizers_not_ported():
-    model = _Toy(np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.build_optimizers({"LR": 1e-3, "LR_2": 1e-3,
-                               "submodel": "encoder"}, model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.build_lr_schedules({"LR": 1e-3, "LR_2": 1e-3})
+def test_adversarial_optimizers_match_jax():
+    """``LR_2`` + ``submodel`` (FactorVAE's protocol): ``build_optimizers``
+    returns optimizer 0 over every parameter (JAX's first transform is
+    unmasked) and optimizer 1, Adam(LR_2) with weight decay 0 (where the
+    first has 1e-2) and the same clip, over the ``submodel`` subtree
+    only; fed the same gradients step after step, each moves exactly the
+    parameters JAX's transform of the same index moves, to JAX's values;
+    ``build_lr_schedules`` gives both schedules (``scheduler_gamma_2``).
+    ``update_parameters`` naming no parameter raises ValueError, as
+    before."""
+    exp = dict(LR=1e-2, LR_2=4e-3, scheduler_gamma=0.9,
+               scheduler_gamma_2=0.5, weight_decay=1e-2,
+               gradient_clip_val=0.5, submodel="encoder")
+    rng = np.random.default_rng(0)
+    model = _Toy(rng)
+    params = _tree(model)
+    txs = jopt.build_optimizers(exp, params, SPE)
+    opt_states = [tx.init(params) for tx in txs]
+    opts = topt.build_optimizers(exp, model, SPE)
+    assert len(opts) == len(txs) == 2
+    names = {id(p): n for n, p in model.named_parameters()}
+    assert [sorted(names[id(p)] for p in o.params) for o in opts] == [
+        sorted(names.values()), ["encoder.w"]]
+    assert [o.adam.param_groups[0]["weight_decay"] for o in opts] == [
+        1e-2, 0.0]
+    assert [o.clip for o in opts] == [0.5, 0.5]
+    for step in range(STEPS):
+        i = step % 2
+        grads = {m: {k: rng.normal(scale=0.3, size=shp).astype(np.float32)
+                     for k, shp in SHAPES[m].items()} for m in SHAPES}
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        updates, opt_states[i] = txs[i].update(
+            {m: {k: jnp.asarray(v) for k, v in g.items()}
+             for m, g in grads.items()}, opt_states[i], params)
+        params = optax.apply_updates(params, updates)
+        for name, p in model.named_parameters():
+            m, k = name.split(".")
+            p.grad = torch.from_numpy(grads[m][k])
+        opts[i].step()
+        for name, p in model.named_parameters():
+            m, k = name.split(".")
+            np.testing.assert_allclose(p.detach().numpy(),
+                                       np.asarray(params[m][k]),
+                                       atol=1e-6, rtol=1e-5,
+                                       err_msg=f"opt {i} step {step} {name}")
+            assert torch.equal(p.detach(), before[name]) == (
+                i == 1 and not name.startswith("encoder")), name
+    want = jopt.build_lr_schedules(exp, SPE)
+    got = topt.build_lr_schedules(exp, SPE)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        for step in range(3 * SPE):
+            np.testing.assert_allclose(g(step), float(w(step)), rtol=1e-6)
     with pytest.raises(ValueError):
         topt.build_optimizers({"update_parameters": "decoder"}, model)

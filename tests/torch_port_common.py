@@ -13,8 +13,15 @@ order (and checks kind and shape). ``jax.random.gamma`` takes a shape per
 element that may be a traced value (GammaVAE's ``alpha + gamma_shape``):
 the recorder draws numpy's ``standard_gamma`` of it in a
 ``jax.pure_callback`` when the program runs, into a slot it records in
-trace order. The JAX side runs under ``jax.jit``: one compile of the
-whole forward costs far less on the CPU than running it op by op.
+trace order. FactorVAE's ``permute_latent`` draws one permutation per
+row with ``jax.random.permutation`` under ``jax.vmap``, where a recorder
+called once at trace time would hand every row the same one: the
+recorder replaces ``ctvae_tpu.models.fvae.permute_latent`` itself, with
+an independent numpy permutation of the latent dims per row (``[B, D]``,
+the ``take_along_axis`` of the JAX function), replayed by
+``ReplayDraws.permutation``. The JAX side runs under ``jax.jit``: one
+compile of the whole forward costs far less on the CPU than running it
+op by op.
 """
 
 from __future__ import annotations
@@ -108,6 +115,14 @@ class DrawRecorder:
         self.draws.append(("cauchy", a))
         return jnp.asarray(a, dtype)
 
+    def permute_latent(self, key, z):
+        """``ctvae_tpu.models.fvae.permute_latent``: each row of z [B, D]
+        gathered by its own permutation of range(D)."""
+        B, D = z.shape
+        perms = np.stack([self.rng.permutation(D) for _ in range(B)])
+        self.draws.append(("permutation", perms))
+        return jnp.take_along_axis(z, jnp.asarray(perms), axis=1)
+
     def gamma(self, key, a, shape=None, dtype=jnp.float32, **kw):
         a = jnp.asarray(a, dtype)
         shape = a.shape if shape is None else tuple(shape)
@@ -141,6 +156,8 @@ def recorded_draws(monkeypatch, seed: int = 0):
         m.setattr(jax.random, "randint", rec.randint)
         m.setattr(jax.random, "cauchy", rec.cauchy)
         m.setattr(jax.random, "gamma", rec.gamma)
+        from ctvae_tpu.models import fvae
+        m.setattr(fvae, "permute_latent", rec.permute_latent)
         yield rec
 
 
@@ -180,6 +197,9 @@ class ReplayDraws:
 
     def gamma(self, alpha):
         return self._next("gamma", alpha.shape)
+
+    def permutation(self, rows, n):
+        return self._next("permutation", (rows, n))
 
     def done(self):
         return not self.draws
