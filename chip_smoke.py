@@ -128,13 +128,23 @@ same widths (phase "loop"). Then more phases:
   a stage-1 and a stage-2 step against the CPU and its serving. VQVAE's
   run and steps make the path ``gaussian_vq`` (the VQ search only), the
   rest the path ``gaussian`` (no kernel).
+* export: the serving artifacts of ``ctvae_torch/serving/export.py``:
+  ``configs/ct_mcq_vae.yaml``'s five entry points exported on the card
+  with a symbolic batch at B = 16 (``export_model``'s functions; the
+  seconds of each export), ``vq_vae.yaml``'s and ``vae.yaml``'s at B =
+  64; each artifact loaded by a subprocess that imports no model code and
+  served at two batch sizes against the live port on the same keys, and
+  through the same files moved to the CPU at B = 2 against the card; the
+  artifact's and the live port's request ms in turns. The artifacts'
+  requests make the path ``export`` (the four forward kernels).
 
     python3 chip_smoke.py --search-only
 
 builds the kernels and runs only the phase "search" (``phase_search``);
 ``--gaussian-only`` only the phase "gaussian" (``phase_gaussian``) and
 ``--celeba-only`` only the phase "celeba" (``phase_celeba``), each after
-writing the CelebA stand-in.
+writing the CelebA stand-in; ``--export-only`` only the phase "export"
+(``phase_export``).
 
 The second-last line is one JSON
 object with a row per kernel; the last line is ``{"ok": true, "device":
@@ -757,7 +767,7 @@ def _pairwise_plain_grads(args, chunk: int = BATCH) -> list:
 def _pairwise_folded(grads, args) -> list:
     """The kernel's per-sample dw2, db1, db2 folded as its caller folds
     them (summed over the batch for a shared param)."""
-    from ctvae_torch.ops.pairwise_flash import _fold
+    from ctvae_torch.ops.library import _fold
     w2 = args[2]
     return [grads[0], grads[1], _fold(grads[2], w2), _fold(grads[3], w2),
             grads[4] if w2.dim() == 2 else grads[4].sum()]
@@ -918,7 +928,8 @@ def _gat_bwd_on_path(fn) -> dict:
 
 
 def _check_gat_bwd(gen) -> dict:
-    """The backward kernel (through ``FlashGAT``) against the plain
+    """The backward kernel (``flash_gat`` under autograd: the gradient of
+    ``ctvae::gat_fwd_alpha``) against the plain
     version's autograd at B = 16 and at A*B = 192, the causal call, which
     the row reports (the plain version there in 12 chunks of 16); two runs
     must agree bit for bit (no atomics). Also logs the kernel's registers,
@@ -1192,8 +1203,11 @@ def _logits_bwd_check(args, d_e, ns) -> dict:
     and the kernel's time and bound there."""
     from ctvae_torch.ops import gat_logits as gl
     from ctvae_torch.ops.gat import gat_logits
-    got = gl.fused_gat_logits_bwd_cuda(*args, d_e, ns)
-    again = gl.fused_gat_logits_bwd_cuda(*args, d_e, ns)
+    # dxl, dxr, dadj and the stacked dwe / datt, unstacked
+    *got, dw = gl.fused_gat_logits_bwd_cuda(*args, d_e, ns)
+    got += dw.unbind(-3)
+    *again, dw = gl.fused_gat_logits_bwd_cuda(*args, d_e, ns)
+    again += dw.unbind(-3)
     leaves = [a.clone().requires_grad_() for a in args]
     want = torch.autograd.grad(gat_logits(*leaves, ns), leaves, d_e)
     torch.cuda.synchronize()
@@ -5154,6 +5168,223 @@ def _search_summary(rows: list) -> dict:
     return out
 
 
+# --- phase "export": the serving artifacts ---------------------------------
+
+EXPORT_B = 16              # the headline's example batch (symbolic b)
+EXPORT_B_OTHER = 5         # another batch the same files serve
+EXPORT_CPU_B = 2           # the same files moved to the CPU
+EXPORT_ZOO_B = 64          # the zoo configs' batch
+EXPORT_REQUESTS = 21       # timed requests per entry point; the first warms
+EXPORT_RTOL, EXPORT_ATOL = 1e-4, 1e-5   # artifact vs live (the same ops)
+#: label -> (config, entry points) of the artifacts the phase exports
+EXPORT_CASES = {
+    "ct_mcq_vae": ("ct_mcq_vae.yaml", ("reconstruct", "encode", "sample",
+                                        "apply_action", "classify_action")),
+    "vq_vae": ("vq_vae.yaml", ("reconstruct", "encode")),
+    "vae": ("vae.yaml", ("reconstruct", "encode", "sample")),
+}
+_BWD = ("pairwise_bwd", "gat_bwd", "gat_logits_bwd")
+
+# run in a fresh process: loads each artifact with ctvae_torch.serving.
+# export alone (no model code), serves the saved requests on the card, and
+# the B = 2 ones on the card and through the files moved to the CPU
+EXPORT_SERVER = """
+import json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False   # full float32, as here
+torch.backends.cudnn.allow_tf32 = False
+from ctvae_torch.ops import launch_counts
+from ctvae_torch.serving.export import load_artifact
+requests, outputs = sys.argv[1:]
+out = {}
+for label, case in torch.load(requests).items():
+    card, manifest = load_artifact(case["dir"])
+    cpu, _ = load_artifact(case["dir"], device="cpu")
+    assert all(f["device"].startswith("cuda")
+               for f in manifest["functions"].values()), manifest
+    out[label] = {
+        name: {"card": [card[name](*a).cpu() for a in calls],
+               "small": card[name](*(a.cuda() for a in case["cpu"][name])
+                                   ).cpu(),
+               "cpu": cpu[name](*case["cpu"][name])}
+        for name, calls in case["card"].items()}
+torch.cuda.synchronize()
+torch.save(out, outputs)
+print(json.dumps({"models_imported": "ctvae_torch.models" in sys.modules,
+                  "launches": launch_counts()}))
+"""
+
+
+def _export_requests(names, img: int, A: int, B: int, seed: int,
+                     device: str) -> dict:
+    """{entry point: its arguments at batch B}: its own key, images in
+    [0, 1] and one-hot actions of A from a CPU generator."""
+    gen = torch.Generator().manual_seed(seed)
+    x, y = (torch.rand(B, img, img, 3, generator=gen).to(device)
+            for _ in range(2))
+    a = torch.nn.functional.one_hot(torch.randint(0, A, (B,), generator=gen),
+                                    A).float().to(device)
+    arrays = {"reconstruct": (x,), "encode": (x,), "sample": (),
+              "apply_action": (x, y, a), "classify_action": (x, y)}
+    return {n: (torch.tensor(100 * seed + k, device=device), *arrays[n])
+            for k, n in enumerate(names)}
+
+
+def _launched(fn, *args):
+    """(``fn(*args)`` synchronised, the kernel launches it made, the
+    host ms it took); the counters are put back as they were."""
+    before = _counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    after = _counts()
+    from ctvae_torch.ops import set_launch_counts
+    set_launch_counts(before)
+    return out, {k: after[k] - before[k] for k in after}, ms
+
+
+def _held(label: str, got, want, rtol: float, atol: float) -> float:
+    """Max |got - want|, raising where it is above atol + rtol |want|, the
+    shapes differ or ``got`` is not finite."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}, or non-finite")
+    err = (got - want).abs()
+    if not bool((err <= atol + rtol * want.abs()).all()):
+        raise AssertionError(f"{label}: |artifact - reference| up to "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def phase_export(smi: str) -> tuple:
+    """The serving artifacts (``ctvae_torch/serving/export.py``) at full
+    width: ``configs/ct_mcq_vae.yaml`` as written (random weights, seed 0)
+    exported on the card through ``export_model``'s functions, its five
+    entry points with a symbolic batch at B = 16; then ``vq_vae.yaml``
+    (the VQ search at K = 512 inside the program) and ``vae.yaml`` (no
+    kernel) at B = 64, ``reconstruct`` / ``encode`` (/ ``sample``). Each
+    artifact is saved to a temporary directory and loaded by a subprocess
+    that imports no model code, which serves it on the card at B and at
+    B = 5 (CT) or B - 1 (zoo), against the live port on the same keys
+    (``KeyedDraws`` in both; rtol 1e-4, atol 1e-5), and at B = 2 through
+    the same files moved to the CPU, against the card's output
+    (``SERVE_ATOL``). Then, in this process, each request of the loaded
+    artifact and of the live eager entry point in turns (medians of 20
+    after a warm-up; the artifact's launches per request equal to the live
+    port's). The path ``export`` counts the artifacts' launches in this
+    process: the four forward kernels, no backward one."""
+    from ctvae_torch import export_model
+    from ctvae_torch.models import build_model
+    from ctvae_torch.serving.export import load_artifact, save_artifact
+    start = time.perf_counter()
+    numbers, cases, live_entries = {"card": smi}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="ctvae_export_") as tmp:
+        for label, (cfg, names) in EXPORT_CASES.items():
+            path = os.path.join(os.path.dirname(CONFIG), cfg)
+            params = read_section(path, "model_params")
+            model = build_model(params, device="cuda",
+                                generator=torch.Generator(
+                                    "cuda").manual_seed(SEED))
+            B = EXPORT_B if label == "ct_mcq_vae" else EXPORT_ZOO_B
+            other = EXPORT_B_OTHER if label == "ct_mcq_vae" else B - 1
+            # the config's images (data_params.patch_size) and actions
+            shape = (read_section(path, "data_params")["patch_size"],
+                     params.get("action_dim", 1))
+            exported, entries, seconds = export_model.export_entry_points(
+                model, _export_requests(names, *shape, B, 1, "cuda"), names,
+                poly_batch=True, num_samples=B,
+                log=lambda m, label=label: log(f"export {label}: {m}"))
+            cases[label] = {
+                "dir": save_artifact(os.path.join(tmp, label), exported,
+                                     {"model": params["name"],
+                                      "config": cfg}),
+                "card": {n: [_export_requests(names, *shape, b, s,
+                                              "cuda")[n]
+                             for b, s in ((B, 2), (other, 3))]
+                         for n in names},
+                "cpu": _export_requests(names, *shape, EXPORT_CPU_B, 4,
+                                        "cpu")}
+            live_entries[label] = entries
+            numbers[label] = {"export_s": seconds, "batch": B,
+                              "other_batch": other}
+        requests, outputs = (os.path.join(tmp, f) for f in ("requests.pt",
+                                                            "outputs.pt"))
+        torch.save(cases, requests)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXPORT_SERVER, requests, outputs],
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": os.path.dirname(
+                os.path.abspath(__file__))})
+        if proc.returncode != 0:
+            raise AssertionError(f"export server failed:\n{proc.stderr}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        numbers["server_s"] = time.perf_counter() - t0
+        log(f"export server (no model code): {numbers['server_s']:.1f} s, "
+            f"launches {json.dumps(report['launches'])}")
+        if report["models_imported"] or any(
+                (report["launches"][k] == 0) != (k in _BWD)
+                for k in report["launches"]):
+            raise AssertionError(f"export server: {report}")
+        served = torch.load(outputs)
+        counts = {k: 0 for k in _counts()}
+        for label, case in cases.items():
+            entries = live_entries[label]
+            fns, manifest = load_artifact(case["dir"])
+            numbers[label]["in_specs"] = {
+                n: manifest["functions"][n]["in_specs"] for n in fns}
+            errs, times = {}, {}
+            for name, entry in entries.items():
+                out = served[label][name]
+
+                def live(*args, entry=entry):
+                    with torch.inference_mode():
+                        return entry(*args)
+                for args, got in zip(case["card"][name], out["card"]):
+                    b = args[1].shape[0] if len(args) > 1 else \
+                        f"key {int(args[0])}"
+                    errs[f"{name}@{b}"] = _held(
+                        f"export {label} {name} B={b}", got, live(*args),
+                        EXPORT_RTOL, EXPORT_ATOL)
+                errs[f"{name}@cpu"] = _held(
+                    f"export {label} {name} on the CPU", out["cpu"],
+                    out["small"], 0.0, SERVE_ATOL)
+                args = case["card"][name][0]
+                samples = {"artifact": [], "live": []}
+                for r in range(EXPORT_REQUESTS):
+                    turn = (("artifact", fns[name]), ("live", live))
+                    for kind, fn in (turn if r % 2 == 0 else turn[::-1]):
+                        _, launched, ms = _launched(fn, *args)
+                        samples[kind].append(ms)
+                        if kind == "artifact":
+                            counts = {k: counts[k] + launched[k]
+                                      for k in counts}
+                        if r == 0:
+                            samples[f"{kind}_launches"] = launched
+                if samples["artifact_launches"] != samples["live_launches"]:
+                    raise AssertionError(
+                        f"export {label} {name}: launches per request "
+                        f"{samples['artifact_launches']} against the live "
+                        f"port's {samples['live_launches']}")
+                times[name] = {k: statistics.median(samples[k][1:])
+                               for k in ("artifact", "live")}
+                log(f"export {label} {name} B={numbers[label]['batch']}: "
+                    f"artifact {times[name]['artifact']:.3f} ms, live "
+                    f"{times[name]['live']:.3f} ms per request (medians of "
+                    f"{EXPORT_REQUESTS - 1} in turns)")
+            numbers[label]["max_abs_err"] = errs
+            numbers[label]["request_ms"] = times
+    if any((counts[k] == 0) != (k in _BWD) for k in counts):
+        raise AssertionError(f"launches on the export path {counts}")
+    numbers["wall_s"] = time.perf_counter() - start
+    log(f"launches on the export path: {json.dumps(counts)}")
+    log(f"export: phase {numbers['wall_s']:.1f} s")
+    return counts, numbers
+
+
 # keys of a check's row that the kernels line carries beside the contract's
 EXTRA_KEYS = ("ms_at_16", "bound_ms_at_16", "plain_ms_at_16", "alpha_ms",
               "occupancy", "by_d")
@@ -5215,6 +5446,10 @@ def main(argv) -> int:
         "--celeba-only", action="store_true",
         help="only build the kernels, write the CelebA stand-in and run "
              "the phase \"celeba\" (phase_celeba)")
+    parser.add_argument(
+        "--export-only", action="store_true",
+        help="only build the kernels and run the phase \"export\" "
+             "(phase_export)")
     parser.add_argument(
         "--metrics-only", action="store_true",
         help="only build the kernels and run the phase \"metrics\" "
@@ -5278,6 +5513,10 @@ def main(argv) -> int:
                         "kernels": {k: _search_summary(r)
                                     for k, r in tc_rows.items()}}))
         return 0
+    if opts.export_only:
+        launches, numbers = phase_export(smi)
+        log(json.dumps({"export_launches": launches, "export": numbers}))
+        return 0
     if opts.metrics_only:
         launches, seconds = phase_metrics(smi)
         log(json.dumps({"metrics_launches": launches,
@@ -5313,6 +5552,7 @@ def main(argv) -> int:
         celeba_numbers["standin"] = standin
         gauss_launches, gauss_vq_launches, gauss_vq_rows, gauss_numbers = \
             phase_gaussian(smi, tmp)
+    export_launches, export_numbers = phase_export(smi)
     kernels = []
     for r in rows:
         source, replaces = KERNEL_META[r["name"]]
@@ -5329,7 +5569,8 @@ def main(argv) -> int:
                    "gaussian": gauss_launches[r["name"]],
                    "celeba_vq": celeba_vq_launches[r["name"]],
                    "celeba": celeba_launches[r["name"]],
-                   "tceleba": tceleba_launches[r["name"]]}
+                   "tceleba": tceleba_launches[r["name"]],
+                   "export": export_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -5351,8 +5592,9 @@ def main(argv) -> int:
             kernels[-1]["celeba_vq"] = celeba_vq_rows
     # every kernel runs on the training, codebooks: 2, two-stage, scan,
     # shapes3d CT, metrics, search and TCeleba CT paths, the forward ones
-    # on the serving path too, the VQ search alone on the MCQVAE's and
-    # VQVAE's (which have no CT layer), none on the Gaussian zoo's
+    # on the serving and export paths too, the VQ search alone on the
+    # MCQVAE's and VQVAE's (which have no CT layer), none on the Gaussian
+    # zoo's
     if any((k["launches_by_path"][p] == 0) != (k["name"] != "vq_l2_argmin")
            or k["launches_by_path"][g] for k in kernels
            for p, g in (("gaussian_vq", "gaussian"),
@@ -5363,13 +5605,15 @@ def main(argv) -> int:
             k["launches_by_path"]["serve"] == 0 for k in kernels
             if EXPECTED["reconstruct"][k["name"]]) or any(
             (k["launches_by_path"]["shapes3d_mcq"] == 0)
-            != (k["name"] != "vq_l2_argmin") for k in kernels):
+            != (k["name"] != "vq_l2_argmin") for k in kernels) or any(
+            (k["launches_by_path"]["export"] == 0)
+            != k["name"].endswith("_bwd") for k in kernels):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"serve_ms": timings, "train_ms": train_ms,
                     "train_peak_gib": peak, "codebooks_2_train_ms": c2_ms,
                     "scan_ms": scan_ms, "metric_seconds": metric_seconds,
                     "search": search_numbers, "gaussian": gauss_numbers,
-                    "celeba": celeba_numbers}))
+                    "celeba": celeba_numbers, "export": export_numbers}))
     log(f"chip_smoke wall time {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -155,8 +155,13 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
         if not train:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.EPS)
+            # the eval kernel itself: ``F.batch_norm`` picks cuDNN on the
+            # card below a batch of 65,536, a choice that fixes an
+            # exported program's symbolic batch to that range (on the CPU
+            # the two are the same kernel, bit for bit)
+            return torch.ops.aten._native_batch_norm_legit_no_training(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, 0.0, self.EPS)[0]
         with torch.no_grad():
             dims = (0,) + tuple(range(2, x.dim()))
             var, mean = torch.var_mean(x, dim=dims, correction=0)

@@ -445,9 +445,11 @@ class CTMCQVAE(nn.Module):
                        draws: Optional[Draws] = None,
                        train: bool = False) -> Dict:
         draws = self._draws(draws)
-        # x and input_y ride one encoder pass
-        latents, latents_y = torch.chunk(
-            self.encoder(torch.cat([x, input_y], dim=0)), 2, dim=0)
+        # x and input_y ride one encoder pass (split by sizes: a symbolic
+        # batch traces without a guard on the chunk count)
+        latents, latents_y = torch.split(
+            self.encoder(torch.cat([x, input_y], dim=0)),
+            [x.shape[0], input_y.shape[0]])
         inds = self.vq_layer.compute_inds(latents)
         if self.ema and train:
             self.vq_layer.update_stats(latents, inds, draws)
@@ -471,8 +473,9 @@ class CTMCQVAE(nn.Module):
                        draws: Optional[Draws] = None,
                        train: bool = False) -> Dict:
         draws = self._draws(draws)
-        latents_x, latents_y = torch.chunk(
-            self.encoder(torch.cat([x, input_y], dim=0)), 2, dim=0)
+        latents_x, latents_y = torch.split(
+            self.encoder(torch.cat([x, input_y], dim=0)),
+            [x.shape[0], input_y.shape[0]])
         inds_x = self.vq_layer.compute_inds(latents_x)
         inds_y = self.vq_layer.compute_inds(latents_y)
         if self.ema and train:

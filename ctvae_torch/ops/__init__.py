@@ -3,13 +3,16 @@
 Each wrapper module counts the launches of its kernels in module-level
 counters (``vq.launches``, ``pairwise_flash.bwd_launches``, ...);
 ``launch_counts`` reads them all by kernel name and ``set_launch_counts``
-writes them back.
+writes them back. Every kernel entry point is a ``torch.library`` custom op
+(``library.py``), registered when this package is imported.
 """
 
 from __future__ import annotations
 
 import importlib
 from typing import Dict
+
+from . import library  # noqa: F401  (registers the kernels' custom ops)
 
 #: kernel name -> (wrapper module, its counter)
 COUNTERS = {

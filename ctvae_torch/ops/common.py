@@ -8,6 +8,19 @@ from typing import Optional, Union
 import torch
 
 
+#: the ``torch.library`` namespace of the kernels' custom ops
+#: (``ops/library.py``): ``ctvae``, or ``ctvae_<package>`` for a copy of
+#: the package imported under another name beside this one
+OPS_NAMESPACE = ("ctvae" if __name__.split(".")[0] == "ctvae_torch"
+                 else "ctvae_" + __name__.split(".")[0])
+
+
+def custom_ops():
+    """``torch.ops.<OPS_NAMESPACE>``: the kernels' custom ops (registered
+    by importing ``ops/library.py``, which ``ops/__init__.py`` does)."""
+    return getattr(torch.ops, OPS_NAMESPACE)
+
+
 def upcast32(x: torch.Tensor) -> torch.Tensor:
     """Promote to at least float32, never downcast (float64 stays)."""
     return x.to(torch.promote_types(x.dtype, torch.float32))

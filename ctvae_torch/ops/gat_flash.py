@@ -1,13 +1,15 @@
 """GATv2 masked attention, forward and backward: CUDA kernel wrappers.
 
-Counterpart of ``ctvae_tpu/ops/gat_flash.py``. ``flash_gat`` on CUDA
-tensors launches ``gat_fwd`` of ``csrc/gat.cu`` (which replaces the TPU
-``_fwd_kernel``); when autograd needs gradients it runs ``FlashGAT``,
-whose forward also writes the f32 alpha residual [B, H, T, S] and whose
-backward launches ``gat_bwd`` (which replaces the TPU ``_bwd_kernel``).
-On CPU tensors it runs ``flash_gat_plain``, the logits + masked softmax +
-aggregation of ``ops/gat.py``, whose autograd is the backward's plain
-version. The kernels never store the [B, T, S, H, F] domain.
+Counterpart of ``ctvae_tpu/ops/gat_flash.py``. ``flash_gat`` calls the
+custom op ``ctvae::gat_fwd`` (``ops/library.py``), whose CUDA kernel
+launches ``gat_fwd`` of ``csrc/gat.cu`` (which replaces the TPU
+``_fwd_kernel``); when autograd needs gradients it calls
+``ctvae::gat_fwd_alpha``, whose launch also writes the f32 alpha residual
+[B, H, T, S] and whose gradient, ``ctvae::gat_bwd``, launches ``gat_bwd``
+(which replaces the TPU ``_bwd_kernel``). On CPU tensors the ops run
+``flash_gat_plain``, the logits + masked softmax + aggregation of
+``ops/gat.py``, and the vjp of its autograd. The kernels never store the
+[B, T, S, H, F] domain.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .common import check_cuda_tensor, check_smem, warps_for
+from .common import check_cuda_tensor, check_smem, custom_ops, warps_for
 from .gat import gat_logits, masked_incoming_softmax
 
 #: launches of the forward / backward kernel since the last reset (set to 0)
@@ -130,7 +132,7 @@ def flash_gat_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
         dxl.data_ptr(), dxr.data_ptr(), dadj_h.data_ptr(), dwe_b.data_ptr(),
         datt_b.data_ptr(), B, S, T, H, F, nw, ns, stream), "gat_bwd")
     bwd_launches += 1
-    return (dxl, dxr, dadj_h.sum(1).transpose(1, 2), dwe_b.sum(0),
+    return (dxl, dxr, dadj_h.transpose(2, 3).sum(1), dwe_b.sum(0),
             datt_b.sum(0))
 
 
@@ -155,34 +157,14 @@ def bwd_occupancy(S: int, T: int, F: int) -> dict:
     return _occupancy(_lib().gat_bwd_blocks_per_sm, S, T, F, _bwd_warps(T))
 
 
-class FlashGAT(torch.autograd.Function):
-    """The GATv2 attention with the CUDA forward and backward kernels."""
-
-    @staticmethod
-    def forward(ctx, xl, xr, adj, mask, we, att, ns):
-        out, alpha = flash_gat_cuda(xl, xr, adj, mask, we, att, ns,
-                                    keep_alpha=True)
-        ctx.save_for_backward(xl, xr, adj, mask, we, att, alpha)
-        ctx.ns = ns
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        xl, xr, adj, mask, we, att, alpha = ctx.saved_tensors
-        dxl, dxr, dadj, dwe, datt = flash_gat_bwd_cuda(
-            xl, xr, adj, mask, we, att, alpha, dout.contiguous(), ctx.ns)
-        return dxl, dxr, dadj, None, dwe, datt, None
-
-
 def flash_gat(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
               mask: torch.Tensor, we: torch.Tensor, att: torch.Tensor,
               ns: float) -> torch.Tensor:
     """Fused GATv2 attention out [B, T, H, F] (no bias): the kernels on
-    CUDA (alpha is kept only when autograd needs it), the plain version
-    on CPU."""
-    if not xl.is_cuda:
-        return flash_gat_plain(xl, xr, adj, mask, we, att, ns)
+    CUDA, the plain version on CPU; ``ctvae::gat_fwd_alpha`` (which keeps
+    alpha for the backward) when autograd needs it, else
+    ``ctvae::gat_fwd``."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xl, xr, adj, we, att)):
-        return FlashGAT.apply(xl, xr, adj, mask, we, att, ns)
-    return flash_gat_cuda(xl, xr, adj, mask, we, att, ns)[0]
+        return custom_ops().gat_fwd_alpha(xl, xr, adj, mask, we, att, ns)[0]
+    return custom_ops().gat_fwd(xl, xr, adj, mask, we, att, ns)

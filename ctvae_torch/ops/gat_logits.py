@@ -2,12 +2,12 @@
 
 Counterpart of ``ctvae_tpu/ops/gat.py::fused_gat_logits`` (the logits
 ``e[b,s,t,k] = att_k . leaky(xl_s + xr_t + adj_st we_k)`` without the
-softmax) and its one-walk backward ``_fgl_bwd``. ``fused_gat_logits`` on
-CUDA tensors launches ``gat_logits_fwd`` of ``csrc/gat_logits.cu`` (which
-replaces ``scripts/bench_gat.py::pallas_logits``); when autograd needs
-gradients it runs ``FusedGATLogits``, whose backward launches
-``gat_logits_bwd``. On CPU tensors it runs the plain
-``ops/gat.py::gat_logits``, whose autograd is the backward's plain version.
+softmax) and its one-walk backward ``_fgl_bwd``. ``fused_gat_logits``
+calls the custom op ``ctvae::gat_logits_fwd`` (``ops/library.py``), whose
+CUDA kernel launches ``gat_logits_fwd`` of ``csrc/gat_logits.cu`` (which
+replaces ``scripts/bench_gat.py::pallas_logits``) and whose gradient,
+``ctvae::gat_logits_bwd``, launches ``gat_logits_bwd``. On CPU tensors the
+ops run the plain ``ops/gat.py::gat_logits`` and the vjp of its autograd.
 The kernels never store the [B, S, T, K, F] domain; the backward walks
 only the pairs with a non-zero upstream gradient. ``fwd_occupancy`` /
 ``bwd_occupancy`` read what their launches get on the card.
@@ -21,8 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .common import check_cuda_tensor, check_smem
-from .gat import gat_logits
+from .common import check_cuda_tensor, check_smem, custom_ops
 
 #: launches of the forward / backward kernel since the last reset (set to 0)
 launches = 0
@@ -95,7 +94,8 @@ def fused_gat_logits_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor,
                               att: torch.Tensor, d_e: torch.Tensor,
                               ns: float) -> Tuple[torch.Tensor, ...]:
     """Launch the backward kernel on the forward's inputs and ``d_e``
-    [B,S,T,K]. Returns dxl, dxr, dadj [B,S,T], dwe, datt (we's shape): the
+    [B,S,T,K]. Returns dxl, dxr, dadj [B,S,T] and dw: dwe and datt stacked
+    ([2, K, F] shared, [B, 2, K, F] per sample; ``dw.unbind(-3)``). The
     kernel writes dxl, dxr and dadj (summed over heads) and per-block
     dwe / datt partials, which are summed here in one reduction (over the
     blocks, and for shared heads the batch, as the JAX package sums
@@ -122,8 +122,7 @@ def fused_gat_logits_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor,
         dadj.data_ptr(), part.data_ptr(), B, S, T, K, F, wstride, ns,
         stream), "gat_logits_bwd")
     bwd_launches += 1
-    dwe, datt = part.sum(1 if wstride else (0, 1)).unbind(-3)
-    return dxl, dxr, dadj, dwe, datt
+    return dxl, dxr, dadj, part.sum(1 if wstride else (0, 1))
 
 
 def _occupancy(fn, *shape) -> dict:
@@ -155,32 +154,11 @@ def bwd_occupancy(B: int, S: int, T: int, F: int,
             "parts": lib.gat_logits_bwd_parts(B, S, T)}
 
 
-class FusedGATLogits(torch.autograd.Function):
-    """The GATv2 edge logits with the CUDA forward and backward kernels."""
-
-    @staticmethod
-    def forward(ctx, xl, xr, adj, we, att, ns):
-        ctx.save_for_backward(xl, xr, adj, we, att)
-        ctx.ns = ns
-        return fused_gat_logits_cuda(xl, xr, adj, we, att, ns)
-
-    @staticmethod
-    def backward(ctx, d_e):
-        xl, xr, adj, we, att = ctx.saved_tensors
-        return (*fused_gat_logits_bwd_cuda(xl, xr, adj, we, att,
-                                           d_e.contiguous(), ctx.ns), None)
-
-
 def fused_gat_logits(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
                      we: torch.Tensor, att: torch.Tensor, ns: float
                      ) -> torch.Tensor:
-    """GATv2 edge logits [B, S, T, K]: the kernels on CUDA (the backward
-    only when autograd needs it), the plain version on CPU. xl [B,S,K,F],
-    xr [B,T,K,F], adj [B,S,T]; we / att [K,F] shared or [B,K,F] per
-    sample."""
-    if not xl.is_cuda:
-        return gat_logits(xl, xr, adj, we, att, ns)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (xl, xr, adj, we, att)):
-        return FusedGATLogits.apply(xl, xr, adj, we, att, ns)
-    return fused_gat_logits_cuda(xl, xr, adj, we, att, ns)
+    """GATv2 edge logits [B, S, T, K] (``ctvae::gat_logits_fwd``): the
+    kernels on CUDA (the backward only when autograd needs it), the plain
+    version on CPU. xl [B,S,K,F], xr [B,T,K,F], adj [B,S,T]; we / att
+    [K,F] shared or [B,K,F] per sample."""
+    return custom_ops().gat_logits_fwd(xl, xr, adj, we, att, ns)

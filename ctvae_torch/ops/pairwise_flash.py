@@ -1,15 +1,16 @@
 """Pairwise discoverer scores, forward and backward: CUDA kernel wrappers.
 
 Counterpart of ``ctvae_tpu/ops/pairwise_flash.py``. ``flash_pairwise``
-runs ``FlashPairwise`` on CUDA tensors: its forward launches
-``pairwise_fwd`` and its backward ``pairwise_bwd``, both in
+calls the custom op ``ctvae::pairwise_fwd`` (``ops/library.py``), whose
+CUDA kernel launches ``pairwise_fwd`` and whose gradient,
+``ctvae::pairwise_bwd``, launches ``pairwise_bwd``, both in
 ``csrc/pairwise.cu`` (which replace the TPU ``_fwd_kernel`` and
 ``_bwd_kernel``). The residual is the [B, S, T] output, as in JAX; the
 [B, S, T, Hd] domain never exists in device memory. The forward's
 blocks split each sample's hidden units over a thread-block cluster
-(``fwd_occupancy`` reads the split a launch takes). On CPU tensors
-``flash_pairwise`` runs the plain ``ops/pairwise.py::fused_pairwise_scores``,
-whose autograd is the backward's plain version.
+(``fwd_occupancy`` reads the split a launch takes). On CPU tensors the
+ops run the plain ``ops/pairwise.py::fused_pairwise_scores`` and the vjp
+of its autograd.
 """
 
 from __future__ import annotations
@@ -20,8 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .common import check_cuda_tensor, check_smem
-from .pairwise import fused_pairwise_scores
+from .common import check_cuda_tensor, check_smem, custom_ops
 
 #: launches of the forward / backward kernel since the last reset (set to 0)
 launches = 0
@@ -109,7 +109,8 @@ def flash_pairwise_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor,
     """Launch the backward kernel on the forward's inputs, its output
     ``out`` and the output gradient ``dout`` [B, S, T]. Returns dxl
     [B,S,Hd], dxr [B,T,Hd] and the per-sample dw2 [B,Hd], db1 [B,Hd],
-    db2 [B] (the caller sums them over B for a shared param)."""
+    db2 [B] (``ctvae::pairwise_bwd`` sums them over B for a shared
+    param)."""
     global bwd_launches
     B, S, H = xl.shape
     T = xr.shape[1]
@@ -167,39 +168,10 @@ def bwd_occupancy(S: int, T: int, lib: Optional[ctypes.CDLL] = None
             "blocks_per_sm": n}
 
 
-def _fold(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """A per-sample gradient in the param's shape: summed over the batch
-    when the param was shared."""
-    return g if g.shape == p.shape else g.sum(0)
-
-
-class FlashPairwise(torch.autograd.Function):
-    """The pairwise scores with the CUDA forward and backward kernels."""
-
-    @staticmethod
-    def forward(ctx, xl, xr, w2, b1, b2, ns):
-        out = flash_pairwise_cuda(xl, xr, w2, b1, b2, ns)
-        ctx.save_for_backward(xl, xr, w2, b1, b2, out)
-        ctx.ns = ns
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        xl, xr, w2, b1, b2, out = ctx.saved_tensors
-        dxl, dxr, dw2, db1, db2 = flash_pairwise_bwd_cuda(
-            xl, xr, w2, b1, out, dout.contiguous(), ctx.ns)
-        return (dxl, dxr, _fold(dw2, w2), _fold(db1, b1), _fold(db2, b2),
-                None)
-
-
 def flash_pairwise(xl: torch.Tensor, xr: torch.Tensor, w2: torch.Tensor,
                    b1: torch.Tensor, b2: torch.Tensor, ns: float
                    ) -> torch.Tensor:
-    """``sigmoid(sum_h leaky(xl_s + xr_t + b1) * w2 + b2)`` [B, S, T]: the
-    kernels on CUDA, the plain version (and its autograd) on CPU."""
-    if not xl.is_cuda:
-        return fused_pairwise_scores(xl, xr, w2, b1, b2, ns)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (xl, xr, w2, b1, b2)):
-        return FlashPairwise.apply(xl, xr, w2, b1, b2, ns)
-    return flash_pairwise_cuda(xl, xr, w2, b1, b2, ns)
+    """``sigmoid(sum_h leaky(xl_s + xr_t + b1) * w2 + b2)`` [B, S, T]
+    (``ctvae::pairwise_fwd``): the kernels on CUDA, the plain version on
+    CPU."""
+    return custom_ops().pairwise_fwd(xl, xr, w2, b1, b2, ns)

@@ -1,11 +1,13 @@
 """Vector-quantization codebook search: CUDA kernel + plain version.
 
-Counterpart of ``ctvae_tpu/ops/vq.py``. ``l2_argmin`` launches the
-hand-written kernel of ``csrc/vq.cu`` (which replaces the TPU kernel
-``l2_argmin_pallas``) on CUDA tensors and runs ``l2_argmin_plain`` on CPU
-tensors. The kernel drops the per-row constant ||x||^2 as the TPU kernel
-does; the plain version keeps it, as ``l2_argmin_xla`` does, so the two
-can disagree only on rows whose two best distances are within rounding.
+Counterpart of ``ctvae_tpu/ops/vq.py``. ``l2_argmin`` calls the custom
+op ``ctvae::vq_l2_argmin`` (``ops/library.py``), which launches the
+hand-written kernel of ``csrc/vq.cu`` (``l2_argmin_cuda``; it replaces the
+TPU kernel ``l2_argmin_pallas``) on CUDA tensors and runs
+``l2_argmin_plain`` on CPU tensors. The kernel drops the per-row
+constant ||x||^2 as the TPU kernel does; the plain version keeps it, as
+``l2_argmin_xla`` does, so the two can disagree only on rows whose two
+best distances are within rounding.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .common import check_cuda_tensor, upcast32
+from .common import check_cuda_tensor, custom_ops, upcast32
 
 #: kernel launches since the last reset (``launches = 0`` to reset)
 launches = 0
@@ -79,7 +81,6 @@ def occupancy(k: int, d: int, lib: Optional[ctypes.CDLL] = None) -> dict:
 
 
 def l2_argmin(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """Nearest codebook row per latent: the kernel on CUDA, plain on CPU."""
-    if flat.is_cuda:
-        return l2_argmin_cuda(flat, codebook)
-    return l2_argmin_plain(flat, codebook)
+    """Nearest codebook row per latent (``ctvae::vq_l2_argmin``): the
+    kernel on CUDA, plain on CPU."""
+    return custom_ops().vq_l2_argmin(flat, codebook)

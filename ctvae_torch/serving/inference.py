@@ -5,16 +5,19 @@ models of the port's registry: the same entry points and signatures minus
 the JAX key. Each
 callable takes an optional ``generator=`` (a ``torch.Generator`` on the
 model's device) for its random draws and runs under
-``torch.inference_mode()``. Exported artifacts are not ported yet.
+``torch.inference_mode()``. ``entry_fn`` is the same entry point with its
+draws' source first: a generator, or the int64 key tensor of an exported
+artifact (``serving/export.py``), which draws from ``KeyedDraws``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
 from ..models.base import Draws
+from .draws import KeyedDraws
 
 #: serving entry points of the JAX package; ``available_fns`` says which
 #: the port serves for a model
@@ -38,8 +41,13 @@ def available_fns(model) -> Tuple[str, ...]:
     return tuple(fns)
 
 
-def _draws(model, generator: Optional[torch.Generator]) -> Draws:
-    return Draws(generator, model.device)
+def _draws(model, source: Union[None, torch.Generator, torch.Tensor]):
+    """The draws of one call, on the model's device: keyed by ``source``
+    when it is an int64 key tensor, else from the generator (or the
+    default one when None)."""
+    if isinstance(source, torch.Tensor):
+        return KeyedDraws(source, model.device)
+    return Draws(source, model.device)
 
 
 def encode_repr(model, x: torch.Tensor, draws: Optional[Draws] = None
@@ -59,7 +67,9 @@ def encode_repr(model, x: torch.Tensor, draws: Optional[Draws] = None
 
 def make_inference_fn(model, name: str, *, num_samples: int = 64
                       ) -> Callable:
-    """The inference callable of entry point ``name``:
+    """The inference callable of entry point ``name`` (``entry_fn``'s
+    arrays, with the draws from ``generator=``, under
+    ``torch.inference_mode()``):
 
     * ``reconstruct(x)``: images [B, H, W, C] (a CT model's base-mode
       forward, through the identity transition);
@@ -74,47 +84,55 @@ def make_inference_fn(model, name: str, *, num_samples: int = 64
     * ``classify_action(x, input_y)``: causal-mode softmin probabilities
       over the actions [B, A].
     """
+    fn = entry_fn(model, name, num_samples=num_samples)
+
+    def serve(*args, generator: Optional[torch.Generator] = None):
+        with torch.inference_mode():
+            return fn(generator, *args)
+    serve.__name__ = name
+    return serve
+
+
+def entry_fn(model, name: str, *, num_samples: int = 64) -> Callable:
+    """Entry point ``name`` as ``fn(source, *arrays)``: the arrays of
+    ``make_inference_fn``'s callable, the draws from ``source`` (a
+    generator, None, or an int64 key tensor: ``_draws``). Runs in the
+    caller's grad mode."""
     if name not in available_fns(model):
         raise ValueError(f"unknown or unavailable inference fn {name!r}; "
                          f"choose from {available_fns(model)}")
 
     labelled = getattr(model, "needs_labels", False)
     if name == "reconstruct" and labelled:
-        def fn(x, labels, *, generator=None):
-            return model(x, labels,
-                         draws=_draws(model, generator))["recons"]
+        def fn(source, x, labels):
+            return model(x, labels, draws=_draws(model, source))["recons"]
     elif name == "reconstruct":
-        def fn(x, *, generator=None):
+        def fn(source, x):
             return model(x, mode="base",
-                         draws=_draws(model, generator))["recons"]
+                         draws=_draws(model, source))["recons"]
     elif name == "encode" and labelled:
-        def fn(x, labels, *, generator=None):
+        def fn(source, x, labels):
             z = model.encode_labeled(x, labels)[0]
             return z.reshape(z.shape[0], -1)
     elif name == "encode":
-        def fn(x, *, generator=None):
-            return encode_repr(model, x, _draws(model, generator))
+        def fn(source, x):
+            return encode_repr(model, x, _draws(model, source))
     elif name == "sample" and labelled:
-        def fn(labels, *, generator=None):
+        def fn(source, labels):
             return model.sample(num_samples, labels,
-                                draws=_draws(model, generator))
+                                draws=_draws(model, source))
     elif name == "sample":
-        def fn(*, generator=None):
-            return model.sample(num_samples, draws=_draws(model, generator))
+        def fn(source):
+            return model.sample(num_samples, draws=_draws(model, source))
     elif name == "apply_action":
-        def fn(x, input_y, action, *, generator=None):
+        def fn(source, x, input_y, action):
             return model(x, input_y=input_y, action=action, mode="action",
-                         draws=_draws(model, generator))["recons"]
+                         draws=_draws(model, source))["recons"]
     else:
-        def fn(x, input_y, *, generator=None):
+        def fn(source, x, input_y):
             # serving has no true action: the accuracy metrics get a dummy
             dummy = x.new_zeros((x.shape[0], model.action_dim))
             return model(x, input_y=input_y, action=dummy, mode="causal",
-                         draws=_draws(model, generator))["recons"]
-
-    def serve(*args, **kwargs):
-        with torch.inference_mode():
-            return fn(*args, **kwargs)
-    serve.__name__ = name
-    serve.__doc__ = fn.__doc__
-    return serve
+                         draws=_draws(model, source))["recons"]
+    fn.__name__ = name
+    return fn

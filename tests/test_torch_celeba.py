@@ -47,7 +47,8 @@ from ctvae_torch import native
 from ctvae_torch.convert import from_jax_params
 from ctvae_torch.training import optimizers as topt
 from ctvae_torch.training import state as tstate
-from torch_port_common import (ReplayDraws, close, jax_train_step_state,
+from torch_port_common import (ReplayDraws, _jax_native_lib, close,
+                               jax_native, jax_train_step_state,
                                one_torch_thread, recorded_draws, t2n)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -116,7 +117,8 @@ def _paths(root, names):
 # --- the codec and the transform ----------------------------------------------
 
 @pytest.mark.parametrize("patch", [64, 32])
-def test_decode_and_transform_match_jax_native(celeba_root, patch):
+def test_decode_and_transform_match_jax_native(celeba_root, jax_native,
+                                               patch):
     """The port's decode + ``StandardTransform(patch, 148).batch`` against
     the JAX package's fused libjpeg decode + crop + resize, a grey file
     among them; the decode alone against PIL's."""
@@ -195,7 +197,7 @@ def test_jpeg_reference_is_libjpegs():
 # --- CelebA and TCeleba ---------------------------------------------------------
 
 @pytest.mark.parametrize("split", ["train", "valid", "test", "all"])
-def test_celeba_matches_jax(celeba_root, split):
+def test_celeba_matches_jax(celeba_root, jax_native, split):
     """The split's files, and ``get_batch`` (images and the 0 / 1 labels)
     and ``__getitem__`` against JAX's ``MyCelebA``."""
     from ctvae_torch.data.celeba import MyCelebA
@@ -246,7 +248,7 @@ def test_celeba_variation_file_is_the_scripts_bytes(tmp_path, capsys):
     assert "transitions" in capsys.readouterr().out
 
 
-def test_tceleba_datamodule_matches_jax(celeba_root):
+def test_tceleba_datamodule_matches_jax(celeba_root, jax_native):
     """``VAEDataset(dataset_name="TCeleba")`` against JAX's: the
     transitions (20 actions), steps per epoch, and the train, val and
     test loaders of two epochs batch for batch and mode for mode."""

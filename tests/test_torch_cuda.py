@@ -412,8 +412,10 @@ def test_gat_bwd_rejects_too_large_tile(card):
 
 
 def test_gat_serving_call_keeps_no_alpha(card):
-    """Without autograd the wrapper launches the forward alone (no alpha
-    written, no FlashGAT node)."""
+    """Without autograd the wrapper launches the forward alone
+    (``ctvae::gat_fwd``: no alpha written, no autograd node); with it,
+    ``ctvae::gat_fwd_alpha``, whose node is the op's registered
+    gradient."""
     from ctvae_torch.ops import gat_flash as gf
     args = _gat_args(np.random.default_rng(0), 2, 9, 9, 3, 5)
     with torch.no_grad():
@@ -421,8 +423,8 @@ def test_gat_serving_call_keeps_no_alpha(card):
     assert out.grad_fn is None
     leaves = [a.clone().requires_grad_() if a.dtype == torch.float32 else a
               for a in args]
-    assert type(gf.flash_gat(*leaves, 0.2).grad_fn).__name__ == \
-        "FlashGATBackward"
+    assert "ctvae_gat_fwd_alpha" in \
+        type(gf.flash_gat(*leaves, 0.2).grad_fn).__name__
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
@@ -606,7 +608,7 @@ def test_gat_logits_kernels_match_plain(card, per_sample, B, S, T, K, F, ns,
     leaves = [a.clone().requires_grad_() for a in args]
     before = gl.bwd_launches
     out = gl.fused_gat_logits(*leaves, ns)
-    assert type(out.grad_fn).__name__ == "FusedGATLogitsBackward"
+    assert "ctvae_gat_logits_fwd" in type(out.grad_fn).__name__
     grads = torch.autograd.grad(out, leaves, d_e)
     torch.cuda.synchronize()
     assert gl.bwd_launches == before + 1
@@ -1455,3 +1457,145 @@ def test_permutation_draws_on_card(card):
     assert torch.equal(p[0].sort(1).values,
                        torch.arange(128, device=card).expand(64, 128))
     assert len({tuple(r) for r in p[0].cpu().tolist()}) == 64
+
+
+# --- the kernels as custom ops, keyed draws and exported artifacts ---------
+
+def _op_cases(rng):
+    """{op name: (CUDA args, the indices of its float outputs' checks)}:
+    one call of each ``ctvae::`` op at small ragged shapes."""
+    from ctvae_torch.ops import library
+    B, S, T, H = 3, 9, 13, 33
+    xl, xr = _t(rng, B, S, H), _t(rng, B, T, H)
+    w2, b1, b2 = _t(rng, B, H), _t(rng, H), _t(rng, B)
+    pw = (xl, xr, w2, b1, b2)
+    out = library.pairwise_fwd(*pw, 0.01)
+    gat = _gat_args(rng, 2, 9, 11, 3, 5)
+    _, alpha = library.gat_fwd_alpha(*gat, 0.2)
+    K, F = 2, 40
+    lg = (_t(rng, B, S, K, F), _t(rng, B, T, K, F),
+          torch.from_numpy(rng.uniform(size=(B, S, T)).astype(
+              np.float32)).cuda(), _t(rng, B, K, F, scale=0.3),
+          _t(rng, B, K, F, scale=0.3))
+    return {"vq_l2_argmin": (_t(rng, 37, 8), _t(rng, 9, 8)),
+            "pairwise_fwd": (*pw, 0.01),
+            "pairwise_bwd": (*pw, out, _t(rng, B, S, T), 0.01),
+            "gat_fwd": (*gat, 0.2), "gat_fwd_alpha": (*gat, 0.2),
+            "gat_bwd": (*gat, alpha, _t(rng, 2, 11, 3, 5), 0.2),
+            "gat_logits_fwd": (*lg, 0.2),
+            "gat_logits_bwd": (*lg, _t(rng, B, S, T, K), 0.2)}
+
+
+@pytest.mark.parametrize("name", [
+    "vq_l2_argmin", "pairwise_fwd", "pairwise_bwd", "gat_fwd",
+    "gat_fwd_alpha", "gat_bwd", "gat_logits_fwd", "gat_logits_bwd"])
+def test_custom_op_matches_plain(card, name):
+    """Each ``ctvae::`` op on CUDA tensors (its kernel: one launch on its
+    counter) against the same op on CPU copies (the plain version, the
+    backward ones the plain autograd), within 1e-5 of each output's
+    scale; outputs in the fake kernel's shapes and dtypes."""
+    from ctvae_torch.ops import launch_counts
+    from ctvae_torch.ops.common import custom_ops
+    args = _op_cases(np.random.default_rng(7))[name]
+    op = getattr(custom_ops(), name)
+    kernel = {"gat_fwd_alpha": "gat_fwd"}.get(name, name)
+    before = launch_counts()
+    got = op(*args)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {kernel: 1}
+    want = op(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype
+        assert g.is_contiguous()
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * scale, name
+
+
+def test_keyed_draws_equal_on_cpu_and_card(card):
+    """``KeyedDraws`` of one key on both devices: the integer draws bit
+    for bit, the float transforms within the last bits of the devices'
+    log / cos / tan (rtol 1e-5 over each draw's scale)."""
+    from ctvae_torch.serving.draws import KeyedDraws
+    for key in (0, 7, -3, 2 ** 40 + 5):
+        d = [KeyedDraws(torch.tensor(key), dev) for dev in ("cpu", card)]
+        for kind, call in (
+                ("uniform", lambda p: p.uniform((64, 33))),
+                ("randint", lambda p: p.randint(-3, 11, (500,))),
+                ("bernoulli", lambda p: p.bernoulli(0.3, (7, 9))),
+                ("permutation", lambda p: p.permutation(16, 40)),
+                ("normal", lambda p: p.normal((4, 1000))),
+                ("gumbel", lambda p: p.gumbel((3, 200, 2))),
+                ("cauchy", lambda p: p.cauchy((2, 300))),
+                ("gamma", lambda p: p.gamma(torch.full(
+                    (800,), 8.5, device=p.device)))):
+            cpu, gpu = (call(p) for p in d)
+            assert gpu.device.type == "cuda" and gpu.dtype == cpu.dtype
+            if kind in ("uniform", "randint", "bernoulli", "permutation"):
+                assert torch.equal(gpu.cpu(), cpu), (key, kind)
+            else:
+                scale = max(1.0, float(cpu.abs().max()))
+                assert float((gpu.cpu() - cpu).abs().max()) <= \
+                    1e-5 * scale, (key, kind)
+
+
+def test_ct_artifact_serves_on_card_and_cpu(card, tmp_path):
+    """A small CT-MCQ-VAE's five entry points exported on the card with a
+    symbolic batch, saved and loaded: on the card at B = 4 and 3, against
+    the live port on the same key (1e-4 / 1e-5), launching the four
+    forward kernels and no backward one; the same files moved to the CPU
+    (the plain versions) at B = 2 against the card's output (1e-4)."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.ops import launch_counts
+    from ctvae_torch.serving import export, inference
+    params = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8,
+                  action_dim=8, hidden_dims=[8, 16], num_embeddings=8,
+                  img_size=16, codebooks=2, causal_hidden_dims=[16, 8],
+                  gamma=1.5)
+    model = build_model(params, device=card)
+    rng = np.random.default_rng(5)
+
+    def arrays(name, B):
+        x, y = (torch.from_numpy(rng.uniform(size=(B, 16, 16, 3)).astype(
+            np.float32)).to(card) for _ in range(2))
+        a = torch.nn.functional.one_hot(torch.from_numpy(
+            rng.integers(0, 8, B)), 8).float().to(card)
+        return {"reconstruct": (x,), "encode": (x,), "sample": (),
+                "apply_action": (x, y, a), "classify_action": (x, y)}[name]
+
+    key = torch.tensor(9, device=card)
+    entries = {n: export.EntryPoint(model, n, num_samples=5)
+               for n in inference.available_fns(model)}
+    art = export.save_artifact(str(tmp_path / "art"), {
+        n: export.export_fn(e, (key, *arrays(n, 4)),
+                            poly_batch=n != "sample")
+        for n, e in entries.items()})
+    fns, manifest = export.load_artifact(art)
+    cpu_fns, _ = export.load_artifact(art, device="cpu")
+    assert manifest["functions"]["apply_action"]["in_specs"][1] == \
+        "float32[b, 16, 16, 3]"
+    before = launch_counts()
+    for name, entry in entries.items():
+        for B in (4, 3):
+            args = arrays(name, B)
+            got = fns[name](key, *args)
+            with torch.inference_mode():
+                want = entry(key, *args)
+            assert got.is_cuda and bool(torch.isfinite(got).all())
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-5, err_msg=name)
+        args = arrays(name, 2)
+        on_card = fns[name](key, *args)
+        on_cpu = cpu_fns[name](key.cpu(), *(a.cpu() for a in args))
+        assert not on_cpu.is_cuda
+        np.testing.assert_allclose(on_cpu.numpy(), on_card.cpu().numpy(),
+                                   atol=1e-4, rtol=0, err_msg=name)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    moved = {k: after[k] - before[k] for k in after}
+    assert all(moved[k] > 0 for k in ("vq_l2_argmin", "pairwise_fwd",
+                                      "gat_fwd", "gat_logits_fwd")), moved
+    assert not any(moved[k] for k in ("pairwise_bwd", "gat_bwd",
+                                      "gat_logits_bwd")), moved

@@ -6,10 +6,11 @@ Shapes3D stand-in renderer, the transition files, the data module on
 ``Shapes3D`` / ``TShapes3D``, and the host-to-device copy.
 
 Tolerances: factors, indices, actions, schedules and generated files
-exactly; images within 1e-6 where the JAX transform runs its native
-kernel (``ctvae_tpu.native``, the same triangle filter in float32 with
-sums in another order) and within 1/255 + 1e-6 on its per-image PIL path
-(PIL rounds to uint8); cached uint8 images within one level.
+exactly; images within 1e-6 of the JAX transform's native kernel
+(``ctvae_tpu.native``, the same triangle filter in float32 with sums in
+another order; pinned by ``jax_native``, as its PIL fallback rounds to
+uint8) and within 1/255 + 1e-6 of its per-image PIL path; cached uint8
+images within one level.
 """
 
 import filecmp
@@ -21,16 +22,16 @@ import numpy as np
 import pytest
 import torch
 
-from ctvae_tpu import native
 from ctvae_tpu.data import disent_data as jdd
 from ctvae_tpu.data import transforms as jtr
 from ctvae_torch.data import disent_data as tdd
 from ctvae_torch.data import transforms as ttr
+from torch_port_common import _jax_native_lib, jax_native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
-IMG_ATOL = 1e-6 if native.available() else 1.0 / 255.0 + 1e-6
+IMG_ATOL = 1e-6
 SHAPES_GRID = (2, 2, 3, 4, 2, 3)       # 288 images, all six factors
 
 
@@ -136,7 +137,7 @@ def _standin(name, root, monkeypatch):
 
 
 @pytest.mark.parametrize("name", sorted(MAKERS))
-def test_loader_matches_jax(tmp_path, monkeypatch, name):
+def test_loader_matches_jax(tmp_path, monkeypatch, jax_native, name):
     """Each loader, through its package's StandardTransform(64, 148), on
     every split: the same indices, factors and images."""
     sizes = _standin(name, tmp_path, monkeypatch)
@@ -168,8 +169,8 @@ def test_shapes3d_needs_the_npz(tmp_path):
 
 
 @pytest.mark.parametrize("cache,normalize", [(True, False), (False, True)])
-def test_transform_cache_matches_jax(tmp_path, monkeypatch, cache,
-                                     normalize):
+def test_transform_cache_matches_jax(tmp_path, monkeypatch, jax_native,
+                                     cache, normalize):
     """``cache_transformed`` / ``device_normalize``: the same uint8 rows
     (rounded as JAX rounds, one level apart at most where the two
     transforms straddle a half) and float images; factors exactly."""
@@ -200,7 +201,8 @@ def test_transform_cache_matches_jax(tmp_path, monkeypatch, cache,
     (96, 148, 64),     # smallnorb
     (64, None, 32),    # no crop
     (64, 148, 32)])
-def test_standard_transform_matches_jax(dtype, size, crop, patch):
+def test_standard_transform_matches_jax(jax_native, dtype, size, crop,
+                                        patch):
     rng = np.random.default_rng(size + patch)
     imgs = rng.integers(0, 256, (4, size, size, 3)).astype(np.uint8)
     if dtype == np.float32:
@@ -346,7 +348,7 @@ def shapes_root(tmp_path_factory):
 
 
 @pytest.mark.parametrize("split", ["train", "valid", "test", "all"])
-def test_transitions_match_jax(shapes_root, split):
+def test_transitions_match_jax(shapes_root, jax_native, split):
     from ctvae_tpu.data.transition import TransitionDataset as JTransitions
     from ctvae_torch.data import TransitionDataset
     j = JTransitions(jdd.load_shapes3d(shapes_root, split=split),
@@ -370,7 +372,7 @@ def test_transitions_match_jax(shapes_root, split):
 
 @pytest.mark.parametrize("name,modes", [
     ("TShapes3D", {"base", "action", "causal"}), ("Shapes3D", {"base"})])
-def test_datamodule_matches_jax(shapes_root, name, modes):
+def test_datamodule_matches_jax(shapes_root, jax_native, name, modes):
     """The train, val and test loaders of two epochs: the same schedule
     (modes, factors, actions) and images."""
     from ctvae_tpu.data.datamodule import VAEDataset as JVAEDataset

@@ -38,7 +38,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_common import (SMALL, ReplayDraws, batch, build_pair, close,
+from torch_port_common import (SMALL, ReplayDraws, _jax_native_lib, batch,
+                               build_pair, close, jax_native,
                                one_torch_thread, recorded_draws, t2n)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -243,30 +244,37 @@ def test_metric_set_keys_and_args_match_jax(crossval):
     assert all(np.isfinite(v) for v in got.values())
 
 
-def test_samplers_match_jax():
-    """Factors and observations of the grid path (a disent dataset through
-    its transform), the procedural path (``SyntheticDataset``) and the
-    row path (``SyntheticGridDataset``), from equal seeds; fixed-factor
-    sampling refused on the row path by both."""
+def _grid_sampler_pair():
+    """The grid path's datasets (a disent dataset through its transform)
+    of both packages, on one seeded image grid."""
     from ctvae_tpu.data import disent_data as jdd
-    from ctvae_tpu.data import synthetic as jsyn
     from ctvae_tpu.data import transforms as jtr
-    from ctvae_tpu.metrics import GroundTruthSampler as JSampler
     from ctvae_torch.data import disent_data as tdd
-    from ctvae_torch.data import synthetic as tsyn
     from ctvae_torch.data import transforms as ttr
-    from ctvae_torch.metrics import GroundTruthSampler as TSampler
     sizes = (4, 3, 2)
     grid = np.indices(sizes).reshape(3, -1).T
     imgs = np.random.default_rng(0).integers(0, 256, (len(grid), 12, 12, 3),
                                              dtype=np.uint8)
+    return (jdd.ArrayFactorDataset(imgs, grid, sizes, "/nonexistent", "x",
+                                   split="all",
+                                   transform=jtr.StandardTransform(8, 10)),
+            tdd.ArrayFactorDataset(imgs, grid, sizes, "/nonexistent", "x",
+                                   split="all",
+                                   transform=ttr.StandardTransform(8, 10)))
+
+
+def test_samplers_match_jax(jax_native):
+    """Factors and observations of the grid path (a disent dataset through
+    its transform), the procedural path (``SyntheticDataset``) and the
+    row path (``SyntheticGridDataset``), from equal seeds; fixed-factor
+    sampling refused on the row path by both. The JAX transform is pinned
+    to its native float path (``jax_native``), which the port copies."""
+    from ctvae_tpu.data import synthetic as jsyn
+    from ctvae_tpu.metrics import GroundTruthSampler as JSampler
+    from ctvae_torch.data import synthetic as tsyn
+    from ctvae_torch.metrics import GroundTruthSampler as TSampler
     pairs = [
-        (jdd.ArrayFactorDataset(imgs, grid, sizes, "/nonexistent", "x",
-                                split="all",
-                                transform=jtr.StandardTransform(8, 10)),
-         tdd.ArrayFactorDataset(imgs, grid, sizes, "/nonexistent", "x",
-                                split="all",
-                                transform=ttr.StandardTransform(8, 10))),
+        _grid_sampler_pair(),
         (jsyn.SyntheticDataset(n=40, img_size=16),
          tsyn.SyntheticDataset(n=40, img_size=16)),
         (jsyn.SyntheticGridDataset(img_size=16),
@@ -286,6 +294,28 @@ def test_samplers_match_jax():
             for s in (js, ts):
                 with pytest.raises(NotImplementedError):
                     s.observations_from_factors(np.zeros((2, 4), np.int64))
+
+
+def test_sampler_reference_is_not_the_pil_path(monkeypatch):
+    """What the port deliberately does not copy: with the JAX native
+    library off, JAX's transform takes its per-image PIL path, which
+    rounds to uint8, and its observations leave the port's by more than
+    1e-3."""
+    from ctvae_tpu import native
+    from ctvae_tpu.metrics import GroundTruthSampler as JSampler
+    from ctvae_torch.metrics import GroundTruthSampler as TSampler
+    monkeypatch.setenv("CTVAE_NATIVE", "0")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    jds, tds = _grid_sampler_pair()
+    (jf, jx), (tf, tx) = (JSampler(jds, rng=np.random.default_rng(5))
+                          .sample(16),
+                          TSampler(tds, rng=np.random.default_rng(5))
+                          .sample(16))
+    assert not native.available()
+    assert np.array_equal(jf, tf)
+    assert np.abs(np.asarray(jx, np.float32)
+                  - np.asarray(tx, np.float32)).max() > 1e-3
 
 
 # --- the experiment's services ---------------------------------------------

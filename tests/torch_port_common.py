@@ -61,6 +61,30 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(scope="session")
+def _jax_native_lib(tmp_path_factory):
+    """The JAX package's C++ transform library, built once per process
+    into a temporary directory with that module's own ``_build``."""
+    from ctvae_tpu import native
+    out = tmp_path_factory.mktemp("jax_native") / "libctvae_native.so"
+    path = native._build(out=str(out))
+    assert path, "g++ could not build ctvae_tpu/native/transform_kernels.cpp"
+    return native._bind(path)
+
+
+@pytest.fixture
+def jax_native(monkeypatch, _jax_native_lib):
+    """Pin the JAX package's data path to its native float transform for
+    the test. ``ctvae_tpu.native`` loads its library at first use and
+    falls back to PIL (which rounds to uint8) when the load fails, as it
+    can where parallel test processes build it at once; the port copies
+    the native path, so that path is the reference."""
+    from ctvae_tpu import native
+    monkeypatch.setattr(native, "_lib", _jax_native_lib)
+    monkeypatch.setattr(native, "_tried", True)
+    return native
+
+
 def jax_rngs(seed: int = 0):
     keys = jax.random.split(jax.random.PRNGKey(seed), 4)
     return dict(zip(("params", "gumbel", "noise", "dropout"), keys))
