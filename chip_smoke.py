@@ -4113,7 +4113,7 @@ class _NonfiniteWatch:
         self._tstate.Draws = lambda generator, device: replay
         try:
             want = self._grads(
-                types.SimpleNamespace(model=cpu, generator=None),
+                types.SimpleNamespace(model=cpu, generator=None, group=None),
                 {k: v.cpu() for k, v in batch.items()}, mode, M_N,
                 step.cpu(), optimizer_idx)
         finally:
@@ -5385,6 +5385,381 @@ def phase_export(smi: str) -> tuple:
     return counts, numbers
 
 
+# --- phase 15: data parallelism ---------------------------------------------
+
+DDP_STEPS = 16        # (a): steps of each mode, plain and data-parallel
+DDP_RANK_STEPS = 8    # (b): steps of each mode on each of two ranks
+DDP_ROUNDS = 5        # (a): timed rounds of DDP_TIMED steps in turns
+DDP_TIMED = 4
+DDP_TIMEOUT = 400     # (b) and (c): seconds for the two rank processes
+DDP_RTOL = 1e-5       # (b): each step's loss against one process at B = 32
+DDP_ATOL = 1e-5       # (b): parameters after it, plus Adam's reach
+                      # (_adam_reach)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _ddp_batches(seed: int, n: int, B: int) -> list:
+    gen = torch.Generator().manual_seed(seed)
+    return [dict(zip(("image", "input_y", "action"),
+                     _requests(gen, B, "cuda"))) for _ in range(n)]
+
+
+def _ddp_state(group):
+    """The headline model and the config's exp_params (``ct_layer``
+    trained), seeded as ``_train_setup``; a data-parallel state over
+    ``group`` gets rank 0's weights and generator."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.parallel import put_replicated
+    from ctvae_torch.training import build_optimizers, create_train_state
+    model = build_model(MODEL_PARAMS, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+    state = create_train_state(
+        model, build_optimizers(EXP_PARAMS, model, steps_per_epoch=100),
+        seed=SEED, group=group)
+    put_replicated(model, group, state.generator)
+    return state
+
+
+def _add_counts(total: dict, c0: dict, c1: dict) -> None:
+    for k in total:
+        total[k] += c1[k] - c0[k]
+
+
+def _ddp_world1(launches: dict) -> dict:
+    """(a) A process group of one rank over NCCL: per mode DDP_STEPS
+    data-parallel steps against as many plain steps from an equal state
+    on the same batches (every parameter, Adam moment, the generator and
+    the last metrics bit for bit: a sum over one rank divided by 1 is
+    exact), each DP step's launches as the plain step's; then both timed
+    in turns, the gradient bucket's bytes and the all-reduce's ms, and
+    ``make_multi_train_step(mode, SCAN_K)`` on a data-parallel state (the
+    reductions inside the captured graph) against eager DP steps within
+    SCAN_RTOL."""
+    from ctvae_torch.parallel import all_reduce_grads, destroy, \
+        init_distributed
+    from ctvae_torch.training import make_multi_train_step, make_train_step
+    from ctvae_torch.training.state import WARMUP_STEPS
+    group = init_distributed(device=torch.device("cuda", 0),
+                             init_method=f"tcp://127.0.0.1:{_free_port()}",
+                             rank=0, world_size=1)
+    numbers: dict = {"backend": torch.distributed.get_backend(group)}
+    try:
+        plain, dp = _ddp_state(None), _ddp_state(group)
+        for mode, expected in EXPECTED_TRAIN.items():
+            step = make_train_step(mode)
+            batches = _ddp_batches(SEED + 11, DDP_STEPS, BATCH)
+            for b in batches:
+                want = step(plain, b)
+            for b in batches:
+                c0 = _counts()
+                got = step(dp, b)
+                c1 = _counts()
+                _add_counts(launches, c0, c1)
+                per = {k: c1[k] - c0[k] for k in c1}
+                if per != expected:
+                    raise AssertionError(f"ddp world 1 {mode}: launches "
+                                         f"per step {per}, expected "
+                                         f"{expected}")
+            a, b_ = _scan_tensors(plain), _scan_tensors(dp)
+            differ = [n for n in a if not torch.equal(a[n], b_[n])]
+            differ += [f"metric {k}" for k in want
+                       if not torch.equal(want[k], got[k])]
+            if not torch.equal(plain.generator.get_state(),
+                               dp.generator.get_state()):
+                differ.append("generator")
+            log(f"ddp world 1 {mode}: {len(a)} parameters and Adam moments "
+                f"and {len(want)} metrics after {DDP_STEPS} steps, plain "
+                f"vs data-parallel over NCCL: {len(differ)} differ; loss "
+                f"{float(got['loss']):.6g}")
+            if differ:
+                raise AssertionError(f"ddp world 1 {mode}: not bit-equal: "
+                                     f"{differ[:8]}")
+            secs = {"plain": [], "dp": []}
+            for r in range(DDP_ROUNDS):
+                for which in (("plain", "dp") if r % 2 == 0
+                              else ("dp", "plain")):
+                    state = plain if which == "plain" else dp
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for b in batches[:DDP_TIMED]:
+                        step(state, b)
+                    torch.cuda.synchronize()
+                    secs[which].append(1e3 * (time.perf_counter() - t0)
+                                       / DDP_TIMED)
+            numbers[f"{mode}_ms"] = {w: statistics.median(t)
+                                     for w, t in secs.items()}
+            log(f"ddp world 1 {mode} B={BATCH}: plain "
+                f"{numbers[f'{mode}_ms']['plain']:.3f} ms per step, "
+                f"data-parallel {numbers[f'{mode}_ms']['dp']:.3f} (medians "
+                f"of {DDP_ROUNDS} rounds of {DDP_TIMED} steps in turns; "
+                f"plain {json.dumps([round(t, 3) for t in secs['plain']])},"
+                f" dp {json.dumps([round(t, 3) for t in secs['dp']])})")
+        params = list(dp.model.parameters())
+        numbers["bucket_bytes"] = all_reduce_grads(params, group)
+        numbers["all_reduce_ms"] = time_ms(
+            lambda: all_reduce_grads(params, group))
+        log(f"ddp world 1: gradient bucket {numbers['bucket_bytes']} bytes "
+            f"({sum(p.numel() for p in params)} parameters, f32), NCCL "
+            f"all-reduce {numbers['all_reduce_ms']:.4f} ms (device time, "
+            f"median of 21)")
+        # the multi-step step over the group: its graph holds the reductions
+        numbers["scan"] = {}
+        for mode in EXPECTED_TRAIN:
+            eager, graph = _ddp_state(group), _ddp_state(group)
+            batches = _ddp_batches(SEED + 13, 2 * SCAN_K, BATCH)
+            stacked = {k: torch.stack([b[k] for b in batches])
+                       for k in batches[0]}
+            step, multi = make_train_step(mode), \
+                make_multi_train_step(mode, SCAN_K)
+            for b in batches:
+                step(eager, b)
+            for half in (slice(0, SCAN_K), slice(SCAN_K, 2 * SCAN_K)):
+                multi(graph, {k: v[half] for k, v in stacked.items()})
+            torch.cuda.synchronize()
+            a, b_ = _scan_tensors(eager), _scan_tensors(graph)
+            diffs = {n: float((a[n].float() - b_[n].float()).abs().max())
+                     for n in a}
+            bad = {n: d for n, d in diffs.items() if d > SCAN_RTOL * max(
+                float(a[n].float().abs().max()), 1e-30)}
+            same_gen = torch.equal(eager.generator.get_state(),
+                                   graph.generator.get_state())
+            numbers["scan"][mode] = max(diffs.values())
+            log(f"ddp world 1 scan {mode}: {len(diffs)} tensors after "
+                f"{2 * SCAN_K} steps, eager data-parallel vs "
+                f"{multi.replays} graph replays (after {WARMUP_STEPS} "
+                f"warm-up steps): {sum(d == 0 for d in diffs.values())} "
+                f"bit-equal, largest difference {max(diffs.values()):.3g}; "
+                f"generator equal {same_gen}")
+            if bad or not same_gen or \
+                    multi.replays != 2 * SCAN_K - WARMUP_STEPS:
+                raise AssertionError(f"ddp world 1 scan {mode}: graph and "
+                                     f"eager steps disagree: {bad}")
+            for k, n in multi.replayed_launches().items():
+                launches[k] += n
+    finally:
+        destroy()
+    return numbers
+
+
+def _adam_reach(grad_diff: torch.Tensor, lr: float) -> torch.Tensor:
+    """How far one Adam update from equal states may move two runs'
+    parameters apart, given their gradients' difference: it moves a
+    parameter by lr g / (|g| + 1e-8), so DDP_ATOL + lr / 1e-8 x the
+    difference, as the tier-1 tests bound it (tests/torch_port_common.py::
+    assert_step_matches)."""
+    return DDP_ATOL + lr / 1e-8 * grad_diff
+
+
+def _ddp_loop_config(root: str, epochs: int, resume=None) -> dict:
+    """The loop phase's TSynthetic run as a config for ``run.train``, with
+    a validation limit of one global batch of two ranks per mode."""
+    trainer = {"max_epochs": epochs}
+    if resume:
+        trainer["resume_from_checkpoint"] = resume
+    return {"model_params": dict(LOOP_MODEL_PARAMS),
+            "data_params": {"data_path": "", "dataset_name": "TSynthetic",
+                            "train_batch_size": BATCH,
+                            "val_batch_size": BATCH,
+                            "patch_size": MODEL_PARAMS["img_size"],
+                            "limit": 48, "val_limit": 2 * BATCH,
+                            "seed": SEED},
+            "exp_params": dict(EXP_PARAMS), "trainer_params": trainer,
+            "logging_params": {"save_dir": root, "name": "ddp"}}
+
+
+def _ddp_rank(rank: int, port: int, out_dir: str) -> None:
+    """A rank of (b) and (c): two ranks over gloo sharing cuda:0. (b)
+    DDP_RANK_STEPS steps of each mode at B = 16 rows of each global batch
+    of 32; before each, rank 0 loads its state into one process, which
+    takes the step on the whole global batch beside it (from equal
+    states, so two Adam runs' drift on gradients of rounding noise does
+    not add up over the steps); (c) ``run.train`` of the loop config, one
+    epoch, then a resume from rank 0's checkpoint for a second."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from ctvae_torch import run
+    from ctvae_torch.parallel import destroy, init_distributed, local_rows
+    from ctvae_torch.training import make_train_step
+    res: dict = {"rank": rank}
+    try:
+        group = init_distributed("gloo",
+                                 init_method=f"tcp://127.0.0.1:{port}",
+                                 rank=rank, world_size=2)
+        dp = _ddp_state(group)
+        single = _ddp_state(None) if rank == 0 else None
+        launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
+        wrong, losses, ms, beyond, worst = [], [], {}, [], 0.0
+        lr = float(EXP_PARAMS["LR"])
+        for i, (mode, expected) in enumerate(EXPECTED_TRAIN.items()):
+            step = make_train_step(mode)
+            secs = []
+            for b in _ddp_batches(SEED + 17 + i, DDP_RANK_STEPS, 2 * BATCH):
+                mine = local_rows(b, group)
+                if single is not None:
+                    single.load_state_dict(copy.deepcopy(dp.state_dict()))
+                c0 = _counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = step(dp, mine)
+                torch.cuda.synchronize()
+                secs.append(1e3 * (time.perf_counter() - t0))
+                c1 = _counts()
+                _add_counts(launches, c0, c1)
+                per = {k: c1[k] - c0[k] for k in c1}
+                if per != expected:
+                    wrong.append((mode, per))
+                if single is not None:
+                    want = step(single, b)
+                    losses.append((mode, float(got["loss"]),
+                                   float(want["loss"])))
+                    for (n, p), q in zip(dp.model.named_parameters(),
+                                         single.model.parameters()):
+                        d = (p.detach() - q.detach()).abs()
+                        worst = max(worst, float(d.max()))
+                        g = (p.grad - q.grad).abs() if p.grad is not None \
+                            else torch.zeros_like(d)
+                        if not bool((d <= _adam_reach(g, lr)).all()):
+                            beyond.append((mode, n))
+            ms[mode] = statistics.median(secs[1:])
+        res.update(launches=launches, wrong=wrong, ms=ms, losses=losses,
+                   params={n: p.detach().cpu() for n, p in
+                           dp.model.named_parameters()},
+                   param_max_diff=worst, beyond_bound=beyond)
+        del dp, single
+        torch.cuda.empty_cache()
+        # (c) run.train over the group; rank 0 alone writes
+        root = os.path.join(out_dir, "logs")
+        saves = []
+        real_save = torch.save
+
+        def spy(obj, f, *a, **k):
+            saves.append(str(f))
+            return real_save(obj, f, *a, **k)
+        torch.save = spy
+        try:
+            c0 = _counts()
+            t0 = time.perf_counter()
+            first = run.train(_ddp_loop_config(root, 1), device="cuda:0")
+            res["fit_s"] = time.perf_counter() - t0
+            c1 = _counts()
+            _add_counts(launches, c0, c1)
+            last = os.path.join(root, "ddp", "version_0", "checkpoints",
+                                "last")
+            second = run.train(_ddp_loop_config(root, 2, resume=last),
+                               device="cuda:0")
+        finally:
+            torch.save = real_save
+        res.update(first=first, second=second, saves=saves)
+    except Exception:       # reported to the parent, which fails the phase
+        import traceback
+        res["error"] = traceback.format_exc()
+    finally:
+        destroy()
+        torch.save(res, os.path.join(out_dir, f"ddp_rank{rank}.pt"))
+
+
+def _ddp_two_ranks(launches: dict, smi: str) -> dict:
+    """(b) and (c): the two ranks, spawned after the kernels are built
+    (the ranks load the libraries the parent built), joined within
+    DDP_TIMEOUT seconds or killed."""
+    import torch.multiprocessing as mp
+    numbers: dict = {}
+    with tempfile.TemporaryDirectory(prefix="ctvae_ddp_") as tmp:
+        ctx = mp.start_processes(_ddp_rank, args=(_free_port(), tmp),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + DDP_TIMEOUT
+        try:
+            while not ctx.join(timeout=max(1.0, deadline
+                                           - time.monotonic())):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"ddp: the ranks ran past "
+                                         f"{DDP_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        r0, r1 = (torch.load(os.path.join(tmp, f"ddp_rank{r}.pt"),
+                             weights_only=False) for r in range(2))
+        for r in (r0, r1):
+            if "error" in r:
+                raise AssertionError(f"ddp rank {r['rank']}:\n{r['error']}")
+        runs = sorted(os.listdir(os.path.join(tmp, "logs", "ddp")))
+        ckpts = sorted(os.listdir(os.path.join(tmp, "logs", "ddp",
+                                               "version_0", "checkpoints")))
+    for r in (r0, r1):
+        _add_counts(launches, {k: 0 for k in launches}, r["launches"])
+    rel = [abs(g - w) / max(abs(w), 1e-30) for _, g, w in r0["losses"]]
+    same = [n for n, t in r0["params"].items()
+            if not torch.equal(t, r1["params"][n])]
+    numbers.update(
+        rank_ms=r0["ms"], rank1_ms=r1["ms"], loss_max_rel=max(rel),
+        param_max_diff=r0["param_max_diff"],
+        params_beyond_bound=r0["beyond_bound"], ranks_differ=same,
+        fit_s=r0["fit_s"],
+        images_per_sec={str(r["rank"]): r["first"]["train_images_per_sec"]
+                        for r in (r0, r1)},
+        runs=runs, checkpoints=ckpts,
+        saves=[len(r0["saves"]), len(r1["saves"])],
+        resumed_val_loss=r0["second"]["val_loss"])
+    log(f"ddp two ranks on one card over gloo ({smi}), a correctness path "
+        f"(both ranks share the card; not a scaling figure): ms per step "
+        f"at B = 16 a rank, rank 0 {json.dumps(r0['ms'])}, rank 1 "
+        f"{json.dumps(r1['ms'])}; each step against one process at B = 32 "
+        f"from the same state: losses' largest relative difference "
+        f"{max(rel):.3g} over {len(rel)} steps, parameters' largest "
+        f"difference {r0['param_max_diff']:.3g} (beyond Adam's reach of "
+        f"the gradients' difference: {r0['beyond_bound']}); after the "
+        f"steps the ranks' parameters differ in "
+        f"{len(same)} tensors; launches per step off the plain step's "
+        f"{r0['wrong'] + r1['wrong']}")
+    log(f"ddp run.train at world 2 over gloo: one epoch in "
+        f"{r0['fit_s']:.2f} s, images/s per rank "
+        f"{json.dumps(numbers['images_per_sec'])} (global "
+        f"{sum(numbers['images_per_sec'].values()):.1f}); run directories "
+        f"{runs}; version_0 checkpoints {ckpts}; checkpoint writes rank 0 "
+        f"{len(r0['saves'])}, rank 1 {len(r1['saves'])}; the resumed run's "
+        f"val_loss {r0['second']['val_loss']:.6g} (rank 1 "
+        f"{r1['second']['val_loss']:.6g})")
+    if max(rel) > DDP_RTOL or r0["beyond_bound"] or same or \
+            r0["wrong"] or r1["wrong"]:
+        raise AssertionError("ddp two ranks: disagree with one process or "
+                             "each other")
+    if runs != ["version_0", "version_1"] or "last" not in ckpts or \
+            not r0["saves"] or r1["saves"] or \
+            r0["second"]["val_loss"] != r1["second"]["val_loss"]:
+        raise AssertionError(f"ddp run.train: runs {runs}, checkpoints "
+                             f"{ckpts}, writes {numbers['saves']}")
+    return numbers
+
+
+def phase_ddp(smi: str) -> tuple:
+    """Data-parallel training of the headline model (configs/
+    ct_mcq_vae.yaml at full width, ``ct_layer`` trained) under cuDNN's
+    deterministic algorithms: (a) ``_ddp_world1``, (b) and (c)
+    ``_ddp_two_ranks``. The launch counters of every data-parallel step
+    are the path "ddp". Returns (those launches, the numbers)."""
+    start = time.perf_counter()
+    launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        numbers = {"world1": _ddp_world1(launches)}
+        numbers["two_ranks"] = _ddp_two_ranks(launches, smi)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    numbers["wall_s"] = time.perf_counter() - start
+    log(f"launches on the ddp path: {json.dumps(launches)}")
+    log(f"ddp: phase {numbers['wall_s']:.1f} s")
+    return launches, numbers
+
+
 # keys of a check's row that the kernels line carries beside the contract's
 EXTRA_KEYS = ("ms_at_16", "bound_ms_at_16", "plain_ms_at_16", "alpha_ms",
               "occupancy", "by_d")
@@ -5450,6 +5825,10 @@ def main(argv) -> int:
         "--export-only", action="store_true",
         help="only build the kernels and run the phase \"export\" "
              "(phase_export)")
+    parser.add_argument(
+        "--ddp-only", action="store_true",
+        help="only build the kernels and run the phase \"ddp\" "
+             "(phase_ddp)")
     parser.add_argument(
         "--metrics-only", action="store_true",
         help="only build the kernels and run the phase \"metrics\" "
@@ -5517,6 +5896,10 @@ def main(argv) -> int:
         launches, numbers = phase_export(smi)
         log(json.dumps({"export_launches": launches, "export": numbers}))
         return 0
+    if opts.ddp_only:
+        launches, numbers = phase_ddp(smi)
+        log(json.dumps({"ddp_launches": launches, "ddp": numbers}))
+        return 0
     if opts.metrics_only:
         launches, seconds = phase_metrics(smi)
         log(json.dumps({"metrics_launches": launches,
@@ -5553,6 +5936,7 @@ def main(argv) -> int:
         gauss_launches, gauss_vq_launches, gauss_vq_rows, gauss_numbers = \
             phase_gaussian(smi, tmp)
     export_launches, export_numbers = phase_export(smi)
+    ddp_launches, ddp_numbers = phase_ddp(smi)
     kernels = []
     for r in rows:
         source, replaces = KERNEL_META[r["name"]]
@@ -5570,7 +5954,8 @@ def main(argv) -> int:
                    "celeba_vq": celeba_vq_launches[r["name"]],
                    "celeba": celeba_launches[r["name"]],
                    "tceleba": tceleba_launches[r["name"]],
-                   "export": export_launches[r["name"]]}
+                   "export": export_launches[r["name"]],
+                   "ddp": ddp_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -5601,7 +5986,8 @@ def main(argv) -> int:
                         ("celeba_vq", "celeba"))) or any(
             k["launches_by_path"][p] == 0 for k in kernels
            for p in ("train", "codebooks_2", "two_stage", "scan",
-                     "shapes3d_ct", "metrics", "search", "tceleba")) or any(
+                     "shapes3d_ct", "metrics", "search", "tceleba",
+                     "ddp")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
             if EXPECTED["reconstruct"][k["name"]]) or any(
             (k["launches_by_path"]["shapes3d_mcq"] == 0)
@@ -5613,7 +5999,8 @@ def main(argv) -> int:
                     "train_peak_gib": peak, "codebooks_2_train_ms": c2_ms,
                     "scan_ms": scan_ms, "metric_seconds": metric_seconds,
                     "search": search_numbers, "gaussian": gauss_numbers,
-                    "celeba": celeba_numbers, "export": export_numbers}))
+                    "celeba": celeba_numbers, "export": export_numbers,
+                    "ddp": ddp_numbers}))
     log(f"chip_smoke wall time {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

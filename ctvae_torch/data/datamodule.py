@@ -12,7 +12,11 @@ factor grid with its one-factor transitions). Image datasets go through
 ``cache_transformed`` and ``device_normalize`` reach their loaders.
 Batches are dicts of numpy arrays plus a ``mode`` string; only ``image``
 and ``input_y`` may be uint8 (``data/prefetch.py``). Host sharding takes
-``host_id`` / ``num_hosts`` as arguments (default one host).
+``host_id`` / ``num_hosts`` as arguments; without them it follows the
+process group where one is up (the rank and the world, as JAX's follow
+``jax.process_index()`` / ``process_count()``), else one host. A host
+gets the same number of batches as every other: a plain dataset's
+batches are dealt round-robin and the last incomplete round is dropped.
 """
 
 from __future__ import annotations
@@ -80,11 +84,11 @@ DATASETS: Dict[str, Callable] = {
 
 
 def _plain_batches(ds, batch_size: int, shuffle: bool, seed: int,
-                   epoch: int):
+                   epoch: int, num_hosts: int = 1):
     n = len(ds)
     rng = np.random.default_rng((seed, epoch))
     idx = rng.permutation(n) if shuffle else np.arange(n)
-    for b in range(n // batch_size):
+    for b in range(n // batch_size // num_hosts * num_hosts):
         imgs, labels = ds.get_batch(idx[b * batch_size:(b + 1) * batch_size])
         yield {"image": imgs, "labels": labels}
 
@@ -98,8 +102,8 @@ class VAEDataset:
                  patch_size: Union[int, Sequence[int]] = (64, 64),
                  num_workers: int = 0, pin_memory: bool = False,
                  limit: Optional[int] = None, val_limit: Optional[int] = None,
-                 seed: int = 0, host_id: int = 0, num_hosts: int = 1,
-                 **kwargs):
+                 seed: int = 0, host_id: Optional[int] = None,
+                 num_hosts: Optional[int] = None, **kwargs):
         if dataset_name not in DATASETS:
             raise ValueError(f"unknown dataset {dataset_name!r}; the port "
                              f"reads {sorted(DATASETS)}")
@@ -111,6 +115,9 @@ class VAEDataset:
         self.limit = limit
         self.val_limit = val_limit
         self.seed = seed
+        if host_id is None or num_hosts is None:
+            from ..parallel.mesh import rank, world_size
+            host_id, num_hosts = rank(), world_size()
         self.host_id, self.num_hosts = host_id, num_hosts
         self.extra = kwargs
 
@@ -139,7 +146,8 @@ class VAEDataset:
                 yield batch
         else:
             for i, batch in enumerate(_plain_batches(
-                    ds, batch_size, shuffle, self.seed, epoch)):
+                    ds, batch_size, shuffle, self.seed, epoch,
+                    self.num_hosts)):
                 if i % self.num_hosts == self.host_id:
                     batch["mode"] = "base"
                     yield batch

@@ -27,7 +27,9 @@ normalises with the batch's statistics and folds its mean and *biased*
 variance into the running buffers (``running = 0.9 running + 0.1 batch``,
 where torch's own would take the unbiased variance), in place under
 ``no_grad`` with no host read, so a captured CUDA graph replays the
-update; an eval pass normalises with the running buffers.
+update; an eval pass normalises with the running buffers. In a
+data-parallel step (``parallel/mesh.py``) a train pass takes the
+statistics of the global batch.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ from typing import Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ..parallel.mesh import all_reduce_autograd, batch_group, group_size
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -162,14 +166,35 @@ class BatchNorm(nn.Module):
             return torch.ops.aten._native_batch_norm_legit_no_training(
                 x, self.weight, self.bias, self.running_mean,
                 self.running_var, 0.0, self.EPS)[0]
+        dims = (0,) + tuple(range(2, x.dim()))
+        group = batch_group()
+        if group is not None:
+            return self._global_forward(x, dims, group)
         with torch.no_grad():
-            dims = (0,) + tuple(range(2, x.dim()))
             var, mean = torch.var_mean(x, dim=dims, correction=0)
-            m = self.momentum
-            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
-            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+            self._fold(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.EPS)
+
+    @torch.no_grad()
+    def _fold(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+        self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+
+    def _global_forward(self, x: torch.Tensor, dims, group) -> torch.Tensor:
+        """A data-parallel train pass: the mean and the biased variance of
+        the global batch (two sums over the ranks, the gradient flowing
+        through both), as flax normalises a sharded global batch."""
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        n = float(x.numel() // x.shape[1] * group_size(group))
+        mean = all_reduce_autograd(torch.sum(x, dim=dims), group) / n
+        centred = x - mean.reshape(shape)
+        var = all_reduce_autograd(torch.sum(torch.square(centred), dim=dims),
+                                  group) / n
+        self._fold(mean.detach(), var.detach())
+        return (centred * torch.rsqrt(var + self.EPS).reshape(shape)
+                * self.weight.reshape(shape) + self.bias.reshape(shape))
 
 
 class ConvBNBlock(nn.Module):

@@ -102,6 +102,84 @@ class Draws:
         return torch.argsort(self.uniform((rows, n)), dim=1, stable=True)
 
 
+class ShardedDraws:
+    """The draws of one rank of a data-parallel step
+    (``parallel/mesh.py``): each draw of a batch-leading shape is made at
+    the global shape by ``base`` (whose generator every rank holds in
+    lockstep) and the rank keeps its rows, so every rank's draws are its
+    rows of the single process's on the global batch, and the generators
+    stay in lockstep. Rank r of n keeps rows r B to (r + 1) B of the
+    global n B; under ``grouped(G)`` a leading dim of G B is G blocks of
+    the batch, block-major (the causal mode's virtual batch of A
+    actions), and the rank keeps its B rows of each block. ``gamma``
+    gathers the ranks' ``alpha`` first (a gamma draw consumes the stream
+    by its shapes). ``replicated()`` is ``base``: a draw of the same
+    values on every rank (the EMA revival's row picks)."""
+
+    def __init__(self, base, group, groups: int = 1):
+        from ..parallel.mesh import group_rank, group_size
+        self.base, self.group, self.groups = base, group, groups
+        self.device = getattr(base, "device", None)
+        self.world, self.rank = group_size(group), group_rank(group)
+
+    def grouped(self, groups: int) -> "ShardedDraws":
+        return ShardedDraws(self.base, self.group, self.groups * groups)
+
+    def replicated(self):
+        return self.base
+
+    def _global(self, shape: Sequence[int]) -> tuple:
+        shape = tuple(shape)
+        if not shape or shape[0] % self.groups:
+            raise ValueError(f"draw of shape {shape} is not {self.groups} "
+                             f"blocks of batch rows")
+        return (shape[0] * self.world,) + shape[1:]
+
+    def _mine(self, a: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+        shape = tuple(shape)
+        b = shape[0] // self.groups
+        a = a.reshape((self.groups, self.world, b) + shape[1:])
+        return a[:, self.rank].reshape(shape)
+
+    def uniform(self, shape):
+        return self._mine(self.base.uniform(self._global(shape)), shape)
+
+    def gumbel(self, shape):
+        return self._mine(self.base.gumbel(self._global(shape)), shape)
+
+    def bernoulli(self, p, shape):
+        return self._mine(self.base.bernoulli(p, self._global(shape)), shape)
+
+    def normal(self, shape):
+        return self._mine(self.base.normal(self._global(shape)), shape)
+
+    def randint(self, low, high, shape):
+        return self._mine(self.base.randint(low, high, self._global(shape)),
+                          shape)
+
+    def cauchy(self, shape):
+        return self._mine(self.base.cauchy(self._global(shape)), shape)
+
+    def gamma(self, alpha: torch.Tensor) -> torch.Tensor:
+        from ..parallel.mesh import all_gather_rows
+        if self.groups != 1:
+            raise ValueError("a grouped gamma draw is not defined")
+        full = all_gather_rows(alpha.detach().contiguous(), self.group)
+        return self._mine(self.base.gamma(full), alpha.shape)
+
+    def permutation(self, rows: int, n: int) -> torch.Tensor:
+        return self._mine(self.base.permutation(*self._global((rows, n))),
+                          (rows, n))
+
+
+def grouped(draws, groups: int):
+    """``draws`` for draws whose leading dim is ``groups`` blocks of the
+    batch, block-major (``ShardedDraws.grouped``); a single process's
+    draws as they are."""
+    return draws.grouped(groups) if isinstance(draws, ShardedDraws) \
+        else draws
+
+
 def reparameterize(mu: torch.Tensor, log_var: torch.Tensor, draws: Draws
                    ) -> torch.Tensor:
     """The reparameterisation trick: ``mu + eps * exp(log_var / 2)`` with
@@ -116,6 +194,12 @@ class BaseVAE(nn.Module):
     ``loss_function`` and ``generate``. A model with a usable prior also
     defines ``sample``; one without (VQVAE, whose codes have no prior)
     defines none, and the loop and the serving entry points check for it."""
+
+    #: why the loss is not a mean of per-row terms over the batch (it
+    #: pairs rows, sorts them or takes a non-linear function of a batch
+    #: mean), or None: such a loss differs between a rank's rows and the
+    #: global batch, so a data-parallel run refuses it (ROADMAP A8)
+    cross_batch_loss: Optional[str] = None
 
     def generate(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
         """Reconstruct ``x`` (the forward's ``recons``)."""

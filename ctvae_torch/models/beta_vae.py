@@ -33,6 +33,11 @@ class BetaVAE(StandardGaussianVAE):
         self.max_capacity = max_capacity
         self.Capacity_max_iter = Capacity_max_iter
 
+    @property
+    def cross_batch_loss(self):
+        return ("the capacity loss is |KL - C| of the batch-mean KL"
+                if self.loss_type == "B" else None)
+
     def loss_function(self, outputs: Dict, *, M_N: float = 1.0, step=0,
                       **kwargs) -> Dict:
         recons_loss = mse_loss(outputs["recons"], outputs["input"])

@@ -31,6 +31,9 @@ def log_density_gaussian(x: torch.Tensor, mu: torch.Tensor,
 
 class BetaTCVAE(BaseVAE):
 
+    cross_batch_loss = (
+        "the total-correlation terms pair every two rows of the batch")
+
     def __init__(self, in_channels: int = 3, latent_dim: int = 10,
                  hidden_dims: Optional[Sequence[int]] = None,
                  anneal_steps: int = 200, alpha: float = 1.0,

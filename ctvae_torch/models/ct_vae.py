@@ -31,7 +31,8 @@ from torch.nn import functional as F
 from ..ops.gat import GATv2Stack
 from ..ops.pairwise import pairwise_mlp_scores
 from .backbones import VQDecoder, VQEncoder
-from .base import Draws, cross_entropy_from_probs, dropout, mse_loss
+from .base import (Draws, cross_entropy_from_probs, dropout, grouped,
+                   mse_loss)
 from .mcq_vae import MCQVAE
 from .quantizers import MultipleCodebookVectorQuantizer, codebook_perplexity
 
@@ -273,8 +274,10 @@ class CausalTransition(nn.Module):
         no_inter = self._no_inter_scores(pos_latent)
         pos_rep = pos_latent[None].expand(A, B, S, N).reshape(A * B, S, N)
         ni_rep = no_inter[None].expand(A, B, S, S).reshape(A * B, S, S)
-        y_pred, _, _ = self.forward_action(lat_rep, act_rep, draws,
-                                           train=train, _pos_latent=pos_rep,
+        # the virtual batch's draws are action-major: A blocks of B rows
+        y_pred, _, _ = self.forward_action(lat_rep, act_rep,
+                                           grouped(draws, A), train=train,
+                                           _pos_latent=pos_rep,
                                            _no_inter=ni_rep)
         y_pred = y_pred.reshape(A, B, S, N)
         y_inds = torch.argmax(latent_y, dim=-1)
@@ -362,13 +365,14 @@ class CTMCQVAE(nn.Module):
                  seq_axis: Optional[str] = None, dtype="float32", *,
                  device=None):
         super().__init__()
-        # ROADMAP A6 / A8: the block options bound the workspace of JAX's
-        # XLA path, which the fused kernels never build
-        unsupported = {"pairwise_block_rows": pairwise_block_rows is not None,
-                       "gat_block_cols": bool(gat_block_cols),
-                       "seq_axis": seq_axis is not None,
-                       f"dtype={dtype!r}": str(dtype) not in ("float32",
-                                                              "torch.float32")}
+        # the block options bound the workspace of JAX's XLA path, which
+        # the fused kernels never build
+        unsupported = {
+            "pairwise_block_rows (ROADMAP A6)": pairwise_block_rows is not None,
+            "gat_block_cols (ROADMAP A6)": bool(gat_block_cols),
+            "seq_axis (ROADMAP A8)": seq_axis is not None,
+            f"dtype={dtype!r} (ROADMAP A6)": str(dtype) not in (
+                "float32", "torch.float32")}
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise NotImplementedError(f"not ported yet: {', '.join(bad)}")

@@ -19,6 +19,10 @@ from .gaussian_base import StandardGaussianVAE
 
 class DIPVAE(StandardGaussianVAE):
 
+    cross_batch_loss = (
+        "the DIP term squares the covariance of mu over the batch, and the "
+        "losses are sums over it")
+
     def __init__(self, in_channels: int = 3, latent_dim: int = 128,
                  hidden_dims: Optional[Sequence[int]] = None,
                  img_size: int = 64, deterministic: bool = False,

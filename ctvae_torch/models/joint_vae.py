@@ -26,6 +26,9 @@ from .gaussian_base import StandardGaussianVAE
 
 class JointVAE(StandardGaussianVAE):
 
+    cross_batch_loss = (
+        "the capacity loss is |C - KL| of the batch-mean KLs")
+
     def __init__(self, in_channels: int = 3, latent_dim: int = 10,
                  hidden_dims: Optional[Sequence[int]] = None,
                  img_size: int = 64, deterministic: bool = False,

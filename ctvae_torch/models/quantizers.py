@@ -19,7 +19,10 @@ assigned-vector sums (``embed_avg``) are float32 buffers, not parameters
 captured CUDA graph replays the update. ``revive_threshold > 0``
 re-seeds the codes whose count fell below it from random rows of the
 batch: one ``randint`` draw per codebook, where JAX draws from its
-``noise`` stream.
+``noise`` stream. In a data-parallel step (``parallel/mesh.py``) the
+counts and sums are those of the global batch, the revival picks rows of
+the global batch (gathered from the ranks), and the perplexity counts the
+global codes, as JAX computes them over the sharded global array.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.vq import l2_argmin
-from .base import Draws, mse_loss
+from ..parallel.mesh import all_gather_rows, all_sum, batch_group
+from .base import Draws, ShardedDraws, mse_loss
 
 
 def codebook_perplexity(inds: torch.Tensor, num_embeddings: int
@@ -44,6 +48,9 @@ def codebook_perplexity(inds: torch.Tensor, num_embeddings: int
     counts = torch.zeros(num_embeddings, dtype=torch.int64,
                          device=flat.device).scatter_add_(
         0, flat, torch.ones_like(flat))
+    group = batch_group()
+    if group is not None:
+        counts = all_sum(counts, group)
     probs = counts.float() / torch.clamp(torch.sum(counts), min=1)
     plogp = torch.where(probs > 0, probs * torch.log(probs),
                         torch.zeros_like(probs))
@@ -126,6 +133,11 @@ class VectorQuantizerMS(nn.Module):
         one_hot = F.one_hot(inds_flat, K).float()                 # [N, K]
         counts = torch.sum(one_hot, dim=0)                        # [K]
         dw = one_hot.T @ flat                                     # [K, D]
+        group = batch_group()
+        if group is not None:
+            # sums over the global batch
+            stats = all_sum(torch.cat([counts[:, None], dw], 1), group)
+            counts, dw = stats[:, 0], stats[:, 1:]
         d = self.ema_decay
         cluster = d * self.cluster_size + (1.0 - d) * counts
         avg = d * self.embed_avg + (1.0 - d) * dw
@@ -134,8 +146,11 @@ class VectorQuantizerMS(nn.Module):
         embed = avg / smoothed[:, None]
         if self.revive_threshold > 0.0:
             dead = cluster < self.revive_threshold                # [K]
-            pick = draws.randint(0, flat.shape[0], (K,))
-            repl = flat.index_select(0, pick.to(flat.device).long())
+            rows = flat if group is None else all_gather_rows(flat, group)
+            shared = (draws.replicated() if isinstance(draws, ShardedDraws)
+                      else draws)
+            pick = shared.randint(0, rows.shape[0], (K,))
+            repl = rows.index_select(0, pick.to(flat.device).long())
             embed = torch.where(dead[:, None], repl, embed)
             avg = torch.where(dead[:, None], repl, avg)
             cluster = torch.where(dead, torch.ones_like(cluster), cluster)

@@ -18,6 +18,9 @@ from .gaussian_base import StandardGaussianVAE
 
 class SWAE(StandardGaussianVAE):
 
+    cross_batch_loss = (
+        "the sliced Wasserstein distance sorts the batch's projections")
+
     def __init__(self, in_channels: int = 3, latent_dim: int = 128,
                  hidden_dims: Optional[Sequence[int]] = None,
                  img_size: int = 64, deterministic: bool = True,

@@ -16,6 +16,9 @@ from .mmd import compute_mmd
 
 class WAE_MMD(StandardGaussianVAE):
 
+    cross_batch_loss = (
+        "the MMD pairs every two rows of the batch's latents (models/mmd.py)")
+
     def __init__(self, in_channels: int = 3, latent_dim: int = 128,
                  hidden_dims: Optional[Sequence[int]] = None,
                  img_size: int = 64, deterministic: bool = True,

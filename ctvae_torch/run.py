@@ -22,6 +22,19 @@ worth of samples, as the JAX ``run.py`` wires them;
 ``exp_params.async_checkpointing`` writes checkpoints on a thread.
 
 ``train(config, device)`` does the work for a config dict.
+
+Data-parallel training: launched by ``torchrun``,
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m ctvae_torch.run -c configs/ct_mcq_vae.yaml
+
+each rank brings up the process group (also at a world of 1) on
+``cuda:LOCAL_RANK``, or on the ``--device`` given (``cpu`` takes gloo,
+a card NCCL; ``--backend gloo`` lets several ranks share one card), takes
+its rows of each global batch of ``train_batch_size x N`` and tears the
+group down at the end; only rank 0 writes the run's files
+(``training/experiment.py``). A caller that brought a group up itself
+keeps it.
 """
 
 from __future__ import annotations
@@ -32,11 +45,45 @@ import signal
 from typing import Dict, List, Optional
 
 
-def train(config: Dict, device=None) -> dict:
+def _torchrun_device(device) -> "torch.device":
+    """A ``torchrun`` rank's device: the caller's, with ``cuda`` meaning
+    ``cuda:LOCAL_RANK``; a card past the machine's raises."""
+    import torch
+    local = int(os.environ["LOCAL_RANK"])
+    device = torch.device(device if device is not None else "cuda")
+    if device.type != "cuda":
+        return device
+    index = local if device.index is None else device.index
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(f"rank {os.environ['RANK']} (LOCAL_RANK {local}) "
+                           f"asks for cuda:{index}, but this machine has "
+                           f"{torch.cuda.device_count()} card(s)")
+    return torch.device("cuda", index)
+
+
+def train(config: Dict, device=None, backend: Optional[str] = None) -> dict:
     """Train the model of ``config`` (the YAML's sections as dicts) on
     ``device`` (default ``cuda``); returns the last epoch's ``train_`` and
     ``val_`` metrics. The run's files go to the first free
-    ``<save_dir>/<name>/version_<n>``."""
+    ``<save_dir>/<name>/version_<n>``. Under ``torchrun`` it brings the
+    process group up (``backend``, or NCCL on a card and gloo on the CPU)
+    and down; under a group that is already up it trains over that."""
+    import torch.distributed as dist
+
+    from .parallel import mesh
+
+    own_group = mesh.launched_by_torchrun() and not dist.is_initialized()
+    if own_group:
+        device = _torchrun_device(device)
+        mesh.init_distributed(backend, device=device)
+    try:
+        return _train(config, device)
+    finally:
+        if own_group:
+            mesh.destroy()
+
+
+def _train(config: Dict, device) -> dict:
     import torch
 
     from .data import VAEDataset
@@ -63,7 +110,8 @@ def train(config: Dict, device=None) -> dict:
         name=logging_params.get("name", model_params.get("name", "model")),
         use_wandb=bool(logging_params.get("use_wandb", False)),
         hparams=config)
-    print(f"=> logging to {logger.log_dir}", flush=True)
+    if logger.writes:
+        print(f"=> logging to {logger.log_dir}", flush=True)
     model = build_model(model_params, device=device,
                         generator=torch.Generator(device).manual_seed(seed))
     data_params.setdefault("seed", seed)
@@ -84,7 +132,8 @@ def train(config: Dict, device=None) -> dict:
     experiment = VAEXperiment(model, exp_params, data, logger=logger,
                               ckpt_manager=ckpt, val_metrics=val_metrics)
     for sub in ("Inputs", "Samples", "Reconstructions"):
-        os.makedirs(os.path.join(logger.log_dir, sub), exist_ok=True)
+        if logger.writes:
+            os.makedirs(os.path.join(logger.log_dir, sub), exist_ok=True)
     experiment.setup(seed=seed)
 
     resume = trainer_params.get("resume_from_checkpoint")
@@ -120,11 +169,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
                         default="configs/synthetic_ct.yaml",
                         help="path to the config file")
     parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda, which must exist)")
+                        help="torch device (default: cuda, which must exist; "
+                             "under torchrun cuda:LOCAL_RANK)")
+    parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                        help="process group backend under torchrun (default: "
+                             "nccl on a card, gloo on the CPU)")
     args = parser.parse_args(argv)
 
     from .config import read_config
-    return train(read_config(args.filename), device=args.device)
+    return train(read_config(args.filename), device=args.device,
+                 backend=args.backend)
 
 
 if __name__ == "__main__":

@@ -45,8 +45,17 @@ there; ``fit`` waits for an asynchronous checkpoint write
 (``CheckpointManager(async_save=True)``) before it returns or reports a
 stop.
 
-Not ported yet (ROADMAP A8): sharded or multi-device training. The
-``exp_params`` keys that ask for it raise ``NotImplementedError``.
+Data parallelism (``exp_params.sharding: dp``, the default; ``parallel/
+mesh.py``): where a process group is up, ``setup`` builds the mesh
+(``dcn_replicas`` N > 1: the hybrid ``(replica, data, model)`` mesh, N
+dividing the world), splits the batch over every rank, broadcasts the
+state from rank 0 and takes data-parallel steps; ``fit`` ORs the stop
+request over the ranks; ``validate`` reports the means over the global
+batches (the eval step's metrics are the ranks' means); only rank 0 writes checkpoints, image grids, logs and the epoch
+line; every rank restores. A model whose loss is not a mean of per-row
+terms (``cross_batch_loss``) is refused at a world above 1. Not ported yet
+(ROADMAP A8): ``sharding`` ``fsdp`` and ``sp`` and ``model_axis`` > 1,
+which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,6 +71,9 @@ from torch import nn
 from ..data.prefetch import to_device
 from ..models.base import Draws
 from ..models.vgg import attach_pretrained_vgg
+from ..parallel.mesh import (global_any, is_primary, make_hybrid_mesh,
+                             make_mesh, mesh_batch_group, put_replicated,
+                             shard_batch, world_size)
 from ..serving.inference import encode_repr
 from ..utils.checkpoint import CheckpointManager, load_weights_only
 from .optimizers import build_lr_schedules, build_optimizers
@@ -70,8 +82,7 @@ from .state import FWD_KEYS, TrainState, create_train_state, \
 
 #: exp_params keys of the JAX trainer the port does not take yet, with the
 #: values that leave them off
-NOT_PORTED = {"sharding": (None, "dp"), "dcn_replicas": (None, 1),
-              "model_axis": (None, 1)}
+NOT_PORTED = {"sharding": (None, "dp"), "model_axis": (None, 1)}
 
 
 def _is_watch_key(k: str) -> bool:
@@ -129,6 +140,15 @@ class VAEXperiment:
         if bad:
             raise NotImplementedError(f"exp_params {bad} not ported yet "
                                       f"(ROADMAP A8)")
+        why = getattr(model, "cross_batch_loss", None)
+        if why and world_size() > 1:
+            raise NotImplementedError(
+                f"{type(model).__name__} under data parallelism is not "
+                f"ported yet (ROADMAP A8): {why}, so a rank's loss is not "
+                f"its share of the global batch's")
+        self.dcn_replicas = int(exp_params.get("dcn_replicas") or 1)
+        self.mesh = None
+        self.group = None
         self.model = model
         self.params = dict(exp_params)
         self.data = datamodule
@@ -164,7 +184,16 @@ class VAEXperiment:
         optimizers = build_optimizers(self.params, self.model, spe)
         self.lr_schedules = build_lr_schedules(self.params, spe)
         self.seed = seed
-        self.state = create_train_state(self.model, optimizers, seed)
+        if torch.distributed.is_initialized():
+            self.mesh = (make_hybrid_mesh(self.dcn_replicas)
+                         if self.dcn_replicas > 1 else make_mesh())
+            self.group = mesh_batch_group(self.mesh)
+        elif self.dcn_replicas > 1:
+            raise ValueError(f"dcn_replicas {self.dcn_replicas} needs a "
+                             f"process group of a world it divides")
+        self.state = create_train_state(self.model, optimizers, seed,
+                                        group=self.group)
+        put_replicated(self.model, self.group, self.state.generator)
         return self.state
 
     def restore_full_state(self, which: str = "last") -> None:
@@ -243,7 +272,7 @@ class VAEXperiment:
 
         for batch in self.data.train_dataloader(epoch):
             mode = batch.pop("mode", "base")
-            batch = to_device(batch, self.device)
+            batch = shard_batch(batch, self.device)
             if pending and (mode != pend_mode or batch["image"].shape
                             != pending[0]["image"].shape):
                 flush()     # a mode switch or the epoch tail's batch size
@@ -289,7 +318,7 @@ class VAEXperiment:
         counts: Dict[str, int] = {}
         for batch in self.data.val_dataloader(epoch):
             mode = batch.pop("mode", "base")
-            batch = to_device(batch, self.device)
+            batch = shard_batch(batch, self.device)
             metrics = self._eval_step(mode)(self.state, batch)
             for k, v in metrics.items():
                 if v.dim() == 0:
@@ -322,18 +351,19 @@ class VAEXperiment:
                     train = self._profiled_epoch(epoch, str(profile_dir))
                 else:
                     train = self.train_epoch(epoch)
-                if self._stop_requested:
+                if self._global_stop():
                     if self.ckpt is not None:
                         self.ckpt.save(self.state, self.global_step)
                         # report the stop only once the write is on disk
                         self.ckpt.wait()
-                    print(f"=> stop requested: saved checkpoint at step "
-                          f"{self.global_step} (epoch {epoch}); resume with "
-                          f"trainer_params.resume_from_checkpoint",
-                          flush=True)
+                    if is_primary():
+                        print(f"=> stop requested: saved checkpoint at step "
+                              f"{self.global_step} (epoch {epoch}); resume "
+                              f"with trainer_params.resume_from_checkpoint",
+                              flush=True)
                     break
                 val = self.validate(epoch)
-                if sample_dir is not None:
+                if sample_dir is not None and is_primary():
                     self.sample_images(sample_dir, epoch)
                 if self.ckpt is not None:
                     self.ckpt.save(self.state, self.global_step, metrics=val)
@@ -343,9 +373,10 @@ class VAEXperiment:
                                            train["images_per_sec"],
                                            self.global_step)
                 out = {**{f"train_{k}": v for k, v in train.items()}, **val}
-                print(f"epoch {epoch}: " + ", ".join(
-                    f"{k} {v:.5g}" for k, v in sorted(out.items())),
-                    flush=True)
+                if is_primary():
+                    print(f"epoch {epoch}: " + ", ".join(
+                        f"{k} {v:.5g}" for k, v in sorted(out.items())),
+                        flush=True)
         finally:
             if self.ckpt is not None:
                 # an asynchronous write in flight ends before fit does,
@@ -372,6 +403,14 @@ class VAEXperiment:
     def repr_fn(self):
         """``make_repr_fn`` of the model: the metrics' representation."""
         return make_repr_fn(self.model)
+
+    def _global_stop(self) -> bool:
+        """The stop request of any rank: every rank takes the same branch
+        at the epoch boundary (a lone rank leaving the loop would strand
+        the others in a collective)."""
+        if self.group is None:
+            return self._stop_requested
+        return global_any(self._stop_requested, self.group)
 
     def request_stop(self) -> None:
         """Ask ``fit`` to save ``last`` and stop at the next epoch boundary

@@ -29,6 +29,16 @@ step.
 ``lax.scan`` over K steps (``exp_params.scan_steps``): on the card it
 replays one captured CUDA graph of the whole step per batch, so a step
 costs a few launches from the host instead of about a thousand.
+
+A state with a process ``group`` (``create_train_state(group=...)``,
+``parallel/mesh.py``) takes data-parallel steps: each rank holds its
+rows of the global batch, draws its rows of the global draws
+(``models/base.py::ShardedDraws``), and after ``backward`` the gradients
+become the ranks' mean (``all_reduce_grads``) and the step's scalars the
+ranks' means, so ``grad_norm``, the per-module norms and the update are
+those of one process on the global batch, on every rank alike. Over
+NCCL a multi-step call captures the reductions into its graph; over
+gloo it refuses a world above 1.
 """
 
 from __future__ import annotations
@@ -39,8 +49,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..models.base import Draws
+from ..models.base import Draws, ShardedDraws
 from ..ops import launch_counts, set_launch_counts
+from ..parallel.mesh import (all_mean, all_reduce_grads, batch_parallel,
+                             group_size)
 
 #: batch keys a forward takes besides the image (ConditionalVAE reads
 #: ``labels``; the other models take and ignore what they do not use)
@@ -52,13 +64,15 @@ EVAL_SEED_OFFSET = 1 << 20
 @dataclass
 class TrainState:
     """All training state: the global ``step``, the ``model`` (whose
-    parameters are the trained state), its ``optimizers`` and the
-    ``generator`` of the train steps' random draws."""
+    parameters are the trained state), its ``optimizers``, the
+    ``generator`` of the train steps' random draws and the process
+    ``group`` the batch is split over (None: one process)."""
 
     step: int
     model: nn.Module
     optimizers: List[Any]
     generator: torch.Generator
+    group: Any = None
     _step_buf: Optional[torch.Tensor] = field(default=None, repr=False)
 
     def step_tensor(self) -> torch.Tensor:
@@ -92,10 +106,17 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, optimizers: List[Any],
-                       seed: int = 0) -> TrainState:
+                       seed: int = 0, group=None) -> TrainState:
     gen = torch.Generator(model.device).manual_seed(seed)
     return TrainState(step=0, model=model, optimizers=list(optimizers),
-                      generator=gen)
+                      generator=gen, group=group)
+
+
+def _draws(state: TrainState, generator: torch.Generator) -> Any:
+    """A step's draws: the rank's rows of the global draws under a group."""
+    draws = Draws(generator, state.model.device)
+    return draws if state.group is None else ShardedDraws(draws,
+                                                          state.group)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -149,11 +170,16 @@ def _grads(state: TrainState, batch: Dict[str, torch.Tensor], mode: str,
     the call)."""
     model = state.model
     model.zero_grad(set_to_none=True)
-    losses = _forward(model, batch, mode,
-                      Draws(state.generator, model.device), train=True,
-                      M_N=M_N, step=step, optimizer_idx=optimizer_idx)
-    losses["loss"].backward()
+    with batch_parallel(state.group):
+        losses = _forward(model, batch, mode, _draws(state, state.generator),
+                          train=True, M_N=M_N, step=step,
+                          optimizer_idx=optimizer_idx)
+        losses["loss"].backward()
     metrics = _scalars(losses)
+    if state.group is not None:
+        # every gradient, trained or not: grad_norm covers them all
+        all_reduce_grads(model.parameters(), state.group)
+        metrics = all_mean(metrics, state.group)
     # over every parameter, trained or not (optax.global_norm of the
     # whole gradient tree); an unused parameter's gradient is zero
     metrics["grad_norm"] = global_norm(
@@ -270,6 +296,12 @@ class MultiTrainStep:
                              "one optimizer: a model with two alternates "
                              "them per batch (make_train_step's "
                              "optimizer_idx)")
+        if state.group is not None and group_size(state.group) > 1 and \
+                torch.distributed.get_backend(state.group) != "nccl":
+            raise NotImplementedError(
+                "scan_steps > 1 over a gloo group of more than one rank is "
+                "not ported yet (ROADMAP A8): its graph would hold the "
+                "gradient reduction, which only NCCL captures")
         if state.model.device.type != "cuda":
             for b in batch:
                 metrics = self._step(state, b)
@@ -362,7 +394,8 @@ def make_eval_step(mode: str, seed: int = 0
                    ) -> Callable[[TrainState, Dict], Dict]:
     """The validation step of batch mode ``mode``: forward with
     ``train=False`` and the loss at ``M_N=1.0``, no gradient; its draws
-    come from a generator of its own, seeded ``seed + (1 << 20)``."""
+    come from a generator of its own, seeded ``seed + (1 << 20)``. Under
+    a group its metrics are the ranks' means, as the train step's."""
     generator = None
 
     @torch.no_grad()
@@ -373,8 +406,12 @@ def make_eval_step(mode: str, seed: int = 0
         if generator is None:
             generator = torch.Generator(device).manual_seed(
                 seed + EVAL_SEED_OFFSET)
-        return _scalars(_forward(state.model, batch, mode,
-                                 Draws(generator, device), train=False,
-                                 M_N=1.0, step=state.step_tensor()))
+        with batch_parallel(state.group):
+            metrics = _scalars(_forward(state.model, batch, mode,
+                                        _draws(state, generator),
+                                        train=False, M_N=1.0,
+                                        step=state.step_tensor()))
+        return metrics if state.group is None else all_mean(metrics,
+                                                            state.group)
 
     return step_fn

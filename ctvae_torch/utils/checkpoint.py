@@ -13,7 +13,8 @@ or with ``async_save`` (``exp_params.async_checkpointing``) on a
 non-daemon thread, so the write overlaps the next epoch. Writes are
 serialised; ``wait()`` joins the one in flight and raises its error;
 ``path`` and ``restore`` wait first. Both modes write the same files, byte
-for byte.
+for byte. Under a process group only rank 0 writes (the ranks hold the
+same state); every rank restores.
 """
 
 from __future__ import annotations
@@ -66,7 +67,10 @@ class CheckpointManager:
         self.async_save = async_save
         self._pending: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
-        os.makedirs(self.dir, exist_ok=True)
+        from ..parallel.mesh import is_primary
+        self.writes = is_primary()
+        if self.writes:
+            os.makedirs(self.dir, exist_ok=True)
         self._index_path = os.path.join(self.dir, "index.json")
         self._index = self._load_index()
 
@@ -114,7 +118,10 @@ class CheckpointManager:
         ``metrics`` holds the monitored value, as ``step_<step>`` if it is
         among the best ``top_k``. The state is copied to the host before
         this returns; the write follows inline or, with ``async_save``, on
-        a thread of its own after the previous one."""
+        a thread of its own after the previous one. Only rank 0 of a
+        process group writes."""
+        if not self.writes:
+            return
         blob = _host_copy(state.state_dict())
         score = None if metrics is None else metrics.get(self.monitor)
         self.wait()
@@ -155,8 +162,11 @@ class CheckpointManager:
 
     def path(self, which: str = "last") -> str:
         """The file of ``which``: 'last', 'best', or a path (after the
-        write in flight)."""
+        write in flight; a rank other than 0 rereads the index that rank 0
+        writes)."""
         self.wait()
+        if not self.writes:
+            self._index = self._load_index()
         path = {"last": os.path.join(self.dir, "last"),
                 "best": self._index["best"][0]["path"]
                 if self._index["best"] else None}.get(which, which)

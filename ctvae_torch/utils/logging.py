@@ -8,7 +8,9 @@ the JAX logger does: 0-d values are scalars (one JSON line
 ``{"step": s, "<name>": v}`` each), 2-D and 3-D arrays (``ct_adjacency``)
 images (``<name>_<step>.png``, min-max scaled, grey made RGB), the rest
 (strings, 1-D arrays) is dropped. ``use_wandb`` logs to wandb as well where the
-package is installed and initialises; otherwise it is off.
+package is installed and initialises; otherwise it is off. Under a process
+group rank 0 picks the directory and writes; the other ranks get its
+``log_dir`` and write nothing.
 """
 
 from __future__ import annotations
@@ -48,13 +50,23 @@ class ExperimentLogger:
     def __init__(self, save_dir: str, name: str, version: Optional[int] = None,
                  use_wandb: bool = False, wandb_project: str = "CT-VAE",
                  hparams: Optional[dict] = None):
+        from ..parallel.mesh import is_primary, world_size
+        self.writes = is_primary()
         self.log_dir = (
             next_version_dir(save_dir, name) if version is None
             else os.path.join(save_dir, name, f"version_{version}"))
+        if world_size() > 1:
+            import torch.distributed as dist
+            shared = [self.log_dir]
+            dist.broadcast_object_list(shared, src=0)
+            self.log_dir = shared[0]
         self.version = int(self.log_dir.rsplit("_", 1)[1])
+        self.wandb = None
+        self._scalars = None
+        if not self.writes:
+            return
         os.makedirs(self.log_dir, exist_ok=True)
         self._scalars = open(os.path.join(self.log_dir, "scalars.jsonl"), "a")
-        self.wandb = None
         if use_wandb:
             try:
                 import wandb
@@ -68,6 +80,8 @@ class ExperimentLogger:
                 json.dump(_jsonable(hparams), f, indent=2, default=str)
 
     def add_scalar(self, name: str, value: float, step: int) -> None:
+        if not self.writes:
+            return
         self._scalars.write(json.dumps(
             {"step": int(step), name: float(value)}) + "\n")
 
@@ -75,6 +89,8 @@ class ExperimentLogger:
                 prefix: str = "") -> Dict[str, float]:
         """Route a mixed dict of scalars and images; returns the scalars."""
         scalars: Dict[str, float] = {}
+        if not self.writes:
+            return scalars
         for key, val in values.items():
             if isinstance(val, str):
                 continue
@@ -91,6 +107,8 @@ class ExperimentLogger:
 
     def log_image(self, name: str, img: np.ndarray, step: int) -> None:
         """One [H, W] or [H, W, C] array as ``<name>_<step>.png``."""
+        if not self.writes:
+            return
         img = np.asarray(img, np.float32)
         lo, hi = img.min(), img.max()
         img = (img - lo) / max(hi - lo, 1e-8)
@@ -106,6 +124,7 @@ class ExperimentLogger:
             self.wandb.log({name: wandb.Image(img)}, step=step)
 
     def finish(self) -> None:
-        self._scalars.close()
+        if self._scalars is not None:
+            self._scalars.close()
         if self.wandb is not None:
             self.wandb.finish()

@@ -1599,3 +1599,59 @@ def test_ct_artifact_serves_on_card_and_cpu(card, tmp_path):
                                       "gat_fwd", "gat_logits_fwd")), moved
     assert not any(moved[k] for k in ("pairwise_bwd", "gat_bwd",
                                       "gat_logits_bwd")), moved
+
+
+@pytest.mark.parametrize("mode", ["base", "action", "causal"])
+def test_data_parallel_world_1_over_nccl_is_bit_equal(card, mode):
+    """A process group of one rank over NCCL: a small CT-MCQ-VAE's four
+    data-parallel steps (the draws through ``ShardedDraws``, the gradient
+    bucket summed and divided by 1, the metrics averaged over one rank)
+    equal four plain steps from an equal state bit for bit: parameters,
+    Adam moments, the last metrics and the generator."""
+    import socket
+
+    from ctvae_torch.models import build_model
+    from ctvae_torch.parallel import destroy, init_distributed
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_train_step)
+    cfg = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8,
+               action_dim=8, hidden_dims=[8, 16], num_embeddings=8,
+               img_size=16, codebooks=2, causal_hidden_dims=[16, 8],
+               noise="off")
+    exp = dict(LR=5e-4, scheduler_gamma=0.9, weight_decay=0.0)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    group = init_distributed(device=torch.device(card),
+                             init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                             world_size=1)
+    try:
+        states = []
+        for g in (None, group):
+            m = build_model(cfg, device=card,
+                            generator=torch.Generator("cuda").manual_seed(0))
+            states.append(create_train_state(m, build_optimizers(exp, m, 3),
+                                             seed=5, group=g))
+        gen = torch.Generator().manual_seed(6)
+        batches = [{"image": torch.rand(3, 16, 16, 3, generator=gen),
+                    "input_y": torch.rand(3, 16, 16, 3, generator=gen),
+                    "action": torch.eye(8)[torch.randint(0, 8, (3,),
+                                                         generator=gen)]}
+                   for _ in range(4)]
+        step = make_train_step(mode)
+        metrics = [[step(s, {k: v.to(card) for k, v in b.items()})
+                    for b in batches][-1] for s in states]
+        plain, dp = states
+        for a, b in zip(plain.model.parameters(), dp.model.parameters()):
+            assert torch.equal(a, b)
+        for oa, ob in zip(plain.optimizers, dp.optimizers):
+            for pa, pb in zip(oa.params, ob.params):
+                for k, va in oa.adam.state.get(pa, {}).items():
+                    assert torch.equal(va, ob.adam.state[pb][k]), k
+        assert metrics[0].keys() == metrics[1].keys()
+        for k, v in metrics[0].items():
+            assert torch.equal(v, metrics[1][k]), k
+        assert torch.equal(plain.generator.get_state(),
+                           dp.generator.get_state())
+    finally:
+        destroy()

@@ -291,11 +291,17 @@ def test_run_trains_synthetic_ct_on_cpu(tmp_path, monkeypatch):
 
 
 def test_unported_trainer_options_raise(pair):
+    """FSDP, sequence parallelism and ``model_axis`` > 1 are not ported
+    (ROADMAP A8); ``dcn_replicas`` is (data parallelism), but a single
+    process has no world for two replicas to divide."""
     from ctvae_torch.training import VAEXperiment
-    for extra in (dict(sharding="fsdp"), dict(dcn_replicas=2),
+    for extra in (dict(sharding="fsdp"), dict(sharding="sp"),
                   dict(model_axis=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
             VAEXperiment(pair[2], {**EXP, **extra}, None)
+    exp = VAEXperiment(pair[2], {**EXP, "dcn_replicas": 2}, None)
+    with pytest.raises(ValueError, match="dcn_replicas 2"):
+        exp.setup()
 
 
 # --- the multi-step train step and exp_params.scan_steps -------------------

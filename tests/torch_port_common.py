@@ -36,6 +36,10 @@ import numpy as np
 import pytest
 import torch
 
+# the replay provider lives in the JAX-free module the data-parallel
+# tests' rank processes import
+from torch_dp_ranks import GammaSlot, ReplayDraws  # noqa: F401
+
 # small widths: img 16, hidden [8, 16], embedding 8, 2 codebooks, N = 8,
 # A = 8, discoverer hidden 16 and one GNN layer of 8
 SMALL = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8, action_dim=8,
@@ -160,15 +164,6 @@ class DrawRecorder:
         return jax.pure_callback(draw, jax.ShapeDtypeStruct(shape, dtype), a)
 
 
-class GammaSlot:
-    """A gamma draw recorded at trace time and filled when the program
-    runs (so fetch the JAX results, which waits for it, before the
-    replay)."""
-
-    def __init__(self, shape):
-        self.shape, self.value = tuple(shape), None
-
-
 @contextlib.contextmanager
 def recorded_draws(monkeypatch, seed: int = 0):
     rec = DrawRecorder(seed)
@@ -183,50 +178,6 @@ def recorded_draws(monkeypatch, seed: int = 0):
         from ctvae_tpu.models import fvae
         m.setattr(fvae, "permute_latent", rec.permute_latent)
         yield rec
-
-
-class ReplayDraws:
-    """The port's draw provider, replaying a ``DrawRecorder``'s arrays."""
-
-    def __init__(self, draws):
-        self.draws = list(draws)
-
-    def _next(self, kind, shape):
-        assert self.draws, f"port drew one more {kind} than JAX"
-        k, a = self.draws.pop(0)
-        if isinstance(a, GammaSlot):
-            assert a.value is not None, "a gamma draw JAX never ran"
-            a = a.value
-        assert k == kind and a.shape == tuple(shape), (k, a.shape, kind,
-                                                       tuple(shape))
-        return torch.from_numpy(a.copy())
-
-    def gumbel(self, shape):
-        return self._next("gumbel", shape)
-
-    def uniform(self, shape):
-        return self._next("uniform", shape)
-
-    def bernoulli(self, p, shape):
-        return self._next("bernoulli", shape)
-
-    def normal(self, shape):
-        return self._next("normal", shape)
-
-    def randint(self, low, high, shape):
-        return self._next("randint", shape)
-
-    def cauchy(self, shape):
-        return self._next("cauchy", shape)
-
-    def gamma(self, alpha):
-        return self._next("gamma", alpha.shape)
-
-    def permutation(self, rows, n):
-        return self._next("permutation", (rows, n))
-
-    def done(self):
-        return not self.draws
 
 
 def close(a, b, atol=ATOL, rtol=RTOL):
