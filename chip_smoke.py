@@ -212,7 +212,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import types
 import warnings
 
 import torch
@@ -4113,7 +4112,8 @@ class _NonfiniteWatch:
         self._tstate.Draws = lambda generator, device: replay
         try:
             want = self._grads(
-                types.SimpleNamespace(model=cpu, generator=None, group=None),
+                self._tstate.TrainState(step=0, model=cpu, optimizers=[],
+                                        generator=None),
                 {k: v.cpu() for k, v in batch.items()}, mode, M_N,
                 step.cpu(), optimizer_idx)
         finally:
@@ -5392,9 +5392,13 @@ DDP_RANK_STEPS = 8    # (b): steps of each mode on each of two ranks
 DDP_ROUNDS = 5        # (a): timed rounds of DDP_TIMED steps in turns
 DDP_TIMED = 4
 DDP_TIMEOUT = 400     # (b) and (c): seconds for the two rank processes
-DDP_RTOL = 1e-5       # (b): each step's loss against one process at B = 32
+DDP_RTOL = 1e-5       # (b), (e), (g): each step's losses against one process
 DDP_ATOL = 1e-5       # (b): parameters after it, plus Adam's reach
                       # (_adam_reach)
+#: (g): the losses that are not a mean of per-row terms, as written
+CROSS_BATCH_YAMLS = ("wae_mmd_imq", "wae_mmd_rbf", "infovae", "betatc_vae",
+                     "dip_vae", "swae", "mssim_vae", "joint_vae", "bbvae")
+CROSS_BATCH_STEPS = 2
 
 
 def _free_port() -> int:
@@ -5410,19 +5414,23 @@ def _ddp_batches(seed: int, n: int, B: int) -> list:
                      _requests(gen, B, "cuda"))) for _ in range(n)]
 
 
-def _ddp_state(group):
+def _ddp_state(group, fsdp: bool = False):
     """The headline model and the config's exp_params (``ct_layer``
     trained), seeded as ``_train_setup``; a data-parallel state over
-    ``group`` gets rank 0's weights and generator."""
+    ``group`` gets rank 0's weights and generator, and with ``fsdp`` its
+    parameters split over the group (``fully_shard`` at the default
+    ``fsdp_min_size``) before the optimizers are built over the slices."""
     from ctvae_torch.models import build_model
-    from ctvae_torch.parallel import put_replicated
+    from ctvae_torch.parallel import fully_shard, put_replicated
     from ctvae_torch.training import build_optimizers, create_train_state
     model = build_model(MODEL_PARAMS, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(SEED))
-    state = create_train_state(
-        model, build_optimizers(EXP_PARAMS, model, steps_per_epoch=100),
-        seed=SEED, group=group)
+    state = create_train_state(model, [], seed=SEED, group=group)
     put_replicated(model, group, state.generator)
+    if fsdp:
+        state.fsdp = fully_shard(model, group)
+    state.optimizers = build_optimizers(EXP_PARAMS, model,
+                                        steps_per_epoch=100, fsdp=state.fsdp)
     return state
 
 
@@ -5431,7 +5439,7 @@ def _add_counts(total: dict, c0: dict, c1: dict) -> None:
         total[k] += c1[k] - c0[k]
 
 
-def _ddp_world1(launches: dict) -> dict:
+def _ddp_world1(launches: dict, fsdp_launches: dict) -> dict:
     """(a) A process group of one rank over NCCL: per mode DDP_STEPS
     data-parallel steps against as many plain steps from an equal state
     on the same batches (every parameter, Adam moment, the generator and
@@ -5440,7 +5448,10 @@ def _ddp_world1(launches: dict) -> dict:
     in turns, the gradient bucket's bytes and the all-reduce's ms, and
     ``make_multi_train_step(mode, SCAN_K)`` on a data-parallel state (the
     reductions inside the captured graph) against eager DP steps within
-    SCAN_RTOL."""
+    SCAN_RTOL. (d) The same under ``sharding: fsdp`` (path "fsdp"): a
+    data size of 1 splits nothing, as in JAX; DDP_STEPS FSDP steps per
+    mode bit-equal to the plain ones with the plain step's launches, and
+    a captured FSDP multi-step against the eager DP steps."""
     from ctvae_torch.parallel import all_reduce_grads, destroy, \
         init_distributed
     from ctvae_torch.training import make_multi_train_step, make_train_step
@@ -5451,44 +5462,52 @@ def _ddp_world1(launches: dict) -> dict:
     numbers: dict = {"backend": torch.distributed.get_backend(group)}
     try:
         plain, dp = _ddp_state(None), _ddp_state(group)
+        fs = _ddp_state(group, fsdp=True)
+        if fs.fsdp.shards:
+            raise AssertionError(f"fsdp world 1 split "
+                                 f"{sorted(fs.fsdp.shards)[:4]}")
         for mode, expected in EXPECTED_TRAIN.items():
             step = make_train_step(mode)
             batches = _ddp_batches(SEED + 11, DDP_STEPS, BATCH)
             for b in batches:
                 want = step(plain, b)
-            for b in batches:
-                c0 = _counts()
-                got = step(dp, b)
-                c1 = _counts()
-                _add_counts(launches, c0, c1)
-                per = {k: c1[k] - c0[k] for k in c1}
-                if per != expected:
-                    raise AssertionError(f"ddp world 1 {mode}: launches "
-                                         f"per step {per}, expected "
-                                         f"{expected}")
-            a, b_ = _scan_tensors(plain), _scan_tensors(dp)
-            differ = [n for n in a if not torch.equal(a[n], b_[n])]
-            differ += [f"metric {k}" for k in want
-                       if not torch.equal(want[k], got[k])]
-            if not torch.equal(plain.generator.get_state(),
-                               dp.generator.get_state()):
-                differ.append("generator")
-            log(f"ddp world 1 {mode}: {len(a)} parameters and Adam moments "
-                f"and {len(want)} metrics after {DDP_STEPS} steps, plain "
-                f"vs data-parallel over NCCL: {len(differ)} differ; loss "
-                f"{float(got['loss']):.6g}")
-            if differ:
-                raise AssertionError(f"ddp world 1 {mode}: not bit-equal: "
-                                     f"{differ[:8]}")
-            secs = {"plain": [], "dp": []}
+            for state, counts, label in ((dp, launches, "ddp"),
+                                         (fs, fsdp_launches, "fsdp")):
+                for b in batches:
+                    c0 = _counts()
+                    got = step(state, b)
+                    c1 = _counts()
+                    _add_counts(counts, c0, c1)
+                    per = {k: c1[k] - c0[k] for k in c1}
+                    if per != expected:
+                        raise AssertionError(f"{label} world 1 {mode}: "
+                                             f"launches per step {per}, "
+                                             f"expected {expected}")
+                a, b_ = _scan_tensors(plain), _scan_tensors(state)
+                differ = [n for n in a if not torch.equal(a[n], b_[n])]
+                differ += [f"metric {k}" for k in want
+                           if not torch.equal(want[k], got[k])]
+                if not torch.equal(plain.generator.get_state(),
+                                   state.generator.get_state()):
+                    differ.append("generator")
+                log(f"{label} world 1 {mode}: {len(a)} parameters and Adam "
+                    f"moments and {len(want)} metrics after {DDP_STEPS} "
+                    f"steps, plain vs {label} over NCCL: {len(differ)} "
+                    f"differ; loss {float(got['loss']):.6g}")
+                if differ:
+                    raise AssertionError(f"{label} world 1 {mode}: not "
+                                         f"bit-equal: {differ[:8]}")
+            # in turns; the FSDP state takes the same steps, so the three
+            # states stay equal for the next mode's comparison
+            secs = {"plain": [], "dp": [], "fsdp": []}
+            states = {"plain": plain, "dp": dp, "fsdp": fs}
             for r in range(DDP_ROUNDS):
-                for which in (("plain", "dp") if r % 2 == 0
-                              else ("dp", "plain")):
-                    state = plain if which == "plain" else dp
+                for which in (("plain", "dp", "fsdp") if r % 2 == 0
+                              else ("fsdp", "dp", "plain")):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     for b in batches[:DDP_TIMED]:
-                        step(state, b)
+                        step(states[which], b)
                     torch.cuda.synchronize()
                     secs[which].append(1e3 * (time.perf_counter() - t0)
                                        / DDP_TIMED)
@@ -5496,10 +5515,11 @@ def _ddp_world1(launches: dict) -> dict:
                                      for w, t in secs.items()}
             log(f"ddp world 1 {mode} B={BATCH}: plain "
                 f"{numbers[f'{mode}_ms']['plain']:.3f} ms per step, "
-                f"data-parallel {numbers[f'{mode}_ms']['dp']:.3f} (medians "
-                f"of {DDP_ROUNDS} rounds of {DDP_TIMED} steps in turns; "
-                f"plain {json.dumps([round(t, 3) for t in secs['plain']])},"
-                f" dp {json.dumps([round(t, 3) for t in secs['dp']])})")
+                f"data-parallel {numbers[f'{mode}_ms']['dp']:.3f}, fsdp "
+                f"{numbers[f'{mode}_ms']['fsdp']:.3f} (medians of "
+                f"{DDP_ROUNDS} rounds of {DDP_TIMED} steps in turns; "
+                + ", ".join(f"{w} {json.dumps([round(t, 3) for t in v])}"
+                            for w, v in secs.items()) + ")")
         params = list(dp.model.parameters())
         numbers["bucket_bytes"] = all_reduce_grads(params, group)
         numbers["all_reduce_ms"] = time_ms(
@@ -5508,40 +5528,47 @@ def _ddp_world1(launches: dict) -> dict:
             f"({sum(p.numel() for p in params)} parameters, f32), NCCL "
             f"all-reduce {numbers['all_reduce_ms']:.4f} ms (device time, "
             f"median of 21)")
-        # the multi-step step over the group: its graph holds the reductions
-        numbers["scan"] = {}
+        # the multi-step step over the group: its graph holds the
+        # reductions (under FSDP also the gathers and the release)
+        numbers["scan"], numbers["fsdp_scan"] = {}, {}
         for mode in EXPECTED_TRAIN:
-            eager, graph = _ddp_state(group), _ddp_state(group)
+            eager = _ddp_state(group)
             batches = _ddp_batches(SEED + 13, 2 * SCAN_K, BATCH)
             stacked = {k: torch.stack([b[k] for b in batches])
                        for k in batches[0]}
-            step, multi = make_train_step(mode), \
-                make_multi_train_step(mode, SCAN_K)
+            step = make_train_step(mode)
             for b in batches:
                 step(eager, b)
-            for half in (slice(0, SCAN_K), slice(SCAN_K, 2 * SCAN_K)):
-                multi(graph, {k: v[half] for k, v in stacked.items()})
-            torch.cuda.synchronize()
-            a, b_ = _scan_tensors(eager), _scan_tensors(graph)
-            diffs = {n: float((a[n].float() - b_[n].float()).abs().max())
-                     for n in a}
-            bad = {n: d for n, d in diffs.items() if d > SCAN_RTOL * max(
-                float(a[n].float().abs().max()), 1e-30)}
-            same_gen = torch.equal(eager.generator.get_state(),
-                                   graph.generator.get_state())
-            numbers["scan"][mode] = max(diffs.values())
-            log(f"ddp world 1 scan {mode}: {len(diffs)} tensors after "
-                f"{2 * SCAN_K} steps, eager data-parallel vs "
-                f"{multi.replays} graph replays (after {WARMUP_STEPS} "
-                f"warm-up steps): {sum(d == 0 for d in diffs.values())} "
-                f"bit-equal, largest difference {max(diffs.values()):.3g}; "
-                f"generator equal {same_gen}")
-            if bad or not same_gen or \
-                    multi.replays != 2 * SCAN_K - WARMUP_STEPS:
-                raise AssertionError(f"ddp world 1 scan {mode}: graph and "
-                                     f"eager steps disagree: {bad}")
-            for k, n in multi.replayed_launches().items():
-                launches[k] += n
+            for label, graph, counts in (
+                    ("ddp", _ddp_state(group), launches),
+                    ("fsdp", _ddp_state(group, fsdp=True), fsdp_launches)):
+                multi = make_multi_train_step(mode, SCAN_K)
+                for half in (slice(0, SCAN_K), slice(SCAN_K, 2 * SCAN_K)):
+                    multi(graph, {k: v[half] for k, v in stacked.items()})
+                torch.cuda.synchronize()
+                a, b_ = _scan_tensors(eager), _scan_tensors(graph)
+                diffs = {n: float((a[n].float() - b_[n].float()).abs().max())
+                         for n in a}
+                bad = {n: d for n, d in diffs.items() if d > SCAN_RTOL * max(
+                    float(a[n].float().abs().max()), 1e-30)}
+                same_gen = torch.equal(eager.generator.get_state(),
+                                       graph.generator.get_state())
+                numbers["scan" if label == "ddp" else "fsdp_scan"][mode] = \
+                    max(diffs.values())
+                log(f"{label} world 1 scan {mode}: {len(diffs)} tensors "
+                    f"after {2 * SCAN_K} steps, eager data-parallel vs "
+                    f"{multi.replays} {label} graph replays (after "
+                    f"{WARMUP_STEPS} warm-up steps): "
+                    f"{sum(d == 0 for d in diffs.values())} bit-equal, "
+                    f"largest difference {max(diffs.values()):.3g}; "
+                    f"generator equal {same_gen}")
+                if bad or not same_gen or \
+                        multi.replays != 2 * SCAN_K - WARMUP_STEPS:
+                    raise AssertionError(f"{label} world 1 scan {mode}: "
+                                         f"graph and eager steps disagree: "
+                                         f"{bad}")
+                for k, n in multi.replayed_launches().items():
+                    counts[k] += n
     finally:
         destroy()
     return numbers
@@ -5556,12 +5583,17 @@ def _adam_reach(grad_diff: torch.Tensor, lr: float) -> torch.Tensor:
     return DDP_ATOL + lr / 1e-8 * grad_diff
 
 
-def _ddp_loop_config(root: str, epochs: int, resume=None) -> dict:
+def _ddp_loop_config(root: str, epochs: int, resume=None,
+                     sharding: str = "dp") -> dict:
     """The loop phase's TSynthetic run as a config for ``run.train``, with
-    a validation limit of one global batch of two ranks per mode."""
+    a validation limit of one global batch of two ranks per mode; its run
+    is named after ``sharding``."""
     trainer = {"max_epochs": epochs}
     if resume:
         trainer["resume_from_checkpoint"] = resume
+    exp = dict(EXP_PARAMS)
+    if sharding != "dp":
+        exp["sharding"] = sharding
     return {"model_params": dict(LOOP_MODEL_PARAMS),
             "data_params": {"data_path": "", "dataset_name": "TSynthetic",
                             "train_batch_size": BATCH,
@@ -5569,18 +5601,224 @@ def _ddp_loop_config(root: str, epochs: int, resume=None) -> dict:
                             "patch_size": MODEL_PARAMS["img_size"],
                             "limit": 48, "val_limit": 2 * BATCH,
                             "seed": SEED},
-            "exp_params": dict(EXP_PARAMS), "trainer_params": trainer,
-            "logging_params": {"save_dir": root, "name": "ddp"}}
+            "exp_params": exp, "trainer_params": trainer,
+            "logging_params": {"save_dir": root,
+                               "name": "ddp" if sharding == "dp" else sharding}}
+
+
+def _state_differ(a, b, path: str = "") -> list:
+    """Where two train states' ``state_dict`` differ (tensors bit for bit,
+    on the CPU)."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        ok = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+              and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()))
+        return [] if ok else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path}: keys"]
+        return [d for k in a for d in _state_differ(a[k], b[k],
+                                                    f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path}: lengths"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _state_differ(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+def _resident_bytes(state) -> int:
+    """Bytes of the parameters (under FSDP the slices and the replicated
+    ones) and Adam moments a state holds between steps."""
+    if state.fsdp is not None:
+        return state.fsdp.resident_bytes(state.optimizers)
+    ts = list(state.model.parameters())
+    for opt in state.optimizers:
+        for st in opt.adam.state.values():
+            ts += [st[k] for k in ("exp_avg", "exp_avg_sq") if k in st]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _fsdp_rank_steps(group, rank: int, dp_bytes: int) -> dict:
+    """(e) on a rank: the headline under FSDP (``fully_shard`` over the
+    two ranks at the default ``fsdp_min_size``), DDP_RANK_STEPS steps of
+    each mode at B = 16 rows of each global batch of 32; before each, the
+    gathered state (a collective) goes into one process on rank 0, which
+    takes the step on the whole batch beside it; the gathered gradients
+    and parameters after it against that process's; the launches per
+    step; the resident bytes against DP's."""
+    from ctvae_torch.parallel import local_rows
+    from ctvae_torch.training import make_train_step
+    from ctvae_torch.training.state import full_params
+    fs = _ddp_state(group, fsdp=True)
+    single = _ddp_state(None) if rank == 0 else None
+    launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
+    wrong, losses, ms, beyond, worst = [], [], {}, [], 0.0
+    lr = float(EXP_PARAMS["LR"])
+    for i, (mode, expected) in enumerate(EXPECTED_TRAIN.items()):
+        step = make_train_step(mode)
+        secs = []
+        for b in _ddp_batches(SEED + 23 + i, DDP_RANK_STEPS, 2 * BATCH):
+            mine = local_rows(b, group)
+            full = copy.deepcopy(fs.state_dict())
+            if single is not None:
+                single.load_state_dict(full)
+            c0 = _counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = step(fs, mine)
+            torch.cuda.synchronize()
+            secs.append(1e3 * (time.perf_counter() - t0))
+            c1 = _counts()
+            _add_counts(launches, c0, c1)
+            per = {k: c1[k] - c0[k] for k in c1}
+            if per != expected:
+                wrong.append((mode, per))
+            split = [(k, sh.grad) for k, sh in fs.fsdp.shards.items()
+                     if sh.grad is not None]
+            grads = dict(zip([k for k, _ in split],
+                             fs.fsdp.gather_full(split)))
+            with full_params(fs):
+                params = {n: p.detach().clone()
+                          for n, p in fs.model.named_parameters()}
+            grads.update({n: p.grad for n, p in fs.model.named_parameters()
+                          if p.grad is not None})
+            if single is None:
+                continue
+            want = step(single, b)
+            losses.append((mode, float(got["loss"]), float(want["loss"])))
+            for n, q in single.model.named_parameters():
+                d = (params[n] - q.detach()).abs()
+                worst = max(worst, float(d.max()))
+                g = (grads[n] - q.grad).abs() if n in grads \
+                    else torch.zeros_like(d)
+                if not bool((d <= _adam_reach(g, lr)).all()):
+                    beyond.append((mode, n))
+        ms[mode] = statistics.median(secs[1:])
+    with full_params(fs):
+        final = {n: p.detach().cpu() for n, p in
+                 fs.model.named_parameters()}
+    return dict(launches=launches, wrong=wrong, ms=ms, losses=losses,
+                params=final, param_max_diff=worst, beyond_bound=beyond,
+                split=len(fs.fsdp.shards),
+                resident_bytes=_resident_bytes(fs), dp_bytes=dp_bytes)
+
+
+def _fsdp_rank_fit(rank: int, out_dir: str) -> dict:
+    """(f) on a rank: ``run.train`` of the loop config under ``sharding:
+    fsdp`` for one epoch, a resume from rank 0's checkpoint for a second;
+    rank 0 then loads the last checkpoint into one process, whose state
+    must equal the file's."""
+    from ctvae_torch import run
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import build_optimizers, create_train_state
+    root = os.path.join(out_dir, "logs_fsdp")
+    c0 = _counts()
+    t0 = time.perf_counter()
+    first = run.train(_ddp_loop_config(root, 1, sharding="fsdp"),
+                      device="cuda:0")
+    out = {"fit_s": time.perf_counter() - t0, "first": first}
+    last = os.path.join(root, "fsdp", "version_0", "checkpoints", "last")
+    out["second"] = run.train(_ddp_loop_config(root, 2, resume=last,
+                                               sharding="fsdp"),
+                              device="cuda:0")
+    c1 = _counts()
+    out["launches"] = {k: c1[k] - c0[k] for k in c1}
+    if rank == 0:
+        last = os.path.join(root, "fsdp", "version_1", "checkpoints", "last")
+        blob = torch.load(last, map_location="cpu", weights_only=True)
+        model = build_model(LOOP_MODEL_PARAMS, device="cuda")
+        one = create_train_state(model, build_optimizers(
+            EXP_PARAMS, model, steps_per_epoch=100))
+        one.load_state_dict(blob)
+        # parameters, Adam's moments and step counts, schedule position,
+        # step, generator (the groups' settings are this device's form)
+        def core(sd):
+            return [sd["model"], sd["step"], sd["generator"],
+                    [(o["adam"]["state"], o["count"])
+                     for o in sd["optimizers"]]]
+        out["one_process_differ"] = _state_differ(core(one.state_dict()),
+                                                  core(blob))
+        out["ckpt_step"] = blob["step"]
+    return out
+
+
+def _cross_batch_rank(group, rank: int) -> dict:
+    """(g) on a rank: each CROSS_BATCH_YAMLS config as written (its model
+    and exp_params, B = its train_batch_size a rank, 64 x 64 images
+    drawn on the CPU from a seed), CROSS_BATCH_STEPS steps at M_N =
+    kld_weight; before each, rank 0 loads the state into one process,
+    which takes the step on the global batch beside it: every loss term
+    and the parameters after it against that process's."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.parallel import local_rows, put_replicated
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_train_step)
+    out = {}
+    for j, name in enumerate(CROSS_BATCH_YAMLS):
+        cfg = read_config(os.path.join(os.path.dirname(CONFIG),
+                                       f"{name}.yaml"))
+        exp = _exp_params(cfg)
+        B = int(cfg["data_params"]["train_batch_size"])
+        s = int(cfg["data_params"]["patch_size"])
+
+        def state_of(g):
+            model = build_model(cfg["model_params"], device="cuda",
+                                generator=torch.Generator(
+                                    "cuda").manual_seed(SEED))
+            st = create_train_state(model, build_optimizers(
+                exp, model, steps_per_epoch=100), seed=SEED, group=g)
+            put_replicated(model, g, st.generator)
+            return st
+        dp = state_of(group)
+        single = state_of(None) if rank == 0 else None
+        step = make_train_step("base", M_N=float(exp.get("kld_weight", 1.0)))
+        gen = torch.Generator().manual_seed(SEED + 31 + j)
+        lr = float(exp["LR"])
+        res = {"rel": 0.0, "beyond": [], "finite": True, "ms": []}
+        for _ in range(CROSS_BATCH_STEPS):
+            b = {"image": torch.rand(2 * B, s, s, 3, generator=gen).cuda()}
+            if single is not None:
+                single.load_state_dict(copy.deepcopy(dp.state_dict()))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = step(dp, local_rows(b, group))
+            torch.cuda.synchronize()
+            res["ms"].append(1e3 * (time.perf_counter() - t0))
+            res["finite"] &= all(bool(torch.isfinite(v).all())
+                                 for v in got.values())
+            if single is None:
+                continue
+            want = step(single, b)
+            for k, v in want.items():
+                if v.dim() == 0 and v.is_floating_point():
+                    d = abs(float(got[k]) - float(v))
+                    res["rel"] = max(res["rel"],
+                                     d / max(abs(float(v)), 1e-30))
+            for (n, p), q in zip(dp.model.named_parameters(),
+                                 single.model.parameters()):
+                d = (p.detach() - q.detach()).abs()
+                g = (p.grad - q.grad).abs() if p.grad is not None \
+                    else torch.zeros_like(d)
+                if not bool((d <= _adam_reach(g, lr)).all()):
+                    res["beyond"].append(n)
+        res["loss"] = float(got["loss"])
+        out[name] = res
+        del dp, single
+        torch.cuda.empty_cache()
+    return out
 
 
 def _ddp_rank(rank: int, port: int, out_dir: str) -> None:
-    """A rank of (b) and (c): two ranks over gloo sharing cuda:0. (b)
+    """A rank of (b), (c) and (e)-(g): two ranks over gloo sharing
+    cuda:0. (b)
     DDP_RANK_STEPS steps of each mode at B = 16 rows of each global batch
     of 32; before each, rank 0 loads its state into one process, which
     takes the step on the whole global batch beside it (from equal
     states, so two Adam runs' drift on gradients of rounding noise does
     not add up over the steps); (c) ``run.train`` of the loop config, one
-    epoch, then a resume from rank 0's checkpoint for a second."""
+    epoch, then a resume from rank 0's checkpoint for a second; (e)
+    ``_fsdp_rank_steps``, (f) ``_fsdp_rank_fit``, (g)
+    ``_cross_batch_rank``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -5632,7 +5870,11 @@ def _ddp_rank(rank: int, port: int, out_dir: str) -> None:
                    params={n: p.detach().cpu() for n, p in
                            dp.model.named_parameters()},
                    param_max_diff=worst, beyond_bound=beyond)
+        dp_bytes = _resident_bytes(dp)
         del dp, single
+        torch.cuda.empty_cache()
+        # (e) the same steps under FSDP
+        res["fsdp"] = _fsdp_rank_steps(group, rank, dp_bytes)
         torch.cuda.empty_cache()
         # (c) run.train over the group; rank 0 alone writes
         root = os.path.join(out_dir, "logs")
@@ -5657,6 +5899,10 @@ def _ddp_rank(rank: int, port: int, out_dir: str) -> None:
         finally:
             torch.save = real_save
         res.update(first=first, second=second, saves=saves)
+        # (f) run.train under FSDP, a resume, one process loads it
+        res["fsdp_fit"] = _fsdp_rank_fit(rank, out_dir)
+        # (g) the cross-batch losses as written
+        res["cross_batch"] = _cross_batch_rank(group, rank)
     except Exception:       # reported to the parent, which fails the phase
         import traceback
         res["error"] = traceback.format_exc()
@@ -5665,9 +5911,9 @@ def _ddp_rank(rank: int, port: int, out_dir: str) -> None:
         torch.save(res, os.path.join(out_dir, f"ddp_rank{rank}.pt"))
 
 
-def _ddp_two_ranks(launches: dict, smi: str) -> dict:
-    """(b) and (c): the two ranks, spawned after the kernels are built
-    (the ranks load the libraries the parent built), joined within
+def _ddp_two_ranks(launches: dict, fsdp_launches: dict, smi: str) -> dict:
+    """(b), (c) and (e)-(g): the two ranks, spawned after the kernels are
+    built (the ranks load the libraries the parent built), joined within
     DDP_TIMEOUT seconds or killed."""
     import torch.multiprocessing as mp
     numbers: dict = {}
@@ -5695,6 +5941,9 @@ def _ddp_two_ranks(launches: dict, smi: str) -> dict:
                                                "version_0", "checkpoints")))
     for r in (r0, r1):
         _add_counts(launches, {k: 0 for k in launches}, r["launches"])
+        for part in (r["fsdp"]["launches"], r["fsdp_fit"]["launches"]):
+            _add_counts(fsdp_launches, {k: 0 for k in fsdp_launches}, part)
+    numbers["fsdp"] = _fsdp_two_ranks(r0, r1, smi)
     rel = [abs(g - w) / max(abs(w), 1e-30) for _, g, w in r0["losses"]]
     same = [n for n, t in r0["params"].items()
             if not torch.equal(t, r1["params"][n])]
@@ -5739,25 +5988,96 @@ def _ddp_two_ranks(launches: dict, smi: str) -> dict:
     return numbers
 
 
+def _fsdp_two_ranks(r0: dict, r1: dict, smi: str) -> dict:
+    """(e)-(g) from the two ranks' results: checked, logged, returned."""
+    e0, e1 = r0["fsdp"], r1["fsdp"]
+    rel = [abs(g - w) / max(abs(w), 1e-30) for _, g, w in e0["losses"]]
+    same = [n for n, t in e0["params"].items()
+            if not torch.equal(t, e1["params"][n])]
+    f0, f1 = r0["fsdp_fit"], r1["fsdp_fit"]
+    cross = r0["cross_batch"]
+    numbers = dict(
+        rank_ms=e0["ms"], rank1_ms=e1["ms"], loss_max_rel=max(rel),
+        param_max_diff=e0["param_max_diff"], split=e0["split"],
+        params_beyond_bound=e0["beyond_bound"], ranks_differ=same,
+        resident_bytes=[e0["resident_bytes"], e1["resident_bytes"]],
+        dp_resident_bytes=[e0["dp_bytes"], e1["dp_bytes"]],
+        fit_s=f0["fit_s"], resumed_val_loss=f0["second"]["val_loss"],
+        images_per_sec={str(r["rank"]): r["fsdp_fit"]["first"][
+            "train_images_per_sec"] for r in (r0, r1)},
+        one_process_differ=f0["one_process_differ"],
+        cross_batch={k: {"loss_max_rel": v["rel"], "beyond": v["beyond"],
+                         "ms": [round(t, 3) for t in v["ms"]],
+                         "loss": v["loss"]} for k, v in cross.items()})
+    log(f"fsdp two ranks on one card over gloo ({smi}), a correctness path: "
+        f"{e0['split']} parameters split; ms per step at B = 16 a rank, rank "
+        f"0 {json.dumps(e0['ms'])}, rank 1 {json.dumps(e1['ms'])}; each "
+        f"step against one process at B = 32 from rank 0's gathered state: "
+        f"losses' largest relative difference {max(rel):.3g} over "
+        f"{len(rel)} steps, parameters' largest difference "
+        f"{e0['param_max_diff']:.3g} (beyond Adam's reach of the gradients' "
+        f"difference: {e0['beyond_bound']}); the ranks' gathered parameters "
+        f"differ in {len(same)} tensors; launches per step off the plain "
+        f"step's {e0['wrong'] + e1['wrong']}; resident bytes of parameters "
+        f"and Adam moments per rank between steps: fsdp "
+        f"{numbers['resident_bytes']}, dp {numbers['dp_resident_bytes']}")
+    log(f"fsdp run.train at world 2 over gloo: one epoch in "
+        f"{f0['fit_s']:.2f} s, images/s per rank "
+        f"{json.dumps(numbers['images_per_sec'])} (global "
+        f"{sum(numbers['images_per_sec'].values()):.1f}); the resumed run's "
+        f"val_loss "
+        f"{f0['second']['val_loss']:.6g} (rank 1 "
+        f"{f1['second']['val_loss']:.6g}); its last checkpoint (step "
+        f"{f0['ckpt_step']}) loaded by one process: differs in "
+        f"{f0['one_process_differ']}")
+    for name, v in cross.items():
+        log(f"cross-batch {name} at world 2 over gloo, B = 64 a rank: "
+            f"losses' largest relative difference from one process at "
+            f"B = 128 {v['rel']:.3g} over {CROSS_BATCH_STEPS} steps, "
+            f"parameters beyond Adam's reach {v['beyond']}, finite "
+            f"{v['finite'] and r1['cross_batch'][name]['finite']}, ms per "
+            f"step {json.dumps([round(t, 3) for t in v['ms']])}, last loss "
+            f"{v['loss']:.6g}")
+    if max(rel) > DDP_RTOL or e0["beyond_bound"] or same or e0["wrong"] \
+            or e1["wrong"] or not e0["split"] or \
+            max(numbers["resident_bytes"]) >= min(
+                numbers["dp_resident_bytes"]):
+        raise AssertionError("fsdp two ranks: disagree with one process or "
+                             "each other, or hold no less than DP")
+    if f0["one_process_differ"] or \
+            f0["second"]["val_loss"] != f1["second"]["val_loss"]:
+        raise AssertionError(f"fsdp run.train: {f0['one_process_differ']}")
+    bad = {k: v for k, v in cross.items()
+           if v["rel"] > DDP_RTOL or v["beyond"] or not v["finite"]
+           or not r1["cross_batch"][k]["finite"]}
+    if bad:
+        raise AssertionError(f"cross-batch losses at world 2: {bad}")
+    return numbers
+
+
 def phase_ddp(smi: str) -> tuple:
     """Data-parallel training of the headline model (configs/
     ct_mcq_vae.yaml at full width, ``ct_layer`` trained) under cuDNN's
-    deterministic algorithms: (a) ``_ddp_world1``, (b) and (c)
-    ``_ddp_two_ranks``. The launch counters of every data-parallel step
-    are the path "ddp". Returns (those launches, the numbers)."""
+    deterministic algorithms: (a) and (d) ``_ddp_world1``, (b), (c) and
+    (e)-(g) ``_ddp_two_ranks``. The launch counters of every
+    data-parallel step are the path "ddp", those of every FSDP step (d)-(f)
+    the path "fsdp" ((g)'s models launch none). Returns (those two
+    launches, the numbers)."""
     start = time.perf_counter()
     launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
+    fsdp_launches = dict(launches)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        numbers = {"world1": _ddp_world1(launches)}
-        numbers["two_ranks"] = _ddp_two_ranks(launches, smi)
+        numbers = {"world1": _ddp_world1(launches, fsdp_launches)}
+        numbers["two_ranks"] = _ddp_two_ranks(launches, fsdp_launches, smi)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     numbers["wall_s"] = time.perf_counter() - start
     log(f"launches on the ddp path: {json.dumps(launches)}")
+    log(f"launches on the fsdp path: {json.dumps(fsdp_launches)}")
     log(f"ddp: phase {numbers['wall_s']:.1f} s")
-    return launches, numbers
+    return launches, fsdp_launches, numbers
 
 
 # keys of a check's row that the kernels line carries beside the contract's
@@ -5897,8 +6217,9 @@ def main(argv) -> int:
         log(json.dumps({"export_launches": launches, "export": numbers}))
         return 0
     if opts.ddp_only:
-        launches, numbers = phase_ddp(smi)
-        log(json.dumps({"ddp_launches": launches, "ddp": numbers}))
+        launches, fsdp_launches, numbers = phase_ddp(smi)
+        log(json.dumps({"ddp_launches": launches,
+                        "fsdp_launches": fsdp_launches, "ddp": numbers}))
         return 0
     if opts.metrics_only:
         launches, seconds = phase_metrics(smi)
@@ -5936,7 +6257,7 @@ def main(argv) -> int:
         gauss_launches, gauss_vq_launches, gauss_vq_rows, gauss_numbers = \
             phase_gaussian(smi, tmp)
     export_launches, export_numbers = phase_export(smi)
-    ddp_launches, ddp_numbers = phase_ddp(smi)
+    ddp_launches, fsdp_launches, ddp_numbers = phase_ddp(smi)
     kernels = []
     for r in rows:
         source, replaces = KERNEL_META[r["name"]]
@@ -5955,7 +6276,8 @@ def main(argv) -> int:
                    "celeba": celeba_launches[r["name"]],
                    "tceleba": tceleba_launches[r["name"]],
                    "export": export_launches[r["name"]],
-                   "ddp": ddp_launches[r["name"]]}
+                   "ddp": ddp_launches[r["name"]],
+                   "fsdp": fsdp_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -5987,7 +6309,7 @@ def main(argv) -> int:
             k["launches_by_path"][p] == 0 for k in kernels
            for p in ("train", "codebooks_2", "two_stage", "scan",
                      "shapes3d_ct", "metrics", "search", "tceleba",
-                     "ddp")) or any(
+                     "ddp", "fsdp")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
             if EXPECTED["reconstruct"][k["name"]]) or any(
             (k["launches_by_path"]["shapes3d_mcq"] == 0)

@@ -180,6 +180,15 @@ def grouped(draws, groups: int):
         else draws
 
 
+def unsharded(draws):
+    """``draws`` that draw at the shape asked for on every rank alike: a
+    ``ShardedDraws``' base (``replicated``), so a term of the global batch
+    draws at the global shape as one process does; a single process's
+    draws as they are."""
+    return draws.replicated() if isinstance(draws, ShardedDraws) \
+        else draws
+
+
 def reparameterize(mu: torch.Tensor, log_var: torch.Tensor, draws: Draws
                    ) -> torch.Tensor:
     """The reparameterisation trick: ``mu + eps * exp(log_var / 2)`` with
@@ -194,12 +203,6 @@ class BaseVAE(nn.Module):
     ``loss_function`` and ``generate``. A model with a usable prior also
     defines ``sample``; one without (VQVAE, whose codes have no prior)
     defines none, and the loop and the serving entry points check for it."""
-
-    #: why the loss is not a mean of per-row terms over the batch (it
-    #: pairs rows, sorts them or takes a non-linear function of a batch
-    #: mean), or None: such a loss differs between a rank's rows and the
-    #: global batch, so a data-parallel run refuses it (ROADMAP A8)
-    cross_batch_loss: Optional[str] = None
 
     def generate(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
         """Reconstruct ``x`` (the forward's ``recons``)."""

@@ -4,7 +4,9 @@ objective (B).
 Counterpart of ``ctvae_tpu/models/beta_vae.py``. The capacity ``C`` grows
 with the global ``step`` the train step passes (a tensor on the model's
 device, so a captured CUDA graph reads each replay's step), counted from
-``step + 1`` as the reference increments its counter first.
+``step + 1`` as the reference increments its counter first. In a
+data-parallel step the KL of ``loss_type`` B is the global batch's mean
+(``parallel/mesh.py::sum_batch``) before ``|KL - C|``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from ..parallel.mesh import batch_world, sum_batch
 from .base import gaussian_kl, mse_loss
 from .gaussian_base import StandardGaussianVAE
 
@@ -33,15 +36,12 @@ class BetaVAE(StandardGaussianVAE):
         self.max_capacity = max_capacity
         self.Capacity_max_iter = Capacity_max_iter
 
-    @property
-    def cross_batch_loss(self):
-        return ("the capacity loss is |KL - C| of the batch-mean KL"
-                if self.loss_type == "B" else None)
-
     def loss_function(self, outputs: Dict, *, M_N: float = 1.0, step=0,
                       **kwargs) -> Dict:
         recons_loss = mse_loss(outputs["recons"], outputs["input"])
         kld = gaussian_kl(outputs["mu"], outputs["log_var"])
+        if self.loss_type == "B":
+            kld = sum_batch(kld) / batch_world()
         if self.loss_type == "H":
             loss = recons_loss + self.beta * M_N * kld
         else:

@@ -8,7 +8,10 @@ k4-s2 convs without BatchNorm (``enc_convs_i``), an ``fc`` of 256, the
 The loss takes the reference's importance-weight matrix (fill ``1 / (B -
 1)``, column 0 ``1 / N``, column 1 and ``[B - 2, 0]`` the stratified
 weight, ``N = B / M_N``); the KL's anneal grows with the global ``step``
-under ``train`` and is 1 outside it.
+under ``train`` and is 1 outside it. In a data-parallel step the loss is
+the global batch's: ``z``, ``mu`` and ``log_var`` gathered from the
+ranks, B and N of the global batch, the reconstruction sum over it
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from ..parallel.mesh import gather_batch, sum_batch
 from .backbones import deconv_k3s2, leaky_relu, nhwc_flat
 from .base import BaseVAE, Draws, check_dtype, reparameterize
 
@@ -30,9 +34,6 @@ def log_density_gaussian(x: torch.Tensor, mu: torch.Tensor,
 
 
 class BetaTCVAE(BaseVAE):
-
-    cross_batch_loss = (
-        "the total-correlation terms pair every two rows of the batch")
 
     def __init__(self, in_channels: int = 3, latent_dim: int = 10,
                  hidden_dims: Optional[Sequence[int]] = None,
@@ -103,10 +104,11 @@ class BetaTCVAE(BaseVAE):
     def loss_function(self, outputs: Dict, *, M_N: float = 1.0, step=0,
                       train: bool = True, **kwargs) -> Dict:
         recons, x = outputs["recons"], outputs["input"]
-        mu, log_var, z = outputs["mu"], outputs["log_var"], outputs["z"]
+        recons_loss = sum_batch(torch.sum(torch.square(recons - x)))
+        mu, log_var, z = (gather_batch(outputs[k])
+                          for k in ("mu", "log_var", "z"))
         B = z.shape[0]
 
-        recons_loss = torch.sum(torch.square(recons - x))
         log_q_zx = torch.sum(log_density_gaussian(z, mu, log_var), dim=1)
         zeros = torch.zeros_like(z)
         log_p_z = torch.sum(log_density_gaussian(z, zeros, zeros), dim=1)

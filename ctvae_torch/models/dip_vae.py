@@ -4,7 +4,11 @@ Counterpart of ``ctvae_tpu/models/dip_vae.py``: sum-reduced
 reconstruction and KL, and the penalties on the off-diagonal and the
 diagonal of ``cov_z``. ``variance_term="paper"`` takes ``cov_z = cov_mu +
 diag(E_b[exp(log_var)])``; ``"reference"`` adds the reference's scalar
-``mean(diag(exp(2 log_var)))`` to every entry of ``cov_mu``.
+``mean(diag(exp(2 log_var)))`` to every entry of ``cov_mu``. In a
+data-parallel step the sums, ``cov_mu`` and the mean of
+``exp(log_var)`` are the global batch's, reduced over the ranks with
+their gradients (``parallel/mesh.py::sum_batch``; the reference's
+diagonal reads the gathered ``log_var``).
 """
 
 from __future__ import annotations
@@ -14,14 +18,11 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..ops.common import upcast32
+from ..parallel.mesh import batch_world, gather_batch, sum_batch
 from .gaussian_base import StandardGaussianVAE
 
 
 class DIPVAE(StandardGaussianVAE):
-
-    cross_batch_loss = (
-        "the DIP term squares the covariance of mu over the batch, and the "
-        "losses are sums over it")
 
     def __init__(self, in_channels: int = 3, latent_dim: int = 128,
                  hidden_dims: Optional[Sequence[int]] = None,
@@ -40,18 +41,21 @@ class DIPVAE(StandardGaussianVAE):
                       **kwargs) -> Dict:
         recons, x = outputs["recons"], outputs["input"]
         mu, log_var = upcast32(outputs["mu"]), upcast32(outputs["log_var"])
-        recons_loss = torch.sum(torch.square(recons - x))
-        kld = torch.sum(-0.5 * torch.sum(
-            1 + log_var - torch.square(mu) - torch.exp(log_var), dim=1))
+        recons_loss = sum_batch(torch.sum(torch.square(recons - x)))
+        kld = sum_batch(torch.sum(-0.5 * torch.sum(
+            1 + log_var - torch.square(mu) - torch.exp(log_var), dim=1)))
 
         centered = mu - torch.mean(mu, dim=1, keepdim=True)
-        cov_mu = centered.T @ centered                          # [D, D]
+        cov_mu = sum_batch(centered.T @ centered)               # [D, D]
         if self.variance_term == "reference":
+            log_var = gather_batch(log_var)
             n = min(log_var.shape)
             idx = torch.arange(n, device=log_var.device)
             cov_z = cov_mu + torch.mean(torch.exp(2.0 * log_var)[idx, idx])
         else:
-            cov_z = cov_mu + torch.diag(torch.mean(torch.exp(log_var), dim=0))
+            var = sum_batch(torch.sum(torch.exp(log_var), dim=0))
+            cov_z = cov_mu + torch.diag(var / (log_var.shape[0]
+                                               * batch_world()))
         cov_diag = torch.diagonal(cov_z)
         cov_offdiag = cov_z - torch.diag(cov_diag)
         dip_loss = (self.lambda_offdiag * torch.sum(torch.square(cov_offdiag))

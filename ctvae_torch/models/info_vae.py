@@ -1,22 +1,21 @@
 """InfoVAE: the mixed MMD + KL objective.
 
 Counterpart of ``ctvae_tpu/models/info_vae.py``: ``beta * recons + (1 -
-alpha) * M_N * KL + (alpha + reg_weight - 1) / (B (B - 1)) * MMD``.
+alpha) * M_N * KL + (alpha + reg_weight - 1) / (B (B - 1)) * MMD``, B
+the global batch's rows.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
+from ..parallel.mesh import batch_world
 from .base import Draws, gaussian_kl, mse_loss
 from .gaussian_base import StandardGaussianVAE
 from .mmd import compute_mmd
 
 
 class InfoVAE(StandardGaussianVAE):
-
-    cross_batch_loss = (
-        "the MMD pairs every two rows of the batch's latents (models/mmd.py)")
 
     def __init__(self, in_channels: int = 3, latent_dim: int = 128,
                  hidden_dims: Optional[Sequence[int]] = None,
@@ -34,7 +33,8 @@ class InfoVAE(StandardGaussianVAE):
     def loss_function(self, outputs: Dict, *, M_N: float = 1.0,
                       draws: Draws, **kwargs) -> Dict:
         z = outputs["z"]
-        bias_corr = z.shape[0] * (z.shape[0] - 1)
+        B = z.shape[0] * batch_world()
+        bias_corr = B * (B - 1)
         recons_loss = mse_loss(outputs["recons"], outputs["input"])
         mmd = compute_mmd(draws, z, self.kernel_type, self.latent_var)
         kld = gaussian_kl(outputs["mu"], outputs["log_var"])

@@ -7,7 +7,9 @@ two side by side. The forward draws the reparameterisation's ``normal``,
 then the Gumbel-softmax's ``uniform`` at the fixed ``temperature``, in
 train and eval alike; ``sample`` draws a ``normal``, then a ``randint``.
 Both capacities grow with ``step + 1`` (the reference's counter starts at
-1 and is incremented after use).
+1 and is incremented after use). In a data-parallel step both KLs are
+the global batch's means (``parallel/mesh.py::sum_batch``) before
+``|C - KL|``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from ..parallel.mesh import batch_world, sum_batch
 from .backbones import DEFAULT_HIDDEN_DIMS, DecoderInput
 from .base import Draws, gaussian_kl, reparameterize
 from .cat_vae import categorical_kl, gumbel_softmax_sample, one_hot
@@ -25,9 +28,6 @@ from .gaussian_base import StandardGaussianVAE
 
 
 class JointVAE(StandardGaussianVAE):
-
-    cross_batch_loss = (
-        "the capacity loss is |C - KL| of the batch-mean KLs")
 
     def __init__(self, in_channels: int = 3, latent_dim: int = 10,
                  hidden_dims: Optional[Sequence[int]] = None,
@@ -98,13 +98,15 @@ class JointVAE(StandardGaussianVAE):
                      + self.categorical_min_capacity)
         disc_curr = torch.clamp(disc_curr,
                                 max=math.log(self.categorical_dim))
-        kld_disc = categorical_kl(q, self.categorical_dim, 1)
+        kld_disc = sum_batch(categorical_kl(q, self.categorical_dim, 1)) \
+            / batch_world()
 
         cont_curr = ((self.latent_max_capacity - self.latent_min_capacity)
                      * num_iter / self.latent_num_iter
                      + self.latent_min_capacity)
         cont_curr = torch.clamp(cont_curr, max=self.latent_max_capacity)
-        kld_cont = gaussian_kl(outputs["mu"], outputs["log_var"])
+        kld_cont = sum_batch(gaussian_kl(outputs["mu"], outputs["log_var"])) \
+            / batch_world()
 
         capacity_loss = (
             self.categorical_gamma * torch.abs(disc_curr - kld_disc)

@@ -4,7 +4,9 @@ Counterpart of ``ctvae_tpu/models/mmd.py``, with its kernels' asymmetry:
 the RBF kernel returns the [N, N] matrix (then averaged), the IMQ kernel
 the sum of its off-diagonal entries (a scalar). The prior's ``z`` is one
 ``normal`` draw of the loss's ``Draws`` per call, where JAX draws from its
-``noise`` stream.
+``noise`` stream. In a data-parallel step the MMD pairs the rows of the
+global batch: ``z`` is gathered from the ranks and the prior drawn at the
+global shape (``parallel/mesh.py::gather_batch``).
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from ..ops.common import upcast32
-from .base import Draws
+from ..parallel.mesh import gather_batch
+from .base import Draws, unsharded
 
 
 def _pairwise(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -44,9 +47,10 @@ def compute_kernel(x1: torch.Tensor, x2: torch.Tensor, kernel_type: str,
 
 def compute_mmd(draws: Draws, z: torch.Tensor, kernel_type: str,
                 z_var: float) -> torch.Tensor:
-    """MMD(q(z) || N(0, I)), the prior one ``normal`` draw of ``draws``."""
-    z = upcast32(z)
-    prior_z = draws.normal(z.shape).to(z)
+    """MMD(q(z) || N(0, I)), the prior one ``normal`` draw of ``draws``,
+    over the global batch's ``z``."""
+    z = gather_batch(upcast32(z))
+    prior_z = unsharded(draws).normal(z.shape).to(z)
     pp = compute_kernel(prior_z, prior_z, kernel_type, z_var)
     zz = compute_kernel(z, z, kernel_type, z_var)
     pz = compute_kernel(prior_z, z, kernel_type, z_var)

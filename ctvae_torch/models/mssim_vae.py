@@ -17,9 +17,6 @@ from .gaussian_base import StandardGaussianVAE
 
 class MSSIMVAE(StandardGaussianVAE):
 
-    cross_batch_loss = (
-        "MS-SSIM multiplies powers of batch means")
-
     def __init__(self, in_channels: int = 3, latent_dim: int = 128,
                  hidden_dims: Optional[Sequence[int]] = None,
                  img_size: int = 64, deterministic: bool = False,

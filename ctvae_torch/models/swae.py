@@ -3,7 +3,9 @@ the sort-based 1-D Wasserstein distance over random projections.
 
 Counterpart of ``ctvae_tpu/models/swae.py``. The loss draws the prior's
 ``normal`` [B, D] first, then the projections, ``normal`` or ``cauchy``
-[P, D], each normalised to unit length.
+[P, D], each normalised to unit length. In a data-parallel step the
+distance is the global batch's: ``z`` gathered from the ranks, the prior
+and the projections drawn at the global shapes, B the global rows.
 """
 
 from __future__ import annotations
@@ -12,14 +14,12 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from .base import Draws, mse_loss, upcast32
+from ..parallel.mesh import gather_batch
+from .base import Draws, mse_loss, unsharded, upcast32
 from .gaussian_base import StandardGaussianVAE
 
 
 class SWAE(StandardGaussianVAE):
-
-    cross_batch_loss = (
-        "the sliced Wasserstein distance sorts the batch's projections")
 
     def __init__(self, in_channels: int = 3, latent_dim: int = 128,
                  hidden_dims: Optional[Sequence[int]] = None,
@@ -44,7 +44,8 @@ class SWAE(StandardGaussianVAE):
         return samples / torch.linalg.norm(samples, dim=1, keepdim=True)
 
     def compute_swd(self, z: torch.Tensor, draws: Draws) -> torch.Tensor:
-        z = upcast32(z)
+        z = gather_batch(upcast32(z))
+        draws = unsharded(draws)
         batch_size = z.shape[0]
         reg = self.reg_weight / (batch_size * (batch_size - 1))
         prior_z = draws.normal(z.shape).to(z)

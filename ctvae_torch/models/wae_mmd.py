@@ -2,22 +2,20 @@
 deterministic encoder (``fc_z``, no reparameterisation).
 
 Counterpart of ``ctvae_tpu/models/wae_mmd.py``: the MMD is scaled by
-``reg_weight / (B (B - 1))``.
+``reg_weight / (B (B - 1))``, B the global batch's rows.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
+from ..parallel.mesh import batch_world
 from .base import Draws, mse_loss
 from .gaussian_base import StandardGaussianVAE
 from .mmd import compute_mmd
 
 
 class WAE_MMD(StandardGaussianVAE):
-
-    cross_batch_loss = (
-        "the MMD pairs every two rows of the batch's latents (models/mmd.py)")
 
     def __init__(self, in_channels: int = 3, latent_dim: int = 128,
                  hidden_dims: Optional[Sequence[int]] = None,
@@ -33,7 +31,8 @@ class WAE_MMD(StandardGaussianVAE):
     def loss_function(self, outputs: Dict, *, draws: Draws,
                       **kwargs) -> Dict:
         z = outputs["z"]
-        reg = self.reg_weight / (z.shape[0] * (z.shape[0] - 1))
+        B = z.shape[0] * batch_world()
+        reg = self.reg_weight / (B * (B - 1))
         recons_loss = mse_loss(outputs["recons"], outputs["input"])
         mmd = reg * compute_mmd(draws, z, self.kernel_type, self.latent_var)
         return {"loss": recons_loss + mmd,

@@ -13,7 +13,10 @@ built in float64 and cast to float32. ``normalize`` maps each scale's
 SSIM and contrast term into [0, 1] by ``(x + 1) / 2`` before the
 fractional powers; without it a negative term gives NaN, as in JAX.
 The final combination is JAX's exactly: ``prod(pow1[:-1] * pow2[-1])``,
-which multiplies the last scale's SSIM term in four times.
+which multiplies the last scale's SSIM term in four times. In a
+data-parallel step each scale's two means are the global batch's (sums
+reduced over the ranks with their gradients, ``parallel/mesh.py::
+sum_batch``) before the powers and the product.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from ..parallel.mesh import batch_world, sum_batch
 from .common import upcast32
 
 _MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
@@ -56,6 +60,11 @@ def _depthwise_filter(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, k, padding="same", groups=c)
 
 
+def _batch_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t`` over the global batch of a data-parallel step."""
+    return sum_batch(torch.sum(t)) / (t.numel() * batch_world())
+
+
 def _ssim(img1: torch.Tensor, img2: torch.Tensor, window: torch.Tensor):
     mu1 = _depthwise_filter(img1, window)
     mu2 = _depthwise_filter(img2, window)
@@ -67,9 +76,9 @@ def _ssim(img1: torch.Tensor, img2: torch.Tensor, window: torch.Tensor):
     C1, C2 = 0.01 ** 2, 0.03 ** 2
     v1 = 2.0 * sigma12 + C2
     v2 = sigma1_sq + sigma2_sq + C2
-    cs = torch.mean(v1 / v2)
+    cs = _batch_mean(v1 / v2)
     ssim_map = ((2 * mu1_mu2 + C1) * v1) / ((mu1_sq + mu2_sq + C1) * v2)
-    return torch.mean(ssim_map), cs
+    return _batch_mean(ssim_map), cs
 
 
 def mssim_loss(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,

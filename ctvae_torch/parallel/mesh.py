@@ -18,13 +18,24 @@ one process on the global batch:
   codebook folds in the global counts and sums, and the codebook
   perplexity counts the global codes (``batch_group()`` inside the step,
   set by ``batch_parallel``);
-- the step's scalars are the ranks' means (``all_mean``).
+- the step's scalars are the ranks' means (``all_mean``);
+- a loss that is not a mean of per-row terms (the MMD, the total
+  correlation, DIP's covariance, the sliced Wasserstein distance,
+  MS-SSIM, a capacity |KL - C|) takes its cross-batch term on the global
+  batch: ``gather_batch`` and ``sum_batch`` give the rank the global rows
+  or sums inside the step, with gradients (the rule is in
+  ``all_gather_rows``).
 
 The mesh keeps the JAX axis names and order: ``(data, model)`` and, with
 ``dcn_replicas``, ``(replica, data, model)``, ranks reshaped replica-major.
 The batch is split over every axis but ``model``, whose size is 1 here
-(``model_axis > 1``, FSDP and sequence parallelism are refused by the
-trainer: ROADMAP A8), so the batch's group is the whole world.
+(``model_axis > 1`` and sequence parallelism are refused by the trainer:
+ROADMAP A8), so the batch's group is the whole world. Under
+``sharding: fsdp`` (``parallel/fsdp.py``) the parameters that
+``fsdp_plan`` picks are split over ``data`` alone (``mesh_data_group``:
+the ranks of one replica), never over ``replica``
+(``mesh_replica_group``: the ranks at one data index), as the JAX
+package's ``fsdp_shardings`` keeps ZeRO's all-gathers inside a slice.
 """
 
 from __future__ import annotations
@@ -136,6 +147,65 @@ def mesh_batch_group(mesh):
     return dist.group.WORLD
 
 
+def mesh_data_group(mesh):
+    """The ranks along ``data`` at this rank's replica: the group FSDP
+    splits parameters over (the whole batch group without ``replica``)."""
+    return mesh.get_group(DATA_AXIS)
+
+
+def mesh_replica_group(mesh):
+    """The ranks along ``replica`` at this rank's data index (each holds
+    the same slices under FSDP), or None on a mesh without that axis."""
+    if REPLICA_AXIS not in (mesh.mesh_dim_names or ()):
+        return None
+    return mesh.get_group(REPLICA_AXIS)
+
+
+# --- the FSDP plan ---------------------------------------------------------
+
+#: smallest parameter (elements) FSDP splits, the JAX trainer's default
+FSDP_MIN_SIZE = 1 << 12
+
+
+def _jax_axes(module: torch.nn.Module, leaf: str, ndim: int) -> tuple:
+    """The port's dims of a parameter in the order of its JAX leaf's axes
+    (``convert.py``'s layouts): a ``Conv2d`` weight OIHW is HWIO there, a
+    ``ConvTranspose2d`` weight [in, out, kh, kw] is (kh, kw, in, out), a
+    ``Linear`` weight [out, in] is [in, out]; every other leaf keeps its
+    layout."""
+    if leaf == "weight":
+        if isinstance(module, torch.nn.ConvTranspose2d):
+            return (2, 3, 0, 1)
+        if isinstance(module, torch.nn.Conv2d):
+            return (2, 3, 1, 0)
+        if isinstance(module, torch.nn.Linear):
+            return (1, 0)
+    return tuple(range(ndim))
+
+
+def fsdp_plan(model: torch.nn.Module, data_size: int,
+              min_size: int = FSDP_MIN_SIZE) -> Dict[str, Optional[int]]:
+    """Parameter name -> the port's dim split over ``data``, or None
+    (replicated): ``ctvae_tpu/parallel/mesh.py::fsdp_shardings`` with the
+    model axis of size 1 (no TP rule claims an axis). A parameter of at
+    least ``min_size`` elements is split along the largest of its JAX
+    leaf's axes that ``data_size`` divides (the first in JAX's order on
+    a tie), mapped to the port's layout; with a data size of 1 nothing
+    is split."""
+    modules = dict(model.named_modules())
+    plan: Dict[str, Optional[int]] = {}
+    for name, p in model.named_parameters():
+        plan[name] = None
+        if data_size <= 1 or p.numel() < min_size:
+            continue
+        parent, _, leaf = name.rpartition(".")
+        axes = _jax_axes(modules[parent], leaf, p.dim())
+        free = [a for a in axes if p.shape[a] % data_size == 0]
+        if free:
+            plan[name] = max(free, key=lambda a: p.shape[a])
+    return plan
+
+
 # --- the running step's group ----------------------------------------------
 
 @contextlib.contextmanager
@@ -220,23 +290,56 @@ def all_sum(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
-    """The ranks' ``t`` of one shape stacked along dim 0 in rank order
-    (no gradient). Made by a sum of zero-padded copies, which every
-    backend takes on the CPU and the card (gloo gathers no CUDA tensors)
-    and a CUDA graph can capture."""
-    n, r = group_size(group), group_rank(group)
-    out = t.new_zeros((n * t.shape[0],) + tuple(t.shape[1:]))
-    out[r * t.shape[0]:(r + 1) * t.shape[0]].copy_(t)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    return out
-
-
 def all_reduce_autograd(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` summed over the group's ranks, with the gradient of the sum
     (each rank's input gets the sum of the ranks' output gradients)."""
     from torch.distributed.nn.functional import all_reduce
     return all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+
+
+def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``t`` of one shape stacked along dim 0 in rank order,
+    with gradients. Made by a sum of zero-padded copies
+    (``all_reduce_autograd``), which every backend takes on the CPU and
+    the card (gloo gathers no CUDA tensors) and a CUDA graph can capture;
+    rank r's rows get the sum over the ranks of the gathered tensor's
+    gradient at rows r B to (r + 1) B.
+
+    The rule for a cross-batch term: every rank computes the term on the
+    same global rows, so every rank's gradient of the gathered tensor is
+    the same, and that sum is world x the term's gradient at the rank's
+    rows. ``all_reduce_grads`` divides the parameters' gradients by the
+    world, so the term's gradient reaches them once, beside the per-row
+    terms' mean (``sum_batch`` scales likewise)."""
+    n, r = group_size(group), group_rank(group)
+    b = t.shape[0]
+    padded = torch.cat([t.new_zeros((r * b,) + tuple(t.shape[1:])), t,
+                        t.new_zeros(((n - r - 1) * b,) + tuple(t.shape[1:]))])
+    return all_reduce_autograd(padded, group)
+
+
+def gather_batch(t: torch.Tensor) -> torch.Tensor:
+    """Inside a data-parallel step (``batch_parallel``): the rows of ``t``
+    on every rank of the batch's group, stacked in rank order, with
+    gradients (``all_gather_rows``): the global batch's rows of a rank's
+    [B, ...] tensor. Outside one: ``t``."""
+    group = batch_group()
+    return t if group is None else all_gather_rows(t, group)
+
+
+def sum_batch(t: torch.Tensor) -> torch.Tensor:
+    """Inside a data-parallel step: ``t`` summed over the batch's ranks,
+    with gradients (``all_reduce_autograd``; a term computed from it on
+    every rank alike follows ``all_gather_rows``' rule).
+    Outside one: ``t``."""
+    group = batch_group()
+    return t if group is None else all_reduce_autograd(t, group)
+
+
+def batch_world() -> int:
+    """The ranks the running step's batch is split over (1 outside a
+    data-parallel step)."""
+    return group_size(batch_group())
 
 
 def global_any(flag: bool, group) -> bool:
@@ -322,10 +425,13 @@ def destroy() -> None:
         dist.destroy_process_group()
 
 
-__all__ = ["DATA_AXIS", "MODEL_AXIS", "REPLICA_AXIS", "all_gather_rows",
-           "all_mean", "all_reduce_autograd", "all_reduce_grads", "all_sum",
-           "batch_group", "batch_parallel", "destroy", "global_any",
-           "group_rank", "group_size", "init_distributed", "is_primary",
+__all__ = ["DATA_AXIS", "FSDP_MIN_SIZE", "MODEL_AXIS", "REPLICA_AXIS",
+           "all_gather_rows", "all_mean",
+           "all_reduce_autograd", "all_reduce_grads", "all_sum",
+           "batch_group", "batch_parallel", "batch_world", "destroy",
+           "fsdp_plan", "gather_batch", "global_any", "group_rank",
+           "group_size", "init_distributed", "is_primary",
            "launched_by_torchrun", "local_rows", "make_hybrid_mesh",
-           "make_mesh", "mesh_batch_group", "put_replicated", "rank",
-           "shard_batch", "world_size"]
+           "make_mesh", "mesh_batch_group", "mesh_data_group",
+           "mesh_replica_group", "put_replicated", "rank", "shard_batch",
+           "sum_batch", "world_size"]

@@ -52,10 +52,22 @@ dividing the world), splits the batch over every rank, broadcasts the
 state from rank 0 and takes data-parallel steps; ``fit`` ORs the stop
 request over the ranks; ``validate`` reports the means over the global
 batches (the eval step's metrics are the ranks' means); only rank 0 writes checkpoints, image grids, logs and the epoch
-line; every rank restores. A model whose loss is not a mean of per-row
-terms (``cross_batch_loss``) is refused at a world above 1. Not ported yet
-(ROADMAP A8): ``sharding`` ``fsdp`` and ``sp`` and ``model_axis`` > 1,
-which raise ``NotImplementedError``.
+line; every rank restores. A loss that is not a mean of per-row terms
+takes its cross-batch term on the global batch (``parallel/mesh.py::
+gather_batch``), so every registry model trains at any world.
+
+``exp_params.sharding: fsdp`` (with ``fsdp_min_size``, default 4,096
+elements, and composed with ``dcn_replicas``) adds ZeRO-3
+(``parallel/fsdp.py``): ``setup`` splits the parameters of
+``fsdp_plan`` over the mesh's ``data`` axis after the broadcast and
+builds the optimizers over the slices, so Adam's moments are born
+split; ``restore_full_state`` and ``load_weights`` take a full state
+into the slices, checkpoints hold the full state (rank 0 writes what
+every rank gathered), and validation and the image grids run on the
+gathered parameters. Without a process group (one process) nothing is
+split, as the JAX trainer splits nothing over a data axis of 1. Not
+ported yet (ROADMAP A8): ``sharding: sp`` and ``model_axis`` > 1, which
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,18 +83,20 @@ from torch import nn
 from ..data.prefetch import to_device
 from ..models.base import Draws
 from ..models.vgg import attach_pretrained_vgg
-from ..parallel.mesh import (global_any, is_primary, make_hybrid_mesh,
-                             make_mesh, mesh_batch_group, put_replicated,
-                             shard_batch, world_size)
+from ..parallel.fsdp import fully_shard
+from ..parallel.mesh import (FSDP_MIN_SIZE, global_any, is_primary,
+                             make_hybrid_mesh, make_mesh, mesh_batch_group,
+                             mesh_data_group, mesh_replica_group,
+                             put_replicated, shard_batch)
 from ..serving.inference import encode_repr
 from ..utils.checkpoint import CheckpointManager, load_weights_only
 from .optimizers import build_lr_schedules, build_optimizers
 from .state import FWD_KEYS, TrainState, create_train_state, \
-    make_eval_step, make_multi_train_step, make_train_step
+    full_params, make_eval_step, make_multi_train_step, make_train_step
 
 #: exp_params keys of the JAX trainer the port does not take yet, with the
 #: values that leave them off
-NOT_PORTED = {"sharding": (None, "dp"), "model_axis": (None, 1)}
+NOT_PORTED = {"sharding": (None, "dp", "fsdp"), "model_axis": (None, 1)}
 
 
 def _is_watch_key(k: str) -> bool:
@@ -140,12 +154,9 @@ class VAEXperiment:
         if bad:
             raise NotImplementedError(f"exp_params {bad} not ported yet "
                                       f"(ROADMAP A8)")
-        why = getattr(model, "cross_batch_loss", None)
-        if why and world_size() > 1:
-            raise NotImplementedError(
-                f"{type(model).__name__} under data parallelism is not "
-                f"ported yet (ROADMAP A8): {why}, so a rank's loss is not "
-                f"its share of the global batch's")
+        self.sharding = str(exp_params.get("sharding") or "dp")
+        self.fsdp_min_size = int(exp_params.get("fsdp_min_size")
+                                 or FSDP_MIN_SIZE)
         self.dcn_replicas = int(exp_params.get("dcn_replicas") or 1)
         self.mesh = None
         self.group = None
@@ -181,7 +192,6 @@ class VAEXperiment:
         attach_pretrained_vgg(self.model, allow_random=bool(getattr(
             self.model, "allow_random_features", False)))
         spe = self._steps_per_epoch()
-        optimizers = build_optimizers(self.params, self.model, spe)
         self.lr_schedules = build_lr_schedules(self.params, spe)
         self.seed = seed
         if torch.distributed.is_initialized():
@@ -191,9 +201,17 @@ class VAEXperiment:
         elif self.dcn_replicas > 1:
             raise ValueError(f"dcn_replicas {self.dcn_replicas} needs a "
                              f"process group of a world it divides")
-        self.state = create_train_state(self.model, optimizers, seed,
+        self.state = create_train_state(self.model, [], seed,
                                         group=self.group)
         put_replicated(self.model, self.group, self.state.generator)
+        if self.sharding == "fsdp" and self.group is not None:
+            # after the broadcast, so every rank slices equal parameters,
+            # and before the optimizers, whose moments are born split
+            self.state.fsdp = fully_shard(
+                self.model, mesh_data_group(self.mesh),
+                mesh_replica_group(self.mesh), self.fsdp_min_size)
+        self.state.optimizers = build_optimizers(self.params, self.model,
+                                                 spe, fsdp=self.state.fsdp)
         return self.state
 
     def restore_full_state(self, which: str = "last") -> None:
@@ -211,9 +229,16 @@ class VAEXperiment:
         """Weights-only restore: the checkpoint's parameters that the
         model has by name and shape; the optimizer states start fresh."""
         assert self.state is not None, "call setup() first"
-        load_weights_only(ckpt_path, self.model)
+        fsdp = self.state.fsdp
+        if fsdp is None:
+            load_weights_only(ckpt_path, self.model)
+        else:
+            # the parameters the checkpoint does not hold keep their values
+            with fsdp.full():
+                load_weights_only(ckpt_path, self.model)
+                fsdp.load_full()
         self.state.optimizers = build_optimizers(
-            self.params, self.model, self._steps_per_epoch())
+            self.params, self.model, self._steps_per_epoch(), fsdp=fsdp)
         self._multi_steps.clear()
 
     def _train_step(self, mode: str, optimizer_idx: int = 0):
@@ -314,20 +339,24 @@ class VAEXperiment:
         self.logger.log_all(logged, self.global_step)
 
     def validate(self, epoch: int) -> Dict[str, float]:
+        """The eval step's scalars averaged over the validation batches
+        and the ``val_metrics``, under ``val_`` keys (under FSDP on the
+        gathered parameters)."""
         sums: Dict[str, float] = {}
         counts: Dict[str, int] = {}
-        for batch in self.data.val_dataloader(epoch):
-            mode = batch.pop("mode", "base")
-            batch = shard_batch(batch, self.device)
-            metrics = self._eval_step(mode)(self.state, batch)
-            for k, v in metrics.items():
-                if v.dim() == 0:
-                    sums[k] = sums.get(k, 0.0) + float(v)
-                    counts[k] = counts.get(k, 0) + 1
-        out = {"val_" + k: sums[k] / counts[k] for k in sums}
-        if self.val_metrics is not None:
-            out.update({"val_" + k: v for k, v in
-                        self.val_metrics.compute(self.repr_fn).items()})
+        with full_params(self.state):
+            for batch in self.data.val_dataloader(epoch):
+                mode = batch.pop("mode", "base")
+                batch = shard_batch(batch, self.device)
+                metrics = self._eval_step(mode)(self.state, batch)
+                for k, v in metrics.items():
+                    if v.dim() == 0:
+                        sums[k] = sums.get(k, 0.0) + float(v)
+                        counts[k] = counts.get(k, 0) + 1
+            out = {"val_" + k: sums[k] / counts[k] for k in sums}
+            if self.val_metrics is not None:
+                out.update({"val_" + k: v for k, v in
+                            self.val_metrics.compute(self.repr_fn).items()})
         if self.logger is not None:
             self.logger.log_all(out, self.global_step)
         return out
@@ -362,9 +391,11 @@ class VAEXperiment:
                               f"with trainer_params.resume_from_checkpoint",
                               flush=True)
                     break
-                val = self.validate(epoch)
-                if sample_dir is not None and is_primary():
-                    self.sample_images(sample_dir, epoch)
+                # every rank gathers (a collective), rank 0 samples
+                with full_params(self.state):
+                    val = self.validate(epoch)
+                    if sample_dir is not None and is_primary():
+                        self.sample_images(sample_dir, epoch)
                 if self.ckpt is not None:
                     self.ckpt.save(self.state, self.global_step, metrics=val)
                 if self.logger is not None:

@@ -24,6 +24,11 @@ Counterpart of ``ctvae_tpu/training/optimizers.py`` (an optax chain there,
   first transform is unmasked). The train step of ``optimizer_idx`` k
   steps optimizer k alone.
 
+Under FSDP (``parallel/fsdp.py``, ``build_optimizers(fsdp=...)``) an
+optimizer takes each split parameter's slice in its place, so Adam's
+moments cover the slice alone, and its clip reads the global norm of its
+parameters' gradients (the slices' squares summed over the data group).
+
 On a CUDA device the update can be captured into a CUDA graph
 (``training/state.py::make_multi_train_step``): the learning rate is a
 device tensor, filled from the schedule before each update outside any
@@ -62,8 +67,12 @@ class Optimizer:
 
     def __init__(self, params: List[nn.Parameter], lr: float,
                  weight_decay: float, schedule: Callable[[int], float],
-                 clip: Optional[float] = None, accumulate: int = 1):
+                 clip: Optional[float] = None, accumulate: int = 1,
+                 grad_norm: Optional[Callable[[], torch.Tensor]] = None):
         self.params = list(params)
+        # the clip's norm where it is not that of the local gradients
+        # (FSDP's slices: ``FSDP.norm_fn``)
+        self.grad_norm = grad_norm
         device = self.params[0].device
         # on the card: a device LR and capturable Adam (see the module doc)
         self.lr = (torch.tensor(float(lr), device=device)
@@ -96,8 +105,14 @@ class Optimizer:
     def update(self) -> None:
         """The device work of one update: the clip, then Adam. Launches
         only, no host read of a device value, so it can be captured."""
-        if self.clip:
+        if self.clip and self.grad_norm is None:
             torch.nn.utils.clip_grad_norm_(self.params, self.clip)
+        elif self.clip:
+            # clip_grad_norm_'s arithmetic on the global norm
+            coef = torch.clamp(self.clip / (self.grad_norm() + 1e-6),
+                               max=1.0)
+            torch._foreach_mul_([p.grad for p in self.params
+                                 if p.grad is not None], coef)
         self.adam.step()
 
     def step(self) -> bool:
@@ -149,10 +164,13 @@ class Optimizer:
                                                      self.params)])
 
 
-def _trained(model: nn.Module, prefix: Optional[str]) -> List[nn.Parameter]:
+def _trained(model: nn.Module, prefix: Optional[str], fsdp=None
+             ) -> List[nn.Parameter]:
     """The parameters under the top-level submodules named ``prefix...``
-    (all of them when ``prefix`` is None)."""
-    return [p for name, p in model.named_parameters()
+    (all of them when ``prefix`` is None), each split one's slice in its
+    place under ``fsdp``."""
+    return [p if fsdp is None else fsdp.shard_of(p)
+            for name, p in model.named_parameters()
             if prefix is None or name.split(".")[0].startswith(prefix)]
 
 
@@ -170,14 +188,18 @@ def build_lr_schedules(exp_params: Dict[str, Any],
 
 
 def build_optimizers(exp_params: Dict[str, Any], model: nn.Module,
-                     steps_per_epoch: int = 1) -> List[Optimizer]:
+                     steps_per_epoch: int = 1, fsdp=None) -> List[Optimizer]:
     """The ``Optimizer`` over the trained parameters of ``model``, and with
-    ``LR_2`` a second one over the ``submodel`` parameters."""
+    ``LR_2`` a second one over the ``submodel`` parameters; under ``fsdp``
+    (``parallel/fsdp.py::FSDP``) over the split parameters' slices."""
     accum = _accum(exp_params)
     spe = max(1, steps_per_epoch // accum)
     clip = exp_params.get("gradient_clip_val")
     lr = exp_params.get("LR", 1e-3)
-    params = _trained(model, exp_params.get("update_parameters"))
+
+    def norm(params):
+        return None if fsdp is None else fsdp.norm_fn(params)
+    params = _trained(model, exp_params.get("update_parameters"), fsdp)
     if not params:
         raise ValueError(f"update_parameters="
                          f"{exp_params.get('update_parameters')!r} names no "
@@ -185,15 +207,15 @@ def build_optimizers(exp_params: Dict[str, Any], model: nn.Module,
     optimizers = [Optimizer(
         params, lr, exp_params.get("weight_decay", 0.0) or 0.0,
         _exp_schedule(lr, exp_params.get("scheduler_gamma"), spe),
-        clip=clip, accumulate=accum)]
+        clip=clip, accumulate=accum, grad_norm=norm(params))]
     lr_2 = exp_params.get("LR_2")
     if lr_2 is not None:
-        params = _trained(model, exp_params.get("submodel"))
+        params = _trained(model, exp_params.get("submodel"), fsdp)
         if not params:
             raise ValueError(f"submodel={exp_params.get('submodel')!r} "
                              f"names no parameter of the model")
         optimizers.append(Optimizer(
             params, lr_2, 0.0,
             _exp_schedule(lr_2, exp_params.get("scheduler_gamma_2"), spe),
-            clip=clip, accumulate=accum))
+            clip=clip, accumulate=accum, grad_norm=norm(params)))
     return optimizers

@@ -39,10 +39,19 @@ ranks' means, so ``grad_norm``, the per-module norms and the update are
 those of one process on the global batch, on every rank alike. Over
 NCCL a multi-step call captures the reductions into its graph; over
 gloo it refuses a world above 1.
+
+A state with ``fsdp`` (``parallel/fsdp.py::FSDP``, ``exp_params.
+sharding: fsdp``) holds the split parameters as slices: the step
+gathers them before the forward, reduce-scatters their gradients to the
+slices after the backward and releases the full parameters; its norms
+are global (``FSDP.sq_sums``), and ``state_dict`` / ``load_state_dict``
+move the full state of one process (a collective under FSDP: every rank
+calls them).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -65,14 +74,16 @@ EVAL_SEED_OFFSET = 1 << 20
 class TrainState:
     """All training state: the global ``step``, the ``model`` (whose
     parameters are the trained state), its ``optimizers``, the
-    ``generator`` of the train steps' random draws and the process
-    ``group`` the batch is split over (None: one process)."""
+    ``generator`` of the train steps' random draws, the process
+    ``group`` the batch is split over (None: one process) and, under
+    FSDP, the ``fsdp`` that holds the split parameters' slices."""
 
     step: int
     model: nn.Module
     optimizers: List[Any]
     generator: torch.Generator
     group: Any = None
+    fsdp: Any = None
     _step_buf: Optional[torch.Tensor] = field(default=None, repr=False)
 
     def step_tensor(self) -> torch.Tensor:
@@ -89,27 +100,50 @@ class TrainState:
     def state_dict(self) -> Dict[str, Any]:
         """Everything a resumed run needs to continue bit for bit: the
         parameters (and an EMA codebook's buffers), each optimizer's state,
-        the step and the generator."""
-        return {"model": self.model.state_dict(),
-                "optimizers": [o.state_dict() for o in self.optimizers],
+        the step and the generator. Under FSDP the full ones, gathered
+        (every rank calls it)."""
+        if self.fsdp is None:
+            return {"model": self.model.state_dict(),
+                    "optimizers": [o.state_dict() for o in self.optimizers],
+                    "step": self.step,
+                    "generator": self.generator.get_state()}
+        with self.fsdp.full():
+            model = self.model.state_dict()
+        return {"model": model,
+                "optimizers": [self.fsdp.full_optimizer_state(o)
+                               for o in self.optimizers],
                 "step": self.step, "generator": self.generator.get_state()}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.model.load_state_dict(state["model"])
         if len(state["optimizers"]) != len(self.optimizers):
             raise ValueError(f"checkpoint has {len(state['optimizers'])} "
                              f"optimizers, the state {len(self.optimizers)}")
-        for opt, saved in zip(self.optimizers, state["optimizers"]):
-            opt.load_state_dict(saved)
+        if self.fsdp is None:
+            self.model.load_state_dict(state["model"])
+            for opt, saved in zip(self.optimizers, state["optimizers"]):
+                opt.load_state_dict(saved)
+        else:
+            with self.fsdp.materialized():
+                self.model.load_state_dict(state["model"])
+                self.fsdp.load_full()
+            for opt, saved in zip(self.optimizers, state["optimizers"]):
+                self.fsdp.load_optimizer_state(opt, saved)
         self.step = int(state["step"])
         self.generator.set_state(state["generator"])
 
 
 def create_train_state(model: nn.Module, optimizers: List[Any],
-                       seed: int = 0, group=None) -> TrainState:
+                       seed: int = 0, group=None, fsdp=None) -> TrainState:
     gen = torch.Generator(model.device).manual_seed(seed)
     return TrainState(step=0, model=model, optimizers=list(optimizers),
-                      generator=gen, group=group)
+                      generator=gen, group=group, fsdp=fsdp)
+
+
+def full_params(state: TrainState):
+    """A context in which the model holds its full parameters (under FSDP
+    gathered, then released; else nothing to do)."""
+    return contextlib.nullcontext() if state.fsdp is None \
+        else state.fsdp.full()
 
 
 def _draws(state: TrainState, generator: torch.Generator) -> Any:
@@ -140,16 +174,22 @@ def _scalars(losses: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             if isinstance(v, torch.Tensor)}
 
 
-def _module_norms(model: nn.Module, kind: str, grads: bool
+def _module_norms(state: TrainState, kind: str, grads: bool
                   ) -> Dict[str, torch.Tensor]:
     """``<kind>/<name>``: the global norm of each top-level module's
     gradients (a parameter without one counts as zero) or parameters, as
-    the JAX step's ``watch_modules`` reads them per top-level params key."""
+    the JAX step's ``watch_modules`` reads them per top-level params key
+    (under FSDP from the slices, summed over the ranks)."""
+    children = [(name, list(child.parameters()))
+                for name, child in state.model.named_children()]
+    children = [(name, ps) for name, ps in children if ps]
+    if state.fsdp is not None:
+        norms = torch.sqrt(state.fsdp.sq_sums([ps for _, ps in children],
+                                              grads))
+        return {f"{kind}/{name}": norms[i]
+                for i, (name, _) in enumerate(children)}
     out = {}
-    for name, child in model.named_children():
-        ps = list(child.parameters())
-        if not ps:
-            continue
+    for name, ps in children:
         ts = [p.grad for p in ps if p.grad is not None] if grads else ps
         out[f"{kind}/{name}"] = (global_norm(ts) if ts
                                  else ps[0].new_zeros(()))
@@ -157,8 +197,8 @@ def _module_norms(model: nn.Module, kind: str, grads: bool
 
 
 @torch.no_grad()
-def _param_norms(model: nn.Module) -> Dict[str, torch.Tensor]:
-    return _module_norms(model, "param_norm", grads=False)
+def _param_norms(state: TrainState) -> Dict[str, torch.Tensor]:
+    return _module_norms(state, "param_norm", grads=False)
 
 
 def _grads(state: TrainState, batch: Dict[str, torch.Tensor], mode: str,
@@ -169,6 +209,8 @@ def _grads(state: TrainState, batch: Dict[str, torch.Tensor], mode: str,
     with ``grad_norm`` (``step``: ``state.step_tensor()``, filled before
     the call)."""
     model = state.model
+    if state.fsdp is not None:
+        state.fsdp.gather()
     model.zero_grad(set_to_none=True)
     with batch_parallel(state.group):
         losses = _forward(model, batch, mode, _draws(state, state.generator),
@@ -176,6 +218,14 @@ def _grads(state: TrainState, batch: Dict[str, torch.Tensor], mode: str,
                           optimizer_idx=optimizer_idx)
         losses["loss"].backward()
     metrics = _scalars(losses)
+    if state.fsdp is not None:
+        # the slices' gradients, then the full parameters go
+        state.fsdp.reduce_grads(state.group)
+        state.fsdp.release()
+        metrics = all_mean(metrics, state.group)
+        metrics["grad_norm"] = torch.sqrt(state.fsdp.sq_sums(
+            [list(model.parameters())], grads=True)[0])
+        return metrics
     if state.group is not None:
         # every gradient, trained or not: grad_norm covers them all
         all_reduce_grads(model.parameters(), state.group)
@@ -203,10 +253,10 @@ def make_train_step(mode: str, watch_modules: bool = False,
         metrics = _grads(state, batch, mode, M_N, state.step_tensor(),
                          optimizer_idx)
         if watch_modules:           # the gradients before the clip
-            metrics.update(_module_norms(state.model, "grad_norm", True))
+            metrics.update(_module_norms(state, "grad_norm", True))
         state.optimizers[optimizer_idx].step()
         if watch_modules:
-            metrics.update(_param_norms(state.model))
+            metrics.update(_param_norms(state))
         state.step += 1
         return metrics
 
@@ -367,12 +417,11 @@ class MultiTrainStep:
             with torch.cuda.graph(graph):
                 metrics = _grads(state, inputs, self.mode, self.M_N, step)
                 if self.watch_modules:
-                    metrics.update(_module_norms(state.model, "grad_norm",
-                                                 True))
+                    metrics.update(_module_norms(state, "grad_norm", True))
                 for opt in state.optimizers:
                     opt.update()
                 if self.watch_modules:
-                    metrics.update(_param_norms(state.model))
+                    metrics.update(_param_norms(state))
         finally:
             after = launch_counts()
             set_launch_counts(before)
@@ -395,7 +444,8 @@ def make_eval_step(mode: str, seed: int = 0
     """The validation step of batch mode ``mode``: forward with
     ``train=False`` and the loss at ``M_N=1.0``, no gradient; its draws
     come from a generator of its own, seeded ``seed + (1 << 20)``. Under
-    a group its metrics are the ranks' means, as the train step's."""
+    a group its metrics are the ranks' means, as the train step's; under
+    FSDP it gathers the parameters (and releases them after)."""
     generator = None
 
     @torch.no_grad()
@@ -406,7 +456,7 @@ def make_eval_step(mode: str, seed: int = 0
         if generator is None:
             generator = torch.Generator(device).manual_seed(
                 seed + EVAL_SEED_OFFSET)
-        with batch_parallel(state.group):
+        with batch_parallel(state.group), full_params(state):
             metrics = _scalars(_forward(state.model, batch, mode,
                                         _draws(state, generator),
                                         train=False, M_N=1.0,

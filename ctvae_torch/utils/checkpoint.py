@@ -14,7 +14,9 @@ non-daemon thread, so the write overlaps the next epoch. Writes are
 serialised; ``wait()`` joins the one in flight and raises its error;
 ``path`` and ``restore`` wait first. Both modes write the same files, byte
 for byte. Under a process group only rank 0 writes (the ranks hold the
-same state); every rank restores.
+same state); every rank restores. Under FSDP the state is the full one,
+which every rank gathers (``TrainState.state_dict`` is a collective
+there) before rank 0 writes it, so the files are those of one process.
 """
 
 from __future__ import annotations
@@ -119,10 +121,15 @@ class CheckpointManager:
         among the best ``top_k``. The state is copied to the host before
         this returns; the write follows inline or, with ``async_save``, on
         a thread of its own after the previous one. Only rank 0 of a
-        process group writes."""
+        process group writes; under FSDP every rank takes part in
+        gathering the state, on this thread."""
+        sharded = getattr(state, "fsdp", None) is not None
+        if not self.writes and not sharded:
+            return
+        blob = state.state_dict()
         if not self.writes:
             return
-        blob = _host_copy(state.state_dict())
+        blob = _host_copy(blob)
         score = None if metrics is None else metrics.get(self.monitor)
         self.wait()
         if not self.async_save:

@@ -1655,3 +1655,106 @@ def test_data_parallel_world_1_over_nccl_is_bit_equal(card, mode):
                            dp.generator.get_state())
     finally:
         destroy()
+
+
+def _gloo_ranks_on_the_card(payload, tmp_path, world=2, timeout=300):
+    """``tests/torch_dp_ranks.py steps`` on ``world`` gloo ranks sharing
+    the card (NCCL refuses two ranks on one card): each rank's results."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    tests = os.path.dirname(os.path.abspath(__file__))
+    path = str(tmp_path / "payload.pt")
+    torch.save(payload, path)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(tests), tests]))
+    log = open(tmp_path / "ranks.log", "w")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(tests, "torch_dp_ranks.py"), "steps",
+         str(r), str(world), str(port), path, str(tmp_path)],
+        env=env, stdout=log, stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        log.close()
+    text = (tmp_path / "ranks.log").read_text()
+    assert all(p.returncode == 0 for p in procs), text
+    outs = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+    return [o["result"] for o in outs]
+
+
+def _assert_like_one_process(got, want, lr, tol=1e-5):
+    """A rank's one-step run against one process's: each metric within
+    ``tol`` (atol and rtol), each gradient within ``tol`` of its leaf's
+    scale, each parameter within ``tol`` plus Adam's reach of the
+    gradients' difference."""
+    for k, v in want["metrics"][0].items():
+        np.testing.assert_allclose(got["metrics"][0][k].cpu().numpy(),
+                                   v.cpu().numpy(), atol=tol, rtol=tol)
+    for n, g in want["grads"][0].items():
+        d = (got["grads"][0][n] - g).abs()
+        assert float(d.max()) <= tol * max(1.0, float(g.abs().max())), n
+        p_d = (got["params"][n] - want["params"][n]).abs()
+        assert bool((p_d <= tol + lr / 1e-8 * d).all()), n
+
+
+@pytest.mark.parametrize("which", ["fsdp", "cross_batch"])
+def test_two_gloo_ranks_on_the_card_equal_one_process(card, which,
+                                                      tmp_path):
+    """Two gloo ranks on the card, each 2 rows of a global batch of 4:
+    ``fsdp``, one step per mode of a small CT-MCQ-VAE under FSDP
+    (``fsdp_min_size`` 64, the slices gathered); ``cross_batch``, one
+    step of WAE_MMD (the MMD on the global batch). Each against one
+    process on the card on the global batch, and the ranks' parameters
+    bit-identical."""
+    from torch_dp_ranks import run_steps
+    from ctvae_torch.models import build_model
+    gen = torch.Generator().manual_seed(7)
+    if which == "fsdp":
+        cfg = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8,
+                   action_dim=8, hidden_dims=[8, 16], num_embeddings=8,
+                   img_size=16, codebooks=2, causal_hidden_dims=[16, 8],
+                   noise="off")
+        modes = ("base", "action", "causal")
+
+        def batch():
+            return {"image": torch.rand(4, 16, 16, 3, generator=gen).numpy(),
+                    "input_y": torch.rand(4, 16, 16, 3,
+                                          generator=gen).numpy(),
+                    "action": torch.eye(8)[torch.randint(
+                        0, 8, (4,), generator=gen)].numpy()}
+    else:
+        cfg = dict(name="WAE_MMD", in_channels=3, latent_dim=8,
+                   hidden_dims=[8, 16], img_size=16, reg_weight=100,
+                   kernel_type="imq")
+        modes = ("base",)
+
+        def batch():
+            return {"image": torch.rand(4, 16, 16, 3, generator=gen).numpy()}
+    exp = dict(LR=5e-4, scheduler_gamma=0.9, weight_decay=0.0)
+    model = build_model(cfg, device=card,
+                        generator=torch.Generator("cuda").manual_seed(0))
+    spec = {"cfg": cfg, "exp": exp, "device": "cuda",
+            "state_dict": {k: v.cpu() for k, v in
+                           model.state_dict().items()},
+            "runs": [{"seed": 3 + i, "steps": [(mode, batch(), None)]}
+                     for i, mode in enumerate(modes)]}
+    if which == "fsdp":
+        spec["fsdp"] = 64
+    r0, r1 = (r["m"] for r in _gloo_ranks_on_the_card(
+        {"models": {"m": spec}}, tmp_path))
+    want = run_steps(spec)
+    for i in range(len(modes)):
+        assert (which == "fsdp") == bool(r0[i].get("axes"))
+        for n, t in r0[i]["params"].items():
+            assert torch.equal(t, r1[i]["params"][n]), n
+        _assert_like_one_process(r0[i], want[i], exp["LR"])

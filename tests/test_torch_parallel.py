@@ -425,19 +425,26 @@ def misc(background):
     return finish(background["misc"])
 
 
-@pytest.mark.parametrize("key", list(CROSS_BATCH) + [
-    "fsdp", "sp", "model_axis", "seq_axis", "scan_steps"])
+@pytest.mark.parametrize("key", [
+    "sp", "model_axis", "seq_axis", "scan_steps"])
 def test_refused_under_a_world_of_two(misc, key):
-    """Each loss that is not a mean of per-row terms, FSDP, sequence
-    parallelism, ``model_axis`` 2, ``seq_axis`` and ``scan_steps`` > 1 over
-    gloo raise ``NotImplementedError`` naming ROADMAP A8 on both ranks."""
+    """Sequence parallelism, ``model_axis`` 2, ``seq_axis`` and
+    ``scan_steps`` > 1 over gloo raise ``NotImplementedError`` naming
+    ROADMAP A8 on both ranks (the losses that are not a mean of per-row
+    terms and FSDP train: tests/test_torch_parallel_losses.py and
+    tests/test_torch_fsdp.py)."""
     for res in misc:
+        assert set(res["refused"]) == {"sp", "model_axis", "seq_axis",
+                                       "scan_steps"}
         assert res["refused"][key] == "ok", res["refused"][key]
 
 
 def test_per_row_losses_are_accepted(misc):
+    """At a world of 2 the trainer takes every loss, per-row or not, and
+    ``sharding: fsdp``."""
     for res in misc:
-        assert set(res["accepted"]) == set(PER_ROW)
+        assert set(res["accepted"]) == set(PER_ROW) | set(CROSS_BATCH) | {
+            "fsdp"}
         assert all(v == "did not raise" for v in res["accepted"].values())
 
 

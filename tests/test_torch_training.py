@@ -19,6 +19,7 @@ rounding noise on both sides (~1e-10, e.g. the GAT ``lin_r`` whose effect
 a softmax cancels) moves it by a fraction of LR that differs between them.
 """
 
+import copy
 import os
 
 import jax
@@ -291,17 +292,23 @@ def test_run_trains_synthetic_ct_on_cpu(tmp_path, monkeypatch):
 
 
 def test_unported_trainer_options_raise(pair):
-    """FSDP, sequence parallelism and ``model_axis`` > 1 are not ported
+    """Sequence parallelism and ``model_axis`` > 1 are not ported
     (ROADMAP A8); ``dcn_replicas`` is (data parallelism), but a single
-    process has no world for two replicas to divide."""
+    process has no world for two replicas to divide. ``sharding: fsdp``
+    is ported: in one process it splits nothing, as the JAX trainer
+    splits nothing over a data axis of 1."""
     from ctvae_torch.training import VAEXperiment
-    for extra in (dict(sharding="fsdp"), dict(sharding="sp"),
-                  dict(model_axis=2)):
+    for extra in (dict(sharding="sp"), dict(model_axis=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP A8"):
             VAEXperiment(pair[2], {**EXP, **extra}, None)
     exp = VAEXperiment(pair[2], {**EXP, "dcn_replicas": 2}, None)
     with pytest.raises(ValueError, match="dcn_replicas 2"):
         exp.setup()
+    exp = VAEXperiment(copy.deepcopy(pair[2]),
+                       {**EXP, "sharding": "fsdp", "fsdp_min_size": 64},
+                       None)
+    state = exp.setup()
+    assert state.fsdp is None and state.group is None
 
 
 # --- the multi-step train step and exp_params.scan_steps -------------------

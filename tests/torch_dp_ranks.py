@@ -16,7 +16,15 @@ a gloo group on the CPU, importing torch and the port and nothing of JAX
   also calls in one process on the global batches);
 - ``fit``: ``VAEXperiment.fit`` of TSynthetic epochs: the rank's batches,
   the checkpoint files, a stop requested on one rank, a resume;
-- ``misc``: the refusals under a world of 2 and ``dcn_replicas``.
+- ``misc``: what a world of 2 refuses and takes, and ``dcn_replicas``;
+- ``fsdp_fit``: ``VAEXperiment.fit`` under ``sharding: fsdp``, a resume,
+  and checkpoints moved between FSDP, DP and one process.
+
+A model of ``steps`` whose spec holds ``fsdp`` (the ``fsdp_min_size``)
+trains under FSDP over the mesh's data group (``dcn_replicas``: the
+hybrid mesh), and its results are the full tensors gathered from the
+slices, beside the slices' and Adam moments' shapes and the bytes
+resident between steps.
 
 ``ReplayDraws`` and ``GammaSlot`` live here, free of JAX, and
 ``torch_port_common`` re-exports them.
@@ -95,32 +103,90 @@ def _tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+def _mesh_groups(spec: Dict[str, Any], group):
+    """(data group, replica group) of the spec's mesh: ``dcn_replicas``
+    > 1 the hybrid one."""
+    from ctvae_torch import parallel
+    n = spec.get("dcn_replicas", 1)
+    mesh = parallel.make_hybrid_mesh(n) if n > 1 else parallel.make_mesh()
+    return parallel.mesh_data_group(mesh), parallel.mesh_replica_group(mesh)
+
+
+def _train_state(spec: Dict[str, Any], model, group, groups, seed: int):
+    """The state of ``model``: under FSDP (``spec['fsdp']``, a group) the
+    split parameters' slices and the optimizers over them."""
+    from ctvae_torch.parallel import fully_shard
+    from ctvae_torch.training import optimizers as topt
+    from ctvae_torch.training import state as tstate
+    fsdp = None
+    if spec.get("fsdp") and group is not None:
+        fsdp = fully_shard(model, *groups, min_size=spec["fsdp"])
+    return tstate.create_train_state(
+        model, topt.build_optimizers(spec["exp"], model, 4, fsdp=fsdp),
+        seed=seed, group=group, fsdp=fsdp)
+
+
+def full_grads(state) -> Dict[str, torch.Tensor]:
+    """Every parameter's gradient of the last step at its full shape
+    (under FSDP gathered from the slices: a collective)."""
+    grads = {n: p.grad.clone() for n, p in state.model.named_parameters()
+             if p.grad is not None}
+    fsdp = state.fsdp
+    if fsdp is not None:
+        items = [(k, s.grad) for k, s in fsdp.shards.items()
+                 if s.grad is not None]
+        grads.update(zip([k for k, _ in items], fsdp.gather_full(items)))
+    return grads
+
+
+def resident_bytes(state) -> int:
+    """Bytes of the parameters and Adam moments held between steps."""
+    if state.fsdp is not None:
+        return state.fsdp.resident_bytes(state.optimizers)
+    ts = list(state.model.parameters())
+    for opt in state.optimizers:
+        for st in opt.adam.state.values():
+            ts += [st[k] for k in ("exp_avg", "exp_avg_sq") if k in st]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
     """The runs of ``spec`` (``cfg``, ``state_dict``, ``exp``, ``runs``:
     each a list of ``(mode, global batch, draws or None)`` steps from the
-    initial state, with ``M_N`` and ``seed``) on the rank's rows of each
-    batch (all of it without ``group``). Per run: each step's metrics and
-    gradients, the parameters and buffers after it, the state's step."""
+    initial state, with ``M_N``, ``seed`` and ``watch`` (the per-module
+    norms of ``watch_gradients``); ``fsdp``: the
+    ``fsdp_min_size`` of an FSDP run, with ``dcn_replicas``; ``device``,
+    the CPU by default) on the rank's rows of each batch (all of it
+    without ``group``). Per run: each
+    step's metrics and gradients, the parameters and buffers after it,
+    the state's step; under FSDP also the slices' and Adam moments'
+    shapes, the slices' values and the bytes resident after the run."""
     from ctvae_torch.models import build_model
     from ctvae_torch.parallel import local_rows
-    from ctvae_torch.training import optimizers as topt
     from ctvae_torch.training import state as tstate
-    model0 = build_model(dict(spec["cfg"]), device="cpu")
+    device = spec.get("device", "cpu")
+    if device != "cpu":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    model0 = build_model(dict(spec["cfg"]), device=device)
     model0.load_state_dict(spec["state_dict"])
+    groups = (_mesh_groups(spec, group) if spec.get("fsdp")
+              and group is not None else None)
     out = []
     for run in spec["runs"]:
         model = copy.deepcopy(model0)
-        state = tstate.create_train_state(
-            model, topt.build_optimizers(spec["exp"], model, 4),
-            seed=run.get("seed", 0), group=group)
+        state = _train_state(spec, model, group, groups, run.get("seed", 0))
         state.step = run.get("step", 0)
         metrics, grads = [], []
         for mode, batch, draws in run["steps"]:
             if group is not None:
                 batch = local_rows(batch, group)
-            step_fn = tstate.make_train_step(mode, M_N=run.get("M_N", 1.0))
+            step_fn = tstate.make_train_step(
+                mode, watch_modules=run.get("watch", False),
+                M_N=run.get("M_N", 1.0))
             if draws is None:
-                m = step_fn(state, _tensors(batch))
+                m = step_fn(state, {k: v.to(device)
+                                    for k, v in _tensors(batch).items()})
             else:
                 replay = ReplayDraws(draws)
                 saved = tstate.Draws
@@ -131,19 +197,43 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
                     tstate.Draws = saved
                 assert replay.done(), "the step drew fewer draws than JAX"
             metrics.append({k: v.clone() for k, v in m.items()})
-            grads.append({n: p.grad.clone() for n, p in
-                          model.named_parameters() if p.grad is not None})
-        out.append({"metrics": metrics, "grads": grads, "step": state.step,
-                    "params": {n: p.detach().clone()
-                               for n, p in model.named_parameters()},
-                    "buffers": {n: b.clone()
-                                for n, b in model.named_buffers()}})
+            grads.append(full_grads(state))
+        res = {"metrics": metrics, "grads": grads, "step": state.step,
+               "buffers": {n: b.clone() for n, b in model.named_buffers()},
+               "resident_bytes": resident_bytes(state)}
+        with tstate.full_params(state):
+            res["params"] = {n: p.detach().clone()
+                             for n, p in model.named_parameters()}
+        if state.fsdp is not None:
+            fsdp = state.fsdp
+            res["slices"] = {k: s.detach().clone()
+                             for k, s in fsdp.shards.items()}
+            res["axes"] = dict(fsdp.axes)
+            res["moments"] = [
+                {k: tuple(opt.adam.state[p]["exp_avg"].shape)
+                 for k, p in zip(_param_names(model, opt, fsdp), opt.params)
+                 if p in opt.adam.state} for opt in state.optimizers]
+        out.append(res)
     return out
 
 
+def _param_names(model, opt, fsdp) -> List[str]:
+    """The names of an optimizer's parameters (slices by their
+    parameter's name)."""
+    names = {id(fsdp.shard_of(p)): n for n, p in model.named_parameters()}
+    return [names[id(p)] for p in opt.params]
+
+
 def case_steps(payload, group) -> Dict[str, Any]:
-    return {name: run_steps(spec, group)
-            for name, spec in payload["models"].items()}
+    """``run_steps`` of each model of the payload; with ``equal_values``
+    (equal on every rank) also their ``all_mean``."""
+    from ctvae_torch.parallel import all_mean
+    out = {name: run_steps(spec, group)
+           for name, spec in payload["models"].items()}
+    if "equal_values" in payload:
+        out["equal_values"] = all_mean(
+            {"v": payload["equal_values"].clone()}, group)["v"]
+    return out
 
 
 # --- fit -----------------------------------------------------------------------
@@ -166,8 +256,11 @@ def _experiment(payload, ckpt_dir: str, exp_extra=None):
 
 
 def _params(exp) -> Dict[str, torch.Tensor]:
-    return {n: t.detach().clone() for n, t in
-            exp.model.state_dict().items()}
+    """The model's full ``state_dict`` (under FSDP gathered)."""
+    from ctvae_torch.training.state import full_params
+    with full_params(exp.state):
+        return {n: t.detach().clone() for n, t in
+                exp.model.state_dict().items()}
 
 
 def case_fit(payload, group) -> Dict[str, Any]:
@@ -253,6 +346,101 @@ def case_fit(payload, group) -> Dict[str, Any]:
     return out
 
 
+# --- fsdp_fit: the loop and checkpoints under FSDP ------------------------------
+
+def _differ(a, b, path: str = "") -> List[str]:
+    """Where two checkpoint states differ (tensors bit for bit)."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        ok = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+              and a.shape == b.shape and a.dtype == b.dtype
+              and torch.equal(a.cpu(), b.cpu()))
+        return [] if ok else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path}: keys {sorted(map(str, set(a) ^ set(b)))}"]
+        return [d for k in a for d in _differ(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path}: lengths {len(a)} / {len(b)}"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _differ(x, y, f"{path}/{i}")]
+    return [] if a == b else [f"{path}: {a!r} / {b!r}"]
+
+
+def case_fsdp_fit(payload, group) -> Dict[str, Any]:
+    """``fit`` under ``sharding: fsdp`` with a resume against the same
+    epochs without one; checkpoints of an FSDP run, a DP run and one
+    process, each restored into an FSDP run, DP ranks and one process,
+    whose state then equals the file's."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.parallel import rank
+    from ctvae_torch.training import optimizers as topt
+    from ctvae_torch.training import state as tstate
+    from ctvae_torch.utils.checkpoint import _load
+    out: Dict[str, Any] = {}
+    root = payload["root"]
+    fsdp = dict(sharding="fsdp", fsdp_min_size=payload["fsdp"])
+    saves: List[str] = []
+    real_save = torch.save
+
+    def spy(obj, f, *a, **k):
+        saves.append(str(f))
+        return real_save(obj, f, *a, **k)
+    torch.save = spy
+    try:
+        exp = _experiment(payload, os.path.join(root, "fsdp"), fsdp)
+        out["split"] = sorted(exp.state.fsdp.axes)
+        exp.fit(1, seed=payload["seed"])
+    finally:
+        torch.save = real_save
+    out["saves"] = saves
+    out["after_1"] = _params(exp)
+    resumed = _experiment(payload, os.path.join(root, "fsdp"), fsdp)
+    resumed.restore_full_state("last")
+    out["restored_equal"] = not _differ(_params(resumed), out["after_1"])
+    resumed.fit(2, seed=payload["seed"])
+    out["resumed"] = _params(resumed)
+    out["resumed_step"] = resumed.global_step
+    straight = _experiment(payload, os.path.join(root, f"straight{rank()}"),
+                           fsdp)
+    straight.ckpt.writes = False
+    straight.fit(2, seed=payload["seed"])
+    out["straight"] = _params(straight)
+    out["straight_step"] = straight.global_step
+    # the sources: an FSDP run's last, a DP run's last, one process's file
+    dp = _experiment(payload, os.path.join(root, "dp"))
+    dp.fit(1, seed=payload["seed"])
+    model = build_model(dict(payload["cfg"]), device="cpu",
+                        generator=torch.Generator().manual_seed(
+                            payload["seed"] + 1))
+    one = tstate.create_train_state(
+        model, topt.build_optimizers(payload["exp"], model, 4), seed=9)
+    tstate.make_train_step("action")(one, {
+        k: torch.from_numpy(v) for k, v in payload["batch"].items()})
+    single = os.path.join(root, f"single{rank()}.pt")
+    torch.save(one.state_dict(), single)
+    # rank 0's DP checkpoint is on disk once every rank got here
+    torch.distributed.barrier(group=group)
+    sources = {"fsdp": os.path.join(root, "fsdp", "last"),
+               "dp": os.path.join(root, "dp", "last"), "single": single}
+    out["moves"] = {}
+    for src, path in sources.items():
+        want = _load(path)
+        for dst in ("fsdp", "dp", "single"):
+            if dst == "single":
+                m = build_model(dict(payload["cfg"]), device="cpu")
+                st = tstate.create_train_state(
+                    m, topt.build_optimizers(payload["exp"], m, 4))
+                st.load_state_dict(_load(path))
+            else:
+                e = _experiment(payload, os.path.join(root, f"x{rank()}"),
+                                fsdp if dst == "fsdp" else None)
+                e.restore_full_state(path)
+                st = e.state
+            out["moves"][f"{src}-{dst}"] = _differ(st.state_dict(), want)
+    return out
+
+
 # --- misc: refusals and dcn_replicas -------------------------------------------
 
 def _raises(fn, exc=NotImplementedError, text="ROADMAP A8") -> str:
@@ -273,15 +461,13 @@ def case_misc(payload, group) -> Dict[str, Any]:
     from ctvae_torch.training import optimizers as topt
     from ctvae_torch.training import state as tstate
     out: Dict[str, Any] = {"refused": {}, "accepted": {}}
-    for name, cfg in payload["cross_batch"].items():
-        model = build_model(dict(cfg), device="cpu")
-        out["refused"][name] = _raises(lambda: VAEXperiment(model, {}, None))
-    for name, cfg in payload["per_row"].items():
+    for name, cfg in {**payload["cross_batch"], **payload["per_row"]}.items():
         model = build_model(dict(cfg), device="cpu")
         out["accepted"][name] = _raises(lambda: VAEXperiment(model, {}, None))
     ct = build_model(dict(payload["ct"]), device="cpu")
-    for key, exp in (("fsdp", {"sharding": "fsdp"}),
-                     ("sp", {"sharding": "sp"}),
+    out["accepted"]["fsdp"] = _raises(
+        lambda: VAEXperiment(ct, {"sharding": "fsdp"}, None))
+    for key, exp in (("sp", {"sharding": "sp"}),
                      ("model_axis", {"model_axis": 2})):
         out["refused"][key] = _raises(lambda: VAEXperiment(ct, exp, None))
     out["refused"]["seq_axis"] = _raises(lambda: build_model(
@@ -317,7 +503,8 @@ def case_misc(payload, group) -> Dict[str, Any]:
     return out
 
 
-CASES = {"steps": case_steps, "fit": case_fit, "misc": case_misc}
+CASES = {"steps": case_steps, "fit": case_fit, "misc": case_misc,
+         "fsdp_fit": case_fsdp_fit}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
