@@ -81,7 +81,7 @@ same widths (phase "loop"). Then more phases:
   (c) make the path ``search``.
 
 * celeba: the port's JPEG codec built (``ctvae_torch/native``: nvJPEG
-  on a machine without libjpeg) and a CelebA stand-in of 16,000 JPEGs of
+  on a machine without libjpeg) and a CelebA stand-in of 8,000 JPEGs of
   178 x 218 written in a temporary directory (quality 80; the smoke's own
   80 / 10 / 10 split and attribute file; ``variation_attrs_10.txt``),
   then (c) the decode of a batch of 64 against the arrays it was
@@ -137,6 +137,19 @@ same widths (phase "loop"). Then more phases:
   through the same files moved to the CPU at B = 2 against the card; the
   artifact's and the live port's request ms in turns. The artifacts'
   requests make the path ``export`` (the four forward kernels).
+
+* bf16: the headline config at ``dtype: bfloat16`` (the JAX bench's
+  dtype): requests of the four entry points, 16 eager steps a mode and
+  two ``make_multi_train_step(mode, 8)`` calls from an equal state (every
+  parameter and Adam moment bit-equal), and ``configs/mcq_vae.yaml`` /
+  ``vae.yaml`` a few steps each at bfloat16 make the path ``bf16``; every
+  kernel call of a base, an action and a causal step held against its
+  plain version at bfloat16 (the bfloat16 instantiations of rows 2-6, and
+  the float32 VQ search on the upcast latents) and timed with its bound
+  (bytes at each tensor's element size); the four entry points and a
+  first step per mode at B = 2 against the CPU port; float32 against
+  bfloat16 step and request ms in turns (``phase_bf16``;
+  ``--bf16-only`` runs it alone).
 
     python3 chip_smoke.py --search-only
 
@@ -4801,7 +4814,9 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
 
 # --- phase 13: the JPEG datasets ---------------------------------------------
 
-CELEBA_N = 16_000          # stand-in images: 12,800 / 1,600 / 1,600
+CELEBA_N = 8_000           # stand-in images: 6,400 / 800 / 800 (epochs
+                           # of 100 steps at B = 64; 16,000 until the
+                           # smoke grew past 900 s)
 #: configs trained one epoch through run.train on the stand-in, as written
 #: but for data_path (vq_vae's VQ search makes the path celeba_vq)
 CELEBA_RUNS = ("vae", "vq_vae", "cvae")
@@ -6080,6 +6095,503 @@ def phase_ddp(smi: str) -> tuple:
     return launches, fsdp_launches, numbers
 
 
+# --- phase "bf16": the compute dtype bfloat16 ------------------------------
+
+# the headline config at the JAX bench's dtype (its bench runs bfloat16 in
+# every tier)
+BF16_MODEL_PARAMS = {**MODEL_PARAMS, "dtype": "bfloat16"}
+BF16_ULP = 2.0 ** -8    # one bfloat16 ulp, relative
+# a bfloat16 output of a kernel and of its plain version: the same float32
+# value up to the order of its sums, rounded once: within 2 ulps of each
+# element plus this share of the output's scale, max(1, max |want|)
+BF16_RTOL = 1e-5
+BF16_ROUNDS = 5         # timed rounds of float32 and bfloat16, in turns
+BF16_REQUESTS = 4       # requests per entry point on the path
+# the zoo's configs of the slice, a few steps each at bfloat16, B = 64
+BF16_ZOO = {"mcq_vae": {"vq_l2_argmin": 4}, "vae": {}}
+BF16_ZOO_STEPS = 4
+
+
+def _bf16_err(got, want) -> float:
+    """How far ``got`` is past 2 bfloat16 ulps of ``want``, elementwise,
+    over max(1, max |want|): 0 where every element is within 2 ulps."""
+    g, w = got.detach().float(), want.detach().float()
+    scale = max(1.0, float(w.abs().max()))
+    excess = float(((g - w).abs() - 2 * BF16_ULP * w.abs()).max())
+    return max(0.0, excess) / scale
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if torch.is_tensor(t))
+
+
+def _bf16_cases():
+    """Per kernel: (the wrapper module, its ``*_cuda`` launch, how its
+    captured arguments become the op's and the plain version's on the
+    card, and the operations the bound counts on them; see the f32 rows'
+    bound functions for what each count holds)."""
+    from ctvae_torch.ops import gat_flash as gf
+    from ctvae_torch.ops import gat_logits as gl
+    from ctvae_torch.ops import library
+    from ctvae_torch.ops import pairwise_flash as pf
+    from ctvae_torch.ops.gat import gat_logits
+    from ctvae_torch.ops.pairwise import fused_pairwise_scores, pairwise_logits
+
+    def pw_b2(w2, xl):
+        return xl.new_zeros((xl.shape[0],) if w2.dim() == 2 else ())
+
+    def pw_bwd_op(a, kw):
+        xl, xr, w2, b1, out, dout, ns = a
+        return (xl, xr, w2, b1, pw_b2(w2, xl), out, dout, ns)
+
+    def pw_bwd_plain(xl, xr, w2, b1, b2, out, dout, ns):
+        out32 = out.float()
+        dz = dout.float() * (1 - out32) * out32
+        return library._plain_vjp(pairwise_logits, (xl, xr, w2, b1, b2), dz,
+                                  ns)
+
+    def pw_fwd_ops(a):
+        xl, xr = a[:2]
+        B, S, H = xl.shape
+        T = xr.shape[1]
+        return 4.0 * B * S * T * H + 2.0 * B * S * H + 3.0 * B * T * H \
+            + 8.0 * B * S * T
+
+    def pw_bwd_ops(a):
+        xl, xr, w2, b1, b2, out, dout, _ = a
+        B, S, H = xl.shape
+        T = xr.shape[1]
+        live = int((dout.float() * out.float() * (1 - out.float()) != 0)
+                   .sum())
+        return 5.0 * live * H + 3.0 * B * (S + T + 1) * H + 4.0 * B * S * T
+
+    def gat_plain_fwd(xl, xr, adj, mask, we, att, ns):
+        out, alpha = gf.plain_gat(xl, xr, adj, mask, we, att, ns)
+        return out, alpha.permute(0, 3, 2, 1)
+
+    def gat_bwd_plain(xl, xr, adj, mask, we, att, alpha, dout, ns):
+        return library._plain_vjp(
+            lambda xl, xr, adj, we, att: gf.flash_gat_plain(
+                xl, xr, adj, mask, we, att, ns), (xl, xr, adj, we, att),
+            dout)
+
+    def logits_bwd_plain(xl, xr, adj, we, att, d_e, ns):
+        dxl, dxr, dadj, dwe, datt = library._plain_vjp(
+            gat_logits, (xl, xr, adj, we, att), d_e, ns)
+        return dxl, dxr, dadj, torch.stack((dwe, datt), -3)
+
+    def edges_hf(a):
+        xl, mask = a[0], a[3]
+        return float(int(mask.sum())) * xl.shape[2] * xl.shape[3]
+
+    return {
+        "pairwise_fwd": (pf, "flash_pairwise_cuda", "pairwise_fwd",
+                         lambda a, kw: a, fused_pairwise_scores, pw_fwd_ops),
+        "pairwise_bwd": (pf, "flash_pairwise_bwd_cuda", "pairwise_bwd",
+                         pw_bwd_op, pw_bwd_plain, pw_bwd_ops),
+        "gat_fwd": (gf, "flash_gat_cuda", "gat_fwd_alpha",
+                    lambda a, kw: a, gat_plain_fwd,
+                    lambda a: 9.0 * edges_hf(a)),
+        "gat_bwd": (gf, "flash_gat_bwd_cuda", "gat_bwd", lambda a, kw: a,
+                    gat_bwd_plain, lambda a: 17.0 * edges_hf(a)),
+        "gat_logits_fwd": (gl, "fused_gat_logits_cuda", "gat_logits_fwd",
+                           lambda a, kw: a, gat_logits,
+                           lambda a: 5.0 * a[0].shape[0] * a[0].shape[1]
+                           * a[1].shape[1] * a[0].shape[2] * a[0].shape[3]),
+        "gat_logits_bwd": (gl, "fused_gat_logits_bwd_cuda", "gat_logits_bwd",
+                           lambda a, kw: a, logits_bwd_plain,
+                           lambda a: 10.0 * int((a[5] != 0).sum())
+                           * a[0].shape[3]),
+    }
+
+
+def _bf16_kernels_on_step(label: str, fn, timed: bool) -> dict:
+    """Every kernel call of one call of ``fn`` (a bfloat16 train step):
+    its op on the card (the bfloat16 instantiation) against the plain
+    version at bfloat16 on the same inputs on the card, within 2 ulps of
+    each element plus BF16_RTOL of each output's scale, and a rerun bit
+    for bit; the VQ search (float32: the latents upcast first) against
+    the plain search, indices equal but on near-ties. With ``timed``, the
+    kernel's, its float32 instantiation's (on the same values upcast) and
+    the plain version's ms on those inputs and the bound (bytes at each
+    tensor's element size, float32 operations). The counters are put back
+    after."""
+    from ctvae_torch.ops import set_launch_counts
+    from ctvae_torch.ops import vq
+    from ctvae_torch.ops.common import custom_ops
+    cases = _bf16_cases()
+    targets = [(vq, "l2_argmin_cuda")] + [(c[0], c[1])
+                                         for c in cases.values()]
+    saved = _counts()
+    calls = _all_calls(fn, targets)
+    out = {"vq_l2_argmin": []}
+    for args, _ in calls["l2_argmin_cuda"]:
+        x, cb = (a.detach() for a in args[:2])
+        got = vq.l2_argmin_cuda(x, cb)
+        differ, ties, gap = _vq_agreement(x, cb, got)
+        out["vq_l2_argmin"].append({"x": list(x.shape), "dtype": str(x.dtype),
+                                    "differ": differ, "near_ties": ties})
+        if differ != ties or x.dtype != torch.float32:
+            raise AssertionError(f"bf16 {label}: vq {out['vq_l2_argmin']}")
+    for name, (module, fn_name, op_name, op_args, plain, n_ops) in \
+            cases.items():
+        op = getattr(custom_ops(), op_name)
+        rows = out[name] = []
+        for args, kw in calls[fn_name]:
+            a = op_args(tuple(x.detach() if torch.is_tensor(x) else x
+                              for x in args), kw)
+            if a[0].dtype != torch.bfloat16:
+                raise AssertionError(f"bf16 {label}: {name} got {a[0].dtype}")
+            got = op(*a)
+            again = op(*a)
+            with torch.no_grad():
+                want = plain(*a)
+            got, want, again = (
+                (t,) if torch.is_tensor(t) else tuple(t)
+                for t in (got, want, again))
+            dtypes = [str(g.dtype).replace("torch.", "") for g in got]
+            if [g.dtype for g in got] != [w.dtype for w in want]:
+                raise AssertionError(f"bf16 {label}: {name} dtypes {dtypes} "
+                                     f"against {[w.dtype for w in want]}")
+            errs = [_bf16_err(g, w) for g, w in zip(got, want)]
+            same = all(torch.equal(g, h) for g, h in zip(got, again))
+            row = {"shape": list(a[0].shape), "dtypes": dtypes,
+                   "errors": [float(f"{e:.3g}") for e in errs],
+                   "bit_identical": same}
+            if timed:
+                launch = getattr(module, fn_name)
+                row["ms"] = time_ms(lambda: launch(*args, **kw), reps=11)
+                # the float32 instantiation on the same values
+                args32 = tuple(x.detach().float() if torch.is_tensor(x)
+                               and x.dtype == torch.bfloat16 else x
+                               for x in args)
+                row["f32_ms"] = time_ms(lambda: launch(*args32, **kw),
+                                        reps=11)
+                with torch.no_grad():
+                    row["plain_ms"] = time_ms(lambda: plain(*a), reps=3)
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    _nbytes(a) + _nbytes(got), n_ops(a))
+            rows.append(row)
+            log(f"bf16 {label}: {name} {json.dumps(row)}")
+            if max(errs) > BF16_RTOL or not same:
+                raise AssertionError(f"bf16 {label}: {name} disagrees with "
+                                     f"its plain version: {row}")
+            del got, want, again
+    del calls
+    set_launch_counts(saved)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bf16_states(params, B: int, dtypes=("bfloat16",), seed: int = SEED,
+                 exp=EXP_PARAMS):
+    """One train state per dtype of ``params`` (equal weights: the float32
+    model's cast where a parameter is bfloat16) and a batch of ``B``."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import build_optimizers, create_train_state
+    states = {}
+    for dt in dtypes:
+        model = build_model({**params, "dtype": dt}, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(
+                                seed))
+        states[dt] = create_train_state(
+            model, build_optimizers(exp, model, steps_per_epoch=100),
+            seed=seed)
+    return states
+
+
+def _bf16_zoo(launches: dict) -> dict:
+    """MCQVAE and VanillaVAE from their YAML at bfloat16 (full width, B =
+    64): BF16_ZOO_STEPS steps each, every step's launches as expected
+    (the VQ search per codebook; none for VanillaVAE) and a finite loss;
+    BatchNorm's statistics float32. Adds the steps' launches to
+    ``launches``."""
+    from ctvae_torch.training import make_train_step
+    out = {}
+    root = os.path.dirname(CONFIG)
+    for name, expected in BF16_ZOO.items():
+        cfg = read_config(os.path.join(root, f"{name}.yaml"))
+        p = {**cfg["model_params"], "dtype": "bfloat16"}
+        state = _bf16_states(p, 64, exp=cfg["exp_params"])["bfloat16"]
+        if state.model.compute_dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 {name}: {state.model.compute_dtype}")
+        size = p.get("img_size", 64)
+        x = torch.rand(64, size, size, p.get("in_channels", 3),
+                       generator=torch.Generator("cuda").manual_seed(SEED),
+                       device="cuda")
+        step = make_train_step("base",
+                               M_N=cfg["exp_params"].get("kld_weight", 1.0))
+        losses = []
+        for _ in range(BF16_ZOO_STEPS):
+            c0 = _counts()
+            metrics = step(state, {"image": x})
+            c1 = _counts()
+            got = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+            if got != expected:
+                raise AssertionError(f"bf16 {name}: launches per step {got}"
+                                     f", expected {expected}")
+            for k, n in got.items():
+                launches[k] += n
+            losses.append(float(metrics["loss"]))
+        buffers = {str(b.dtype) for b in state.model.buffers()}
+        if not all(math.isfinite(v) for v in losses) or \
+                buffers - {"torch.float32"}:
+            raise AssertionError(f"bf16 {name}: losses {losses}, buffers "
+                                 f"{buffers}")
+        out[name] = {"losses": losses, "buffer_dtypes": sorted(buffers)}
+        log(f"bf16 {name}.yaml at bfloat16, B=64: {BF16_ZOO_STEPS} steps, "
+            f"losses {json.dumps([round(v, 6) for v in losses])}")
+    return out
+
+
+def _bf16_vs_cpu(smi: str) -> dict:
+    """The four entry points at B = 2 and one train step per mode at B = 2
+    on the card against the CPU port at bfloat16, from the same weights and
+    CPU-drawn draws. Card and CPU round bfloat16 in other places (cuBLAS's
+    and cuDNN's sums; ``torch.backends.cuda.matmul.
+    allow_bf16_reduced_precision_reduction`` as logged), which can flip a
+    decision at a near-tie (a VQ index, the argmax of the CT layer's
+    output, a sampled edge) and with it a site's code: ``encode`` within 2
+    ulps of each element plus 4 of its scale, ``classify_action``'s
+    probabilities within 4 ulps of their scale, and at least 95 % of the
+    images' pixels within 8 ulps of their scale; each step's losses within
+    5 ulps (2 %)."""
+    from ctvae_torch.serving.inference import make_inference_fn
+    from ctvae_torch.training import make_train_step
+    from ctvae_torch.training import state as tstate
+    log(f"bf16: torch.backends.cuda.matmul."
+        f"allow_bf16_reduced_precision_reduction = "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}"
+        f"; cudnn.deterministic = {torch.backends.cudnn.deterministic}")
+    from ctvae_torch.training import build_optimizers, create_train_state
+    card_model = _bf16_states(BF16_MODEL_PARAMS, 2)["bfloat16"].model
+    host_model = copy.deepcopy(card_model).to("cpu")
+
+    def state(model):
+        return create_train_state(
+            model, build_optimizers(EXP_PARAMS, model, steps_per_epoch=100),
+            seed=SEED)
+    x, y, a = _requests(torch.Generator().manual_seed(SEED + 7), 2, "cpu")
+    out = {}
+    import ctvae_torch.serving.inference as inference
+    real = inference._draws
+    try:
+        for name in ("reconstruct", "encode", "apply_action",
+                     "classify_action"):
+            args = {"reconstruct": (x,), "encode": (x,),
+                    "apply_action": (x, y, a), "classify_action": (x, y)}[name]
+            res = []
+            for model, dev in ((card_model, "cuda"), (host_model, "cpu")):
+                inference._draws = lambda m, g, dev=dev: _replay_draws(
+                    dev, SEED)
+                fn = make_inference_fn(model, name)
+                res.append(fn(*(t.to(dev) for t in args)).float().cpu())
+            got, want = res
+            scale = max(1.0, float(want.abs().max()))
+            diff = (got - want).abs()
+            m = out[name] = {"max_abs_err": float(diff.max()),
+                             "dtype": str(got.dtype)}
+            if name == "encode":
+                ok = _bf16_err(got, want) <= 4 * BF16_ULP
+            elif name == "classify_action":
+                ok = float(diff.max()) <= 4 * BF16_ULP * scale
+            else:
+                share = float((diff <= 8 * BF16_ULP * scale).float().mean())
+                m["share_within_8_ulps"] = share
+                ok = share >= 0.95
+            log(f"bf16 {name} B=2, card vs CPU: {json.dumps(m)}")
+            if not ok:
+                raise AssertionError(f"bf16 {name}: card and CPU disagree "
+                                     f"{m}")
+    finally:
+        inference._draws = real
+    b = {"image": x, "input_y": y, "action": a}
+    for mode in EXPECTED_TRAIN:
+        res = []
+        for model, dev in ((card_model, "cuda"), (host_model, "cpu")):
+            real_draws = tstate.Draws
+            tstate.Draws = lambda gen, device, dev=dev: _replay_draws(dev,
+                                                                      SEED)
+            try:
+                metrics = make_train_step(mode)(
+                    state(copy.deepcopy(model)),
+                    {k: v.to(dev) for k, v in b.items()})
+            finally:
+                tstate.Draws = real_draws
+            res.append({k: float(v) for k, v in metrics.items()
+                        if torch.is_tensor(v) and v.dim() == 0})
+        got, want = res
+        errs = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                for k in ("loss", "Reconstruction_Loss", "CT_Loss")}
+        out[f"step_{mode}"] = {"card": got["loss"], "cpu": want["loss"],
+                               "rel": errs}
+        log(f"bf16 first step {mode} B=2, card vs CPU: loss {got['loss']:.6g}"
+            f" / {want['loss']:.6g}, relative differences {json.dumps(errs)}")
+        if max(errs.values()) > 5 * BF16_ULP:
+            raise AssertionError(f"bf16 step {mode}: card and CPU disagree "
+                                 f"{errs}")
+    return out
+
+
+def _bf16_in_turns(states, steps, batch, fns, args) -> dict:
+    """Float32 against bfloat16, in turns (BF16_ROUNDS rounds): ms per
+    eager train step of each mode (SCAN_K steps a round) and per request
+    of each entry point (4 a round), each state stepping on its own."""
+    out = {}
+    order = ("float32", "bfloat16")
+    for mode, step in steps.items():
+        secs = {d: [] for d in order}
+        for r in range(BF16_ROUNDS):
+            for d in (order if r % 2 == 0 else order[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(SCAN_K):
+                    step(states[d], batch)
+                torch.cuda.synchronize()
+                secs[d].append(1e3 * (time.perf_counter() - t0) / SCAN_K)
+        out[f"step_{mode}"] = {d: statistics.median(s)
+                               for d, s in secs.items()}
+        log(f"bf16 vs f32 train {mode} B={BATCH}: ms per step (medians of "
+            f"{BF16_ROUNDS} rounds of {SCAN_K} in turns) "
+            f"{json.dumps(out[f'step_{mode}'])}; rounds {json.dumps(secs)}")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    for name in fns["float32"]:
+        secs = {d: [] for d in order}
+        for r in range(BF16_ROUNDS + 1):
+            for d in (order if r % 2 == 0 else order[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(4):
+                    fns[d][name](*args[name], generator=gen)
+                torch.cuda.synchronize()
+                secs[d].append(1e3 * (time.perf_counter() - t0) / 4)
+        out[f"serve_{name}"] = {d: statistics.median(s[1:])
+                                for d, s in secs.items()}
+        log(f"bf16 vs f32 serve {name} B={BATCH}: ms per request (medians "
+            f"of {BF16_ROUNDS} rounds after a warm-up one, in turns) "
+            f"{json.dumps(out[f'serve_{name}'])}")
+    return out
+
+
+def phase_bf16(smi: str) -> tuple:
+    """The headline config at ``dtype: bfloat16`` (B = 16, A*B = 192),
+    MCQVAE and VanillaVAE from their YAML at bfloat16. The path "bf16"
+    (the counters set to 0 just before and read just after): BF16_REQUESTS
+    requests of each entry point at B = 16, 2 x SCAN_K eager train steps
+    per mode, two ``make_multi_train_step(mode, SCAN_K)`` calls per mode
+    from an equal state on the same batches (the graph's launches counted
+    at capture, times its replays) and the zoo's steps (``_bf16_zoo``).
+    Then: graph against eager steps, every parameter and Adam moment bit
+    for bit (cuDNN deterministic); every kernel call of a base, an action
+    and a causal step held against its plain version at bfloat16
+    (``_bf16_kernels_on_step``; timed on the causal step's and the action
+    step's inputs); the card against the CPU (``_bf16_vs_cpu``); float32
+    against bfloat16 step and request ms, in turns (``_bf16_in_turns``).
+    Returns (the path's launches, the kernels' rows, the numbers)."""
+    from ctvae_torch.serving.inference import make_inference_fn
+    from ctvae_torch.training import make_multi_train_step, make_train_step
+    start = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = _bf16_states(MODEL_PARAMS, BATCH,
+                              dtypes=("float32", "bfloat16"))
+        graph = _bf16_states(MODEL_PARAMS, BATCH)["bfloat16"]
+        model = states["bfloat16"].model
+        kinds = {str(p.dtype) for p in model.ct_layer.parameters()}
+        if model.ct_layer.disc_w1l.dtype != torch.bfloat16 or \
+                model.encoder.Conv_0.weight.dtype != torch.float32:
+            raise AssertionError(f"bf16: parameter dtypes {kinds}")
+        fns = {d: {n: make_inference_fn(s.model, n) for n in
+                   ("reconstruct", "encode", "apply_action",
+                    "classify_action")} for d, s in states.items()}
+        gen = torch.Generator().manual_seed(SEED + 11)
+        x, y, a = _requests(gen, BATCH, "cuda")
+        args = {"reconstruct": (x,), "encode": (x,),
+                "apply_action": (x, y, a), "classify_action": (x, y)}
+        xs = [_requests(gen, BATCH, "cuda") for _ in range(2 * SCAN_K)]
+        stacked = {k: torch.stack([r[i] for r in xs])
+                   for i, k in enumerate(("image", "input_y", "action"))}
+        steps = {m: make_train_step(m) for m in EXPECTED_TRAIN}
+        multis = {m: make_multi_train_step(m, SCAN_K) for m in EXPECTED_TRAIN}
+        dgen = torch.Generator("cuda").manual_seed(SEED)
+        _reset_counts()
+        for name, fn in fns["bfloat16"].items():
+            for _ in range(BF16_REQUESTS):
+                out = fn(*args[name], generator=dgen)
+            if name != "encode":
+                _check_served(name, out.float(), BATCH)
+            elif out.dtype != torch.bfloat16:
+                raise AssertionError(f"bf16 encode: {out.dtype}")
+        eager = states["bfloat16"]
+        for mode, step in steps.items():
+            for i in range(2 * SCAN_K):
+                c0 = _counts()
+                metrics = step(eager, {k: v[i] for k, v in stacked.items()})
+                c1 = _counts()
+                got = {k: c1[k] - c0[k] for k in c1}
+                if got != EXPECTED_TRAIN[mode] or \
+                        not math.isfinite(float(metrics["loss"])):
+                    raise AssertionError(f"bf16 {mode}: launches {got}, loss "
+                                         f"{float(metrics['loss'])}")
+            for half in (slice(0, SCAN_K), slice(SCAN_K, 2 * SCAN_K)):
+                multis[mode](graph, {k: v[half] for k, v in stacked.items()})
+        c = _counts()
+        launches = {k: c[k] for k in c}
+        for mode, multi in multis.items():
+            # the graph's launches: counted at capture, times its replays
+            for k, n in multi.replayed_launches().items():
+                launches[k] += n
+        zoo = _bf16_zoo(launches)
+        launches_read = dict(launches)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - start
+        log(f"launches on the bf16 path: {json.dumps(launches_read)}")
+        a_, b_ = _scan_tensors(eager), _scan_tensors(graph)
+        differ = sorted(n for n in a_ if not torch.equal(a_[n], b_[n]))
+        kinds = {str(v.dtype) for v in a_.values()}
+        log(f"bf16 scan: {len(a_)} parameters and Adam moments after "
+            f"{2 * SCAN_K} steps a mode, eager vs graph: {len(differ)} "
+            f"differ; dtypes {sorted(kinds)}; steps {eager.step} / "
+            f"{graph.step}")
+        if differ or eager.step != graph.step or not torch.equal(
+                eager.generator.get_state(), graph.generator.get_state()):
+            raise AssertionError(f"bf16 scan: graph and eager differ {differ}")
+        rows = {}
+        for mode, step in steps.items():
+            rows[mode] = _bf16_kernels_on_step(
+                f"{mode} step", lambda: step(eager, {
+                    k: v[0] for k, v in stacked.items()}),
+                timed=mode in ("action", "causal"))
+        numbers = {"zoo": zoo, "vs_cpu": _bf16_vs_cpu(smi),
+                   "in_turns": _bf16_in_turns(states, steps, {
+                       k: v[0] for k, v in stacked.items()}, fns, args),
+                   "path_s": path_s}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    numbers["wall_s"] = time.perf_counter() - start
+    log(f"bf16: phase {numbers['wall_s']:.1f} s (path {path_s:.1f} s)")
+    return launches_read, rows, numbers
+
+
+def _bf16_summary(rows: dict, name: str) -> dict:
+    """The kernels line's ``bf16`` entry of a kernel: its calls on the
+    causal step (the row's numbers: ms, plain ms, bound on the largest
+    call) and on the action step, and every mode's worst error."""
+    calls = rows["causal"][name]
+    if name == "vq_l2_argmin":
+        return {"calls": {m: r[name] for m, r in rows.items()}}
+    big = max(calls, key=lambda r: r["ms"])
+    return {"ms": big["ms"], "f32_ms": big["f32_ms"],
+            "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+            "library_ms": None, "shape": big["shape"],
+            "max_error": max(max(r["errors"]) for m in rows
+                             for r in rows[m][name]),
+            "on_causal_step": calls, "on_action_step": rows["action"][name]}
+
+
 # keys of a check's row that the kernels line carries beside the contract's
 EXTRA_KEYS = ("ms_at_16", "bound_ms_at_16", "plain_ms_at_16", "alpha_ms",
               "occupancy", "by_d")
@@ -6149,6 +6661,10 @@ def main(argv) -> int:
         "--ddp-only", action="store_true",
         help="only build the kernels and run the phase \"ddp\" "
              "(phase_ddp)")
+    parser.add_argument(
+        "--bf16-only", action="store_true",
+        help="only build the kernels and run the phase \"bf16\" "
+             "(phase_bf16)")
     parser.add_argument(
         "--metrics-only", action="store_true",
         help="only build the kernels and run the phase \"metrics\" "
@@ -6221,6 +6737,12 @@ def main(argv) -> int:
         log(json.dumps({"ddp_launches": launches,
                         "fsdp_launches": fsdp_launches, "ddp": numbers}))
         return 0
+    if opts.bf16_only:
+        launches, bf16_rows, numbers = phase_bf16(smi)
+        log(json.dumps({"bf16_launches": launches, "bf16": numbers,
+                        "kernels": {k: _bf16_summary(bf16_rows, k)
+                                    for k in KERNEL_META}}))
+        return 0
     if opts.metrics_only:
         launches, seconds = phase_metrics(smi)
         log(json.dumps({"metrics_launches": launches,
@@ -6258,6 +6780,7 @@ def main(argv) -> int:
             phase_gaussian(smi, tmp)
     export_launches, export_numbers = phase_export(smi)
     ddp_launches, fsdp_launches, ddp_numbers = phase_ddp(smi)
+    bf16_launches, bf16_rows, bf16_numbers = phase_bf16(smi)
     kernels = []
     for r in rows:
         source, replaces = KERNEL_META[r["name"]]
@@ -6277,7 +6800,8 @@ def main(argv) -> int:
                    "tceleba": tceleba_launches[r["name"]],
                    "export": export_launches[r["name"]],
                    "ddp": ddp_launches[r["name"]],
-                   "fsdp": fsdp_launches[r["name"]]}
+                   "fsdp": fsdp_launches[r["name"]],
+                   "bf16": bf16_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -6297,6 +6821,9 @@ def main(argv) -> int:
         if r["name"] == "vq_l2_argmin":     # VQVAE's K = 512 calls
             kernels[-1]["gaussian_vq"] = gauss_vq_rows
             kernels[-1]["celeba_vq"] = celeba_vq_rows
+        # the bfloat16 instantiation's numbers (the VQ search runs in
+        # float32 on the upcast latents there)
+        kernels[-1]["bf16"] = _bf16_summary(bf16_rows, r["name"])
     # every kernel runs on the training, codebooks: 2, two-stage, scan,
     # shapes3d CT, metrics, search and TCeleba CT paths, the forward ones
     # on the serving and export paths too, the VQ search alone on the
@@ -6309,7 +6836,7 @@ def main(argv) -> int:
             k["launches_by_path"][p] == 0 for k in kernels
            for p in ("train", "codebooks_2", "two_stage", "scan",
                      "shapes3d_ct", "metrics", "search", "tceleba",
-                     "ddp", "fsdp")) or any(
+                     "ddp", "fsdp", "bf16")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
             if EXPECTED["reconstruct"][k["name"]]) or any(
             (k["launches_by_path"]["shapes3d_mcq"] == 0)
@@ -6322,7 +6849,7 @@ def main(argv) -> int:
                     "scan_ms": scan_ms, "metric_seconds": metric_seconds,
                     "search": search_numbers, "gaussian": gauss_numbers,
                     "celeba": celeba_numbers, "export": export_numbers,
-                    "ddp": ddp_numbers}))
+                    "ddp": ddp_numbers, "bf16": bf16_numbers}))
     log(f"chip_smoke wall time {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,17 @@ batch mode and the serving entry points.
 
     python -m ctvae_torch.bench [--config configs/ct_mcq_vae.yaml]
         [--blocks 5] [--block-steps 10] [--seed 0] [--device cpu]
+        [--dtype float32|bfloat16]
 
 The counterpart of the CT section of the JAX package's ``bench.py``
 (``bench_ct_step`` and the ``*_scan8`` tier) and of its inference tier.
-The model is the config's ``model_params`` (full width and depth) in
-float32, trained with Adam at 5e-4 over every parameter and no schedule;
-the JAX bench passes ``M_N = 0.00025``, which the CT-MCQ-VAE's loss does
-not read. Images, ``input_y`` and one-hot actions are drawn from
-``--seed`` on the device; no dataset is read.
+The model is the config's ``model_params`` (full width and depth) at
+``--dtype`` (float32 by default; ``bfloat16`` is the JAX bench's dtype in
+every tier, its kernels the bfloat16 instantiations), trained with Adam
+at 5e-4 over every parameter and no schedule; the JAX bench passes
+``M_N = 0.00025``, which the CT-MCQ-VAE's loss does not read. Images,
+``input_y`` and one-hot actions are drawn from ``--seed`` on the device;
+no dataset is read.
 
 Per train mode (base and action at ``BATCH`` = 128, causal at
 ``CAUSAL_BATCH`` = 16, so A*B = 192 in its virtual batch; the JAX
@@ -30,9 +33,12 @@ bench's batches):
   after two warm-up calls, in blocks of ``--block-steps`` / 8 calls (at
   least one);
 * ``ct_<mode>_step_mfu``: ``step_flops`` over ``ct_<mode>_ms_per_step``
-  over the card's float32 peak: SMs x 128 lanes x 2 x its maximum SM
-  clock, read on the card (``nvidia-smi --query-gpu=clocks.max.sm``).
-  TF32 is off, so every product runs on those lanes.
+  over the card's peak for ``--dtype``: at float32 SMs x 128 lanes x 2 x
+  its maximum SM clock, read on the card (``nvidia-smi
+  --query-gpu=clocks.max.sm``; TF32 is off, so every float32 product runs
+  on those lanes); at bfloat16 the dense tensor-core rate, SMs x 2,048
+  FMAs x 2 x the same clock (``bf16_peak``), printed beside the float32
+  one.
 
 Per serving entry point (``reconstruct``, ``encode``, ``apply_action``,
 ``classify_action``) at ``SERVE_BATCH`` = 16, ``serve_<entry>_ms``: ms
@@ -197,6 +203,21 @@ def f32_peak() -> float:
     return peak
 
 
+def bf16_peak() -> float:
+    """The card's dense bfloat16 tensor-core FLOP/s: SMs x 2,048 FMAs per
+    clock (four tensor cores of 512 dense bf16 FMAs each) x 2 x the maximum
+    SM clock that ``nvidia-smi`` reads. NVIDIA's Hopper whitepaper (table
+    "NVIDIA H100 compared to A100") gives 989.4 TFLOP/s dense bf16 for the
+    SXM5 part: 132 SMs x 1,830 MHz x 4,096 FLOPs; A100's 312 TFLOP/s is
+    half that per SM and clock (108 x 1,410 MHz x 2,048)."""
+    mhz = float(_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    peak = sms * 2048 * 2 * mhz * 1e6
+    print(f"bf16 peak: {sms} SMs x 2048 x 2 x {mhz:.0f} MHz = "
+          f"{peak / 1e12:.3f} TFLOP/s", flush=True)
+    return peak
+
+
 # --- timing ----------------------------------------------------------------
 
 class Timer:
@@ -337,7 +358,7 @@ def run(args) -> Dict:
     device = resolve_device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device available")
-    p = read_section(args.config, "model_params")
+    p = dict(read_section(args.config, "model_params"), dtype=args.dtype)
     if p.get("name") != "CTMCQVAE":
         raise ValueError(f"{args.config}: the bench times a CTMCQVAE, got "
                          f"{p.get('name')!r}")
@@ -350,9 +371,11 @@ def run(args) -> Dict:
         print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
               f"TF32 off", flush=True)
         peak = f32_peak()
+        if args.dtype == "bfloat16":
+            peak = bf16_peak()
     result = {"device": (torch.cuda.get_device_name(0)
                          if device.type == "cuda" else "cpu"),
-              "config": args.config, "dtype": "float32"}
+              "config": args.config, "dtype": args.dtype}
     batches = {"base": BATCH, "action": BATCH, "causal": CAUSAL_BATCH}
     for mode in MODES:
         B = batches[mode]
@@ -386,6 +409,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="timed blocks per tier (the median is kept)")
     parser.add_argument("--block-steps", type=int, default=10,
                         help="steps (requests) per timed block")
+    parser.add_argument("--dtype", default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="the model's compute dtype")
     args = parser.parse_args(argv)
     t0 = time.perf_counter()
     result = run(args)

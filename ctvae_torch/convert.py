@@ -24,6 +24,10 @@ names onto the model's buffers, BatchNorm's ``batch_stats`` (``mean``,
 ``frozen`` collection onto its buffers: ``conv<i>_kernel`` HWIO ->
 ``conv<i>_weight`` OIHW, the conv biases and BatchNorm's ``scale``,
 ``bias``, ``mean`` and ``var`` by their names.
+
+Each leaf keeps its dtype: a model built with ``dtype: bfloat16`` holds
+the CT layer's own parameters in bfloat16 as JAX does, and a leaf whose
+dtype is not the port's parameter's is refused.
 """
 
 from __future__ import annotations
@@ -76,6 +80,25 @@ def _convert_leaf(path: tuple, a: np.ndarray, modules: Dict[str, nn.Module]):
                    f"ConvTranspose2d or Linear of the port ({name})")
 
 
+#: numpy's name of a JAX leaf's float dtype -> torch's
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float64": torch.float64}
+
+
+def _to_torch(name: str, a: np.ndarray, t: torch.Tensor) -> torch.Tensor:
+    """Leaf ``a`` as a tensor like the port's ``t``; raises where the two
+    dtypes differ. numpy has no bfloat16 of its own (a JAX bfloat16 leaf
+    is an ``ml_dtypes`` array, which ``torch.tensor`` does not take), so
+    it goes through float32, which holds every bfloat16 value exactly."""
+    want = _DTYPES.get(a.dtype.name)
+    if want is not None and want != t.dtype:
+        raise ValueError(f"{name}: JAX leaf is {a.dtype.name}, the port's "
+                         f"is {t.dtype}")
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return torch.tensor(np.ascontiguousarray(a), device=t.device).to(t.dtype)
+
+
 def from_jax_params(params: Mapping, model: nn.Module
                     ) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of ``model`` filled from flax ``params`` (the
@@ -84,8 +107,8 @@ def from_jax_params(params: Mapping, model: nn.Module
     for a frozen VGG its ``frozen``).
 
     Raises if a leaf maps to no parameter or buffer of the model, if a
-    shape disagrees, or if a parameter of the model is left unfilled (and,
-    given a variables dict, a buffer of its state)."""
+    shape or a float dtype disagrees, or if a parameter of the model is
+    left unfilled (and, given a variables dict, a buffer of its state)."""
     leaves, targets = {}, dict(model.named_parameters())
     if "params" in params and isinstance(params["params"], Mapping):
         buffers = {k: v for k, v in model.state_dict().items()
@@ -107,8 +130,7 @@ def from_jax_params(params: Mapping, model: nn.Module
             raise ValueError(f"{name}: JAX shape {arr.shape} converts to "
                              f"{tuple(arr.shape)}, port has "
                              f"{tuple(t.shape)}")
-        state[name] = torch.tensor(np.ascontiguousarray(arr), dtype=t.dtype,
-                                   device=t.device)
+        state[name] = _to_torch(name, arr, t)
     missing = sorted(set(targets) - set(state))
     if missing:
         raise KeyError(f"port params or buffers left unfilled: {missing}")

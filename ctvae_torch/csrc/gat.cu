@@ -80,9 +80,22 @@
 // Non-edges (alpha = 0) are skipped; an edgeless target contributes
 // nothing.
 
+// Element types (elem.cuh). Each entry point has a float32 and a bfloat16
+// instantiation (gat_fwd_bf16, gat_bwd_bf16), as JAX's kernels load the
+// compute dtype and upcast at once: at bfloat16 xl, xr, adj, we, att and
+// dout are read as bfloat16 and out, dxl and dxr written as bfloat16
+// (rounded once), while alpha, dadj_h, dwe_h and datt_h stay float32 (the
+// residual JAX keeps in float32, and the sums the caller adds over heads
+// or samples and casts once). Registers and the shared tiles are float in
+// both instantiations, so each layout's shared memory and blocks per SM
+// are float32's; the forward stages bfloat16 rows through registers where
+// float32 takes cp.async.
+
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -122,46 +135,33 @@ static_assert(kSrc == 8, "the transposing butterfly reduces 8 sums");
 // the allocation unit of 8
 constexpr int kBwdWarps = 13;
 
-// a 16-byte copy from device to shared memory that holds no register
-// (cp.async); wait_all waits for the thread's copies
-__device__ __forceinline__ void copy16_async(float* dst, const float* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-#endif
-}
-
-__device__ __forceinline__ void copy_async_wait_all() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_all;\n" ::);
-#endif
-}
-
-// n rows of F floats (row r at src + r * ld) into dst rows of stride Fq
-// (F rounded up to 4, the tail zero): 16-byte copies when they are
-// aligned, else one float at a time
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+// n rows of F elements (row r at src + r * ld) into dst rows of stride
+// Fq floats (F rounded up to 4, the tail zero): 4 elements a copy when
+// they are aligned (copy4_to_smem), else one at a time
+template <typename E>
+__device__ __forceinline__ void stage_rows(float* dst, const E* src,
                                            size_t ld, int n, int F, int Fq,
                                            bool vec) {
   if (vec) {
     const int q = F / 4;
     for (int i = threadIdx.x; i < n * q; i += blockDim.x) {
       const int r = i / q, c = i % q;
-      copy16_async(dst + (size_t)r * Fq + 4 * c, src + r * ld + 4 * c);
+      copy4_to_smem(dst + (size_t)r * Fq + 4 * c, src + r * ld + 4 * c);
     }
   } else {
     for (int i = threadIdx.x; i < n * Fq; i += blockDim.x) {
       const int r = i / Fq, f = i % Fq;
-      dst[i] = f < F ? src[r * ld + f] : 0.f;
+      dst[i] = f < F ? ldf(src[r * ld + f]) : 0.f;
     }
   }
 }
 
-__global__ void gat_fwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
-               const float* __restrict__ adj, const uint8_t* __restrict__ mask,
-               const float* __restrict__ we, const float* __restrict__ att,
-               float* __restrict__ out, float* __restrict__ alpha, int S,
+// E: the element type of xl, xr, adj, we, att and out; alpha is float32
+template <typename E>
+__global__ void gat_fwd_kernel(const E* __restrict__ xl, const E* __restrict__ xr,
+               const E* __restrict__ adj, const uint8_t* __restrict__ mask,
+               const E* __restrict__ we, const E* __restrict__ att,
+               E* __restrict__ out, float* __restrict__ alpha, int S,
                int T, int H, int F, float ns) {
   extern __shared__ float smem[];
   const int nwarps = blockDim.x / 32;
@@ -177,16 +177,14 @@ __global__ void gat_fwd_kernel(const float* __restrict__ xl, const float* __rest
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int HF = H * F;
-  const bool vec = (F & 3) == 0 &&
-                   ((reinterpret_cast<uintptr_t>(xl) |
-                     reinterpret_cast<uintptr_t>(xr)) & 15) == 0;
+  const bool vec = (F & 3) == 0 && vec4_aligned(xl) && vec4_aligned(xr);
   stage_rows(xl_s, xl + (size_t)b * S * HF + (size_t)h * F, HF, S, F, Fq,
              vec);
   stage_rows(xr_s, xr + (size_t)b * T * HF + (size_t)h * F, HF, T, F, Fq,
              vec);
   // adj[b] and mask[b] read once, in order (4 loads in flight a thread),
   // and stored transposed: a target's column becomes a row
-  const float* adj_b = adj + (size_t)b * S * T;
+  const E* adj_b = adj + (size_t)b * S * T;
   const uint8_t* mask_b = mask + (size_t)b * S * T;
   for (int i0 = threadIdx.x; i0 < S * T; i0 += 4 * blockDim.x) {
     float a[4];
@@ -194,7 +192,7 @@ __global__ void gat_fwd_kernel(const float* __restrict__ xl, const float* __rest
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int i = i0 + u * blockDim.x;
-      a[u] = i < S * T ? adj_b[i] : 0.f;
+      a[u] = i < S * T ? ldf(adj_b[i]) : 0.f;
       m[u] = i < S * T ? mask_b[i] : 0;
     }
 #pragma unroll
@@ -219,8 +217,8 @@ __global__ void gat_fwd_kernel(const float* __restrict__ xl, const float* __rest
 #pragma unroll
   for (int j = 0; j < kMaxF / 32; ++j) {
     const int f = lane + 32 * j;
-    wev[j] = f < F ? we[h * F + f] : 0.f;
-    attv[j] = f < F ? att[h * F + f] : 0.f;
+    wev[j] = f < F ? ldf(we[h * F + f]) : 0.f;
+    attv[j] = f < F ? ldf(att[h * F + f]) : 0.f;
   }
 
   for (int t = warp; t < T; t += nwarps) {
@@ -332,10 +330,10 @@ __global__ void gat_fwd_kernel(const float* __restrict__ xl, const float* __rest
         acc[2] = fmaf(w, x.z, acc[2]);
         acc[3] = fmaf(w, x.w, acc[3]);
       }
-      float* o = out + ((size_t)b * T + t) * HF + h * F;
+      E* o = out + ((size_t)b * T + t) * HF + h * F;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        if (4 * lane + i < F) o[4 * lane + i] = acc[i] * inv;
+        if (4 * lane + i < F) o[4 * lane + i] = stf<E>(acc[i] * inv);
     }
     __syncwarp();
   }
@@ -344,14 +342,16 @@ __global__ void gat_fwd_kernel(const float* __restrict__ xl, const float* __rest
 // kKeepDout: dout stays in shared memory through phase 2 (the headline
 // layout); else the scratch rows reuse its tile after the dalpha product,
 // a block then fills an SM's shared memory alone, and launch bounds of one
-// block per SM leave it the registers it needs without spilling
-template <bool kKeepDout>
+// block per SM leave it the registers it needs without spilling. E: the
+// element type of xl, xr, adj, we, att, dout, dxl and dxr; alpha, dadj_h,
+// dwe_h and datt_h are float32
+template <bool kKeepDout, typename E>
 __global__ void __launch_bounds__(kBwdWarps * 32, kKeepDout ? 2 : 1)
-gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
-               const float* __restrict__ adj, const uint8_t* __restrict__ mask,
-               const float* __restrict__ we, const float* __restrict__ att,
-               const float* __restrict__ alpha, const float* __restrict__ dout,
-               float* __restrict__ dxl, float* __restrict__ dxr,
+gat_bwd_kernel(const E* __restrict__ xl, const E* __restrict__ xr,
+               const E* __restrict__ adj, const uint8_t* __restrict__ mask,
+               const E* __restrict__ we, const E* __restrict__ att,
+               const float* __restrict__ alpha, const E* __restrict__ dout,
+               E* __restrict__ dxl, E* __restrict__ dxr,
                float* __restrict__ dadj_h, float* __restrict__ dwe_h,
                float* __restrict__ datt_h, int S, int T, int H, int F,
                float ns) {
@@ -374,13 +374,13 @@ gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
   const int HF = H * F;
   for (int i = threadIdx.x; i < S * F; i += blockDim.x) {
     const int s = i / F, f = i % F;
-    xl_s[s * Fp + f] = xl[((size_t)b * S + s) * HF + h * F + f];
+    xl_s[s * Fp + f] = ldf(xl[((size_t)b * S + s) * HF + h * F + f]);
   }
   for (int i = threadIdx.x; i < T * F; i += blockDim.x) {
     const int t = i / F, f = i % F;
     const size_t o = ((size_t)b * T + t) * HF + h * F + f;
-    xr_s[t * Fp + f] = xr[o];
-    do_s[t * Fp + f] = dout[o];
+    xr_s[t * Fp + f] = ldf(xr[o]);
+    do_s[t * Fp + f] = ldf(dout[o]);
   }
   __syncthreads();
 
@@ -441,8 +441,8 @@ gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
 #pragma unroll
   for (int j = 0; j < kMaxF / 32; ++j) {
     const int f = lane + 32 * j;
-    wev[j] = f < F ? we[h * F + f] : 0.f;
-    awv[j] = f < F ? att[h * F + f] * wev[j] : 0.f;
+    wev[j] = f < F ? ldf(we[h * F + f]) : 0.f;
+    awv[j] = f < F ? ldf(att[h * F + f]) * wev[j] : 0.f;
     gw[j] = 0.f;
     ga[j] = 0.f;
   }
@@ -461,7 +461,7 @@ gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
       if (s < S) {
         const size_t o = ((size_t)b * S + s) * T + t;
         live = mask[o] != 0;
-        arow[s] = adj[o];
+        arow[s] = ldf(adj[o]);
         vrow[s] = 0.f;
         sc = fmaf(al[s], det[s], sc);
       }
@@ -540,7 +540,8 @@ gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
     for (int j = 0; j < kMaxF / 32; ++j) {
       const int f = lane + 32 * j;
       if (f < F)
-        dxr[((size_t)b * T + t) * HF + h * F + f] = att[h * F + f] * gr[j];
+        dxr[((size_t)b * T + t) * HF + h * F + f] =
+            stf<E>(ldf(att[h * F + f]) * gr[j]);
     }
     float* dq = dadj_h + (((size_t)b * H + h) * T + t) * S;
     for (int s = lane; s < S; s += 32) dq[s] = vrow[s];
@@ -567,7 +568,7 @@ gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
       a += red[((size_t)nwarps + i) * F + f];
     }
     const size_t o = ((size_t)b * H + h) * F + f;
-    dwe_h[o] = att[h * F + f] * w;
+    dwe_h[o] = ldf(att[h * F + f]) * w;
     datt_h[o] = a;
   }
   __syncthreads();
@@ -577,7 +578,7 @@ gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
     for (int t = lane; t < T; t += 32) {
       const size_t o = ((size_t)b * S + s) * T + t;
       mrow[t] = mask[o] ? 1.f : 0.f;
-      arow[t] = adj[o];
+      arow[t] = ldf(adj[o]);
       vrow[t] = alpha[(((size_t)b * H + h) * T + t) * S + s];
     }
     __syncwarp();
@@ -593,15 +594,16 @@ gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
       if (mrow[t] == 0.f) continue;  // warp-uniform
       const float d = de_s[(size_t)t * S + s], a = arow[t], al = vrow[t];
       const float* xt = xr_s + (size_t)t * Fp;
-      const float* dt = kKeepDout ? do_s + (size_t)t * Fp
-                                  : dout + ((size_t)b * T + t) * HF + h * F;
+      // dout[t] from its tile, or from device memory
+      const float* dts = do_s + (size_t)t * Fp;
+      const E* dtg = dout + ((size_t)b * T + t) * HF + h * F;
 #pragma unroll
       for (int j = 0; j < kMaxF / 32; ++j) {
         const int f = lane + 32 * j;
         if (f < F) {
           const float pre = pre_act(xlv[j], xt[f], a, wev[j]);
           g1[j] += pre >= 0.f ? d : ns * d;
-          g2[j] = fmaf(al, dt[f], g2[j]);
+          g2[j] = fmaf(al, kKeepDout ? dts[f] : ldf(dtg[f]), g2[j]);
         }
       }
     }
@@ -610,7 +612,7 @@ gat_bwd_kernel(const float* __restrict__ xl, const float* __restrict__ xr,
       const int f = lane + 32 * j;
       if (f < F)
         dxl[((size_t)b * S + s) * HF + h * F + f] =
-            fmaf(att[h * F + f], g1[j], g2[j]);
+            stf<E>(fmaf(ldf(att[h * F + f]), g1[j], g2[j]));
     }
     __syncwarp();
   }
@@ -624,20 +626,40 @@ extern "C" size_t gat_fwd_smem_bytes(int S, int T, int F, int nwarps) {
          T * Sp;
 }
 
+template <typename E>
+static int launch_fwd(const E* xl, const E* xr, const E* adj,
+                      const uint8_t* mask, const E* we, const E* att, E* out,
+                      float* alpha, int B, int S, int T, int H, int F,
+                      int nwarps, float ns, void* stream) {
+  if (F > kMaxF || nwarps < 1 || nwarps > 32) return (int)cudaErrorInvalidValue;
+  size_t smem = gat_fwd_smem_bytes(S, T, F, nwarps);
+  cudaError_t err = cudaFuncSetAttribute(
+      gat_fwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (B > 0 && H > 0 && T > 0) {
+    gat_fwd_kernel<E><<<B * H, nwarps * 32, smem, (cudaStream_t)stream>>>(
+        xl, xr, adj, mask, we, att, out, alpha, S, T, H, F, ns);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int gat_fwd(const float* xl, const float* xr, const float* adj,
                        const uint8_t* mask, const float* we, const float* att,
                        float* out, float* alpha, int B, int S, int T, int H,
                        int F, int nwarps, float ns, void* stream) {
-  if (F > kMaxF || nwarps < 1 || nwarps > 32) return (int)cudaErrorInvalidValue;
-  size_t smem = gat_fwd_smem_bytes(S, T, F, nwarps);
-  cudaError_t err = cudaFuncSetAttribute(
-      gat_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0 && H > 0 && T > 0) {
-    gat_fwd_kernel<<<B * H, nwarps * 32, smem, (cudaStream_t)stream>>>(
-        xl, xr, adj, mask, we, att, out, alpha, S, T, H, F, ns);
-  }
-  return (int)cudaGetLastError();
+  return launch_fwd(xl, xr, adj, mask, we, att, out, alpha, B, S, T, H, F,
+                    nwarps, ns, stream);
+}
+
+// the bfloat16 instantiation: bfloat16 inputs and out, float32 alpha
+extern "C" int gat_fwd_bf16(const bf16* xl, const bf16* xr, const bf16* adj,
+                            const uint8_t* mask, const bf16* we,
+                            const bf16* att, bf16* out, float* alpha, int B,
+                            int S, int T, int H, int F, int nwarps, float ns,
+                            void* stream) {
+  return launch_fwd(xl, xr, adj, mask, we, att, out, alpha, B, S, T, H, F,
+                    nwarps, ns, stream);
 }
 
 // resident blocks of gat_fwd_kernel per SM at these shapes, and the
@@ -646,15 +668,15 @@ extern "C" int gat_fwd_blocks_per_sm(int S, int T, int F, int nwarps,
                                      int* regs, int* local_bytes) {
   const size_t smem = gat_fwd_smem_bytes(S, T, F, nwarps);
   cudaFuncAttributes attr;
-  if (cudaFuncSetAttribute(gat_fwd_kernel,
+  if (cudaFuncSetAttribute(gat_fwd_kernel<float>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, gat_fwd_kernel) != cudaSuccess)
+      cudaFuncGetAttributes(&attr, gat_fwd_kernel<float>) != cudaSuccess)
     return -1;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gat_fwd_kernel,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gat_fwd_kernel<float>,
                                                     nwarps * 32, smem) !=
       cudaSuccess)
     return -1;
@@ -685,14 +707,15 @@ static bool bwd_keep_dout(int S, int T, int F, int nwarps) {
   return bwd_smem_bytes(S, T, F, nwarps, true) <= smem_limit();
 }
 
-typedef void (*BwdKernel)(const float*, const float*, const float*,
-                          const uint8_t*, const float*, const float*,
-                          const float*, const float*, float*, float*, float*,
-                          float*, float*, int, int, int, int, float);
+template <typename E>
+using BwdKernel = void (*)(const E*, const E*, const E*, const uint8_t*,
+                           const E*, const E*, const float*, const E*, E*, E*,
+                           float*, float*, float*, int, int, int, int, float);
 
-static BwdKernel bwd_kernel(int S, int T, int F, int nwarps) {
-  return bwd_keep_dout(S, T, F, nwarps) ? gat_bwd_kernel<true>
-                                        : gat_bwd_kernel<false>;
+template <typename E>
+static BwdKernel<E> bwd_kernel(int S, int T, int F, int nwarps) {
+  return bwd_keep_dout(S, T, F, nwarps) ? gat_bwd_kernel<true, E>
+                                        : gat_bwd_kernel<false, E>;
 }
 
 // the shared memory of the layout a launch at these shapes takes
@@ -700,16 +723,17 @@ extern "C" size_t gat_bwd_smem_bytes(int S, int T, int F, int nwarps) {
   return bwd_smem_bytes(S, T, F, nwarps, bwd_keep_dout(S, T, F, nwarps));
 }
 
-extern "C" int gat_bwd(const float* xl, const float* xr, const float* adj,
-                       const uint8_t* mask, const float* we, const float* att,
-                       const float* alpha, const float* dout, float* dxl,
-                       float* dxr, float* dadj_h, float* dwe_h, float* datt_h,
-                       int B, int S, int T, int H, int F, int nwarps, float ns,
-                       void* stream) {
+template <typename E>
+static int launch_bwd(const E* xl, const E* xr, const E* adj,
+                      const uint8_t* mask, const E* we, const E* att,
+                      const float* alpha, const E* dout, E* dxl, E* dxr,
+                      float* dadj_h, float* dwe_h, float* datt_h, int B,
+                      int S, int T, int H, int F, int nwarps, float ns,
+                      void* stream) {
   if (F > kMaxF || nwarps < 1 || nwarps > kBwdWarps)
     return (int)cudaErrorInvalidValue;
   const size_t smem = gat_bwd_smem_bytes(S, T, F, nwarps);
-  const BwdKernel kern = bwd_kernel(S, T, F, nwarps);
+  const BwdKernel<E> kern = bwd_kernel<E>(S, T, F, nwarps);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -721,12 +745,35 @@ extern "C" int gat_bwd(const float* xl, const float* xr, const float* adj,
   return (int)cudaGetLastError();
 }
 
+extern "C" int gat_bwd(const float* xl, const float* xr, const float* adj,
+                       const uint8_t* mask, const float* we, const float* att,
+                       const float* alpha, const float* dout, float* dxl,
+                       float* dxr, float* dadj_h, float* dwe_h, float* datt_h,
+                       int B, int S, int T, int H, int F, int nwarps, float ns,
+                       void* stream) {
+  return launch_bwd(xl, xr, adj, mask, we, att, alpha, dout, dxl, dxr, dadj_h,
+                    dwe_h, datt_h, B, S, T, H, F, nwarps, ns, stream);
+}
+
+// the bfloat16 instantiation: bfloat16 inputs, dout, dxl and dxr; float32
+// alpha and the per-head / per-sample sums dadj_h, dwe_h and datt_h
+extern "C" int gat_bwd_bf16(const bf16* xl, const bf16* xr, const bf16* adj,
+                            const uint8_t* mask, const bf16* we,
+                            const bf16* att, const float* alpha,
+                            const bf16* dout, bf16* dxl, bf16* dxr,
+                            float* dadj_h, float* dwe_h, float* datt_h, int B,
+                            int S, int T, int H, int F, int nwarps, float ns,
+                            void* stream) {
+  return launch_bwd(xl, xr, adj, mask, we, att, alpha, dout, dxl, dxr, dadj_h,
+                    dwe_h, datt_h, B, S, T, H, F, nwarps, ns, stream);
+}
+
 // resident blocks of gat_bwd_kernel per SM at these shapes, and the
 // kernel's registers and local (spill) bytes per thread
 extern "C" int gat_bwd_blocks_per_sm(int S, int T, int F, int nwarps,
                                      int* regs, int* local_bytes) {
   const size_t smem = gat_bwd_smem_bytes(S, T, F, nwarps);
-  const BwdKernel kern = bwd_kernel(S, T, F, nwarps);
+  const BwdKernel<float> kern = bwd_kernel<float>(S, T, F, nwarps);
   cudaFuncAttributes attr;
   if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||

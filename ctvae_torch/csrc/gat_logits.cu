@@ -60,8 +60,22 @@
 // two runs agree bit for bit. Launch bounds of 4 blocks of 8 warps per SM
 // hold a thread to 64 registers.
 
+// Element types (elem.cuh). Each entry point has a float32 and a bfloat16
+// instantiation (gat_logits_fwd_bf16, gat_logits_bwd_bf16): at bfloat16
+// xl, xr, adj, we, att and d_e are read as bfloat16 and the logits, dxl,
+// dxr and dadj written as bfloat16 (rounded once), while the dwe / datt
+// partials stay float32 (summed and cast once by the caller). JAX computes
+// this function as XLA math in the array dtype (every add and product
+// rounded to bfloat16); the kernels, like the port's plain version,
+// compute it in float32 from the bfloat16 values, as JAX's Pallas kernels
+// of rows 2-5 do. Shared tiles are float in both instantiations (the same
+// shared memory and blocks per SM); bfloat16 rows are staged through
+// registers where float32 takes cp.async.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -71,51 +85,23 @@ __host__ __device__ inline int ceil_div(int a, int b) {
   return (a + b - 1) / b;
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// a 16-byte copy from device to shared memory that holds no register
-// (cp.async); copy_async_wait_all waits for the thread's copies
-__device__ __forceinline__ void copy16_async(float* dst, const float* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-#endif
-}
-
-// a 4-byte copy from device to shared memory by cp.async (no register)
-__device__ __forceinline__ void copy4_async(float* dst, const float* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-#endif
-}
-
-__device__ __forceinline__ void copy_async_wait_all() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_all;\n" ::);
-#endif
-}
-
-// n rows of F floats (row r at src + r * ld) into dst rows of stride Fq
-// (F rounded up to 4 or more): 16-byte copies when they are aligned, else
-// one float at a time with the row's tail zero
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+// n rows of F elements (row r at src + r * ld) into dst rows of stride
+// Fq floats (F rounded up to 4 or more): 4 elements a copy when they are
+// aligned (copy4_to_smem), else one at a time with the row's tail zero
+template <typename E>
+__device__ __forceinline__ void stage_rows(float* dst, const E* src,
                                            size_t ld, int n, int F, int Fq,
                                            bool vec) {
   if (vec) {
     const int q = F / 4;
     for (int i = threadIdx.x; i < n * q; i += blockDim.x) {
       const int r = i / q, c = i % q;
-      copy16_async(dst + (size_t)r * Fq + 4 * c, src + r * ld + 4 * c);
+      copy4_to_smem(dst + (size_t)r * Fq + 4 * c, src + r * ld + 4 * c);
     }
   } else {
     for (int i = threadIdx.x; i < n * Fq; i += blockDim.x) {
       const int r = i / Fq, f = i % Fq;
-      dst[i] = f < F ? src[r * ld + f] : 0.f;
+      dst[i] = f < F ? ldf(src[r * ld + f]) : 0.f;
     }
   }
 }
@@ -163,12 +149,14 @@ __host__ __device__ inline size_t fwd_block_floats(int R, int T, int F) {
   return ((size_t)R + T + 2) * Fs + (size_t)R * T + R + T + 1;
 }
 
-__global__ void gat_logits_fwd_kernel(const float* __restrict__ xl,
-                                      const float* __restrict__ xr,
-                                      const float* __restrict__ adj,
-                                      const float* __restrict__ we,
-                                      const float* __restrict__ att,
-                                      float* __restrict__ out, int S, int T,
+// E: the element type of the inputs and the logits
+template <typename E>
+__global__ void gat_logits_fwd_kernel(const E* __restrict__ xl,
+                                      const E* __restrict__ xr,
+                                      const E* __restrict__ adj,
+                                      const E* __restrict__ we,
+                                      const E* __restrict__ att,
+                                      E* __restrict__ out, int S, int T,
                                       int K, int F, int wstride, int nstrip,
                                       float ns) {
   extern __shared__ float4 fwd_smem4[];
@@ -185,17 +173,18 @@ __global__ void gat_logits_fwd_kernel(const float* __restrict__ xl,
   float* lin_s = adj_s + (size_t)R * T;   // [R + T + 1]: L_s, R_t, W
 
   const int KF = K * F;
-  const bool vec = (F & 3) == 0 && aligned16(xl) && aligned16(xr) &&
-                   aligned16(we) && aligned16(att) && (wstride & 3) == 0;
-  const float* wb = we + (size_t)b * wstride + k * F;
-  const float* ab = att + (size_t)b * wstride + k * F;
+  const bool vec = (F & 3) == 0 && vec4_aligned(xl) && vec4_aligned(xr) &&
+                   vec4_aligned(we) && vec4_aligned(att) &&
+                   (wstride & 3) == 0;
+  const E* wb = we + (size_t)b * wstride + k * F;
+  const E* ab = att + (size_t)b * wstride + k * F;
   stage_rows(xl_s, xl + ((size_t)b * S + s0) * KF + k * F, KF, R, F, Fs, vec);
   stage_rows(xr_s, xr + (size_t)b * T * KF + k * F, KF, T, F, Fs, vec);
   stage_rows(we_s, wb, 0, 1, F, Fs, vec);
   stage_rows(at_s, ab, 0, 1, F, Fs, vec);
-  const float* adjb = adj + ((size_t)b * S + s0) * T;
+  const E* adjb = adj + ((size_t)b * S + s0) * T;
   for (int i = threadIdx.x; i < R * T; i += blockDim.x)
-    copy4_async(adj_s + i, adjb + i);
+    copy1_to_smem(adj_s + i, adjb + i);
   copy_async_wait_all();
   __syncthreads();
 
@@ -270,7 +259,7 @@ __global__ void gat_logits_fwd_kernel(const float* __restrict__ xl,
       if (t >= T) continue;
       const float l = fmaf(a[i][j], W, lin_s[s] + lin_s[R + t]);
       out[(((size_t)b * S + s0 + s) * T + t) * K + k] =
-          fmaf(lin_w, l, abs_w * acc[i][j]);
+          stf<E>(fmaf(lin_w, l, abs_w * acc[i][j]));
     }
   }
 }
@@ -335,13 +324,15 @@ __host__ __device__ inline size_t bwd_block_floats(int R, int N, int F) {
 // One block of the backward: the own rows [r0, r0 + R) of sample b, sources
 // (ROW: dxl, dadj, the dwe partial and the datt part sum_s xl GL + we GW)
 // or targets (!ROW: dxr and the datt part sum_t xr GR), head by head.
-template <bool ROW, int L>
+// E: the element type of the inputs, d_e, dxl, dxr and dadj; the
+// partials pb are float32
+template <bool ROW, int L, typename E>
 __device__ __forceinline__ void bwd_block(
-    float* smem, const float* __restrict__ xl, const float* __restrict__ xr,
-    const float* __restrict__ adj, const float* __restrict__ we,
-    const float* __restrict__ att, const float* __restrict__ de,
-    float* __restrict__ dxl, float* __restrict__ dxr,
-    float* __restrict__ dadj, float* __restrict__ pb, int b, int r0, int R,
+    float* smem, const E* __restrict__ xl, const E* __restrict__ xr,
+    const E* __restrict__ adj, const E* __restrict__ we,
+    const E* __restrict__ att, const E* __restrict__ de,
+    E* __restrict__ dxl, E* __restrict__ dxr,
+    E* __restrict__ dadj, float* __restrict__ pb, int b, int r0, int R,
     int S, int T, int K, int F, int wstride, float ns) {
   const int N = ROW ? T : S;  // the other side
   const int nown = ROW ? S : T;
@@ -355,21 +346,21 @@ __device__ __forceinline__ void bwd_block(
   float* red_s = q_s + (size_t)R * Np;  // [2, kBwdWarps * 32 / L, F]
 
   const int KF = K * F;
-  const float* xown = (ROW ? xl : xr) + ((size_t)b * nown + r0) * KF;
-  const float* xoth = (ROW ? xr : xl) + (size_t)b * N * KF;
-  float* gown = (ROW ? dxl : dxr) + ((size_t)b * nown + r0) * KF;
-  const float* adjb = adj + (size_t)b * S * T;
-  const float* deb = de + (size_t)b * S * T * K;
-  const bool vec = (F & 3) == 0 && aligned16(xl) && aligned16(xr);
+  const E* xown = (ROW ? xl : xr) + ((size_t)b * nown + r0) * KF;
+  const E* xoth = (ROW ? xr : xl) + (size_t)b * N * KF;
+  E* gown = (ROW ? dxl : dxr) + ((size_t)b * nown + r0) * KF;
+  const E* adjb = adj + (size_t)b * S * T;
+  const E* deb = de + (size_t)b * S * T * K;
+  const bool vec = (F & 3) == 0 && vec4_aligned(xl) && vec4_aligned(xr);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   int4* lst = lst_s + warp * N;
 
-  // adj of the own rows by 4-byte cp.async, in order (a row block's rows
+  // adj of the own rows an element a copy, in order (a row block's rows
   // are contiguous; a column block reads runs of R targets per source)
   for (int i = threadIdx.x; i < R * N; i += blockDim.x) {
     const int r = ROW ? i / N : i % R, o = ROW ? i % N : i / R;
-    copy4_async(a_s + r * Np + o, ROW ? adjb + (size_t)(r0 + r) * T + o
-                                      : adjb + (size_t)o * T + r0 + r);
+    copy1_to_smem(a_s + r * Np + o, ROW ? adjb + (size_t)(r0 + r) * T + o
+                                        : adjb + (size_t)o * T + r0 + r);
     if (ROW) q_s[r * Np + o] = 0.f;
   }
 
@@ -379,9 +370,9 @@ __device__ __forceinline__ void bwd_block(
     stage_rows(oth_s, xoth + k * F, KF, N, F, Fq, vec);
     for (int i = threadIdx.x; i < R * N; i += blockDim.x) {
       const int r = ROW ? i / N : i % R, o = ROW ? i % N : i / R;
-      copy4_async(d_s + r * Np + o,
-                  ROW ? deb + ((size_t)(r0 + r) * T + o) * K + k
-                      : deb + ((size_t)o * T + r0 + r) * K + k);
+      copy1_to_smem(d_s + r * Np + o,
+                    ROW ? deb + ((size_t)(r0 + r) * T + o) * K + k
+                        : deb + ((size_t)o * T + r0 + r) * K + k);
     }
     copy_async_wait_all();
     __syncthreads();
@@ -391,14 +382,14 @@ __device__ __forceinline__ void bwd_block(
     constexpr int G = 32 / L;  // groups per warp
     const int grp = lane / L, gl = lane % L, c4 = 4 * gl;
     const bool fon = c4 < F;
-    const float* wb = we + (size_t)b * wstride + k * F;
-    const float* ab = att + (size_t)b * wstride + k * F;
+    const E* wb = we + (size_t)b * wstride + k * F;
+    const E* ab = att + (size_t)b * wstride + k * F;
     float wev[4], awv[4], gw[4], ga[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int f = c4 + q;
-      wev[q] = f < F ? wb[f] : 0.f;
-      awv[q] = f < F ? ab[f] * wev[q] : 0.f;
+      wev[q] = f < F ? ldf(wb[f]) : 0.f;
+      awv[q] = f < F ? ldf(ab[f]) * wev[q] : 0.f;
       gw[q] = 0.f;
       ga[q] = 0.f;
     }
@@ -510,7 +501,7 @@ __device__ __forceinline__ void bwd_block(
         for (int q = 0; q < 4; ++q) {
           const int f = c4 + q;
           if (f < F) {
-            gown[(size_t)r * KF + k * F + f] = ab[f] * gs[q];
+            gown[(size_t)r * KF + k * F + f] = stf<E>(ldf(ab[f]) * gs[q]);
             ga[q] = fmaf(xo[q], gs[q], ga[q]);
           }
         }
@@ -536,26 +527,26 @@ __device__ __forceinline__ void bwd_block(
         w += red_s[i * F + f];
         a += red_s[(nsum + i) * F + f];
       }
-      pb[(size_t)k * F + f] = ROW ? ab[f] * w : 0.f;
-      pb[((size_t)K + k) * F + f] = ROW ? fmaf(wb[f], w, a) : a;
+      pb[(size_t)k * F + f] = ROW ? ldf(ab[f]) * w : 0.f;
+      pb[((size_t)K + k) * F + f] = ROW ? fmaf(ldf(wb[f]), w, a) : a;
     }
   }
   if (ROW) {  // dadj summed over the heads; each warp wrote its own rows
     for (int r = warp; r < R; r += kBwdWarps)
       for (int o = lane; o < N; o += 32)
-        dadj[((size_t)b * S + r0 + r) * T + o] = q_s[r * Np + o];
+        dadj[((size_t)b * S + r0 + r) * T + o] = stf<E>(q_s[r * Np + o]);
   }
 }
 
-template <int L>
+template <int L, typename E>
 __global__ void __launch_bounds__(kBwdWarps * 32, 4)
-gat_logits_bwd_kernel(const float* __restrict__ xl,
-                      const float* __restrict__ xr,
-                      const float* __restrict__ adj,
-                      const float* __restrict__ we,
-                      const float* __restrict__ att,
-                      const float* __restrict__ de, float* __restrict__ dxl,
-                      float* __restrict__ dxr, float* __restrict__ dadj,
+gat_logits_bwd_kernel(const E* __restrict__ xl,
+                      const E* __restrict__ xr,
+                      const E* __restrict__ adj,
+                      const E* __restrict__ we,
+                      const E* __restrict__ att,
+                      const E* __restrict__ de, E* __restrict__ dxl,
+                      E* __restrict__ dxr, E* __restrict__ dadj,
                       float* __restrict__ part, int S, int T, int K, int F,
                       int wstride, int nr, int nc, float ns) {
   extern __shared__ float4 bwd_smem4[];
@@ -566,26 +557,27 @@ gat_logits_bwd_kernel(const float* __restrict__ xl,
   if ((int)blockIdx.x < nr) {
     const int c = blockIdx.x;
     const int r0 = (int)((long)c * S / nr), r1 = (int)((long)(c + 1) * S / nr);
-    bwd_block<true, L>(smem, xl, xr, adj, we, att, de, dxl, dxr, dadj, pb,
+    bwd_block<true, L, E>(smem, xl, xr, adj, we, att, de, dxl, dxr, dadj, pb,
                        b, r0, r1 - r0, S, T, K, F, wstride, ns);
   } else {
     const int c = blockIdx.x - nr;
     const int r0 = (int)((long)c * T / nc), r1 = (int)((long)(c + 1) * T / nc);
-    bwd_block<false, L>(smem, xl, xr, adj, we, att, de, dxl, dxr, dadj, pb,
+    bwd_block<false, L, E>(smem, xl, xr, adj, we, att, de, dxl, dxr, dadj, pb,
                         b, r0, r1 - r0, S, T, K, F, wstride, ns);
   }
 }
 
-typedef void (*BwdKernel)(const float*, const float*, const float*,
-                          const float*, const float*, const float*, float*,
-                          float*, float*, float*, int, int, int, int, int, int,
-                          int, float);
+template <typename E>
+using BwdKernel = void (*)(const E*, const E*, const E*, const E*, const E*,
+                           const E*, E*, E*, E*, float*, int, int, int, int,
+                           int, int, int, float);
 // the instantiation for F features per head (F <= 4 bwd_lanes(F))
-BwdKernel bwd_kernel(int F) {
+template <typename E>
+BwdKernel<E> bwd_kernel(int F) {
   const int L = bwd_lanes(F);
-  return L == 8 ? gat_logits_bwd_kernel<8>
-                : (L == 16 ? gat_logits_bwd_kernel<16>
-                           : gat_logits_bwd_kernel<32>);
+  return L == 8 ? gat_logits_bwd_kernel<8, E>
+                : (L == 16 ? gat_logits_bwd_kernel<16, E>
+                           : gat_logits_bwd_kernel<32, E>);
 }
 
 // chunks of a side of n rows: as many as give the grid kBwdBlocksPerSm
@@ -622,25 +614,43 @@ extern "C" size_t gat_logits_fwd_smem_bytes(int B, int S, int T, int K,
   return sp.smem;
 }
 
-extern "C" int gat_logits_fwd(const float* xl, const float* xr,
-                              const float* adj, const float* we,
-                              const float* att, float* out, int B, int S,
-                              int T, int K, int F, int wstride, float ns,
-                              void* stream) {
+template <typename E>
+static int launch_fwd(const E* xl, const E* xr, const E* adj, const E* we,
+                      const E* att, E* out, int B, int S, int T, int K, int F,
+                      int wstride, float ns, void* stream) {
   if (F > kMaxF || (long)B * K > 65535) return (int)cudaErrorInvalidValue;
   if (B <= 0 || K <= 0 || S <= 0 || T <= 0) return (int)cudaGetLastError();
   FwdSplit sp;
   cudaError_t err = fwd_split(B, S, T, K, F, &sp);
   if (err != cudaSuccess) return (int)err;
   if (sp.threads > 1024) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(gat_logits_fwd_kernel,
+  err = cudaFuncSetAttribute(gat_logits_fwd_kernel<E>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)sp.smem);
   if (err != cudaSuccess) return (int)err;
-  gat_logits_fwd_kernel<<<dim3(sp.nstrip, B * K), sp.threads, sp.smem,
-                          (cudaStream_t)stream>>>(
+  gat_logits_fwd_kernel<E><<<dim3(sp.nstrip, B * K), sp.threads, sp.smem,
+                             (cudaStream_t)stream>>>(
       xl, xr, adj, we, att, out, S, T, K, F, wstride, sp.nstrip, ns);
   return (int)cudaGetLastError();
+}
+
+extern "C" int gat_logits_fwd(const float* xl, const float* xr,
+                              const float* adj, const float* we,
+                              const float* att, float* out, int B, int S,
+                              int T, int K, int F, int wstride, float ns,
+                              void* stream) {
+  return launch_fwd(xl, xr, adj, we, att, out, B, S, T, K, F, wstride, ns,
+                    stream);
+}
+
+// the bfloat16 instantiation: bfloat16 inputs and logits
+extern "C" int gat_logits_fwd_bf16(const bf16* xl, const bf16* xr,
+                                   const bf16* adj, const bf16* we,
+                                   const bf16* att, bf16* out, int B, int S,
+                                   int T, int K, int F, int wstride, float ns,
+                                   void* stream) {
+  return launch_fwd(xl, xr, adj, we, att, out, B, S, T, K, F, wstride, ns,
+                    stream);
 }
 
 // strips of sources per (b, k) plane that the forward's grid takes at
@@ -660,12 +670,13 @@ extern "C" int gat_logits_fwd_blocks_per_sm(int B, int S, int T, int K, int F,
   cudaFuncAttributes attr;
   int n = 0;
   if (fwd_split(B, S, T, K, F, &sp) != cudaSuccess ||
-      cudaFuncSetAttribute(gat_logits_fwd_kernel,
+      cudaFuncSetAttribute(gat_logits_fwd_kernel<float>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)sp.smem) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, gat_logits_fwd_kernel) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gat_logits_fwd_kernel,
-                                                    sp.threads, sp.smem) !=
+      cudaFuncGetAttributes(&attr, gat_logits_fwd_kernel<float>) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, gat_logits_fwd_kernel<float>, sp.threads, sp.smem) !=
           cudaSuccess)
     return -1;
   *regs = attr.numRegs;
@@ -687,18 +698,17 @@ extern "C" size_t gat_logits_bwd_smem_bytes(int B, int S, int T, int F) {
   return sp.smem;
 }
 
-extern "C" int gat_logits_bwd(const float* xl, const float* xr,
-                              const float* adj, const float* we,
-                              const float* att, const float* de, float* dxl,
-                              float* dxr, float* dadj, float* part, int B,
-                              int S, int T, int K, int F, int wstride,
-                              float ns, void* stream) {
+template <typename E>
+static int launch_bwd(const E* xl, const E* xr, const E* adj, const E* we,
+                      const E* att, const E* de, E* dxl, E* dxr, E* dadj,
+                      float* part, int B, int S, int T, int K, int F,
+                      int wstride, float ns, void* stream) {
   if (F > kMaxF || B > 65535) return (int)cudaErrorInvalidValue;
   if (B <= 0 || K <= 0 || S <= 0 || T <= 0) return (int)cudaGetLastError();
   BwdSplit sp;
   cudaError_t err = bwd_split(B, S, T, F, &sp);
   if (err != cudaSuccess) return (int)err;
-  const BwdKernel kern = bwd_kernel(F);
+  const BwdKernel<E> kern = bwd_kernel<E>(F);
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)sp.smem);
   if (err != cudaSuccess) return (int)err;
@@ -708,6 +718,29 @@ extern "C" int gat_logits_bwd(const float* xl, const float* xr,
   return (int)cudaGetLastError();
 }
 
+extern "C" int gat_logits_bwd(const float* xl, const float* xr,
+                              const float* adj, const float* we,
+                              const float* att, const float* de, float* dxl,
+                              float* dxr, float* dadj, float* part, int B,
+                              int S, int T, int K, int F, int wstride,
+                              float ns, void* stream) {
+  return launch_bwd(xl, xr, adj, we, att, de, dxl, dxr, dadj, part, B, S, T,
+                    K, F, wstride, ns, stream);
+}
+
+// the bfloat16 instantiation: bfloat16 inputs, d_e, dxl, dxr and dadj;
+// float32 dwe / datt partials
+extern "C" int gat_logits_bwd_bf16(const bf16* xl, const bf16* xr,
+                                   const bf16* adj, const bf16* we,
+                                   const bf16* att, const bf16* de,
+                                   bf16* dxl, bf16* dxr, bf16* dadj,
+                                   float* part, int B, int S, int T, int K,
+                                   int F, int wstride, float ns,
+                                   void* stream) {
+  return launch_bwd(xl, xr, adj, we, att, de, dxl, dxr, dadj, part, B, S, T,
+                    K, F, wstride, ns, stream);
+}
+
 // what the backward's launch gets on this card at these shapes: registers
 // and local (spill) bytes per thread, and resident blocks per SM (-1 on an
 // error)
@@ -715,7 +748,7 @@ extern "C" int gat_logits_bwd_blocks_per_sm(int B, int S, int T, int F,
                                             int* regs, int* local_bytes) {
   BwdSplit sp;
   cudaFuncAttributes attr;
-  const BwdKernel kern = bwd_kernel(F);
+  const BwdKernel<float> kern = bwd_kernel<float>(F);
   int n = 0;
   if (bwd_split(B, S, T, F, &sp) != cudaSuccess ||
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -80,9 +80,24 @@
 // blocks than keep the card busy for kRounds rounds, a block walks several
 // chunks of its sample and fills dz once.
 
+// Element types (elem.cuh). Each entry point has a float32 and a bfloat16
+// instantiation (pairwise_fwd_bf16, pairwise_bwd_bf16), as JAX's kernels
+// load the compute dtype and upcast at once: at bfloat16 xl, xr, w2, b1,
+// b2, out and dout are read as bfloat16 and the scores, dxl and dxr
+// written as bfloat16 (rounded once), while dw2, db1 and db2 stay float32
+// sums that the caller casts once after summing them over the batch for a
+// shared param. Registers, sums and the shared tiles are float in both, so
+// every layout's shared memory and blocks per SM are float32's; a bfloat16
+// tile is staged through registers (8-byte loads of 4 values, widened)
+// where float32 takes cp.async, so the forward's next chunk is no longer
+// copied behind the walk of this one. The operations are float32's; the
+// bytes, half of them at bfloat16, bound neither kernel.
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -94,26 +109,13 @@ constexpr int kRed = kBwdWarps * kBwdWarps * kCols;  // reduction floats
 // blocks the card holds at once
 constexpr int kRounds = 8;
 
-__device__ __forceinline__ void copy16_async(float* dst, const float* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-#endif
-}
-
-__device__ __forceinline__ void copy_async_wait_all() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_all;\n" ::);
-#endif
-}
-
-// rows [0, n) of a tile (row r at src + r * ld, its first `valid` floats)
-// into dst rows of `width` floats, the rest of each row and rows [n, npad)
-// zero: 16-byte copies without registers when `vec`, else one float at a
-// time
+// rows [0, n) of a tile (row r at src + r * ld, its first `valid`
+// elements) into dst rows of `width` floats, the rest of each row and rows
+// [n, npad) zero: 4 elements a copy when `vec` (copy4_to_smem), else one
+// at a time
+template <typename E>
 __device__ __forceinline__ void stage_tile(float* dst, int width,
-                                           const float* src, size_t ld,
+                                           const E* src, size_t ld,
                                            int valid, int n, int npad,
                                            bool vec) {
   if (vec) {
@@ -122,33 +124,30 @@ __device__ __forceinline__ void stage_tile(float* dst, int width,
       const int r = i / q, c = 4 * (i % q);
       float* d = dst + (size_t)r * width + c;
       if (r < n && c < valid)
-        copy16_async(d, src + r * ld + c);
+        copy4_to_smem(d, src + r * ld + c);
       else
         *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   } else {
     for (int i = threadIdx.x; i < npad * width; i += blockDim.x) {
       const int r = i / width, c = i % width;
-      dst[i] = (r < n && c < valid) ? src[r * ld + c] : 0.f;
+      dst[i] = (r < n && c < valid) ? ldf(src[r * ld + c]) : 0.f;
     }
   }
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 // kStageDout: dout is staged beside out (the headline layout); else each
-// dout row is read from device memory where dz is formed
-template <bool kStageDout>
-__global__ void pairwise_bwd_kernel(const float* __restrict__ xl,
-                                    const float* __restrict__ xr,
-                                    const float* __restrict__ w2,
-                                    const float* __restrict__ b1,
-                                    const float* __restrict__ out,
-                                    const float* __restrict__ dout,
-                                    float* __restrict__ dxl,
-                                    float* __restrict__ dxr,
+// dout row is read from device memory where dz is formed. E: the element
+// type of the inputs, dxl and dxr; dw2, db1 and db2 are float32 sums
+template <bool kStageDout, typename E>
+__global__ void pairwise_bwd_kernel(const E* __restrict__ xl,
+                                    const E* __restrict__ xr,
+                                    const E* __restrict__ w2,
+                                    const E* __restrict__ b1,
+                                    const E* __restrict__ out,
+                                    const E* __restrict__ dout,
+                                    E* __restrict__ dxl,
+                                    E* __restrict__ dxr,
                                     float* __restrict__ dw2,
                                     float* __restrict__ db1,
                                     float* __restrict__ db2,
@@ -174,13 +173,13 @@ __global__ void pairwise_bwd_kernel(const float* __restrict__ xl,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int nch = (H + kCols - 1) / kCols;
-  const float* b1b = b1 + b * b1_stride;
-  const float* w2b = w2 + b * w2_stride;
-  const float* xlb = xl + (size_t)b * S * H;
-  const float* xrb = xr + (size_t)b * T * H;
+  const E* b1b = b1 + b * b1_stride;
+  const E* w2b = w2 + b * w2_stride;
+  const E* xlb = xl + (size_t)b * S * H;
+  const E* xrb = xr + (size_t)b * T * H;
   const size_t ob = (size_t)b * S * T;
-  const bool vx = (H & 3) == 0 && aligned16(xl) && aligned16(xr);
-  const bool vo = (T & 3) == 0 && aligned16(out) && aligned16(dout);
+  const bool vx = (H & 3) == 0 && vec4_aligned(xl) && vec4_aligned(xr);
+  const bool vo = (T & 3) == 0 && vec4_aligned(out) && vec4_aligned(dout);
 
   // out into the dz tile, dout beside it, the first chunk's xl and xr
   stage_tile(dz_s, T8, out + ob, T, T, S, S, vo);
@@ -204,7 +203,7 @@ __global__ void pairwise_bwd_kernel(const float* __restrict__ xl,
 #pragma unroll
         for (int u = 0; u < kLd; ++u) {
           const int t = c00 + 32 * u + lane;
-          dv[u] = t < T ? dout[ob + (size_t)s * T + t] : 0.f;
+          dv[u] = t < T ? ldf(dout[ob + (size_t)s * T + t]) : 0.f;
         }
       }
 #pragma unroll
@@ -259,8 +258,8 @@ __global__ void pairwise_bwd_kernel(const float* __restrict__ xl,
     for (int u = 0; u < kU; ++u) {
       const int h = h0 + u * 32 + lane;
       hv[u] = h < H;
-      w2h[u] = hv[u] ? w2b[h] : 0.f;
-      b1h[u] = hv[u] ? b1b[h] : 0.f;
+      w2h[u] = hv[u] ? ldf(w2b[h]) : 0.f;
+      b1h[u] = hv[u] ? ldf(b1b[h]) : 0.f;
       nb1[u] = -b1h[u];
       acc_g[u] = acc_w[u] = 0.f;
     }
@@ -320,7 +319,8 @@ __global__ void pairwise_bwd_kernel(const float* __restrict__ xl,
         for (int w = 0; w < kBwdWarps; ++w)
           v += red_s[(w * kBwdWarps + warp) * kCols + u * 32 + lane];
         if (t < T && hv[u])
-          dxr[((size_t)b * T + t) * H + h0 + u * 32 + lane] = w2h[u] * v;
+          dxr[((size_t)b * T + t) * H + h0 + u * 32 + lane] =
+              stf<E>(w2h[u] * v);
         acc_w[u] = fmaf(xr_s[t * kCols + u * 32 + lane], v, acc_w[u]);
       }
       __syncthreads();
@@ -331,7 +331,8 @@ __global__ void pairwise_bwd_kernel(const float* __restrict__ xl,
       for (int u = 0; u < kU; ++u) {
         const float gl = gl_s[s * kCols + u * 32 + lane];
         if (hv[u])
-          dxl[((size_t)b * S + s) * H + h0 + u * 32 + lane] = w2h[u] * gl;
+          dxl[((size_t)b * S + s) * H + h0 + u * 32 + lane] =
+              stf<E>(w2h[u] * gl);
         acc_w[u] = fmaf(xl_s[s * kCols + u * 32 + lane], gl, acc_w[u]);
       }
     // dw2 = sum pre g = sum_s xl sum_t g + sum_t xr sum_s g + b1 sum g
@@ -392,14 +393,15 @@ static bool bwd_stage_dout(int S, int T) {
   return bwd_smem_bytes(S, T, true) <= smem_limit();
 }
 
-typedef void (*BwdKernel)(const float*, const float*, const float*,
-                          const float*, const float*, const float*, float*,
-                          float*, float*, float*, float*, int, int, int,
-                          int64_t, int64_t, float);
+template <typename E>
+using BwdKernel = void (*)(const E*, const E*, const E*, const E*, const E*,
+                           const E*, E*, E*, float*, float*, float*, int, int,
+                           int, int64_t, int64_t, float);
 
-static BwdKernel bwd_kernel(int S, int T) {
-  return bwd_stage_dout(S, T) ? pairwise_bwd_kernel<true>
-                              : pairwise_bwd_kernel<false>;
+template <typename E>
+static BwdKernel<E> bwd_kernel(int S, int T) {
+  return bwd_stage_dout(S, T) ? pairwise_bwd_kernel<true, E>
+                              : pairwise_bwd_kernel<false, E>;
 }
 
 // the shared memory of the layout a launch at these shapes takes
@@ -413,7 +415,7 @@ extern "C" size_t pairwise_bwd_smem_bytes(int S, int T) {
 extern "C" int pairwise_bwd_blocks_per_sm(int S, int T, int* regs,
                                           int* local_bytes) {
   const size_t smem = pairwise_bwd_smem_bytes(S, T);
-  const BwdKernel kern = bwd_kernel(S, T);
+  const BwdKernel<float> kern = bwd_kernel<float>(S, T);
   cudaFuncAttributes attr;
   if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
@@ -431,11 +433,12 @@ extern "C" int pairwise_bwd_blocks_per_sm(int S, int T, int* regs,
 // the SMs of the current device and the backward's resident blocks per SM
 // for this kernel at this shared-memory size, queried once per (device,
 // kernel, size)
-static cudaError_t bwd_slots(BwdKernel kern, size_t smem, int* nsm,
+template <typename E>
+static cudaError_t bwd_slots(BwdKernel<E> kern, size_t smem, int* nsm,
                              int* per_sm) {
   static thread_local int dev_c = -1, nsm_c = 0, per_sm_c = 0;
   static thread_local size_t smem_c = 0;
-  static thread_local BwdKernel kern_c = nullptr;
+  static thread_local BwdKernel<E> kern_c = nullptr;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -455,14 +458,14 @@ static cudaError_t bwd_slots(BwdKernel kern, size_t smem, int* nsm,
   return cudaSuccess;
 }
 
-extern "C" int pairwise_bwd(const float* xl, const float* xr, const float* w2,
-                            const float* b1, const float* out,
-                            const float* dout, float* dxl, float* dxr,
-                            float* dw2, float* db1, float* db2, int B, int S,
-                            int T, int H, int64_t w2_stride, int64_t b1_stride,
-                            float ns, void* stream) {
+template <typename E>
+static int launch_bwd(const E* xl, const E* xr, const E* w2, const E* b1,
+                      const E* out, const E* dout, E* dxl, E* dxr, float* dw2,
+                      float* db1, float* db2, int B, int S, int T, int H,
+                      int64_t w2_stride, int64_t b1_stride, float ns,
+                      void* stream) {
   const size_t smem = pairwise_bwd_smem_bytes(S, T);
-  const BwdKernel kern = bwd_kernel(S, T);
+  const BwdKernel<E> kern = bwd_kernel<E>(S, T);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -481,6 +484,29 @@ extern "C" int pairwise_bwd(const float* xl, const float* xr, const float* w2,
       xl, xr, w2, b1, out, dout, dxl, dxr, dw2, db1, db2, S, T, H, w2_stride,
       b1_stride, ns);
   return (int)cudaGetLastError();
+}
+
+extern "C" int pairwise_bwd(const float* xl, const float* xr, const float* w2,
+                            const float* b1, const float* out,
+                            const float* dout, float* dxl, float* dxr,
+                            float* dw2, float* db1, float* db2, int B, int S,
+                            int T, int H, int64_t w2_stride, int64_t b1_stride,
+                            float ns, void* stream) {
+  return launch_bwd(xl, xr, w2, b1, out, dout, dxl, dxr, dw2, db1, db2, B, S,
+                    T, H, w2_stride, b1_stride, ns, stream);
+}
+
+// the bfloat16 instantiation: bfloat16 inputs, dxl and dxr; float32 dw2,
+// db1 and db2 (per sample, cast by the caller)
+extern "C" int pairwise_bwd_bf16(const bf16* xl, const bf16* xr,
+                                 const bf16* w2, const bf16* b1,
+                                 const bf16* out, const bf16* dout, bf16* dxl,
+                                 bf16* dxr, float* dw2, float* db1,
+                                 float* db2, int B, int S, int T, int H,
+                                 int64_t w2_stride, int64_t b1_stride,
+                                 float ns, void* stream) {
+  return launch_bwd(xl, xr, w2, b1, out, dout, dxl, dxr, dw2, db1, db2, B, S,
+                    T, H, w2_stride, b1_stride, ns, stream);
 }
 
 namespace {
@@ -521,10 +547,11 @@ __device__ __forceinline__ void cluster_wait() {
 #endif
 }
 
-// rows [0, n) of a chunk (row r at src + r * ld, its first `valid` floats)
-// into dst rows of stride kLd: kKc floats each, past `valid` zero, and
-// rows [n, nrows) zero (the pad columns past kKc are never read)
-__device__ __forceinline__ void stage_fwd_rows(float* dst, const float* src,
+// rows [0, n) of a chunk (row r at src + r * ld, its first `valid`
+// elements) into dst rows of stride kLd: kKc floats each, past `valid`
+// zero, and rows [n, nrows) zero (the pad columns past kKc are never read)
+template <typename E>
+__device__ __forceinline__ void stage_fwd_rows(float* dst, const E* src,
                                                size_t ld, int valid, int n,
                                                int nrows, bool vec) {
   if (vec) {
@@ -533,14 +560,14 @@ __device__ __forceinline__ void stage_fwd_rows(float* dst, const float* src,
       const int r = i / q, c = 4 * (i % q);
       float* d = dst + r * kLd + c;
       if (r < n && c < valid)
-        copy16_async(d, src + r * ld + c);
+        copy4_to_smem(d, src + r * ld + c);
       else
         *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   } else {
     for (int i = threadIdx.x; i < nrows * kKc; i += blockDim.x) {
       const int r = i / kKc, c = i % kKc;
-      dst[r * kLd + c] = (r < n && c < valid) ? src[r * ld + c] : 0.f;
+      dst[r * kLd + c] = (r < n && c < valid) ? ldf(src[r * ld + c]) : 0.f;
     }
   }
 }
@@ -548,22 +575,24 @@ __device__ __forceinline__ void stage_fwd_rows(float* dst, const float* src,
 // one chunk of hidden units [h0, h0 + valid) into a buffer: xl rows
 // [s0, s0 + 64) and xr rows [t0, t0 + 64) (rows past S / T and columns past
 // valid zero), w2 and b1
+template <typename E>
 __device__ __forceinline__ void stage_fwd_chunk(
-    float* buf, const float* xlb, const float* xrb, const float* w2b,
-    const float* b1b, int H, int h0, int valid, int ns_rows, int nt_rows,
-    bool vec) {
+    float* buf, const E* xlb, const E* xrb, const E* w2b, const E* b1b,
+    int H, int h0, int valid, int ns_rows, int nt_rows, bool vec) {
   stage_fwd_rows(buf, xlb + h0, H, valid, ns_rows, kTile, vec);
   stage_fwd_rows(buf + kTile * kLd, xrb + h0, H, valid, nt_rows, kTile, vec);
   stage_fwd_rows(buf + 2 * kTile * kLd, w2b + h0, 0, valid, 1, 1, vec);
   stage_fwd_rows(buf + 2 * kTile * kLd + kKc, b1b + h0, 0, valid, 1, 1, vec);
 }
 
-__global__ void pairwise_fwd_kernel(const float* __restrict__ xl,
-                                    const float* __restrict__ xr,
-                                    const float* __restrict__ w2,
-                                    const float* __restrict__ b1,
-                                    const float* __restrict__ b2,
-                                    float* __restrict__ out,
+// E: the element type of the inputs and the scores
+template <typename E>
+__global__ void pairwise_fwd_kernel(const E* __restrict__ xl,
+                                    const E* __restrict__ xr,
+                                    const E* __restrict__ w2,
+                                    const E* __restrict__ b1,
+                                    const E* __restrict__ b2,
+                                    E* __restrict__ out,
                                     int S, int T, int H,
                                     int64_t w2_stride, int64_t b1_stride,
                                     int64_t b2_stride, float ns) {
@@ -583,13 +612,13 @@ __global__ void pairwise_fwd_kernel(const float* __restrict__ xl,
   const int b = blockIdx.z;
   const int ntt = (T + kTile - 1) / kTile;
   const int s0 = blockIdx.y / ntt * kTile, t0 = blockIdx.y % ntt * kTile;
-  const float* xlb = xl + ((size_t)b * S + s0) * H;
-  const float* xrb = xr + ((size_t)b * T + t0) * H;
-  const float* w2b = w2 + b * w2_stride;
-  const float* b1b = b1 + b * b1_stride;
+  const E* xlb = xl + ((size_t)b * S + s0) * H;
+  const E* xrb = xr + ((size_t)b * T + t0) * H;
+  const E* w2b = w2 + b * w2_stride;
+  const E* b1b = b1 + b * b1_stride;
   const int ns_rows = min(kTile, S - s0), nt_rows = min(kTile, T - t0);
-  const bool vec = (H & 3) == 0 && aligned16(xl) && aligned16(xr) &&
-                   aligned16(w2) && aligned16(b1);
+  const bool vec = (H & 3) == 0 && vec4_aligned(xl) && vec4_aligned(xr) &&
+                   vec4_aligned(w2) && vec4_aligned(b1);
   // this block's hidden units: an even share of the quads of four
   const int nq = (H + 3) / 4;
   const int hbeg = 4 * (int)((long)rank * nq / C);
@@ -703,7 +732,7 @@ __global__ void pairwise_fwd_kernel(const float* __restrict__ xl,
     lint_s[tid] = v;
   }
   __syncthreads();
-  const float bias2 = b2[b * b2_stride];
+  const float bias2 = ldf(b2[b * b2_stride]);
   // leaky(p) = (1 + ns) / 2 p + (1 - ns) / 2 |p|
   const float lin_w = 0.5f * (1.f + ns), abs_w = 0.5f * (1.f - ns);
   for (int p = rank * per + tid; p < (rank + 1) * per; p += kFwdThreads) {
@@ -713,17 +742,20 @@ __global__ void pairwise_fwd_kernel(const float* __restrict__ xl,
     if (s < ns_rows && t < nt_rows) {
       const float z =
           fmaf(lin_w, lint_s[s] + lint_s[kTile + t], fmaf(abs_w, r, bias2));
-      out[((size_t)b * S + s0 + s) * T + t0 + t] = 1.f / (1.f + expf(-z));
+      out[((size_t)b * S + s0 + s) * T + t0 + t] =
+          stf<E>(1.f / (1.f + expf(-z)));
     }
   }
 }
 
 // the SMs of the current device, the forward's resident blocks per SM and
-// the largest cluster it may launch, queried once per device
+// the largest cluster it may launch, queried once per device (and
+// instantiation)
 struct FwdSlots {
   int nsm, per_sm, max_cluster;
 };
 
+template <typename E>
 cudaError_t fwd_slots(FwdSlots* out) {
   static thread_local int dev_c = -1;
   static thread_local FwdSlots c;
@@ -733,17 +765,18 @@ cudaError_t fwd_slots(FwdSlots* out) {
   if (dev != dev_c) {
     const size_t smem = sizeof(float) * kFwdSmem;
     if ((err = cudaFuncSetAttribute(
-             pairwise_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)smem)) != cudaSuccess ||
+             pairwise_fwd_kernel<E>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+            cudaSuccess ||
         (err = cudaDeviceGetAttribute(&c.nsm, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess ||
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &c.per_sm, pairwise_fwd_kernel, kFwdThreads, smem)) !=
+             &c.per_sm, pairwise_fwd_kernel<E>, kFwdThreads, smem)) !=
             cudaSuccess)
       return err;
     // clusters of 16 are past the portable 8 and must be allowed (and fit)
     c.max_cluster = 8;
-    if (cudaFuncSetAttribute(pairwise_fwd_kernel,
+    if (cudaFuncSetAttribute(pairwise_fwd_kernel<E>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1) == cudaSuccess) {
       cudaLaunchConfig_t cfg = {};
@@ -757,7 +790,7 @@ cudaError_t fwd_slots(FwdSlots* out) {
       cfg.attrs = &attr;
       cfg.numAttrs = 1;
       int n = 0;
-      if (cudaOccupancyMaxActiveClusters(&n, pairwise_fwd_kernel, &cfg) ==
+      if (cudaOccupancyMaxActiveClusters(&n, pairwise_fwd_kernel<E>, &cfg) ==
               cudaSuccess &&
           n > 0)
         c.max_cluster = kMaxCluster;
@@ -791,7 +824,7 @@ extern "C" size_t pairwise_fwd_smem_bytes(void) {
 // this card (-1 on an error)
 extern "C" int pairwise_fwd_cluster(int B, int S, int T, int H) {
   FwdSlots sl;
-  if (fwd_slots(&sl) != cudaSuccess) return -1;
+  if (fwd_slots<float>(&sl) != cudaSuccess) return -1;
   return fwd_cluster(sl, B, S, T, H);
 }
 
@@ -800,22 +833,23 @@ extern "C" int pairwise_fwd_cluster(int B, int S, int T, int H) {
 extern "C" int pairwise_fwd_blocks_per_sm(int* regs, int* local_bytes) {
   cudaFuncAttributes attr;
   FwdSlots sl;
-  if (cudaFuncGetAttributes(&attr, pairwise_fwd_kernel) != cudaSuccess ||
-      fwd_slots(&sl) != cudaSuccess)
+  if (cudaFuncGetAttributes(&attr, pairwise_fwd_kernel<float>) !=
+          cudaSuccess ||
+      fwd_slots<float>(&sl) != cudaSuccess)
     return -1;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   return sl.per_sm;
 }
 
-extern "C" int pairwise_fwd(const float* xl, const float* xr, const float* w2,
-                            const float* b1, const float* b2, float* out,
-                            int B, int S, int T, int H, int64_t w2_stride,
-                            int64_t b1_stride, int64_t b2_stride, float ns,
-                            void* stream) {
+template <typename E>
+static int launch_fwd(const E* xl, const E* xr, const E* w2, const E* b1,
+                      const E* b2, E* out, int B, int S, int T, int H,
+                      int64_t w2_stride, int64_t b1_stride, int64_t b2_stride,
+                      float ns, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0) return (int)cudaGetLastError();
   FwdSlots sl;
-  cudaError_t err = fwd_slots(&sl);
+  cudaError_t err = fwd_slots<E>(&sl);
   if (err != cudaSuccess) return (int)err;
   const int C = fwd_cluster(sl, B, S, T, H);
   const int tiles = ((S + kTile - 1) / kTile) * ((T + kTile - 1) / kTile);
@@ -830,8 +864,28 @@ extern "C" int pairwise_fwd(const float* xl, const float* xr, const float* w2,
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, pairwise_fwd_kernel, xl, xr, w2, b1, b2, out,
-                           S, T, H, w2_stride, b1_stride, b2_stride, ns);
+  err = cudaLaunchKernelEx(&cfg, pairwise_fwd_kernel<E>, xl, xr, w2, b1, b2,
+                           out, S, T, H, w2_stride, b1_stride, b2_stride, ns);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+extern "C" int pairwise_fwd(const float* xl, const float* xr, const float* w2,
+                            const float* b1, const float* b2, float* out,
+                            int B, int S, int T, int H, int64_t w2_stride,
+                            int64_t b1_stride, int64_t b2_stride, float ns,
+                            void* stream) {
+  return launch_fwd(xl, xr, w2, b1, b2, out, B, S, T, H, w2_stride,
+                    b1_stride, b2_stride, ns, stream);
+}
+
+// the bfloat16 instantiation: bfloat16 inputs and scores
+extern "C" int pairwise_fwd_bf16(const bf16* xl, const bf16* xr,
+                                 const bf16* w2, const bf16* b1,
+                                 const bf16* b2, bf16* out, int B, int S,
+                                 int T, int H, int64_t w2_stride,
+                                 int64_t b1_stride, int64_t b2_stride,
+                                 float ns, void* stream) {
+  return launch_fwd(xl, xr, w2, b1, b2, out, B, S, T, H, w2_stride,
+                    b1_stride, b2_stride, ns, stream);
 }

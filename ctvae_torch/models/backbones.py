@@ -20,6 +20,11 @@ k3-s2 one padded ((1, 2), (1, 2)) is ``ConvTranspose2d(k3, s2, p1,
 output_padding=1)``. Submodule names follow the JAX param tree
 (``Conv_0``, ``ConvBNBlock_0``, ``BatchNorm_0``, ...).
 
+Every conv, linear layer and BatchNorm computes in its ``compute_dtype``
+(``ops/layers.py``; float32 unless a model sets bfloat16), with its
+parameters in float32, as a flax module built with ``dtype``; the
+decoders and the Gaussian heads return float32 (flax's ``upcast32``).
+
 ``BatchNorm`` is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` (or
 another ``momentum``): it
 follows the ``train`` argument, never ``Module.training``; a train pass
@@ -40,6 +45,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.common import upcast32
+from ..ops.layers import Conv2d, ConvTranspose2d, Linear
 from ..parallel.mesh import all_reduce_autograd, batch_group, group_size
 
 
@@ -53,9 +60,9 @@ class ResidualLayer(nn.Module):
 
     def __init__(self, features: int, *, device=None):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(features, features, 3, padding=1, bias=False,
+        self.Conv_0 = Conv2d(features, features, 3, padding=1, bias=False,
                                 device=device)
-        self.Conv_1 = nn.Conv2d(features, features, 1, bias=False,
+        self.Conv_1 = Conv2d(features, features, 1, bias=False,
                                 device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -72,16 +79,16 @@ class VQEncoder(nn.Module):
         hd = list(hidden_dims)
         fin = in_channels
         for i, h in enumerate(hd):
-            setattr(self, f"Conv_{i}", nn.Conv2d(fin, h, 4, stride=2,
+            setattr(self, f"Conv_{i}", Conv2d(fin, h, 4, stride=2,
                                                  padding=1, device=device))
             fin = h
         L = len(hd)
-        setattr(self, f"Conv_{L}", nn.Conv2d(fin, fin, 3, padding=1,
+        setattr(self, f"Conv_{L}", Conv2d(fin, fin, 3, padding=1,
                                              device=device))
         for i in range(num_residual):
             setattr(self, f"ResidualLayer_{i}",
                     ResidualLayer(fin, device=device))
-        setattr(self, f"Conv_{L + 1}", nn.Conv2d(fin, embedding_dim, 1,
+        setattr(self, f"Conv_{L + 1}", Conv2d(fin, embedding_dim, 1,
                                                  device=device))
         self._n_down, self._n_res = L, num_residual
 
@@ -104,7 +111,7 @@ class VQDecoder(nn.Module):
                  device=None):
         super().__init__()
         rev = list(hidden_dims)[::-1]
-        self.Conv_0 = nn.Conv2d(embedding_dim, rev[0], 3, padding=1,
+        self.Conv_0 = Conv2d(embedding_dim, rev[0], 3, padding=1,
                                 device=device)
         for i in range(num_residual):
             setattr(self, f"ResidualLayer_{i}",
@@ -113,7 +120,7 @@ class VQDecoder(nn.Module):
         fin = rev[0]
         for i, h in enumerate(outs):
             setattr(self, f"ConvTranspose_{i}",
-                    nn.ConvTranspose2d(fin, h, 4, stride=2, padding=1,
+                    ConvTranspose2d(fin, h, 4, stride=2, padding=1,
                                        device=device))
             fin = h
         self._n_res, self._n_up = num_residual, len(outs)
@@ -127,7 +134,7 @@ class VQDecoder(nn.Module):
             x = getattr(self, f"ConvTranspose_{i}")(x)
             if i < self._n_up - 1:
                 x = leaky_relu(x)
-        return torch.tanh(x).permute(0, 2, 3, 1).contiguous()
+        return upcast32(torch.tanh(x)).permute(0, 2, 3, 1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -142,9 +149,12 @@ class BatchNorm(nn.Module):
     channels of an NCHW map, or the features of a [B, D] vector (LVAE's
     ladder); ``weight`` / ``bias`` are flax's ``scale`` / ``bias``,
     ``running_mean`` / ``running_var`` its ``batch_stats``. ``momentum``
-    0.9 is the zoo's; TwoStageVAE's MLPs take flax's default, 0.99."""
+    0.9 is the zoo's; TwoStageVAE's MLPs take flax's default, 0.99.
+    As flax's with ``dtype``: the statistics, the normalisation and the
+    running buffers in float32, the output in ``compute_dtype``."""
 
     EPS = 1e-5
+    compute_dtype = torch.float32
 
     def __init__(self, features: int, momentum: float = 0.9, *,
                  device=None):
@@ -158,6 +168,10 @@ class BatchNorm(nn.Module):
                              torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
+        # flax normalises in at least float32 and returns its dtype
+        return self._normalise(upcast32(x), train).to(self.compute_dtype)
+
+    def _normalise(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if not train:
             # the eval kernel itself: ``F.batch_norm`` picks cuDNN on the
             # card below a batch of 65,536, a choice that fixes an
@@ -202,7 +216,7 @@ class ConvBNBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int, *, device=None):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_features, features, 3, stride=2,
+        self.Conv_0 = Conv2d(in_features, features, 3, stride=2,
                                 padding=1, device=device)
         self.BatchNorm_0 = BatchNorm(features, device=device)
 
@@ -211,10 +225,10 @@ class ConvBNBlock(nn.Module):
 
 
 def deconv_k3s2(in_features: int, features: int, *, device=None
-                ) -> nn.ConvTranspose2d:
+                ) -> ConvTranspose2d:
     """flax's ConvTranspose((3, 3), strides (2, 2), padding ((1, 2), (1,
     2))): a 2x upsample (NCHW)."""
-    return nn.ConvTranspose2d(in_features, features, 3, stride=2, padding=1,
+    return ConvTranspose2d(in_features, features, 3, stride=2, padding=1,
                               output_padding=1, device=device)
 
 
@@ -278,7 +292,7 @@ class ConvDecoder(nn.Module):
             setattr(self, f"DeconvBNBlock_{i}",
                     DeconvBNBlock(fin, h, device=device))
             fin = h
-        self.Conv_0 = nn.Conv2d(fin, out_channels, 3, padding=1,
+        self.Conv_0 = Conv2d(fin, out_channels, 3, padding=1,
                                 device=device)
         self.final_activation = final_activation
         self._n = len(outs)
@@ -292,7 +306,7 @@ class ConvDecoder(nn.Module):
             x = torch.tanh(x)
         elif self.final_activation == "sigmoid":
             x = torch.sigmoid(x)
-        return x.permute(0, 2, 3, 1).contiguous()
+        return upcast32(x).permute(0, 2, 3, 1).contiguous()
 
 
 class GaussianHead(nn.Module):
@@ -300,12 +314,12 @@ class GaussianHead(nn.Module):
 
     def __init__(self, in_features: int, latent_dim: int, *, device=None):
         super().__init__()
-        self.fc_mu = nn.Linear(in_features, latent_dim, device=device)
-        self.fc_var = nn.Linear(in_features, latent_dim, device=device)
+        self.fc_mu = Linear(in_features, latent_dim, device=device)
+        self.fc_var = Linear(in_features, latent_dim, device=device)
 
     def forward(self, feat: torch.Tensor):
         flat = feat.reshape(feat.shape[0], -1)
-        return self.fc_mu(flat), self.fc_var(flat)
+        return upcast32(self.fc_mu(flat)), upcast32(self.fc_var(flat))
 
 
 class DecoderInput(nn.Module):
@@ -315,7 +329,7 @@ class DecoderInput(nn.Module):
                  device=None):
         super().__init__()
         self.features, self.spatial = features, spatial
-        self.decoder_input = nn.Linear(latent_dim,
+        self.decoder_input = Linear(latent_dim,
                                        features * spatial * spatial,
                                        device=device)
 

@@ -212,10 +212,22 @@ class BaseVAE(nn.Module):
         raise NotImplementedError
 
 
-def check_dtype(dtype) -> None:
-    """Refuse a compute dtype other than float32 (ROADMAP A6)."""
-    if str(dtype) not in ("float32", "torch.float32"):
-        raise NotImplementedError(f"not ported yet: dtype={dtype!r}")
+#: the compute dtypes the port takes, by the names a YAML or flax gives
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_dtype(dtype, bf16: bool = False) -> torch.dtype:
+    """The torch dtype of a model's ``dtype`` field: "float32" or
+    "bfloat16" (or the torch dtype, or its ``str``). bfloat16 only where
+    the model is ported at it (``bf16``: CTMCQVAE, MCQVAE, VanillaVAE);
+    any other dtype, and bfloat16 elsewhere, raise ``NotImplementedError``
+    (ROADMAP A6)."""
+    name = str(dtype).replace("torch.", "")
+    got = COMPUTE_DTYPES.get(name)
+    if got is None or (got != torch.float32 and not bf16):
+        raise NotImplementedError(f"not ported yet: dtype={dtype!r} "
+                                  f"(ROADMAP A6)")
+    return got
 
 
 def dropout(x: torch.Tensor, rate: float, draws: Draws, train: bool

@@ -16,6 +16,19 @@ noise node of one normal draw per sample beside the action node (the
 identity pass draws it too and discards it, as JAX does, so later draws
 line up); ``noise='off'`` draws neither. An EMA codebook's revival draws
 (``update_stats``) come before the CT layer's.
+
+``dtype: bfloat16`` follows flax's split of storage and compute: the
+backbone's layers and the CT layer's ``a_dense`` / GAT ``lin_l`` /
+``lin_r`` keep float32 parameters and compute in bfloat16, the CT
+layer's own parameters (``disc_*``, ``mask_*``, the GAT's ``lin_edge`` /
+``att`` / ``bias``) are created in bfloat16, the codebook stays float32,
+and the one-hot sequences, the pairwise scores and the GAT run in
+bfloat16 (their kernels' bfloat16 instantiations). The Gumbel draws are
+float32, so the sampled graph, the intervention mask and whatever they
+touch promote to float32 as in JAX; the losses run in float32
+(``upcast32``). ``pairwise_block_rows`` / ``gat_block_cols`` chunk the
+plain (CPU) path as JAX's XLA path does; the kernels ignore them
+(``ops/pairwise.py``, ``ops/gat.py``).
 """
 
 from __future__ import annotations
@@ -29,10 +42,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.gat import GATv2Stack
+from ..ops.layers import Linear, set_compute_dtype
 from ..ops.pairwise import pairwise_mlp_scores
 from .backbones import VQDecoder, VQEncoder
-from .base import (Draws, cross_entropy_from_probs, dropout, grouped,
-                   mse_loss)
+from .base import (Draws, check_dtype, cross_entropy_from_probs, dropout,
+                   grouped, mse_loss)
 from .mcq_vae import MCQVAE
 from .quantizers import MultipleCodebookVectorQuantizer, codebook_perplexity
 
@@ -86,14 +100,20 @@ class _ProdLast(torch.autograd.Function):
 
 
 class CausalTransition(nn.Module):
-    """Operates on one-hot codebook distributions over S causal variables."""
+    """Operates on one-hot codebook distributions over S causal variables.
+    Its own parameters are created in ``param_dtype``; it computes in
+    ``compute_dtype``, which ``ops/layers.py::set_compute_dtype`` sets."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, input_dim: int, action_dim: int,
                  latent_dims: Optional[Sequence[int]] = None,
                  c_alpha: float = 0.7, c_beta: float = 0.4,
                  c_delta: float = 0.4, c_epsilon: float = 0.4,
                  dropout_rate: float = 0.1, max_len: int = 4096,
-                 noise: str = "off", *, device=None):
+                 noise: str = "off", pairwise_block_rows: Optional[int] = None,
+                 gat_block_cols: int = 0, param_dtype=torch.float32, *,
+                 device=None):
         super().__init__()
         if noise not in ("off", "exo", "endo"):
             raise ValueError(f"unknown noise {noise!r}")
@@ -104,14 +124,18 @@ class CausalTransition(nn.Module):
         self.c_alpha, self.c_beta = c_alpha, c_beta
         self.c_delta, self.c_epsilon = c_delta, c_epsilon
         self.dropout_rate = dropout_rate
-        self.a_dense = nn.Linear(A, N, device=device)
+        self.pairwise_block_rows = pairwise_block_rows
+        self.a_dense = Linear(A, N, device=device)
         self.register_buffer(
             "pe_table", torch.tensor(sinusoidal_pe(max_len, N),
-                                     dtype=torch.float32, device=device),
+                                     dtype=param_dtype, device=device),
             persistent=False)
 
+        # the layer's own parameters are created in ``param_dtype`` (flax
+        # creates them in its ``dtype``)
         def param(*shape):
-            return nn.Parameter(torch.zeros(*shape, device=device))
+            return nn.Parameter(torch.zeros(*shape, device=device,
+                                            dtype=param_dtype))
         # (A+1) pairwise discoverers, first layer factored into the
         # left/right halves of the concat; shapes as in the JAX params
         self.disc_w1l = param(A + 1, N, H)
@@ -121,7 +145,10 @@ class CausalTransition(nn.Module):
         self.disc_b2 = param(A + 1, 1)
         self.mask_kernel = param(A + N, N)
         self.mask_bias = param(N)
-        self.graph_transitioner = GATv2Stack(N, ld[1:], 1 + A, device=device)
+        self.graph_transitioner = GATv2Stack(
+            N, ld[1:], 1 + A, param_dtype=param_dtype,
+            block_cols=gat_block_cols,
+            device=device)
 
     # --- building blocks ----------------------------------------------
 
@@ -149,10 +176,12 @@ class CausalTransition(nn.Module):
 
     def _no_inter_scores(self, latent: torch.Tensor) -> torch.Tensor:
         """Discoverer-0 (no-intervention) pairwise scores [B, S, S]."""
-        u0 = latent @ self.disc_w1l[0]
-        v0 = latent @ self.disc_w1r[0]
+        lat = latent.to(self.compute_dtype)
+        u0 = lat @ self.disc_w1l[0]
+        v0 = lat @ self.disc_w1r[0]
         return pairwise_mlp_scores(u0, v0, self.disc_w2[0, :, 0],
-                                   self.disc_b2[0, 0], self.disc_b1[0])
+                                   self.disc_b2[0, 0], self.disc_b1[0],
+                                   block_rows=self.pairwise_block_rows)
 
     def _compute_adj(self, latent: torch.Tensor, action: torch.Tensor,
                      mask: torch.Tensor,
@@ -162,10 +191,12 @@ class CausalTransition(nn.Module):
         if no_inter is None:
             no_inter = self._no_inter_scores(latent)
         aid = 1 + torch.argmax(action, dim=-1)
-        ui = torch.einsum("bsn,bnh->bsh", latent, self.disc_w1l[aid])
-        vi = torch.einsum("bsn,bnh->bsh", latent, self.disc_w1r[aid])
+        lat = latent.to(self.compute_dtype)
+        ui = torch.einsum("bsn,bnh->bsh", lat, self.disc_w1l[aid])
+        vi = torch.einsum("bsn,bnh->bsh", lat, self.disc_w1r[aid])
         inter = pairwise_mlp_scores(ui, vi, self.disc_w2[aid, :, 0],
-                                    self.disc_b2[aid, 0], self.disc_b1[aid])
+                                    self.disc_b2[aid, 0], self.disc_b1[aid],
+                                    block_rows=self.pairwise_block_rows)
         return no_inter * (1 - mask) + inter * mask
 
     @staticmethod
@@ -196,7 +227,7 @@ class CausalTransition(nn.Module):
         nodes are the action node and, under ``noise='endo'``, a noise
         node."""
         B, S, N = latent.shape
-        action = action.to(latent.dtype)
+        action = action.to(self.compute_dtype)
         supports = [self.a_dense(action)]
         if self.noise == "exo":
             latent = latent + draws.normal(latent.shape).to(latent)
@@ -287,7 +318,7 @@ class CausalTransition(nn.Module):
                             y_inds[None, :, :, None].expand(A, B, S, 1))[..., 0]
         distances = nll.mean(-1).T                                # [B, A]
         probas = torch.softmax(-distances, dim=-1)
-        return probas, latent.new_zeros(()), {}
+        return probas, latent.new_zeros((), dtype=torch.float32), {}
 
     # --- losses & metrics -----------------------------------------------
 
@@ -365,17 +396,9 @@ class CTMCQVAE(nn.Module):
                  seq_axis: Optional[str] = None, dtype="float32", *,
                  device=None):
         super().__init__()
-        # the block options bound the workspace of JAX's XLA path, which
-        # the fused kernels never build
-        unsupported = {
-            "pairwise_block_rows (ROADMAP A6)": pairwise_block_rows is not None,
-            "gat_block_cols (ROADMAP A6)": bool(gat_block_cols),
-            "seq_axis (ROADMAP A8)": seq_axis is not None,
-            f"dtype={dtype!r} (ROADMAP A6)": str(dtype) not in (
-                "float32", "torch.float32")}
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        if seq_axis is not None:
+            raise NotImplementedError("not ported yet: seq_axis (ROADMAP A8)")
+        self.compute_dtype = dt = check_dtype(dtype, bf16=True)
         hd = tuple(hidden_dims) if hidden_dims else (128, 256)
         self.in_channels, self.embedding_dim = in_channels, embedding_dim
         self.action_dim, self.num_embeddings = action_dim, num_embeddings
@@ -391,9 +414,12 @@ class CTMCQVAE(nn.Module):
         self.ct_layer = CausalTransition(
             num_embeddings, action_dim, causal_hidden_dims, c_alpha=c_alpha,
             c_beta=c_beta, c_delta=c_delta, c_epsilon=c_epsilon,
-            dropout_rate=ct_dropout_rate, noise=noise, device=device)
+            dropout_rate=ct_dropout_rate, noise=noise,
+            pairwise_block_rows=pairwise_block_rows,
+            gat_block_cols=gat_block_cols, param_dtype=dt, device=device)
         self.decoder = VQDecoder(embedding_dim, hd, in_channels,
                                  device=device)
+        set_compute_dtype(self, dt)
 
     @property
     def device(self) -> torch.device:
@@ -412,7 +438,7 @@ class CTMCQVAE(nn.Module):
 
     def ct_preprocess(self, inds: torch.Tensor) -> torch.Tensor:
         """int inds [B, K, h, w] -> one-hot sequence [B, K*h*w, N]."""
-        one_hot = F.one_hot(inds, self.num_embeddings).float()
+        one_hot = F.one_hot(inds, self.num_embeddings).to(self.compute_dtype)
         return one_hot.reshape(inds.shape[0], -1, self.num_embeddings)
 
     def ct_postprocess(self, seq: torch.Tensor) -> torch.Tensor:

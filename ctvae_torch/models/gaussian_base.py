@@ -11,6 +11,10 @@ The forward takes the batch keys the loop passes every model (``mode``,
 batch statistics (and updates its running buffers) and the
 reparameterised ``z``; otherwise the running statistics and ``z = mu``.
 ``encode`` and ``sample`` run on the running statistics.
+``dtype: bfloat16`` (VanillaVAE only, ``BF16``) computes every layer in
+bfloat16 with float32 parameters and BatchNorm statistics, as flax's
+``dtype``; the heads' ``mu`` / ``log_var`` and the decoder's image come
+back in float32.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.layers import set_compute_dtype
 from .backbones import (DEFAULT_HIDDEN_DIMS, ConvDecoder, ConvEncoder,
                         DecoderInput, GaussianHead)
 from .base import BaseVAE, Draws, check_dtype, reparameterize
@@ -27,12 +32,15 @@ from .base import BaseVAE, Draws, check_dtype, reparameterize
 
 class StandardGaussianVAE(BaseVAE):
 
+    #: whether ``dtype: bfloat16`` is ported for the model (VanillaVAE)
+    BF16 = False
+
     def __init__(self, in_channels: int = 3, latent_dim: int = 128,
                  hidden_dims: Optional[Sequence[int]] = None,
                  img_size: int = 64, deterministic: bool = False,
                  dtype="float32", *, device=None):
         super().__init__()
-        check_dtype(dtype)
+        self.compute_dtype = check_dtype(dtype, bf16=type(self).BF16)
         hd = tuple(hidden_dims) if hidden_dims else DEFAULT_HIDDEN_DIMS
         self.in_channels, self.latent_dim = in_channels, latent_dim
         self.img_size, self.deterministic = img_size, deterministic
@@ -46,6 +54,7 @@ class StandardGaussianVAE(BaseVAE):
         self.decoder_input = DecoderInput(latent_dim, hd[-1], feat_hw,
                                           device=device)
         self.decoder = ConvDecoder(hd, in_channels, device=device)
+        set_compute_dtype(self, self.compute_dtype)
 
     @property
     def device(self) -> torch.device:

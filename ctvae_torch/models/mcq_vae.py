@@ -6,6 +6,9 @@ options (``grad_estimator``, ``ema``, ``ema_decay``,
 ``revive_threshold``: ``models/quantizers.py``). Its parameter names are
 those of the CTMCQVAE backbone (``encoder``, ``vq_layer``, ``decoder``),
 so a weights-only restore of its checkpoint lands in a CTMCQVAE.
+``dtype: bfloat16`` computes the backbone in bfloat16 with float32
+parameters, as flax's ``dtype``; the codebook stays float32 and the
+search runs on the latents upcast to it, as JAX's.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.layers import set_compute_dtype
 from .backbones import VQDecoder, VQEncoder
 from .base import Draws, check_dtype, mse_loss
 from .quantizers import MultipleCodebookVectorQuantizer, codebook_perplexity
@@ -31,7 +35,7 @@ class MCQVAE(nn.Module):
                  revive_threshold: float = 0.0, dtype="float32", *,
                  device=None):
         super().__init__()
-        check_dtype(dtype)
+        self.compute_dtype = check_dtype(dtype, bf16=True)
         hd = tuple(hidden_dims) if hidden_dims else (128, 256)
         self.in_channels, self.embedding_dim = in_channels, embedding_dim
         self.num_embeddings, self.codebooks = num_embeddings, codebooks
@@ -44,6 +48,7 @@ class MCQVAE(nn.Module):
             revive_threshold=revive_threshold, device=device)
         self.decoder = VQDecoder(embedding_dim, hd, in_channels,
                                  device=device)
+        set_compute_dtype(self, self.compute_dtype)
 
     @property
     def device(self) -> torch.device:

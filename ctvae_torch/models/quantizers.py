@@ -7,7 +7,9 @@ between, and the one-call quantizer (``__call__``) of the MCQVAE and of
 runs through ``ops/vq.py::l2_argmin`` (the CUDA kernel on CUDA tensors); quantized
 vectors come from a direct gather. ``slicing="chunk"`` gives disjoint
 per-codebook channel chunks, ``"overlap"`` the reference's stride-1
-slices.
+slices. At a bfloat16 compute dtype the codebook and the EMA statistics
+stay float32, and the straight-through sum of bfloat16 latents and the
+float32 codes is float32, as in JAX.
 
 ``grad_estimator="rotation"`` passes the gradient through ``rotate_to``
 (the rotation trick) instead of the straight-through identity.
@@ -35,6 +37,7 @@ from torch.nn import functional as F
 
 from ..ops.vq import l2_argmin
 from ..parallel.mesh import all_gather_rows, all_sum, batch_group
+from ..ops.common import upcast32
 from .base import Draws, ShardedDraws, mse_loss
 
 
@@ -117,8 +120,11 @@ class VectorQuantizerMS(nn.Module):
             self.embedding = nn.Parameter(torch.zeros(shape, device=device))
 
     def compute_inds(self, latents: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, D] -> int64 [B, H, W] (no gradient)."""
-        flat = latents.detach().reshape(-1, self.embedding_dim).contiguous()
+        """[B, H, W, D] -> int64 [B, H, W] (no gradient). The search runs
+        in float32 on the latents upcast, as JAX's ``l2_argmin`` upcasts
+        bfloat16 latents before its kernel."""
+        flat = upcast32(latents.detach()).reshape(
+            -1, self.embedding_dim).contiguous()
         inds = l2_argmin(flat, self.embedding.detach())
         return inds.reshape(latents.shape[:-1])
 

@@ -13,6 +13,8 @@ from .gaussian_base import StandardGaussianVAE
 
 class VanillaVAE(StandardGaussianVAE):
 
+    BF16 = True
+
     def loss_function(self, outputs: Dict, *, M_N: float = 1.0,
                       **kwargs) -> Dict:
         recons_loss = mse_loss(outputs["recons"], outputs["input"])

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``. The
 build runs at first use into ``ctvae_torch/_build/`` (listed in
-``.gitignore``); a library is named by the hash of its source and flags,
+``.gitignore``); a library is named by the hash of its source, the
+headers of ``csrc/`` (``elem.cuh``: the float32 / bfloat16 element
+types) and the flags,
 so a changed source is rebuilt and an unchanged one is reused. All
 missing libraries are compiled in parallel, one ``nvcc`` per source.
 """
@@ -38,8 +40,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    # the source, the headers of csrc/ it may include, and the flags
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, path), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

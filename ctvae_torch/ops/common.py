@@ -26,6 +26,21 @@ def upcast32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+#: the element types the kernels have instantiations for: float32 and
+#: bfloat16 (the JAX package's two compute dtypes)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_dtype(what: str, t: torch.Tensor) -> torch.dtype:
+    """The dtype of a kernel's main input ``t``, which every other input
+    that the JAX kernel holds in the compute dtype must share; raises for
+    a dtype without an instantiation (no silent cast)."""
+    if t.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{what}: no kernel for {t.dtype}; the kernels take "
+                        f"{', '.join(map(str, KERNEL_DTYPES))}")
+    return t.dtype
+
+
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """The device an entry point runs on: the caller's, else ``cuda``.

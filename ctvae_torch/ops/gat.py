@@ -29,7 +29,24 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from .common import upcast32
+from .layers import Linear
+
 NEG = -1e30
+
+
+def gat_logits32(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
+                 we: torch.Tensor, att: torch.Tensor, ns: float
+                 ) -> torch.Tensor:
+    """``gat_logits`` in at least float32 (every input upcast first, as
+    the JAX kernels load them), not rounded back."""
+    def bhf(p):
+        return p[:, None, None] if p.ndim == 3 else p
+    xl, xr, adj, we, att = map(upcast32, (xl, xr, adj, we, att))
+    pre = (xl[:, :, None, :, :] + xr[:, None, :, :, :]
+           + adj[:, :, :, None, None] * bhf(we))
+    act = torch.where(pre >= 0, pre, ns * pre)
+    return torch.sum(act * bhf(att), dim=-1)
 
 
 def gat_logits(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
@@ -37,13 +54,9 @@ def gat_logits(xl: torch.Tensor, xr: torch.Tensor, adj: torch.Tensor,
     """Edge logits ``e[b,s,t,h] = att_h . leaky(xl_s + xr_t + adj_st we_h)``.
 
     xl [B,S,H,F], xr [B,T,H,F], adj [B,S,T]; we/att [H,F] or per-sample
-    [B,H,F]. Returns [B, S, T, H] (the domain is materialised)."""
-    def bhf(p):
-        return p[:, None, None] if p.ndim == 3 else p
-    pre = (xl[:, :, None, :, :] + xr[:, None, :, :, :]
-           + adj[:, :, :, None, None] * bhf(we))
-    act = torch.where(pre >= 0, pre, ns * pre)
-    return torch.sum(act * bhf(att), dim=-1)
+    [B,H,F]. Returns [B, S, T, H] (the domain is materialised), computed
+    in float32 and returned in xl's dtype."""
+    return gat_logits32(xl, xr, adj, we, att, ns).to(xl.dtype)
 
 
 def masked_incoming_softmax(logits: torch.Tensor, edge_mask: torch.Tensor
@@ -75,21 +88,48 @@ def replace_self_loops(adj: torch.Tensor
 
 
 class DenseGATv2Layer(nn.Module):
-    """One GATv2 layer with ``heads`` heads of ``out_features`` each."""
+    """One GATv2 layer with ``heads`` heads of ``out_features`` each.
+
+    flax's ``dtype`` is split in two: ``lin_edge``, ``att`` and ``bias``
+    are created in ``param_dtype``; ``compute_dtype`` (float32 unless
+    ``ops/layers.py::set_compute_dtype`` sets it, as the models do) is
+    what ``lin_l`` / ``lin_r`` compute in (their parameters stay float32)
+    and what the kernels take the adjacency in. ``block_cols`` > 0
+    bounds the plain version's [B, S, C, H, F] workspace as JAX's XLA
+    path does: on CPU tensors the targets go through the attention
+    ``block_cols`` at a time (each target's softmax and sum read only its
+    own column, so the result is the unchunked one), and ``heads_call``
+    takes the chunked full-head forward and gathers its heads, as JAX
+    does. The CUDA kernels ignore it: they never build that workspace,
+    and where JAX on a TPU leaves its flash kernel for the chunked XLA
+    path, the port keeps the kernel, whose values are the same."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, in_features: int, out_features: int, heads: int = 1,
-                 negative_slope: float = 0.2, *, device=None):
+                 negative_slope: float = 0.2, *,
+                 param_dtype=torch.float32, block_cols: int = 0,
+                 device=None):
         super().__init__()
         self.heads, self.out_features = heads, out_features
         self.negative_slope = negative_slope
+        self.block_cols = block_cols
         hf = heads * out_features
-        self.lin_l = nn.Linear(in_features, hf, device=device)
-        self.lin_r = nn.Linear(in_features, hf, device=device)
+        self.lin_l = Linear(in_features, hf, device=device)
+        self.lin_r = Linear(in_features, hf, device=device)
         # edge_dim=1: We maps the scalar edge weight to [H, F]
-        self.lin_edge = nn.Parameter(torch.zeros(1, hf, device=device))
+        self.lin_edge = nn.Parameter(torch.zeros(1, hf, device=device,
+                                                 dtype=param_dtype))
         self.att = nn.Parameter(torch.zeros(heads, out_features,
-                                            device=device))
-        self.bias = nn.Parameter(torch.zeros(hf, device=device))
+                                            device=device, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(hf, device=device,
+                                             dtype=param_dtype))
+
+    def _chunked(self, x: torch.Tensor) -> bool:
+        """Whether the target axis goes in blocks: ``block_cols`` below
+        the node count, on the plain (CPU) path."""
+        return (0 < self.block_cols < x.shape[1]
+                and x.device.type == "cpu")
 
     def identity_call(self, x: torch.Tensor) -> torch.Tensor:
         """Exact fast path for an identity adjacency: each target's only
@@ -103,11 +143,21 @@ class DenseGATv2Layer(nn.Module):
         B, T, _ = x.shape
         H, Fo = self.heads, self.out_features
         adj, edge_mask = replace_self_loops(adj)
+        adj = adj.to(self.compute_dtype)
         xl = self.lin_l(x).reshape(B, T, H, Fo)
         xr = self.lin_r(x).reshape(B, T, H, Fo)
-        out = flash_gat(xl, xr, adj, edge_mask,
-                        self.lin_edge.reshape(H, Fo), self.att,
-                        self.negative_slope)
+        we = self.lin_edge.reshape(H, Fo)
+        if self._chunked(x):
+            C = self.block_cols
+            out = torch.cat([
+                flash_gat(xl, xr[:, c:c + C].contiguous(),
+                          adj[:, :, c:c + C].contiguous(),
+                          edge_mask[:, :, c:c + C].contiguous(), we,
+                          self.att, self.negative_slope)
+                for c in range(0, T, C)], dim=1)
+        else:
+            out = flash_gat(xl, xr, adj, edge_mask, we, self.att,
+                            self.negative_slope)
         return out.reshape(B, T, H * Fo) + self.bias
 
     def heads_call(self, x: torch.Tensor, adj: torch.Tensor,
@@ -119,14 +169,18 @@ class DenseGATv2Layer(nn.Module):
         B, T, _ = x.shape
         H, Fo = self.heads, self.out_features
         K = head_idx.shape[1]
-        adj, edge_mask = replace_self_loops(adj)
         hsel = head_idx[:, None, :, None].expand(B, T, K, Fo)
+        if self._chunked(x):
+            out = self(x, adj).reshape(B, T, H, Fo)
+            return torch.gather(out, 2, hsel)
+        adj, edge_mask = replace_self_loops(adj)
         xl = torch.gather(self.lin_l(x).reshape(B, T, H, Fo), 2, hsel)
         xr = torch.gather(self.lin_r(x).reshape(B, T, H, Fo), 2, hsel)
         we = self.lin_edge.reshape(H, Fo)[head_idx]            # [B, K, F]
         att = self.att[head_idx]
         bias = self.bias.reshape(H, Fo)[head_idx]
-        logits = fused_gat_logits(xl, xr, adj, we, att, self.negative_slope)
+        logits = fused_gat_logits(xl, xr, adj.to(self.compute_dtype), we,
+                                  att, self.negative_slope)
         alpha = masked_incoming_softmax(logits, edge_mask)
         out = torch.einsum("bstk,bskf->btkf", alpha, xl)
         return out + bias[:, None]
@@ -137,6 +191,7 @@ class GATv2Stack(nn.Module):
     every layer has ``heads`` heads and the last maps to ``input_dim``."""
 
     def __init__(self, input_dim: int, hidden: Sequence[int], heads: int, *,
+                 param_dtype=torch.float32, block_cols: int = 0,
                  device=None):
         super().__init__()
         dims = list(hidden) + [input_dim]
@@ -144,7 +199,9 @@ class GATv2Stack(nn.Module):
         for i, dim in enumerate(dims):
             # names follow the JAX param tree (DenseGATv2Layer_0, _1, ...)
             setattr(self, f"DenseGATv2Layer_{i}",
-                    DenseGATv2Layer(fin, dim, heads=heads, device=device))
+                    DenseGATv2Layer(fin, dim, heads=heads,
+                                    param_dtype=param_dtype,
+                                    block_cols=block_cols, device=device))
             fin = heads * dim
         self._n_layers = len(dims)
 

@@ -6,7 +6,9 @@ softmax) and its one-walk backward ``_fgl_bwd``. ``fused_gat_logits``
 calls the custom op ``ctvae::gat_logits_fwd`` (``ops/library.py``), whose
 CUDA kernel launches ``gat_logits_fwd`` of ``csrc/gat_logits.cu`` (which
 replaces ``scripts/bench_gat.py::pallas_logits``) and whose gradient,
-``ctvae::gat_logits_bwd``, launches ``gat_logits_bwd``. On CPU tensors the
+``ctvae::gat_logits_bwd``, launches ``gat_logits_bwd``; ``*_bf16`` are
+their bfloat16 instantiations (bfloat16 in device memory, float32 in
+registers and in the dwe / datt partials). On CPU tensors the
 ops run the plain ``ops/gat.py::gat_logits`` and the vjp of its autograd.
 The kernels never store the [B, S, T, K, F] domain; the backward walks
 only the pairs with a non-zero upstream gradient. ``fwd_occupancy`` /
@@ -21,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .common import check_cuda_tensor, check_smem, custom_ops
+from .common import check_cuda_tensor, check_smem, custom_ops, kernel_dtype
 
 #: launches of the forward / backward kernel since the last reset (set to 0)
 launches = 0
@@ -34,12 +36,14 @@ GRID_LIMIT = 65535   # the grids' y dimension: B x K (forward), B (backward)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gat_logits")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gat_logits_fwd.argtypes = [p] * 6 + [i] * 6 + [f, p]
-    lib.gat_logits_fwd.restype = ctypes.c_int
+    for fn in (lib.gat_logits_fwd, lib.gat_logits_fwd_bf16):
+        fn.argtypes = [p] * 6 + [i] * 6 + [f, p]
+        fn.restype = ctypes.c_int
     lib.gat_logits_fwd_smem_bytes.argtypes = [i] * 5
     lib.gat_logits_fwd_smem_bytes.restype = ctypes.c_size_t
-    lib.gat_logits_bwd.argtypes = [p] * 10 + [i] * 6 + [f, p]
-    lib.gat_logits_bwd.restype = ctypes.c_int
+    for fn in (lib.gat_logits_bwd, lib.gat_logits_bwd_bf16):
+        fn.argtypes = [p] * 10 + [i] * 6 + [f, p]
+        fn.restype = ctypes.c_int
     lib.gat_logits_bwd_parts.argtypes = [i, i, i]
     lib.gat_logits_bwd_parts.restype = ctypes.c_int
     lib.gat_logits_bwd_smem_bytes.argtypes = [i] * 4
@@ -48,16 +52,18 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(xl, xr, adj, we, att, ns) -> Tuple[int, ...]:
-    """Validate the kernels' arguments; returns (B, S, T, K, F, the batch
-    stride of we / att: K*F per sample, 0 shared)."""
+    """Validate the kernels' arguments (all of one dtype, float32 or
+    bfloat16); returns (B, S, T, K, F, the batch stride of we / att: K*F
+    per sample, 0 shared)."""
     B, S, K, F = xl.shape
     T = xr.shape[1]
-    check_cuda_tensor("xl", xl, torch.float32, (B, S, K, F))
-    check_cuda_tensor("xr", xr, torch.float32, (B, T, K, F))
-    check_cuda_tensor("adj", adj, torch.float32, (B, S, T))
+    dt = kernel_dtype("fused_gat_logits", xl)
+    check_cuda_tensor("xl", xl, dt, (B, S, K, F))
+    check_cuda_tensor("xr", xr, dt, (B, T, K, F))
+    check_cuda_tensor("adj", adj, dt, (B, S, T))
     pshape = (B, K, F) if we.dim() == 3 else (K, F)
-    check_cuda_tensor("we", we, torch.float32, pshape)
-    check_cuda_tensor("att", att, torch.float32, pshape)
+    check_cuda_tensor("we", we, dt, pshape)
+    check_cuda_tensor("att", att, dt, pshape)
     if F > _MAX_F:
         raise ValueError(f"fused_gat_logits takes at most {_MAX_F} features "
                          f"per head, got {F}")
@@ -69,8 +75,8 @@ def _check(xl, xr, adj, we, att, ns) -> Tuple[int, ...]:
 def fused_gat_logits_cuda(xl: torch.Tensor, xr: torch.Tensor,
                           adj: torch.Tensor, we: torch.Tensor,
                           att: torch.Tensor, ns: float) -> torch.Tensor:
-    """Launch the forward kernel; float32 contiguous inputs. Returns the
-    logits [B, S, T, K]."""
+    """Launch the forward kernel; contiguous inputs of one dtype (float32
+    or bfloat16). Returns the logits [B, S, T, K] in that dtype."""
     global launches
     B, S, T, K, F, wstride = _check(xl, xr, adj, we, att, ns)
     if B * K > GRID_LIMIT:
@@ -81,7 +87,9 @@ def fused_gat_logits_cuda(xl: torch.Tensor, xr: torch.Tensor,
                 lib.gat_logits_fwd_smem_bytes(B, S, T, K, F))
     out = xl.new_empty((B, S, T, K))
     stream = torch.cuda.current_stream(xl.device).cuda_stream
-    _build.check(lib.gat_logits_fwd(
+    fwd = (lib.gat_logits_fwd if xl.dtype == torch.float32
+           else lib.gat_logits_fwd_bf16)
+    _build.check(fwd(
         xl.data_ptr(), xr.data_ptr(), adj.data_ptr(), we.data_ptr(),
         att.data_ptr(), out.data_ptr(), B, S, T, K, F, wstride, ns, stream),
         "gat_logits_fwd")
@@ -99,10 +107,11 @@ def fused_gat_logits_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor,
     kernel writes dxl, dxr and dadj (summed over heads) and per-block
     dwe / datt partials, which are summed here in one reduction (over the
     blocks, and for shared heads the batch, as the JAX package sums
-    them)."""
+    them) and cast once to we's dtype. dxl, dxr and dadj come in the
+    inputs' dtype."""
     global bwd_launches
     B, S, T, K, F, wstride = _check(xl, xr, adj, we, att, ns)
-    check_cuda_tensor("d_e", d_e, torch.float32, (B, S, T, K))
+    check_cuda_tensor("d_e", d_e, xl.dtype, (B, S, T, K))
     if B > GRID_LIMIT:
         raise ValueError(f"fused_gat_logits backward: batch {B} above the "
                          f"grid's {GRID_LIMIT}")
@@ -114,15 +123,17 @@ def fused_gat_logits_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor,
                lib.gat_logits_bwd_smem_bytes(B, S, T, F))
     dxl, dxr = torch.empty_like(xl), torch.empty_like(xr)
     dadj = xl.new_empty((B, S, T))
-    part = xl.new_empty((B, parts, 2, K, F))
+    part = xl.new_empty((B, parts, 2, K, F), dtype=torch.float32)
     stream = torch.cuda.current_stream(xl.device).cuda_stream
-    _build.check(lib.gat_logits_bwd(
+    bwd = (lib.gat_logits_bwd if xl.dtype == torch.float32
+           else lib.gat_logits_bwd_bf16)
+    _build.check(bwd(
         xl.data_ptr(), xr.data_ptr(), adj.data_ptr(), we.data_ptr(),
         att.data_ptr(), d_e.data_ptr(), dxl.data_ptr(), dxr.data_ptr(),
         dadj.data_ptr(), part.data_ptr(), B, S, T, K, F, wstride, ns,
         stream), "gat_logits_bwd")
     bwd_launches += 1
-    return dxl, dxr, dadj, part.sum(1 if wstride else (0, 1))
+    return dxl, dxr, dadj, part.sum(1 if wstride else (0, 1)).to(we.dtype)
 
 
 def _occupancy(fn, *shape) -> dict:

@@ -25,6 +25,11 @@ its wrapper sums their partials in one reduction. A
 backward op's CPU kernel is the vjp of the plain version's own autograd,
 so CPU gradients are those the plain version always gave. ``gat_fwd``
 has none: the wrapper takes ``gat_fwd_alpha`` when autograd needs it.
+The ops take float32 or bfloat16 (the JAX package's compute dtypes,
+each with its own kernel instantiation) and give every output the dtype
+JAX's kernel gives it: the input dtype, but GAT's alpha residual
+(float32) and the gradients, which are summed in float32 and cast once
+to their input's dtype.
 Importing this module registers the ops (``ops/__init__.py`` does); it
 imports nothing of the models. A copy of the package imported under
 another name registers its own namespace (``common.OPS_NAMESPACE``).
@@ -38,10 +43,9 @@ import torch
 from torch import Tensor
 
 from . import gat_flash, gat_logits, pairwise_flash, vq
-from .common import OPS_NAMESPACE
+from .common import OPS_NAMESPACE, upcast32
 from .gat import gat_logits as plain_gat_logits
-from .gat import masked_incoming_softmax
-from .pairwise import fused_pairwise_scores
+from .pairwise import fused_pairwise_scores, pairwise_logits
 
 _C = torch._C
 _AUTOGRAD_KEYS = (_C.DispatchKey.AutogradFunctionality,
@@ -68,9 +72,9 @@ def _plain_vjp(fn, inputs: Sequence[Tensor], grad: Tensor, *args
 
 
 def _fold(g: Tensor, p: Tensor) -> Tensor:
-    """A per-sample gradient in the param's shape: summed over the batch
-    when the param was shared."""
-    return g if g.shape == p.shape else g.sum(0)
+    """A per-sample float32 gradient in the param's shape and dtype:
+    summed over the batch when the param was shared, then cast once."""
+    return (g if g.shape == p.shape else g.sum(0)).to(p.dtype)
 
 
 # --- the VQ search -----------------------------------------------------------
@@ -118,8 +122,13 @@ def pairwise_bwd(xl: Tensor, xr: Tensor, w2: Tensor, b1: Tensor,
                  b2: Tensor, out: Tensor, dout: Tensor, ns: float
                  ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """Gradients of ``pairwise_fwd`` (whose output is ``out``) against
-    ``dout``: dxl, dxr, dw2, db1, db2 in the inputs' shapes."""
-    return _plain_vjp(fused_pairwise_scores, (xl, xr, w2, b1, b2), dout, ns)
+    ``dout``: dxl, dxr, dw2, db1, db2 in the inputs' shapes and dtypes.
+    As the JAX kernel, the sigmoid's gradient reads the output residual
+    as stored (bfloat16 scores at bfloat16), ``dout (1 - out) out`` in
+    float32, and the rest is the vjp of the float32 logits."""
+    out32 = upcast32(out)
+    dz = upcast32(dout) * (1 - out32) * out32
+    return _plain_vjp(pairwise_logits, (xl, xr, w2, b1, b2), dz, ns)
 
 
 @pairwise_bwd.register_kernel("cuda")
@@ -151,11 +160,10 @@ pairwise_fwd.register_autograd(_pairwise_backward,
 # --- the GATv2 attention -----------------------------------------------------
 
 def _plain_gat(xl, xr, adj, mask, we, att, ns):
-    """(out [B,T,H,F], alpha [B,H,T,S]) of the plain version."""
-    logits = plain_gat_logits(xl, xr, adj, we, att, ns)
-    alpha = masked_incoming_softmax(logits, mask)
-    return (torch.einsum("bsth,bshf->bthf", alpha, xl).contiguous(),
-            alpha.permute(0, 3, 2, 1).contiguous())
+    """(out [B,T,H,F], the float32 alpha [B,H,T,S]) of the plain
+    version."""
+    out, alpha = gat_flash.plain_gat(xl, xr, adj, mask, we, att, ns)
+    return out.contiguous(), alpha.permute(0, 3, 2, 1).contiguous()
 
 
 @torch.library.custom_op(f"{OPS_NAMESPACE}::gat_fwd",
@@ -198,7 +206,7 @@ def _(xl, xr, adj, mask, we, att, ns):
     B, S, H, _ = xl.shape
     T = xr.shape[1]
     return (xl.new_empty((B, T, *xl.shape[2:])),
-            xl.new_empty((B, H, T, S)))
+            xl.new_empty((B, H, T, S), dtype=torch.float32))
 
 
 @torch.library.custom_op(f"{OPS_NAMESPACE}::gat_bwd",

@@ -5,8 +5,11 @@ calls the custom op ``ctvae::pairwise_fwd`` (``ops/library.py``), whose
 CUDA kernel launches ``pairwise_fwd`` and whose gradient,
 ``ctvae::pairwise_bwd``, launches ``pairwise_bwd``, both in
 ``csrc/pairwise.cu`` (which replace the TPU ``_fwd_kernel`` and
-``_bwd_kernel``). The residual is the [B, S, T] output, as in JAX; the
-[B, S, T, Hd] domain never exists in device memory. The forward's
+``_bwd_kernel``), each in a float32 and a bfloat16 instantiation
+(``pairwise_fwd_bf16`` / ``pairwise_bwd_bf16``: bfloat16 in device
+memory, float32 in registers, as JAX's kernels upcast at the load). The
+residual is the [B, S, T] output, as in JAX; the [B, S, T, Hd] domain
+never exists in device memory. The forward's
 blocks split each sample's hidden units over a thread-block cluster
 (``fwd_occupancy`` reads the split a launch takes). On CPU tensors the
 ops run the plain ``ops/pairwise.py::fused_pairwise_scores`` and the vjp
@@ -21,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .common import check_cuda_tensor, check_smem, custom_ops
+from .common import check_cuda_tensor, check_smem, custom_ops, kernel_dtype
 
 #: launches of the forward / backward kernel since the last reset (set to 0)
 launches = 0
@@ -31,12 +34,13 @@ bwd_launches = 0
 def _lib() -> ctypes.CDLL:
     lib = _build.load("pairwise")
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.pairwise_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i64, i64, i64,
-                                 ctypes.c_float, p]
-    lib.pairwise_fwd.restype = ctypes.c_int
-    lib.pairwise_bwd.argtypes = [p] * 11 + [i, i, i, i, i64, i64,
-                                            ctypes.c_float, p]
-    lib.pairwise_bwd.restype = ctypes.c_int
+    for fn in (lib.pairwise_fwd, lib.pairwise_fwd_bf16):
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i64, i64, i64,
+                       ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.pairwise_bwd, lib.pairwise_bwd_bf16):
+        fn.argtypes = [p] * 11 + [i, i, i, i, i64, i64, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
     lib.pairwise_bwd_smem_bytes.argtypes = [i, i]
     lib.pairwise_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.pairwise_bwd_blocks_per_sm.argtypes = [i, i, p, p]
@@ -50,14 +54,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _param(name: str, p: torch.Tensor, B: int, shape: tuple, row: int
-           ) -> int:
-    """Validate a shared ([*shape]) or per-sample ([B, *shape]) param and
-    return its batch stride in elements (0 when shared)."""
+def _param(name: str, p: torch.Tensor, B: int, shape: tuple, row: int,
+           dtype: torch.dtype) -> int:
+    """Validate a shared ([*shape]) or per-sample ([B, *shape]) param of
+    ``dtype`` and return its batch stride in elements (0 when shared)."""
     if tuple(p.shape) == shape:
-        check_cuda_tensor(name, p, torch.float32, shape)
+        check_cuda_tensor(name, p, dtype, shape)
         return 0
-    check_cuda_tensor(name, p, torch.float32, (B,) + shape)
+    check_cuda_tensor(name, p, dtype, (B,) + shape)
     return row
 
 
@@ -74,16 +78,18 @@ GRID_LIMIT = 65535
 def flash_pairwise_cuda(xl: torch.Tensor, xr: torch.Tensor, w2: torch.Tensor,
                         b1: torch.Tensor, b2: torch.Tensor, ns: float
                         ) -> torch.Tensor:
-    """Launch the forward kernel. xl [B,S,Hd], xr [B,T,Hd] float32
-    contiguous; w2/b1 [Hd] or [B,Hd]; b2 scalar or [B]. Returns [B, S, T]."""
+    """Launch the forward kernel. xl [B,S,Hd], xr [B,T,Hd] contiguous,
+    float32 or bfloat16 (every input of one dtype); w2/b1 [Hd] or [B,Hd];
+    b2 scalar or [B]. Returns the scores [B, S, T] in that dtype."""
     global launches
     B, S, H = xl.shape
     T = xr.shape[1]
-    check_cuda_tensor("xl", xl, torch.float32, (B, S, H))
-    check_cuda_tensor("xr", xr, torch.float32, (B, T, H))
-    w2_stride = _param("w2", w2, B, (H,), H)
-    b1_stride = _param("b1", b1, B, (H,), H)
-    b2_stride = _param("b2", b2, B, (), 1)
+    dt = kernel_dtype("flash_pairwise", xl)
+    check_cuda_tensor("xl", xl, dt, (B, S, H))
+    check_cuda_tensor("xr", xr, dt, (B, T, H))
+    w2_stride = _param("w2", w2, B, (H,), H, dt)
+    b1_stride = _param("b1", b1, B, (H,), H, dt)
+    b2_stride = _param("b2", b2, B, (), 1, dt)
     _check_slope(ns)
     tiles = -(-S // 64) * -(-T // 64)
     if B > GRID_LIMIT or tiles > GRID_LIMIT:
@@ -92,9 +98,10 @@ def flash_pairwise_cuda(xl: torch.Tensor, xr: torch.Tensor, w2: torch.Tensor,
     lib = _lib()
     check_smem(f"flash_pairwise: S={S}, T={T}, Hd={H}",
                lib.pairwise_fwd_smem_bytes())
-    out = torch.empty((B, S, T), dtype=torch.float32, device=xl.device)
+    out = torch.empty((B, S, T), dtype=dt, device=xl.device)
     stream = torch.cuda.current_stream(xl.device).cuda_stream
-    _build.check(lib.pairwise_fwd(
+    fwd = lib.pairwise_fwd if dt == torch.float32 else lib.pairwise_fwd_bf16
+    _build.check(fwd(
         xl.data_ptr(), xr.data_ptr(), w2.data_ptr(), b1.data_ptr(),
         b2.data_ptr(), out.data_ptr(), B, S, T, H, w2_stride, b1_stride,
         b2_stride, ns, stream), "pairwise_fwd")
@@ -107,29 +114,34 @@ def flash_pairwise_bwd_cuda(xl: torch.Tensor, xr: torch.Tensor,
                             out: torch.Tensor, dout: torch.Tensor, ns: float
                             ) -> Tuple[torch.Tensor, ...]:
     """Launch the backward kernel on the forward's inputs, its output
-    ``out`` and the output gradient ``dout`` [B, S, T]. Returns dxl
-    [B,S,Hd], dxr [B,T,Hd] and the per-sample dw2 [B,Hd], db1 [B,Hd],
-    db2 [B] (``ctvae::pairwise_bwd`` sums them over B for a shared
-    param)."""
+    ``out`` and the output gradient ``dout`` [B, S, T] (all of one dtype,
+    float32 or bfloat16). Returns dxl [B,S,Hd], dxr [B,T,Hd] in that
+    dtype and the per-sample float32 sums dw2 [B,Hd], db1 [B,Hd], db2 [B]
+    (``ctvae::pairwise_bwd`` sums them over B for a shared param and casts
+    them to the param's dtype)."""
     global bwd_launches
     B, S, H = xl.shape
     T = xr.shape[1]
-    check_cuda_tensor("xl", xl, torch.float32, (B, S, H))
-    check_cuda_tensor("xr", xr, torch.float32, (B, T, H))
-    check_cuda_tensor("out", out, torch.float32, (B, S, T))
-    check_cuda_tensor("dout", dout, torch.float32, (B, S, T))
-    w2_stride = _param("w2", w2, B, (H,), H)
-    b1_stride = _param("b1", b1, B, (H,), H)
+    dt = kernel_dtype("flash_pairwise backward", xl)
+    check_cuda_tensor("xl", xl, dt, (B, S, H))
+    check_cuda_tensor("xr", xr, dt, (B, T, H))
+    check_cuda_tensor("out", out, dt, (B, S, T))
+    check_cuda_tensor("dout", dout, dt, (B, S, T))
+    w2_stride = _param("w2", w2, B, (H,), H, dt)
+    b1_stride = _param("b1", b1, B, (H,), H, dt)
     _check_slope(ns)
     if H == 0:
         raise ValueError("flash_pairwise backward needs Hd > 0")
     lib = _lib()
     check_smem(f"flash_pairwise backward: S={S}, T={T}",
                lib.pairwise_bwd_smem_bytes(S, T))
+    f32 = torch.float32
     grads = (torch.empty_like(xl), torch.empty_like(xr),
-             xl.new_empty((B, H)), xl.new_empty((B, H)), xl.new_empty((B,)))
+             xl.new_empty((B, H), dtype=f32), xl.new_empty((B, H), dtype=f32),
+             xl.new_empty((B,), dtype=f32))
     stream = torch.cuda.current_stream(xl.device).cuda_stream
-    _build.check(lib.pairwise_bwd(
+    bwd = lib.pairwise_bwd if dt == f32 else lib.pairwise_bwd_bf16
+    _build.check(bwd(
         xl.data_ptr(), xr.data_ptr(), w2.data_ptr(), b1.data_ptr(),
         out.data_ptr(), dout.data_ptr(), *(g.data_ptr() for g in grads),
         B, S, T, H, w2_stride, b1_stride, ns, stream), "pairwise_bwd")

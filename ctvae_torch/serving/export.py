@@ -61,6 +61,11 @@ def export_fn(fn: nn.Module, example_args: Sequence[torch.Tensor], *,
     dimension of size 1 for a constant, so an example batch of 1 is traced
     with its rows repeated to 2; the program serves a batch of 1 all the
     same."""
+    dtype = getattr(getattr(fn, "model", None), "compute_dtype",
+                    torch.float32)
+    if dtype != torch.float32:
+        raise NotImplementedError(f"not ported yet: the export of a model "
+                                  f"at {dtype} (ROADMAP A6)")
     args = tuple(example_args)
     dynamic = None
     if poly_batch:

@@ -195,6 +195,11 @@ class VAEXperiment:
         self.lr_schedules = build_lr_schedules(self.params, spe)
         self.seed = seed
         if torch.distributed.is_initialized():
+            dtype = getattr(self.model, "compute_dtype", torch.float32)
+            if dtype != torch.float32:
+                raise NotImplementedError(
+                    f"not ported yet: sharding {self.sharding!r} over "
+                    f"ranks of a model at {dtype} (ROADMAP A6)")
             self.mesh = (make_hybrid_mesh(self.dcn_replicas)
                          if self.dcn_replicas > 1 else make_mesh())
             self.group = mesh_batch_group(self.mesh)

@@ -1758,3 +1758,130 @@ def test_two_gloo_ranks_on_the_card_equal_one_process(card, which,
         for n, t in r0[i]["params"].items():
             assert torch.equal(t, r1[i]["params"][n]), n
         _assert_like_one_process(r0[i], want[i], exp["LR"])
+
+
+# --- the bfloat16 instantiations ------------------------------------------
+
+#: one bfloat16 ulp, relative (2^-8: 8 significant bits); a bfloat16
+#: output of the kernel and of the plain version is the same float32 value
+#: up to the order of its sums, rounded once, so the two are at most one
+#: spacing (2^-7 relative at worst) apart, plus 1e-5 of the output's scale
+#: where a sum cancels
+BF16_ULP = 2.0 ** -8
+
+
+def _bf16_case(rng, name, shape, per_sample=True):
+    """CUDA arguments of op ``name`` at ``shape``, every float input that
+    JAX holds in the compute dtype in bfloat16 (GAT's alpha residual in
+    float32, from the plain forward)."""
+    from ctvae_torch.ops import library
+
+    def b(*s, scale=1.0):
+        return _t(rng, *s, scale=scale).to(torch.bfloat16)
+    if name.startswith("pairwise"):
+        B, S, T, H = shape
+        pshape = (B, H) if per_sample else (H,)
+        pw = (b(B, S, H, scale=0.5), b(B, T, H, scale=0.5),
+              b(*pshape, scale=H ** -0.5), b(*pshape, scale=0.1),
+              b(*pshape[:-1], scale=0.1))
+        if name == "pairwise_fwd":
+            return (*pw, 0.01)
+        out = library.pairwise_fwd(*(a.cpu() for a in pw), 0.01).cuda()
+        dout = b(B, S, T)
+        dout[:, ::3] = 0.0            # rows without a gradient
+        return (*pw, out, dout, 0.01)
+    if name.startswith("gat_logits"):
+        B, S, T, K, F = shape
+        xl, xr, adj, we, att = (
+            a.to(torch.bfloat16)
+            for a in _logits_args(rng, B, S, T, K, F, per_sample))
+        if name == "gat_logits_fwd":
+            return (xl, xr, adj, we, att, 0.2)
+        d_e = b(B, S, T, K)
+        d_e[:, :, 3] = 0.0
+        return (xl, xr, adj, we, att, d_e, 0.2)
+    B, S, T, H, F = shape
+    xl, xr, adj, mask, we, att = _gat_args(rng, B, S, T, H, F)
+    xl, xr, adj, we, att = (a.to(torch.bfloat16)
+                            for a in (xl, xr, adj, we, att))
+    if name in ("gat_fwd", "gat_fwd_alpha"):
+        return (xl, xr, adj, mask, we, att, 0.2)
+    _, alpha = library.gat_fwd_alpha(
+        *(a.cpu() for a in (xl, xr, adj, mask, we, att)), 0.2)
+    return (xl, xr, adj, mask, we, att, alpha.cuda(), b(B, T, H, F), 0.2)
+
+
+BF16_CASES = [
+    # pairwise: ragged S != T, Hd not a multiple of 4 (element staging),
+    # the headline's A*B = 192, and S = T past 120 (dout read from device
+    # memory) up to the largest tile
+    ("pairwise", (3, 7, 13, 24)), ("pairwise", (3, 65, 13, 801)),
+    ("pairwise", (16, 64, 64, 800)), ("pairwise", (192, 64, 64, 800)),
+    ("pairwise", (3, 128, 128, 100)), ("pairwise", (2, 152, 152, 100)),
+    # GAT: F below a warp and not a multiple of 4, the headline's 65
+    # nodes, T = 16, and past 124 nodes (the scratch over the dout tile)
+    ("gat", (3, 9, 9, 3, 5)), ("gat", (3, 7, 11, 2, 40)),
+    ("gat", (3, 65, 65, 13, 100)), ("gat", (3, 16, 16, 2, 40)),
+    ("gat", (3, 129, 129, 13, 100)), ("gat", (2, 133, 133, 2, 100)),
+    # per-head logits: F = 5 (element staging), the headline B = 16 and
+    # A*B = 192 at K = 2, 129 nodes
+    ("gat_logits", (3, 9, 9, 2, 5)), ("gat_logits", (3, 7, 11, 3, 40)),
+    ("gat_logits", (16, 65, 65, 2, 64)), ("gat_logits", (192, 65, 65, 2, 64)),
+    ("gat_logits", (3, 129, 129, 13, 100))]
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("kernel,shape,per_sample", [
+    (k, s, p) for k, s in BF16_CASES
+    # the GAT's we / att are shared only
+    for p in ((False,) if k == "gat" else (False, True))])
+def test_bf16_kernels_match_plain(card, kernel, shape, direction,
+                                  per_sample):
+    """Each kernel's bfloat16 instantiation (its op on CUDA tensors, one
+    launch) against the same op on CPU copies, the plain version at
+    bfloat16: outputs in the same dtypes (bfloat16 but GAT's alpha and
+    the float32 sums the ops cast once), within two bfloat16 ulps of each
+    element plus 1e-5 of the output's scale; two runs agree bit for bit."""
+    from ctvae_torch.ops import launch_counts
+    from ctvae_torch.ops.common import custom_ops
+    name = f"{kernel}_{direction}"
+    op_name = "gat_fwd_alpha" if name == "gat_fwd" else name
+    rng = np.random.default_rng(sum(shape) + per_sample)
+    args = _bf16_case(rng, op_name, shape, per_sample)
+    op = getattr(custom_ops(), op_name)
+    before = launch_counts()
+    got = op(*args)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {name: 1}
+    want = op(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype, i
+        g, w = g.cpu().float(), w.float()
+        scale = max(1.0, float(w.abs().max()))
+        err = (g - w).abs() - 2 * BF16_ULP * w.abs()
+        assert float(err.max()) <= 1e-5 * scale, (name, i, float(err.max()))
+    again = op(*args)
+    again = (again,) if torch.is_tensor(again) else again
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+def test_bf16_kernels_refuse_mixed_dtypes(card):
+    """A kernel argument whose dtype is not the main input's raises (no
+    silent cast), and a dtype without an instantiation too."""
+    from ctvae_torch.ops import gat_flash as gf
+    from ctvae_torch.ops import pairwise_flash as pf
+    rng = np.random.default_rng(3)
+    xl, xr, w2, b1, b2 = _bf16_case(rng, "pairwise_fwd", (2, 5, 5, 8))[:5]
+    with pytest.raises(TypeError):
+        pf.flash_pairwise_cuda(xl, xr, w2.float(), b1, b2, 0.01)
+    with pytest.raises(TypeError):
+        pf.flash_pairwise_cuda(xl.half(), xr.half(), w2.half(), b1.half(),
+                               b2.half(), 0.01)
+    args = list(_bf16_case(rng, "gat_fwd", (2, 9, 9, 3, 8)))
+    args[2] = args[2].float()
+    with pytest.raises(TypeError):
+        gf.flash_gat_cuda(*args)

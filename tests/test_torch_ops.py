@@ -83,10 +83,21 @@ def test_pairwise_plain_matches_xla_and_pallas(per_sample, S, T):
 
 
 def test_pairwise_block_rows_not_ported():
-    xl = torch.zeros(1, 4, 3)
-    with pytest.raises(NotImplementedError):
-        pairwise_mlp_scores(xl, xl, torch.zeros(3), torch.zeros(()),
-                            torch.zeros(3), block_rows=2)
+    """``block_rows`` (ported since; the name is kept): on CPU tensors the
+    rows go through the plain version in blocks, equal to the unchunked
+    scores (rows are independent) within 1e-6 (torch sums a block's
+    hidden units in another vector order), also where the blocks do not
+    divide S and where one block takes every row."""
+    rng = np.random.default_rng(4)
+    xl, xr = (torch.from_numpy(rng.normal(size=(2, 7, 3)).astype(np.float32))
+              for _ in range(2))
+    w2, b1 = (torch.from_numpy(rng.normal(size=(3,)).astype(np.float32))
+              for _ in range(2))
+    b2 = torch.tensor(0.1)
+    want = pairwise_mlp_scores(xl, xr, w2, b2, b1)
+    for rows in (1, 2, 3, 7, 9):
+        close(t2n(pairwise_mlp_scores(xl, xr, w2, b2, b1, block_rows=rows)),
+              t2n(want), atol=1e-6, rtol=0)
 
 
 @pytest.mark.usefixtures("one_torch_thread")
