@@ -216,6 +216,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import math
 import os
@@ -5191,6 +5192,9 @@ EXPORT_CPU_B = 2           # the same files moved to the CPU
 EXPORT_ZOO_B = 64          # the zoo configs' batch
 EXPORT_REQUESTS = 21       # timed requests per entry point; the first warms
 EXPORT_RTOL, EXPORT_ATOL = 1e-4, 1e-5   # artifact vs live (the same ops)
+#: the dtypes each case is exported at: float32 (the path "export") and the
+#: JAX bench's bfloat16 (the path "export_bf16")
+EXPORT_DTYPES = ("float32", "bfloat16")
 #: label -> (config, entry points) of the artifacts the phase exports
 EXPORT_CASES = {
     "ct_mcq_vae": ("ct_mcq_vae.yaml", ("reconstruct", "encode", "sample",
@@ -5201,20 +5205,20 @@ EXPORT_CASES = {
 _BWD = ("pairwise_bwd", "gat_bwd", "gat_logits_bwd")
 
 # run in a fresh process: loads each artifact with ctvae_torch.serving.
-# export alone (no model code), serves the saved requests on the card, and
-# the B = 2 ones on the card and through the files moved to the CPU
+# export alone (no model code; each file read once), serves the saved
+# requests on the card, and the B = 2 ones on the card and through the
+# programs moved to the CPU
 EXPORT_SERVER = """
 import json, sys
 import torch
 torch.backends.cuda.matmul.allow_tf32 = False   # full float32, as here
 torch.backends.cudnn.allow_tf32 = False
 from ctvae_torch.ops import launch_counts
-from ctvae_torch.serving.export import load_artifact
+from ctvae_torch.serving.export import load_artifact_on
 requests, outputs = sys.argv[1:]
 out = {}
 for label, case in torch.load(requests).items():
-    card, manifest = load_artifact(case["dir"])
-    cpu, _ = load_artifact(case["dir"], device="cpu")
+    (card, cpu), manifest = load_artifact_on(case["dir"], [None, "cpu"])
     assert all(f["device"].startswith("cuda")
                for f in manifest["functions"].values()), manifest
     out[label] = {
@@ -5274,37 +5278,80 @@ def _held(label: str, got, want, rtol: float, atol: float) -> float:
     return float(err.max())
 
 
+def _export_held(label: str, name: str, got, want, dtype: str,
+                 cpu: bool) -> float:
+    """An artifact's output against a reference at the case's dtype:
+    against the live port on the card (``cpu`` False) at float32 within
+    rtol 1e-4 / atol 1e-5, at bfloat16 within ``export_model.BF16_ULPS``
+    bfloat16 ulps of the output's scale (the same operations in the same
+    order: ``export_model.verify``'s bound); the files moved to the CPU
+    against the card's output at float32 within ``SERVE_ATOL``, at
+    bfloat16 by ``_bf16_card_cpu``'s rule (card and CPU round bfloat16 in
+    other places and can flip a decision at a near-tie). Returns max
+    |got - want|."""
+    from ctvae_torch.export_model import BF16_ULPS
+    what = f"export {label} {name}"
+    if dtype == "float32":
+        return _held(what, got, want, *((0.0, SERVE_ATOL) if cpu
+                                        else (EXPORT_RTOL, EXPORT_ATOL)))
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} "
+                             f"against {want.dtype} {tuple(want.shape)}")
+    got, want = got.float().cpu(), want.float().cpu()
+    if cpu:
+        ok, m = _bf16_card_cpu(name, want, got)
+    else:
+        scale = max(1.0, float(want.abs().max()))
+        m = {"max_abs_err": float((got - want).abs().max())}
+        ok = m["max_abs_err"] <= BF16_ULPS * BF16_ULP * scale
+    if not ok or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: {m}")
+    return m["max_abs_err"]
+
+
 def phase_export(smi: str) -> tuple:
     """The serving artifacts (``ctvae_torch/serving/export.py``) at full
-    width: ``configs/ct_mcq_vae.yaml`` as written (random weights, seed 0)
+    width, at float32 and again at ``dtype: bfloat16`` (``EXPORT_DTYPES``):
+    ``configs/ct_mcq_vae.yaml`` as written (random weights, seed 0)
     exported on the card through ``export_model``'s functions, its five
     entry points with a symbolic batch at B = 16; then ``vq_vae.yaml``
     (the VQ search at K = 512 inside the program) and ``vae.yaml`` (no
     kernel) at B = 64, ``reconstruct`` / ``encode`` (/ ``sample``). Each
-    artifact is saved to a temporary directory and loaded by a subprocess
-    that imports no model code, which serves it on the card at B and at
-    B = 5 (CT) or B - 1 (zoo), against the live port on the same keys
-    (``KeyedDraws`` in both; rtol 1e-4, atol 1e-5), and at B = 2 through
-    the same files moved to the CPU, against the card's output
-    (``SERVE_ATOL``). Then, in this process, each request of the loaded
-    artifact and of the live eager entry point in turns (medians of 20
-    after a warm-up; the artifact's launches per request equal to the live
-    port's). The path ``export`` counts the artifacts' launches in this
-    process: the four forward kernels, no backward one."""
+    artifact is saved to a temporary directory and loaded by one
+    subprocess that imports no model code, which serves it on the card at
+    B and at B = 5 (CT) or B - 1 (zoo), against the live port on the same
+    keys (``KeyedDraws`` in both), and at B = 2 through the same files
+    moved to the CPU, against the card's output (``_export_held``: the
+    bounds of each dtype). Then, in this process, each request of the
+    artifact's program (the exported program the files hold, as the
+    subprocess served it) and of the live eager entry point in turns
+    (medians of 20 after a warm-up; the artifact's launches per request
+    equal to the live port's), and every kernel call of one
+    ``apply_action`` and one
+    ``classify_action`` request of the bfloat16 CT artifact against its
+    plain version at bfloat16 (``_bf16_kernels_on_step``). The paths
+    ``export`` and ``export_bf16`` count the artifacts' launches in this
+    process: the four forward kernels, no backward one. Returns (the two
+    paths' launches, the numbers)."""
     from ctvae_torch import export_model
     from ctvae_torch.models import build_model
-    from ctvae_torch.serving.export import load_artifact, save_artifact
+    from ctvae_torch.serving.export import (MANIFEST_NAME, model_manifest,
+                                            save_artifact)
     start = time.perf_counter()
-    numbers, cases, live_entries = {"card": smi}, {}, {}
+    numbers, cases, live_entries, programs = {"card": smi}, {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="ctvae_export_") as tmp:
-        for label, (cfg, names) in EXPORT_CASES.items():
+        for (label, (cfg, names)), dtype in itertools.product(
+                EXPORT_CASES.items(), EXPORT_DTYPES):
             path = os.path.join(os.path.dirname(CONFIG), cfg)
-            params = read_section(path, "model_params")
+            params = {**read_section(path, "model_params"), "dtype": dtype}
+            if dtype != "float32":
+                label = f"{label}_{dtype}"
             model = build_model(params, device="cuda",
                                 generator=torch.Generator(
                                     "cuda").manual_seed(SEED))
-            B = EXPORT_B if label == "ct_mcq_vae" else EXPORT_ZOO_B
-            other = EXPORT_B_OTHER if label == "ct_mcq_vae" else B - 1
+            ct = cfg == "ct_mcq_vae.yaml"
+            B = EXPORT_B if ct else EXPORT_ZOO_B
+            other = EXPORT_B_OTHER if ct else B - 1
             # the config's images (data_params.patch_size) and actions
             shape = (read_section(path, "data_params")["patch_size"],
                      params.get("action_dim", 1))
@@ -5314,17 +5361,18 @@ def phase_export(smi: str) -> tuple:
                 log=lambda m, label=label: log(f"export {label}: {m}"))
             cases[label] = {
                 "dir": save_artifact(os.path.join(tmp, label), exported,
-                                     {"model": params["name"],
+                                     {**model_manifest(model),
                                       "config": cfg}),
+                "dtype": dtype,
                 "card": {n: [_export_requests(names, *shape, b, s,
                                               "cuda")[n]
                              for b, s in ((B, 2), (other, 3))]
                          for n in names},
                 "cpu": _export_requests(names, *shape, EXPORT_CPU_B, 4,
                                         "cpu")}
-            live_entries[label] = entries
+            live_entries[label], programs[label] = entries, exported
             numbers[label] = {"export_s": seconds, "batch": B,
-                              "other_batch": other}
+                              "other_batch": other, "dtype": dtype}
         requests, outputs = (os.path.join(tmp, f) for f in ("requests.pt",
                                                             "outputs.pt"))
         torch.save(cases, requests)
@@ -5345,13 +5393,22 @@ def phase_export(smi: str) -> tuple:
                 for k in report["launches"]):
             raise AssertionError(f"export server: {report}")
         served = torch.load(outputs)
-        counts = {k: 0 for k in _counts()}
+        _zero = {k: 0 for k in _counts()}
+        counts = {d: dict(_zero) for d in EXPORT_DTYPES}
         for label, case in cases.items():
-            entries = live_entries[label]
-            fns, manifest = load_artifact(case["dir"])
+            entries, dtype = live_entries[label], case["dtype"]
+            with open(os.path.join(case["dir"], MANIFEST_NAME)) as f:
+                manifest = json.load(f)
+            fns = {n: torch.inference_mode()(p.module())
+                   for n, p in programs[label].items()}
+            if manifest["dtype"] != dtype:
+                raise AssertionError(f"export {label}: manifest {manifest}")
             numbers[label]["in_specs"] = {
                 n: manifest["functions"][n]["in_specs"] for n in fns}
-            errs, times = {}, {}
+            numbers[label]["out_specs"] = {
+                n: manifest["functions"][n]["out_specs"] for n in fns}
+            errs, times, bits = {}, {}, {}
+            mine = dict(_zero)      # this artifact's launches
             for name, entry in entries.items():
                 out = served[label][name]
 
@@ -5361,12 +5418,12 @@ def phase_export(smi: str) -> tuple:
                 for args, got in zip(case["card"][name], out["card"]):
                     b = args[1].shape[0] if len(args) > 1 else \
                         f"key {int(args[0])}"
-                    errs[f"{name}@{b}"] = _held(
-                        f"export {label} {name} B={b}", got, live(*args),
-                        EXPORT_RTOL, EXPORT_ATOL)
-                errs[f"{name}@cpu"] = _held(
-                    f"export {label} {name} on the CPU", out["cpu"],
-                    out["small"], 0.0, SERVE_ATOL)
+                    want = live(*args)
+                    errs[f"{name}@{b}"] = _export_held(
+                        label, f"{name} B={b}", got, want, dtype, False)
+                    bits[f"{name}@{b}"] = torch.equal(got, want.cpu())
+                errs[f"{name}@cpu"] = _export_held(
+                    label, name, out["cpu"], out["small"], dtype, True)
                 args = case["card"][name][0]
                 samples = {"artifact": [], "live": []}
                 for r in range(EXPORT_REQUESTS):
@@ -5375,8 +5432,8 @@ def phase_export(smi: str) -> tuple:
                         _, launched, ms = _launched(fn, *args)
                         samples[kind].append(ms)
                         if kind == "artifact":
-                            counts = {k: counts[k] + launched[k]
-                                      for k in counts}
+                            _add_counts(counts[dtype], _zero, launched)
+                            _add_counts(mine, _zero, launched)
                         if r == 0:
                             samples[f"{kind}_launches"] = launched
                 if samples["artifact_launches"] != samples["live_launches"]:
@@ -5391,13 +5448,29 @@ def phase_export(smi: str) -> tuple:
                     f"{times[name]['live']:.3f} ms per request (medians of "
                     f"{EXPORT_REQUESTS - 1} in turns)")
             numbers[label]["max_abs_err"] = errs
+            numbers[label]["bit_equal_to_live"] = bits
+            numbers[label]["launches"] = mine
             numbers[label]["request_ms"] = times
-    if any((counts[k] == 0) != (k in _BWD) for k in counts):
-        raise AssertionError(f"launches on the export path {counts}")
+            log(f"export {label}: max |artifact - reference| "
+                f"{json.dumps(errs)}; bit-equal to the live port "
+                f"{json.dumps(bits)}")
+            if label == "ct_mcq_vae_bfloat16":
+                numbers[label]["kernels"] = {
+                    name: _bf16_kernels_on_step(
+                        f"export {name} request",
+                        lambda name=name: fns[name](*case["card"][name][0]),
+                        timed=False)
+                    for name in ("apply_action", "classify_action")}
+    for dtype, c in counts.items():
+        if any((c[k] == 0) != (k in _BWD) for k in c):
+            raise AssertionError(f"launches on the export path at {dtype} "
+                                 f"{c}")
     numbers["wall_s"] = time.perf_counter() - start
-    log(f"launches on the export path: {json.dumps(counts)}")
+    log(f"launches on the export path: {json.dumps(counts['float32'])}")
+    log(f"launches on the export_bf16 path: "
+        f"{json.dumps(counts['bfloat16'])}")
     log(f"export: phase {numbers['wall_s']:.1f} s")
-    return counts, numbers
+    return counts["float32"], counts["bfloat16"], numbers
 
 
 # --- phase 15: data parallelism ---------------------------------------------
@@ -5414,6 +5487,7 @@ DDP_ATOL = 1e-5       # (b): parameters after it, plus Adam's reach
 CROSS_BATCH_YAMLS = ("wae_mmd_imq", "wae_mmd_rbf", "infovae", "betatc_vae",
                      "dip_vae", "swae", "mssim_vae", "joint_vae", "bbvae")
 CROSS_BATCH_STEPS = 2
+DDP_BF16_RANK_STEPS = 3   # (i): steps of each mode per sharding at bfloat16
 
 
 def _free_port() -> int:
@@ -5429,16 +5503,17 @@ def _ddp_batches(seed: int, n: int, B: int) -> list:
                      _requests(gen, B, "cuda"))) for _ in range(n)]
 
 
-def _ddp_state(group, fsdp: bool = False):
-    """The headline model and the config's exp_params (``ct_layer``
-    trained), seeded as ``_train_setup``; a data-parallel state over
-    ``group`` gets rank 0's weights and generator, and with ``fsdp`` its
-    parameters split over the group (``fully_shard`` at the default
-    ``fsdp_min_size``) before the optimizers are built over the slices."""
+def _ddp_state(group, fsdp: bool = False, params=None):
+    """The headline model (``params``: its model_params, by default the
+    config's) and the config's exp_params (``ct_layer`` trained), seeded
+    as ``_train_setup``; a data-parallel state over ``group`` gets rank
+    0's weights and generator, and with ``fsdp`` its parameters split
+    over the group (``fully_shard`` at the default ``fsdp_min_size``)
+    before the optimizers are built over the slices."""
     from ctvae_torch.models import build_model
     from ctvae_torch.parallel import fully_shard, put_replicated
     from ctvae_torch.training import build_optimizers, create_train_state
-    model = build_model(MODEL_PARAMS, device="cuda",
+    model = build_model(params or MODEL_PARAMS, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(SEED))
     state = create_train_state(model, [], seed=SEED, group=group)
     put_replicated(model, group, state.generator)
@@ -5589,6 +5664,138 @@ def _ddp_world1(launches: dict, fsdp_launches: dict) -> dict:
     return numbers
 
 
+def _ddp_bf16_world1(launches: dict) -> dict:
+    """(h) The headline at ``dtype: bfloat16`` in a process group of one
+    rank over NCCL: per mode DDP_STEPS data-parallel and as many FSDP
+    steps (nothing split at a data size of 1) against as many plain
+    bfloat16 steps from an equal state on the same batches, every
+    parameter, Adam moment (bfloat16 for the CT layer's own parameters),
+    the generator and the last metrics bit for bit, with the plain step's
+    launches; then the three timed in turns, the gradient bucket's bytes
+    per dtype and the all-reduce's ms; ``make_multi_train_step(mode,
+    SCAN_K)`` of a DP and of an FSDP state against eager plain steps bit
+    for bit (cuDNN deterministic, as the phase "bf16" holds graph and
+    eager steps); last every kernel call of one causal DP step (the
+    backward ones too) against its plain version at bfloat16
+    (``_bf16_kernels_on_step``). The launches of the DP and FSDP steps
+    and graphs count into ``launches`` (the path "ddp_bf16")."""
+    from ctvae_torch.parallel import all_reduce_grads, destroy, \
+        init_distributed
+    from ctvae_torch.training import make_multi_train_step, make_train_step
+    from ctvae_torch.training.state import WARMUP_STEPS
+    group = init_distributed(device=torch.device("cuda", 0),
+                             init_method=f"tcp://127.0.0.1:{_free_port()}",
+                             rank=0, world_size=1)
+    numbers: dict = {"backend": torch.distributed.get_backend(group)}
+    bf16 = BF16_MODEL_PARAMS
+    try:
+        states = {"plain": _ddp_state(None, params=bf16),
+                  "dp": _ddp_state(group, params=bf16),
+                  "fsdp": _ddp_state(group, fsdp=True, params=bf16)}
+        plain = states["plain"]
+        if states["fsdp"].fsdp.shards:
+            raise AssertionError("fsdp world 1 split a parameter at bf16")
+        for mode, expected in EXPECTED_TRAIN.items():
+            step = make_train_step(mode)
+            batches = _ddp_batches(SEED + 31, DDP_STEPS, BATCH)
+            for b in batches:
+                want = step(plain, b)
+            for label in ("dp", "fsdp"):
+                state = states[label]
+                for b in batches:
+                    c0 = _counts()
+                    got = step(state, b)
+                    c1 = _counts()
+                    _add_counts(launches, c0, c1)
+                    per = {k: c1[k] - c0[k] for k in c1}
+                    if per != expected:
+                        raise AssertionError(f"{label} bf16 world 1 {mode}: "
+                                             f"launches per step {per}")
+                a, b_ = _scan_tensors(plain), _scan_tensors(state)
+                differ = [n for n in a if not torch.equal(a[n], b_[n])]
+                differ += [f"metric {k}" for k in want
+                           if not torch.equal(want[k], got[k])]
+                if not torch.equal(plain.generator.get_state(),
+                                   state.generator.get_state()):
+                    differ.append("generator")
+                kinds = sorted({str(v.dtype) for v in b_.values()})
+                log(f"{label} bf16 world 1 {mode}: {len(a)} parameters and "
+                    f"Adam moments ({kinds}) and {len(want)} metrics after "
+                    f"{DDP_STEPS} steps, plain vs {label} over NCCL: "
+                    f"{len(differ)} differ; loss {float(got['loss']):.6g}")
+                if differ or "torch.bfloat16" not in kinds:
+                    raise AssertionError(f"{label} bf16 world 1 {mode}: not "
+                                         f"bit-equal: {differ[:8]}")
+            secs = {w: [] for w in states}
+            for r in range(DDP_ROUNDS):
+                for which in (list(states) if r % 2 == 0
+                              else list(states)[::-1]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for b in batches[:DDP_TIMED]:
+                        step(states[which], b)
+                    torch.cuda.synchronize()
+                    secs[which].append(1e3 * (time.perf_counter() - t0)
+                                       / DDP_TIMED)
+            numbers[f"{mode}_ms"] = {w: statistics.median(t)
+                                     for w, t in secs.items()}
+            log(f"ddp bf16 world 1 {mode} B={BATCH}: ms per step "
+                f"{json.dumps(numbers[f'{mode}_ms'])} (medians of "
+                f"{DDP_ROUNDS} rounds of {DDP_TIMED} steps in turns)")
+        params = list(states["dp"].model.parameters())
+        buckets: dict = {}
+        for p in params:
+            if p.grad is not None:
+                key = str(p.grad.dtype).replace("torch.", "")
+                buckets[key] = buckets.get(key, 0) + \
+                    p.grad.numel() * p.grad.element_size()
+        numbers["bucket_bytes"] = buckets
+        if all_reduce_grads(params, group) != sum(buckets.values()):
+            raise AssertionError(f"ddp bf16 buckets {buckets}")
+        numbers["all_reduce_ms"] = time_ms(
+            lambda: all_reduce_grads(params, group))
+        log(f"ddp bf16 world 1: gradient buckets {json.dumps(buckets)} "
+            f"bytes, NCCL all-reduce of both "
+            f"{numbers['all_reduce_ms']:.4f} ms (median of 21)")
+        numbers["scan_bit_equal"] = {}
+        for mode in EXPECTED_TRAIN:
+            eager = _ddp_state(None, params=bf16)
+            batches = _ddp_batches(SEED + 37, 2 * SCAN_K, BATCH)
+            stacked = {k: torch.stack([b[k] for b in batches])
+                       for k in batches[0]}
+            step = make_train_step(mode)
+            for b in batches:
+                step(eager, b)
+            for label, fsdp in (("ddp", False), ("fsdp", True)):
+                graph = _ddp_state(group, fsdp=fsdp, params=bf16)
+                multi = make_multi_train_step(mode, SCAN_K)
+                for half in (slice(0, SCAN_K), slice(SCAN_K, 2 * SCAN_K)):
+                    multi(graph, {k: v[half] for k, v in stacked.items()})
+                torch.cuda.synchronize()
+                a, b_ = _scan_tensors(eager), _scan_tensors(graph)
+                differ = [n for n in a if not torch.equal(a[n], b_[n])]
+                same_gen = torch.equal(eager.generator.get_state(),
+                                       graph.generator.get_state())
+                numbers["scan_bit_equal"][f"{label}_{mode}"] = not differ
+                log(f"{label} bf16 world 1 scan {mode}: {len(a)} tensors "
+                    f"after {2 * SCAN_K} steps, eager plain vs "
+                    f"{multi.replays} {label} graph replays: {len(differ)} "
+                    f"differ; generator equal {same_gen}")
+                if differ or not same_gen or \
+                        multi.replays != 2 * SCAN_K - WARMUP_STEPS:
+                    raise AssertionError(f"{label} bf16 world 1 scan {mode}: "
+                                         f"{differ[:8]}")
+                for k, n in multi.replayed_launches().items():
+                    launches[k] += n
+        step = make_train_step("causal")
+        b = _ddp_batches(SEED + 41, 1, BATCH)[0]
+        numbers["kernels_on_causal_step"] = _bf16_kernels_on_step(
+            "ddp causal step", lambda: step(states["dp"], b), timed=False)
+    finally:
+        destroy()
+    return numbers
+
+
 def _adam_reach(grad_diff: torch.Tensor, lr: float) -> torch.Tensor:
     """How far one Adam update from equal states may move two runs'
     parameters apart, given their gradients' difference: it moves a
@@ -5688,15 +5895,7 @@ def _fsdp_rank_steps(group, rank: int, dp_bytes: int) -> dict:
             per = {k: c1[k] - c0[k] for k in c1}
             if per != expected:
                 wrong.append((mode, per))
-            split = [(k, sh.grad) for k, sh in fs.fsdp.shards.items()
-                     if sh.grad is not None]
-            grads = dict(zip([k for k, _ in split],
-                             fs.fsdp.gather_full(split)))
-            with full_params(fs):
-                params = {n: p.detach().clone()
-                          for n, p in fs.model.named_parameters()}
-            grads.update({n: p.grad for n, p in fs.model.named_parameters()
-                          if p.grad is not None})
+            grads, params = _full_grads_params(fs)
             if single is None:
                 continue
             want = step(single, b)
@@ -5716,6 +5915,165 @@ def _fsdp_rank_steps(group, rank: int, dp_bytes: int) -> dict:
                 params=final, param_max_diff=worst, beyond_bound=beyond,
                 split=len(fs.fsdp.shards),
                 resident_bytes=_resident_bytes(fs), dp_bytes=dp_bytes)
+
+
+def _full_grads_params(state) -> tuple:
+    """(gradients, parameters) of the last step at their full shapes
+    (under FSDP gathered from the slices: a collective)."""
+    from ctvae_torch.training.state import full_params
+    grads = {}
+    if state.fsdp is not None:
+        split = [(k, sh.grad) for k, sh in state.fsdp.shards.items()
+                 if sh.grad is not None]
+        grads = dict(zip([k for k, _ in split],
+                         state.fsdp.gather_full(split)))
+    with full_params(state):
+        params = {n: p.detach().clone()
+                  for n, p in state.model.named_parameters()}
+    grads.update({n: p.grad for n, p in state.model.named_parameters()
+                  if p.grad is not None})
+    return grads, params
+
+
+def _bf16_rank(group, rank: int, out_dir: str) -> dict:
+    """(i) on a rank: the headline at ``dtype: bfloat16`` under DP and
+    under FSDP (``fully_shard`` over the two ranks), DDP_BF16_RANK_STEPS
+    steps of each mode at B = 16 rows of each global batch of 32; before
+    each, rank 0 loads the gathered state into one process at bfloat16
+    and into one at float32 (the same values), which take the step on the
+    whole batch; the losses within 5 ulps (2 %) of the bfloat16 process's,
+    and tier-1's rule for a rank's step (tests/test_torch_bf16_ranks.py::
+    ``assert_rank_step_matches``, the bfloat16 process the reference of
+    rounding in place of JAX): each gradient within twice the bfloat16
+    process's distance to the float32 one plus 2 ulps of its norm and 2
+    ulps of the ranks' own gradients' magnitudes (each rank's gradient,
+    a sum over its rows, is rounded to bfloat16 before the bucket adds
+    the two: where they cancel, those roundings exceed the result's ulp),
+    each parameter after the step within 2 ulps at the operands' scale of
+    the bfloat16 process's plus Adam's reach of the two gradients'
+    difference.
+    Then ``run.train`` of the loop config at bfloat16 under DP, one epoch
+    and a resume from rank 0's checkpoint for a second."""
+    from ctvae_torch import run
+    from ctvae_torch.parallel import local_rows
+    from ctvae_torch.training import make_train_step
+    from ctvae_torch.training import state as tstate
+    bf16 = BF16_MODEL_PARAMS
+    launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
+    out: dict = {"launches": launches}
+    lr = float(EXP_PARAMS["LR"])
+    real_reduce = tstate.all_reduce_grads
+    for sharding in ("dp", "fsdp"):
+        st = _ddp_state(group, fsdp=sharding == "fsdp", params=bf16)
+        single = _ddp_state(None, params=bf16) if rank == 0 else None
+        twin = _ddp_state(None) if rank == 0 else None
+        # each rank's own gradients, |g| before the reduction
+        local: dict = {}
+        names = {id(p): n for n, p in st.model.named_parameters()}
+
+        def reduce_dp(params, group, local=local, names=names):
+            params = list(params)
+            local.update({names[id(p)]: p.grad.detach().float().abs()
+                          for p in params if p.grad is not None})
+            return real_reduce(params, group)
+        tstate.all_reduce_grads = reduce_dp
+        if st.fsdp is not None:
+            real_fsdp = st.fsdp.reduce_grads
+
+            def reduce_fsdp(batch_group, fs=st.fsdp, real=real_fsdp,
+                            local=local):
+                local.update({k: p.grad.detach().float().abs()
+                              for k, p in fs.params.items()
+                              if p.grad is not None})
+                return real(batch_group)
+            st.fsdp.reduce_grads = reduce_fsdp
+        wrong, rel, beyond, ratio, ms = [], [], [], 0.0, {}
+        for i, (mode, expected) in enumerate(EXPECTED_TRAIN.items()):
+            step = make_train_step(mode)
+            secs = []
+            for b in _ddp_batches(SEED + 43 + i, DDP_BF16_RANK_STEPS,
+                                  2 * BATCH):
+                full = copy.deepcopy(st.state_dict())
+                if single is not None:
+                    single.load_state_dict(full)
+                    twin.model.load_state_dict(
+                        {k: v.float() if v.is_floating_point() else v
+                         for k, v in full["model"].items()})
+                    twin.generator.set_state(full["generator"])
+                c0 = _counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = step(st, local_rows(b, group))
+                torch.cuda.synchronize()
+                secs.append(1e3 * (time.perf_counter() - t0))
+                c1 = _counts()
+                _add_counts(launches, c0, c1)
+                if {k: c1[k] - c0[k] for k in c1} != expected:
+                    wrong.append(mode)
+                grads, params = _full_grads_params(st)
+                # the ranks' |g| summed (a collective), over the world
+                keys = sorted(local)
+                both = torch.cat([local[k].reshape(-1) for k in keys])
+                torch.distributed.all_reduce(both, group=group)
+                world = torch.distributed.get_world_size(group)
+                own = {k: t.view_as(local[k]) / world for k, t in zip(
+                    keys, both.split([local[k].numel() for k in keys]))}
+                local.clear()
+                if single is None:
+                    continue
+                want = step(single, b)
+                step(twin, b)
+                rel.append(abs(float(got["loss"]) - float(want["loss"]))
+                           / max(abs(float(want["loss"])), 1e-30))
+                for n, q in single.model.named_parameters():
+                    zero = torch.zeros_like(q, dtype=torch.float64)
+                    g = grads.get(n, zero).double()
+                    o = (q.grad.double() if q.grad is not None else zero)
+                    r = dict(twin.model.named_parameters())[n].grad
+                    r = r.double() if r is not None else zero
+                    bound = 2 * float((o - r).norm()) + 2 * BF16_ULP * (
+                        float(r.norm()) + float(own[n].norm()) if n in own
+                        else float(r.norm()))
+                    e = float((g - r).norm())
+                    ratio = max(ratio, e / bound if bound else 0.0)
+                    qd = q.detach().double()
+                    tol = 2 * BF16_ULP * (qd.abs() + lr) + \
+                        _adam_reach((g - o).abs(), lr)
+                    if e > bound or not bool(
+                            ((params[n].double() - qd).abs() <= tol).all()):
+                        beyond.append((mode, n))
+            ms[mode] = statistics.median(secs[1:])
+        tstate.all_reduce_grads = real_reduce
+        out[sharding] = dict(
+            wrong=wrong, loss_max_rel=max(rel) if rel else 0.0,
+            beyond=beyond, worst_ratio=ratio, ms=ms,
+            resident_bytes=_resident_bytes(st), params={
+                n: p.cpu() for n, p in _full_grads_params(st)[1].items()})
+        del st, single, twin
+        torch.cuda.empty_cache()
+    root = os.path.join(out_dir, "logs_bf16")
+    cfg = _ddp_loop_config(root, 1)
+    cfg["model_params"]["dtype"] = "bfloat16"
+    c0 = _counts()
+    t0 = time.perf_counter()
+    out["first"] = run.train(cfg, device="cuda:0")
+    out["fit_s"] = time.perf_counter() - t0
+    cfg = _ddp_loop_config(root, 2, resume=os.path.join(
+        root, "ddp", "version_0", "checkpoints", "last"))
+    cfg["model_params"]["dtype"] = "bfloat16"
+    out["second"] = run.train(cfg, device="cuda:0")
+    _add_counts(launches, c0, _counts())
+    if rank == 0:
+        blob = torch.load(os.path.join(root, "ddp", "version_1",
+                                       "checkpoints", "last"),
+                          map_location="cpu", weights_only=True)
+        out["ckpt_dtypes"] = sorted({str(v.dtype) for v in
+                                     blob["model"].values()})
+        out["moment_dtypes"] = sorted({
+            str(st[k].dtype) for o in blob["optimizers"]
+            for st in o["adam"]["state"].values()
+            for k in ("exp_avg", "exp_avg_sq")})
+    return out
 
 
 def _fsdp_rank_fit(rank: int, out_dir: str) -> dict:
@@ -5833,7 +6191,7 @@ def _ddp_rank(rank: int, port: int, out_dir: str) -> None:
     not add up over the steps); (c) ``run.train`` of the loop config, one
     epoch, then a resume from rank 0's checkpoint for a second; (e)
     ``_fsdp_rank_steps``, (f) ``_fsdp_rank_fit``, (g)
-    ``_cross_batch_rank``."""
+    ``_cross_batch_rank``, (i) ``_bf16_rank``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -5918,6 +6276,9 @@ def _ddp_rank(rank: int, port: int, out_dir: str) -> None:
         res["fsdp_fit"] = _fsdp_rank_fit(rank, out_dir)
         # (g) the cross-batch losses as written
         res["cross_batch"] = _cross_batch_rank(group, rank)
+        torch.cuda.empty_cache()
+        # (i) bfloat16 under DP and FSDP, and run.train at bfloat16
+        res["bf16"] = _bf16_rank(group, rank, out_dir)
     except Exception:       # reported to the parent, which fails the phase
         import traceback
         res["error"] = traceback.format_exc()
@@ -5926,10 +6287,11 @@ def _ddp_rank(rank: int, port: int, out_dir: str) -> None:
         torch.save(res, os.path.join(out_dir, f"ddp_rank{rank}.pt"))
 
 
-def _ddp_two_ranks(launches: dict, fsdp_launches: dict, smi: str) -> dict:
-    """(b), (c) and (e)-(g): the two ranks, spawned after the kernels are
-    built (the ranks load the libraries the parent built), joined within
-    DDP_TIMEOUT seconds or killed."""
+def _ddp_two_ranks(launches: dict, fsdp_launches: dict, bf16_launches: dict,
+                   smi: str) -> dict:
+    """(b), (c), (e)-(g) and (i): the two ranks, spawned after the kernels
+    are built (the ranks load the libraries the parent built), joined
+    within DDP_TIMEOUT seconds or killed."""
     import torch.multiprocessing as mp
     numbers: dict = {}
     with tempfile.TemporaryDirectory(prefix="ctvae_ddp_") as tmp:
@@ -5958,7 +6320,10 @@ def _ddp_two_ranks(launches: dict, fsdp_launches: dict, smi: str) -> dict:
         _add_counts(launches, {k: 0 for k in launches}, r["launches"])
         for part in (r["fsdp"]["launches"], r["fsdp_fit"]["launches"]):
             _add_counts(fsdp_launches, {k: 0 for k in fsdp_launches}, part)
+        _add_counts(bf16_launches, {k: 0 for k in bf16_launches},
+                    r["bf16"]["launches"])
     numbers["fsdp"] = _fsdp_two_ranks(r0, r1, smi)
+    numbers["bf16"] = _bf16_two_ranks(r0["bf16"], r1["bf16"], smi)
     rel = [abs(g - w) / max(abs(w), 1e-30) for _, g, w in r0["losses"]]
     same = [n for n, t in r0["params"].items()
             if not torch.equal(t, r1["params"][n])]
@@ -6000,6 +6365,46 @@ def _ddp_two_ranks(launches: dict, fsdp_launches: dict, smi: str) -> dict:
             r0["second"]["val_loss"] != r1["second"]["val_loss"]:
         raise AssertionError(f"ddp run.train: runs {runs}, checkpoints "
                              f"{ckpts}, writes {numbers['saves']}")
+    return numbers
+
+
+def _bf16_two_ranks(b0: dict, b1: dict, smi: str) -> dict:
+    """(i) from the two ranks' results: checked, logged, returned."""
+    numbers = {}
+    for sharding in ("dp", "fsdp"):
+        a, b = b0[sharding], b1[sharding]
+        differ = [n for n, t in a["params"].items()
+                  if not torch.equal(t, b["params"][n])]
+        numbers[sharding] = dict(
+            rank_ms=a["ms"], rank1_ms=b["ms"],
+            loss_max_rel=a["loss_max_rel"], worst_ratio=a["worst_ratio"],
+            beyond=a["beyond"], ranks_differ=differ,
+            resident_bytes=[a["resident_bytes"], b["resident_bytes"]])
+        log(f"{sharding} bf16 two ranks on one card over gloo ({smi}), a "
+            f"correctness path: ms per step at B = 16 a rank "
+            f"{json.dumps(a['ms'])}; each step against one process at "
+            f"B = 32 from the same state: losses' largest relative "
+            f"difference {a['loss_max_rel']:.3g}, the largest gradient "
+            f"distance over its bound {a['worst_ratio']:.3g} (beyond: "
+            f"{a['beyond']}); the ranks' parameters differ in {len(differ)} "
+            f"tensors; resident bytes of parameters and Adam moments per "
+            f"rank {numbers[sharding]['resident_bytes']}; launches off the "
+            f"plain step's {a['wrong'] + b['wrong']}")
+        if a["loss_max_rel"] > 5 * BF16_ULP or a["beyond"] or differ or \
+                a["wrong"] or b["wrong"]:
+            raise AssertionError(f"{sharding} bf16 two ranks: "
+                                 f"{numbers[sharding]}")
+    numbers.update(fit_s=b0["fit_s"], ckpt_dtypes=b0["ckpt_dtypes"],
+                   moment_dtypes=b0["moment_dtypes"],
+                   resumed_val_loss=b0["second"]["val_loss"])
+    log(f"ddp run.train at world 2 over gloo at bf16: one epoch in "
+        f"{b0['fit_s']:.2f} s; the resumed run's val_loss "
+        f"{b0['second']['val_loss']:.6g} (rank 1 "
+        f"{b1['second']['val_loss']:.6g}); checkpoint dtypes "
+        f"{b0['ckpt_dtypes']}, Adam moments {b0['moment_dtypes']}")
+    if b0["second"]["val_loss"] != b1["second"]["val_loss"] or \
+            "torch.bfloat16" not in b0["moment_dtypes"]:
+        raise AssertionError(f"ddp run.train at bf16: {numbers}")
     return numbers
 
 
@@ -6076,23 +6481,30 @@ def phase_ddp(smi: str) -> tuple:
     deterministic algorithms: (a) and (d) ``_ddp_world1``, (b), (c) and
     (e)-(g) ``_ddp_two_ranks``. The launch counters of every
     data-parallel step are the path "ddp", those of every FSDP step (d)-(f)
-    the path "fsdp" ((g)'s models launch none). Returns (those two
-    launches, the numbers)."""
+    the path "fsdp" ((g)'s models launch none), those of the bfloat16
+    parts (h) ``_ddp_bf16_world1`` and (i) ``_bf16_rank`` the path
+    "ddp_bf16". Returns (those three launches, the numbers)."""
     start = time.perf_counter()
     launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
-    fsdp_launches = dict(launches)
+    fsdp_launches, bf16_launches = dict(launches), dict(launches)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         numbers = {"world1": _ddp_world1(launches, fsdp_launches)}
-        numbers["two_ranks"] = _ddp_two_ranks(launches, fsdp_launches, smi)
+        t0 = time.perf_counter()
+        numbers["bf16_world1"] = _ddp_bf16_world1(bf16_launches)
+        numbers["bf16_world1"]["wall_s"] = time.perf_counter() - t0
+        numbers["two_ranks"] = _ddp_two_ranks(launches, fsdp_launches,
+                                              bf16_launches, smi)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     numbers["wall_s"] = time.perf_counter() - start
     log(f"launches on the ddp path: {json.dumps(launches)}")
     log(f"launches on the fsdp path: {json.dumps(fsdp_launches)}")
-    log(f"ddp: phase {numbers['wall_s']:.1f} s")
-    return launches, fsdp_launches, numbers
+    log(f"launches on the ddp_bf16 path: {json.dumps(bf16_launches)}")
+    log(f"ddp: phase {numbers['wall_s']:.1f} s (bf16 world 1 "
+        f"{numbers['bf16_world1']['wall_s']:.1f} s)")
+    return launches, fsdp_launches, bf16_launches, numbers
 
 
 # --- phase "bf16": the compute dtype bfloat16 ------------------------------
@@ -6345,6 +6757,27 @@ def _bf16_zoo(launches: dict) -> dict:
     return out
 
 
+def _bf16_card_cpu(name: str, got, want) -> tuple:
+    """(whether the card's output ``got`` of entry point ``name`` at
+    bfloat16 agrees with the CPU's ``want``, its numbers): ``encode``
+    within 2 ulps of each element plus 4 of its scale,
+    ``classify_action``'s probabilities within 4 ulps of their scale, and
+    at least 95 % of an image's pixels within 8 ulps of its scale (see
+    ``_bf16_vs_cpu``)."""
+    scale = max(1.0, float(want.abs().max()))
+    diff = (got - want).abs()
+    m = {"max_abs_err": float(diff.max()), "dtype": str(got.dtype)}
+    if name == "encode":
+        ok = _bf16_err(got, want) <= 4 * BF16_ULP
+    elif name == "classify_action":
+        ok = float(diff.max()) <= 4 * BF16_ULP * scale
+    else:
+        share = float((diff <= 8 * BF16_ULP * scale).float().mean())
+        m["share_within_8_ulps"] = share
+        ok = share >= 0.95
+    return ok, m
+
+
 def _bf16_vs_cpu(smi: str) -> dict:
     """The four entry points at B = 2 and one train step per mode at B = 2
     on the card against the CPU port at bfloat16, from the same weights and
@@ -6388,18 +6821,8 @@ def _bf16_vs_cpu(smi: str) -> dict:
                 fn = make_inference_fn(model, name)
                 res.append(fn(*(t.to(dev) for t in args)).float().cpu())
             got, want = res
-            scale = max(1.0, float(want.abs().max()))
-            diff = (got - want).abs()
-            m = out[name] = {"max_abs_err": float(diff.max()),
-                             "dtype": str(got.dtype)}
-            if name == "encode":
-                ok = _bf16_err(got, want) <= 4 * BF16_ULP
-            elif name == "classify_action":
-                ok = float(diff.max()) <= 4 * BF16_ULP * scale
-            else:
-                share = float((diff <= 8 * BF16_ULP * scale).float().mean())
-                m["share_within_8_ulps"] = share
-                ok = share >= 0.95
+            ok, m = _bf16_card_cpu(name, got, want)
+            out[name] = m
             log(f"bf16 {name} B=2, card vs CPU: {json.dumps(m)}")
             if not ok:
                 raise AssertionError(f"bf16 {name}: card and CPU disagree "
@@ -6729,13 +7152,16 @@ def main(argv) -> int:
                                     for k, r in tc_rows.items()}}))
         return 0
     if opts.export_only:
-        launches, numbers = phase_export(smi)
-        log(json.dumps({"export_launches": launches, "export": numbers}))
+        launches, bf16_launches, numbers = phase_export(smi)
+        log(json.dumps({"export_launches": launches,
+                        "export_bf16_launches": bf16_launches,
+                        "export": numbers}))
         return 0
     if opts.ddp_only:
-        launches, fsdp_launches, numbers = phase_ddp(smi)
+        launches, fsdp_launches, bf16_launches, numbers = phase_ddp(smi)
         log(json.dumps({"ddp_launches": launches,
-                        "fsdp_launches": fsdp_launches, "ddp": numbers}))
+                        "fsdp_launches": fsdp_launches,
+                        "ddp_bf16_launches": bf16_launches, "ddp": numbers}))
         return 0
     if opts.bf16_only:
         launches, bf16_rows, numbers = phase_bf16(smi)
@@ -6778,8 +7204,9 @@ def main(argv) -> int:
         celeba_numbers["standin"] = standin
         gauss_launches, gauss_vq_launches, gauss_vq_rows, gauss_numbers = \
             phase_gaussian(smi, tmp)
-    export_launches, export_numbers = phase_export(smi)
-    ddp_launches, fsdp_launches, ddp_numbers = phase_ddp(smi)
+    export_launches, export_bf16_launches, export_numbers = phase_export(smi)
+    ddp_launches, fsdp_launches, ddp_bf16_launches, ddp_numbers = \
+        phase_ddp(smi)
     bf16_launches, bf16_rows, bf16_numbers = phase_bf16(smi)
     kernels = []
     for r in rows:
@@ -6799,8 +7226,10 @@ def main(argv) -> int:
                    "celeba": celeba_launches[r["name"]],
                    "tceleba": tceleba_launches[r["name"]],
                    "export": export_launches[r["name"]],
+                   "export_bf16": export_bf16_launches[r["name"]],
                    "ddp": ddp_launches[r["name"]],
                    "fsdp": fsdp_launches[r["name"]],
+                   "ddp_bf16": ddp_bf16_launches[r["name"]],
                    "bf16": bf16_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
@@ -6836,13 +7265,13 @@ def main(argv) -> int:
             k["launches_by_path"][p] == 0 for k in kernels
            for p in ("train", "codebooks_2", "two_stage", "scan",
                      "shapes3d_ct", "metrics", "search", "tceleba",
-                     "ddp", "fsdp", "bf16")) or any(
+                     "ddp", "fsdp", "bf16", "ddp_bf16")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
             if EXPECTED["reconstruct"][k["name"]]) or any(
             (k["launches_by_path"]["shapes3d_mcq"] == 0)
             != (k["name"] != "vq_l2_argmin") for k in kernels) or any(
-            (k["launches_by_path"]["export"] == 0)
-            != k["name"].endswith("_bwd") for k in kernels):
+            (k["launches_by_path"][p] == 0) != k["name"].endswith("_bwd")
+            for k in kernels for p in ("export", "export_bf16")):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"serve_ms": timings, "train_ms": train_ms,
                     "train_peak_gib": peak, "codebooks_2_train_ms": c2_ms,

@@ -12,7 +12,9 @@ and exports the random initialisation), takes its example batch from the
 config's data module (an action-mode batch where there is one), exports
 each entry point the model serves (``serving/export.py``), saves the
 artifact, reloads it and holds each function against the live port on the
-same key (rtol 1e-4, atol 1e-5) before it prints the artifact's path.
+same key (``verify``: rtol 1e-4, atol 1e-5 at float32; at ``dtype:
+bfloat16`` 4 bfloat16 ulps of the output's scale) before it prints the
+artifact's path.
 Serving needs torch and ``ctvae_torch.ops`` only::
 
     from ctvae_torch.serving.export import load_artifact
@@ -102,26 +104,42 @@ def export_entry_points(model, args: Dict[str, tuple],
     return exported, entries, seconds
 
 
+#: ``verify``'s bound at bfloat16: |artifact - live| <= BF16_ULPS ulps
+#: (2^-8 relative) of the output's scale, max(1, max |live|)
+BF16_ULPS = 4
+
+
 def verify(art_dir: str, entries: dict, args: Dict[str, tuple],
            log=print) -> Dict[str, float]:
     """Load the artifact and hold each function against its live entry
-    point on the same arguments (rtol 1e-4, atol 1e-5; the program runs
-    the same ops, not bit for bit the same fusions). Returns the largest
-    difference per function."""
+    point on the same arguments. The program runs the same operations in
+    the same order, not bit for bit the same fusions: at float32 within
+    rtol 1e-4, atol 1e-5; at bfloat16 (``manifest["dtype"]``) within
+    ``BF16_ULPS`` bfloat16 ulps of the output's scale, the bound on the
+    images of tests/test_torch_bf16.py: one intermediate rounded the other
+    way moves an output by an ulp or two of its scale, while a flipped
+    decision (a code, an argmax, an edge) moves it by far more and fails.
+    Returns the largest difference per function."""
     import torch
 
     from .serving.export import load_artifact
-    fns, _ = load_artifact(art_dir)
+    fns, manifest = load_artifact(art_dir)
+    bf16 = manifest.get("dtype") == "bfloat16"
     diffs = {}
     for name, fn in fns.items():
         got = fn(*args[name])
         with torch.inference_mode():
             want = entries[name](*args[name])
-        diffs[name] = float((got - want).abs().max())
+        got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+        diffs[name] = float(np.abs(got - want).max())
         log(f"verify {name}: max|artifact - live| = {diffs[name]:.3g}")
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                                   rtol=1e-4, atol=1e-5,
-                                   err_msg=f"{name} round trip mismatch")
+        if bf16:
+            bound = BF16_ULPS * 2.0 ** -8 * max(1.0, float(np.abs(want).max()))
+            assert diffs[name] <= bound, \
+                f"{name} round trip mismatch: {diffs[name]} > {bound}"
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{name} round trip mismatch")
     return diffs
 
 
@@ -136,7 +154,7 @@ def export_model(config: dict, out: str, *, ckpt: Optional[str] = None,
 
     from .models import build_model
     from .ops.common import resolve_device
-    from .serving.export import MANIFEST_NAME, save_artifact
+    from .serving.export import MANIFEST_NAME, model_manifest, save_artifact
     from .serving.inference import available_fns
     from .utils.checkpoint import load_weights_only
 
@@ -154,8 +172,8 @@ def export_model(config: dict, out: str, *, ckpt: Optional[str] = None,
         model, args, list(fns or available_fns(model)),
         poly_batch=poly_batch, num_samples=num_samples, log=log)
     save_artifact(out, exported, {
-        "model": config["model_params"].get("name"), "checkpoint": ckpt,
-        "poly_batch": bool(poly_batch)})
+        **model_manifest(model), "model": config["model_params"].get("name"),
+        "checkpoint": ckpt, "poly_batch": bool(poly_batch)})
     diffs = verify(out, entries, args, log=log)
     log(f"artifact -> {out}")
     with open(os.path.join(out, MANIFEST_NAME)) as f:

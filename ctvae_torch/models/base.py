@@ -219,7 +219,8 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def check_dtype(dtype, bf16: bool = False) -> torch.dtype:
     """The torch dtype of a model's ``dtype`` field: "float32" or
     "bfloat16" (or the torch dtype, or its ``str``). bfloat16 only where
-    the model is ported at it (``bf16``: CTMCQVAE, MCQVAE, VanillaVAE);
+    the model is ported at it (``bf16``: CTMCQVAE, MCQVAE, VQVAE,
+    VanillaVAE);
     any other dtype, and bfloat16 elsewhere, raise ``NotImplementedError``
     (ROADMAP A6)."""
     name = str(dtype).replace("torch.", "")

@@ -5,7 +5,10 @@ Counterpart of ``ctvae_tpu/models/vq_vae.py``, with the quantizer options
 ``models/quantizers.py``). The codebook search is ``ops/vq.py::
 l2_argmin`` (the CUDA kernel on the card). Its codes have no prior, so it
 defines no ``sample``: the loop writes it no Samples grid and serving
-offers no ``sample`` entry point.
+offers no ``sample`` entry point. ``dtype: bfloat16`` computes the
+backbone in bfloat16 with float32 parameters, as flax's ``dtype``
+(MCQVAE's split); the codebook stays float32 and the search runs on the
+latents upcast to it, as JAX's.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from ..ops.layers import set_compute_dtype
 from .backbones import VQDecoder, VQEncoder
 from .base import BaseVAE, Draws, check_dtype, mse_loss
 from .quantizers import VectorQuantizerMS, codebook_perplexity
@@ -29,7 +33,7 @@ class VQVAE(BaseVAE):
                  ema_decay: float = 0.99, revive_threshold: float = 0.0,
                  dtype="float32", *, device=None):
         super().__init__()
-        check_dtype(dtype)
+        self.compute_dtype = check_dtype(dtype, bf16=True)
         hd = tuple(hidden_dims) if hidden_dims else (128, 256)
         self.in_channels, self.embedding_dim = in_channels, embedding_dim
         self.num_embeddings = num_embeddings
@@ -41,6 +45,7 @@ class VQVAE(BaseVAE):
             revive_threshold=revive_threshold, device=device)
         self.decoder = VQDecoder(embedding_dim, hd, in_channels,
                                  device=device)
+        set_compute_dtype(self, self.compute_dtype)
 
     @property
     def device(self) -> torch.device:

@@ -29,10 +29,12 @@ mesh.py``:
 
 The norms of the step (``grad_norm``, the clip, ``watch_gradients``)
 are global: the squares of the slices summed over the data group plus
-the replicated parameters' once (``sq_sums``). A checkpoint holds the
-full state (``full_optimizer_state``, the model's ``state_dict`` inside
-``full()``), so one process, DP ranks and FSDP ranks restore each
-other's; ``load_full`` / ``load_optimizer_state`` take a full state back
+the replicated parameters' once, each leaf's term in its dtype and in
+the order one process adds them (``sq_sums``, ``norm_fn``), so with
+nothing split a bfloat16 model's norms are one process's bit for bit.
+A checkpoint holds the full state (``full_optimizer_state``, the
+model's ``state_dict`` inside ``full()``), so one process, DP ranks and
+FSDP ranks restore each other's; ``load_full`` / ``load_optimizer_state`` take a full state back
 into the slices. The full parameters are plain tensors swapped into
 ``Parameter.data`` for the span of a step, so a CUDA graph captures the
 gather, the step and the release together (NCCL).
@@ -209,44 +211,83 @@ class FSDP:
         rest = [p for k, p in self.params.items() if k not in self.shards]
         all_reduce_grads(rest, batch_group)
 
-    def sq_sums(self, groups: Iterable[Iterable[torch.Tensor]],
-                grads: bool) -> torch.Tensor:
-        """[len(groups)]: for each group of parameters (the module's or
-        the optimizers' slices) the sum of squares of the full tensors'
-        gradients (``grads``) or values, each element once: the slices'
-        squares summed over the data group, the replicated ones' as they
-        are. A parameter without a gradient counts as zero."""
-        split_sums, rep_sums = [], []
-        device = None
+    def _leaf_terms(self, groups: Iterable[Iterable[torch.Tensor]],
+                    grads: bool, split_term, finish, rep_term
+                    ) -> List[List[torch.Tensor]]:
+        """For each group of parameters (the module's or the optimizers'
+        slices), one 0-d term per parameter with a value (``grads``: its
+        full gradient, else the parameter; one without a gradient is
+        left out), in the group's order: ``rep_term(t)`` of a replicated
+        one, ``finish(sum, dtype)`` of a split one, where ``sum`` is its
+        slices' float32 ``split_term`` summed over the data group (one
+        all-reduce for all of them)."""
+        slots, partials = [], []
         for ps in groups:
-            split, rep = [], []
+            row = []
             for p in ps:
                 k = self._shard_name.get(id(p), self._name.get(id(p)))
-                t = self.shards[k] if k in self.shards else p
-                device = t.device
+                split = k in self.shards
+                t = self.shards[k] if split else p
                 v = t.grad if grads else t
-                if v is not None:
-                    (split if k in self.shards else rep).append(
-                        torch.sum(torch.square(v.detach())))
-            split_sums.append(split)
-            rep_sums.append(rep)
-        zero = torch.zeros((), device=device)
+                if v is None:
+                    continue
+                v = v.detach()
+                if split:
+                    row.append((len(partials), v.dtype))
+                    partials.append(split_term(v))
+                else:
+                    row.append(rep_term(v))
+            slots.append(row)
+        if partials:
+            reduced = torch.stack(partials)
+            dist.all_reduce(reduced, op=dist.ReduceOp.SUM,
+                            group=self.data_group)
+        return [[finish(reduced[x[0]], x[1]) if isinstance(x, tuple) else x
+                 for x in row] for row in slots]
 
-        def total(ts):
-            # summed in order, as ``global_norm`` sums: with nothing split
-            # the norms are the plain step's bit for bit
-            return sum(ts, zero)
-        sums = torch.stack([total(ts) for ts in split_sums])
-        if self.shards:
-            dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=self.data_group)
-        return sums + torch.stack([total(ts) for ts in rep_sums])
+    def sq_sums(self, groups: Iterable[Iterable[torch.Tensor]],
+                grads: bool) -> List[torch.Tensor]:
+        """For each group of parameters the sum of squares of the full
+        tensors' gradients (``grads``) or values, as
+        ``training/state.py::global_norm`` sums one process's: per
+        parameter ``sum(square(t))`` in its dtype (a split one's slices
+        summed in float32 over the data group, then rounded once to its
+        dtype, as a reduction of the whole leaf rounds), added in order
+        from Python's 0, so two bfloat16 leaves in a row add in bfloat16
+        as there. With nothing split this is one process's sum bit for
+        bit. A parameter without a gradient adds nothing; a group with
+        nothing to add gives a zero of its first parameter's dtype."""
+        groups = [list(ps) for ps in groups]
+        terms = self._leaf_terms(
+            groups, grads,
+            lambda v: torch.sum(torch.square(v), dtype=torch.float32),
+            lambda total, dtype: total.to(dtype),
+            lambda v: torch.sum(torch.square(v)))
+        return [sum(ts) if ts else ps[0].new_zeros(())
+                for ps, ts in zip(groups, terms)]
 
     def norm_fn(self, params: List[torch.Tensor]):
-        """The global gradient norm over ``params`` (an optimizer's), for
-        its clip, or None when none of them is split."""
+        """The global gradient norm over ``params`` (an optimizer's) as
+        ``torch.nn.utils.clip_grad_norm_`` takes it for its clip, or None
+        when none of them is split: each parameter's norm in its dtype (a
+        split one's from its slices' float32 squares summed over the data
+        group), grouped by dtype in order of first appearance, and the
+        2-norm of them all in float32."""
         if not any(id(p) in self._shard_name for p in params):
             return None
-        return lambda: torch.sqrt(self.sq_sums([params], grads=True)[0])
+
+        def norm() -> torch.Tensor:
+            (norms,) = self._leaf_terms(
+                [params], True,
+                lambda v: torch.sum(torch.square(v.float())),
+                lambda total, dtype: torch.sqrt(total).to(dtype),
+                lambda v: torch._foreach_norm([v])[0])
+            by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+            for n in norms:
+                by_dtype.setdefault(n.dtype, []).append(n)
+            ordered = [n for ns in by_dtype.values() for n in ns]
+            return torch.linalg.vector_norm(torch.stack(ordered))
+        return norm
 
     # -- full state ------------------------------------------------------
 

@@ -16,13 +16,21 @@ batch dimension can be exported symbolically (``poly_batch``): one shared
 dimension ``b`` for the leading dimension of every array after the key,
 so one artifact serves any batch size, 1 included (an example batch of 1
 is traced at 2: ``export_fn``).
+
+A model at ``dtype: bfloat16`` exports as one at float32: its
+parameters' casts to the compute dtype (``ops/layers.py``) are nodes of
+the program, the kernels' ops take their bfloat16 instantiations, and
+the program takes and returns what the JAX package's entry function
+takes and returns at that dtype (float32 images; ``encode``'s bfloat16
+latents). ``model_manifest`` records the compute dtype.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -61,11 +69,6 @@ def export_fn(fn: nn.Module, example_args: Sequence[torch.Tensor], *,
     dimension of size 1 for a constant, so an example batch of 1 is traced
     with its rows repeated to 2; the program serves a batch of 1 all the
     same."""
-    dtype = getattr(getattr(fn, "model", None), "compute_dtype",
-                    torch.float32)
-    if dtype != torch.float32:
-        raise NotImplementedError(f"not ported yet: the export of a model "
-                                  f"at {dtype} (ROADMAP A6)")
     args = tuple(example_args)
     dynamic = None
     if poly_batch:
@@ -75,6 +78,14 @@ def export_fn(fn: nn.Module, example_args: Sequence[torch.Tensor], *,
         dynamic = (None, tuple({0: b} for _ in args[1:]))
     with torch.no_grad():
         return torch.export.export(fn, args, dynamic_shapes=dynamic)
+
+
+def model_manifest(model: nn.Module) -> dict:
+    """The manifest's entries of ``model``: its class name and its
+    compute dtype (``float32`` or ``bfloat16``)."""
+    dtype = getattr(model, "compute_dtype", torch.float32)
+    return {"model": type(model).__name__,
+            "dtype": str(dtype).replace("torch.", "")}
 
 
 def _specs(values, batch) -> list:
@@ -109,9 +120,10 @@ def save_artifact(out_dir: str,
                   exported: Dict[str, torch.export.ExportedProgram],
                   extra_manifest: Optional[dict] = None) -> str:
     """Write one ``<name>.pt2`` per entry point (``torch.export.save``)
-    plus ``manifest.json``: the torch version and, per function, its file,
-    its input / output specs (the symbolic batch as ``b``) and the device
-    it was exported on."""
+    plus ``manifest.json``: the torch version, ``extra_manifest``'s
+    entries (``model_manifest``'s: the model and its compute dtype) and,
+    per function, its file, its input / output specs (the symbolic batch
+    as ``b``) and the device it was exported on."""
     os.makedirs(out_dir, exist_ok=True)
     manifest = {"torch_version": torch.__version__, "functions": {}}
     manifest.update(extra_manifest or {})
@@ -137,13 +149,25 @@ def load_artifact(art_dir: str, device=None
     ``torch.inference_mode()``) plus the manifest. With ``device`` each
     program is moved there first (``move_to_device_pass``), so a program
     exported on the card serves on the CPU too. Imports no model code."""
+    (fns,), manifest = load_artifact_on(art_dir, [device])
+    return fns, manifest
+
+
+def load_artifact_on(art_dir: str, devices: Sequence
+                     ) -> Tuple[List[Dict[str, Callable]], dict]:
+    """``load_artifact`` on each of ``devices`` (None: where it was
+    exported) from one read of each file: per device, name -> callable,
+    and the manifest."""
     with open(os.path.join(art_dir, MANIFEST_NAME)) as f:
         manifest = json.load(f)
-    fns = {}
+    fns: List[Dict[str, Callable]] = [{} for _ in devices]
     for name, meta in manifest["functions"].items():
         exp = torch.export.load(os.path.join(art_dir, meta["file"]))
-        if device is not None:
-            from torch.export.passes import move_to_device_pass
-            exp = move_to_device_pass(exp, str(torch.device(device)))
-        fns[name] = _serving(exp.module())
+        for i, device in enumerate(devices):
+            moved = exp
+            if device is not None:
+                from torch.export.passes import move_to_device_pass
+                moved = move_to_device_pass(copy.deepcopy(exp),
+                                            str(torch.device(device)))
+            fns[i][name] = _serving(moved.module())
     return fns, manifest

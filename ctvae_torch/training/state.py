@@ -184,9 +184,8 @@ def _module_norms(state: TrainState, kind: str, grads: bool
                 for name, child in state.model.named_children()]
     children = [(name, ps) for name, ps in children if ps]
     if state.fsdp is not None:
-        norms = torch.sqrt(state.fsdp.sq_sums([ps for _, ps in children],
-                                              grads))
-        return {f"{kind}/{name}": norms[i]
+        sums = state.fsdp.sq_sums([ps for _, ps in children], grads)
+        return {f"{kind}/{name}": torch.sqrt(sums[i])
                 for i, (name, _) in enumerate(children)}
     out = {}
     for name, ps in children:

@@ -18,8 +18,8 @@ and the two block keys (``pairwise_block_rows``, ``gat_block_cols``).
 * ``convert.py`` keeps each leaf's dtype (bfloat16 for the CT layer's
   own parameters) and refuses a leaf of another dtype.
 * CTMCQVAE's four serving entry points and one train step per mode,
-  MCQVAE's and VanillaVAE's forward, loss and train step, against JAX at
-  bfloat16 with the draws replayed (tests/torch_port_common.py). Values
+  MCQVAE's, VQVAE's and VanillaVAE's forward, loss and train step, against
+  JAX at bfloat16 with the draws replayed (tests/torch_port_common.py). Values
   that bfloat16 rounds differently by an ulp can flip a decision: a VQ
   index, the argmax of the CT layer's output, a Gumbel-Bernoulli sample.
   Each such decision is tapped on both sides (``Taps``): the port's may
@@ -59,6 +59,7 @@ import pytest
 import torch
 
 from ctvae_torch.convert import from_jax_params
+from torch_dp_ranks import TapReplay
 from torch_port_common import (MCQ, SMALL, ReplayDraws, batch, close,
                                jax_rngs, jax_train_step_state,
                                one_torch_thread, recorded_draws, t2n)
@@ -293,6 +294,8 @@ def _bf16(cfg):
 
 VAE_SMALL = dict(name="VanillaVAE", in_channels=3, latent_dim=8,
                  hidden_dims=[8, 16], img_size=16)
+VQ_SMALL = dict(name="VQVAE", in_channels=3, embedding_dim=8,
+                num_embeddings=16, hidden_dims=[8, 16], img_size=16)
 
 
 def _jax_init(cfg, seed=0):
@@ -322,8 +325,8 @@ def ct_pair():
     return _pair(_bf16(SMALL))
 
 
-@pytest.mark.parametrize("cfg", [SMALL, MCQ, VAE_SMALL],
-                         ids=["CTMCQVAE", "MCQVAE", "VanillaVAE"])
+@pytest.mark.parametrize("cfg", [SMALL, MCQ, VQ_SMALL, VAE_SMALL],
+                         ids=["CTMCQVAE", "MCQVAE", "VQVAE", "VanillaVAE"])
 def test_convert_keeps_leaf_dtypes(cfg):
     """Every parameter and buffer of the port built at bfloat16 has its
     JAX leaf's dtype (bfloat16: the CT layer's own parameters and the
@@ -364,26 +367,39 @@ class Taps:
     indices), ``ct`` (``ct_postprocess``'s argmax) and ``bern`` (a
     Gumbel-Bernoulli sample). Each kind is a FIFO in call order."""
 
-    def __init__(self):
+    def __init__(self, ordered: bool = True, lone: bool = False):
         self.rec = {"vq": [], "ct": [], "bern": []}
         self.flips = {"vq": 0, "ct": 0, "bern": 0}
+        self.ordered, self.lone = ordered, lone
 
     def jax(self, monkeypatch):
+        """Tap JAX's decisions. Each tap takes its slot in call order when
+        traced and fills it when the program runs, so the callbacks need
+        not run in order (``ordered=False``: a step over several devices,
+        where JAX takes no ordered effect). With ``lone`` the VQ search
+        tapped is a lone ``VectorQuantizerMS``'s (VQVAE's; a
+        multi-codebook quantizer calls it too), as one codebook's."""
         from ctvae_tpu.models import ct_vae as jct
         from ctvae_tpu.models import quantizers as jq
 
         def tap(kind, *arrays):
-            jax.debug.callback(
-                lambda *a: self.rec[kind].append(
-                    [np.asarray(x, np.float32) if x.dtype != np.int32
-                     else np.asarray(x) for x in a]),
-                *arrays, ordered=True)
+            slot = len(self.rec[kind])
+            self.rec[kind].append(None)
 
-        orig_ci = jq.MultipleCodebookVectorQuantizer.compute_inds
+            def fill(*a):
+                self.rec[kind][slot] = [
+                    np.asarray(x, np.float32) if x.dtype != np.int32
+                    else np.asarray(x) for x in a]
+            jax.debug.callback(fill, *arrays, ordered=self.ordered)
+
+        vq_cls = (jq.VectorQuantizerMS if self.lone
+                  else jq.MultipleCodebookVectorQuantizer)
+        orig_ci = vq_cls.compute_inds
 
         def compute_inds(module, latents):
             inds = orig_ci(module, latents)
-            tap("vq", latents.astype(jnp.float32), inds)
+            tap("vq", latents.astype(jnp.float32),
+                inds[:, None] if self.lone else inds)
             return inds
 
         orig_pp = jct.CTMCQVAE.ct_postprocess
@@ -400,84 +416,15 @@ class Taps:
             tap("bern", jax.lax.stop_gradient(out).astype(jnp.float32))
             return out
 
-        monkeypatch.setattr(jq.MultipleCodebookVectorQuantizer,
-                            "compute_inds", compute_inds)
+        monkeypatch.setattr(vq_cls, "compute_inds", compute_inds)
         monkeypatch.setattr(jct.CTMCQVAE, "ct_postprocess", ct_postprocess)
         monkeypatch.setattr(jct, "st_bernoulli_gumbel", st_bernoulli_gumbel)
 
     def port(self, monkeypatch):
-        from ctvae_torch.models import ct_vae as tct
-        from ctvae_torch.models import quantizers as tq
-        taps = self
-
-        orig_ci = tq.MultipleCodebookVectorQuantizer.compute_inds
-
-        def compute_inds(module, latents):
-            got = orig_ci(module, latents)
-            jl, ji = taps.rec["vq"].pop(0)
-            ji = torch.from_numpy(ji.astype(np.int64))
-            taps._check_vq(module, _f(latents), jl, got, ji)
-            return ji.to(got.device)
-
-        orig_pp = tct.CTMCQVAE.ct_postprocess
-
-        def ct_postprocess(module, seq):
-            got = orig_pp(module, seq)
-            js, ji = taps.rec["ct"].pop(0)
-            ji = torch.from_numpy(ji.astype(np.int64))
-            flip = (got != ji).reshape(-1).numpy()
-            if flip.any():
-                # JAX's value at the port's choice within 2 ulps of its max
-                js = js.reshape(-1, js.shape[-1])
-                top = js.max(-1)
-                mine = js[np.arange(len(js)), got.reshape(-1).numpy()]
-                assert (top - mine <= 2 * ULP * np.abs(top))[flip].all()
-                taps.flips["ct"] += int(flip.sum())
-            return ji
-
-        orig_bern = tct.st_bernoulli_gumbel
-
-        def st_bernoulli_gumbel(gumbel, probs, tau=1.0):
-            out = orig_bern(gumbel, probs, tau)
-            (hard,) = taps.rec["bern"].pop(0)
-            mine = (out.detach() > 0.5).float()
-            flip = (mine.numpy() != (hard > 0.5))
-            if flip.any():
-                # the soft sample, from the port's own logits, near 1/2
-                logits = torch.log(torch.clamp(torch.stack(
-                    [1.0 - probs, probs], -1), min=tct.CLAMP_EPS))
-                soft = torch.softmax((logits + gumbel) / tau, -1)[..., 1]
-                assert (np.abs(_f(soft) - 0.5) <= 0.05)[flip].all()
-                taps.flips["bern"] += int(flip.sum())
-            return out + (torch.tensor(hard).to(out) - mine).to(out)
-
-        monkeypatch.setattr(tq.MultipleCodebookVectorQuantizer,
-                            "compute_inds", compute_inds)
-        monkeypatch.setattr(tct.CTMCQVAE, "ct_postprocess", ct_postprocess)
-        monkeypatch.setattr(tct, "st_bernoulli_gumbel", st_bernoulli_gumbel)
-
-    def _check_vq(self, module, x_port, x_jax, got, want):
-        """A flipped index only where JAX's float32 distance gap between
-        the two codes is within what the latents' difference can move it:
-        2 sum_i |x_port - x_jax|_i |e_a - e_b|_i (plus float32 slack)."""
-        rd = module.reduced_embedding_dim
-        for c, q in enumerate(module.quantizers):
-            sl = slice(c * rd, (c + 1) * rd) if module.slicing == "chunk" \
-                else slice(c, c + rd)
-            xj = x_jax[..., sl].reshape(-1, rd).astype(np.float64)
-            xp = x_port[..., sl].reshape(-1, rd)
-            e = _f(q.embedding)
-            a = want[:, c].reshape(-1).numpy()
-            b = got[:, c].reshape(-1).numpy()
-            flip = a != b
-            if not flip.any():
-                continue
-            d = ((xj[:, None, :] - e[None]) ** 2).sum(-1)
-            rows = np.arange(len(a))
-            gap = d[rows, b] - d[rows, a]
-            room = 2 * (np.abs(xp - xj) * np.abs(e[b] - e[a])).sum(-1) + 1e-6
-            assert (gap <= room)[flip].all(), (gap[flip], room[flip])
-            self.flips["vq"] += int(flip.sum())
+        """The decisions replayed into the port after their checks
+        (``torch_dp_ranks.TapReplay``), flips counted in ``flips``."""
+        TapReplay(self.rec, self.flips, lone=self.lone).install(
+            monkeypatch.setattr)
 
     def done(self) -> bool:
         return not any(self.rec.values())
@@ -530,7 +477,8 @@ def _train_step_pair(monkeypatch, pair, mode, cfg, exp=EXP, twin=True):
     jm, variables, tm0 = pair
     x, y, a = batch(11, cfg=dict(SMALL, img_size=cfg["img_size"]))
     b = {"image": x, "input_y": y, "action": a}
-    taps = Taps()
+    lone = type(tm0).__name__ == "VQVAE"
+    taps = Taps(lone=lone)
     with monkeypatch.context() as m:
         taps.jax(m)
         j_params, j_grads, j_metrics, draws, j_state = jax_train_step_state(
@@ -549,7 +497,7 @@ def _train_step_pair(monkeypatch, pair, mode, cfg, exp=EXP, twin=True):
         assert replay.done() and taps.done() and state.step == 1
         return tm, metrics
 
-    twin_taps = Taps()
+    twin_taps = Taps(lone=lone)
     twin_taps.rec = copy.deepcopy(taps.rec)
     out = ((j_params, j_grads, j_metrics, j_state),
            port_step(copy.deepcopy(tm0), taps))
@@ -695,11 +643,16 @@ def test_ct_multi_step_equals_steps_at_bf16(ct_pair, mode):
                                    r.adam.state[q][key])
 
 
-# --- MCQVAE and VanillaVAE ---------------------------------------------------
+# --- MCQVAE, VQVAE and VanillaVAE --------------------------------------------
 
 @pytest.fixture(scope="module")
 def mcq_pair():
     return _pair(_bf16(MCQ))
+
+
+@pytest.fixture(scope="module")
+def vq_pair():
+    return _pair(_bf16(VQ_SMALL))
 
 
 @pytest.fixture(scope="module")
@@ -711,7 +664,7 @@ def _forward_pair(monkeypatch, pair, train, taps=True):
     jm, variables, tm = pair
     tm = copy.deepcopy(tm)   # a train pass folds BatchNorm's statistics
     x, _, _ = batch(13, cfg=SMALL)
-    tp = Taps()
+    tp = Taps(lone=type(tm).__name__ == "VQVAE")
     with monkeypatch.context() as m:
         if taps:
             tp.jax(m)
@@ -746,6 +699,21 @@ def test_mcq_vae_forward_and_loss_match_jax_at_bf16(monkeypatch, mcq_pair,
 
 
 @pytest.mark.parametrize("train", [False, True])
+def test_vq_vae_forward_and_loss_match_jax_at_bf16(monkeypatch, vq_pair,
+                                                    train):
+    """VQVAE at bfloat16 (its lone ``VectorQuantizerMS``, the search in
+    float32 on the upcast latents): the float32 reconstruction within 4
+    ulps of its scale, the losses within 2 % (VQ indices tapped)."""
+    want, want_loss, got, got_loss = _forward_pair(monkeypatch, vq_pair,
+                                                   train)
+    assert got["recons"].dtype == torch.float32
+    assert_ulps(got["recons"], want["recons"], ulps=0, scale_ulps=4,
+                what="recons")
+    for k in ("loss", "Reconstruction_Loss", "VQ_Loss"):
+        assert_ulps(got_loss[k], want_loss[k], ulps=5, what=k)
+
+
+@pytest.mark.parametrize("train", [False, True])
 def test_vanilla_vae_forward_and_loss_match_jax_at_bf16(monkeypatch,
                                                          vae_pair, train):
     """VanillaVAE at bfloat16: mu / log_var in float32 within 4 ulps of
@@ -760,16 +728,16 @@ def test_vanilla_vae_forward_and_loss_match_jax_at_bf16(monkeypatch,
         assert_ulps(got_loss[k], want_loss[k], ulps=5, what=k)
 
 
-@pytest.mark.parametrize("which", ["MCQVAE", "VanillaVAE"])
-def test_zoo_train_step_matches_jax_at_bf16(monkeypatch, mcq_pair, vae_pair,
-                                            which):
-    """One train step of MCQVAE and of VanillaVAE at bfloat16 against
+@pytest.mark.parametrize("which", ["MCQVAE", "VQVAE", "VanillaVAE"])
+def test_zoo_train_step_matches_jax_at_bf16(monkeypatch, mcq_pair, vq_pair,
+                                            vae_pair, which):
+    """One train step of MCQVAE, VQVAE and VanillaVAE at bfloat16 against
     JAX's: the loss within 2 %, ``grad_norm``, every gradient leaf and
     every parameter after Adam (``assert_bf16_step_matches``), and
     BatchNorm's float32 running statistics within 4 ulps of their
     scale."""
-    pair = mcq_pair if which == "MCQVAE" else vae_pair
-    cfg = MCQ if which == "MCQVAE" else VAE_SMALL
+    pair, cfg = {"MCQVAE": (mcq_pair, MCQ), "VQVAE": (vq_pair, VQ_SMALL),
+                 "VanillaVAE": (vae_pair, VAE_SMALL)}[which]
     (j_params, j_grads, j_metrics, j_state), (tm, metrics), (tm32, m32) = \
         _train_step_pair(monkeypatch, pair, "base", cfg)
     assert_ulps(metrics["loss"], j_metrics["loss"], ulps=5, what="loss")
@@ -911,11 +879,11 @@ def test_yaml_dtype_bfloat16_builds_the_three_models(tmp_path):
         assert bool(torch.isfinite(metrics["loss"]))
 
 
-@pytest.mark.parametrize("name", ["BetaVAE", "VQVAE", "IWAE", "DFCVAE",
+@pytest.mark.parametrize("name", ["BetaVAE", "MSSIMVAE", "IWAE", "DFCVAE",
                                   "ConditionalVAE", "LVAE"])
 def test_other_models_refuse_bf16(name):
-    """Every registry member outside the slice refuses bfloat16, naming
-    ROADMAP A6."""
+    """Every registry member outside the bfloat16 slice (CTMCQVAE, MCQVAE,
+    VQVAE, VanillaVAE) refuses bfloat16, naming ROADMAP A6."""
     from ctvae_torch.models import build_model
     with pytest.raises(NotImplementedError, match="A6"):
         build_model({"name": name, "dtype": "bfloat16"}, device="cpu")
@@ -933,19 +901,29 @@ def test_float64_and_unknown_dtypes_refused(cfg):
 
 
 def test_bf16_export_refused(ct_pair):
-    """Exporting a bfloat16 model is not ported yet (ROADMAP A6)."""
+    """No longer refused: a bfloat16 CT model's ``encode`` exports with a
+    symbolic batch, and the program on a batch of 3 equals the live port
+    bit for bit in its bfloat16 latents (tests/test_torch_bf16_export.py
+    holds every entry point and model)."""
     from ctvae_torch.serving.export import EntryPoint, export_fn
     x, _, _ = batch(1, cfg=SMALL)
-    with pytest.raises(NotImplementedError, match="A6"):
-        export_fn(EntryPoint(ct_pair[2], "encode"),
-                  (torch.zeros(2, dtype=torch.int64), torch.from_numpy(x)))
+    entry = EntryPoint(ct_pair[2], "encode")
+    key = torch.zeros((), dtype=torch.int64)
+    program = export_fn(entry, (key, torch.from_numpy(x[:2])),
+                        poly_batch=True)
+    got = program.module()(key, torch.from_numpy(x))
+    with torch.inference_mode():
+        want = entry(key, torch.from_numpy(x))
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got, want)
 
 
 def test_sharding_over_ranks_refuses_bf16():
-    """``sharding: dp`` or ``fsdp`` over ``torch.distributed`` ranks of a
-    bfloat16 model is not ported yet (ROADMAP A6): the experiment's setup
-    raises in a process group (a gloo world of one here), as it does for
-    every world."""
+    """No longer refused: ``sharding: dp`` and ``fsdp`` over
+    ``torch.distributed`` ranks of a bfloat16 model (a gloo world of one
+    here) set up and take an action step with finite losses, the CT
+    layer's parameters still bfloat16 (two ranks:
+    tests/test_torch_bf16_ranks.py)."""
     import socket
 
     import torch.distributed as dist
@@ -958,11 +936,18 @@ def test_sharding_over_ranks_refuses_bf16():
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=1, rank=0)
     try:
+        x, y, a = batch(4, cfg=SMALL)
         for sharding in ("dp", "fsdp"):
             exp = VAEXperiment(build_model(_bf16(SMALL), device="cpu"),
                                dict(EXP, sharding=sharding), None)
-            with pytest.raises(NotImplementedError, match="A6"):
-                exp.setup()
+            state = exp.setup()
+            assert exp.group is not None
+            metrics = exp._train_step("action")(state, {
+                "image": torch.from_numpy(x), "input_y": torch.from_numpy(y),
+                "action": torch.from_numpy(a)})
+            assert bool(torch.isfinite(metrics["loss"]))
+            assert bool(torch.isfinite(metrics["grad_norm"]))
+            assert exp.model.ct_layer.disc_w2.dtype == torch.bfloat16
     finally:
         dist.destroy_process_group()
 

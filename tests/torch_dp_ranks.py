@@ -11,9 +11,12 @@ a gloo group on the CPU, importing torch and the port and nothing of JAX
 - ``steps``: for each model of the payload, its runs of train steps from
   its initial state on the rank's rows of each global batch; a step with
   recorded draws replays them (``ShardedDraws`` over ``ReplayDraws`` of
-  the global draws); returns each step's metrics and gradients and the
-  parameters and buffers after the run (``run_steps``, which the test
-  also calls in one process on the global batches);
+  the global draws), and with recorded decisions also those
+  (``TapReplay``: the port's side of tests/test_torch_bf16.py's
+  ``Taps``, on the rank's rows); returns each step's metrics and
+  gradients and the parameters and buffers after the run
+  (``run_steps``, which the test also calls in one process on the global
+  batches);
 - ``fit``: ``VAEXperiment.fit`` of TSynthetic epochs: the rank's batches,
   the checkpoint files, a stop requested on one rank, a resume;
 - ``misc``: what a world of 2 refuses and takes, and ``dcn_replicas``;
@@ -26,8 +29,8 @@ hybrid mesh), and its results are the full tensors gathered from the
 slices, beside the slices' and Adam moments' shapes and the bytes
 resident between steps.
 
-``ReplayDraws`` and ``GammaSlot`` live here, free of JAX, and
-``torch_port_common`` re-exports them.
+``ReplayDraws``, ``GammaSlot`` and ``TapReplay`` live here, free of
+JAX; ``torch_port_common`` re-exports the first two.
 """
 
 from __future__ import annotations
@@ -96,6 +99,165 @@ class ReplayDraws:
         return not self.draws
 
 
+ULP = 2.0 ** -8          # one bfloat16 ulp, relative
+
+
+class TapReplay:
+    """JAX's recorded decisions replayed into the port after a check: the
+    port's side of ``Taps`` (tests/test_torch_bf16.py), which records
+    ``rec`` (kind -> FIFO of arrays, in call order) from a JAX run on the
+    global batch: ``vq`` (a multi-codebook VQ search's indices, beside
+    JAX's latents; with ``lone``, the search of a lone ``VectorQuantizerMS``,
+    VQVAE's, recorded as one codebook's), ``ct`` (``ct_postprocess``'s
+    argmax, beside its input) and ``bern`` (a Gumbel-Bernoulli sample).
+    The port's decision may
+    differ from JAX's only inside the rounding that the two sides' inputs
+    differ by; the port then continues on JAX's, and ``flips`` counts
+    such elements per kind. Without ``check`` JAX's decisions are replayed
+    unread (inside a ``torch.export`` trace, whose values are not there
+    to check).
+
+    On rank ``rank`` of ``world`` whose batch holds ``rows`` rows, each
+    recorded array is cut to the rank's rows: a leading dim of L = G x
+    ``rows`` local rows is G blocks of the batch, block-major (the causal
+    mode's A actions), of which the global array holds G x ``world``
+    blocks of ``rows`` rows, the rank's ``rank``-th of each."""
+
+    def __init__(self, rec, flips=None, rank: int = 0, world: int = 1,
+                 rows: Optional[int] = None, lone: bool = False,
+                 check: bool = True):
+        self.rec = rec
+        self.flips = flips if flips is not None else {k: 0 for k in rec}
+        self.rank, self.world, self.rows = rank, world, rows
+        self.lone, self.check = lone, check
+
+    def _mine(self, a: np.ndarray, local: int) -> np.ndarray:
+        if self.world == 1:
+            return a
+        g = local // self.rows
+        assert a.shape[0] == local * self.world, (a.shape, local)
+        a = a.reshape((g, self.world, self.rows) + a.shape[1:])
+        return a[:, self.rank].reshape((local,) + a.shape[3:])
+
+    def _pop(self, kind: str, local: int) -> List[np.ndarray]:
+        return [self._mine(a, local) for a in self.rec[kind].pop(0)]
+
+    def install(self, setattr_) -> None:
+        """Patch the three decisions with ``setattr_(obj, name, value)``
+        (``pytest.MonkeyPatch.setattr``, or ``Patches.setattr``)."""
+        from ctvae_torch.models import ct_vae as tct
+        from ctvae_torch.models import quantizers as tq
+        taps = self
+        vq_cls = (tq.VectorQuantizerMS if self.lone
+                  else tq.MultipleCodebookVectorQuantizer)
+        orig_ci = vq_cls.compute_inds
+
+        def compute_inds(module, latents):
+            jl, ji = taps._pop("vq", latents.shape[0])
+            ji = torch.from_numpy(ji.astype(np.int64))
+            if taps.check:
+                got = orig_ci(module, latents).cpu()
+                if taps.lone:   # one codebook: [B, H, W] as [B, 1, H, W]
+                    got, module = got[:, None], _OneCodebook(module)
+                taps.check_vq(module,
+                              latents.detach().cpu().double().numpy(), jl,
+                              got, ji)
+            return (ji[:, 0] if taps.lone else ji).to(latents.device)
+
+        orig_pp = tct.CTMCQVAE.ct_postprocess
+
+        def ct_postprocess(module, seq):
+            js, ji = taps._pop("ct", seq.shape[0])
+            ji = torch.from_numpy(ji.astype(np.int64))
+            if not taps.check:
+                return ji.to(seq.device)
+            got = orig_pp(module, seq).cpu()
+            flip = (got != ji).reshape(-1).numpy()
+            if flip.any():
+                # JAX's value at the port's choice within 2 ulps of its max
+                js = js.reshape(-1, js.shape[-1])
+                top = js.max(-1)
+                mine = js[np.arange(len(js)), got.reshape(-1).numpy()]
+                assert (top - mine <= 2 * ULP * np.abs(top))[flip].all()
+                taps.flips["ct"] += int(flip.sum())
+            return ji.to(seq.device)
+
+        orig_bern = tct.st_bernoulli_gumbel
+
+        def st_bernoulli_gumbel(gumbel, probs, tau=1.0):
+            out = orig_bern(gumbel, probs, tau)
+            (hard,) = taps._pop("bern", probs.shape[0])
+            picked = out.detach() > 0.5
+            mine = picked.to(out.dtype)
+            flip = (picked.cpu().numpy() != (hard > 0.5) if taps.check
+                    else np.zeros(1, bool))
+            if flip.any():
+                # the soft sample, from the port's own logits, near 1/2
+                logits = torch.log(torch.clamp(torch.stack(
+                    [1.0 - probs, probs], -1), min=tct.CLAMP_EPS))
+                soft = torch.softmax((logits + gumbel) / tau, -1)[..., 1]
+                soft = soft.detach().cpu().double().numpy()
+                assert (np.abs(soft - 0.5) <= 0.05)[flip].all()
+                taps.flips["bern"] += int(flip.sum())
+            return out + (torch.tensor(hard).to(out) - mine).to(out)
+
+        setattr_(vq_cls, "compute_inds", compute_inds)
+        setattr_(tct.CTMCQVAE, "ct_postprocess", ct_postprocess)
+        setattr_(tct, "st_bernoulli_gumbel", st_bernoulli_gumbel)
+
+    def check_vq(self, module, x_port, x_jax, got, want):
+        """A flipped index only where JAX's float32 distance gap between
+        the two codes is within what the latents' difference can move it:
+        2 sum_i |x_port - x_jax|_i |e_a - e_b|_i (plus float32 slack)."""
+        rd = module.reduced_embedding_dim
+        for c, q in enumerate(module.quantizers):
+            sl = slice(c * rd, (c + 1) * rd) if module.slicing == "chunk" \
+                else slice(c, c + rd)
+            xj = x_jax[..., sl].reshape(-1, rd).astype(np.float64)
+            xp = x_port[..., sl].reshape(-1, rd)
+            e = q.embedding.detach().cpu().double().numpy()
+            a = want[:, c].reshape(-1).numpy()
+            b = got[:, c].reshape(-1).numpy()
+            flip = a != b
+            if not flip.any():
+                continue
+            d = ((xj[:, None, :] - e[None]) ** 2).sum(-1)
+            rows = np.arange(len(a))
+            gap = d[rows, b] - d[rows, a]
+            room = 2 * (np.abs(xp - xj) * np.abs(e[b] - e[a])).sum(-1) + 1e-6
+            assert (gap <= room)[flip].all(), (gap[flip], room[flip])
+            self.flips["vq"] += int(flip.sum())
+
+    def done(self) -> bool:
+        return not any(self.rec.values())
+
+
+class _OneCodebook:
+    """A lone ``VectorQuantizerMS`` seen as a multi-codebook quantizer of
+    one codebook (``TapReplay.check_vq``'s view)."""
+
+    slicing = "chunk"
+
+    def __init__(self, quantizer):
+        self.quantizers = [quantizer]
+        self.reduced_embedding_dim = quantizer.embedding_dim
+
+
+class Patches:
+    """``setattr`` whose old values ``undo`` puts back."""
+
+    def __init__(self):
+        self._saved = []
+
+    def setattr(self, obj, name, value):
+        self._saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def undo(self):
+        while self._saved:
+            setattr(*self._saved.pop())
+
+
 # --- steps ---------------------------------------------------------------------
 
 def _tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -160,7 +322,10 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
     without ``group``). Per run: each
     step's metrics and gradients, the parameters and buffers after it,
     the state's step; under FSDP also the slices' and Adam moments'
-    shapes, the slices' values and the bytes resident after the run."""
+    shapes and dtypes, the slices' values and the bytes resident after the
+    run. A step of four items, ``(mode, batch, draws, decisions)``, also
+    replays JAX's recorded decisions (``TapReplay``), and its run counts
+    their flips (``flips``)."""
     from ctvae_torch.models import build_model
     from ctvae_torch.parallel import local_rows
     from ctvae_torch.training import state as tstate
@@ -178,7 +343,8 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
         state = _train_state(spec, model, group, groups, run.get("seed", 0))
         state.step = run.get("step", 0)
         metrics, grads = [], []
-        for mode, batch, draws in run["steps"]:
+        flips = {"vq": 0, "ct": 0, "bern": 0}
+        for mode, batch, draws, *decisions in run["steps"]:
             if group is not None:
                 batch = local_rows(batch, group)
             step_fn = tstate.make_train_step(
@@ -189,16 +355,26 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
                                     for k, v in _tensors(batch).items()})
             else:
                 replay = ReplayDraws(draws)
-                saved = tstate.Draws
-                tstate.Draws = lambda gen, device: replay
+                patches = Patches()
+                patches.setattr(tstate, "Draws", lambda gen, device: replay)
+                taps = None
+                if decisions:
+                    from ctvae_torch.parallel import group_rank, group_size
+                    taps = TapReplay(copy.deepcopy(decisions[0]), flips,
+                                     group_rank(group), group_size(group),
+                                     len(batch["image"]))
+                    taps.install(patches.setattr)
                 try:
-                    m = step_fn(state, _tensors(batch))
+                    m = step_fn(state, {k: v.to(device) for k, v in
+                                        _tensors(batch).items()})
                 finally:
-                    tstate.Draws = saved
+                    patches.undo()
                 assert replay.done(), "the step drew fewer draws than JAX"
+                assert taps is None or taps.done(), "decisions left"
             metrics.append({k: v.clone() for k, v in m.items()})
             grads.append(full_grads(state))
         res = {"metrics": metrics, "grads": grads, "step": state.step,
+               "flips": flips,
                "buffers": {n: b.clone() for n, b in model.named_buffers()},
                "resident_bytes": resident_bytes(state)}
         with tstate.full_params(state):
@@ -211,6 +387,11 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
             res["axes"] = dict(fsdp.axes)
             res["moments"] = [
                 {k: tuple(opt.adam.state[p]["exp_avg"].shape)
+                 for k, p in zip(_param_names(model, opt, fsdp), opt.params)
+                 if p in opt.adam.state} for opt in state.optimizers]
+            res["moment_dtypes"] = [
+                {k: (p.dtype, opt.adam.state[p]["exp_avg"].dtype,
+                     opt.adam.state[p]["exp_avg_sq"].dtype)
                  for k, p in zip(_param_names(model, opt, fsdp), opt.params)
                  if p in opt.adam.state} for opt in state.optimizers]
         out.append(res)
@@ -371,7 +552,8 @@ def case_fsdp_fit(payload, group) -> Dict[str, Any]:
     """``fit`` under ``sharding: fsdp`` with a resume against the same
     epochs without one; checkpoints of an FSDP run, a DP run and one
     process, each restored into an FSDP run, DP ranks and one process,
-    whose state then equals the file's."""
+    whose state then equals the file's; the dtypes of each file's Adam
+    moments."""
     from ctvae_torch.models import build_model
     from ctvae_torch.parallel import rank
     from ctvae_torch.training import optimizers as topt
@@ -423,9 +605,13 @@ def case_fsdp_fit(payload, group) -> Dict[str, Any]:
     torch.distributed.barrier(group=group)
     sources = {"fsdp": os.path.join(root, "fsdp", "last"),
                "dp": os.path.join(root, "dp", "last"), "single": single}
-    out["moves"] = {}
+    out["moves"], out["file_moment_dtypes"] = {}, {}
     for src, path in sources.items():
         want = _load(path)
+        out["file_moment_dtypes"][src] = sorted({
+            str(st[k].dtype) for opt in want["optimizers"]
+            for st in opt["adam"]["state"].values()
+            for k in ("exp_avg", "exp_avg_sq")})
         for dst in ("fsdp", "dp", "single"):
             if dst == "single":
                 m = build_model(dict(payload["cfg"]), device="cpu")

@@ -352,3 +352,39 @@ def build_pair(cfg=SMALL, seed: int = 0):
     tm = build_model(dict(cfg), device="cpu")
     tm.load_state_dict(from_jax_params(jax.device_get(variables), tm))
     return jm, variables, tm
+
+
+def port_pair(cfg, seed: int = 0):
+    """(jax_model, jax_variables, port_model on CPU) the other way round
+    from ``build_pair``: the port's model initialised from a seeded
+    generator, and JAX variables holding its values. The tree of
+    ``jm.init``'s shapes and dtypes comes from ``jax.eval_shape`` (traced,
+    not compiled), and each leaf is filled from the port's parameter or
+    buffer it converts to, through ``convert.py``'s layout of an index
+    array (a permutation), inverted."""
+    from ctvae_tpu.models import build_model as jax_build
+    from ctvae_torch.convert import _convert_leaf
+    from ctvae_torch.models import build_model
+
+    jm = jax_build(dict(cfg))
+    tm = build_model(dict(cfg), device="cpu",
+                     generator=torch.Generator().manual_seed(seed))
+    x, y, a = (jnp.asarray(v) for v in batch(seed, B=2, cfg=dict(
+        SMALL, img_size=cfg["img_size"])))
+    kwargs = (dict(mode="action", input_y=y, action=a)
+              if cfg["name"] == "CTMCQVAE" else {})
+    shapes = jax.eval_shape(lambda r: jm.init(r, x, **kwargs),
+                            jax_rngs(seed))
+    modules, state = dict(tm.named_modules()), tm.state_dict()
+
+    def fill(path, spec):
+        keys = tuple(str(getattr(k, "key", k)) for k in path)[1:]
+        n = int(np.prod(spec.shape))
+        name, order = _convert_leaf(keys, np.arange(n).reshape(spec.shape),
+                                    modules)
+        flat = np.empty(n, np.float32)
+        flat[np.asarray(order).reshape(-1)] = \
+            state[name].detach().float().numpy().reshape(-1)
+        return jnp.asarray(flat.reshape(spec.shape), spec.dtype)
+    variables = jax.tree_util.tree_map_with_path(fill, shapes)
+    return jm, variables, tm
