@@ -138,6 +138,18 @@ same widths (phase "loop"). Then more phases:
   artifact's and the live port's request ms in turns. The artifacts'
   requests make the path ``export`` (the four forward kernels).
 
+* sp: sequence parallelism, after "ddp": the headline at full width with
+  ``seq_axis="model"`` on two gloo ranks sharing the card at (data 1,
+  model 2), each rank's kernels on its block of targets (pairwise 32 of
+  64 columns, GAT 33 / 32 of 65 nodes): 8 steps a mode against one
+  process from equal states (losses and gradients to tier-1's bound),
+  every split launch's block checked, each kernel call of a causal step
+  held against its plain version at the block shapes, the serving entry
+  points under ``model_parallel`` against one process, 3 causal steps at
+  bfloat16; each rank's peak bytes against one process's, the
+  collectives' bytes and step ms (a correctness path: report, judge
+  nothing). These launches make the path ``sp`` (``phase_sp``;
+  ``--sp-only`` runs it alone).
 * bf16: the headline config at ``dtype: bfloat16`` (the JAX bench's
   dtype): requests of the four entry points, 16 eager steps a mode and
   two ``make_multi_train_step(mode, 8)`` calls from an equal state (every
@@ -3503,19 +3515,30 @@ def _all_calls(fn, targets) -> dict:
     return calls
 
 
-def _plain_ms_on_step(fn) -> dict:
-    """The plain versions' ms on the inputs each kernel gets in one call
-    of ``fn`` (a train step): the pairwise and GAT forwards, the per-head
-    logits forward, and the backwards' plain autograd (as the kernel
-    rows' plain times are taken), by kernel (the pairwise ones by call)."""
+def _step_kernel_calls(fn) -> dict:
+    """The calls of every kernel but the VQ search's in one call of
+    ``fn`` (a train step), by wrapper name."""
     from ctvae_torch.ops import gat_flash as gf
     from ctvae_torch.ops import gat_logits as gl
     from ctvae_torch.ops import pairwise_flash as pf
-    from ctvae_torch.ops.gat import gat_logits
-    calls = _all_calls(fn, [
+    return _all_calls(fn, [
         (pf, "flash_pairwise_cuda"), (pf, "flash_pairwise_bwd_cuda"),
         (gf, "flash_gat_cuda"), (gf, "flash_gat_bwd_cuda"),
         (gl, "fused_gat_logits_cuda"), (gl, "fused_gat_logits_bwd_cuda")])
+
+
+def _plain_ms_on_step(fn) -> dict:
+    """The plain versions' ms on the inputs each kernel gets in one call
+    of ``fn`` (a train step): ``_plain_ms_of_calls``."""
+    return _plain_ms_of_calls(_step_kernel_calls(fn))
+
+
+def _plain_ms_of_calls(calls) -> dict:
+    """The plain versions' ms on the inputs of a step's kernel calls
+    (``_step_kernel_calls``): the pairwise and GAT forwards, the per-head
+    logits forward, and the backwards' plain autograd (as the kernel
+    rows' plain times are taken), by kernel (the pairwise ones by call)."""
+    from ctvae_torch.ops.gat import gat_logits
 
     def det(args):
         return tuple(a.detach() if torch.is_tensor(a) else a for a in args)
@@ -6507,6 +6530,522 @@ def phase_ddp(smi: str) -> tuple:
     return launches, fsdp_launches, bf16_launches, numbers
 
 
+# --- phase "sp": sequence parallelism --------------------------------------
+
+SP_PARAMS = {**MODEL_PARAMS, "seq_axis": "model"}
+SP_STEPS = 8          # steps of each mode on the two ranks and in one process
+SP_BF16_STEPS = 3     # causal steps at bfloat16
+SP_TIMEOUT = 400      # seconds for the two rank processes
+SP_TOL = 1e-5         # tier-1's bound: losses (atol and rtol), and each
+                      # gradient over max(1, its leaf's largest |g|)
+SP_REQUEST_ATOL = 1e-5  # classify_action's probabilities against one
+                        # process; the images may differ in 1% of their
+                        # elements (a code flipped at a near-tie)
+
+
+def _sp_state(params, batch_group=None, model_group=None):
+    """The headline model of ``params`` and the config's exp_params, seeded
+    as ``_ddp_state``; a state with a model group gets rank 0's weights and
+    generator (a broadcast over the world, so every rank calls it)."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.parallel import put_replicated
+    from ctvae_torch.training import build_optimizers, create_train_state
+    model = build_model(params, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+    state = create_train_state(model, [], seed=SEED, group=batch_group,
+                               model_group=model_group)
+    if model_group is not None:
+        put_replicated(model, torch.distributed.group.WORLD, state.generator)
+    state.optimizers = build_optimizers(EXP_PARAMS, model,
+                                        steps_per_epoch=100)
+    return state
+
+
+class _SpBytes:
+    """While open, the bytes of each collective of the split region: the
+    gathers (their padded output, every rank's block) and the entry's
+    gradient sums (their float32 bucket), by shape."""
+
+    def __enter__(self):
+        from ctvae_torch.parallel import sequence as sq
+        self.sq, self.real = sq, (sq._gather_dim0, sq.sum_grads)
+        self.gathers, self.sums = [], []
+
+        def gather(t, group):
+            self.gathers.append((list(t.shape), t.numel() * t.element_size()
+                                 * torch.distributed.get_world_size(group)))
+            return self.real[0](t, group)
+
+        def sums(grads, group):
+            n = sum(g.numel() for g in grads if g is not None)
+            self.sums.append(([list(g.shape) for g in grads
+                               if g is not None], 4 * n))
+            return self.real[1](grads, group)
+        sq._gather_dim0, sq.sum_grads = gather, sums
+        return self
+
+    def __exit__(self, *exc):
+        self.sq._gather_dim0, self.sq.sum_grads = self.real
+
+    def numbers(self) -> dict:
+        return {"gather_bytes": sum(b for _, b in self.gathers),
+                "sum_bytes": sum(b for _, b in self.sums),
+                "gathers": self.gathers, "sums": self.sums}
+
+
+#: each split kernel's launch, by wrapper: (argument holding the targets,
+#: its dim)
+SP_SPLIT = {("pairwise_flash", "flash_pairwise_cuda"): (1, 1),
+            ("pairwise_flash", "flash_pairwise_bwd_cuda"): (1, 1),
+            ("gat_flash", "flash_gat_cuda"): (1, 1),
+            ("gat_flash", "flash_gat_bwd_cuda"): (1, 1),
+            ("gat_logits", "fused_gat_logits_cuda"): (1, 1),
+            ("gat_logits", "fused_gat_logits_bwd_cuda"): (1, 1)}
+
+
+def _sp_targets(fn) -> dict:
+    """Wrapper -> [(sources, targets)] of each launch of a split kernel
+    while ``fn()`` runs, and the alpha residuals' shapes."""
+    import importlib
+    out, patched = {"alpha": []}, []
+    for (mod, name), (i, d) in SP_SPLIT.items():
+        module = importlib.import_module(f"ctvae_torch.ops.{mod}")
+        real = getattr(module, name)
+
+        def probe(*args, real=real, name=name, i=i, d=d, **kw):
+            res = real(*args, **kw)
+            out.setdefault(name, []).append((int(args[0].shape[1]),
+                                             int(args[i].shape[d])))
+            if name == "flash_gat_cuda" and res[1] is not None:
+                out["alpha"].append(list(res[1].shape))
+            return res
+        setattr(module, name, probe)
+        patched.append((module, name, real))
+    try:
+        fn()
+    finally:
+        for module, name, real in patched:
+            setattr(module, name, real)
+    return out
+
+
+def _sp_grads_against(sp, single) -> tuple:
+    """(worst gradient error over its leaf's scale, the leaves past
+    SP_TOL, the parameters past Adam's reach of their gradients'
+    difference) of a step from equal states."""
+    lr = float(EXP_PARAMS["LR"])
+    worst, grads, params = 0.0, [], []
+    for (n, p), q in zip(sp.model.named_parameters(),
+                         single.model.parameters()):
+        gp = p.grad if p.grad is not None else torch.zeros_like(p)
+        gq = q.grad if q.grad is not None else torch.zeros_like(q)
+        diff = (gp - gq).abs()
+        err = float(diff.max()) / max(1.0, float(gq.abs().max()))
+        worst = max(worst, err)
+        if err > SP_TOL:
+            grads.append(n)
+        if not bool(((p.detach() - q.detach()).abs()
+                     <= _adam_reach(diff, lr)).all()):
+            params.append(n)
+    return worst, grads, params
+
+
+def _sp_steps(sp, single, launches: dict) -> dict:
+    """SP_STEPS steps of each mode on the rank (the same B = 16 rows on
+    both: a data axis of 1); before each, rank 0 loads the state into one
+    process, which takes the step beside it. Per mode: the step's ms, the
+    transient peak bytes of its first step on the rank and in the one
+    process, the collectives' bytes of that step; the launches per step
+    against the plain step's; the losses and gradients against one
+    process to tier-1's bound."""
+    from ctvae_torch.training import make_train_step
+    out = {"wrong": [], "metrics_off": [], "grads_off": [],
+           "params_off": [], "worst_grad": 0.0, "worst_loss_rel": 0.0,
+           "ms": {}, "peak": {}, "bytes": {}}
+    for i, (mode, expected) in enumerate(EXPECTED_TRAIN.items()):
+        step = make_train_step(mode)
+        secs = []
+        for k, b in enumerate(_ddp_batches(SEED + 61 + i, SP_STEPS, BATCH)):
+            if single is not None:
+                single.load_state_dict(copy.deepcopy(sp.state_dict()))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            c0 = _counts()
+            t0 = time.perf_counter()
+            with _SpBytes() as probe:
+                got = step(sp, b)
+            torch.cuda.synchronize()
+            secs.append(1e3 * (time.perf_counter() - t0))
+            c1 = _counts()
+            _add_counts(launches, c0, c1)
+            if {k2: c1[k2] - c0[k2] for k2 in c1} != expected:
+                out["wrong"].append(mode)
+            if k == 0:
+                out["peak"][mode] = {
+                    "sp": torch.cuda.max_memory_allocated() - base}
+                out["bytes"][mode] = probe.numbers()
+            if single is None:
+                continue
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            want = step(single, b)
+            if k == 0:
+                out["peak"][mode]["single"] = \
+                    torch.cuda.max_memory_allocated() - base
+            for key, w in want.items():
+                # each element within SP_TOL (atol and rtol)
+                g, w = got[key].double(), w.double()
+                off = float(((g - w).abs() / (1 + w.abs())).max())
+                out["worst_loss_rel"] = max(out["worst_loss_rel"], off)
+                if off > SP_TOL:
+                    out["metrics_off"].append((mode, key, off))
+            worst, grads, params = _sp_grads_against(sp, single)
+            out["worst_grad"] = max(out["worst_grad"], worst)
+            out["grads_off"] += [(mode, n) for n in grads]
+            out["params_off"] += [(mode, n) for n in params]
+        out["ms"][mode] = statistics.median(secs[1:])
+    return out
+
+
+def _sp_requests(sp, single, mg, launches: dict) -> dict:
+    """The three entry points on the rank under ``model_parallel`` (each
+    launch count per request as the serving path's), against one process
+    on rank 0 with the same draws: classify_action's probabilities within
+    SP_REQUEST_ATOL, the images' largest difference and share of
+    differing elements (held to 1%)."""
+    from ctvae_torch.parallel import model_parallel
+    from ctvae_torch.serving.inference import make_inference_fn
+    x, y, a = _requests(torch.Generator().manual_seed(SEED + 5), BATCH,
+                        "cuda")
+
+    def run(model):
+        fns = {n: make_inference_fn(model, n) for n in EXPECTED}
+        calls = {"reconstruct": lambda g: fns["reconstruct"](x, generator=g),
+                 "apply_action": lambda g: fns["apply_action"](
+                     x, y, a, generator=g),
+                 "classify_action": lambda g: fns["classify_action"](
+                     x, y, generator=g)}
+        outs, wrong = {}, []
+        for name, call in calls.items():
+            c0 = _counts()
+            outs[name] = call(torch.Generator("cuda").manual_seed(SEED))
+            c1 = _counts()
+            if model is sp.model:
+                _add_counts(launches, c0, c1)
+                if {k: c1[k] - c0[k] for k in c1} != EXPECTED[name]:
+                    wrong.append(name)
+            _check_served(name, outs[name], BATCH)
+        return outs, wrong
+    with torch.no_grad():
+        with model_parallel(mg):
+            got, wrong = run(sp.model)
+        if single is None:
+            return {"wrong": wrong}
+        single.load_state_dict(copy.deepcopy(sp.state_dict()))
+        want, _ = run(single.model)
+    out = {"wrong": wrong}
+    for name in EXPECTED:
+        d = (got[name] - want[name]).abs()
+        out[name] = {"max_abs_err": float(d.max()),
+                     "differ_share": float((d > 0).float().mean())}
+    return out
+
+
+def _sp_bf16(bg, mg, rank: int, launches: dict) -> dict:
+    """SP_BF16_STEPS causal steps at bfloat16 on the rank; before each,
+    rank 0 loads the state into one bfloat16 process and one float32
+    process (the same values), which take the step beside it: the losses
+    within 2 % of the bfloat16 process's, and tier-1's rule: each
+    gradient within twice the bfloat16 process's distance to the float32
+    one plus 2 bfloat16 ulps of its norm."""
+    from ctvae_torch.training import make_train_step
+    bf = _sp_state({**BF16_MODEL_PARAMS, "seq_axis": "model"}, bg, mg)
+    single = _sp_state(BF16_MODEL_PARAMS) if rank == 0 else None
+    twin = _sp_state(MODEL_PARAMS) if rank == 0 else None
+    step = make_train_step("causal")
+    out = {"loss_max_rel": 0.0, "worst_ratio": 0.0, "beyond": [],
+           "wrong": []}
+    for b in _ddp_batches(SEED + 81, SP_BF16_STEPS, BATCH):
+        full = copy.deepcopy(bf.state_dict())
+        if single is not None:
+            single.load_state_dict(full)
+            twin.model.load_state_dict(
+                {k: v.float() if v.is_floating_point() else v
+                 for k, v in full["model"].items()})
+            twin.generator.set_state(full["generator"])
+        c0 = _counts()
+        got = step(bf, b)
+        c1 = _counts()
+        _add_counts(launches, c0, c1)
+        if {k: c1[k] - c0[k] for k in c1} != EXPECTED_TRAIN["causal"]:
+            out["wrong"].append("causal")
+        if single is None:
+            continue
+        want = step(single, b)
+        step(twin, b)
+        out["loss_max_rel"] = max(out["loss_max_rel"], abs(
+            float(got["loss"]) - float(want["loss"])) / max(
+            abs(float(want["loss"])), 1e-30))
+        ref = dict(twin.model.named_parameters())
+        for (n, p), q in zip(bf.model.named_parameters(),
+                             single.model.parameters()):
+            zero = torch.zeros(p.shape, dtype=torch.float64, device="cuda")
+            g = p.grad.double() if p.grad is not None else zero
+            o = q.grad.double() if q.grad is not None else zero
+            r = ref[n].grad.double() if ref[n].grad is not None else zero
+            bound = 2 * float((o - r).norm()) + 2 * BF16_ULP * float(
+                r.norm())
+            e = float((g - r).norm())
+            out["worst_ratio"] = max(out["worst_ratio"],
+                                     e / bound if bound else 0.0)
+            if e > bound:
+                out["beyond"].append(n)
+    return out
+
+
+def _sp_rank(rank: int, port: int, out_dir: str) -> None:
+    """A rank of phase "sp": two ranks over gloo sharing cuda:0, one mesh
+    (data 1, model 2), the headline at full width with ``seq_axis``:
+    ``_sp_steps``, the kernels of one causal step at the rank's block of
+    targets (``_sp_targets``) and each held against its plain version
+    (``_kernels_on_step``, ``_vq_on_path``), then timed with its bound and
+    plain version with each rank alone on the card in turn (``_sp_times``),
+    ``_sp_requests``, ``_sp_bf16``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from ctvae_torch.parallel import (destroy, init_distributed, make_mesh,
+                                      mesh_batch_group, mesh_model_group)
+    from ctvae_torch.parallel.sequence import target_blocks
+    from ctvae_torch.training import make_train_step
+    launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
+    res: dict = {"rank": rank, "launches": launches}
+    try:
+        init_distributed("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                         rank=rank, world_size=2)
+        mesh = make_mesh(2)
+        bg, mg = mesh_batch_group(mesh), mesh_model_group(mesh)
+        sp = _sp_state(SP_PARAMS, bg, mg)
+        single = _sp_state(MODEL_PARAMS) if rank == 0 else None
+        res["steps"] = _sp_steps(sp, single, launches)
+        b = _ddp_batches(SEED + 71, 1, BATCH)[0]
+        causal = make_train_step("causal")
+        res["targets"] = _sp_targets(lambda: causal(sp, b))
+        S = (MODEL_PARAMS["img_size"] // 8) ** 2 * MODEL_PARAMS["codebooks"]
+        res["blocks"] = {"pairwise": target_blocks(S, 2)[rank],
+                         "gat": target_blocks(S + 1, 2)[rank]}
+        res["on_step"] = _kernels_on_step(f"sp rank {rank} causal step",
+                                          lambda: causal(sp, b))
+        res["vq"] = _vq_on_path(lambda: causal(sp, b))
+        # the block calls' times, each rank alone on the card in turn
+        calls = _step_kernel_calls(lambda: causal(sp, b))
+        for turn in range(2):
+            torch.distributed.barrier()
+            if turn == rank:
+                res["times"] = _sp_times(calls)
+        torch.distributed.barrier()
+        del calls
+        res["requests"] = _sp_requests(sp, single, mg, launches)
+        del sp, single
+        torch.cuda.empty_cache()
+        res["bf16"] = _sp_bf16(bg, mg, rank, launches)
+    except Exception:       # reported to the parent, which fails the phase
+        import traceback
+        res["error"] = traceback.format_exc()
+    finally:
+        destroy()
+        torch.save(res, os.path.join(out_dir, f"sp_rank{rank}.pt"))
+
+
+def _sp_times(calls) -> dict:
+    """Each split kernel's ms on its call of the step (``_step_kernel_
+    calls``), its bound and its plain version's ms
+    (``_plain_ms_of_calls``), by kernel (the pairwise ones by call)."""
+    from ctvae_torch.ops import gat_flash as gf
+    from ctvae_torch.ops import gat_logits as gl
+    from ctvae_torch.ops import pairwise_flash as pf
+
+    def det(args):
+        return tuple(a.detach() if torch.is_tensor(a) else a for a in args)
+    out = {"ms": {}, "bound_ms": {}}
+    for args, _ in calls["flash_pairwise_cuda"]:
+        args = det(args)
+        key = "pairwise_fwd_" + ("no_inter" if args[2].dim() == 1
+                                 else "inter")
+        out["ms"][key] = time_ms(lambda: pf.flash_pairwise_cuda(*args))
+        out["bound_ms"][key] = _pairwise_fwd_bound(args)[0]
+    for args, _ in calls["flash_pairwise_bwd_cuda"]:
+        args = det(args)
+        key = "pairwise_bwd_" + ("no_inter" if args[2].dim() == 1
+                                 else "inter")
+        out["ms"][key] = time_ms(lambda: pf.flash_pairwise_bwd_cuda(*args))
+        out["bound_ms"][key] = _pairwise_bwd_bound(
+            args, _pairwise_live(args)["pairs"])[0]
+    (args, kw), = calls["flash_gat_cuda"]
+    args = det(args)
+    out["ms"]["gat_fwd"] = time_ms(lambda: gf.flash_gat_cuda(*args, **kw))
+    out["bound_ms"]["gat_fwd"] = _gat_fwd_bound(
+        args, kw.get("keep_alpha", False))[0]
+    (args, _), = calls["flash_gat_bwd_cuda"]
+    args = det(args)
+    out["ms"]["gat_bwd"] = time_ms(lambda: gf.flash_gat_bwd_cuda(*args))
+    out["bound_ms"]["gat_bwd"] = _gat_bwd_bound(args[0], args[1],
+                                                args[3])[0]
+    (args, _), = calls["fused_gat_logits_cuda"]
+    args = det(args)
+    out["ms"]["gat_logits_fwd"] = time_ms(
+        lambda: gl.fused_gat_logits_cuda(*args))
+    out["bound_ms"]["gat_logits_fwd"] = _logits_fwd_bound(args[:5])[0]
+    (args, _), = calls["fused_gat_logits_bwd_cuda"]
+    args = det(args)
+    out["ms"]["gat_logits_bwd"] = time_ms(
+        lambda: gl.fused_gat_logits_bwd_cuda(*args))
+    out["bound_ms"]["gat_logits_bwd"] = _logits_bwd_bound(args[:5],
+                                                          args[5])[0]
+    out["plain_ms"] = _plain_ms_of_calls(calls)
+    return out
+
+
+def _sp_check_targets(r: dict) -> list:
+    """What in a rank's ``_sp_targets`` is not its block: every split
+    kernel launched, each with every source and the rank's targets, and
+    the alpha residual [B, H, T_block, T]."""
+    bad = []
+    S = (MODEL_PARAMS["img_size"] // 8) ** 2 * MODEL_PARAMS["codebooks"]
+    for (_, name), _ in SP_SPLIT.items():
+        n, (lo, hi) = ((S, r["blocks"]["pairwise"]) if "pairwise" in name
+                       else (S + 1, r["blocks"]["gat"]))
+        calls = r["targets"].get(name, [])
+        if not calls or any(c != (n, hi - lo) for c in calls):
+            bad.append((name, calls))
+    lo, hi = r["blocks"]["gat"]
+    if not r["targets"]["alpha"] or any(
+            a[2:] != [hi - lo, S + 1] for a in r["targets"]["alpha"]):
+        bad.append(("alpha", r["targets"]["alpha"]))
+    return bad
+
+
+def phase_sp(smi: str) -> tuple:
+    """Sequence parallelism of the headline model (configs/ct_mcq_vae.yaml
+    at full width, ``ct_layer`` trained, cuDNN's deterministic
+    algorithms) on two gloo ranks sharing the card, at (data 1, model 2):
+    ``_sp_rank``, spawned after the kernels are built, joined within
+    SP_TIMEOUT seconds or killed. A correctness path: both ranks share one
+    card, so its times are no scaling figure. The launch counters of the
+    SP steps and requests (at float32 and bfloat16) are the path "sp".
+    Returns (those launches, the numbers)."""
+    import torch.multiprocessing as mp
+    start = time.perf_counter()
+    launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
+    with tempfile.TemporaryDirectory(prefix="ctvae_sp_") as tmp:
+        ctx = mp.start_processes(_sp_rank, args=(_free_port(), tmp),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + SP_TIMEOUT
+        try:
+            while not ctx.join(timeout=max(1.0, deadline
+                                           - time.monotonic())):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"sp: the ranks ran past "
+                                         f"{SP_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        r0, r1 = (torch.load(os.path.join(tmp, f"sp_rank{r}.pt"),
+                             weights_only=False) for r in range(2))
+    for r in (r0, r1):
+        if "error" in r:
+            raise AssertionError(f"sp rank {r['rank']}:\n{r['error']}")
+        _add_counts(launches, {k: 0 for k in launches}, r["launches"])
+    s0, s1 = r0["steps"], r1["steps"]
+    numbers = {
+        "rank_ms": s0["ms"], "rank1_ms": s1["ms"],
+        "worst_loss_diff": s0["worst_loss_rel"],
+        "worst_grad_err": s0["worst_grad"], "peak_bytes": {
+            mode: {"rank0": s0["peak"][mode]["sp"],
+                   "rank1": s1["peak"][mode]["sp"],
+                   "one_process": s0["peak"][mode]["single"]}
+            for mode in EXPECTED_TRAIN},
+        "collective_bytes": {mode: {k: v for k, v in s0["bytes"][mode].items()
+                                    if k.endswith("_bytes")}
+                             for mode in EXPECTED_TRAIN},
+        "targets": {str(r["rank"]): {k: sorted(set(map(tuple, v)))
+                                     for k, v in r["targets"].items()}
+                    for r in (r0, r1)},
+        "requests": {k: v for k, v in r0["requests"].items()
+                     if k != "wrong"},
+        "bf16": {k: r0["bf16"][k] for k in ("loss_max_rel", "worst_ratio",
+                                            "beyond")},
+        "times": {str(r["rank"]): r["times"] for r in (r0, r1)},
+        "vq": {str(r["rank"]): r["vq"] for r in (r0, r1)},
+        "on_step_max_abs_err": {
+            str(r["rank"]): {
+                "pairwise_fwd": max(m["max_abs_err"] for m in
+                                    r["on_step"]["pairwise_fwd"].values()),
+                "gat_fwd": r["on_step"]["gat_fwd"]["max_abs_err"],
+                "gat_logits_fwd": r["on_step"]["logits"]["fwd"][
+                    "max_abs_err"],
+                "pairwise_bwd": max(m["err"] for m in
+                                    r["on_step"]["pairwise_bwd"].values()),
+                "gat_bwd": r["on_step"]["gat_bwd"]["errors"],
+                "gat_logits_bwd": r["on_step"]["logits"]["bwd"]["errors"],
+                "vq_differ": [v["differ"] for v in r["vq"]]}
+            for r in (r0, r1)}}
+    log(f"sp two ranks on one card over gloo at (data 1, model 2) ({smi}), "
+        f"a correctness path (both ranks share the card; no scaling "
+        f"figure): ms per step at B = 16, rank 0 {json.dumps(s0['ms'])}, "
+        f"rank 1 {json.dumps(s1['ms'])}; {SP_STEPS} steps a mode against "
+        f"one process from equal states: worst metric difference over "
+        f"1 + |one process's| {s0['worst_loss_rel']:.3g}, worst gradient "
+        f"error over its leaf's scale {s0['worst_grad']:.3g} (bound "
+        f"{SP_TOL}); metrics off "
+        f"{s0['metrics_off']}, gradients off {s0['grads_off']}, parameters "
+        f"beyond Adam's reach {s0['params_off']}; launches per step off the "
+        f"plain step's {s0['wrong'] + s1['wrong']}")
+    log(f"sp peak bytes of one step (above what was allocated before it): "
+        f"{json.dumps(numbers['peak_bytes'])}")
+    log(f"sp collective bytes of one step on a rank: "
+        f"{json.dumps(numbers['collective_bytes'])}; causal gathers "
+        f"{json.dumps(s0['bytes']['causal']['gathers'])}, sums "
+        f"{json.dumps(s0['bytes']['causal']['sums'])}")
+    log(f"sp targets per split launch (sources, targets): "
+        f"{json.dumps(numbers['targets'])}")
+    log(f"sp requests under model_parallel against one process: "
+        f"{json.dumps(numbers['requests'])}")
+    for r in (r0, r1):
+        log(f"sp rank {r['rank']} block calls of a causal step, each rank "
+            f"alone on the card ({smi}): kernel ms "
+            f"{json.dumps(r['times']['ms'])}, bound ms "
+            f"{json.dumps(r['times']['bound_ms'])}, plain ms "
+            f"{json.dumps(r['times']['plain_ms'])}; VQ search (unsplit, "
+            f"timed beside the other rank) {json.dumps(r['vq'])}")
+    log(f"sp bf16 causal: {SP_BF16_STEPS} steps, losses' largest relative "
+        f"difference {r0['bf16']['loss_max_rel']:.3g}, the largest gradient "
+        f"distance over its bound {r0['bf16']['worst_ratio']:.3g} (beyond: "
+        f"{r0['bf16']['beyond']})")
+    bad = _sp_check_targets(r0) + _sp_check_targets(r1)
+    if bad:
+        raise AssertionError(f"sp: kernels off the rank's block: {bad}")
+    if s0["metrics_off"] or s0["grads_off"] or s0["params_off"] or \
+            s0["wrong"] or s1["wrong"]:
+        raise AssertionError("sp two ranks: disagree with one process")
+    req = r0["requests"]
+    if req["wrong"] or r1["requests"]["wrong"] or \
+            req["classify_action"]["max_abs_err"] > SP_REQUEST_ATOL or \
+            max(req[n]["differ_share"] for n in ("reconstruct",
+                                                  "apply_action")) > 0.01:
+        raise AssertionError(f"sp requests: {req}, rank 1 "
+                             f"{r1['requests']}")
+    if r0["bf16"]["loss_max_rel"] > 5 * BF16_ULP or r0["bf16"]["beyond"] \
+            or r0["bf16"]["wrong"] or r1["bf16"]["wrong"]:
+        raise AssertionError(f"sp bf16: {r0['bf16']}")
+    numbers["wall_s"] = time.perf_counter() - start
+    log(f"launches on the sp path: {json.dumps(launches)}")
+    log(f"sp: phase {numbers['wall_s']:.1f} s")
+    return launches, numbers
+
+
 # --- phase "bf16": the compute dtype bfloat16 ------------------------------
 
 # the headline config at the JAX bench's dtype (its bench runs bfloat16 in
@@ -7085,6 +7624,10 @@ def main(argv) -> int:
         help="only build the kernels and run the phase \"ddp\" "
              "(phase_ddp)")
     parser.add_argument(
+        "--sp-only", action="store_true",
+        help="only build the kernels and run the phase \"sp\" "
+             "(phase_sp)")
+    parser.add_argument(
         "--bf16-only", action="store_true",
         help="only build the kernels and run the phase \"bf16\" "
              "(phase_bf16)")
@@ -7163,6 +7706,10 @@ def main(argv) -> int:
                         "fsdp_launches": fsdp_launches,
                         "ddp_bf16_launches": bf16_launches, "ddp": numbers}))
         return 0
+    if opts.sp_only:
+        launches, numbers = phase_sp(smi)
+        log(json.dumps({"sp_launches": launches, "sp": numbers}))
+        return 0
     if opts.bf16_only:
         launches, bf16_rows, numbers = phase_bf16(smi)
         log(json.dumps({"bf16_launches": launches, "bf16": numbers,
@@ -7207,6 +7754,7 @@ def main(argv) -> int:
     export_launches, export_bf16_launches, export_numbers = phase_export(smi)
     ddp_launches, fsdp_launches, ddp_bf16_launches, ddp_numbers = \
         phase_ddp(smi)
+    sp_launches, sp_numbers = phase_sp(smi)
     bf16_launches, bf16_rows, bf16_numbers = phase_bf16(smi)
     kernels = []
     for r in rows:
@@ -7230,6 +7778,7 @@ def main(argv) -> int:
                    "ddp": ddp_launches[r["name"]],
                    "fsdp": fsdp_launches[r["name"]],
                    "ddp_bf16": ddp_bf16_launches[r["name"]],
+                   "sp": sp_launches[r["name"]],
                    "bf16": bf16_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
@@ -7265,7 +7814,7 @@ def main(argv) -> int:
             k["launches_by_path"][p] == 0 for k in kernels
            for p in ("train", "codebooks_2", "two_stage", "scan",
                      "shapes3d_ct", "metrics", "search", "tceleba",
-                     "ddp", "fsdp", "bf16", "ddp_bf16")) or any(
+                     "ddp", "fsdp", "bf16", "ddp_bf16", "sp")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
             if EXPECTED["reconstruct"][k["name"]]) or any(
             (k["launches_by_path"]["shapes3d_mcq"] == 0)
@@ -7278,7 +7827,8 @@ def main(argv) -> int:
                     "scan_ms": scan_ms, "metric_seconds": metric_seconds,
                     "search": search_numbers, "gaussian": gauss_numbers,
                     "celeba": celeba_numbers, "export": export_numbers,
-                    "ddp": ddp_numbers, "bf16": bf16_numbers}))
+                    "ddp": ddp_numbers, "sp": sp_numbers,
+                    "bf16": bf16_numbers}))
     log(f"chip_smoke wall time {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

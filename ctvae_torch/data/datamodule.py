@@ -95,7 +95,13 @@ def _plain_batches(ds, batch_size: int, shuffle: bool, seed: int,
 
 class VAEDataset:
     """Arguments of the config's ``data_params``; loader-only knobs
-    (``num_workers``, ``pin_memory``) are accepted and ignored."""
+    (``num_workers``, ``pin_memory``) are accepted and ignored.
+
+    Each host (``host_id`` of ``num_hosts``; by default the process's rank
+    and world) loads its ``train_batch_size`` rows of each global batch.
+    Under a mesh with a ``model`` axis the ranks of a model group share
+    their rows, so ``VAEXperiment.setup`` sets the two to the rank's data
+    index and the data size (its batch group's rank and size)."""
 
     def __init__(self, data_path: str = "", dataset_name: str = "TSynthetic",
                  train_batch_size: int = 8, val_batch_size: int = 8,

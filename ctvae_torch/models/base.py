@@ -108,9 +108,11 @@ class ShardedDraws:
     the global shape by ``base`` (whose generator every rank holds in
     lockstep) and the rank keeps its rows, so every rank's draws are its
     rows of the single process's on the global batch, and the generators
-    stay in lockstep. Rank r of n keeps rows r B to (r + 1) B of the
-    global n B; under ``grouped(G)`` a leading dim of G B is G blocks of
-    the batch, block-major (the causal mode's virtual batch of A
+    stay in lockstep. Rank r of the n ranks of ``group`` (the batch group:
+    under a mesh with a model axis, r is the data index, so the ranks of
+    one model group draw the same values) keeps rows r B to (r + 1) B of
+    the global n B; under ``grouped(G)`` a leading dim of G B is G blocks
+    of the batch, block-major (the causal mode's virtual batch of A
     actions), and the rank keeps its B rows of each block. ``gamma``
     gathers the ranks' ``alpha`` first (a gamma draw consumes the stream
     by its shapes). ``replicated()`` is ``base``: a draw of the same

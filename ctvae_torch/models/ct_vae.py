@@ -29,6 +29,15 @@ touch promote to float32 as in JAX; the losses run in float32
 (``upcast32``). ``pairwise_block_rows`` / ``gat_block_cols`` chunk the
 plain (CPU) path as JAX's XLA path does; the kernels ignore them
 (``ops/pairwise.py``, ``ops/gat.py``).
+
+``seq_axis="model"`` (``exp_params.sharding: sp``; ``ctvae_torch/run.py``
+sets it) splits the target nodes of the pairwise scores and of the GATv2
+attention over the running step's model group (``parallel/sequence.py``),
+as JAX's ``seq_axis`` pins them to its mesh's model axis. The discoverer's
+region is entered at the latent and at the discoverer's parameters (their
+gradients summed over the group), where the bytes are fewest: its
+projections [B, S, H] are ``H / N`` times the latent [B, S, N]. Outside a
+model group it changes nothing.
 """
 
 from __future__ import annotations
@@ -43,7 +52,8 @@ from torch.nn import functional as F
 
 from ..ops.gat import GATv2Stack
 from ..ops.layers import Linear, set_compute_dtype
-from ..ops.pairwise import pairwise_mlp_scores
+from ..ops.pairwise import column_group, pairwise_mlp_scores
+from ..parallel.sequence import enter
 from .backbones import VQDecoder, VQEncoder
 from .base import (Draws, check_dtype, cross_entropy_from_probs, dropout,
                    grouped, mse_loss)
@@ -112,12 +122,12 @@ class CausalTransition(nn.Module):
                  c_delta: float = 0.4, c_epsilon: float = 0.4,
                  dropout_rate: float = 0.1, max_len: int = 4096,
                  noise: str = "off", pairwise_block_rows: Optional[int] = None,
-                 gat_block_cols: int = 0, param_dtype=torch.float32, *,
-                 device=None):
+                 gat_block_cols: int = 0, param_dtype=torch.float32,
+                 seq_axis: Optional[str] = None, *, device=None):
         super().__init__()
         if noise not in ("off", "exo", "endo"):
             raise ValueError(f"unknown noise {noise!r}")
-        self.noise = noise
+        self.noise, self.seq_axis = noise, seq_axis
         ld = tuple(latent_dims) if latent_dims else (800, 100)
         N, A, H = input_dim, action_dim, ld[0]
         self.input_dim, self.action_dim = N, A
@@ -147,8 +157,7 @@ class CausalTransition(nn.Module):
         self.mask_bias = param(N)
         self.graph_transitioner = GATv2Stack(
             N, ld[1:], 1 + A, param_dtype=param_dtype,
-            block_cols=gat_block_cols,
-            device=device)
+            block_cols=gat_block_cols, seq_axis=seq_axis, device=device)
 
     # --- building blocks ----------------------------------------------
 
@@ -174,14 +183,24 @@ class CausalTransition(nn.Module):
         g = draws.gumbel(inter_masked.shape + (2,))
         return st_bernoulli_gumbel(g, inter_masked)[..., None]
 
+    def _discoverer(self, latent: torch.Tensor, *params: torch.Tensor):
+        """The latent in the compute dtype and ``params``, entered into
+        the discoverer's split region where the columns are split
+        (``column_group``), else as they are."""
+        lat = latent.to(self.compute_dtype)
+        group = column_group(lat.shape[1], self.pairwise_block_rows,
+                             self.seq_axis)
+        return (lat, *params) if group is None else enter(group, lat,
+                                                          *params)
+
     def _no_inter_scores(self, latent: torch.Tensor) -> torch.Tensor:
         """Discoverer-0 (no-intervention) pairwise scores [B, S, S]."""
-        lat = latent.to(self.compute_dtype)
-        u0 = lat @ self.disc_w1l[0]
-        v0 = lat @ self.disc_w1r[0]
-        return pairwise_mlp_scores(u0, v0, self.disc_w2[0, :, 0],
-                                   self.disc_b2[0, 0], self.disc_b1[0],
-                                   block_rows=self.pairwise_block_rows)
+        lat, w1l, w1r, w2, b2, b1 = self._discoverer(
+            latent, self.disc_w1l[0], self.disc_w1r[0], self.disc_w2[0, :, 0],
+            self.disc_b2[0, 0], self.disc_b1[0])
+        return pairwise_mlp_scores(lat @ w1l, lat @ w1r, w2, b2, b1,
+                                   block_rows=self.pairwise_block_rows,
+                                   seq_axis=self.seq_axis)
 
     def _compute_adj(self, latent: torch.Tensor, action: torch.Tensor,
                      mask: torch.Tensor,
@@ -191,12 +210,17 @@ class CausalTransition(nn.Module):
         if no_inter is None:
             no_inter = self._no_inter_scores(latent)
         aid = 1 + torch.argmax(action, dim=-1)
-        lat = latent.to(self.compute_dtype)
-        ui = torch.einsum("bsn,bnh->bsh", lat, self.disc_w1l[aid])
-        vi = torch.einsum("bsn,bnh->bsh", lat, self.disc_w1r[aid])
-        inter = pairwise_mlp_scores(ui, vi, self.disc_w2[aid, :, 0],
-                                    self.disc_b2[aid, 0], self.disc_b1[aid],
-                                    block_rows=self.pairwise_block_rows)
+        # entered whole: the per-sample stacks [B, N, H] would be B / (A + 1)
+        # times the parameters' bytes
+        lat, w1l, w1r, w2, b2, b1 = self._discoverer(
+            latent, self.disc_w1l, self.disc_w1r, self.disc_w2, self.disc_b2,
+            self.disc_b1)
+        ui = torch.einsum("bsn,bnh->bsh", lat, w1l[aid])
+        vi = torch.einsum("bsn,bnh->bsh", lat, w1r[aid])
+        inter = pairwise_mlp_scores(ui, vi, w2[aid, :, 0], b2[aid, 0],
+                                    b1[aid],
+                                    block_rows=self.pairwise_block_rows,
+                                    seq_axis=self.seq_axis)
         return no_inter * (1 - mask) + inter * mask
 
     @staticmethod
@@ -396,8 +420,6 @@ class CTMCQVAE(nn.Module):
                  seq_axis: Optional[str] = None, dtype="float32", *,
                  device=None):
         super().__init__()
-        if seq_axis is not None:
-            raise NotImplementedError("not ported yet: seq_axis (ROADMAP A8)")
         self.compute_dtype = dt = check_dtype(dtype, bf16=True)
         hd = tuple(hidden_dims) if hidden_dims else (128, 256)
         self.in_channels, self.embedding_dim = in_channels, embedding_dim
@@ -416,7 +438,8 @@ class CTMCQVAE(nn.Module):
             c_beta=c_beta, c_delta=c_delta, c_epsilon=c_epsilon,
             dropout_rate=ct_dropout_rate, noise=noise,
             pairwise_block_rows=pairwise_block_rows,
-            gat_block_cols=gat_block_cols, param_dtype=dt, device=device)
+            gat_block_cols=gat_block_cols, param_dtype=dt, seq_axis=seq_axis,
+            device=device)
         self.decoder = VQDecoder(embedding_dim, hd, in_channels,
                                  device=device)
         set_compute_dtype(self, dt)

@@ -19,6 +19,20 @@ computes its per-sample-head logits in the CUDA kernels of
 ``fused_gat_logits`` and its one-walk VJP); its masked softmax and
 aggregation are plain PyTorch with autograd. On CPU tensors every kernel
 runs its plain version.
+
+A layer built with ``seq_axis`` (sequence parallelism, as JAX's
+``seq_axis`` field) splits the target nodes over the running step's model
+group (``parallel/sequence.py``): each rank runs the kernels on its block
+of targets against every source, and the blocks are gathered along the
+target axis. The region is entered where the bytes are fewest: in
+``forward`` at the layer's input ``x`` and the parameters the kernel reads
+(``lin_l``, ``lin_r``, ``lin_edge``, ``att``), whose gradients are summed
+over the group (the projections hold H F features a node, the input
+fewer); in ``heads_call`` at the selected heads' ``xl``, ``we`` and
+``att`` (K of H heads), ``xr`` scattered. The adjacency's columns are
+scattered, ``bias`` is added after the gather. Outside a model group, and
+on the ``block_cols`` path (left unsharded, as in JAX), it changes
+nothing.
 """
 
 from __future__ import annotations
@@ -29,6 +43,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.sequence import (enter, gather_targets, scatter_targets,
+                                 split_group, target_block)
 from .common import upcast32
 from .layers import Linear
 
@@ -109,11 +125,11 @@ class DenseGATv2Layer(nn.Module):
     def __init__(self, in_features: int, out_features: int, heads: int = 1,
                  negative_slope: float = 0.2, *,
                  param_dtype=torch.float32, block_cols: int = 0,
-                 device=None):
+                 seq_axis=None, device=None):
         super().__init__()
         self.heads, self.out_features = heads, out_features
         self.negative_slope = negative_slope
-        self.block_cols = block_cols
+        self.block_cols, self.seq_axis = block_cols, seq_axis
         hf = heads * out_features
         self.lin_l = Linear(in_features, hf, device=device)
         self.lin_r = Linear(in_features, hf, device=device)
@@ -131,6 +147,14 @@ class DenseGATv2Layer(nn.Module):
         return (0 < self.block_cols < x.shape[1]
                 and x.device.type == "cpu")
 
+    def _split(self, x: torch.Tensor):
+        """The group the targets are split over (``seq_axis`` inside a
+        model group, without ``block_cols`` below the node count, which
+        JAX leaves unsharded), or None."""
+        if 0 < self.block_cols < x.shape[1]:
+            return None
+        return split_group(self.seq_axis)
+
     def identity_call(self, x: torch.Tensor) -> torch.Tensor:
         """Exact fast path for an identity adjacency: each target's only
         incoming edge is its mean-filled self-loop, the softmax over a
@@ -144,6 +168,20 @@ class DenseGATv2Layer(nn.Module):
         H, Fo = self.heads, self.out_features
         adj, edge_mask = replace_self_loops(adj)
         adj = adj.to(self.compute_dtype)
+        group = self._split(x)
+        if group is not None:
+            x, wl, bl, wr, br, we, att = enter(
+                group, x, self.lin_l.weight, self.lin_l.bias,
+                self.lin_r.weight, self.lin_r.bias, self.lin_edge, self.att)
+            lo, hi = target_block(T, group)
+            xl = self.lin_l(x, wl, bl).reshape(B, T, H, Fo)
+            xr = self.lin_r(x, wr, br).reshape(B, T, H, Fo)
+            out = flash_gat(xl, xr[:, lo:hi].contiguous(),
+                            scatter_targets(adj, 2, group),
+                            edge_mask[:, :, lo:hi].contiguous(),
+                            we.reshape(H, Fo), att, self.negative_slope)
+            out = gather_targets(out, 1, T, group)
+            return out.reshape(B, T, H * Fo) + self.bias
         xl = self.lin_l(x).reshape(B, T, H, Fo)
         xr = self.lin_r(x).reshape(B, T, H, Fo)
         we = self.lin_edge.reshape(H, Fo)
@@ -174,15 +212,26 @@ class DenseGATv2Layer(nn.Module):
             out = self(x, adj).reshape(B, T, H, Fo)
             return torch.gather(out, 2, hsel)
         adj, edge_mask = replace_self_loops(adj)
+        adj = adj.to(self.compute_dtype)
         xl = torch.gather(self.lin_l(x).reshape(B, T, H, Fo), 2, hsel)
         xr = torch.gather(self.lin_r(x).reshape(B, T, H, Fo), 2, hsel)
         we = self.lin_edge.reshape(H, Fo)[head_idx]            # [B, K, F]
         att = self.att[head_idx]
         bias = self.bias.reshape(H, Fo)[head_idx]
-        logits = fused_gat_logits(xl, xr, adj.to(self.compute_dtype), we,
-                                  att, self.negative_slope)
+        group = self._split(x)
+        if group is not None:
+            # entered after the head selection: K of H heads, where the
+            # layer's input holds every head's features
+            xl, we, att = enter(group, xl, we, att)
+            xr = scatter_targets(xr, 1, group)
+            adj = scatter_targets(adj, 2, group)
+            lo, hi = target_block(T, group)
+            edge_mask = edge_mask[:, :, lo:hi].contiguous()
+        logits = fused_gat_logits(xl, xr, adj, we, att, self.negative_slope)
         alpha = masked_incoming_softmax(logits, edge_mask)
         out = torch.einsum("bstk,bskf->btkf", alpha, xl)
+        if group is not None:
+            out = gather_targets(out, 1, T, group)
         return out + bias[:, None]
 
 
@@ -192,7 +241,7 @@ class GATv2Stack(nn.Module):
 
     def __init__(self, input_dim: int, hidden: Sequence[int], heads: int, *,
                  param_dtype=torch.float32, block_cols: int = 0,
-                 device=None):
+                 seq_axis=None, device=None):
         super().__init__()
         dims = list(hidden) + [input_dim]
         fin = input_dim
@@ -201,7 +250,8 @@ class GATv2Stack(nn.Module):
             setattr(self, f"DenseGATv2Layer_{i}",
                     DenseGATv2Layer(fin, dim, heads=heads,
                                     param_dtype=param_dtype,
-                                    block_cols=block_cols, device=device))
+                                    block_cols=block_cols, seq_axis=seq_axis,
+                                    device=device))
             fin = heads * dim
         self._n_layers = len(dims)
 

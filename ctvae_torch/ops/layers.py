@@ -24,13 +24,18 @@ def _cast(p, dtype):
 
 
 class Linear(nn.Linear):
-    """flax's ``Dense``: ``x @ W + b`` in ``compute_dtype``."""
+    """flax's ``Dense``: ``x @ W + b`` in ``compute_dtype``. ``weight`` /
+    ``bias`` stand in for the layer's own (a parameter entered into a
+    sequence-parallel region: ``parallel/sequence.py``)."""
 
     compute_dtype = torch.float32
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, weight=None, bias=None
+                ) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+        weight = self.weight if weight is None else weight
+        bias = self.bias if bias is None else bias
+        return F.linear(x.to(dt), weight.to(dt), _cast(bias, dt))
 
 
 class Conv2d(nn.Conv2d):

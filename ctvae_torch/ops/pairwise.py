@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.sequence import gather_targets, split_group, target_block
 from .common import upcast32
 
 
@@ -53,10 +54,20 @@ def fused_pairwise_scores(xl: torch.Tensor, xr: torch.Tensor,
         xl.dtype)
 
 
+def column_group(S: int, block_rows: Optional[int], seq_axis):
+    """The group ``pairwise_mlp_scores`` splits its columns over:
+    ``seq_axis`` inside a model group (``parallel/sequence.py``), but not
+    on the ``block_rows`` path, which JAX leaves unsharded; else None."""
+    if block_rows is not None and block_rows < S:
+        return None
+    return split_group(seq_axis)
+
+
 def pairwise_mlp_scores(x_left: torch.Tensor, x_right: torch.Tensor,
                         w2: torch.Tensor, b2: torch.Tensor, b1: torch.Tensor,
                         negative_slope: float = 0.01,
-                        block_rows: Optional[int] = None) -> torch.Tensor:
+                        block_rows: Optional[int] = None,
+                        seq_axis=None) -> torch.Tensor:
     """Scores for all ordered pairs, [B, S, S].
 
     x_left [B, S, H] = X @ Wl (row element), x_right [B, S, H] = X @ Wr
@@ -68,9 +79,23 @@ def pairwise_mlp_scores(x_left: torch.Tensor, x_right: torch.Tensor,
     JAX's ``pairwise_block_rows`` does: on CPU tensors the rows go through
     the op ``block_rows`` at a time (rows are independent, so the scores
     are the unchunked ones). The CUDA kernels never build that workspace
-    and take all rows in one launch."""
+    and take all rows in one launch.
+
+    ``seq_axis`` (sequence parallelism) splits the columns over the
+    running step's model group (``column_group``): the rank scores its
+    block of ``x_right``'s columns and the blocks are gathered along
+    dim 2. The gradients of every input are then the block's share: the
+    caller enters the region upstream, where the bytes are fewer
+    (``models/ct_vae.py`` enters the latent and the discoverer's
+    parameters)."""
     from .pairwise_flash import flash_pairwise
     S = x_left.shape[1]
+    group = column_group(S, block_rows, seq_axis)
+    if group is not None:
+        lo, hi = target_block(S, group)
+        block = flash_pairwise(x_left, x_right[:, lo:hi].contiguous(), w2,
+                               b1, b2, negative_slope)
+        return gather_targets(block, 2, S, group)
     if block_rows is None or block_rows >= S or x_left.device.type != "cpu":
         return flash_pairwise(x_left, x_right, w2, b1, b2, negative_slope)
     return torch.cat([flash_pairwise(x_left[:, r:r + block_rows].contiguous(),

@@ -27,10 +27,14 @@ one process on the global batch:
   ``all_gather_rows``).
 
 The mesh keeps the JAX axis names and order: ``(data, model)`` and, with
-``dcn_replicas``, ``(replica, data, model)``, ranks reshaped replica-major.
-The batch is split over every axis but ``model``, whose size is 1 here
-(``model_axis > 1`` and sequence parallelism are refused by the trainer:
-ROADMAP A8), so the batch's group is the whole world. Under
+``dcn_replicas``, ``(replica, data, model)``, ranks reshaped replica-major
+and model-minor, as the JAX package reshapes devices. The batch is split
+over every axis but ``model`` (``mesh_batch_group``: the whole world where
+the model axis has size 1); the ranks along ``model`` (``mesh_model_group``)
+hold the same rows. Under ``sharding: sp`` they split the CT model's
+target nodes among them (``parallel/sequence.py``, inside
+``model_parallel``); under ``sharding: dp`` they repeat one another's
+work, as the JAX package replicates it over its model axis. Under
 ``sharding: fsdp`` (``parallel/fsdp.py``) the parameters that
 ``fsdp_plan`` picks are split over ``data`` alone (``mesh_data_group``:
 the ranks of one replica), never over ``replica``
@@ -54,6 +58,8 @@ REPLICA_AXIS = "replica"   # across slices (DCN) on a hybrid mesh
 
 #: the group the batch of the running step is split over (``batch_parallel``)
 _BATCH_GROUP: Optional[Any] = None
+#: the ranks along ``model`` of the running step (``model_parallel``)
+_MODEL_GROUP: Optional[Any] = None
 
 
 def init_distributed(backend: Optional[str] = None, *,
@@ -113,38 +119,69 @@ def _mesh_device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def make_mesh():
+def make_mesh(model_axis: int = 1):
     """``DeviceMesh`` ``(data, model)`` over every rank of the default
-    group, the model axis of size 1."""
+    group, the model axis of ``model_axis`` ranks (consecutive ranks:
+    model-minor)."""
     from torch.distributed.device_mesh import DeviceMesh
-    ranks = torch.arange(world_size()).reshape(-1, 1)
-    return DeviceMesh(_mesh_device_type(), ranks,
+    n = world_size()
+    if model_axis < 1 or n % model_axis:
+        raise ValueError(f"model_axis {model_axis} does not divide the "
+                         f"world of {n} ranks")
+    return DeviceMesh(_mesh_device_type(),
+                      torch.arange(n).reshape(-1, model_axis),
                       mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
 
-def make_hybrid_mesh(dcn_replicas: int):
+def make_hybrid_mesh(dcn_replicas: int, model_axis: int = 1):
     """``DeviceMesh`` ``(replica, data, model)``: the ranks reshaped
-    replica-major, as the JAX package reshapes devices without slice
-    topology, the model axis of size 1. The batch is split over (replica,
-    data) jointly."""
+    replica-major and model-minor, as the JAX package reshapes devices
+    without slice topology. The batch is split over (replica, data)
+    jointly."""
     from torch.distributed.device_mesh import DeviceMesh
     n = world_size()
     if dcn_replicas < 1 or n % dcn_replicas:
         raise ValueError(f"dcn_replicas {dcn_replicas} does not divide the "
                          f"world of {n} ranks")
-    ranks = torch.arange(n).reshape(dcn_replicas, n // dcn_replicas, 1)
+    if model_axis < 1 or n % (dcn_replicas * model_axis):
+        raise ValueError(f"model_axis {model_axis} does not divide the "
+                         f"{n // dcn_replicas} ranks of a replica")
+    ranks = torch.arange(n).reshape(dcn_replicas, -1, model_axis)
     return DeviceMesh(_mesh_device_type(), ranks,
                       mesh_dim_names=(REPLICA_AXIS, DATA_AXIS, MODEL_AXIS))
 
 
+def _model_size(mesh) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS))
+
+
 def mesh_batch_group(mesh):
-    """The group the batch is split over: every axis but ``model``, whose
-    size is 1, so every rank of the mesh, which spans the world: the
-    default group."""
+    """The group the batch is split over: the ranks of every axis but
+    ``model`` at this rank's model index, in rank order (replica-major).
+    With a model axis of 1 that is every rank of the mesh, which spans
+    the world: the default group. Else a group per model index, made by
+    every rank (a collective)."""
     if mesh.size() != world_size():
-        raise NotImplementedError("a mesh over part of the world is not "
-                                  "ported yet (ROADMAP A8)")
-    return dist.group.WORLD
+        raise ValueError("the mesh does not span the world")
+    m = _model_size(mesh)
+    if m == 1:
+        return dist.group.WORLD
+    ranks = mesh.mesh.reshape(-1, m)
+    mine = None
+    for j in range(m):
+        group = dist.new_group(ranks[:, j].tolist())
+        if rank() in ranks[:, j].tolist():
+            mine = group
+    return mine
+
+
+def mesh_model_group(mesh):
+    """The ranks along ``model`` at this rank's (replica, data) index: the
+    group that splits the target nodes under ``sharding: sp``, or None
+    where the model axis has size 1."""
+    if _model_size(mesh) == 1:
+        return None
+    return mesh.get_group(MODEL_AXIS)
 
 
 def mesh_data_group(mesh):
@@ -226,6 +263,27 @@ def batch_parallel(group) -> Iterator[None]:
 def batch_group():
     """The group of the running step's batch, or None."""
     return _BATCH_GROUP
+
+
+@contextlib.contextmanager
+def model_parallel(group) -> Iterator[None]:
+    """Inside, ``model_group()`` is ``group`` (None: no split): the train
+    and eval steps set it beside ``batch_parallel``, and a model built
+    with ``seq_axis`` splits its target nodes over it
+    (``parallel/sequence.py``). Every rank of ``group`` must then take
+    the same forward: a forward that one rank takes alone (the image
+    grids, serving) runs outside it."""
+    global _MODEL_GROUP
+    previous, _MODEL_GROUP = _MODEL_GROUP, group
+    try:
+        yield
+    finally:
+        _MODEL_GROUP = previous
+
+
+def model_group():
+    """The group along ``model`` of the running step, or None."""
+    return _MODEL_GROUP
 
 
 def group_size(group) -> int:
@@ -433,5 +491,6 @@ __all__ = ["DATA_AXIS", "FSDP_MIN_SIZE", "MODEL_AXIS", "REPLICA_AXIS",
            "group_size", "init_distributed", "is_primary",
            "launched_by_torchrun", "local_rows", "make_hybrid_mesh",
            "make_mesh", "mesh_batch_group", "mesh_data_group",
-           "mesh_replica_group", "put_replicated", "rank", "shard_batch",
-           "sum_batch", "world_size"]
+           "mesh_model_group", "mesh_replica_group",
+           "model_group", "model_parallel", "put_replicated", "rank",
+           "shard_batch", "sum_batch", "world_size"]

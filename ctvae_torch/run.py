@@ -103,6 +103,12 @@ def _train(config: Dict, device) -> dict:
         if knob in trainer_params:
             exp_params.setdefault(knob, trainer_params.pop(knob))
 
+    if str(exp_params.get("sharding", "")).lower() == "sp":
+        # sequence parallelism splits the CT model's target nodes over the
+        # mesh's model axis; build_model drops the key for models without
+        # the field (they have no node axis to split), as JAX's run.py
+        model_params = dict(model_params, seq_axis=model_params.get(
+            "seq_axis", "model"))
     seed = int(exp_params.get("manual_seed", 1265))
     device = resolve_device(device)
     logger = ExperimentLogger(

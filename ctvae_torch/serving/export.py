@@ -61,14 +61,19 @@ class EntryPoint(nn.Module):
 
 
 def export_fn(fn: nn.Module, example_args: Sequence[torch.Tensor], *,
-              poly_batch: bool = False) -> torch.export.ExportedProgram:
+              poly_batch: bool = False,
+              mesh=None) -> torch.export.ExportedProgram:
     """Trace ``fn`` (an ``EntryPoint``) at ``example_args`` (the key, then
     the arrays) with ``torch.export``, without autograd. With
     ``poly_batch`` the leading dimension of every array after the key is
     one symbolic dimension ``b`` (at least 1). ``torch.export`` takes a
     dimension of size 1 for a constant, so an example batch of 1 is traced
     with its rows repeated to 2; the program serves a batch of 1 all the
-    same."""
+    same. A ``mesh`` (the JAX package's SPMD export, the batch split over
+    its data axis) is not ported yet and raises."""
+    if mesh is not None:
+        raise NotImplementedError("the SPMD export over a mesh is not "
+                                  "ported yet (ROADMAP A8.3)")
     args = tuple(example_args)
     dynamic = None
     if poly_batch:

@@ -65,9 +65,23 @@ split; ``restore_full_state`` and ``load_weights`` take a full state
 into the slices, checkpoints hold the full state (rank 0 writes what
 every rank gathered), and validation and the image grids run on the
 gathered parameters. Without a process group (one process) nothing is
-split, as the JAX trainer splits nothing over a data axis of 1. Not
-ported yet (ROADMAP A8): ``sharding: sp`` and ``model_axis`` > 1, which
-raise ``NotImplementedError``.
+split, as the JAX trainer splits nothing over a data axis of 1.
+
+``exp_params.model_axis`` m > 1 (2 by default under ``sharding: sp``, as
+in JAX) gives the mesh a ``model`` axis of m ranks, m dividing the world
+(and each replica under ``dcn_replicas``): the batch is split over the
+other axes alone, so ``train_batch_size`` x the data size is the global
+batch, and the ranks of one model group load the same rows (the data
+module shards by the data index). Under ``sharding: sp`` the CT model,
+built with ``seq_axis="model"`` (``ctvae_torch/run.py``), splits its
+target nodes over the model group inside each step
+(``parallel/sequence.py``); under ``sharding: dp`` the group's ranks
+repeat one another's work, as JAX replicates it over its model axis.
+Validation runs on every rank; the image grids, which rank 0 draws
+alone, run outside the split. Not ported yet: ``sharding: fsdp`` with a
+model axis (JAX's tensor-parallel rules: ROADMAP A8.2b), which raises
+``NotImplementedError``; ``sp`` or ``model_axis`` > 1 without a world of
+at least m ranks raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -84,9 +98,10 @@ from ..data.prefetch import to_device
 from ..models.base import Draws
 from ..models.vgg import attach_pretrained_vgg
 from ..parallel.fsdp import fully_shard
-from ..parallel.mesh import (FSDP_MIN_SIZE, global_any, is_primary,
-                             make_hybrid_mesh, make_mesh, mesh_batch_group,
-                             mesh_data_group, mesh_replica_group,
+from ..parallel.mesh import (FSDP_MIN_SIZE, global_any, group_rank,
+                             group_size, is_primary, make_hybrid_mesh,
+                             make_mesh, mesh_batch_group, mesh_data_group,
+                             mesh_model_group, mesh_replica_group,
                              put_replicated, shard_batch)
 from ..serving.inference import encode_repr
 from ..utils.checkpoint import CheckpointManager, load_weights_only
@@ -94,9 +109,8 @@ from .optimizers import build_lr_schedules, build_optimizers
 from .state import FWD_KEYS, TrainState, create_train_state, \
     full_params, make_eval_step, make_multi_train_step, make_train_step
 
-#: exp_params keys of the JAX trainer the port does not take yet, with the
-#: values that leave them off
-NOT_PORTED = {"sharding": (None, "dp", "fsdp"), "model_axis": (None, 1)}
+#: the values of exp_params.sharding (JAX's trainer takes these three)
+SHARDINGS = ("dp", "fsdp", "sp")
 
 
 def _is_watch_key(k: str) -> bool:
@@ -149,17 +163,22 @@ class VAEXperiment:
                  datamodule, logger=None,
                  ckpt_manager: Optional[CheckpointManager] = None,
                  val_metrics=None, train_metrics=None, log_every: int = 50):
-        bad = [k for k, off in NOT_PORTED.items()
-               if exp_params.get(k) not in off]
-        if bad:
-            raise NotImplementedError(f"exp_params {bad} not ported yet "
-                                      f"(ROADMAP A8)")
-        self.sharding = str(exp_params.get("sharding") or "dp")
+        self.sharding = str(exp_params.get("sharding") or "dp").lower()
+        if self.sharding not in SHARDINGS:
+            raise ValueError(f"exp_params.sharding {self.sharding!r}: one "
+                             f"of {SHARDINGS}")
+        self.model_axis = int(exp_params.get("model_axis") or (
+            2 if self.sharding == "sp" else 1))
+        if self.sharding == "fsdp" and self.model_axis > 1:
+            raise NotImplementedError(
+                f"sharding: fsdp with model_axis {self.model_axis} (JAX's "
+                f"tensor-parallel rules) is not ported yet (ROADMAP A8.2b)")
         self.fsdp_min_size = int(exp_params.get("fsdp_min_size")
                                  or FSDP_MIN_SIZE)
         self.dcn_replicas = int(exp_params.get("dcn_replicas") or 1)
         self.mesh = None
         self.group = None
+        self.model_group = None
         self.model = model
         self.params = dict(exp_params)
         self.data = datamodule
@@ -191,19 +210,32 @@ class VAEXperiment:
     def setup(self, seed: int = 0) -> TrainState:
         attach_pretrained_vgg(self.model, allow_random=bool(getattr(
             self.model, "allow_random_features", False)))
-        spe = self._steps_per_epoch()
-        self.lr_schedules = build_lr_schedules(self.params, spe)
         self.seed = seed
         if torch.distributed.is_initialized():
-            self.mesh = (make_hybrid_mesh(self.dcn_replicas)
-                         if self.dcn_replicas > 1 else make_mesh())
+            self.mesh = (
+                make_hybrid_mesh(self.dcn_replicas, self.model_axis)
+                if self.dcn_replicas > 1 else make_mesh(self.model_axis))
             self.group = mesh_batch_group(self.mesh)
-        elif self.dcn_replicas > 1:
-            raise ValueError(f"dcn_replicas {self.dcn_replicas} needs a "
-                             f"process group of a world it divides")
+            self.model_group = mesh_model_group(self.mesh)
+            if self.model_group is not None and self.data is not None:
+                # a model group shares its rows: shard by the data index
+                self.data.host_id = group_rank(self.group)
+                self.data.num_hosts = group_size(self.group)
+        else:
+            for key in ("dcn_replicas", "model_axis"):
+                if getattr(self, key) > 1:
+                    raise ValueError(f"{key} {getattr(self, key)} needs a "
+                                     f"process group of a world it divides")
+        spe = self._steps_per_epoch()
+        self.lr_schedules = build_lr_schedules(self.params, spe)
         self.state = create_train_state(self.model, [], seed,
-                                        group=self.group)
-        put_replicated(self.model, self.group, self.state.generator)
+                                        group=self.group,
+                                        model_group=self.model_group)
+        # from rank 0 of the world (a batch group under a model axis holds
+        # one model index's ranks)
+        put_replicated(self.model, None if self.group is None
+                       else torch.distributed.group.WORLD,
+                       self.state.generator)
         if self.sharding == "fsdp" and self.group is not None:
             # after the broadcast, so every rank slices equal parameters,
             # and before the optimizers, whose moments are born split
@@ -441,7 +473,8 @@ class VAEXperiment:
         the others in a collective)."""
         if self.group is None:
             return self._stop_requested
-        return global_any(self._stop_requested, self.group)
+        return global_any(self._stop_requested,
+                          torch.distributed.group.WORLD)
 
     def request_stop(self) -> None:
         """Ask ``fit`` to save ``last`` and stop at the next epoch boundary

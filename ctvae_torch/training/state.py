@@ -40,6 +40,13 @@ those of one process on the global batch, on every rank alike. Over
 NCCL a multi-step call captures the reductions into its graph; over
 gloo it refuses a world above 1.
 
+A state with a ``model_group`` (the ranks along the mesh's ``model`` axis,
+which hold the same rows) runs its forward inside ``model_parallel``: a
+model built with ``seq_axis`` splits its target nodes over that group
+(``parallel/sequence.py``), whose sums of the split region's gradients
+happen inside ``backward``, so every rank of the group holds the one-
+process gradient of its rows before the mean over ``group``.
+
 A state with ``fsdp`` (``parallel/fsdp.py::FSDP``, ``exp_params.
 sharding: fsdp``) holds the split parameters as slices: the step
 gathers them before the forward, reduce-scatters their gradients to the
@@ -61,7 +68,7 @@ from torch import nn
 from ..models.base import Draws, ShardedDraws
 from ..ops import launch_counts, set_launch_counts
 from ..parallel.mesh import (all_mean, all_reduce_grads, batch_parallel,
-                             group_size)
+                             group_size, model_parallel)
 
 #: batch keys a forward takes besides the image (ConditionalVAE reads
 #: ``labels``; the other models take and ignore what they do not use)
@@ -75,8 +82,10 @@ class TrainState:
     """All training state: the global ``step``, the ``model`` (whose
     parameters are the trained state), its ``optimizers``, the
     ``generator`` of the train steps' random draws, the process
-    ``group`` the batch is split over (None: one process) and, under
-    FSDP, the ``fsdp`` that holds the split parameters' slices."""
+    ``group`` the batch is split over (None: one process), the
+    ``model_group`` of ranks that hold the same rows (None: no model
+    axis) and, under FSDP, the ``fsdp`` that holds the split parameters'
+    slices."""
 
     step: int
     model: nn.Module
@@ -84,6 +93,7 @@ class TrainState:
     generator: torch.Generator
     group: Any = None
     fsdp: Any = None
+    model_group: Any = None
     _step_buf: Optional[torch.Tensor] = field(default=None, repr=False)
 
     def step_tensor(self) -> torch.Tensor:
@@ -133,10 +143,12 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, optimizers: List[Any],
-                       seed: int = 0, group=None, fsdp=None) -> TrainState:
+                       seed: int = 0, group=None, fsdp=None,
+                       model_group=None) -> TrainState:
     gen = torch.Generator(model.device).manual_seed(seed)
     return TrainState(step=0, model=model, optimizers=list(optimizers),
-                      generator=gen, group=group, fsdp=fsdp)
+                      generator=gen, group=group, fsdp=fsdp,
+                      model_group=model_group)
 
 
 def full_params(state: TrainState):
@@ -211,7 +223,7 @@ def _grads(state: TrainState, batch: Dict[str, torch.Tensor], mode: str,
     if state.fsdp is not None:
         state.fsdp.gather()
     model.zero_grad(set_to_none=True)
-    with batch_parallel(state.group):
+    with batch_parallel(state.group), model_parallel(state.model_group):
         losses = _forward(model, batch, mode, _draws(state, state.generator),
                           train=True, M_N=M_N, step=step,
                           optimizer_idx=optimizer_idx)
@@ -345,11 +357,12 @@ class MultiTrainStep:
                              "one optimizer: a model with two alternates "
                              "them per batch (make_train_step's "
                              "optimizer_idx)")
-        if state.group is not None and group_size(state.group) > 1 and \
-                torch.distributed.get_backend(state.group) != "nccl":
+        if any(g is not None and group_size(g) > 1 and
+               torch.distributed.get_backend(g) != "nccl"
+               for g in (state.group, state.model_group)):
             raise NotImplementedError(
                 "scan_steps > 1 over a gloo group of more than one rank is "
-                "not ported yet (ROADMAP A8): its graph would hold the "
+                "not ported yet (ROADMAP A8.5): its graph would hold the "
                 "gradient reduction, which only NCCL captures")
         if state.model.device.type != "cuda":
             for b in batch:
@@ -455,7 +468,8 @@ def make_eval_step(mode: str, seed: int = 0
         if generator is None:
             generator = torch.Generator(device).manual_seed(
                 seed + EVAL_SEED_OFFSET)
-        with batch_parallel(state.group), full_params(state):
+        with batch_parallel(state.group), \
+                model_parallel(state.model_group), full_params(state):
             metrics = _scalars(_forward(state.model, batch, mode,
                                         _draws(state, generator),
                                         train=False, M_N=1.0,

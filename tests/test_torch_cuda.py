@@ -72,6 +72,8 @@ def test_vq_kernel_matches_plain(card, n, k, d):
     (3, 64, 64, 800, 0.01, 8.0),
     # the headline batches: B = 16 (clusters of 16 blocks) and A*B = 192
     (16, 64, 64, 800, 0.01, 0.0), (192, 64, 64, 800, 0.01, 0.0),
+    # sequence parallelism at a model axis of 2: a rank's 32 of 64 columns
+    (16, 64, 32, 800, 0.01, 0.0), (192, 64, 32, 800, 0.01, 0.0),
     # S = 2 * 8 * 8 of codebooks: 2 at 64 x 64
     (3, 128, 128, 800, 0.01, 0.0), (16, 128, 128, 800, 0.01, 0.0)])
 def test_pairwise_kernel_matches_plain(card, per_sample, B, S, T, H, ns,
@@ -138,7 +140,10 @@ def test_pairwise_fwd_rejects_too_large_grid(card):
     # noise: endo adds a second support node: 66 and 130 nodes
     (66, 66, 13, 100, 0.5), (130, 130, 13, 100, 0.5),
     # TCeleba's 20 actions: 21 heads
-    (65, 65, 21, 100, 0.5), (65, 65, 21, 100, 1.0)])
+    (65, 65, 21, 100, 0.5), (65, 65, 21, 100, 1.0),
+    # sequence parallelism at a model axis of 2: a rank's 33 or 32 of 65
+    # targets
+    (65, 33, 13, 100, 0.5), (65, 32, 13, 100, 0.5), (65, 33, 13, 100, 1.0)])
 def test_gat_kernel_matches_plain(card, S, T, H, F, density):
     """The forward kernel against the plain version: out, and the alpha
     residual against the plain masked softmax (ragged S != T, F below and
@@ -223,6 +228,8 @@ def _pairwise_dout(rng, B, S, T, kind):
     # codebooks: 2 at 64 x 64, and the largest S = T that fits then
     (72, 72, 800, 0.01, "dense", 0.0), (120, 120, 100, 0.01, "rows", 0.0),
     (121, 121, 100, 0.01, "rows", 0.0), (128, 128, 800, 0.01, "dense", 0.0),
+    # sequence parallelism at a model axis of 2: a rank's 32 of 64 columns
+    (64, 32, 800, 0.01, "dense", 0.0), (64, 32, 800, 0.01, "rows", 0.0),
     (128, 128, 100, 0.01, "segments", 0.0),
     (152, 152, 100, 0.01, "dense", 0.0),
     # |xl|, |xr| ~ 8 >> |pre|: dw2 from the separable sums cancels
@@ -346,7 +353,10 @@ def _gat_args(rng, B, S, T, H, F, density=0.6):
     # noise: endo's second support node: 66 and 130 nodes
     (66, 66, 13, 100, 0.5), (130, 130, 13, 100, 0.5),
     # TCeleba's 20 actions: 21 heads
-    (65, 65, 21, 100, 0.6), (65, 65, 21, 100, 1.0)])
+    (65, 65, 21, 100, 0.6), (65, 65, 21, 100, 1.0),
+    # sequence parallelism at a model axis of 2: a rank's 33 or 32 of 65
+    # targets
+    (65, 33, 13, 100, 0.6), (65, 32, 13, 100, 0.6), (65, 33, 13, 100, 1.0)])
 def test_gat_bwd_kernel_matches_plain(card, S, T, H, F, density):
     """FlashGAT: the alpha residual against the plain softmax, and the
     backward kernel against the plain version's autograd (ragged S != T,
@@ -561,6 +571,12 @@ def _logits_args(rng, B, S, T, K, F, per_sample):
     (16, 65, 65, 1, 64, 0.2, 0.0, "rand"),
     (16, 65, 65, 2, 64, 0.2, 0.0, "rand"),
     (192, 65, 65, 2, 64, 0.2, 0.0, "rand"),
+    # sequence parallelism at a model axis of 2: a rank's 33 or 32 of 65
+    # targets
+    (16, 65, 33, 1, 64, 0.2, 0.0, "rand"),
+    (16, 65, 32, 2, 64, 0.2, 0.0, "rand"),
+    (192, 65, 33, 2, 64, 0.2, 0.0, "rand"),
+    (192, 65, 32, 2, 64, 0.2, 0.0, "rand"),
     # the leaky map at its ends: |p| alone and linear alone
     (3, 13, 17, 2, 33, 0.0, 0.0, "rand"), (3, 13, 17, 2, 33, 1.0, 0.0, "rand"),
     # |xl|, |xr| ~ 8 >> |pre|: the separable sums cancel

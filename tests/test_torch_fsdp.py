@@ -520,12 +520,21 @@ def test_torchrun_two_ranks_with_fsdp_on_the_cpu(tmp_path):
 
 # --- still refused -------------------------------------------------------------
 
-@pytest.mark.parametrize("extra", [dict(sharding="sp"), dict(model_axis=2)],
+@pytest.mark.parametrize("extra", [dict(sharding="sp"),
+                                   dict(sharding="fsdp", model_axis=2)],
                          ids=["sp", "model_axis"])
 def test_sequence_parallelism_and_a_model_axis_still_raise(extra):
-    """``sharding: sp`` and ``model_axis`` 2 raise naming ROADMAP A8."""
+    """In one process ``sharding: sp`` (a model axis of 2 by default) has
+    no world for two model ranks and raises ``ValueError`` at setup;
+    ``sharding: fsdp`` with ``model_axis`` 2 (JAX's tensor-parallel rules)
+    raises naming ROADMAP A8.2b."""
     from ctvae_torch.models import build_model
     from ctvae_torch.training import VAEXperiment
     model = build_model(dict(SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        VAEXperiment(model, {**EXP, **extra}, None)
+    if extra["sharding"] == "sp":
+        exp = VAEXperiment(model, {**EXP, **extra}, None)
+        with pytest.raises(ValueError, match="model_axis 2"):
+            exp.setup()
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP A8.2b"):
+            VAEXperiment(model, {**EXP, **extra}, None)

@@ -104,12 +104,18 @@ def _wait_all(procs, log, timeout):
     assert all(p.returncode == 0 for p in procs), text
 
 
+def send(path, payload) -> None:
+    """Write a payload that ranks wait for, renamed into place whole."""
+    torch.save(payload, str(path) + ".part")
+    os.replace(str(path) + ".part", str(path))
+
+
 def start(case, payload, tmp, world=WORLD):
     """Start ``case`` of ``torch_dp_ranks`` on ``world`` ranks; ``finish``
     collects it."""
     tmp = str(tmp)
     path = os.path.join(tmp, "payload.pt")
-    torch.save(payload, path)
+    send(path, payload)
     port = _free_port()
     log = os.path.join(tmp, "ranks.log")
     with open(log, "w") as out:
@@ -428,10 +434,15 @@ def misc(background):
 @pytest.mark.parametrize("key", [
     "sp", "model_axis", "seq_axis", "scan_steps"])
 def test_refused_under_a_world_of_two(misc, key):
-    """Sequence parallelism, ``model_axis`` 2, ``seq_axis`` and
-    ``scan_steps`` > 1 over gloo raise ``NotImplementedError`` naming
-    ROADMAP A8 on both ranks (the losses that are not a mean of per-row
-    terms and FSDP train: tests/test_torch_parallel_losses.py and
+    """On both ranks: ``sharding: sp`` with a ``model_axis`` (3) that does
+    not divide the world raises ``ValueError`` at setup; ``sharding:
+    fsdp`` with ``model_axis`` 2 raises ``NotImplementedError`` naming
+    ROADMAP A8.2b; a model with ``seq_axis`` and ``gat_block_cols`` builds
+    and leaves its GAT layers unsharded inside a model group, its output
+    that of the model without ``seq_axis``; ``scan_steps`` > 1 over gloo
+    raises naming ROADMAP A8 (sequence parallelism itself:
+    tests/test_torch_sp.py; the losses that are not a mean of per-row
+    terms and FSDP: tests/test_torch_parallel_losses.py and
     tests/test_torch_fsdp.py)."""
     for res in misc:
         assert set(res["refused"]) == {"sp", "model_axis", "seq_axis",

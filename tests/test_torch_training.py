@@ -292,18 +292,23 @@ def test_run_trains_synthetic_ct_on_cpu(tmp_path, monkeypatch):
 
 
 def test_unported_trainer_options_raise(pair):
-    """Sequence parallelism and ``model_axis`` > 1 are not ported
-    (ROADMAP A8); ``dcn_replicas`` is (data parallelism), but a single
-    process has no world for two replicas to divide. ``sharding: fsdp``
-    is ported: in one process it splits nothing, as the JAX trainer
-    splits nothing over a data axis of 1."""
+    """``sharding: fsdp`` with ``model_axis`` > 1 is not ported (ROADMAP
+    A8.2b). Sequence parallelism (``sharding: sp``, a model axis of 2 by
+    default), ``model_axis`` > 1 and ``dcn_replicas`` are, but a single
+    process has no world for two model ranks or replicas to divide: each
+    raises ``ValueError`` at setup. ``sharding: fsdp`` is ported: in one
+    process it splits nothing, as the JAX trainer splits nothing over a
+    data axis of 1."""
     from ctvae_torch.training import VAEXperiment
-    for extra in (dict(sharding="sp"), dict(model_axis=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            VAEXperiment(pair[2], {**EXP, **extra}, None)
-    exp = VAEXperiment(pair[2], {**EXP, "dcn_replicas": 2}, None)
-    with pytest.raises(ValueError, match="dcn_replicas 2"):
-        exp.setup()
+    with pytest.raises(NotImplementedError, match="ROADMAP A8.2b"):
+        VAEXperiment(pair[2], {**EXP, "sharding": "fsdp", "model_axis": 2},
+                     None)
+    for extra, text in ((dict(sharding="sp"), "model_axis 2"),
+                        (dict(model_axis=2), "model_axis 2"),
+                        (dict(dcn_replicas=2), "dcn_replicas 2")):
+        exp = VAEXperiment(pair[2], {**EXP, **extra}, None)
+        with pytest.raises(ValueError, match=text):
+            exp.setup()
     exp = VAEXperiment(copy.deepcopy(pair[2]),
                        {**EXP, "sharding": "fsdp", "fsdp_min_size": 64},
                        None)

@@ -21,7 +21,17 @@ a gloo group on the CPU, importing torch and the port and nothing of JAX
   the checkpoint files, a stop requested on one rank, a resume;
 - ``misc``: what a world of 2 refuses and takes, and ``dcn_replicas``;
 - ``fsdp_fit``: ``VAEXperiment.fit`` under ``sharding: fsdp``, a resume,
-  and checkpoints moved between FSDP, DP and one process.
+  and checkpoints moved between FSDP, DP and one process;
+- ``sp``: steps over a mesh with a model axis; ``sharding: dp`` over a
+  model axis of 2, and ``run.train`` under ``sharding: sp`` with a resume
+  (``case_sp_fit``); then the replays of JAX's SP steps
+  (tests/test_torch_sp.py).
+
+A spec of ``steps`` with ``mesh`` (``dcn_replicas``, ``model_axis``) trains
+over that mesh: the batch split over its batch group, the state's model
+group the ranks along ``model`` (sequence parallelism where the model has
+``seq_axis``); a run with ``record_ops`` records each generator-drawn
+step's ``ctvae::`` op calls with their shapes (``OpShapes``).
 
 A model of ``steps`` whose spec holds ``fsdp`` (the ``fsdp_min_size``)
 trains under FSDP over the mesh's data group (``dcn_replicas``: the
@@ -35,10 +45,12 @@ JAX; ``torch_port_common`` re-exports the first two.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import signal
 import sys
+import time
 import traceback
 from typing import Any, Dict, List, Optional
 
@@ -274,7 +286,18 @@ def _mesh_groups(spec: Dict[str, Any], group):
     return parallel.mesh_data_group(mesh), parallel.mesh_replica_group(mesh)
 
 
-def _train_state(spec: Dict[str, Any], model, group, groups, seed: int):
+def _sp_groups(spec: Dict[str, Any]):
+    """(batch group, model group) of the spec's mesh with a model axis,
+    ``spec['mesh']`` = (dcn_replicas, model_axis)."""
+    from ctvae_torch import parallel
+    n, m = spec["mesh"]
+    mesh = (parallel.make_hybrid_mesh(n, m) if n > 1
+            else parallel.make_mesh(m))
+    return parallel.mesh_batch_group(mesh), parallel.mesh_model_group(mesh)
+
+
+def _train_state(spec: Dict[str, Any], model, group, groups, seed: int,
+                 model_group=None):
     """The state of ``model``: under FSDP (``spec['fsdp']``, a group) the
     split parameters' slices and the optimizers over them."""
     from ctvae_torch.parallel import fully_shard
@@ -285,7 +308,37 @@ def _train_state(spec: Dict[str, Any], model, group, groups, seed: int):
         fsdp = fully_shard(model, *groups, min_size=spec["fsdp"])
     return tstate.create_train_state(
         model, topt.build_optimizers(spec["exp"], model, 4, fsdp=fsdp),
-        seed=seed, group=group, fsdp=fsdp)
+        seed=seed, group=group, fsdp=fsdp, model_group=model_group)
+
+
+class OpShapes:
+    """A ``TorchDispatchMode`` context that records each call of a
+    ``ctvae::`` custom op: (op name, its tensor arguments' shapes, its
+    tensor outputs' shapes)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        calls = self.calls = []
+
+        def shapes(v):
+            v = v if isinstance(v, (list, tuple)) else [v]
+            return [tuple(t.shape) for t in v if isinstance(t, torch.Tensor)]
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                ns, _, name = func._schema.name.partition("::")
+                if ns.startswith("ctvae"):
+                    calls.append((name, shapes(args), shapes(out)))
+                return out
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
 
 
 def full_grads(state) -> Dict[str, torch.Tensor]:
@@ -337,12 +390,16 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
     model0.load_state_dict(spec["state_dict"])
     groups = (_mesh_groups(spec, group) if spec.get("fsdp")
               and group is not None else None)
+    model_group = None
+    if spec.get("mesh") and group is not None:
+        group, model_group = _sp_groups(spec)
     out = []
     for run in spec["runs"]:
         model = copy.deepcopy(model0)
-        state = _train_state(spec, model, group, groups, run.get("seed", 0))
+        state = _train_state(spec, model, group, groups, run.get("seed", 0),
+                             model_group)
         state.step = run.get("step", 0)
-        metrics, grads = [], []
+        metrics, grads, ops = [], [], []
         flips = {"vq": 0, "ct": 0, "bern": 0}
         for mode, batch, draws, *decisions in run["steps"]:
             if group is not None:
@@ -351,8 +408,12 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
                 mode, watch_modules=run.get("watch", False),
                 M_N=run.get("M_N", 1.0))
             if draws is None:
-                m = step_fn(state, {k: v.to(device)
-                                    for k, v in _tensors(batch).items()})
+                rec = OpShapes() if run.get("record_ops") else None
+                with rec or contextlib.nullcontext():
+                    m = step_fn(state, {k: v.to(device)
+                                        for k, v in _tensors(batch).items()})
+                if rec is not None:
+                    ops.append(rec.calls)
             else:
                 replay = ReplayDraws(draws)
                 patches = Patches()
@@ -374,7 +435,7 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
             metrics.append({k: v.clone() for k, v in m.items()})
             grads.append(full_grads(state))
         res = {"metrics": metrics, "grads": grads, "step": state.step,
-               "flips": flips,
+               "flips": flips, "ops": ops,
                "buffers": {n: b.clone() for n, b in model.named_buffers()},
                "resident_bytes": resident_bytes(state)}
         with tstate.full_params(state):
@@ -407,13 +468,17 @@ def _param_names(model, opt, fsdp) -> List[str]:
 
 def case_steps(payload, group) -> Dict[str, Any]:
     """``run_steps`` of each model of the payload; with ``equal_values``
-    (equal on every rank) also their ``all_mean``."""
-    from ctvae_torch.parallel import all_mean
+    (equal on every rank) also their ``all_mean``; on rank 0, last, the
+    ``single`` specs' runs in one process (no group)."""
+    from ctvae_torch.parallel import all_mean, rank
     out = {name: run_steps(spec, group)
            for name, spec in payload["models"].items()}
     if "equal_values" in payload:
         out["equal_values"] = all_mean(
             {"v": payload["equal_values"].clone()}, group)["v"]
+    if payload.get("single") and rank() == 0:
+        out["single"] = {name: run_steps(spec)
+                         for name, spec in payload["single"].items()}
     return out
 
 
@@ -653,11 +718,13 @@ def case_misc(payload, group) -> Dict[str, Any]:
     ct = build_model(dict(payload["ct"]), device="cpu")
     out["accepted"]["fsdp"] = _raises(
         lambda: VAEXperiment(ct, {"sharding": "fsdp"}, None))
-    for key, exp in (("sp", {"sharding": "sp"}),
-                     ("model_axis", {"model_axis": 2})):
-        out["refused"][key] = _raises(lambda: VAEXperiment(ct, exp, None))
-    out["refused"]["seq_axis"] = _raises(lambda: build_model(
-        dict(payload["ct"], seq_axis="model"), device="cpu"))
+    sp = VAEXperiment(ct, {"sharding": "sp", "model_axis": 3}, None)
+    out["refused"]["sp"] = _raises(lambda: sp.setup(), ValueError,
+                                   "model_axis 3")
+    out["refused"]["model_axis"] = _raises(lambda: VAEXperiment(
+        ct, {"sharding": "fsdp", "model_axis": 2}, None),
+        text="ROADMAP A8.2b")
+    out["refused"]["seq_axis"] = _seq_axis_with_block_cols(payload)
     state = tstate.create_train_state(
         ct, topt.build_optimizers({"LR": 1e-3}, ct, 4), group=group)
     stacked = {k: torch.from_numpy(np.stack([v, v]))
@@ -689,8 +756,157 @@ def case_misc(payload, group) -> Dict[str, Any]:
     return out
 
 
+# --- sp_fit: sequence parallelism in the loop, dp over a model axis ----------
+
+def _sp_run(payload, save_dir: str, epochs: int, resume=None):
+    """``run.train`` of the payload's config under ``sharding: sp`` for
+    ``epochs`` epochs into ``save_dir`` (from ``resume``), with the
+    ``seq_axis`` that ``build_model`` got and the target split of its
+    model's layers."""
+    from ctvae_torch import models, run
+    cfg = copy.deepcopy(payload["config"])
+    cfg["logging_params"]["save_dir"] = save_dir
+    cfg["trainer_params"]["max_epochs"] = epochs
+    if resume:
+        cfg["trainer_params"]["resume_from_checkpoint"] = resume
+    built, saves = [], []
+    real, real_save = models.build_model, torch.save
+
+    def spy(model_params, *a, **k):
+        built.append(model_params.get("seq_axis"))
+        return real(model_params, *a, **k)
+
+    def save_spy(obj, f, *a, **k):
+        saves.append(str(f))
+        return real_save(obj, f, *a, **k)
+    models.build_model, torch.save = spy, save_spy
+    try:
+        out = run.train(cfg, device="cpu")
+    finally:
+        models.build_model, torch.save = real, real_save
+    return out, built, saves
+
+
+def case_sp_fit(payload, group) -> Dict[str, Any]:
+    """``sharding: dp`` with ``model_axis: 2``: the data module's hosts,
+    the first batch and steps of each mode from the setup state.
+    ``run.train`` under ``sharding: sp``: one epoch with image grids and
+    a metric, a resume for a second, and two epochs straight."""
+    from ctvae_torch.parallel import rank
+    from ctvae_torch.utils.checkpoint import _load
+    out: Dict[str, Any] = {}
+    root = payload["root"]
+    exp = _experiment(payload, os.path.join(root, f"dp{rank()}"),
+                      {"model_axis": 2})
+    exp.ckpt.writes = False
+    out["dp_mesh"] = (tuple(exp.mesh.mesh_dim_names),
+                      tuple(exp.mesh.mesh.shape))
+    out["dp_hosts"] = (exp.data.host_id, exp.data.num_hosts)
+    out["dp_first"] = next(iter(exp.data.train_dataloader(0)))["image"]
+    out["dp_seq_axis"] = exp.model.ct_layer.seq_axis
+    for mode in ("base", "action", "causal"):
+        exp._train_step(mode)(exp.state, _tensors(payload["batch"]))
+    out["dp_params"] = _params(exp)
+    if rank() == 0:
+        # the same steps in one process: setup's state without a group
+        from ctvae_torch.models import build_model
+        from ctvae_torch.training import optimizers as topt
+        from ctvae_torch.training import state as tstate
+        model = build_model(dict(payload["cfg"]), device="cpu",
+                            generator=torch.Generator().manual_seed(
+                                payload["seed"]))
+        one = tstate.create_train_state(model, topt.build_optimizers(
+            exp.params, model, exp._steps_per_epoch()), payload["seed"])
+        for mode in ("base", "action", "causal"):
+            tstate.make_train_step(mode, M_N=exp.kld_weight)(
+                one, _tensors(payload["batch"]))
+        out["one_params"] = {n: t.detach().clone()
+                             for n, t in model.state_dict().items()}
+    logs = os.path.join(root, "logs")
+    out["first"], out["built"], out["saves"] = _sp_run(payload, logs, 1)
+    run_dir = os.path.join(logs, "CTMCQVAE", "version_0")
+    last = os.path.join(run_dir, "checkpoints", "last")
+    out["second"] = _sp_run(payload, logs, 2, resume=last)[0]
+    straight = os.path.join(root, "straight")
+    out["straight"] = _sp_run(payload, straight, 2)[0]
+    torch.distributed.barrier(group=group)      # rank 0's files are on disk
+    out["runs"] = sorted(os.listdir(os.path.join(logs, "CTMCQVAE")))
+    out["grids"] = {sub: sorted(os.listdir(os.path.join(run_dir, sub)))
+                    for sub in ("Inputs", "Reconstructions", "Samples")}
+    resumed = _load(os.path.join(logs, "CTMCQVAE", "version_1",
+                                 "checkpoints", "last"))
+    whole = _load(os.path.join(straight, "CTMCQVAE", "version_0",
+                               "checkpoints", "last"))
+    out["resume_differs"] = _differ(resumed, whole)
+    return out
+
+
+def _seq_axis_with_block_cols(payload) -> str:
+    """'ok' when a model with ``seq_axis`` and ``gat_block_cols`` below
+    its node count builds and, inside a model group of 2, makes the GAT
+    calls of the model without ``seq_axis`` (the ``block_cols`` chunks of
+    every target: that path is left unsharded, as in JAX) and its
+    pairwise calls on the rank's columns, with that model's output; else
+    what it did."""
+    from ctvae_torch import parallel
+    from ctvae_torch.models import build_model
+    cfg = dict(payload["ct"], gat_block_cols=8)
+    plain = build_model(dict(cfg), device="cpu")
+    plain.load_state_dict(payload["state_dict"])
+    split = build_model(dict(cfg, seq_axis="model"), device="cpu")
+    split.load_state_dict(payload["state_dict"])
+    group = parallel.mesh_model_group(parallel.make_mesh(2))
+    x = _tensors(payload["batch"])
+    from ctvae_torch.models.base import Draws
+
+    def forward(model):
+        return model(x["image"], mode="action", action=x["action"],
+                     input_y=x["input_y"],
+                     draws=Draws(torch.Generator().manual_seed(0)))
+    with torch.no_grad():
+        with OpShapes() as ref:
+            want = forward(plain)
+        with parallel.model_parallel(group), OpShapes() as rec:
+            got = forward(split)
+
+    def targets(calls, kind):
+        return [args[1][1] for name, args, _ in calls
+                if name.startswith(kind)]
+    gat, cols = targets(rec.calls, "gat"), targets(rec.calls, "pairwise")
+    S = payload["ct"]["codebooks"] * (payload["ct"]["img_size"] // 4) ** 2
+    if not gat or gat != targets(ref.calls, "gat") or set(cols) != {S // 2}:
+        return f"targets per call: gat {gat}, pairwise {cols}"
+    if not torch.equal(got["recons"], want["recons"]):
+        return "the output differs from the model without seq_axis"
+    return "ok"
+
+
+def case_sp(payload, group) -> Dict[str, Any]:
+    """tests/test_torch_sp.py's two ranks: ``case_steps`` of the payload's
+    ``gen`` models, ``case_sp_fit`` of its ``fit``, on rank 0 ``gen``'s
+    ``single`` runs, then ``case_steps`` of the models in ``replay`` (a
+    payload the test writes once JAX's traces have recorded their
+    draws)."""
+    out = {"gen": case_steps({"models": payload["gen"]["models"]}, group),
+           "fit": case_sp_fit(payload["fit"], group)}
+    # the one-process references while JAX's traces run (rank 1 waits at
+    # the replays' first collective)
+    out["single"] = case_steps({"models": {}, **payload["gen"]},
+                               group).get("single")
+    out["replay"] = case_steps(_wait_load(payload["replay"]), group)
+    return out
+
+
 CASES = {"steps": case_steps, "fit": case_fit, "misc": case_misc,
-         "fsdp_fit": case_fsdp_fit}
+         "fsdp_fit": case_fsdp_fit, "sp": case_sp}
+
+
+def _wait_load(path: str):
+    """``torch.load`` of ``path`` once it exists (a payload may be written
+    after the ranks start; the writer renames it into place whole)."""
+    while not os.path.exists(path):
+        time.sleep(0.02)
+    return torch.load(path, weights_only=False)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -702,7 +918,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                              timeout_s=120)
     out_path = os.path.join(out_dir, f"rank{r}.pt")
     try:
-        payload = torch.load(payload_path, weights_only=False)
+        payload = _wait_load(payload_path)
         result = CASES[case](payload, group)
         torch.save({"ok": True, "result": result}, out_path)
     except BaseException:                   # reported to the test
