@@ -149,7 +149,17 @@ same widths (phase "loop"). Then more phases:
   bfloat16; each rank's peak bytes against one process's, the
   collectives' bytes and step ms (a correctness path: report, judge
   nothing). These launches make the path ``sp`` (``phase_sp``;
-  ``--sp-only`` runs it alone).
+  ``--sp-only`` runs it alone). Then, inside the phase, the path
+  ``fsdp_tp``: ``sharding: fsdp`` with a model axis of 2 (JAX's
+  tensor-parallel rules split the discoverer's hidden axis and the
+  codebook's entries over the two ranks) on two gloo ranks sharing the
+  card: 8 steps a mode against one process from equal states, each
+  rank's resident bytes of blocks and Adam moments against one
+  process's, every kernel call of a causal step on the gathered
+  parameters held against its plain version, ``run.train`` at world 2
+  with ``scan_steps: 4`` (an eager loop over gloo: ``graphed`` false)
+  against one process (graph replays), 3 causal steps at bfloat16
+  (``_fsdp_tp_path``; ``--fsdp-tp-only`` runs it alone).
 * bf16: the headline config at ``dtype: bfloat16`` (the JAX bench's
   dtype): requests of the four entry points, 16 eager steps a mode and
   two ``make_multi_train_step(mode, 8)`` calls from an equal state (every
@@ -763,9 +773,11 @@ def _pairwise_plain_grads(args, chunk: int = BATCH) -> list:
     """The plain version's autograd from the kernel's own residual ``out``:
     the gradients of the logits z = sum_h leaky(pre) w2 against dz = dout
     out (1 - out), what the sigmoid's backward hands them; dw2, db1 and
-    db2 folded into their param's shape. Taken ``chunk`` samples at a time
-    (pre of the causal step at S = T = 128 takes 10 GB whole): per-sample
-    gradients concatenate, a shared param's sum over the chunks."""
+    db2 folded into their param's shape (db2, which cancels, the float64
+    sum of the float32 dz, rounded once, as the op forms it). Taken
+    ``chunk`` samples at a time (pre of the causal step at S = T = 128
+    takes 10 GB whole): per-sample gradients concatenate, a shared
+    param's sum over the chunks."""
     from ctvae_torch.ops.pairwise import _bh
     xl, xr, w2, b1, out, dout, ns = args
     out, dout = out.detach(), dout.detach()
@@ -782,11 +794,34 @@ def _pairwise_plain_grads(args, chunk: int = BATCH) -> list:
         dz = dout[sl] * out[sl] * (1 - out[sl])
         grads = list(torch.autograd.grad(z, leaves, dz))
         del pre, z
-        parts.append(grads + [dz.sum((1, 2)) if w2.dim() == 2
-                              else dz.sum()])
+        parts.append(grads + [dz.double().sum((1, 2)) if w2.dim() == 2
+                              else dz.double().sum()])
     per_sample = (True, True, w2.dim() == 2, b1.dim() == 2, w2.dim() == 2)
-    return [torch.cat([p[i] for p in parts]) if per_sample[i]
-            else sum(p[i] for p in parts) for i in range(5)]
+    grads = [torch.cat([p[i] for p in parts]) if per_sample[i]
+             else sum(p[i] for p in parts) for i in range(5)]
+    return grads[:4] + [grads[4].float()]
+
+
+def _db2_sums(args, got, want) -> dict:
+    """db2 is the sum of dz = dout out (1 - out) over a sample's pairs (all
+    samples' for a shared b2), which cancels: the largest sum of |dz|, the
+    float64 sum of the same float32 dz, their ratio, and the kernel's and
+    the plain version's (a float32 sum) distances from that float64 sum,
+    each over its scale, beside float32's rounding of a sum of those
+    terms: 2^-24 x sum |dz| over the scale per addition."""
+    out, dout = args[4].detach(), args[5].detach()
+    dz = dout * out * (1 - out)
+    dims = (1, 2) if args[2].dim() == 2 else (0, 1, 2)
+    s64, a64 = dz.double().sum(dims), dz.abs().double().sum(dims)
+    scale, total = float(s64.abs().max()), float(a64.max())
+
+    def rel(x):
+        err = float((x.double() - s64).abs().max())
+        return err / scale if scale else (0.0 if err == 0 else None)
+    return {"sum_abs_dz": total, "sum64_scale": scale,
+            "cancel": total / scale if scale else None,
+            "eps_sum_abs": 2.0 ** -24 * total / scale if scale else None,
+            "kernel_err64": rel(got), "plain_err64": rel(want)}
 
 
 def _pairwise_folded(grads, args) -> list:
@@ -795,7 +830,7 @@ def _pairwise_folded(grads, args) -> list:
     from ctvae_torch.ops.library import _fold
     w2 = args[2]
     return [grads[0], grads[1], _fold(grads[2], w2), _fold(grads[3], w2),
-            grads[4] if w2.dim() == 2 else grads[4].sum()]
+            grads[4] if w2.dim() == 2 else grads[4].double().sum().float()]
 
 
 def _check_pairwise_bwd(gen) -> dict:
@@ -1083,12 +1118,14 @@ def _pairwise_bwd_on_path(fn, check: bool = False) -> dict:
             want = _pairwise_plain_grads(args)
             _, m["err"], m["errors"] = _grad_errors(names, got, want,
                                                     own_scale=True)
+            m["db2"] = _db2_sums(args, got[4], want[4])
             _, m["control_err"], m["control_errors"] = _grad_errors(
                 names, _pairwise_plain_grads(args[:6] + (1.0,)), want,
                 own_scale=True)
             if not m["err"] <= GRAD_RTOL:
                 raise AssertionError(f"pairwise_bwd on the step's inputs: "
-                                     f"{m['errors']}")
+                                     f"{m['errors']}; db2's sums "
+                                     f"{json.dumps(m['db2'])}")
             if m["pairs"] and not m["control_err"] > GRAD_RTOL:
                 raise AssertionError(f"pairwise_bwd on the step's inputs: "
                                      f"the control passes the limit: "
@@ -1794,7 +1831,7 @@ def _kernels_on_step(label: str, fn) -> dict:
             f"{m['live_rows']:.4f}, pairs {m['live_pairs']:.4f}; kernel on "
             f"these inputs {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
             f"({m['bound_by']}); errors {m['errors']}; control (slope 1) "
-            f"{m['control_errors']}")
+            f"{m['control_errors']}; db2's sums {json.dumps(m['db2'])}")
     m = out["gat_bwd"] = _gat_bwd_on_path(fn)
     log(f"{label}: GAT backward xl {m['shape']}, edge density "
         f"{m['edge_density']:.4f}; errors {m['errors']}, rerun bit-identical "
@@ -3925,6 +3962,10 @@ ZOO_LAST = ("mssim_vae", "dfc_vae", "factorvae")
 #: of these, trained one epoch through run.train on the first
 #: LAST_EPOCH_STEPS batches of the stand-in's train split
 LAST_RUNS = ("dfc_vae", "factorvae")
+# reruns on the card of FactorVAE's first step from one state (its
+# discriminator's card-vs-CPU check once read 1.03 of its tolerance): the
+# spread of the card's gradients, 0 under deterministic cuDNN
+FACTORVAE_RERUNS = 4
 LAST_EPOCH_STEPS = 100
 LAST_VAL_BATCHES = 10
 
@@ -4176,7 +4217,24 @@ class _NonfiniteWatch:
 
 
 def _train_step_vs_cpu(name: str, cfg: dict, batch: dict,
-                       build=None) -> dict:
+                       build=None, reruns: int = 0) -> dict:
+    """``_step_vs_cpu`` under cuDNN's deterministic algorithms. Without
+    them the card's first call varies from run to run in its last bits,
+    Adam turns a gradient of rounding noise (a conv bias before a
+    BatchNorm) into a step of up to LR, and a second call (FactorVAE's
+    discriminator) is compared from a state that differs between runs:
+    its card-vs-CPU error read 1.03 and 8e-5 of the tolerance in two
+    runs, while reruns from one state spread by less than 0.004 of it."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _step_vs_cpu(name, cfg, batch, build, reruns)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _step_vs_cpu(name: str, cfg: dict, batch: dict, build=None,
+                 reruns: int = 0) -> dict:
     """The first train step of ``cfg``'s model at full width (its
     model_params and _exp_params: the clip and the weight decay as
     run.train takes them) on ``batch`` on the card against the same step
@@ -4203,8 +4261,12 @@ def _train_step_vs_cpu(name: str, cfg: dict, batch: dict,
     buffers copied to the CPU), and the second call must leave every
     parameter outside its optimizer bit-unchanged on the card.
     ``build(generator)`` makes the model where it is no registry config's
-    (TwoStageVAE). Returns the largest errors, each over its tolerance.
-    """
+    (TwoStageVAE). With ``reruns`` each call is taken that many times
+    again on the card from the card's state before it with the same
+    draws, and each gradient's largest distance from the card's first
+    run over the same tolerance is its spread (``rerun_spread``: the
+    largest, with the three widest gradients and their card-vs-CPU error
+    beside it). Returns the largest errors, each over its tolerance."""
     from ctvae_torch.models import build_model
     from ctvae_torch.training import (build_optimizers, create_train_state,
                                       make_train_step)
@@ -4233,6 +4295,7 @@ def _train_step_vs_cpu(name: str, cfg: dict, batch: dict,
                                  f"its tolerance at element {i}")
 
     t0, taken, n_opt = time.perf_counter(), 0, len(reference)
+    spreads = []
     for idx in range(n_opt):
         # both sides (and the reference update) from the card's state
         with torch.no_grad():
@@ -4241,6 +4304,8 @@ def _train_step_vs_cpu(name: str, cfg: dict, batch: dict,
                                 m.state_dict().values()):
                     c.copy_(t.cpu())
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        pre = copy.deepcopy(model.state_dict()) if reruns else None
+        step0 = states["card"].step
         metrics, grads = {}, {}
         for side, m in (("card", model), ("cpu", cpu_model)):
             step = make_train_step("base", M_N=M_N, optimizer_idx=idx)
@@ -4277,9 +4342,15 @@ def _train_step_vs_cpu(name: str, cfg: dict, batch: dict,
         for n, g in grads["cpu"].items():
             block = n.rsplit(".", 2)[0]
             scale[block] = max(scale.get(block, 1.0), float(g.abs().max()))
-        for n, g in grads["cpu"].items():
-            hold("grads", n, (grads["card"][n] - g).abs()
-                 / (1e-3 * scale[n.rsplit(".", 2)[0]]))
+        cpu_err = {n: (grads["card"][n] - g).abs()
+                   / (1e-3 * scale[n.rsplit(".", 2)[0]])
+                   for n, g in grads["cpu"].items()}
+        if reruns:
+            spreads.append(_rerun_spread(
+                model, pre, exp, M_N, idx, step0, watch.taken, batch,
+                grads["card"], scale, cpu_err, reruns))
+        for n, err in cpu_err.items():
+            hold("grads", n, err)
         for n, p in on_card_grads.named_parameters():
             p.grad = grads["card"].get(n)
         reference[idx].step()
@@ -4306,9 +4377,55 @@ def _train_step_vs_cpu(name: str, cfg: dict, batch: dict,
         f"{sum(1 for _ in model.buffers())} buffers; "
         f"{time.perf_counter() - t0:.1f} s with the CPU step); loss "
         f"{metrics['card']['loss']:.6g}")
+    if reruns:
+        worst["rerun_spread"] = max(sp["spread"] for sp in spreads)
+        log(f"gaussian {name}: the card's gradients over {reruns} reruns "
+            f"of each call from the same state and draws, largest distance "
+            f"from the first run over the card-vs-CPU tolerance, per call: "
+            f"{json.dumps(spreads)}")
     del model, cpu_model, on_card_grads, states
     torch.cuda.empty_cache()
     return worst
+
+
+def _rerun_spread(model, pre, exp, M_N, idx, step0, taken, batch, first,
+                  scale, cpu_err, reruns) -> dict:
+    """``_step_vs_cpu``'s call ``idx`` taken ``reruns`` times again
+    on a copy of the card's model from its state before the call
+    (``pre``) with the draws the first run took: each gradient's largest
+    distance from the first run's (``first``) over the card-vs-CPU
+    tolerance (1e-3 of its block's scale); the largest, and the three
+    widest gradients with their card-vs-CPU error (``cpu_err``)."""
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_train_step)
+    from ctvae_torch.training import state as tstate
+    rerun = copy.deepcopy(model)
+    spread: dict = {}
+    for _ in range(reruns):
+        rerun.load_state_dict(pre)
+        st = create_train_state(rerun, build_optimizers(
+            exp, rerun, steps_per_epoch=100), seed=SEED)
+        st.step = step0
+        kept = tstate.Draws
+        tstate.Draws = lambda generator, device: _replay_taken(taken, "cuda")
+        try:
+            make_train_step("base", M_N=M_N, optimizer_idx=idx)(
+                st, {k: v.to("cuda") for k, v in batch.items()})
+        finally:
+            tstate.Draws = kept
+        for n, p in rerun.named_parameters():
+            if p.grad is None or n not in first:
+                continue
+            d = float(((p.grad.detach().cpu() - first[n]).abs()
+                       / (1e-3 * scale[n.rsplit(".", 2)[0]])).max())
+            spread[n] = max(spread.get(n, 0.0), d)
+    widest = sorted(spread, key=spread.get, reverse=True)[:3]
+    del rerun
+    torch.cuda.empty_cache()
+    return {"call": idx, "spread": max(spread.values(), default=0.0),
+            "widest": {n: {"spread": spread[n],
+                           "card_vs_cpu": float(cpu_err[n].max())}
+                       for n in widest}}
 
 
 def _vgg_bound_ms(vgg, B: int, size: int) -> float:
@@ -4579,7 +4696,9 @@ def _zoo_last(smi: str, root: str, tmp: str, cfgs: dict, batch: dict,
         **({"allow_random_features": True} if n == "dfc_vae" else {})}}
         for n in ZOO_LAST}
     out["first_step_vs_cpu"] = {
-        n: _train_step_vs_cpu(n, cfgs[n], {"image": batch["image"]})
+        n: _train_step_vs_cpu(n, cfgs[n], {"image": batch["image"]},
+                              reruns=FACTORVAE_RERUNS if n == "factorvae"
+                              else 0)
         for n in ZOO_LAST}
     for n in ZOO_LAST:
         out["steps"][n] = _zoo_step(n, cfgs[n], batch)
@@ -6934,7 +7053,8 @@ def phase_sp(smi: str) -> tuple:
     SP_TIMEOUT seconds or killed. A correctness path: both ranks share one
     card, so its times are no scaling figure. The launch counters of the
     SP steps and requests (at float32 and bfloat16) are the path "sp".
-    Returns (those launches, the numbers)."""
+    Then the path "fsdp_tp" (``_fsdp_tp_path``). Returns (the launches
+    of "sp", those of "fsdp_tp", the numbers)."""
     import torch.multiprocessing as mp
     start = time.perf_counter()
     launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
@@ -7040,9 +7160,381 @@ def phase_sp(smi: str) -> tuple:
     if r0["bf16"]["loss_max_rel"] > 5 * BF16_ULP or r0["bf16"]["beyond"] \
             or r0["bf16"]["wrong"] or r1["bf16"]["wrong"]:
         raise AssertionError(f"sp bf16: {r0['bf16']}")
-    numbers["wall_s"] = time.perf_counter() - start
     log(f"launches on the sp path: {json.dumps(launches)}")
+    tp_launches, numbers["fsdp_tp"] = _fsdp_tp_path(smi)
+    numbers["wall_s"] = time.perf_counter() - start
     log(f"sp: phase {numbers['wall_s']:.1f} s")
+    return launches, tp_launches, numbers
+
+
+# --- path "fsdp_tp": FSDP with a model axis, in phase "sp" ----------------
+
+TP_STEPS = 8          # steps of each mode on the two ranks and in one process
+TP_BF16_STEPS = 3     # causal steps at bfloat16
+TP_SCAN_K = 4         # the scan_steps of run.train at world 2
+TP_SCAN_LIMIT = 80    # TSynthetic rows a mode: 15 batches of 16, a run of 4
+TP_TIMEOUT = 300      # seconds for the two rank processes
+
+
+def _tp_state(params, bg, mg, data_group):
+    """The headline model of ``params`` and the config's exp_params under
+    ``sharding: fsdp`` over a mesh (data 1, model 2): rank 0's weights and
+    generator (a broadcast over the world), the leaves of JAX's
+    tensor-parallel rules split over the model group ``mg``
+    (``fully_shard`` at the default ``fsdp_min_size``), the optimizers
+    over the blocks."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.parallel import fully_shard, put_replicated
+    from ctvae_torch.training import build_optimizers, create_train_state
+    model = build_model(params, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+    state = create_train_state(model, [], seed=SEED, group=bg,
+                               model_group=mg)
+    put_replicated(model, torch.distributed.group.WORLD, state.generator)
+    state.fsdp = fully_shard(model, data_group, model_group=mg)
+    state.optimizers = build_optimizers(EXP_PARAMS, model,
+                                        steps_per_epoch=100, fsdp=state.fsdp)
+    return state
+
+
+def _tp_steps(tp, single, launches: dict) -> dict:
+    """TP_STEPS steps of each mode on the rank (the same B = 16 rows on
+    both: a data axis of 1); before each, the gathered state (a
+    collective) goes into one process on rank 0, which takes the step
+    beside it. Per mode the step's ms; the launches per step against the
+    plain step's; the losses and every parameter's gathered gradient
+    against one process to tier-1's bound, the parameters within Adam's
+    reach of the gradients' difference."""
+    from ctvae_torch.training import make_train_step
+    lr = float(EXP_PARAMS["LR"])
+    out = {"wrong": [], "metrics_off": [], "grads_off": [],
+           "params_off": [], "worst_grad": 0.0, "worst_loss_rel": 0.0,
+           "param_max_diff": 0.0, "ms": {}}
+    for i, (mode, expected) in enumerate(EXPECTED_TRAIN.items()):
+        step = make_train_step(mode)
+        secs = []
+        for b in _ddp_batches(SEED + 91 + i, TP_STEPS, BATCH):
+            full = copy.deepcopy(tp.state_dict())
+            if single is not None:
+                single.load_state_dict(full)
+            del full
+            c0 = _counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = step(tp, b)
+            torch.cuda.synchronize()
+            secs.append(1e3 * (time.perf_counter() - t0))
+            c1 = _counts()
+            _add_counts(launches, c0, c1)
+            if {k: c1[k] - c0[k] for k in c1} != expected:
+                out["wrong"].append(mode)
+            grads, params = _full_grads_params(tp)
+            if single is None:
+                continue
+            want = step(single, b)
+            for key, w in want.items():
+                g, w = got[key].double(), w.double()
+                off = float(((g - w).abs() / (1 + w.abs())).max())
+                out["worst_loss_rel"] = max(out["worst_loss_rel"], off)
+                if off > SP_TOL:
+                    out["metrics_off"].append((mode, key, off))
+            for n, q in single.model.named_parameters():
+                gq = q.grad if q.grad is not None else torch.zeros_like(q)
+                gp = grads.get(n, torch.zeros_like(q))
+                diff = (gp - gq).abs()
+                err = float(diff.max()) / max(1.0, float(gq.abs().max()))
+                out["worst_grad"] = max(out["worst_grad"], err)
+                if err > SP_TOL:
+                    out["grads_off"].append((mode, n))
+                d = (params[n] - q.detach()).abs()
+                out["param_max_diff"] = max(out["param_max_diff"],
+                                            float(d.max()))
+                if not bool((d <= _adam_reach(diff, lr)).all()):
+                    out["params_off"].append((mode, n))
+        out["ms"][mode] = statistics.median(secs[1:])
+    return out
+
+
+def _tp_bf16(bg, mg, data_group, rank: int, launches: dict) -> dict:
+    """TP_BF16_STEPS causal steps at bfloat16 under FSDP with the model
+    axis; before each, rank 0 loads the gathered state into one bfloat16
+    process and one float32 process (the same values), which take the
+    step beside it: the losses within 5 bfloat16 ulps of the bfloat16
+    process's, and tier-1's rule: each gathered gradient within twice the
+    bfloat16 process's distance to the float32 one plus 2 bfloat16 ulps
+    of its norm."""
+    from ctvae_torch.training import make_train_step
+    bf = _tp_state(BF16_MODEL_PARAMS, bg, mg, data_group)
+    single = _sp_state(BF16_MODEL_PARAMS) if rank == 0 else None
+    twin = _sp_state(MODEL_PARAMS) if rank == 0 else None
+    step = make_train_step("causal")
+    out = {"loss_max_rel": 0.0, "worst_ratio": 0.0, "beyond": [],
+           "wrong": [], "block_dtypes": sorted({
+               str(t.dtype) for t in bf.fsdp.shards.values()})}
+    for b in _ddp_batches(SEED + 83, TP_BF16_STEPS, BATCH):
+        full = copy.deepcopy(bf.state_dict())
+        if single is not None:
+            single.load_state_dict(full)
+            twin.model.load_state_dict(
+                {k: v.float() if v.is_floating_point() else v
+                 for k, v in full["model"].items()})
+            twin.generator.set_state(full["generator"])
+        del full
+        c0 = _counts()
+        got = step(bf, b)
+        c1 = _counts()
+        _add_counts(launches, c0, c1)
+        if {k: c1[k] - c0[k] for k in c1} != EXPECTED_TRAIN["causal"]:
+            out["wrong"].append("causal")
+        grads, _ = _full_grads_params(bf)
+        if single is None:
+            continue
+        want = step(single, b)
+        step(twin, b)
+        out["loss_max_rel"] = max(out["loss_max_rel"], abs(
+            float(got["loss"]) - float(want["loss"])) / max(
+            abs(float(want["loss"])), 1e-30))
+        ref = dict(twin.model.named_parameters())
+        for n, q in single.model.named_parameters():
+            zero = torch.zeros(q.shape, dtype=torch.float64, device="cuda")
+            g = grads[n].double() if n in grads else zero
+            o = q.grad.double() if q.grad is not None else zero
+            r = ref[n].grad.double() if ref[n].grad is not None else zero
+            bound = 2 * float((o - r).norm()) + 2 * BF16_ULP * float(
+                r.norm())
+            e = float((g - r).norm())
+            out["worst_ratio"] = max(out["worst_ratio"],
+                                     e / bound if bound else 0.0)
+            if e > bound:
+                out["beyond"].append(n)
+    return out
+
+
+def _tp_loop_config(root: str, sharding: str) -> dict:
+    """The loop config with ``scan_steps`` TP_SCAN_K over TP_SCAN_LIMIT
+    TSynthetic rows a mode (a run of four base batches): ``sharding:
+    fsdp`` with ``model_axis: 2``, or ``dp`` for one process."""
+    cfg = _ddp_loop_config(root, 1, sharding=sharding)
+    cfg["data_params"]["limit"] = TP_SCAN_LIMIT
+    cfg["exp_params"]["scan_steps"] = TP_SCAN_K
+    if sharding == "fsdp":
+        cfg["exp_params"]["model_axis"] = 2
+    return cfg
+
+
+def _scan_run(cfg: dict) -> dict:
+    """``run.train`` of ``cfg`` on the card: its result, each multi-step
+    call's ``graphed``, the launches, the seconds."""
+    from ctvae_torch import run
+    from ctvae_torch.training.state import MultiTrainStep
+    graphed = []
+    real = MultiTrainStep.__call__
+
+    def spy(self, *a, **k):
+        out = real(self, *a, **k)
+        graphed.append(self.graphed)
+        return out
+    MultiTrainStep.__call__ = spy
+    c0 = _counts()
+    t0 = time.perf_counter()
+    try:
+        out = run.train(cfg, device="cuda:0")
+    finally:
+        MultiTrainStep.__call__ = real
+    c1 = _counts()
+    return {"out": out, "graphed": graphed, "s": time.perf_counter() - t0,
+            "launches": {k: c1[k] - c0[k] for k in c1}}
+
+
+def _tp_rank(rank: int, port: int, out_dir: str) -> None:
+    """A rank of the path "fsdp_tp": two ranks over gloo sharing cuda:0,
+    one mesh (data 1, model 2), the headline at full width under
+    ``sharding: fsdp`` with the tensor-parallel rules: ``_tp_steps``, the
+    resident bytes, each kernel call of a causal step held against its
+    plain version (``_kernels_on_step``, ``_vq_on_path``), ``run.train``
+    with ``scan_steps`` TP_SCAN_K (``_scan_run``), ``_tp_bf16``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from ctvae_torch.parallel import (destroy, init_distributed, make_mesh,
+                                      mesh_batch_group, mesh_data_group,
+                                      mesh_model_group)
+    from ctvae_torch.training import make_train_step
+    launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
+    res: dict = {"rank": rank, "launches": launches}
+    try:
+        init_distributed("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                         rank=rank, world_size=2)
+        mesh = make_mesh(2)
+        bg, mg = mesh_batch_group(mesh), mesh_model_group(mesh)
+        dg = mesh_data_group(mesh)
+        tp = _tp_state(MODEL_PARAMS, bg, mg, dg)
+        single = _sp_state(MODEL_PARAMS) if rank == 0 else None
+        res["plan"] = {k: list(v) for k, v in tp.fsdp.plan.items()}
+        res["block_shapes"] = {k: list(v.shape)
+                               for k, v in tp.fsdp.shards.items()}
+        res["steps"] = _tp_steps(tp, single, launches)
+        res["resident_bytes"] = _resident_bytes(tp)
+        if single is not None:
+            res["one_process_bytes"] = _resident_bytes(single)
+        b = _ddp_batches(SEED + 97, 1, BATCH)[0]
+        causal = make_train_step("causal")
+        res["on_step"] = _kernels_on_step(
+            f"fsdp_tp rank {rank} causal step", lambda: causal(tp, b))
+        res["vq"] = _vq_on_path(lambda: causal(tp, b))
+        del tp, single
+        torch.cuda.empty_cache()
+        res["scan"] = _scan_run(_tp_loop_config(
+            os.path.join(out_dir, "logs_tp"), "fsdp"))
+        _add_counts(launches, {k: 0 for k in launches},
+                    res["scan"]["launches"])
+        torch.cuda.empty_cache()
+        res["bf16"] = _tp_bf16(bg, mg, dg, rank, launches)
+    except Exception:       # reported to the parent, which fails the phase
+        import traceback
+        res["error"] = traceback.format_exc()
+    finally:
+        destroy()
+        torch.save(res, os.path.join(out_dir, f"tp_rank{rank}.pt"))
+
+
+def _fsdp_tp_path(smi: str) -> tuple:
+    """The path "fsdp_tp" of phase "sp": ``_tp_rank`` on two gloo ranks
+    sharing the card, spawned after the kernels are built, joined within
+    TP_TIMEOUT seconds or killed; then, in this process, ``run.train`` of
+    the same loop config in one process (``sharding: dp``, its
+    ``scan_steps`` block replayed from a CUDA graph) against rank 0's
+    checkpoint. A correctness path: both ranks share one card, so its
+    times are no scaling figure. Returns (the ranks' launches, the
+    numbers)."""
+    import torch.multiprocessing as mp
+    from ctvae_torch.utils.checkpoint import _load
+    start = time.perf_counter()
+    launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
+    deterministic = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory(prefix="ctvae_tp_") as tmp:
+        ctx = mp.start_processes(_tp_rank, args=(_free_port(), tmp),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + TP_TIMEOUT
+        try:
+            while not ctx.join(timeout=max(1.0, deadline
+                                           - time.monotonic())):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"fsdp_tp: the ranks ran past "
+                                         f"{TP_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        r0, r1 = (torch.load(os.path.join(tmp, f"tp_rank{r}.pt"),
+                             weights_only=False) for r in range(2))
+        for r in (r0, r1):
+            if "error" in r:
+                raise AssertionError(f"fsdp_tp rank {r['rank']}:\n"
+                                     f"{r['error']}")
+            _add_counts(launches, {k: 0 for k in launches}, r["launches"])
+        tp_last = _load(os.path.join(tmp, "logs_tp", "fsdp", "version_0",
+                                     "checkpoints", "last"))
+        torch.backends.cudnn.deterministic = True
+        try:
+            one = _scan_run(_tp_loop_config(os.path.join(tmp, "logs_one"),
+                                            "dp"))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        one_last = _load(os.path.join(tmp, "logs_one", "ddp", "version_0",
+                                      "checkpoints", "last"))
+    s0, s1 = r0["steps"], r1["steps"]
+    scan_diff = {n: float((t.double() - one_last["model"][n].double())
+                          .abs().max())
+                 for n, t in tp_last["model"].items()
+                 if t.is_floating_point()}
+    scan = {"graphed": {"rank0": r0["scan"]["graphed"],
+                        "rank1": r1["scan"]["graphed"],
+                        "one_process": one["graphed"]},
+            "multi_calls": len(r0["scan"]["graphed"]),
+            "val_loss": {"rank0": r0["scan"]["out"]["val_loss"],
+                         "rank1": r1["scan"]["out"]["val_loss"],
+                         "one_process": one["out"]["val_loss"]},
+            "steps": {"ranks": tp_last["step"],
+                      "one_process": one_last["step"]},
+            "param_max_diff": max(scan_diff.values()),
+            "params_bit_equal": sum(d == 0.0 for d in scan_diff.values()),
+            "params": len(scan_diff),
+            "s": {"rank0": r0["scan"]["s"], "one_process": one["s"]}}
+    on = {str(r["rank"]): {
+        "pairwise_fwd": max(m["max_abs_err"] for m in
+                            r["on_step"]["pairwise_fwd"].values()),
+        "gat_fwd": r["on_step"]["gat_fwd"]["max_abs_err"],
+        "gat_logits_fwd": r["on_step"]["logits"]["fwd"]["max_abs_err"],
+        "pairwise_bwd": max(m["err"] for m in
+                            r["on_step"]["pairwise_bwd"].values()),
+        "gat_bwd": r["on_step"]["gat_bwd"]["errors"],
+        "gat_logits_bwd": r["on_step"]["logits"]["bwd"]["errors"],
+        "vq_differ": [v["differ"] for v in r["vq"]]} for r in (r0, r1)}
+    numbers = {
+        "plan": r0["plan"], "block_shapes": {
+            str(r["rank"]): r["block_shapes"] for r in (r0, r1)},
+        "rank_ms": s0["ms"], "rank1_ms": s1["ms"],
+        "worst_loss_diff": s0["worst_loss_rel"],
+        "worst_grad_err": s0["worst_grad"],
+        "param_max_diff": s0["param_max_diff"],
+        "resident_bytes": {"rank0": r0["resident_bytes"],
+                           "rank1": r1["resident_bytes"],
+                           "one_process": r0["one_process_bytes"]},
+        "scan": scan, "on_step_max_abs_err": on,
+        "bf16": {k: r0["bf16"][k] for k in ("loss_max_rel", "worst_ratio",
+                                            "beyond", "block_dtypes")}}
+    log(f"fsdp_tp two ranks on one card over gloo at (data 1, model 2) "
+        f"({smi}), a correctness path (both ranks share the card; no "
+        f"scaling figure): split {json.dumps(numbers['plan'])}, blocks "
+        f"{json.dumps(numbers['block_shapes'])}; ms per step at B = 16, "
+        f"rank 0 {json.dumps(s0['ms'])}, rank 1 {json.dumps(s1['ms'])}; "
+        f"{TP_STEPS} steps a mode against one process from equal states: "
+        f"worst metric difference over 1 + |one process's| "
+        f"{s0['worst_loss_rel']:.3g}, worst gradient error over its leaf's "
+        f"scale {s0['worst_grad']:.3g} (bound {SP_TOL}), parameters' "
+        f"largest difference {s0['param_max_diff']:.3g}; metrics off "
+        f"{s0['metrics_off']}, gradients off {s0['grads_off']}, parameters "
+        f"beyond Adam's reach {s0['params_off']}; launches per step off the "
+        f"plain step's {s0['wrong'] + s1['wrong']}")
+    log(f"fsdp_tp resident bytes of parameters and Adam moments between "
+        f"steps: {json.dumps(numbers['resident_bytes'])}")
+    log(f"fsdp_tp run.train at world 2 with scan_steps {TP_SCAN_K} "
+        f"({TP_SCAN_LIMIT} TSynthetic rows a mode, B = 16): "
+        f"{json.dumps(scan)}")
+    log(f"fsdp_tp kernel calls of a causal step on the gathered parameters "
+        f"against their plain versions: {json.dumps(on)}")
+    log(f"fsdp_tp bf16 causal: {TP_BF16_STEPS} steps, losses' largest "
+        f"relative difference {r0['bf16']['loss_max_rel']:.3g}, the largest "
+        f"gradient distance over its bound {r0['bf16']['worst_ratio']:.3g} "
+        f"(beyond: {r0['bf16']['beyond']}), blocks "
+        f"{r0['bf16']['block_dtypes']}")
+    split = {k for k, v in r0["plan"].items() if v[0] is not None}
+    if not {"ct_layer.disc_w1l", "ct_layer.disc_w1r", "ct_layer.disc_b1",
+            "vq_layer.quantizers_0.embedding"} <= split:
+        raise AssertionError(f"fsdp_tp: split over model {sorted(split)}")
+    if s0["metrics_off"] or s0["grads_off"] or s0["params_off"] or \
+            s0["wrong"] or s1["wrong"]:
+        raise AssertionError("fsdp_tp two ranks: disagree with one process")
+    if not r0["resident_bytes"] == r1["resident_bytes"] < \
+            r0["one_process_bytes"]:
+        raise AssertionError(f"fsdp_tp resident bytes: "
+                             f"{numbers['resident_bytes']}")
+    if scan["multi_calls"] < 1 or any(scan["graphed"]["rank0"] +
+                                      scan["graphed"]["rank1"]) or \
+            not any(scan["graphed"]["one_process"]) or \
+            scan["steps"]["ranks"] != scan["steps"]["one_process"] or \
+            scan["param_max_diff"] > DDP_ATOL or abs(
+                scan["val_loss"]["rank0"] - scan["val_loss"]["one_process"]
+            ) > DDP_RTOL * abs(scan["val_loss"]["one_process"]) or \
+            scan["val_loss"]["rank0"] != scan["val_loss"]["rank1"]:
+        raise AssertionError(f"fsdp_tp run.train with scan_steps: {scan}")
+    if r0["bf16"]["loss_max_rel"] > 5 * BF16_ULP or r0["bf16"]["beyond"] \
+            or r0["bf16"]["wrong"] or r1["bf16"]["wrong"]:
+        raise AssertionError(f"fsdp_tp bf16: {r0['bf16']}")
+    numbers["wall_s"] = time.perf_counter() - start
+    log(f"launches on the fsdp_tp path: {json.dumps(launches)}")
+    log(f"fsdp_tp: path {numbers['wall_s']:.1f} s")
     return launches, numbers
 
 
@@ -7628,6 +8120,10 @@ def main(argv) -> int:
         help="only build the kernels and run the phase \"sp\" "
              "(phase_sp)")
     parser.add_argument(
+        "--fsdp-tp-only", action="store_true",
+        help="only build the kernels and run the path \"fsdp_tp\" of "
+             "phase \"sp\" (_fsdp_tp_path)")
+    parser.add_argument(
         "--bf16-only", action="store_true",
         help="only build the kernels and run the phase \"bf16\" "
              "(phase_bf16)")
@@ -7707,8 +8203,13 @@ def main(argv) -> int:
                         "ddp_bf16_launches": bf16_launches, "ddp": numbers}))
         return 0
     if opts.sp_only:
-        launches, numbers = phase_sp(smi)
-        log(json.dumps({"sp_launches": launches, "sp": numbers}))
+        launches, tp_launches, numbers = phase_sp(smi)
+        log(json.dumps({"sp_launches": launches,
+                        "fsdp_tp_launches": tp_launches, "sp": numbers}))
+        return 0
+    if opts.fsdp_tp_only:
+        launches, numbers = _fsdp_tp_path(smi)
+        log(json.dumps({"fsdp_tp_launches": launches, "fsdp_tp": numbers}))
         return 0
     if opts.bf16_only:
         launches, bf16_rows, numbers = phase_bf16(smi)
@@ -7754,7 +8255,7 @@ def main(argv) -> int:
     export_launches, export_bf16_launches, export_numbers = phase_export(smi)
     ddp_launches, fsdp_launches, ddp_bf16_launches, ddp_numbers = \
         phase_ddp(smi)
-    sp_launches, sp_numbers = phase_sp(smi)
+    sp_launches, tp_launches, sp_numbers = phase_sp(smi)
     bf16_launches, bf16_rows, bf16_numbers = phase_bf16(smi)
     kernels = []
     for r in rows:
@@ -7779,6 +8280,7 @@ def main(argv) -> int:
                    "fsdp": fsdp_launches[r["name"]],
                    "ddp_bf16": ddp_bf16_launches[r["name"]],
                    "sp": sp_launches[r["name"]],
+                   "fsdp_tp": tp_launches[r["name"]],
                    "bf16": bf16_launches[r["name"]]}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
@@ -7814,7 +8316,8 @@ def main(argv) -> int:
             k["launches_by_path"][p] == 0 for k in kernels
            for p in ("train", "codebooks_2", "two_stage", "scan",
                      "shapes3d_ct", "metrics", "search", "tceleba",
-                     "ddp", "fsdp", "bf16", "ddp_bf16", "sp")) or any(
+                     "ddp", "fsdp", "bf16", "ddp_bf16", "sp",
+                     "fsdp_tp")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
             if EXPECTED["reconstruct"][k["name"]]) or any(
             (k["launches_by_path"]["shapes3d_mcq"] == 0)

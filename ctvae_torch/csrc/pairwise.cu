@@ -48,7 +48,7 @@
 //   g[s,t,h] = dz[s,t] * (pre >= 0 ? 1 : ns),  pre = xl[s,h] + xr[t,h] + b1[h]
 //   dxl[s,h] = w2[h] sum_t g     dxr[t,h] = w2[h] sum_s g
 //   dw2[h]   = sum_{s,t} pre g   db1[h]   = w2[h] sum_{s,t} g
-//   db2      = sum_{s,t} dz
+//   db2      = sum_{s,t} dz   (summed in float64, rounded once)
 //
 // (per-sample outputs; the caller sums them over b for a shared param).
 // Bound: the same domain, re-walked once and never stored, but only where
@@ -358,11 +358,13 @@ __global__ void pairwise_bwd_kernel(const E* __restrict__ xl,
     }
   }
   if (warp == 1 && blockIdx.x == 0) {
-    float z = 0.f;
-    for (int i = lane; i < S * T8; i += 32) z += dz_s[i];
+    // db2 cancels (sum |dz| up to ~500x |sum dz| on the train steps): a
+    // float64 sum, rounded once, is the exact sum's float32 neighbour
+    double z = 0.0;
+    for (int i = lane; i < S * T8; i += 32) z += (double)dz_s[i];
     for (int off = 16; off > 0; off >>= 1)
       z += __shfl_xor_sync(0xffffffffu, z, off);
-    if (lane == 0) db2[b] = z;
+    if (lane == 0) db2[b] = (float)z;
   }
 }
 

@@ -135,7 +135,9 @@ def pairwise_bwd(xl: Tensor, xr: Tensor, w2: Tensor, b1: Tensor,
 def _(xl, xr, w2, b1, b2, out, dout, ns):
     dxl, dxr, dw2, db1, db2 = pairwise_flash.flash_pairwise_bwd_cuda(
         xl, xr, w2, b1, out, dout, ns)
-    return dxl, dxr, _fold(dw2, w2), _fold(db1, b1), _fold(db2, b2)
+    # db2 cancels over the batch too: its per-sample sums add in float64
+    return (dxl, dxr, _fold(dw2, w2), _fold(db1, b1),
+            _fold(db2.double(), b2))
 
 
 @pairwise_bwd.register_fake

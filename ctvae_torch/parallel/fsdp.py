@@ -8,34 +8,48 @@ all-gathers and reduce-scatters from sharding annotations. Here
 ``FSDP`` does them around the data-parallel step of ``parallel/
 mesh.py``:
 
-- each rank owns one slice of every parameter that ``fsdp_plan`` splits
-  (the slice ``r`` of ``n`` along the planned dim, ``n`` the data
-  group's size) as a parameter of its own (``shards``); the optimizers
-  take the slices in the parameters' places, so Adam's moments exist for
-  the slice alone (``shard_of``);
-- ``gather`` all-gathers the slices into the module's parameters before
-  the step's forward (NCCL's ``all_gather_into_tensor``; over gloo, which
-  gathers no CUDA tensors, a sum of zero-padded copies), one flat bucket
-  per dtype;
-- ``reduce_grads`` after the backward reduce-scatters each split
-  parameter's gradient to its owner (a mean over the data group; over
-  gloo an all-reduce of the bucket whose rank's row is kept), then, on a
-  hybrid mesh, averages the slices over the replica group; the
-  replicated parameters keep the bucketed all-reduce over the batch's
-  group (``all_reduce_grads``);
+- each rank owns one block of every parameter that ``fsdp_plan`` splits
+  as a parameter of its own (``shards``): on a mesh with a ``model``
+  axis of ``m`` ranks, rank (d, m) of the (data, model) mesh holds block
+  m along the planned model dim (JAX's tensor-parallel rules) and,
+  inside it, block d of ``n`` along the planned data dim (``n`` the data
+  group's size); either dim may be absent. The optimizers take the
+  blocks in the parameters' places, so Adam's moments exist for the
+  block alone (``shard_of``);
+- ``gather`` all-gathers the blocks into the module's parameters before
+  the step's forward, over the model group and then over the data group
+  (NCCL's ``all_gather_into_tensor``; over gloo, which gathers no CUDA
+  tensors, a sum of zero-padded copies), one flat bucket per dtype and
+  group;
+- ``reduce_grads`` after the backward reduces each split parameter's
+  gradient to its owner: the ranks of a model group hold the same rows,
+  so each keeps its model block of its own gradient (no sum over the
+  model group), reduce-scattered over the data group (a mean; over gloo
+  an all-reduce of the bucket whose rank's row is kept; a leaf split
+  over ``model`` alone is all-reduced there), then, on a hybrid mesh,
+  averaged over the replica group. The replicated parameters keep the
+  bucketed all-reduce over the batch's group (``all_reduce_grads``);
+  with a model axis their reduced gradients are then broadcast from the
+  model group's first rank, so the group's replicated parameters stay
+  bit-identical even where two ranks' backwards differ in their last
+  bits (the card's eager convolutions without ``cudnn.deterministic``);
+  a broadcast copies bits, where a mean of m equal floats need not give
+  the value back;
 - ``release`` drops the full parameters and their gradients, so between
-  steps only the slices, the replicated parameters and the buffers stay
+  steps only the blocks, the replicated parameters and the buffers stay
   resident.
 
 The norms of the step (``grad_norm``, the clip, ``watch_gradients``)
-are global: the squares of the slices summed over the data group plus
-the replicated parameters' once, each leaf's term in its dtype and in
-the order one process adds them (``sq_sums``, ``norm_fn``), so with
-nothing split a bfloat16 model's norms are one process's bit for bit.
+are global: the squares of the blocks summed over the data group and
+the model group plus the replicated parameters' once, each leaf's term
+in its dtype and in the order one process adds them (``sq_sums``,
+``norm_fn``), so with nothing split a bfloat16 model's norms are one
+process's bit for bit.
 A checkpoint holds the full state (``full_optimizer_state``, the
 model's ``state_dict`` inside ``full()``), so one process, DP ranks and
-FSDP ranks restore each other's; ``load_full`` / ``load_optimizer_state`` take a full state back
-into the slices. The full parameters are plain tensors swapped into
+FSDP ranks (with or without a model axis) restore each other's;
+``load_full`` / ``load_optimizer_state`` take a full state back into the
+blocks. The full parameters are plain tensors swapped into
 ``Parameter.data`` for the span of a step, so a CUDA graph captures the
 gather, the step and the release together (NCCL).
 """
@@ -49,8 +63,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from .mesh import (FSDP_MIN_SIZE, all_reduce_grads, fsdp_plan, group_rank,
-                   group_size)
+from .mesh import (FSDP_MIN_SIZE, Split, all_reduce_grads, fsdp_plan,
+                   group_rank, group_size)
 
 
 def _flat_gather(local: torch.Tensor, group) -> torch.Tensor:
@@ -78,24 +92,47 @@ def _flat_reduce_scatter(packed: torch.Tensor, group) -> torch.Tensor:
     return packed[r]
 
 
-class FSDP:
-    """The ZeRO-3 state of ``model`` over ``data_group`` (and, on a hybrid
-    mesh, ``replica_group``): its split parameters' slices and the
-    collectives of the step around them (see the module doc). Built from
-    full parameters equal on every rank (after ``put_replicated``); the
-    full parameters are released at once."""
+def _broadcast_from_first(tensors: List[torch.Tensor], group) -> None:
+    """Each tensor, in place, set to its value on the group's first rank:
+    one flat bucket per dtype."""
+    src = dist.get_global_rank(group, 0)
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        bucket = torch.cat([t.reshape(-1) for t in ts])
+        dist.broadcast(bucket, src=src, group=group)
+        for t, part in zip(ts, torch.split(bucket,
+                                           [t.numel() for t in ts])):
+            t.copy_(part.view_as(t))
 
-    def __init__(self, model: nn.Module, plan: Dict[str, Optional[int]],
-                 data_group, replica_group=None):
+
+class FSDP:
+    """The ZeRO-3 state of ``model`` over ``data_group`` (with a model
+    axis also ``model_group``, on a hybrid mesh ``replica_group``): its
+    split parameters' blocks and the collectives of the step around them
+    (see the module doc). ``plan`` is ``fsdp_plan``'s at the groups'
+    sizes; ``axes`` / ``model_axes`` name the dim of each parameter split
+    over ``data`` / ``model``. Built from full parameters equal on every
+    rank (after ``put_replicated``); the full parameters are released at
+    once."""
+
+    def __init__(self, model: nn.Module, plan: Dict[str, Optional[Split]],
+                 data_group, replica_group=None, model_group=None):
         self.data_group, self.replica_group = data_group, replica_group
+        self.model_group = model_group
         self.n, self.rank = group_size(data_group), group_rank(data_group)
+        self.m, self.mrank = group_size(model_group), group_rank(model_group)
         self.params = dict(model.named_parameters())
-        self.axes = {k: a for k, a in plan.items() if a is not None}
-        self.shapes = {k: tuple(self.params[k].shape) for k in self.axes}
+        self.plan = {k: s for k, s in plan.items() if s is not None}
+        self.axes = {k: d for k, (_, d) in self.plan.items() if d is not None}
+        self.model_axes = {k: d for k, (d, _) in self.plan.items()
+                           if d is not None}
+        self.shapes = {k: tuple(self.params[k].shape) for k in self.plan}
         self._name = {id(p): k for k, p in self.params.items()}
         self.shards: Dict[str, nn.Parameter] = {}
         with torch.no_grad():
-            for k, axis in self.axes.items():
+            for k in self.plan:
                 p = self.params[k]
                 self.shards[k] = nn.Parameter(
                     self._slice(p.detach(), k).clone(),
@@ -106,33 +143,45 @@ class FSDP:
 
     # -- layout ----------------------------------------------------------
 
+    def _model_block(self, full: torch.Tensor, name: str) -> torch.Tensor:
+        """The rank's block along the model dim of a full tensor of
+        parameter ``name`` (all of it where ``model`` does not split it)."""
+        dim = self.model_axes.get(name)
+        return full if dim is None else full.chunk(self.m, dim=dim)[self.mrank]
+
     def _slice(self, full: torch.Tensor, name: str) -> torch.Tensor:
-        """The rank's slice of a full tensor of parameter ``name``."""
-        return full.chunk(self.n, dim=self.axes[name])[self.rank] \
-            .contiguous()
+        """The rank's block of a full tensor of parameter ``name``: its
+        model block, and the rank's part of that along the data dim."""
+        block = self._model_block(full, name)
+        dim = self.axes.get(name)
+        if dim is not None:
+            block = block.chunk(self.n, dim=dim)[self.rank]
+        return block.contiguous()
 
     def gather_full(self, items: List[Tuple[str, torch.Tensor]]
                     ) -> List[torch.Tensor]:
-        """(split parameter's name, slice-shaped tensor: a value, a
-        gradient, an Adam moment) -> the full tensors, in order, one
-        all-gather per dtype (a collective: every rank calls it with the
+        """(split parameter's name, block-shaped tensor: a value, a
+        gradient, an Adam moment) -> the full tensors, in order: gathered
+        over the model group, then over the data group, one all-gather
+        per dtype and group (a collective: every rank calls it with the
         same names in the same order)."""
-        out: List[Optional[torch.Tensor]] = [None] * len(items)
-        by_dtype: Dict[torch.dtype, List[int]] = {}
-        for i, (_, t) in enumerate(items):
-            by_dtype.setdefault(t.dtype, []).append(i)
-        for idx in by_dtype.values():
-            local = torch.cat([items[i][1].detach().reshape(-1)
-                               for i in idx])
-            rows = _flat_gather(local, self.data_group)
-            off = 0
-            for i in idx:
-                k, t = items[i]
-                m = t.numel()
-                out[i] = torch.cat([rows[r, off:off + m].view(t.shape)
-                                    for r in range(self.n)],
-                                   dim=self.axes[k])
-                off += m
+        out = [t.detach() for _, t in items]
+        for group, size, dims in ((self.model_group, self.m, self.model_axes),
+                                  (self.data_group, self.n, self.axes)):
+            by_dtype: Dict[torch.dtype, List[int]] = {}
+            for i, (k, _) in enumerate(items):
+                if k in dims:
+                    by_dtype.setdefault(out[i].dtype, []).append(i)
+            for idx in by_dtype.values():
+                rows = _flat_gather(torch.cat([out[i].reshape(-1)
+                                               for i in idx]), group)
+                off = 0
+                for i in idx:
+                    t, n = out[i], out[i].numel()
+                    out[i] = torch.cat([rows[r, off:off + n].view(t.shape)
+                                        for r in range(size)],
+                                       dim=dims[items[i][0]])
+                    off += n
         return out
 
     def shard_of(self, p: nn.Parameter) -> nn.Parameter:
@@ -178,10 +227,11 @@ class FSDP:
 
     def reduce_grads(self, batch_group) -> None:
         """After the backward: each split parameter's gradient reduced to
-        the rank's slice (the mean over the data group, then over the
-        replica group) in its slice's ``grad``; the replicated
-        parameters' gradients averaged over ``batch_group``
-        (``all_reduce_grads``)."""
+        the rank's block (its model block of the rank's own gradient, the
+        mean of that over the data group, then over the replica group) in
+        its block's ``grad``; the replicated parameters' gradients
+        averaged over ``batch_group`` (``all_reduce_grads``) and, with a
+        model axis, broadcast from the model group's first rank."""
         named = [(k, self.params[k].grad) for k in self.shards]
         for s in self.shards.values():
             s.grad = None
@@ -189,27 +239,51 @@ class FSDP:
             by_dtype: Dict[torch.dtype, List[Tuple[str, torch.Tensor]]] = {}
             for k, g in named:
                 if g is not None:
-                    by_dtype.setdefault(g.dtype, []).append((k, g))
+                    by_dtype.setdefault(g.dtype, []).append(
+                        (k, self._model_block(g, k)))
             for items in by_dtype.values():
-                chunks = [g.chunk(self.n, dim=self.axes[k])
-                          for k, g in items]
-                packed = torch.cat([c[r].reshape(-1) for r in range(self.n)
-                                    for c in chunks]).view(self.n, -1)
-                mine = _flat_reduce_scatter(packed, self.data_group)
-                mine.div_(self.n)
-                if group_size(self.replica_group) > 1:
-                    dist.all_reduce(mine, op=dist.ReduceOp.SUM,
-                                    group=self.replica_group)
-                    mine.div_(group_size(self.replica_group))
-                off = 0
-                for k, g in items:
-                    s = self.shards[k]
-                    s.grad = mine[off:off + s.numel()].view(s.shape)
-                    off += s.numel()
+                scatter = [(k, g) for k, g in items if k in self.axes]
+                whole = [(k, g) for k, g in items if k not in self.axes]
+                for part, mine in self._data_means(scatter, whole):
+                    if group_size(self.replica_group) > 1:
+                        dist.all_reduce(mine, op=dist.ReduceOp.SUM,
+                                        group=self.replica_group)
+                        mine.div_(group_size(self.replica_group))
+                    off = 0
+                    for k, _ in part:
+                        s = self.shards[k]
+                        s.grad = mine[off:off + s.numel()].view(s.shape)
+                        off += s.numel()
         for k in self.shards:
             self.params[k].grad = None
         rest = [p for k, p in self.params.items() if k not in self.shards]
         all_reduce_grads(rest, batch_group)
+        if self.m > 1:
+            with torch.no_grad():
+                _broadcast_from_first([p.grad for p in rest
+                                       if p.grad is not None],
+                                      self.model_group)
+
+    def _data_means(self, scatter, whole):
+        """(items, the flat means over the data group of the rank's part
+        of them): the blocks split over ``data`` reduce-scattered, those
+        split over ``model`` alone all-reduced (one bucket each)."""
+        out = []
+        if scatter:
+            chunks = [g.chunk(self.n, dim=self.axes[k]) for k, g in scatter]
+            packed = torch.cat([c[r].reshape(-1) for r in range(self.n)
+                                for c in chunks]).view(self.n, -1)
+            out.append((scatter, _flat_reduce_scatter(packed,
+                                                      self.data_group)))
+        if whole:
+            flat = torch.cat([g.reshape(-1) for _, g in whole])
+            if self.n > 1:
+                dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                                group=self.data_group)
+            out.append((whole, flat))
+        for _, mine in out:
+            mine.div_(self.n)
+        return out
 
     def _leaf_terms(self, groups: Iterable[Iterable[torch.Tensor]],
                     grads: bool, split_term, finish, rep_term
@@ -219,9 +293,14 @@ class FSDP:
         full gradient, else the parameter; one without a gradient is
         left out), in the group's order: ``rep_term(t)`` of a replicated
         one, ``finish(sum, dtype)`` of a split one, where ``sum`` is its
-        slices' float32 ``split_term`` summed over the data group (one
-        all-reduce for all of them)."""
-        slots, partials = [], []
+        blocks' float32 ``split_term`` summed over the groups whose axis
+        splits it (one all-reduce over each for all of them: a leaf that
+        one group holds in copies adds nothing on that group's other
+        ranks, so it counts once)."""
+        slots = []
+        # the split leaves' terms by the axes that split them: both, data
+        # alone, model alone (so each all-reduce zeroes one slice)
+        kinds: Tuple[list, list, list] = ([], [], [])
         for ps in groups:
             row = []
             for p in ps:
@@ -233,26 +312,40 @@ class FSDP:
                     continue
                 v = v.detach()
                 if split:
-                    row.append((len(partials), v.dtype))
-                    partials.append(split_term(v))
+                    ki = (0 if k in self.axes and k in self.model_axes
+                          else 1 if k in self.axes else 2)
+                    row.append((ki, len(kinds[ki]), v.dtype))
+                    kinds[ki].append(split_term(v))
                 else:
                     row.append(rep_term(v))
             slots.append(row)
-        if partials:
-            reduced = torch.stack(partials)
-            dist.all_reduce(reduced, op=dist.ReduceOp.SUM,
-                            group=self.data_group)
-        return [[finish(reduced[x[0]], x[1]) if isinstance(x, tuple) else x
-                 for x in row] for row in slots]
+        if any(kinds):
+            reduced = torch.stack([t for kind in kinds for t in kind])
+            n_both, n_data = len(kinds[0]), len(kinds[1])
+            start = (0, n_both, n_both + n_data)
+            for group, size, rank, copies in (
+                    (self.data_group, self.n, self.rank,
+                     slice(n_both + n_data, None)),
+                    (self.model_group, self.m, self.mrank,
+                     slice(n_both, n_both + n_data))):
+                if size > 1:
+                    if rank > 0:
+                        reduced[copies] = 0.0
+                    dist.all_reduce(reduced, op=dist.ReduceOp.SUM,
+                                    group=group)
+        return [[finish(reduced[start[x[0]] + x[1]], x[2])
+                 if isinstance(x, tuple) else x for x in row]
+                for row in slots]
 
     def sq_sums(self, groups: Iterable[Iterable[torch.Tensor]],
                 grads: bool) -> List[torch.Tensor]:
         """For each group of parameters the sum of squares of the full
         tensors' gradients (``grads``) or values, as
         ``training/state.py::global_norm`` sums one process's: per
-        parameter ``sum(square(t))`` in its dtype (a split one's slices
-        summed in float32 over the data group, then rounded once to its
-        dtype, as a reduction of the whole leaf rounds), added in order
+        parameter ``sum(square(t))`` in its dtype (a split one's blocks
+        summed in float32 over the data and model groups, then rounded
+        once to its dtype, as a reduction of the whole leaf rounds), added
+        in order
         from Python's 0, so two bfloat16 leaves in a row add in bfloat16
         as there. With nothing split this is one process's sum bit for
         bit. A parameter without a gradient adds nothing; a group with
@@ -270,9 +363,9 @@ class FSDP:
         """The global gradient norm over ``params`` (an optimizer's) as
         ``torch.nn.utils.clip_grad_norm_`` takes it for its clip, or None
         when none of them is split: each parameter's norm in its dtype (a
-        split one's from its slices' float32 squares summed over the data
-        group), grouped by dtype in order of first appearance, and the
-        2-norm of them all in float32."""
+        split one's from its blocks' float32 squares summed over the data
+        and model groups), grouped by dtype in order of first appearance,
+        and the 2-norm of them all in float32."""
         if not any(id(p) in self._shard_name for p in params):
             return None
 
@@ -292,7 +385,7 @@ class FSDP:
     # -- full state ------------------------------------------------------
 
     def resident_bytes(self, optimizers: Iterable[Any] = ()) -> int:
-        """Bytes of the parameters (slices and replicated) and of the
+        """Bytes of the parameters (blocks and replicated) and of the
         optimizers' Adam moments this rank holds now."""
         ts = [s for s in self.shards.values()] + [
             p for k, p in self.params.items() if k not in self.shards]
@@ -374,13 +467,15 @@ class FSDP:
 
 
 def fully_shard(model: nn.Module, data_group, replica_group=None,
-                min_size: int = FSDP_MIN_SIZE) -> FSDP:
-    """``FSDP`` of ``model`` with ``fsdp_plan`` at the data group's size:
+                min_size: int = FSDP_MIN_SIZE, model_group=None) -> FSDP:
+    """``FSDP`` of ``model`` with ``fsdp_plan`` at the data group's and
+    the model group's sizes (``model_group`` None: a model axis of 1):
     call it on every rank after the parameters were made equal
     (``put_replicated``), and build the optimizers through
     ``FSDP.shard_of`` after it."""
-    return FSDP(model, fsdp_plan(model, group_size(data_group), min_size),
-                data_group, replica_group)
+    return FSDP(model, fsdp_plan(model, group_size(data_group), min_size,
+                                 group_size(model_group)),
+                data_group, replica_group, model_group)
 
 
 __all__ = ["FSDP", "fully_shard"]

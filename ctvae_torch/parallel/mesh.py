@@ -36,10 +36,13 @@ target nodes among them (``parallel/sequence.py``, inside
 ``model_parallel``); under ``sharding: dp`` they repeat one another's
 work, as the JAX package replicates it over its model axis. Under
 ``sharding: fsdp`` (``parallel/fsdp.py``) the parameters that
-``fsdp_plan`` picks are split over ``data`` alone (``mesh_data_group``:
-the ranks of one replica), never over ``replica``
-(``mesh_replica_group``: the ranks at one data index), as the JAX
-package's ``fsdp_shardings`` keeps ZeRO's all-gathers inside a slice.
+``fsdp_plan`` picks are split over ``data`` (``mesh_data_group``: the
+ranks of one replica at one model index) and, with a model axis, the
+leaves that JAX's tensor-parallel rules name (``DEFAULT_TP_RULES``) over
+``model`` as well (``mesh_model_group``); never over ``replica``
+(``mesh_replica_group``: the ranks at one (data, model) index), as the
+JAX package's ``fsdp_shardings`` keeps ZeRO's all-gathers inside a
+slice.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
-from typing import Any, Dict, Iterable, Iterator, List, Optional
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -177,22 +180,25 @@ def mesh_batch_group(mesh):
 
 def mesh_model_group(mesh):
     """The ranks along ``model`` at this rank's (replica, data) index: the
-    group that splits the target nodes under ``sharding: sp``, or None
-    where the model axis has size 1."""
+    group that splits the target nodes under ``sharding: sp`` and the
+    tensor-parallel leaves under ``sharding: fsdp``, or None where the
+    model axis has size 1."""
     if _model_size(mesh) == 1:
         return None
     return mesh.get_group(MODEL_AXIS)
 
 
 def mesh_data_group(mesh):
-    """The ranks along ``data`` at this rank's replica: the group FSDP
-    splits parameters over (the whole batch group without ``replica``)."""
+    """The ranks along ``data`` at this rank's (replica, model) index: the
+    group FSDP splits parameters over (the batch group without
+    ``replica``)."""
     return mesh.get_group(DATA_AXIS)
 
 
 def mesh_replica_group(mesh):
-    """The ranks along ``replica`` at this rank's data index (each holds
-    the same slices under FSDP), or None on a mesh without that axis."""
+    """The ranks along ``replica`` at this rank's (data, model) index
+    (each holds the same blocks under FSDP), or None on a mesh without
+    that axis."""
     if REPLICA_AXIS not in (mesh.mesh_dim_names or ()):
         return None
     return mesh.get_group(REPLICA_AXIS)
@@ -220,26 +226,55 @@ def _jax_axes(module: torch.nn.Module, leaf: str, ndim: int) -> tuple:
     return tuple(range(ndim))
 
 
+#: JAX leaf name -> the axis of that leaf split over ``model`` under
+#: FSDP with a model axis: the port's copy of ``ctvae_tpu/parallel/
+#: mesh.py::DEFAULT_TP_RULES`` (the discoverer's [A+1, N, H] stacks on
+#: their hidden axis, every codebook [K, D] on its entries)
+DEFAULT_TP_RULES: Dict[str, int] = {
+    "disc_w1l": 2,
+    "disc_w1r": 2,
+    "disc_b1": 1,
+    "embedding": 0,
+}
+
+#: a parameter's split: (the port's dim over ``model``, its dim over
+#: ``data``), either None where that axis does not split it
+Split = Tuple[Optional[int], Optional[int]]
+
+
 def fsdp_plan(model: torch.nn.Module, data_size: int,
-              min_size: int = FSDP_MIN_SIZE) -> Dict[str, Optional[int]]:
-    """Parameter name -> the port's dim split over ``data``, or None
-    (replicated): ``ctvae_tpu/parallel/mesh.py::fsdp_shardings`` with the
-    model axis of size 1 (no TP rule claims an axis). A parameter of at
-    least ``min_size`` elements is split along the largest of its JAX
-    leaf's axes that ``data_size`` divides (the first in JAX's order on
-    a tie), mapped to the port's layout; with a data size of 1 nothing
-    is split."""
+              min_size: int = FSDP_MIN_SIZE, model_size: int = 1
+              ) -> Dict[str, Optional[Split]]:
+    """Parameter name -> ``(model dim, data dim)`` in the port's layout,
+    or None (replicated): ``ctvae_tpu/parallel/mesh.py::fsdp_shardings``
+    leaf for leaf. A leaf whose name has a rule in ``DEFAULT_TP_RULES``
+    gives that JAX axis to ``model`` when ``model_size`` is above 1, the
+    leaf has the axis and ``model_size`` divides it. Then a parameter of at least ``min_size``
+    elements splits over ``data`` the largest of its JAX leaf's free
+    axes (not given to ``model``) that ``data_size`` divides, the first
+    in JAX's order on a tie. Axes are JAX's, mapped to the port's dims
+    (``_jax_axes``). With a data size and a model size of 1 nothing is
+    split. Rules match the leaf name among parameters only, as JAX's
+    match its ``params`` tree: an EMA codebook keeps its ``embedding``
+    as a buffer (JAX: the ``vq_stats`` collection), which stays whole."""
     modules = dict(model.named_modules())
-    plan: Dict[str, Optional[int]] = {}
+    plan: Dict[str, Optional[Split]] = {}
     for name, p in model.named_parameters():
-        plan[name] = None
-        if data_size <= 1 or p.numel() < min_size:
-            continue
         parent, _, leaf = name.rpartition(".")
         axes = _jax_axes(modules[parent], leaf, p.dim())
-        free = [a for a in axes if p.shape[a] % data_size == 0]
-        if free:
-            plan[name] = max(free, key=lambda a: p.shape[a])
+        tp = DEFAULT_TP_RULES.get(leaf)
+        model_dim = None
+        if (tp is not None and model_size > 1 and p.dim() > tp
+                and p.shape[axes[tp]] % model_size == 0):
+            model_dim = axes[tp]
+        data_dim = None
+        if data_size > 1 and p.numel() >= min_size:
+            free = [a for a in axes if a != model_dim
+                    and p.shape[a] % data_size == 0]
+            if free:
+                data_dim = max(free, key=lambda a: p.shape[a])
+        plan[name] = (None if model_dim is None and data_dim is None
+                      else (model_dim, data_dim))
     return plan
 
 
@@ -483,7 +518,8 @@ def destroy() -> None:
         dist.destroy_process_group()
 
 
-__all__ = ["DATA_AXIS", "FSDP_MIN_SIZE", "MODEL_AXIS", "REPLICA_AXIS",
+__all__ = ["DATA_AXIS", "DEFAULT_TP_RULES", "FSDP_MIN_SIZE", "MODEL_AXIS",
+           "REPLICA_AXIS",
            "all_gather_rows", "all_mean",
            "all_reduce_autograd", "all_reduce_grads", "all_sum",
            "batch_group", "batch_parallel", "batch_world", "destroy",

@@ -59,9 +59,10 @@ gather_batch``), so every registry model trains at any world.
 ``exp_params.sharding: fsdp`` (with ``fsdp_min_size``, default 4,096
 elements, and composed with ``dcn_replicas``) adds ZeRO-3
 (``parallel/fsdp.py``): ``setup`` splits the parameters of
-``fsdp_plan`` over the mesh's ``data`` axis after the broadcast and
-builds the optimizers over the slices, so Adam's moments are born
-split; ``restore_full_state`` and ``load_weights`` take a full state
+``fsdp_plan`` over the mesh's ``data`` axis (and, with a model axis, the
+leaves of JAX's tensor-parallel rules over ``model``) after the
+broadcast and builds the optimizers over the blocks, so Adam's moments
+are born split; ``restore_full_state`` and ``load_weights`` take a full state
 into the slices, checkpoints hold the full state (rank 0 writes what
 every rank gathered), and validation and the image grids run on the
 gathered parameters. Without a process group (one process) nothing is
@@ -76,12 +77,15 @@ module shards by the data index). Under ``sharding: sp`` the CT model,
 built with ``seq_axis="model"`` (``ctvae_torch/run.py``), splits its
 target nodes over the model group inside each step
 (``parallel/sequence.py``); under ``sharding: dp`` the group's ranks
-repeat one another's work, as JAX replicates it over its model axis.
-Validation runs on every rank; the image grids, which rank 0 draws
-alone, run outside the split. Not ported yet: ``sharding: fsdp`` with a
-model axis (JAX's tensor-parallel rules: ROADMAP A8.2b), which raises
-``NotImplementedError``; ``sp`` or ``model_axis`` > 1 without a world of
-at least m ranks raises ``ValueError``.
+repeat one another's work, as JAX replicates it over its model axis;
+under ``sharding: fsdp`` they repeat the forward on the gathered
+parameters and each owns its model block of the leaves that JAX's
+tensor-parallel rules name (``parallel/mesh.py::DEFAULT_TP_RULES``:
+the discoverer's hidden axis, the codebooks' entries), inside which
+the data axis splits as without a model axis. Validation runs on every
+rank; the image grids, which rank 0 draws alone, run outside the split.
+``sp`` or ``model_axis`` > 1 without a world of at least m ranks raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -169,10 +173,6 @@ class VAEXperiment:
                              f"of {SHARDINGS}")
         self.model_axis = int(exp_params.get("model_axis") or (
             2 if self.sharding == "sp" else 1))
-        if self.sharding == "fsdp" and self.model_axis > 1:
-            raise NotImplementedError(
-                f"sharding: fsdp with model_axis {self.model_axis} (JAX's "
-                f"tensor-parallel rules) is not ported yet (ROADMAP A8.2b)")
         self.fsdp_min_size = int(exp_params.get("fsdp_min_size")
                                  or FSDP_MIN_SIZE)
         self.dcn_replicas = int(exp_params.get("dcn_replicas") or 1)
@@ -241,7 +241,8 @@ class VAEXperiment:
             # and before the optimizers, whose moments are born split
             self.state.fsdp = fully_shard(
                 self.model, mesh_data_group(self.mesh),
-                mesh_replica_group(self.mesh), self.fsdp_min_size)
+                mesh_replica_group(self.mesh), self.fsdp_min_size,
+                model_group=self.model_group)
         self.state.optimizers = build_optimizers(self.params, self.model,
                                                  spe, fsdp=self.state.fsdp)
         return self.state

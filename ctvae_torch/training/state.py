@@ -37,8 +37,9 @@ rows of the global batch, draws its rows of the global draws
 become the ranks' mean (``all_reduce_grads``) and the step's scalars the
 ranks' means, so ``grad_norm``, the per-module norms and the update are
 those of one process on the global batch, on every rank alike. Over
-NCCL a multi-step call captures the reductions into its graph; over
-gloo it refuses a world above 1.
+NCCL a multi-step call captures the reductions into its graph; over a
+gloo group of more than one rank (whose collectives a CUDA graph cannot
+hold) it runs its steps eagerly.
 
 A state with a ``model_group`` (the ranks along the mesh's ``model`` axis,
 which hold the same rows) runs its forward inside ``model_parallel``: a
@@ -308,9 +309,12 @@ class MultiTrainStep:
     state, ``step``, generator) is what ``n_steps`` calls of
     ``make_train_step(mode)`` leave.
 
-    On the CPU that is the loop of those calls. On the card the first
-    ``WARMUP_STEPS`` steps of a batch shape run eagerly on a side stream;
-    then one whole step (gradients, ``grad_norm``, the optimizers'
+    On the CPU that is the loop of those calls, and on the card too where
+    the state's batch or model group is a gloo group of more than one
+    rank: a CUDA graph cannot hold gloo's collectives, so the K steps run
+    as an eager loop with the values of K single steps. Else, on the
+    card, the first ``WARMUP_STEPS`` steps of a batch shape run eagerly
+    on a side stream; then one whole step (gradients, ``grad_norm``, the optimizers'
     updates) is captured into a CUDA graph that reads static input
     buffers, and every later step copies its batch into them, fills the
     optimizers' LR and replays the graph. The train generator is
@@ -319,6 +323,8 @@ class MultiTrainStep:
     by address: a call with another state, or after a load of its
     optimizers' state, raises (make a new ``MultiTrainStep``).
 
+    ``graphed`` says whether the last call replayed a graph (False after
+    an eager loop, before the first capture or during the warm-up);
     ``replays`` counts the replays; ``replayed_launches()`` the port's
     kernel launches they made (counted at capture: the wrappers' counters
     do not tick on replay)."""
@@ -330,6 +336,7 @@ class MultiTrainStep:
         self.mode, self.n_steps = mode, n_steps
         self.watch_modules, self.M_N = watch_modules, M_N
         self.replays = 0
+        self.graphed = False
         self._step = make_train_step(mode, watch_modules, M_N)
         self._bound: Optional[Tuple] = None
         self._graphs: Dict[Tuple, _Graph] = {}
@@ -357,14 +364,11 @@ class MultiTrainStep:
                              "one optimizer: a model with two alternates "
                              "them per batch (make_train_step's "
                              "optimizer_idx)")
-        if any(g is not None and group_size(g) > 1 and
-               torch.distributed.get_backend(g) != "nccl"
-               for g in (state.group, state.model_group)):
-            raise NotImplementedError(
-                "scan_steps > 1 over a gloo group of more than one rank is "
-                "not ported yet (ROADMAP A8.5): its graph would hold the "
-                "gradient reduction, which only NCCL captures")
-        if state.model.device.type != "cuda":
+        self.graphed = False
+        over_gloo = any(g is not None and group_size(g) > 1 and
+                        torch.distributed.get_backend(g) != "nccl"
+                        for g in (state.group, state.model_group))
+        if state.model.device.type != "cuda" or over_gloo:
             for b in batch:
                 metrics = self._step(state, b)
             return metrics
@@ -410,6 +414,7 @@ class MultiTrainStep:
             state.step += 1
             g.replays += 1
             self.replays += 1
+        self.graphed = True
         return {k: v.clone() for k, v in g.metrics.items()}
 
     def _capture(self, state: TrainState, batch: Dict[str, torch.Tensor]

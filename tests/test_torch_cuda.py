@@ -1723,19 +1723,23 @@ def _assert_like_one_process(got, want, lr, tol=1e-5):
         assert bool((p_d <= tol + lr / 1e-8 * d).all()), n
 
 
-@pytest.mark.parametrize("which", ["fsdp", "cross_batch"])
+@pytest.mark.parametrize("which", ["fsdp", "cross_batch", "fsdp_tp"])
 def test_two_gloo_ranks_on_the_card_equal_one_process(card, which,
                                                       tmp_path):
     """Two gloo ranks on the card, each 2 rows of a global batch of 4:
     ``fsdp``, one step per mode of a small CT-MCQ-VAE under FSDP
     (``fsdp_min_size`` 64, the slices gathered); ``cross_batch``, one
-    step of WAE_MMD (the MMD on the global batch). Each against one
-    process on the card on the global batch, and the ranks' parameters
-    bit-identical."""
+    step of WAE_MMD (the MMD on the global batch). ``fsdp_tp``: the CT
+    model's steps under FSDP at (data 1, model 2), both ranks on the
+    whole batch, the tensor-parallel leaves split over ``model``, then
+    two causal steps as one ``make_multi_train_step`` call over the gloo
+    group (an eager loop: ``graphed`` false) against the same two steps
+    one by one, bit for bit. Each against one process on the card on the
+    global batch, and the ranks' parameters bit-identical."""
     from torch_dp_ranks import run_steps
     from ctvae_torch.models import build_model
     gen = torch.Generator().manual_seed(7)
-    if which == "fsdp":
+    if which != "cross_batch":
         cfg = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8,
                    action_dim=8, hidden_dims=[8, 16], num_embeddings=8,
                    img_size=16, codebooks=2, causal_hidden_dims=[16, 8],
@@ -1764,13 +1768,28 @@ def test_two_gloo_ranks_on_the_card_equal_one_process(card, which,
                            model.state_dict().items()},
             "runs": [{"seed": 3 + i, "steps": [(mode, batch(), None)]}
                      for i, mode in enumerate(modes)]}
-    if which == "fsdp":
+    if which != "cross_batch":
         spec["fsdp"] = 64
+    if which == "fsdp_tp":
+        spec["mesh"] = (1, 2)
+        steps = [("causal", batch(), None) for _ in range(2)]
+        scan = [{"seed": 9, "scan": True, "steps": steps},
+                {"seed": 9, "steps": steps}]
     r0, r1 = (r["m"] for r in _gloo_ranks_on_the_card(
-        {"models": {"m": spec}}, tmp_path))
+        {"models": {"m": spec if which != "fsdp_tp" else
+                    {**spec, "runs": spec["runs"] + scan}}}, tmp_path))
     want = run_steps(spec)
+    if which == "fsdp_tp":
+        for r in (r0, r1):
+            scanned, stepped = r[len(modes):]
+            assert scanned["graphed"] is False
+            for part in ("params", "buffers"):
+                for n, t in stepped[part].items():
+                    assert torch.equal(scanned[part][n], t), (part, n)
     for i in range(len(modes)):
         assert (which == "fsdp") == bool(r0[i].get("axes"))
+        assert (which == "fsdp_tp") == any(
+            s[0] is not None for s in r0[i].get("plan", {}).values())
         for n, t in r0[i]["params"].items():
             assert torch.equal(t, r1[i]["params"][n]), n
         _assert_like_one_process(r0[i], want[i], exp["LR"])

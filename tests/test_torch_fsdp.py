@@ -125,7 +125,8 @@ def test_plan_splits_the_leaves_jax_splits(model, mesh, min_size):
         name, conv = _convert_leaf(keys, marker, modules)
         dims = [d for d in range(conv.ndim)
                 if np.ptp(conv, axis=d).max() > 0]
-        want[name] = dims[0] if axis is not None else None
+        # (model dim, data dim): no model axis on these meshes
+        want[name] = (None, dims[0]) if axis is not None else None
         assert axis is None or len(dims) == 1, (name, dims)
     assert want == plan
     if min_size == MIN_SIZE:        # the convs and MLP weights qualify
@@ -524,17 +525,14 @@ def test_torchrun_two_ranks_with_fsdp_on_the_cpu(tmp_path):
                                    dict(sharding="fsdp", model_axis=2)],
                          ids=["sp", "model_axis"])
 def test_sequence_parallelism_and_a_model_axis_still_raise(extra):
-    """In one process ``sharding: sp`` (a model axis of 2 by default) has
-    no world for two model ranks and raises ``ValueError`` at setup;
-    ``sharding: fsdp`` with ``model_axis`` 2 (JAX's tensor-parallel rules)
-    raises naming ROADMAP A8.2b."""
+    """In one process ``sharding: sp`` (a model axis of 2 by default) and
+    ``sharding: fsdp`` with ``model_axis`` 2 (JAX's tensor-parallel
+    rules, ported: tests/test_torch_fsdp_tp.py) have no world for two
+    model ranks: the trainer takes the options and raises ``ValueError``
+    at setup."""
     from ctvae_torch.models import build_model
     from ctvae_torch.training import VAEXperiment
     model = build_model(dict(SMALL), device="cpu")
-    if extra["sharding"] == "sp":
-        exp = VAEXperiment(model, {**EXP, **extra}, None)
-        with pytest.raises(ValueError, match="model_axis 2"):
-            exp.setup()
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8.2b"):
-            VAEXperiment(model, {**EXP, **extra}, None)
+    exp = VAEXperiment(model, {**EXP, **extra}, None)
+    with pytest.raises(ValueError, match="model_axis 2"):
+        exp.setup()

@@ -435,19 +435,22 @@ def misc(background):
     "sp", "model_axis", "seq_axis", "scan_steps"])
 def test_refused_under_a_world_of_two(misc, key):
     """On both ranks: ``sharding: sp`` with a ``model_axis`` (3) that does
-    not divide the world raises ``ValueError`` at setup; ``sharding:
-    fsdp`` with ``model_axis`` 2 raises ``NotImplementedError`` naming
-    ROADMAP A8.2b; a model with ``seq_axis`` and ``gat_block_cols`` builds
-    and leaves its GAT layers unsharded inside a model group, its output
-    that of the model without ``seq_axis``; ``scan_steps`` > 1 over gloo
-    raises naming ROADMAP A8 (sequence parallelism itself:
-    tests/test_torch_sp.py; the losses that are not a mean of per-row
-    terms and FSDP: tests/test_torch_parallel_losses.py and
-    tests/test_torch_fsdp.py)."""
+    not divide the world raises ``ValueError`` at setup; a model with
+    ``seq_axis`` and ``gat_block_cols`` builds and leaves its GAT layers
+    unsharded inside a model group, its output that of the model without
+    ``seq_axis``. Taken, where they were refused before they were ported:
+    ``sharding: fsdp`` with ``model_axis`` 2 sets up on the mesh (data 1,
+    model 2) with the discoverer's leaves split over ``model`` and trains
+    a causal step; ``scan_steps`` 2 over gloo runs its steps eagerly (no
+    graph) into the state of two single steps, bit for bit (sequence
+    parallelism itself: tests/test_torch_sp.py; the losses that are not a
+    mean of per-row terms and FSDP: tests/test_torch_parallel_losses.py,
+    tests/test_torch_fsdp.py and tests/test_torch_fsdp_tp.py)."""
     for res in misc:
-        assert set(res["refused"]) == {"sp", "model_axis", "seq_axis",
-                                       "scan_steps"}
-        assert res["refused"][key] == "ok", res["refused"][key]
+        assert set(res["refused"]) == {"sp", "seq_axis"}
+        assert set(res["taken"]) == {"model_axis", "scan_steps"}
+        got = {**res["refused"], **res["taken"]}[key]
+        assert got == "ok", got
 
 
 def test_per_row_losses_are_accepted(misc):

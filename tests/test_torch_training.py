@@ -292,19 +292,16 @@ def test_run_trains_synthetic_ct_on_cpu(tmp_path, monkeypatch):
 
 
 def test_unported_trainer_options_raise(pair):
-    """``sharding: fsdp`` with ``model_axis`` > 1 is not ported (ROADMAP
-    A8.2b). Sequence parallelism (``sharding: sp``, a model axis of 2 by
-    default), ``model_axis`` > 1 and ``dcn_replicas`` are, but a single
-    process has no world for two model ranks or replicas to divide: each
-    raises ``ValueError`` at setup. ``sharding: fsdp`` is ported: in one
-    process it splits nothing, as the JAX trainer splits nothing over a
-    data axis of 1."""
+    """Sequence parallelism (``sharding: sp``, a model axis of 2 by
+    default), ``model_axis`` > 1 under ``sharding: dp`` or ``fsdp`` and
+    ``dcn_replicas`` are ported, but a single process has no world for
+    two model ranks or replicas to divide: each raises ``ValueError`` at
+    setup. ``sharding: fsdp`` is ported: in one process it splits
+    nothing, as the JAX trainer splits nothing over a data axis of 1."""
     from ctvae_torch.training import VAEXperiment
-    with pytest.raises(NotImplementedError, match="ROADMAP A8.2b"):
-        VAEXperiment(pair[2], {**EXP, "sharding": "fsdp", "model_axis": 2},
-                     None)
     for extra, text in ((dict(sharding="sp"), "model_axis 2"),
                         (dict(model_axis=2), "model_axis 2"),
+                        (dict(sharding="fsdp", model_axis=2), "model_axis 2"),
                         (dict(dcn_replicas=2), "dcn_replicas 2")):
         exp = VAEXperiment(pair[2], {**EXP, **extra}, None)
         with pytest.raises(ValueError, match=text):

@@ -19,25 +19,33 @@ a gloo group on the CPU, importing torch and the port and nothing of JAX
   batches);
 - ``fit``: ``VAEXperiment.fit`` of TSynthetic epochs: the rank's batches,
   the checkpoint files, a stop requested on one rank, a resume;
-- ``misc``: what a world of 2 refuses and takes, and ``dcn_replicas``;
+- ``misc``: what a world of 2 refuses and takes (``sharding: fsdp`` with
+  ``model_axis: 2``, ``scan_steps`` over gloo), and ``dcn_replicas``;
 - ``fsdp_fit``: ``VAEXperiment.fit`` under ``sharding: fsdp``, a resume,
   and checkpoints moved between FSDP, DP and one process;
 - ``sp``: steps over a mesh with a model axis; ``sharding: dp`` over a
   model axis of 2, and ``run.train`` under ``sharding: sp`` with a resume
   (``case_sp_fit``); then the replays of JAX's SP steps
-  (tests/test_torch_sp.py).
+  (tests/test_torch_sp.py);
+- ``fsdp_tp``: as ``sp`` with ``case_fsdp_tp_fit`` (``fit`` under
+  ``sharding: fsdp`` with ``model_axis: 2``, a resume, and checkpoints
+  moved between one process, DP, FSDP and FSDP with a model axis) in
+  place of ``case_sp_fit`` (tests/test_torch_fsdp_tp.py).
 
 A spec of ``steps`` with ``mesh`` (``dcn_replicas``, ``model_axis``) trains
 over that mesh: the batch split over its batch group, the state's model
 group the ranks along ``model`` (sequence parallelism where the model has
 ``seq_axis``); a run with ``record_ops`` records each generator-drawn
-step's ``ctvae::`` op calls with their shapes (``OpShapes``).
+step's ``ctvae::`` op calls with their shapes (``OpShapes``); a run with
+``scan`` K takes its K steps (one mode) as one ``make_multi_train_step``
+call and records the last step's metrics and gradients alone.
 
 A model of ``steps`` whose spec holds ``fsdp`` (the ``fsdp_min_size``)
 trains under FSDP over the mesh's data group (``dcn_replicas``: the
-hybrid mesh), and its results are the full tensors gathered from the
-slices, beside the slices' and Adam moments' shapes and the bytes
-resident between steps.
+hybrid mesh; with ``mesh``, that mesh's, and its model group splits the
+leaves of the tensor-parallel rules), and its results are the full
+tensors gathered from the blocks, beside the blocks' and Adam moments'
+shapes, the plan and the bytes resident between steps.
 
 ``ReplayDraws``, ``GammaSlot`` and ``TapReplay`` live here, free of
 JAX; ``torch_port_common`` re-exports the first two.
@@ -287,25 +295,29 @@ def _mesh_groups(spec: Dict[str, Any], group):
 
 
 def _sp_groups(spec: Dict[str, Any]):
-    """(batch group, model group) of the spec's mesh with a model axis,
-    ``spec['mesh']`` = (dcn_replicas, model_axis)."""
+    """(batch group, model group, (data group, replica group)) of the
+    spec's mesh with a model axis, ``spec['mesh']`` = (dcn_replicas,
+    model_axis)."""
     from ctvae_torch import parallel
     n, m = spec["mesh"]
     mesh = (parallel.make_hybrid_mesh(n, m) if n > 1
             else parallel.make_mesh(m))
-    return parallel.mesh_batch_group(mesh), parallel.mesh_model_group(mesh)
+    return (parallel.mesh_batch_group(mesh), parallel.mesh_model_group(mesh),
+            (parallel.mesh_data_group(mesh),
+             parallel.mesh_replica_group(mesh)))
 
 
 def _train_state(spec: Dict[str, Any], model, group, groups, seed: int,
                  model_group=None):
     """The state of ``model``: under FSDP (``spec['fsdp']``, a group) the
-    split parameters' slices and the optimizers over them."""
+    split parameters' blocks and the optimizers over them."""
     from ctvae_torch.parallel import fully_shard
     from ctvae_torch.training import optimizers as topt
     from ctvae_torch.training import state as tstate
     fsdp = None
     if spec.get("fsdp") and group is not None:
-        fsdp = fully_shard(model, *groups, min_size=spec["fsdp"])
+        fsdp = fully_shard(model, *groups, min_size=spec["fsdp"],
+                           model_group=model_group)
     return tstate.create_train_state(
         model, topt.build_optimizers(spec["exp"], model, 4, fsdp=fsdp),
         seed=seed, group=group, fsdp=fsdp, model_group=model_group)
@@ -369,8 +381,9 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
     """The runs of ``spec`` (``cfg``, ``state_dict``, ``exp``, ``runs``:
     each a list of ``(mode, global batch, draws or None)`` steps from the
     initial state, with ``M_N``, ``seed`` and ``watch`` (the per-module
-    norms of ``watch_gradients``); ``fsdp``: the
-    ``fsdp_min_size`` of an FSDP run, with ``dcn_replicas``; ``device``,
+    norms of ``watch_gradients``) and ``scan`` (its steps as one
+    multi-step call); ``fsdp``: the ``fsdp_min_size`` of an FSDP run,
+    with ``dcn_replicas`` or ``mesh``; ``device``,
     the CPU by default) on the rank's rows of each batch (all of it
     without ``group``). Per run: each
     step's metrics and gradients, the parameters and buffers after it,
@@ -389,10 +402,10 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
     model0 = build_model(dict(spec["cfg"]), device=device)
     model0.load_state_dict(spec["state_dict"])
     groups = (_mesh_groups(spec, group) if spec.get("fsdp")
-              and group is not None else None)
+              and group is not None and not spec.get("mesh") else None)
     model_group = None
     if spec.get("mesh") and group is not None:
-        group, model_group = _sp_groups(spec)
+        group, model_group, groups = _sp_groups(spec)
     out = []
     for run in spec["runs"]:
         model = copy.deepcopy(model0)
@@ -401,7 +414,13 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
         state.step = run.get("step", 0)
         metrics, grads, ops = [], [], []
         flips = {"vq": 0, "ct": 0, "bern": 0}
-        for mode, batch, draws, *decisions in run["steps"]:
+        graphed = None
+        if run.get("scan"):
+            m, graphed = _scan_run(run, state, group, device)
+            metrics.append(m)
+            grads.append(full_grads(state))
+        for mode, batch, draws, *decisions in ([] if run.get("scan")
+                                               else run["steps"]):
             if group is not None:
                 batch = local_rows(batch, group)
             step_fn = tstate.make_train_step(
@@ -435,7 +454,7 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
             metrics.append({k: v.clone() for k, v in m.items()})
             grads.append(full_grads(state))
         res = {"metrics": metrics, "grads": grads, "step": state.step,
-               "flips": flips, "ops": ops,
+               "flips": flips, "ops": ops, "graphed": graphed,
                "buffers": {n: b.clone() for n, b in model.named_buffers()},
                "resident_bytes": resident_bytes(state)}
         with tstate.full_params(state):
@@ -446,6 +465,7 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
             res["slices"] = {k: s.detach().clone()
                              for k, s in fsdp.shards.items()}
             res["axes"] = dict(fsdp.axes)
+            res["plan"] = dict(fsdp.plan)
             res["moments"] = [
                 {k: tuple(opt.adam.state[p]["exp_avg"].shape)
                  for k, p in zip(_param_names(model, opt, fsdp), opt.params)
@@ -457,6 +477,23 @@ def run_steps(spec: Dict[str, Any], group=None) -> List[Dict[str, Any]]:
                  if p in opt.adam.state} for opt in state.optimizers]
         out.append(res)
     return out
+
+
+def _scan_run(run, state, group, device):
+    """A run's steps (one mode, generator-drawn) as one
+    ``make_multi_train_step`` call on the rank's rows of each batch:
+    (the last step's metrics, whether a graph replayed)."""
+    from ctvae_torch.parallel import local_rows
+    from ctvae_torch.training import state as tstate
+    (mode,) = {s[0] for s in run["steps"]}
+    rows = [local_rows(b, group) if group is not None else b
+            for _, b, _ in run["steps"]]
+    stacked = {k: torch.from_numpy(np.stack([r[k] for r in rows])).to(device)
+               for k in rows[0]}
+    multi = tstate.make_multi_train_step(mode, len(rows),
+                                         M_N=run.get("M_N", 1.0))
+    m = multi(state, stacked)
+    return {k: v.clone() for k, v in m.items()}, multi.graphed
 
 
 def _param_names(model, opt, fsdp) -> List[str]:
@@ -692,6 +729,80 @@ def case_fsdp_fit(payload, group) -> Dict[str, Any]:
     return out
 
 
+def case_fsdp_tp_fit(payload, group) -> Dict[str, Any]:
+    """``fit`` under ``sharding: fsdp`` with ``model_axis: 2`` (a world of
+    2: mesh (data 1, model 2)) with a resume against the same epochs
+    without one; checkpoints of that run, of an FSDP run over ``data``,
+    of DP ranks (one step each on the payload's batch) and of one process,
+    each restored into each of those four, whose state then equals the
+    file's."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.parallel import rank
+    from ctvae_torch.training import optimizers as topt
+    from ctvae_torch.training import state as tstate
+    from ctvae_torch.utils.checkpoint import _load
+    out: Dict[str, Any] = {}
+    root = payload["root"]
+    kinds = {"tp": dict(sharding="fsdp", fsdp_min_size=payload["fsdp"],
+                        model_axis=2),
+             "fsdp": dict(sharding="fsdp", fsdp_min_size=payload["fsdp"]),
+             "dp": None}
+    tp = kinds["tp"]
+    exp = _experiment(payload, os.path.join(root, "tp"), tp)
+    out["plan"] = dict(exp.state.fsdp.plan)
+    exp.fit(1, seed=payload["seed"])
+    out["after_1"] = _params(exp)
+    resumed = _experiment(payload, os.path.join(root, "tp"), tp)
+    resumed.restore_full_state("last")
+    out["restored_equal"] = not _differ(_params(resumed), out["after_1"])
+    resumed.fit(2, seed=payload["seed"])
+    out["resumed"] = _params(resumed)
+    out["resumed_step"] = resumed.global_step
+    straight = _experiment(payload, os.path.join(root, f"straight{rank()}"),
+                           tp)
+    straight.ckpt.writes = False
+    straight.fit(2, seed=payload["seed"])
+    out["straight"] = _params(straight)
+    out["straight_step"] = straight.global_step
+    # the sources: the run's last, a step of FSDP and of DP ranks, and a
+    # step of one process
+    sources = {"tp": os.path.join(root, "tp", "last")}
+    batch = {k: torch.from_numpy(v) for k, v in payload["batch"].items()}
+    for kind in ("fsdp", "dp"):
+        e = _experiment(payload, os.path.join(root, f"{kind}{rank()}"),
+                        kinds[kind])
+        tstate.make_train_step("action")(e.state, batch)
+        sd = e.state.state_dict()
+        sources[kind] = os.path.join(root, f"{kind}.pt")
+        if rank() == 0:
+            torch.save(sd, sources[kind])
+    model = build_model(dict(payload["cfg"]), device="cpu",
+                        generator=torch.Generator().manual_seed(
+                            payload["seed"] + 1))
+    one = tstate.create_train_state(
+        model, topt.build_optimizers(payload["exp"], model, 4), seed=9)
+    tstate.make_train_step("action")(one, batch)
+    sources["single"] = os.path.join(root, f"single{rank()}.pt")
+    torch.save(one.state_dict(), sources["single"])
+    torch.distributed.barrier(group=group)      # rank 0's files are on disk
+    out["moves"] = {}
+    for src, path in sources.items():
+        want = _load(path)
+        for dst in ("tp", "fsdp", "dp", "single"):
+            if dst == "single":
+                m = build_model(dict(payload["cfg"]), device="cpu")
+                st = tstate.create_train_state(
+                    m, topt.build_optimizers(payload["exp"], m, 4))
+                st.load_state_dict(_load(path))
+            else:
+                e = _experiment(payload, os.path.join(root, f"x{rank()}"),
+                                kinds[dst])
+                e.restore_full_state(path)
+                st = e.state
+            out["moves"][f"{src}-{dst}"] = _differ(st.state_dict(), want)
+    return out
+
+
 # --- misc: refusals and dcn_replicas -------------------------------------------
 
 def _raises(fn, exc=NotImplementedError, text="ROADMAP A8") -> str:
@@ -711,7 +822,7 @@ def case_misc(payload, group) -> Dict[str, Any]:
     from ctvae_torch.training import VAEXperiment
     from ctvae_torch.training import optimizers as topt
     from ctvae_torch.training import state as tstate
-    out: Dict[str, Any] = {"refused": {}, "accepted": {}}
+    out: Dict[str, Any] = {"refused": {}, "accepted": {}, "taken": {}}
     for name, cfg in {**payload["cross_batch"], **payload["per_row"]}.items():
         model = build_model(dict(cfg), device="cpu")
         out["accepted"][name] = _raises(lambda: VAEXperiment(model, {}, None))
@@ -721,16 +832,29 @@ def case_misc(payload, group) -> Dict[str, Any]:
     sp = VAEXperiment(ct, {"sharding": "sp", "model_axis": 3}, None)
     out["refused"]["sp"] = _raises(lambda: sp.setup(), ValueError,
                                    "model_axis 3")
-    out["refused"]["model_axis"] = _raises(lambda: VAEXperiment(
-        ct, {"sharding": "fsdp", "model_axis": 2}, None),
-        text="ROADMAP A8.2b")
+    out["taken"]["model_axis"] = _fsdp_over_a_model_axis(payload)
     out["refused"]["seq_axis"] = _seq_axis_with_block_cols(payload)
-    state = tstate.create_train_state(
-        ct, topt.build_optimizers({"LR": 1e-3}, ct, 4), group=group)
+
+    def twin():
+        model = build_model(dict(payload["ct"]), device="cpu")
+        model.load_state_dict(payload["state_dict"])
+        return tstate.create_train_state(
+            model, topt.build_optimizers({"LR": 1e-3}, model, 4),
+            seed=3, group=group)
+    scanned, stepped = twin(), twin()
     stacked = {k: torch.from_numpy(np.stack([v, v]))
                for k, v in payload["batch"].items()}
-    out["refused"]["scan_steps"] = _raises(
-        lambda: tstate.make_multi_train_step("base", 2)(state, stacked))
+    multi = tstate.make_multi_train_step("base", 2)
+    multi(scanned, stacked)
+    one = tstate.make_train_step("base")
+    for _ in range(2):
+        one(stepped, _tensors(payload["batch"]))
+    same = scanned.step == stepped.step == 2 and all(
+        torch.equal(t, stepped.model.state_dict()[n])
+        for n, t in scanned.model.state_dict().items())
+    out["taken"]["scan_steps"] = ("ok" if same and not multi.graphed
+                                  else f"equal {same}, graphed "
+                                       f"{multi.graphed}")
     exp = VAEXperiment(ct, dict(payload["exp"], dcn_replicas=3), None)
     out["dcn_3"] = _raises(lambda: exp.setup(), ValueError, "dcn_replicas")
 
@@ -841,6 +965,28 @@ def case_sp_fit(payload, group) -> Dict[str, Any]:
     return out
 
 
+def _fsdp_over_a_model_axis(payload) -> str:
+    """'ok' when ``VAEXperiment`` under ``sharding: fsdp`` with
+    ``model_axis: 2`` sets up on the world of 2 (mesh (data 1, model 2),
+    the discoverer's leaves split over ``model``) and a causal step
+    gives a finite loss; else what it did."""
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import VAEXperiment
+    model = build_model(dict(payload["ct"]), device="cpu")
+    model.load_state_dict(payload["state_dict"])
+    exp = VAEXperiment(model, dict(payload["exp"], sharding="fsdp",
+                                   model_axis=2, fsdp_min_size=64), None)
+    exp.setup(seed=3)
+    shape = tuple(exp.mesh.mesh.shape)
+    split = set(exp.state.fsdp.model_axes)
+    if shape != (1, 2) or not {"ct_layer.disc_w1l", "ct_layer.disc_w1r",
+                               "ct_layer.disc_b1"} <= split:
+        return f"mesh {shape}, split over model {sorted(split)}"
+    loss = exp._train_step("causal")(exp.state,
+                                     _tensors(payload["batch"]))["loss"]
+    return "ok" if bool(torch.isfinite(loss)) else f"loss {loss}"
+
+
 def _seq_axis_with_block_cols(payload) -> str:
     """'ok' when a model with ``seq_axis`` and ``gat_block_cols`` below
     its node count builds and, inside a model group of 2, makes the GAT
@@ -881,24 +1027,30 @@ def _seq_axis_with_block_cols(payload) -> str:
     return "ok"
 
 
-def case_sp(payload, group) -> Dict[str, Any]:
+def case_sp(payload, group, fit_case=None) -> Dict[str, Any]:
     """tests/test_torch_sp.py's two ranks: ``case_steps`` of the payload's
-    ``gen`` models, ``case_sp_fit`` of its ``fit``, on rank 0 ``gen``'s
-    ``single`` runs, then ``case_steps`` of the models in ``replay`` (a
-    payload the test writes once JAX's traces have recorded their
-    draws)."""
+    ``gen`` models, ``case_sp_fit`` (or ``fit_case``) of its ``fit``, on
+    rank 0 ``gen``'s ``single`` runs, then ``case_steps`` of the models in
+    ``replay`` (a payload the test writes once JAX's traces have recorded
+    their draws)."""
     out = {"gen": case_steps({"models": payload["gen"]["models"]}, group),
-           "fit": case_sp_fit(payload["fit"], group)}
+           "fit": (fit_case or case_sp_fit)(payload["fit"], group)}
     # the one-process references while JAX's traces run (rank 1 waits at
     # the replays' first collective)
-    out["single"] = case_steps({"models": {}, **payload["gen"]},
+    out["single"] = case_steps({**payload["gen"], "models": {}},
                                group).get("single")
     out["replay"] = case_steps(_wait_load(payload["replay"]), group)
     return out
 
 
+def case_fsdp_tp(payload, group) -> Dict[str, Any]:
+    """tests/test_torch_fsdp_tp.py's two ranks: ``case_sp`` with
+    ``case_fsdp_tp_fit``."""
+    return case_sp(payload, group, case_fsdp_tp_fit)
+
+
 CASES = {"steps": case_steps, "fit": case_fit, "misc": case_misc,
-         "fsdp_fit": case_fsdp_fit, "sp": case_sp}
+         "fsdp_fit": case_fsdp_fit, "sp": case_sp, "fsdp_tp": case_fsdp_tp}
 
 
 def _wait_load(path: str):
