@@ -301,12 +301,14 @@ class ConvDecoder(nn.Module):
         x = x.permute(0, 3, 1, 2)
         for i in range(self._n):
             x = getattr(self, f"DeconvBNBlock_{i}")(x, train=train)
-        x = self.Conv_0(x)
+        # the activation in float32 (XLA drops its rounding before the
+        # upcast)
+        x = upcast32(self.Conv_0(x))
         if self.final_activation == "tanh":
             x = torch.tanh(x)
         elif self.final_activation == "sigmoid":
             x = torch.sigmoid(x)
-        return upcast32(x).permute(0, 2, 3, 1).contiguous()
+        return x.permute(0, 2, 3, 1).contiguous()
 
 
 class GaussianHead(nn.Module):

@@ -21,6 +21,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.common import upcast32
+from ..ops.layers import Linear, set_compute_dtype
 from .backbones import BatchNorm
 from .base import Draws, gaussian_kl, mse_loss, reparameterize
 from .gaussian_base import StandardGaussianVAE
@@ -34,10 +35,10 @@ class LatentDiscriminator(nn.Module):
         super().__init__()
         fin = latent_dim
         for i in range(3):
-            setattr(self, f"Dense_{i}", nn.Linear(fin, width, device=device))
+            setattr(self, f"Dense_{i}", Linear(fin, width, device=device))
             setattr(self, f"BatchNorm_{i}", BatchNorm(width, device=device))
             fin = width
-        self.Dense_3 = nn.Linear(fin, 2, device=device)
+        self.Dense_3 = Linear(fin, 2, device=device)
 
     def forward(self, z: torch.Tensor, *, train: bool) -> torch.Tensor:
         x = z
@@ -65,6 +66,7 @@ class FactorVAE(StandardGaussianVAE):
                          deterministic, dtype, device=device)
         self.gamma = gamma
         self.discriminator = LatentDiscriminator(latent_dim, device=device)
+        set_compute_dtype(self, self.compute_dtype)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 draws: Optional[Draws] = None, **kwargs) -> Dict:

@@ -11,9 +11,9 @@ The forward takes the batch keys the loop passes every model (``mode``,
 batch statistics (and updates its running buffers) and the
 reparameterised ``z``; otherwise the running statistics and ``z = mu``.
 ``encode`` and ``sample`` run on the running statistics.
-``dtype: bfloat16`` (VanillaVAE only, ``BF16``) computes every layer in
-bfloat16 with float32 parameters and BatchNorm statistics, as flax's
-``dtype``; the heads' ``mu`` / ``log_var`` and the decoder's image come
+``dtype: bfloat16`` computes every layer in bfloat16 with float32
+parameters and BatchNorm statistics, as flax's ``dtype``; the heads'
+``mu`` / ``log_var`` (or ``fc_z``'s ``z``) and the decoder's image come
 back in float32.
 """
 
@@ -22,9 +22,9 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch
-from torch import nn
 
-from ..ops.layers import set_compute_dtype
+from ..ops.common import upcast32
+from ..ops.layers import Linear, set_compute_dtype
 from .backbones import (DEFAULT_HIDDEN_DIMS, ConvDecoder, ConvEncoder,
                         DecoderInput, GaussianHead)
 from .base import BaseVAE, Draws, check_dtype, reparameterize
@@ -32,8 +32,8 @@ from .base import BaseVAE, Draws, check_dtype, reparameterize
 
 class StandardGaussianVAE(BaseVAE):
 
-    #: whether ``dtype: bfloat16`` is ported for the model (VanillaVAE)
-    BF16 = False
+    #: whether ``dtype: bfloat16`` is ported for the model
+    BF16 = True
 
     def __init__(self, in_channels: int = 3, latent_dim: int = 128,
                  hidden_dims: Optional[Sequence[int]] = None,
@@ -48,7 +48,7 @@ class StandardGaussianVAE(BaseVAE):
         flat = hd[-1] * feat_hw * feat_hw
         self.encoder = ConvEncoder(in_channels, hd, device=device)
         if deterministic:
-            self.fc_z = nn.Linear(flat, latent_dim, device=device)
+            self.fc_z = Linear(flat, latent_dim, device=device)
         else:
             self.head = GaussianHead(flat, latent_dim, device=device)
         self.decoder_input = DecoderInput(latent_dim, hd[-1], feat_hw,
@@ -64,7 +64,7 @@ class StandardGaussianVAE(BaseVAE):
         """[mu, log_var], or [z] when ``deterministic``."""
         feat = self.encoder(x, train=train)
         if self.deterministic:
-            return [self.fc_z(feat.reshape(feat.shape[0], -1))]
+            return [upcast32(self.fc_z(feat.reshape(feat.shape[0], -1)))]
         return list(self.head(feat))
 
     def decode(self, z: torch.Tensor, *, train: bool = False

@@ -18,8 +18,8 @@ import math
 from typing import Dict, Optional, Sequence
 
 import torch
-from torch import nn
-
+from ..ops.common import upcast32
+from ..ops.layers import Linear, set_compute_dtype
 from ..parallel.mesh import batch_world, sum_batch
 from .backbones import DEFAULT_HIDDEN_DIMS, DecoderInput
 from .base import Draws, gaussian_kl, reparameterize
@@ -50,8 +50,8 @@ class JointVAE(StandardGaussianVAE):
         # the decoder reads [z, s]: the latent beside the categories
         self.decoder_input = DecoderInput(latent_dim + categorical_dim,
                                           hd[-1], feat_hw, device=device)
-        self.fc_z = nn.Linear(hd[-1] * feat_hw * feat_hw, categorical_dim,
-                              device=device)
+        self.fc_z = Linear(hd[-1] * feat_hw * feat_hw, categorical_dim,
+                           device=device)
         self.categorical_dim = categorical_dim
         self.latent_min_capacity = latent_min_capacity
         self.latent_max_capacity = latent_max_capacity
@@ -63,11 +63,13 @@ class JointVAE(StandardGaussianVAE):
         self.categorical_num_iter = categorical_num_iter
         self.temperature, self.anneal_rate = temperature, anneal_rate
         self.anneal_interval, self.alpha = anneal_interval, alpha
+        set_compute_dtype(self, self.compute_dtype)
 
     def encode(self, x: torch.Tensor, *, train: bool = False):
         feat = self.encoder(x, train=train)
         mu, log_var = self.head(feat)
-        return [mu, log_var, self.fc_z(feat.reshape(feat.shape[0], -1))]
+        return [mu, log_var,
+                upcast32(self.fc_z(feat.reshape(feat.shape[0], -1)))]
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 draws: Optional[Draws] = None, **kwargs) -> Dict:

@@ -21,6 +21,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.common import upcast32
+from ..ops.layers import Linear, set_compute_dtype
 from .backbones import BatchNorm
 from .base import Draws, gaussian_kl, mse_loss, reparameterize
 from .gaussian_base import StandardGaussianVAE
@@ -36,7 +37,7 @@ class MLPStack(nn.Module):
         super().__init__()
         fin = in_features
         for i, w in enumerate(widths):
-            setattr(self, f"Dense_{i}", nn.Linear(fin, w, device=device))
+            setattr(self, f"Dense_{i}", Linear(fin, w, device=device))
             setattr(self, f"BatchNorm_{i}",
                     BatchNorm(w, momentum=0.99, device=device))
             fin = w
@@ -63,10 +64,11 @@ class TwoStageVAE(StandardGaussianVAE):
         hd2 = tuple(hidden_dims2) if hidden_dims2 else DEFAULT_HIDDEN_DIMS2
         self.train_stage = train_stage
         self.encoder2 = MLPStack(latent_dim, hd2, device=device)
-        self.fc_mu2 = nn.Linear(hd2[-1], latent_dim, device=device)
-        self.fc_var2 = nn.Linear(hd2[-1], latent_dim, device=device)
+        self.fc_mu2 = Linear(hd2[-1], latent_dim, device=device)
+        self.fc_var2 = Linear(hd2[-1], latent_dim, device=device)
         self.decoder2 = MLPStack(latent_dim, hd2[::-1], device=device)
-        self.fc_out2 = nn.Linear(hd2[0], latent_dim, device=device)
+        self.fc_out2 = Linear(hd2[0], latent_dim, device=device)
+        set_compute_dtype(self, self.compute_dtype)
 
     def encode2(self, z: torch.Tensor, *, train: bool = False):
         feat = self.encoder2(z, train=train)

@@ -16,8 +16,8 @@ import math
 from typing import Dict, Optional, Sequence
 
 import torch
-from torch import nn
 
+from ..ops.layers import Linear, set_compute_dtype
 from .base import Draws, mse_loss
 from .gaussian_base import StandardGaussianVAE
 
@@ -31,9 +31,10 @@ class VampVAE(StandardGaussianVAE):
         super().__init__(in_channels, latent_dim, hidden_dims, img_size,
                          deterministic, dtype, device=device)
         self.num_components = num_components
-        self.embed_pseudo = nn.Linear(num_components,
-                                      img_size * img_size * in_channels,
-                                      device=device)
+        self.embed_pseudo = Linear(num_components,
+                                   img_size * img_size * in_channels,
+                                   device=device)
+        set_compute_dtype(self, self.compute_dtype)
 
     def _pseudo_images(self) -> torch.Tensor:
         eye = torch.eye(self.num_components, device=self.device)
