@@ -218,16 +218,14 @@ class BaseVAE(nn.Module):
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def check_dtype(dtype, bf16: bool = False) -> torch.dtype:
+def check_dtype(dtype) -> torch.dtype:
     """The torch dtype of a model's ``dtype`` field: "float32" or
-    "bfloat16" (or the torch dtype, or its ``str``). bfloat16 only where
-    the model is ported at it (``bf16``: CTMCQVAE, MCQVAE, VQVAE,
-    VanillaVAE);
-    any other dtype, and bfloat16 elsewhere, raise ``NotImplementedError``
-    (ROADMAP A6)."""
+    "bfloat16" (or the torch dtype, or its ``str``), which every member
+    of the registry and TwoStageVAE takes; any other dtype (float64
+    among them) raises ``NotImplementedError`` (ROADMAP A6)."""
     name = str(dtype).replace("torch.", "")
     got = COMPUTE_DTYPES.get(name)
-    if got is None or (got != torch.float32 and not bf16):
+    if got is None:
         raise NotImplementedError(f"not ported yet: dtype={dtype!r} "
                                   f"(ROADMAP A6)")
     return got

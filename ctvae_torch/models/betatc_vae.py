@@ -20,8 +20,9 @@ import math
 from typing import Dict, Optional, Sequence
 
 import torch
-from torch import nn
 
+from ..ops.common import upcast32
+from ..ops.layers import Conv2d, Linear, set_compute_dtype
 from ..parallel.mesh import gather_batch, sum_batch
 from .backbones import deconv_k3s2, leaky_relu, nhwc_flat
 from .base import BaseVAE, Draws, check_dtype, reparameterize
@@ -41,7 +42,7 @@ class BetaTCVAE(BaseVAE):
                  beta: float = 6.0, gamma: float = 1.0, img_size: int = 64,
                  dtype="float32", *, device=None):
         super().__init__()
-        check_dtype(dtype)
+        self.compute_dtype = check_dtype(dtype)
         hd = tuple(hidden_dims) if hidden_dims else (32, 32, 32, 32)
         self.in_channels, self.latent_dim, self.img_size = (
             in_channels, latent_dim, img_size)
@@ -50,21 +51,22 @@ class BetaTCVAE(BaseVAE):
         self._hd, self._feat_hw = hd, img_size // (2 ** len(hd))
         fin = in_channels
         for i, h in enumerate(hd):
-            setattr(self, f"enc_convs_{i}", nn.Conv2d(
+            setattr(self, f"enc_convs_{i}", Conv2d(
                 fin, h, 4, stride=2, padding=1, device=device))
             fin = h
         flat = hd[-1] * self._feat_hw ** 2
-        self.fc = nn.Linear(flat, 256, device=device)
-        self.fc_mu = nn.Linear(256, latent_dim, device=device)
-        self.fc_var = nn.Linear(256, latent_dim, device=device)
-        self.decoder_input = nn.Linear(latent_dim, flat, device=device)
+        self.fc = Linear(flat, 256, device=device)
+        self.fc_mu = Linear(256, latent_dim, device=device)
+        self.fc_var = Linear(256, latent_dim, device=device)
+        self.decoder_input = Linear(latent_dim, flat, device=device)
         rev = list(hd)[::-1]
         for i, h in enumerate(rev[1:]):
             setattr(self, f"dec_convs_{i}",
                     deconv_k3s2(rev[i], h, device=device))
         self.dec_final_up = deconv_k3s2(hd[0], hd[0], device=device)
-        self.dec_final_conv = nn.Conv2d(hd[0], in_channels, 3, padding=1,
-                                        device=device)
+        self.dec_final_conv = Conv2d(hd[0], in_channels, 3, padding=1,
+                                     device=device)
+        set_compute_dtype(self, self.compute_dtype)
 
     @property
     def device(self) -> torch.device:
@@ -75,7 +77,7 @@ class BetaTCVAE(BaseVAE):
         for i in range(len(self._hd)):
             h = leaky_relu(getattr(self, f"enc_convs_{i}")(h))
         h = self.fc(nhwc_flat(h))
-        return [self.fc_mu(h), self.fc_var(h)]
+        return [upcast32(self.fc_mu(h)), upcast32(self.fc_var(h))]
 
     def decode(self, z: torch.Tensor, *, train: bool = False
                ) -> torch.Tensor:
@@ -85,7 +87,8 @@ class BetaTCVAE(BaseVAE):
         for i in range(len(self._hd) - 1):
             h = leaky_relu(getattr(self, f"dec_convs_{i}")(h))
         h = leaky_relu(self.dec_final_up(h))
-        h = torch.tanh(self.dec_final_conv(h))
+        # the tanh in float32 (XLA drops its rounding before the upcast)
+        h = torch.tanh(upcast32(self.dec_final_conv(h)))
         return h.permute(0, 2, 3, 1).contiguous()
 
     def forward(self, x: torch.Tensor, *, train: bool = False,

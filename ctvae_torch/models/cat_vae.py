@@ -18,9 +18,10 @@ import math
 from typing import Dict, Optional, Sequence
 
 import torch
-from torch import nn
 from torch.nn import functional as F
 
+from ..ops.common import upcast32
+from ..ops.layers import Linear, set_compute_dtype
 from .backbones import (DEFAULT_HIDDEN_DIMS, ConvDecoder, ConvEncoder,
                         DecoderInput)
 from .base import BaseVAE, Draws, check_dtype
@@ -60,7 +61,7 @@ class CategoricalVAE(BaseVAE):
                  anneal_interval: int = 100, alpha: float = 30.0, *,
                  device=None):
         super().__init__()
-        check_dtype(dtype)
+        self.compute_dtype = check_dtype(dtype)
         hd = tuple(hidden_dims) if hidden_dims else DEFAULT_HIDDEN_DIMS
         self.in_channels, self.latent_dim = in_channels, latent_dim
         self.img_size, self.deterministic = img_size, deterministic
@@ -70,11 +71,11 @@ class CategoricalVAE(BaseVAE):
         feat_hw = img_size // (2 ** len(hd))
         width = latent_dim * categorical_dim
         self.encoder = ConvEncoder(in_channels, hd, device=device)
-        self.fc_z = nn.Linear(hd[-1] * feat_hw * feat_hw, width,
-                              device=device)
+        self.fc_z = Linear(hd[-1] * feat_hw * feat_hw, width, device=device)
         self.decoder_input = DecoderInput(width, hd[-1], feat_hw,
                                           device=device)
         self.decoder = ConvDecoder(hd, in_channels, device=device)
+        set_compute_dtype(self, self.compute_dtype)
 
     @property
     def device(self) -> torch.device:
@@ -90,7 +91,7 @@ class CategoricalVAE(BaseVAE):
 
     def encode(self, x: torch.Tensor, *, train: bool = False):
         feat = self.encoder(x, train=train)
-        z = self.fc_z(feat.reshape(feat.shape[0], -1))
+        z = upcast32(self.fc_z(feat.reshape(feat.shape[0], -1)))
         return [z.reshape(-1, self.latent_dim, self.categorical_dim)]
 
     def decode(self, z: torch.Tensor, *, train: bool = False

@@ -420,7 +420,7 @@ class CTMCQVAE(nn.Module):
                  seq_axis: Optional[str] = None, dtype="float32", *,
                  device=None):
         super().__init__()
-        self.compute_dtype = dt = check_dtype(dtype, bf16=True)
+        self.compute_dtype = dt = check_dtype(dtype)
         hd = tuple(hidden_dims) if hidden_dims else (128, 256)
         self.in_channels, self.embedding_dim = in_channels, embedding_dim
         self.action_dim, self.num_embeddings = action_dim, num_embeddings

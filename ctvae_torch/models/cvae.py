@@ -15,9 +15,9 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch
-from torch import nn
 
 from ..ops.common import upcast32
+from ..ops.layers import Conv2d, Linear, set_compute_dtype
 from .backbones import (DEFAULT_HIDDEN_DIMS, ConvDecoder, ConvEncoder,
                         GaussianHead)
 from .base import (BaseVAE, Draws, check_dtype, gaussian_kl, mse_loss,
@@ -39,21 +39,21 @@ class ConditionalVAE(BaseVAE):
                  hidden_dims: Optional[Sequence[int]] = None,
                  img_size: int = 64, dtype="float32", *, device=None):
         super().__init__()
-        check_dtype(dtype)
+        self.compute_dtype = check_dtype(dtype)
         hd = tuple(hidden_dims) if hidden_dims else DEFAULT_HIDDEN_DIMS
         self.in_channels, self.num_classes = in_channels, num_classes
         self.latent_dim, self.img_size, self._hd = latent_dim, img_size, hd
         self._feat_hw = img_size // (2 ** len(hd))
         flat = hd[-1] * self._feat_hw ** 2
-        self.embed_class = nn.Linear(num_classes, img_size * img_size,
-                                     device=device)
-        self.embed_data = nn.Conv2d(in_channels, in_channels, 1,
-                                    device=device)
+        self.embed_class = Linear(num_classes, img_size * img_size,
+                                  device=device)
+        self.embed_data = Conv2d(in_channels, in_channels, 1, device=device)
         self.encoder = ConvEncoder(in_channels + 1, hd, device=device)
         self.head = GaussianHead(flat, latent_dim, device=device)
-        self.decoder_input = nn.Linear(latent_dim + num_classes, flat,
-                                       device=device)
+        self.decoder_input = Linear(latent_dim + num_classes, flat,
+                                    device=device)
         self.decoder = ConvDecoder(hd, in_channels, device=device)
+        set_compute_dtype(self, self.compute_dtype)
 
     @property
     def device(self) -> torch.device:

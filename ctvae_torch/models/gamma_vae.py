@@ -16,8 +16,9 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch
-from torch import nn
 
+from ..ops.common import upcast32
+from ..ops.layers import Linear, set_compute_dtype
 from .backbones import (DEFAULT_HIDDEN_DIMS, ConvDecoder, ConvEncoder,
                         DecoderInput)
 from .base import BaseVAE, Draws, check_dtype
@@ -57,7 +58,7 @@ class GammaVAE(BaseVAE):
                  prior_rate: float = 1.0, img_size: int = 64,
                  dtype="float32", *, device=None):
         super().__init__()
-        check_dtype(dtype)
+        self.compute_dtype = check_dtype(dtype)
         hd = tuple(hidden_dims) if hidden_dims else DEFAULT_HIDDEN_DIMS
         self.in_channels, self.latent_dim = in_channels, latent_dim
         self.img_size, self.gamma_shape = img_size, gamma_shape
@@ -65,12 +66,13 @@ class GammaVAE(BaseVAE):
         feat_hw = img_size // (2 ** len(hd))
         flat = hd[-1] * feat_hw * feat_hw
         self.encoder = ConvEncoder(in_channels, hd, device=device)
-        self.fc_mu = nn.Linear(flat, latent_dim, device=device)
-        self.fc_var = nn.Linear(flat, latent_dim, device=device)
+        self.fc_mu = Linear(flat, latent_dim, device=device)
+        self.fc_var = Linear(flat, latent_dim, device=device)
         self.decoder_input = DecoderInput(latent_dim, hd[-1], feat_hw,
                                           device=device)
         self.decoder = ConvDecoder(hd, in_channels, "sigmoid",
                                    device=device)
+        set_compute_dtype(self, self.compute_dtype)
 
     @property
     def device(self) -> torch.device:
@@ -79,8 +81,8 @@ class GammaVAE(BaseVAE):
     def encode(self, x: torch.Tensor, *, train: bool = False):
         feat = self.encoder(x, train=train)
         flat = feat.reshape(feat.shape[0], -1)
-        return [torch.softmax(self.fc_mu(flat), dim=-1),
-                torch.softmax(self.fc_var(flat), dim=-1)]
+        return [torch.softmax(upcast32(self.fc_mu(flat)), dim=-1),
+                torch.softmax(upcast32(self.fc_var(flat)), dim=-1)]
 
     def decode(self, z: torch.Tensor, *, train: bool = False
                ) -> torch.Tensor:

@@ -32,15 +32,12 @@ from .base import BaseVAE, Draws, check_dtype, reparameterize
 
 class StandardGaussianVAE(BaseVAE):
 
-    #: whether ``dtype: bfloat16`` is ported for the model
-    BF16 = True
-
     def __init__(self, in_channels: int = 3, latent_dim: int = 128,
                  hidden_dims: Optional[Sequence[int]] = None,
                  img_size: int = 64, deterministic: bool = False,
                  dtype="float32", *, device=None):
         super().__init__()
-        self.compute_dtype = check_dtype(dtype, bf16=type(self).BF16)
+        self.compute_dtype = check_dtype(dtype)
         hd = tuple(hidden_dims) if hidden_dims else DEFAULT_HIDDEN_DIMS
         self.in_channels, self.latent_dim = in_channels, latent_dim
         self.img_size, self.deterministic = img_size, deterministic

@@ -15,8 +15,9 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch
-from torch import nn
 
+from ..ops.common import upcast32
+from ..ops.layers import Conv2d, Linear, set_compute_dtype
 from .backbones import (DEFAULT_HIDDEN_DIMS, ConvDecoder, ConvEncoder,
                         GaussianHead)
 from .base import BaseVAE, Draws, check_dtype, mse_loss, reparameterize
@@ -33,7 +34,7 @@ class HVAE(BaseVAE):
                  img_size: int = 64, pseudo_input_size: int = 128,
                  dtype="float32", *, device=None):
         super().__init__()
-        check_dtype(dtype)
+        self.compute_dtype = check_dtype(dtype)
         hd = tuple(hidden_dims) if hidden_dims else DEFAULT_HIDDEN_DIMS
         if hd[-1] % 2:
             raise ValueError(
@@ -47,20 +48,19 @@ class HVAE(BaseVAE):
         flat = hd[-1] * self._feat_hw ** 2
         self.encoder_z2_layers = ConvEncoder(in_channels, hd, device=device)
         self.head_z2 = GaussianHead(flat, latent2_dim, device=device)
-        self.embed_z2_code = nn.Linear(latent2_dim, img_size * img_size,
-                                       device=device)
-        self.embed_data = nn.Conv2d(in_channels, in_channels, 1,
+        self.embed_z2_code = Linear(latent2_dim, img_size * img_size,
                                     device=device)
+        self.embed_data = Conv2d(in_channels, in_channels, 1, device=device)
         self.encoder_z1_layers = ConvEncoder(in_channels + 1, hd,
                                              device=device)
         self.head_z1 = GaussianHead(flat, latent1_dim, device=device)
-        self.recons_z1_mu = nn.Linear(latent2_dim, latent1_dim,
-                                      device=device)
-        self.recons_z1_log_var = nn.Linear(latent2_dim, latent1_dim,
-                                           device=device)
-        self.debed_z1_code = nn.Linear(latent1_dim, flat // 2, device=device)
-        self.debed_z2_code = nn.Linear(latent2_dim, flat // 2, device=device)
+        self.recons_z1_mu = Linear(latent2_dim, latent1_dim, device=device)
+        self.recons_z1_log_var = Linear(latent2_dim, latent1_dim,
+                                        device=device)
+        self.debed_z1_code = Linear(latent1_dim, flat // 2, device=device)
+        self.debed_z2_code = Linear(latent2_dim, flat // 2, device=device)
         self.decoder = ConvDecoder(hd, in_channels, device=device)
+        set_compute_dtype(self, self.compute_dtype)
 
     @property
     def device(self) -> torch.device:
@@ -100,15 +100,15 @@ class HVAE(BaseVAE):
         return {"recons": self._decode_z1z2(z1, z2, train=train),
                 "input": x, "z1_mu": z1_mu, "z1_log_var": z1_log_var,
                 "z2_mu": z2_mu, "z2_log_var": z2_log_var, "z1": z1,
-                "z2": z2, "z1_p_mu": self.recons_z1_mu(z2),
-                "z1_p_log_var": self.recons_z1_log_var(z2)}
+                "z2": z2, "z1_p_mu": upcast32(self.recons_z1_mu(z2)),
+                "z1_p_log_var": upcast32(self.recons_z1_log_var(z2))}
 
     def sample(self, num_samples: int, *, draws: Optional[Draws] = None
                ) -> torch.Tensor:
         draws = draws if draws is not None else Draws(None, self.device)
         z2 = draws.normal((num_samples, self.latent2_dim)).to(self.device)
-        z1 = reparameterize(self.recons_z1_mu(z2),
-                            self.recons_z1_log_var(z2), draws)
+        z1 = reparameterize(upcast32(self.recons_z1_mu(z2)),
+                            upcast32(self.recons_z1_log_var(z2)), draws)
         return self._decode_z1z2(z1, z2, train=False)
 
     def loss_function(self, outputs: Dict, *, M_N: float = 1.0,

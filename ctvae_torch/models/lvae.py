@@ -19,6 +19,8 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.common import upcast32
+from ..ops.layers import Conv2d, Linear, set_compute_dtype
 from .backbones import BatchNorm, deconv_k3s2, leaky_relu, nhwc_flat
 from .base import BaseVAE, Draws, check_dtype, mse_loss, reparameterize
 
@@ -29,17 +31,18 @@ class EncoderBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, latent_dim: int,
                  out_hw: int, *, device=None):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_channels, out_channels, 3, stride=2,
-                                padding=1, device=device)
+        self.Conv_0 = Conv2d(in_channels, out_channels, 3, stride=2,
+                             padding=1, device=device)
         self.BatchNorm_0 = BatchNorm(out_channels, device=device)
         flat = out_channels * out_hw * out_hw
-        self.encoder_mu = nn.Linear(flat, latent_dim, device=device)
-        self.encoder_var = nn.Linear(flat, latent_dim, device=device)
+        self.encoder_mu = Linear(flat, latent_dim, device=device)
+        self.encoder_var = Linear(flat, latent_dim, device=device)
 
     def forward(self, x: torch.Tensor, *, train: bool):
         h = leaky_relu(self.BatchNorm_0(self.Conv_0(x), train=train))
         flat = nhwc_flat(h)
-        return h, self.encoder_mu(flat), self.encoder_var(flat)
+        return (h, upcast32(self.encoder_mu(flat)),
+                upcast32(self.encoder_var(flat)))
 
 
 class LadderBlock(nn.Module):
@@ -47,14 +50,14 @@ class LadderBlock(nn.Module):
 
     def __init__(self, in_features: int, latent_dim: int, *, device=None):
         super().__init__()
-        self.Dense_0 = nn.Linear(in_features, latent_dim, device=device)
+        self.Dense_0 = Linear(in_features, latent_dim, device=device)
         self.BatchNorm_0 = BatchNorm(latent_dim, device=device)
-        self.fc_mu = nn.Linear(latent_dim, latent_dim, device=device)
-        self.fc_var = nn.Linear(latent_dim, latent_dim, device=device)
+        self.fc_mu = Linear(latent_dim, latent_dim, device=device)
+        self.fc_var = Linear(latent_dim, latent_dim, device=device)
 
     def forward(self, z: torch.Tensor, *, train: bool):
         z = self.BatchNorm_0(self.Dense_0(z), train=train)
-        return self.fc_mu(z), self.fc_var(z)
+        return upcast32(self.fc_mu(z)), upcast32(self.fc_var(z))
 
 
 def merge_gauss(mu_1, mu_2, log_var_1, log_var_2):
@@ -78,7 +81,7 @@ class LVAE(BaseVAE):
                  hidden_dims: Sequence[int] = (32, 64, 128),
                  img_size: int = 64, dtype="float32", *, device=None):
         super().__init__()
-        check_dtype(dtype)
+        self.compute_dtype = check_dtype(dtype)
         ld, hd = tuple(latent_dims), tuple(hidden_dims)
         if len(ld) != len(hd):
             raise ValueError(f"LVAE: {len(ld)} latent_dims for {len(hd)} "
@@ -94,8 +97,8 @@ class LVAE(BaseVAE):
         for j, i in enumerate(range(len(ld) - 1, 0, -1)):
             setattr(self, f"ladders_{j}",
                     LadderBlock(ld[i], ld[i - 1], device=device))
-        self.decoder_input = nn.Linear(ld[0], hd[-1] * self._feat_hw ** 2,
-                                       device=device)
+        self.decoder_input = Linear(ld[0], hd[-1] * self._feat_hw ** 2,
+                                    device=device)
         rev = list(hd)[::-1]
         for i, h in enumerate(rev[1:]):
             setattr(self, f"dec_blocks_{i}_0",
@@ -103,8 +106,9 @@ class LVAE(BaseVAE):
             setattr(self, f"dec_blocks_{i}_1", BatchNorm(h, device=device))
         self.final_up = deconv_k3s2(hd[0], hd[0], device=device)
         self.final_bn = BatchNorm(hd[0], device=device)
-        self.final_conv = nn.Conv2d(hd[0], in_channels, 3, padding=1,
-                                    device=device)
+        self.final_conv = Conv2d(hd[0], in_channels, 3, padding=1,
+                                 device=device)
+        set_compute_dtype(self, self.compute_dtype)
 
     @property
     def device(self) -> torch.device:
@@ -127,7 +131,8 @@ class LVAE(BaseVAE):
             h = getattr(self, f"dec_blocks_{i}_0")(h)
             h = leaky_relu(getattr(self, f"dec_blocks_{i}_1")(h, train=train))
         h = leaky_relu(self.final_bn(self.final_up(h), train=train))
-        h = torch.tanh(self.final_conv(h))
+        # the tanh in float32 (XLA drops its rounding before the upcast)
+        h = torch.tanh(upcast32(self.final_conv(h)))
         return h.permute(0, 2, 3, 1).contiguous()
 
     def _ladders(self):

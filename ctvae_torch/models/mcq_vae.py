@@ -35,7 +35,7 @@ class MCQVAE(nn.Module):
                  revive_threshold: float = 0.0, dtype="float32", *,
                  device=None):
         super().__init__()
-        self.compute_dtype = check_dtype(dtype, bf16=True)
+        self.compute_dtype = check_dtype(dtype)
         hd = tuple(hidden_dims) if hidden_dims else (128, 256)
         self.in_channels, self.embedding_dim = in_channels, embedding_dim
         self.num_embeddings, self.codebooks = num_embeddings, codebooks

@@ -33,7 +33,7 @@ class VQVAE(BaseVAE):
                  ema_decay: float = 0.99, revive_threshold: float = 0.0,
                  dtype="float32", *, device=None):
         super().__init__()
-        self.compute_dtype = check_dtype(dtype, bf16=True)
+        self.compute_dtype = check_dtype(dtype)
         hd = tuple(hidden_dims) if hidden_dims else (128, 256)
         self.in_channels, self.embedding_dim = in_channels, embedding_dim
         self.num_embeddings = num_embeddings

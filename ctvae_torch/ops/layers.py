@@ -67,9 +67,13 @@ def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
     """Give every submodule of ``module`` that has a ``compute_dtype``
     (these layers, ``models/backbones.py::BatchNorm``,
     ``models/ct_vae.py::CausalTransition``, ``ops/gat.py::
-    DenseGATv2Layer``) the compute dtype ``dtype``. Each model of the
-    bfloat16 slice calls it once, at the end of its constructor: it is the
-    one place a compute dtype is set."""
+    DenseGATv2Layer``) the compute dtype ``dtype``. Every model of the
+    registry and TwoStageVAE calls it at the end of its constructor (a
+    member that adds layers after its base's constructor, as JointVAE,
+    VampVAE, FactorVAE and TwoStageVAE do, calls it again at the end of
+    its own): it is the one place a compute dtype is set. DFCVAE's frozen
+    VGG has no ``compute_dtype`` and stays float32, as JAX's takes no
+    ``dtype``."""
     for m in module.modules():
         if hasattr(m, "compute_dtype"):
             m.compute_dtype = dtype

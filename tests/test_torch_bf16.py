@@ -679,11 +679,6 @@ def test_yaml_dtype_bfloat16_builds_the_three_models(tmp_path):
         assert bool(torch.isfinite(metrics["loss"]))
 
 
-#: the members of the six below ported at bfloat16 so far (the rest
-#: refuse, naming ROADMAP A6)
-PORTED = ("BetaVAE", "MSSIMVAE", "IWAE", "DFCVAE")
-
-
 @pytest.mark.parametrize("name", ["BetaVAE", "MSSIMVAE", "IWAE", "DFCVAE",
                                   "ConditionalVAE", "LVAE"])
 def test_other_models_refuse_bf16(name):
@@ -697,18 +692,17 @@ def test_other_models_refuse_bf16(name):
            "hidden_dims": [8, 16]}
     if name == "LVAE":
         cfg["latent_dims"] = [4, 8]
-    if name not in PORTED:
-        with pytest.raises(NotImplementedError, match="A6"):
-            build_model(cfg, device="cpu")
-        return
     tm = build_model(cfg, device="cpu")
     assert tm.compute_dtype == torch.bfloat16
     assert {p.dtype for p in tm.parameters()} == {torch.float32}
     assert {b.dtype for b in tm.buffers()} == {torch.float32}
 
 
-@pytest.mark.parametrize("cfg", [SMALL, MCQ, VAE_SMALL],
-                         ids=["CTMCQVAE", "MCQVAE", "VanillaVAE"])
+@pytest.mark.parametrize("cfg", [
+    SMALL, MCQ, VAE_SMALL, dict(VAE_SMALL, name="BetaVAE"),
+    dict(VAE_SMALL, name="IWAE", num_samples=2),
+    dict(VAE_SMALL, name="LVAE", latent_dims=[4, 8])],
+    ids=["CTMCQVAE", "MCQVAE", "VanillaVAE", "BetaVAE", "IWAE", "LVAE"])
 def test_float64_and_unknown_dtypes_refused(cfg):
     from ctvae_torch.models import build_model
     for dt in ("float64", "float16", "torch.float64"):

@@ -238,3 +238,41 @@ def test_export_model_cli_at_bf16(tmp_path, capsys):
         with torch.inference_mode():
             want = export.EntryPoint(model, n)(*args)
         assert torch.equal(fn(*args), want), n
+
+
+#: one member of each group of the zoo ported at bfloat16 after the first
+#: four, and the entry point served: the standard backbone's loss-only
+#: members, those with their own heads or draws (IWAE's 5-D
+#: ``reconstruct``), those with their own layers (HVAE's drawing
+#: ``encode``)
+ZOO = {"BetaVAE": ("encode", dict(VAE_SMALL, name="BetaVAE")),
+       "IWAE": ("reconstruct", dict(VAE_SMALL, name="IWAE", num_samples=2)),
+       "HVAE": ("encode", dict(name="HVAE", in_channels=3, latent1_dim=8,
+                               latent2_dim=6, hidden_dims=[8, 16],
+                               img_size=16))}
+
+
+@pytest.mark.parametrize("name", list(ZOO))
+def test_bf16_zoo_artifact_round_trip(tmp_path, name):
+    """A member of each later group at bfloat16 (built from a seed):
+    its entry point exported with a symbolic batch, saved and loaded, the
+    manifest's dtype bfloat16; served on a batch of 3 on the CPU, equal to
+    the live port on the same key bit for bit, in float32 (the heads and
+    the decoder widen their outputs)."""
+    from ctvae_torch.models import build_model
+    fn, cfg = ZOO[name]
+    tm = build_model(_bf16(cfg), device="cpu",
+                     generator=torch.Generator().manual_seed(3))
+    entry = export.EntryPoint(tm, fn)
+    art = export.save_artifact(str(tmp_path / "art"), {
+        fn: export.export_fn(entry, _args(name, 2)[fn], poly_batch=True)},
+        export.model_manifest(tm))
+    fns, manifest = export.load_artifact(art)
+    assert manifest["dtype"] == "bfloat16" and manifest["model"] == name
+    args = _args(name, 3, key=11)[fn]
+    got = fns[fn](*args)
+    with torch.inference_mode():
+        live = entry(*args)
+    assert got.dtype == live.dtype == torch.float32
+    assert got.shape[0] == 3 and torch.equal(got, live)
+    assert bool(torch.isfinite(got).all())

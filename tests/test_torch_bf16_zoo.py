@@ -52,7 +52,8 @@ def test_train_step_matches_jax_at_bf16(case, monkeypatch):
     MMD's prior and ``z`` in float32."""
     assert_zoo_step(_train_step_pair(
         monkeypatch, _pair(case), "base", CASES[case][0], exp=EXP,
-        b={"image": _images(11)}, M_N=M_N, step=CASES[case][1]), EXP["LR"])
+        b={"image": _images(11)}, M_N=M_N, step=CASES[case][1],
+        heads=True), EXP["LR"])
 
 
 def test_wae_fc_z_computes_in_bf16_and_returns_f32():

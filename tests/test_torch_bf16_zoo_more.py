@@ -82,8 +82,8 @@ def test_train_step_matches_jax_at_bf16(case, monkeypatch):
     mod, cfg, exp, step, build = _case(case)
     assert_zoo_step(_train_step_pair(
         monkeypatch, _pair(case), "base", cfg, exp=exp,
-        b={"image": mod._images(11)}, M_N=mod.M_N, step=step, build=build),
-        exp["LR"])
+        b={"image": mod._images(11)}, M_N=mod.M_N, step=step, build=build,
+        heads=True), exp["LR"])
 
 
 def test_factor_vae_discriminator_step_matches_jax_at_bf16(monkeypatch):
@@ -96,7 +96,7 @@ def test_factor_vae_discriminator_step_matches_jax_at_bf16(monkeypatch):
     before = {n: p.clone() for n, p in pair[2].named_parameters()}
     out = _train_step_pair(monkeypatch, pair, "base", cfg, exp=exp,
                            b={"image": last._images(11)}, M_N=last.M_N,
-                           optimizer_idx=1)
+                           optimizer_idx=1, heads=True)
     assert set(out[1][1]) == {"loss", "D_TC_Loss", "grad_norm"}
     assert_zoo_step(out, exp["LR_2"])
     for n, p in out[1][0].named_parameters():

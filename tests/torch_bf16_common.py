@@ -59,17 +59,20 @@ class Taps:
     and replayed into the port after a check: ``vq`` (a VQ search's
     indices), ``ct`` (``ct_postprocess``'s argmax), ``bern`` (a
     Gumbel-Bernoulli sample) and ``z`` (the bfloat16 values of an
-    encoder's heads: ``GaussianHead``'s ``mu`` and ``log_var``, and a
-    deterministic encoder's ``fc_z``, WAE_MMD's and SWAE's latent, which
-    the decoder takes as it is; an element that the two sides' sums round
+    encoder's heads: ``GaussianHead``'s ``mu`` and ``log_var``, a
+    deterministic encoder's ``fc_z`` (WAE_MMD's and SWAE's latent, which
+    the decoder takes as it is), BetaTCVAE's ``mu`` and ``log_var`` and
+    CategoricalVAE's logits; an element that the two sides' sums round
     to neighbouring bfloat16 values sends the two decoders apart from
     their first layer, and a train pass's BatchNorm spreads that over
-    the batch). Each kind is a FIFO in call order."""
+    the batch; tapped with ``heads`` only). Each kind is a FIFO in call
+    order."""
 
-    def __init__(self, ordered: bool = True, lone: bool = False):
+    def __init__(self, ordered: bool = True, lone: bool = False,
+                 heads: bool = False):
         self.rec = {"vq": [], "ct": [], "bern": [], "z": []}
         self.flips = {"vq": 0, "ct": 0, "bern": 0, "z": 0}
-        self.ordered, self.lone = ordered, lone
+        self.ordered, self.lone, self.heads = ordered, lone, heads
 
     def jax(self, monkeypatch):
         """Tap JAX's decisions. Each tap takes its slot in call order when
@@ -115,28 +118,35 @@ class Taps:
             tap("bern", jax.lax.stop_gradient(out).astype(jnp.float32))
             return out
 
-        from ctvae_tpu.models import backbones as jbb
-        from ctvae_tpu.models import gaussian_base as jgb
-        orig_enc = jgb.StandardGaussianVAE.encode
-        orig_head = jbb.GaussianHead.__call__
-
-        def encode(module, x, *, train=False):
-            out = orig_enc(module, x, train=train)
-            if module.deterministic and module.dtype == jnp.bfloat16:
-                tap("z", jax.lax.stop_gradient(out[0]))
-            return out
-
-        def head(module, feat):
-            out = orig_head(module, feat)
-            if module.dtype == jnp.bfloat16:
-                tap("z", *map(jax.lax.stop_gradient, out))
-            return out
-
         monkeypatch.setattr(vq_cls, "compute_inds", compute_inds)
         monkeypatch.setattr(jct.CTMCQVAE, "ct_postprocess", ct_postprocess)
         monkeypatch.setattr(jct, "st_bernoulli_gumbel", st_bernoulli_gumbel)
-        monkeypatch.setattr(jgb.StandardGaussianVAE, "encode", encode)
-        monkeypatch.setattr(jbb.GaussianHead, "__call__", head)
+        if self.heads:
+            self._jax_heads(monkeypatch, tap)
+
+    @staticmethod
+    def _jax_heads(monkeypatch, tap):
+        """Tap the bfloat16 heads of JAX's encoders (``z``)."""
+        from ctvae_tpu.models import backbones as jbb
+        from ctvae_tpu.models import betatc_vae as jbtc
+        from ctvae_tpu.models import cat_vae as jcat
+        from ctvae_tpu.models import gaussian_base as jgb
+
+        def tapped(orig, when):
+            def call(module, *a, **k):
+                out = orig(module, *a, **k)
+                if module.dtype == jnp.bfloat16 and when(module):
+                    tap("z", *map(jax.lax.stop_gradient, out))
+                return out
+            return call
+
+        for cls, name, when in (
+                (jgb.StandardGaussianVAE, "encode",
+                 lambda m: m.deterministic),
+                (jbb.GaussianHead, "__call__", lambda m: True),
+                (jbtc.BetaTCVAE, "_encode", lambda m: True),
+                (jcat.CategoricalVAE, "encode", lambda m: True)):
+            monkeypatch.setattr(cls, name, tapped(getattr(cls, name), when))
 
     def port(self, monkeypatch):
         """The decisions replayed into the port after their checks
@@ -147,16 +157,17 @@ class Taps:
         rounding) and continue at JAX's values, the gradient flowing
         through the port's own; a float32 model (the twin of
         ``_train_step_pair``) keeps its own."""
-        from ctvae_torch.models import backbones as tbb
-        from ctvae_torch.models import gaussian_base as tgb
         TapReplay(self.rec, self.flips, lone=self.lone).install(
             monkeypatch.setattr)
-        orig_enc = tgb.StandardGaussianVAE.encode
-        orig_head = tbb.GaussianHead.forward
+        if not self.heads:
+            return
+        from ctvae_torch.models.backbones import GaussianHead
+        from ctvae_torch.models.betatc_vae import BetaTCVAE
+        from ctvae_torch.models.cat_vae import CategoricalVAE
+        from ctvae_torch.models.gaussian_base import StandardGaussianVAE
 
         def replay(out, bf16):
-            if not self.rec["z"]:
-                return out
+            assert self.rec["z"], "a head that JAX did not tap"
             want = self.rec["z"].pop(0)
             if not bf16:
                 return out
@@ -168,25 +179,33 @@ class Taps:
                 got.append(t + (w - t).detach())
             return got
 
-        def encode(model, x, *, train=False):
-            out = orig_enc(model, x, train=train)
-            return (replay(out, model.compute_dtype == torch.bfloat16)
-                    if model.deterministic else out)
+        def replayed(orig, when, dtype, kind=list):
+            def call(module, *a, **k):
+                out = orig(module, *a, **k)
+                if not when(module):
+                    return out
+                return kind(replay(out, dtype(module) == torch.bfloat16))
+            return call
 
-        def head(module, feat):
-            return tuple(replay(orig_head(module, feat),
-                                module.fc_mu.compute_dtype
-                                == torch.bfloat16))
-
-        monkeypatch.setattr(tgb.StandardGaussianVAE, "encode", encode)
-        monkeypatch.setattr(tbb.GaussianHead, "forward", head)
+        for cls, name, when, dtype, kind in (
+                (StandardGaussianVAE, "encode", lambda m: m.deterministic,
+                 lambda m: m.compute_dtype, list),
+                (GaussianHead, "forward", lambda m: True,
+                 lambda m: m.fc_mu.compute_dtype, tuple),
+                (BetaTCVAE, "encode", lambda m: True,
+                 lambda m: m.compute_dtype, list),
+                (CategoricalVAE, "encode", lambda m: True,
+                 lambda m: m.compute_dtype, list)):
+            monkeypatch.setattr(cls, name, replayed(getattr(cls, name), when,
+                                                    dtype, kind))
 
     def done(self) -> bool:
         return not any(self.rec.values())
 
 
 def jax_step_of(jm, variables, mode, b, monkeypatch, seed, exp, M_N=1.0,
-                step=0, optimizer_idx=0, fwd_kwargs_keys=("action", "input_y")):
+                step=0, optimizer_idx=0,
+                fwd_kwargs_keys=("action", "input_y")):
     """``torch_port_common.jax_train_step_state`` for ``optimizer_idx`` 0;
     for another, the step of that optimizer of every one ``exp`` builds
     (each behind ``keep_grads``): (params, that optimizer's gradients,
@@ -219,7 +238,8 @@ def jax_step_of(jm, variables, mode, b, monkeypatch, seed, exp, M_N=1.0,
 
 
 def _train_step_pair(monkeypatch, pair, mode, cfg, exp=EXP, twin=True, *,
-                     b=None, M_N=1.0, step=0, optimizer_idx=0, build=None):
+                     b=None, M_N=1.0, step=0, optimizer_idx=0, build=None,
+                     heads=False):
     """One train step of ``mode`` in JAX and in the port from the same
     params, draws and tapped decisions. Returns (JAX params, grads,
     metrics, model state), (port model, metrics) and, under ``twin``,
@@ -232,8 +252,9 @@ def _train_step_pair(monkeypatch, pair, mode, cfg, exp=EXP, twin=True, *,
     and actions of ``cfg``'s size; a batch with ``labels`` passes them to
     the forward), ``M_N`` the step's KL weight, ``step`` the state's
     global step, ``optimizer_idx`` the optimizer whose step it is
-    (FactorVAE's discriminator: 1), and ``build(cfg)`` makes the float32
-    twin where ``build_model`` does not (TwoStageVAE)."""
+    (FactorVAE's discriminator: 1), ``build(cfg)`` makes the float32
+    twin where ``build_model`` does not (TwoStageVAE), and ``heads`` taps
+    the encoder's heads too (``Taps``)."""
     from ctvae_torch.models import build_model
     from ctvae_torch.training import optimizers as topt
     from ctvae_torch.training import state as tstate
@@ -243,7 +264,7 @@ def _train_step_pair(monkeypatch, pair, mode, cfg, exp=EXP, twin=True, *,
         b = {"image": x, "input_y": y, "action": a}
     fwd = ("labels",) if "labels" in b else ("action", "input_y")
     lone = type(tm0).__name__ == "VQVAE"
-    taps = Taps(lone=lone)
+    taps = Taps(lone=lone, heads=heads)
     with monkeypatch.context() as m:
         taps.jax(m)
         j_params, j_grads, j_metrics, draws, j_state = jax_step_of(
@@ -265,7 +286,7 @@ def _train_step_pair(monkeypatch, pair, mode, cfg, exp=EXP, twin=True, *,
         assert replay.done() and taps.done() and state.step == step + 1
         return tm, metrics
 
-    twin_taps = Taps(lone=lone)
+    twin_taps = Taps(lone=lone, heads=heads)
     twin_taps.rec = copy.deepcopy(taps.rec)
     out = ((j_params, j_grads, j_metrics, j_state),
            port_step(copy.deepcopy(tm0), taps))
@@ -387,7 +408,7 @@ def zoo_forward_pair(monkeypatch, pair, x, train, *, labels=None, step=0,
                                       optimizer_idx=i,
                                       rng=jax.random.PRNGKey(7))
                      for i in idxs]
-    taps = Taps()
+    taps = Taps(heads=True)
     with monkeypatch.context() as m:
         taps.jax(m)
         with recorded_draws(m, seed=seed) as rec:
