@@ -164,7 +164,10 @@ same widths (phase "loop"). Then more phases:
   dtype): requests of the four entry points, 16 eager steps a mode and
   two ``make_multi_train_step(mode, 8)`` calls from an equal state (every
   parameter and Adam moment bit-equal), and ``configs/mcq_vae.yaml`` /
-  ``vae.yaml`` a few steps each at bfloat16 make the path ``bf16``; every
+  ``vae.yaml``, the 21 other zoo YAMLs and TwoStageVAE's two stages a
+  few steps each at bfloat16 make the path ``bf16`` (each of the last
+  23 also a first step at B = 2 against the CPU and float32 against
+  bfloat16 ms per step in turns, after the path); every
   kernel call of a base, an action and a causal step held against its
   plain version at bfloat16 (the bfloat16 instantiations of rows 2-6, and
   the float32 VQ search on the upcast latents) and timed with its bound
@@ -7553,6 +7556,18 @@ BF16_REQUESTS = 4       # requests per entry point on the path
 # the zoo's configs of the slice, a few steps each at bfloat16, B = 64
 BF16_ZOO = {"mcq_vae": {"vq_l2_argmin": 4}, "vae": {}}
 BF16_ZOO_STEPS = 4
+#: the rest of the registry at bfloat16, each from its YAML (dfc_vae with
+#: allow_random_features, as phase "gaussian" sets it; cvae with random
+#: 0 / 1 labels), and TwoStageVAE at vae.yaml's widths at each
+#: train_stage (_two_stage): BF16_ZOO_STEPS steps each on the path, none
+#: launching a kernel
+BF16_ZOO_MORE = (ZOO_CONFIGS + ZOO_MORE + ZOO_LAST
+                 + ("cvae", "two_stage_1", "two_stage_2"))
+#: the configs whose steps may turn non-finite, from the step given, as
+#: the float32 ones may (DIVERGE_IN_STEPS; gammavae's epoch at its seed,
+#: DIVERGE_IN_EPOCHS), under the same _NonfiniteWatch
+BF16_DIVERGE = {**DIVERGE_IN_STEPS, "gammavae": DIVERGE_IN_EPOCHS["gammavae"]}
+BF16_ZOO_CPU_B = 2      # the batch of a first step on the card vs the CPU
 
 
 def _bf16_err(got, want) -> float:
@@ -7744,12 +7759,13 @@ def _bf16_states(params, B: int, dtypes=("bfloat16",), seed: int = SEED,
     return states
 
 
-def _bf16_zoo(launches: dict) -> dict:
+def _bf16_zoo(launches: dict) -> tuple:
     """MCQVAE and VanillaVAE from their YAML at bfloat16 (full width, B =
     64): BF16_ZOO_STEPS steps each, every step's launches as expected
     (the VQ search per codebook; none for VanillaVAE) and a finite loss;
-    BatchNorm's statistics float32. Adds the steps' launches to
-    ``launches``."""
+    BatchNorm's statistics float32. Then each of BF16_ZOO_MORE at
+    bfloat16 (``_bf16_zoo_member``). Adds the steps' launches to
+    ``launches``. Returns (the numbers, the members' builders)."""
     from ctvae_torch.training import make_train_step
     out = {}
     root = os.path.dirname(CONFIG)
@@ -7785,6 +7801,170 @@ def _bf16_zoo(launches: dict) -> dict:
         out[name] = {"losses": losses, "buffer_dtypes": sorted(buffers)}
         log(f"bf16 {name}.yaml at bfloat16, B=64: {BF16_ZOO_STEPS} steps, "
             f"losses {json.dumps([round(v, 6) for v in losses])}")
+        del state
+    members = {}
+    for name in BF16_ZOO_MORE:
+        members[name] = _bf16_member(name)
+        out[name] = _bf16_zoo_member(name, members[name])
+    return out, members
+
+
+def _bf16_member(name: str) -> dict:
+    """How BF16_ZOO_MORE's ``name`` is built: ``build(dtype, device,
+    generator)``, its exp_params as run.train takes them, its M_N, and
+    ``batch(B, generator)`` on the card."""
+    from ctvae_torch.models import TwoStageVAE, build_model, init_weights
+    root = os.path.dirname(CONFIG)
+    if name.startswith("two_stage_"):
+        cfg = read_config(os.path.join(root, "vae.yaml"))
+        mp = dict(cfg["model_params"])
+        mp.pop("name")
+
+        def build(dtype, device, gen):
+            model = TwoStageVAE(**mp, dtype=dtype,
+                                train_stage=int(name[-1]), device=device)
+            init_weights(model, gen)
+            return model
+    else:
+        cfg = read_config(os.path.join(root, f"{name}.yaml"))
+        mp = {**cfg["model_params"], **(
+            {"allow_random_features": True} if name == "dfc_vae" else {})}
+
+        def build(dtype, device, gen):
+            return build_model({**mp, "dtype": dtype}, device=device,
+                               generator=gen)
+    size, ch = mp.get("img_size", 64), mp.get("in_channels", 3)
+
+    def batch(B, gen):
+        b = {"image": torch.rand(B, size, size, ch, generator=gen,
+                                 device=gen.device)}
+        if name == "cvae":
+            b["labels"] = torch.randint(0, 2, (B, mp["num_classes"]),
+                                        generator=gen,
+                                        device=gen.device).float()
+        return b
+    exp = _exp_params(cfg)
+    return {"build": build, "exp": exp, "batch": batch,
+            "M_N": float(exp.get("kld_weight", 1.0))}
+
+
+def _bf16_calls(state, M_N: float) -> list:
+    """One train step's calls: one per optimizer (FactorVAE's two)."""
+    from ctvae_torch.training import make_train_step
+    return [make_train_step("base", M_N=M_N, optimizer_idx=i)
+            for i in range(len(state.optimizers))]
+
+
+def _bf16_zoo_member(name: str, member: dict) -> dict:
+    """BF16_ZOO_STEPS eager train steps of ``name`` at bfloat16 (B = 64),
+    each launching no kernel, under a _NonfiniteWatch (finite, or
+    non-finite from BF16_DIVERGE's step on as on the CPU from the same
+    state); ``compute_dtype`` bfloat16, every parameter and buffer (the
+    frozen VGG's too) float32."""
+    from ctvae_torch.training import build_optimizers, create_train_state
+    model = member["build"]("bfloat16", "cuda",
+                            torch.Generator("cuda").manual_seed(SEED))
+    dtypes = ({str(p.dtype) for p in model.parameters()}
+              | {str(b.dtype) for b in model.buffers()})
+    if model.compute_dtype != torch.bfloat16 or dtypes != {"torch.float32"}:
+        raise AssertionError(f"bf16 {name}: compute {model.compute_dtype}, "
+                             f"parameters and buffers {dtypes}")
+    state = create_train_state(model, build_optimizers(
+        member["exp"], model, steps_per_epoch=100), seed=SEED)
+    calls = _bf16_calls(state, member["M_N"])
+    batch = member["batch"](GAUSSIAN_BATCH,
+                            torch.Generator("cuda").manual_seed(SEED))
+    losses = []
+    with _NonfiniteWatch(f"bf16 {name}") as watch:
+        for _ in range(BF16_ZOO_STEPS):
+            c0 = _counts()
+            for call in calls:
+                metrics = call(state, batch)
+            c1 = _counts()
+            if c1 != c0:
+                raise AssertionError(f"bf16 {name}: a step launched "
+                                     f"{ {k: c1[k] - c0[k] for k in c1} }")
+            losses.append(float(metrics["loss"]))
+    allowed = BF16_DIVERGE.get(name)
+    if watch.first is not None and (allowed is None
+                                    or watch.first < allowed):
+        raise AssertionError(f"bf16 {name}: non-finite from step "
+                             f"{watch.first}; losses {losses}")
+    log(f"bf16 {name} at bfloat16, B={GAUSSIAN_BATCH}: {BF16_ZOO_STEPS} "
+        f"steps of {len(calls)} call(s), losses {json.dumps(losses)}"
+        + (f", non-finite from step {watch.first} as on the CPU"
+           if watch.first is not None else ""))
+    return {"losses": losses, "nonfinite_from_step": watch.first,
+            "dtypes": sorted(dtypes), "calls_per_step": len(calls)}
+
+
+def _bf16_zoo_checks(members: dict, smi: str) -> dict:
+    """Each of BF16_ZOO_MORE at bfloat16 after the path: its first train
+    step at B = BF16_ZOO_CPU_B on the card against the CPU port from the
+    same weights and CPU-drawn draws (each optimizer's call in turn), the
+    losses within 5 ulps (2 %); then float32 against bfloat16 ms per step
+    at B = 64 (every optimizer's call), in turns, medians of BF16_ROUNDS
+    after a warm-up round. Returns the numbers and the part's seconds."""
+    from ctvae_torch.training import build_optimizers, create_train_state
+    from ctvae_torch.training import state as tstate
+    start = time.perf_counter()
+    out = {"card": smi}
+    order = ("float32", "bfloat16")
+    for name, member in members.items():
+        card = member["build"]("bfloat16", "cuda",
+                               torch.Generator("cuda").manual_seed(SEED))
+        host = copy.deepcopy(card).to("cpu")
+        b = member["batch"](BF16_ZOO_CPU_B,
+                            torch.Generator().manual_seed(SEED + 3))
+        res = []
+        for model, dev in ((card, "cuda"), (host, "cpu")):
+            state = create_train_state(model, build_optimizers(
+                member["exp"], model, steps_per_epoch=100), seed=SEED)
+            real = tstate.Draws
+            tstate.Draws = lambda gen, device, dev=dev: _replay_draws(dev,
+                                                                      SEED)
+            try:
+                res.append([{k: float(v) for k, v in call(state, {
+                    k: t.to(dev) for k, t in b.items()}).items()
+                    if k in ("loss", "Reconstruction_Loss")}
+                    for call in _bf16_calls(state, member["M_N"])])
+            finally:
+                tstate.Draws = real
+        errs = {f"{k}_{i}": abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                for i, (g, w) in enumerate(zip(*res)) for k in w}
+        if not max(errs.values()) <= 5 * BF16_ULP:
+            raise AssertionError(f"bf16 {name} first step, card vs CPU: "
+                                 f"{res} ({errs})")
+        states = {}
+        for dt in order:
+            model = member["build"](dt, "cuda",
+                                    torch.Generator("cuda").manual_seed(SEED))
+            states[dt] = create_train_state(model, build_optimizers(
+                member["exp"], model, steps_per_epoch=100), seed=SEED)
+        calls = _bf16_calls(states["float32"], member["M_N"])
+        batch = member["batch"](GAUSSIAN_BATCH,
+                                torch.Generator("cuda").manual_seed(SEED))
+        secs = {d: [] for d in order}
+        for r in range(BF16_ROUNDS + 1):
+            for d in (order if r % 2 == 0 else order[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for call in calls:
+                    call(states[d], batch)
+                torch.cuda.synchronize()
+                secs[d].append(1e3 * (time.perf_counter() - t0))
+        ms = {d: statistics.median(v[1:]) for d, v in secs.items()}
+        out[name] = {"vs_cpu": {"card": res[0], "cpu": res[1], "rel": errs},
+                     "ms_per_step": ms}
+        log(f"bf16 {name}: first step B={BF16_ZOO_CPU_B} card vs CPU "
+            f"{json.dumps(res)}, relative {json.dumps(errs)}; ms per step "
+            f"B={GAUSSIAN_BATCH} (medians of {BF16_ROUNDS} rounds in turns "
+            f"after a warm-up one) {json.dumps(ms)} on {smi}")
+        del card, host, states
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - start
+    log(f"bf16 zoo checks: {out['seconds']:.1f} s for "
+        f"{len(members)} configs")
     return out
 
 
@@ -7935,12 +8115,14 @@ def phase_bf16(smi: str) -> tuple:
     requests of each entry point at B = 16, 2 x SCAN_K eager train steps
     per mode, two ``make_multi_train_step(mode, SCAN_K)`` calls per mode
     from an equal state on the same batches (the graph's launches counted
-    at capture, times its replays) and the zoo's steps (``_bf16_zoo``).
-    Then: graph against eager steps, every parameter and Adam moment bit
-    for bit (cuDNN deterministic); every kernel call of a base, an action
-    and a causal step held against its plain version at bfloat16
-    (``_bf16_kernels_on_step``; timed on the causal step's and the action
-    step's inputs); the card against the CPU (``_bf16_vs_cpu``); float32
+    at capture, times its replays) and the zoo's steps (``_bf16_zoo``:
+    BF16_ZOO and BF16_ZOO_MORE). Then: graph against eager steps, every
+    parameter and Adam moment bit for bit (cuDNN deterministic); every
+    kernel call of a base, an action and a causal step held against its
+    plain version at bfloat16 (``_bf16_kernels_on_step``; timed on the
+    causal step's and the action step's inputs); the zoo's first steps
+    against the CPU and its ms in turns (``_bf16_zoo_checks``); the card
+    against the CPU (``_bf16_vs_cpu``); float32
     against bfloat16 step and request ms, in turns (``_bf16_in_turns``).
     Returns (the path's launches, the kernels' rows, the numbers)."""
     from ctvae_torch.serving.inference import make_inference_fn
@@ -7997,10 +8179,12 @@ def phase_bf16(smi: str) -> tuple:
             # the graph's launches: counted at capture, times its replays
             for k, n in multi.replayed_launches().items():
                 launches[k] += n
-        zoo = _bf16_zoo(launches)
+        zoo_start = time.perf_counter()
+        zoo, members = _bf16_zoo(launches)
         launches_read = dict(launches)
         torch.cuda.synchronize()
         path_s = time.perf_counter() - start
+        zoo["steps_s"] = time.perf_counter() - zoo_start
         log(f"launches on the bf16 path: {json.dumps(launches_read)}")
         a_, b_ = _scan_tensors(eager), _scan_tensors(graph)
         differ = sorted(n for n in a_ if not torch.equal(a_[n], b_[n]))
@@ -8018,6 +8202,7 @@ def phase_bf16(smi: str) -> tuple:
                 f"{mode} step", lambda: step(eager, {
                     k: v[0] for k, v in stacked.items()}),
                 timed=mode in ("action", "causal"))
+        zoo["checks"] = _bf16_zoo_checks(members, smi)
         numbers = {"zoo": zoo, "vs_cpu": _bf16_vs_cpu(smi),
                    "in_turns": _bf16_in_turns(states, steps, {
                        k: v[0] for k, v in stacked.items()}, fns, args),

@@ -41,7 +41,9 @@ and the two block keys (``pairwise_block_rows``, ``gat_block_cols``).
   at bfloat16 on the CPU, bit for bit.
 * The block keys at float32: the chunked plain path against the
   unchunked one and against JAX's block path within 1e-6.
-* ``dtype: bfloat16`` from YAML, the refusals naming ROADMAP A6, and
+* ``dtype: bfloat16`` from YAML, six other registry members built at
+  bfloat16 (tests/test_torch_bf16_zoo*.py hold the rest of the registry
+  against JAX), the refusals of other dtypes naming ROADMAP A6, and
   ``torch.library.opcheck`` of every custom op at bfloat16.
 
 JAX runs the Pallas kernels (``CTVAE_FLASH_GAT=1``,
