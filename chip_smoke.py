@@ -4652,15 +4652,16 @@ def _vgg_refusal(cfg: dict, logs: str) -> dict:
                          "features without allow_random_features")
 
 
-def _two_stage(stage: int, gen: torch.Generator):
+def _two_stage(stage: int, gen: torch.Generator, dtype: str = "float32",
+               device: str = "cuda"):
     """TwoStageVAE at configs/vae.yaml's widths (its model_params; the
-    stage-2 MLPs' default [1024, 1024]) on the card, ``train_stage``
-    ``stage``, initialised from ``gen``."""
+    stage-2 MLPs' default [1024, 1024]) on ``device``, ``train_stage``
+    ``stage``, at ``dtype``, initialised from ``gen``."""
     from ctvae_torch.models import TwoStageVAE, init_weights
     mp = dict(read_config(os.path.join(os.path.dirname(CONFIG), "vae.yaml"))[
         "model_params"])
     mp.pop("name")
-    model = TwoStageVAE(**mp, train_stage=stage, device="cuda")
+    model = TwoStageVAE(**mp, dtype=dtype, train_stage=stage, device=device)
     init_weights(model, gen)
     return model.eval()
 
@@ -7813,18 +7814,14 @@ def _bf16_member(name: str) -> dict:
     """How BF16_ZOO_MORE's ``name`` is built: ``build(dtype, device,
     generator)``, its exp_params as run.train takes them, its M_N, and
     ``batch(B, generator)`` on the card."""
-    from ctvae_torch.models import TwoStageVAE, build_model, init_weights
+    from ctvae_torch.models import build_model
     root = os.path.dirname(CONFIG)
     if name.startswith("two_stage_"):
         cfg = read_config(os.path.join(root, "vae.yaml"))
-        mp = dict(cfg["model_params"])
-        mp.pop("name")
+        mp = cfg["model_params"]
 
         def build(dtype, device, gen):
-            model = TwoStageVAE(**mp, dtype=dtype,
-                                train_stage=int(name[-1]), device=device)
-            init_weights(model, gen)
-            return model
+            return _two_stage(int(name[-1]), gen, dtype, device)
     else:
         cfg = read_config(os.path.join(root, f"{name}.yaml"))
         mp = {**cfg["model_params"], **(
