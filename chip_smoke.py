@@ -7766,7 +7766,7 @@ def _bf16_zoo(launches: dict) -> tuple:
     (the VQ search per codebook; none for VanillaVAE) and a finite loss;
     BatchNorm's statistics float32. Then each of BF16_ZOO_MORE at
     bfloat16 (``_bf16_zoo_member``). Adds the steps' launches to
-    ``launches``. Returns (the numbers, the members' builders)."""
+    ``launches``. Returns (the numbers, how each member is built)."""
     from ctvae_torch.training import make_train_step
     out = {}
     root = os.path.dirname(CONFIG)

@@ -45,7 +45,7 @@ def _jax_two_stage(cfg):
 
 def _case(case: str):
     """(module of the case, model_params, exp_params, global step, the
-    port's builder or None)."""
+    port's build function or None)."""
     if case in MORE:
         cfg, step, _ = more.CASES[case]
         return more, cfg, more.EXP, step, None
