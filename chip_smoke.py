@@ -41,14 +41,20 @@ same widths (phase "loop"). Then more phases:
   equal state on the same batches: every parameter and Adam moment
   within 1e-6 of its largest magnitude, the generators and steps equal;
   then both timed in turns. The graph's kernel launches are counted at
-  capture, times its replays (the ``scan`` path of the kernels line);
-* bench: ``python -m ctvae_torch.bench --blocks 2`` at its default
+  capture, times its replays (the ``scan`` path of the kernels line).
+  The same with ``accumulate_grad_batches: 3`` (two graphs, accumulate
+  and apply, chosen per step), and a state saved after the first call,
+  in the middle of an accumulation, loaded and continued by a new
+  multi-step call (the ``scan_accum`` path);
+* bench: ``python -m ctvae_torch.bench --blocks 1`` at its default
   config, its last line checked for every key and an ``mfu`` in (0, 1]
   per mode, and printed.
 * shapes3d: ``configs/mcq_vae.yaml`` and ``configs/ct_mcq_vae.yaml`` as
   ``config.read_config`` reads them, trained one epoch each through
   ``run.train`` on a Shapes3D stand-in (30,720 images, all six factors)
-  that the port writes to a temporary directory, with their checkpoints,
+  that the port writes to a temporary directory (whose train split's
+  transform cache is first written beside it and mapped again), with
+  their checkpoints,
   ``scalars.jsonl`` and image grids checked, then ``apply_action`` on the
   CT checkpoint; the launch counters are read per config (paths
   ``shapes3d_mcq`` and ``shapes3d_ct``). Then the loader's host ms per
@@ -81,7 +87,7 @@ same widths (phase "loop"). Then more phases:
   (c) make the path ``search``.
 
 * celeba: the port's JPEG codec built (``ctvae_torch/native``: nvJPEG
-  on a machine without libjpeg) and a CelebA stand-in of 8,000 JPEGs of
+  on a machine without libjpeg) and a CelebA stand-in of 4,800 JPEGs of
   178 x 218 written in a temporary directory (quality 80; the smoke's own
   80 / 10 / 10 split and attribute file; ``variation_attrs_10.txt``),
   then (c) the decode of a batch of 64 against the arrays it was
@@ -102,13 +108,13 @@ same widths (phase "loop"). Then more phases:
   path ``celeba`` (no kernel).
 * gaussian: VQVAE and the Gaussian zoo from their YAML at full width on
   the same CelebA stand-in (``dataset_name: Celeba`` as written, only
-  ``data_path`` changed): ``run.train`` of
-  ``configs/vae.yaml``, ``configs/vq_vae.yaml``, ``configs/lvae.yaml``,
+  ``data_path`` changed; phase "celeba" trains ``configs/vae.yaml`` and
+  ``configs/vq_vae.yaml`` there): ``run.train`` of ``configs/lvae.yaml``,
   ``configs/gammavae.yaml`` and ``configs/cat_vae.yaml`` (B = 64, one
-  epoch, checkpoints and grids, no Samples grid for VQVAE) and of
-  ``configs/synthetic_vae.yaml``; every VQ search call of a VQVAE train
-  step and of its eval step (K = 512 codes of 64, N = 16,384 rows) held
-  against the plain version and timed with it and ``cdist`` + ``argmin``;
+  epoch, checkpoints and grids) and of ``configs/synthetic_vae.yaml``;
+  every VQ search call of a VQVAE train step and of its eval step (K =
+  512 codes of 64, N = 16,384 rows) held against the plain version and
+  timed with it and ``cdist`` + ``argmin``;
   a warm and timed eager train steps of VanillaVAE, VQVAE, of bbvae,
   bhvae, logcosh_vae, dip_vae, infovae, wae_mmd_imq and wae_mmd_rbf, and
   of iwae, miwae, swae, betatc_vae, cat_vae, joint_vae, gammavae,
@@ -123,11 +129,11 @@ same widths (phase "loop"). Then more phases:
   weights; with ``allow_random_features``, mssim_vae, dfc_vae and
   factorvae each a first full-width step against the CPU (FactorVAE's two
   optimizer calls), timed steps and serving; ``run.train`` of dfc_vae and
-  factorvae one epoch of 100 steps with the loader's share; the MSSIMVAE
+  factorvae one epoch of 50 steps with the loader's share; the MSSIMVAE
   and DFCVAE graphs against eager steps; TwoStageVAE at vae.yaml's widths,
   a stage-1 and a stage-2 step against the CPU and its serving. VQVAE's
-  run and steps make the path ``gaussian_vq`` (the VQ search only), the
-  rest the path ``gaussian`` (no kernel).
+  steps make the path ``gaussian_vq`` (the VQ search only), the rest the
+  path ``gaussian`` (no kernel).
 * export: the serving artifacts of ``ctvae_torch/serving/export.py``:
   ``configs/ct_mcq_vae.yaml``'s five entry points exported on the card
   with a symbolic batch at B = 16 (``export_model``'s functions; the
@@ -229,6 +235,9 @@ each train mode's step and on the check's inputs at A*B = 192 and B = 16
     python3 chip_smoke.py --metrics-only
 
 builds the kernels and runs only the phase "metrics" (``phase_metrics``).
+Every run prints, before its last lines, one line ``{"wall_s": {...}}``:
+the wall seconds of each phase, path and part (``<phase>.<part>``) it
+ran, and the total (on stderr after a failure).
 
     python3 chip_smoke.py --train-step-against OTHER_CHECKOUT [...]
 
@@ -335,6 +344,35 @@ def bound_ms(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+#: wall seconds of each phase and path run so far, in the order they ran;
+#: a part of a phase is named ``<phase>.<part>`` and counts in the phase's
+#: seconds too
+WALL: dict = {}
+
+
+@contextlib.contextmanager
+def wall(name: str):
+    """Adds the wall seconds of the block to WALL[name]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        WALL[name] = round(WALL.get(name, 0.0)
+                           + time.perf_counter() - t0, 1)
+
+
+def walled(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds kept in WALL[name]."""
+    with wall(name):
+        return fn(*args, **kwargs)
+
+
+def log_walls(start: float) -> None:
+    """The line of wall seconds: every phase and path run, and the total."""
+    log(json.dumps({"wall_s": {**WALL, "total": round(
+        time.perf_counter() - start, 1)}}))
 
 
 # --- phase 1: the card ----------------------------------------------------
@@ -1637,17 +1675,17 @@ def phase_profile(model) -> None:
 
 # --- phase 5: the training slice ------------------------------------------
 
-def _train_setup(params=MODEL_PARAMS, B: int = BATCH):
+def _train_setup(params=MODEL_PARAMS, B: int = BATCH, exp=EXP_PARAMS):
     """The headline model (or ``params``) at batch ``B`` (16) with the
-    config's exp_params: (model, train state, batch, a train step per
-    mode)."""
+    config's exp_params (or ``exp``): (model, train state, batch, a train
+    step per mode)."""
     from ctvae_torch.models import build_model
     from ctvae_torch.training import (build_optimizers, create_train_state,
                                       make_train_step)
     model = build_model(params, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(SEED))
     state = create_train_state(
-        model, build_optimizers(EXP_PARAMS, model, steps_per_epoch=100),
+        model, build_optimizers(exp, model, steps_per_epoch=100),
         seed=SEED)
     x, y, a = _requests(torch.Generator().manual_seed(SEED + 3), B, "cuda")
     batch = {"image": x, "input_y": y, "action": a}
@@ -1922,12 +1960,13 @@ def phase_loop() -> dict:
 
 SCAN_K = 8          # steps per make_multi_train_step call
 SCAN_RTOL = 1e-6    # graph vs eager, over each tensor's largest magnitude
-SCAN_ROUNDS = 5     # timed rounds of K eager steps and one K-step call
+SCAN_ROUNDS = 3     # timed rounds of K eager steps and one K-step call
+SCAN_ACCUM = 3      # accumulate_grad_batches of the path scan_accum
 
 
 def _scan_tensors(state) -> dict:
-    """Every parameter, buffer (an EMA codebook's) and Adam moment of a
-    train state, by name."""
+    """Every parameter, buffer (an EMA codebook's), Adam moment and
+    accumulated gradient mean of a train state, by name."""
     out = {n: p.detach() for n, p in state.model.named_parameters()}
     out.update(state.model.named_buffers())
     names = {id(p): n for n, p in state.model.named_parameters()}
@@ -1935,7 +1974,130 @@ def _scan_tensors(state) -> dict:
         for p in opt.params:
             for k, v in opt.adam.state.get(p, {}).items():
                 out[f"{names[id(p)]}:{k}"] = v
+        if opt.accumulate > 1:
+            for p, a in zip(opt.params, opt.acc_buffers()):
+                out[f"{names[id(p)]}:acc"] = a
     return out
+
+
+def _scan_agree(label: str, eager, graph, want, got, replays: int) -> None:
+    """Every tensor of ``_scan_tensors`` of the two states within
+    SCAN_RTOL of its largest magnitude; the generator states, steps and
+    the optimizers' ``count`` and ``mini_step`` exactly. Raises where
+    they are not."""
+    from ctvae_torch.training.state import WARMUP_STEPS
+    a, b = _scan_tensors(eager), _scan_tensors(graph)
+    if a.keys() != b.keys():
+        raise AssertionError(f"{label}: tensors {set(a) ^ set(b)}")
+    diffs = {n: float((a[n].float() - b[n].float()).abs().max())
+             for n in a}
+    bad = {n: d for n, d in diffs.items() if d > SCAN_RTOL * max(
+        float(a[n].float().abs().max()), 1e-30)}
+    same_gen = torch.equal(eager.generator.get_state(),
+                           graph.generator.get_state())
+    counts = ([(o.count, o.mini_step) for o in eager.optimizers],
+              [(o.count, o.mini_step) for o in graph.optimizers])
+    log(f"{label}: {len(diffs)} parameters, Adam moments and means after "
+        f"{eager.step} steps, eager vs {replays} graph replays "
+        f"(after {WARMUP_STEPS} warm-up steps): "
+        f"{sum(d == 0 for d in diffs.values())} bit-equal, largest abs "
+        f"difference {max(diffs.values()):.3g}; generator equal "
+        f"{same_gen}, step {eager.step} / {graph.step}, optimizer "
+        f"(count, mini_step) {counts[0]} / {counts[1]}; last loss "
+        f"{float(want['loss']):.6g} / {float(got['loss']):.6g}")
+    if bad or not same_gen or eager.step != graph.step or \
+            counts[0] != counts[1]:
+        log(f"{label}: max abs difference by tensor "
+            f"{json.dumps({n: float(f'{d:.3g}') for n, d in diffs.items()})}")
+        raise AssertionError(f"{label}: graph and eager steps disagree: "
+                             f"{bad}, generator {same_gen}, counts {counts}")
+
+
+def _scan_per_replay(label: str, multi, expected) -> None:
+    """Each captured graph of ``multi`` holds ``expected`` launches."""
+    for graphs in multi._graphs.values():
+        for phase, g in graphs.items():
+            if g.launches != expected:
+                raise AssertionError(f"{label}: launches per {phase} "
+                                     f"replay {g.launches}, expected "
+                                     f"{expected}")
+
+
+def _scan_timed(label: str, step, eager, multi, graph, batches) -> dict:
+    """SCAN_ROUNDS rounds, in turns, of K eager steps and one K-step call,
+    timed from the host clock to the device's end: median ms per step."""
+    secs = {"eager": [], "graph": []}
+
+    def run_eager():
+        for i in range(SCAN_K):
+            step(eager, {k: v[i] for k, v in batches.items()})
+
+    runs = {"eager": run_eager, "graph": lambda: multi(graph, batches)}
+    for r in range(SCAN_ROUNDS):
+        for which in (("eager", "graph") if r % 2 == 0
+                      else ("graph", "eager")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[which]()
+            torch.cuda.synchronize()
+            secs[which].append(1e3 * (time.perf_counter() - t0) / SCAN_K)
+    ms = {w: statistics.median(t) for w, t in secs.items()}
+    log(f"{label} B={BATCH}: eager {ms['eager']:.3f} ms per step, graph "
+        f"replay {ms['graph']:.3f} ms per step (medians of {SCAN_ROUNDS} "
+        f"rounds of {SCAN_K} steps in turns; eager "
+        f"{json.dumps([round(t, 3) for t in secs['eager']])}, graph "
+        f"{json.dumps([round(t, 3) for t in secs['graph']])})")
+    return ms
+
+
+def _scan_accum(mode: str, expected, stacked, launches: dict) -> dict:
+    """The path scan_accum of one mode: the config's exp_params with
+    ``accumulate_grad_batches`` SCAN_ACCUM, 2K eager steps from one state
+    against two ``make_multi_train_step(mode, K)`` calls from an equal
+    state (the phases of the accumulation wrap across the calls: K is no
+    multiple of SCAN_ACCUM), and against a third state loaded from the
+    second's ``state_dict`` after its first call, in the middle of an
+    accumulation, and continued by a new multi-step call. Each graph
+    (accumulate and apply) holds ``expected`` launches. Adds the replays'
+    launches to ``launches``; returns the ms per step."""
+    from ctvae_torch.training import make_multi_train_step
+    from ctvae_torch.training.state import WARMUP_STEPS
+    exp = {**EXP_PARAMS, "accumulate_grad_batches": SCAN_ACCUM}
+    _, eager, _, steps = _train_setup(exp=exp)
+    _, graph, _, _ = _train_setup(exp=exp)
+    _, resumed, _, _ = _train_setup(exp=exp)
+    step, multi = steps[mode], make_multi_train_step(mode, SCAN_K)
+    halves = [{k: v[h] for k, v in stacked.items()}
+              for h in (slice(0, SCAN_K), slice(SCAN_K, 2 * SCAN_K))]
+    for i in range(2 * SCAN_K):
+        want = step(eager, {k: v[i] for k, v in stacked.items()})
+    multi(graph, halves[0])
+    saved = copy.deepcopy(graph.state_dict())
+    got = multi(graph, halves[1])
+    resumed.load_state_dict(saved)
+    again = make_multi_train_step(mode, SCAN_K)
+    more = again(resumed, halves[1])
+    torch.cuda.synchronize()
+    opt = saved["optimizers"][0]
+    if multi.replays != 2 * SCAN_K - WARMUP_STEPS or not multi.graphed or \
+            again.replays != SCAN_K - WARMUP_STEPS or not again.graphed \
+            or opt["mini_step"] != SCAN_K % SCAN_ACCUM \
+            or opt["acc"] is None:
+        raise AssertionError(f"scan_accum {mode}: replays {multi.replays} "
+                             f"and {again.replays}, saved mini_step "
+                             f"{opt['mini_step']}")
+    _scan_agree(f"scan_accum {mode}", eager, graph, want, got,
+                multi.replays)
+    _scan_agree(f"scan_accum {mode} loaded at mini_step "
+                f"{opt['mini_step']}", eager, resumed, want, more,
+                again.replays)
+    for m in (multi, again):
+        _scan_per_replay(f"scan_accum {mode}", m, expected)
+        for k, n in m.replayed_launches().items():
+            launches[k] += n
+    return _scan_timed(f"scan_accum {mode} (accumulate_grad_batches "
+                       f"{SCAN_ACCUM})", step, eager, multi, graph,
+                       halves[0])
 
 
 def phase_scan():
@@ -1948,10 +2110,13 @@ def phase_scan():
     its largest magnitude, the generator states, steps and optimizer
     counts exactly. Then SCAN_ROUNDS rounds, in turns, of K eager steps
     and one K-step call, timed from the host clock to the device's end.
-    Returns (the kernels' launches by the replays, ms per step)."""
+    The same again with ``accumulate_grad_batches`` (the path scan_accum,
+    ``_scan_accum``). Returns (the kernels' launches by the replays of
+    the paths scan and scan_accum, ms per step of each)."""
     from ctvae_torch.training import make_multi_train_step
     from ctvae_torch.training.state import WARMUP_STEPS
-    launches, timings = {k: 0 for k in EXPECTED_TRAIN["base"]}, {}
+    launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
+    accum_launches, timings = dict(launches), {}
     gen = torch.Generator().manual_seed(SEED + 5)
     for mode, expected in EXPECTED_TRAIN.items():
         _, eager, _, steps = _train_setup()
@@ -1960,70 +2125,31 @@ def phase_scan():
         stacked = {k: torch.stack([r[i] for r in xs])
                    for i, k in enumerate(("image", "input_y", "action"))}
         step, multi = steps[mode], make_multi_train_step(mode, SCAN_K)
-        for i in range(2 * SCAN_K):
-            want = step(eager, {k: v[i] for k, v in stacked.items()})
-        for half in (slice(0, SCAN_K), slice(SCAN_K, 2 * SCAN_K)):
-            got = multi(graph, {k: v[half] for k, v in stacked.items()})
-        torch.cuda.synchronize()
-        if multi.replays != 2 * SCAN_K - WARMUP_STEPS:
-            raise AssertionError(f"scan {mode}: {multi.replays} replays")
-        a, b = _scan_tensors(eager), _scan_tensors(graph)
-        if a.keys() != b.keys():
-            raise AssertionError(f"scan {mode}: tensors {set(a) ^ set(b)}")
-        diffs = {n: float((a[n].float() - b[n].float()).abs().max())
-                 for n in a}
-        bad = {n: d for n, d in diffs.items() if d > SCAN_RTOL * max(
-            float(a[n].float().abs().max()), 1e-30)}
-        same_gen = torch.equal(eager.generator.get_state(),
-                               graph.generator.get_state())
-        counts = ([o.count for o in eager.optimizers],
-                  [o.count for o in graph.optimizers])
-        log(f"scan {mode}: {len(diffs)} parameters and Adam moments after "
-            f"{2 * SCAN_K} steps, eager vs {multi.replays} graph replays "
-            f"(after {WARMUP_STEPS} warm-up steps): "
-            f"{sum(d == 0 for d in diffs.values())} bit-equal, largest abs "
-            f"difference {max(diffs.values()):.3g}; generator equal "
-            f"{same_gen}, step {eager.step} / {graph.step}, optimizer "
-            f"counts {counts[0]} / {counts[1]}; last loss "
-            f"{float(want['loss']):.6g} / {float(got['loss']):.6g}")
-        log(f"scan {mode}: max abs difference by tensor "
-            f"{json.dumps({n: float(f'{d:.3g}') for n, d in diffs.items()})}")
-        if bad or not same_gen or eager.step != graph.step or \
-                counts[0] != counts[1]:
-            raise AssertionError(f"scan {mode}: graph and eager steps "
-                                 f"disagree: {bad}, generator {same_gen}")
-        per_replay = {k: n // multi.replays
-                      for k, n in multi.replayed_launches().items()}
-        if per_replay != expected:
-            raise AssertionError(f"scan {mode}: launches per replay "
-                                 f"{per_replay}, expected {expected}")
-        for k, n in multi.replayed_launches().items():
-            launches[k] += n
-        secs = {"eager": [], "graph": []}
-        batches = {k: v[:SCAN_K] for k, v in stacked.items()}
-
-        def run_eager():
-            for i in range(SCAN_K):
-                step(eager, {k: v[i] for k, v in batches.items()})
-
-        runs = {"eager": run_eager, "graph": lambda: multi(graph, batches)}
-        for r in range(SCAN_ROUNDS):
-            for which in (("eager", "graph") if r % 2 == 0
-                          else ("graph", "eager")):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                runs[which]()
-                torch.cuda.synchronize()
-                secs[which].append(1e3 * (time.perf_counter() - t0) / SCAN_K)
-        timings[mode] = {w: statistics.median(t) for w, t in secs.items()}
-        log(f"scan {mode} B={BATCH}: eager {timings[mode]['eager']:.3f} ms "
-            f"per step, graph replay {timings[mode]['graph']:.3f} ms per "
-            f"step (medians of {SCAN_ROUNDS} rounds of {SCAN_K} steps in "
-            f"turns; eager {json.dumps([round(t, 3) for t in secs['eager']])}"
-            f", graph {json.dumps([round(t, 3) for t in secs['graph']])})")
+        with wall("scan.scan"):
+            for i in range(2 * SCAN_K):
+                want = step(eager, {k: v[i] for k, v in stacked.items()})
+            for half in (slice(0, SCAN_K), slice(SCAN_K, 2 * SCAN_K)):
+                got = multi(graph, {k: v[half] for k, v in stacked.items()})
+            torch.cuda.synchronize()
+            if multi.replays != 2 * SCAN_K - WARMUP_STEPS:
+                raise AssertionError(f"scan {mode}: {multi.replays} replays")
+            _scan_agree(f"scan {mode}", eager, graph, want, got,
+                        multi.replays)
+            _scan_per_replay(f"scan {mode}", multi, expected)
+            for k, n in multi.replayed_launches().items():
+                launches[k] += n
+            timings[mode] = _scan_timed(
+                f"scan {mode}", step, eager, multi, graph,
+                {k: v[:SCAN_K] for k, v in stacked.items()})
+        del eager, graph, multi
+        with wall("scan.scan_accum"):
+            timings[f"{mode} accumulate"] = _scan_accum(
+                mode, expected, stacked, accum_launches)
     log(f"launches of the scan path (captured x replays): "
         f"{json.dumps(launches)}")
-    return launches, timings
+    log(f"launches of the scan_accum path (captured x replays): "
+        f"{json.dumps(accum_launches)}")
+    return launches, accum_launches, timings
 
 
 # --- phase 9: the port's bench ---------------------------------------------
@@ -2054,7 +2180,7 @@ def _check_bench_batch() -> None:
 
 def phase_bench() -> dict:
     """The kernels at the bench's batch (``_check_bench_batch``); then
-    ``python -m ctvae_torch.bench --blocks 2`` at its default config
+    ``python -m ctvae_torch.bench --blocks 1`` at its default config
     (``configs/ct_mcq_vae.yaml``): its output, then its last line checked
     (at most 1,500 characters, every key, every ``mfu`` in (0, 1])."""
     t0 = time.perf_counter()
@@ -2064,7 +2190,7 @@ def phase_bench() -> dict:
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "ctvae_torch.bench",
-                           "--blocks", "2"], cwd=root, capture_output=True,
+                           "--blocks", "1"], cwd=root, capture_output=True,
                           text=True, timeout=900)
     secs = time.perf_counter() - t0
     for line in proc.stdout.splitlines()[:-1]:
@@ -2244,11 +2370,49 @@ def _check_run(label: str, cfg: dict, out: dict, logs: str,
     return run_dir
 
 
+def _tcache_check(root: str, patch: int) -> dict:
+    """The transform cache on disk (``cache_transformed``) of the
+    stand-in's train split: a first open transforms the split and writes
+    ``tcache_train_c148_<patch>.npy`` beside the stand-in's file, a second
+    maps that file and transforms nothing; the two hold the same bytes.
+    Returns the seconds of each open and the file's size."""
+    import numpy as np
+    from ctvae_torch.data.disent_data import load_shapes3d
+    from ctvae_torch.data.transforms import StandardTransform
+    secs, opened = {}, []
+    for how in ("build", "reopen"):
+        t0 = time.perf_counter()
+        opened.append(load_shapes3d(root, split="train",
+                                    transform=StandardTransform(patch, 148),
+                                    cache_transformed=True))
+        secs[how] = time.perf_counter() - t0
+    built, mapped = opened
+    same = mapped.cache_file == built.cache_file is not None and \
+        isinstance(mapped._cache, np.memmap) and \
+        mapped._cache.shape == built._cache.shape and \
+        bool(np.array_equal(mapped._cache, built._cache))
+    out = {"rows": len(built), "build_s": secs["build"],
+           "reopen_s": secs["reopen"],
+           "file_mb": os.path.getsize(built.cache_file) / 1e6
+           if built.cache_file else None}
+    log(f"shapes3d transform cache: {out['rows']} rows of the train split "
+        f"transformed and written to {os.path.basename(str(built.cache_file))}"
+        f" ({out['file_mb']:.1f} MB) in {secs['build']:.3f} s, mapped again "
+        f"in {secs['reopen']:.3f} s; built then reused "
+        f"{built.cache_built} / {not mapped.cache_built}; rows byte-equal "
+        f"{same}")
+    if not (built.cache_built and not mapped.cache_built and same):
+        raise AssertionError(f"shapes3d transform cache: {out}")
+    return out
+
+
 def phase_shapes3d() -> tuple:
     """The two headline configs from their own YAML through the port's
     entry points, on a Shapes3D stand-in written by the port's writer
-    (numpy only) with its split and transition files: ``run.train`` of
-    ``configs/mcq_vae.yaml`` (Shapes3D, B = 64, ``codebooks: 4``: a full
+    (numpy only) with its split and transition files: the transform
+    cache of its train split written beside it and mapped again
+    (``_tcache_check``); ``run.train`` of ``configs/mcq_vae.yaml``
+    (Shapes3D, B = 64, ``codebooks: 4``: a full
     epoch of the stand-in's train split, since ``limit`` cuts transition
     datasets only) and of ``configs/ct_mcq_vae.yaml`` (TShapes3D, B = 16,
     7 batches per mode), then ``apply_action`` on the CT run's checkpoint.
@@ -2283,6 +2447,9 @@ def phase_shapes3d() -> tuple:
 
         cfgs = {name: _headline_config(name, root, logs)
                 for name in ("mcq_vae", "ct_mcq_vae")}
+        with wall("shapes3d.tcache"):
+            tcache = _tcache_check(
+                root, cfgs["mcq_vae"]["data_params"]["patch_size"])
         paths, outs, run_dirs = {}, {}, {}
         for name, cfg in cfgs.items():
             _reset_counts()
@@ -2383,14 +2550,13 @@ def phase_shapes3d() -> tuple:
                 for which in ("fwd", "bwd"):
                     on_step[f"gat_logits_{which}"] = {"shapes3d": {
                         m: v["logits"][which] for m, v in found.items()}}
-            # the epoch in turns (ABCCBA): its batches held, assembled
-            # ahead on a host thread, assembled inline as the port does
+            # the epoch in turns (ABC): its batches held, assembled ahead
+            # on a host thread, assembled inline as the port does
             n = min(SHAPES3D_EPOCH_BATCHES, data.steps_per_epoch())
             ways = {how: _EpochOf(data, n, how)
                     for how in ("held", "thread", "inline")}
             turns = {how: [] for how in ways}
-            for how in ("held", "thread", "inline", "inline", "thread",
-                        "held"):
+            for how in ("held", "thread", "inline"):
                 turns[how].append(_epoch_ms(model, exp, ways[how], B))
             ms = {how: statistics.mean(v) for how, v in turns.items()}
             # what the loader adds to the epoch the port runs
@@ -2425,7 +2591,7 @@ def phase_shapes3d() -> tuple:
                 f"saves {ms['inline'] - ms['thread']:.3f} ms per step; "
                 f"pace set by the {paced_by}")
             del model, state, batches, ways
-    log(json.dumps({"shapes3d_pace": pace}))
+    log(json.dumps({"shapes3d_pace": pace, "shapes3d_tcache": tcache}))
     # the loop's thread keeps its torch CPU threads
     if torch.get_num_threads() != threads:
         raise AssertionError(f"shapes3d: torch threads {threads} -> "
@@ -2446,6 +2612,9 @@ METRIC_KEYS = ("dci.disentanglement", "dci.completeness",
 # the metrics' sample sizes at the headline configs (run.py: 20 / 10 train
 # batches, batches of val_batch_size): ct_mcq_vae B = 16, mcq_vae B = 64
 METRIC_SIZES = {"ct_mcq_vae": (16, 320, 160), "mcq_vae": (64, 1280, 640)}
+#: the sizes each metric is timed at on its own: ct_mcq_vae's are those
+#: of the run.train that computes the four in (1)
+METRIC_TIMED = ("mcq_vae",)
 # the card against the CPU on one table of codes, cut to the dims of
 # largest variance (CPU torch at D = 8,192 is slow; most codes of a
 # briefly trained encoder are nearly constant), DCI at this many rounds
@@ -2520,7 +2689,7 @@ def phase_metrics(smi: str) -> tuple:
     with ``exp_params.metrics`` = DCI, MIG, SAP, FactorVaeScore: the
     epoch's kernels launched, the metrics' ``val_`` keys finite in the
     result and in ``scalars.jsonl``. (2) Each metric timed on the card at
-    both headline configs' sample sizes, through the trained encoder (D =
+    mcq_vae's sample sizes (METRIC_TIMED), through the trained encoder (D =
     8,192), and one DCI fit profiled (its largest device ops). (3) One
     table of codes of the grid (its ``CPU_DIMS`` of largest variance), the
     four metric functions on it on the card and on the CPU, held at the
@@ -2550,7 +2719,8 @@ def phase_metrics(smi: str) -> tuple:
         cfg["exp_params"] = {**cfg["exp_params"], "metrics": METRIC_NAMES}
         _reset_counts()
         t0 = time.perf_counter()
-        out = run.train(cfg, device="cuda")
+        with wall("metrics.run"):
+            out = run.train(cfg, device="cuda")
         secs = time.perf_counter() - t0
         launches = _counts()
         run_dir = _check_run("metrics ct_mcq_vae", cfg, out, logs)
@@ -2567,7 +2737,8 @@ def phase_metrics(smi: str) -> tuple:
             f"{METRIC_NAMES} in {secs:.2f} s: {json.dumps(vals)}")
         log(f"launches on the metrics path: {json.dumps(launches)}")
 
-        # (2) each metric at both configs' sizes, through the encoder
+        # (2) each metric at mcq_vae's sizes, through the encoder
+        t_part = time.perf_counter()
         model = build_model(cfg["model_params"], device="cuda")
         load_weights_only(os.path.join(run_dir, "checkpoints", "last"),
                           model)
@@ -2577,7 +2748,8 @@ def phase_metrics(smi: str) -> tuple:
         full = data.val_dataset._full_data
         D = int(repr_fn(full.transform.batch(full.images_raw[:1])).shape[1])
         seconds = {}
-        for name, (B, n_tr, n_te) in METRIC_SIZES.items():
+        for name in METRIC_TIMED:
+            B, n_tr, n_te = METRIC_SIZES[name]
             seconds[name] = {}
             for metric in METRIC_NAMES:
                 m = Metric(metric, full, batch_size=B, num_train=n_tr,
@@ -2600,11 +2772,15 @@ def phase_metrics(smi: str) -> tuple:
         j = int(np.argmax(full.factor_sizes))
         y = torch.as_tensor(f_tr[:, j], device="cuda")
         fit_gbt(z_tr, y, n_estimators=1)
+        WALL["metrics.timed"] = round(time.perf_counter() - t_part, 1)
+        t_part = time.perf_counter()
         _profile(f"DCI fit_gbt, {n_tr} x {D} codes, factor {j} "
                  f"({full.factor_sizes[j]} classes), 5 rounds",
                  lambda: fit_gbt(z_tr, y, n_estimators=5))
+        WALL["metrics.profile"] = round(time.perf_counter() - t_part, 1)
 
         # (3) the card against the CPU on one table of codes
+        t_part = time.perf_counter()
         table = _code_table(full, repr_fn, CPU_DIMS)
         tables = {"cuda": table, "cpu": table.cpu()}
         kw = dict(num_train=320, num_test=160, batch_size=16)
@@ -2650,6 +2826,7 @@ def phase_metrics(smi: str) -> tuple:
         bad = [k for k in METRIC_KEYS if diff[k] > tol[k.split(".")[0]]]
         if bad or any(v["predictions_differ"] for v in svc.values()):
             raise AssertionError(f"metrics card vs CPU: {bad} {svc}")
+        WALL["metrics.vs_cpu"] = round(time.perf_counter() - t_part, 1)
         del model, table, tables
     log(f"metrics: phase {time.perf_counter() - start:.2f} s")
     return launches, seconds
@@ -3908,11 +4085,11 @@ def phase_search(smi: str) -> tuple:
     (c) make the path ``search``. Returns (launches, the kernel rows by
     kernel, the numbers)."""
     start = time.perf_counter()
-    launches, timings, rows = _search_corners()
+    launches, timings, rows = walled("search.corners", _search_corners)
     t_a = time.perf_counter() - start
-    ema = _search_ema_graph()
+    ema = walled("search.ema", _search_ema_graph)
     t_b = time.perf_counter() - start - t_a
-    cli_launches, numbers = _search_cli(smi)
+    cli_launches, numbers = walled("search.cli", _search_cli, smi)
     for name, n in cli_launches.items():
         launches[name] += n
     log(f"launches on the search path: {json.dumps(launches)}")
@@ -3925,12 +4102,15 @@ def phase_search(smi: str) -> tuple:
 # --- phase 14: VQVAE and the Gaussian zoo from their YAML -------------------
 
 GAUSSIAN_BATCH = 64        # the batch of every zoo config
-#: configs trained one epoch through run.train (vq_vae's VQ search at
-#: K = 512 makes the path gaussian_vq): lvae for its [B, D] BatchNorm and
-#: its own decoder, gammavae for the gamma draw, gradient_clip_val 0.8 and
-#: weight_decay 5e-5, cat_vae for the step in the forward and its
-#: 20,480-wide fc_z
-GAUSSIAN_RUNS = ("vae", "vq_vae", "lvae", "gammavae", "cat_vae")
+#: configs trained one epoch through run.train (phase "celeba" trains
+#: vae.yaml and vq_vae.yaml, on the same stand-in, as written): lvae for
+#: its [B, D] BatchNorm and its own decoder, gammavae for the gamma draw,
+#: gradient_clip_val 0.8 and weight_decay 5e-5, cat_vae for the step in
+#: the forward and its 20,480-wide fc_z
+GAUSSIAN_RUNS = ("lvae", "gammavae", "cat_vae")
+#: the zoo's members whose steps make the paths gaussian_vq (VQVAE's VQ
+#: search at K = 512) and gaussian
+ZOO_BASE = ("vae", "vq_vae")
 #: the zoo's loss-only members, each a warm and timed eager train steps
 ZOO_CONFIGS = ("bbvae", "bhvae", "logcosh_vae", "dip_vae", "infovae",
                "wae_mmd_imq", "wae_mmd_rbf")
@@ -3938,9 +4118,6 @@ ZOO_CONFIGS = ("bbvae", "bhvae", "logcosh_vae", "dip_vae", "infovae",
 #: warm and timed eager train steps, and its serving against the CPU
 ZOO_MORE = ("iwae", "miwae", "swae", "betatc_vae", "cat_vae", "joint_vae",
             "gammavae", "vampvae", "hvae", "lvae")
-#: configs trained one epoch for the loader's share (phase "celeba" paces
-#: vae's and vq_vae's)
-PACED_RUNS = ("lvae", "gammavae", "cat_vae")
 #: the first step from which a config's zoo steps (DIVERGE_IN_STEPS) or
 #: epoch (DIVERGE_IN_EPOCHS) may be non-finite, each from a reference that
 #: diverges there; the steps before it must be finite, and a non-finite
@@ -3969,7 +4146,9 @@ LAST_RUNS = ("dfc_vae", "factorvae")
 # discriminator's card-vs-CPU check once read 1.03 of its tolerance): the
 # spread of the card's gradients, 0 under deterministic cuDNN
 FACTORVAE_RERUNS = 4
-LAST_EPOCH_STEPS = 100
+LAST_EPOCH_STEPS = 50     # the first step that logs (log_every 50)
+#: the turns of the epochs that pace the CelebA configs
+PACE_TURNS = ("held", "inline")
 LAST_VAL_BATCHES = 10
 
 
@@ -4804,22 +4983,23 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
     """VQVAE and the Gaussian zoo on the card from their YAML, at full
     width, on the CelebA stand-in under ``celeba_root``
     (``_celeba_standin``; ``dataset_name: Celeba`` as written, 178 x 218
-    JPEGs to 64 x 64): ``run.train`` of ``configs/vae.yaml`` and of
-    ``configs/vq_vae.yaml`` (one epoch each, checkpoints, grids: no
-    Samples grid for VQVAE) and of ``configs/synthetic_vae.yaml`` as
-    written (only its logs moved); every VQ search call of a VQVAE train
+    JPEGs to 64 x 64; phase "celeba" trains ``configs/vae.yaml`` and
+    ``configs/vq_vae.yaml`` on it): ``run.train`` of
+    ``configs/synthetic_vae.yaml`` as written (only its logs moved);
+    every VQ search call of a VQVAE train
     step and of its eval step held against the plain version at K = 512
     and timed with it and ``cdist`` + ``argmin``; a warm and timed eager
     train steps of VanillaVAE, VQVAE and each ZOO_CONFIGS and ZOO_MORE
     model at B = 64, each profiled once; ``run.train`` of
-    ``configs/lvae.yaml``, ``gammavae.yaml`` and ``cat_vae.yaml`` as the
-    first two; the serving entry points of VanillaVAE and each ZOO_MORE
-    model against the CPU; the multi-step graph against eager steps for
-    VanillaVAE, BetaVAE B, CategoricalVAE and GammaVAE; the loader's share
-    of the lvae, gammavae and cat_vae epochs; the last of the registry
+    ``configs/lvae.yaml``, ``gammavae.yaml`` and ``cat_vae.yaml`` (one
+    epoch each, checkpoints, grids); the serving entry points of
+    VanillaVAE and each ZOO_MORE model against the CPU; the multi-step
+    graph against eager steps for VanillaVAE, BetaVAE B, CategoricalVAE
+    and GammaVAE; the loader's share of the lvae, gammavae and cat_vae
+    epochs; the last of the registry
     (``_zoo_last``: MSSIMVAE, DFCVAE with its VGG refusal, FactorVAE's two
     optimizers, TwoStageVAE). Launch counters are reset
-    before and read after the VQVAE run (path ``gaussian_vq``) and the
+    before and read after VQVAE's steps (path ``gaussian_vq``) and the
     rest (path ``gaussian``, where no kernel may launch). Returns
     (gaussian launches, gaussian_vq launches, the VQ rows, the
     numbers)."""
@@ -4841,24 +5021,21 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
     with tempfile.TemporaryDirectory(prefix="ctvae_gaussian_") as tmp:
         root, logs = celeba_root, os.path.join(tmp, "logs")
         cfgs = {n: _gaussian_config(n, root, logs)
-                for n in dict.fromkeys(GAUSSIAN_RUNS + ZOO_CONFIGS
+                for n in dict.fromkeys(ZOO_BASE + GAUSSIAN_RUNS + ZOO_CONFIGS
                                        + ZOO_MORE + ZOO_LAST)}
-        vq_launches = None
+        vq_launches = {k: 0 for k in EXPECTED_TRAIN["base"]}
         for name in GAUSSIAN_RUNS:
             cfg = cfgs[name]
             _reset_counts()
             t0 = time.perf_counter()
-            with _epoch_watch(f"gaussian {name}", name) as watch:
+            with wall("gaussian.runs"), \
+                    _epoch_watch(f"gaussian {name}", name) as watch:
                 out = run.train(cfg, device="cuda")
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             counts = _counts()
-            if name == "vq_vae":
-                vq_launches = counts
-            else:
-                add(counts)
-            _check_run(f"gaussian {name}", cfg, out, logs,
-                       samples=name != "vq_vae", watch=watch,
+            add(counts)
+            _check_run(f"gaussian {name}", cfg, out, logs, watch=watch,
                        diverge_from=DIVERGE_IN_EPOCHS.get(name))
             numbers["epochs"][name] = _epoch_numbers(
                 f"gaussian {name}", out, secs, watch, counts, smi)
@@ -4868,7 +5045,8 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
         syn["logging_params"] = {**syn["logging_params"], "save_dir": logs}
         syn["logging_params"]["name"] = "synthetic_vae"
         _reset_counts()
-        out = run.train(syn, device="cuda")
+        with wall("gaussian.runs"):
+            out = run.train(syn, device="cuda")
         add(_counts())
         _check_run("gaussian synthetic_vae", syn, out, logs)
         numbers["epochs"]["synthetic_vae"] = {
@@ -4890,19 +5068,20 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
         # the loader's share of the new configs' epochs (phase "celeba"
         # paces vae's and vq_vae's)
         numbers["pace"] = {}
-        for name in PACED_RUNS:
+        for name in GAUSSIAN_RUNS:
             cfg = cfgs[name]
-            pdata = VAEDataset(**cfg["data_params"])
-            pdata.setup()
-            host_ms, copy_ms, _ = _loader_ms(pdata)
-            model = build_model(cfg["model_params"], device="cuda",
-                                generator=torch.Generator("cuda")
-                                .manual_seed(SEED))
-            numbers["pace"][name] = _epoch_pace(
-                f"gaussian {name}", model, _exp_params(cfg), pdata, host_ms,
-                copy_ms, smi)
-            del model
-            torch.cuda.empty_cache()
+            with wall("gaussian.pace"):
+                pdata = VAEDataset(**cfg["data_params"])
+                pdata.setup()
+                host_ms, copy_ms, _ = _loader_ms(pdata)
+                model = build_model(cfg["model_params"], device="cuda",
+                                    generator=torch.Generator("cuda")
+                                    .manual_seed(SEED))
+                numbers["pace"][name] = _epoch_pace(
+                    f"gaussian {name}", model, _exp_params(cfg), pdata,
+                    host_ms, copy_ms, smi)
+                del model
+                torch.cuda.empty_cache()
 
         # VQVAE's steps: each VQ call held against the plain version
         vcfg = cfgs["vq_vae"]
@@ -4911,19 +5090,23 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
                                 SEED))
         state = create_train_state(model, build_optimizers(
             vcfg["exp_params"], model, steps_per_epoch=100), seed=SEED)
-        vq_rows = _vq_rows(state, batch)
+        with wall("gaussian.vq_rows"):
+            vq_rows = _vq_rows(state, batch)
         del model, state
 
         # a warm and timed eager steps per model: VQVAE's on the
         # gaussian_vq path, the others' on the gaussian path
         _reset_counts()
-        numbers["first_step_vs_cpu"] = {
-            name: _train_step_vs_cpu(name, cfgs[name], {"image": batch[
-                "image"]}) for name in ZOO_MORE}
+        with wall("gaussian.vs_cpu"):
+            numbers["first_step_vs_cpu"] = {
+                name: _train_step_vs_cpu(name, cfgs[name], {"image": batch[
+                    "image"]}) for name in ZOO_MORE}
         add(_counts())
-        for name in dict.fromkeys(GAUSSIAN_RUNS + ZOO_CONFIGS + ZOO_MORE):
+        for name in dict.fromkeys(ZOO_BASE + GAUSSIAN_RUNS + ZOO_CONFIGS
+                                  + ZOO_MORE):
             _reset_counts()
-            numbers["steps"][name] = _zoo_step(name, cfgs[name], batch)
+            with wall("gaussian.steps"):
+                numbers["steps"][name] = _zoo_step(name, cfgs[name], batch)
             counts = _counts()
             if name == "vq_vae":
                 for k, n in counts.items():
@@ -4933,21 +5116,26 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
 
         _reset_counts()
         numbers["serve"] = {}
-        for name in ("vae",) + ZOO_MORE:
-            model = build_model(cfgs[name]["model_params"], device="cuda",
-                                generator=torch.Generator(
-                                    "cuda").manual_seed(SEED))
-            numbers["serve"][name] = _gaussian_serve(
-                model, f"gaussian {name}", sample_overflows=name == "lvae")
-            del model
-        numbers["graph_max_diff"] = {
-            n: _gaussian_graph(n, cfgs[n], batches)
-            for n in ("vae", "bbvae", "cat_vae", "gammavae")}
+        with wall("gaussian.serve"):
+            for name in ("vae",) + ZOO_MORE:
+                model = build_model(cfgs[name]["model_params"],
+                                    device="cuda", generator=torch.Generator(
+                                        "cuda").manual_seed(SEED))
+                numbers["serve"][name] = _gaussian_serve(
+                    model, f"gaussian {name}",
+                    sample_overflows=name == "lvae")
+                del model
+        with wall("gaussian.graph"):
+            numbers["graph_max_diff"] = {
+                n: _gaussian_graph(n, cfgs[n], batches)
+                for n in ("vae", "bbvae", "cat_vae", "gammavae")}
         add(_counts())
         _reset_counts()
-        numbers["last"] = _zoo_last(smi, root, tmp, cfgs, batch, batches)
+        with wall("gaussian.last"):
+            numbers["last"] = _zoo_last(smi, root, tmp, cfgs, batch,
+                                        batches)
         add(_counts())
-    if vq_launches is None or vq_launches["vq_l2_argmin"] == 0 or any(
+    if vq_launches["vq_l2_argmin"] == 0 or any(
             n for k, n in vq_launches.items() if k != "vq_l2_argmin") or \
             any(gauss.values()):
         raise AssertionError(f"gaussian: launches gaussian_vq "
@@ -4961,9 +5149,10 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
 
 # --- phase 13: the JPEG datasets ---------------------------------------------
 
-CELEBA_N = 8_000           # stand-in images: 6,400 / 800 / 800 (epochs
-                           # of 100 steps at B = 64; 16,000 until the
-                           # smoke grew past 900 s)
+CELEBA_N = 4_800           # stand-in images: 3,840 / 480 / 480 (epochs
+                           # of 60 steps at B = 64; 16,000 until the
+                           # smoke grew past 900 s, then 8,000 until it
+                           # neared its limit)
 #: configs trained one epoch through run.train on the stand-in, as written
 #: but for data_path (vq_vae's VQ search makes the path celeba_vq)
 CELEBA_RUNS = ("vae", "vq_vae", "cvae")
@@ -5110,13 +5299,12 @@ def _decode_check(root: str, smi: str) -> dict:
 def _epoch_pace(label: str, model, exp: dict, data, host_ms: float,
                 copy_ms: float, smi: str) -> dict:
     """The first CELEBA_EPOCH_BATCHES steps of an epoch of ``data`` on
-    ``model`` in turns (held, inline, inline, held): ms per step with the
-    batches held and assembled inline, and the loader's share of the
-    inline epoch."""
+    ``model`` in turns (PACE_TURNS): ms per step with the batches held and
+    assembled inline, and the loader's share of the inline epoch."""
     n = min(CELEBA_EPOCH_BATCHES, data.steps_per_epoch())
     ways = {how: _EpochOf(data, n, how) for how in ("held", "inline")}
     turns = {how: [] for how in ways}
-    for how in ("held", "inline", "inline", "held"):
+    for how in PACE_TURNS:
         turns[how].append(_epoch_ms(model, exp, ways[how], GAUSSIAN_BATCH))
     ms = {how: statistics.mean(v) for how, v in turns.items()}
     share = (ms["inline"] - ms["held"]) / ms["inline"]
@@ -5159,8 +5347,9 @@ def phase_celeba(smi: str, root: str) -> tuple:
                                       make_train_step)
 
     start = time.perf_counter()
-    numbers = {"card": smi, "decode": _decode_check(root, smi), "epochs": {},
-               "pace": {}}
+    numbers = {"card": smi, "decode": walled("celeba.decode", _decode_check,
+                                             root, smi),
+               "epochs": {}, "pace": {}}
     celeba = {k: 0 for k in EXPECTED_TRAIN["base"]}
     vq_launches = None
     with tempfile.TemporaryDirectory(prefix="ctvae_celeba_") as tmp:
@@ -5169,9 +5358,10 @@ def phase_celeba(smi: str, root: str) -> tuple:
         for name, cfg in cfgs.items():
             _reset_counts()
             t0 = time.perf_counter()
-            with _epoch_watch(f"celeba {name}", name) as watch:
+            with wall("celeba.runs"), \
+                    _epoch_watch(f"celeba {name}", name) as watch:
                 out = run.train(cfg, device="cuda")
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             counts = _counts()
             if name == "vq_vae":
@@ -5189,6 +5379,7 @@ def phase_celeba(smi: str, root: str) -> tuple:
         # the loader, the copy, the loader's share of the epoch; VQVAE's
         # VQ calls at K = 512
         vq_rows = None
+        t_part = time.perf_counter()
         for name, cfg in cfgs.items():
             data = VAEDataset(**cfg["data_params"])
             data.setup()
@@ -5208,7 +5399,10 @@ def phase_celeba(smi: str, root: str) -> tuple:
             del model, batches
             torch.cuda.empty_cache()
 
+        WALL["celeba.pace"] = round(time.perf_counter() - t_part, 1)
+
         # (e) the CT model on TCeleba: 20 actions, 21 GAT heads
+        t_part = time.perf_counter()
         ct = read_config(CONFIG)
         ct["model_params"] = {**ct["model_params"],
                               "action_dim": TCELEBA_ACTIONS}
@@ -5285,6 +5479,8 @@ def phase_celeba(smi: str, root: str) -> tuple:
         del model, state, batches
         torch.cuda.empty_cache()
 
+        WALL["celeba.tceleba"] = round(time.perf_counter() - t_part, 1)
+
         # (f) ConditionalVAE's serving with labels, card against the CPU
         _reset_counts()
         model = build_model(cfgs["cvae"]["model_params"], device="cuda",
@@ -5336,7 +5532,7 @@ EXPORT_B = 16              # the headline's example batch (symbolic b)
 EXPORT_B_OTHER = 5         # another batch the same files serve
 EXPORT_CPU_B = 2           # the same files moved to the CPU
 EXPORT_ZOO_B = 64          # the zoo configs' batch
-EXPORT_REQUESTS = 21       # timed requests per entry point; the first warms
+EXPORT_REQUESTS = 11       # timed requests per entry point; the first warms
 EXPORT_RTOL, EXPORT_ATOL = 1e-4, 1e-5   # artifact vs live (the same ops)
 #: the dtypes each case is exported at: float32 (the path "export") and the
 #: JAX bench's bfloat16 (the path "export_bf16")
@@ -5471,14 +5667,14 @@ def phase_export(smi: str) -> tuple:
     bounds of each dtype). Then, in this process, each request of the
     artifact's program (the exported program the files hold, as the
     subprocess served it) and of the live eager entry point in turns
-    (medians of 20 after a warm-up; the artifact's launches per request
-    equal to the live port's), and every kernel call of one
-    ``apply_action`` and one
-    ``classify_action`` request of the bfloat16 CT artifact against its
-    plain version at bfloat16 (``_bf16_kernels_on_step``). The paths
-    ``export`` and ``export_bf16`` count the artifacts' launches in this
-    process: the four forward kernels, no backward one. Returns (the two
-    paths' launches, the numbers)."""
+    (medians of EXPORT_REQUESTS - 1 after a warm-up; the artifact's
+    launches per request equal to the live port's), and every kernel call
+    of one ``apply_action`` and one ``classify_action`` request of the
+    bfloat16 CT artifact against its plain version at bfloat16
+    (``_bf16_kernels_on_step``). The paths ``export`` and ``export_bf16``
+    count the artifacts' launches in this process: the four forward
+    kernels, no backward one. Returns (the two paths' launches, the
+    numbers)."""
     from ctvae_torch import export_model
     from ctvae_torch.models import build_model
     from ctvae_torch.serving.export import (MANIFEST_NAME, model_manifest,
@@ -5501,10 +5697,13 @@ def phase_export(smi: str) -> tuple:
             # the config's images (data_params.patch_size) and actions
             shape = (read_section(path, "data_params")["patch_size"],
                      params.get("action_dim", 1))
-            exported, entries, seconds = export_model.export_entry_points(
-                model, _export_requests(names, *shape, B, 1, "cuda"), names,
-                poly_batch=True, num_samples=B,
-                log=lambda m, label=label: log(f"export {label}: {m}"))
+            with wall("export.export"):
+                exported, entries, seconds = \
+                    export_model.export_entry_points(
+                        model, _export_requests(names, *shape, B, 1, "cuda"),
+                        names, poly_batch=True, num_samples=B,
+                        log=lambda m, label=label: log(
+                            f"export {label}: {m}"))
             cases[label] = {
                 "dir": save_artifact(os.path.join(tmp, label), exported,
                                      {**model_manifest(model),
@@ -5532,6 +5731,7 @@ def phase_export(smi: str) -> tuple:
             raise AssertionError(f"export server failed:\n{proc.stderr}")
         report = json.loads(proc.stdout.strip().splitlines()[-1])
         numbers["server_s"] = time.perf_counter() - t0
+        WALL["export.server"] = round(numbers["server_s"], 1)
         log(f"export server (no model code): {numbers['server_s']:.1f} s, "
             f"launches {json.dumps(report['launches'])}")
         if report["models_imported"] or any(
@@ -5539,6 +5739,7 @@ def phase_export(smi: str) -> tuple:
                 for k in report["launches"]):
             raise AssertionError(f"export server: {report}")
         served = torch.load(outputs)
+        t_part = time.perf_counter()
         _zero = {k: 0 for k in _counts()}
         counts = {d: dict(_zero) for d in EXPORT_DTYPES}
         for label, case in cases.items():
@@ -5607,6 +5808,7 @@ def phase_export(smi: str) -> tuple:
                         lambda name=name: fns[name](*case["card"][name][0]),
                         timed=False)
                     for name in ("apply_action", "classify_action")}
+        WALL["export.requests"] = round(time.perf_counter() - t_part, 1)
     for dtype, c in counts.items():
         if any((c[k] == 0) != (k in _BWD) for k in c):
             raise AssertionError(f"launches on the export path at {dtype} "
@@ -5623,7 +5825,7 @@ def phase_export(smi: str) -> tuple:
 
 DDP_STEPS = 16        # (a): steps of each mode, plain and data-parallel
 DDP_RANK_STEPS = 8    # (b): steps of each mode on each of two ranks
-DDP_ROUNDS = 5        # (a): timed rounds of DDP_TIMED steps in turns
+DDP_ROUNDS = 3        # (a): timed rounds of DDP_TIMED steps in turns
 DDP_TIMED = 4
 DDP_TIMEOUT = 400     # (b) and (c): seconds for the two rank processes
 DDP_RTOL = 1e-5       # (b), (e), (g): each step's losses against one process
@@ -6636,12 +6838,15 @@ def phase_ddp(smi: str) -> tuple:
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        numbers = {"world1": _ddp_world1(launches, fsdp_launches)}
+        numbers = {"world1": walled("ddp.world1", _ddp_world1, launches,
+                                    fsdp_launches)}
         t0 = time.perf_counter()
-        numbers["bf16_world1"] = _ddp_bf16_world1(bf16_launches)
+        numbers["bf16_world1"] = walled("ddp.bf16_world1", _ddp_bf16_world1,
+                                        bf16_launches)
         numbers["bf16_world1"]["wall_s"] = time.perf_counter() - t0
-        numbers["two_ranks"] = _ddp_two_ranks(launches, fsdp_launches,
-                                              bf16_launches, smi)
+        numbers["two_ranks"] = walled("ddp.two_ranks", _ddp_two_ranks,
+                                      launches, fsdp_launches,
+                                      bf16_launches, smi)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     numbers["wall_s"] = time.perf_counter() - start
@@ -7165,7 +7370,7 @@ def phase_sp(smi: str) -> tuple:
             or r0["bf16"]["wrong"] or r1["bf16"]["wrong"]:
         raise AssertionError(f"sp bf16: {r0['bf16']}")
     log(f"launches on the sp path: {json.dumps(launches)}")
-    tp_launches, numbers["fsdp_tp"] = _fsdp_tp_path(smi)
+    tp_launches, numbers["fsdp_tp"] = walled("fsdp_tp", _fsdp_tp_path, smi)
     numbers["wall_s"] = time.perf_counter() - start
     log(f"sp: phase {numbers['wall_s']:.1f} s")
     return launches, tp_launches, numbers
@@ -7552,7 +7757,7 @@ BF16_ULP = 2.0 ** -8    # one bfloat16 ulp, relative
 # value up to the order of its sums, rounded once: within 2 ulps of each
 # element plus this share of the output's scale, max(1, max |want|)
 BF16_RTOL = 1e-5
-BF16_ROUNDS = 5         # timed rounds of float32 and bfloat16, in turns
+BF16_ROUNDS = 3         # timed rounds of float32 and bfloat16, in turns
 BF16_REQUESTS = 4       # requests per entry point on the path
 # the zoo's configs of the slice, a few steps each at bfloat16, B = 64
 BF16_ZOO = {"mcq_vae": {"vq_l2_argmin": 4}, "vae": {}}
@@ -8323,8 +8528,8 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     start = time.perf_counter()
-    smi = phase_card()
-    phase_build()
+    smi = walled("card", phase_card)
+    walled("build", phase_build)
     if opts.gat_fwd_against:
         log(json.dumps({"gat_fwd_against": compare_gat_fwd(
             opts.gat_fwd_against)}))
@@ -8345,25 +8550,28 @@ def main(argv) -> int:
         log(json.dumps({"vq_against": compare_vq(opts.vq_against)}))
         return 0
     if opts.search_only:
-        launches, rows, numbers = phase_search(smi)
+        launches, rows, numbers = walled("search", phase_search, smi)
         log(json.dumps({"search_launches": launches, "search": numbers,
                         "kernels": {k: _search_summary(r)
                                     for k, r in rows.items()}}))
+        log_walls(start)
         return 0
     if opts.gaussian_only:
         with tempfile.TemporaryDirectory(prefix="ctvae_celeba_data_") as tmp:
-            standin = _celeba_standin(tmp, smi)
-            launches, vq_launches, vq_rows, numbers = phase_gaussian(smi, tmp)
+            standin = walled("celeba_standin", _celeba_standin, tmp, smi)
+            launches, vq_launches, vq_rows, numbers = walled(
+                "gaussian", phase_gaussian, smi, tmp)
         log(json.dumps({"gaussian_launches": launches,
                         "gaussian_vq_launches": vq_launches,
                         "gaussian": numbers, "vq_at_k512": vq_rows,
                         "celeba_standin": standin}))
+        log_walls(start)
         return 0
     if opts.celeba_only:
         with tempfile.TemporaryDirectory(prefix="ctvae_celeba_data_") as tmp:
-            standin = _celeba_standin(tmp, smi)
+            standin = walled("celeba_standin", _celeba_standin, tmp, smi)
             launches, vq_launches, tc_launches, vq_rows, tc_rows, numbers = \
-                phase_celeba(smi, tmp)
+                walled("celeba", phase_celeba, smi, tmp)
         log(json.dumps({"celeba_launches": launches,
                         "celeba_vq_launches": vq_launches,
                         "tceleba_launches": tc_launches,
@@ -8371,38 +8579,47 @@ def main(argv) -> int:
                         "vq_at_k512": vq_rows,
                         "kernels": {k: _search_summary(r)
                                     for k, r in tc_rows.items()}}))
+        log_walls(start)
         return 0
     if opts.export_only:
-        launches, bf16_launches, numbers = phase_export(smi)
+        launches, bf16_launches, numbers = walled("export", phase_export,
+                                                        smi)
         log(json.dumps({"export_launches": launches,
                         "export_bf16_launches": bf16_launches,
                         "export": numbers}))
+        log_walls(start)
         return 0
     if opts.ddp_only:
-        launches, fsdp_launches, bf16_launches, numbers = phase_ddp(smi)
+        launches, fsdp_launches, bf16_launches, numbers = walled(
+            "ddp", phase_ddp, smi)
         log(json.dumps({"ddp_launches": launches,
                         "fsdp_launches": fsdp_launches,
                         "ddp_bf16_launches": bf16_launches, "ddp": numbers}))
+        log_walls(start)
         return 0
     if opts.sp_only:
-        launches, tp_launches, numbers = phase_sp(smi)
+        launches, tp_launches, numbers = walled("sp", phase_sp, smi)
         log(json.dumps({"sp_launches": launches,
                         "fsdp_tp_launches": tp_launches, "sp": numbers}))
+        log_walls(start)
         return 0
     if opts.fsdp_tp_only:
-        launches, numbers = _fsdp_tp_path(smi)
+        launches, numbers = walled("fsdp_tp", _fsdp_tp_path, smi)
         log(json.dumps({"fsdp_tp_launches": launches, "fsdp_tp": numbers}))
+        log_walls(start)
         return 0
     if opts.bf16_only:
-        launches, bf16_rows, numbers = phase_bf16(smi)
+        launches, bf16_rows, numbers = walled("bf16", phase_bf16, smi)
         log(json.dumps({"bf16_launches": launches, "bf16": numbers,
                         "kernels": {k: _bf16_summary(bf16_rows, k)
                                     for k in KERNEL_META}}))
+        log_walls(start)
         return 0
     if opts.metrics_only:
-        launches, seconds = phase_metrics(smi)
+        launches, seconds = walled("metrics", phase_metrics, smi)
         log(json.dumps({"metrics_launches": launches,
                         "metric_seconds": seconds}))
+        log_walls(start)
         return 0
     if opts.train_step_against:
         log(json.dumps({"train_step_against": compare_train_step(
@@ -8412,33 +8629,37 @@ def main(argv) -> int:
         log(json.dumps({"pairwise_bwd_against": compare_pairwise_bwd(
             opts.pairwise_bwd_against)}))
         return 0
-    rows = phase_kernels()
-    model, timings, serve_launches = phase_serve()
-    phase_reference(model)
-    phase_profile(model)
+    rows = walled("kernels", phase_kernels)
+    model, timings, serve_launches = walled("serve", phase_serve)
+    walled("reference", phase_reference, model)
+    walled("profile", phase_profile, model)
     del model
-    train_ms, train_launches, peak, on_step = phase_train()
-    c2_ms, c2_launches, c2_on_step = phase_codebooks_2()
-    phase_loop()
-    two_stage_launches = phase_two_stage()
-    scan_launches, scan_ms = phase_scan()
-    phase_bench()
-    mcq_launches, ct_launches, s3d_on_step = phase_shapes3d()
-    metric_launches, metric_seconds = phase_metrics(smi)
-    search_launches, search_rows, search_numbers = phase_search(smi)
+    train_ms, train_launches, peak, on_step = walled("train", phase_train)
+    c2_ms, c2_launches, c2_on_step = walled("codebooks_2", phase_codebooks_2)
+    walled("loop", phase_loop)
+    two_stage_launches = walled("two_stage", phase_two_stage)
+    scan_launches, accum_launches, scan_ms = walled("scan", phase_scan)
+    walled("bench", phase_bench)
+    mcq_launches, ct_launches, s3d_on_step = walled("shapes3d",
+                                                    phase_shapes3d)
+    metric_launches, metric_seconds = walled("metrics", phase_metrics, smi)
+    search_launches, search_rows, search_numbers = walled(
+        "search", phase_search, smi)
     with tempfile.TemporaryDirectory(prefix="ctvae_celeba_data_") as tmp:
-        standin = _celeba_standin(tmp, smi)
+        standin = walled("celeba_standin", _celeba_standin, tmp, smi)
         (celeba_launches, celeba_vq_launches, tceleba_launches,
-         celeba_vq_rows, tceleba_rows, celeba_numbers) = phase_celeba(smi,
-                                                                      tmp)
+         celeba_vq_rows, tceleba_rows, celeba_numbers) = walled(
+            "celeba", phase_celeba, smi, tmp)
         celeba_numbers["standin"] = standin
         gauss_launches, gauss_vq_launches, gauss_vq_rows, gauss_numbers = \
-            phase_gaussian(smi, tmp)
-    export_launches, export_bf16_launches, export_numbers = phase_export(smi)
+            walled("gaussian", phase_gaussian, smi, tmp)
+    export_launches, export_bf16_launches, export_numbers = walled(
+        "export", phase_export, smi)
     ddp_launches, fsdp_launches, ddp_bf16_launches, ddp_numbers = \
-        phase_ddp(smi)
-    sp_launches, tp_launches, sp_numbers = phase_sp(smi)
-    bf16_launches, bf16_rows, bf16_numbers = phase_bf16(smi)
+        walled("ddp", phase_ddp, smi)
+    sp_launches, tp_launches, sp_numbers = walled("sp", phase_sp, smi)
+    bf16_launches, bf16_rows, bf16_numbers = walled("bf16", phase_bf16,
+                                                    smi)
     kernels = []
     for r in rows:
         source, replaces = KERNEL_META[r["name"]]
@@ -8447,6 +8668,7 @@ def main(argv) -> int:
                    "codebooks_2": c2_launches[r["name"]],
                    "two_stage": two_stage_launches[r["name"]],
                    "scan": scan_launches[r["name"]],
+                   "scan_accum": accum_launches[r["name"]],
                    "shapes3d_mcq": mcq_launches[r["name"]],
                    "shapes3d_ct": ct_launches[r["name"]],
                    "metrics": metric_launches[r["name"]],
@@ -8497,8 +8719,8 @@ def main(argv) -> int:
                         ("celeba_vq", "celeba"))) or any(
             k["launches_by_path"][p] == 0 for k in kernels
            for p in ("train", "codebooks_2", "two_stage", "scan",
-                     "shapes3d_ct", "metrics", "search", "tceleba",
-                     "ddp", "fsdp", "bf16", "ddp_bf16", "sp",
+                     "scan_accum", "shapes3d_ct", "metrics", "search",
+                     "tceleba", "ddp", "fsdp", "bf16", "ddp_bf16", "sp",
                      "fsdp_tp")) or any(
             k["launches_by_path"]["serve"] == 0 for k in kernels
             if EXPECTED["reconstruct"][k["name"]]) or any(
@@ -8514,6 +8736,7 @@ def main(argv) -> int:
                     "celeba": celeba_numbers, "export": export_numbers,
                     "ddp": ddp_numbers, "sp": sp_numbers,
                     "bf16": bf16_numbers}))
+    log_walls(start)
     log(f"chip_smoke wall time {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -8523,4 +8746,9 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    try:
+        sys.exit(main(sys.argv[1:]))
+    except Exception:
+        # the phases' wall seconds up to the failure, beside the traceback
+        print(json.dumps({"wall_s": WALL}), file=sys.stderr, flush=True)
+        raise

@@ -21,16 +21,25 @@ Each gives an ``ArrayFactorDataset``: ``split`` / ``root`` /
 ``list_eval_partition.txt`` (rows of ``_, index, split`` with 0 / 1 / 2 =
 train / valid / test); without one every split is the whole dataset.
 
-``cache_transformed`` transforms the split once into a uint8 array held
-in memory, so a batch is a gather; ``device_normalize`` returns those
-uint8 rows from ``get_batch`` and leaves the /255 to the device
-(``data/prefetch.py``). The JAX package also keeps that cache on disk
-(``tcache_*`` files); the port does not yet (ROADMAP A2).
+``cache_transformed`` transforms the split once into uint8 rows, so a
+batch is a gather; ``device_normalize`` returns those rows from
+``get_batch`` and leaves the /255 to the device (``data/prefetch.py``).
+The cache is kept beside the dataset's files as the JAX package keeps
+it, in the same files, so a folder holds one cache whichever package
+wrote it: ``<folder>/tcache_<split>_c<crop>_<patch>.npy`` (``np.save``'s
+format) and ``.src.json`` (``{"fingerprint", "n"}``). A later open maps
+the file (``mmap_mode="r"``) instead of transforming again, unless its
+row count or the folder's fingerprint (the name, size and mtime of every
+file but the caches) differs, and then rebuilds it. A build writes a
+temporary file and renames it into place; a write that fails raises. A
+dataset with no folder on disk keeps its cache in memory.
 """
 
 from __future__ import annotations
 
 import csv
+import hashlib
+import json
 import os
 from typing import List, Optional, Tuple
 
@@ -97,6 +106,26 @@ def _open_npz_member_mmap(path: str, key: str) -> np.ndarray:
                      shape=shape)
 
 
+def _source_fingerprint(folder: str) -> str:
+    """sha1 over the sorted (relative path, size, mtime_ns) of every file
+    under ``folder`` but the ``tcache_*`` ones (the JAX package's
+    ``_source_fingerprint``): a same-length swap of the dataset's files
+    changes it where the row count cannot."""
+    h = hashlib.sha1()
+    for dirpath, _, names in sorted(os.walk(folder)):
+        for name in sorted(names):
+            if name.startswith("tcache_"):
+                continue
+            p = os.path.join(dirpath, name)
+            try:
+                st = os.stat(p)
+            except OSError:
+                continue
+            rel = os.path.relpath(p, folder)
+            h.update(f"{rel}|{st.st_size}|{st.st_mtime_ns}\n".encode())
+    return h.hexdigest()
+
+
 def _load_split_csv(path: str) -> Tuple[List[int], List[int]]:
     with open(path) as f:
         rows = list(csv.reader(f))[1:]
@@ -136,23 +165,58 @@ class ArrayFactorDataset:
 
         self.device_normalize = bool(device_normalize)
         self._cache: Optional[np.ndarray] = None
+        self.cache_file: Optional[str] = None
+        self.cache_built = False
         if cache_transformed or self.device_normalize:
             self._build_cache()
 
     def _rows(self, raws: np.ndarray) -> np.ndarray:
         return np.asarray(self.images_raw[np.asarray(raws)])
 
+    def _cache_path(self) -> Optional[str]:
+        """The cache's file beside the dataset's (None without a folder on
+        disk: the cache then stays in memory)."""
+        folder = os.path.join(self.root, self.base_folder)
+        if not (self.root and os.path.isdir(folder)):
+            return None
+        ps = self.transform.patch_size
+        ps = ps if isinstance(ps, int) else "x".join(map(str, ps))
+        return os.path.join(
+            folder, f"tcache_{self.split}_c{self.transform.crop}_{ps}.npy")
+
     def _build_cache(self, chunk: int = 4096) -> None:
         """The split transformed once, rounded to uint8 as the JAX cache
-        is (``clip(x * 255 + 0.5)``, truncated)."""
+        is (``clip(x * 255 + 0.5)``, truncated), or the file of an
+        earlier build mapped. ``cache_file`` is the file's path (None in
+        memory) and ``cache_built`` whether this open transformed."""
         n = len(self.index_map)
+        path = self.cache_file = self._cache_path()
+        fp = (_source_fingerprint(os.path.join(self.root, self.base_folder))
+              if path else "")
+        if path and os.path.exists(path):
+            arr = np.load(path, mmap_mode="r")
+            try:
+                with open(path + ".src.json") as f:
+                    meta = json.load(f)
+            except (OSError, ValueError):
+                meta = {}
+            if len(arr) == n and meta.get("fingerprint") == fp:
+                self._cache, self.cache_built = arr, False
+                return
         first = self.transform.batch(self._rows(self.index_map[:1]))
         out = np.empty((n,) + first.shape[1:], np.uint8)
         for lo in range(0, n, chunk):
             raws = self.index_map[lo:lo + chunk]
             out[lo:lo + len(raws)] = np.clip(
                 self.transform.batch(self._rows(raws)) * 255.0 + 0.5, 0, 255)
-        self._cache = out
+        if path:
+            tmp = f"{path}.tmp{os.getpid()}.npy"
+            np.save(tmp, out)
+            os.replace(tmp, path)
+            with open(tmp, "w") as f:
+                json.dump({"fingerprint": fp, "n": n}, f)
+            os.replace(tmp, path + ".src.json")
+        self._cache, self.cache_built = out, True
 
     def __len__(self) -> int:
         return len(self.index_map)

@@ -1,10 +1,15 @@
-"""OxfordPets: ``<root>/OxfordPets/images/*.jpg``, label 0.
+"""OxfordPets: ``<root>/OxfordPets/images/*.jpg`` and ``*.png``, label 0.
 
 Counterpart of ``ctvae_tpu/data/oxford.py``: the sorted file list split
 75 / 25 into train and the rest. Images differ in size, so each is
-decoded by the port's JPEG codec and transformed on its own. The JAX
-package also lists ``.png`` files and reads them with PIL; the port has
-no PNG decoder, and a folder with a ``.png`` raises, naming it.
+decoded and transformed on its own. The decoder is chosen by the file's
+first bytes, not its name (a folder of photos from the web holds files
+whose bytes do not match their extension): a PNG signature goes to
+``utils/images.py::read_png``, a JPEG start-of-image marker to the
+port's JPEG codec, and anything else raises naming the file. Both give
+uint8 RGB as PIL's ``convert("RGB")``, which the JAX package reads every
+file through; the codec refuses a CMYK JPEG, which PIL reads (ROADMAP
+C).
 """
 
 from __future__ import annotations
@@ -15,7 +20,23 @@ from typing import Callable, Optional
 import numpy as np
 
 from .. import native
+from ..utils.images import PNG_SIGNATURE, read_png
 from .transforms import StandardTransform
+
+JPEG_SOI = b"\xff\xd8"
+
+
+def read_image(path: str) -> np.ndarray:
+    """A PNG or JPEG file, told apart by its first bytes -> uint8
+    [h, w, 3]."""
+    with open(path, "rb") as f:
+        head = f.read(len(PNG_SIGNATURE))
+    if head == PNG_SIGNATURE:
+        return read_png(path)
+    if head[:2] == JPEG_SOI:
+        return native.codec().decode(path)
+    raise ValueError(f"{path} is neither a PNG nor a JPEG file (first "
+                     f"bytes {head!r})")
 
 
 class OxfordPets:
@@ -31,11 +52,6 @@ class OxfordPets:
             raise FileNotFoundError(f"OxfordPets images not found at {folder}")
         imgs = sorted(f for f in os.listdir(folder)
                       if f.endswith((".jpg", ".png")))
-        png = [f for f in imgs if f.endswith(".png")]
-        if png:
-            raise NotImplementedError(
-                f"{folder} holds PNG files, which the port does not decode "
-                f"(JPEG only): {png[:5]}")
         cut = int(len(imgs) * 0.75)
         self.filename = imgs[:cut] if split == "train" else imgs[cut:]
         self.indices = self.filename
@@ -46,7 +62,7 @@ class OxfordPets:
     def __getitem__(self, idx: int):
         path = os.path.join(self.root, self.base_folder, "images",
                             self.filename[idx])
-        return self.transform(native.codec().decode(path)), np.float32(0.0)
+        return self.transform(read_image(path)), np.float32(0.0)
 
     def get_batch(self, idxs):
         """(images float32 [B, h, w, 3], labels float32 zeros [B])."""

@@ -15,7 +15,9 @@ Counterpart of ``ctvae_tpu/training/optimizers.py`` (an optax chain there,
   1e-6)``) over the optimised parameters, before the weight decay;
 * ``accumulate_grad_batches`` k: the running mean of k gradients, one
   optimizer update per k calls (optax ``MultiSteps``); the schedule counts
-  updates, not calls.
+  updates, not calls. The mean is kept in fixed buffers, updated in place
+  (``a += (g - a) / (n + 1)`` at mini-step n) and zeroed after each
+  update.
 * ``LR_2`` (adversarial models, FactorVAE): a second Adam(LR_2) with
   weight decay 0 and the same clip over the parameters under the
   top-level submodules named ``submodel...`` (all of them without
@@ -33,9 +35,11 @@ On a CUDA device the update can be captured into a CUDA graph
 (``training/state.py::make_multi_train_step``): the learning rate is a
 device tensor, filled from the schedule before each update outside any
 graph, and Adam runs with ``capturable=True`` (its step count on the
-device too). The eager update on the card runs the same arithmetic, so a
-replayed graph and eager steps agree bit for bit. On the CPU Adam keeps
-its host learning rate.
+device too). So is the accumulation's divisor n + 1, filled before each
+mini-step, so that one graph serves every mini-step but the last. The
+eager update on the card runs the same arithmetic, so a replayed graph
+and eager steps agree bit for bit. On the CPU Adam keeps its host
+learning rate and the mean divides by the host's n + 1.
 """
 
 from __future__ import annotations
@@ -75,8 +79,8 @@ class Optimizer:
         self.grad_norm = grad_norm
         device = self.params[0].device
         # on the card: a device LR and capturable Adam (see the module doc)
-        self.lr = (torch.tensor(float(lr), device=device)
-                   if device.type == "cuda" else None)
+        on_card = device.type == "cuda"
+        self.lr = torch.tensor(float(lr), device=device) if on_card else None
         self.adam = torch.optim.Adam(
             self.params, lr=lr if self.lr is None else self.lr,
             weight_decay=weight_decay, capturable=self.lr is not None)
@@ -86,11 +90,46 @@ class Optimizer:
         self.count = 0          # optimizer updates made so far
         self.mini_step = 0      # gradients accumulated toward the next one
         self.version = 0        # state loads so far (a graph holds the state)
+        # the running mean of the gradients (zeros between updates) and,
+        # on the card, the divisor of the next mini-step
         self._acc: Optional[List[torch.Tensor]] = None
+        self._div = (torch.ones((), device=device)
+                     if on_card and accumulate > 1 else None)
 
-    def _grads(self) -> List[torch.Tensor]:
-        return [p.grad if p.grad is not None else torch.zeros_like(p)
-                for p in self.params]
+    def started(self) -> bool:
+        """Whether Adam holds its moments (created by the first update)."""
+        return bool(self.adam.state)
+
+    def acc_buffers(self) -> List[torch.Tensor]:
+        """The accumulation's buffers, made (zero) at first use."""
+        if self._acc is None:
+            self._acc = [torch.zeros_like(p) for p in self.params]
+        return self._acc
+
+    def set_div(self) -> None:
+        """On the card, the divisor of mini-step ``mini_step`` into the
+        device scalar that ``accumulate_grads`` (and a graph captured from
+        it) reads."""
+        if self._div is not None:
+            self._div.fill_(self.mini_step + 1)
+
+    def accumulate_grads(self) -> None:
+        """The device work of a mini-step: the current gradients (zero
+        where a parameter has none) into the running mean, in place."""
+        div = self.mini_step + 1 if self._div is None else self._div
+        for a, p in zip(self.acc_buffers(), self.params):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            a.add_((g - a) / div)
+
+    def take_mean(self) -> None:
+        """The device work after the last mini-step: the mean into
+        ``p.grad`` and the buffers zeroed for the next update."""
+        for p, a in zip(self.params, self._acc):
+            if p.grad is None:
+                p.grad = a.clone()
+            else:
+                p.grad.copy_(a)
+        torch._foreach_zero_(self._acc)
 
     def set_lr(self) -> None:
         """The schedule's LR of update ``count`` into Adam's group: a Python
@@ -119,18 +158,13 @@ class Optimizer:
         """Take the current gradients; returns whether the parameters were
         updated (always, unless accumulating)."""
         if self.accumulate > 1:
-            grads = self._grads()
-            if self._acc is None:
-                self._acc = [torch.zeros_like(g) for g in grads]
-            n = self.mini_step
-            self._acc = [a + (g - a) / (n + 1)
-                         for a, g in zip(self._acc, grads)]
+            self.set_div()
+            self.accumulate_grads()
             self.mini_step += 1
             if self.mini_step < self.accumulate:
                 return False
-            for p, a in zip(self.params, self._acc):
-                p.grad = a
-            self._acc, self.mini_step = None, 0
+            self.take_mean()
+            self.mini_step = 0
         self.set_lr()
         self.update()
         self.count += 1
@@ -138,16 +172,20 @@ class Optimizer:
 
     def state_dict(self) -> Dict[str, Any]:
         """Adam's moments and step, the schedule position and the
-        accumulation in progress."""
+        accumulation in progress (a copy of the running mean, None
+        between updates)."""
+        acc = (None if self.mini_step == 0 or self._acc is None
+               else [a.clone() for a in self._acc])
         return {"adam": self.adam.state_dict(), "count": self.count,
-                "mini_step": self.mini_step, "acc": self._acc}
+                "mini_step": self.mini_step, "acc": acc}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Load ``state_dict()``'s output, also one saved on another
         device, or with Adam in the other form (capturable or not):
         torch's load takes the saved groups' settings, so the form of this
         device is put back, with Adam's step counts where it keeps them
-        (on the parameter's device when capturable, else on the host)."""
+        (on the parameter's device when capturable, else on the host).
+        The running mean is copied into this optimizer's buffers."""
         self.adam.load_state_dict(state["adam"])
         capturable = self.lr is not None
         for group in self.adam.param_groups:
@@ -159,9 +197,11 @@ class Optimizer:
                         p.device if capturable else "cpu", torch.float32)
         self.version += 1
         self.count, self.mini_step = state["count"], state["mini_step"]
-        self._acc = (None if state["acc"] is None else
-                     [a.to(p.device) for a, p in zip(state["acc"],
-                                                     self.params)])
+        if state["acc"] is not None:
+            for a, saved in zip(self.acc_buffers(), state["acc"]):
+                a.copy_(saved)
+        elif self._acc is not None:
+            torch._foreach_zero_(self._acc)
 
 
 def _trained(model: nn.Module, prefix: Optional[str], fsdp=None

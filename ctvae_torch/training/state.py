@@ -294,7 +294,8 @@ class _Graph:
 
 def _bound(state: TrainState) -> Tuple:
     """What a captured graph reads and writes by address: the model, the
-    generator, the optimizers and their state (changed by a load)."""
+    generator, the optimizers and their state (Adam's moments, the LR and
+    divisor scalars, the accumulation's buffers; changed by a load)."""
     return (state.model, state.generator, *state.optimizers,
             *[opt.version for opt in state.optimizers])
 
@@ -313,15 +314,24 @@ class MultiTrainStep:
     the state's batch or model group is a gloo group of more than one
     rank: a CUDA graph cannot hold gloo's collectives, so the K steps run
     as an eager loop with the values of K single steps. Else, on the
-    card, the first ``WARMUP_STEPS`` steps of a batch shape run eagerly
-    on a side stream; then one whole step (gradients, ``grad_norm``, the optimizers'
-    updates) is captured into a CUDA graph that reads static input
-    buffers, and every later step copies its batch into them, fills the
-    optimizers' LR and replays the graph. The train generator is
-    registered with the graph, so each replay advances it as an eager
-    step does. A failed capture raises. The graphs hold the train state
-    by address: a call with another state, or after a load of its
-    optimizers' state, raises (make a new ``MultiTrainStep``).
+    card, the first ``WARMUP_STEPS`` steps of a batch shape (and with
+    ``accumulate_grad_batches`` k > 1 any more until the optimizer has
+    made its first update, which creates Adam's moments) run eagerly on a
+    side stream; then the step is captured into CUDA graphs that read
+    static input buffers: one graph of the whole step (gradients,
+    ``grad_norm``, the optimizer's update), or with k > 1 two, an
+    *accumulate* graph (gradients, the running mean, no update) and an
+    *apply* graph (gradients, the mean into ``p.grad``, the clip, Adam,
+    the mean's buffers zeroed). Every later step copies its batch into the
+    buffers, fills the optimizer's accumulation divisor and LR, chooses
+    the graph by the host's ``mini_step`` (apply at the k-th) and replays
+    it, so the phases run on across calls whatever K and k are, and only
+    an apply advances ``count`` (the schedule counts updates, as JAX's
+    ``MultiSteps`` does). The train generator is registered with the
+    graphs, so each replay advances it as an eager step does. A failed
+    capture raises. The graphs hold the train state by address: a call
+    with another state, or after a load of its optimizers' state, raises
+    (make a new ``MultiTrainStep``).
 
     ``graphed`` says whether the last call replayed a graph (False after
     an eager loop, before the first capture or during the warm-up);
@@ -339,15 +349,17 @@ class MultiTrainStep:
         self.graphed = False
         self._step = make_train_step(mode, watch_modules, M_N)
         self._bound: Optional[Tuple] = None
-        self._graphs: Dict[Tuple, _Graph] = {}
+        # per batch shape: the graph of each phase ("apply", "accumulate")
+        self._graphs: Dict[Tuple, Dict[str, _Graph]] = {}
         self._warm: Dict[Tuple, int] = {}    # eager steps per batch shape
 
     def replayed_launches(self) -> Dict[str, int]:
         """Kernel launches made by the replays so far, by kernel name."""
         out: Dict[str, int] = {}
-        for g in self._graphs.values():
-            for k, n in g.launches.items():
-                out[k] = out.get(k, 0) + n * g.replays
+        for graphs in self._graphs.values():
+            for g in graphs.values():
+                for k, n in g.launches.items():
+                    out[k] = out.get(k, 0) + n * g.replays
         return out
 
     def __call__(self, state: TrainState, batches: Dict[str, torch.Tensor]
@@ -372,10 +384,6 @@ class MultiTrainStep:
             for b in batch:
                 metrics = self._step(state, b)
             return metrics
-        if any(opt.accumulate > 1 for opt in state.optimizers):
-            raise NotImplementedError(
-                "accumulate_grad_batches > 1 with a multi-step train step "
-                "is not ported yet: ROADMAP A4")
         bound = _bound(state)
         if self._bound is None:
             self._bound = bound
@@ -384,33 +392,41 @@ class MultiTrainStep:
             raise ValueError("this multi-step train step holds graphs of "
                              "another train state (or of its optimizers' "
                              "state before a load): make a new one")
+        opt = state.optimizers[0]
         key = tuple((k, tuple(v.shape[1:]), v.dtype)
                     for k, v in sorted(batches.items()))
-        g = self._graphs.get(key)
-        i = 0 if g is not None else min(
-            len(batch), WARMUP_STEPS - self._warm.get(key, 0))
-        if i:
+        graphs = self._graphs.get(key)
+        i = 0
+        if graphs is None:
             # eager warm-up steps on a side stream
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
-                for b in batch[:i]:
-                    metrics = self._step(state, b)
+                while i < len(batch) and (
+                        self._warm.get(key, 0) < WARMUP_STEPS
+                        or not opt.started()):
+                    metrics = self._step(state, batch[i])
+                    self._warm[key] = self._warm.get(key, 0) + 1
+                    i += 1
             torch.cuda.current_stream().wait_stream(side)
-            self._warm[key] = self._warm.get(key, 0) + i
             if i == len(batch):
                 return metrics
-        if g is None:
-            g = self._graphs[key] = self._capture(state, batch[i])
+            graphs = self._graphs[key] = self._capture(state, batch[i])
         for b in batch[i:]:
+            apply = opt.mini_step + 1 >= opt.accumulate
+            g = graphs["apply" if apply else "accumulate"]
             for name, buf in g.inputs.items():
                 buf.copy_(b[name])
-            for opt in state.optimizers:
+            opt.set_div()
+            if apply:
                 opt.set_lr()
             state.step_tensor()
             g.graph.replay()
-            for opt in state.optimizers:
+            if apply:
                 opt.count += 1
+                opt.mini_step = 0
+            else:
+                opt.mini_step += 1
             state.step += 1
             g.replays += 1
             self.replays += 1
@@ -418,15 +434,24 @@ class MultiTrainStep:
         return {k: v.clone() for k, v in g.metrics.items()}
 
     def _capture(self, state: TrainState, batch: Dict[str, torch.Tensor]
-                 ) -> _Graph:
-        """Capture one step (gradients, ``grad_norm``, the optimizers'
-        updates) reading copies of ``batch``. The capture runs the step's
-        Python once and no work on the card, so the kernels' launch
-        counters are put back."""
+                 ) -> Dict[str, _Graph]:
+        """Capture the step's graphs (``apply``, and with accumulation
+        ``accumulate``) reading one set of copies of ``batch``. A capture
+        runs the step's Python once and no work on the card, so the
+        kernels' launch counters are put back."""
         inputs = {k: v.clone() for k, v in batch.items()}
-        for opt in state.optimizers:
-            opt.set_lr()            # the groups read the LR tensors
+        opt = state.optimizers[0]
+        opt.set_lr()                # the group reads the LR tensor
         step = state.step_tensor()  # and the losses the step's
+        phases = ("apply",)
+        if opt.accumulate > 1:
+            opt.acc_buffers()       # made outside the graphs' memory
+            phases = ("accumulate", "apply")
+        return {ph: self._capture_one(state, inputs, step, ph == "apply")
+                for ph in phases}
+
+    def _capture_one(self, state: TrainState, inputs, step: torch.Tensor,
+                     apply: bool) -> _Graph:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
         before = launch_counts()
@@ -436,7 +461,12 @@ class MultiTrainStep:
                 if self.watch_modules:
                     metrics.update(_module_norms(state, "grad_norm", True))
                 for opt in state.optimizers:
-                    opt.update()
+                    if opt.accumulate > 1:
+                        opt.accumulate_grads()
+                        if apply:
+                            opt.take_mean()
+                    if apply:
+                        opt.update()
                 if self.watch_modules:
                     metrics.update(_param_norms(state))
         finally:

@@ -329,14 +329,21 @@ def test_oxford_pets_matches_jax(tmp_path, split):
 
 
 def test_oxford_pets_png_raises(tmp_path):
-    """The JAX package reads a ``.png`` with PIL; the port, which decodes
-    JPEG only, raises naming it."""
+    """The port lists and reads a ``.png`` as the JAX package does (PIL),
+    the same pixels; a ``.png`` whose bytes are no image raises naming
+    it, as PIL does."""
     from ctvae_torch.data.oxford import OxfordPets
     from ctvae_tpu.data.oxford import OxfordPets as JOxfordPets
     root = _write_oxford(str(tmp_path), png=True)
-    assert "pet_9.png" in JOxfordPets(root, split="test").filename
-    with pytest.raises(NotImplementedError, match="pet_9.png"):
-        OxfordPets(root)
+    t, j = OxfordPets(root, split="test"), JOxfordPets(root, split="test")
+    assert "pet_9.png" in t.filename and t.filename == j.filename
+    i = t.filename.index("pet_9.png")
+    close(t[i][0], j[i][0], atol=PIL_ATOL, rtol=0)
+    with open(os.path.join(root, "OxfordPets", "images", "pet_9.png"),
+              "wb") as f:
+        f.write(b"not an image")
+    with pytest.raises(ValueError, match="pet_9.png"):
+        t[i]
 
 
 # --- the stand-in ---------------------------------------------------------------

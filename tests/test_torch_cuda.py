@@ -756,6 +756,94 @@ def test_multi_train_step_graph_equals_eager_steps(card, mode):
 
 
 @pytest.mark.parametrize("mode", ["base", "action", "causal"])
+def test_multi_train_step_graph_with_accumulation_equals_eager_steps(card,
+                                                                     mode):
+    """``accumulate_grad_batches`` 3 under ``make_multi_train_step(mode,
+    4)``: a small CT-MCQ-VAE trained 12 steps eagerly and through three
+    calls from an equal state (the accumulation's phases wrap across the
+    calls; after the warm-up every step replays the accumulate or the
+    apply graph), and through a state loaded from the second one's after
+    its first call (one gradient of an update accumulated, its running
+    mean that of the eager steps) and continued by a new multi-step call:
+    every parameter and Adam moment within 1e-6 of its largest magnitude,
+    the means zero after the last update; ``count``, ``mini_step``,
+    the steps and the generators equal; both graphs make every kernel
+    launch of an eager step."""
+    import copy
+    from ctvae_torch.models import build_model
+    from ctvae_torch.ops import launch_counts
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_multi_train_step, make_train_step)
+    from ctvae_torch.training.state import WARMUP_STEPS
+    cfg = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8,
+               action_dim=8, hidden_dims=[8, 16], num_embeddings=8,
+               img_size=16, codebooks=2, causal_hidden_dims=[16, 8],
+               noise="off")
+    exp = dict(LR=5e-4, scheduler_gamma=0.9, weight_decay=0.0,
+               gradient_clip_val=0.5, accumulate_grad_batches=3)
+    states = []
+    for _ in range(3):
+        m = build_model(cfg, device=card,
+                        generator=torch.Generator("cuda").manual_seed(0))
+        states.append(create_train_state(m, build_optimizers(exp, m, 2),
+                                         seed=5))
+    g = torch.Generator().manual_seed(6)
+    stacked = {"image": torch.rand(12, 3, 16, 16, 3, generator=g),
+               "input_y": torch.rand(12, 3, 16, 16, 3, generator=g),
+               "action": torch.eye(8)[torch.randint(0, 8, (12, 3),
+                                                    generator=g)]}
+    stacked = {k: v.cuda() for k, v in stacked.items()}
+    calls = [{k: v[i:i + 4] for k, v in stacked.items()} for i in (0, 4, 8)]
+    step = make_train_step(mode)
+    before = launch_counts()
+    step(states[0], {k: v[0] for k, v in stacked.items()})
+    per_step = {k: n - before[k] for k, n in launch_counts().items()}
+    for i in range(1, 12):
+        step(states[0], {k: v[i] for k, v in stacked.items()})
+        if i == 3:
+            mean4 = [a.clone() for a in states[0].optimizers[0].acc_buffers()]
+    eager, graph, loaded = states
+    multi = make_multi_train_step(mode, 4)
+    multi(graph, calls[0])
+    saved = copy.deepcopy(graph.state_dict())
+    assert saved["optimizers"][0]["mini_step"] == 1
+    assert any(a.any() for a in mean4)
+    for a, b in zip(mean4, saved["optimizers"][0]["acc"]):
+        assert float((a - b).abs().max()) <= 1e-6 * float(a.abs().max())
+    for c in calls[1:]:
+        multi(graph, c)
+    loaded.load_state_dict(saved)
+    again = make_multi_train_step(mode, 4)
+    for c in calls[1:]:
+        again(loaded, c)
+    assert multi.graphed and again.graphed
+    assert multi.replays == 12 - WARMUP_STEPS
+    assert again.replays == 8 - WARMUP_STEPS
+    for m in (multi, again):
+        [graphs] = m._graphs.values()
+        assert set(graphs) == {"accumulate", "apply"}
+        assert m.replayed_launches() == {k: n * m.replays
+                                         for k, n in per_step.items()}
+    for other in (graph, loaded):
+        for a, b in zip(eager.model.parameters(), other.model.parameters()):
+            a, b = a.detach(), b.detach()
+            assert float((a - b).abs().max()) <= 1e-6 * float(a.abs().max())
+        for oa, ob in zip(eager.optimizers, other.optimizers):
+            assert (oa.count, oa.mini_step) == (ob.count, ob.mini_step) \
+                == (4, 0)
+            for pa, pb in zip(oa.params, ob.params):
+                for k, va in oa.adam.state.get(pa, {}).items():
+                    vb = ob.adam.state[pb][k]
+                    assert float((va - vb).abs().max()) <= \
+                        1e-6 * float(va.abs().max()), k
+            for a, b in zip(oa.acc_buffers(), ob.acc_buffers()):
+                assert not b.any() and not a.any()
+        assert eager.step == other.step == 12
+        assert torch.equal(eager.generator.get_state(),
+                           other.generator.get_state())
+
+
+@pytest.mark.parametrize("mode", ["base", "action", "causal"])
 def test_multi_train_step_graph_with_ema_equals_eager_steps(card, mode):
     """A small CT-MCQ-VAE with the EMA codebook (revival at threshold 0.5
     drawing from the train generator), the rotation estimator and the
@@ -844,6 +932,65 @@ def test_scan_steps_epoch_on_card_equals_per_step(card):
         p, q = p.detach(), q.detach()
         assert float((p - q).abs().max()) <= 1e-6 * float(p.abs().max())
     for oa, ob in zip(a.optimizers, b.optimizers):
+        for pa, pb in zip(oa.params, ob.params):
+            for k, va in oa.adam.state.get(pa, {}).items():
+                vb = ob.adam.state[pb][k]
+                assert float((va - vb).abs().max()) <= \
+                    1e-6 * float(va.abs().max()), k
+
+
+def test_scan_steps_epochs_with_accumulation_on_card_resume(card):
+    """``VAEXperiment`` with ``scan_steps: 4`` and ``accumulate_grad_batches:
+    4`` on the card: an epoch of 30 TSynthetic batches (a block of four
+    causal ones through the captured graphs, the rest step by step) ends
+    two batches into an accumulation; its state, saved and loaded into a
+    new experiment, trains the next epoch (again with a block of four)
+    to the state two epochs of ``scan_steps: 1`` in one run leave: every
+    parameter and Adam moment within 1e-6 of its largest magnitude, the
+    update counts, ``mini_step``, generators and steps equal."""
+    import copy
+    from ctvae_torch.data import VAEDataset
+    from ctvae_torch.models import build_model
+    from ctvae_torch.training import VAEXperiment
+    cfg = dict(name="CTMCQVAE", in_channels=3, embedding_dim=8,
+               action_dim=8, hidden_dims=[8, 16], num_embeddings=8,
+               img_size=16, codebooks=2, causal_hidden_dims=[16, 8],
+               noise="off")
+
+    def experiment(k):
+        data = VAEDataset("", dataset_name="TSynthetic", train_batch_size=4,
+                          val_batch_size=4, patch_size=16, limit=40,
+                          val_limit=8, seed=5)
+        data.setup()
+        m = build_model(cfg, device=card,
+                        generator=torch.Generator("cuda").manual_seed(0))
+        exp = VAEXperiment(m, dict(LR=5e-4, scan_steps=k,
+                                   accumulate_grad_batches=4), data)
+        exp.setup(seed=3)
+        return exp
+
+    straight, first = experiment(1), experiment(4)
+    for epoch in (0, 1):
+        straight.train_epoch(epoch)
+    first.train_epoch(0)
+    saved = copy.deepcopy(first.state.state_dict())
+    assert (saved["optimizers"][0]["count"],
+            saved["optimizers"][0]["mini_step"]) == (7, 2)
+    resumed = experiment(4)
+    resumed.state.load_state_dict(saved)
+    resumed.train_epoch(1)
+    for exp in (first, resumed):
+        multi = exp._multi_steps
+        assert list(multi) == ["causal"] and multi["causal"].replays == 1
+        assert multi["causal"].graphed
+    a, b = straight.state, resumed.state
+    assert a.step == b.step == 60
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        p, q = p.detach(), q.detach()
+        assert float((p - q).abs().max()) <= 1e-6 * float(p.abs().max())
+    for oa, ob in zip(a.optimizers, b.optimizers):
+        assert (oa.count, oa.mini_step) == (ob.count, ob.mini_step) == (15, 0)
         for pa, pb in zip(oa.params, ob.params):
             for k, va in oa.adam.state.get(pa, {}).items():
                 vb = ob.adam.state[pb][k]

@@ -173,15 +173,20 @@ def test_transform_cache_matches_jax(tmp_path, monkeypatch, jax_native,
                                      cache, normalize):
     """``cache_transformed`` / ``device_normalize``: the same uint8 rows
     (rounded as JAX rounds, one level apart at most where the two
-    transforms straddle a half) and float images; factors exactly."""
-    _standin("dsprites", tmp_path, monkeypatch)
+    transforms straddle a half) and float images; factors exactly. Each
+    package builds its cache from a stand-in of its own (the same bytes),
+    since each would map the other's ``tcache_*`` file."""
+    roots = {k: tmp_path / k for k in ("jax", "port")}
+    for root in roots.values():
+        root.mkdir()
+        _standin("dsprites", root, monkeypatch)
     kw = dict(split="train", cache_transformed=cache,
               device_normalize=normalize)
-    j = jdd.load_dsprites(str(tmp_path),
+    j = jdd.load_dsprites(str(roots["jax"]),
                           transform=jtr.StandardTransform(32, 148), **kw)
-    t = tdd.load_dsprites(str(tmp_path),
+    t = tdd.load_dsprites(str(roots["port"]),
                           transform=ttr.StandardTransform(32, 148), **kw)
-    assert t._cache.dtype == np.uint8
+    assert t.cache_built and t._cache.dtype == np.uint8
     np.testing.assert_allclose(t._cache.astype(int),
                                np.asarray(j._cache).astype(int), atol=1)
     idxs = np.arange(len(t))[::-1]
