@@ -87,7 +87,7 @@ same widths (phase "loop"). Then more phases:
   (c) make the path ``search``.
 
 * celeba: the port's JPEG codec built (``ctvae_torch/native``: nvJPEG
-  on a machine without libjpeg) and a CelebA stand-in of 4,800 JPEGs of
+  on a machine without libjpeg) and a CelebA stand-in of 8,000 JPEGs of
   178 x 218 written in a temporary directory (quality 80; the smoke's own
   80 / 10 / 10 split and attribute file; ``variation_attrs_10.txt``),
   then (c) the decode of a batch of 64 against the arrays it was
@@ -2219,7 +2219,7 @@ SHAPES3D_GRID = (4, 4, 4, 8, 4, 15)
 SHAPES3D_LIMIT = 112       # per mode: 7 TShapes3D train batches of 16
 SHAPES3D_VAL_LIMIT = 64    # per mode: 4 validation batches of 16
 LOADER_BATCHES = 20        # batches timed out of each config's loader
-SHAPES3D_EPOCH_BATCHES = 96   # steps of each epoch timed in turns
+SHAPES3D_EPOCH_BATCHES = 48   # steps of each epoch timed in turns
 
 
 def _headline_config(name: str, root: str, logs: str) -> dict:
@@ -5149,16 +5149,15 @@ def phase_gaussian(smi: str, celeba_root: str) -> tuple:
 
 # --- phase 13: the JPEG datasets ---------------------------------------------
 
-CELEBA_N = 4_800           # stand-in images: 3,840 / 480 / 480 (epochs
-                           # of 60 steps at B = 64; 16,000 until the
-                           # smoke grew past 900 s, then 8,000 until it
-                           # neared its limit)
+CELEBA_N = 8_000           # stand-in images: 6,400 / 800 / 800 (epochs
+                           # of 100 steps at B = 64; 16,000 until the
+                           # smoke grew past 900 s)
 #: configs trained one epoch through run.train on the stand-in, as written
 #: but for data_path (vq_vae's VQ search makes the path celeba_vq)
 CELEBA_RUNS = ("vae", "vq_vae", "cvae")
 CELEBA_DECODE_B = 64       # files of the decode check, a batch of B = 64
 CELEBA_DECODE_REPS = 11    # timed decodes of that batch
-CELEBA_EPOCH_BATCHES = 32  # steps of each epoch timed in turns
+CELEBA_EPOCH_BATCHES = 16  # steps of each epoch timed in turns
 TCELEBA_ACTIONS = 20       # 2 x 10 variations of TCeleba: 21 GAT heads
 TCELEBA_LIMIT = 384        # per mode: 24 TCeleba train batches of 16
 TCELEBA_VAL_LIMIT = 64     # per mode: 4 validation batches of 16
