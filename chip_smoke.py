@@ -94,7 +94,8 @@ same widths (phase "loop"). Then more phases:
   rendered from and of the committed libjpeg reference
   (``tests/torch_jpeg_reference.npz``) against libjpeg's pixels, the
   decode's and the transform's host ms, the transform's products on the
-  card against the CPU; (d) ``run.train`` of ``configs/vae.yaml``,
+  card against the CPU, ``read_png`` of a photo-sized Paeth-filtered PNG
+  (exact, and its host ms); (d) ``run.train`` of ``configs/vae.yaml``,
   ``vq_vae.yaml`` and ``cvae.yaml`` with ``dataset_name: Celeba`` as
   written (one epoch each), the loader's host ms and its share of each
   epoch (steps in turns with batches held and inline), VQVAE's VQ
@@ -256,6 +257,7 @@ import math
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2219,7 +2221,9 @@ SHAPES3D_GRID = (4, 4, 4, 8, 4, 15)
 SHAPES3D_LIMIT = 112       # per mode: 7 TShapes3D train batches of 16
 SHAPES3D_VAL_LIMIT = 64    # per mode: 4 validation batches of 16
 LOADER_BATCHES = 20        # batches timed out of each config's loader
-SHAPES3D_EPOCH_BATCHES = 48   # steps of each epoch timed in turns
+SHAPES3D_EPOCH_BATCHES = 24   # steps of each turn of the epoch
+#: the turns of the Shapes3D epochs, in an order that balances warm-up
+SHAPES3D_TURNS = ("held", "thread", "inline", "inline", "thread", "held")
 
 
 def _headline_config(name: str, root: str, logs: str) -> dict:
@@ -2423,8 +2427,8 @@ def phase_shapes3d() -> tuple:
     (the MCQVAE's base, the CT model's base, action and causal) held
     against the plain version (``_vq_on_path``) and every other kernel
     call of the CT steps too (``_kernels_on_step``); and the epoch's first
-    ``SHAPES3D_EPOCH_BATCHES`` steps in turns three ways (``_EpochOf``),
-    which give the loader's share of the epoch. Returns the two paths'
+    ``SHAPES3D_EPOCH_BATCHES`` steps in turns three ways (``_EpochOf``,
+    ``SHAPES3D_TURNS``), which give the loader's share of the epoch. Returns the two paths'
     launches and the checks on the steps."""
     import tempfile
     from ctvae_torch import run
@@ -2550,13 +2554,13 @@ def phase_shapes3d() -> tuple:
                 for which in ("fwd", "bwd"):
                     on_step[f"gat_logits_{which}"] = {"shapes3d": {
                         m: v["logits"][which] for m, v in found.items()}}
-            # the epoch in turns (ABC): its batches held, assembled ahead
-            # on a host thread, assembled inline as the port does
+            # the epoch in turns (ABCCBA): its batches held, assembled
+            # ahead on a host thread, assembled inline as the port does
             n = min(SHAPES3D_EPOCH_BATCHES, data.steps_per_epoch())
             ways = {how: _EpochOf(data, n, how)
                     for how in ("held", "thread", "inline")}
             turns = {how: [] for how in ways}
-            for how in ("held", "thread", "inline"):
+            for how in SHAPES3D_TURNS:
                 turns[how].append(_epoch_ms(model, exp, ways[how], B))
             ms = {how: statistics.mean(v) for how, v in turns.items()}
             # what the loader adds to the epoch the port runs
@@ -4147,8 +4151,8 @@ LAST_RUNS = ("dfc_vae", "factorvae")
 # spread of the card's gradients, 0 under deterministic cuDNN
 FACTORVAE_RERUNS = 4
 LAST_EPOCH_STEPS = 50     # the first step that logs (log_every 50)
-#: the turns of the epochs that pace the CelebA configs
-PACE_TURNS = ("held", "inline")
+#: the turns of the epochs that pace the CelebA configs (ABBA)
+PACE_TURNS = ("held", "inline", "inline", "held")
 LAST_VAL_BATCHES = 10
 
 
@@ -5157,7 +5161,7 @@ CELEBA_N = 8_000           # stand-in images: 6,400 / 800 / 800 (epochs
 CELEBA_RUNS = ("vae", "vq_vae", "cvae")
 CELEBA_DECODE_B = 64       # files of the decode check, a batch of B = 64
 CELEBA_DECODE_REPS = 11    # timed decodes of that batch
-CELEBA_EPOCH_BATCHES = 16  # steps of each epoch timed in turns
+CELEBA_EPOCH_BATCHES = 8  # steps of each turn of the epoch
 TCELEBA_ACTIONS = 20       # 2 x 10 variations of TCeleba: 21 GAT heads
 TCELEBA_LIMIT = 384        # per mode: 24 TCeleba train batches of 16
 TCELEBA_VAL_LIMIT = 64     # per mode: 4 validation batches of 16
@@ -5171,9 +5175,9 @@ DECODE_REF_MAX, DECODE_REF_MEAN = 64, 2.0
 DECODE_Q80_MAX, DECODE_Q80_MEAN = 160, 6.0
 
 
-def _celeba_standin(root: str, smi: str) -> dict:
+def _celeba_standin(root: str, smi: str, n: int = CELEBA_N) -> dict:
     """The port's JPEG codec built and probed, then the CelebA stand-in
-    under ``root``: CELEBA_N images rendered and encoded at quality 80
+    under ``root``: ``n`` images rendered and encoded at quality 80
     (``ensure_celeba_standin``), a split in torchvision's proportions
     over them and an attribute file (``label_celeba_standin``: the
     script's split puts every image of a stand-in this small in train,
@@ -5192,9 +5196,9 @@ def _celeba_standin(root: str, smi: str) -> dict:
         f"{codec.build_s:.2f} s (loaded in {out['codec_load_s']:.2f} s); "
         f"{out['nproc']} host cores ({smi})")
     t0 = time.perf_counter()
-    ensure_celeba_standin(root, CELEBA_N)
+    ensure_celeba_standin(root, n)
     out["write_s"] = time.perf_counter() - t0
-    out["split"] = label_celeba_standin(root, CELEBA_N)
+    out["split"] = label_celeba_standin(root, n)
     t0 = time.perf_counter()
     path = generate_celeba(root)
     out["variations_s"] = time.perf_counter() - t0
@@ -5203,11 +5207,11 @@ def _celeba_standin(root: str, smi: str) -> dict:
     folder = os.path.join(root, "celeba", "img_align_celeba")
     out["jpeg_mb"] = sum(os.path.getsize(os.path.join(folder, n))
                          for n in os.listdir(folder)) / 1e6
-    log(f"celeba stand-in: {CELEBA_N} images of 178 x 218 rendered and "
+    log(f"celeba stand-in: {n} images of 178 x 218 rendered and "
         f"encoded at quality 80 in {out['write_s']:.2f} s "
         f"({out['jpeg_mb']:.1f} MB of JPEG); the smoke's own split "
         f"{json.dumps(out['split'])} (torchvision's proportions; the "
-        f"stand-in writer's split puts all {CELEBA_N} in train) and "
+        f"stand-in writer's split puts all {n} in train) and "
         f"attribute file; variation_attrs_10.txt: {out['transitions']} "
         f"transitions in {out['variations_s']:.2f} s ({smi})")
     return out
@@ -5295,6 +5299,54 @@ def _decode_check(root: str, smi: str) -> dict:
     return out
 
 
+#: a photo's size for the PNG decode (H, W): OxfordPets' typical image
+PNG_PHOTO = (375, 500)
+PNG_DECODES = 3
+
+
+def _png_decode_check() -> dict:
+    """``read_png`` on a photo-sized RGB PNG whose every row is Paeth
+    filtered (the filter encoders choose most for photos): the pixels
+    back exactly, and the host ms of a decode (median of PNG_DECODES)."""
+    import zlib
+    from ctvae_torch.utils.images import _png_chunk, read_png
+    h, w = PNG_PHOTO
+    rng = torch.Generator().manual_seed(SEED)
+    img = torch.randint(0, 16, (h, w, 3), generator=rng).cumsum(1)
+    img = (img + torch.arange(h)[:, None, None]).remainder(256).to(
+        torch.int16)
+    pad = torch.nn.functional.pad(img, (0, 0, 1, 0, 1, 0))
+    a, b, c = pad[1:, :-1], pad[:-1, 1:], pad[:-1, :-1]
+    p = a + b - c
+    pa, pb, pc = (p - a).abs(), (p - b).abs(), (p - c).abs()
+    pred = torch.where((pa <= pb) & (pa <= pc), a,
+                       torch.where(pb <= pc, b, c))
+    rows = torch.cat([torch.full((h, 1), 4, dtype=torch.int16),
+                      ((img - pred) & 0xFF).reshape(h, -1)], 1)
+    data = (b"\x89PNG\r\n\x1a\n"
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
+                                              0))
+            + _png_chunk(b"IDAT", zlib.compress(
+                rows.to(torch.uint8).numpy().tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+    with tempfile.TemporaryDirectory(prefix="ctvae_png_") as tmp:
+        path = os.path.join(tmp, "paeth.png")
+        with open(path, "wb") as f:
+            f.write(data)
+        times = []
+        for _ in range(PNG_DECODES):
+            t0 = time.perf_counter()
+            out = read_png(path)
+            times.append(1e3 * (time.perf_counter() - t0))
+    if not torch.equal(torch.from_numpy(out), img.to(torch.uint8)):
+        raise AssertionError("read_png of a Paeth-filtered PNG differs from "
+                             "its pixels")
+    ms = statistics.median(times)
+    log(f"read_png: {w}x{h} RGB, every row Paeth, {ms:.3f} ms a decode on "
+        f"the host (median of {PNG_DECODES}); pixels exact")
+    return {"shape": [h, w, 3], "ms": ms, "ms_each": times}
+
+
 def _epoch_pace(label: str, model, exp: dict, data, host_ms: float,
                 copy_ms: float, smi: str) -> dict:
     """The first CELEBA_EPOCH_BATCHES steps of an epoch of ``data`` on
@@ -5321,7 +5373,7 @@ def _epoch_pace(label: str, model, exp: dict, data, host_ms: float,
 def phase_celeba(smi: str, root: str) -> tuple:
     """The JPEG datasets through the port's entry points, on the CelebA
     stand-in under ``root`` (``_celeba_standin``): (c) the decode check
-    (``_decode_check``); (d) ``run.train`` of ``configs/vae.yaml``,
+    (``_decode_check``) and the PNG decode (``_png_decode_check``); (d) ``run.train`` of ``configs/vae.yaml``,
     ``vq_vae.yaml`` and ``cvae.yaml`` with ``dataset_name: Celeba`` as
     written (one epoch each: checkpoints, grids, ConditionalVAE's Samples
     decoded beside the batch's labels), then per config the loader's and
@@ -5348,6 +5400,7 @@ def phase_celeba(smi: str, root: str) -> tuple:
     start = time.perf_counter()
     numbers = {"card": smi, "decode": walled("celeba.decode", _decode_check,
                                              root, smi),
+               "png_decode": walled("celeba.png", _png_decode_check),
                "epochs": {}, "pace": {}}
     celeba = {k: 0 for k in EXPECTED_TRAIN["base"]}
     vq_launches = None
@@ -8451,6 +8504,113 @@ KERNEL_META = {
 }
 
 
+#: the CelebA stand-in sizes and the model seeds of factorvae_witness:
+#: 4,800 images is the stand-in whose first batch once put FactorVAE's
+#: first conv gradient 2.78 of its tolerance from the CPU
+WITNESS_SIZES = (4_800, CELEBA_N)
+WITNESS_SEEDS = (SEED, SEED + 1, SEED + 2)
+
+
+def factorvae_witness(smi: str) -> dict:
+    """A float64 witness of phase "gaussian"'s first FactorVAE call (the
+    VAE's, optimizer 0, under deterministic cuDNN): on the first train
+    batch of a CelebA stand-in of each of WITNESS_SIZES images, from the
+    weights of each of WITNESS_SEEDS, the call's gradients on the card,
+    on the CPU at float32 and on the CPU at float64 (the model, batch and
+    draws in float64), both CPU sides on the card's draws. Each gradient's
+    distance over the check's tolerance (1e-3 of max(1, its block's
+    largest float32 CPU gradient)): card against the float32 CPU (what
+    ``_step_vs_cpu`` holds), and each float32 side against float64. Per
+    case, the gradient the check finds farthest, its three distances, and
+    which float32 side lies farther from float64."""
+    from ctvae_torch.data import VAEDataset
+    from ctvae_torch.data.prefetch import to_device
+    from ctvae_torch.models import build_model
+    from ctvae_torch.ops.layers import set_compute_dtype
+    from ctvae_torch.training import (build_optimizers, create_train_state,
+                                      make_train_step)
+    from ctvae_torch.training import state as tstate
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for n_images in WITNESS_SIZES:
+            with tempfile.TemporaryDirectory(prefix="ctvae_witness_") as tmp:
+                _celeba_standin(tmp, smi, n_images)
+                cfg = _gaussian_config("factorvae", tmp,
+                                       os.path.join(tmp, "logs"))
+                data = VAEDataset(**_gaussian_config(
+                    "vae", tmp, os.path.join(tmp, "logs"))["data_params"])
+                data.setup()
+                first = next(iter(data.train_dataloader(0)))
+                batch = to_device({"image": first["image"]}, "cuda")
+            exp = _exp_params(cfg)
+            M_N = float(exp.get("kld_weight", 1.0))
+            for seed in WITNESS_SEEDS:
+                model = build_model(cfg["model_params"], device="cuda",
+                                    generator=torch.Generator(
+                                        "cuda").manual_seed(seed))
+                sides = {"card": model,
+                         "cpu32": copy.deepcopy(model).to("cpu"),
+                         "cpu64": copy.deepcopy(model).to("cpu").double()}
+                set_compute_dtype(sides["cpu64"], torch.float64)
+                grads, taken = {}, None
+                for side, m in sides.items():
+                    state = create_train_state(m, build_optimizers(
+                        exp, m, steps_per_epoch=100), seed=SEED)
+                    step = make_train_step("base", M_N=M_N, optimizer_idx=0)
+                    b = {"image": batch["image"].to(
+                        m.device, torch.float64 if side == "cpu64"
+                        else torch.float32)}
+                    if side == "card":
+                        with _NonfiniteWatch(f"witness {n_images} {seed}"
+                                             ) as watch:
+                            step(state, b)
+                        taken = watch.taken
+                    else:
+                        draws = [(k, t.double() if side == "cpu64" and
+                                  t.is_floating_point() else t)
+                                 for k, t in taken]
+                        kept = tstate.Draws
+                        tstate.Draws = (lambda generator, device, d=draws:
+                                        _replay_taken(d, "cpu"))
+                        try:
+                            step(state, b)
+                        finally:
+                            tstate.Draws = kept
+                    grads[side] = {n: p.grad.detach().cpu().double()
+                                   for n, p in m.named_parameters()
+                                   if p.grad is not None}
+                scale = {}
+                for n, g in grads["cpu32"].items():
+                    block = n.rsplit(".", 2)[0]
+                    scale[block] = max(scale.get(block, 1.0),
+                                       float(g.abs().max()))
+
+                def dist(a, b):
+                    return {n: float((grads[a][n] - grads[b][n]).abs().max()
+                                     / (1e-3 * scale[n.rsplit(".", 2)[0]]))
+                            for n in grads["cpu32"]}
+                d = {"card_vs_cpu32": dist("card", "cpu32"),
+                     "card_vs_f64": dist("card", "cpu64"),
+                     "cpu32_vs_f64": dist("cpu32", "cpu64")}
+                worst = max(d["card_vs_cpu32"], key=d["card_vs_cpu32"].get)
+                case = {"gradient": worst,
+                        **{k: v[worst] for k, v in d.items()},
+                        "farther_from_f64": (
+                            "card" if d["card_vs_f64"][worst]
+                            > d["cpu32_vs_f64"][worst] else "cpu32"),
+                        "max": {k: max(v.values()) for k, v in d.items()}}
+                out[f"{n_images}_seed{seed}"] = case
+                log(f"factorvae witness, {n_images}-image stand-in, seed "
+                    f"{seed}: {json.dumps(case)} ({smi})")
+                del model, sides
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -8517,6 +8677,10 @@ def main(argv) -> int:
         "--metrics-only", action="store_true",
         help="only build the kernels and run the phase \"metrics\" "
              "(phase_metrics)")
+    parser.add_argument(
+        "--factorvae-witness", action="store_true",
+        help="only build the kernels and take FactorVAE's first call on "
+             "the card, the CPU and the CPU at float64 (factorvae_witness)")
     parser.add_argument(
         "--train-step-against", nargs="+", metavar="TREE",
         help="only build the kernels and time the tree's eager train step "
@@ -8618,6 +8782,10 @@ def main(argv) -> int:
         launches, seconds = walled("metrics", phase_metrics, smi)
         log(json.dumps({"metrics_launches": launches,
                         "metric_seconds": seconds}))
+        log_walls(start)
+        return 0
+    if opts.factorvae_witness:
+        log(json.dumps({"factorvae_witness": factorvae_witness(smi)}))
         log_walls(start)
         return 0
     if opts.train_step_against:

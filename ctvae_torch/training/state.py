@@ -294,10 +294,10 @@ class _Graph:
 
 def _bound(state: TrainState) -> Tuple:
     """What a captured graph reads and writes by address: the model, the
-    generator, the optimizers and their state (Adam's moments, the LR and
+    generator, the one optimizer and its state (Adam's moments, the LR and
     divisor scalars, the accumulation's buffers; changed by a load)."""
-    return (state.model, state.generator, *state.optimizers,
-            *[opt.version for opt in state.optimizers])
+    opt = state.optimizers[0]
+    return (state.model, state.generator, opt, opt.version)
 
 
 class MultiTrainStep:
@@ -387,10 +387,9 @@ class MultiTrainStep:
         bound = _bound(state)
         if self._bound is None:
             self._bound = bound
-        elif len(bound) != len(self._bound) or any(
-                a is not b and a != b for a, b in zip(bound, self._bound)):
+        elif any(a is not b and a != b for a, b in zip(bound, self._bound)):
             raise ValueError("this multi-step train step holds graphs of "
-                             "another train state (or of its optimizers' "
+                             "another train state (or of its optimizer's "
                              "state before a load): make a new one")
         opt = state.optimizers[0]
         key = tuple((k, tuple(v.shape[1:]), v.dtype)
@@ -460,13 +459,13 @@ class MultiTrainStep:
                 metrics = _grads(state, inputs, self.mode, self.M_N, step)
                 if self.watch_modules:
                     metrics.update(_module_norms(state, "grad_norm", True))
-                for opt in state.optimizers:
-                    if opt.accumulate > 1:
-                        opt.accumulate_grads()
-                        if apply:
-                            opt.take_mean()
+                opt = state.optimizers[0]
+                if opt.accumulate > 1:
+                    opt.accumulate_grads()
                     if apply:
-                        opt.update()
+                        opt.take_mean()
+                if apply:
+                    opt.update()
                 if self.watch_modules:
                     metrics.update(_param_norms(state))
         finally:

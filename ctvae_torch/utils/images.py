@@ -119,43 +119,32 @@ def _png_chunks(data: bytes):
         pos = end + 4
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-
-
 def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
-    """Scanlines [n, 1 + stride] (filter byte first) -> bytes [n, stride]:
-    None, Sub and Up vectorised, Average and Paeth byte by byte."""
+    """Scanlines [n, 1 + stride] (filter byte first) -> bytes [n, stride].
+    A byte depends on the byte ``bpp`` to its left and the two above, so
+    the pixels of one anti-diagonal (x + y constant) are independent: the
+    image is unfiltered one diagonal at a time, every row's filter at
+    once, in n + stride / bpp vector steps."""
     n, stride = rows.shape[0], rows.shape[1] - 1
-    out = np.empty((n, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(n):
-        kind, line = int(rows[y, 0]), rows[y, 1:]
-        if kind == 0:
-            cur = line
-        elif kind == 1:
-            cur = line.reshape(-1, bpp).cumsum(axis=0, dtype=np.uint8)
-            cur = cur.reshape(-1)
-        elif kind == 2:
-            cur = line + prior
-        elif kind in (3, 4):
-            cur = bytearray(line.tobytes())
-            up = prior.tobytes()
-            for i in range(stride):
-                left = cur[i - bpp] if i >= bpp else 0
-                if kind == 3:
-                    cur[i] = (cur[i] + ((left + up[i]) >> 1)) & 0xFF
-                else:
-                    corner = up[i - bpp] if i >= bpp else 0
-                    cur[i] = (cur[i] + _paeth(left, up[i], corner)) & 0xFF
-            cur = np.frombuffer(bytes(cur), np.uint8)
-        else:
-            raise ValueError(f"unknown filter type {kind}")
-        out[y] = cur
-        prior = out[y]
-    return out
+    kinds = rows[:, 0]
+    if (kinds > 4).any():
+        raise ValueError(f"unknown filter type {int(kinds[kinds > 4][0])}")
+    width = stride // bpp
+    raw = rows[:, 1:].reshape(n, width, bpp).astype(np.int16)
+    # a zero row above and a zero pixel left of the image
+    out = np.zeros((n + 1, width + 1, bpp), np.int16)
+    for d in range(n + width - 1):
+        ys = np.arange(max(0, d - width + 1), min(n, d + 1))
+        xs = d - ys
+        a, b, c = out[ys + 1, xs], out[ys, xs + 1], out[ys, xs]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        k = kinds[ys, None]
+        pred = np.select([k == 1, k == 2, k == 3, k == 4],
+                         [a, b, (a + b) >> 1, paeth], 0)
+        out[ys + 1, xs + 1] = (raw[ys, xs] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8).reshape(n, stride)
 
 
 def _samples(rows: np.ndarray, width: int, channels: int,
